@@ -1,0 +1,103 @@
+"""Weight bridge: a JAX param tree -> the port's param tree.
+
+The JAX package keeps params as nested dicts of arrays (boxed in
+``flax.core.meta.Partitioned`` until unboxed).  The caller unboxes the
+tree and hands it over with numpy (or array-like) leaves; this module
+never imports JAX.  Both layer layouts are accepted and kept:
+
+* scan-stacked (``scan_layers=True``, the default): ``params["layers"]``
+  holds one sub-tree whose leaves carry a leading ``L`` dim;
+* per-layer: ``params["layers"]["layer_{i}"]`` for ``i < L``.
+
+Leaf layouts are the JAX package's own (``wq [E,H,D]``, ``wk/wv
+[E,K,D]``, ``wo [H,D,E]``, ``mlp.wi`` up ``[E,F]``, ``mlp.wg`` gate
+``[E,F]``, ``mlp.wo [F,E]``, ``lm_head [E,V]``), so no transposes happen
+here; shapes are checked against the config.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..accelerator import DeviceLike, resolve_device
+from ..models.transformer import TransformerConfig
+
+
+def _to_tensor(leaf, device: torch.device,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bf16; the ml_dtypes array reinterprets bit for bit
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        arr = np.ascontiguousarray(arr)
+        # JAX hands out read-only buffers; torch needs its own copy
+        t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    h, k, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+    return {"attn.wq": (e, h, d), "attn.wk": (e, k, d), "attn.wv": (e, k, d),
+            "attn.wo": (h, d, e), "mlp.wi": (e, f), "mlp.wg": (e, f),
+            "mlp.wo": (f, e), "norm1.scale": (e,), "norm2.scale": (e,)}
+
+
+def _check_layer(cfg: TransformerConfig, lp: Dict[str, Any],
+                 lead: tuple, where: str) -> None:
+    for name, shape in _expected_shapes(cfg).items():
+        group, leaf = name.split(".")
+        if group not in lp or leaf not in lp[group]:
+            if name == "mlp.wg" and "gated" not in cfg.activation:
+                continue
+            raise KeyError(f"{where}: missing {name}")
+        got = tuple(np.shape(lp[group][leaf]))
+        if got != lead + shape:
+            raise ValueError(
+                f"{where}.{name}: shape {got}, expected {lead + shape}")
+
+
+def _convert(tree, device, dtype, path=()):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype, path + (k,))
+                for k, v in tree.items()}
+    # norm scales and biases stay fp32 (the JAX norms compute in fp32);
+    # matrices and embeddings take ``dtype`` when one is given
+    small = any("norm" in p for p in path) or path[-1].startswith("b")
+    return _to_tensor(tree, device, torch.float32 if small else dtype)
+
+
+def from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
+             device: DeviceLike = None,
+             dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Convert an unboxed JAX param tree into torch tensors on
+    ``device``.  ``dtype`` (e.g. ``cfg.dtype``) casts matrices and
+    embeddings; ``None`` keeps the source dtypes.  Norm scales and
+    biases are cast to fp32.  Raises on a layout that does not
+    match ``cfg``."""
+    dev = resolve_device(device)
+    layers = tree["layers"]
+    if cfg.scan_layers:
+        if "attn" not in layers:
+            raise ValueError("cfg.scan_layers=True but the tree holds "
+                             "per-layer 'layer_{i}' sub-trees")
+        _check_layer(cfg, layers, (cfg.num_layers,), "layers")
+    else:
+        for i in range(cfg.num_layers):
+            if f"layer_{i}" not in layers:
+                raise ValueError(f"per-layer tree lacks layer_{i}")
+            _check_layer(cfg, layers[f"layer_{i}"], (), f"layers.layer_{i}")
+    v, e = cfg.vocab_size, cfg.hidden_size
+    if tuple(np.shape(tree["embed"]["tokens"])) != (v, e):
+        raise ValueError(f"embed.tokens shape {np.shape(tree['embed']['tokens'])}"
+                         f", expected {(v, e)}")
+    if not cfg.tie_embeddings and tuple(np.shape(tree["lm_head"])) != (e, v):
+        raise ValueError(f"lm_head shape {np.shape(tree['lm_head'])}, "
+                         f"expected {(e, v)}")
+    return _convert(tree, dev, dtype)
