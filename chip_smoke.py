@@ -8,13 +8,14 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; no phase's failure is ignored):
 
 1. card and software: ``nvidia-smi`` name and power limit, torch / CUDA;
-2. build: every hand-written kernel of the serving path from
-   ``deepspeed_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-3. each kernel against its plain PyTorch version in bf16 at the serving
-   shapes: error relative to the case's own reference scale against
-   stated tolerances, kernel / plain / library-yardstick times (CUDA
-   events) and the bound (the larger of bytes / 3.35 TB/s and
-   operations / 989 TFLOP/s, H100 SXM data sheet);
+2. build: every hand-written kernel of the serving and training paths
+   from ``deepspeed_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel);
+3. each kernel against its plain PyTorch version at the shapes its path
+   gives it (bf16; AdamW in fp32): error relative to the case's own
+   reference scale against stated tolerances, kernel / plain /
+   library-yardstick times (CUDA events) and the bound (the larger of
+   bytes / 3.35 TB/s and operations / 989 TFLOP/s, H100 SXM data sheet);
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens): 8 greedy and 2 sampled
    requests through ``FastGenScheduler``, with every kernel's launch
@@ -23,7 +24,16 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    ten teacher-forced serving steps of 3 requests (fresh prefill,
    decode, and two mixed steps, one with a Q=1024 prefill chunk over
    history), every segment's logits and greedy picks compared;
-6. a ``{"kernels": [...]}`` JSON line, the card line, and last the
+6. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
+   the card from a seed, bf16 compute, micro-batch 2 x 2048 tokens,
+   gas 2, AdamW, WarmupDecayLR, clipping 1.0): 4 ``train_batch`` calls
+   through ``deepspeed_tpu_torch.initialize`` on one fixed seeded batch,
+   with every kernel's launch count read from a run that starts at zero;
+7. the training path with the flash kernels against the plain einsum
+   path from the same masters and micro-batch (loss and every leaf's
+   gradient), then the AdamW kernel against its plain version on those
+   gradients and the optimizer's state;
+8. a ``{"kernels": [...]}`` JSON line, the card line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or outside the repository, it exits non-zero before
@@ -32,6 +42,7 @@ printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -40,6 +51,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor core
+FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 SEED = 0
 
 # Kernel vs plain version, bf16 outputs, each case held against the
@@ -59,6 +71,41 @@ LOGIT_REL_TOL = 5e-2
 # greedy picks that agree between the two paths: bf16 rounding flips
 # only near-tied argmaxes (a wrong kernel also fails the logit check)
 GREEDY_AGREE_MIN = 0.75
+# AdamW kernel vs plain version, both fp32: max |delta| / max |ref| of
+# p, m and v (fused multiply-adds and the order of a division move a
+# value by an ulp or two, 1.2e-7 each)
+OPT_MAX_REL_TOL = 1e-6
+# full-width training, flash kernels vs the plain einsum path, one
+# micro-batch from the same masters: |delta loss| / loss, and each leaf's
+# rms(grad delta) / rms(grad).  CPU stand-in (tests/
+# test_torch_training_ops.py::test_training_parity_limits_pass_rounding_
+# and_fail_an_extra_key, a bf16 llama at E = 128, the plain flash path
+# against the einsum path): rounding alone gives loss 7.6e-6..2.2e-4 and
+# gradients 1.7e-2 at 2 layers, 2.8e-2 at 8, while attending one key
+# past the causal limit moves the gradients by 0.42..0.89 (the loss by
+# 1.6e-3..3.3e-3).
+LOSS_REL_TOL = 1e-3
+GRAD_RMS_REL_TOL = 5e-2
+
+# the training phase: Llama-2-7B width, depth cut to 8 of 32 layers so
+# fp32 masters, Adam moments and the fp32 gradient sum fit one card
+TRAIN_LAYERS = 8
+TRAIN_SEQ = 2048
+TRAIN_MICRO = 2
+TRAIN_GAS = 2
+TRAIN_STEPS = 4
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+    "gradient_accumulation_steps": TRAIN_GAS,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "adamw",
+                  "params": {"lr": 3e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupDecayLR",
+                  "params": {"warmup_min_lr": 3e-5, "warmup_num_steps": 2,
+                             "total_num_steps": 100}},
+}
 
 
 def log(*a):
@@ -88,8 +135,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_flops: float):
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS_PER_S
+def bound(n_bytes: float, n_flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S):
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -218,30 +266,189 @@ def check_paged(dev):
     return rows
 
 
+def _bshd(dev, g, B, S, H, D=128):
+    """[B, H, S, D] views of [B, S, H, D] activations, as the training
+    forward passes them (read through their strides)."""
+    import torch
+    return torch.randn(B, S, H, D, generator=g, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+
+
+def _attended_pairs(S, window=None):
+    """(query, key) pairs a causal (+ window) head attends: what this
+    run's masks need, per batch row and head."""
+    if not window:
+        return S * (S + 1) // 2
+    return sum(min(t + 1, window) for t in range(S))
+
+
 def check_flash(dev):
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import flash_attention as FA
     g = torch.Generator(device=dev).manual_seed(SEED)
-    B, H, S, D = 4, 32, 1024, 128
-    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev,
-                           dtype=torch.bfloat16) for _ in range(3))
-    out, lse = FA.flash_fwd(q, k, v, causal=True)
-    ref, ref_lse = FA.flash_reference(q, k, v, causal=True)
-    err = parity(out, ref)
-    lse_err = parity(lse, ref_lse)
-    flops = 4 * B * H * D * S * (S + 1) // 2
-    b_ms, b_by = bound(4 * B * H * S * D * 2 + B * H * S * 4, flops)
-    return [dict(
-        shape=f"B={B} H={H} S={S} D={D} causal", **err,
-        lse_max_rel_err=lse_err["max_rel_err"],
-        lse_rms_rel_err=lse_err["rms_rel_err"],
-        ms=cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 10),
-        plain_ms=cuda_ms(lambda: FA.flash_reference(q, k, v, causal=True),
-                         3),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), 10),
-        bound_ms=b_ms, bound_by=b_by)]
+    rows = []
+    # the serving case (contiguous [B, H, S, D]) first, then the training
+    # shape as the training forward passes it
+    for name, B, S in (("", 4, 1024), ("training: ", 2, TRAIN_SEQ)):
+        H, D = 32, 128
+        if name:
+            q, k, v = (_bshd(dev, g, B, S, H) for _ in range(3))
+        else:
+            q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(3))
+        out, lse = FA.flash_fwd(q, k, v, causal=True)
+        ref, ref_lse = FA.flash_reference(q, k, v, causal=True)
+        err = parity(out, ref)
+        lse_err = parity(lse, ref_lse)
+        del out, lse, ref, ref_lse
+        flops = 4 * B * H * D * _attended_pairs(S)
+        b_ms, b_by = bound(4 * B * H * S * D * 2 + B * H * S * 4, flops)
+        rows.append(dict(
+            shape=f"{name}B={B} H={H} S={S} D={D} causal", **err,
+            lse_max_rel_err=lse_err["max_rel_err"],
+            lse_rms_rel_err=lse_err["rms_rel_err"],
+            ms=cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 10),
+            plain_ms=cuda_ms(lambda: FA.flash_reference(q, k, v,
+                                                        causal=True), 3),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 10),
+            bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def _sdpa_backward(q, k, v, do, window):
+    """Library yardstick: the backward of scaled_dot_product_attention
+    (its graph built once; each call is torch.autograd.grad alone)."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    gqa = q.shape[1] != k.shape[1]
+    if window:
+        S = q.shape[2]
+        pos = torch.arange(S, device=q.device)
+        band = (pos[:, None] >= pos[None, :]) & (
+            pos[:, None] - pos[None, :] < window)
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=band,
+                                             enable_gqa=gqa)
+    else:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=gqa)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def check_flash_bwd(dev):
+    """dq, dk, dv of the backward kernels against the plain backward, on
+    the forward kernel's out and lse (transposed [B, S, H, D] views, as
+    autograd hands them over in training)."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cases = [("training", 2, 32, 32, TRAIN_SEQ, None),
+             ("GQA", 2, 32, 8, 1024, None),
+             ("window 512", 2, 32, 32, TRAIN_SEQ, 512),
+             ("uneven S=1000", 2, 32, 32, 1000, None)]
+    rows = []
+    for name, B, H, K, S, window in cases:
+        D = 128
+        q, do = _bshd(dev, g, B, S, H), _bshd(dev, g, B, S, H)
+        k, v = _bshd(dev, g, B, S, K), _bshd(dev, g, B, S, K)
+        out, lse = FA.flash_fwd(q, k, v, causal=True, window=window)
+        copies = FA.BWD_KERNEL.copies
+        got = FA.flash_bwd(q, k, v, out, lse, do, True, None, window)
+        ref = FA.flash_bwd_reference(q, k, v, out, lse, do, True, None,
+                                     window)
+        if FA.BWD_KERNEL.copies != copies:
+            raise RuntimeError("the backward copied a strided operand")
+        errs = [parity(a, b) for a, b in zip(got, ref)]
+        err = {key: max(e[key] for e in errs) for key in errs[0]}
+        del got, ref
+        # five S x S products (s, dV, dP, dK, dQ) over the attended pairs;
+        # q, o, dO, dq at H heads and k, v, dk, dv at K heads, lse, delta
+        flops = 5 * 2 * D * B * H * _attended_pairs(S, window)
+        n_bytes = 4 * B * (H + K) * S * D * 2 + 2 * B * H * S * 4
+        b_ms, b_by = bound(n_bytes, flops)
+        rows.append(dict(
+            shape=f"{name}: B={B} H={H} K={K} S={S} D={D} causal"
+                  + (f" window={window}" if window else ""), **err,
+            ms=cuda_ms(lambda: FA.flash_bwd(q, k, v, out, lse, do, True,
+                                            None, window), 3, warmup=1),
+            plain_ms=cuda_ms(lambda: FA.flash_bwd_reference(
+                q, k, v, out, lse, do, True, None, window), 2, warmup=1),
+            library_ms=cuda_ms(_sdpa_backward(q, k, v, do, window), 10),
+            bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_leaf_sizes(cfg):
+    """Element counts of the training model's 12 parameter leaves
+    (scan layout: each layer leaf stacked over L)."""
+    e, f, v, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_layers)
+    h, k, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+    per_layer = [e * h * d, e * k * d, e * k * d, h * d * e,
+                 e * f, e * f, f * e, e, e]
+    return [L * n for n in per_layer] + [v * e, e * v, e]
+
+
+def check_adamw(dev, cfg):
+    """The AdamW kernel against its plain version (fp32, in place on
+    clones), at one 4096 x 11008 leaf and over the training model's whole
+    parameter set; library yardstick torch.optim.AdamW(fused=True)."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    hp = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+
+    def buffers(n):
+        p, grad, m = (torch.randn(n, generator=g, device=dev)
+                      for _ in range(3))
+        return [p, grad, m, torch.rand(n, generator=g, device=dev)]
+
+    def errors(bufs, step):
+        ref = [x.clone() for x in bufs]
+        FO.fused_adamw_flat(*bufs, **hp, step=step)
+        FO.adamw_reference(*ref, **hp, step=step)
+        errs = [parity(bufs[i], ref[i]) for i in (0, 2, 3)]
+        return {key: max(e[key] for e in errs) for key in errs[0]}
+
+    rows = []
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    for name, sizes in ((f"one leaf {e}x{f}", [e * f]),
+                        (f"{cfg.num_layers}-layer model, 12 leaves",
+                         _train_leaf_sizes(cfg))):
+        leaves = [buffers(n) for n in sizes]
+        err = {}
+        for bufs in leaves:
+            for key, val in errors(bufs, step=3).items():
+                err[key] = max(err.get(key, 0.0), val)
+        n = sum(sizes)
+
+        def kernel():
+            for bufs in leaves:
+                FO.fused_adamw_flat(*bufs, **hp, step=3)
+
+        def plain():
+            for bufs in leaves:
+                FO.adamw_reference(*bufs, **hp, step=3)
+        ms = cuda_ms(kernel, 10 if n < 1e8 else 3)
+        plain_ms = cuda_ms(plain, 5 if n < 1e8 else 1, warmup=1)
+        for p, grad, _, _ in leaves:
+            p.grad = grad
+        lib = torch.optim.AdamW([bufs[0] for bufs in leaves], lr=hp["lr"],
+                                betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
+                                weight_decay=hp["wd"], fused=True)
+        library_ms = cuda_ms(lib.step, 10 if n < 1e8 else 3)
+        # p, g, m, v read and p, m, v written; ~15 fp32 flops each
+        b_ms, b_by = bound(28 * n, 15 * n, FP32_FLOPS_PER_S)
+        rows.append(dict(shape=f"{name}: {n} fp32 elements", **err,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        del leaves, lib
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +505,7 @@ def serve(cfg, params, kernels, card):
                                  top_p=0.9 if sampled else 1.0)
         reqs[uid] = (rng.integers(0, V, int(n)), params_)
     for k in kernels.values():
-        k.launches = 0
+        k.reset_counts()
     for s in segments:
         segments[s] = 0
     torch.cuda.synchronize()
@@ -468,6 +675,193 @@ def plain_vs_kernel(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: training at Llama-2-7B width, 8 layers
+# ---------------------------------------------------------------------------
+
+def train(kernels, card):
+    """4 train_batch calls through deepspeed_tpu_torch.initialize on one
+    fixed seeded batch; launch counts from a run that starts at zero."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.tree import tree_leaves
+    model = LlamaForCausalLM("7b", num_layers=TRAIN_LAYERS)
+    cfg = model.cfg
+    t = time.perf_counter()
+    engine, _, _, _ = dtt.initialize(model=model, config=TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(engine.params))
+    log(f"training model: Llama-2-7B width, {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, fp32 masters built in "
+        f"{time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(SEED + 2)
+    tokens = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
+    batch = {"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_GAS * TRAIN_MICRO, TRAIN_SEQ)
+    ).astype(np.int32)}
+
+    for k in kernels.values():
+        k.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        lr = engine.get_lr()[0]
+        t = time.perf_counter()
+        loss = engine.train_batch(batch)     # ends in a host sync
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                          grad_norm=engine.get_global_grad_norm(), lr=lr))
+    launches = {name: k.launches for name, k in kernels.items()}
+    by_fn = kernels["flash_bwd"].launches_by_fn
+    peak = torch.cuda.max_memory_allocated()
+
+    L = cfg.num_layers
+    micro_batches = TRAIN_STEPS * TRAIN_GAS
+    n_leaves = len(tree_leaves(engine.params))
+    # remat runs each layer's forward twice: forward and recompute
+    checks = {
+        "finite": all(math.isfinite(st["loss"])
+                      and math.isfinite(st["grad_norm"]) for st in steps),
+        "first loss near ln V + 0.5": abs(
+            steps[0]["loss"] - (math.log(cfg.vocab_size) + 0.5)) <= 1.5,
+        "loss falls": steps[-1]["loss"] < steps[0]["loss"],
+        "flash_fwd": launches["flash_fwd"] >= 2 * L * micro_batches,
+        "flash_bwd": by_fn["flash_bwd_dkv_bf16"] == L * micro_batches
+        and by_fn["flash_bwd_dq_bf16"] == L * micro_batches,
+        "fused_adamw": launches["fused_adamw"] == n_leaves * TRAIN_STEPS,
+        "no operand copies": kernels["flash_bwd"].copies == 0,
+        "serving kernels idle": launches["rmsnorm"] == 0
+        and launches["paged_attention"] == 0,
+    }
+    steady = [st["ms"] for st in steps[1:]]
+    step_ms = sum(steady) / len(steady)
+    # model flops per token: 6 N for the weights (forward + backward) with
+    # N leaving out the input embedding (a gather, no flops; the lm head
+    # is a GEMM and stays), 6 L S E for causal attention (QK^T and PV over
+    # half the pairs); the remat recompute is not counted
+    n_matmul = n_params - cfg.vocab_size * cfg.hidden_size
+    flops_per_token = 6 * n_matmul + 6 * L * TRAIN_SEQ * cfg.hidden_size
+    summary = dict(
+        card=card, layers=L, params=n_params, matmul_params=n_matmul,
+        micro_batch=TRAIN_MICRO,
+        seq=TRAIN_SEQ, gas=TRAIN_GAS, tokens_per_step=tokens,
+        steps=steps, step_ms_steady=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3),
+        mfu=flops_per_token * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+        max_memory_allocated_gb=peak / 1e9, launches=launches,
+        flash_bwd_launches_by_fn=dict(by_fn), checks=checks)
+    log("training:", json.dumps(summary))
+    if not all(checks.values()):
+        raise RuntimeError(f"training checks failed: {checks}")
+    profile_step(engine, batch)
+    return engine, batch, launches
+
+
+# kernel name fragment -> what it is, for the training step's breakdown
+_KERNEL_KINDS = (("flash_fwd", "flash forward"),
+                 ("flash_bwd_dkv", "flash backward dK/dV"),
+                 ("flash_bwd_dq", "flash backward dQ"),
+                 ("fused_adamw", "AdamW"),
+                 ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
+                 ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
+
+
+def profile_step(engine, batch):
+    """One more train_batch under torch.profiler (after the launch counts
+    were read): device time by kernel kind and the device's busy share of
+    the step's wall time (one stream, so kernels do not overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    by_kind, n_kernels = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        kind = next((k for frag, k in _KERNEL_KINDS if frag in ev.name),
+                    "other (elementwise, reductions, copies)")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ev.time_range.elapsed_us()
+    device_ms = sum(by_kind.values()) / 1e3
+    res = dict(step_wall_ms_profiled=wall_ms, device_kernels=n_kernels,
+               device_ms=device_ms,
+               device_busy_share=device_ms / wall_ms if n_kernels else None,
+               device_ms_by_kind={k: v / 1e3 for k, v in sorted(
+                   by_kind.items(), key=lambda kv: -kv[1])})
+    log("training step profile:", json.dumps(res))
+    return res
+
+
+def train_kernel_vs_plain(engine, batch):
+    """One micro-batch's loss and gradients with the flash kernels and
+    with the plain einsum path, from the engine's masters cast to bf16 as
+    the engine casts them; then the AdamW kernel and its plain version
+    on the kernel path's gradients and the optimizer's state."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
+    from deepspeed_tpu_torch.tree import tree_leaves, tree_map
+    mb = {"input_ids": torch.as_tensor(batch["input_ids"][:TRAIN_MICRO],
+                                       device=engine.device)}
+    masters = tree_leaves(engine.params)
+
+    def grads(attention_impl):
+        model = LlamaForCausalLM("7b", num_layers=TRAIN_LAYERS,
+                                 attention_impl=attention_impl)
+        params_c = tree_map(
+            lambda t: t.detach().to(torch.bfloat16).requires_grad_(),
+            engine.params)
+        loss = model.loss(params_c, mb)
+        loss.backward()
+        return float(loss.detach()), [c.grad for c in tree_leaves(params_c)]
+
+    loss_k, grads_k = grads("auto")
+    loss_p, grads_p = grads("einsum")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rms = [parity(a, b)["rms_rel_err"] for a, b in zip(grads_k, grads_p)]
+    del grads_p
+    torch.cuda.empty_cache()
+
+    group = engine.optimizer.param_groups[0]
+    hp = dict(lr=engine.get_lr()[0], b1=group["betas"][0],
+              b2=group["betas"][1], eps=group["eps"],
+              wd=group["weight_decay"])
+    opt_err = 0.0
+    for p, grad in zip(masters, grads_k):
+        state = engine.optimizer.state[p]
+        bufs = [p.detach().clone(), grad.float(), state["exp_avg"].clone(),
+                state["exp_avg_sq"].clone()]
+        ref = [x.clone() for x in bufs]
+        FO.fused_adamw_flat(*bufs, **hp, step=state["step"] + 1)
+        FO.adamw_reference(*ref, **hp, step=state["step"] + 1)
+        opt_err = max(opt_err, *(parity(bufs[i], ref[i])["max_rel_err"]
+                                 for i in (0, 2, 3)))
+        del bufs, ref
+    res = dict(loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_rel,
+               loss_rel_tol=LOSS_REL_TOL, grad_rms_rel_err_max=max(grad_rms),
+               grad_rms_rel_err=grad_rms, grad_rms_rel_tol=GRAD_RMS_REL_TOL,
+               adamw_max_rel_err=opt_err, adamw_max_rel_tol=OPT_MAX_REL_TOL)
+    log("training kernel vs plain at full width:", json.dumps(res))
+    if loss_rel > LOSS_REL_TOL or max(grad_rms) > GRAD_RMS_REL_TOL:
+        raise RuntimeError(f"training: kernel path differs from the plain "
+                           f"path: loss {loss_rel:.3e}, gradients "
+                           f"{max(grad_rms):.3e}")
+    if opt_err > OPT_MAX_REL_TOL:
+        raise RuntimeError(f"AdamW kernel differs from its plain version on "
+                           f"the model's gradients by {opt_err:.3e}")
+    return res
+
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -483,22 +877,32 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # phase 2
+    from deepspeed_tpu_torch.models.llama import llama_config
     from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
     from deepspeed_tpu_torch.ops import kernel_loader
     from deepspeed_tpu_torch.ops import normalization as N
     from deepspeed_tpu_torch.ops import paged_attention as PA
     kernels = {"paged_attention": PA.KERNEL, "rmsnorm": N.KERNEL,
-               "flash_fwd": FA.KERNEL}
+               "flash_fwd": FA.KERNEL, "flash_bwd": FA.BWD_KERNEL,
+               "fused_adamw": FO.KERNEL}
     t = time.perf_counter()
-    kernel_loader.build_all(kernels.values())
+    build_logs = kernel_loader.build_all(kernels.values())
     for k in kernels.values():
         k.lib()
     log(f"build: {time.perf_counter() - t:.1f} s "
         f"({', '.join(k.library_path.name for k in kernels.values())})")
+    for name, text in zip(kernels, build_logs):
+        for ln in text.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"ptxas {name}: {ln.strip()}")
 
     # phase 3
+    train_cfg = llama_config("7b", num_layers=TRAIN_LAYERS)
     checks = {"rmsnorm": check_rmsnorm(dev), "paged_attention":
-              check_paged(dev), "flash_fwd": check_flash(dev)}
+              check_paged(dev), "flash_fwd": check_flash(dev),
+              "flash_bwd": check_flash_bwd(dev),
+              "fused_adamw": check_adamw(dev, train_cfg)}
     for name, rows in checks.items():
         for r in rows:
             log(f"kernel {name} [{r['shape']}]: rms_rel_err "
@@ -509,12 +913,13 @@ def main() -> int:
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
             rel = [(r[k], RMS_REL_TOL) for k in r if k.endswith("rms_rel_err")]
             rel += [(r[k], MAX_REL_TOL) for k in r if k.endswith("max_rel_err")]
+            if name == "fused_adamw":
+                rel.append((r["max_rel_err"], OPT_MAX_REL_TOL))
             if not all(err <= tol for err, tol in rel):
                 raise RuntimeError(f"{name} kernel disagrees with its plain "
                                    f"version at [{r['shape']}]: {r}")
 
     # phase 4
-    from deepspeed_tpu_torch.models.llama import llama_config
     from deepspeed_tpu_torch.models.transformer import init_params
     cfg = llama_config("7b")
     t = time.perf_counter()
@@ -527,26 +932,46 @@ def main() -> int:
     # phase 5
     plain_vs_kernel(cfg, params)
 
-    # phase 6
+    # phase 6: the serving weights and caches go first
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, batch, train_launches = train(kernels, card)
+
+    # phase 7
+    train_kernel_vs_plain(engine, batch)
+
+    # phase 8
     sources = {"paged_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
                                    "deepspeed_tpu/ops/paged_attention.py:240"),
                "rmsnorm": ("deepspeed_tpu_torch/csrc/rmsnorm.cu",
                            "deepspeed_tpu/ops/normalization.py:20"),
                "flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
-                             "deepspeed_tpu/ops/flash_attention.py:79")}
+                             "deepspeed_tpu/ops/flash_attention.py:79"),
+               "flash_bwd": ("deepspeed_tpu_torch/csrc/flash_bwd.cu",
+                             "deepspeed_tpu/ops/flash_attention.py:164"),
+               "fused_adamw": ("deepspeed_tpu_torch/csrc/fused_adamw.cu",
+                               "deepspeed_tpu/ops/fused_optimizer.py:29")}
     line = {"kernels": []}
     for name, rows in checks.items():
-        head = rows[0]       # the decode / serving-step shape
-        line["kernels"].append(dict(
+        head = rows[0]       # the main path's shape (serving step: decode)
+        entry = dict(
             name=name, route="cuda", source=sources[name][0],
-            replaces=sources[name][1], launches=launches[name],
+            replaces=sources[name][1],
+            launches=launches[name] + train_launches[name],
+            launches_by_path={"serving": launches[name],
+                              "training": train_launches[name]},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             max_rel_err=max(r["max_rel_err"] for r in rows),
             rms_rel_err=max(r["rms_rel_err"] for r in rows),
             max_rel_tol=MAX_REL_TOL, rms_rel_tol=RMS_REL_TOL,
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], shape=head["shape"]))
+            library_ms=head["library_ms"], shape=head["shape"])
+        if name == "flash_bwd":
+            # one wrapper, two kernels: dK/dV (:164) and dQ (:214)
+            entry["replaces_also"] = "deepspeed_tpu/ops/flash_attention.py:214"
+        line["kernels"].append(entry)
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,10 @@ Leaf layouts are the JAX package's own (``wq [E,H,D]``, ``wk/wv
 [E,K,D]``, ``wo [H,D,E]``, ``mlp.wi`` up ``[E,F]``, ``mlp.wg`` gate
 ``[E,F]``, ``mlp.wo [F,E]``, ``lm_head [E,V]``), so no transposes happen
 here; shapes are checked against the config.
+
+:func:`to_numpy` goes back: training masters (fp32) leave the port as
+numpy arrays bit for bit, so a JAX tree bridged in, trained and brought
+out compares leaf for leaf with the JAX engine's ``state.params``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from ..accelerator import DeviceLike, resolve_device
 from ..models.transformer import TransformerConfig
+from ..tree import tree_map
 
 
 def _to_tensor(leaf, device: torch.device,
@@ -101,3 +106,9 @@ def from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
         raise ValueError(f"lm_head shape {np.shape(tree['lm_head'])}, "
                          f"expected {(e, v)}")
     return _convert(tree, dev, dtype)
+
+
+def to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's param tree -> numpy leaves in the same layout: the
+    inverse of :func:`from_jax` for fp32 leaves (numpy has no bf16)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -19,6 +19,7 @@ import torch
 from ...accelerator import DeviceLike, resolve_device
 from ...models import transformer as T
 from ...ops.paged_attention import rope_write_kv, token_positions, write_kv
+from ...tree import tree_map
 from .modules import instantiate, resolve
 from .ragged import KVCacheConfig, RaggedBatch
 from .ragged.batch import MIN_SLOTS, _bucket
@@ -27,12 +28,6 @@ from .sampling import greedy, sample_dynamic
 #: op classes resolved through the registry, in the order they run
 OP_CLASSES = ("embedding", "norm", "ragged_attention",
               "fresh_prefill_attention", "unembed")
-
-
-def _tree_to(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
 
 
 class RaggedInferenceModel:
@@ -50,7 +45,7 @@ class RaggedInferenceModel:
                  implementations: Optional[Dict[str, str]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = _tree_to(params, self.device)
+        self.params = tree_map(lambda t: t.to(self.device), params)
         names = dict(implementations or {})
         unknown = set(names) - set(OP_CLASSES)
         if unknown:

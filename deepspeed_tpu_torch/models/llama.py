@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .transformer import TransformerConfig
+from .transformer import CausalLM, TransformerConfig
 
 
 def llama_config(size: str = "7b", **overrides) -> TransformerConfig:
@@ -32,3 +32,10 @@ def llama_config(size: str = "7b", **overrides) -> TransformerConfig:
     base.update(presets[size])
     base.update(overrides)
     return TransformerConfig(**base)
+
+
+class LlamaForCausalLM(CausalLM):
+    """Engine-protocol Llama (JAX ``models/llama.py:40``)."""
+
+    def __init__(self, size: str = "7b", **overrides):
+        super().__init__(llama_config(size, **overrides))

@@ -1,4 +1,5 @@
-"""Transformer building blocks shared by the serving model.
+"""Transformer blocks shared by the serving model, and the training
+forward (ids -> fp32 logits) with its loss.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``.  Parameters are
 plain nested dicts of tensors in the JAX package's layout, so a JAX
@@ -12,19 +13,31 @@ tree converts leaf for leaf (``checkpoint/from_jax.py``):
 under ``params["layers"]``; ``False`` keeps ``params["layers"]
 ["layer_{i}"]`` sub-trees.  Norms, RoPE and softmax run in fp32 and cast
 back, as in the JAX package.
+
+The training forward (:func:`forward`, JAX ``transformer.py:646``) runs
+pure-causal attention through :class:`~..ops.flash_attention.
+FlashAttention` (the flash kernels on the card, their plain versions on
+the CPU) unless ``attention_impl="einsum"`` asks for the dense path
+(:func:`dot_product_attention`, masked with -1e30 as in JAX).  With
+``remat`` each layer runs under ``torch.utils.checkpoint`` and only its
+input is kept for the backward (JAX ``nothing_saveable``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import DeviceLike, resolve_device
+from ..ops.flash_attention import HEAD_DIM, flash_attention
+from ..runtime.config import outside_slice
+from ..tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +65,14 @@ class TransformerConfig:
     tie_embeddings: bool = False
     use_bias: bool = False
     scan_layers: bool = True
+    # training only: recompute each layer in the backward, keeping only
+    # its input ("nothing_saveable" is the one policy the port runs)
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    # training only: auto (flash when the mask is pure-causal; on the card
+    # that needs bf16 at head_dim 128, else it raises) | flash (force) |
+    # einsum (dense path)
+    attention_impl: str = "auto"
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -76,13 +97,17 @@ class TransformerConfig:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
-                device: DeviceLike = None) -> Dict[str, Any]:
-    """Random weights in ``cfg.dtype`` built directly on ``device`` from
-    a seeded ``torch.Generator`` (normal, scaled by fan_in**-0.5 like the
-    JAX initializer; embeddings * 0.02; norm scales 1 in fp32).  The
-    draws differ from ``jax.random``'s: tests that compare against JAX
-    bridge JAX's own tree through ``checkpoint/from_jax.py`` instead."""
+                device: DeviceLike = None,
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Random weights in ``dtype`` (default ``cfg.dtype``; training
+    masters pass fp32, the JAX initializer's dtype) built directly on
+    ``device`` from a seeded ``torch.Generator`` (normal, scaled by
+    fan_in**-0.5 like the JAX initializer; embeddings * 0.02; norm scales
+    1 in fp32).  The draws differ from ``jax.random``'s: tests that
+    compare against JAX bridge JAX's own tree through
+    ``checkpoint/from_jax.py`` instead."""
     dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -90,14 +115,14 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     lead = (cfg.num_layers,) if cfg.scan_layers else ()
 
     def dense(shape, fan_in, scale=None):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
+        w = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
         return w.mul_(fan_in ** -0.5 if scale is None else scale)
 
     def ones(shape):
         return torch.ones(shape, device=dev, dtype=torch.float32)
 
     def zeros(shape):
-        return torch.zeros(shape, device=dev, dtype=cfg.dtype)
+        return torch.zeros(shape, device=dev, dtype=dtype)
 
     def norm(shape):
         p = {"scale": ones(shape)}
@@ -145,14 +170,8 @@ def layer_params(cfg: TransformerConfig, params, i: int):
     leaves when ``scan_layers``)."""
     layers = params["layers"]
     if cfg.scan_layers:
-        return _index_tree(layers, i)
+        return tree_map(lambda leaf: leaf[i], layers)
     return layers[f"layer_{i}"]
-
-
-def _index_tree(tree, i):
-    if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 # ---------------------------------------------------------------------------
@@ -254,3 +273,193 @@ def alibi_slopes(n_heads: int) -> np.ndarray:
     if k < n_heads:
         slopes += pow2(2 * k)[0::2][: n_heads - k]
     return np.asarray(slopes, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# training forward (JAX transformer.py:460-824)
+# ---------------------------------------------------------------------------
+
+def check_flash_layout(cfg: TransformerConfig, device: torch.device) -> None:
+    """Raise unless the flash path takes this model on ``device``.  On the
+    CPU its plain versions take any layout; on the card the kernels take
+    bf16 at head_dim 128, and another layout raises rather than run the
+    dense path, which only ``attention_impl="einsum"`` chooses."""
+    if device.type == "cpu":
+        return
+    if cfg.dtype != torch.bfloat16 or cfg.dims_per_head != HEAD_DIM:
+        raise outside_slice(
+            f"flash attention on the card in {cfg.dtype} at head_dim "
+            f"{cfg.dims_per_head} (the kernels take torch.bfloat16 at "
+            f"head_dim {HEAD_DIM}; attention_impl='einsum' runs the dense "
+            f"path)", "11k (flash kernels in fp32 and at other head dims)")
+
+
+def flash_dot_product_attention(cfg: TransformerConfig, q, k, v):
+    """Causal (+ sliding window) attention through ``FlashAttention``.
+    q: [B,S,H,D], k/v: [B,S,K,D] -> [B,S,H,D].  The [B,H,S,D] operands are
+    transposed views, read in place; GQA maps query head h to kv head
+    h // G instead of repeating K and V (JAX ``transformer.py:319``
+    repeats them, which gives the same values and gradients)."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True,
+                          window=cfg.sliding_window)
+    return out.transpose(1, 2)
+
+
+def dot_product_attention(cfg: TransformerConfig, q, k, v,
+                          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Dense grouped-query attention with an fp32 softmax.  q: [B,S,H,D],
+    k/v: [B,S,K,D], mask [B,S,S] (True = attend); masked scores are
+    -1e30, the JAX einsum path's value (not the flash mask value)."""
+    b, s, hq, dd = q.shape
+    kh = k.shape[2]
+    q = q.reshape(b, s, kh, hq // kh, dd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k) / math.sqrt(dd)
+    scores = scores.float()
+    if mask is not None:
+        scores = torch.where(mask[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, hq, dd)
+
+
+def _attention_block(cfg: TransformerConfig, p, x, sin, cos, mask,
+                     use_flash: bool):
+    dtype = cfg.dtype
+    q = proj(x, _wval(p["wq"], dtype))
+    k = proj(x, _wval(p["wk"], dtype))
+    v = proj(x, _wval(p["wv"], dtype))
+    if cfg.use_bias or cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    if use_flash:
+        out = flash_dot_product_attention(cfg, q, k, v)
+    else:
+        out = dot_product_attention(cfg, q, k, v, mask)
+    out = proj(out, _wval(p["wo"], dtype), n_in=2)
+    if cfg.use_bias:
+        out = out + p["bo"].to(dtype)
+    return out
+
+
+def _layer_body(cfg: TransformerConfig, lp, x, sin, cos, mask,
+                use_flash: bool):
+    h = _norm_apply(cfg, lp["norm1"], x)
+    attn_out = _attention_block(cfg, lp["attn"], h, sin, cos, mask,
+                                use_flash)
+    if cfg.parallel_residual:
+        h2 = _norm_apply(cfg, lp["norm2"], x)
+        return x + attn_out + _mlp_block(cfg, lp["mlp"], h2)
+    x = x + attn_out
+    h = _norm_apply(cfg, lp["norm2"], x)
+    return x + _mlp_block(cfg, lp["mlp"], h)
+
+
+def _unbind_tree(tree, n: int) -> List[Dict[str, Any]]:
+    """Stacked layer leaves -> n per-layer trees of views.  ``unbind``
+    (not indexing) so the backward stacks the n layer gradients of a
+    leaf once instead of adding n full-size zero-padded copies."""
+    if isinstance(tree, dict):
+        subs = {k: _unbind_tree(v, n) for k, v in tree.items()}
+        return [{k: sub[i] for k, sub in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def layer_trees(cfg: TransformerConfig, params) -> List[Dict[str, Any]]:
+    """Every layer's sub-tree, in order, in either layout."""
+    if cfg.scan_layers:
+        return _unbind_tree(params["layers"], cfg.num_layers)
+    return [params["layers"][f"layer_{i}"] for i in range(cfg.num_layers)]
+
+
+def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor
+            ) -> torch.Tensor:
+    """Token ids [B,S] -> logits [B,S,V] in fp32 (JAX ``forward`` with
+    default positions and no padding mask).  Weights are cast to
+    ``cfg.dtype``, which is also the activations' dtype."""
+    if cfg.pos_emb not in ("rope", "none"):
+        raise outside_slice(f"training with pos_emb={cfg.pos_emb!r}",
+                            "10 (LayerNorm families)")
+    if cfg.remat and cfg.remat_policy != "nothing_saveable":
+        raise outside_slice(f"remat_policy {cfg.remat_policy!r}",
+                            "11a (one-GPU training: other remat policies)")
+    b, s = input_ids.shape
+    dev = input_ids.device
+    # as in JAX, only the pure-causal mask goes to flash under "auto"
+    pure_causal = cfg.causal and s > 1
+    use_flash = cfg.attention_impl != "einsum" and pure_causal
+    if cfg.attention_impl == "flash" and not use_flash:
+        raise ValueError(
+            "attention_impl='flash' needs causal attention over more than "
+            "one token")
+    if use_flash:
+        check_flash_layout(cfg, dev)
+
+    positions = torch.arange(s, device=dev).expand(b, s)
+    table = params["embed"]["tokens"].to(cfg.dtype)
+    x = table[input_ids.long()]
+    mask = None
+    if not use_flash:
+        if cfg.causal:
+            mask = positions[:, :, None] >= positions[:, None, :]
+        else:
+            mask = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+        if cfg.sliding_window is not None:
+            mask = mask & ((positions[:, :, None] - positions[:, None, :])
+                           < cfg.sliding_window)
+    sin, cos = (rope_table(cfg, positions) if cfg.pos_emb == "rope"
+                else (None, None))
+    for lp in layer_trees(cfg, params):
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_layer_body, cfg, lp, x, sin, cos, mask,
+                           use_flash, use_reentrant=False)
+        else:
+            x = _layer_body(cfg, lp, x, sin, cos, mask, use_flash)
+    x = _norm_apply(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = proj(x, table.T)
+    else:
+        logits = proj(x, _wval(params["lm_head"], cfg.dtype))
+    return logits.float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """Token-level cross-entropy in fp32; labels < 0 are ignored."""
+    valid = labels >= 0
+    safe = labels.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+class CausalLM:
+    """Engine-protocol causal LM over the transformer core (JAX
+    ``transformer.py:798``).  Batch dict: ``input_ids`` [B,S] and an
+    optional ``labels`` [B,S] (default: the inputs shifted by one)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        self.cfg = cfg
+
+    def init_params(self, seed: int = 0, device: DeviceLike = None):
+        """fp32 weights, as the JAX initializer draws them (the masters)."""
+        return init_params(self.cfg, seed, device, dtype=torch.float32)
+
+    def logits(self, params, batch) -> torch.Tensor:
+        return forward(self.cfg, params, batch["input_ids"])
+
+    def loss(self, params, batch) -> torch.Tensor:
+        extra = sorted(set(batch) - {"input_ids", "labels"})
+        if extra:
+                raise outside_slice(f"batch keys {extra}",
+                                "11j (padded and packed training batches)")
+        logits = self.logits(params, batch)
+        if "labels" in batch:
+            return cross_entropy_loss(logits, batch["labels"])
+        ids = batch["input_ids"]
+        return cross_entropy_loss(logits[:, :-1], ids[:, 1:])

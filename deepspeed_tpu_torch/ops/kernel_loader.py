@@ -49,13 +49,17 @@ def _nvcc() -> str:
 class CudaKernel:
     """One ``.cu`` source -> one ``.so``.  ``functions`` maps each C
     entry point to its ctypes argument types (pointers and the stream as
-    ``c_void_p``).  ``launches`` counts kernel launches; only the op
-    wrapper that launches increments it."""
+    ``c_void_p``).  ``launches`` counts kernel launches and
+    ``launches_by_fn`` splits them by entry point; only the op wrapper
+    that launches increments them.  ``copies`` counts operands the
+    wrapper had to copy into a layout the kernel reads."""
 
     def __init__(self, source: str, functions: Dict[str, Sequence]):
         self.source = CSRC_DIR / source
         self.functions = dict(functions)
         self.launches = 0
+        self.launches_by_fn: Dict[str, int] = {fn: 0 for fn in functions}
+        self.copies = 0
         self._lib: Optional[ctypes.CDLL] = None
         #: compiler output of the last build in this process
         self.build_log = ""
@@ -128,6 +132,12 @@ class CudaKernel:
             msg = lib.ds_error_string(err).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}: {msg}")
         self.launches += 1
+        self.launches_by_fn[fn] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_fn = dict.fromkeys(self.functions, 0)
+        self.copies = 0
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[str]:

@@ -7,7 +7,9 @@ first use) and skip without one; they import neither JAX nor
 ``python -m pytest tests/test_torch_kernels.py -m cuda``.  Tolerances,
 relative to each case's reference (``assert_parity``): rms 1e-2, max
 2.5e-2.  The outputs are bf16, and the kernels accumulate in fp32 where
-the plain path rounds scores and probabilities to bf16.
+the plain path rounds scores and probabilities to bf16.  The AdamW
+kernel is fp32 throughout and is held to 1e-6 of each buffer's largest
+value as well (an ulp or two from fused multiply-adds).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from deepspeed_tpu_torch.ops import fused_optimizer as tfo
 from deepspeed_tpu_torch.ops import normalization as tnorm
 from deepspeed_tpu_torch.ops import paged_attention as tpa
 
@@ -160,3 +163,86 @@ def test_paged_kernel_matches_plain(cuda_device, case, variant):
     ref = tpa.paged_attention(qd, tkv, _t(table).to(dev), _t(start).to(dev),
                               **kw)
     assert_parity(out, ref)
+
+
+# (S, H, K, window): S not a multiple of the 64-row blocks, GQA (the
+# group sum inside the dK/dV block), a sliding window, and a long uneven
+# sequence over one kv head
+FLASH_BWD_CASES = {"s300": (300, 8, 8, None), "gqa4": (300, 8, 2, None),
+                   "window100": (256, 4, 4, 100),
+                   "s1000_mqa": (1000, 4, 1, None)}
+
+
+def _bshd(dev, g, s, h):
+    """[B, H, S, D] views of [B, S, H, D] activations, as the model
+    passes them."""
+    return torch.randn(2, s, h, 128, generator=g, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CASES))
+def test_flash_bwd_kernel_matches_plain(cuda_device, case):
+    s, h, kh, window = FLASH_BWD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, do = (_bshd(cuda_device, g, s, n) for n in (h, kh, kh, h))
+    out, lse = tfa.flash_fwd(q, k, v, causal=True, window=window)
+    copies = tfa.BWD_KERNEL.copies
+    got = tfa.flash_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    ref = tfa.flash_bwd_reference(q, k, v, out, lse, do, True, None, window)
+    assert tfa.BWD_KERNEL.copies == copies      # strided dO read in place
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert_parity(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_node_on_the_card(cuda_device):
+    """Forward and backward kernels through autograd, against autograd
+    through the plain attention; ``.sum()`` hands the backward an
+    expanded (stride 0) dO, which the wrapper copies and counts."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    leaves = [_bshd(cuda_device, g, 200, n).detach().requires_grad_()
+              for n in (8, 2, 2)]
+    copies = tfa.BWD_KERNEL.copies
+    tfa.flash_attention(*leaves).sum().backward()
+    assert tfa.BWD_KERNEL.copies == copies + 1
+    plain = [x.detach().clone().requires_grad_() for x in leaves]
+    tfa.mha_reference(*plain).sum().backward()
+    for a, b in zip(leaves, plain):
+        assert_parity(a.grad, b.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(dtype=torch.float32),
+                                  dict(head_dim=16)])
+def test_training_forward_outside_the_flash_layout_raises(cuda_device, over):
+    """On the card the training forward's default attention takes the
+    flash kernels or raises; "einsum" runs the dense path."""
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    ids = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    for impl in ("auto", "einsum"):
+        model = LlamaForCausalLM("tiny", num_layers=1, attention_impl=impl,
+                                 **over)
+        params = model.init_params(seed=0, device=cuda_device)
+        if impl == "einsum":
+            assert torch.isfinite(model.loss(params, {"input_ids": ids}))
+        else:
+            with pytest.raises(NotImplementedError, match="item 11k"):
+                model.loss(params, {"input_ids": ids})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3001, 4096 * 1104])
+def test_adamw_kernel_matches_plain(cuda_device, n):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p, grad, m = (torch.randn(n, generator=g, device=cuda_device)
+                  for _ in range(3))
+    v = torch.rand(n, generator=g, device=cuda_device)
+    kw = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, step=7)
+    ref = [x.clone() for x in (p, grad, m, v)]
+    tfo.fused_adamw_flat(p, grad, m, v, **kw)
+    tfo.adamw_reference(*ref, **kw)
+    for a, b in zip((p, m, v), (ref[0], ref[2], ref[3])):
+        assert_parity(a, b)
+        assert parity_errors(a, b)[1] <= 1e-6
