@@ -24,17 +24,27 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    ten teacher-forced serving steps of 3 requests (fresh prefill,
    decode, and two mixed steps, one with a Q=1024 prefill chunk over
    history), every segment's logits and greedy picks compared;
-6. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
+6. FastGen serving of OPT-6.7B at full width and depth (its published
+   shape through ``opt_config_from_hf``: LayerNorm, learned positions,
+   relu, biases; random seeded bf16 weights) over 256 int8 KV pages
+   (``kv_quantization="int8"``), the same traffic, with exact launch
+   counts: LayerNorm and the int8 paged kernel run, RMSNorm and the bf16
+   paged kernel do not;
+7. the OPT weights on the plain path, both paths over int8 pages, the
+   teacher-forced steps of phase 5, logits per segment compared; and the
+   kernel path over bf16 pages, for the greedy agreement of int8 pages
+   with bf16 pages;
+8. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
    the card from a seed, bf16 compute, micro-batch 2 x 2048 tokens,
    gas 2, AdamW, WarmupDecayLR, clipping 1.0): 4 ``train_batch`` calls
    through ``deepspeed_tpu_torch.initialize`` on one fixed seeded batch,
    with every kernel's launch count read from a run that starts at zero;
-7. the training path with the flash kernels against the plain einsum
+9. the training path with the flash kernels against the plain einsum
    path from the same masters and micro-batch (loss and every leaf's
    gradient), then the AdamW kernel against its plain version on those
    gradients and the optimizer's state;
-8. a ``{"kernels": [...]}`` JSON line, the card line, and last the
-   ``{"ok": true, "device": {...}}`` line.
+10. a ``{"kernels": [...]}`` JSON line, the card line, and last the
+    ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or outside the repository, it exits non-zero before
 printing any result.
@@ -48,6 +58,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor core
@@ -71,6 +82,26 @@ LOGIT_REL_TOL = 5e-2
 # greedy picks that agree between the two paths: bf16 rounding flips
 # only near-tied argmaxes (a wrong kernel also fails the logit check)
 GREEDY_AGREE_MIN = 0.75
+# Over int8 pages the two paths also quantise at append from K and V that
+# differ by rounding, so a code may flip.  CPU stand-in (tests/
+# test_torch_families.py::test_int8_serving_limits_pass_rounding_and_fail_
+# a_wrong_scale, a bf16 OPT at E = 128): rounding gives 1.0e-2 of the
+# largest logit at 2 layers and 1.1e-2 at 8, scales read from the
+# neighbouring kv head 0.37 to 0.51.  The int8 phase is held to about 3x
+# the stand-in's largest reading; greedy picks over int8 pages are held to
+# the same floor against bf16 pages (the JAX suite's own agreement bound
+# for int8 pages).  Neither limit sees one key past the causal limit at
+# this level: phase 3's per-kernel cases hold that.
+INT8_LOGIT_REL_TOL = 3e-2
+
+# facebook/opt-6.7b config.json, the fields opt_config_from_hf reads
+OPT_6_7B = dict(vocab_size=50272, hidden_size=4096, ffn_dim=16384,
+                num_hidden_layers=32, num_attention_heads=32,
+                max_position_embeddings=2048, activation_function="relu",
+                do_layer_norm_before=True, word_embed_proj_dim=4096,
+                tie_word_embeddings=True)
+PLAIN_PATH = {"norm": "plain", "ragged_attention": "dense_gather",
+              "fresh_prefill_attention": "mha_reference"}
 # AdamW kernel vs plain version, both fp32: max |delta| / max |ref| of
 # p, m and v (fused multiply-adds and the order of a division move a
 # value by an ulp or two, 1.2e-7 each)
@@ -152,9 +183,92 @@ def parity(out, ref) -> dict:
                                   / ref.pow(2).mean().sqrt()))
 
 
+def read_launches(counters) -> dict:
+    """Launches of each hand-written kernel since the counts were last
+    set to 0.  ``counters``: name -> (CudaKernel, the C entry point that
+    is this kernel, or None when the source holds one kernel)."""
+    return {name: (k.launches if fn is None else k.launches_by_fn[fn])
+            for name, (k, fn) in counters.items()}
+
+
+def reset_launches(counters) -> None:
+    for k, _ in counters.values():
+        k.reset_counts()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels vs plain versions
 # ---------------------------------------------------------------------------
+
+def _norm_inputs(dev, g, n, e=4096):
+    import torch
+    x = torch.randn(n, e, generator=g, device=dev, dtype=torch.bfloat16)
+    w = torch.rand(e, generator=g, device=dev) + 0.5
+    b = 0.1 * torch.randn(e, generator=g, device=dev)
+    return x, w, b
+
+
+def check_layernorm(dev):
+    """N=16: the serving decode step's rows; N=4096: a full prefill
+    budget.  The last case's rows have a mean (1000) far above their
+    spread, where a one-pass variance would cancel."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import normalization as N
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = []
+    for n, mean in ((16, 0.0), (4096, 0.0), (4096, 1000.0)):
+        x, w, b = _norm_inputs(dev, g, n)
+        if mean:
+            x = (mean + 0.85 * x.float()).bfloat16()
+        e = x.shape[1]
+        err = parity(N.layernorm(x, w, b, 1e-5),
+                     N.layernorm_reference(x, w, b, 1e-5))
+        wb, bb = w.bfloat16(), b.bfloat16()
+        b_ms, b_by = bound(2 * n * e * 2 + 2 * e * 4, 8 * n * e)
+        rows.append(dict(
+            shape=f"N={n} E={e}" + (f" row mean {mean:g}" if mean else ""),
+            **err,
+            ms=cuda_ms(lambda: N.layernorm(x, w, b, 1e-5), 200),
+            plain_ms=cuda_ms(lambda: N.layernorm_reference(x, w, b, 1e-5),
+                             50),
+            library_ms=cuda_ms(lambda: F.layer_norm(x, (e,), wb, bb, 1e-5),
+                               200),
+            bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def check_rmsnorm_res(dev):
+    """The fused residual form: both outputs against the plain version
+    (the new residual bit for bit); library yardstick: an add, then
+    ``F.rms_norm`` (two calls)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import normalization as N
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = []
+    for n in (16, 4096):
+        x, w, _ = _norm_inputs(dev, g, n)
+        r, _, _ = _norm_inputs(dev, g, n)
+        e = x.shape[1]
+        out, res = N.rmsnorm(x, w, 1e-5, residual=r)
+        ref_out, ref_res = N.rmsnorm_res_reference(x, r, w, 1e-5)
+        if not torch.equal(res, ref_res):
+            raise RuntimeError("rmsnorm_res: the new residual is not "
+                               "bf16(x + residual)")
+        err = parity(out, ref_out)
+        wb = w.bfloat16()
+        b_ms, b_by = bound(4 * n * e * 2 + e * 4, 5 * n * e)
+        rows.append(dict(
+            shape=f"N={n} E={e}", **err,
+            ms=cuda_ms(lambda: N.rmsnorm(x, w, 1e-5, residual=r), 200),
+            plain_ms=cuda_ms(lambda: N.rmsnorm_res_reference(x, r, w, 1e-5),
+                             50),
+            library_ms=cuda_ms(lambda: F.rms_norm(x + r, (e,), wb, 1e-5),
+                               200),
+            bound_ms=b_ms, bound_by=b_by))
+    return rows
+
 
 def check_rmsnorm(dev):
     import torch
@@ -196,15 +310,20 @@ def _paged_inputs(dev, S, Q, H, K, ctx_max, g, page=64):
 
 def _sdpa_paged(q, kv, table, start, slopes, window):
     """Library yardstick: scaled_dot_product_attention over the slot's
-    context gathered into dense [S, H, C, D] (gather done outside)."""
+    context gathered into dense [S, H, C, D] (gather done outside).  Over
+    int8 pages it is two calls: dequantise the gathered codes to bf16,
+    then scaled_dot_product_attention."""
     import torch
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import paged_attention as PA
     S, Q, H, D = q.shape
     page, K = kv.shape[1], kv.shape[3]
-    pages = kv[table.long()]
-    C = pages.shape[1] * page
-    k = pages[..., 0, :, :].reshape(S, C, K, D).transpose(1, 2)
-    v = pages[..., 1, :, :].reshape(S, C, K, D).transpose(1, 2)
+    C = table.shape[1] * page
+
+    def split(pages):
+        return (pages[..., 0, :, :].reshape(S, C, K, D).transpose(1, 2),
+                pages[..., 1, :, :].reshape(S, C, K, D).transpose(1, 2))
+
     pos = start[:, None].long() + torch.arange(Q, device=q.device)
     ctx = torch.arange(C, device=q.device)
     keep = ctx[None, None, :] <= pos[:, :, None]
@@ -215,11 +334,23 @@ def _sdpa_paged(q, kv, table, start, slopes, window):
         mask = mask + (slopes[None, :, None, None]
                        * ctx.float()).to(q.dtype)
     qt = q.transpose(1, 2)
+    if isinstance(kv, PA.KVPages):
+        codes, scales = kv.payload[table.long()], kv.scale[table.long()]
+
+        def run():
+            k, v = split(PA.dequantize_kv_blocks(codes, scales, q.dtype))
+            return F.scaled_dot_product_attention(
+                qt, k, v, attn_mask=mask, enable_gqa=K != H)
+        return run
+    k, v = split(kv[table.long()])
     return lambda: F.scaled_dot_product_attention(
         qt, k, v, attn_mask=mask, enable_gqa=K != H)
 
 
-def check_paged(dev):
+def check_paged(dev, int8=False):
+    """The paged kernel over bf16 pages or, with ``int8``, over int8
+    codes with per-(token, kv head) scales quantised from the same
+    N(0, 1) pages."""
     import torch
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops import paged_attention as PA
@@ -233,9 +364,18 @@ def check_paged(dev):
              ("GQA decode", 8, 1, 32, 8, None, False),
              ("window decode", 8, 1, 32, 32, 512, False),
              ("ALiBi decode", 8, 1, 32, 32, None, True)]
+    # the int8 cases quantise the very pages, tables and positions of the
+    # bf16 cases (every case draws, fewer run)
+    skip = ("decode", "prefill chunk") if int8 else ()
+    # bytes a context token takes per kv head: K and V rows of 128 values
+    token_bytes = 2 * (128 + 4) if int8 else 2 * 128 * 2
     rows = []
     for name, S, Q, H, K, window, alibi in cases:
         q, kv, table, start = _paged_inputs(dev, S, Q, H, K, 2048, g)
+        if name in skip:
+            continue
+        if int8:
+            kv = PA.KVPages(*PA.quantize_kv_blocks(kv))
         slopes = (torch.as_tensor(alibi_slopes(H), device=dev)
                   if alibi else None)
         kw = dict(window=window, alibi_slopes=slopes)
@@ -248,13 +388,14 @@ def check_paged(dev):
         pos = start.long()[:, None] + torch.arange(Q, device=dev)
         lo = (pos - window + 1).clamp(min=0) if window else 0 * pos
         n_keys = int((pos[:, -1] + 1 - lo[:, 0]).sum())
-        kv_bytes = n_keys * 2 * K * 128 * 2
+        kv_bytes = n_keys * K * token_bytes
         io_bytes = 2 * q.numel() * 2 + table.numel() * 4 + S * 4
         flops = 4 * 128 * H * int((pos + 1 - lo).sum())
         b_ms, b_by = bound(kv_bytes + io_bytes, flops)
         rows.append(dict(
             shape=f"{name}: S={S} Q={Q} H={H} K={K} D=128 page=64 "
-                  f"ctx<=2048" + (f" window={window}" if window else ""),
+                  f"ctx<=2048" + (f" window={window}" if window else "")
+                  + (" int8 pages" if int8 else ""),
             **err,
             ms=cuda_ms(lambda: PA.paged_decode_attention(
                 q, kv, table, start, **kw), 20),
@@ -455,30 +596,61 @@ def check_adamw(dev, cfg):
 # phases 4 and 5: serving at Llama-2-7B width
 # ---------------------------------------------------------------------------
 
-def build_engine(cfg, params, num_pages, implementations=None):
+def build_engine(cfg, params, num_pages, implementations=None,
+                 kv_quantization="none", model_type="llama"):
+    """The family's model class -> engine, as a user builds them."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import (
         InferenceEngineV2, KVCacheConfig, RaggedInferenceEngineConfig,
-        RaggedInferenceModel, StateManagerConfig)
+        ServingOptimizationConfig, StateManagerConfig, implementation_for)
     kv_cfg = KVCacheConfig(num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
                            head_dim=cfg.dims_per_head, page_size=64,
                            num_pages=num_pages, dtype=torch.bfloat16)
-    model = RaggedInferenceModel(cfg, params, kv_config=kv_cfg, device="cuda",
-                                 implementations=implementations)
-    econf = RaggedInferenceEngineConfig(state_manager=StateManagerConfig(
-        max_tracked_sequences=16, max_ragged_sequence_count=16,
-        max_ragged_batch_size=2048))
+    model = implementation_for(model_type)(
+        cfg, params, kv_config=kv_cfg, device="cuda",
+        implementations=implementations)
+    econf = RaggedInferenceEngineConfig(
+        state_manager=StateManagerConfig(
+            max_tracked_sequences=16, max_ragged_sequence_count=16,
+            max_ragged_batch_size=2048),
+        serving=ServingOptimizationConfig(kv_quantization=kv_quantization))
     return InferenceEngineV2(model, econf)
 
 
-def serve(cfg, params, kernels, card):
+def randomize_norms_and_biases(params, seed):
+    """The initialiser leaves norm scales at 1 and every bias at 0; draw
+    them from a seed instead (scales 1 + 0.1 N(0,1), biases 0.02 N(0,1))
+    so that the LayerNorm bias and the projection biases count."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def visit(node):
+        for key, leaf in node.items():
+            if isinstance(leaf, dict):
+                visit(leaf)
+            elif key == "scale" or key.startswith("b"):
+                noise = torch.randn(leaf.shape, generator=g, device="cuda")
+                node[key] = ((1 + 0.1 * noise) if key == "scale"
+                             else 0.02 * noise).to(leaf.dtype)
+    visit(params)
+    return params
+
+
+def serve(cfg, params, counters, card, model_type="llama",
+          kv_quantization="none"):
+    """10 requests through FastGenScheduler; returns the summary and the
+    launch counts of a run that starts at zero."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference.v2 import (FastGenScheduler,
                                                   SamplingParams)
-    engine = build_engine(cfg, params, num_pages=256)
+    engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
+                          kv_quantization=kv_quantization)
     model = engine.model
-    log("implementations:", model.implementations)
+    kv_pool_bytes = model.kv_config.total_bytes()
+    log(f"{model_type} serving: {type(model).__name__}, implementations "
+        f"{model.implementations}, kv pages {model.kv_config.quantization}"
+        f", kv pool {kv_pool_bytes / 1e9:.2f} GB")
     segments = {"fresh": 0, "paged": 0}
     step_impl = model._step_impl
 
@@ -504,8 +676,7 @@ def serve(cfg, params, kernels, card):
                                  temperature=0.8 if sampled else 0.0,
                                  top_p=0.9 if sampled else 1.0)
         reqs[uid] = (rng.integers(0, V, int(n)), params_)
-    for k in kernels.values():
-        k.reset_counts()
+    reset_launches(counters)
     for s in segments:
         segments[s] = 0
     torch.cuda.synchronize()
@@ -534,7 +705,7 @@ def serve(cfg, params, kernels, card):
         if sched.last_step_scheduled == 0:
             raise RuntimeError("serving stalled: nothing schedulable")
     total_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
 
     for uid, (prompt, sp) in reqs.items():
@@ -546,12 +717,21 @@ def serve(cfg, params, kernels, card):
             raise RuntimeError(f"request {uid}: token outside the vocab")
     L = cfg.num_layers
     n_seg = segments["fresh"] + segments["paged"]
+    # the family's norm and page kernels run, the other family's do not
+    norm, other_norm = (("rmsnorm", "layernorm") if cfg.norm == "rmsnorm"
+                        else ("layernorm", "rmsnorm"))
+    paged, other_paged = (("paged_attention_int8", "paged_attention")
+                          if kv_quantization == "int8"
+                          else ("paged_attention", "paged_attention_int8"))
     checks = {
-        "rmsnorm": launches["rmsnorm"] == (2 * L + 1) * n_seg,
-        "paged_attention": launches["paged_attention"] >= L * segments["paged"]
-        and launches["paged_attention"] > 0,
-        "flash_fwd": launches["flash_fwd"] >= L * segments["fresh"]
-        and launches["flash_fwd"] > 0,
+        norm: launches[norm] == (2 * L + 1) * n_seg,
+        paged: launches[paged] == L * segments["paged"]
+        and segments["paged"] > 0,
+        "flash_fwd": launches["flash_fwd"] == L * segments["fresh"]
+        and segments["fresh"] > 0,
+        "idle kernels": all(launches[k] == 0 for k in (
+            other_norm, other_paged, "rmsnorm_res", "flash_bwd",
+            "fused_adamw")),
     }
 
     def kind(st):
@@ -569,7 +749,9 @@ def serve(cfg, params, kernels, card):
     dec_s = sum(st["ms"] for st in decode_steps) / 1e3
     ttft = sorted(first_token.values())
     summary = dict(
-        card=card, requests=len(reqs), prompt_lens=[int(n) for n in lens],
+        card=card, model=model_type, kv_pages=kv_quantization,
+        kv_pool_gb=kv_pool_bytes / 1e9,
+        requests=len(reqs), prompt_lens=[int(n) for n in lens],
         new_tokens=64, steps=len(steps), total_s=total_s,
         ttft_ms_mean=1e3 * sum(ttft) / len(ttft),
         ttft_ms_max=1e3 * ttft[-1],
@@ -584,30 +766,38 @@ def serve(cfg, params, kernels, card):
         tokens_generated=sum(len(t) for t in generated.values()),
         max_memory_allocated_gb=peak / 1e9,
         segments=segments, launches=launches)
-    log("serving:", json.dumps(summary))
+    log(f"{model_type} serving:", json.dumps(summary))
     log(f"segments: {segments}, launches: {launches}, checks: {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"launch counts do not match the steps taken: "
                            f"{checks}")
+    profile_decode_steps(engine, reqs, model_type,
+                         summary["decode_step_ms_mean"])
     return summary, launches
 
 
-def plain_vs_kernel(cfg, params):
+def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
     """The serving step (``step_sample``) on the kernel path and on the
-    plain path, teacher-forced with the kernel path's tokens, every
-    segment's logits compared.  The schedule covers each segment kind
-    the serving run takes: a fresh prefill (flash), decode (paged, Q=1),
-    a mixed step whose prefill segment is fresh, and a mixed step whose
-    prefill segment is a Q=1024-bucket chunk over 1024 tokens of history
-    (paged)."""
+    plain path, both over the same page encoding, teacher-forced with the
+    kernel path's tokens, every segment's logits compared.  The schedule
+    covers each segment kind the serving run takes: a fresh prefill
+    (flash), decode (paged, Q=1), a mixed step whose prefill segment is
+    fresh, and a mixed step whose prefill segment is a Q=1024-bucket
+    chunk over 1024 tokens of history (paged).  Over int8 pages a third
+    engine runs the kernel path over bf16 pages, and the greedy picks of
+    the two encodings are compared."""
     import numpy as np
     import torch
     from deepspeed_tpu_torch.inference.v2 import SamplingParams
-    plain = {"norm": "plain", "ragged_attention": "dense_gather",
-             "fresh_prefill_attention": "mha_reference"}
-    engines = {"kernel": build_engine(cfg, params, num_pages=64),
-               "plain": build_engine(cfg, params, num_pages=64,
-                                     implementations=plain)}
+    kw = dict(num_pages=64, model_type=model_type)
+    tol = LOGIT_REL_TOL if kv_quantization == "none" else INT8_LOGIT_REL_TOL
+    engines = {"kernel": build_engine(cfg, params, **kw,
+                                      kv_quantization=kv_quantization),
+               "plain": build_engine(cfg, params, **kw,
+                                     kv_quantization=kv_quantization,
+                                     implementations=PLAIN_PATH)}
+    if kv_quantization != "none":
+        engines["kernel, bf16 pages"] = build_engine(cfg, params, **kw)
     segments = {name: [] for name in engines}
     for name, e in engines.items():
         def capture(*a, _step=e.model._step_impl, _out=segments[name], **k):
@@ -656,21 +846,36 @@ def plain_vs_kernel(cfg, params):
         agree += int((a.argmax(-1) == b.argmax(-1)).sum())
         total += a.shape[0]
         kinds.append(kind)
-    res = dict(steps=len(schedule), mixed_steps=mixed_steps,
-               segments=kinds, max_rel_logit_err=worst, tol=LOGIT_REL_TOL,
+    res = dict(model=model_type, kv_pages=kv_quantization,
+               steps=len(schedule), mixed_steps=mixed_steps,
+               segments=kinds, max_rel_logit_err=worst, tol=tol,
                greedy_agreement=agree / total, greedy_rows=total,
                greedy_min=GREEDY_AGREE_MIN)
+    if kv_quantization != "none":
+        # the same kernel path over the two page encodings
+        pairs = list(zip(segments["kernel"], segments["kernel, bf16 pages"]))
+        same = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                   for (_, a), (_, b) in pairs)
+        res["greedy_agreement_vs_bf16_pages"] = same / total
+        res["max_rel_logit_err_vs_bf16_pages"] = max(
+            float((a - b).abs().max() / b.abs().max())
+            for (_, a), (_, b) in pairs)
     log("kernel vs plain at full width:", json.dumps(res))
     if len(segments["kernel"]) != len(segments["plain"]):
         raise RuntimeError("the two paths ran different segment counts")
     if mixed_steps != 2 or not any(k.startswith("chunk Q=1024") for k in kinds):
         raise RuntimeError(f"the schedule missed a segment kind: {kinds}")
-    if worst > LOGIT_REL_TOL:
+    if worst > tol:
         raise RuntimeError(f"kernel path logits differ from the plain path "
-                           f"by {worst:.3e} > {LOGIT_REL_TOL}")
+                           f"by {worst:.3e} > {tol}")
     if agree / total < GREEDY_AGREE_MIN:
         raise RuntimeError(f"greedy agreement {agree}/{total} below "
                            f"{GREEDY_AGREE_MIN}")
+    if res.get("greedy_agreement_vs_bf16_pages", 1.0) < GREEDY_AGREE_MIN:
+        raise RuntimeError(
+            f"greedy picks over {kv_quantization} pages agree with bf16 "
+            f"pages on {res['greedy_agreement_vs_bf16_pages']:.3f} of the "
+            f"rows, below {GREEDY_AGREE_MIN}")
     return res
 
 
@@ -678,7 +883,7 @@ def plain_vs_kernel(cfg, params):
 # phases 6 and 7: training at Llama-2-7B width, 8 layers
 # ---------------------------------------------------------------------------
 
-def train(kernels, card):
+def train(counters, card):
     """4 train_batch calls through deepspeed_tpu_torch.initialize on one
     fixed seeded batch; launch counts from a run that starts at zero."""
     import numpy as np
@@ -701,8 +906,7 @@ def train(kernels, card):
         0, cfg.vocab_size, (TRAIN_GAS * TRAIN_MICRO, TRAIN_SEQ)
     ).astype(np.int32)}
 
-    for k in kernels.values():
-        k.reset_counts()
+    reset_launches(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -713,8 +917,9 @@ def train(kernels, card):
         torch.cuda.synchronize()
         steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
                           grad_norm=engine.get_global_grad_norm(), lr=lr))
-    launches = {name: k.launches for name, k in kernels.items()}
-    by_fn = kernels["flash_bwd"].launches_by_fn
+    launches = read_launches(counters)
+    flash_bwd = counters["flash_bwd"][0]
+    by_fn = flash_bwd.launches_by_fn
     peak = torch.cuda.max_memory_allocated()
 
     L = cfg.num_layers
@@ -731,9 +936,10 @@ def train(kernels, card):
         "flash_bwd": by_fn["flash_bwd_dkv_bf16"] == L * micro_batches
         and by_fn["flash_bwd_dq_bf16"] == L * micro_batches,
         "fused_adamw": launches["fused_adamw"] == n_leaves * TRAIN_STEPS,
-        "no operand copies": kernels["flash_bwd"].copies == 0,
-        "serving kernels idle": launches["rmsnorm"] == 0
-        and launches["paged_attention"] == 0,
+        "no operand copies": flash_bwd.copies == 0,
+        "serving kernels idle": all(launches[k] == 0 for k in (
+            "rmsnorm", "rmsnorm_res", "layernorm", "paged_attention",
+            "paged_attention_int8")),
     }
     steady = [st["ms"] for st in steps[1:]]
     step_ms = sum(steady) / len(steady)
@@ -764,24 +970,17 @@ _KERNEL_KINDS = (("flash_fwd", "flash forward"),
                  ("flash_bwd_dkv", "flash backward dK/dV"),
                  ("flash_bwd_dq", "flash backward dQ"),
                  ("fused_adamw", "AdamW"),
+                 ("paged_attention", "paged attention"),
+                 ("layernorm_kernel", "LayerNorm"),
+                 ("rmsnorm", "RMSNorm"),
                  ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
                  ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"))
 
 
-def profile_step(engine, batch):
-    """One more train_batch under torch.profiler (after the launch counts
-    were read): device time by kernel kind and the device's busy share of
-    the step's wall time (one stream, so kernels do not overlap)."""
-    import torch
+def device_ms_by_kind(prof):
+    """(device kernels, {kind: device ms}) of a torch.profiler run, the
+    largest kind first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.train_batch(batch)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3
     by_kind, n_kernels = {}, 0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -790,12 +989,66 @@ def profile_step(engine, batch):
         kind = next((k for frag, k in _KERNEL_KINDS if frag in ev.name),
                     "other (elementwise, reductions, copies)")
         by_kind[kind] = by_kind.get(kind, 0.0) + ev.time_range.elapsed_us()
-    device_ms = sum(by_kind.values()) / 1e3
+    return n_kernels, {k: v / 1e3 for k, v in sorted(
+        by_kind.items(), key=lambda kv: -kv[1])}
+
+
+def profile_decode_steps(engine, reqs, label, step_ms, n_steps=4):
+    """After the counted run: the same requests again (new uids, 16 new
+    tokens), stepped until every one decodes, then ``n_steps`` decode
+    steps under torch.profiler: device time per step by kernel kind, and
+    the device's busy share of the unprofiled decode step (``step_ms``,
+    from the counted run; the profiler stretches the host's share)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import (FastGenScheduler,
+                                                  SamplingParams)
+    from torch.profiler import ProfilerActivity, profile
+    sched = FastGenScheduler(engine, seed=SEED)
+    for uid, (prompt, _) in reqs.items():
+        sched.submit(100 + uid, prompt, SamplingParams(max_new_tokens=16))
+    while len(sched.step()) < len(reqs):
+        if not sched.has_work:
+            raise RuntimeError("profiled serving run ended before decoding")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            if len(sched.step()) != len(reqs):
+                raise RuntimeError("a profiled step was not a decode step")
+        torch.cuda.synchronize()
+    sched.run_to_completion()
+    n_kernels, by_kind = device_ms_by_kind(prof)
+    device_ms = sum(by_kind.values()) / n_steps
+    res = dict(model=label, decode_rows=len(reqs), steps=n_steps,
+               device_kernels_per_step=n_kernels / n_steps,
+               device_ms_per_step=device_ms,
+               decode_step_ms_unprofiled=step_ms,
+               device_busy_share=device_ms / step_ms if n_kernels else None,
+               device_ms_per_step_by_kind={k: v / n_steps
+                                           for k, v in by_kind.items()})
+    log(f"{label} decode step profile:", json.dumps(res))
+    return res
+
+
+def profile_step(engine, batch):
+    """One more train_batch under torch.profiler (after the launch counts
+    were read): device time by kernel kind and the device's busy share of
+    the step's wall time (one stream, so kernels do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    n_kernels, by_kind = device_ms_by_kind(prof)
+    device_ms = sum(by_kind.values())
     res = dict(step_wall_ms_profiled=wall_ms, device_kernels=n_kernels,
                device_ms=device_ms,
                device_busy_share=device_ms / wall_ms if n_kernels else None,
-               device_ms_by_kind={k: v / 1e3 for k, v in sorted(
-                   by_kind.items(), key=lambda kv: -kv[1])})
+               device_ms_by_kind=by_kind)
     log("training step profile:", json.dumps(res))
     return res
 
@@ -877,30 +1130,58 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # phase 2
+    from deepspeed_tpu_torch.checkpoint.hf import opt_config_from_hf
     from deepspeed_tpu_torch.models.llama import llama_config
     from deepspeed_tpu_torch.ops import flash_attention as FA
     from deepspeed_tpu_torch.ops import fused_optimizer as FO
     from deepspeed_tpu_torch.ops import kernel_loader
     from deepspeed_tpu_torch.ops import normalization as N
     from deepspeed_tpu_torch.ops import paged_attention as PA
-    kernels = {"paged_attention": PA.KERNEL, "rmsnorm": N.KERNEL,
-               "flash_fwd": FA.KERNEL, "flash_bwd": FA.BWD_KERNEL,
-               "fused_adamw": FO.KERNEL}
+    # kernel -> (its library, its C entry point where the source holds
+    # two kernels), its source and the TPU kernel it replaces
+    counters = {
+        "paged_attention": (PA.KERNEL, "paged_attention_bf16"),
+        "paged_attention_int8": (PA.KERNEL, "paged_attention_int8"),
+        "rmsnorm": (N.KERNEL, "rmsnorm_bf16"),
+        "rmsnorm_res": (N.KERNEL, "rmsnorm_res_bf16"),
+        "layernorm": (N.LN_KERNEL, None),
+        "flash_fwd": (FA.KERNEL, None),
+        "flash_bwd": (FA.BWD_KERNEL, None),
+        "fused_adamw": (FO.KERNEL, None)}
+    replaces = {
+        "paged_attention": "deepspeed_tpu/ops/paged_attention.py:240",
+        "paged_attention_int8": "deepspeed_tpu/ops/paged_attention.py:240",
+        "rmsnorm": "deepspeed_tpu/ops/normalization.py:20",
+        "rmsnorm_res": "deepspeed_tpu/ops/normalization.py:27",
+        "layernorm": "deepspeed_tpu/ops/normalization.py:35",
+        "flash_fwd": "deepspeed_tpu/ops/flash_attention.py:79",
+        "flash_bwd": "deepspeed_tpu/ops/flash_attention.py:164",
+        "fused_adamw": "deepspeed_tpu/ops/fused_optimizer.py:29"}
+    libraries = list({id(k): k for k, _ in counters.values()}.values())
     t = time.perf_counter()
-    build_logs = kernel_loader.build_all(kernels.values())
-    for k in kernels.values():
+    build_logs = kernel_loader.build_all(libraries)
+    for k in libraries:
         k.lib()
     log(f"build: {time.perf_counter() - t:.1f} s "
-        f"({', '.join(k.library_path.name for k in kernels.values())})")
-    for name, text in zip(kernels, build_logs):
-        for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"ptxas {name}: {ln.strip()}")
+        f"({', '.join(k.library_path.name for k in libraries)})")
+    for k, text in zip(libraries, build_logs):
+        lines = [ln for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        spills = [ln for ln in lines if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        regs = [int(ln.split("Used ")[1].split()[0])
+                for ln in lines if "Used " in ln]
+        log(f"ptxas {k.name}: {len(regs)} kernels, registers "
+            f"{sorted(set(regs))}, spills: {spills or 'none'}")
 
     # phase 3
     train_cfg = llama_config("7b", num_layers=TRAIN_LAYERS)
-    checks = {"rmsnorm": check_rmsnorm(dev), "paged_attention":
-              check_paged(dev), "flash_fwd": check_flash(dev),
+    checks = {"paged_attention": check_paged(dev),
+              "paged_attention_int8": check_paged(dev, int8=True),
+              "rmsnorm": check_rmsnorm(dev),
+              "rmsnorm_res": check_rmsnorm_res(dev),
+              "layernorm": check_layernorm(dev),
+              "flash_fwd": check_flash(dev),
               "flash_bwd": check_flash_bwd(dev),
               "fused_adamw": check_adamw(dev, train_cfg)}
     for name, rows in checks.items():
@@ -927,40 +1208,51 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"Llama-2-7B params: {cfg.n_params() / 1e9:.2f} B, bf16 init "
         f"{time.perf_counter() - t:.1f} s")
-    summary, launches = serve(cfg, params, kernels, card)
+    _, llama_launches = serve(cfg, params, counters, card)
 
     # phase 5
     plain_vs_kernel(cfg, params)
 
-    # phase 6: the serving weights and caches go first
+    # phase 6: the Llama weights and caches go first
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    engine, batch, train_launches = train(kernels, card)
+    opt_cfg = opt_config_from_hf(types.SimpleNamespace(**OPT_6_7B))
+    t = time.perf_counter()
+    opt_params = randomize_norms_and_biases(
+        init_params(opt_cfg, seed=SEED, device="cuda"), SEED + 8)
+    torch.cuda.synchronize()
+    log(f"OPT-6.7B params: {opt_cfg.n_params() / 1e9:.2f} B, "
+        f"{opt_cfg.num_layers} layers, bf16 init "
+        f"{time.perf_counter() - t:.1f} s")
+    _, opt_launches = serve(opt_cfg, opt_params, counters, card,
+                            model_type="opt", kv_quantization="int8")
 
     # phase 7
+    plain_vs_kernel(opt_cfg, opt_params, model_type="opt",
+                    kv_quantization="int8")
+
+    # phase 8: the serving weights and caches go first
+    del opt_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, batch, train_launches = train(counters, card)
+
+    # phase 9
     train_kernel_vs_plain(engine, batch)
 
-    # phase 8
-    sources = {"paged_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
-                                   "deepspeed_tpu/ops/paged_attention.py:240"),
-               "rmsnorm": ("deepspeed_tpu_torch/csrc/rmsnorm.cu",
-                           "deepspeed_tpu/ops/normalization.py:20"),
-               "flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
-                             "deepspeed_tpu/ops/flash_attention.py:79"),
-               "flash_bwd": ("deepspeed_tpu_torch/csrc/flash_bwd.cu",
-                             "deepspeed_tpu/ops/flash_attention.py:164"),
-               "fused_adamw": ("deepspeed_tpu_torch/csrc/fused_adamw.cu",
-                               "deepspeed_tpu/ops/fused_optimizer.py:29")}
+    # phase 10
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)
+        by_path = {"serving_llama": llama_launches[name],
+                   "serving_opt": opt_launches[name],
+                   "training": train_launches[name]}
         entry = dict(
-            name=name, route="cuda", source=sources[name][0],
-            replaces=sources[name][1],
-            launches=launches[name] + train_launches[name],
-            launches_by_path={"serving": launches[name],
-                              "training": train_launches[name]},
+            name=name, route="cuda",
+            source="deepspeed_tpu_torch/csrc/" + counters[name][0].source.name,
+            replaces=replaces[name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             max_rel_err=max(r["max_rel_err"] for r in rows),
             rms_rel_err=max(r["rms_rel_err"] for r in rows),
@@ -971,6 +1263,15 @@ def main() -> int:
         if name == "flash_bwd":
             # one wrapper, two kernels: dK/dV (:164) and dQ (:214)
             entry["replaces_also"] = "deepspeed_tpu/ops/flash_attention.py:214"
+        if name == "paged_attention_int8":
+            entry["note"] = ("the has_scale specialisation of the TPU "
+                             "kernel; library_ms is two calls (dequantise "
+                             "the gathered pages, then SDPA)")
+        if name == "rmsnorm_res":
+            entry["note"] = ("an op entry point that no model path calls, "
+                             "in this package as in the JAX one: 0 launches"
+                             " on every path; library_ms is two calls (add,"
+                             " then F.rms_norm)")
         line["kernels"].append(entry)
     print(json.dumps(line))
     print(card_line())

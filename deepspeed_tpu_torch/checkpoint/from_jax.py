@@ -11,8 +11,10 @@ never imports JAX.  Both layer layouts are accepted and kept:
 
 Leaf layouts are the JAX package's own (``wq [E,H,D]``, ``wk/wv
 [E,K,D]``, ``wo [H,D,E]``, ``mlp.wi`` up ``[E,F]``, ``mlp.wg`` gate
-``[E,F]``, ``mlp.wo [F,E]``, ``lm_head [E,V]``), so no transposes happen
-here; shapes are checked against the config.
+``[E,F]``, ``mlp.wo [F,E]``, ``lm_head [E,V]``, ``embed.positions
+[max_seq_len,E]``, biases ``bq [H,D]``, ``bk/bv [K,D]``, ``bo [E]``,
+``bi [F]``, ``lm_head_bias [V]``), so no transposes happen here; every
+leaf the config calls for is checked for presence and shape.
 
 :func:`to_numpy` goes back: training masters (fp32) leave the port as
 numpy arrays bit for bit, so a JAX tree bridged in, trained and brought
@@ -46,26 +48,49 @@ def _to_tensor(leaf, device: torch.device,
     return t.to(device)
 
 
+def _norm_shapes(cfg: TransformerConfig, name: str) -> Dict[str, tuple]:
+    e = cfg.hidden_size
+    shapes = {f"{name}.scale": (e,)}
+    if cfg.norm == "layernorm":
+        shapes[f"{name}.bias"] = (e,)
+    return shapes
+
+
 def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    """Every leaf a layer of ``cfg`` holds (the JAX ``layer_init``)."""
     e, f = cfg.hidden_size, cfg.intermediate_size
     h, k, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
-    return {"attn.wq": (e, h, d), "attn.wk": (e, k, d), "attn.wv": (e, k, d),
-            "attn.wo": (h, d, e), "mlp.wi": (e, f), "mlp.wg": (e, f),
-            "mlp.wo": (f, e), "norm1.scale": (e,), "norm2.scale": (e,)}
+    shapes = {"attn.wq": (e, h, d), "attn.wk": (e, k, d),
+              "attn.wv": (e, k, d), "attn.wo": (h, d, e),
+              "mlp.wi": (e, f), "mlp.wo": (f, e),
+              **_norm_shapes(cfg, "norm1"), **_norm_shapes(cfg, "norm2")}
+    if "gated" in cfg.activation:
+        shapes["mlp.wg"] = (e, f)
+    if cfg.use_bias or cfg.qkv_bias:
+        shapes.update({"attn.bq": (h, d), "attn.bk": (k, d),
+                       "attn.bv": (k, d)})
+    if cfg.use_bias:
+        shapes.update({"attn.bo": (e,), "mlp.bi": (f,), "mlp.bo": (e,)})
+    return shapes
+
+
+def _check_leaves(tree: Dict[str, Any], shapes: Dict[str, tuple],
+                  lead: tuple, where: str) -> None:
+    for name, shape in shapes.items():
+        node = tree
+        for key in name.split("."):
+            if not isinstance(node, dict) or key not in node:
+                raise KeyError(f"{where}: missing {name}")
+            node = node[key]
+        got = tuple(np.shape(node))
+        if got != lead + shape:
+            raise ValueError(
+                f"{where}.{name}: shape {got}, expected {lead + shape}")
 
 
 def _check_layer(cfg: TransformerConfig, lp: Dict[str, Any],
                  lead: tuple, where: str) -> None:
-    for name, shape in _expected_shapes(cfg).items():
-        group, leaf = name.split(".")
-        if group not in lp or leaf not in lp[group]:
-            if name == "mlp.wg" and "gated" not in cfg.activation:
-                continue
-            raise KeyError(f"{where}: missing {name}")
-        got = tuple(np.shape(lp[group][leaf]))
-        if got != lead + shape:
-            raise ValueError(
-                f"{where}.{name}: shape {got}, expected {lead + shape}")
+    _check_leaves(lp, _expected_shapes(cfg), lead, where)
 
 
 def _convert(tree, device, dtype, path=()):
@@ -74,7 +99,8 @@ def _convert(tree, device, dtype, path=()):
                 for k, v in tree.items()}
     # norm scales and biases stay fp32 (the JAX norms compute in fp32);
     # matrices and embeddings take ``dtype`` when one is given
-    small = any("norm" in p for p in path) or path[-1].startswith("b")
+    small = (any("norm" in p for p in path) or path[-1].startswith("b")
+             or path[-1] == "lm_head_bias")
     return _to_tensor(tree, device, torch.float32 if small else dtype)
 
 
@@ -99,12 +125,16 @@ def from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                 raise ValueError(f"per-layer tree lacks layer_{i}")
             _check_layer(cfg, layers[f"layer_{i}"], (), f"layers.layer_{i}")
     v, e = cfg.vocab_size, cfg.hidden_size
-    if tuple(np.shape(tree["embed"]["tokens"])) != (v, e):
-        raise ValueError(f"embed.tokens shape {np.shape(tree['embed']['tokens'])}"
-                         f", expected {(v, e)}")
-    if not cfg.tie_embeddings and tuple(np.shape(tree["lm_head"])) != (e, v):
-        raise ValueError(f"lm_head shape {np.shape(tree['lm_head'])}, "
-                         f"expected {(e, v)}")
+    top = {"embed.tokens": (v, e), **_norm_shapes(cfg, "final_norm")}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = (e, v)
+    if cfg.pos_emb == "learned":
+        top["embed.positions"] = (cfg.max_seq_len, e)
+    if cfg.embed_layernorm:
+        top.update(_norm_shapes(cfg, "embed.norm"))
+    if "lm_head_bias" in tree:          # the phi family ships one
+        top["lm_head_bias"] = (v,)
+    _check_leaves(tree, top, (), "params")
     return _convert(tree, dev, dtype)
 
 

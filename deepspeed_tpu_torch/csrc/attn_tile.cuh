@@ -1,5 +1,5 @@
 // Online-softmax attention over one 64-key block, shared by the paged
-// attention and flash forward kernels.
+// attention kernels (bf16 and int8 pages) and the flash forward kernel.
 //
 // A block of 128 threads owns a tile of ROWS query rows (fp32 in shared
 // memory) and walks key blocks of 64.  Per key block:
@@ -91,6 +91,84 @@ struct Tile {
     for (int j = 0; j < 8; ++j) {
       kt[(chunk * 8 + j) * kKtStride + t] = fk[j];
       vs[t * kHeadDim + chunk * 8 + j] = fv[j];
+    }
+  }
+};
+
+// Staging of one int8 KV page (block-scaled codes, one fp32 scale per
+// token and kv head) into a Tile's fp32 K^T and V.
+//
+// Two steps, so that both the global loads and the shared-memory stores
+// are regular.  load_chunk: 8 neighbouring threads read one 128-byte row
+// of codes as 16-byte loads (a row of int8 codes is 128 B, half a bf16
+// row) and drop the words into rows of 33 words -- the odd stride puts
+// word g of key t in bank (t + g) % 32.  dequantize, after a barrier:
+// for K a warp takes 32 keys at one word, reads banks t + g, and writes
+// kt[d][t] along t, all without conflicts; for V a warp takes the 32
+// words of one key and writes its 512 bytes of fp32 in one sweep.  The
+// dequantised page exists only in shared memory: device memory traffic
+// stays int8-sized.
+//
+// Numerics follow the TPU kernel: K is float(code) * scale rounded to
+// bf16 (it meets a bf16 q), V is float(code) * scale kept in fp32 (it
+// meets fp32 probabilities).  A row never written has codes 0 and scale
+// 0 and dequantises to exactly 0.
+constexpr int kCodeWords = kHeadDim / 4;        // 32 words of 4 codes per row
+constexpr int kCodeStride = kCodeWords + 1;
+
+struct Int8Stage {
+  uint32_t* k;     // [kKeys][kCodeStride]
+  uint32_t* v;     // [kKeys][kCodeStride]
+  float* k_scale;  // [kKeys]
+  float* v_scale;  // [kKeys]
+
+  static constexpr int words = 2 * kKeys * kCodeStride + 2 * kKeys;
+  static constexpr size_t bytes = words * sizeof(uint32_t);
+
+  __device__ explicit Int8Stage(float* smem) {
+    k = reinterpret_cast<uint32_t*>(smem);
+    v = k + kKeys * kCodeStride;
+    k_scale = reinterpret_cast<float*>(v + kKeys * kCodeStride);
+    v_scale = k_scale + kKeys;
+  }
+
+  // 16 codes of key t (chunk in [0, 8)); nullptr = past the page: zeros.
+  __device__ void load_chunk(int t, int chunk, const int8_t* krow,
+                             const int8_t* vrow) {
+    uint4 kq = make_uint4(0u, 0u, 0u, 0u), vq = kq;
+    if (krow != nullptr) {
+      kq = *reinterpret_cast<const uint4*>(krow + chunk * 16);
+      vq = *reinterpret_cast<const uint4*>(vrow + chunk * 16);
+    }
+    uint32_t* kd = k + t * kCodeStride + chunk * 4;
+    uint32_t* vd = v + t * kCodeStride + chunk * 4;
+    kd[0] = kq.x; kd[1] = kq.y; kd[2] = kq.z; kd[3] = kq.w;
+    vd[0] = vq.x; vd[1] = vq.y; vd[2] = vq.z; vd[3] = vq.w;
+  }
+
+  // Code j (0..3) of a little-endian word, as a float.
+  __device__ static float code(uint32_t word, int j) {
+    return static_cast<float>(static_cast<signed char>(word >> (8 * j)));
+  }
+
+  template <int ROWS>
+  __device__ void dequantize(Tile<ROWS>& T) const {
+    for (int c = threadIdx.x; c < kKeys * kCodeWords; c += kThreads) {
+      const int t = c % kKeys, g = c / kKeys;  // a warp: 32 keys, one word
+      const uint32_t word = k[t * kCodeStride + g];
+      const float scale = k_scale[t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        T.kt[(4 * g + j) * kKtStride + t] =
+            __bfloat162float(__float2bfloat16(code(word, j) * scale));
+    }
+    for (int c = threadIdx.x; c < kKeys * kCodeWords; c += kThreads) {
+      const int g = c % kCodeWords, t = c / kCodeWords;  // a warp: one key
+      const uint32_t word = v[t * kCodeStride + g];
+      const float scale = v_scale[t];
+      *reinterpret_cast<float4*>(T.vs + t * kHeadDim + 4 * g) =
+          make_float4(code(word, 0) * scale, code(word, 1) * scale,
+                      code(word, 2) * scale, code(word, 3) * scale);
     }
   }
 };

@@ -46,3 +46,36 @@ __device__ __forceinline__ float ds_warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// Sum over a block of THREADS threads (a multiple of 32, at most 1024);
+// every thread returns the total.  `scratch` holds THREADS / 32 floats of
+// shared memory and may be reused by the next call: the leading barrier
+// waits until the previous call's partials have been read.
+template <int THREADS>
+__device__ __forceinline__ float ds_block_sum(float v, float* scratch) {
+  v = ds_warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  return ds_warp_sum(lane < THREADS / 32 ? scratch[lane] : 0.f);
+}
+
+// 8 floats -> 8 bf16 values (round to nearest even), one 16-byte store.
+__device__ __forceinline__ uint4 ds_float8_to_bf16(const float* f) {
+  uint4 packed;
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return packed;
+}
+
+// 8 consecutive fp32 values of a 32-byte-aligned vector.
+__device__ __forceinline__ void ds_load_float8(const float* v, int chunk,
+                                               float* out) {
+  const float4 a = reinterpret_cast<const float4*>(v)[2 * chunk];
+  const float4 b = reinterpret_cast<const float4*>(v)[2 * chunk + 1];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+

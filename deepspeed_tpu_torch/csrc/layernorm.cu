@@ -1,0 +1,89 @@
+// LayerNorm: y = (x - mean) * rsqrt(var + eps) * w + b with
+// var = mean((x - mean)^2), moments in fp32, cast back to bf16.
+//
+// Replaces: deepspeed_tpu/ops/normalization.py:_layernorm_kernel (via
+// layernorm / _row_call).  Serving a LayerNorm family (OPT, GPT-2, BLOOM,
+// GPT-NeoX, Falcon, Phi) runs it twice per layer plus the final norm on
+// every step, and once more on the embeddings where the family norms
+// them.
+//
+// Layout: x, out [N, E] bf16 contiguous, w and b [E] fp32 (the JAX
+// package keeps norm scales and biases in fp32).  E % 8 == 0 and
+// E <= 8192.
+//
+// Grid: one block of 256 threads per row.  Each thread loads its 16-byte
+// chunks of the row once and keeps them as fp32 in registers (at most 4
+// chunks, 32 values).  The variance is the two-pass form on those
+// registers, not E[x^2] - mean^2: rows with a mean far above their spread
+// (embeddings plus positions) would lose every digit to cancellation.
+// Two block reductions per row, then the same registers are scaled,
+// shifted and stored -- x is read once and y written once.
+//
+// Bound on the H100: bytes, 2 * N * E * 2 B + 2 * E * 4 B at 3.35 TB/s;
+// the arithmetic is a few flops per element.  At decode sizes (N = 16)
+// the launch, not the bytes, sets the time.
+
+#include "common.cuh"
+
+constexpr int kThreads = 256;
+constexpr int kMaxChunks = 4;  // 16-byte chunks per thread: E <= 8192
+
+__global__ void __launch_bounds__(kThreads)
+layernorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ b, __nv_bfloat16* __restrict__ out,
+                 int E, float eps) {
+  const int row = blockIdx.x;
+  const int n_chunks = E / 8;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * E);
+  uint4* yr = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * E);
+  __shared__ float scratch[kThreads / 32];
+
+  float f[kMaxChunks][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxChunks; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    if (c < n_chunks) {
+      ds_bf16x8_to_float(xr[c], f[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += f[i][j];
+    }
+  }
+  const float mean = ds_block_sum<kThreads>(sum, scratch) / static_cast<float>(E);
+
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxChunks; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    if (c < n_chunks) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        f[i][j] -= mean;
+        ss = fmaf(f[i][j], f[i][j], ss);
+      }
+    }
+  }
+  const float var = ds_block_sum<kThreads>(ss, scratch) / static_cast<float>(E);
+  const float inv = rsqrtf(var + eps);
+
+#pragma unroll
+  for (int i = 0; i < kMaxChunks; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    if (c < n_chunks) {
+      float ws[8], bs[8], y[8];
+      ds_load_float8(w, c, ws);
+      ds_load_float8(b, c, bs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[j] = f[i][j] * inv * ws[j] + bs[j];
+      yr[c] = ds_float8_to_bf16(y);
+    }
+  }
+}
+
+DS_EXPORT int layernorm_bf16(const void* x, const void* w, const void* b,
+                             void* out, int N, int E, float eps, void* stream) {
+  layernorm_kernel<<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(out), E, eps);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -7,6 +7,11 @@
 // Layout (the JAX package's):
 //   q          [S, Q, H, D]               bf16, H = K * G
 //   kv         [num_pages + 1, page, 2, K, D] bf16, page 0 = null page
+//              or, for paged_attention_int8 (the TPU kernel's has_scale
+//              specialisation), int8 codes at that shape plus fp32
+//              scales [num_pages + 1, page, 2, K], one per token and kv
+//              head; the page is dequantised in shared memory
+//              (attn_tile.cuh: Int8Stage), never in device memory
 //   page_table [S, P] int32, start_pos [S] int32
 //   out        [S, Q, H, D]               bf16
 // Row r of a slot's (kv head k) problem is query r / G, group r % G
@@ -25,9 +30,10 @@
 // memory once per block and the online softmax runs in fp32.
 //
 // Bound on the H100: bytes.  A decode step reads every context token's K
-// and V once (context tokens x 2 x K x D x 2 B) plus q and out; at
-// 3.35 TB/s that is the floor.  The FMA work is ~2 flops per byte read
-// for Q = 1, far below the ~295 flop/byte ridge.
+// and V once (context tokens x 2 x K x D x 2 B, or x (D + 4) B for int8
+// codes with their scales) plus q and out; at 3.35 TB/s that is the
+// floor.  The FMA work is ~2 flops per byte read for Q = 1, far below
+// the ~295 flop/byte ridge.
 // Known weakness: with small S * K and Q = 1 the grid (S * K blocks)
 // underfills the 132 SMs and one block walks the whole context; a
 // flash-decoding split over page chunks plus a reduce pass is the fix.
@@ -61,10 +67,11 @@ struct PagedScore {
   }
 };
 
-template <int ROWS, bool WINDOW, bool ALIBI>
+template <int ROWS, bool WINDOW, bool ALIBI, bool INT8>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ kv,
+                       const void* __restrict__ kv,
+                       const float* __restrict__ kv_scale,
                        const int* __restrict__ page_table,
                        const int* __restrict__ start_pos,
                        const float* __restrict__ slopes,
@@ -102,23 +109,46 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const int first_key = start + row0 / G + 1 - window;
     p_lo = first_key > 0 ? first_key / page_size : 0;
   }
+  // elements (bf16 values or int8 codes) from one token to the next
   const size_t token_stride = static_cast<size_t>(2) * K * kHeadDim;
   const float* head_slopes = ALIBI ? slopes + k * G : nullptr;
 
   for (int p = p_lo; p < p_hi; ++p) {
     const int page = page_table[s * P + p];
-    const __nv_bfloat16* base =
-        kv + static_cast<size_t>(page) * page_size * token_stride + k * kHeadDim;
+    const size_t page_off =
+        static_cast<size_t>(page) * page_size * token_stride + k * kHeadDim;
     __syncthreads();  // the previous page is no longer read
-    for (int c = threadIdx.x; c < kKeys * (kHeadDim / 8); c += kThreads) {
-      const int t = c / (kHeadDim / 8), chunk = c % (kHeadDim / 8);
-      const __nv_bfloat16* krow = nullptr;
-      const __nv_bfloat16* vrow = nullptr;
-      if (t < page_size) {
-        krow = base + t * token_stride;
-        vrow = krow + K * kHeadDim;
+    if constexpr (INT8) {
+      Int8Stage stage(smem + SmemLayout<ROWS>::floats);
+      const int8_t* base = static_cast<const int8_t*>(kv) + page_off;
+      for (int c = threadIdx.x; c < kKeys * (kHeadDim / 16); c += kThreads) {
+        const int t = c / (kHeadDim / 16), chunk = c % (kHeadDim / 16);
+        const int8_t* krow = t < page_size ? base + t * token_stride : nullptr;
+        stage.load_chunk(t, chunk, krow,
+                         krow != nullptr ? krow + K * kHeadDim : nullptr);
       }
-      T.store_kv_chunk(t, chunk, krow, vrow);
+      // scales [page, slot, 0|1, k]: no head_dim axis
+      const float* sc =
+          kv_scale + static_cast<size_t>(page) * page_size * 2 * K + k;
+      for (int t = threadIdx.x; t < kKeys; t += kThreads) {
+        const bool live = t < page_size;
+        stage.k_scale[t] = live ? sc[static_cast<size_t>(t) * 2 * K] : 0.f;
+        stage.v_scale[t] = live ? sc[static_cast<size_t>(t) * 2 * K + K] : 0.f;
+      }
+      __syncthreads();
+      stage.dequantize(T);
+    } else {
+      const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(kv) + page_off;
+      for (int c = threadIdx.x; c < kKeys * (kHeadDim / 8); c += kThreads) {
+        const int t = c / (kHeadDim / 8), chunk = c % (kHeadDim / 8);
+        const __nv_bfloat16* krow = nullptr;
+        const __nv_bfloat16* vrow = nullptr;
+        if (t < page_size) {
+          krow = base + t * token_stride;
+          vrow = krow + K * kHeadDim;
+        }
+        T.store_kv_chunk(t, chunk, krow, vrow);
+      }
     }
     __syncthreads();
     PagedScore<WINDOW, ALIBI> score{p * page_size, page_size, start, row0,
@@ -139,13 +169,26 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int ROWS, bool WINDOW, bool ALIBI>
-static int launch(const void* q, const void* kv, const void* page_table,
-                  const void* start_pos, const void* slopes, void* out, int S,
-                  int Q, int H, int K, int P, int page_size, float scale,
-                  int window, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<ROWS, WINDOW, ALIBI>;
-  constexpr size_t smem = SmemLayout<ROWS>::bytes;
+// Everything a launch needs besides its template parameters.
+struct PagedArgs {
+  const void* q;
+  const void* kv;
+  const void* kv_scale;  // int8 pages only
+  const void* page_table;
+  const void* start_pos;
+  const void* slopes;    // nullptr: no ALiBi
+  void* out;
+  int S, Q, H, K, P, page_size;
+  float scale;
+  int window;            // <= 0: no sliding window
+  cudaStream_t stream;
+};
+
+template <int ROWS, bool WINDOW, bool ALIBI, bool INT8>
+static int launch(const PagedArgs& a) {
+  auto kernel = paged_attention_kernel<ROWS, WINDOW, ALIBI, INT8>;
+  constexpr size_t smem =
+      SmemLayout<ROWS>::bytes + (INT8 ? Int8Stage::bytes : 0);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -153,31 +196,33 @@ static int launch(const void* q, const void* kv, const void* page_table,
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  const int R = Q * (H / K);
-  dim3 grid((R + ROWS - 1) / ROWS, K, S);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv),
-      static_cast<const int*>(page_table), static_cast<const int*>(start_pos),
-      static_cast<const float*>(slopes), static_cast<__nv_bfloat16*>(out), Q, H,
-      K, P, page_size, scale, window);
+  const int R = a.Q * (a.H / a.K);
+  dim3 grid((R + ROWS - 1) / ROWS, a.K, a.S);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), a.kv,
+      static_cast<const float*>(a.kv_scale),
+      static_cast<const int*>(a.page_table), static_cast<const int*>(a.start_pos),
+      static_cast<const float*>(a.slopes), static_cast<__nv_bfloat16*>(a.out),
+      a.Q, a.H, a.K, a.P, a.page_size, a.scale, a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WINDOW, bool ALIBI>
-static int dispatch_rows(int rows, const void* q, const void* kv,
-                         const void* page_table, const void* start_pos,
-                         const void* slopes, void* out, int S, int Q, int H,
-                         int K, int P, int page_size, float scale, int window,
-                         cudaStream_t stream) {
-#define DS_LAUNCH(N)                                                         \
-  return launch<N, WINDOW, ALIBI>(q, kv, page_table, start_pos, slopes, out, \
-                                  S, Q, H, K, P, page_size, scale, window,   \
-                                  stream)
-  if (rows <= 1) DS_LAUNCH(1);
-  if (rows <= 4) DS_LAUNCH(4);
-  if (rows <= 16) DS_LAUNCH(16);
-  DS_LAUNCH(64);
-#undef DS_LAUNCH
+template <bool WINDOW, bool ALIBI, bool INT8>
+static int dispatch_rows(const PagedArgs& a) {
+  const int rows = a.Q * (a.H / a.K);
+  if (rows <= 1) return launch<1, WINDOW, ALIBI, INT8>(a);
+  if (rows <= 4) return launch<4, WINDOW, ALIBI, INT8>(a);
+  if (rows <= 16) return launch<16, WINDOW, ALIBI, INT8>(a);
+  return launch<64, WINDOW, ALIBI, INT8>(a);
+}
+
+template <bool INT8>
+static int dispatch(const PagedArgs& a) {
+  const bool win = a.window > 0, alibi = a.slopes != nullptr;
+  if (win && alibi) return dispatch_rows<true, true, INT8>(a);
+  if (win) return dispatch_rows<true, false, INT8>(a);
+  if (alibi) return dispatch_rows<false, true, INT8>(a);
+  return dispatch_rows<false, false, INT8>(a);
 }
 
 // window <= 0: no sliding window; slopes == nullptr: no ALiBi.
@@ -186,22 +231,20 @@ DS_EXPORT int paged_attention_bf16(const void* q, const void* kv,
                                    const void* slopes, void* out, int S, int Q,
                                    int H, int K, int P, int page_size,
                                    float scale, int window, void* stream) {
-  const int rows = Q * (H / K);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool win = window > 0, alibi = slopes != nullptr;
-  if (win && alibi)
-    return dispatch_rows<true, true>(rows, q, kv, page_table, start_pos, slopes,
-                                     out, S, Q, H, K, P, page_size, scale,
-                                     window, st);
-  if (win)
-    return dispatch_rows<true, false>(rows, q, kv, page_table, start_pos, slopes,
-                                      out, S, Q, H, K, P, page_size, scale,
-                                      window, st);
-  if (alibi)
-    return dispatch_rows<false, true>(rows, q, kv, page_table, start_pos, slopes,
-                                      out, S, Q, H, K, P, page_size, scale,
-                                      window, st);
-  return dispatch_rows<false, false>(rows, q, kv, page_table, start_pos, slopes,
-                                     out, S, Q, H, K, P, page_size, scale,
-                                     window, st);
+  return dispatch<false>({q, kv, nullptr, page_table, start_pos, slopes, out, S,
+                          Q, H, K, P, page_size, scale, window,
+                          static_cast<cudaStream_t>(stream)});
+}
+
+// kv: int8 codes [num_pages + 1, page, 2, K, D]; kv_scale: fp32
+// [num_pages + 1, page, 2, K].
+DS_EXPORT int paged_attention_int8(const void* q, const void* kv,
+                                   const void* kv_scale, const void* page_table,
+                                   const void* start_pos, const void* slopes,
+                                   void* out, int S, int Q, int H, int K, int P,
+                                   int page_size, float scale, int window,
+                                   void* stream) {
+  return dispatch<true>({q, kv, kv_scale, page_table, start_pos, slopes, out, S,
+                         Q, H, K, P, page_size, scale, window,
+                         static_cast<cudaStream_t>(stream)});
 }

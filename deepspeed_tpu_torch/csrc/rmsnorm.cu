@@ -1,21 +1,27 @@
 // RMSNorm: y = x * rsqrt(mean(x^2) + eps) * w, moments in fp32, cast
-// back to bf16.
+// back to bf16; and its fused residual-add form.
 //
-// Replaces: deepspeed_tpu/ops/normalization.py:_rmsnorm_kernel (via
-// rmsnorm / _row_call).  Serving runs it twice per layer plus the final
-// norm on every step.
+// Replaces: deepspeed_tpu/ops/normalization.py:_rmsnorm_kernel and
+// _rmsnorm_res_kernel (via rmsnorm / _row_call).  Serving an RMSNorm
+// family runs rmsnorm_bf16 twice per layer plus the final norm on every
+// step.  rmsnorm_res_bf16 is the op entry point rmsnorm(x, w, eps,
+// residual=r): as in the JAX package, no model path calls it.
 //
-// Layout: x, out [N, E] bf16 contiguous, w [E] fp32 (the JAX package
-// keeps norm scales in fp32).  E % 8 == 0 and E <= 8192.
+// Layout: x, res, out, res_out [N, E] bf16 contiguous, w [E] fp32 (the
+// JAX package keeps norm scales in fp32).  E % 8 == 0 and E <= 8192.
 //
 // Grid: one block of 256 threads per row.  Each thread loads its 16-byte
 // chunks of the row once (at most 4, kept in registers), the fp32 sum of
 // squares reduces through warp shuffles and shared memory, and the same
 // registers are scaled and stored -- x is read once and y written once.
+// The residual form adds x + res in fp32, stores the sum rounded to bf16
+// as the new residual, and takes the moment and the output from the
+// UNROUNDED fp32 sum it keeps in registers.
 //
-// Bound on the H100: bytes, 2 * N * E * 2 B + E * 4 B at 3.35 TB/s; the
-// arithmetic is a few flops per element.  At decode sizes (N = 8) the
-// launch, not the bytes, sets the time.
+// Bound on the H100: bytes, 2 * N * E * 2 B + E * 4 B at 3.35 TB/s
+// (4 * N * E * 2 B + E * 4 B with the residual: two reads, two writes);
+// the arithmetic is a few flops per element.  At decode sizes (N = 8)
+// the launch, not the bytes, sets the time.
 
 #include "common.cuh"
 
@@ -29,6 +35,7 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
   const int n_chunks = E / 8;
   const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * E);
   uint4* yr = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * E);
+  __shared__ float scratch[kThreads / 32];
 
   uint4 cache[kMaxChunks];
   float ss = 0.f;
@@ -43,36 +50,65 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
       for (int j = 0; j < 8; ++j) ss = fmaf(f[j], f[j], ss);
     }
   }
-
-  __shared__ float partial[kThreads / 32];
-  ss = ds_warp_sum(ss);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float v = lane < kThreads / 32 ? partial[lane] : 0.f;
-    v = ds_warp_sum(v);
-    if (lane == 0) partial[0] = v;
-  }
-  __syncthreads();
-  const float inv = rsqrtf(partial[0] / static_cast<float>(E) + eps);
+  const float inv = rsqrtf(
+      ds_block_sum<kThreads>(ss, scratch) / static_cast<float>(E) + eps);
 
 #pragma unroll
   for (int i = 0; i < kMaxChunks; ++i) {
     const int c = threadIdx.x + i * kThreads;
     if (c < n_chunks) {
-      float f[8];
+      float f[8], ws[8];
       ds_bf16x8_to_float(cache[i], f);
-      const float4 w0 = reinterpret_cast<const float4*>(w)[2 * c];
-      const float4 w1 = reinterpret_cast<const float4*>(w)[2 * c + 1];
-      const float ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-      uint4 packed;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&packed);
+      ds_load_float8(w, c, ws);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        p[j] = __floats2bfloat162_rn(f[2 * j] * inv * ws[2 * j],
-                                     f[2 * j + 1] * inv * ws[2 * j + 1]);
-      yr[c] = packed;
+      for (int j = 0; j < 8; ++j) f[j] = f[j] * inv * ws[j];
+      yr[c] = ds_float8_to_bf16(f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_res_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ res,
+                   const float* __restrict__ w, __nv_bfloat16* __restrict__ out,
+                   __nv_bfloat16* __restrict__ res_out, int E, float eps) {
+  const size_t row = static_cast<size_t>(blockIdx.x) * E;
+  const int n_chunks = E / 8;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row);
+  const uint4* rr = reinterpret_cast<const uint4*>(res + row);
+  uint4* yr = reinterpret_cast<uint4*>(out + row);
+  uint4* sr = reinterpret_cast<uint4*>(res_out + row);
+  __shared__ float scratch[kThreads / 32];
+
+  float s[kMaxChunks][8];  // x + res, fp32, never rounded
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxChunks; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    if (c < n_chunks) {
+      float r[8];
+      ds_bf16x8_to_float(xr[c], s[i]);
+      ds_bf16x8_to_float(rr[c], r);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] += r[j];
+        ss = fmaf(s[i][j], s[i][j], ss);
+      }
+      sr[c] = ds_float8_to_bf16(s[i]);
+    }
+  }
+  const float inv = rsqrtf(
+      ds_block_sum<kThreads>(ss, scratch) / static_cast<float>(E) + eps);
+
+#pragma unroll
+  for (int i = 0; i < kMaxChunks; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    if (c < n_chunks) {
+      float ws[8], y[8];
+      ds_load_float8(w, c, ws);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[j] = s[i][j] * inv * ws[j];
+      yr[c] = ds_float8_to_bf16(y);
     }
   }
 }
@@ -82,5 +118,17 @@ DS_EXPORT int rmsnorm_bf16(const void* x, const void* w, void* out, int N,
   rmsnorm_kernel<<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
       static_cast<__nv_bfloat16*>(out), E, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out and res_out are distinct from x and res (the wrapper allocates
+// them): the kernel's pointers are __restrict__.
+DS_EXPORT int rmsnorm_res_bf16(const void* x, const void* res, const void* w,
+                               void* out, void* res_out, int N, int E,
+                               float eps, void* stream) {
+  rmsnorm_res_kernel<<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(res),
+      static_cast<const float*>(w), static_cast<__nv_bfloat16*>(out),
+      static_cast<__nv_bfloat16*>(res_out), E, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,11 +7,13 @@ sampling, so only int32 tokens cross device->host; ``query`` /
 ``can_schedule`` expose KV and token occupancy to the scheduler;
 ``flush(uid)`` frees sequence state.  A step mixing decode rows with
 prefill chunks runs as two segments ([S_d, 1] + [S_p, Q]) so decode
-rows never pad to the chunk width.
+rows never pad to the chunk width.  The engine builds the KV cache: fp
+pages, or int8 ``KVPages`` when ``serving.kv_quantization`` says so.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import List, Optional, Sequence, Tuple
 
@@ -20,7 +22,7 @@ import torch
 
 from .config import RaggedInferenceEngineConfig
 from .model import RaggedInferenceModel
-from .ragged import StateManager, build_batch, placeholder
+from .ragged import KVCacheConfig, StateManager, build_batch, placeholder
 from .sampling import SamplingParams
 
 
@@ -42,10 +44,20 @@ class InferenceEngineV2:
     def __init__(self, model: RaggedInferenceModel,
                  config: Optional[RaggedInferenceEngineConfig] = None):
         self._config = config or RaggedInferenceEngineConfig()
+        self._config.serving.validate()
         self._model = model
+        model.kv_config = self._resolve_kv_config(model)
         self._state = StateManager(
             model.kv_config, model.device,
             max_tracked_sequences=self._config.state_manager.max_tracked_sequences)
+
+    def _resolve_kv_config(self, model: RaggedInferenceModel) -> KVCacheConfig:
+        """The cache the engine builds: the model's page geometry and
+        dtype (given or default), with the serving knob
+        ``kv_quantization`` in place of the model's cache encoding (it is
+        an encoding, not geometry)."""
+        quant = self._config.serving.kv_quantization or "none"
+        return dataclasses.replace(model.kv_config, quantization=quant)
 
     # -- introspection -------------------------------------------------------
     @property

@@ -5,8 +5,9 @@ compiles one program per batch bucket ``(S, Q, P)`` and donates the KV
 cache to it; here each step runs eagerly and writes the KV cache IN
 PLACE (``write_kv``'s indexed assignment into the cache tensor), so the
 step methods return only tokens or logits.  Attention, norm, embedding
-and unembedding come from the ``modules`` registry: on a CUDA bf16 model
-the hand-written kernels, elsewhere (or when named) the plain versions.
+and unembedding come from the ``modules`` registry: on the card the
+hand-written kernels (a model they do not take raises), on the CPU or
+when named the plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 
 from ...accelerator import DeviceLike, resolve_device
 from ...models import transformer as T
-from ...ops.paged_attention import rope_write_kv, token_positions, write_kv
+from ...ops.paged_attention import (KVLayer, rope_write_kv, token_positions,
+                                    write_kv)
 from ...tree import tree_map
 from .modules import instantiate, resolve
 from .ragged import KVCacheConfig, RaggedBatch
@@ -37,7 +39,8 @@ class RaggedInferenceModel:
     ``"cpu"``.  ``implementations`` pins an op class to a named
     implementation (e.g. ``{"ragged_attention": "dense_gather"}``);
     unnamed classes take the registry's highest-priority implementation
-    that supports this model and device."""
+    that supports this model and device, and on the card never a plain
+    version in a kernel's place (``NotImplementedError``)."""
 
     def __init__(self, cfg: T.TransformerConfig, params: Dict[str, Any],
                  kv_config: Optional[KVCacheConfig] = None,
@@ -83,14 +86,14 @@ class RaggedInferenceModel:
 
     # -- public steps --------------------------------------------------------
     @torch.no_grad()
-    def forward(self, batch: RaggedBatch, kv: torch.Tensor) -> torch.Tensor:
+    def forward(self, batch: RaggedBatch, kv: KVLayer) -> torch.Tensor:
         """One ragged forward; returns fp32 logits [S, V] (rows past the
         live sequences are padding).  ``kv`` is updated in place."""
         return self._step_impl(self.params, kv, *self._batch_tensors(batch),
                                fresh=batch.fresh)
 
     @torch.no_grad()
-    def sample_step(self, batch: RaggedBatch, kv: torch.Tensor,
+    def sample_step(self, batch: RaggedBatch, kv: KVLayer,
                     generator: torch.Generator, temps, top_ks, top_ps,
                     greedy_only: bool) -> torch.Tensor:
         """Forward + on-device sampling: returns tokens [S] int32 on the
@@ -102,7 +105,7 @@ class RaggedInferenceModel:
 
     @torch.no_grad()
     def sample_step_mixed(self, dec_batch: RaggedBatch,
-                          pre_batch: RaggedBatch, kv: torch.Tensor,
+                          pre_batch: RaggedBatch, kv: KVLayer,
                           generator: torch.Generator, temps, top_ks, top_ps,
                           greedy_only: bool) -> torch.Tensor:
         """Mixed SplitFuse step over TWO batch geometries: a decode
@@ -134,11 +137,17 @@ class RaggedInferenceModel:
     def _forward_hidden(self, params, kv, token_ids, q_lens, start_pos,
                         page_table, fresh: bool = False):
         """Embed -> layers -> final norm.  Returns x [S, Q, E]; ``kv``
-        [L, pages+1, page, 2, K, D] is written in place."""
+        [L, pages+1, page, 2, K, D] (a tensor or ``KVPages``) is written
+        in place."""
         cfg = self.cfg
         S, Q = token_ids.shape
         x = self._embed(params["embed"]["tokens"].to(cfg.dtype), token_ids)
         pos = token_positions(start_pos, Q)
+        if cfg.pos_emb == "learned":
+            safe = torch.clamp(pos, max=cfg.max_seq_len - 1)
+            x = x + params["embed"]["positions"].to(cfg.dtype)[safe]
+        if cfg.embed_layernorm:  # BLOOM word_embeddings_layernorm
+            x = self._norm(params["embed"]["norm"], x)
         sin, cos = (T.rope_table(cfg, pos) if cfg.pos_emb == "rope"
                     else (None, None))
         for i in range(cfg.num_layers):
@@ -153,6 +162,9 @@ class RaggedInferenceModel:
         x = self._forward_hidden(params, kv, token_ids, q_lens, start_pos,
                                  page_table, fresh=fresh)
         logits = self._unembed(x, q_lens, self._lm_head(params))  # [S, V]
+        bias = params.get("lm_head_bias")  # the phi family ships one
+        if bias is not None:
+            logits = logits + bias.to(self.cfg.dtype)
         return logits.float()
 
     def _sample_tokens(self, logits, generator, temps, top_ks, top_ps,

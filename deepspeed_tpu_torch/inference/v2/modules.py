@@ -4,9 +4,11 @@ Counterpart of ``deepspeed_tpu/inference/v2/modules.py``.  Each op class
 maps to named implementations with a priority and a ``supports(cfg,
 device)`` predicate; ``instantiate`` returns the highest-priority one
 that supports the model, or exactly the one named.  The hand-written
-CUDA kernels register at priority 10 and support a model on a CUDA
-device; their plain PyTorch versions register at priority 0 and support
-every device, so naming them runs the plain path on the card too.
+CUDA kernels register at priority 10 and support a bf16 model at
+head_dim 128 on a CUDA device; their plain PyTorch versions register at
+priority 0 and support every device.  Unnamed, a plain version is taken
+only on the CPU: on the card an op class that has a kernel runs it or
+``resolve`` raises, and the plain path runs there only when named.
 """
 
 from __future__ import annotations
@@ -64,6 +66,18 @@ def resolve(op_class: str, cfg: Any, device: torch.device,
                        f"registered: {implementations(op_class)}")
     for i in impls:
         if i.supports(cfg, device):
+            if (device.type != "cpu" and i.priority == 0
+                    and impls[0].priority > 0):
+                # the op class has a kernel and it does not take this
+                # model: never the plain version in its place, unasked
+                raise NotImplementedError(
+                    f"no {op_class} kernel takes this model on {device} "
+                    f"(dtype {cfg.dtype}, head_dim {cfg.dims_per_head}, "
+                    f"norm {cfg.norm!r}; the kernels take torch.bfloat16 "
+                    f"at head_dim {_head_dim()}), and the plain version "
+                    f"{op_class}/{i.name} runs on the card only when "
+                    f"named in `implementations` (ROADMAP Queue 1 item "
+                    f"11k: kernels in fp32 and at other head dims)")
             return i.name
     raise ValueError(f"no {op_class} implementation supports this model "
                      f"on {device}")
@@ -85,9 +99,13 @@ def _cuda_bf16(cfg, device) -> bool:
     return device.type == "cuda" and cfg.dtype == torch.bfloat16
 
 
-def _cuda_attention(cfg, device) -> bool:
+def _head_dim() -> int:
     from ...ops.paged_attention import HEAD_DIM
-    return _cuda_bf16(cfg, device) and cfg.dims_per_head == HEAD_DIM
+    return HEAD_DIM
+
+
+def _cuda_attention(cfg, device) -> bool:
+    return _cuda_bf16(cfg, device) and cfg.dims_per_head == _head_dim()
 
 
 def _alibi_for(cfg):
@@ -100,7 +118,8 @@ def _alibi_for(cfg):
 @register("ragged_attention", "cuda_paged", priority=10,
           supports=_cuda_attention)
 def _cuda_paged(cfg):
-    """Any-Q ragged paged attention through ``csrc/paged_attention.cu``."""
+    """Any-Q ragged paged attention through ``csrc/paged_attention.cu``,
+    over fp pages or int8 ``KVPages``."""
     from ...ops.paged_attention import paged_decode_attention
     slopes = _alibi_for(cfg)
     window = cfg.sliding_window
@@ -170,6 +189,15 @@ def _cuda_norm(cfg):
     from ...ops.normalization import rmsnorm
     eps = cfg.norm_eps
     return lambda p, x: rmsnorm(x, p["scale"], eps)
+
+
+@register("norm", "cuda_layernorm", priority=10,
+          supports=lambda cfg, dev: _cuda_bf16(cfg, dev)
+          and cfg.norm == "layernorm")
+def _cuda_layernorm(cfg):
+    from ...ops.normalization import layernorm
+    eps = cfg.norm_eps
+    return lambda p, x: layernorm(x, p["scale"], p["bias"], eps)
 
 
 @register("norm", "plain", priority=0)

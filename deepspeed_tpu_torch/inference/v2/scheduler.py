@@ -10,7 +10,8 @@ on incremental page/token/sequence counters (``_Admission``), as in the
 JAX package.
 
 Not ported yet (ROADMAP): the async double-buffered chain, speculation,
-prefix caching, preemption, shedding/TTL, snapshots and handoffs.  When
+prefix caching, preemption, shedding/TTL, snapshots and handoffs; a
+``serving`` config asking for one of them raises.  When
 nothing is schedulable, ``run_to_completion`` raises instead of
 preempting.
 """
@@ -23,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .config import ServingOptimizationConfig
 from .engine import InferenceEngineV2
 from .sampling import SamplingParams
 
@@ -75,8 +77,20 @@ class FastGenScheduler:
     rows draw from; greedy-only steps never touch it."""
 
     def __init__(self, engine: InferenceEngineV2,
-                 token_budget: Optional[int] = None, seed: int = 0):
+                 token_budget: Optional[int] = None, seed: int = 0,
+                 serving: Optional[ServingOptimizationConfig] = None):
         self._engine = engine
+        # the serving knobs are the engine's; a ``serving`` given here (as
+        # ``FastGenScheduler(eng, serving=eng._config.serving)``) must
+        # agree with the cache the engine already built
+        if serving is not None:
+            serving.validate()
+            built = engine.model.kv_config.quantization
+            if (serving.kv_quantization or "none") != built:
+                raise ValueError(
+                    f"serving.kv_quantization={serving.kv_quantization!r} "
+                    f"but the engine's cache was built as {built!r}; the "
+                    f"page encoding is fixed at engine build")
         self._budget = (token_budget or
                         engine._config.state_manager.max_ragged_batch_size)
         self._generator = torch.Generator(device=engine.model.device)

@@ -54,7 +54,9 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     # silu_gated | gelu (tanh approx) | gelu_exact | gelu_gated | relu
     activation: str = "silu_gated"
-    pos_emb: str = "rope"              # rope | alibi | none
+    pos_emb: str = "rope"              # rope | learned | alibi | none
+    # layernorm over the token embeddings (BLOOM word_embeddings_layernorm)
+    embed_layernorm: bool = False
     rope_theta: float = 10000.0
     rope_pct: float = 1.0              # partial rotary (GPT-NeoX/phi)
     causal: bool = True
@@ -84,12 +86,19 @@ class TransformerConfig:
         return self.head_dim or self.hidden_size // self.num_heads
 
     def n_params(self) -> int:
+        """Matrices and embeddings (the learned position table and the
+        embedding norm included); layer norms and biases are left out."""
         e, f, l, v = (self.hidden_size, self.intermediate_size,
                       self.num_layers, self.vocab_size)
         h, k, d = self.num_heads, self.kv_heads, self.dims_per_head
         attn = e * h * d + 2 * e * k * d + h * d * e
         mlp = e * f * (3 if "gated" in self.activation else 2)
-        return l * (attn + mlp) + v * e * (1 if self.tie_embeddings else 2)
+        n = l * (attn + mlp) + v * e * (1 if self.tie_embeddings else 2)
+        if self.pos_emb == "learned":
+            n += self.max_seq_len * e
+        if self.embed_layernorm:
+            n += e * (2 if self.norm == "layernorm" else 1)
+        return n
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +171,11 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((e, v), e)
+    if cfg.pos_emb == "learned":
+        params["embed"]["positions"] = dense((cfg.max_seq_len, e), 1,
+                                             scale=0.02)
+    if cfg.embed_layernorm:
+        params["embed"]["norm"] = norm((e,))
     return params
 
 
@@ -381,9 +395,11 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor
     """Token ids [B,S] -> logits [B,S,V] in fp32 (JAX ``forward`` with
     default positions and no padding mask).  Weights are cast to
     ``cfg.dtype``, which is also the activations' dtype."""
-    if cfg.pos_emb not in ("rope", "none"):
-        raise outside_slice(f"training with pos_emb={cfg.pos_emb!r}",
-                            "10 (LayerNorm families)")
+    if cfg.pos_emb not in ("rope", "none") or cfg.embed_layernorm:
+        raise outside_slice(
+            f"training with pos_emb={cfg.pos_emb!r}, "
+            f"embed_layernorm={cfg.embed_layernorm}",
+            "10 (LayerNorm families in training)")
     if cfg.remat and cfg.remat_policy != "nothing_saveable":
         raise outside_slice(f"remat_policy {cfg.remat_policy!r}",
                             "11a (one-GPU training: other remat policies)")

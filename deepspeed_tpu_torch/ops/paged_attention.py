@@ -14,13 +14,17 @@ is padded to a static ``[S, Q]`` grid (``ragged/batch.py``):
                         plain version.
 * ``gather_last``     — last-token hidden-state gather for logits.
 
-Only fp pages are ported; the int8 ``KVPages`` store is a later slice.
+A cache layer is either one fp tensor or a :class:`KVPages` pair (int8
+codes plus one fp32 scale per token and kv head): ``write_kv`` quantises
+at append, the plain version dequantises the gathered context, and the
+kernel wrapper routes a ``KVPages`` layer to ``paged_attention_int8``,
+which dequantises each page in shared memory.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,11 +34,69 @@ from .kernel_loader import CudaKernel, F, I, P, stream_of
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 KERNEL = CudaKernel("paged_attention.cu", {
-    "paged_attention_bf16": [P, P, P, P, P, P] + [I] * 6 + [F, I, P]})
+    "paged_attention_bf16": [P, P, P, P, P, P] + [I] * 6 + [F, I, P],
+    "paged_attention_int8": [P, P, P, P, P, P, P] + [I] * 6 + [F, I, P]})
 
 HEAD_DIM = 128
 #: keys per shared-memory stage of the kernel (pages may be smaller)
 MAX_PAGE = 64
+
+#: supported ``kv_quantization`` values
+KV_QUANT_FORMATS = ("none", "int8")
+
+
+class KVPages:
+    """Block-scaled int8 KV page store: the quantised twin of the fp
+    ``[..., page, 2, K, D]`` cache tensor.
+
+    ``payload`` holds the int8 codes at the fp layout's exact shape;
+    ``scale`` is the per-(token, kv-head) fp32 sidecar, one scale per
+    ``head_dim`` block (``payload.shape[:-1]``).  A decode append never
+    rescales rows written before: each row carries its own amax.
+    ``__getitem__`` indexes both tensors alike (``kv[layer]``); the views
+    it returns share storage, so ``write_kv`` on a layer updates the
+    cache in place."""
+
+    __slots__ = ("payload", "scale")
+
+    def __init__(self, payload: torch.Tensor, scale: torch.Tensor):
+        self.payload = payload
+        self.scale = scale
+
+    def __getitem__(self, idx) -> "KVPages":
+        return KVPages(self.payload[idx], self.scale[idx])
+
+    @property
+    def shape(self):
+        return self.payload.shape
+
+    @property
+    def dtype(self):
+        return self.payload.dtype
+
+    def __repr__(self):
+        return (f"KVPages(payload={tuple(self.payload.shape)}, "
+                f"scale={tuple(self.scale.shape)})")
+
+
+KVLayer = Union[torch.Tensor, KVPages]
+
+
+def quantize_kv_blocks(kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 block quantisation over the trailing ``head_dim``
+    axis: ``(codes int8 [..., D], scales fp32 [...])`` with ``codes *
+    scales ~= kv``.  Computed in fp32, rounding half to even; an all-zero
+    block gets scale 0 and codes 0."""
+    kvf = kv.float()
+    scale = kvf.abs().amax(dim=-1) / 127.0
+    codes = torch.round(kvf / scale.clamp(min=1e-30)[..., None])
+    return codes.clamp(-127, 127).to(torch.int8), scale
+
+
+def dequantize_kv_blocks(codes: torch.Tensor, scale: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_blocks`."""
+    return (codes.float() * scale[..., None]).to(dtype)
 
 
 def token_positions(start_pos: torch.Tensor, q_len_max: int) -> torch.Tensor:
@@ -43,15 +105,17 @@ def token_positions(start_pos: torch.Tensor, q_len_max: int) -> torch.Tensor:
         q_len_max, device=start_pos.device)[None, :]
 
 
-def write_kv(kv_layer: torch.Tensor, k_new: torch.Tensor,
+def write_kv(kv_layer: KVLayer, k_new: torch.Tensor,
              v_new: torch.Tensor, page_table: torch.Tensor,
-             start_pos: torch.Tensor, q_lens: torch.Tensor) -> torch.Tensor:
+             start_pos: torch.Tensor, q_lens: torch.Tensor) -> KVLayer:
     """Scatter new KV into the cache pages of one layer, in place.
 
-    kv_layer : [num_pages+1, page_size, 2, K, D]
+    kv_layer : [num_pages+1, page_size, 2, K, D] (or :class:`KVPages`)
     k_new/v_new : [S, Q, K, D]
     Rows past a slot's ``q_lens`` go to the null page 0, whose contents
-    are garbage by contract.  Returns ``kv_layer``."""
+    are garbage by contract.  A quantised layer quantises at append:
+    codes and scales land at the same (page, slot), so a row is always
+    self-consistent.  Returns ``kv_layer``."""
     S, Q = k_new.shape[:2]
     page_size = kv_layer.shape[1]
     pos = token_positions(start_pos, Q)                     # [S, Q]
@@ -60,7 +124,15 @@ def write_kv(kv_layer: torch.Tensor, k_new: torch.Tensor,
     pages = torch.gather(page_table.long(), 1, page_idx)
     pages = torch.where(valid, pages, torch.zeros_like(pages))
     kv_new = torch.stack([k_new, v_new], dim=2)             # [S,Q,2,K,D]
-    kv_layer[pages.reshape(-1), (pos % page_size).reshape(-1)] = \
+    pages_f, slot_f = pages.reshape(-1), (pos % page_size).reshape(-1)
+    if isinstance(kv_layer, KVPages):
+        codes, scales = quantize_kv_blocks(kv_new)
+        kv_layer.payload[pages_f, slot_f] = codes.reshape(
+            (S * Q,) + codes.shape[2:])
+        kv_layer.scale[pages_f, slot_f] = scales.reshape(
+            (S * Q,) + scales.shape[2:])
+        return kv_layer
+    kv_layer[pages_f, slot_f] = \
         kv_new.reshape((S * Q,) + kv_new.shape[2:]).to(kv_layer.dtype)
     return kv_layer
 
@@ -74,7 +146,7 @@ def rope_write_kv(kv_layer, k_new, v_new, sin, cos, page_table, start_pos,
                     page_table, start_pos, q_lens)
 
 
-def paged_attention(q: torch.Tensor, kv_layer: torch.Tensor,
+def paged_attention(q: torch.Tensor, kv_layer: KVLayer,
                     page_table: torch.Tensor, start_pos: torch.Tensor,
                     q_lens: Optional[torch.Tensor] = None, *,
                     sm_scale: Optional[float] = None,
@@ -86,12 +158,19 @@ def paged_attention(q: torch.Tensor, kv_layer: torch.Tensor,
     q        : [S, Q, H, D]    (H = K * groups)
     kv_layer : [num_pages+1, page_size, 2, K, D] (new KV already written)
     Returns  : [S, Q, H, D].  ``q_lens`` is unused: rows past it compute
-    garbage that logits gather and the null page ignore."""
+    garbage that logits gather and the null page ignore.  A
+    :class:`KVPages` layer dequantises only the gathered context, to
+    ``q.dtype``; the resident cache stays int8."""
     S, Q, H, D = q.shape
     page_size, K = kv_layer.shape[1], kv_layer.shape[3]
     G = H // K
     scale = sm_scale if sm_scale is not None else 1.0 / np.sqrt(D)
-    pages = kv_layer[page_table.long()]          # [S, P, page, 2, K, D]
+    table = page_table.long()
+    if isinstance(kv_layer, KVPages):
+        pages = dequantize_kv_blocks(kv_layer.payload[table],
+                                     kv_layer.scale[table], dtype=q.dtype)
+    else:
+        pages = kv_layer[table]                  # [S, P, page, 2, K, D]
     C = pages.shape[1] * page_size
     k = pages[..., 0, :, :].reshape(S, C, K, D)
     v = pages[..., 1, :, :].reshape(S, C, K, D)
@@ -114,28 +193,33 @@ def paged_attention(q: torch.Tensor, kv_layer: torch.Tensor,
     return out.reshape(S, Q, H, D)
 
 
-def paged_decode_attention(q: torch.Tensor, kv_layer: torch.Tensor,
+def paged_decode_attention(q: torch.Tensor, kv_layer: KVLayer,
                            page_table: torch.Tensor, start_pos: torch.Tensor,
                            *, sm_scale: Optional[float] = None,
                            alibi_slopes=None,
                            window: Optional[int] = None) -> torch.Tensor:
     """Ragged paged attention (any Q: decode rows and prefill chunks with
     per-row causal limits).  CPU tensors take :func:`paged_attention`;
-    CUDA tensors launch ``paged_attention_bf16`` or raise.
+    CUDA tensors launch ``paged_attention_bf16`` (fp pages) or
+    ``paged_attention_int8`` (:class:`KVPages`) or raise.
 
-    q: [S, Q, H, D] bf16; kv_layer: [num_pages+1, page, 2, K, D] bf16;
-    page_table: [S, P] int32; start_pos: [S] int32.  Returns [S, Q, H, D].
+    q: [S, Q, H, D] bf16; kv_layer: [num_pages+1, page, 2, K, D] bf16, or
+    KVPages of int8 codes at that shape and fp32 scales
+    [num_pages+1, page, 2, K]; page_table: [S, P] int32; start_pos: [S]
+    int32.  Returns [S, Q, H, D].
     """
     if q.device.type == "cpu":
         return paged_attention(q, kv_layer, page_table, start_pos,
                                sm_scale=sm_scale, alibi_slopes=alibi_slopes,
                                window=window)
+    quantized = isinstance(kv_layer, KVPages)
     S, Q, H, D = q.shape
     pages_total, page_size, two, K, Dk = kv_layer.shape
     dev = q.device
-    if q.dtype != torch.bfloat16 or kv_layer.dtype != torch.bfloat16:
-        raise TypeError(f"paged kernel takes bf16 q and pages, got {q.dtype}"
-                        f" / {kv_layer.dtype}")
+    want = torch.int8 if quantized else torch.bfloat16
+    if q.dtype != torch.bfloat16 or kv_layer.dtype != want:
+        raise TypeError(f"paged kernel takes bf16 q and {want} pages, got "
+                        f"{q.dtype} / {kv_layer.dtype}")
     if D != HEAD_DIM or Dk != D or two != 2 or H % K:
         raise ValueError(f"paged kernel needs head_dim {HEAD_DIM} and H % K "
                          f"== 0: q {tuple(q.shape)}, kv "
@@ -148,8 +232,20 @@ def paged_decode_attention(q: torch.Tensor, kv_layer: torch.Tensor,
     if page_table.shape[0] != S or start_pos.shape != (S,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / start_pos "
                          f"{tuple(start_pos.shape)} do not match S={S}")
-    for name, t in (("q", q), ("kv", kv_layer), ("page_table", page_table),
-                    ("start_pos", start_pos)):
+    operands = [("q", q), ("page_table", page_table),
+                ("start_pos", start_pos)]
+    if quantized:
+        if kv_layer.scale.dtype != torch.float32 \
+                or kv_layer.scale.shape != kv_layer.shape[:-1]:
+            raise ValueError(
+                f"paged kernel takes fp32 scales of shape "
+                f"{tuple(kv_layer.shape[:-1])}, got {kv_layer.scale.dtype} "
+                f"{tuple(kv_layer.scale.shape)}")
+        operands += [("kv codes", kv_layer.payload),
+                     ("kv scales", kv_layer.scale)]
+    else:
+        operands.append(("kv", kv_layer))
+    for name, t in operands:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"paged kernel takes a contiguous {name} on "
                              f"{dev}")
@@ -162,9 +258,11 @@ def paged_decode_attention(q: torch.Tensor, kv_layer: torch.Tensor,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     if q.numel():
-        KERNEL.launch("paged_attention_bf16", q.data_ptr(),
-                      kv_layer.data_ptr(), page_table.data_ptr(),
-                      start_pos.data_ptr(),
+        pages = ((kv_layer.payload.data_ptr(), kv_layer.scale.data_ptr())
+                 if quantized else (kv_layer.data_ptr(),))
+        KERNEL.launch("paged_attention_int8" if quantized
+                      else "paged_attention_bf16", q.data_ptr(), *pages,
+                      page_table.data_ptr(), start_pos.data_ptr(),
                       slopes.data_ptr() if slopes is not None else None,
                       out.data_ptr(), S, Q, H, K, page_table.shape[1],
                       page_size, float(scale), int(window or 0),
@@ -198,3 +296,19 @@ def attention_reference(q, k_ctx, v_ctx, start_pos, q_lens=None,
     probs = torch.softmax(scores, dim=-1).to(v_ctx.dtype)
     out = torch.einsum("skgqc,sckd->sqkgd", probs, v_ctx)
     return out.reshape(S, Q, H, D)
+
+
+def paged_context(kv_layer: KVLayer, page_table: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Materialise each slot's context as ([S, C, K, D] keys, values), a
+    testing helper; a quantised layer dequantises to fp32."""
+    table = page_table.long()
+    if isinstance(kv_layer, KVPages):
+        pages = dequantize_kv_blocks(kv_layer.payload[table],
+                                     kv_layer.scale[table])
+    else:
+        pages = kv_layer[table]
+    S, P, page_size = pages.shape[:3]
+    k = pages[..., 0, :, :].reshape(S, P * page_size, *pages.shape[4:])
+    v = pages[..., 1, :, :].reshape(S, P * page_size, *pages.shape[4:])
+    return k, v

@@ -39,6 +39,20 @@ def _imported_modules(path: Path):
             yield str(node.args[0].value)
 
 
+def test_the_scan_covers_every_module_of_the_port():
+    """The file list is a glob, so a new module is held to the rule the
+    day it lands; these are the ones added with the LayerNorm families
+    and int8 pages."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"chip_smoke.py",
+            "deepspeed_tpu_torch/models/gpt.py",
+            "deepspeed_tpu_torch/checkpoint/hf.py",
+            "deepspeed_tpu_torch/inference/v2/model_implementations.py",
+            "deepspeed_tpu_torch/ops/normalization.py",
+            "deepspeed_tpu_torch/ops/paged_attention.py"} <= names
+    assert len(names) >= 38
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
@@ -87,6 +101,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert logits.shape == (1, 128) and logits.device.type == "cpu"
 
 
+def test_family_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    from deepspeed_tpu_torch.inference import v2 as T
+    from deepspeed_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = gpt_config("debug", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPTForCausalLM("debug").init_params(0)
+    params = init_params(cfg, 0, device="cpu")
+    for cls in (T.implementation_for("gpt2"), T.implementation_for("opt")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(cfg, params)
+        model = cls(cfg, params, device="cpu")
+        assert model.implementations["norm"] == "plain"
+        with pytest.raises(ValueError):    # the kernel needs a CUDA model
+            cls(cfg, params, device="cpu",
+                implementations={"norm": "cuda_layernorm"})
+    engine = T.InferenceEngineV2(model, T.RaggedInferenceEngineConfig(
+        serving=T.ServingOptimizationConfig(kv_quantization="int8")))
+    assert engine.state_manager.kv_cache.data.payload.device.type == "cpu"
+
+
 def test_cpu_model_picks_the_plain_versions_and_pins_by_name():
     T, cfg, kv, init_params = _tiny()
     params = init_params(cfg, 0, device="cpu")
@@ -103,13 +140,111 @@ def test_cpu_model_picks_the_plain_versions_and_pins_by_name():
                                implementations={"norm": "no_such_impl"})
 
 
+def _card_cases():
+    from deepspeed_tpu_torch.models.gpt import gpt_config
+    from deepspeed_tpu_torch.models.llama import llama_config
+    bf16 = dict(dtype=torch.bfloat16)
+    return {
+        # (config, the first op class without a kernel for it)
+        "fp32 layernorm, head_dim 128": (
+            gpt_config("1.3b", dtype=torch.float32), "norm"),
+        "fp32 rmsnorm, head_dim 128": (
+            llama_config("7b", dtype=torch.float32), "norm"),
+        "bf16 gpt 125m, head_dim 64": (gpt_config("125m", **bf16),
+                                       "ragged_attention"),
+        "bf16 gpt 2.7b, head_dim 80": (gpt_config("2.7b", **bf16),
+                                       "ragged_attention"),
+        "bf16 debug llama, head_dim 16": (llama_config("debug", **bf16),
+                                          "ragged_attention"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_card_cases()))
+def test_registry_off_the_cpu_never_picks_a_plain_version_unasked(case):
+    """On the card an op class that has a kernel runs it or raises: a
+    model the kernels do not take (fp32, or another head_dim) gets a
+    NotImplementedError naming the ROADMAP item, and the plain versions
+    stay reachable by name.  ``resolve`` only reads the device's type, so
+    this needs no card."""
+    from deepspeed_tpu_torch.inference.v2 import modules
+    cfg, first = _card_cases()[case]
+    cuda = torch.device("cuda")
+    plain = {"norm": "plain", "ragged_attention": "dense_gather",
+             "fresh_prefill_attention": "mha_reference"}
+    raised = [op for op in plain
+              if _raises_11k(lambda: modules.resolve(op, cfg, cuda))]
+    assert first in raised
+    assert "fresh_prefill_attention" in raised   # flash: bf16, head_dim 128
+    for op, name in plain.items():
+        assert modules.resolve(op, cfg, cuda, name) == name
+        assert modules.resolve(op, cfg, torch.device("cpu")) == name
+    # op classes with no kernel at all keep their one implementation
+    assert modules.resolve("embedding", cfg, cuda) == "ragged_embedding"
+    assert modules.resolve("unembed", cfg, cuda) == "last_token_gather"
+
+
+def _raises_11k(fn) -> bool:
+    try:
+        fn()
+    except NotImplementedError as e:
+        assert "item 11k" in str(e)
+        return True
+    return False
+
+
+def test_registry_on_the_card_picks_the_kernels_for_the_served_models():
+    from deepspeed_tpu_torch.inference.v2 import modules
+    from deepspeed_tpu_torch.models.gpt import gpt_config
+    from deepspeed_tpu_torch.models.llama import llama_config
+    cuda = torch.device("cuda")
+    want = {"ragged_attention": "cuda_paged",
+            "fresh_prefill_attention": "cuda_flash"}
+    for cfg, norm in ((gpt_config("1.3b", dtype=torch.bfloat16),
+                       "cuda_layernorm"),
+                      (llama_config("7b", dtype=torch.bfloat16),
+                       "cuda_rmsnorm")):
+        for op, name in dict(want, norm=norm).items():
+            assert modules.resolve(op, cfg, cuda) == name
+
+
+@pytest.mark.parametrize("over", [dict(dtype=torch.float32),
+                                  dict(dtype=torch.bfloat16)])
+def test_model_off_the_cpu_raises_for_a_layout_without_kernels(monkeypatch,
+                                                               over):
+    """Through the constructors a user calls: the debug OPT-like model
+    (head_dim 16) on a device that is not the CPU raises at build instead
+    of serving through the plain versions; named, they build.  A meta
+    device stands in for the card."""
+    from deepspeed_tpu_torch.inference import v2 as T
+    from deepspeed_tpu_torch.inference.v2 import model as model_mod
+    from deepspeed_tpu_torch.models.gpt import gpt_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = gpt_config("debug", **over)
+    params = init_params(cfg, 0, device="cpu")
+    monkeypatch.setattr(model_mod, "resolve_device",
+                        lambda d: torch.device("meta"))
+    for cls in (T.RaggedInferenceModel, T.implementation_for("gpt2")):
+        with pytest.raises(NotImplementedError, match="item 11k"):
+            cls(cfg, params)
+        named = cls(cfg, params, implementations={
+            "norm": "plain", "ragged_attention": "dense_gather",
+            "fresh_prefill_attention": "mha_reference"})
+        assert named.implementations["norm"] == "plain"
+
+
 def test_kernel_wrappers_take_the_plain_path_only_for_cpu_tensors():
     from deepspeed_tpu_torch.ops import normalization as N
     x = torch.randn(4, 64)
     w = torch.ones(64)
     before = N.KERNEL.launches
     torch.testing.assert_close(N.rmsnorm(x, w), N.rmsnorm_reference(x, w))
+    out, res = N.rmsnorm(x, w, residual=x)
+    ref, ref_res = N.rmsnorm_res_reference(x, x, w)
+    assert torch.equal(out, ref) and torch.equal(res, ref_res)
     assert N.KERNEL.launches == before     # CPU: no launch, no build
+    before = N.LN_KERNEL.launches
+    assert torch.equal(N.layernorm(x, w, w), N.layernorm_reference(x, w, w))
+    assert N.LN_KERNEL.launches == before
 
 
 def test_kernel_build_is_keyed_by_source_hash(tmp_path, monkeypatch):

@@ -246,3 +246,227 @@ def test_adamw_kernel_matches_plain(cuda_device, n):
     for a, b in zip((p, m, v), (ref[0], ref[2], ref[3])):
         assert_parity(a, b)
         assert parity_errors(a, b)[1] <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm, residual RMSNorm and int8 paged attention
+# ---------------------------------------------------------------------------
+
+def _large_mean_rows(n, e, gen, device="cpu"):
+    """bf16 rows whose mean (1000) is far above their spread: most values
+    round to 1000 and a few to 996 or 1004, so mean^2 / var is ~1e6."""
+    return (1000.0 + 0.85 * torch.randn(n, e, generator=gen, device=device)
+            ).bfloat16()
+
+
+def _norm_vectors(e, gen, device="cpu"):
+    w = torch.rand(e, generator=gen, device=device) + 0.5
+    b = 0.1 * torch.randn(e, generator=gen, device=device)
+    return w, b
+
+
+def test_layernorm_limits_pass_rounding_and_fail_a_one_pass_variance():
+    """The kernel differs from the plain version by the order of its fp32
+    sums.  The same arithmetic in fp64, rounded to bf16, stands in for it
+    and passes ``assert_parity`` on N(0,1) rows and on rows with mean >>
+    spread; a variance taken as E[x^2] - mean^2 in fp32 fails the rms
+    limit on the large-mean rows, where it cancels catastrophically."""
+    g = torch.Generator().manual_seed(0)
+    w, b = _norm_vectors(4096, g)
+    for x in (torch.randn(16, 4096, generator=g).bfloat16(),
+              _large_mean_rows(16, 4096, g)):
+        ref = tnorm.layernorm_reference(x, w, b, 1e-5)
+        x64 = x.double()
+        xc = x64 - x64.mean(-1, keepdim=True)
+        fp64 = (xc / torch.sqrt(xc.pow(2).mean(-1, keepdim=True) + 1e-5)
+                * w.double() + b.double()).bfloat16()
+        assert_parity(fp64, ref)
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 * x32).mean(-1, keepdim=True) - mean * mean
+    one_pass = ((x32 - mean) * torch.rsqrt(var.clamp(min=0) + 1e-5) * w
+                + b).bfloat16()
+    assert parity_errors(one_pass, ref)[0] > RMS_REL_TOL
+
+
+def test_rmsnorm_res_limits_pass_rounding_and_fail_a_rounded_sum():
+    """Both outputs of the fused residual form in fp64, rounded to bf16,
+    pass against the plain version (the new residual bit for bit).  The
+    moment must come from the unrounded fp32 sum: the plain rmsnorm of the
+    bf16-rounded sum differs from the fused form in one element in four,
+    by an ulp, which ``assert_parity`` passes and equality does not."""
+    g = torch.Generator().manual_seed(1)
+    x, r = (torch.randn(16, 4096, generator=g).bfloat16() for _ in range(2))
+    w = torch.rand(4096, generator=g) + 0.5
+    out, res = tnorm.rmsnorm_res_reference(x, r, w, 1e-5)
+    s64 = x.double() + r.double()
+    out64 = (s64 / torch.sqrt(s64.pow(2).mean(-1, keepdim=True) + 1e-5)
+             * w.double()).bfloat16()
+    assert torch.equal(s64.bfloat16(), res)
+    assert_parity(out64, out)
+    two_ops = tnorm.rmsnorm_reference(res, w, 1e-5)
+    assert_parity(two_ops, out)
+    assert 0.05 < float((two_ops != out).float().mean()) < 0.6
+
+
+def _int8_decode_case(gen, S=4, H=8, D=128, page=64, ctx=2048):
+    """A decode batch over int8 pages quantised from N(0,1) keys."""
+    n_pages = S * ctx // page
+    kv = tpa.KVPages(*tpa.quantize_kv_blocks(
+        torch.randn(n_pages + 1, page, 2, H, D, generator=gen)))
+    table = (torch.randperm(n_pages, generator=gen) + 1).reshape(
+        S, ctx // page).int()
+    start = torch.randint(1024, ctx - 1, (S,), generator=gen).int()
+    q = torch.randn(S, 1, H, D, generator=gen)
+    return q, kv, table, start
+
+
+def _int8_kernel_numerics(q, kv, table, start, **kw):
+    """What ``paged_attention_int8`` computes, in plain PyTorch: K is
+    float(code) * scale rounded to bf16, V stays fp32, scores and
+    probabilities are fp32, the output is rounded to bf16."""
+    pages = tpa.dequantize_kv_blocks(kv.payload, kv.scale)
+    pages[:, :, 0] = pages[:, :, 0].bfloat16().float()
+    return tpa.paged_attention(q.bfloat16().float(), pages, table, start,
+                               **kw).bfloat16()
+
+
+@pytest.mark.parametrize("variant", ["plain", "window", "alibi"])
+def test_int8_parity_limits_pass_rounding_and_fail_real_faults(variant):
+    """The int8 kernel keeps V and the probabilities in fp32 where the
+    plain version over ``KVPages`` rounds them to bf16: rounding only,
+    which ``assert_parity`` passes at the decode shape.  One key past the
+    causal limit, or the scales of the neighbouring kv head, fail the rms
+    limit."""
+    g = torch.Generator().manual_seed(0)
+    q, kv, table, start = _int8_decode_case(g)
+    kw = {"window": 512} if variant == "window" else {}
+    if variant == "alibi":
+        kw["alibi_slopes"] = alibi_slopes(q.shape[2])
+    ref = tpa.paged_attention(q.bfloat16(), kv, table, start, **kw)
+    assert_parity(_int8_kernel_numerics(q, kv, table, start, **kw), ref)
+    shifted = _int8_kernel_numerics(q, kv, table, start + 1, **kw)
+    assert parity_errors(shifted, ref)[0] > RMS_REL_TOL
+    neighbour = tpa.KVPages(kv.payload, torch.roll(kv.scale, 1, dims=-1))
+    wrong = _int8_kernel_numerics(q, neighbour, table, start, **kw)
+    assert parity_errors(wrong, ref)[0] > RMS_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["normal", "large_mean"])
+@pytest.mark.parametrize("n,e", [(16, 4096), (1000, 4096), (5, 8192),
+                                 (33, 264)])
+def test_layernorm_kernel_matches_plain(cuda_device, rows, n, e):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (_large_mean_rows(n, e, g, cuda_device) if rows == "large_mean"
+         else torch.randn(n, e, generator=g, device=cuda_device,
+                          dtype=torch.bfloat16))
+    w, b = _norm_vectors(e, g, cuda_device)
+    before = tnorm.LN_KERNEL.launches
+    out = tnorm.layernorm(x, w, b, 1e-5)
+    assert tnorm.LN_KERNEL.launches == before + 1
+    assert_parity(out, tnorm.layernorm_reference(x, w, b, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e", [(16, 4096), (1000, 4096), (5, 8192),
+                                 (33, 264)])
+def test_rmsnorm_res_kernel_matches_plain(cuda_device, n, e):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x, r = (torch.randn(n, e, generator=g, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    w = torch.rand(e, generator=g, device=cuda_device) + 0.5
+    x0, r0 = x.clone(), r.clone()
+    before = tnorm.KERNEL.launches_by_fn["rmsnorm_res_bf16"]
+    out, res = tnorm.rmsnorm(x, w, 1e-5, residual=r)
+    assert tnorm.KERNEL.launches_by_fn["rmsnorm_res_bf16"] == before + 1
+    ref_out, ref_res = tnorm.rmsnorm_res_reference(x, r, w, 1e-5)
+    assert torch.equal(res, ref_res)            # bf16(fp32 sum), exactly
+    assert_parity(out, ref_out)
+    # two new tensors: the inputs are untouched
+    assert torch.equal(x, x0) and torch.equal(r, r0)
+    assert out.data_ptr() not in (x.data_ptr(), r.data_ptr())
+    assert res.data_ptr() not in (x.data_ptr(), r.data_ptr())
+
+
+def _int8_pages_on(dev, kv, k_new, v_new, table, start, q_lens):
+    """The case's history quantised into int8 pages on ``dev``, and the
+    new tokens appended through the quantising ``write_kv``."""
+    pages = tpa.KVPages(*tpa.quantize_kv_blocks(_t(kv).to(dev)))
+    return tpa.write_kv(pages, _t(k_new).to(dev, torch.bfloat16),
+                        _t(v_new).to(dev, torch.bfloat16), _t(table).to(dev),
+                        _t(start).to(dev), _t(q_lens).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+@pytest.mark.parametrize("variant", ["plain", "window", "alibi"])
+def test_int8_paged_kernel_matches_plain(cuda_device, case, variant):
+    q, k_new, v_new, kv, table, start, q_lens = _paged_setup(
+        **PAGED_CASES[case])
+    dev = cuda_device
+    pages = _int8_pages_on(dev, kv, k_new, v_new, table, start, q_lens)
+    kw = {"window": 6} if variant == "window" else {}
+    if variant == "alibi":
+        kw["alibi_slopes"] = alibi_slopes(q.shape[2])
+    qd = _t(q).to(dev, torch.bfloat16)
+    before = dict(tpa.KERNEL.launches_by_fn)
+    out = tpa.paged_decode_attention(qd, pages, _t(table).to(dev),
+                                     _t(start).to(dev), **kw)
+    assert tpa.KERNEL.launches_by_fn["paged_attention_int8"] == \
+        before["paged_attention_int8"] + 1
+    assert tpa.KERNEL.launches_by_fn["paged_attention_bf16"] == \
+        before["paged_attention_bf16"]
+    ref = tpa.paged_attention(qd, pages, _t(table).to(dev),
+                              _t(start).to(dev), **kw)
+    assert_parity(out, ref)
+
+
+@pytest.mark.cuda
+def test_int8_paged_kernel_unwritten_rows_give_exact_zeros(cuda_device):
+    """Rows never written have codes 0 and scale 0: a context of only
+    such rows attends to zeros and returns exactly 0, never NaN; garbage
+    in the null page and past the causal limit is never seen."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+    S, H, K, page, P = 3, 8, 2, 64, 4
+    pages = tpa.KVPages(
+        torch.zeros(S * P + 1, page, 2, K, 128, dtype=torch.int8, device=dev),
+        torch.zeros(S * P + 1, page, 2, K, dtype=torch.float32, device=dev))
+    pages.payload[0] = 127                     # the null page holds garbage
+    pages.scale[0] = 1e30
+    table = torch.arange(1, S * P + 1, device=dev,
+                         dtype=torch.int32).reshape(S, P)
+    start = torch.tensor([0, 70, 200], device=dev, dtype=torch.int32)
+    q = torch.randn(S, 1, H, 128, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    out = tpa.paged_decode_attention(q, pages, table, start)
+    assert torch.equal(out, torch.zeros_like(out))
+    # garbage one row past slot 1's limit changes nothing
+    pages.payload[int(table[1, 1]), 71 - page] = 127
+    pages.scale[int(table[1, 1]), 71 - page] = 1e30
+    out = tpa.paged_decode_attention(q, pages, table, start)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(dtype=torch.float32),
+                                  dict(dtype=torch.bfloat16)])
+def test_serving_model_outside_the_kernels_layout_raises(cuda_device, over):
+    """On the card the serving model runs the kernels or raises at build:
+    the debug GPT (head_dim 16; fp32 also misses the norm kernel) never
+    drops to the plain versions unasked, and serves through them when
+    they are named."""
+    from deepspeed_tpu_torch.inference import v2 as T
+    from deepspeed_tpu_torch.models.gpt import gpt_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = gpt_config("debug", **over)
+    params = init_params(cfg, 0, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="item 11k"):
+        T.implementation_for("gpt2")(cfg, params)
+    model = T.implementation_for("gpt2")(cfg, params, implementations={
+        "norm": "plain", "ragged_attention": "dense_gather",
+        "fresh_prefill_attention": "mha_reference"})
+    logits = T.InferenceEngineV2(model).put([0], [[1, 2, 3]])
+    assert logits.device.type == "cuda"
+    assert bool(torch.isfinite(logits).all())

@@ -3,7 +3,8 @@
 The same seeded numpy inputs go through the JAX function (Pallas kernels
 in interpret mode, as tests/test_ops.py and tests/test_inference_v2.py
 run them) and the port's plain PyTorch version, in fp32.  Tolerances:
-1e-5 for RMSNorm (one fp32 reduction over E), 2e-5 for attention (the
+1e-5 for the norms (fp32 reductions over E; bf16 outputs within one bf16
+ulp at the output's scale), 2e-5 for attention (the
 JAX kernel tests' own bound: fp32 softmax sums in another order).  The
 kernel-vs-plain tests live in test_torch_kernels.py (no JAX import, so
 they run on a GPU machine without JAX).
@@ -61,6 +62,107 @@ def test_rmsnorm_bf16_casts_back():
     assert out.dtype == torch.bfloat16
     ref = tnorm.rmsnorm_reference(x.bfloat16().float(), torch.ones(64))
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=2e-2)
+
+
+def _bf16_ulp(ref: np.ndarray) -> float:
+    """One bf16 ulp at the largest magnitude of ``ref`` (8 significant
+    bits: 2^-7 relative to the leading power of two)."""
+    return float(2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7))
+
+
+def _jbf16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# fused residual RMSNorm and LayerNorm (cases of tests/test_ops.py:108-137)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,eps", [((8, 128), 1e-6), ((2, 5, 64), 1e-5)])
+def test_rmsnorm_residual_plain_matches_jax_kernel(shape, eps):
+    rng = np.random.default_rng(5)
+    x, r = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    w = (rng.standard_normal(shape[-1]) + 1.0).astype(np.float32)
+    ref, ref_res = jnorm.rmsnorm(jnp.asarray(x), jnp.asarray(w), eps,
+                                 residual=jnp.asarray(r), interpret=True)
+    out, res = tnorm.rmsnorm(_t(x), _t(w), eps, residual=_t(r))
+    assert out.shape == shape and res.shape == shape
+    np.testing.assert_allclose(res.numpy(), np.asarray(ref_res), atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_rmsnorm_residual_bf16_norms_the_unrounded_sum():
+    """bf16 in and out: the new residual is bf16(fp32 sum) bit for bit,
+    and the normed output (from the UNROUNDED sum) is within one bf16 ulp
+    of the JAX kernel's."""
+    rng = np.random.default_rng(6)
+    x, r = (rng.standard_normal((8, 128)).astype(np.float32)
+            for _ in range(2))
+    w = (rng.standard_normal(128) + 1.0).astype(np.float32)
+    ref, ref_res = jnorm.rmsnorm(_jbf16(x), jnp.asarray(w), 1e-5,
+                                 residual=_jbf16(r), interpret=True)
+    out, res = tnorm.rmsnorm(_t(x).bfloat16(), _t(w), 1e-5,
+                             residual=_t(r).bfloat16())
+    assert out.dtype == res.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        res.float().numpy(), np.asarray(ref_res.astype(jnp.float32)))
+    ref32 = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), ref32,
+                               atol=_bf16_ulp(ref32), rtol=0)
+
+
+def _layernorm_inputs(shape, seed, mean=0.0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) + mean).astype(np.float32)
+    w = (rng.standard_normal(shape[-1]) + 1.0).astype(np.float32)
+    b = rng.standard_normal(shape[-1]).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("shape,eps,mean", [
+    ((16, 128), 1e-5, 0.0), ((2, 5, 64), 1e-6, 0.0),
+    ((16, 128), 1e-5, 300.0)])          # a row with mean >> std
+def test_layernorm_plain_matches_jax_kernel(shape, eps, mean):
+    x, w, b = _layernorm_inputs(shape, 7, mean)
+    ref = jnorm.layernorm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                          eps, interpret=True)
+    out = tnorm.layernorm(_t(x), _t(w), _t(b), eps)
+    # at mean 300 an fp32 ulp is 3.05e-5, so two orders of summing the
+    # row's mean differ by about that, and (x - mean) * w with |w| up to
+    # ~4 carries it to a few 1e-4; a one-pass variance would be off by
+    # 1e-2 here
+    atol = 3e-4 if mean else 1e-5
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol,
+                               rtol=1e-5)
+    # and the numpy statement of tests/test_ops.py:127-136
+    mu = x.mean(-1, keepdims=True)
+    np_ref = (x - mu) / np.sqrt(x.var(-1, keepdims=True) + eps) * w + b
+    np.testing.assert_allclose(out.numpy(), np_ref, atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mean", [0.0, 300.0])
+def test_layernorm_bf16_within_one_ulp_of_jax_kernel(mean):
+    x, w, b = _layernorm_inputs((16, 128), 8, mean)
+    ref = jnorm.layernorm(_jbf16(x), jnp.asarray(w), jnp.asarray(b), 1e-5,
+                          interpret=True)
+    out = tnorm.layernorm(_t(x).bfloat16(), _t(w), _t(b), 1e-5)
+    assert out.dtype == torch.bfloat16
+    ref32 = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), ref32,
+                               atol=_bf16_ulp(ref32), rtol=0)
+
+
+def test_layernorm_plain_is_the_model_norm():
+    """The registry's plain norm (``_norm_apply``) and the op's plain
+    version are the same function of the same inputs."""
+    from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                        _norm_apply)
+    x, w, b = _layernorm_inputs((4, 64), 9, 5.0)
+    cfg = TransformerConfig(norm="layernorm", norm_eps=1e-5)
+    out = _norm_apply(cfg, {"scale": _t(w), "bias": _t(b)}, _t(x).bfloat16())
+    ref = tnorm.layernorm_reference(_t(x).bfloat16(), _t(w), _t(b), 1e-5)
+    assert torch.equal(out, ref)
 
 
 # ---------------------------------------------------------------------------
