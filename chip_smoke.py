@@ -12,10 +12,13 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    from ``deepspeed_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
 3. each kernel against its plain PyTorch version at the shapes its path
-   gives it (bf16; AdamW in fp32): error relative to the case's own
-   reference scale against stated tolerances, kernel / plain /
-   library-yardstick times (CUDA events) and the bound (the larger of
-   bytes / 3.35 TB/s and operations / 989 TFLOP/s, H100 SXM data sheet);
+   gives it (bf16; the optimizers and the quantiser's input in fp32):
+   error relative to the case's own reference scale against stated
+   tolerances (the blockwise quantisation bit for bit), kernel / plain /
+   library-yardstick times (CUDA events; null where no one PyTorch call
+   computes the function) and the bound (the larger of bytes / 3.35
+   TB/s and operations / 989 TFLOP/s bf16 or 67 fp32, H100 SXM data
+   sheet);
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens): 8 greedy and 2 sampled
    requests through ``FastGenScheduler``, with every kernel's launch
@@ -43,7 +46,14 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    path from the same masters and micro-batch (loss and every leaf's
    gradient), then the AdamW kernel against its plain version on those
    gradients and the optimizer's state;
-10. a ``{"kernels": [...]}`` JSON line, the card line, and last the
+10. the same training with Lion and ZeRO++ quantised weights (stage 3,
+    ``zero_quantized_weights``): launch counts exact (Lion once per leaf
+    per step, quantise and dequantise once per leaf of two or more
+    dimensions per step), then the engine's quantised compute tree
+    against the plain versions' bit for bit, and one micro-batch's loss
+    on it against the unquantised bf16 cast;
+11. the same training with LAMB at stage 0, launch counts exact;
+12. a ``{"kernels": [...]}`` JSON line, the card line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or outside the repository, it exits non-zero before
@@ -102,10 +112,16 @@ OPT_6_7B = dict(vocab_size=50272, hidden_size=4096, ffn_dim=16384,
                 tie_word_embeddings=True)
 PLAIN_PATH = {"norm": "plain", "ragged_attention": "dense_gather",
               "fresh_prefill_attention": "mha_reference"}
-# AdamW kernel vs plain version, both fp32: max |delta| / max |ref| of
-# p, m and v (fused multiply-adds and the order of a division move a
-# value by an ulp or two, 1.2e-7 each)
+# AdamW, Lion and LAMB kernels vs plain versions, all fp32: max |delta| /
+# max |ref| of p, m, v (LAMB: of u, m, v) (fused multiply-adds and the
+# order of a division move a value by an ulp or two, 1.2e-7 each).
+# Lion's signs must agree on every element.  LAMB's sums of p^2 and u^2
+# (fp64 partials per CTA in the kernel, fp32 sums in the plain version)
+# within LAMB_NORM_REL_TOL, and p after the trust-ratio step within
+# LAMB_P_MAX_REL_TOL of max |p|.
 OPT_MAX_REL_TOL = 1e-6
+LAMB_NORM_REL_TOL = 1e-5
+LAMB_P_MAX_REL_TOL = 1e-5
 # full-width training, flash kernels vs the plain einsum path, one
 # micro-batch from the same masters: |delta loss| / loss, and each leaf's
 # rms(grad delta) / rms(grad).  CPU stand-in (tests/
@@ -117,6 +133,13 @@ OPT_MAX_REL_TOL = 1e-6
 # 1.6e-3..3.3e-3).
 LOSS_REL_TOL = 1e-3
 GRAD_RMS_REL_TOL = 5e-2
+# qwZ: one micro-batch's loss on the quantised compute tree against the
+# plain bf16 cast of the same masters, 0 < |delta loss| / loss <= this.
+# CPU stand-in (tests/test_torch_quantization.py::test_qwz_loss_limit_
+# passes_rounding_and_fails_faults, a bf16 llama at E = 128): the int8
+# grid moves the loss by 5.7e-4 at 2 layers and 2.8e-4 at 8, a skipped
+# quantisation by 0, scales twice too large by 0.21-0.22.
+QWZ_LOSS_REL_TOL = 1e-2
 
 # the training phase: Llama-2-7B width, depth cut to 8 of 32 layers so
 # fp32 masters, Adam moments and the fp32 gradient sum fit one card
@@ -137,6 +160,39 @@ TRAIN_CONFIG = {
                   "params": {"warmup_min_lr": 3e-5, "warmup_num_steps": 2,
                              "total_num_steps": 100}},
 }
+
+
+def _warmup_decay(min_lr):
+    return {"type": "WarmupDecayLR",
+            "params": {"warmup_min_lr": min_lr, "warmup_num_steps": 2,
+                       "total_num_steps": 100}}
+
+
+# the training paths: AdamW at stage 0; Lion at ZeRO stage 3 with
+# quantised weights (lr 1e-4, a third of AdamW's as usual for Lion: at
+# 3e-4 every weight moves by the full lr each step and the loss rose on
+# the third step on the card before falling); LAMB at stage 0 (lr 1e-2:
+# LAMB moves each leaf by lr * ||p||, i.e. ~1.6e-4 per weight of std
+# 0.0156 at lr 1e-2, where AdamW moves it by 3e-4)
+TRAIN_PATHS = {
+    "training": TRAIN_CONFIG,
+    "training_lion_qwz": dict(
+        TRAIN_CONFIG,
+        optimizer={"type": "lion",
+                   "params": {"lr": 1e-4, "betas": [0.9, 0.99],
+                              "weight_decay": 0.1}},
+        scheduler=_warmup_decay(1e-5),
+        zero_optimization={"stage": 3, "zero_quantized_weights": True}),
+    "training_lamb": dict(
+        TRAIN_CONFIG,
+        optimizer={"type": "lamb",
+                   "params": {"lr": 1e-2, "betas": [0.9, 0.999],
+                              "weight_decay": 0.01}},
+        scheduler=_warmup_decay(1e-3)),
+}
+# the optimizer kernel each training path runs
+PATH_OPTIMIZER = {"training": "fused_adamw", "training_lion_qwz": "fused_lion",
+                  "training_lamb": "fused_lamb"}
 
 
 def log(*a):
@@ -185,10 +241,11 @@ def parity(out, ref) -> dict:
 
 def read_launches(counters) -> dict:
     """Launches of each hand-written kernel since the counts were last
-    set to 0.  ``counters``: name -> (CudaKernel, the C entry point that
-    is this kernel, or None when the source holds one kernel)."""
-    return {name: (k.launches if fn is None else k.launches_by_fn[fn])
-            for name, (k, fn) in counters.items()}
+    set to 0.  ``counters``: name -> (CudaKernel, the C entry points that
+    are this kernel, or None for every entry point of the source)."""
+    return {name: (k.launches if fns is None
+                   else sum(k.launches_by_fn[fn] for fn in fns))
+            for name, (k, fns) in counters.items()}
 
 
 def reset_launches(counters) -> None:
@@ -592,6 +649,220 @@ def check_adamw(dev, cfg):
     return rows
 
 
+def _opt_cases(cfg, two_dim=False):
+    """(name, leaf sizes): one 4096 x 11008 leaf, and the training
+    model's 12 leaves (the 11 of two or more dimensions for qwZ)."""
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    sizes = _train_leaf_sizes(cfg)
+    if two_dim:
+        return [(f"one leaf {e}x{f}", [e * f]),
+                (f"{cfg.num_layers}-layer model, 11 leaves of ndim >= 2",
+                 sizes[:-1])]
+    return [(f"one leaf {e}x{f}", [e * f]),
+            (f"{cfg.num_layers}-layer model, 12 leaves", sizes)]
+
+
+def _max_errors(pairs):
+    errs = [parity(a, b) for a, b in pairs]
+    return {key: max(e[key] for e in errs) for key in errs[0]}
+
+
+NO_LIBRARY = "no single PyTorch call computes this function"
+
+
+def check_quantization(dev, cfg):
+    """The quantise and dequantise kernels against their plain versions
+    at qwZ's shapes, fp32 leaves: codes, scales and outputs (bf16, the
+    compute copy, and fp32) bit for bit.  Returns the quantise and the
+    dequantise rows."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantization as Q
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q_rows, d_rows = [], []
+    for name, sizes in _opt_cases(cfg, two_dim=True):
+        leaves = [torch.randn(n, generator=g, device=dev) for n in sizes]
+        coded = []
+        for x in leaves:
+            got, ref = Q.quantize_blockwise(x), Q.quantize_blockwise_reference(x)
+            if not (got[2] == ref[2] and torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])):
+                raise RuntimeError(f"quantize: codes or scales differ from "
+                                   f"the plain version at [{name}]")
+            for dt in (torch.bfloat16, torch.float32):
+                out = Q.dequantize_blockwise(*got, x.shape, dt)
+                if not torch.equal(out, Q.dequantize_blockwise_reference(
+                        *ref, x.shape, dt)):
+                    raise RuntimeError(f"dequantize to {dt}: output differs "
+                                       f"from the plain version at [{name}]")
+                del out
+            coded.append(got)
+            del ref
+        n = sum(sizes)
+        rows = sum(q.shape[0] for q, _, _ in coded)
+        iters = 10 if n < 1e8 else 3
+
+        def quant():
+            for x in leaves:
+                Q.quantize_blockwise(x)
+
+        def quant_plain():
+            for x in leaves:
+                Q.quantize_blockwise_reference(x)
+
+        def deq(fn):
+            def run():
+                for x, (q, sc, pad) in zip(leaves, coded):
+                    fn(q, sc, pad, x.shape, torch.bfloat16)
+            return run
+        # x read once; codes (padding included) and scales written once;
+        # ~6 fp32 operations per element (abs, max, divide, round, clip)
+        b_ms, b_by = bound(4 * n + 512 * rows + 4 * rows, 6 * n,
+                           FP32_FLOPS_PER_S)
+        shape = f"{name}: {n} fp32 elements, {rows} blocks of 512"
+        exact = dict(max_abs_err=0.0, max_rel_err=0.0, rms_rel_err=0.0,
+                     bit_equal=True, library_ms=None,
+                     library_note=NO_LIBRARY)
+        q_rows.append(dict(shape=shape, **exact, ms=cuda_ms(quant, iters),
+                           plain_ms=cuda_ms(quant_plain, max(1, iters // 3),
+                                            warmup=1),
+                           bound_ms=b_ms, bound_by=b_by))
+        # codes and scales read once, bf16 written once; one multiply
+        b_ms, b_by = bound(512 * rows + 4 * rows + 2 * n, n,
+                           FP32_FLOPS_PER_S)
+        d_rows.append(dict(
+            shape=shape + ", bf16 out", **exact,
+            ms=cuda_ms(deq(Q.dequantize_blockwise), iters),
+            plain_ms=cuda_ms(deq(Q.dequantize_blockwise_reference),
+                             max(1, iters // 3), warmup=1),
+            bound_ms=b_ms, bound_by=b_by))
+        del leaves, coded
+        torch.cuda.empty_cache()
+    return q_rows, d_rows
+
+
+def lion_signs(p_old, p_new, lr, wd):
+    """The sign u that a Lion step applied, recovered from
+    p_new = p_old - lr (u + wd p_old)."""
+    import torch
+    return torch.round((p_old - p_new) / lr - wd * p_old)
+
+
+def check_lion(dev, cfg):
+    """The Lion kernel against its plain version (fp32, in place on
+    clones): signs on every element, p and m."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    hp = dict(lr=3e-4, b1=0.9, b2=0.99, wd=0.1)
+    rows = []
+    for name, sizes in _opt_cases(cfg):
+        leaves = [[torch.randn(n, generator=g, device=dev) for _ in range(3)]
+                  for n in sizes]
+        err, flips = {}, 0
+        for bufs in leaves:
+            p0 = bufs[0].clone()
+            ref = [x.clone() for x in bufs]
+            FO.fused_lion_flat(*bufs, **hp)
+            FO.lion_reference(*ref, **hp)
+            flips += int((lion_signs(p0, bufs[0], hp["lr"], hp["wd"])
+                          != lion_signs(p0, ref[0], hp["lr"], hp["wd"])).sum())
+            for key, val in _max_errors([(bufs[0], ref[0]),
+                                         (bufs[2], ref[2])]).items():
+                err[key] = max(err.get(key, 0.0), val)
+            bufs[0].copy_(p0)
+            del p0, ref
+        if flips:
+            raise RuntimeError(f"Lion kernel: {flips} signs differ from the "
+                               f"plain version at [{name}]")
+        n = sum(sizes)
+
+        def kernel():
+            for bufs in leaves:
+                FO.fused_lion_flat(*bufs, **hp)
+
+        def plain():
+            for bufs in leaves:
+                FO.lion_reference(*bufs, **hp)
+        # p, g, m read and p, m written; ~10 fp32 operations each
+        b_ms, b_by = bound(20 * n, 10 * n, FP32_FLOPS_PER_S)
+        rows.append(dict(shape=f"{name}: {n} fp32 elements", **err,
+                         sign_mismatches=flips,
+                         ms=cuda_ms(kernel, 10 if n < 1e8 else 3),
+                         plain_ms=cuda_ms(plain, 5 if n < 1e8 else 1,
+                                          warmup=1),
+                         library_ms=None, library_note=NO_LIBRARY,
+                         bound_ms=b_ms, bound_by=b_by))
+        del leaves
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_lamb(dev, cfg):
+    """The LAMB stage-1 kernel against its plain version (fp32, in place
+    on clones): u, m, v, the squared norms, and p after the trust-ratio
+    step (torch ops, the same for both).  ``ms`` times the kernel
+    (stage 1); ``step_ms`` the whole update with the trust ratio."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    lr, step = 1e-2, 3
+    rows = []
+    for name, sizes in _opt_cases(cfg):
+        leaves = []
+        for n in sizes:
+            p, grad, m = (torch.randn(n, generator=g, device=dev)
+                          for _ in range(3))
+            leaves.append([p, grad, m, torch.rand(n, generator=g, device=dev)])
+        err, norm_err, p_err = {}, 0.0, 0.0
+        for bufs in leaves:
+            ref = [x.clone() for x in bufs]
+            work = [bufs[0].clone(), bufs[1], bufs[2].clone(), bufs[3].clone()]
+            u, norms = FO.lamb_stage1(*work, **hp, step=step)
+            ru, rnorms = FO.lamb_stage1_reference(*ref, **hp, step=step)
+            for key, val in _max_errors([(u, ru), (work[2], ref[2]),
+                                         (work[3], ref[3])]).items():
+                err[key] = max(err.get(key, 0.0), val)
+            sums, rsums = norms.sum(0), rnorms.sum(0)
+            norm_err = max(norm_err, float(((sums - rsums).abs()
+                                            / rsums).max()))
+            FO.lamb_trust_step(work[0], u, norms, lr)
+            FO.lamb_trust_step(ref[0], ru, rnorms, lr)
+            p_err = max(p_err, parity(work[0], ref[0])["max_rel_err"])
+            del ref, work, u, ru
+        n = sum(sizes)
+
+        def kernel():
+            for bufs in leaves:
+                FO.lamb_stage1(*bufs, **hp, step=step)
+
+        def whole():
+            for bufs in leaves:
+                FO.fused_lamb_flat(*bufs, lr, **hp, step=step)
+
+        def plain():
+            for bufs in leaves:
+                FO.lamb_stage1_reference(*bufs, **hp, step=step)
+        iters = 10 if n < 1e8 else 3
+        # p, g, m, v read and u, m, v written; ~20 fp32 operations each
+        b_ms, b_by = bound(28 * n, 20 * n, FP32_FLOPS_PER_S)
+        rows.append(dict(shape=f"{name}: {n} fp32 elements", **err,
+                         norm_rel_err=norm_err, p_max_rel_err=p_err,
+                         ms=cuda_ms(kernel, iters),
+                         step_ms=cuda_ms(whole, iters),
+                         plain_ms=cuda_ms(plain, max(1, iters // 3),
+                                          warmup=1),
+                         library_ms=None, library_note=NO_LIBRARY,
+                         bound_ms=b_ms, bound_by=b_by))
+        del leaves
+        torch.cuda.empty_cache()
+        if norm_err > LAMB_NORM_REL_TOL or p_err > LAMB_P_MAX_REL_TOL:
+            raise RuntimeError(f"LAMB kernel at [{name}]: norms {norm_err:.3e}"
+                               f" (tol {LAMB_NORM_REL_TOL}), stepped p "
+                               f"{p_err:.3e} (tol {LAMB_P_MAX_REL_TOL})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: serving at Llama-2-7B width
 # ---------------------------------------------------------------------------
@@ -731,7 +1002,8 @@ def serve(cfg, params, counters, card, model_type="llama",
         and segments["fresh"] > 0,
         "idle kernels": all(launches[k] == 0 for k in (
             other_norm, other_paged, "rmsnorm_res", "flash_bwd",
-            "fused_adamw")),
+            "fused_adamw", "fused_lion", "fused_lamb", "quantize",
+            "dequantize")),
     }
 
     def kind(st):
@@ -880,12 +1152,13 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: training at Llama-2-7B width, 8 layers
+# phases 8 to 11: training at Llama-2-7B width, 8 layers
 # ---------------------------------------------------------------------------
 
-def train(counters, card):
+def train(counters, card, path="training"):
     """4 train_batch calls through deepspeed_tpu_torch.initialize on one
-    fixed seeded batch; launch counts from a run that starts at zero."""
+    fixed seeded batch, with the config of ``TRAIN_PATHS[path]``; launch
+    counts from a run that starts at zero."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch as dtt
@@ -893,13 +1166,16 @@ def train(counters, card):
     from deepspeed_tpu_torch.tree import tree_leaves
     model = LlamaForCausalLM("7b", num_layers=TRAIN_LAYERS)
     cfg = model.cfg
+    config = TRAIN_PATHS[path]
     t = time.perf_counter()
-    engine, _, _, _ = dtt.initialize(model=model, config=TRAIN_CONFIG)
+    engine, _, _, _ = dtt.initialize(model=model, config=config)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(engine.params))
-    log(f"training model: Llama-2-7B width, {cfg.num_layers} layers, "
-        f"{n_params / 1e9:.3f} B params, fp32 masters built in "
-        f"{time.perf_counter() - t:.1f} s")
+    log(f"{path}: Llama-2-7B width, {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, optimizer "
+        f"{type(engine.optimizer).__name__} {config['optimizer']['params']}"
+        f", zero {config.get('zero_optimization', {})}, fp32 masters built "
+        f"in {time.perf_counter() - t:.1f} s")
     rng = np.random.default_rng(SEED + 2)
     tokens = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
     batch = {"input_ids": rng.integers(
@@ -924,7 +1200,12 @@ def train(counters, card):
 
     L = cfg.num_layers
     micro_batches = TRAIN_STEPS * TRAIN_GAS
-    n_leaves = len(tree_leaves(engine.params))
+    leaves = tree_leaves(engine.params)
+    n_leaves = len(leaves)
+    n_two_dim = sum(p.dim() >= 2 for p in leaves)
+    qwz_launches = n_two_dim * TRAIN_STEPS \
+        if engine.config.quantized_weights else 0
+    optimizer = PATH_OPTIMIZER[path]
     # remat runs each layer's forward twice: forward and recompute
     checks = {
         "finite": all(math.isfinite(st["loss"])
@@ -935,7 +1216,12 @@ def train(counters, card):
         "flash_fwd": launches["flash_fwd"] >= 2 * L * micro_batches,
         "flash_bwd": by_fn["flash_bwd_dkv_bf16"] == L * micro_batches
         and by_fn["flash_bwd_dq_bf16"] == L * micro_batches,
-        "fused_adamw": launches["fused_adamw"] == n_leaves * TRAIN_STEPS,
+        optimizer: launches[optimizer] == n_leaves * TRAIN_STEPS,
+        "other optimizers idle": all(launches[k] == 0 for k in set(
+            PATH_OPTIMIZER.values()) - {optimizer}),
+        "quantize, dequantize": launches["quantize"] == qwz_launches
+        and launches["dequantize"] == qwz_launches,
+        "11 of 12 leaves have ndim >= 2": n_two_dim == n_leaves - 1 == 11,
         "no operand copies": flash_bwd.copies == 0,
         "serving kernels idle": all(launches[k] == 0 for k in (
             "rmsnorm", "rmsnorm_res", "layernorm", "paged_attention",
@@ -950,7 +1236,10 @@ def train(counters, card):
     n_matmul = n_params - cfg.vocab_size * cfg.hidden_size
     flops_per_token = 6 * n_matmul + 6 * L * TRAIN_SEQ * cfg.hidden_size
     summary = dict(
-        card=card, layers=L, params=n_params, matmul_params=n_matmul,
+        path=path, card=card, optimizer=config["optimizer"],
+        zero_optimization=config.get("zero_optimization", {}),
+        scheduler=config["scheduler"], layers=L, params=n_params,
+        matmul_params=n_matmul,
         micro_batch=TRAIN_MICRO,
         seq=TRAIN_SEQ, gas=TRAIN_GAS, tokens_per_step=tokens,
         steps=steps, step_ms_steady=step_ms,
@@ -958,18 +1247,24 @@ def train(counters, card):
         mfu=flops_per_token * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S,
         max_memory_allocated_gb=peak / 1e9, launches=launches,
         flash_bwd_launches_by_fn=dict(by_fn), checks=checks)
-    log("training:", json.dumps(summary))
+    log(f"{path}:", json.dumps(summary))
     if not all(checks.values()):
-        raise RuntimeError(f"training checks failed: {checks}")
-    profile_step(engine, batch)
+        raise RuntimeError(f"{path} checks failed: {checks}")
+    profile_step(engine, batch, path)
     return engine, batch, launches
 
 
 # kernel name fragment -> what it is, for the training step's breakdown
+# (the first fragment found names the kind: "dequantize_blockwise" before
+# "quantize_blockwise")
 _KERNEL_KINDS = (("flash_fwd", "flash forward"),
                  ("flash_bwd_dkv", "flash backward dK/dV"),
                  ("flash_bwd_dq", "flash backward dQ"),
                  ("fused_adamw", "AdamW"),
+                 ("fused_lion", "Lion"),
+                 ("fused_lamb", "LAMB stage 1"),
+                 ("dequantize_blockwise", "dequantise (qwZ)"),
+                 ("quantize_blockwise", "quantise (qwZ)"),
                  ("paged_attention", "paged attention"),
                  ("layernorm_kernel", "LayerNorm"),
                  ("rmsnorm", "RMSNorm"),
@@ -1030,7 +1325,7 @@ def profile_decode_steps(engine, reqs, label, step_ms, n_steps=4):
     return res
 
 
-def profile_step(engine, batch):
+def profile_step(engine, batch, path):
     """One more train_batch under torch.profiler (after the launch counts
     were read): device time by kernel kind and the device's busy share of
     the step's wall time (one stream, so kernels do not overlap)."""
@@ -1045,11 +1340,12 @@ def profile_step(engine, batch):
     wall_ms = (time.perf_counter() - t) * 1e3
     n_kernels, by_kind = device_ms_by_kind(prof)
     device_ms = sum(by_kind.values())
-    res = dict(step_wall_ms_profiled=wall_ms, device_kernels=n_kernels,
+    res = dict(path=path, step_wall_ms_profiled=wall_ms,
+               device_kernels=n_kernels,
                device_ms=device_ms,
                device_busy_share=device_ms / wall_ms if n_kernels else None,
                device_ms_by_kind=by_kind)
-    log("training step profile:", json.dumps(res))
+    log(f"{path} step profile:", json.dumps(res))
     return res
 
 
@@ -1113,6 +1409,48 @@ def train_kernel_vs_plain(engine, batch):
     return res
 
 
+def qwz_kernel_vs_plain(engine, batch):
+    """The engine's qwZ compute tree (the quantise and dequantise kernels,
+    fp32 masters straight into bf16) against the plain versions' bit for
+    bit, leaf by leaf; then one micro-batch's loss on it against the loss
+    on the plain bf16 cast of the same masters."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantization as Q
+    from deepspeed_tpu_torch.tree import tree_leaves, tree_map
+    mb = {"input_ids": torch.as_tensor(batch["input_ids"][:TRAIN_MICRO],
+                                       device=engine.device)}
+    with torch.no_grad():
+        params_q = engine._compute_params()
+        engine._params_c = None          # leave the engine between steps
+        differ = []
+        for i, (p, c) in enumerate(zip(tree_leaves(engine.params),
+                                       tree_leaves(params_q))):
+            if p.dim() < 2:
+                continue
+            ref = Q.dequantize_blockwise_reference(
+                *Q.quantize_blockwise_reference(p), p.shape, torch.bfloat16)
+            if not torch.equal(c, ref):
+                differ.append(i)
+            del ref
+        loss_q = float(engine.module.loss(params_q, mb))
+        del params_q
+        plain = tree_map(lambda p: p.to(torch.bfloat16), engine.params)
+        loss_p = float(engine.module.loss(plain, mb))
+        del plain
+    rel = abs(loss_q - loss_p) / abs(loss_p)
+    res = dict(leaves_differing_from_plain=differ, loss_qwz=loss_q,
+               loss_unquantised=loss_p, loss_rel_diff=rel,
+               loss_rel_tol=QWZ_LOSS_REL_TOL)
+    log("qwZ compute tree, kernels vs plain:", json.dumps(res))
+    if differ:
+        raise RuntimeError(f"qwZ: leaves {differ} of the kernel tree differ "
+                           f"from the plain versions'")
+    if not 0 < rel <= QWZ_LOSS_REL_TOL:
+        raise RuntimeError(f"qwZ moved the loss by {rel:.3e}, outside "
+                           f"(0, {QWZ_LOSS_REL_TOL}]")
+    return res
+
+
 
 # ---------------------------------------------------------------------------
 
@@ -1137,17 +1475,23 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import kernel_loader
     from deepspeed_tpu_torch.ops import normalization as N
     from deepspeed_tpu_torch.ops import paged_attention as PA
-    # kernel -> (its library, its C entry point where the source holds
-    # two kernels), its source and the TPU kernel it replaces
+    from deepspeed_tpu_torch.ops import quantization as Q
+    # kernel -> (its library, its C entry points where the source holds
+    # more than one kernel), its source and the TPU kernel it replaces
     counters = {
-        "paged_attention": (PA.KERNEL, "paged_attention_bf16"),
-        "paged_attention_int8": (PA.KERNEL, "paged_attention_int8"),
-        "rmsnorm": (N.KERNEL, "rmsnorm_bf16"),
-        "rmsnorm_res": (N.KERNEL, "rmsnorm_res_bf16"),
+        "paged_attention": (PA.KERNEL, ("paged_attention_bf16",)),
+        "paged_attention_int8": (PA.KERNEL, ("paged_attention_int8",)),
+        "rmsnorm": (N.KERNEL, ("rmsnorm_bf16",)),
+        "rmsnorm_res": (N.KERNEL, ("rmsnorm_res_bf16",)),
         "layernorm": (N.LN_KERNEL, None),
         "flash_fwd": (FA.KERNEL, None),
         "flash_bwd": (FA.BWD_KERNEL, None),
-        "fused_adamw": (FO.KERNEL, None)}
+        "fused_adamw": (FO.KERNEL, None),
+        "quantize": (Q.KERNEL, ("quantize_blockwise_f32",)),
+        "dequantize": (Q.KERNEL, ("dequantize_blockwise_f32",
+                                  "dequantize_blockwise_bf16")),
+        "fused_lion": (FO.LION_KERNEL, None),
+        "fused_lamb": (FO.LAMB_KERNEL, None)}
     replaces = {
         "paged_attention": "deepspeed_tpu/ops/paged_attention.py:240",
         "paged_attention_int8": "deepspeed_tpu/ops/paged_attention.py:240",
@@ -1156,7 +1500,11 @@ def main() -> int:
         "layernorm": "deepspeed_tpu/ops/normalization.py:35",
         "flash_fwd": "deepspeed_tpu/ops/flash_attention.py:79",
         "flash_bwd": "deepspeed_tpu/ops/flash_attention.py:164",
-        "fused_adamw": "deepspeed_tpu/ops/fused_optimizer.py:29"}
+        "fused_adamw": "deepspeed_tpu/ops/fused_optimizer.py:29",
+        "quantize": "deepspeed_tpu/ops/quantization.py:31",
+        "dequantize": "deepspeed_tpu/ops/quantization.py:40",
+        "fused_lion": "deepspeed_tpu/ops/fused_optimizer.py:91",
+        "fused_lamb": "deepspeed_tpu/ops/fused_optimizer.py:183"}
     libraries = list({id(k): k for k, _ in counters.values()}.values())
     t = time.perf_counter()
     build_logs = kernel_loader.build_all(libraries)
@@ -1176,6 +1524,7 @@ def main() -> int:
 
     # phase 3
     train_cfg = llama_config("7b", num_layers=TRAIN_LAYERS)
+    quant_rows, dequant_rows = check_quantization(dev, train_cfg)
     checks = {"paged_attention": check_paged(dev),
               "paged_attention_int8": check_paged(dev, int8=True),
               "rmsnorm": check_rmsnorm(dev),
@@ -1183,18 +1532,25 @@ def main() -> int:
               "layernorm": check_layernorm(dev),
               "flash_fwd": check_flash(dev),
               "flash_bwd": check_flash_bwd(dev),
-              "fused_adamw": check_adamw(dev, train_cfg)}
+              "fused_adamw": check_adamw(dev, train_cfg),
+              "quantize": quant_rows, "dequantize": dequant_rows,
+              "fused_lion": check_lion(dev, train_cfg),
+              "fused_lamb": check_lamb(dev, train_cfg)}
     for name, rows in checks.items():
         for r in rows:
+            lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                   else "null")
             log(f"kernel {name} [{r['shape']}]: rms_rel_err "
                 f"{r['rms_rel_err']:.3e} (tol {RMS_REL_TOL}), max_rel_err "
                 f"{r['max_rel_err']:.3e} (tol {MAX_REL_TOL}), max_abs_err "
                 f"{r['max_abs_err']:.3e}; kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"{r['plain_ms']:.4f} ms, library {lib}, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f", whole LAMB step {r['step_ms']:.4f} ms"
+                   if "step_ms" in r else ""))
             rel = [(r[k], RMS_REL_TOL) for k in r if k.endswith("rms_rel_err")]
             rel += [(r[k], MAX_REL_TOL) for k in r if k.endswith("max_rel_err")]
-            if name == "fused_adamw":
+            if name in PATH_OPTIMIZER.values():
                 rel.append((r["max_rel_err"], OPT_MAX_REL_TOL))
             if not all(err <= tol for err, tol in rel):
                 raise RuntimeError(f"{name} kernel disagrees with its plain "
@@ -1236,18 +1592,31 @@ def main() -> int:
     del opt_params
     gc.collect()
     torch.cuda.empty_cache()
-    engine, batch, train_launches = train(counters, card)
+    launches_by_path = {"serving_llama": llama_launches,
+                        "serving_opt": opt_launches}
+    engine, batch, launches_by_path["training"] = train(counters, card)
 
     # phase 9
     train_kernel_vs_plain(engine, batch)
 
-    # phase 10
+    # phases 10 and 11: each engine goes before the next is built
+    for path in ("training_lion_qwz", "training_lamb"):
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, batch, launches_by_path[path] = train(counters, card, path)
+        if engine.config.quantized_weights:
+            qwz_kernel_vs_plain(engine, batch)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 12
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)
-        by_path = {"serving_llama": llama_launches[name],
-                   "serving_opt": opt_launches[name],
-                   "training": train_launches[name]}
+        by_path = {path: launches[name]
+                   for path, launches in launches_by_path.items()}
         entry = dict(
             name=name, route="cuda",
             source="deepspeed_tpu_torch/csrc/" + counters[name][0].source.name,
@@ -1272,6 +1641,18 @@ def main() -> int:
                              "in this package as in the JAX one: 0 launches"
                              " on every path; library_ms is two calls (add,"
                              " then F.rms_norm)")
+        if head["library_ms"] is None:
+            entry["note"] = NO_LIBRARY
+        if name in ("quantize", "dequantize"):
+            entry["bit_equal"] = all(r["bit_equal"] for r in rows)
+        if name == "fused_lion":
+            entry["sign_mismatches"] = sum(r["sign_mismatches"] for r in rows)
+        if name == "fused_lamb":
+            entry.update(norm_rel_err=max(r["norm_rel_err"] for r in rows),
+                         p_max_rel_err=max(r["p_max_rel_err"] for r in rows),
+                         note=NO_LIBRARY + "; ms is stage 1 (the kernel), "
+                         "step_ms the whole update with the trust ratio",
+                         step_ms=head["step_ms"])
         line["kernels"].append(entry)
     print(json.dumps(line))
     print(card_line())

@@ -8,19 +8,25 @@ program; this one runs it eagerly, with the same numbers:
 
 1. each step casts the fp32 masters to the compute dtype once (bf16, or
    fp32 with ``"bf16": {"enabled": false}``) and takes gradients with
-   respect to that copy;
+   respect to that copy; with ZeRO++ quantised weights (stage 3 and
+   ``zero_quantized_weights``) every leaf of two or more dimensions is
+   first snapped to the blockwise int8 grid (the quantise and dequantise
+   kernels, straight into the compute dtype; JAX ``engine.py:641-653``),
+   and its gradient passes straight through;
 2. each micro-batch's gradient is cast to fp32 and summed into a
    per-master accumulator, which is scaled by ``1 / gas`` at the step;
 3. the global norm is taken over every accumulator and, with
    ``gradient_clipping`` c > 0, every one is scaled by
    ``min(1, c / (norm + 1e-6))``;
-4. update k (0-based) applies AdamW (the fused kernel) at lr
-   ``schedule(k)``;
+4. update k (0-based) applies the optimizer (AdamW, Lion or LAMB, each a
+   fused kernel) at lr ``schedule(k)``;
 5. ``train_batch`` reports the mean of the micro-batch losses.
 
 The accumulators are the masters' ``.grad``, so :attr:`optimizer` is a
-plain ``torch.optim.Optimizer`` over the masters.  Features outside the
-slice raise ``NotImplementedError`` from the config loader or here.
+plain ``torch.optim.Optimizer`` over the masters.  ZeRO stages 1-3 run
+on one rank, where the partition is the identity: they change no
+number.  Features outside the slice raise ``NotImplementedError`` from
+the config loader or here.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from ..accelerator import DeviceLike, resolve_device
 from ..models.base import Model
+from ..ops.quantization import quantize_dequantize
 from ..tree import tree_leaves, tree_map
 from .config import TrainingConfig, load_config, outside_slice
 from .lr_schedules import LRScheduler, get_lr_schedule
@@ -126,13 +133,23 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     def _compute_params(self) -> Dict[str, Any]:
         """This step's compute-dtype copy of the masters, made once per
-        step; gradients are taken with respect to it.  In fp32 the copy
-        shares the masters' storage (nothing changes them until the
-        update, after the last backward)."""
+        step; gradients are taken with respect to it.  In fp32 a leaf's
+        copy shares the master's storage (nothing changes it until the
+        update, after the last backward), except under qwZ, where every
+        leaf of two or more dimensions is a new, quantised tensor: its
+        blocks run over the leaf's flat layout as the tree holds it
+        (stacked ``[L, ...]`` leaves whole, norm scales included)."""
         if self._params_c is None:
-            self._params_c = tree_map(
-                lambda p: p.detach().to(self.compute_dtype).requires_grad_(),
-                self.params)
+            qwz = self.config.quantized_weights
+
+            def cast(p):
+                if qwz and p.dim() >= 2:
+                    c = quantize_dequantize(p.detach(),
+                                            dtype=self.compute_dtype)
+                else:
+                    c = p.detach().to(self.compute_dtype)
+                return c.requires_grad_()
+            self._params_c = tree_map(cast, self.params)
         return self._params_c
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -7,9 +7,12 @@ first use) and skip without one; they import neither JAX nor
 ``python -m pytest tests/test_torch_kernels.py -m cuda``.  Tolerances,
 relative to each case's reference (``assert_parity``): rms 1e-2, max
 2.5e-2.  The outputs are bf16, and the kernels accumulate in fp32 where
-the plain path rounds scores and probabilities to bf16.  The AdamW
-kernel is fp32 throughout and is held to 1e-6 of each buffer's largest
-value as well (an ulp or two from fused multiply-adds).
+the plain path rounds scores and probabilities to bf16.  The AdamW,
+Lion and LAMB kernels are fp32 throughout and are held to 1e-6 of each
+buffer's largest value as well (an ulp or two from fused multiply-adds;
+Lion's signs must agree on every element, LAMB's norms within 1e-5 and
+its stepped p within 1e-5).  The blockwise quantisation kernels are held
+to bit-equality with their plain versions.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import fused_optimizer as tfo
 from deepspeed_tpu_torch.ops import normalization as tnorm
 from deepspeed_tpu_torch.ops import paged_attention as tpa
+from deepspeed_tpu_torch.ops import quantization as tq
 
 
 def _t(a):
@@ -470,3 +474,153 @@ def test_serving_model_outside_the_kernels_layout_raises(cuda_device, over):
     logits = T.InferenceEngineV2(model).put([0], [[1, 2, 3]])
     assert logits.device.type == "cuda"
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# blockwise quantisation, Lion and LAMB
+# ---------------------------------------------------------------------------
+
+def lion_signs(p_old, p_new, lr, wd):
+    """The sign u that a Lion step applied, recovered from
+    p_new = p_old - lr (u + wd p_old) (chip_smoke.py's check)."""
+    return torch.round((p_old - p_new) / lr - wd * p_old)
+
+
+def _tie_input(device="cpu"):
+    """Blocks of absmax 127 (scale 1.0 exactly) full of k + 0.5 ties."""
+    x = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5],
+                     device=device).repeat(192)
+    x[::512] = 127.0
+    return x
+
+
+def test_quantize_bit_equality_fails_half_away_from_zero_rounding():
+    """A kernel rounding with roundf (half away from zero) instead of
+    rintf (half to even) gives other codes on ties: the bit-equality
+    check sees it."""
+    x = _tie_input()
+    q, s, _ = tq.quantize_blockwise_reference(x)
+    scaled = x.reshape(-1, 512) / s[:, None]
+    away = (torch.sign(scaled) * torch.floor(scaled.abs() + 0.5)).clamp(
+        -127, 127).to(torch.int8)
+    assert not torch.equal(away, q)
+    assert torch.equal(torch.round(scaled).to(torch.int8), q)
+
+
+def test_lion_sign_check_fails_swapped_betas():
+    """The plain Lion with b1 and b2 swapped, standing in for a kernel
+    that mixes them up, applies other signs wherever m and g disagree;
+    the sign check sees it, while the true plain version passes it."""
+    g = torch.Generator().manual_seed(0)
+    p, grad, m = (torch.randn(4096, generator=g) for _ in range(3))
+    kw = dict(lr=3e-4, wd=0.1)
+    runs = {}
+    for name, (b1, b2) in (("right", (0.9, 0.99)), ("again", (0.9, 0.99)),
+                           ("swapped", (0.99, 0.9))):
+        bufs = [p.clone(), grad, m.clone()]
+        tfo.lion_reference(*bufs, b1=b1, b2=b2, **kw)
+        runs[name] = lion_signs(p, bufs[0], **kw)
+    assert set(runs["right"].unique().tolist()) <= {-1.0, 0.0, 1.0}
+    assert torch.equal(runs["right"], runs["again"])
+    assert not torch.equal(runs["swapped"], runs["right"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 3001, 512 * 7, 4096 * 1104 + 5])
+def test_quantize_kernels_match_plain_bit_for_bit(cuda_device, n):
+    """Odd sizes (a partial tail block), a zero block and a block below
+    the 1e-12 floor; codes, scales, pad and both output types."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(n, generator=g, device=cuda_device)
+    if n > 1024:
+        x[:512] = 0.0
+        x[512:1024] *= 1e-13
+    for inp in (x, _tie_input(cuda_device)):
+        q, s, pad = tq.quantize_blockwise(inp)
+        rq, rs, rpad = tq.quantize_blockwise_reference(inp)
+        assert pad == rpad and torch.equal(q, rq) and torch.equal(s, rs)
+        for dt in (torch.float32, torch.bfloat16):
+            out = tq.dequantize_blockwise(q, s, pad, inp.shape, dt)
+            ref = tq.dequantize_blockwise_reference(rq, rs, rpad, inp.shape,
+                                                    dt)
+            assert out.dtype == dt and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_quantize_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.randn(2048, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        tq.quantize_blockwise(x.bfloat16())
+    with pytest.raises(ValueError, match="aligned"):
+        tq.quantize_blockwise(x[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.quantize_blockwise(x.view(32, 64).t())
+    with pytest.raises(ValueError, match="block"):
+        tq.quantize_blockwise(x, block=64)
+    q, s, pad = tq.quantize_blockwise(x)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tq.dequantize_blockwise(q, s, pad, x.shape, torch.float16)
+    with pytest.raises(ValueError, match="do not hold"):
+        tq.dequantize_blockwise(q, s, pad, (2049,))
+    with pytest.raises(TypeError, match="int8"):
+        tq.dequantize_blockwise(q.int(), s, pad, x.shape)
+
+
+def _opt_buffers(dev, n, count):
+    g = torch.Generator(device=dev).manual_seed(n)
+    bufs = [torch.randn(n, generator=g, device=dev) for _ in range(count)]
+    if count == 4:
+        bufs[3] = torch.rand(n, generator=g, device=dev)   # v >= 0
+    return bufs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3001, 4096 * 1104])
+def test_lion_kernel_matches_plain(cuda_device, n):
+    p, grad, m = _opt_buffers(cuda_device, n, 3)
+    kw = dict(lr=3e-4, b1=0.9, b2=0.99, wd=0.1)
+    ref = [x.clone() for x in (p, grad, m)]
+    p0 = p.clone()
+    tfo.fused_lion_flat(p, grad, m, **kw)
+    tfo.lion_reference(*ref, **kw)
+    assert torch.equal(lion_signs(p0, p, kw["lr"], kw["wd"]),
+                       lion_signs(p0, ref[0], kw["lr"], kw["wd"]))
+    for a, b in ((p, ref[0]), (m, ref[2])):
+        assert parity_errors(a, b)[1] <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3001, 4096 * 1104])
+def test_lamb_kernel_matches_plain(cuda_device, n):
+    p, grad, m, v = _opt_buffers(cuda_device, n, 4)
+    hp = dict(b1=0.9, b2=0.95, eps=1e-6, wd=0.1, step=7)
+    rp, rg, rm, rv = (x.clone() for x in (p, grad, m, v))
+    m0, v0 = m.clone(), v.clone()
+    u, norms = tfo.lamb_stage1(p, grad, m, v, **hp)
+    ru, rnorms = tfo.lamb_stage1_reference(rp, rg, rm, rv, **hp)
+    for a, b in ((u, ru), (m, rm), (v, rv)):
+        assert parity_errors(a, b)[1] <= 1e-6
+    rel = (norms.sum(0) - rnorms.sum(0)).abs() / rnorms.sum(0)
+    assert float(rel.max()) <= 1e-5
+    # a grid fixed by the size: the partial sums repeat bit for bit
+    again = tfo.lamb_stage1(p, grad, m0.clone(), v0.clone(), **hp)[1]
+    assert torch.equal(again, norms) and norms.shape[1] == 2
+    tfo.lamb_trust_step(p, u, norms, 1e-2)
+    tfo.lamb_trust_step(rp, ru, rnorms, 1e-2)
+    assert parity_errors(p, rp)[1] <= 1e-5
+
+
+@pytest.mark.cuda
+def test_optimizer_kernels_reject_what_they_do_not_take(cuda_device):
+    p, grad, m, v = _opt_buffers(cuda_device, 4096, 4)
+    with pytest.raises(TypeError, match="fp32 g"):
+        tfo.fused_lion_flat(p, grad.bfloat16(), m, 1e-4, 0.9, 0.99, 0.0)
+    with pytest.raises(ValueError, match="aligned"):
+        tfo.fused_lion_flat(p[1:], grad[1:], m[1:], 1e-4, 0.9, 0.99, 0.0)
+    with pytest.raises(ValueError, match="aligned"):
+        tfo.lamb_stage1(p, grad, m[:-4], v, 0.9, 0.999, 1e-6, 0.0, 1)
+    with pytest.raises(TypeError, match="fp32 v"):
+        tfo.fused_lamb_flat(p, grad, m, v.half(), 1e-2, 0.9, 0.999, 1e-6,
+                            0.0, 1)
+    with pytest.raises(ValueError, match="1-based"):
+        tfo.fused_lamb_flat(p, grad, m, v, 1e-2, 0.9, 0.999, 1e-6, 0.0, 0)

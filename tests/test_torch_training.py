@@ -233,8 +233,15 @@ def test_training_lowers_the_loss_on_a_fixed_batch():
 
 @pytest.mark.parametrize("over,match", [
     ({"fp16": {"enabled": True}}, "fp16"),
-    ({"zero_optimization": {"stage": 2}}, "ZeRO stage 2"),
-    ({"optimizer": {"type": "lion", "params": {"lr": 1e-4}}}, "lion"),
+    ({"optimizer": {"type": "sgd", "params": {"lr": 1e-4}}}, "sgd"),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
+     "zero_quantized_gradients"),
+    ({"optimizer": {"type": "onebitadam", "params": {"lr": 1e-4}}},
+     "onebitadam"),
+    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
+     "mics_shard_size"),
+    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
+     "zero_hpz_partition_size"),
     ({"optimizer": {"type": "adam", "params": {"adam_w_mode": False}}},
      "adam_w_mode"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
@@ -249,6 +256,13 @@ def test_options_outside_the_slice_raise(over, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         _port_engine(**over)
     assert "ROADMAP" in str(err.value)
+
+
+def test_unknown_zero_key_raises():
+    with pytest.raises(NotImplementedError, match="stage3_typo"):
+        load_config({"zero_optimization": {"stage": 3, "stage3_typo": 1}})
+    with pytest.raises(ValueError, match="ZeRO stage"):
+        load_config({"zero_optimization": {"stage": 4}})
 
 
 def test_engine_calls_outside_the_slice_raise():
