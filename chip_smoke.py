@@ -78,10 +78,14 @@ SEED = 0
 # Kernel vs plain version, bf16 outputs, each case held against the
 # scale of its own reference (attention outputs over N(0,1) keys at
 # contexts of 10^3 are ~0.05, so an absolute limit would be as large as
-# the values).  The kernels keep scores and probabilities in fp32 where
-# the plain versions round them to bf16; on the CPU that difference
-# measures rms 5e-3 and max 9e-3 of max|ref| at these shapes, while one
-# key too many at a 2048-token context moves the rms by 2.4e-2.
+# the values).  The attention kernels and the plain versions both round
+# P to bf16 before P . V, the kernels unnormalised (dividing by the fp32
+# sum at the end), the plain versions after the softmax; over int8 pages
+# the tensor-core path rounds p * v_scale to bf16 and the decode path
+# keeps p and V in fp32.  On the CPU stand-ins (tests/test_torch_kernels
+# .py, the decode shape at contexts up to 2048) that rounding measures
+# rms 3.3e-3..5.2e-3 and max <= 5.7e-3 of max|ref|, while one key too
+# many moves the rms by 2.3e-2 or more.
 #   rms_rel = rms(kernel - plain) / rms(plain)
 #   max_rel = max|kernel - plain| / max|plain|
 RMS_REL_TOL = 1e-2
@@ -95,9 +99,12 @@ GREEDY_AGREE_MIN = 0.75
 # Over int8 pages the two paths also quantise at append from K and V that
 # differ by rounding, so a code may flip.  CPU stand-in (tests/
 # test_torch_families.py::test_int8_serving_limits_pass_rounding_and_fail_
-# a_wrong_scale, a bf16 OPT at E = 128): rounding gives 1.0e-2 of the
-# largest logit at 2 layers and 1.1e-2 at 8, scales read from the
-# neighbouring kv head 0.37 to 0.51.  The int8 phase is held to about 3x
+# a_wrong_scale, a bf16 OPT at E = 128, with the decode path's fp32 p and
+# V on decode segments and the tile's bf16(p * v_scale) against the codes
+# on prefill chunks): rounding gives 1.09e-2 of the largest logit at 2
+# layers and 1.12e-2 at 8, scales read from the neighbouring kv head 0.37
+# to 0.51.
+# The int8 phase is held to about 3x
 # the stand-in's largest reading; greedy picks over int8 pages are held to
 # the same floor against bf16 pages (the JAX suite's own agreement bound
 # for int8 pages).  Neither limit sees one key past the causal limit at
@@ -237,6 +244,42 @@ def parity(out, ref) -> dict:
                 max_rel_err=float(d.abs().max() / ref.abs().max()),
                 rms_rel_err=float(d.pow(2).mean().sqrt()
                                   / ref.pow(2).mean().sqrt()))
+
+
+def ptxas_kernels(build_log: str, nvcc: str) -> dict:
+    """Registers, stack and spills of each kernel in an ``nvcc -Xptxas -v``
+    log, by name: the entry symbol as ``cu++filt -p`` (beside ``nvcc``)
+    demangles it, or as ptxas prints it where there is no ``cu++filt``."""
+    import re
+    import subprocess
+    from pathlib import Path
+    symbols = re.findall(r"Compiling entry function '([^']+)'", build_log)
+    filt = Path(nvcc).with_name("cu++filt")
+    names = dict(zip(symbols, symbols))
+    if symbols and filt.exists():
+        names = dict(zip(symbols, subprocess.run(
+            [str(filt), "-p", *symbols], capture_output=True, text=True,
+            check=True).stdout.splitlines()))
+    out, name = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = names[m.group(1)]
+            out[name] = dict(registers=0, stack=0, spill_stores=0,
+                             spill_loads=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def read_launches(counters) -> dict:
@@ -413,14 +456,17 @@ def check_paged(dev, int8=False):
     from deepspeed_tpu_torch.ops import paged_attention as PA
     g = torch.Generator(device=dev).manual_seed(SEED)
     # the serving run's decode steps carry 16 slots and its mixed steps
-    # Q=1024-bucket prefill chunks over up to 1024 tokens of history
+    # Q=1024-bucket prefill chunks over up to 1024 tokens of history; one
+    # slot at a full 2048-token context takes the most decode splits
     cases = [("serving decode", 16, 1, 32, 32, None, False),
              ("decode", 8, 1, 32, 32, None, False),
              ("prefill chunk", 8, 64, 32, 32, None, False),
              ("serving prefill chunk", 4, 1024, 32, 32, None, False),
              ("GQA decode", 8, 1, 32, 8, None, False),
              ("window decode", 8, 1, 32, 32, 512, False),
-             ("ALiBi decode", 8, 1, 32, 32, None, True)]
+             ("ALiBi decode", 8, 1, 32, 32, None, True),
+             ("single-slot decode", 1, 1, 32, 32, None, False),
+             ("GQA prefill chunk", 4, 1024, 32, 8, None, False)]
     # the int8 cases quantise the very pages, tables and positions of the
     # bf16 cases (every case draws, fewer run)
     skip = ("decode", "prefill chunk") if int8 else ()
@@ -431,6 +477,8 @@ def check_paged(dev, int8=False):
         q, kv, table, start = _paged_inputs(dev, S, Q, H, K, 2048, g)
         if name in skip:
             continue
+        if name == "single-slot decode":
+            start.fill_(2047)
         if int8:
             kv = PA.KVPages(*PA.quantize_kv_blocks(kv))
         slopes = (torch.as_tensor(alibi_slopes(H), device=dev)
@@ -453,6 +501,8 @@ def check_paged(dev, int8=False):
             shape=f"{name}: S={S} Q={Q} H={H} K={K} D=128 page=64 "
                   f"ctx<=2048" + (f" window={window}" if window else "")
                   + (" int8 pages" if int8 else ""),
+            path=("split-KV decode + combine"
+                  if Q * (H // K) < PA.DECODE_ROWS else "tensor-core tile"),
             **err,
             ms=cuda_ms(lambda: PA.paged_decode_attention(
                 q, kv, table, start, **kw), 20),
@@ -480,38 +530,62 @@ def _attended_pairs(S, window=None):
     return sum(min(t + 1, window) for t in range(S))
 
 
-def check_flash(dev):
+def _sdpa_forward(q, k, v, window):
+    """Library yardstick: scaled_dot_product_attention, causal (a band
+    mask with a window)."""
     import torch
     import torch.nn.functional as F
+    gqa = q.shape[1] != k.shape[1]
+    if window:
+        S = q.shape[2]
+        pos = torch.arange(S, device=q.device)
+        band = (pos[:, None] >= pos[None, :]) & (
+            pos[:, None] - pos[None, :] < window)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=band, enable_gqa=gqa)
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=gqa)
+
+
+def check_flash(dev):
+    import torch
     from deepspeed_tpu_torch.ops import flash_attention as FA
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     # the serving case (contiguous [B, H, S, D]) first, then the training
-    # shape as the training forward passes it
-    for name, B, S in (("", 4, 1024), ("training: ", 2, TRAIN_SEQ)):
+    # shape as the training forward passes it ([B, S, H, D] views), an
+    # uneven S, GQA and a window at the training width
+    cases = [("", 4, 1024, 32, None),
+             ("training: ", 2, TRAIN_SEQ, 32, None),
+             ("uneven S=1000: ", 2, 1000, 32, None),
+             ("GQA: ", 2, TRAIN_SEQ, 8, None),
+             ("window 512: ", 2, TRAIN_SEQ, 32, 512)]
+    for name, B, S, K, window in cases:
         H, D = 32, 128
         if name:
-            q, k, v = (_bshd(dev, g, B, S, H) for _ in range(3))
+            q, k, v = (_bshd(dev, g, B, S, n) for n in (H, K, K))
         else:
-            q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev,
-                                   dtype=torch.bfloat16) for _ in range(3))
-        out, lse = FA.flash_fwd(q, k, v, causal=True)
-        ref, ref_lse = FA.flash_reference(q, k, v, causal=True)
+            q, k, v = (torch.randn(B, n, S, D, generator=g, device=dev,
+                                   dtype=torch.bfloat16) for n in (H, K, K))
+        out, lse = FA.flash_fwd(q, k, v, causal=True, window=window)
+        ref, ref_lse = FA.flash_reference(q, k, v, causal=True, window=window)
         err = parity(out, ref)
         lse_err = parity(lse, ref_lse)
         del out, lse, ref, ref_lse
-        flops = 4 * B * H * D * _attended_pairs(S)
-        b_ms, b_by = bound(4 * B * H * S * D * 2 + B * H * S * 4, flops)
+        flops = 4 * B * H * D * _attended_pairs(S, window)
+        b_ms, b_by = bound(2 * B * (H + K) * S * D * 2 + B * H * S * 4, flops)
         rows.append(dict(
-            shape=f"{name}B={B} H={H} S={S} D={D} causal", **err,
+            shape=f"{name}B={B} H={H} K={K} S={S} D={D} causal"
+                  + (f" window={window}" if window else ""), **err,
             lse_max_rel_err=lse_err["max_rel_err"],
             lse_rms_rel_err=lse_err["rms_rel_err"],
-            ms=cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True), 10),
-            plain_ms=cuda_ms(lambda: FA.flash_reference(q, k, v,
-                                                        causal=True), 3),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 10),
+            ms=cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True,
+                                            window=window), 20),
+            plain_ms=cuda_ms(lambda: FA.flash_reference(
+                q, k, v, causal=True, window=window), 3),
+            library_ms=cuda_ms(_sdpa_forward(q, k, v, window), 20),
             bound_ms=b_ms, bound_by=b_by))
+        del q, k, v
     return rows
 
 
@@ -915,6 +989,7 @@ def serve(cfg, params, counters, card, model_type="llama",
     import torch
     from deepspeed_tpu_torch.inference.v2 import (FastGenScheduler,
                                                   SamplingParams)
+    from deepspeed_tpu_torch.ops import paged_attention as PA
     engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
                           kv_quantization=kv_quantization)
     model = engine.model
@@ -922,11 +997,22 @@ def serve(cfg, params, counters, card, model_type="llama",
     log(f"{model_type} serving: {type(model).__name__}, implementations "
         f"{model.implementations}, kv pages {model.kv_config.quantization}"
         f", kv pool {kv_pool_bytes / 1e9:.2f} GB")
+    # paged segments whose folded rows (Q * H / K) take the paged kernel's
+    # split-KV decode path with more than one split, which adds one
+    # combine launch per layer
     segments = {"fresh": 0, "paged": 0}
+    split_segments = [0]
+    groups = cfg.num_heads // cfg.kv_heads
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     step_impl = model._step_impl
 
     def counted(*a, fresh=False, **k):
+        # a = (params, kv, token_ids, q_lens, start_pos, page_table)
         segments["fresh" if fresh else "paged"] += 1
+        S, Q = a[2].shape
+        if not fresh and Q * groups < PA.DECODE_ROWS and PA.decode_splits(
+                S, cfg.kv_heads, a[5].shape[1], sms) > 1:
+            split_segments[0] += 1
         return step_impl(*a, fresh=fresh, **k)
 
     model._step_impl = counted
@@ -950,6 +1036,7 @@ def serve(cfg, params, counters, card, model_type="llama",
     reset_launches(counters)
     for s in segments:
         segments[s] = 0
+    split_segments[0] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     first_token = {}
@@ -1000,6 +1087,8 @@ def serve(cfg, params, counters, card, model_type="llama",
         and segments["paged"] > 0,
         "flash_fwd": launches["flash_fwd"] == L * segments["fresh"]
         and segments["fresh"] > 0,
+        "paged_attention_combine": launches["paged_attention_combine"]
+        == L * split_segments[0] and split_segments[0] > 0,
         "idle kernels": all(launches[k] == 0 for k in (
             other_norm, other_paged, "rmsnorm_res", "flash_bwd",
             "fused_adamw", "fused_lion", "fused_lamb", "quantize",
@@ -1037,7 +1126,8 @@ def serve(cfg, params, counters, card, model_type="llama",
                          for k, v in by_kind.items()},
         tokens_generated=sum(len(t) for t in generated.values()),
         max_memory_allocated_gb=peak / 1e9,
-        segments=segments, launches=launches)
+        segments=dict(segments, split_kv=split_segments[0]),
+        launches=launches)
     log(f"{model_type} serving:", json.dumps(summary))
     log(f"segments: {segments}, launches: {launches}, checks: {checks}")
     if not all(checks.values()):
@@ -1225,7 +1315,7 @@ def train(counters, card, path="training"):
         "no operand copies": flash_bwd.copies == 0,
         "serving kernels idle": all(launches[k] == 0 for k in (
             "rmsnorm", "rmsnorm_res", "layernorm", "paged_attention",
-            "paged_attention_int8")),
+            "paged_attention_int8", "paged_attention_combine")),
     }
     steady = [st["ms"] for st in steps[1:]]
     step_ms = sum(steady) / len(steady)
@@ -1265,7 +1355,9 @@ _KERNEL_KINDS = (("flash_fwd", "flash forward"),
                  ("fused_lamb", "LAMB stage 1"),
                  ("dequantize_blockwise", "dequantise (qwZ)"),
                  ("quantize_blockwise", "quantise (qwZ)"),
-                 ("paged_attention", "paged attention"),
+                 ("paged_split", "paged attention, split-KV decode"),
+                 ("paged_combine", "paged attention, combine"),
+                 ("paged_tile", "paged attention, tensor-core tile"),
                  ("layernorm_kernel", "LayerNorm"),
                  ("rmsnorm", "RMSNorm"),
                  ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
@@ -1478,9 +1570,12 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import quantization as Q
     # kernel -> (its library, its C entry points where the source holds
     # more than one kernel), its source and the TPU kernel it replaces
+    # (the paged kernel's decode path is two launches: the split-KV kernel,
+    # counted under the page format's name, and the combine)
     counters = {
         "paged_attention": (PA.KERNEL, ("paged_attention_bf16",)),
         "paged_attention_int8": (PA.KERNEL, ("paged_attention_int8",)),
+        "paged_attention_combine": (PA.KERNEL, ("paged_attention_combine",)),
         "rmsnorm": (N.KERNEL, ("rmsnorm_bf16",)),
         "rmsnorm_res": (N.KERNEL, ("rmsnorm_res_bf16",)),
         "layernorm": (N.LN_KERNEL, None),
@@ -1513,14 +1608,14 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t:.1f} s "
         f"({', '.join(k.library_path.name for k in libraries)})")
     for k, text in zip(libraries, build_logs):
-        lines = [ln for ln in text.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        spills = [ln for ln in lines if "spill" in ln
-                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        regs = [int(ln.split("Used ")[1].split()[0])
-                for ln in lines if "Used " in ln]
-        log(f"ptxas {k.name}: {len(regs)} kernels, registers "
-            f"{sorted(set(regs))}, spills: {spills or 'none'}")
+        kernels = ptxas_kernels(text, kernel_loader._nvcc())
+        regs = sorted({v["registers"] for v in kernels.values()})
+        spills = {name: v for name, v in kernels.items()
+                  if v["spill_stores"] or v["spill_loads"]}
+        log(f"ptxas {k.name}: {len(kernels)} kernels, registers {regs}, "
+            f"spills: {json.dumps(spills) if spills else 'none'}")
+        if k in (PA.KERNEL, FA.KERNEL):
+            log(f"ptxas {k.name} by kernel: {json.dumps(kernels)}")
 
     # phase 3
     train_cfg = llama_config("7b", num_layers=TRAIN_LAYERS)
@@ -1632,10 +1727,21 @@ def main() -> int:
         if name == "flash_bwd":
             # one wrapper, two kernels: dK/dV (:164) and dQ (:214)
             entry["replaces_also"] = "deepspeed_tpu/ops/flash_attention.py:214"
+        if name in ("paged_attention", "paged_attention_int8"):
+            # the combine runs on the paths where this page format ran
+            entry["combine_launches"] = sum(
+                launches["paged_attention_combine"]
+                for launches in launches_by_path.values() if launches[name])
+            entry["ms_by_path"] = {r["shape"]: (r["path"], r["ms"])
+                                   for r in rows}
+            entry["note"] = ("ms is one wrapper call: with fewer than 16 "
+                             "folded rows the split-KV kernel and its "
+                             "combine (combine_launches), else the "
+                             "tensor-core tile")
         if name == "paged_attention_int8":
-            entry["note"] = ("the has_scale specialisation of the TPU "
-                             "kernel; library_ms is two calls (dequantise "
-                             "the gathered pages, then SDPA)")
+            entry["note"] += ("; the has_scale specialisation of the TPU "
+                              "kernel; library_ms is two calls (dequantise "
+                              "the gathered pages, then SDPA)")
         if name == "rmsnorm_res":
             entry["note"] = ("an op entry point that no model path calls, "
                              "in this package as in the JAX one: 0 launches"

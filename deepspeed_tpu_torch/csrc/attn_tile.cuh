@@ -1,18 +1,35 @@
-// Online-softmax attention over one 64-key block, shared by the paged
-// attention kernels (bf16 and int8 pages) and the flash forward kernel.
+// Tensor-core attention tile, shared by the flash forward kernel and the
+// multi-row path of the paged attention kernels (bf16 and int8 pages).
 //
-// A block of 128 threads owns a tile of ROWS query rows (fp32 in shared
-// memory) and walks key blocks of 64.  Per key block:
-//   1. scores  S[r][t] = q[r] . k[t]   (thread t = tid % 64 computes a
-//      column for every other row; K sits transposed in shared memory
-//      so a warp reads 32 consecutive floats, and q[r][d] is a
-//      broadcast),
-//   2. the caller's Score functor scales, biases and masks S,
-//   3. one warp per row updates the running max m and denominator l,
-//   4. acc[r][d] = acc[r][d] * alpha[r] + sum_t P[r][t] * v[t][d], with
-//      thread d = tid owning column d of every row in registers.
-// Everything accumulates in fp32 (m, l, acc, scores, probabilities).
-// The multiply-adds are plain FMAs; tensor-core tiles are later work.
+// One warpgroup (128 threads) owns 64 query rows at head_dim 128 and walks
+// key blocks of 64 (a flash k-block, or one KV page zero-padded to 64):
+//   1. S = Q . K^T with wgmma.mma_async m64n64k16 (bf16 in, fp32 out):
+//      Q and K are bf16 tiles in 128-byte-swizzled shared memory, K-major;
+//   2. the caller's score functor scales, biases and masks S in the
+//      accumulator registers (only on blocks that cross a boundary: the
+//      interior ones take the unmasked form), the row max and sum come
+//      from quad shuffles, m and l stay fp32;
+//   3. O += P . V with wgmma m64n128k16: P goes from the fp32 score
+//      fragment to bf16 in registers as the A operand (the accumulator
+//      fragment of m64n64 is, four columns at a time, the A fragment of
+//      k16), V is [keys, D] bf16 in swizzled shared memory read MN-major
+//      through the descriptor's transpose bit; O stays in 64 fp32
+//      registers per thread.
+// Callers stage tiles with 16-byte cp.async (zero-filled past the valid
+// rows) through a 2-stage ring, so one block's copy overlaps the previous
+// block's compute; fence_proxy_async() makes the copies visible to the
+// tensor cores.
+//
+// Numerics: scores, the running max and the denominator are fp32; P is
+// rounded to bf16 before P . V, as in both TPU kernels
+// (flash_attention.py:120, paged_attention.py:336) and the plain
+// versions.  With VSCALE (int8 V codes as the bf16 operand) the rounded
+// value is p * v_scale[t]: codes of magnitude <= 127 are exact in bf16,
+// and the denominator sums the unscaled p.
+//
+// Accumulator layout (fp32, m64nN): thread t of the warpgroup, warp
+// w = t / 32, lane l, holds rows r0 = 16 w + l / 4 and r0 + 8; register
+// i holds row r0 + 8 ((i >> 1) & 1), column 2 (l % 4) + (i & 1) + 8 (i >> 2).
 #pragma once
 
 #include "common.cuh"
@@ -20,216 +37,284 @@
 namespace ds_attn {
 
 constexpr int kThreads = 128;
-constexpr int kHeadDim = 128;          // == kThreads: one column per thread
-constexpr int kKeys = 64;              // keys per block (a KV page or a flash k-block)
-constexpr int kKtStride = kKeys + 1;   // padding spreads the transposed stores over banks
+constexpr int kHeadDim = 128;
+constexpr int kKeys = 64;                   // keys per block
+constexpr int kRows = 64;                   // query rows per tile
+constexpr int kPanelBytes = 64 * 128;       // 64 rows of 64 bf16 (128 B)
+constexpr int kTileBytes = 2 * kPanelBytes; // [64][128] bf16, two panels
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int ROWS>
-struct SmemLayout {
-  static constexpr int q = ROWS * kHeadDim;
-  static constexpr int kt = kHeadDim * kKtStride;
-  static constexpr int v = kKeys * kHeadDim;
-  static constexpr int p = ROWS * kKeys;
-  static constexpr int floats = q + kt + v + p + 3 * ROWS;
-  static constexpr size_t bytes = floats * sizeof(float);
+// Byte offset of 16-byte chunk c (0..15, 8 bf16 each) of row r in a
+// [64][128] bf16 tile: two column panels of [64][64], each row 128 B,
+// chunks XOR-swizzled by r % 8 (the wgmma 128-byte swizzle; a panel
+// starts on a 1024-byte boundary).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * kPanelBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; valid == false fills zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Writes of the generic proxy (cp.async, st.shared) -> reads of the
+// async proxy (wgmma); each writer fences before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (bits
+// 62-63).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major operand (Q, K): 8-row groups 1024 B apart; the leading offset
+// is unused when a k16 step lies inside one 128-byte row.  k-step kk
+// (16 of the 128 head dims) starts in panel kk / 4, 32 B per step in.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major operand (V as [keys][D], D contiguous): the two 64-column
+// panels are kPanelBytes apart (leading offset), 8-key groups 1024 B
+// apart (stride offset); k-step kk covers keys 16 kk .. 16 kk + 15.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 2048, kPanelBytes, 1024);
+}
+
+// S[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O[64 x 128] += A[64 x 16] . B[16 x 128]: A in registers (the bf16 fragment
+// of the m16n8k16 layout, per warp), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Per-thread softmax state of the thread's two rows, and its 64 output
+// accumulators (row r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l % 4)
+// + (i & 1)).
+struct RowState {
+  float m[2];
+  float l[2];
+  float o[64];
+
+  __device__ void init() {
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  }
 };
 
-template <int ROWS>
-struct Tile {
-  float* qs;     // [ROWS][kHeadDim]
-  float* kt;     // [kHeadDim][kKtStride]   K transposed
-  float* vs;     // [kKeys][kHeadDim]
-  float* ps;     // [ROWS][kKeys]           scores, then probabilities
-  float* m;      // [ROWS] running max
-  float* l;      // [ROWS] running denominator
-  float* alpha;  // [ROWS] rescale of this block
+// This thread's first row in the tile, and its first column in each
+// group of 8.
+__device__ __forceinline__ int frag_row() {
+  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int frag_col() { return 2 * (threadIdx.x & 3); }
 
-  __device__ explicit Tile(float* smem) {
-    using L = SmemLayout<ROWS>;
-    qs = smem;
-    kt = qs + L::q;
-    vs = kt + L::kt;
-    ps = vs + L::v;
-    m = ps + L::p;
-    l = m + ROWS;
-    alpha = l + ROWS;
-  }
-
-  __device__ void init_stats() {
-    for (int r = threadIdx.x; r < ROWS; r += kThreads) {
-      m[r] = -INFINITY;
-      l[r] = 0.f;
-    }
-  }
-
-  // Row r of q (nullptr = padding row, filled with zeros).
-  __device__ void store_q_chunk(int r, int chunk, const __nv_bfloat16* row) {
-    float f[8];
-    if (row != nullptr) {
-      ds_bf16x8_to_float(*reinterpret_cast<const uint4*>(row + chunk * 8), f);
-    } else {
+// One key block.  q, k, v: shared addresses of swizzled [64][128] bf16
+// tiles, written and fenced (fence_proxy_async + __syncthreads) by the
+// caller.  score.apply<MASK>(j, t, dot) returns the scaled (and biased)
+// score of the thread's row j (0: r0, 1: r0 + 8) and key t, or
+// DS_MASK_VALUE; MASK == false promises that every key is visible.
+// v_scale (VSCALE only): 64 fp32 scales of the block's V rows.
+template <bool MASK, bool VSCALE, class Score>
+__device__ __forceinline__ void attend_block(uint32_t q, uint32_t k,
+                                             uint32_t v, const float* v_scale,
+                                             RowState& st, const Score& score) {
+  float s[32];
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = 0.f;
-    }
+  for (int kk = 0; kk < kHeadDim / 16; ++kk)
+    wgmma_m64n64k16_ss(s, kmajor_desc(q, kk), kmajor_desc(k, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_operands(s);
+
+  const int c0 = frag_col();
+  float mx[2] = {st.m[0], st.m[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) qs[r * kHeadDim + chunk * 8 + j] = f[j];
+  for (int i = 0; i < 32; ++i) {
+    const int j = (i >> 1) & 1, t = c0 + (i & 1) + 8 * (i >> 2);
+    s[i] = score.template apply<MASK>(j, t, s[i]);
+    mx[j] = fmaxf(mx[j], s[i]);
   }
-
-  // Key/value t (nullptr = past the valid keys: zeros, so a masked key
-  // multiplies a finite value).
-  __device__ void store_kv_chunk(int t, int chunk, const __nv_bfloat16* krow,
-                                 const __nv_bfloat16* vrow) {
-    float fk[8], fv[8];
-    if (krow != nullptr) {
-      ds_bf16x8_to_float(*reinterpret_cast<const uint4*>(krow + chunk * 8), fk);
-      ds_bf16x8_to_float(*reinterpret_cast<const uint4*>(vrow + chunk * 8), fv);
-    } else {
+  float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) fk[j] = fv[j] = 0.f;
-    }
+  for (int j = 0; j < 2; ++j) {
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+    alpha[j] = exp2f((st.m[j] - mx[j]) * kLog2e);  // 0 on the first block
+    st.m[j] = mx[j];
+  }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      kt[(chunk * 8 + j) * kKtStride + t] = fk[j];
-      vs[t * kHeadDim + chunk * 8 + j] = fv[j];
-    }
+  for (int i = 0; i < 32; ++i) {
+    const int j = (i >> 1) & 1;
+    s[i] = exp2f((s[i] - mx[j]) * kLog2e);
+    sum[j] += s[i];
   }
-};
-
-// Staging of one int8 KV page (block-scaled codes, one fp32 scale per
-// token and kv head) into a Tile's fp32 K^T and V.
-//
-// Two steps, so that both the global loads and the shared-memory stores
-// are regular.  load_chunk: 8 neighbouring threads read one 128-byte row
-// of codes as 16-byte loads (a row of int8 codes is 128 B, half a bf16
-// row) and drop the words into rows of 33 words -- the odd stride puts
-// word g of key t in bank (t + g) % 32.  dequantize, after a barrier:
-// for K a warp takes 32 keys at one word, reads banks t + g, and writes
-// kt[d][t] along t, all without conflicts; for V a warp takes the 32
-// words of one key and writes its 512 bytes of fp32 in one sweep.  The
-// dequantised page exists only in shared memory: device memory traffic
-// stays int8-sized.
-//
-// Numerics follow the TPU kernel: K is float(code) * scale rounded to
-// bf16 (it meets a bf16 q), V is float(code) * scale kept in fp32 (it
-// meets fp32 probabilities).  A row never written has codes 0 and scale
-// 0 and dequantises to exactly 0.
-constexpr int kCodeWords = kHeadDim / 4;        // 32 words of 4 codes per row
-constexpr int kCodeStride = kCodeWords + 1;
-
-struct Int8Stage {
-  uint32_t* k;     // [kKeys][kCodeStride]
-  uint32_t* v;     // [kKeys][kCodeStride]
-  float* k_scale;  // [kKeys]
-  float* v_scale;  // [kKeys]
-
-  static constexpr int words = 2 * kKeys * kCodeStride + 2 * kKeys;
-  static constexpr size_t bytes = words * sizeof(uint32_t);
-
-  __device__ explicit Int8Stage(float* smem) {
-    k = reinterpret_cast<uint32_t*>(smem);
-    v = k + kKeys * kCodeStride;
-    k_scale = reinterpret_cast<float*>(v + kKeys * kCodeStride);
-    v_scale = k_scale + kKeys;
-  }
-
-  // 16 codes of key t (chunk in [0, 8)); nullptr = past the page: zeros.
-  __device__ void load_chunk(int t, int chunk, const int8_t* krow,
-                             const int8_t* vrow) {
-    uint4 kq = make_uint4(0u, 0u, 0u, 0u), vq = kq;
-    if (krow != nullptr) {
-      kq = *reinterpret_cast<const uint4*>(krow + chunk * 16);
-      vq = *reinterpret_cast<const uint4*>(vrow + chunk * 16);
-    }
-    uint32_t* kd = k + t * kCodeStride + chunk * 4;
-    uint32_t* vd = v + t * kCodeStride + chunk * 4;
-    kd[0] = kq.x; kd[1] = kq.y; kd[2] = kq.z; kd[3] = kq.w;
-    vd[0] = vq.x; vd[1] = vq.y; vd[2] = vq.z; vd[3] = vq.w;
-  }
-
-  // Code j (0..3) of a little-endian word, as a float.
-  __device__ static float code(uint32_t word, int j) {
-    return static_cast<float>(static_cast<signed char>(word >> (8 * j)));
-  }
-
-  template <int ROWS>
-  __device__ void dequantize(Tile<ROWS>& T) const {
-    for (int c = threadIdx.x; c < kKeys * kCodeWords; c += kThreads) {
-      const int t = c % kKeys, g = c / kKeys;  // a warp: 32 keys, one word
-      const uint32_t word = k[t * kCodeStride + g];
-      const float scale = k_scale[t];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        T.kt[(4 * g + j) * kKtStride + t] =
-            __bfloat162float(__float2bfloat16(code(word, j) * scale));
-    }
-    for (int c = threadIdx.x; c < kKeys * kCodeWords; c += kThreads) {
-      const int g = c % kCodeWords, t = c / kCodeWords;  // a warp: one key
-      const uint32_t word = v[t * kCodeStride + g];
-      const float scale = v_scale[t];
-      *reinterpret_cast<float4*>(T.vs + t * kHeadDim + 4 * g) =
-          make_float4(code(word, 0) * scale, code(word, 1) * scale,
-                      code(word, 2) * scale, code(word, 3) * scale);
-    }
-  }
-};
+  for (int j = 0; j < 2; ++j) st.l[j] = st.l[j] * alpha[j] + sum[j];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) st.o[i] *= alpha[(i >> 1) & 1];
 
-// One key block.  Expects q, K and V of the block in shared memory and a
-// __syncthreads() after they were stored.  score(r, t, dot) returns the
-// scaled, biased score or DS_MASK_VALUE.
-template <int ROWS, class Score>
-__device__ __forceinline__ void attend_block(Tile<ROWS>& T, float (&acc)[ROWS],
-                                             const Score& score) {
-  const int tid = threadIdx.x;
-  const int t = tid & (kKeys - 1);
-  const int rg = tid >> 6;  // 0 or 1: even or odd rows
-  for (int r0 = rg; r0 < ROWS; r0 += 16) {
-    float s[8];
+  if (VSCALE) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kHeadDim; ++d) {
-      const float kd = T.kt[d * kKtStride + t];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = r0 + 2 * j;
-        if (r < ROWS) s[j] = fmaf(T.qs[r * kHeadDim + d], kd, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = r0 + 2 * j;
-      if (r < ROWS) T.ps[r * kKeys + t] = score(r, t, s[j]);
-    }
+    for (int i = 0; i < 32; ++i) s[i] *= v_scale[c0 + (i & 1) + 8 * (i >> 2)];
   }
-  __syncthreads();
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < ROWS; r += kThreads / 32) {
-    float a = T.ps[r * kKeys + lane];
-    float b = T.ps[r * kKeys + lane + 32];
-    const float m_old = T.m[r];
-    const float m_new = fmaxf(m_old, ds_warp_max(fmaxf(a, b)));
-    a = expf(a - m_new);
-    b = expf(b - m_new);
-    T.ps[r * kKeys + lane] = a;
-    T.ps[r * kKeys + lane + 32] = b;
-    const float sum = ds_warp_sum(a + b);
-    if (lane == 0) {
-      const float alpha = expf(m_old - m_new);  // 0 on the first block
-      T.alpha[r] = alpha;
-      T.l[r] = T.l[r] * alpha + sum;
-      T.m[r] = m_new;
-    }
-  }
-  __syncthreads();
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128k16_rs(st.o, a[kk], mnmajor_desc(v, kk));
+  wgmma_commit();
+  wgmma_wait0();
+  fence_operands(st.o);
+}
 
+// After the last block: each row's denominator summed over its quad.
+__device__ __forceinline__ void finish_rows(RowState& st) {
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] *= T.alpha[r];
-  for (int k = 0; k < kKeys; ++k) {
-    const float v = T.vs[k * kHeadDim + tid];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(T.ps[r * kKeys + k], v, acc[r]);
+  for (int j = 0; j < 2; ++j) {
+    st.l[j] += __shfl_xor_sync(0xffffffffu, st.l[j], 1);
+    st.l[j] += __shfl_xor_sync(0xffffffffu, st.l[j], 2);
   }
+}
+
+// o / l as bf16 into the swizzled [64][128] tile at `stage` (16 KB of
+// shared memory that no wgmma reads any more; the caller syncs before and
+// after), to leave as 16-byte chunks (swz gives row r's chunk c).
+__device__ __forceinline__ void store_out_tile(const RowState& st,
+                                               uint8_t* stage) {
+  const int r0 = frag_row(), c0 = frag_col();
+  const float inv[2] = {1.f / fmaxf(st.l[0], 1e-30f),
+                        1.f / fmaxf(st.l[1], 1e-30f)};
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int j = (i >> 1) & 1, r = r0 + 8 * j, col = c0 + 8 * (i >> 2);
+    *reinterpret_cast<uint32_t*>(stage + swz(r, col >> 3) + (col & 7) * 2) =
+        pack_bf16(st.o[i] * inv[j], st.o[i + 1] * inv[j]);
+  }
+}
+
+// 1024-byte aligned base of the dynamic shared memory (the swizzle atoms
+// must start on 1024-byte boundaries); launches ask for kSmemSlack more.
+constexpr int kSmemSlack = 1024;
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
 }
 
 }  // namespace ds_attn

@@ -1,54 +1,63 @@
 // Flash attention forward: blockwise causal / sliding-window attention
 // that never materialises the S x S score matrix, emitting out and the
-// log-sum-exp (the backward, a later port, needs the LSE).
+// log-sum-exp (which the backward kernels read).
 //
 // Replaces: deepspeed_tpu/ops/flash_attention.py:_fwd_kernel (via
-// _flash_fwd).  Serving runs it on the pure-prefill ("fresh") step,
-// once per layer, where every slot's context is its own new tokens.
+// _flash_fwd).  Training runs it twice per layer (forward and remat);
+// serving runs it on the pure-prefill ("fresh") step, once per layer.
 //
 // Layout: q [B, H, Sq, D], k / v [B, Kh, Sk, D] given by element strides
 // (so transposed views of the model's [B, S, H, D] activations need no
-// copy; the last dim must be contiguous), out [B, H, Sq, D] by strides,
-// lse [B, H, Sq] fp32 contiguous.  GQA: query head h reads kv head
-// h / (H / Kh) inside the kernel instead of repeating K and V in memory.
+// copy; rows are 16-byte aligned with a contiguous last dim), out
+// [B, H, Sq, D] by strides, lse [B, H, Sq] fp32 contiguous.  GQA: query
+// head h reads kv head h / (H / Kh) inside the kernel.
 //
-// Grid (ceil(Sq / 64), H, B): a block owns 64 query rows in shared
-// memory and loops over 64-wide key blocks from the window's lower block
-// to the causal diagonal (blocks wholly outside the band are skipped,
-// the _band_keep bounds of the TPU kernel).  Scores and the online
-// softmax are fp32; the products are plain FMAs.
+// Grid (ceil(Sq / 64), H, B), 128 threads: one warpgroup owns 64 query
+// rows on the tensor-core tile of attn_tile.cuh.  Tiles launch in reverse
+// order, so the causal diagonal's longest tiles start first and do not
+// trail.  Each block loads its Q tile once and walks 64-key blocks from
+// the window's lower block to the causal diagonal (the _band_keep bounds
+// of the TPU kernel), K and V through a 2-stage cp.async ring: block
+// n + 1 loads while block n computes.  Only blocks that cross the
+// diagonal, the window edge or Sk apply the mask.  Shared memory: Q 16
+// KB + 2 x (K 16 KB + V 16 KB), so two blocks fit on an SM.
 //
-// Bound on the H100: bytes and operations are close.  Causal attention
-// does ~2 * B * H * Sq^2 * D flops (QK^T and PV over the lower triangle)
-// against 4 * B * H * S * D * 2 bytes of q, k, v and out: S / 4 flop per
-// byte, ~256 at S = 1024, just under the ~295 bf16 ridge, so the bytes
-// (3.35 TB/s) set the floor there and the 989 TFLOP/s tensor-core rate
-// sets it for longer prompts.  This kernel runs on the fp32 FMA pipes
-// and reads shared memory once per FMA, so it sits far above either
-// floor; mma / wgmma tiles with operands in registers are the later fix.
+// Numerics: scores, m and l fp32; P rounded to bf16 before P . V (the TPU
+// kernel's and the plain version's rounding); lse = m + log(max(l,
+// 1e-30)).
+//
+// Bound on the H100: causal attention does 4 * B * H * D flops per
+// attended (query, key) pair against 2 B per element of q, k, v and out:
+// ~S / 4 flops per byte, so at S = 2048 the 989 TFLOP/s tensor-core rate
+// sets the floor and at S = 1024 the bytes nearly do.
 
 #include "attn_tile.cuh"
 
 using namespace ds_attn;
 
 struct FlashScore {
-  int q0;      // position of the tile's row 0
-  int k0;      // position of key 0 of this block
+  int qp[2];   // positions of the thread's two rows
+  int k0;      // position of key 0 of the block
   int seq_k;
   int causal;
   int window;  // <= 0: none
   float scale;
 
-  __device__ float operator()(int r, int t, float dot) const {
-    const int qp = q0 + r, kp = k0 + t;
+  template <bool MASK>
+  __device__ __forceinline__ float apply(int j, int t, float dot) const {
+    if (!MASK) return dot * scale;
+    const int kp = k0 + t;
     bool keep = kp < seq_k;
-    if (causal) keep = keep && qp >= kp;
-    if (window > 0) keep = keep && (qp - kp) < window;
+    if (causal) keep = keep && qp[j] >= kp;
+    if (window > 0) keep = keep && (qp[j] - kp) < window;
     return keep ? dot * scale : DS_MASK_VALUE;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+// Shared memory: the Q tile, then 2 stages of (K, V).
+constexpr int kFlashSmem = 5 * kTileBytes + kSmemSlack;
+
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -58,59 +67,93 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long v_sb, long long v_sh, long long v_ss, long long o_sb,
                  long long o_sh, long long o_ss, float scale, int causal,
                  int window) {
-  constexpr int ROWS = 64;
-  extern __shared__ float smem[];
-  Tile<ROWS> T(smem);
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const uint32_t q_s = smem_addr(smem);
+  const int tid = threadIdx.x;
+  // stage i: K at tile 1 + 2i, V at 2 + 2i
+  auto k_tile = [&](int stage) { return q_s + (1 + 2 * stage) * kTileBytes; };
+  auto v_tile = [&](int stage) { return k_tile(stage) + kTileBytes; };
+
+  const int tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Kh);
-  const int q0 = tile * ROWS;
+  const int q0 = tile * kRows;  // the block's first row
 
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  for (int c = threadIdx.x; c < ROWS * (kHeadDim / 8); c += kThreads) {
-    const int r = c / (kHeadDim / 8), chunk = c % (kHeadDim / 8);
-    const int qp = q0 + r;
-    T.store_q_chunk(r, chunk, qp < Sq ? qb + qp * q_ss : nullptr);
-  }
-  T.init_stats();
-
-  float acc[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-
-  const int n_blocks = (Sk + kKeys - 1) / kKeys;
-  int hi = n_blocks;
-  if (causal) hi = min(hi, (q0 + ROWS + kKeys - 1) / kKeys);
-  int lo = 0;
-  if (window > 0) lo = max(0, (q0 - window + 1) / kKeys);
-
   const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
-  for (int blk = lo; blk < hi; ++blk) {
-    const int k0 = blk * kKeys;
-    __syncthreads();
-    for (int c = threadIdx.x; c < kKeys * (kHeadDim / 8); c += kThreads) {
-      const int t = c / (kHeadDim / 8), chunk = c % (kHeadDim / 8);
-      const int kp = k0 + t;
-      const bool ok = kp < Sk;
-      T.store_kv_chunk(t, chunk, ok ? kb + kp * k_ss : nullptr,
-                       ok ? vb + kp * v_ss : nullptr);
-    }
-    __syncthreads();
-    FlashScore score{q0, k0, Sk, causal, window, scale};
-    attend_block<ROWS>(T, acc, score);
-  }
-  __syncthreads();
 
-  __nv_bfloat16* ob = out + b * o_sb + h * o_sh;
-  float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qp = q0 + r;
-    if (qp < Sq) {
-      const float l = fmaxf(T.l[r], 1e-30f);
-      ob[qp * o_ss + threadIdx.x] = __float2bfloat16(acc[r] / l);
-      if (threadIdx.x == 0) lb[qp] = T.m[r] + logf(l);
+  // 16 chunks of 16 B per row
+  for (int c = tid; c < kRows * 16; c += kThreads) {
+    const int r = c >> 4, chunk = c & 15;
+    const bool ok = q0 + r < Sq;
+    cp_async16(q_s + swz(r, chunk), qb + (ok ? (q0 + r) * q_ss : 0) + chunk * 8,
+               ok);
+  }
+  auto load_kv = [&](int blk, int stage) {
+    const int k0 = blk * kKeys;
+    for (int c = tid; c < kKeys * 16; c += kThreads) {
+      const int t = c >> 4, chunk = c & 15;
+      const bool ok = k0 + t < Sk;
+      const long long kp = ok ? k0 + t : 0;
+      cp_async16(k_tile(stage) + swz(t, chunk), kb + kp * k_ss + chunk * 8, ok);
+      cp_async16(v_tile(stage) + swz(t, chunk), vb + kp * v_ss + chunk * 8, ok);
     }
+  };
+
+  // the band of key blocks the block's rows can see
+  int hi = (Sk + kKeys - 1) / kKeys;
+  if (causal) hi = min(hi, (q0 + kRows + kKeys - 1) / kKeys);
+  const int lo = window > 0 ? max(0, (q0 - window + 1) / kKeys) : 0;
+
+  if (lo < hi) load_kv(lo, 0);
+  cp_async_commit();  // Q and the first block
+
+  RowState st;
+  st.init();
+  const int r0 = frag_row();
+  FlashScore score{{q0 + r0, q0 + r0 + 8}, 0, Sk, causal, window, scale};
+  for (int blk = lo; blk < hi; ++blk) {
+    const int stage = (blk - lo) & 1;
+    if (blk + 1 < hi) load_kv(blk + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the block just requested
+    fence_proxy_async();
+    __syncthreads();
+    const int k0 = blk * kKeys;
+    score.k0 = k0;
+    // every key visible to every row of the tile: no mask
+    const bool interior = k0 + kKeys <= Sk &&
+                          (!causal || k0 + kKeys - 1 <= q0) &&
+                          (window <= 0 || q0 + kRows - 1 - k0 < window);
+    if (interior)
+      attend_block<false, false>(q_s, k_tile(stage), v_tile(stage), nullptr,
+                                 st, score);
+    else
+      attend_block<true, false>(q_s, k_tile(stage), v_tile(stage), nullptr, st,
+                                score);
+    __syncthreads();  // the stage is free for the load two blocks on
+  }
+  cp_async_wait<0>();
+
+  finish_rows(st);
+  float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq;
+  if ((tid & 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int qp = q0 + r0 + 8 * j;
+      if (qp < Sq) lb[qp] = st.m[j] + logf(fmaxf(st.l[j], 1e-30f));
+    }
+  }
+  __syncthreads();      // Q is read by no wgmma any more
+  store_out_tile(st, smem);
+  __syncthreads();
+  __nv_bfloat16* ob = out + b * o_sb + h * o_sh;
+  for (int c = tid; c < kRows * 16; c += kThreads) {
+    const int r = c >> 4, chunk = c & 15;
+    if (q0 + r < Sq)
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + chunk * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz(r, chunk));
   }
 }
 
@@ -123,17 +166,17 @@ DS_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v,
                              long long v_ss, long long o_sb, long long o_sh,
                              long long o_ss, float scale, int causal, int window,
                              void* stream) {
-  constexpr size_t smem = SmemLayout<64>::bytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kFlashSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid((Sq + 63) / 64, H, B);
-  flash_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((Sq + kRows - 1) / kRows, H, B);
+  flash_fwd_kernel<<<grid, kThreads, kFlashSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), H, Kh, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh,

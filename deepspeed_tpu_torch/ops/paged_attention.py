@@ -18,11 +18,12 @@ A cache layer is either one fp tensor or a :class:`KVPages` pair (int8
 codes plus one fp32 scale per token and kv head): ``write_kv`` quantises
 at append, the plain version dequantises the gathered context, and the
 kernel wrapper routes a ``KVPages`` layer to ``paged_attention_int8``,
-which dequantises each page in shared memory.
+which dequantises each page on the chip (shared memory or registers).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
@@ -34,12 +35,20 @@ from .kernel_loader import CudaKernel, F, I, P, stream_of
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 KERNEL = CudaKernel("paged_attention.cu", {
-    "paged_attention_bf16": [P, P, P, P, P, P] + [I] * 6 + [F, I, P],
-    "paged_attention_int8": [P, P, P, P, P, P, P] + [I] * 6 + [F, I, P]})
+    "paged_attention_bf16": [P] * 7 + [I] * 6 + [F, I, I, P],
+    "paged_attention_int8": [P] * 8 + [I] * 6 + [F, I, I, P],
+    "paged_attention_combine": [P, P] + [I] * 5 + [P]})
 
 HEAD_DIM = 128
 #: keys per shared-memory stage of the kernel (pages may be smaller)
 MAX_PAGE = 64
+#: folded rows (Q * H / K) below which the kernel takes its split-KV
+#: decode path (``kDecodeRows`` in ``csrc/paged_attention.cu``)
+DECODE_ROWS = 16
+#: decode path: blocks per SM the split count aims for, and the fewest
+#: pages a split walks
+SPLIT_BLOCKS_PER_SM = 4
+MIN_PAGES_PER_SPLIT = 2
 
 #: supported ``kv_quantization`` values
 KV_QUANT_FORMATS = ("none", "int8")
@@ -193,6 +202,21 @@ def paged_attention(q: torch.Tensor, kv_layer: KVLayer,
     return out.reshape(S, Q, H, D)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_splits(S: int, K: int, P: int, sms: int) -> int:
+    """Splits per (slot, kv head) of the decode path: enough that the
+    ``n_split * K * S`` blocks give each of ``sms`` SMs
+    ``SPLIT_BLOCKS_PER_SM``, with at least ``MIN_PAGES_PER_SPLIT`` of the
+    ``P`` page-table columns per split (the table's width stands in for
+    the longest context, which the host does not know without a sync)."""
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // max(S * K, 1))
+    return max(1, min(want, -(-P // MIN_PAGES_PER_SPLIT)))
+
+
 def paged_decode_attention(q: torch.Tensor, kv_layer: KVLayer,
                            page_table: torch.Tensor, start_pos: torch.Tensor,
                            *, sm_scale: Optional[float] = None,
@@ -201,7 +225,12 @@ def paged_decode_attention(q: torch.Tensor, kv_layer: KVLayer,
     """Ragged paged attention (any Q: decode rows and prefill chunks with
     per-row causal limits).  CPU tensors take :func:`paged_attention`;
     CUDA tensors launch ``paged_attention_bf16`` (fp pages) or
-    ``paged_attention_int8`` (:class:`KVPages`) or raise.
+    ``paged_attention_int8`` (:class:`KVPages`) or raise.  With fewer than
+    ``DECODE_ROWS`` folded rows (``Q * H / K``) and more than one split
+    (:func:`decode_splits`) that launch writes fp32 split partials to a
+    workspace and ``paged_attention_combine`` (its own count in
+    ``KERNEL.launches_by_fn``) reduces them into the output; with one
+    split the first launch writes the output.
 
     q: [S, Q, H, D] bf16; kv_layer: [num_pages+1, page, 2, K, D] bf16, or
     KVPages of int8 codes at that shape and fp32 scales
@@ -257,16 +286,31 @@ def paged_decode_attention(q: torch.Tensor, kv_layer: KVLayer,
             raise ValueError(f"alibi slopes {tuple(slopes.shape)} != ({H},)")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    if q.numel():
-        pages = ((kv_layer.payload.data_ptr(), kv_layer.scale.data_ptr())
-                 if quantized else (kv_layer.data_ptr(),))
-        KERNEL.launch("paged_attention_int8" if quantized
-                      else "paged_attention_bf16", q.data_ptr(), *pages,
-                      page_table.data_ptr(), start_pos.data_ptr(),
-                      slopes.data_ptr() if slopes is not None else None,
-                      out.data_ptr(), S, Q, H, K, page_table.shape[1],
-                      page_size, float(scale), int(window or 0),
-                      stream_of(q))
+    if not q.numel():
+        return out
+    width = page_table.shape[1]
+    rows = Q * (H // K)
+    work, n_split = None, 0
+    if rows < DECODE_ROWS:
+        n_split = decode_splits(S, K, width, _sm_count(dev.index or 0))
+    if n_split > 1:
+        # acc [S, K, n_split, rows, D], then (m, l) [S, K, n_split, rows, 2]
+        work = torch.empty(S * K * n_split * rows * (D + 2),
+                           dtype=torch.float32, device=dev)
+    pages = ((kv_layer.payload.data_ptr(), kv_layer.scale.data_ptr())
+             if quantized else (kv_layer.data_ptr(),))
+    stream = stream_of(q)
+    KERNEL.launch("paged_attention_int8" if quantized
+                  else "paged_attention_bf16", q.data_ptr(), *pages,
+                  page_table.data_ptr(), start_pos.data_ptr(),
+                  slopes.data_ptr() if slopes is not None else None,
+                  out.data_ptr(),
+                  work.data_ptr() if work is not None else None,
+                  S, Q, H, K, width, page_size, float(scale),
+                  int(window or 0), n_split, stream)
+    if work is not None:
+        KERNEL.launch("paged_attention_combine", work.data_ptr(),
+                      out.data_ptr(), S, Q, H, K, n_split, stream)
     return out
 
 

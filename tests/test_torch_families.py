@@ -518,29 +518,65 @@ def _bf16_opt(layers, seed=0):
     return cfg, params
 
 
+def _tile_softmax_v(scores, v, v_scale=None):
+    """The tensor-core tile's softmax and P . V: unnormalised p =
+    exp(s - max) rounded to bf16 (times ``v_scale`` of each key first: the
+    int8 fold) against V, divided by the fp32 sum of the unrounded p.
+    scores [..., Q, C] fp32, masked; v [..., C, D]; v_scale [..., C]."""
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    pv = p if v_scale is None else p * v_scale[..., None, :]
+    return (pv.bfloat16().float() @ v.float()) / p.sum(-1, keepdim=True)
+
+
 def _kernel_numerics(roll_scales=False):
-    """The int8 kernel's arithmetic as the model's attention: K is
-    float(code) * scale rounded to bf16, V, scores and probabilities stay
-    fp32 (the plain version rounds V and the probabilities to bf16).
-    ``roll_scales`` is the fault: each kv head reads its neighbour's
-    scales."""
+    """The int8 paged kernel's arithmetic as the model's attention, on
+    both of its paths.  K is float(code) * scale rounded to bf16 on both.
+    Fewer than 16 folded rows (decode) take the split-KV path: V, scores
+    and probabilities stay fp32.  More (prefill chunks) take the tile:
+    bf16(p * v_scale) against V's codes.  (The plain version rounds V and
+    the normalised probabilities to bf16.)  ``roll_scales`` is the fault:
+    each kv head reads its neighbour's scales."""
     from deepspeed_tpu_torch.ops import paged_attention as tpa
 
     def attn(q, kv_layer, page_table, start_pos, q_lens):
         scale = (torch.roll(kv_layer.scale, 1, dims=-1) if roll_scales
                  else kv_layer.scale)
-        pages = tpa.dequantize_kv_blocks(kv_layer.payload, scale)
-        pages[:, :, 0] = pages[:, :, 0].bfloat16().float()
-        return tpa.paged_attention(q.float(), pages, page_table,
-                                   start_pos).to(q.dtype)
+        S, Q, H, D = q.shape
+        K = kv_layer.shape[3]
+        if Q * (H // K) < tpa.DECODE_ROWS:
+            pages = tpa.dequantize_kv_blocks(kv_layer.payload, scale)
+            pages[:, :, 0] = pages[:, :, 0].bfloat16().float()
+            return tpa.paged_attention(q.float(), pages, page_table,
+                                       start_pos).to(q.dtype)
+        table = page_table.long()
+        codes, sc = kv_layer.payload[table].float(), scale[table]
+        C = codes.shape[1] * codes.shape[2]
+        # [S, K, C, D] keys and V codes, [S, K, C] V scales
+        k_ctx = (codes[..., 0, :, :] * sc[..., 0, :, None]).bfloat16()
+        k_ctx = k_ctx.float().reshape(S, C, K, D).transpose(1, 2)
+        v_codes = codes[..., 1, :, :].reshape(S, C, K, D).transpose(1, 2)
+        v_scale = sc[..., 1, :].reshape(S, C, K).transpose(1, 2)
+        qg = q.float().reshape(S, Q, K, H // K, D).permute(0, 2, 3, 1, 4)
+        scores = qg @ k_ctx[:, :, None].transpose(-1, -2) / np.sqrt(D)
+        pos = tpa.token_positions(start_pos, Q)
+        mask = torch.arange(C)[None, None, :] <= pos[:, :, None]
+        scores = torch.where(mask[:, None, None], scores, tpa.MASK_VALUE)
+        out = _tile_softmax_v(scores, v_codes[:, :, None],
+                              v_scale[:, :, None])
+        return out.permute(0, 3, 1, 2, 4).reshape(S, Q, H, D).to(q.dtype)
     return attn
 
 
-def _fp32_fresh(q, k, v):
-    from deepspeed_tpu_torch.ops.flash_attention import mha_reference
-    out = mha_reference(*(x.transpose(1, 2).float() for x in (q, k, v)),
-                        causal=True)
-    return out.transpose(1, 2).to(q.dtype)
+def _tile_fresh(q, k, v):
+    """The flash forward kernel's arithmetic on the fresh prefill: causal
+    attention over [B, S, H, D] through the tile's softmax and P . V."""
+    dtype = q.dtype
+    q, k, v = (x.transpose(1, 2).float() for x in (q, k, v))
+    Sq = q.shape[2]
+    scores = q @ k.transpose(-1, -2) / np.sqrt(q.shape[-1])
+    causal = torch.ones(Sq, Sq, dtype=torch.bool).tril()
+    scores = torch.where(causal, scores, -1e30)
+    return _tile_softmax_v(scores, v).transpose(1, 2).to(dtype)
 
 
 def _teacher_forced_segments(cfg, params, variants):
@@ -560,7 +596,7 @@ def _teacher_forced_segments(cfg, params, variants):
                 serving=T.ServingOptimizationConfig(kv_quantization=quant)))
         if attn is not None:
             eng.model._attention, eng.model._fresh_attention = \
-                attn, _fp32_fresh
+                attn, _tile_fresh
         out = segments[name] = []
 
         def capture(*a, _step=eng.model._step_impl, _out=out, **k):
@@ -601,10 +637,12 @@ def _segment_errors(segs, ref):
 @pytest.mark.parametrize("layers", [2, 8])
 def test_int8_serving_limits_pass_rounding_and_fail_a_wrong_scale(layers):
     """A bf16 OPT at E = 128 over int8 pages.  The plain path against the
-    kernel's arithmetic differs by rounding (and by the codes that
-    rounding flips at append): 1.0e-2 of the largest logit at 2 layers,
-    1.1e-2 at 8, inside the 3e-2 limit.  Scales read from the
-    neighbouring kv head move the logits by 0.37 to 0.51 and fail it.  One
+    kernels' arithmetic (the split-KV path on decode segments, the
+    tensor-core tile on prefill chunks and the fresh prefill) differs by
+    rounding (and by the codes that rounding flips at append): 1.09e-2 of
+    the largest logit at 2 layers, 1.12e-2 at 8, inside the 3e-2 limit.
+    Scales read from the neighbouring kv head move the logits by 0.37 to
+    0.51 and fail it.  One
     key past the causal limit does not show reliably at this level
     (random weights attend almost evenly over hundreds of keys); the
     per-kernel limits of test_torch_kernels.py catch that.  Greedy picks

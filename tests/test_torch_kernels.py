@@ -98,30 +98,193 @@ def assert_parity(out, ref):
         (rms_rel, max_rel)
 
 
+def _tile_numerics(q, k_ctx, v_ctx, start, window=None, slopes=None,
+                   v_scale=None):
+    """What the tensor-core tile of the attention kernels computes, in
+    plain PyTorch: fp32 scores of q and K, unnormalised p = exp(s - max)
+    rounded to bf16 (times ``v_scale`` of each key first: the int8 fold)
+    against V, fp32 sums, divided by the fp32 sum of the unrounded p and
+    rounded to bf16.  k_ctx / v_ctx [S, C, K, D] fp32; v_scale [S, C, K]."""
+    S, Q, H, D = q.shape
+    K, C = k_ctx.shape[2], k_ctx.shape[1]
+    qg = q.float().reshape(S, Q, K, H // K, D)
+    scores = torch.einsum("sqkgd,sckd->skgqc", qg, k_ctx.float()) / np.sqrt(D)
+    ctx = torch.arange(C)
+    if slopes is not None:
+        sl = torch.as_tensor(slopes, dtype=torch.float32).reshape(K, H // K)
+        scores = scores + sl[None, :, :, None, None] * ctx.float()
+    pos = tpa.token_positions(start, Q)
+    mask = ctx[None, None, :] <= pos[:, :, None]
+    if window is not None:
+        mask &= ctx[None, None, :] > pos[:, :, None] - window
+    scores = torch.where(mask[:, None, None], scores, tpa.MASK_VALUE)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    pv = p if v_scale is None else p * v_scale.permute(0, 2, 1)[:, :, None,
+                                                                 None, :]
+    out = torch.einsum("skgqc,sckd->sqkgd", pv.bfloat16().float(),
+                       v_ctx.float()) / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(S, Q, H, D).bfloat16()
+
+
+def _decode_case(gen, S=4, H=8, D=128, page=64, ctx=2048):
+    """A decode batch over N(0,1) pages at contexts of 1024..2048."""
+    n_pages = S * ctx // page
+    kv = torch.randn(n_pages + 1, page, 2, H, D, generator=gen)
+    table = (torch.randperm(n_pages, generator=gen) + 1).reshape(
+        S, ctx // page).int()
+    start = torch.randint(1024, ctx - 1, (S,), generator=gen).int()
+    q = torch.randn(S, 1, H, D, generator=gen)
+    return q, kv, table, start
+
+
 @pytest.mark.parametrize("variant", ["plain", "window", "alibi"])
 def test_parity_limits_pass_rounding_and_fail_an_extra_key(variant):
-    """The kernels differ from the plain versions by rounding only: they
-    keep scores and probabilities in fp32 where the plain versions round
-    them to bf16.  The plain function run in fp32 and rounded to bf16 at
-    the end stands in for a kernel here, at the decode shape with
-    contexts up to 2048: it passes ``assert_parity``, while the same
-    function shifted one position (one key past the causal limit, or the
-    window one key late) fails the rms limit."""
+    """The kernels differ from the plain versions by rounding only: both
+    round P to bf16 before P . V, the kernels unnormalised (dividing by
+    the fp32 sum at the end), the plain versions after the softmax.  The
+    tile's arithmetic in plain PyTorch stands in for a kernel here, at
+    the decode shape with contexts up to 2048: it passes
+    ``assert_parity``, while the same arithmetic shifted one position (one
+    key past the causal limit, or the window one key late) fails the rms
+    limit."""
     g = torch.Generator().manual_seed(0)
-    S, H, D, page, ctx = 4, 8, 128, 64, 2048
-    kv = torch.randn(S * ctx // page + 1, page, 2, H, D, generator=g)
-    table = (torch.randperm(S * ctx // page, generator=g) + 1).reshape(
-        S, ctx // page).int()
-    start = torch.randint(1024, ctx - 1, (S,), generator=g).int()
-    q = torch.randn(S, 1, H, D, generator=g)
+    q, kv, table, start = _decode_case(g)
     kw = {"window": 512} if variant == "window" else {}
-    if variant == "alibi":
-        kw["alibi_slopes"] = alibi_slopes(H)
-    ref = tpa.paged_attention(q.bfloat16(), kv.bfloat16(), table, start, **kw)
-    fp32 = tpa.paged_attention(q, kv, table, start, **kw).bfloat16()
-    assert_parity(fp32, ref)
-    shifted = tpa.paged_attention(q, kv, table, start + 1, **kw).bfloat16()
+    slopes = alibi_slopes(q.shape[2]) if variant == "alibi" else None
+    kvb = kv.bfloat16()
+    ref = tpa.paged_attention(q.bfloat16(), kvb, table, start,
+                              alibi_slopes=slopes, **kw)
+    k_ctx, v_ctx = tpa.paged_context(kvb, table)
+    tile = _tile_numerics(q.bfloat16(), k_ctx, v_ctx, start, slopes=slopes,
+                          **kw)
+    assert_parity(tile, ref)
+    shifted = _tile_numerics(q.bfloat16(), k_ctx, v_ctx, start + 1,
+                             slopes=slopes, **kw)
     assert parity_errors(shifted, ref)[0] > RMS_REL_TOL
+
+
+@pytest.mark.parametrize("variant", ["plain", "window", "alibi"])
+def test_int8_fold_limits_pass_rounding_and_fail_scales_one_key_off(variant):
+    """The tile over int8 pages: K = bf16(code * k_scale), V's codes as
+    the bf16 operand and bf16(p * v_scale) as P.  That arithmetic passes
+    ``assert_parity`` against the plain version over ``KVPages``, while
+    V's scales read one key off fail the rms limit."""
+    g = torch.Generator().manual_seed(1)
+    q, kv, table, start = _decode_case(g)
+    pages = tpa.KVPages(*tpa.quantize_kv_blocks(kv))
+    kw = {"window": 512} if variant == "window" else {}
+    slopes = alibi_slopes(q.shape[2]) if variant == "alibi" else None
+    qb = q.bfloat16()
+    ref = tpa.paged_attention(qb, pages, table, start, alibi_slopes=slopes,
+                              **kw)
+    codes, scales = pages.payload[table.long()], pages.scale[table.long()]
+    S, P, page = codes.shape[:3]
+    k_ctx = (codes[..., 0, :, :].float() * scales[..., 0, :, None]
+             ).bfloat16().reshape(S, P * page, *codes.shape[4:])
+    v_codes = codes[..., 1, :, :].float().reshape(S, P * page,
+                                                  *codes.shape[4:])
+    v_scale = scales[..., 1, :].reshape(S, P * page, -1)
+    fold = _tile_numerics(qb, k_ctx, v_codes, start, slopes=slopes,
+                          v_scale=v_scale, **kw)
+    assert_parity(fold, ref)
+    off = _tile_numerics(qb, k_ctx, v_codes, start, slopes=slopes,
+                         v_scale=torch.roll(v_scale, 1, dims=1), **kw)
+    assert parity_errors(off, ref)[0] > RMS_REL_TOL
+
+
+def _split_combine(q, kv, table, start, n_split, window=None,
+                   skip_invisible=True):
+    """The decode path's arithmetic in plain PyTorch: each split of the
+    page table's columns gives fp32 partials (m, l, acc) over its keys
+    (bf16 P against V), the combine weighs them by e^(m_i - M).  A split
+    with no visible page writes (-inf, 0, 0) when ``skip_invisible``
+    (the kernel's page range), or attends to masked keys only otherwise.
+    Returns the output and the number of splits whose every key was
+    masked or skipped for some row."""
+    S, Q, H, D = q.shape
+    page, K = kv.shape[1], kv.shape[3]
+    G, P = H // K, table.shape[1]
+    per = -(-P // n_split)
+    k_ctx, v_ctx = tpa.paged_context(kv, table)
+    qg = q.float().reshape(S, Q, K, G, D)
+    pos = tpa.token_positions(start, Q)
+    parts, dead = [], 0
+    for i in range(n_split):
+        c0, c1 = i * per * page, min(P, (i + 1) * per) * page
+        ctx = torch.arange(c0, max(c0, c1))
+        s = torch.einsum("sqkgd,sckd->skgqc", qg,
+                         k_ctx[:, c0:c1].float()) / np.sqrt(D)
+        mask = ctx[None, None, :] <= pos[:, :, None]
+        if window is not None:
+            mask &= ctx[None, None, :] > pos[:, :, None] - window
+        visible = mask.any(-1)[:, None, None, :]            # [S,1,1,Q]
+        s = torch.where(mask[:, None, None], s, tpa.MASK_VALUE)
+        if c1 > c0:
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            l = p.sum(-1)
+            acc = torch.einsum("skgqc,sckd->skgqd", p.bfloat16().float(),
+                               v_ctx[:, c0:c1].float())
+        else:
+            m = torch.full((S, K, G, Q), -np.inf)
+            l, acc = torch.zeros_like(m), torch.zeros(S, K, G, Q, D)
+        if skip_invisible:
+            m = torch.where(visible, m, -np.inf)
+            l = torch.where(visible, l, 0.0)
+            acc = torch.where(visible[..., None], acc, 0.0)
+        dead += int((~visible).any())
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    num, den = 0.0, 0.0
+    for m, l, acc in parts:
+        w = torch.where(m == -np.inf, 0.0, torch.exp(m - M))
+        num = num + w[..., None] * acc
+        den = den + w * l
+    out = (num / den.clamp(min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
+    return out.reshape(S, Q, H, D).bfloat16(), dead
+
+
+@pytest.mark.parametrize("skip_invisible", [True, False])
+@pytest.mark.parametrize("window", [None, 200])
+def test_split_combine_matches_the_plain_attention(window, skip_invisible):
+    """Split-KV partials and their combine, at the split count the
+    wrapper picks for one slot at context 2048 (16 splits of 2 pages),
+    hold against the plain version; under the window most splits see no
+    key, and they contribute 0, never NaN."""
+    g = torch.Generator().manual_seed(2)
+    q, kv, table, _ = _decode_case(g, S=1)
+    start = torch.tensor([2047], dtype=torch.int32)
+    n_split = tpa.decode_splits(1, kv.shape[3], table.shape[1], sms=132)
+    assert n_split == 16
+    kvb = kv.bfloat16()
+    out, dead = _split_combine(q.bfloat16(), kvb, table, start, n_split,
+                               window, skip_invisible)
+    ref = tpa.paged_attention(q.bfloat16(), kvb, table, start, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    assert_parity(out, ref)
+    assert dead == (0 if window is None else 14)
+
+
+def test_one_split_is_the_plain_attention():
+    """Twenty slots of 32 kv heads fill the card at one split, where the
+    kernel writes acc / l itself and no combine runs: one split of the
+    whole table holds against the plain version."""
+    assert tpa.decode_splits(20, 32, 16, sms=132) == 1
+    g = torch.Generator().manual_seed(3)
+    q, kv, table, start = _decode_case(g, S=2)
+    kvb = kv.bfloat16()
+    out, dead = _split_combine(q.bfloat16(), kvb, table, start, 1)
+    assert dead == 0
+    assert_parity(out, tpa.paged_attention(q.bfloat16(), kvb, table, start))
+
+
+def test_decode_splits_cover_the_card_and_keep_two_pages():
+    """Llama-2-7B decode (16 slots x 32 kv heads) takes 2 splits; one
+    slot takes as many as two pages each allow; a tiny table one."""
+    assert tpa.decode_splits(16, 32, 32, 132) == 2
+    assert tpa.decode_splits(1, 32, 32, 132) == 16
+    assert tpa.decode_splits(1, 8, 2, 132) == 1
+    assert tpa.decode_splits(64, 32, 64, 132) == 1
 
 
 @pytest.mark.cuda
@@ -145,6 +308,86 @@ def test_flash_kernel_matches_plain(cuda_device, window):
     ref, ref_lse = tfa.flash_reference(q, k, v, causal=True, window=window)
     assert_parity(out, ref)
     torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-3)
+
+
+# (B, S, H, K, window, [B, S, H, D] views): under one tile, uneven S, GQA,
+# a window, and transposed views of [B, S, H, D] activations
+FLASH_TILE_CASES = {"s17": (2, 17, 4, 4, None, False),
+                    "s1000": (1, 1000, 4, 4, None, False),
+                    "gqa4": (2, 300, 8, 2, None, False),
+                    "window200": (1, 1000, 4, 4, 200, False),
+                    "bshd_views": (2, 300, 8, 8, None, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_TILE_CASES))
+def test_flash_tile_edges_match_plain(cuda_device, case):
+    b, s, h, kh, window, views = FLASH_TILE_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    if views:
+        q, k, v = (torch.randn(b, s, n, 128, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16).transpose(1, 2)
+                   for n in (h, kh, kh))
+    else:
+        q, k, v = (torch.randn(b, n, s, 128, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for n in (h, kh, kh))
+    out, lse = tfa.flash_fwd(q, k, v, causal=True, window=window)
+    ref, ref_lse = tfa.flash_reference(q, k, v, causal=True, window=window)
+    assert_parity(out, ref)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-3)
+
+
+# (S, Q, H, K, context, window, ALiBi) at page 64: one slot at a full 2048
+# context (the most splits), a window that leaves most splits no key,
+# folded rows 8 and 16 (either side of the decode / tile switch), a
+# Q=1024 chunk, GQA at Q=16, ALiBi on both paths
+PAGED_TILE_CASES = {
+    "single_slot_2048": (1, 1, 8, 8, 2048, None, False),
+    "window_masks_splits": (1, 1, 8, 8, 2048, 200, False),
+    "rows8": (2, 2, 8, 2, 1024, None, False),
+    "rows16": (2, 4, 8, 2, 1024, None, False),
+    "chunk_q1024": (1, 1024, 8, 8, 2048, None, False),
+    "gqa_q16": (2, 16, 32, 8, 1024, None, False),
+    "alibi_decode": (4, 1, 8, 8, 1024, None, True),
+    "alibi_chunk": (2, 64, 8, 8, 1024, None, True),
+    # 20 slots x 32 kv heads fill the card at one split: no combine
+    "one_split": (20, 1, 32, 32, 1024, None, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(PAGED_TILE_CASES))
+def test_paged_kernel_paths_match_plain(cuda_device, case, pages):
+    S, Q, H, K, ctx, window, alibi = PAGED_TILE_CASES[case]
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(4)
+    n_pages = S * ctx // 64
+    kv = torch.randn(n_pages + 1, 64, 2, K, 128, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    table = (torch.randperm(n_pages, generator=g, device=dev) + 1).reshape(
+        S, ctx // 64).int()
+    start = torch.full((S,), ctx - Q, dtype=torch.int32, device=dev)
+    start[1:] = torch.randint(0, ctx - Q + 1, (S - 1,), generator=g,
+                              device=dev, dtype=torch.int32)
+    if pages == "int8":
+        kv = tpa.KVPages(*tpa.quantize_kv_blocks(kv))
+    q = torch.randn(S, Q, H, 128, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    kw = dict(window=window,
+              alibi_slopes=alibi_slopes(H) if alibi else None)
+    before = dict(tpa.KERNEL.launches_by_fn)
+    out = tpa.paged_decode_attention(q, kv, table, start, **kw)
+    combines = tpa.KERNEL.launches_by_fn["paged_attention_combine"] - \
+        before["paged_attention_combine"]
+    splits = tpa.decode_splits(S, K, ctx // 64,
+                               torch.cuda.get_device_properties(
+                                   dev).multi_processor_count)
+    assert combines == (Q * H // K < tpa.DECODE_ROWS and splits > 1)
+    if case == "one_split":
+        assert splits == 1
+    ref = tpa.paged_attention(q, kv, table, start, **kw)
+    assert bool(torch.isfinite(out.float()).all())
+    assert_parity(out, ref)
 
 
 @pytest.mark.cuda
@@ -326,9 +569,9 @@ def _int8_decode_case(gen, S=4, H=8, D=128, page=64, ctx=2048):
 
 
 def _int8_kernel_numerics(q, kv, table, start, **kw):
-    """What ``paged_attention_int8`` computes, in plain PyTorch: K is
-    float(code) * scale rounded to bf16, V stays fp32, scores and
-    probabilities are fp32, the output is rounded to bf16."""
+    """What the decode path of ``paged_attention_int8`` computes, in plain
+    PyTorch: K is float(code) * scale rounded to bf16, V stays fp32,
+    scores and probabilities are fp32, the output is rounded to bf16."""
     pages = tpa.dequantize_kv_blocks(kv.payload, kv.scale)
     pages[:, :, 0] = pages[:, :, 0].bfloat16().float()
     return tpa.paged_attention(q.bfloat16().float(), pages, table, start,
@@ -337,8 +580,8 @@ def _int8_kernel_numerics(q, kv, table, start, **kw):
 
 @pytest.mark.parametrize("variant", ["plain", "window", "alibi"])
 def test_int8_parity_limits_pass_rounding_and_fail_real_faults(variant):
-    """The int8 kernel keeps V and the probabilities in fp32 where the
-    plain version over ``KVPages`` rounds them to bf16: rounding only,
+    """The int8 decode path keeps V and the probabilities in fp32 where
+    the plain version over ``KVPages`` rounds them to bf16: rounding only,
     which ``assert_parity`` passes at the decode shape.  One key past the
     causal limit, or the scales of the neighbouring kv head, fail the rms
     limit."""
