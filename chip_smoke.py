@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    library-yardstick times (CUDA events; null where no one PyTorch call
    computes the function) and the bound (the larger of bytes / 3.35
    TB/s and operations / 989 TFLOP/s bf16 or 67 fp32, H100 SXM data
-   sheet);
+   sheet); the flash backward also bit-equal over two calls, and its
+   dK/dV and dQ kernels and the wrapper's delta timed apart, each with
+   its own bound;
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens): 8 greedy and 2 sampled
    requests through ``FastGenScheduler``, with every kernel's launch
@@ -612,7 +614,9 @@ def _sdpa_backward(q, k, v, do, window):
 def check_flash_bwd(dev):
     """dq, dk, dv of the backward kernels against the plain backward, on
     the forward kernel's out and lse (transposed [B, S, H, D] views, as
-    autograd hands them over in training)."""
+    autograd hands them over in training); two calls bit-equal; the two
+    kernels and the wrapper's delta timed apart, each with its own
+    bound."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as FA
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -628,28 +632,61 @@ def check_flash_bwd(dev):
         out, lse = FA.flash_fwd(q, k, v, causal=True, window=window)
         copies = FA.BWD_KERNEL.copies
         got = FA.flash_bwd(q, k, v, out, lse, do, True, None, window)
+        again = FA.flash_bwd(q, k, v, out, lse, do, True, None, window)
         ref = FA.flash_bwd_reference(q, k, v, out, lse, do, True, None,
                                      window)
         if FA.BWD_KERNEL.copies != copies:
             raise RuntimeError("the backward copied a strided operand")
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not bit_equal:
+            raise RuntimeError(f"two backward calls differ at [{name}]")
         errs = [parity(a, b) for a, b in zip(got, ref)]
         err = {key: max(e[key] for e in errs) for key in errs[0]}
-        del got, ref
-        # five S x S products (s, dV, dP, dK, dQ) over the attended pairs;
-        # q, o, dO, dq at H heads and k, v, dk, dv at K heads, lse, delta
-        flops = 5 * 2 * D * B * H * _attended_pairs(S, window)
-        n_bytes = 4 * B * (H + K) * S * D * 2 + 2 * B * H * S * 4
-        b_ms, b_by = bound(n_bytes, flops)
+        del got, again, ref
+        # the kernels apart, on the wrapper's own arguments
+        delta = FA.bwd_delta(do, out)
+        dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=dev)
+                      for x in (q, k, v))
+        args = FA.bwd_launch_args(q, k, v, do, lse, delta, dq, dk, dv, True,
+                                  None, window)
+
+        def launch(fn):
+            return lambda: FA.BWD_KERNEL.launch(fn, *args[fn])
+
+        # S x S products over the attended pairs, 2 D flops per pair each:
+        # dK/dV four (s, dP, dV, dK), dQ three (s, dP, dQ), the function
+        # five (s and dP once).  Bytes: q, dO at H heads and k, v at K
+        # heads read, lse and delta read; dk, dv or dq written
+        pair_flops = 2 * D * B * H * _attended_pairs(S, window)
+        operands = 2 * B * (H + K) * S * D * 2 + 2 * B * H * S * 4
+        dkv_bound = bound(operands + 2 * B * K * S * D * 2, 4 * pair_flops)
+        dq_bound = bound(operands + B * H * S * D * 2, 3 * pair_flops)
+        # delta reads dO and O and writes [B, H, S] fp32
+        delta_bound = bound(2 * B * H * S * D * 2 + B * H * S * 4,
+                            2 * B * H * S * D, FP32_FLOPS_PER_S)
+        b_ms, b_by = bound(4 * B * (H + K) * S * D * 2 + 2 * B * H * S * 4,
+                           5 * pair_flops)
         rows.append(dict(
             shape=f"{name}: B={B} H={H} K={K} S={S} D={D} causal"
                   + (f" window={window}" if window else ""), **err,
+            bit_equal=bit_equal,
             ms=cuda_ms(lambda: FA.flash_bwd(q, k, v, out, lse, do, True,
-                                            None, window), 3, warmup=1),
+                                            None, window), 20),
+            parts={
+                "flash_bwd_dkv_bf16": dict(
+                    ms=cuda_ms(launch("flash_bwd_dkv_bf16"), 20),
+                    bound_ms=dkv_bound[0], bound_by=dkv_bound[1]),
+                "flash_bwd_dq_bf16": dict(
+                    ms=cuda_ms(launch("flash_bwd_dq_bf16"), 20),
+                    bound_ms=dq_bound[0], bound_by=dq_bound[1]),
+                "delta": dict(
+                    ms=cuda_ms(lambda: FA.bwd_delta(do, out), 20),
+                    bound_ms=delta_bound[0], bound_by=delta_bound[1])},
             plain_ms=cuda_ms(lambda: FA.flash_bwd_reference(
                 q, k, v, out, lse, do, True, None, window), 2, warmup=1),
             library_ms=cuda_ms(_sdpa_backward(q, k, v, do, window), 10),
             bound_ms=b_ms, bound_by=b_by))
-        del q, k, v, do, out, lse
+        del q, k, v, do, out, lse, delta, dq, dk, dv, args
         torch.cuda.empty_cache()
     return rows
 
@@ -1581,6 +1618,8 @@ def main() -> int:
         "layernorm": (N.LN_KERNEL, None),
         "flash_fwd": (FA.KERNEL, None),
         "flash_bwd": (FA.BWD_KERNEL, None),
+        "flash_bwd_dkv": (FA.BWD_KERNEL, ("flash_bwd_dkv_bf16",)),
+        "flash_bwd_dq": (FA.BWD_KERNEL, ("flash_bwd_dq_bf16",)),
         "fused_adamw": (FO.KERNEL, None),
         "quantize": (Q.KERNEL, ("quantize_blockwise_f32",)),
         "dequantize": (Q.KERNEL, ("dequantize_blockwise_f32",
@@ -1595,6 +1634,8 @@ def main() -> int:
         "layernorm": "deepspeed_tpu/ops/normalization.py:35",
         "flash_fwd": "deepspeed_tpu/ops/flash_attention.py:79",
         "flash_bwd": "deepspeed_tpu/ops/flash_attention.py:164",
+        "flash_bwd_dkv": "deepspeed_tpu/ops/flash_attention.py:164",
+        "flash_bwd_dq": "deepspeed_tpu/ops/flash_attention.py:214",
         "fused_adamw": "deepspeed_tpu/ops/fused_optimizer.py:29",
         "quantize": "deepspeed_tpu/ops/quantization.py:31",
         "dequantize": "deepspeed_tpu/ops/quantization.py:40",
@@ -1614,8 +1655,12 @@ def main() -> int:
                   if v["spill_stores"] or v["spill_loads"]}
         log(f"ptxas {k.name}: {len(kernels)} kernels, registers {regs}, "
             f"spills: {json.dumps(spills) if spills else 'none'}")
-        if k in (PA.KERNEL, FA.KERNEL):
+        if k in (PA.KERNEL, FA.KERNEL, FA.BWD_KERNEL):
             log(f"ptxas {k.name} by kernel: {json.dumps(kernels)}")
+        # ptxas says when it had to serialise the asynchronous wgmma
+        for ln in text.splitlines():
+            if "wgmma" in ln:
+                log(f"ptxas {k.name}: {ln.strip()}")
 
     # phase 3
     train_cfg = llama_config("7b", num_layers=TRAIN_LAYERS)
@@ -1642,7 +1687,10 @@ def main() -> int:
                 f"{r['plain_ms']:.4f} ms, library {lib}, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                 + (f", whole LAMB step {r['step_ms']:.4f} ms"
-                   if "step_ms" in r else ""))
+                   if "step_ms" in r else "")
+                + "".join(f", {fn} {part['ms']:.4f} ms (bound "
+                          f"{part['bound_ms']:.4f} ms, {part['bound_by']})"
+                          for fn, part in r.get("parts", {}).items()))
             rel = [(r[k], RMS_REL_TOL) for k in r if k.endswith("rms_rel_err")]
             rel += [(r[k], MAX_REL_TOL) for k in r if k.endswith("max_rel_err")]
             if name in PATH_OPTIMIZER.values():
@@ -1725,8 +1773,21 @@ def main() -> int:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"])
         if name == "flash_bwd":
-            # one wrapper, two kernels: dK/dV (:164) and dQ (:214)
-            entry["replaces_also"] = "deepspeed_tpu/ops/flash_attention.py:214"
+            # one wrapper, two kernels: dK/dV (:164) and dQ (:214), each
+            # with its own launches, time and bound; delta is the
+            # wrapper's rowsum(dO * O)
+            entry["replaces_also"] = replaces["flash_bwd_dq"]
+            entry["bit_equal"] = all(r["bit_equal"] for r in rows)
+            entry["parts"] = dict(head["parts"])
+            for part, fn in (("flash_bwd_dkv", "flash_bwd_dkv_bf16"),
+                             ("flash_bwd_dq", "flash_bwd_dq_bf16")):
+                entry["parts"][fn] = dict(
+                    head["parts"][fn], replaces=replaces[part],
+                    launches=sum(launches[part]
+                                 for launches in launches_by_path.values()))
+            entry["note"] = ("ms, plain_ms and library_ms (SDPA backward) "
+                             "are the whole function; parts gives each "
+                             "kernel's ms, bound and launches")
         if name in ("paged_attention", "paged_attention_int8"):
             # the combine runs on the paths where this page format ran
             entry["combine_launches"] = sum(

@@ -1,5 +1,6 @@
-// Tensor-core attention tile, shared by the flash forward kernel and the
-// multi-row path of the paged attention kernels (bf16 and int8 pages).
+// Tensor-core attention tile, shared by the flash forward and backward
+// kernels and the multi-row path of the paged attention kernels (bf16 and
+// int8 pages).
 //
 // One warpgroup (128 threads) owns 64 query rows at head_dim 128 and walks
 // key blocks of 64 (a flash k-block, or one KV page zero-padded to 64):
@@ -30,6 +31,10 @@
 // Accumulator layout (fp32, m64nN): thread t of the warpgroup, warp
 // w = t / 32, lane l, holds rows r0 = 16 w + l / 4 and r0 + 8; register
 // i holds row r0 + 8 ((i >> 1) & 1), column 2 (l % 4) + (i & 1) + 8 (i >> 2).
+// The backward (flash_bwd.cu) reads the same operands both ways: a tile
+// stored [rows][128] is K-major where the product sums over head dims
+// (S = Q . K^T) and MN-major where it sums over the tile's rows (dV +=
+// P^T . dO), through two descriptors of the one stored tile.
 #pragma once
 
 #include "common.cuh"
@@ -78,6 +83,43 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 64 rows (row0 ..) of a [.., S, 128] bf16 operand with row stride
+// `row_stride` elements into the swizzled tile at `dst`; rows at or past
+// n_rows are zero-filled and read nothing.  Every thread of the
+// warpgroup issues 8 of the 1024 16-byte copies; the loop is unrolled,
+// so each copy's addresses are a per-thread base plus a constant (the
+// kernels issue these every block, and a rolled loop's arithmetic showed
+// in their time).  The caller commits.
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long row_stride, int row0,
+                                          int n_rows) {
+#pragma unroll
+  for (int i = 0; i < kRows * 16 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads, r = c >> 4, chunk = c & 15;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(dst + swz(r, chunk),
+               src + (ok ? (row0 + r) * row_stride : 0) + chunk * 8, ok);
+  }
+}
+
+// The same 64 rows of two operands (K and V, or Q and dO) into two tiles
+// in one loop, as load_tile does for one: the row arithmetic is shared
+// (two load_tile calls ran the flash kernels slower).
+__device__ __forceinline__ void load_tile_pair(
+    uint32_t dst_a, const __nv_bfloat16* src_a, long long stride_a,
+    uint32_t dst_b, const __nv_bfloat16* src_b, long long stride_b, int row0,
+    int n_rows) {
+#pragma unroll
+  for (int i = 0; i < kRows * 16 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads, r = c >> 4, chunk = c & 15;
+    const bool ok = row0 + r < n_rows;
+    const long long row = ok ? row0 + r : 0;
+    cp_async16(dst_a + swz(r, chunk), src_a + row * stride_a + chunk * 8, ok);
+    cp_async16(dst_b + swz(r, chunk), src_b + row * stride_b + chunk * 8, ok);
+  }
 }
 
 // Writes of the generic proxy (cp.async, st.shared) -> reads of the
@@ -195,6 +237,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// An fp32 m64n64 accumulator fragment as the bf16 A operand of four k16
+// steps of an m64n128k16 product (its 64 columns are the product's sum
+// index): four columns at a time the accumulator layout is the A
+// fragment's, so register i goes to step i / 8, pair (i / 2) % 4.
+__device__ __forceinline__ void pack_a_frag(const float (&s)[32],
+                                            uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// Accumulator register i of a packed fragment, as the fp32 value of its
+// bf16 (exact).
+__device__ __forceinline__ float frag_elem(const uint32_t (&a)[4][4], int i) {
+  const uint32_t w = a[i >> 3][(i >> 1) & 3];
+  return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
 // Per-thread softmax state of the thread's two rows, and its 64 output
 // accumulators (row r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l % 4)
 // + (i & 1)).
@@ -269,11 +331,7 @@ __device__ __forceinline__ void attend_block(uint32_t q, uint32_t k,
     for (int i = 0; i < 32; ++i) s[i] *= v_scale[c0 + (i & 1) + 8 * (i >> 2)];
   }
   uint32_t a[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  pack_a_frag(s, a);
 
   wgmma_fence();
 #pragma unroll
@@ -293,19 +351,42 @@ __device__ __forceinline__ void finish_rows(RowState& st) {
   }
 }
 
-// o / l as bf16 into the swizzled [64][128] tile at `stage` (16 KB of
-// shared memory that no wgmma reads any more; the caller syncs before and
-// after), to leave as 16-byte chunks (swz gives row r's chunk c).
-__device__ __forceinline__ void store_out_tile(const RowState& st,
-                                               uint8_t* stage) {
+// An m64n128 fp32 accumulator fragment times inv[row half] as bf16 into
+// the swizzled [64][128] tile at `stage` (16 KB of shared memory that no
+// wgmma reads any more; the caller syncs before and after), to leave as
+// 16-byte chunks (swz gives row r's chunk c).
+__device__ __forceinline__ void store_tile(const float (&o)[64],
+                                           const float (&inv)[2],
+                                           uint8_t* stage) {
   const int r0 = frag_row(), c0 = frag_col();
-  const float inv[2] = {1.f / fmaxf(st.l[0], 1e-30f),
-                        1.f / fmaxf(st.l[1], 1e-30f)};
 #pragma unroll
   for (int i = 0; i < 64; i += 2) {
     const int j = (i >> 1) & 1, r = r0 + 8 * j, col = c0 + 8 * (i >> 2);
     *reinterpret_cast<uint32_t*>(stage + swz(r, col >> 3) + (col & 7) * 2) =
-        pack_bf16(st.o[i] * inv[j], st.o[i + 1] * inv[j]);
+        pack_bf16(o[i] * inv[j], o[i + 1] * inv[j]);
+  }
+}
+
+// o / l of the attention rows, as store_tile.
+__device__ __forceinline__ void store_out_tile(const RowState& st,
+                                               uint8_t* stage) {
+  const float inv[2] = {1.f / fmaxf(st.l[0], 1e-30f),
+                        1.f / fmaxf(st.l[1], 1e-30f)};
+  store_tile(st.o, inv, stage);
+}
+
+// The staged tile's rows row0 + r < n_rows to dst (row stride
+// `row_stride` elements), one 16-byte store per chunk.
+__device__ __forceinline__ void copy_out_tile(const uint8_t* stage,
+                                              __nv_bfloat16* dst,
+                                              long long row_stride, int row0,
+                                              int n_rows) {
+#pragma unroll
+  for (int i = 0; i < kRows * 16 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads, r = c >> 4, chunk = c & 15;
+    if (row0 + r < n_rows)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * row_stride + chunk * 8) =
+          *reinterpret_cast<const uint4*>(stage + swz(r, chunk));
   }
 }
 

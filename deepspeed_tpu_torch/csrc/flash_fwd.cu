@@ -83,22 +83,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
 
-  // 16 chunks of 16 B per row
-  for (int c = tid; c < kRows * 16; c += kThreads) {
-    const int r = c >> 4, chunk = c & 15;
-    const bool ok = q0 + r < Sq;
-    cp_async16(q_s + swz(r, chunk), qb + (ok ? (q0 + r) * q_ss : 0) + chunk * 8,
-               ok);
-  }
+  load_tile(q_s, qb, q_ss, q0, Sq);
   auto load_kv = [&](int blk, int stage) {
-    const int k0 = blk * kKeys;
-    for (int c = tid; c < kKeys * 16; c += kThreads) {
-      const int t = c >> 4, chunk = c & 15;
-      const bool ok = k0 + t < Sk;
-      const long long kp = ok ? k0 + t : 0;
-      cp_async16(k_tile(stage) + swz(t, chunk), kb + kp * k_ss + chunk * 8, ok);
-      cp_async16(v_tile(stage) + swz(t, chunk), vb + kp * v_ss + chunk * 8, ok);
-    }
+    load_tile_pair(k_tile(stage), kb, k_ss, v_tile(stage), vb, v_ss,
+                   blk * kKeys, Sk);
   };
 
   // the band of key blocks the block's rows can see
@@ -148,13 +136,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();      // Q is read by no wgmma any more
   store_out_tile(st, smem);
   __syncthreads();
-  __nv_bfloat16* ob = out + b * o_sb + h * o_sh;
-  for (int c = tid; c < kRows * 16; c += kThreads) {
-    const int r = c >> 4, chunk = c & 15;
-    if (q0 + r < Sq)
-      *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + chunk * 8) =
-          *reinterpret_cast<const uint4*>(smem + swz(r, chunk));
-  }
+  copy_out_tile(smem, out + b * o_sb + h * o_sh, o_ss, q0, Sq);
 }
 
 // causal: 0/1; window <= 0: no sliding window.

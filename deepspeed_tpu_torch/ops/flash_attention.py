@@ -200,22 +200,38 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous():
         raise ValueError(f"flash backward takes a contiguous fp32 lse "
                          f"{(b, h, s_q)}, got {lse.dtype} {tuple(lse.shape)}")
-    delta = (do.float() * out.float()).sum(-1)
+    delta = bwd_delta(do, out)
     dq = torch.empty((b, h, s_q, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, kh, s_k, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, kh, s_k, d), dtype=v.dtype, device=q.device)
     if dq.numel():
-        common = (b, h, kh, s_q, s_k, *q.stride()[:3], *k.stride()[:3],
-                  *v.stride()[:3], *do.stride()[:3],
-                  float(_scale(d, sm_scale)), int(bool(causal)),
-                  int(window or 0), stream_of(q))
-        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr())
-        BWD_KERNEL.launch("flash_bwd_dkv_bf16", *inputs, dk.data_ptr(),
-                          dv.data_ptr(), *common)
-        BWD_KERNEL.launch("flash_bwd_dq_bf16", *inputs, dq.data_ptr(),
-                          *common)
+        for fn, args in bwd_launch_args(q, k, v, do, lse, delta, dq, dk, dv,
+                                        causal, sm_scale, window).items():
+            BWD_KERNEL.launch(fn, *args)
     return dq, dk, dv
+
+
+def bwd_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in fp32, [B, H, S]: what the backward
+    kernels read beside lse.  ``out`` is widened inside the product (the
+    same values as ``out.float()``, one pass fewer)."""
+    return (do.float() * out).sum(-1)
+
+
+def bwd_launch_args(q, k, v, do, lse, delta, dq, dk, dv, causal, sm_scale,
+                    window) -> dict:
+    """The arguments of the two backward kernels, by C entry point (dK/dV
+    first), for operands :func:`flash_bwd` has checked."""
+    b, h, s_q, d = q.shape
+    common = (b, h, k.shape[1], s_q, k.shape[2], *q.stride()[:3],
+              *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+              float(_scale(d, sm_scale)), int(bool(causal)),
+              int(window or 0), stream_of(q))
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    return {"flash_bwd_dkv_bf16": (*inputs, dk.data_ptr(), dv.data_ptr(),
+                                   *common),
+            "flash_bwd_dq_bf16": (*inputs, dq.data_ptr(), *common)}
 
 
 class FlashAttention(torch.autograd.Function):

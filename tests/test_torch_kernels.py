@@ -163,6 +163,133 @@ def test_parity_limits_pass_rounding_and_fail_an_extra_key(variant):
     assert parity_errors(shifted, ref)[0] > RMS_REL_TOL
 
 
+def _bwd_tile_numerics(q, k, v, out, lse, do, window=None, extra_key=False,
+                       with_delta=True, bf16_p_ds=True):
+    """What the flash backward kernels compute, in plain PyTorch: 64-key
+    and 64-row blocks over the kernels' block bounds, transposed products
+    in dK/dV (S^T = K Q^T, dP^T = V dO^T), p = exp2(s scale log2e -
+    lse log2e) masked to 0 outside the causal band, P and dS rounded to
+    bf16 before their products (dS from the bf16 P), fp32 block sums, the
+    GQA sum over the group inside the key block, bf16 outputs.  Faults:
+    ``extra_key`` lets each query see one key past the causal limit,
+    ``with_delta=False`` leaves delta out of dS, ``bf16_p_ds=False`` keeps
+    P and dS in fp32 (the fp32-FMA kernels' numerics).  q, do [B, H, S,
+    D] and k, v [B, K, S, D] bf16; out, lse from the forward."""
+    B, H, S, D = q.shape
+    K, G, n = k.shape[1], H // k.shape[1], -(-S // 64)
+    scale, log2e = 1.0 / np.sqrt(D), 1.4426950408889634
+    rnd = (lambda x: x.bfloat16().float()) if bf16_p_ds else (lambda x: x)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    lse2 = lse * log2e
+    delta = tfa.bwd_delta(do, out)
+    if not with_delta:
+        delta = torch.zeros_like(delta)
+    pos = torch.arange(S)
+
+    def blk(i):
+        return slice(64 * i, min(S, 64 * i + 64))
+
+    def keep(qs, ks):                   # [queries, keys]
+        qp, kp = pos[qs, None], pos[None, ks]
+        ok = qp >= kp - (1 if extra_key else 0)
+        return ok & ((qp - kp) < window) if window else ok
+
+    dk = torch.zeros(B, K, S, D)
+    dv = torch.zeros(B, K, S, D)
+    for kb in range(n):
+        ks = blk(kb)
+        q_hi = n if not window else min(n, (64 * kb + 63 + window - 1) // 64
+                                        + 1)
+        for g in range(G):
+            hs = slice(g, H, G)         # head g of each kv head's group
+            for qb in range(kb, q_hi):
+                qs = blk(qb)
+                s_t = torch.einsum("bkcd,bkrd->bkcr", kf[:, :, ks],
+                                   qf[:, hs, qs])
+                p_t = torch.exp2(s_t * scale * log2e
+                                 - lse2[:, hs, None, qs])
+                p_t = rnd(torch.where(keep(qs, ks).T, p_t, 0.0))
+                dv[:, :, ks] += torch.einsum("bkcr,bkrd->bkcd", p_t,
+                                             dof[:, hs, qs])
+                dp_t = torch.einsum("bkcd,bkrd->bkcr", vf[:, :, ks],
+                                    dof[:, hs, qs])
+                ds_t = rnd(p_t * (dp_t - delta[:, hs, None, qs]) * scale)
+                dk[:, :, ks] += torch.einsum("bkcr,bkrd->bkcd", ds_t,
+                                             qf[:, hs, qs])
+    dq = torch.zeros(B, H, S, D)
+    kr, vr = (torch.repeat_interleave(x, G, dim=1) for x in (kf, vf))
+    for qb in range(n):
+        qs = blk(qb)
+        lo = 0 if not window else max(0, (64 * qb - window + 1) // 64)
+        for kb in range(lo, qb + 1):
+            ks = blk(kb)
+            s_ = torch.einsum("bhrd,bhcd->bhrc", qf[:, :, qs], kr[:, :, ks])
+            p = torch.exp2(s_ * scale * log2e - lse2[:, :, qs, None])
+            p = rnd(torch.where(keep(qs, ks), p, 0.0))
+            dp = torch.einsum("bhrd,bhcd->bhrc", dof[:, :, qs], vr[:, :, ks])
+            ds = rnd(p * (dp - delta[:, :, qs, None]) * scale)
+            dq[:, :, qs] += torch.einsum("bhrc,bhcd->bhrd", ds, kr[:, :, ks])
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+# (K, window) at B = 1, H = 4, S = 300, D = 128
+BWD_STAND_IN_CASES = {"gqa2": (2, None), "window100_k4": (4, 100)}
+
+
+def _bwd_case(case):
+    kh, window = BWD_STAND_IN_CASES[case]
+    rng = np.random.default_rng(7)
+    q, do = (torch.from_numpy(rng.standard_normal((1, 4, 300, 128)))
+             .bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((1, kh, 300, 128)))
+            .bfloat16() for _ in range(2))
+    out, lse = tfa.flash_reference(q, k, v, causal=True, window=window)
+    ref = tfa.flash_bwd_reference(q, k, v, out, lse, do, True, None, window)
+    return (q, k, v, out, lse, do), window, ref
+
+
+def _bwd_errors(got, ref):
+    """The worst (rms, max) of dq, dk, dv relative to the reference."""
+    errs = [parity_errors(a, b) for a, b in zip(got, ref)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_STAND_IN_CASES))
+def test_bwd_tile_numerics_pass_the_limits(case):
+    """The backward kernels' arithmetic differs from the plain backward
+    by rounding only (exp2 against exp, block sums, dS from the bf16 P):
+    it passes ``assert_parity`` for dq, dk and dv."""
+    args, window, ref = _bwd_case(case)
+    got = _bwd_tile_numerics(*args, window=window)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16
+        assert_parity(a, b)
+
+
+@pytest.mark.parametrize("fault", ["extra_key", "no_delta"])
+@pytest.mark.parametrize("case", sorted(BWD_STAND_IN_CASES))
+def test_bwd_limits_fail_real_faults(case, fault):
+    """The same arithmetic with each query seeing one key past the causal
+    limit, or with delta left out of dS, fails the rms limit."""
+    args, window, ref = _bwd_case(case)
+    kw = {"extra_key": True} if fault == "extra_key" else {
+        "with_delta": False}
+    rms, _ = _bwd_errors(_bwd_tile_numerics(*args, window=window, **kw), ref)
+    assert rms > RMS_REL_TOL, rms
+
+
+@pytest.mark.parametrize("case", sorted(BWD_STAND_IN_CASES))
+def test_bwd_limits_pass_fp32_p_and_ds_too(case):
+    """P and dS kept in fp32 (the fp32-FMA kernels' numerics, where the
+    TPU kernel and the plain backward round them to bf16) also pass: the
+    limits hold rounding, and cannot tell where bf16 rounding happens;
+    the wrong-mask and missing-delta faults above are what they catch."""
+    args, window, ref = _bwd_case(case)
+    rms, mx = _bwd_errors(
+        _bwd_tile_numerics(*args, window=window, bf16_p_ds=False), ref)
+    assert rms <= RMS_REL_TOL and mx <= MAX_REL_TOL, (rms, mx)
+
+
 @pytest.mark.parametrize("variant", ["plain", "window", "alibi"])
 def test_int8_fold_limits_pass_rounding_and_fail_scales_one_key_off(variant):
     """The tile over int8 pages: K = bf16(code * k_scale), V's codes as
@@ -412,12 +539,17 @@ def test_paged_kernel_matches_plain(cuda_device, case, variant):
     assert_parity(out, ref)
 
 
-# (S, H, K, window): S not a multiple of the 64-row blocks, GQA (the
-# group sum inside the dK/dV block), a sliding window, and a long uneven
-# sequence over one kv head
+# (S, H, K, window): S not a multiple of the 64-row blocks, under one
+# tile (17) and one row past a tile (65, where a wrong leading or stride
+# offset of a descriptor shows), GQA (the group sum inside the dK/dV
+# block, up to G = 8), a sliding window of one block and one that
+# crosses blocks, and a long uneven sequence over one kv head
 FLASH_BWD_CASES = {"s300": (300, 8, 8, None), "gqa4": (300, 8, 2, None),
                    "window100": (256, 4, 4, 100),
-                   "s1000_mqa": (1000, 4, 1, None)}
+                   "s1000_mqa": (1000, 4, 1, None),
+                   "s17": (17, 4, 4, None), "s65": (65, 4, 4, None),
+                   "window64": (256, 4, 4, 64),
+                   "gqa8": (256, 32, 4, None)}
 
 
 def _bshd(dev, g, s, h):
@@ -441,6 +573,21 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, case):
     for a, b in zip(got, ref):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert_parity(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gqa4", "window100"])
+def test_flash_bwd_kernel_is_bit_equal_across_calls(cuda_device, case):
+    """No atomics: the sums run in one fixed order, so two calls on the
+    same inputs give the same bits."""
+    s, h, kh, window = FLASH_BWD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, do = (_bshd(cuda_device, g, s, n) for n in (h, kh, kh, h))
+    out, lse = tfa.flash_fwd(q, k, v, causal=True, window=window)
+    first = tfa.flash_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    second = tfa.flash_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name}"
 
 
 @pytest.mark.cuda

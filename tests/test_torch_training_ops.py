@@ -5,7 +5,8 @@ Seeded numpy inputs go through the JAX function (Pallas kernels in
 interpret mode, as tests/test_ops.py runs them) and the port's plain
 version.  Tolerances: flash gradients 2e-5 absolute and relative (fp32
 softmax and S x S sums taken in another order; the JAX kernel tests
-allow 5e-3); AdamW 1e-6 absolute, 1e-5 relative (the same fp32
+allow 5e-3), and in bf16 the kernel limits, rms 1e-2 and max 2.5e-2 of
+the reference (both sides round P and dS to bf16); AdamW 1e-6 absolute, 1e-5 relative (the same fp32
 expressions; sqrt and division may differ by an ulp); LR schedules
 1e-7 (the same Python floats).
 """
@@ -95,6 +96,49 @@ def test_flash_backward_plain_matches_jax_kernel(case):
             np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                        atol=FLASH_TOL, rtol=FLASH_TOL,
                                        err_msg=f"d{name} vs {fn.__name__}")
+
+
+# (S, H, K, window) at D = 128 in bf16, JAX blocks of 64 (they divide
+# S): causal, GQA and a sliding window
+BF16_FLASH_CASES = {"causal": (128, 2, 2, None), "gqa": (128, 4, 2, None),
+                    "window40": (128, 2, 2, 40)}
+# the kernel limits (tests/test_torch_kernels.py, chip_smoke.py): rms and
+# max error relative to the reference's; both sides round P and dS to
+# bf16, at other places and in another summation order
+BF16_RMS_REL_TOL = 1e-2
+BF16_MAX_REL_TOL = 2.5e-2
+
+
+@pytest.mark.parametrize("case", sorted(BF16_FLASH_CASES))
+def test_flash_backward_plain_matches_jax_kernel_in_bf16(case):
+    """The plain backward in bf16 (what the CPU path runs, and what the
+    kernels are held to on the card) against the Pallas backward in bf16
+    in interpret mode."""
+    s, h, kh, window = BF16_FLASH_CASES[case]
+    d, g = 128, h // kh
+    arrays = _flash_inputs(s, d, h, kh, seed=2)
+
+    def jax_attn(q, k, v):
+        k, v = jnp.repeat(k, g, axis=1), jnp.repeat(v, g, axis=1)
+        return jfa._flash_attention(q, k, v, d ** -0.5, True, 64, 64, True,
+                                    window)
+
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in arrays)
+    _, vjp = jax.vjp(jax_attn, jq, jk, jv)
+    ref = vjp(jdo)
+    q, k, v, do = (_t(a).bfloat16() for a in arrays)
+    out, lse = tfa.flash_fwd(q, k, v, causal=True, window=window)
+    got = tfa.flash_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    for name, a, b in zip("qkv", got, ref):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16, name
+        a = a.float()
+        b = torch.from_numpy(np.array(b.astype(jnp.float32)))
+        diff = a - b
+        rms_rel = float(diff.pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+        max_rel = float(diff.abs().max() / b.abs().max())
+        print(f"d{name}: rms {rms_rel:.2e}, max {max_rel:.2e}")
+        assert rms_rel <= BF16_RMS_REL_TOL and max_rel <= BF16_MAX_REL_TOL, \
+            (name, rms_rel, max_rel)
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
