@@ -20,7 +20,10 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    TB/s and operations / 989 TFLOP/s bf16 or 67 fp32, H100 SXM data
    sheet); the flash backward also bit-equal over two calls, and its
    dK/dV and dQ kernels and the wrapper's delta timed apart, each with
-   its own bound;
+   its own bound; the norms also split each call of the wrapper and of
+   the library call into ``host_us`` (a host clock around 1000 calls,
+   nothing waiting inside: the enqueue cost) and ``device_us`` (the
+   kernels' durations per call from torch.profiler over 200 calls);
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens): 8 greedy and 2 sampled
    requests through ``FastGenScheduler``, with every kernel's launch
@@ -67,6 +70,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -231,6 +235,105 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time per call of ``fn``: a host clock around ``calls`` calls
+    after a ``synchronize()``, with none inside the loop (the enqueue
+    cost; once the launch queue fills, which happens when a call's
+    kernels outlast its enqueue, it reads the device's time instead)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt * 1e6 / calls
+
+
+def device_us(fn, calls: int = 200, sessions: int = 4):
+    """(device us per call, kernels recorded per call) of ``fn``, from
+    the CUDA kernels torch.profiler records over ``calls`` calls (the
+    source ``device_ms_by_kind`` reads): each kernel name's mean duration
+    times its launches per call, summed.  The profiler sometimes drops
+    records (one session of 200 calls kept none, one kept 45% of a
+    kernel's), so a session that recorded some name fewer than ``calls``
+    times is run again, up to ``sessions`` in all; the last session that
+    recorded anything counts each of its names at least once a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    kept = None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name.setdefault(ev.name, []).append(
+                    ev.time_range.elapsed_us())
+        if by_name:
+            kept = by_name
+            if min(map(len, by_name.values())) >= calls:
+                break
+    if kept is None:
+        raise RuntimeError(f"torch.profiler recorded no device kernel in "
+                           f"{sessions} sessions")
+    us = sum(sum(t) / len(t) * max(1, round(len(t) / calls))
+             for t in kept.values())
+    return us, sum(map(len, kept.values())) / calls
+
+
+SPLIT_KEYS = ("host_us", "host_us_blocks", "device_us", "kernels_per_call",
+              "library_host_us", "library_host_us_blocks",
+              "library_device_us", "library_kernels_per_call")
+HOST_BLOCKS = 5
+
+
+def split_times(kernel, library) -> dict:
+    """Host and device time per call of a kernel's wrapper and of its
+    library call.  ``host_us`` is the median of ``HOST_BLOCKS`` blocks
+    of :func:`host_us`, the two calls' blocks alternating (the host's
+    clock swings between blocks on a shared machine); ``device_us`` and
+    the kernels per call come from :func:`device_us`."""
+    fns = {"": kernel, "library_": library}
+    blocks = {prefix: [] for prefix in fns}
+    for i in range(HOST_BLOCKS):
+        for prefix in (fns if i % 2 == 0 else list(fns)[::-1]):
+            blocks[prefix].append(host_us(fns[prefix]))
+    out = {}
+    for prefix, fn in fns.items():
+        us, per_call = device_us(fn)
+        out.update({f"{prefix}host_us": statistics.median(blocks[prefix]),
+                    f"{prefix}host_us_blocks": blocks[prefix],
+                    f"{prefix}device_us": us,
+                    f"{prefix}kernels_per_call": per_call})
+    return out
+
+
+def norm_host_parts(x, vectors, launch) -> dict:
+    """Host us per call of each step of a norm wrapper on ``x`` (the
+    median of ``HOST_BLOCKS`` blocks of :func:`host_us` each): the
+    operand checks, the output's allocation, the stream handle, and the
+    launch through the bound C entry point (``cudaLaunchKernel`` and
+    the error check included; ``launch`` is a prepared call)."""
+    import torch
+    from deepspeed_tpu_torch.ops import kernel_loader
+    from deepspeed_tpu_torch.ops import normalization as N
+    e = x.shape[-1]
+    parts = {"checks": lambda: N._takes(x, e, vectors),
+             "allocation": lambda: torch.empty_like(x),
+             "stream": lambda: kernel_loader.stream_of(x),
+             "launch": launch}
+    return {name: statistics.median(host_us(fn) for _ in range(HOST_BLOCKS))
+            for name, fn in parts.items()}
+
+
 def bound(n_bytes: float, n_flops: float,
           flops_per_s: float = BF16_FLOPS_PER_S):
     t_b, t_f = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
@@ -336,7 +439,16 @@ def check_layernorm(dev):
                              50),
             library_ms=cuda_ms(lambda: F.layer_norm(x, (e,), wb, bb, 1e-5),
                                200),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by,
+            **split_times(lambda: N.layernorm(x, w, b, 1e-5),
+                          lambda: F.layer_norm(x, (e,), wb, bb, 1e-5))))
+        if n == 16:
+            out, stream = torch.empty_like(x), torch.cuda.current_stream()
+            rows[-1]["host_parts_us"] = norm_host_parts(x, (w, b), lambda: (
+                N.LN_KERNEL.launch("layernorm_bf16", x.data_ptr(),
+                                   w.data_ptr(), b.data_ptr(),
+                                   out.data_ptr(), n, e, 1e-5,
+                                   stream.cuda_stream)))
     return rows
 
 
@@ -368,17 +480,22 @@ def check_rmsnorm_res(dev):
                              50),
             library_ms=cuda_ms(lambda: F.rms_norm(x + r, (e,), wb, 1e-5),
                                200),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by,
+            **split_times(lambda: N.rmsnorm(x, w, 1e-5, residual=r),
+                          lambda: F.rms_norm(x + r, (e,), wb, 1e-5))))
     return rows
 
 
 def check_rmsnorm(dev):
+    """N=8: the Llama serving decode step's rows (first: the main path's
+    shape); N=1: one request decoding; N=16: the OPT decode step's row
+    count; N=1024 and N=4096: prefill chunks."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import normalization as N
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for n in (8, 1024):
+    for n in (8, 1, 16, 1024, 4096):
         e = 4096
         x = torch.randn(n, e, generator=g, device=dev, dtype=torch.bfloat16)
         w = torch.rand(e, generator=g, device=dev) + 0.5
@@ -390,7 +507,15 @@ def check_rmsnorm(dev):
             ms=cuda_ms(lambda: N.rmsnorm(x, w, 1e-5), 200),
             plain_ms=cuda_ms(lambda: N.rmsnorm_reference(x, w, 1e-5), 50),
             library_ms=cuda_ms(lambda: F.rms_norm(x, (e,), wb, 1e-5), 200),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by,
+            **split_times(lambda: N.rmsnorm(x, w, 1e-5),
+                          lambda: F.rms_norm(x, (e,), wb, 1e-5))))
+        if n == 8:
+            out, stream = torch.empty_like(x), torch.cuda.current_stream()
+            rows[-1]["host_parts_us"] = norm_host_parts(x, (w,), lambda: (
+                N.KERNEL.launch("rmsnorm_bf16", x.data_ptr(), w.data_ptr(),
+                                out.data_ptr(), n, e, 1e-5,
+                                stream.cuda_stream)))
     return rows
 
 
@@ -1690,7 +1815,16 @@ def main() -> int:
                    if "step_ms" in r else "")
                 + "".join(f", {fn} {part['ms']:.4f} ms (bound "
                           f"{part['bound_ms']:.4f} ms, {part['bound_by']})"
-                          for fn, part in r.get("parts", {}).items()))
+                          for fn, part in r.get("parts", {}).items())
+                + (f"; host_us kernel {r['host_us']:.2f}, library "
+                   f"{r['library_host_us']:.2f}; device_us kernel "
+                   f"{r['device_us']:.3f}, library "
+                   f"{r['library_device_us']:.3f} "
+                   f"({r['library_kernels_per_call']:g} kernels a call)"
+                   if "host_us" in r else "")
+                + ("; host_us by part " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in r["host_parts_us"].items())
+                   if "host_parts_us" in r else ""))
             rel = [(r[k], RMS_REL_TOL) for k in r if k.endswith("rms_rel_err")]
             rel += [(r[k], MAX_REL_TOL) for k in r if k.endswith("max_rel_err")]
             if name in PATH_OPTIMIZER.values():
@@ -1698,7 +1832,6 @@ def main() -> int:
             if not all(err <= tol for err, tol in rel):
                 raise RuntimeError(f"{name} kernel disagrees with its plain "
                                    f"version at [{r['shape']}]: {r}")
-
     # phase 4
     from deepspeed_tpu_torch.models.transformer import init_params
     cfg = llama_config("7b")
@@ -1772,6 +1905,14 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"])
+        if "host_us" in head:
+            # host and device time per call, kernel and library, at every
+            # shape (the first is the main path's)
+            entry.update({k: head[k] for k in SPLIT_KEYS})
+            entry["host_parts_us"] = head.get("host_parts_us")
+            entry["by_shape"] = {r["shape"]: {
+                k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  *SPLIT_KEYS)} for r in rows}
         if name == "flash_bwd":
             # one wrapper, two kernels: dK/dV (:164) and dQ (:214), each
             # with its own launches, time and bound; delta is the

@@ -11,6 +11,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define DS_EXPORT extern "C" __attribute__((visibility("default")))
 
 // The JAX package's finite mask, -0.7 * finfo(float32).max: masked
@@ -79,3 +81,18 @@ __device__ __forceinline__ void ds_load_float8(const float* v, int chunk,
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+
+// Calls f(std::integral_constant<int, C>{}) with the smallest power of
+// two C >= n, up to MAX: picks a kernel instantiation from a runtime
+// count (chunks per thread) so that no register holds a chunk the row
+// does not have.
+template <int MAX, int C = 1, typename F>
+inline void ds_with_pow2(int n, F&& f) {
+  if constexpr (C < MAX) {
+    if (n > C) {
+      ds_with_pow2<MAX, 2 * C>(n, f);
+      return;
+    }
+  }
+  f(std::integral_constant<int, C>{});
+}

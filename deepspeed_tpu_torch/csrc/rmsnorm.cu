@@ -10,24 +10,35 @@
 // Layout: x, res, out, res_out [N, E] bf16 contiguous, w [E] fp32 (the
 // JAX package keeps norm scales in fp32).  E % 8 == 0 and E <= 8192.
 //
-// Grid: one block of 256 threads per row.  Each thread loads its 16-byte
-// chunks of the row once (at most 4, kept in registers), the fp32 sum of
-// squares reduces through warp shuffles and shared memory, and the same
-// registers are scaled and stored -- x is read once and y written once.
-// The residual form adds x + res in fp32, stores the sum rounded to bf16
-// as the new residual, and takes the moment and the output from the
-// UNROUNDED fp32 sum it keeps in registers.
+// Grid: one block per row.  The serving decode step gives the kernel
+// 1-16 rows, so a launch is one round trip to memory per block and the
+// block's reduction; the design shortens that chain.  Each thread issues
+// all its loads at once -- its 16-byte chunks of the row and the fp32
+// scale of the same columns -- before the first wait, so the scale's
+// latency hides behind the row's instead of following the reduction.
+// The row stays in registers, the fp32 sum of squares reduces through
+// warp shuffles and shared memory, and the same registers are scaled
+// and stored: x is read once and y written once.  256 threads a row
+// (PERF.md keeps the times of 64-512); chunks per thread are picked per
+// E at launch (a power of two), so no register holds a chunk the row
+// does not have.
+//
+// The residual form (the same 256 threads a row, the scale read after
+// the reduction) adds x + res in fp32, stores the sum rounded to
+// bf16 as the new residual, and takes the moment and the output from
+// the UNROUNDED fp32 sum it keeps in registers.
 //
 // Bound on the H100: bytes, 2 * N * E * 2 B + E * 4 B at 3.35 TB/s
 // (4 * N * E * 2 B + E * 4 B with the residual: two reads, two writes);
 // the arithmetic is a few flops per element.  At decode sizes (N = 8)
-// the launch, not the bytes, sets the time.
+// the launch and one memory round trip, not the bytes, set the time.
 
 #include "common.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kMaxChunks = 4;  // 16-byte chunks per thread: E <= 8192
 
+template <int CHUNKS>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
                __nv_bfloat16* __restrict__ out, int E, float eps) {
@@ -37,15 +48,22 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
   uint4* yr = reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * E);
   __shared__ float scratch[kThreads / 32];
 
-  uint4 cache[kMaxChunks];
-  float ss = 0.f;
+  uint4 xs[CHUNKS];
+  float ws[CHUNKS][8];
 #pragma unroll
-  for (int i = 0; i < kMaxChunks; ++i) {
+  for (int i = 0; i < CHUNKS; ++i) {
     const int c = threadIdx.x + i * kThreads;
     if (c < n_chunks) {
-      cache[i] = xr[c];
+      xs[i] = xr[c];
+      ds_load_float8(w, c, ws[i]);
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < CHUNKS; ++i) {
+    if (threadIdx.x + i * kThreads < n_chunks) {
       float f[8];
-      ds_bf16x8_to_float(cache[i], f);
+      ds_bf16x8_to_float(xs[i], f);
 #pragma unroll
       for (int j = 0; j < 8; ++j) ss = fmaf(f[j], f[j], ss);
     }
@@ -54,14 +72,13 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
       ds_block_sum<kThreads>(ss, scratch) / static_cast<float>(E) + eps);
 
 #pragma unroll
-  for (int i = 0; i < kMaxChunks; ++i) {
+  for (int i = 0; i < CHUNKS; ++i) {
     const int c = threadIdx.x + i * kThreads;
     if (c < n_chunks) {
-      float f[8], ws[8];
-      ds_bf16x8_to_float(cache[i], f);
-      ds_load_float8(w, c, ws);
+      float f[8];
+      ds_bf16x8_to_float(xs[i], f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = f[j] * inv * ws[j];
+      for (int j = 0; j < 8; ++j) f[j] = f[j] * inv * ws[i][j];
       yr[c] = ds_float8_to_bf16(f);
     }
   }
@@ -115,9 +132,13 @@ rmsnorm_res_kernel(const __nv_bfloat16* __restrict__ x,
 
 DS_EXPORT int rmsnorm_bf16(const void* x, const void* w, void* out, int N,
                            int E, float eps, void* stream) {
-  rmsnorm_kernel<<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-      static_cast<__nv_bfloat16*>(out), E, eps);
+  ds_with_pow2<kMaxChunks>((E / 8 + kThreads - 1) / kThreads,
+                           [&](auto chunks) {
+    rmsnorm_kernel<decltype(chunks)::value>
+        <<<N, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
+            static_cast<__nv_bfloat16*>(out), E, eps);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

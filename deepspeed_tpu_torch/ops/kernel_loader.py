@@ -8,6 +8,11 @@ headers and the flags, so an edited source rebuilds and an unchanged one
 loads.  Every C entry point returns ``cudaGetLastError()``; the wrapper
 raises on anything but 0.
 
+A launch is on the host's critical path (a serving decode step makes
+~130 of them), so the library's functions are bound once, when it
+loads, and the stream handle is read raw from PyTorch's current stream,
+never cached.
+
 Nothing is compiled or loaded when a module is imported: the CPU tests
 import every module on a machine with no ``nvcc``.
 """
@@ -20,7 +25,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -49,20 +56,25 @@ def _nvcc() -> str:
 class CudaKernel:
     """One ``.cu`` source -> one ``.so``.  ``functions`` maps each C
     entry point to its ctypes argument types (pointers and the stream as
-    ``c_void_p``).  ``launches`` counts kernel launches and
-    ``launches_by_fn`` splits them by entry point; only the op wrapper
-    that launches increments them.  ``copies`` counts operands the
+    ``c_void_p``).  ``launches_by_fn`` counts the launches of each entry
+    point that succeeded, and ``launches`` is their sum; only
+    :meth:`launch` increments them.  ``copies`` counts operands the
     wrapper had to copy into a layout the kernel reads."""
 
     def __init__(self, source: str, functions: Dict[str, Sequence]):
         self.source = CSRC_DIR / source
         self.functions = dict(functions)
-        self.launches = 0
-        self.launches_by_fn: Dict[str, int] = {fn: 0 for fn in functions}
+        self.launches_by_fn: Dict[str, int] = dict.fromkeys(functions, 0)
         self.copies = 0
         self._lib: Optional[ctypes.CDLL] = None
+        #: entry point -> its ctypes function, bound once from ``_lib``
+        self._bound: Dict[str, Callable[..., int]] = {}
         #: compiler output of the last build in this process
         self.build_log = ""
+
+    @property
+    def launches(self) -> int:
+        return sum(self.launches_by_fn.values())
 
     @property
     def name(self) -> str:
@@ -110,32 +122,40 @@ class CudaKernel:
         self._finish_build(self._start_build())
 
     def lib(self) -> ctypes.CDLL:
+        """The loaded library (built first if missing), its entry points
+        bound."""
         if self._lib is None:
             self.build()
-            lib = ctypes.CDLL(str(self.library_path))
-            for fn, argtypes in self.functions.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
-            lib.ds_error_string.argtypes = [ctypes.c_int]
-            lib.ds_error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            self._lib = ctypes.CDLL(str(self.library_path))
+        if not self._bound:
+            self._bind()
         return self._lib
+
+    def _bind(self) -> None:
+        lib, bound = self._lib, {}
+        for fn, argtypes in self.functions.items():
+            f = bound[fn] = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        lib.ds_error_string.argtypes = [ctypes.c_int]
+        lib.ds_error_string.restype = ctypes.c_char_p
+        self._bound = bound
 
     def launch(self, fn: str, *args) -> None:
         """Call entry point ``fn`` and raise on a non-zero CUDA error
         (a refused launch never runs and a later synchronize would not
-        report it)."""
-        lib = self.lib()
-        err = getattr(lib, fn)(*args)
-        if err != 0:
-            msg = lib.ds_error_string(err).decode()
+        report it); count it only once it succeeded."""
+        f = self._bound.get(fn)
+        if f is None:
+            self.lib()
+            f = self._bound[fn]
+        err = f(*args)
+        if err:
+            msg = self._lib.ds_error_string(err).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}: {msg}")
-        self.launches += 1
         self.launches_by_fn[fn] += 1
 
     def reset_counts(self) -> None:
-        self.launches = 0
         self.launches_by_fn = dict.fromkeys(self.functions, 0)
         self.copies = 0
 
@@ -157,6 +177,9 @@ def build_all(kernels: Iterable[CudaKernel]) -> List[str]:
     return [k.build_log for k in kernels]
 
 
-def stream_of(t) -> int:
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+def stream_of(t: torch.Tensor) -> int:
+    """Raw handle of PyTorch's current stream on ``t``'s device, read at
+    every launch: it follows ``torch.cuda.stream(...)`` and a graph
+    capture's stream.  (``torch.cuda.current_stream`` would build a
+    ``Stream`` object per launch.)"""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -24,6 +24,7 @@ LN_KERNEL = CudaKernel("layernorm.cu", {
 
 #: widest row the kernels keep in registers (4 x 16-byte chunks x 256)
 MAX_WIDTH = 8192
+_BF16, _F32 = torch.bfloat16, torch.float32
 
 
 def rmsnorm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -60,33 +61,49 @@ def layernorm_reference(x: torch.Tensor, weight: torch.Tensor,
             + bias.float()).to(x.dtype)
 
 
-def _rows(name: str, x: torch.Tensor, vectors, like=()) -> torch.Tensor:
-    """Check what the row kernels take and return ``x`` as ``[N, E]``:
-    bf16 contiguous activations (``like``: further activations of x's
-    shape), fp32 contiguous ``[E]`` vectors on x's device, ``E % 8 == 0``
-    and ``E <= MAX_WIDTH``."""
-    e = x.shape[-1]
+def _takes(x: torch.Tensor, e: int, vectors, like=()) -> bool:
+    """What the row kernels take, in one pass of cheap reads: bf16
+    contiguous activations (``like``: further activations of x's shape),
+    fp32 contiguous ``[E]`` vectors on x's device, ``E % 8 == 0`` and
+    ``0 < E <= MAX_WIDTH``."""
+    if not (x.dtype is _BF16 and x.is_contiguous() and not e % 8
+            and 0 < e <= MAX_WIDTH):
+        return False
+    dev = x.device
+    for t in like:
+        if not (t.dtype is _BF16 and t.shape == x.shape and t.device == dev
+                and t.is_contiguous()):
+            return False
+    for v in vectors:
+        if not (v.dtype is _F32 and v.shape == (e,) and v.device == dev
+                and v.is_contiguous()):
+            return False
+    return True
+
+
+def _refusal(name: str, x: torch.Tensor, vectors, like=()) -> Exception:
+    """The error for operands :func:`_takes` refused, naming the first
+    requirement they miss."""
+    e = x.shape[-1] if x.dim() else 0
     for t in (x, *like):
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} kernel takes bf16 activations, got "
-                            f"{t.dtype}")
+            return TypeError(f"{name} kernel takes bf16 activations, got "
+                             f"{t.dtype}")
         if t.shape != x.shape or t.device != x.device:
-            raise ValueError(f"{name} kernel takes activations of one shape "
-                             f"on one device, got {tuple(t.shape)} on "
-                             f"{t.device} beside {tuple(x.shape)} on "
-                             f"{x.device}")
+            return ValueError(f"{name} kernel takes activations of one "
+                              f"shape on one device, got {tuple(t.shape)} "
+                              f"on {t.device} beside {tuple(x.shape)} on "
+                              f"{x.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} kernel takes contiguous activations")
+            return ValueError(f"{name} kernel takes contiguous activations")
     for v in vectors:
         if v.dtype != torch.float32 or v.shape != (e,) \
                 or v.device != x.device or not v.is_contiguous():
-            raise ValueError(f"{name} kernel takes contiguous fp32 [E] "
-                             f"vectors on {x.device}, got {v.dtype} "
-                             f"{tuple(v.shape)} on {v.device}")
-    if e % 8 or e > MAX_WIDTH:
-        raise ValueError(f"{name} kernel needs E % 8 == 0 and E <= "
-                         f"{MAX_WIDTH}, got E={e}")
-    return x.reshape(-1, e)
+            return ValueError(f"{name} kernel takes contiguous fp32 [E] "
+                              f"vectors on {x.device}, got {v.dtype} "
+                              f"{tuple(v.shape)} on {v.device}")
+    return ValueError(f"{name} kernel needs E % 8 == 0 and 0 < E <= "
+                      f"{MAX_WIDTH}, got E={e}")
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -100,22 +117,25 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
         if residual is None:
             return rmsnorm_reference(x, weight, eps)
         return rmsnorm_res_reference(x, residual, weight, eps)
+    e = x.shape[-1] if x.dim() else 0
     if residual is None:
-        x2 = _rows("rmsnorm", x, (weight,))
-        out = torch.empty_like(x2)
-        if x2.shape[0]:
-            KERNEL.launch("rmsnorm_bf16", x2.data_ptr(), weight.data_ptr(),
-                          out.data_ptr(), x2.shape[0], x2.shape[1],
-                          float(eps), stream_of(x2))
-        return out.reshape(x.shape)
-    x2 = _rows("rmsnorm", x, (weight,), like=(residual,))
-    r2 = residual.reshape(x2.shape)
-    out, res_out = torch.empty_like(x2), torch.empty_like(x2)
-    if x2.shape[0]:
-        KERNEL.launch("rmsnorm_res_bf16", x2.data_ptr(), r2.data_ptr(),
+        if not _takes(x, e, (weight,)):
+            raise _refusal("rmsnorm", x, (weight,))
+        out = torch.empty_like(x)
+        n = x.numel() // e
+        if n:
+            KERNEL.launch("rmsnorm_bf16", x.data_ptr(), weight.data_ptr(),
+                          out.data_ptr(), n, e, eps, stream_of(x))
+        return out
+    if not _takes(x, e, (weight,), like=(residual,)):
+        raise _refusal("rmsnorm", x, (weight,), like=(residual,))
+    out, res_out = torch.empty_like(x), torch.empty_like(x)
+    n = x.numel() // e
+    if n:
+        KERNEL.launch("rmsnorm_res_bf16", x.data_ptr(), residual.data_ptr(),
                       weight.data_ptr(), out.data_ptr(), res_out.data_ptr(),
-                      x2.shape[0], x2.shape[1], float(eps), stream_of(x2))
-    return out.reshape(x.shape), res_out.reshape(x.shape)
+                      n, e, eps, stream_of(x))
+    return out, res_out
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -124,10 +144,13 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     launch ``layernorm_bf16`` (bf16 x, fp32 weight and bias) or raise."""
     if x.device.type == "cpu":
         return layernorm_reference(x, weight, bias, eps)
-    x2 = _rows("layernorm", x, (weight, bias))
-    out = torch.empty_like(x2)
-    if x2.shape[0]:
-        LN_KERNEL.launch("layernorm_bf16", x2.data_ptr(), weight.data_ptr(),
-                         bias.data_ptr(), out.data_ptr(), x2.shape[0],
-                         x2.shape[1], float(eps), stream_of(x2))
-    return out.reshape(x.shape)
+    e = x.shape[-1] if x.dim() else 0
+    if not _takes(x, e, (weight, bias)):
+        raise _refusal("layernorm", x, (weight, bias))
+    out = torch.empty_like(x)
+    n = x.numel() // e
+    if n:
+        LN_KERNEL.launch("layernorm_bf16", x.data_ptr(), weight.data_ptr(),
+                         bias.data_ptr(), out.data_ptr(), n, e, eps,
+                         stream_of(x))
+    return out

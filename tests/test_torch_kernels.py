@@ -414,15 +414,25 @@ def test_decode_splits_cover_the_card_and_keep_two_pages():
     assert tpa.decode_splits(64, 32, 64, 132) == 1
 
 
+# the row counts the serving step gives the norm kernels (1-16 decoding,
+# 1024-4096 prefilling) at three widths
+NORM_GRID = [(n, e) for n in (1, 8, 16, 1024, 4096) for e in (2560, 4096,
+                                                              8192)]
+
+
 @pytest.mark.cuda
-def test_rmsnorm_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("n,e", NORM_GRID)
+def test_rmsnorm_kernel_matches_plain(cuda_device, n, e):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(1024, 4096, generator=g, device=cuda_device,
+    x = torch.randn(n, e, generator=g, device=cuda_device,
                     dtype=torch.bfloat16)
-    w = torch.rand(4096, generator=g, device=cuda_device) + 0.5
+    w = torch.rand(e, generator=g, device=cuda_device) + 0.5
+    before = tnorm.KERNEL.launches_by_fn["rmsnorm_bf16"]
     out = tnorm.rmsnorm(x, w, 1e-5)
+    assert tnorm.KERNEL.launches_by_fn["rmsnorm_bf16"] == before + 1
     ref = tnorm.rmsnorm_reference(x, w, 1e-5)
     assert_parity(out, ref)
+    assert torch.equal(tnorm.rmsnorm(x, w, 1e-5), out)   # bit-equal repeat
 
 
 @pytest.mark.cuda
@@ -748,8 +758,8 @@ def test_int8_parity_limits_pass_rounding_and_fail_real_faults(variant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", ["normal", "large_mean"])
-@pytest.mark.parametrize("n,e", [(16, 4096), (1000, 4096), (5, 8192),
-                                 (33, 264)])
+@pytest.mark.parametrize("n,e", [(1000, 4096), (5, 8192), (33, 264),
+                                 *NORM_GRID])
 def test_layernorm_kernel_matches_plain(cuda_device, rows, n, e):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = (_large_mean_rows(n, e, g, cuda_device) if rows == "large_mean"
@@ -760,6 +770,7 @@ def test_layernorm_kernel_matches_plain(cuda_device, rows, n, e):
     out = tnorm.layernorm(x, w, b, 1e-5)
     assert tnorm.LN_KERNEL.launches == before + 1
     assert_parity(out, tnorm.layernorm_reference(x, w, b, 1e-5))
+    assert torch.equal(tnorm.layernorm(x, w, b, 1e-5), out)
 
 
 @pytest.mark.cuda
@@ -1014,3 +1025,88 @@ def test_optimizer_kernels_reject_what_they_do_not_take(cuda_device):
                             0.0, 1)
     with pytest.raises(ValueError, match="1-based"):
         tfo.fused_lamb_flat(p, grad, m, v, 1e-2, 0.9, 0.999, 1e-6, 0.0, 0)
+
+
+# ---------------------------------------------------------------------------
+# the norm wrappers' launch path under a side stream and a CUDA graph
+# capture
+# ---------------------------------------------------------------------------
+
+def _norm_operands(dev, n, e, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, e, generator=g, device=dev, dtype=torch.bfloat16)
+    w, b = _norm_vectors(e, g, dev)
+    r = torch.randn(n, e, generator=g, device=dev, dtype=torch.bfloat16)
+    return x, w, b, r
+
+
+def _norm_call(kernel, x, w, b, r, plain=False):
+    """The wrapper (or its plain version) as a tuple of outputs."""
+    if kernel == "rmsnorm":
+        return ((tnorm.rmsnorm_reference if plain else tnorm.rmsnorm)(
+            x, w, 1e-5),)
+    if kernel == "rmsnorm_res":
+        if plain:
+            return tnorm.rmsnorm_res_reference(x, r, w, 1e-5)
+        return tnorm.rmsnorm(x, w, 1e-5, residual=r)
+    return ((tnorm.layernorm_reference if plain else tnorm.layernorm)(
+        x, w, b, 1e-5),)
+
+
+def _assert_norm_outputs(kernel, outs, refs):
+    assert_parity(outs[0], refs[0])
+    if kernel == "rmsnorm_res":
+        assert torch.equal(outs[1], refs[1])    # bf16(fp32 sum), exactly
+
+
+def _launches(kernel):
+    return (tnorm.LN_KERNEL if kernel == "layernorm"
+            else tnorm.KERNEL).launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rmsnorm", "layernorm", "rmsnorm_res"])
+def test_norm_wrappers_replay_under_cuda_graph_capture(cuda_device, kernel):
+    """A wrapper captured into a CUDA graph launches on the capture's
+    stream (one counted launch), and a replay normalises whatever x then
+    holds."""
+    x, w, b, r = _norm_operands(cuda_device, 16, 4096)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm-up off the capture
+        _norm_call(kernel, x, w, b, r)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _launches(kernel)
+    with torch.cuda.graph(graph):
+        outs = _norm_call(kernel, x, w, b, r)
+    assert _launches(kernel) == before + 1
+    new_x, _, _, new_r = _norm_operands(cuda_device, 16, 4096, seed=1)
+    x.copy_(new_x)
+    r.copy_(new_r)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_norm_outputs(kernel, outs,
+                         _norm_call(kernel, new_x, w, b, new_r, True))
+    assert _launches(kernel) == before + 1        # a replay is no launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rmsnorm", "layernorm", "rmsnorm_res"])
+def test_norm_wrappers_launch_on_the_current_side_stream(cuda_device,
+                                                         kernel):
+    """Under ``torch.cuda.stream(side)`` the kernel runs after the side
+    stream's earlier work: x is refilled there behind ~30 ms of spinning,
+    so a launch on any other stream would read the old x."""
+    x, w, b, r = _norm_operands(cuda_device, 8, 4096)
+    new_x = _norm_operands(cuda_device, 8, 4096, seed=1)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        x.copy_(new_x)
+        outs = _norm_call(kernel, x, w, b, r)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    _assert_norm_outputs(kernel, outs,
+                         _norm_call(kernel, new_x, w, b, r, True))
