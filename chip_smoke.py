@@ -25,40 +25,60 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    nothing waiting inside: the enqueue cost) and ``device_us`` (the
    kernels' durations per call from torch.profiler over 200 calls);
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
-   bf16 weights, 256 KV pages of 64 tokens): 8 greedy and 2 sampled
-   requests through ``FastGenScheduler``, with every kernel's launch
-   count read from a run that starts at zero;
-5. the same weights with the registry pinned to the plain versions:
-   ten teacher-forced serving steps of 3 requests (fresh prefill,
-   decode, and two mixed steps, one with a Q=1024 prefill chunk over
-   history), every segment's logits and greedy picks compared;
-6. FastGen serving of OPT-6.7B at full width and depth (its published
+   bf16 weights, 256 KV pages of 64 tokens) in the default serving
+   configuration (one CUDA graph per step key, the async chained decode,
+   prefix caching): 8 greedy and 2 sampled requests through
+   ``FastGenScheduler``, a warm-up pass that captures the graphs the
+   traffic needs, then a timed pass of the same traffic that must capture
+   nothing and replay a graph at every step, with every kernel's launch
+   count (counted per replay) held exactly to the segments of the keys it
+   dispatched; graph count, capture seconds and pool bytes; a third pass
+   in which every dispatch also runs its key's step body eagerly on the
+   same inputs before the key's graph replays (greedy tokens bit-equal
+   for every key the timed pass dispatched); four profiled decode steps;
+5. graph against eager at one decode key of that traffic: 20 eager steps
+   (the step body called directly) against 20 replays, host ms, device
+   ms and busy share;
+6. prefix caching at full width: one cold request with a 1024-token
+   prefix, then 7 warm requests sharing it (each must hit 1024 tokens),
+   warm against cold TTFT, the prefill tokens computed, the page audit
+   and exact launch counts; each warm request against the same request
+   after ``reset_prefix_cache()``: free-running (agreement reported, and
+   where it parts, the eager logits of the two picks within the logit
+   limit) and teacher-forced on the eager forward (greedy agreement
+   held to its floor);
+7. the same weights with the registry pinned to the plain versions:
+   ten teacher-forced serving steps of 3 requests on the eager forward
+   (fresh prefill, decode, and two mixed steps, one with a Q=1024 prefill
+   chunk over history, each segment its own ``put``), every segment's
+   logits and greedy picks compared;
+8. FastGen serving of OPT-6.7B at full width and depth (its published
    shape through ``opt_config_from_hf``: LayerNorm, learned positions,
    relu, biases; random seeded bf16 weights) over 256 int8 KV pages
-   (``kv_quantization="int8"``), the same traffic, with exact launch
-   counts: LayerNorm and the int8 paged kernel run, RMSNorm and the bf16
-   paged kernel do not;
-7. the OPT weights on the plain path, both paths over int8 pages, the
-   teacher-forced steps of phase 5, logits per segment compared; and the
+   (``kv_quantization="int8"``), as phase 4, with exact launch counts:
+   LayerNorm and the int8 paged kernel run, RMSNorm and the bf16 paged
+   kernel do not;
+9. the OPT weights on the plain path, both paths over int8 pages, the
+   teacher-forced steps of phase 7, logits per segment compared; and the
    kernel path over bf16 pages, for the greedy agreement of int8 pages
    with bf16 pages;
-8. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
-   the card from a seed, bf16 compute, micro-batch 2 x 2048 tokens,
-   gas 2, AdamW, WarmupDecayLR, clipping 1.0): 4 ``train_batch`` calls
-   through ``deepspeed_tpu_torch.initialize`` on one fixed seeded batch,
-   with every kernel's launch count read from a run that starts at zero;
-9. the training path with the flash kernels against the plain einsum
-   path from the same masters and micro-batch (loss and every leaf's
-   gradient), then the AdamW kernel against its plain version on those
-   gradients and the optimizer's state;
-10. the same training with Lion and ZeRO++ quantised weights (stage 3,
+10. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
+    the card from a seed, bf16 compute, micro-batch 2 x 2048 tokens,
+    gas 2, AdamW, WarmupDecayLR, clipping 1.0): 4 ``train_batch`` calls
+    through ``deepspeed_tpu_torch.initialize`` on one fixed seeded batch,
+    with every kernel's launch count read from a run that starts at zero;
+11. the training path with the flash kernels against the plain einsum
+    path from the same masters and micro-batch (loss and every leaf's
+    gradient), then the AdamW kernel against its plain version on those
+    gradients and the optimizer's state;
+12. the same training with Lion and ZeRO++ quantised weights (stage 3,
     ``zero_quantized_weights``): launch counts exact (Lion once per leaf
     per step, quantise and dequantise once per leaf of two or more
     dimensions per step), then the engine's quantised compute tree
     against the plain versions' bit for bit, and one micro-batch's loss
     on it against the unquantised bf16 cast;
-11. the same training with LAMB at stage 0, launch counts exact;
-12. a ``{"kernels": [...]}`` JSON line, the card line, and last the
+13. the same training with LAMB at stage 0, launch counts exact;
+14. a ``{"kernels": [...]}`` JSON line, the card line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or outside the repository, it exits non-zero before
@@ -1100,7 +1120,7 @@ def check_lamb(dev, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: serving at Llama-2-7B width
+# phases 4 to 9: serving (Llama-2-7B, then OPT-6.7B)
 # ---------------------------------------------------------------------------
 
 def build_engine(cfg, params, num_pages, implementations=None,
@@ -1143,132 +1163,197 @@ def randomize_norms_and_biases(params, seed):
     return params
 
 
-def serve(cfg, params, counters, card, model_type="llama",
-          kv_quantization="none"):
-    """10 requests through FastGenScheduler; returns the summary and the
-    launch counts of a run that starts at zero."""
-    import numpy as np
+def key_segments(key):
+    """The segments one dispatch of a step key runs, as (kind, S, Q, P):
+    kind "fresh" (flash) or "paged"; a mixed key runs its decode segment
+    and then its prefill segment."""
+    first = ("fresh" if key[3] else "paged",) + tuple(key[:3])
+    if key[4] == "mixed":
+        return [first, ("fresh" if key[8] else "paged",) + tuple(key[5:8])]
+    return [first]
+
+
+def segment_counts(cfg, dispatches) -> dict:
+    """Fresh, paged and split-KV segments of ``dispatches`` ({step key:
+    dispatches}): a paged segment whose folded rows (Q * H / K) take the
+    paged kernel's split-KV decode path with more than one split adds
+    one combine launch per layer."""
     import torch
-    from deepspeed_tpu_torch.inference.v2 import (FastGenScheduler,
-                                                  SamplingParams)
     from deepspeed_tpu_torch.ops import paged_attention as PA
-    engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
-                          kv_quantization=kv_quantization)
-    model = engine.model
-    kv_pool_bytes = model.kv_config.total_bytes()
-    log(f"{model_type} serving: {type(model).__name__}, implementations "
-        f"{model.implementations}, kv pages {model.kv_config.quantization}"
-        f", kv pool {kv_pool_bytes / 1e9:.2f} GB")
-    # paged segments whose folded rows (Q * H / K) take the paged kernel's
-    # split-KV decode path with more than one split, which adds one
-    # combine launch per layer
-    segments = {"fresh": 0, "paged": 0}
-    split_segments = [0]
     groups = cfg.num_heads // cfg.kv_heads
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    step_impl = model._step_impl
+    seg = {"fresh": 0, "paged": 0, "split_kv": 0}
+    for key, n in dispatches.items():
+        for kind, S, Q, P in key_segments(key):
+            seg[kind] += n
+            if kind == "paged" and Q * groups < PA.DECODE_ROWS and \
+                    PA.decode_splits(S, cfg.kv_heads, P, sms) > 1:
+                seg["split_kv"] += n
+    return seg
 
-    def counted(*a, fresh=False, **k):
-        # a = (params, kv, token_ids, q_lens, start_pos, page_table)
-        segments["fresh" if fresh else "paged"] += 1
-        S, Q = a[2].shape
-        if not fresh and Q * groups < PA.DECODE_ROWS and PA.decode_splits(
-                S, cfg.kv_heads, a[5].shape[1], sms) > 1:
-            split_segments[0] += 1
-        return step_impl(*a, fresh=fresh, **k)
 
-    model._step_impl = counted
-    rng = np.random.default_rng(SEED)
-    V = cfg.vocab_size
-
-    # warm-up (cuBLAS handles, allocator): one short request
-    warm = FastGenScheduler(engine, seed=SEED)
-    warm.submit(1000, rng.integers(0, V, 64), SamplingParams(max_new_tokens=2))
-    warm.run_to_completion()
-
-    sched = FastGenScheduler(engine, seed=SEED)
-    lens = rng.integers(128, 1025, 10)
-    reqs = {}
-    for uid, n in enumerate(lens):
-        sampled = uid >= 8
-        params_ = SamplingParams(max_new_tokens=64,
-                                 temperature=0.8 if sampled else 0.0,
-                                 top_p=0.9 if sampled else 1.0)
-        reqs[uid] = (rng.integers(0, V, int(n)), params_)
-    reset_launches(counters)
-    for s in segments:
-        segments[s] = 0
-    split_segments[0] = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    first_token = {}
-    generated = {uid: [] for uid in reqs}
-    steps = []
-    t0 = time.perf_counter()
-    for uid, (prompt, sp) in reqs.items():
-        sched.submit(uid, prompt, sp)
-
-    def on_token(uid, tok):
-        first_token.setdefault(uid, time.perf_counter() - t0)
-        generated[uid].append(tok)
-
-    while sched.has_work:
-        ts = time.perf_counter()
-        seg_before = dict(segments)
-        out = sched.step(on_token=on_token)
-        dt = time.perf_counter() - ts
-        fresh_segs = segments["fresh"] - seg_before["fresh"]
-        paged_segs = segments["paged"] - seg_before["paged"]
-        steps.append(dict(ms=dt * 1e3, tokens=len(out),
-                          scheduled=sched.last_step_scheduled,
-                          fresh=fresh_segs, paged=paged_segs))
-        if sched.last_step_scheduled == 0:
-            raise RuntimeError("serving stalled: nothing schedulable")
-    total_s = time.perf_counter() - t0
-    launches = read_launches(counters)
-    peak = torch.cuda.max_memory_allocated()
-
-    for uid, (prompt, sp) in reqs.items():
-        toks = generated[uid]
-        if len(toks) != sp.max_new_tokens:
-            raise RuntimeError(f"request {uid}: {len(toks)} tokens, "
-                               f"expected {sp.max_new_tokens}")
-        if not all(0 <= t < V for t in toks):
-            raise RuntimeError(f"request {uid}: token outside the vocab")
+def launch_checks(cfg, kv_quantization, launches, seg) -> dict:
+    """Exact launch counts of the serving kernels for the segments run:
+    the family's norm 2L+1 per segment, its page format's kernel L per
+    paged segment, flash L per fresh segment, combine L per split-KV
+    segment, every other kernel 0."""
     L = cfg.num_layers
-    n_seg = segments["fresh"] + segments["paged"]
-    # the family's norm and page kernels run, the other family's do not
+    n_seg = seg["fresh"] + seg["paged"]
     norm, other_norm = (("rmsnorm", "layernorm") if cfg.norm == "rmsnorm"
                         else ("layernorm", "rmsnorm"))
     paged, other_paged = (("paged_attention_int8", "paged_attention")
                           if kv_quantization == "int8"
                           else ("paged_attention", "paged_attention_int8"))
-    checks = {
+    return {
         norm: launches[norm] == (2 * L + 1) * n_seg,
-        paged: launches[paged] == L * segments["paged"]
-        and segments["paged"] > 0,
-        "flash_fwd": launches["flash_fwd"] == L * segments["fresh"]
-        and segments["fresh"] > 0,
+        paged: launches[paged] == L * seg["paged"],
+        "flash_fwd": launches["flash_fwd"] == L * seg["fresh"],
         "paged_attention_combine": launches["paged_attention_combine"]
-        == L * split_segments[0] and split_segments[0] > 0,
+        == L * seg["split_kv"],
         "idle kernels": all(launches[k] == 0 for k in (
             other_norm, other_paged, "rmsnorm_res", "flash_bwd",
             "fused_adamw", "fused_lion", "fused_lamb", "quantize",
-            "dequantize")),
-    }
+            "dequantize"))}
 
-    def kind(st):
-        if st["fresh"] + st["paged"] == 2:
-            return "mixed"          # decode segment + prefill segment
-        if st["fresh"]:
-            return "fresh"          # pure fresh prefill
-        return "decode" if st["scheduled"] == st["tokens"] else "prefill"
 
+def graph_report(model) -> dict:
+    """The model's captured graphs: how many, the host seconds their
+    captures took (an eager warm-up run each, then the capture), and the
+    bytes the shared graph pool holds (its segments in the caching
+    allocator's snapshot)."""
+    import torch
+    shared = model._graph_shared            # (pool, stream, generator)
+    pool_bytes = 0 if shared is None else sum(
+        seg["total_size"] for seg in torch.cuda.memory_snapshot()
+        if tuple(seg.get("segment_pool_id", ())) == tuple(shared[0]))
+    return dict(graphs=sum(g is not None for g in model._step_cache.values()),
+                capture_s=model.capture_seconds, pool_bytes=pool_bytes)
+
+
+def step_kind(key) -> str:
+    if key is None:
+        return "drain"            # dispatched nothing: tokens reach host
+    if key[4] == "mixed":
+        return "mixed"            # decode segment + prefill segment
+    if key[3]:
+        return "fresh"            # pure fresh prefill
+    return "decode" if key[1] == 1 else "prefill"
+
+
+def drive(engine, reqs, uid_base=0, record=False):
+    """Submit ``reqs`` ({uid: (prompt, SamplingParams)}) at once under
+    uids ``uid_base + uid`` and step a new FastGenScheduler until it is
+    done.  Returns ({uid: tokens}, {uid: TTFT s}, per-step records: host
+    ms, tokens delivered, rows scheduled and the key dispatched)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    model = engine.model
+    sched = FastGenScheduler(engine, seed=SEED)
+    first_token, generated, steps = {}, {uid: [] for uid in reqs}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid, (prompt, sp) in reqs.items():
+        sched.submit(uid_base + uid, prompt, sp)
+
+    def on_token(uid, tok):
+        first_token.setdefault(uid - uid_base, time.perf_counter() - t0)
+        generated[uid - uid_base].append(tok)
+
+    while sched.has_work:
+        before = dict(model.dispatch_counts) if record else None
+        ts = time.perf_counter()
+        out = sched.step(on_token=on_token)
+        dt = time.perf_counter() - ts
+        if record:
+            # one key a step; none for an async drain that dispatched
+            # nothing (the last tokens reaching the host)
+            keys = [k for k, n in model.dispatch_counts.items()
+                    if n != before.get(k, 0)]
+            if len(keys) > 1 or any(
+                    model.dispatch_counts[k] - before.get(k, 0) != 1
+                    for k in keys):
+                raise RuntimeError(f"one step dispatched {keys}")
+            steps.append(dict(ms=dt * 1e3, tokens=len(out),
+                              scheduled=(sched.last_step_scheduled
+                                         if keys else 0),
+                              key=keys[0] if keys else None))
+        if sched.last_step_scheduled == 0 and not out:
+            raise RuntimeError("serving stalled: nothing schedulable")
+    torch.cuda.synchronize()
+    for uid, (prompt, sp) in reqs.items():
+        toks = generated[uid]
+        if len(toks) != sp.max_new_tokens:
+            raise RuntimeError(f"request {uid}: {len(toks)} tokens, "
+                               f"expected {sp.max_new_tokens}")
+        if not all(0 <= t < engine.model.cfg.vocab_size for t in toks):
+            raise RuntimeError(f"request {uid}: token outside the vocab")
+    return generated, first_token, steps
+
+
+def serve(cfg, params, counters, card, model_type="llama",
+          kv_quantization="none"):
+    """10 requests through FastGenScheduler in the default serving
+    configuration (a CUDA graph per step key, the async chain, prefix
+    caching): a warm-up pass captures every key the traffic needs, the
+    prefix cache is reset, and a timed pass of the same traffic must
+    capture nothing and replay a graph at every step; launch counts of
+    the timed pass (counters set to 0 just before it) are held to the
+    segments its dispatched keys run.  Returns (summary, launches,
+    engine, the requests)."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
+                          kv_quantization=kv_quantization)
+    model = engine.model
+    kv_pool_bytes = model.kv_config.total_bytes()
+    sv = engine._config.serving
+    log(f"{model_type} serving: {type(model).__name__}, implementations "
+        f"{model.implementations}, kv pages {model.kv_config.quantization}"
+        f", kv pool {kv_pool_bytes / 1e9:.2f} GB, async_scheduling "
+        f"{sv.async_scheduling}, prefix_caching {sv.prefix_caching}")
+    rng = np.random.default_rng(SEED)
+    V = cfg.vocab_size
+    lens = rng.integers(128, 1025, 10)
+    reqs = {}
+    for uid, n in enumerate(lens):
+        sampled = uid >= 8
+        reqs[uid] = (rng.integers(0, V, int(n)), SamplingParams(
+            max_new_tokens=64, temperature=0.8 if sampled else 0.0,
+            top_p=0.9 if sampled else 1.0))
+
+    t = time.perf_counter()
+    drive(engine, reqs, uid_base=1000)        # the warm-up pass
+    warm = dict(graph_report(model), pass_s=time.perf_counter() - t)
+    engine.reset_prefix_cache()               # the timed pass starts cold
+    cached, capture_s = dict(model._step_cache), model.capture_seconds
+    dispatched = dict(model.dispatch_counts)
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    generated, first_token, steps = drive(engine, reqs, record=True)
+    total_s = time.perf_counter() - t0
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    dispatches = {k: n - dispatched.get(k, 0)
+                  for k, n in model.dispatch_counts.items()
+                  if n != dispatched.get(k, 0)}
+    if model._step_cache.keys() != cached.keys() \
+            or model.capture_seconds != capture_s:
+        raise RuntimeError("the timed pass captured a graph: "
+                           f"{set(model._step_cache) - set(cached)}")
+    if any(model._step_cache[k] is None for k in dispatches) \
+            or sum(dispatches.values()) != sum(st["key"] is not None
+                                               for st in steps):
+        raise RuntimeError("a timed serving step was not one graph replay")
+    seg = segment_counts(cfg, dispatches)
+    checks = launch_checks(cfg, kv_quantization, launches, seg)
+    checks["segments of every kind"] = all(seg.values())
     by_kind = {}
     for st in steps:
-        by_kind.setdefault(kind(st), []).append(st["ms"])
-    decode_steps = [st for st in steps if kind(st) == "decode"]
-    dec_tokens = sum(st["tokens"] for st in decode_steps)
+        by_kind.setdefault(step_kind(st["key"]), []).append(st["ms"])
+    decode_steps = [st for st in steps if step_kind(st["key"]) == "decode"]
+    dec_tokens = sum(st["scheduled"] for st in decode_steps)
     dec_s = sum(st["ms"] for st in decode_steps) / 1e3
     ttft = sorted(first_token.values())
     summary = dict(
@@ -1279,40 +1364,372 @@ def serve(cfg, params, counters, card, model_type="llama",
         ttft_ms_mean=1e3 * sum(ttft) / len(ttft),
         ttft_ms_max=1e3 * ttft[-1],
         decode_steps=len(decode_steps),
+        chained_steps=sum(st["key"] is not None and st["key"][4] == "chain"
+                          for st in steps),
         decode_tok_s=dec_tokens / dec_s if dec_s else None,
         decode_step_ms_mean=(1e3 * dec_s / len(decode_steps)
                              if decode_steps else None),
+        decode_step_ms_median=(statistics.median(
+            st["ms"] for st in decode_steps) if decode_steps else None),
         step_ms_mean=sum(st["ms"] for st in steps) / len(steps),
         step_ms_by_kind={k: dict(count=len(v), mean=sum(v) / len(v),
                                  total=sum(v))
                          for k, v in by_kind.items()},
         tokens_generated=sum(len(t) for t in generated.values()),
         max_memory_allocated_gb=peak / 1e9,
-        segments=dict(segments, split_kv=split_segments[0]),
-        launches=launches)
+        warm_up_pass=warm, timed_pass_captures=0,
+        keys_dispatched={repr(k): n for k, n in sorted(
+            dispatches.items(), key=repr)},
+        segments=seg, launches=launches)
     log(f"{model_type} serving:", json.dumps(summary))
-    log(f"segments: {segments}, launches: {launches}, checks: {checks}")
+    log(f"segments: {seg}, launches: {launches}, checks: {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"launch counts do not match the steps taken: "
                            f"{checks}")
-    profile_decode_steps(engine, reqs, model_type,
-                         summary["decode_step_ms_mean"])
-    return summary, launches
+    engine.reset_prefix_cache()
+    summary["replay_vs_eager"] = replay_vs_eager(engine, reqs, dispatches,
+                                                 model_type)
+    engine.reset_prefix_cache()
+    summary["decode_profile"] = profile_decode_steps(
+        engine, reqs, model_type, summary["decode_step_ms_median"])
+    return summary, launches, engine, reqs
+
+
+def replay_vs_eager(engine, reqs, timed, label):
+    """A third pass of the serving traffic in which every dispatch runs
+    twice on the same inputs: first its key's step body eagerly
+    (``model._call`` on a copy of the scheduler's generator), then the
+    key's own graph through ``model._dispatch`` (the static-buffer loads
+    of ``_input_specs``' order, the replay and the output clone).  Both
+    write the same KV positions from the same history, the replay last,
+    so the pass serves as the timed pass did.  The live greedy rows'
+    tokens must be bit-equal; the sampled rows (same generator state)
+    are reported.  Every key of the timed pass (``timed``) must be
+    checked, and the pass may capture nothing."""
+    import numpy as np
+    import torch
+    model = engine.model
+    dispatch = model._dispatch
+    captured = model.capture_seconds
+    by_kind, checked = {}, set()
+
+    def kind_of(key):
+        return key[4] if key[4] in ("chain", "mixed") else step_kind(key)
+
+    def compared(key, kv, generator, inputs):
+        if model._step_cache.get(key) is None:
+            raise RuntimeError(f"step key {key} has no graph to replay")
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
+             if isinstance(a, np.ndarray) else a for a in inputs]
+        gen = torch.Generator(device=model.device)
+        gen.set_state(generator.get_state())
+        ref = model._call(key, kv, gen, *t)
+        out = dispatch(key, kv, generator, inputs)
+        q_lens = {"sample": t[1], "chain": t[2]}.get(key[4])
+        if q_lens is None:                            # mixed: both segments
+            q_lens = torch.cat([t[1], t[5]])
+        n = q_lens.shape[0]                 # a mixed step pads past it
+        live, greedy = q_lens > 0, t[-3] <= 0
+        same = out[:n] == ref[:n]
+        row = by_kind.setdefault(kind_of(key), dict(
+            dispatches=0, greedy_rows=0, greedy_equal=0, sampled_rows=0,
+            sampled_equal=0))
+        row["dispatches"] += 1
+        for name, rows in (("greedy", live & greedy),
+                           ("sampled", live & ~greedy)):
+            row[f"{name}_rows"] += int(rows.sum())
+            row[f"{name}_equal"] += int((same & rows).sum())
+        checked.add(key)
+        return out
+
+    model._dispatch = compared
+    try:
+        drive(engine, reqs, uid_base=2000)
+    finally:
+        del model._dispatch
+    res = dict(model=label, by_kind=by_kind,
+               keys_checked=len(checked), timed_keys=len(timed),
+               greedy_bit_equal=all(r["greedy_equal"] == r["greedy_rows"]
+                                    for r in by_kind.values()))
+    log(f"{label} replay vs eager, every key:", json.dumps(res))
+    if model.capture_seconds != captured:
+        raise RuntimeError("the replay-vs-eager pass captured a graph")
+    if set(timed) - checked:
+        raise RuntimeError(f"keys of the timed pass not checked: "
+                           f"{set(timed) - checked}")
+    if not res["greedy_bit_equal"]:
+        raise RuntimeError(f"replayed greedy tokens differ from the eager "
+                           f"step body: {by_kind}")
+    return res
+
+
+def graph_vs_eager(engine, reqs, label, n_steps=20):
+    """At one decode key of the serving traffic (its 10 requests, their
+    prompts and sampling, all decoding, one token each): ``n_steps``
+    eager steps (``model._sample_step_impl``
+    called directly, the body a graph captures) against ``n_steps``
+    replays of the key's graph, over the same batch (each step writes
+    the same KV positions).  Host ms: a host clock around one step and
+    its synchronize; enqueue ms: until the call returns; device ms: the
+    kernels torch.profiler records, per step (for the replays, CUDA
+    events around each replay where the profiler records none).  The
+    serving phase's ``replay_vs_eager`` holds every key's tokens, this
+    one among them, against its eager body."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    from torch.profiler import ProfilerActivity, profile
+    model = engine.model
+    sched = FastGenScheduler(engine, seed=SEED)
+    params_ = []
+    for uid, (prompt, sp) in reqs.items():
+        params_.append(SamplingParams(max_new_tokens=n_steps + 8,
+                                      temperature=sp.temperature,
+                                      top_p=sp.top_p))
+        sched.submit(500 + uid, prompt, params_[-1])
+    while len(sched.step()) < len(reqs):     # until all of them decode
+        pass
+    # a decode batch at each sequence's next position, never committed:
+    # the scheduler's next step writes that position again before any
+    # step reads it
+    state = engine.state_manager
+    uids = [500 + uid for uid in reqs]
+    descs = [state.get_sequence(u) for u in uids]
+    batch = engine._build_batch(descs, [np.array([7], np.int32)] * len(uids))
+    kv = state.kv_cache.data
+    temps, top_ks, top_ps = engine._pad_sample_params(params_,
+                                                      batch.num_slots)
+    greedy = not bool((temps > 0).any())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    key = model._normalize_key(batch.shape_key) + ("sample", greedy)
+    tensors = model._batch_tensors(batch)
+    rows = [torch.from_numpy(a).cuda()
+            for a in model._sample_arrays(temps, top_ks, top_ps)]
+
+    def eager():
+        with torch.no_grad():
+            return model._sample_step_impl(model.params, kv, *tensors, gen,
+                                           *rows, fresh=False,
+                                           greedy_only=greedy)
+
+    def replay():
+        return model.sample_step(batch, kv, gen, temps, top_ks, top_ps,
+                                 greedy)
+
+    def measure(fn):
+        fn()
+        torch.cuda.synchronize()
+        host, enq, ev_ms = [], [], []
+        for _ in range(n_steps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()
+            fn()
+            e1.record()
+            enq.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+            ev_ms.append(e0.elapsed_time(e1))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                fn()
+            torch.cuda.synchronize()
+        n_kernels, by_kind = device_ms_by_kind(prof)
+        dev = sum(by_kind.values()) / n_steps
+        return dict(host_ms=statistics.median(host),
+                    host_ms_range=[min(host), max(host)],
+                    enqueue_ms=statistics.median(enq),
+                    event_ms=statistics.median(ev_ms),
+                    device_ms_profiler=dev,
+                    kernels_per_step_profiler=n_kernels / n_steps,
+                    busy_share=(dev if n_kernels else
+                                statistics.median(ev_ms))
+                    / statistics.median(host))
+
+    a = measure(eager)
+    b = measure(replay)
+    c = measure(eager)
+    d = measure(replay)
+    sched.run_to_completion()
+    res = dict(model=label, key=repr(key), steps=n_steps,
+               eager=[a, c], graph=[b, d])
+    log(f"{label} graph vs eager:", json.dumps(res))
+    return res
+
+
+def prefix_phase(engine, cfg, counters, card):
+    """Prefix caching at full width: chat traffic with a shared system
+    prompt.  One cold request (a 1024-token prefix + 128 tokens), then 7
+    warm requests (the same prefix + distinct suffixes of 64-384 tokens)
+    submitted together; 64 greedy tokens each.  A first pass of the same
+    traffic captures the graphs it needs; the cache is reset, and in the
+    measured pass each warm request must hit 1024 tokens and nothing may
+    be captured.  Warm against cold TTFT and the prefill tokens computed
+    are reported; the page accounting audit passes; launch counts of the
+    warm requests are exact.  Each warm request is then run alone after
+    ``reset_prefix_cache()`` (a free-running cold twin: its agreement
+    with the served tokens is reported) and, after another reset, on the
+    eager forward (``put``), teacher-forced with the served tokens: its
+    greedy agreement must reach GREEDY_AGREE_MIN, and where a twin first
+    parts from the served tokens, the eager logits of the two picks must
+    lie within LOGIT_REL_TOL of the largest logit (the top-2 margin
+    there, and its median over every position, are reported)."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    model = engine.model
+    rng = np.random.default_rng(SEED + 3)
+    V = cfg.vocab_size
+    prefix = rng.integers(0, V, 1024)
+    sp = SamplingParams(max_new_tokens=64)
+    cold = {0: (np.concatenate([prefix, rng.integers(0, V, 128)]), sp)}
+    suffixes = rng.integers(64, 385, 7)
+    warm = {i + 1: (np.concatenate([prefix, rng.integers(0, V, int(n))]), sp)
+            for i, n in enumerate(suffixes)}
+    hits = {}
+    match = engine.match_prefix
+
+    def recorded(uid, prompt):
+        hits[uid] = match(uid, prompt)
+        return hits[uid]
+
+    engine.match_prefix = recorded
+    try:
+        for base in (2000, 3000):           # capture pass, measured pass
+            engine.reset_prefix_cache()
+            capture_s = model.capture_seconds
+            _, cold_ttft, _ = drive(engine, cold, uid_base=base)
+            dispatched = dict(model.dispatch_counts)
+            reset_launches(counters)
+            warm_out, warm_ttft, steps = drive(engine, warm, uid_base=base,
+                                               record=True)
+            launches = read_launches(counters)
+            dispatches = {k: n - dispatched.get(k, 0)
+                          for k, n in model.dispatch_counts.items()
+                          if n != dispatched.get(k, 0)}
+            # one warm request alone, its prefix cached (the batch above
+            # pads 7 suffixes to 8 slots of the longest one's Q bucket)
+            _, alone_ttft, _ = drive(engine, {1: warm[1]},
+                                     uid_base=base + 500)
+            engine.state_manager.check_invariants()
+        if model.capture_seconds != capture_s:
+            raise RuntimeError("the measured prefix pass captured a graph")
+        twins = {}
+        for u in warm:                      # may capture single-slot keys
+            engine.reset_prefix_cache()
+            twins[u] = drive(engine, {u: warm[u]}, uid_base=5000)[0][u]
+    finally:
+        engine.match_prefix = match
+    seg = segment_counts(cfg, dispatches)
+    checks = launch_checks(cfg, "none", launches, seg)
+    parted = {u: next(t for t, (a, b) in enumerate(zip(warm_out[u], twins[u]))
+                      if a != b)
+              for u in warm if warm_out[u] != twins[u]}
+    agree, margins, witness = teacher_forced_agreement(
+        engine, warm, warm_out, uid_base=4000,
+        parted={u: (t, twins[u][t]) for u, t in parted.items()})
+    engine.state_manager.check_invariants()
+    warm_hits = [hits.get(3000 + u, 0) for u in warm]
+    res = dict(
+        card=card, model="llama", prefix_tokens=1024,
+        cold_prompt=len(cold[0][0]),
+        warm_suffixes=[int(n) for n in suffixes],
+        hit_tokens_cold=hits.get(3000, 0), hit_tokens_warm=warm_hits,
+        hit_tokens_twins=[hits.get(5000 + u, 0) for u in warm],
+        cold_ttft_ms=1e3 * cold_ttft[0],
+        warm_ttft_ms=[1e3 * warm_ttft[u] for u in warm],
+        warm_ttft_ms_mean=1e3 * float(np.mean([warm_ttft[u] for u in warm])),
+        warm_alone_ttft_ms=1e3 * alone_ttft[1],
+        prefill_tokens_computed_cold=len(cold[0][0]) - hits.get(3000, 0),
+        prefill_tokens_computed_warm=sum(len(p) for p, _ in warm.values())
+        - sum(warm_hits),
+        prefill_tokens_warm_without_cache=sum(len(p)
+                                              for p, _ in warm.values()),
+        warm_step_ms=[st["ms"] for st in steps[:3]],
+        greedy_agreement_vs_cold=agree, greedy_min=GREEDY_AGREE_MIN,
+        free_running_agreement_vs_cold=[
+            float(np.mean(np.equal(warm_out[u], twins[u]))) for u in warm],
+        first_parting=witness, top2_margin_median=float(np.median(margins)),
+        top2_margin_min=float(np.min(margins)), tol=LOGIT_REL_TOL,
+        steps=len(steps), keys_dispatched={repr(k): n for k, n in sorted(
+            dispatches.items(), key=repr)},
+        segments=seg, launches=launches, launch_checks=checks)
+    log("prefix caching at full width:", json.dumps(res))
+    if any(h != 1024 for h in warm_hits) or hits.get(3000, 0) \
+            or any(res["hit_tokens_twins"]):
+        raise RuntimeError(f"prefix hits {hits}: expected 0 cold and 1024 "
+                           f"for every warm request")
+    if min(agree) < GREEDY_AGREE_MIN:
+        raise RuntimeError(f"warm requests agree with their cold run on "
+                           f"{min(agree):.3f} of the tokens, below "
+                           f"{GREEDY_AGREE_MIN}")
+    wide = {u: w for u, w in witness.items() if w["pick_gap_rel"] > LOGIT_REL_TOL}
+    if wide:
+        raise RuntimeError(f"a cold twin parts from the served tokens at a "
+                           f"pick that is no near-tie: {wide}")
+    if not all(checks.values()):
+        raise RuntimeError(f"prefix phase launch counts: {checks}")
+    return res
+
+
+def teacher_forced_agreement(engine, reqs, served, uid_base, parted):
+    """Each request run again after ``reset_prefix_cache()`` on the eager
+    forward (``put``: its whole prompt, then its served tokens one at a
+    time, all requests together).  Returns the share of positions whose
+    greedy pick is the served token, per request; the top-2 logit margin
+    at every position; and for each request in ``parted`` ({uid:
+    (position, the other token)}) the eager logits there: the top-2
+    margin, the gap between the served and the other token, the largest
+    |logit| and the gap over it."""
+    import numpy as np
+    import torch
+    engine.reset_prefix_cache()
+    uids = [uid_base + u for u in reqs]
+    picks = {u: [] for u in reqs}
+    margins, witness = [], {}
+
+    def read(u, t, row):
+        top = torch.topk(row, 2).values
+        margins.append(float(top[0] - top[1]))
+        picks[u].append(int(row.argmax()))
+        if u in parted and parted[u][0] == t:
+            a, b = served[u][t], parted[u][1]
+            gap = float((row[a] - row[b]).abs())
+            big = float(row.abs().max())
+            witness[u] = dict(position=t, served=a, twin=b,
+                              top2_margin=margins[-1], pick_gap=gap,
+                              max_abs_logit=big, pick_gap_rel=gap / big)
+
+    for u, (prompt, _) in reqs.items():
+        read(u, 0, engine.put([uid_base + u], [prompt])[0])
+    for t in range(1, min(len(served[u]) for u in reqs)):
+        logits = engine.put(uids, [np.array([served[u][t - 1]], np.int32)
+                                   for u in reqs])
+        for row, u in enumerate(reqs):
+            read(u, t, logits[row])
+    for uid in uids:
+        engine.flush(uid)
+    agree = [float(np.mean(np.equal(picks[u], served[u][:len(picks[u])])))
+             for u in reqs]
+    return agree, margins, witness
 
 
 def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
-    """The serving step (``step_sample``) on the kernel path and on the
-    plain path, both over the same page encoding, teacher-forced with the
-    kernel path's tokens, every segment's logits compared.  The schedule
-    covers each segment kind the serving run takes: a fresh prefill
-    (flash), decode (paged, Q=1), a mixed step whose prefill segment is
-    fresh, and a mixed step whose prefill segment is a Q=1024-bucket
-    chunk over 1024 tokens of history (paged).  Over int8 pages a third
-    engine runs the kernel path over bf16 pages, and the greedy picks of
-    the two encodings are compared."""
+    """The serving forward on the kernel path and on the plain path,
+    both over the same page encoding, teacher-forced with the kernel
+    path's greedy picks, every segment's logits compared.  Each step runs
+    as the fused step runs its segments, one eager ``put`` each: the
+    decode rows, then the prefill rows.  The schedule covers each segment
+    kind the serving run takes: a fresh prefill (flash), decode (paged,
+    Q=1), a mixed step whose prefill segment is fresh, and a mixed step
+    whose prefill segment is a Q=1024-bucket chunk over 1024 tokens of
+    history (paged).  Over int8 pages a third engine runs the kernel path
+    over bf16 pages, and the greedy picks of the two encodings are
+    compared."""
     import numpy as np
     import torch
-    from deepspeed_tpu_torch.inference.v2 import SamplingParams
     kw = dict(num_pages=64, model_type=model_type)
     tol = LOGIT_REL_TOL if kv_quantization == "none" else INT8_LOGIT_REL_TOL
     engines = {"kernel": build_engine(cfg, params, **kw,
@@ -1323,18 +1740,16 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
     if kv_quantization != "none":
         engines["kernel, bf16 pages"] = build_engine(cfg, params, **kw)
     segments = {name: [] for name in engines}
-    for name, e in engines.items():
-        def capture(*a, _step=e.model._step_impl, _out=segments[name], **k):
-            # a = (params, kv, token_ids, q_lens, start_pos, page_table)
-            logits = _step(*a, **k)
-            live = a[3] > 0
-            kind = ("fresh" if k.get("fresh") else
-                    "decode" if a[2].shape[1] == 1 else
-                    f"chunk Q={a[2].shape[1]} history<="
-                    f"{int(a[4][live].max())}")
-            _out.append((kind, logits[live]))
-            return logits
-        e.model._step_impl = capture
+
+    def segment_kind(e, uids, feed):
+        seen = [e.state_manager.get_sequence(u).seen_tokens
+                if e.state_manager.get_sequence(u) else 0 for u in uids]
+        q = max(len(f) for f in feed)
+        if q == 1:
+            return "decode"
+        if not any(seen):
+            return "fresh"
+        return f"chunk Q={1 << (q - 1).bit_length()} history<={max(seen)}"
 
     rng = np.random.default_rng(SEED + 1)
     p0, p1, p2 = (rng.integers(0, cfg.vocab_size, n) for n in (700, 300, 2000))
@@ -1344,21 +1759,26 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
                 + [([0, 1, 2], [None, None, p2[:1024]]),
                    ([0, 1, 2], [None, None, p2[1024:]])]
                 + [([0, 1, 2], [None] * 3)] * 5)
-    gen = {name: torch.Generator(device="cuda").manual_seed(SEED)
-           for name in engines}
     mixed_steps = 0
     for uids, inputs in schedule:
         feed = [np.array([last[u]], np.int32) if x is None else x
                 for u, x in zip(uids, inputs)]
-        mixed_steps += (any(len(f) == 1 for f in feed)
-                        and any(len(f) > 1 for f in feed))
-        params_ = [SamplingParams()] * len(uids)
-        for name, e in engines.items():
-            toks, rows = e.step_sample(uids, feed, params_, gen[name])
-            if name == "kernel":
-                # teacher-force both paths with the kernel path's tokens
-                toks = toks.tolist()
-                last = {u: toks[r] for u, r in zip(uids, rows)}
+        dec = [i for i, f in enumerate(feed) if len(f) == 1]
+        pre = [i for i, f in enumerate(feed) if len(f) > 1]
+        mixed_steps += bool(dec and pre)
+        for group in (dec, pre):
+            if not group:
+                continue
+            g_uids = [uids[i] for i in group]
+            g_feed = [feed[i] for i in group]
+            for name, e in engines.items():
+                kind = segment_kind(e, g_uids, g_feed)
+                logits = e.put(g_uids, g_feed)
+                segments[name].append((kind, logits))
+                if name == "kernel":
+                    # teacher-force every path with the kernel path's picks
+                    picks = logits.argmax(-1).tolist()
+                    last.update(zip(g_uids, picks))
 
     worst, agree, total, kinds = 0.0, 0, 0, []
     for (kind, a), (kind_b, b) in zip(segments["kernel"], segments["plain"]):
@@ -1404,7 +1824,7 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
 
 
 # ---------------------------------------------------------------------------
-# phases 8 to 11: training at Llama-2-7B width, 8 layers
+# phases 10 to 13: training at Llama-2-7B width, 8 layers
 # ---------------------------------------------------------------------------
 
 def train(counters, card, path="training"):
@@ -1545,26 +1965,32 @@ def device_ms_by_kind(prof):
 def profile_decode_steps(engine, reqs, label, step_ms, n_steps=4):
     """After the counted run: the same requests again (new uids, 16 new
     tokens), stepped until every one decodes, then ``n_steps`` decode
-    steps under torch.profiler: device time per step by kernel kind, and
-    the device's busy share of the unprofiled decode step (``step_ms``,
-    from the counted run; the profiler stretches the host's share)."""
+    steps (graph replays of the timed pass's keys; the profiler records
+    the kernels inside a replay) under torch.profiler: device time per
+    step by kernel kind, and the device's busy share of the unprofiled
+    decode step (``step_ms``, from the counted run; the profiler
+    stretches the host's share)."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import (FastGenScheduler,
                                                   SamplingParams)
     from torch.profiler import ProfilerActivity, profile
     sched = FastGenScheduler(engine, seed=SEED)
-    for uid, (prompt, _) in reqs.items():
-        sched.submit(100 + uid, prompt, SamplingParams(max_new_tokens=16))
+    for uid, (prompt, sp) in reqs.items():
+        sched.submit(100 + uid, prompt, SamplingParams(
+            max_new_tokens=16, temperature=sp.temperature, top_p=sp.top_p))
     while len(sched.step()) < len(reqs):
         if not sched.has_work:
             raise RuntimeError("profiled serving run ended before decoding")
     torch.cuda.synchronize()
+    capture_s = engine.model.capture_seconds
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
             if len(sched.step()) != len(reqs):
                 raise RuntimeError("a profiled step was not a decode step")
         torch.cuda.synchronize()
+    if engine.model.capture_seconds != capture_s:
+        raise RuntimeError("a profiled decode step captured a graph")
     sched.run_to_completion()
     n_kernels, by_kind = device_ms_by_kind(prof)
     device_ms = sum(by_kind.values()) / n_steps
@@ -1840,12 +2266,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"Llama-2-7B params: {cfg.n_params() / 1e9:.2f} B, bf16 init "
         f"{time.perf_counter() - t:.1f} s")
-    _, llama_launches = serve(cfg, params, counters, card)
+    _, llama_launches, engine, reqs = serve(cfg, params, counters, card)
 
-    # phase 5
+    # phase 5: graph against eager at one decode key
+    graph_vs_eager(engine, reqs, "llama")
+
+    # phase 6: prefix caching at full width
+    prefix_phase(engine, cfg, counters, card)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 7
     plain_vs_kernel(cfg, params)
 
-    # phase 6: the Llama weights and caches go first
+    # phase 8: the Llama weights and caches go first
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1857,14 +2292,18 @@ def main() -> int:
     log(f"OPT-6.7B params: {opt_cfg.n_params() / 1e9:.2f} B, "
         f"{opt_cfg.num_layers} layers, bf16 init "
         f"{time.perf_counter() - t:.1f} s")
-    _, opt_launches = serve(opt_cfg, opt_params, counters, card,
-                            model_type="opt", kv_quantization="int8")
+    _, opt_launches, engine, _ = serve(opt_cfg, opt_params, counters, card,
+                                       model_type="opt",
+                                       kv_quantization="int8")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # phase 7
+    # phase 9
     plain_vs_kernel(opt_cfg, opt_params, model_type="opt",
                     kv_quantization="int8")
 
-    # phase 8: the serving weights and caches go first
+    # phase 10: the serving weights and caches go first
     del opt_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1872,10 +2311,10 @@ def main() -> int:
                         "serving_opt": opt_launches}
     engine, batch, launches_by_path["training"] = train(counters, card)
 
-    # phase 9
+    # phase 11
     train_kernel_vs_plain(engine, batch)
 
-    # phases 10 and 11: each engine goes before the next is built
+    # phases 12 and 13: each engine goes before the next is built
     for path in ("training_lion_qwz", "training_lamb"):
         del engine
         gc.collect()
@@ -1887,7 +2326,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 12
+    # phase 14
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)

@@ -1,12 +1,12 @@
 """Inference-v2 engine configuration.
 
 The subset of ``deepspeed_tpu/inference/v2/config.py`` the port reads.
-The serving path runs the JAX package's ``fused_step=True,
-on_device_sampling=True, async_scheduling=False, prefix_caching=False,
-speculative=False, tp_degree=1, keyed_sampling=False`` combination:
-:class:`ServingOptimizationConfig` carries those flags at exactly these
-values (another value raises, naming the ROADMAP item that brings it)
-and the one knob that varies, ``kv_quantization``.  The KV cache
+:class:`ServingOptimizationConfig` has the JAX package's defaults:
+``fused_step=True, on_device_sampling=True, async_scheduling=True,
+prefix_caching=True, speculative=False, tp_degree=1,
+keyed_sampling=False``.  ``async_scheduling``, ``prefix_caching`` and
+``kv_quantization`` vary; the other flags stay at these values (another
+value raises, naming the ROADMAP item that brings it).  The KV cache
 geometry is the model's ``kv_config``.
 """
 
@@ -24,10 +24,8 @@ class StateManagerConfig:
 
 # flag -> (the one value the port runs, ROADMAP Queue 1 item)
 _FIXED_SERVING_FLAGS = {
-    "fused_step": (True, "4 (the split, non-fused escape hatch)"),
-    "on_device_sampling": (True, "4 (host-side sampling)"),
-    "async_scheduling": (False, "7 (the async chained step)"),
-    "prefix_caching": (False, "6 (prefix caching)"),
+    "fused_step": (True, "4b (the split, non-fused escape hatch)"),
+    "on_device_sampling": (True, "4b (host-side sampling)"),
     "speculative": (False, "8 (speculative decoding)"),
     "tp_degree": (1, "13 (tensor-parallel serving)"),
     "keyed_sampling": (False, "3 (keyed sampling)"),
@@ -36,15 +34,21 @@ _FIXED_SERVING_FLAGS = {
 
 @dataclasses.dataclass
 class ServingOptimizationConfig:
-    """Serving-step knobs.  Only ``kv_quantization`` varies; the other
-    fields exist so a configuration written for the JAX package says
-    what it expects, and :meth:`validate` (run at construction and again
-    at engine build) raises ``NotImplementedError`` for a value the port
-    does not run."""
+    """Serving-step knobs.  The fixed fields exist so a configuration
+    written for the JAX package says what it expects, and
+    :meth:`validate` (run at construction and again at engine build)
+    raises ``NotImplementedError`` for a value the port does not run."""
     fused_step: bool = True
     on_device_sampling: bool = True
-    async_scheduling: bool = False
-    prefix_caching: bool = False
+    #: double-buffered scheduler: step k+1 (a chained decode step whose
+    #: tokens are gathered on the device) is dispatched before step k's
+    #: tokens are read, so tokens reach the host one step late
+    async_scheduling: bool = True
+    #: automatic prefix cache over the paged KV pool: full prompt pages
+    #: are shared across sequences and kept after they finish (LRU
+    #: eviction under pool pressure), so a warm prefix is not prefilled
+    #: again.  Fixed at engine build
+    prefix_caching: bool = True
     speculative: bool = False
     tp_degree: int = 1
     keyed_sampling: bool = False

@@ -3,26 +3,34 @@
 Counterpart of ``deepspeed_tpu/inference/v2/engine.py`` for the fused
 serving path: ``put(uids, tokens)`` runs ONE ragged forward returning
 last-token logits per sequence; ``step_sample`` runs forward + on-device
-sampling, so only int32 tokens cross device->host; ``query`` /
+sampling, so only int32 tokens cross device->host; ``step_decode_chained``
+gathers its input tokens on the device from the previous step's, so the
+scheduler's async chain never waits on the host; ``query`` /
 ``can_schedule`` expose KV and token occupancy to the scheduler;
+``match_prefix`` attaches a new sequence's cached prompt pages;
 ``flush(uid)`` frees sequence state.  A step mixing decode rows with
 prefill chunks runs as two segments ([S_d, 1] + [S_p, Q]) so decode
-rows never pad to the chunk width.  The engine builds the KV cache: fp
-pages, or int8 ``KVPages`` when ``serving.kv_quantization`` says so.
+rows never pad to the chunk width.  Each step key is one CUDA graph on
+the card (``model.py``); ``precompile`` captures a lattice of them
+before serving.  The engine builds the KV cache: fp pages, or int8
+``KVPages`` when ``serving.kv_quantization`` says so.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .config import RaggedInferenceEngineConfig
+from .lattice import enumerate_lattice_keys
 from .model import RaggedInferenceModel
 from .ragged import KVCacheConfig, StateManager, build_batch, placeholder
+from .ragged.batch import MIN_PAGES, MIN_SLOTS, _bucket
 from .sampling import SamplingParams
 
 
@@ -40,6 +48,66 @@ class SchedulingError(RuntimeError):
         self.result = result
 
 
+#: key classes ``lattice_keys(kinds=...)`` filters on: "prefill" = Q>1
+#: logits/sample keys (fresh variants included), "decode" = Q==1
+#: logits/sample keys, "chain" = the chained decode family, "spec" = the
+#: speculative families (not ported)
+LATTICE_KINDS = ("prefill", "decode", "chain", "spec")
+
+
+def lattice_kind_of(key: Tuple) -> str:
+    """Which :data:`LATTICE_KINDS` class one step key belongs to."""
+    kind = key[4] if len(key) > 4 else "logits"
+    if kind == "chain":
+        return "chain"
+    if kind in ("spec", "draft_spec", "draft_fill"):
+        return "spec"
+    if kind == "mixed":
+        return "prefill"  # a mixed key carries a prefill segment
+    return "prefill" if key[1] > 1 else "decode"
+
+
+def lattice_keys(max_prompt: int, max_new_tokens: int,
+                 max_concurrency: int, page_size: int,
+                 max_ragged_batch_size: int, has_fresh: bool,
+                 sampling: bool,
+                 kinds: Optional[Sequence[str]] = None) -> List[Tuple]:
+    """Every step key of the power-of-two bucket lattice for this
+    geometry: S over slot buckets up to ``max_concurrency``, Q over {1}
+    and the prompt buckets up to ``max_prompt``, P over the page buckets
+    up to ``max_prompt + max_new_tokens`` tokens.  ``kinds`` keeps a
+    subset of :data:`LATTICE_KINDS`.  The key families are
+    ``lattice.enumerate_lattice_keys``'s."""
+    if kinds is not None:
+        unknown = set(kinds) - set(LATTICE_KINDS)
+        if unknown:
+            raise ValueError(
+                f"unknown lattice kinds {sorted(unknown)} "
+                f"(expected a subset of {LATTICE_KINDS})")
+    s_vals, q_vals, p_vals = [], [1], []
+    s = _bucket(1, MIN_SLOTS)
+    while s <= _bucket(max_concurrency, MIN_SLOTS):
+        s_vals.append(s)
+        s *= 2
+    q = 2
+    while q <= _bucket(max_prompt):
+        q_vals.append(q)
+        q *= 2
+    total = max_prompt + max_new_tokens  # decode growth headroom
+    max_pages_needed = _bucket(-(-total // page_size), MIN_PAGES)
+    p = _bucket(1, MIN_PAGES)
+    while p <= max_pages_needed:
+        p_vals.append(p)
+        p *= 2
+    keys = enumerate_lattice_keys(
+        s_vals, q_vals, p_vals, page_size=page_size,
+        max_ragged_batch_size=max_ragged_batch_size,
+        has_fresh=has_fresh, sampling=sampling)
+    if kinds is not None:
+        keys = [k for k in keys if lattice_kind_of(k) in set(kinds)]
+    return keys
+
+
 class InferenceEngineV2:
     def __init__(self, model: RaggedInferenceModel,
                  config: Optional[RaggedInferenceEngineConfig] = None):
@@ -47,9 +115,13 @@ class InferenceEngineV2:
         self._config.serving.validate()
         self._model = model
         model.kv_config = self._resolve_kv_config(model)
+        # graphs captured for an earlier engine wrote that engine's cache
+        model.reset_steps()
         self._state = StateManager(
             model.kv_config, model.device,
-            max_tracked_sequences=self._config.state_manager.max_tracked_sequences)
+            max_tracked_sequences=(
+                self._config.state_manager.max_tracked_sequences),
+            prefix_caching=self._config.serving.prefix_caching)
 
     def _resolve_kv_config(self, model: RaggedInferenceModel) -> KVCacheConfig:
         """The cache the engine builds: the model's page geometry and
@@ -58,6 +130,78 @@ class InferenceEngineV2:
         an encoding, not geometry)."""
         quant = self._config.serving.kv_quantization or "none"
         return dataclasses.replace(model.kv_config, quantization=quant)
+
+    # -- the step lattice ----------------------------------------------------
+    def precompile(self, max_prompt: int, max_concurrency: int = 0,
+                   max_new_tokens: int = 256, strict: bool = False,
+                   sampling: bool = False) -> List[Tuple]:
+        """Capture the graphs of the bucket lattice this engine can hit
+        (``lattice_keys``) before serving, so no capture lands on the
+        request path: S up to ``max_concurrency`` (default: the state
+        manager's ``max_ragged_sequence_count``), Q up to ``max_prompt``,
+        P up to ``max_prompt + max_new_tokens`` tokens.  ``sampling``
+        adds the sample and chain keys (the scheduler's steps; the logits
+        keys serve ``forward``, which runs eagerly).  ``strict`` makes
+        any later key outside the set raise.  A failed capture raises.
+        Returns the keys."""
+        sm = self._config.state_manager
+        keys = lattice_keys(
+            max_prompt=max_prompt, max_new_tokens=max_new_tokens,
+            max_concurrency=max_concurrency or sm.max_ragged_sequence_count,
+            page_size=self._model.kv_config.page_size,
+            max_ragged_batch_size=sm.max_ragged_batch_size,
+            has_fresh=self._model._fresh_attention is not None,
+            sampling=sampling)
+        kv = self._state.kv_cache.data
+        for key in keys:
+            self._model.precompile_step(key, kv)
+        if strict:
+            self._model.strict_shapes = True
+        return keys
+
+    def compiled_keys(self, dispatched_only: bool = True) -> List[Tuple]:
+        """The step keys traffic dispatched (default), or every key in
+        the model's step cache."""
+        keys = (self._model.dispatch_counts if dispatched_only
+                else self._model._step_cache)
+        return sorted(keys, key=repr)
+
+    def precompile_keys(self, keys: Sequence[Sequence]) -> int:
+        """Capture an explicit key list (JSON-round-tripped lists
+        accepted).  A key this model cannot form (malformed, or of a kind
+        the port does not serve) warns and is skipped: a manifest from
+        another build must not block serving.  A failed capture raises.
+        Returns the number of keys captured."""
+        done = 0
+        for k in keys:
+            try:
+                key = self._model.check_key(k)
+            except ValueError as e:
+                warnings.warn(f"precompile_keys: skipping key {k!r} ({e})")
+                continue
+            self._model.precompile_step(key, self._state.kv_cache.data)
+            done += 1
+        return done
+
+    def predict_step_key(self, batch_uids: Sequence[int],
+                         batch_tokens: Sequence, suffix: tuple = ()
+                         ) -> tuple:
+        """The step key a single-geometry dispatch of this batch will
+        form, before admission (``build_batch``'s bucketing)."""
+        page = self._model.kv_config.page_size
+        pages, all_new = [], True
+        for uid, toks in zip(batch_uids, batch_tokens):
+            sd = self._state.get_sequence(uid)
+            seen = sd.seen_tokens if sd is not None else 0
+            cap = sd.allocated_capacity if sd is not None else 0
+            pages.append(max(cap, -(-(seen + len(toks)) // page)))
+            all_new = all_new and not seen
+        S = _bucket(len(batch_uids), MIN_SLOTS)
+        Q = _bucket(max(len(t) for t in batch_tokens))
+        P = _bucket(max(pages), MIN_PAGES)
+        fresh = (all_new and Q > 1
+                 and self._model._fresh_attention is not None)
+        return (S, Q, P, fresh) + tuple(suffix)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -126,10 +270,12 @@ class InferenceEngineV2:
             descs.append(sd)
         return descs
 
-    @staticmethod
-    def _commit_batch(descs) -> None:
+    def _commit_batch(self, descs) -> None:
+        """Commit the host bookkeeping (the token VALUES may still be on
+        their way from the device) and index newly full prompt pages."""
         for sd in descs:
             sd.post_forward()
+            self._state.index_prefix(sd)
 
     def _build_batch(self, descs, tokens):
         return build_batch(
@@ -202,6 +348,54 @@ class InferenceEngineV2:
                                                top_ks, top_ps, greedy_only)
         self._commit_batch(descs)
         return tokens, row_of_input
+
+    def step_decode_chained(self, batch_uids: Sequence[int],
+                            prev_tokens: torch.Tensor,
+                            gather_idx: Sequence[int],
+                            row_params: Sequence[SamplingParams],
+                            generator: torch.Generator) -> torch.Tensor:
+        """Decode step whose input tokens are gathered ON THE DEVICE from
+        the previous step's tokens (``prev_tokens``, possibly still being
+        computed): row i continues the sequence in row ``gather_idx[i]``
+        of the previous step's output.  No host sync on this path: the
+        async scheduler drains step k while step k+1 runs."""
+        placeholder_toks = [np.zeros(1, np.int32)] * len(batch_uids)
+        descs = self._admit_batch(batch_uids, placeholder_toks,
+                                  do_checks=False)
+        batch = self._build_batch(descs, placeholder_toks)
+        temps, top_ks, top_ps = self._pad_sample_params(
+            row_params, batch.num_slots)
+        greedy_only = not bool((temps > 0.0).any())
+        gather = np.zeros(batch.num_slots, np.int32)
+        gather[:len(batch_uids)] = np.asarray(gather_idx, np.int32)
+        tokens = self._model.chained_step(
+            batch, self._state.kv_cache.data, prev_tokens, gather,
+            generator, temps, top_ks, top_ps, greedy_only)
+        self._commit_batch(descs)
+        return tokens
+
+    # -- prefix caching ------------------------------------------------------
+    def match_prefix(self, uid: int, prompt: Sequence[int]) -> int:
+        """Attach the longest prefix-cache hit for a NEW sequence's
+        prompt: matched full pages join its block table read-only and
+        ``seen_tokens`` moves past them, so only the suffix is
+        prefilled.  Registers the prompt for indexing either way.
+        Returns the tokens served from the cache (0 on a miss, with
+        caching off, or for a started sequence)."""
+        if self._state.prefix_cache is None:
+            return 0
+        if (self._state.get_sequence(uid) is None
+                and self._state.n_tracked_sequences
+                >= self._config.state_manager.max_tracked_sequences):
+            return 0  # no sequence the manager cannot track
+        sd = self._state.get_or_create_sequence(uid)
+        return self._state.match_prefix(
+            sd, np.asarray(prompt, dtype=np.int32).reshape(-1))
+
+    def reset_prefix_cache(self) -> None:
+        """Drop every cache entry and return parked pages to the pool (a
+        cold start)."""
+        self._state.reset_prefix_cache()
 
     def flush(self, uid: int) -> None:
         self._state.flush_sequence(uid)

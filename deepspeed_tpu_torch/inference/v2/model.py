@@ -1,24 +1,33 @@
 """Ragged inference model over the shared transformer blocks.
 
 Counterpart of ``deepspeed_tpu/inference/v2/model.py``.  The JAX package
-compiles one program per batch bucket ``(S, Q, P)`` and donates the KV
-cache to it; here each step runs eagerly and writes the KV cache IN
-PLACE (``write_kv``'s indexed assignment into the cache tensor), so the
-step methods return only tokens or logits.  Attention, norm, embedding
-and unembedding come from the ``modules`` registry: on the card the
-hand-written kernels (a model they do not take raises), on the CPU or
-when named the plain versions.
+compiles one program per step key (``(S, Q, P, fresh)`` plus the step
+kind) and donates the KV cache to it.  Here each sampling step and each
+chained step of a key is ONE ``torch.cuda.CUDAGraph`` on the card,
+captured at the key's first use (or by ``precompile_step``) over static
+input buffers and replayed after the host copies each step's arrays into
+them; on the CPU the same key bookkeeping runs and the step body runs
+eagerly.  ``forward`` (logits only) runs eagerly everywhere.  The KV
+cache is written IN PLACE (``write_kv``'s indexed assignment into the
+cache tensor), so the steps return only tokens or logits.  Attention,
+norm, embedding and unembedding come from the ``modules`` registry: on
+the card the hand-written kernels (a model they do not take raises), on
+the CPU or when named the plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+import time
+from collections import Counter
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ...accelerator import DeviceLike, resolve_device
 from ...models import transformer as T
+from ...ops.kernel_loader import CountedGraph
 from ...ops.paged_attention import (KVLayer, rope_write_kv, token_positions,
                                     write_kv)
 from ...tree import tree_map
@@ -31,16 +40,102 @@ from .sampling import greedy, sample_dynamic
 OP_CLASSES = ("embedding", "norm", "ragged_attention",
               "fresh_prefill_attention", "unembed")
 
+_I32, _F32 = np.dtype(np.int32), np.dtype(np.float32)
+
+
+def _input_specs(key) -> List[Tuple[Tuple[int, ...], np.dtype]]:
+    """(shape, dtype) of each array a step of ``key`` takes after the
+    params and the KV cache, the generator left out (it stands before
+    the three sampling rows)."""
+    S, Q, P = key[:3]
+    kind = key[4]
+    batch = [((S, Q), _I32), ((S,), _I32), ((S,), _I32), ((S, P), _I32)]
+
+    def rows(n):
+        return [((n,), _F32), ((n,), _I32), ((n,), _F32)]
+
+    if kind == "sample":
+        return batch + rows(S)
+    if kind == "chain":  # prev tokens and the gather replace token ids
+        return [((key[5],), _I32), ((S,), _I32)] + batch[1:] + rows(S)
+    if kind == "mixed":
+        S_p, Q_p, P_p = key[5:8]
+        pre = [((S_p, Q_p), _I32), ((S_p,), _I32), ((S_p,), _I32),
+               ((S_p, P_p), _I32)]
+        return batch + pre + rows(S + S_p)
+    raise ValueError(f"no step graph for step key {key}")
+
+
+#: step kind -> the length of its keys
+_KEY_LENGTHS = {"sample": 6, "chain": 7, "mixed": 10}
+
+
+def _stochastic(key) -> bool:
+    return not key[-1]  # every sampling kind ends with greedy_only
+
+
+class _StepGraph:
+    """One step key on the card: static input tensors (outside the graph
+    pool), the counted graph captured over them, and the KV store it
+    writes.  ``run`` copies a step's arrays into the inputs and replays;
+    the tokens come back as a fresh tensor outside the pool, so a later
+    replay of another key (whose intermediates may share the pool's
+    memory) cannot overwrite them.  It holds no reference to its model
+    (the model's step cache holds it), so a dropped model frees its
+    graphs and their pool at once."""
+
+    def __init__(self, key, kv: KVLayer, device: torch.device,
+                 shared: tuple):
+        self.kv = kv
+        self.stochastic = _stochastic(key)
+        self.inputs = [torch.zeros(shape, dtype=getattr(torch, dt.name),
+                                   device=device)
+                       for shape, dt in _input_specs(key)]
+        pool, stream, self.generator = shared
+        self.graph = CountedGraph(
+            pool, self.generator if self.stochastic else None, stream)
+
+    def load(self, inputs: Sequence) -> None:
+        for dst, src in zip(self.inputs, inputs):
+            if isinstance(src, np.ndarray):
+                src = torch.from_numpy(src)
+            dst.copy_(src, non_blocking=True)
+
+    def capture(self, body: Callable) -> None:
+        """Capture ``body(kv, generator, *inputs)``, the key's step."""
+        self.graph.capture(body, self.kv, self.generator, *self.inputs)
+
+    def run(self, kv: KVLayer, generator: torch.Generator,
+            inputs: Sequence) -> torch.Tensor:
+        if kv is not self.kv:
+            raise RuntimeError("this step graph was captured over another "
+                               "KV cache")
+        self.load(inputs)
+        if self.stochastic:
+            # the graph draws from the model's registered generator: start
+            # it at the caller's state and hand the advance back
+            self.generator.manual_seed(generator.initial_seed())
+            self.generator.set_offset(generator.get_offset())
+            self.graph.replay()
+            generator.set_offset(self.generator.get_offset())
+        else:
+            self.graph.replay()
+        return self.graph.output.clone()
+
 
 class RaggedInferenceModel:
-    """Eager ragged step over (params, kv cache, batch arrays).
+    """Ragged step over (params, kv cache, batch arrays), one CUDA graph
+    per step key on the card.
 
     ``device`` None means the GPU and raises without one; the tests pass
     ``"cpu"``.  ``implementations`` pins an op class to a named
     implementation (e.g. ``{"ragged_attention": "dense_gather"}``);
     unnamed classes take the registry's highest-priority implementation
     that supports this model and device, and on the card never a plain
-    version in a kernel's place (``NotImplementedError``)."""
+    version in a kernel's place (``NotImplementedError``).
+    ``strict_shapes`` (set by ``InferenceEngineV2.precompile(strict=True)``)
+    makes a step key outside the precompiled set raise instead of
+    capturing on the request path."""
 
     def __init__(self, cfg: T.TransformerConfig, params: Dict[str, Any],
                  kv_config: Optional[KVCacheConfig] = None,
@@ -76,34 +171,49 @@ class RaggedInferenceModel:
         self.kv_config = kv_config or KVCacheConfig(
             num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
             head_dim=cfg.dims_per_head, dtype=cfg.dtype)
-
-    # -- host -> device batch -----------------------------------------------
-    def _batch_tensors(self, batch: RaggedBatch):
-        dev = self.device
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in (batch.token_ids, batch.q_lens,
-                               batch.start_pos, batch.page_table))
+        self.strict_shapes = False
+        #: step key -> its captured graph (None on the CPU, where the
+        #: body runs eagerly): the keys this model can dispatch without
+        #: a capture
+        self._step_cache: Dict[tuple, Optional[_StepGraph]] = {}
+        #: every key traffic dispatched, and how often
+        self.dispatch_counts: Counter = Counter()
+        #: host seconds spent capturing graphs (warm-up run included)
+        self.capture_seconds = 0.0
+        #: (pool, capture stream, generator) every graph shares
+        self._graph_shared: Optional[tuple] = None
 
     # -- public steps --------------------------------------------------------
     @torch.no_grad()
     def forward(self, batch: RaggedBatch, kv: KVLayer) -> torch.Tensor:
-        """One ragged forward; returns fp32 logits [S, V] (rows past the
-        live sequences are padding).  ``kv`` is updated in place."""
+        """One ragged forward, eager; returns fp32 logits [S, V] (rows
+        past the live sequences are padding).  ``kv`` is updated in
+        place."""
         return self._step_impl(self.params, kv, *self._batch_tensors(batch),
                                fresh=batch.fresh)
 
-    @torch.no_grad()
+    @staticmethod
+    def _batch_arrays(batch: RaggedBatch) -> tuple:
+        return (batch.token_ids, batch.q_lens, batch.start_pos,
+                batch.page_table)
+
+    @staticmethod
+    def _sample_arrays(temps, top_ks, top_ps) -> tuple:
+        return (np.asarray(temps, np.float32), np.asarray(top_ks, np.int32),
+                np.asarray(top_ps, np.float32))
+
     def sample_step(self, batch: RaggedBatch, kv: KVLayer,
                     generator: torch.Generator, temps, top_ks, top_ps,
                     greedy_only: bool) -> torch.Tensor:
         """Forward + on-device sampling: returns tokens [S] int32 on the
-        device (the [S, V] logits never leave it)."""
-        return self._sample_step_impl(
-            self.params, kv, *self._batch_tensors(batch), generator,
-            *self._sample_args(temps, top_ks, top_ps),
-            fresh=batch.fresh, greedy_only=greedy_only)
+        device (the [S, V] logits never leave it).  ``greedy_only`` is
+        part of the key: an all-greedy step is plain argmax and never
+        touches the generator."""
+        key = self._normalize_key(batch.shape_key) + (
+            "sample", bool(greedy_only))
+        return self._dispatch(key, kv, generator, self._batch_arrays(batch)
+                              + self._sample_arrays(temps, top_ks, top_ps))
 
-    @torch.no_grad()
     def sample_step_mixed(self, dec_batch: RaggedBatch,
                           pre_batch: RaggedBatch, kv: KVLayer,
                           generator: torch.Generator, temps, top_ks, top_ps,
@@ -112,20 +222,153 @@ class RaggedInferenceModel:
         segment [S_d, 1] and a prefill segment [S_p, Q], the KV cache
         written by the first before the second reads it.  Tokens come
         back as [S_d + S_p] (padded to the slot bucket) in segment
-        order; the sampling arrays follow that order."""
-        if dec_batch.max_q != 1:
+        order; the sampling arrays follow that order.  Keyed on both
+        geometries and ``greedy_only``."""
+        dk = self._normalize_key(dec_batch.shape_key)
+        pk = self._normalize_key(pre_batch.shape_key)
+        if dk[1] != 1:
             raise ValueError("segment A of a mixed step is decode-only")
-        return self._mixed_sample_step_impl(
-            self.params, kv, *self._batch_tensors(dec_batch),
-            *self._batch_tensors(pre_batch), generator,
-            *self._sample_args(temps, top_ks, top_ps),
-            fresh_p=pre_batch.fresh, greedy_only=greedy_only)
+        key = dk + ("mixed",) + pk + (bool(greedy_only),)
+        return self._dispatch(key, kv, generator,
+                              self._batch_arrays(dec_batch)
+                              + self._batch_arrays(pre_batch)
+                              + self._sample_arrays(temps, top_ks, top_ps))
 
-    def _sample_args(self, temps, top_ks, top_ps):
+    def chained_step(self, batch: RaggedBatch, kv: KVLayer,
+                     prev_tokens: torch.Tensor, gather_idx,
+                     generator: torch.Generator, temps, top_ks, top_ps,
+                     greedy_only: bool) -> torch.Tensor:
+        """Decode step whose token ids are gathered ON THE DEVICE from
+        the previous step's token array (``prev_tokens``, possibly still
+        being computed): row i continues the sequence in row
+        ``gather_idx[i]`` of the previous step.  No host sync on this
+        path.  Keyed on the previous token array's length."""
+        S, Q, P, _ = self._normalize_key(batch.shape_key)
+        if Q != 1:
+            raise ValueError("chained steps are decode-only")
+        key = (S, 1, P, False, "chain", int(prev_tokens.shape[0]),
+               bool(greedy_only))
+        return self._dispatch(
+            key, kv, generator,
+            (prev_tokens, np.asarray(gather_idx, np.int32))
+            + self._batch_arrays(batch)[1:]
+            + self._sample_arrays(temps, top_ks, top_ps))
+
+    # -- step keys and graphs (JAX: _get_step, precompile_step) -------------
+    def _normalize_key(self, key) -> tuple:
+        """A model without a fresh-prefill path (ALiBi) ignores the fresh
+        flag: key it as the False variant."""
+        if self._fresh_attention is None and len(key) > 3 and key[3]:
+            key = key[:3] + (False,) + tuple(key[4:])
+        return tuple(key)
+
+    def check_key(self, key) -> tuple:
+        """``key`` (any sequence) as a normalised step key; ValueError
+        when it is none this model forms: a wrong length or field, or a
+        kind the port does not run (the speculative kinds, item 8)."""
+        key = tuple(key)
+        kind = key[4] if len(key) > 4 else None
+        if len(key) != (4 if kind is None else _KEY_LENGTHS.get(str(kind))):
+            raise ValueError(f"not a step key of this model: {key!r}")
+        dims = key[:3] + (key[5:8] if kind == "mixed" else ())
+        flags = (key[3],) + ((key[8],) if kind == "mixed" else ()) + (
+            (key[-1],) if kind else ())
+        if kind == "chain":
+            dims += (key[5],)
+        if not all(isinstance(d, (int, np.integer))
+                   and not isinstance(d, bool) and d > 0 for d in dims) \
+                or not all(isinstance(f, bool) for f in flags):
+            raise ValueError(f"not a step key of this model: {key!r}")
+        return self._normalize_key(key)
+
+    def _call(self, key, kv, generator, *inputs) -> torch.Tensor:
+        """The step body of ``key`` over tensors (eager)."""
+        kind = key[4]
+        if kind == "sample":
+            fn = functools.partial(self._sample_step_impl, fresh=key[3],
+                                   greedy_only=key[5])
+        elif kind == "chain":
+            fn = functools.partial(self._chained_step_impl,
+                                   greedy_only=key[6])
+        elif kind == "mixed":
+            fn = functools.partial(self._mixed_sample_step_impl,
+                                   fresh_p=key[8], greedy_only=key[9])
+        else:
+            raise ValueError(f"unknown step kind in key {key}")
+        with torch.no_grad():
+            return fn(self.params, kv, *inputs[:-3], generator, *inputs[-3:])
+
+    def _graph_resources(self) -> tuple:
+        """(pool, capture stream, generator) that every graph of this
+        model shares, made at the first capture: one memory pool, so 32
+        layers' intermediates are not held once per key; one capture
+        stream, as cuBLAS keeps a workspace for each stream it has run
+        on; one generator that the stochastic graphs register, started
+        at the caller's generator state at each replay
+        (``_StepGraph.run``)."""
+        if self._graph_shared is None:
+            self._graph_shared = (torch.cuda.graph_pool_handle(),
+                                  torch.cuda.Stream(device=self.device),
+                                  torch.Generator(device=self.device))
+        return self._graph_shared
+
+    def _new_step(self, key, kv: KVLayer, inputs=None):
+        """The step cache entry of a key first seen: on the card a graph
+        captured over ``inputs`` (the first step's arrays; zeros when
+        precompiling), on the CPU None."""
+        if self.device.type == "cpu":
+            return None
+        t = time.perf_counter()
+        graph = _StepGraph(key, kv, self.device, self._graph_resources())
+        if inputs is not None:
+            graph.load(inputs)
+        graph.capture(functools.partial(self._call, key))
+        self.capture_seconds += time.perf_counter() - t
+        return graph
+
+    def _dispatch(self, key, kv: KVLayer, generator: torch.Generator,
+                  inputs: Sequence) -> torch.Tensor:
+        """Run one step of ``key`` (JAX: ``_get_step`` and the call of
+        what it returns): replay its graph (captured here at the key's
+        first use), or on the CPU its body eagerly."""
+        graph = self._step_cache.get(key, False)
+        if graph is False:
+            if self.strict_shapes:
+                raise RuntimeError(
+                    f"batch bucket {key} (S, Q, P, fresh[, kind, ...]) was "
+                    "not precompiled: serving would capture its CUDA graph "
+                    "on the request path.  Widen InferenceEngineV2."
+                    "precompile(...) (sampling=True covers the sample and "
+                    "chain steps) or disable strict_shapes.")
+            graph = self._step_cache[key] = self._new_step(key, kv, inputs)
+        self.dispatch_counts[key] += 1
+        if graph is None:
+            return self._call(key, kv, generator, *(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                if isinstance(a, np.ndarray) else a for a in inputs))
+        return graph.run(kv, generator, inputs)
+
+    def precompile_step(self, key: tuple, kv: KVLayer) -> None:
+        """Capture one step key's graph before serving (JAX: AOT-compile
+        it).  A logits key ``(S, Q, P, fresh)`` serves ``forward``, which
+        runs eagerly: it is recorded and nothing is captured."""
+        key = self.check_key(key)
+        if key in self._step_cache:
+            return
+        self._step_cache[key] = (self._new_step(key, kv) if len(key) > 4
+                                 else None)
+
+    def reset_steps(self) -> None:
+        """Drop every captured graph and the key bookkeeping (the model
+        now serves another KV cache)."""
+        self._step_cache.clear()
+        self.dispatch_counts.clear()
+        self.strict_shapes = False
+
+    def _batch_tensors(self, batch: RaggedBatch):
         dev = self.device
-        return (torch.as_tensor(np.asarray(temps, np.float32), device=dev),
-                torch.as_tensor(np.asarray(top_ks, np.int32), device=dev),
-                torch.as_tensor(np.asarray(top_ps, np.float32), device=dev))
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in self._batch_arrays(batch))
 
     def _lm_head(self, params) -> torch.Tensor:
         cfg = self.cfg
@@ -180,6 +423,17 @@ class RaggedInferenceModel:
                                  page_table, fresh=fresh)
         return self._sample_tokens(logits, generator, temps, top_ks, top_ps,
                                    greedy_only)
+
+    def _chained_step_impl(self, params, kv, prev_tokens, gather_idx,
+                           q_lens, start_pos, page_table, generator, temps,
+                           top_ks, top_ps, greedy_only: bool = False):
+        """Decode step whose token ids are gathered on the device from
+        the previous step's tokens (the row mapping is host-known)."""
+        token_ids = prev_tokens[gather_idx.long()][:, None]       # [S, 1]
+        return self._sample_step_impl(params, kv, token_ids, q_lens,
+                                      start_pos, page_table, generator,
+                                      temps, top_ks, top_ps, fresh=False,
+                                      greedy_only=greedy_only)
 
     def _mixed_sample_step_impl(self, params, kv, d_tok, d_ql, d_sp, d_pt,
                                 p_tok, p_ql, p_sp, p_pt, generator, temps,

@@ -24,7 +24,7 @@ class _Impl:
     name: str
     priority: int
     supports: Callable[[Any, torch.device], bool]
-    factory: Callable[[Any], Callable]
+    factory: Callable[[Any, torch.device], Callable]
 
 
 _REGISTRY: Dict[str, List[_Impl]] = {}
@@ -32,8 +32,8 @@ _REGISTRY: Dict[str, List[_Impl]] = {}
 
 def register(op_class: str, name: str, priority: int = 0,
              supports: Optional[Callable[[Any, torch.device], bool]] = None):
-    """Decorator: register ``factory(cfg) -> callable`` under an op
-    class."""
+    """Decorator: register ``factory(cfg, device) -> callable`` under an
+    op class (the factory runs once, at model build)."""
     def deco(factory):
         impls = _REGISTRY.setdefault(op_class, [])
         if any(i.name == name for i in impls):
@@ -87,7 +87,7 @@ def instantiate(op_class: str, cfg: Any, device: torch.device,
                 name: Optional[str] = None) -> Callable:
     chosen = resolve(op_class, cfg, device, name)
     return next(i for i in _REGISTRY[op_class]
-                if i.name == chosen).factory(cfg)
+                if i.name == chosen).factory(cfg, device)
 
 
 # ---------------------------------------------------------------------------
@@ -108,20 +108,22 @@ def _cuda_attention(cfg, device) -> bool:
     return _cuda_bf16(cfg, device) and cfg.dims_per_head == _head_dim()
 
 
-def _alibi_for(cfg):
+def _alibi_for(cfg, device):
+    """The ALiBi slopes as a device tensor, made once at model build (a
+    copy per call would be a host-to-device copy inside every step)."""
     if getattr(cfg, "pos_emb", None) != "alibi":
         return None
     from ...models.transformer import alibi_slopes
-    return alibi_slopes(cfg.num_heads)
+    return torch.from_numpy(alibi_slopes(cfg.num_heads)).to(device)
 
 
 @register("ragged_attention", "cuda_paged", priority=10,
           supports=_cuda_attention)
-def _cuda_paged(cfg):
+def _cuda_paged(cfg, device):
     """Any-Q ragged paged attention through ``csrc/paged_attention.cu``,
     over fp pages or int8 ``KVPages``."""
     from ...ops.paged_attention import paged_decode_attention
-    slopes = _alibi_for(cfg)
+    slopes = _alibi_for(cfg, device)
     window = cfg.sliding_window
 
     def attn(q, kv_layer, page_table, start_pos, q_lens):
@@ -131,10 +133,10 @@ def _cuda_paged(cfg):
 
 
 @register("ragged_attention", "dense_gather", priority=0)
-def _dense_gather(cfg):
+def _dense_gather(cfg, device):
     """Plain paged attention (gather the pages, dense masked softmax)."""
     from ...ops.paged_attention import paged_attention
-    slopes = _alibi_for(cfg)
+    slopes = _alibi_for(cfg, device)
     window = cfg.sliding_window
 
     def attn(q, kv_layer, page_table, start_pos, q_lens):
@@ -150,7 +152,7 @@ def _no_alibi(cfg, device) -> bool:
 
 
 def _fresh(flash):
-    def make(cfg):
+    def make(cfg, device):
         window = cfg.sliding_window
 
         def attn(q, k_rot, v):
@@ -166,26 +168,26 @@ def _fresh(flash):
 @register("fresh_prefill_attention", "cuda_flash", priority=10,
           supports=lambda cfg, dev: _no_alibi(cfg, dev)
           and _cuda_attention(cfg, dev))
-def _cuda_flash(cfg):
+def _cuda_flash(cfg, device):
     """Pure-prefill bucket: every slot's context IS its new tokens, so
     attention runs ``csrc/flash_fwd.cu`` over [S, H, Q, D] with causal
     (+ sliding window) block bounds — no page gather."""
     from ...ops.flash_attention import flash_attention
-    return _fresh(flash_attention)(cfg)
+    return _fresh(flash_attention)(cfg, device)
 
 
 @register("fresh_prefill_attention", "mha_reference", priority=0,
           supports=_no_alibi)
-def _fresh_reference(cfg):
+def _fresh_reference(cfg, device):
     from ...ops.flash_attention import mha_reference
-    return _fresh(mha_reference)(cfg)
+    return _fresh(mha_reference)(cfg, device)
 
 
 # norm implementations share the (params, x) -> y calling convention
 @register("norm", "cuda_rmsnorm", priority=10,
           supports=lambda cfg, dev: _cuda_bf16(cfg, dev)
           and cfg.norm == "rmsnorm")
-def _cuda_norm(cfg):
+def _cuda_norm(cfg, device):
     from ...ops.normalization import rmsnorm
     eps = cfg.norm_eps
     return lambda p, x: rmsnorm(x, p["scale"], eps)
@@ -194,27 +196,27 @@ def _cuda_norm(cfg):
 @register("norm", "cuda_layernorm", priority=10,
           supports=lambda cfg, dev: _cuda_bf16(cfg, dev)
           and cfg.norm == "layernorm")
-def _cuda_layernorm(cfg):
+def _cuda_layernorm(cfg, device):
     from ...ops.normalization import layernorm
     eps = cfg.norm_eps
     return lambda p, x: layernorm(x, p["scale"], p["bias"], eps)
 
 
 @register("norm", "plain", priority=0)
-def _plain_norm(cfg):
+def _plain_norm(cfg, device):
     from ...models import transformer as T
     return lambda p, x: T._norm_apply(cfg, p, x)
 
 
 @register("embedding", "ragged_embedding", priority=0)
-def _embedding(cfg):
+def _embedding(cfg, device):
     def embed(table, token_ids):
         return table[token_ids]
     return embed
 
 
 @register("unembed", "last_token_gather", priority=0)
-def _unembed(cfg):
+def _unembed(cfg, device):
     from ...ops.paged_attention import gather_last
 
     def unembed(x, q_lens, lm_head):

@@ -16,7 +16,7 @@ attention and logits.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +53,12 @@ class RaggedBatch:
     @property
     def max_q(self) -> int:
         return self.token_ids.shape[1]
+
+    @property
+    def shape_key(self) -> Tuple[int, int, int, bool]:
+        """(S, Q, P, fresh): the bucket a step over this batch runs in."""
+        return (self.token_ids.shape[0], self.token_ids.shape[1],
+                self.page_table.shape[1], self.fresh)
 
 
 def build_batch(seqs: Sequence[SequenceDescriptor],

@@ -66,7 +66,9 @@ class KVCacheConfig:
 
 
 class BlockedKVCache:
-    """Device cache tensor (or ``KVPages`` pair) + host page allocator."""
+    """Device cache tensor (or ``KVPages`` pair) + host page allocator.
+    Pages are shared by index, so an int8 page's codes and scales are
+    shared together."""
 
     def __init__(self, cfg: KVCacheConfig, device: torch.device):
         self.cfg = cfg
@@ -86,7 +88,3 @@ class BlockedKVCache:
 
     def reserve(self, num_pages: int):
         return self.allocator.allocate(num_pages)
-
-    def release(self, pages) -> None:
-        if len(pages):
-            self.allocator.free(pages)

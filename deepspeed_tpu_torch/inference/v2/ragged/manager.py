@@ -1,26 +1,36 @@
 """Persistent state manager: tracked sequences + blocked KV cache.
 
-Counterpart of ``deepspeed_tpu/inference/v2/ragged/manager.py`` for the
-slice without prefix caching, tiers, offload or export/import: pages are
-allocated as sequences grow and returned when they are flushed.
+Counterpart of ``deepspeed_tpu/inference/v2/ragged/manager.py`` without
+tiers, offload or export/import.  The manager owns the
+:class:`PrefixCache` and is the one place pages leave a block table, so
+every release is shared-page aware: a page returns to the free list only
+when its last sharer drops it AND the prefix cache no longer keeps it.
+``free_pages`` counts free-list pages plus parked ones: the cache is the
+otherwise idle pool, reclaimed LRU under allocation pressure.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from collections import Counter
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .kv_cache import BlockedKVCache, KVCacheConfig
+from .prefix_cache import PrefixCache
 from .sequence import SequenceDescriptor
 
 
 class StateManager:
     def __init__(self, kv_config: KVCacheConfig, device: torch.device,
-                 max_tracked_sequences: int = 2048):
+                 max_tracked_sequences: int = 2048,
+                 prefix_caching: bool = True):
         self.kv_config = kv_config
         self.max_tracked_sequences = max_tracked_sequences
         self.kv_cache = BlockedKVCache(kv_config, device)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(kv_config.page_size) if prefix_caching else None)
         self._seqs: Dict[int, SequenceDescriptor] = {}
 
     @property
@@ -29,7 +39,12 @@ class StateManager:
 
     @property
     def free_pages(self) -> int:
-        return self.kv_cache.free_pages
+        """Schedulable pages: the free list plus cache-parked pages
+        (reclaimed on demand by ``ensure_free``)."""
+        free = self.kv_cache.free_pages
+        if self.prefix_cache is not None:
+            free += self.kv_cache.allocator.parked_pages
+        return free
 
     def get_sequence(self, uid: int) -> Optional[SequenceDescriptor]:
         return self._seqs.get(uid)
@@ -44,10 +59,96 @@ class StateManager:
             self._seqs[uid] = sd
         return sd
 
+    # -- shared-page-aware release ------------------------------------------
+    def _release_pages(self, pages: List[int]) -> None:
+        """Drop one table reference from each page.  A page whose last
+        sharer left is PARKED while the prefix cache indexes it and goes
+        back to the free list otherwise."""
+        if not pages:
+            return
+        alloc = self.kv_cache.allocator
+        zeroed = alloc.decref(pages)
+        if not zeroed:
+            return
+        if self.prefix_cache is None:
+            alloc.reclaim(zeroed)
+            return
+        reclaim = []
+        for p in zeroed:
+            if self.prefix_cache.contains_page(p):
+                self.prefix_cache.touch_page(p)  # in use until now
+            else:
+                reclaim.append(p)
+        if reclaim:
+            alloc.reclaim(reclaim)
+
+    def ensure_free(self, num_pages: int) -> None:
+        """Make the free list hold ``num_pages`` by LRU-evicting parked
+        prefix-cache pages if needed."""
+        alloc = self.kv_cache.allocator
+        deficit = num_pages - alloc.free_pages
+        if deficit <= 0 or self.prefix_cache is None:
+            return
+        evicted = self.prefix_cache.evict(deficit, alloc.is_parked)
+        if evicted:
+            alloc.reclaim(evicted)
+
+    # -- prefix cache -------------------------------------------------------
+    def match_prefix(self, sd: SequenceDescriptor,
+                     prompt: np.ndarray) -> int:
+        """Attach the longest cached prefix of ``prompt`` to a FRESH
+        sequence: full pages only, leaving at least one suffix token to
+        prefill (the step needs last-token logits).  Registers the prompt
+        for indexing either way.  Returns the tokens attached."""
+        if self.prefix_cache is None or sd.seen_tokens or sd.pages:
+            return 0  # a started sequence keeps its registration
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        sd.prompt_tokens = prompt
+        page = self.kv_config.page_size
+        max_pages = (len(prompt) - 1) // page
+        if max_pages <= 0:
+            return 0
+        pages, digest = self.prefix_cache.match(prompt, max_pages)
+        if not pages:
+            return 0
+        self.kv_cache.allocator.add_ref(pages)
+        sd.pages = [int(p) for p in pages]
+        sd.seen_tokens = len(pages) * page
+        sd.indexed_pages = len(pages)
+        sd.last_digest = digest
+        return sd.seen_tokens
+
+    def index_prefix(self, sd: SequenceDescriptor) -> None:
+        """Index the newly committed FULL prompt pages (after each
+        commit).  Pages past the prompt are never indexed, so the page a
+        chained decode step writes past a stop token is never a cache
+        page."""
+        if self.prefix_cache is None or sd.prompt_tokens is None:
+            return
+        page = self.kv_config.page_size
+        full = min(sd.seen_tokens, len(sd.prompt_tokens)) // page
+        for i in range(sd.indexed_pages, full):
+            digest = self.prefix_cache.chain(
+                sd.last_digest, sd.prompt_tokens[i * page:(i + 1) * page])
+            self.prefix_cache.insert(digest, sd.pages[i])
+            sd.last_digest = digest
+            sd.indexed_pages = i + 1
+
+    def reset_prefix_cache(self) -> None:
+        """Drop the whole index and reclaim its parked pages (a cold
+        start; live sequences' pages free at their flush)."""
+        if self.prefix_cache is None:
+            return
+        alloc = self.kv_cache.allocator
+        parked = [p for p in self.prefix_cache.clear() if alloc.is_parked(p)]
+        if parked:
+            alloc.reclaim(parked)
+
+    # -- lifecycle ----------------------------------------------------------
     def flush_sequence(self, uid: int) -> None:
         sd = self._seqs.pop(uid, None)
         if sd is not None:
-            self.kv_cache.release(sd.pages)
+            self._release_pages(sd.pages)
 
     def pages_needed(self, sd: SequenceDescriptor, n_new_tokens: int) -> int:
         """Extra pages required to hold ``n_new_tokens`` more tokens."""
@@ -58,21 +159,45 @@ class StateManager:
     def allocate_for(self, sd: SequenceDescriptor, n_new_tokens: int) -> None:
         extra = self.pages_needed(sd, n_new_tokens)
         if extra:
+            self.ensure_free(extra)
             sd.extend_pages(self.kv_cache.reserve(extra))
 
     def check_invariants(self) -> None:
-        """Every block-table page is allocated exactly once and
-        ``free + referenced == total``."""
+        """Page-accounting audit: every block-table reference is backed
+        by exactly one allocator reference, ``free + live + parked ==
+        total``, and every parked page is still prefix-cache indexed.
+        Raises RuntimeError on a violation (the scheduler runs it after
+        every step under ``DS_KV_DEBUG=1``)."""
         alloc = self.kv_cache.allocator
-        refs = [p for sd in self._seqs.values() for p in sd.pages]
-        if len(set(refs)) != len(refs):
-            raise RuntimeError("KV invariant: a page is in two block tables")
-        for p in refs:
+        alloc.audit()
+        refs = Counter(p for sd in self._seqs.values() for p in sd.pages)
+        for p, n in refs.items():
             if not alloc.is_allocated(p):
                 raise RuntimeError(
                     f"KV invariant: page {p} is in a block table but on "
                     "the free list")
-        if alloc.free_pages + len(refs) != alloc.total_pages:
+            if alloc.ref_count(p) != n:
+                raise RuntimeError(
+                    f"KV invariant: page {p} has allocator refcount "
+                    f"{alloc.ref_count(p)} but appears in {n} block "
+                    "tables")
+        live, parked = alloc.live_pages, alloc.parked_pages
+        if live != len(refs):
             raise RuntimeError(
-                f"KV invariant: free({alloc.free_pages}) + "
-                f"referenced({len(refs)}) != total({alloc.total_pages})")
+                f"KV invariant: allocator sees {live} live pages, block "
+                f"tables reference {len(refs)}")
+        if alloc.free_pages + live + parked != alloc.total_pages:
+            raise RuntimeError(
+                f"KV invariant: free({alloc.free_pages}) + live({live}) "
+                f"+ cached({parked}) != total({alloc.total_pages})")
+        if parked:
+            if self.prefix_cache is None:
+                raise RuntimeError(
+                    f"KV invariant: {parked} parked pages with prefix "
+                    "caching off")
+            indexed = set(self.prefix_cache.pages())
+            for p in alloc.parked_page_ids():
+                if int(p) not in indexed:
+                    raise RuntimeError(
+                        f"KV invariant: parked page {int(p)} is not "
+                        "prefix-cache indexed (leaked)")

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -13,10 +13,20 @@ class SequenceDescriptor:
     uid: int
     #: tokens whose KV is already committed to the cache
     seen_tokens: int = 0
-    #: KV pages in this sequence's block table, in order
+    #: KV pages in this sequence's block table, in order; full prompt
+    #: pages may be SHARED with other sequences (allocator refcounts)
     pages: List[int] = dataclasses.field(default_factory=list)
     #: tokens in flight in the current forward (pre_forward..post_forward)
     in_flight_tokens: int = 0
+    #: the full prompt, registered at admission under prefix caching: the
+    #: indexer hashes full prompt pages from it (generated tokens are
+    #: never indexed: under the async chain their values reach the host
+    #: a step late)
+    prompt_tokens: Optional[np.ndarray] = None
+    #: leading full pages the prefix indexer has walked
+    indexed_pages: int = 0
+    #: the page-hash chain's cursor at ``indexed_pages``
+    last_digest: bytes = b""
 
     @property
     def allocated_capacity(self) -> int:

@@ -4,7 +4,10 @@ Counterpart of ``deepspeed_tpu/inference/v2/sampling.py``.  The filter
 (temperature, top-k, top-p) is deterministic and matches the JAX one;
 the categorical draw takes its randomness from an explicit
 ``torch.Generator``, so sampled tokens differ from ``jax.random``'s and
-are compared by distribution only.
+are compared by distribution only.  The draw is ``torch.multinomial``'s
+own one-sample path written out (exponential noise, argmax of p / q):
+the same numbers from the same generator, without the host checks that
+``multinomial`` syncs on, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -65,5 +68,6 @@ def sample_dynamic(logits: torch.Tensor, generator: torch.Generator,
     l, greedy_tok, is_greedy = _filter_rows(logits, temperature, top_k,
                                             top_p)
     probs = torch.softmax(l, dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    sampled = torch.argmax(probs / q, dim=-1)
     return torch.where(is_greedy, greedy_tok, sampled.to(torch.int32))

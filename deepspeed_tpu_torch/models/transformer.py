@@ -226,8 +226,9 @@ def rope_table(cfg: TransformerConfig, positions: torch.Tensor
     d -= d % 2
     exps = -torch.arange(0, d, 2, dtype=torch.float32,
                          device=positions.device) / d
-    freqs = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # theta as a Python number: no host-to-device copy per call, which a
+    # CUDA graph's capture refuses
+    freqs = torch.pow(float(cfg.rope_theta), exps)
     angles = positions[..., None].float() * freqs          # [S, Q, d/2]
     return torch.sin(angles), torch.cos(angles)
 

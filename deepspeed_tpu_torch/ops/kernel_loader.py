@@ -13,6 +13,11 @@ A launch is on the host's critical path (a serving decode step makes
 loads, and the stream handle is read raw from PyTorch's current stream,
 never cached.
 
+Launch counts count kernels that ran.  A CUDA graph's capture enqueues
+each kernel once and runs none, and its replays run them all without
+calling a wrapper: :class:`CountedGraph` takes back what its capture
+counted and adds it again at every replay.
+
 Nothing is compiled or loaded when a module is imported: the CPU tests
 import every module on a machine with no ``nvcc``.
 """
@@ -24,8 +29,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,6 +77,7 @@ class CudaKernel:
         self._bound: Dict[str, Callable[..., int]] = {}
         #: compiler output of the last build in this process
         self.build_log = ""
+        _KERNELS.add(self)
 
     @property
     def launches(self) -> int:
@@ -158,6 +165,88 @@ class CudaKernel:
     def reset_counts(self) -> None:
         self.launches_by_fn = dict.fromkeys(self.functions, 0)
         self.copies = 0
+
+
+#: every CudaKernel of the process, for :class:`CountedGraph`
+_KERNELS: "weakref.WeakSet[CudaKernel]" = weakref.WeakSet()
+
+#: launch counts of every kernel: (kernel, {entry point: launches})
+Launches = List[Tuple[CudaKernel, Dict[str, int]]]
+
+
+def snapshot_launches() -> Launches:
+    return [(k, dict(k.launches_by_fn)) for k in _KERNELS]
+
+
+def launches_since(before: Launches) -> Launches:
+    """The launches counted since ``before`` (its kernels only)."""
+    out = []
+    for k, counts in before:
+        delta = {fn: k.launches_by_fn[fn] - n for fn, n in counts.items()
+                 if k.launches_by_fn[fn] != n}
+        if delta:
+            out.append((k, delta))
+    return out
+
+
+def restore_launches(before: Launches) -> None:
+    for k, counts in before:
+        k.launches_by_fn.update(counts)
+
+
+def add_launches(delta: Launches) -> None:
+    for k, counts in delta:
+        for fn, n in counts.items():
+            k.launches_by_fn[fn] += n
+
+
+class CountedGraph:
+    """A ``torch.cuda.CUDAGraph`` whose replays count kernel launches.
+
+    :meth:`capture` runs ``fn(*args)`` once eagerly on the capture
+    stream (``stream``, else a new one) first (cuBLAS workspaces, kernel modules and function
+    attributes are set up there, never inside a capture; those launches
+    ran and stay counted), then captures it into the graph, over
+    ``pool`` when given (a ``torch.cuda.graph_pool_handle()`` that
+    graphs share).  The launches the capture counted are taken back and
+    kept in :attr:`launches`; :meth:`replay` adds them every time it
+    runs the graph.  ``generator``, a CUDA ``torch.Generator``, is
+    registered with the graph: each replay draws new numbers from it and
+    advances its offset.  A failed capture raises; nothing falls back
+    to eager."""
+
+    def __init__(self, pool=None, generator=None, stream=None):
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool = pool
+        self.generator = generator
+        self.stream = stream
+        #: the launches one replay runs
+        self.launches: Launches = []
+        #: what ``fn`` returned inside the capture; every replay rewrites
+        #: it in place
+        self.output = None
+
+    def capture(self, fn, *args):
+        stream = self.stream if self.stream is not None \
+            else torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(*args)
+        torch.cuda.current_stream().wait_stream(stream)
+        if self.generator is not None:
+            self.graph.register_generator_state(self.generator)
+        before = snapshot_launches()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool, stream=stream):
+                self.output = fn(*args)
+            self.launches = launches_since(before)
+        finally:
+            restore_launches(before)
+        return self.output
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_launches(self.launches)
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[str]:

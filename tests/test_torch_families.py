@@ -332,23 +332,49 @@ def test_model_implementations_mirror_jax():
 
 def test_serving_config_fixes_the_reduced_flags():
     sv = T.ServingOptimizationConfig(kv_quantization="int8")
+    # the JAX package's defaults
+    jsv = J.ServingOptimizationConfig()
     assert (sv.fused_step, sv.on_device_sampling, sv.async_scheduling,
-            sv.prefix_caching, sv.speculative, sv.tp_degree,
-            sv.keyed_sampling) == (True, True, False, False, False, 1, False)
+            sv.prefix_caching) == (
+        jsv.fused_step, jsv.on_device_sampling, jsv.async_scheduling,
+        jsv.prefix_caching) == (True, True, True, True)
+    assert (sv.speculative, sv.tp_degree, sv.keyed_sampling) == (
+        False, 1, False)
     for flag, value, item in [("fused_step", False, "item 4"),
                               ("on_device_sampling", False, "item 4"),
-                              ("async_scheduling", True, "item 7"),
-                              ("prefix_caching", True, "item 6"),
                               ("speculative", True, "item 8"),
                               ("tp_degree", 2, "item 13"),
                               ("keyed_sampling", True, "item 3")]:
         with pytest.raises(NotImplementedError, match=item):
             T.ServingOptimizationConfig(**{flag: value})
     # set after construction: the engine's build still refuses it
-    sv.prefix_caching = True
+    sv.speculative = True
     _, tm = _models("opt")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         T.InferenceEngineV2(tm, T.RaggedInferenceEngineConfig(serving=sv))
+
+
+@pytest.mark.parametrize("prefix", [True, False])
+def test_prefix_caching_flag_reaches_the_engine(prefix):
+    _, tm = _models("opt")
+    eng = T.InferenceEngineV2(tm, T.RaggedInferenceEngineConfig(
+        serving=T.ServingOptimizationConfig(prefix_caching=prefix)))
+    assert (eng.state_manager.prefix_cache is not None) == prefix
+    assert eng.match_prefix(0, list(range(3 * PAGE))) == 0
+
+
+@pytest.mark.parametrize("async_scheduling", [True, False])
+def test_async_flag_sets_when_tokens_reach_the_host(async_scheduling):
+    """Under async_scheduling a step's tokens are delivered by the next
+    step (one step late), synchronously by the step itself."""
+    _, tm = _models("opt")
+    sv = T.ServingOptimizationConfig(async_scheduling=async_scheduling)
+    eng = T.InferenceEngineV2(tm, T.RaggedInferenceEngineConfig(serving=sv))
+    sched = T.FastGenScheduler(eng)
+    sched.submit(0, [1, 2, 3], T.SamplingParams(max_new_tokens=3))
+    first = sched.step()
+    assert first == ({} if async_scheduling else {0: first[0]})
+    assert len(sched.step()) == 1
 
 
 def _engine_config(quant, **kw):
@@ -488,6 +514,67 @@ def test_opt_greedy_tokens_identical_to_jax_on_int8_pages():
     assert shapes == fp_shapes                   # the knob changes no shape
     agree = np.mean([a == b for u in ref for a, b in zip(ref[u], fp_ref[u])])
     assert agree >= 0.75                         # the JAX suite's own floor
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_opt_default_config_matches_jax_step_by_step(quant, monkeypatch):
+    """ServingOptimizationConfig() defaults on both sides (async chain,
+    prefix caching) over fp and int8 pages: the same {uid: token} at every
+    step, the same prefix hits (a 40-token prefix: two full pages of 16,
+    shared by index, codes and scales alike), the page audit after every
+    step."""
+    monkeypatch.setenv("DS_KV_DEBUG", "1")
+    jcfg, tcfg = _configs("opt")
+    tree = _noisy_tree(jcfg, "opt")
+    kv = dict(num_layers=2, kv_heads=4, head_dim=16, page_size=SERVE_PAGE,
+              num_pages=SERVE_PAGES)
+    sm = dict(max_tracked_sequences=8, max_ragged_sequence_count=8,
+              max_ragged_batch_size=BUDGET)
+    jeng = J.InferenceEngineV2(
+        J.RaggedInferenceModel(
+            jcfg, jax.tree.map(jnp.asarray, tree),
+            kv_config=J.KVCacheConfig(dtype=jnp.float32, **kv)),
+        J.RaggedInferenceEngineConfig(
+            state_manager=J.StateManagerConfig(**sm),
+            serving=J.ServingOptimizationConfig(kv_quantization=quant)))
+    teng = T.InferenceEngineV2(
+        timpl.OPTInferenceModel(
+            tcfg, from_jax(tree, tcfg, device="cpu"), device="cpu",
+            kv_config=T.KVCacheConfig(dtype=torch.float32, **kv)),
+        T.RaggedInferenceEngineConfig(
+            state_manager=T.StateManagerConfig(**sm),
+            serving=T.ServingOptimizationConfig(kv_quantization=quant)))
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 128, 40)
+    prompts = [np.concatenate([shared, rng.integers(0, 128, 5)]),
+               rng.integers(0, 128, 50),
+               np.concatenate([shared, rng.integers(0, 128, 9)]),
+               rng.integers(0, 128, 20),
+               np.concatenate([shared, rng.integers(0, 128, 3)])]
+    new = [10, 6, 12, 8, 9]
+    jsched, tsched = J.FastGenScheduler(jeng), T.FastGenScheduler(teng)
+    for uid, (p, n) in enumerate(zip(prompts, new)):
+        jsched.submit(uid, p, J.SamplingParams(max_new_tokens=n))
+        tsched.submit(uid, p, T.SamplingParams(max_new_tokens=n))
+    hits = {"jax": {}, "port": {}}
+    for name, eng in (("jax", jeng), ("port", teng)):
+        def recorded(uid, prompt, _m=eng.match_prefix, _h=hits[name]):
+            _h[uid] = _m(uid, prompt)
+            return _h[uid]
+        eng.match_prefix = recorded
+    tokens = {}
+    while jsched.has_work or tsched.has_work:
+        jout, tout = jsched.step(), tsched.step()
+        assert tout == {u: int(t) for u, t in jout.items()}
+        for u, t in tout.items():
+            tokens.setdefault(u, []).append(t)
+    assert hits["port"] == hits["jax"]
+    assert [hits["port"][u] for u in (0, 2, 4)] == [0, 32, 32]
+    assert all(len(tokens[u]) == n for u, n in enumerate(new))
+    assert isinstance(teng.state_manager.kv_cache.data,
+                      KVPages) == (quant == "int8")
+    teng.state_manager.check_invariants()
+    assert teng.free_blocks == SERVE_PAGES
 
 
 # ---------------------------------------------------------------------------

@@ -1110,3 +1110,249 @@ def test_norm_wrappers_launch_on_the_current_side_stream(cuda_device,
     torch.cuda.synchronize()
     _assert_norm_outputs(kernel, outs,
                          _norm_call(kernel, new_x, w, b, r, True))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the serving kernels captured and replayed
+# ---------------------------------------------------------------------------
+
+def _paged_graph_inputs(dev, case, pages, seed):
+    S, Q, H, K, ctx, _, _ = PAGED_TILE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = S * ctx // 64
+    kv = torch.randn(n_pages + 1, 64, 2, K, 128, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    if pages == "int8":
+        kv = tpa.KVPages(*tpa.quantize_kv_blocks(kv))
+    table = (torch.randperm(n_pages, generator=g, device=dev) + 1).reshape(
+        S, ctx // 64).int()
+    start = torch.randint(0, ctx - Q + 1, (S,), generator=g, device=dev,
+                          dtype=torch.int32)
+    q = torch.randn(S, Q, H, 128, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    return q, kv, table, start
+
+
+def _refill(dst, src):
+    if isinstance(dst, tpa.KVPages):
+        dst.payload.copy_(src.payload)
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("case", ["rows8", "chunk_q1024"])
+def test_paged_wrapper_replays_a_captured_graph_on_new_inputs(
+        cuda_device, case, pages):
+    """The split-KV decode (rows8: split kernel + combine, its workspace
+    from the graph's pool) and the tensor-core tile (chunk_q1024),
+    captured once and replayed over new q, pages, table and start: equal
+    to an eager call on the new inputs, and each replay counts its
+    launches."""
+    from deepspeed_tpu_torch.ops.kernel_loader import CountedGraph
+    static = _paged_graph_inputs(cuda_device, case, pages, seed=1)
+    graph = CountedGraph()
+    before = dict(tpa.KERNEL.launches_by_fn)
+    out = graph.capture(tpa.paged_decode_attention, *static)
+    per_call = {fn: n - before[fn]
+                for fn, n in tpa.KERNEL.launches_by_fn.items()}
+    assert sum(per_call.values()) in (1, 2)      # the warm-up call ran
+    for seed in (2, 3):
+        new = _paged_graph_inputs(cuda_device, case, pages, seed)
+        for dst, src in zip(static, new):
+            _refill(dst, src)
+        counts = dict(tpa.KERNEL.launches_by_fn)
+        graph.replay()
+        assert {fn: n - counts[fn] for fn, n in
+                tpa.KERNEL.launches_by_fn.items()} == per_call
+        eager = tpa.paged_decode_attention(*new)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_flash_forward_replays_a_captured_graph_on_new_inputs(cuda_device):
+    from deepspeed_tpu_torch.ops.kernel_loader import CountedGraph
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def qkv():
+        return [torch.randn(2, 8, 300, 128, generator=g, device=cuda_device,
+                            dtype=torch.bfloat16) for _ in range(3)]
+
+    static = qkv()
+    graph = CountedGraph()
+    out = graph.capture(tfa.flash_attention, *static, True)
+    before = tfa.KERNEL.launches
+    for _ in range(2):
+        new = qkv()
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tfa.flash_attention(*new, True))
+    assert tfa.KERNEL.launches == before + 4    # 2 replays + 2 eager calls
+
+
+@pytest.mark.cuda
+def test_sampled_graph_draws_anew_each_replay_and_reseeds(cuda_device):
+    """A stochastic sampling graph over a registered generator: two
+    replays draw different tokens, and the generator re-seeded replays
+    the same draws again."""
+    from deepspeed_tpu_torch.inference.v2 import sampling
+    from deepspeed_tpu_torch.ops.kernel_loader import CountedGraph
+    dev = cuda_device
+    logits = torch.zeros(64, 1000, device=dev)          # uniform rows
+    temps = torch.ones(64, device=dev)
+    top_ks = torch.zeros(64, dtype=torch.int32, device=dev)
+    top_ps = torch.ones(64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    graph = CountedGraph(generator=gen)
+    out = graph.capture(sampling.sample_dynamic, logits, gen, temps, top_ks,
+                        top_ps)
+
+    def two_draws():
+        draws = []
+        for _ in range(2):
+            graph.replay()
+            draws.append(out.clone())
+        return draws
+
+    gen.manual_seed(11)
+    a, b = two_draws()
+    assert not torch.equal(a, b)
+    gen.manual_seed(11)
+    a2, b2 = two_draws()
+    assert torch.equal(a, a2) and torch.equal(b, b2)
+
+
+def _graph_llama(dev):
+    """The debug llama at head_dim 128 (2 heads of 128, one kv head),
+    bf16, so the kernels take it."""
+    from deepspeed_tpu_torch.inference import v2 as T
+    from deepspeed_tpu_torch.models.llama import llama_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = llama_config("debug", hidden_size=256, num_heads=2,
+                       num_kv_heads=1, intermediate_size=512,
+                       max_seq_len=512)
+    params = init_params(cfg, 0, device=dev)
+
+    def engine(**serving):
+        kv = T.KVCacheConfig(num_layers=cfg.num_layers, kv_heads=1,
+                             head_dim=128, page_size=16, num_pages=128)
+        return T.InferenceEngineV2(
+            T.RaggedInferenceModel(cfg, params, kv_config=kv, device=dev),
+            T.RaggedInferenceEngineConfig(
+                state_manager=T.StateManagerConfig(
+                    max_tracked_sequences=8, max_ragged_sequence_count=8,
+                    max_ragged_batch_size=128),
+                serving=T.ServingOptimizationConfig(**serving)))
+    return T, engine
+
+
+def _serve(T, eng, prompts, n_new=12, temperature=0.0, seed=0):
+    sched = T.FastGenScheduler(eng, seed=seed)
+    for uid, p in enumerate(prompts):
+        sched.submit(uid, p, T.SamplingParams(max_new_tokens=n_new,
+                                              temperature=temperature))
+    return sched.run_to_completion()
+
+
+def _graph_prompts():
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, 128, 40).tolist()
+    return [shared + rng.integers(0, 128, 5 + i).tolist() for i in range(3)] \
+        + [rng.integers(0, 128, n).tolist() for n in (70, 9)]
+
+
+@pytest.mark.cuda
+def test_graph_greedy_tokens_equal_eager_on_the_debug_llama(cuda_device):
+    """The default serving configuration (graphs, async chain, prefix
+    cache) against the same scheduler on a model whose steps run their
+    bodies eagerly: the same greedy tokens; every sampling and chained
+    step was a replay."""
+    T, engine = _graph_llama(cuda_device)
+    prompts = _graph_prompts()
+    eager = engine()
+    eager.model._new_step = lambda key, kv, inputs=None: None
+    ref = _serve(T, eager, prompts)
+    eng = engine()
+    out = _serve(T, eng, prompts)
+    assert out == ref
+    model = eng.model
+    kinds = {k[4] for k in model.dispatch_counts}
+    assert "chain" in kinds and "sample" in kinds
+    assert all(model._step_cache[k] is not None
+               for k in model.dispatch_counts)
+    eng.state_manager.check_invariants()
+
+
+@pytest.mark.cuda
+def test_scheduler_seed_reproduces_sampled_graph_tokens(cuda_device):
+    """Sampled requests through the graphs: one seed gives the same
+    tokens twice (replays advance the scheduler's generator), another
+    seed gives others."""
+    T, engine = _graph_llama(cuda_device)
+    prompts = _graph_prompts()
+    runs = [_serve(T, engine(), prompts, temperature=1.0, seed=s)
+            for s in (5, 5, 6)]
+    assert runs[0] == runs[1]
+    assert runs[0] != runs[2]
+
+
+@pytest.mark.cuda
+def test_strict_precompile_then_traffic_captures_nothing(cuda_device):
+    """precompile(strict=True) over a small lattice captures every
+    sample and chain key; traffic inside it then captures nothing, and a
+    key outside it raises."""
+    T, engine = _graph_llama(cuda_device)
+    eng = engine()
+    keys = eng.precompile(max_prompt=64, max_concurrency=4,
+                          max_new_tokens=16, strict=True, sampling=True)
+    model = eng.model
+    graphs = sum(g is not None for g in model._step_cache.values())
+    assert graphs == sum(len(k) > 4 for k in keys) > 0
+    captured = model.capture_seconds
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 128, n).tolist() for n in (30, 20, 12)]
+    out = _serve(T, eng, prompts, n_new=10)
+    assert all(len(t) == 10 for t in out.values())
+    assert model.capture_seconds == captured
+    assert sum(g is not None for g in model._step_cache.values()) == graphs
+    sched = T.FastGenScheduler(eng)
+    sched.submit(9, rng.integers(0, 128, 100).tolist())   # Q=128 > 64
+    with pytest.raises(RuntimeError, match="not precompiled"):
+        sched.step()
+
+
+@pytest.mark.cuda
+def test_a_dropped_engine_frees_its_graphs_without_the_collector(
+        cuda_device):
+    """Step graphs hold no reference to their model: with the garbage
+    collector off, dropping a served engine frees the model, its graphs
+    and its KV cache by reference counts alone."""
+    import gc
+    import weakref
+    T, engine = _graph_llama(cuda_device)
+    eng = engine()
+    _serve(T, eng, _graph_prompts())
+    model = eng.model
+    refs = [weakref.ref(model)] + [weakref.ref(g) for g in
+                                   model._step_cache.values()
+                                   if g is not None]
+    assert len(refs) > 1
+    kv_bytes = model.kv_config.total_bytes()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del eng, model
+        torch.cuda.synchronize()
+        assert [r() for r in refs] == [None] * len(refs)
+        assert held - torch.cuda.memory_allocated() >= kv_bytes
+    finally:
+        if collecting:
+            gc.enable()

@@ -2,9 +2,12 @@
 
 Both schedulers serve the same requests on the ``debug`` llama in fp32
 with the same weights (the JAX tree bridged through
-``checkpoint/from_jax.py``) and the slice's serving knobs (fused step,
-on-device sampling, synchronous, no prefix caching).  The bar for greedy
-requests is identical tokens per uid.  Sampled draws come from different
+``checkpoint/from_jax.py``): synchronous without prefix caching, and in
+the JAX package's default serving configuration (the async chain and
+prefix caching on), where a shared prompt prefix of two pages is served
+from the cache.  The bar for greedy requests is identical tokens per
+uid, and under the defaults the same tokens delivered at every step and
+the same prefix hits.  Sampled draws come from different
 generators (``jax.random`` vs ``torch.Generator``), so sampling is held
 to the deterministic filter (exact) and to its support / distribution.
 """
@@ -51,7 +54,10 @@ def _prompts():
     return [rng.integers(0, 128, n) for n in PROMPT_LENS]
 
 
-def _jax_engine(cfg, params):
+SYNC = dict(async_scheduling=False, prefix_caching=False)
+
+
+def _jax_engine(cfg, params, **serving):
     kv = J.KVCacheConfig(num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
                          head_dim=cfg.dims_per_head, page_size=PAGE,
                          num_pages=PAGES, dtype=jnp.float32)
@@ -59,21 +65,20 @@ def _jax_engine(cfg, params):
         state_manager=J.StateManagerConfig(
             max_tracked_sequences=8, max_ragged_sequence_count=8,
             max_ragged_batch_size=BUDGET),
-        serving=J.ServingOptimizationConfig(
-            fused_step=True, on_device_sampling=True,
-            async_scheduling=False, prefix_caching=False))
+        serving=J.ServingOptimizationConfig(**serving))
     return J.InferenceEngineV2(
         J.RaggedInferenceModel(cfg, params, kv_config=kv), econf)
 
 
-def _port_engine(cfg, params):
+def _port_engine(cfg, params, **serving):
     kv = T.KVCacheConfig(num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
                          head_dim=cfg.dims_per_head, page_size=PAGE,
                          num_pages=PAGES, dtype=torch.float32)
     econf = T.RaggedInferenceEngineConfig(
         state_manager=T.StateManagerConfig(
             max_tracked_sequences=8, max_ragged_sequence_count=8,
-            max_ragged_batch_size=BUDGET))
+            max_ragged_batch_size=BUDGET),
+        serving=T.ServingOptimizationConfig(**serving))
     return T.InferenceEngineV2(
         T.RaggedInferenceModel(cfg, params, kv_config=kv, device="cpu"),
         econf)
@@ -82,12 +87,12 @@ def _port_engine(cfg, params):
 def test_greedy_tokens_identical_to_jax_scheduler(weights):
     jcfg, jparams, tcfg, tparams = weights
     prompts = _prompts()
-    jsched = J.FastGenScheduler(_jax_engine(jcfg, jparams))
+    jsched = J.FastGenScheduler(_jax_engine(jcfg, jparams, **SYNC))
     for uid, (p, n) in enumerate(zip(prompts, NEW_TOKENS)):
         jsched.submit(uid, p, J.SamplingParams(max_new_tokens=n))
     ref = jsched.run_to_completion()
 
-    engine = _port_engine(tcfg, tparams)
+    engine = _port_engine(tcfg, tparams, **SYNC)
     model = engine.model
     steps = []                                  # (Q of each segment, fresh)
     mixed = []                                  # fresh_p of mixed steps
@@ -113,6 +118,88 @@ def test_greedy_tokens_identical_to_jax_scheduler(weights):
     assert True in mixed and False in mixed        # both mixed kinds
     engine.state_manager.check_invariants()
     assert engine.free_blocks == PAGES             # every page came back
+
+
+def _shared_prefix_traffic(rng, vocab=128):
+    """Two-page shared prefix (40 tokens at 16 a page) behind three
+    requests that arrive after the first has committed it, and cold
+    requests between them."""
+    shared = rng.integers(0, vocab, 40)
+    lens = [("shared", 5), ("cold", 50), ("shared", 9), ("cold", 20),
+            ("shared", 3), ("cold", 7)]
+    return [np.concatenate([shared, rng.integers(0, vocab, n)])
+            if kind == "shared" else rng.integers(0, vocab, n)
+            for kind, n in lens], [10, 6, 12, 8, 9, 5]
+
+
+def serve_in_lockstep(jsched, tsched, jeng, teng):
+    """Step both schedulers together: the same {uid: token} delivered at
+    every step and the same rows scheduled.  Returns (the port's tokens
+    per uid, the prefix-cache hits per uid of each engine)."""
+    hits = {"jax": {}, "port": {}}
+    for name, eng in (("jax", jeng), ("port", teng)):
+        match = eng.match_prefix
+
+        def recorded(uid, prompt, _m=match, _h=hits[name]):
+            _h[uid] = _m(uid, prompt)
+            return _h[uid]
+        eng.match_prefix = recorded
+    tokens, steps = {}, 0
+    while jsched.has_work or tsched.has_work:
+        jout, tout = jsched.step(), tsched.step()
+        assert tout == {u: int(t) for u, t in jout.items()}, steps
+        assert tsched.last_step_scheduled == jsched.last_step_scheduled
+        for u, t in tout.items():
+            tokens.setdefault(u, []).append(t)
+        steps += 1
+    return tokens, hits
+
+
+def test_default_config_matches_jax_step_by_step(weights, monkeypatch):
+    """Under ServingOptimizationConfig() on both sides (async chain,
+    prefix caching): each step delivers the JAX scheduler's {uid: token}
+    (one step late), the prefix hits per request are JAX's, and the KV
+    page audit passes after every step (DS_KV_DEBUG=1)."""
+    monkeypatch.setenv("DS_KV_DEBUG", "1")
+    jcfg, jparams, tcfg, tparams = weights
+    prompts, new = _shared_prefix_traffic(np.random.default_rng(4))
+    jeng, teng = _jax_engine(jcfg, jparams), _port_engine(tcfg, tparams)
+    assert teng._config.serving.async_scheduling
+    assert teng._config.serving.prefix_caching
+    jsched, tsched = J.FastGenScheduler(jeng), T.FastGenScheduler(teng)
+    for uid, (p, n) in enumerate(zip(prompts, new)):
+        jsched.submit(uid, p, J.SamplingParams(max_new_tokens=n))
+        tsched.submit(uid, p, T.SamplingParams(max_new_tokens=n))
+    tokens, hits = serve_in_lockstep(jsched, tsched, jeng, teng)
+    assert hits["port"] == hits["jax"]
+    assert [hits["port"][u] for u in (0, 2, 4)] == [0, 32, 32]
+    assert all(len(tokens[u]) == n for u, n in enumerate(new))
+    kinds = {k[4] for k in teng.compiled_keys()}
+    assert {"chain", "mixed"} <= kinds
+    teng.state_manager.check_invariants()
+    alloc = teng.state_manager.kv_cache.allocator
+    assert alloc.parked_pages > 0 and teng.free_blocks == PAGES
+    teng.reset_prefix_cache()
+    assert alloc.free_pages == PAGES
+
+
+def test_async_and_sync_serve_the_same_greedy_tokens(weights):
+    """Also past a stop token: the async chain steps a stopped request
+    once more before its token reaches the host, and drops that token."""
+    _, _, tcfg, tparams = weights
+    prompts = _prompts()
+
+    def serve(stop=None, **serving):
+        sched = T.FastGenScheduler(_port_engine(tcfg, tparams, **serving))
+        for uid, (p, n) in enumerate(zip(prompts, NEW_TOKENS)):
+            sched.submit(uid, p, T.SamplingParams(max_new_tokens=n,
+                                                  stop_token=stop))
+        return sched.run_to_completion()
+
+    stop = serve(**SYNC)[1][3]           # a token request 1 emits 4th
+    sync, default = serve(stop, **SYNC), serve(stop)
+    assert sync == default
+    assert len(sync[1]) <= 4 and sync[1][-1] == stop
 
 
 def _filter_inputs():
