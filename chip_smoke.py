@@ -47,6 +47,31 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    where it parts, the eager logits of the two picks within the logit
    limit) and teacher-forced on the eager forward (greedy agreement
    held to its floor);
+6a. preemption at full width: a second Llama-2-7B engine over the same
+   weights on 48 pages (1.61 GB) for 10 greedy requests of 768-1024
+   prompt tokens and 128 new tokens (about 180 pages of full context):
+   a warm-up and a timed pass as in phase 4 (the page audit after every
+   warm-up step), then a third pass of the same traffic; at least one
+   preemption and as many restores in each pass; every restored page
+   read back bit-equal to its host blob (warm-up pass); offload and
+   restore ms and GB/s, each synchronised, against a plain pinned
+   ``copy_`` of the same bytes (third pass, so that the timed pass
+   waits on neither); the tokens against
+   the same requests on the 256-page engine, free-running (reported,
+   with the logit gap where they part) and teacher-forced on its eager
+   forward (greedy agreement held to its floor);
+6b. the split step: phase 4's traffic on engines with
+   ``fused_step=False`` and with ``on_device_sampling=False`` (the
+   logits are sampled on the card outside the step, one call per
+   parameter group, and only tokens reach the host), as phase 4 (logits
+   keys captured in the warm-up pass, none in the timed pass, exact
+   launch counts, every logits key's replay against its eager body:
+   greedy picks bit-equal), the greedy requests' tokens teacher-forced
+   through the fused engine (agreement held to its floor), decode step
+   ms and busy share beside phase 4's;
+6c. KV pool sizing: a Llama engine built with no ``kv_config``, its
+   pool sized from free device memory (held to ``memory_fraction`` of
+   it), serving phase 4's traffic once;
 7. the same weights with the registry pinned to the plain versions:
    ten teacher-forced serving steps of 3 requests on the eager forward
    (fresh prefill, decode, and two mixed steps, one with a Q=1024 prefill
@@ -62,6 +87,15 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    teacher-forced steps of phase 7, logits per segment compared; and the
    kernel path over bf16 pages, for the greedy agreement of int8 pages
    with bf16 pages;
+9a. Mistral-7B-v0.1 at its published configuration (8 kv heads, a
+   4096-token sliding window; ``llama_config_from_hf``, random seeded
+   bf16 weights) over 288 pages: four greedy requests of 6144-token
+   prompts and 64 new tokens, whose full contexts need 388 pages, as
+   phase 4 with the page audit after every warm-up step and each
+   sequence's live pages held to ceil((4096 + 64) / 64) + 1 after every
+   step; then the kernel path
+   against the plain path, teacher-forced, over prefill chunks and
+   decode steps past the window (evicted tables), logits compared;
 10. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
     the card from a seed, bf16 compute, micro-batch 2 x 2048 tokens,
     gas 2, AdamW, WarmupDecayLR, clipping 1.0): 4 ``train_batch`` calls
@@ -87,6 +121,7 @@ printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1124,8 +1159,9 @@ def check_lamb(dev, cfg):
 # ---------------------------------------------------------------------------
 
 def build_engine(cfg, params, num_pages, implementations=None,
-                 kv_quantization="none", model_type="llama"):
-    """The family's model class -> engine, as a user builds them."""
+                 kv_quantization="none", model_type="llama", **serving):
+    """The family's model class -> engine, as a user builds them;
+    ``serving`` sets ServingOptimizationConfig's other fields."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import (
         InferenceEngineV2, KVCacheConfig, RaggedInferenceEngineConfig,
@@ -1140,7 +1176,8 @@ def build_engine(cfg, params, num_pages, implementations=None,
         state_manager=StateManagerConfig(
             max_tracked_sequences=16, max_ragged_sequence_count=16,
             max_ragged_batch_size=2048),
-        serving=ServingOptimizationConfig(kv_quantization=kv_quantization))
+        serving=ServingOptimizationConfig(kv_quantization=kv_quantization,
+                                          **serving))
     return InferenceEngineV2(model, econf)
 
 
@@ -1163,12 +1200,18 @@ def randomize_norms_and_biases(params, seed):
     return params
 
 
+def key_kind(key) -> str:
+    """A step key's kind: a bare (S, Q, P, fresh) is a logits forward
+    (the split path's ``put``)."""
+    return key[4] if len(key) > 4 else "logits"
+
+
 def key_segments(key):
     """The segments one dispatch of a step key runs, as (kind, S, Q, P):
     kind "fresh" (flash) or "paged"; a mixed key runs its decode segment
     and then its prefill segment."""
     first = ("fresh" if key[3] else "paged",) + tuple(key[:3])
-    if key[4] == "mixed":
+    if key_kind(key) == "mixed":
         return [first, ("fresh" if key[8] else "paged",) + tuple(key[5:8])]
     return [first]
 
@@ -1233,18 +1276,24 @@ def graph_report(model) -> dict:
 def step_kind(key) -> str:
     if key is None:
         return "drain"            # dispatched nothing: tokens reach host
-    if key[4] == "mixed":
+    if isinstance(key[0], tuple):
+        return "mixed"            # split: one forward per Q bucket
+    if key_kind(key) == "mixed":
         return "mixed"            # decode segment + prefill segment
     if key[3]:
         return "fresh"            # pure fresh prefill
     return "decode" if key[1] == 1 else "prefill"
 
 
-def drive(engine, reqs, uid_base=0, record=False):
+def drive(engine, reqs, uid_base=0, record=False, audit=False,
+          after_step=None):
     """Submit ``reqs`` ({uid: (prompt, SamplingParams)}) at once under
     uids ``uid_base + uid`` and step a new FastGenScheduler until it is
     done.  Returns ({uid: tokens}, {uid: TTFT s}, per-step records: host
-    ms, tokens delivered, rows scheduled and the key dispatched)."""
+    ms, tokens delivered, rows scheduled and the key dispatched: one key,
+    or on the split path a tuple of the logits keys of a step's forwards).
+    ``audit`` runs the page audit after every step; ``after_step(sched)``
+    runs after every step."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
     model = engine.model
@@ -1269,15 +1318,24 @@ def drive(engine, reqs, uid_base=0, record=False):
             # nothing (the last tokens reaching the host)
             keys = [k for k, n in model.dispatch_counts.items()
                     if n != before.get(k, 0)]
-            if len(keys) > 1 or any(
+            split = len(keys) > 1 and all(key_kind(k) == "logits"
+                                          for k in keys)
+            if (len(keys) > 1 and not split) or any(
                     model.dispatch_counts[k] - before.get(k, 0) != 1
                     for k in keys):
                 raise RuntimeError(f"one step dispatched {keys}")
             steps.append(dict(ms=dt * 1e3, tokens=len(out),
                               scheduled=(sched.last_step_scheduled
                                          if keys else 0),
-                              key=keys[0] if keys else None))
-        if sched.last_step_scheduled == 0 and not out:
+                              key=(tuple(keys) if split
+                                   else keys[0] if keys else None),
+                              dispatches=len(keys)))
+        if audit:
+            engine.state_manager.check_invariants()
+        if after_step is not None:
+            after_step(sched)
+        if sched.last_step_scheduled == 0 and not out \
+                and not sched._preempted_this_step:
             raise RuntimeError("serving stalled: nothing schedulable")
     torch.cuda.synchronize()
     for uid, (prompt, sp) in reqs.items():
@@ -1290,48 +1348,63 @@ def drive(engine, reqs, uid_base=0, record=False):
     return generated, first_token, steps
 
 
-def serve(cfg, params, counters, card, model_type="llama",
-          kv_quantization="none"):
-    """10 requests through FastGenScheduler in the default serving
-    configuration (a CUDA graph per step key, the async chain, prefix
-    caching): a warm-up pass captures every key the traffic needs, the
-    prefix cache is reset, and a timed pass of the same traffic must
-    capture nothing and replay a graph at every step; launch counts of
-    the timed pass (counters set to 0 just before it) are held to the
-    segments its dispatched keys run.  Returns (summary, launches,
-    engine, the requests)."""
+def serving_requests(cfg, n=10, lo=128, hi=1025, new_tokens=64,
+                     sampled_from=8, seed=SEED):
+    """The serving traffic: ``n`` requests with prompts of ``lo`` to
+    ``hi - 1`` tokens, ``new_tokens`` each; from uid ``sampled_from`` on
+    sampled (temperature 0.8, top-p 0.9), greedy before it."""
     import numpy as np
-    import torch
     from deepspeed_tpu_torch.inference.v2 import SamplingParams
-    engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
-                          kv_quantization=kv_quantization)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi, n)
+    reqs = {}
+    for uid, length in enumerate(lens):
+        sampled = uid >= sampled_from
+        reqs[uid] = (rng.integers(0, cfg.vocab_size, int(length)),
+                     SamplingParams(max_new_tokens=new_tokens,
+                                    temperature=0.8 if sampled else 0.0,
+                                    top_p=0.9 if sampled else 1.0))
+    return reqs
+
+
+def two_passes(engine, reqs, cfg, counters, card, label,
+               kv_quantization="none", audit=False, after_step=None,
+               before_pass=None):
+    """A warm-up pass of ``reqs`` captures every key the traffic needs,
+    the prefix cache is reset, and a timed pass of the same traffic must
+    capture nothing and replay a graph at every dispatch; launch counts
+    of the timed pass (counters set to 0 just before it) are held to the
+    segments its dispatched keys run.  ``audit`` runs the page audit
+    after every step of the warm-up pass only, so the timed pass's step
+    ms compare with phase 4's.  ``before_pass(name)`` runs before each
+    pass ("warm-up", "timed").  Returns (summary, launches,
+    {uid: tokens} of the timed pass, its dispatches by key)."""
+    import torch
     model = engine.model
     kv_pool_bytes = model.kv_config.total_bytes()
     sv = engine._config.serving
-    log(f"{model_type} serving: {type(model).__name__}, implementations "
+    log(f"{label} serving: {type(model).__name__}, implementations "
         f"{model.implementations}, kv pages {model.kv_config.quantization}"
-        f", kv pool {kv_pool_bytes / 1e9:.2f} GB, async_scheduling "
+        f", kv pool {model.kv_config.num_pages} pages, "
+        f"{kv_pool_bytes / 1e9:.2f} GB, fused_step {sv.fused_step}, "
+        f"on_device_sampling {sv.on_device_sampling}, async_scheduling "
         f"{sv.async_scheduling}, prefix_caching {sv.prefix_caching}")
-    rng = np.random.default_rng(SEED)
-    V = cfg.vocab_size
-    lens = rng.integers(128, 1025, 10)
-    reqs = {}
-    for uid, n in enumerate(lens):
-        sampled = uid >= 8
-        reqs[uid] = (rng.integers(0, V, int(n)), SamplingParams(
-            max_new_tokens=64, temperature=0.8 if sampled else 0.0,
-            top_p=0.9 if sampled else 1.0))
-
+    if before_pass is not None:
+        before_pass("warm-up")
     t = time.perf_counter()
-    drive(engine, reqs, uid_base=1000)        # the warm-up pass
+    drive(engine, reqs, uid_base=1000, audit=audit,   # the warm-up pass
+          after_step=after_step)
     warm = dict(graph_report(model), pass_s=time.perf_counter() - t)
     engine.reset_prefix_cache()               # the timed pass starts cold
     cached, capture_s = dict(model._step_cache), model.capture_seconds
     dispatched = dict(model.dispatch_counts)
+    if before_pass is not None:
+        before_pass("timed")
     reset_launches(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    generated, first_token, steps = drive(engine, reqs, record=True)
+    generated, first_token, steps = drive(engine, reqs, record=True,
+                                          after_step=after_step)
     total_s = time.perf_counter() - t0
     launches = read_launches(counters)
     peak = torch.cuda.max_memory_allocated()
@@ -1343,12 +1416,11 @@ def serve(cfg, params, counters, card, model_type="llama",
         raise RuntimeError("the timed pass captured a graph: "
                            f"{set(model._step_cache) - set(cached)}")
     if any(model._step_cache[k] is None for k in dispatches) \
-            or sum(dispatches.values()) != sum(st["key"] is not None
+            or sum(dispatches.values()) != sum(st["dispatches"]
                                                for st in steps):
         raise RuntimeError("a timed serving step was not one graph replay")
     seg = segment_counts(cfg, dispatches)
     checks = launch_checks(cfg, kv_quantization, launches, seg)
-    checks["segments of every kind"] = all(seg.values())
     by_kind = {}
     for st in steps:
         by_kind.setdefault(step_kind(st["key"]), []).append(st["ms"])
@@ -1357,15 +1429,18 @@ def serve(cfg, params, counters, card, model_type="llama",
     dec_s = sum(st["ms"] for st in decode_steps) / 1e3
     ttft = sorted(first_token.values())
     summary = dict(
-        card=card, model=model_type, kv_pages=kv_quantization,
+        card=card, model=label, kv_pages=kv_quantization,
+        kv_pool_pages=model.kv_config.num_pages,
         kv_pool_gb=kv_pool_bytes / 1e9,
-        requests=len(reqs), prompt_lens=[int(n) for n in lens],
-        new_tokens=64, steps=len(steps), total_s=total_s,
+        requests=len(reqs), prompt_lens=[len(p) for p, _ in reqs.values()],
+        new_tokens=[sp.max_new_tokens for _, sp in reqs.values()],
+        steps=len(steps), total_s=total_s,
         ttft_ms_mean=1e3 * sum(ttft) / len(ttft),
         ttft_ms_max=1e3 * ttft[-1],
         decode_steps=len(decode_steps),
-        chained_steps=sum(st["key"] is not None and st["key"][4] == "chain"
-                          for st in steps),
+        chained_steps=sum(st["key"] is not None
+                          and step_kind(st["key"]) != "mixed"
+                          and key_kind(st["key"]) == "chain" for st in steps),
         decode_tok_s=dec_tokens / dec_s if dec_s else None,
         decode_step_ms_mean=(1e3 * dec_s / len(decode_steps)
                              if decode_steps else None),
@@ -1380,19 +1455,38 @@ def serve(cfg, params, counters, card, model_type="llama",
         warm_up_pass=warm, timed_pass_captures=0,
         keys_dispatched={repr(k): n for k, n in sorted(
             dispatches.items(), key=repr)},
-        segments=seg, launches=launches)
-    log(f"{model_type} serving:", json.dumps(summary))
-    log(f"segments: {seg}, launches: {launches}, checks: {checks}")
+        segments=seg, launches=launches, launch_checks=checks)
+    log(f"{label} serving:", json.dumps(summary))
     if not all(checks.values()):
-        raise RuntimeError(f"launch counts do not match the steps taken: "
-                           f"{checks}")
+        raise RuntimeError(f"{label}: launch counts do not match the steps "
+                           f"taken: {checks}")
+    return summary, launches, generated, dispatches
+
+
+def serve(cfg, params, counters, card, model_type="llama",
+          kv_quantization="none", label=None, **serving):
+    """10 requests through FastGenScheduler in the default serving
+    configuration (a CUDA graph per step key, the async chain, prefix
+    caching), or with ``serving``'s flags: ``two_passes``, every segment
+    kind run, then every key's replay against its eager body and four
+    profiled decode steps.  Returns (summary, launches, engine, the
+    requests, {uid: tokens} of the timed pass)."""
+    label = label or model_type
+    engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
+                          kv_quantization=kv_quantization, **serving)
+    reqs = serving_requests(cfg)
+    summary, launches, generated, dispatches = two_passes(
+        engine, reqs, cfg, counters, card, label, kv_quantization)
+    if not all(summary["segments"].values()):
+        raise RuntimeError(f"{label}: a segment kind never ran: "
+                           f"{summary['segments']}")
     engine.reset_prefix_cache()
     summary["replay_vs_eager"] = replay_vs_eager(engine, reqs, dispatches,
-                                                 model_type)
+                                                 label)
     engine.reset_prefix_cache()
     summary["decode_profile"] = profile_decode_steps(
-        engine, reqs, model_type, summary["decode_step_ms_median"])
-    return summary, launches, engine, reqs
+        engine, reqs, label, summary["decode_step_ms_median"])
+    return summary, launches, engine, reqs, generated
 
 
 def replay_vs_eager(engine, reqs, timed, label):
@@ -1404,33 +1498,49 @@ def replay_vs_eager(engine, reqs, timed, label):
     write the same KV positions from the same history, the replay last,
     so the pass serves as the timed pass did.  The live greedy rows'
     tokens must be bit-equal; the sampled rows (same generator state)
-    are reported.  Every key of the timed pass (``timed``) must be
-    checked, and the pass may capture nothing."""
+    are reported.  A logits key's live rows must be bit-equal logits.
+    Every key of the timed pass (``timed``) must be checked, and the
+    pass may capture nothing."""
     import numpy as np
     import torch
     model = engine.model
     dispatch = model._dispatch
     captured = model.capture_seconds
-    by_kind, checked = {}, set()
+    by_kind, checked, logit_diff, logits_unequal = {}, set(), {}, []
 
     def kind_of(key):
-        return key[4] if key[4] in ("chain", "mixed") else step_kind(key)
+        kind = key_kind(key)
+        return kind if kind in ("chain", "mixed") else (
+            "logits " if kind == "logits" else "") + step_kind(key)
 
     def compared(key, kv, generator, inputs):
         if model._step_cache.get(key) is None:
             raise RuntimeError(f"step key {key} has no graph to replay")
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
              if isinstance(a, np.ndarray) else a for a in inputs]
-        gen = torch.Generator(device=model.device)
-        gen.set_state(generator.get_state())
+        gen = None                  # a logits step takes no generator
+        if generator is not None:
+            gen = torch.Generator(device=model.device)
+            gen.set_state(generator.get_state())
         ref = model._call(key, kv, gen, *t)
         out = dispatch(key, kv, generator, inputs)
-        q_lens = {"sample": t[1], "chain": t[2]}.get(key[4])
-        if q_lens is None:                            # mixed: both segments
-            q_lens = torch.cat([t[1], t[5]])
-        n = q_lens.shape[0]                 # a mixed step pads past it
-        live, greedy = q_lens > 0, t[-3] <= 0
-        same = out[:n] == ref[:n]
+        if key_kind(key) == "logits":
+            # the split path: logits, held bit-equal on the live rows,
+            # and their greedy picks
+            live = t[1] > 0
+            greedy = torch.ones_like(live)
+            same = out.argmax(-1) == ref.argmax(-1)
+            row = logit_diff.setdefault(key_kind(key), [0.0])
+            row[0] = max(row[0], float((out - ref)[live].abs().max()))
+            if not torch.equal(out[live], ref[live]):
+                logits_unequal.append(key)
+        else:
+            q_lens = {"sample": t[1], "chain": t[2]}.get(key[4])
+            if q_lens is None:                        # mixed: both segments
+                q_lens = torch.cat([t[1], t[5]])
+            n = q_lens.shape[0]             # a mixed step pads past it
+            live, greedy = q_lens > 0, t[-3] <= 0
+            same = out[:n] == ref[:n]
         row = by_kind.setdefault(kind_of(key), dict(
             dispatches=0, greedy_rows=0, greedy_equal=0, sampled_rows=0,
             sampled_equal=0))
@@ -1448,6 +1558,9 @@ def replay_vs_eager(engine, reqs, timed, label):
     finally:
         del model._dispatch
     res = dict(model=label, by_kind=by_kind,
+               logits_max_abs_diff=(logit_diff["logits"][0]
+                                    if logit_diff else None),
+               logits_bit_equal=not logits_unequal,
                keys_checked=len(checked), timed_keys=len(timed),
                greedy_bit_equal=all(r["greedy_equal"] == r["greedy_rows"]
                                     for r in by_kind.values()))
@@ -1460,6 +1573,10 @@ def replay_vs_eager(engine, reqs, timed, label):
     if not res["greedy_bit_equal"]:
         raise RuntimeError(f"replayed greedy tokens differ from the eager "
                            f"step body: {by_kind}")
+    if logits_unequal:
+        raise RuntimeError(f"replayed logits differ from the eager step "
+                           f"body at keys {sorted(set(logits_unequal))} "
+                           f"(max |diff| {res['logits_max_abs_diff']})")
     return res
 
 
@@ -1503,7 +1620,8 @@ def graph_vs_eager(engine, reqs, label, n_steps=20):
     greedy = not bool((temps > 0).any())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     key = model._normalize_key(batch.shape_key) + ("sample", greedy)
-    tensors = model._batch_tensors(batch)
+    tensors = [torch.from_numpy(a).cuda()
+               for a in model._batch_arrays(batch)]
     rows = [torch.from_numpy(a).cuda()
             for a in model._sample_arrays(temps, top_ks, top_ps)]
 
@@ -1674,6 +1792,30 @@ def prefix_phase(engine, cfg, counters, card):
     return res
 
 
+@contextlib.contextmanager
+def eager_steps(*engines):
+    """Every dispatch of the engines' models runs its key's step body
+    eagerly (``model._call``), capturing nothing: the teacher-forced
+    ``put`` calls, one forward each, compare paths and are not served."""
+    import numpy as np
+    import torch
+
+    def eager(model):
+        def run(key, kv, generator, inputs):
+            return model._call(key, kv, generator, *(
+                torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
+                if isinstance(a, np.ndarray) else a for a in inputs))
+        return run
+
+    for e in engines:
+        e.model._dispatch = eager(e.model)
+    try:
+        yield
+    finally:
+        for e in engines:
+            del e.model._dispatch
+
+
 def teacher_forced_agreement(engine, reqs, served, uid_base, parted):
     """Each request run again after ``reset_prefix_cache()`` on the eager
     forward (``put``: its whole prompt, then its served tokens one at a
@@ -1702,13 +1844,14 @@ def teacher_forced_agreement(engine, reqs, served, uid_base, parted):
                               top2_margin=margins[-1], pick_gap=gap,
                               max_abs_logit=big, pick_gap_rel=gap / big)
 
-    for u, (prompt, _) in reqs.items():
-        read(u, 0, engine.put([uid_base + u], [prompt])[0])
-    for t in range(1, min(len(served[u]) for u in reqs)):
-        logits = engine.put(uids, [np.array([served[u][t - 1]], np.int32)
-                                   for u in reqs])
-        for row, u in enumerate(reqs):
-            read(u, t, logits[row])
+    with eager_steps(engine):
+        for u, (prompt, _) in reqs.items():
+            read(u, 0, engine.put([uid_base + u], [prompt])[0])
+        for t in range(1, min(len(served[u]) for u in reqs)):
+            logits = engine.put(uids, [np.array([served[u][t - 1]], np.int32)
+                                       for u in reqs])
+            for row, u in enumerate(reqs):
+                read(u, t, logits[row])
     for uid in uids:
         engine.flush(uid)
     agree = [float(np.mean(np.equal(picks[u], served[u][:len(picks[u])])))
@@ -1773,7 +1916,8 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
             g_feed = [feed[i] for i in group]
             for name, e in engines.items():
                 kind = segment_kind(e, g_uids, g_feed)
-                logits = e.put(g_uids, g_feed)
+                with eager_steps(e):
+                    logits = e.put(g_uids, g_feed)
                 segments[name].append((kind, logits))
                 if name == "kernel":
                     # teacher-force every path with the kernel path's picks
@@ -1820,6 +1964,423 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
             f"greedy picks over {kv_quantization} pages agree with bf16 "
             f"pages on {res['greedy_agreement_vs_bf16_pages']:.3f} of the "
             f"rows, below {GREEDY_AGREE_MIN}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the serving engine under pressure, the split step, pool sizing, and
+# Mistral-7B's sliding window
+# ---------------------------------------------------------------------------
+
+def copy_yardstick(n_bytes, reps=3):
+    """A plain pinned ``copy_`` of ``n_bytes``, device to host and back
+    (CUDA events, the median of ``reps``): the host link's rate on this
+    machine, against which offload and restore are read.  Also the host
+    clock of allocating that many pinned bytes with PyTorch's host
+    cache emptied first (``fresh``) and again once the block is back in
+    the cache (``cached``): what an offload pays for its blob."""
+    import torch
+    dev = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+    alloc_ms = {}
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", None)
+    for name in ("fresh", "cached"):
+        if name == "fresh" and empty_host_cache is not None:
+            empty_host_cache()
+        t = time.perf_counter()
+        host = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+        alloc_ms[name] = (time.perf_counter() - t) * 1e3
+        if name == "fresh":
+            del host
+    res = {"pinned_alloc_ms": alloc_ms}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        ms = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dst.copy_(src, non_blocking=True)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        res[name] = dict(ms=statistics.median(ms),
+                         gb_s=n_bytes / statistics.median(ms) / 1e6)
+    return res
+
+
+def preemption_phase(cfg, params, counters, card, ref_engine):
+    """Llama-2-7B at full width in the default serving configuration on a
+    pool too small for its traffic: 48 pages of 64 tokens for 10 greedy
+    requests (prompts of 768-1024 tokens, 128 new tokens each: about 180
+    pages of full context).  The scheduler must preempt (the sequence's
+    private pages to a pinned host blob) and restore, and every request
+    completes at full length; ``two_passes`` holds captures and launch
+    counts and runs the page audit after every warm-up step.  In the
+    warm-up pass every restored page is read back and must equal its
+    blob bit for bit; the timed pass neither reads back nor waits; a
+    third pass of the same traffic times each offload and restore
+    (synchronised) against a plain pinned copy of the same bytes.  The
+    tokens are held
+    to the same requests on the 256-page engine (``ref_engine``):
+    free-running agreement reported with the logit gap where it parts,
+    teacher-forced agreement held to GREEDY_AGREE_MIN."""
+    import torch
+    engine = build_engine(cfg, params, num_pages=48)
+    reqs = serving_requests(cfg, lo=768, hi=1025, new_tokens=128,
+                            sampled_from=10, seed=SEED + 9)
+    state = engine.state_manager
+    offload, restore = engine.offload_sequence, engine.restore_sequence
+    events, verify, sync, mismatched = [], [True], [True], []
+
+    def timed(fn):
+        if not sync[0]:
+            fn()
+            return None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    def host_allocs():
+        st = torch.cuda.host_memory_stats()
+        return (st.get("num_host_alloc", 0),
+                st.get("host_alloc_time.total", 0))
+
+    def offload_hook(uid):
+        before = host_allocs()
+        ms = timed(lambda: offload(uid))
+        after = host_allocs()
+        blob = state.get_sequence(uid).host_blob
+        events.append(("offload", ms, blob.nbytes, blob.shape[1],
+                       after[0] - before[0], (after[1] - before[1]) / 1e3))
+
+    def restore_hook(uid):
+        sd = state.get_sequence(uid)
+        blob, slots = sd.host_blob, list(sd.live_slots)
+        ms = timed(lambda: restore(uid))
+        events.append(("restore", ms, blob.nbytes, blob.shape[1]))
+        if verify[0]:
+            pages = [sd.pages[i] for i in slots]
+            data = state.kv_cache.data
+            stores = ([data.payload, data.scale] if hasattr(data, "payload")
+                      else [data])
+            parts = ([blob.payload, blob.scale] if hasattr(blob, "payload")
+                     else [blob])
+            for store, part in zip(stores, parts):
+                if not torch.equal(store[:, pages].cpu(), part):
+                    mismatched.append(uid)
+
+    engine.offload_sequence, engine.restore_sequence = (offload_hook,
+                                                        restore_hook)
+    passes, current = {}, [None]
+
+    def count_pass(name):
+        if current[0] is not None:
+            passes[current[0]] = list(events)
+        current[0] = name
+        verify[0], sync[0] = name == "warm-up", name != "timed"
+        events.clear()
+
+    try:
+        summary, launches, generated, _ = two_passes(
+            engine, reqs, cfg, counters, card, "llama, 48 pages",
+            audit=True, before_pass=count_pass)
+        engine.reset_prefix_cache()
+        count_pass("offload timing")
+        t = time.perf_counter()
+        drive(engine, reqs, uid_base=5000)
+        timing_pass_s = time.perf_counter() - t
+    finally:
+        del engine.offload_sequence, engine.restore_sequence
+    count_pass(None)
+    counts = {name: dict(preemptions=sum(e[0] == "offload" for e in ev),
+                         restores=sum(e[0] == "restore" for e in ev))
+              for name, ev in passes.items()}
+    timed_ev = passes["offload timing"]
+    largest = max((e[2] for e in timed_ev), default=0)
+    yard = copy_yardstick(largest) if largest else None
+
+    def rates(kind):
+        ev = [e for e in timed_ev if e[0] == kind]
+        if not ev:
+            return None
+        res = dict(count=len(ev), pages=[e[3] for e in ev],
+                   ms=[e[1] for e in ev], bytes=[e[2] for e in ev],
+                   gb_s=[e[2] / e[1] / 1e6 for e in ev],
+                   ms_median=statistics.median(e[1] for e in ev))
+        if kind == "offload":
+            # new pinned blocks the host allocator made for the blob, and
+            # the ms it spent in the CUDA call that made them
+            res.update(new_pinned_blocks=[e[4] for e in ev],
+                       pinned_alloc_ms=[e[5] for e in ev])
+        return res
+    # the same requests on the 256-page engine: free-running, then the
+    # preempted engine's tokens teacher-forced through its eager forward
+    ref_engine.reset_prefix_cache()
+    ref_tokens = drive(ref_engine, reqs, uid_base=6000)[0]
+    parted = {u: next(t for t, (a, b) in enumerate(zip(generated[u],
+                                                         ref_tokens[u]))
+                      if a != b)
+              for u in reqs if generated[u] != ref_tokens[u]}
+    agree, margins, witness = teacher_forced_agreement(
+        ref_engine, reqs, generated, uid_base=7000,
+        parted={u: (t, ref_tokens[u][t]) for u, t in parted.items()})
+    res = dict(summary, pool_pages=48, pool_gb=engine.model.kv_config
+               .total_bytes() / 1e9, passes=counts,
+               offload=rates("offload"), restore=rates("restore"),
+               pinned_copy_yardstick=yard,
+               offload_timing_pass_s=timing_pass_s,
+               restored_pages_bit_equal=not mismatched,
+               free_running_agreement_vs_256_pages=[
+                   float(sum(a == b for a, b in zip(generated[u],
+                                                    ref_tokens[u]))
+                         / len(ref_tokens[u])) for u in reqs],
+               first_parting=witness,
+               top2_margin_median=float(statistics.median(margins)),
+               greedy_agreement_teacher_forced=agree,
+               greedy_min=GREEDY_AGREE_MIN)
+    log("preemption at full width:", json.dumps(res))
+    for name, c in counts.items():
+        if c["preemptions"] < 1 or c["restores"] != c["preemptions"]:
+            raise RuntimeError(f"{name} pass: {c}: expected at least one "
+                               "preemption and as many restores")
+    if mismatched:
+        raise RuntimeError(f"restored pages differ from their blobs: "
+                           f"{mismatched}")
+    if min(agree) < GREEDY_AGREE_MIN:
+        raise RuntimeError(f"the preempted engine's tokens agree with the "
+                           f"256-page engine's picks on {min(agree):.3f}, "
+                           f"below {GREEDY_AGREE_MIN}")
+    wide = {u: w for u, w in witness.items()
+            if w["pick_gap_rel"] > LOGIT_REL_TOL}
+    if wide:
+        raise RuntimeError(f"a parting from the 256-page engine is no "
+                           f"near-tie: {wide}")
+    return res, launches
+
+
+def split_phase(cfg, params, counters, card, fused_engine, fused_tokens,
+                fused_summary, flags):
+    """The Llama engine on the split escape hatch (``flags``:
+    ``fused_step=False``, or ``on_device_sampling=False``) serving phase
+    4's traffic: ``serve`` (the warm-up pass captures the logits keys,
+    the timed pass none; launch counts exact; every logits key's replay
+    against its eager body, greedy picks bit-equal; profiled decode
+    steps).  The greedy requests' tokens, teacher-forced through the
+    fused engine's eager forward, must agree on GREEDY_AGREE_MIN."""
+    import gc
+    import torch
+    label = "llama, " + ", ".join(f"{k}={v}" for k, v in flags.items())
+    summary, launches, engine, reqs, generated = serve(
+        cfg, params, counters, card, label=label, **flags)
+    kinds = {key_kind(k) for k in engine.model.dispatch_counts}
+    if kinds != {"logits"}:
+        raise RuntimeError(f"{label}: dispatched {kinds}, not logits keys")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    greedy = {u: r for u, r in reqs.items() if r[1].temperature <= 0.0}
+    agree, _, _ = teacher_forced_agreement(
+        fused_engine, greedy, generated, uid_base=8000, parted={})
+    res = dict(model=label, card=card,
+               decode_step_ms_median=summary["decode_step_ms_median"],
+               decode_busy_share=summary["decode_profile"][
+                   "device_busy_share"],
+               fused_decode_step_ms_median=fused_summary[
+                   "decode_step_ms_median"],
+               fused_decode_busy_share=fused_summary["decode_profile"][
+                   "device_busy_share"],
+               logits_graphs=summary["warm_up_pass"]["graphs"],
+               free_running_agreement_vs_fused=[
+                   float(sum(a == b for a, b in zip(generated[u],
+                                                    fused_tokens[u]))
+                         / len(fused_tokens[u])) for u in greedy],
+               greedy_agreement_teacher_forced=agree,
+               greedy_min=GREEDY_AGREE_MIN)
+    log("split step:", json.dumps(res))
+    if min(agree) < GREEDY_AGREE_MIN:
+        raise RuntimeError(f"{label}: greedy agreement with the fused path "
+                           f"{min(agree):.3f} below {GREEDY_AGREE_MIN}")
+    return res, launches
+
+
+def sizing_phase(cfg, params, counters, card, reqs):
+    """One Llama engine built with no ``kv_config``: the pool is sized
+    from free device memory (``memory_fraction`` of it), held to that
+    budget, then serves phase 4's traffic once, which shows the graphs
+    and activations fit beside it."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import (
+        InferenceEngineV2, RaggedInferenceEngineConfig, StateManagerConfig,
+        implementation_for)
+    read = []
+    free_device_memory = InferenceEngineV2._free_device_memory
+
+    def recorded(device):
+        read.append(free_device_memory(device))
+        return read[-1]
+
+    model = implementation_for("llama")(cfg, params, device="cuda")
+    InferenceEngineV2._free_device_memory = staticmethod(recorded)
+    try:
+        engine = InferenceEngineV2(model, RaggedInferenceEngineConfig(
+            state_manager=StateManagerConfig(
+                max_tracked_sequences=16, max_ragged_sequence_count=16,
+                max_ragged_batch_size=2048)))
+    finally:
+        InferenceEngineV2._free_device_memory = staticmethod(
+            free_device_memory)
+    kv = model.kv_config
+    fraction = engine._config.state_manager.memory_fraction
+    budget = fraction * read[0]
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    generated, _, _ = drive(engine, reqs, uid_base=9000)
+    launches = read_launches(counters)
+    res = dict(card=card, free_bytes_at_build=read[0],
+               memory_fraction=fraction, pages=kv.num_pages,
+               bytes_per_page=kv.bytes_per_page,
+               pool_gb=kv.num_pages * kv.bytes_per_page / 1e9,
+               pool_gb_with_null_page=kv.total_bytes() / 1e9,
+               budget_gb=budget / 1e9, serve_s=time.perf_counter() - t,
+               graphs=graph_report(model)["graphs"],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, tokens=sum(len(v) for v in generated.values()))
+    log("KV pool sizing:", json.dumps(res))
+    if model.kv_config_explicit or kv.num_pages * kv.bytes_per_page > budget:
+        raise RuntimeError(f"pool {res['pool_gb']:.2f} GB over the budget "
+                           f"{res['budget_gb']:.2f} GB")
+    return res, launches
+
+
+MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                  num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=8, max_position_embeddings=32768,
+                  rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096,
+                  tie_word_embeddings=False, hidden_act="silu")
+MISTRAL_PAGES = 288
+MISTRAL_PROMPT = 6144
+MISTRAL_CHUNK = 2048           # the token budget of a step
+
+
+def mistral_phase(counters, card):
+    """Mistral-7B-v0.1 at its published configuration (``config.json``'s
+    fields through ``llama_config_from_hf``: 8 kv heads, a 4096-token
+    sliding window; random seeded bf16 weights) over 288 pages: four
+    greedy requests of 6144-token prompts, 64 new tokens each, whose
+    full contexts would need 4 x 97 = 388 pages but whose windows need
+    at most 4 x 67.  ``two_passes`` with the page audit after every
+    warm-up step; live pages per sequence held to ceil((4096 + 64) / 64) + 1
+    after every step.  Then the kernel path against the plain path,
+    teacher-forced, at contexts past the window (prefill chunks of 2048,
+    then decode steps over evicted tables), logits held to
+    LOGIT_REL_TOL."""
+    import gc
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.checkpoint.hf import llama_config_from_hf
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = llama_config_from_hf(types.SimpleNamespace(**MISTRAL_7B))
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED + 11, device="cuda")
+    torch.cuda.synchronize()
+    log(f"Mistral-7B-v0.1 params: {cfg.n_params() / 1e9:.2f} B, window "
+        f"{cfg.sliding_window}, kv heads {cfg.kv_heads}, bf16 init "
+        f"{time.perf_counter() - t:.1f} s")
+    engine = build_engine(cfg, params, num_pages=MISTRAL_PAGES,
+                          model_type="mistral")
+    rng = np.random.default_rng(SEED + 12)
+    reqs = {u: (rng.integers(0, cfg.vocab_size, MISTRAL_PROMPT),
+                SamplingParams(max_new_tokens=64)) for u in range(4)}
+    limit = -(-(cfg.sliding_window + 64) // 64) + 1
+    live_max, preempted_max = [0], [0]
+
+    def live_pages(sched):
+        preempted_max[0] = max(preempted_max[0], len(sched._preempted))
+        for sd in engine.state_manager._seqs.values():
+            live = sum(p != 0 for p in sd.pages)
+            live_max[0] = max(live_max[0], live)
+            if live > limit:
+                raise RuntimeError(f"sequence {sd.uid} holds {live} live "
+                                   f"pages > {limit}")
+
+    summary, launches, generated, _ = two_passes(
+        engine, reqs, cfg, counters, card, "mistral", audit=True,
+        after_step=live_pages)
+    summary.update(live_pages_max=live_max[0], live_pages_limit=limit,
+                   preempted_max=preempted_max[0],
+                   full_context_pages=4 * -(-(MISTRAL_PROMPT + 64) // 64))
+    log("Mistral window:", json.dumps({k: summary[k] for k in (
+        "live_pages_max", "live_pages_limit", "preempted_max",
+        "full_context_pages", "kv_pool_pages")}))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["kernel_vs_plain"] = window_kernel_vs_plain(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def window_kernel_vs_plain(cfg, params, n_decode=6):
+    """Two Mistral sequences on the kernel path and on the plain path,
+    teacher-forced with the kernel path's picks, each step one eager
+    ``put`` per prefill chunk (the step's token budget) or of both
+    decode rows: 6144-token prompts in chunks of 2048 (a fresh chunk,
+    then chunks over 2048 and 4096 tokens of history), then
+    ``n_decode`` decode steps over tables whose first 32 slots the
+    window has evicted (null).  Every put's logits compared."""
+    import numpy as np
+    import torch
+    kw = dict(num_pages=200, model_type="mistral")
+    engines = {"kernel": build_engine(cfg, params, **kw),
+               "plain": build_engine(cfg, params, **kw,
+                                     implementations=PLAIN_PATH)}
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [rng.integers(0, cfg.vocab_size, MISTRAL_PROMPT)
+               for _ in range(2)]
+    uids, last, rows = [0, 1], {}, []
+    puts = [([u], [p[i:i + MISTRAL_CHUNK]])
+            for i in range(0, MISTRAL_PROMPT, MISTRAL_CHUNK)
+            for u, p in zip(uids, prompts)] + [(uids, None)] * n_decode
+    for g_uids, feed in puts:
+        feed = feed or [np.array([last[u]], np.int32) for u in g_uids]
+        logits = {}
+        for name, e in engines.items():
+            with eager_steps(e):
+                logits[name] = e.put(g_uids, feed)
+        state = engines["kernel"].state_manager
+        a, b = logits["kernel"], logits["plain"]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise RuntimeError(f"non-finite logits at put {len(rows)}")
+        rows.append(dict(uids=g_uids, q=len(feed[0]),
+                         context=[state.get_sequence(u).seen_tokens
+                                  for u in g_uids],
+                         evicted_slots=[sum(p == 0 for p in state
+                                            .get_sequence(u).pages)
+                                        for u in g_uids],
+                         max_rel_logit_err=float((a - b).abs().max()
+                                                 / b.abs().max()),
+                         greedy_agree=int((a.argmax(-1)
+                                           == b.argmax(-1)).sum())))
+        last.update(zip(g_uids, a.argmax(-1).tolist()))
+    worst = max(r["max_rel_logit_err"] for r in rows)
+    res = dict(puts=rows, max_rel_logit_err=worst, tol=LOGIT_REL_TOL,
+               greedy_agreement=sum(r["greedy_agree"] for r in rows)
+               / sum(len(r["uids"]) for r in rows))
+    log("Mistral kernel vs plain past the window:", json.dumps(res))
+    if not any(min(r["evicted_slots"]) for r in rows):
+        raise RuntimeError("no step ran over an evicted table")
+    if worst > LOGIT_REL_TOL:
+        raise RuntimeError(f"Mistral kernel path logits differ from the "
+                           f"plain path by {worst:.3e} > {LOGIT_REL_TOL}")
+    if res["greedy_agreement"] < GREEDY_AGREE_MIN:
+        raise RuntimeError(f"Mistral greedy agreement "
+                           f"{res['greedy_agreement']:.3f} below "
+                           f"{GREEDY_AGREE_MIN}")
     return res
 
 
@@ -2266,14 +2827,39 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"Llama-2-7B params: {cfg.n_params() / 1e9:.2f} B, bf16 init "
         f"{time.perf_counter() - t:.1f} s")
-    _, llama_launches, engine, reqs = serve(cfg, params, counters, card)
+    llama_summary, llama_launches, engine, reqs, llama_tokens = serve(
+        cfg, params, counters, card)
 
     # phase 5: graph against eager at one decode key
     graph_vs_eager(engine, reqs, "llama")
 
     # phase 6: prefix caching at full width
     prefix_phase(engine, cfg, counters, card)
+    launches_by_path = {"serving_llama": llama_launches}
+
+    # phase 6a: preemption on a 48-page pool, held to the 256-page engine
+    _, launches_by_path["serving_llama_preemption"] = preemption_phase(
+        cfg, params, counters, card, engine)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6b: the split step, each flag, held to the fused engine
+    for path, flags in (("serving_llama_split_fused_step",
+                         dict(fused_step=False)),
+                        ("serving_llama_split_on_device_sampling",
+                         dict(on_device_sampling=False))):
+        _, launches_by_path[path] = split_phase(
+            cfg, params, counters, card, engine, llama_tokens, llama_summary,
+            flags)
+        gc.collect()
+        torch.cuda.empty_cache()
     del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6c: a pool sized from free device memory
+    _, launches_by_path["serving_llama_pool_sized"] = sizing_phase(
+        cfg, params, counters, card, reqs)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2292,7 +2878,7 @@ def main() -> int:
     log(f"OPT-6.7B params: {opt_cfg.n_params() / 1e9:.2f} B, "
         f"{opt_cfg.num_layers} layers, bf16 init "
         f"{time.perf_counter() - t:.1f} s")
-    _, opt_launches, engine, _ = serve(opt_cfg, opt_params, counters, card,
+    _, opt_launches, engine, _, _ = serve(opt_cfg, opt_params, counters, card,
                                        model_type="opt",
                                        kv_quantization="int8")
     del engine
@@ -2303,12 +2889,17 @@ def main() -> int:
     plain_vs_kernel(opt_cfg, opt_params, model_type="opt",
                     kv_quantization="int8")
 
-    # phase 10: the serving weights and caches go first
+    # phase 9a: Mistral-7B-v0.1 and its sliding window, once the OPT
+    # weights are gone
     del opt_params
     gc.collect()
     torch.cuda.empty_cache()
-    launches_by_path = {"serving_llama": llama_launches,
-                        "serving_opt": opt_launches}
+    launches_by_path["serving_opt"] = opt_launches
+    _, launches_by_path["serving_mistral"] = mistral_phase(counters, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 10: the serving weights and caches are gone
     engine, batch, launches_by_path["training"] = train(counters, card)
 
     # phase 11

@@ -1,21 +1,22 @@
 """Ragged (FastGen-style) serving: counterpart of
 ``deepspeed_tpu/inference/v2``."""
 
-from .config import (RaggedInferenceEngineConfig, ServingOptimizationConfig,
-                     StateManagerConfig)
+from .config import (KVCacheUserConfig, RaggedInferenceEngineConfig,
+                     ServingOptimizationConfig, StateManagerConfig)
 from .engine import InferenceEngineV2, SchedulingError, SchedulingResult
 from .model import RaggedInferenceModel
 from .model_implementations import (implementation_for,
                                     supported_model_types)
-from .ragged import BlockedAllocator, KVCacheConfig
-from .sampling import SamplingParams, sample_dynamic
-from .scheduler import FastGenScheduler
+from .ragged import BlockedAllocator, KVAllocationError, KVCacheConfig
+from .sampling import SamplingParams, sample, sample_dynamic
+from .scheduler import FastGenScheduler, Request, RequestError, generate
 
 __all__ = [
-    "RaggedInferenceEngineConfig", "ServingOptimizationConfig",
-    "StateManagerConfig",
+    "KVCacheUserConfig", "RaggedInferenceEngineConfig",
+    "ServingOptimizationConfig", "StateManagerConfig",
     "InferenceEngineV2", "SchedulingError", "SchedulingResult",
-    "RaggedInferenceModel", "BlockedAllocator", "KVCacheConfig",
-    "SamplingParams", "sample_dynamic", "FastGenScheduler",
+    "RaggedInferenceModel", "BlockedAllocator", "KVAllocationError",
+    "KVCacheConfig", "SamplingParams", "sample", "sample_dynamic",
+    "FastGenScheduler", "Request", "RequestError", "generate",
     "implementation_for", "supported_model_types",
 ]

@@ -4,15 +4,20 @@ The subset of ``deepspeed_tpu/inference/v2/config.py`` the port reads.
 :class:`ServingOptimizationConfig` has the JAX package's defaults:
 ``fused_step=True, on_device_sampling=True, async_scheduling=True,
 prefix_caching=True, speculative=False, tp_degree=1,
-keyed_sampling=False``.  ``async_scheduling``, ``prefix_caching`` and
-``kv_quantization`` vary; the other flags stay at these values (another
-value raises, naming the ROADMAP item that brings it).  The KV cache
-geometry is the model's ``kv_config``.
+keyed_sampling=False``, and the degradation knobs off.  ``speculative``,
+``tp_degree`` and ``keyed_sampling`` stay at these values (another value
+raises, naming the ROADMAP item that brings it).  The KV cache geometry
+is the model's ``kv_config`` when the model was given one, else
+:class:`KVCacheUserConfig`'s, whose ``num_pages=None`` sizes the pool
+from free device memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import torch
 
 
 @dataclasses.dataclass
@@ -20,12 +25,21 @@ class StateManagerConfig:
     max_tracked_sequences: int = 2048
     max_ragged_sequence_count: int = 512
     max_ragged_batch_size: int = 768       # token budget per forward
+    memory_fraction: float = 0.8           # of free device memory, for KV
+
+
+@dataclasses.dataclass
+class KVCacheUserConfig:
+    """The KV pool of a model built without ``kv_config``."""
+    page_size: int = 64
+    #: None: as many pages as ``memory_fraction`` of the free device
+    #: memory holds (on the CPU, which reports none, the model's default)
+    num_pages: Optional[int] = None
+    dtype: torch.dtype = torch.bfloat16
 
 
 # flag -> (the one value the port runs, ROADMAP Queue 1 item)
 _FIXED_SERVING_FLAGS = {
-    "fused_step": (True, "4b (the split, non-fused escape hatch)"),
-    "on_device_sampling": (True, "4b (host-side sampling)"),
     "speculative": (False, "8 (speculative decoding)"),
     "tp_degree": (1, "13 (tensor-parallel serving)"),
     "keyed_sampling": (False, "3 (keyed sampling)"),
@@ -38,7 +52,13 @@ class ServingOptimizationConfig:
     written for the JAX package says what it expects, and
     :meth:`validate` (run at construction and again at engine build)
     raises ``NotImplementedError`` for a value the port does not run."""
+    #: one step graph for a mixed prefill + decode step (off: the split
+    #: escape hatch, one logits forward per Q bucket and sampling outside
+    #: the step)
     fused_step: bool = True
+    #: sample inside the step graph, so only int32 tokens reach the host
+    #: (off: [S, V] fp32 logits come out of the step and are sampled
+    #: in calls of their own, one per parameter group)
     on_device_sampling: bool = True
     #: double-buffered scheduler: step k+1 (a chained decode step whose
     #: tokens are gathered on the device) is dispatched before step k's
@@ -57,6 +77,18 @@ class ServingOptimizationConfig:
     #: Fixed at engine build: it shapes the cache tensors.  An unknown
     #: format raises ``ValueError`` there (``KVCacheConfig``)
     kv_quantization: str = "none"
+    #: graceful degradation, 0 / False = off.  Submits past this many
+    #: pending requests are shed with a structured error (0: unbounded)
+    max_queue_depth: int = 0
+    #: shed a submit while the oldest pending request has waited longer
+    #: than this (ms; 0: off)
+    shed_queue_wait_ms: float = 0.0
+    #: default per-request TTL in seconds; an expired request ends with a
+    #: structured error (0: no deadline)
+    default_ttl_s: float = 0.0
+    #: where the scheduler would deadlock, shed the most demanding
+    #: request with an "oom" error instead of raising
+    shed_unservable: bool = False
 
     def __post_init__(self):
         self.validate()
@@ -74,5 +106,7 @@ class ServingOptimizationConfig:
 class RaggedInferenceEngineConfig:
     state_manager: StateManagerConfig = dataclasses.field(
         default_factory=StateManagerConfig)
+    kv_cache: KVCacheUserConfig = dataclasses.field(
+        default_factory=KVCacheUserConfig)
     serving: ServingOptimizationConfig = dataclasses.field(
         default_factory=ServingOptimizationConfig)

@@ -1,19 +1,26 @@
 """InferenceEngineV2 — ragged continuous-batching inference engine.
 
-Counterpart of ``deepspeed_tpu/inference/v2/engine.py`` for the fused
-serving path: ``put(uids, tokens)`` runs ONE ragged forward returning
-last-token logits per sequence; ``step_sample`` runs forward + on-device
+Counterpart of ``deepspeed_tpu/inference/v2/engine.py``:
+``put(uids, tokens)`` runs one ragged forward returning last-token
+logits per sequence (with ``fused=False`` one forward per Q bucket, the
+split escape hatch); ``step_sample`` runs forward + on-device
 sampling, so only int32 tokens cross device->host; ``step_decode_chained``
 gathers its input tokens on the device from the previous step's, so the
 scheduler's async chain never waits on the host; ``query`` /
 ``can_schedule`` expose KV and token occupancy to the scheduler;
 ``match_prefix`` attaches a new sequence's cached prompt pages;
-``flush(uid)`` frees sequence state.  A step mixing decode rows with
+``flush(uid)`` frees sequence state; ``offload_sequence`` /
+``restore_sequence`` move a preempted sequence's KV to host memory and
+back.  After every forward the engine indexes newly full prompt pages
+and, for a sliding-window model, releases the pages the window has left
+behind.  A step mixing decode rows with
 prefill chunks runs as two segments ([S_d, 1] + [S_p, Q]) so decode
 rows never pad to the chunk width.  Each step key is one CUDA graph on
 the card (``model.py``); ``precompile`` captures a lattice of them
 before serving.  The engine builds the KV cache: fp pages, or int8
-``KVPages`` when ``serving.kv_quantization`` says so.
+``KVPages`` when ``serving.kv_quantization`` says so; for a model built
+without ``kv_config`` its geometry comes from ``config.kv_cache``, and
+``num_pages=None`` sizes the pool from free device memory.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import warnings
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ from .lattice import enumerate_lattice_keys
 from .model import RaggedInferenceModel
 from .ragged import KVCacheConfig, StateManager, build_batch, placeholder
 from .ragged.batch import MIN_PAGES, MIN_SLOTS, _bucket
+from .ragged.kv_cache import pages_for_memory
 from .sampling import SamplingParams
 
 
@@ -124,12 +132,39 @@ class InferenceEngineV2:
             prefix_caching=self._config.serving.prefix_caching)
 
     def _resolve_kv_config(self, model: RaggedInferenceModel) -> KVCacheConfig:
-        """The cache the engine builds: the model's page geometry and
-        dtype (given or default), with the serving knob
-        ``kv_quantization`` in place of the model's cache encoding (it is
-        an encoding, not geometry)."""
+        """The cache the engine builds, with the serving knob
+        ``kv_quantization`` as its encoding (an encoding, not geometry).
+        A model given a ``kv_config`` keeps its geometry; otherwise
+        ``config.kv_cache`` sets it, and ``num_pages=None`` takes as many
+        pages as ``state_manager.memory_fraction`` of the free device
+        memory holds (on the CPU, which reports none, the model's
+        default count)."""
         quant = self._config.serving.kv_quantization or "none"
-        return dataclasses.replace(model.kv_config, quantization=quant)
+        if model.kv_config_explicit:
+            return dataclasses.replace(model.kv_config, quantization=quant)
+        user = self._config.kv_cache
+        kv_cfg = dataclasses.replace(
+            model.kv_config, page_size=user.page_size,
+            num_pages=user.num_pages or model.kv_config.num_pages,
+            dtype=user.dtype, quantization=quant)
+        if user.num_pages is None:
+            free = self._free_device_memory(model.device)
+            if free is not None:
+                budget = int(free * self._config.state_manager.memory_fraction)
+                kv_cfg = dataclasses.replace(
+                    kv_cfg, num_pages=pages_for_memory(kv_cfg, budget))
+        return kv_cfg
+
+    @staticmethod
+    def _free_device_memory(device: torch.device) -> Optional[int]:
+        """Bytes a new KV pool could take on ``device``: the free device
+        memory (``torch.cuda.mem_get_info``) plus what PyTorch's caching
+        allocator holds unused; None on the CPU."""
+        if device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(device)
+        return free + (torch.cuda.memory_reserved(device)
+                       - torch.cuda.memory_allocated(device))
 
     # -- the step lattice ----------------------------------------------------
     def precompile(self, max_prompt: int, max_concurrency: int = 0,
@@ -139,10 +174,10 @@ class InferenceEngineV2:
         (``lattice_keys``) before serving, so no capture lands on the
         request path: S up to ``max_concurrency`` (default: the state
         manager's ``max_ragged_sequence_count``), Q up to ``max_prompt``,
-        P up to ``max_prompt + max_new_tokens`` tokens.  ``sampling``
-        adds the sample and chain keys (the scheduler's steps; the logits
-        keys serve ``forward``, which runs eagerly).  ``strict`` makes
-        any later key outside the set raise.  A failed capture raises.
+        P up to ``max_prompt + max_new_tokens`` tokens.  The logits keys
+        serve ``put`` (the split step); ``sampling`` adds the sample and
+        chain keys (the fused scheduler's steps).  ``strict`` makes any
+        later key outside the set raise.  A failed capture raises.
         Returns the keys."""
         sm = self._config.state_manager
         keys = lattice_keys(
@@ -272,10 +307,18 @@ class InferenceEngineV2:
 
     def _commit_batch(self, descs) -> None:
         """Commit the host bookkeeping (the token VALUES may still be on
-        their way from the device) and index newly full prompt pages."""
+        their way from the device), index newly full prompt pages, then
+        release the pages a sliding window has left behind (in that
+        order: an indexed page the window releases stays parked in the
+        prefix cache)."""
+        window = self._model.cfg.sliding_window
         for sd in descs:
             sd.post_forward()
             self._state.index_prefix(sd)
+            if window:
+                # every later query starts past these pages: live KV
+                # stays O(window), not O(context)
+                self._state.evict_window(sd, window)
 
     def _build_batch(self, descs, tokens):
         return build_batch(
@@ -285,14 +328,35 @@ class InferenceEngineV2:
 
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[np.ndarray],
-            do_checks: bool = True) -> torch.Tensor:
-        """One ragged forward; returns fp32 logits [len(batch_uids), V]
-        in input order, on the model's device."""
+            do_checks: bool = True,
+            fused: Optional[bool] = None) -> torch.Tensor:
+        """Ragged forward; returns fp32 logits [len(batch_uids), V] in
+        input order, on the model's device.  ``fused`` (None: the
+        engine's ``serving.fused_step``) runs one forward over one
+        superbucket; False runs one forward per Q bucket, so decode rows
+        never pad to a prefill chunk's width."""
+        if fused is None:
+            fused = self._config.serving.fused_step
         descs = self._admit_batch(batch_uids, batch_tokens, do_checks)
-        batch = self._build_batch(descs, batch_tokens)
-        logits = self._model.forward(batch, self._state.kv_cache.data)
+        kv = self._state.kv_cache.data
+        if fused:
+            batch = self._build_batch(descs, batch_tokens)
+            logits = self._model.forward(batch, kv)[:len(batch_uids)]
+            self._commit_batch(descs)
+            return logits
+        groups: Dict[int, List[int]] = {}
+        for i, toks in enumerate(batch_tokens):
+            groups.setdefault(_bucket(len(toks)), []).append(i)
+        rows: List[Optional[torch.Tensor]] = [None] * len(batch_uids)
+        for q in sorted(groups):
+            idxs = groups[q]
+            logits = self._model.forward(self._build_batch(
+                [descs[i] for i in idxs], [batch_tokens[i] for i in idxs]),
+                kv)
+            for row, i in enumerate(idxs):
+                rows[i] = logits[row]
         self._commit_batch(descs)
-        return logits[:len(batch_uids)]
+        return torch.stack(rows)
 
     @staticmethod
     def _pad_sample_params(row_params, S):
@@ -399,3 +463,14 @@ class InferenceEngineV2:
 
     def flush(self, uid: int) -> None:
         self._state.flush_sequence(uid)
+
+    def offload_sequence(self, uid: int) -> None:
+        """Preempt a sequence: its private KV pages move to host memory
+        and return to the pool.  It cannot be stepped until
+        ``restore_sequence``."""
+        self._state.offload_sequence(uid)
+
+    def restore_sequence(self, uid: int) -> None:
+        """Bring a preempted sequence's KV back into fresh pages (raises
+        ``KVAllocationError`` when the pool lacks them)."""
+        self._state.restore_sequence(uid)

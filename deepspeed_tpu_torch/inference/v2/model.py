@@ -1,15 +1,16 @@
 """Ragged inference model over the shared transformer blocks.
 
 Counterpart of ``deepspeed_tpu/inference/v2/model.py``.  The JAX package
-compiles one program per step key (``(S, Q, P, fresh)`` plus the step
-kind) and donates the KV cache to it.  Here each sampling step and each
-chained step of a key is ONE ``torch.cuda.CUDAGraph`` on the card,
-captured at the key's first use (or by ``precompile_step``) over static
-input buffers and replayed after the host copies each step's arrays into
-them; on the CPU the same key bookkeeping runs and the step body runs
-eagerly.  ``forward`` (logits only) runs eagerly everywhere.  The KV
-cache is written IN PLACE (``write_kv``'s indexed assignment into the
-cache tensor), so the steps return only tokens or logits.  Attention,
+compiles one program per step key (``(S, Q, P, fresh)`` for a logits
+forward, plus the step kind for a sampling or chained step) and donates
+the KV cache to it.  Here each step of a key is ONE
+``torch.cuda.CUDAGraph`` on the card, captured at the key's first use
+(or by ``precompile_step``) over static input buffers and replayed after
+the host copies each step's arrays into them; on the CPU the same key
+bookkeeping runs and the step body runs eagerly (``_call`` runs it
+eagerly on the card too).  The KV cache is written IN PLACE
+(``write_kv``'s indexed assignment into the cache tensor), so the steps
+return only tokens or logits.  Attention,
 norm, embedding and unembedding come from the ``modules`` registry: on
 the card the hand-written kernels (a model they do not take raises), on
 the CPU or when named the plain versions.
@@ -48,8 +49,10 @@ def _input_specs(key) -> List[Tuple[Tuple[int, ...], np.dtype]]:
     params and the KV cache, the generator left out (it stands before
     the three sampling rows)."""
     S, Q, P = key[:3]
-    kind = key[4]
+    kind = _kind(key)
     batch = [((S, Q), _I32), ((S,), _I32), ((S,), _I32), ((S, P), _I32)]
+    if kind == "logits":
+        return batch
 
     def rows(n):
         return [((n,), _F32), ((n,), _I32), ((n,), _F32)]
@@ -67,11 +70,19 @@ def _input_specs(key) -> List[Tuple[Tuple[int, ...], np.dtype]]:
 
 
 #: step kind -> the length of its keys
-_KEY_LENGTHS = {"sample": 6, "chain": 7, "mixed": 10}
+_KEY_LENGTHS = {"logits": 4, "sample": 6, "chain": 7, "mixed": 10}
+
+
+def _kind(key) -> str:
+    """A key's step kind: a bare ``(S, Q, P, fresh)`` is a logits
+    forward."""
+    return key[4] if len(key) > 4 else "logits"
 
 
 def _stochastic(key) -> bool:
-    return not key[-1]  # every sampling kind ends with greedy_only
+    # every sampling kind ends with greedy_only; a logits step draws
+    # nothing
+    return len(key) > 4 and not key[-1]
 
 
 class _StepGraph:
@@ -168,6 +179,9 @@ class RaggedInferenceModel:
         self._attention = impl["ragged_attention"]
         self._fresh_attention = impl["fresh_prefill_attention"]
         self._unembed = impl["unembed"]
+        #: the caller fixed the cache geometry; otherwise the engine's
+        #: ``kv_cache`` config sets it (and may size it from free memory)
+        self.kv_config_explicit = kv_config is not None
         self.kv_config = kv_config or KVCacheConfig(
             num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
             head_dim=cfg.dims_per_head, dtype=cfg.dtype)
@@ -184,13 +198,12 @@ class RaggedInferenceModel:
         self._graph_shared: Optional[tuple] = None
 
     # -- public steps --------------------------------------------------------
-    @torch.no_grad()
     def forward(self, batch: RaggedBatch, kv: KVLayer) -> torch.Tensor:
-        """One ragged forward, eager; returns fp32 logits [S, V] (rows
-        past the live sequences are padding).  ``kv`` is updated in
-        place."""
-        return self._step_impl(self.params, kv, *self._batch_tensors(batch),
-                               fresh=batch.fresh)
+        """One ragged forward keyed ``(S, Q, P, fresh)``; returns fp32
+        logits [S, V] (rows past the live sequences are padding).  ``kv``
+        is updated in place."""
+        return self._dispatch(self._normalize_key(batch.shape_key), kv,
+                              None, self._batch_arrays(batch))
 
     @staticmethod
     def _batch_arrays(batch: RaggedBatch) -> tuple:
@@ -267,12 +280,12 @@ class RaggedInferenceModel:
         when it is none this model forms: a wrong length or field, or a
         kind the port does not run (the speculative kinds, item 8)."""
         key = tuple(key)
-        kind = key[4] if len(key) > 4 else None
-        if len(key) != (4 if kind is None else _KEY_LENGTHS.get(str(kind))):
+        kind = _kind(key) if len(key) >= 4 else None
+        if kind is None or len(key) != _KEY_LENGTHS.get(str(kind)):
             raise ValueError(f"not a step key of this model: {key!r}")
         dims = key[:3] + (key[5:8] if kind == "mixed" else ())
         flags = (key[3],) + ((key[8],) if kind == "mixed" else ()) + (
-            (key[-1],) if kind else ())
+            (key[-1],) if kind != "logits" else ())
         if kind == "chain":
             dims += (key[5],)
         if not all(isinstance(d, (int, np.integer))
@@ -283,7 +296,11 @@ class RaggedInferenceModel:
 
     def _call(self, key, kv, generator, *inputs) -> torch.Tensor:
         """The step body of ``key`` over tensors (eager)."""
-        kind = key[4]
+        kind = _kind(key)
+        if kind == "logits":
+            with torch.no_grad():
+                return self._step_impl(self.params, kv, *inputs,
+                                       fresh=key[3])
         if kind == "sample":
             fn = functools.partial(self._sample_step_impl, fresh=key[3],
                                    greedy_only=key[5])
@@ -350,13 +367,10 @@ class RaggedInferenceModel:
 
     def precompile_step(self, key: tuple, kv: KVLayer) -> None:
         """Capture one step key's graph before serving (JAX: AOT-compile
-        it).  A logits key ``(S, Q, P, fresh)`` serves ``forward``, which
-        runs eagerly: it is recorded and nothing is captured."""
+        it)."""
         key = self.check_key(key)
-        if key in self._step_cache:
-            return
-        self._step_cache[key] = (self._new_step(key, kv) if len(key) > 4
-                                 else None)
+        if key not in self._step_cache:
+            self._step_cache[key] = self._new_step(key, kv)
 
     def reset_steps(self) -> None:
         """Drop every captured graph and the key bookkeeping (the model
@@ -364,11 +378,6 @@ class RaggedInferenceModel:
         self._step_cache.clear()
         self.dispatch_counts.clear()
         self.strict_shapes = False
-
-    def _batch_tensors(self, batch: RaggedBatch):
-        dev = self.device
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in self._batch_arrays(batch))
 
     def _lm_head(self, params) -> torch.Tensor:
         cfg = self.cfg

@@ -1,12 +1,15 @@
 """Persistent state manager: tracked sequences + blocked KV cache.
 
 Counterpart of ``deepspeed_tpu/inference/v2/ragged/manager.py`` without
-tiers, offload or export/import.  The manager owns the
-:class:`PrefixCache` and is the one place pages leave a block table, so
-every release is shared-page aware: a page returns to the free list only
-when its last sharer drops it AND the prefix cache no longer keeps it.
-``free_pages`` counts free-list pages plus parked ones: the cache is the
-otherwise idle pool, reclaimed LRU under allocation pressure.
+tiers or export/import.  The manager owns the :class:`PrefixCache` and
+is the one place pages leave a block table (flush, preemption offload,
+sliding-window eviction), so every release is shared-page aware: a page
+returns to the free list only when its last sharer drops it AND the
+prefix cache no longer keeps it.  ``free_pages`` counts free-list pages
+plus parked ones: the cache is the otherwise idle pool, reclaimed LRU
+under allocation pressure.  A preempted sequence holds its private
+pages in a host blob (``offload_sequence``); the manager counts those
+blobs and their bytes, and ``check_invariants`` audits the counts.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .blocked_allocator import NULL_PAGE
 from .kv_cache import BlockedKVCache, KVCacheConfig
 from .prefix_cache import PrefixCache
 from .sequence import SequenceDescriptor
@@ -32,6 +36,20 @@ class StateManager:
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(kv_config.page_size) if prefix_caching else None)
         self._seqs: Dict[int, SequenceDescriptor] = {}
+        # host blobs of preempted sequences, which the page counts do not
+        # see: a flush of a preempted sequence must release its blob
+        self._offload_blobs = 0
+        self._offload_bytes = 0
+
+    @property
+    def offloaded_blobs(self) -> int:
+        """Sequences holding an offloaded host blob."""
+        return self._offload_blobs
+
+    @property
+    def offloaded_blob_bytes(self) -> int:
+        """Host bytes those blobs hold."""
+        return self._offload_bytes
 
     @property
     def n_tracked_sequences(self) -> int:
@@ -100,7 +118,8 @@ class StateManager:
         sequence: full pages only, leaving at least one suffix token to
         prefill (the step needs last-token logits).  Registers the prompt
         for indexing either way.  Returns the tokens attached."""
-        if self.prefix_cache is None or sd.seen_tokens or sd.pages:
+        if self.prefix_cache is None or sd.seen_tokens or sd.pages \
+                or sd.host_blob is not None:
             return 0  # a started sequence keeps its registration
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         sd.prompt_tokens = prompt
@@ -130,7 +149,9 @@ class StateManager:
         for i in range(sd.indexed_pages, full):
             digest = self.prefix_cache.chain(
                 sd.last_digest, sd.prompt_tokens[i * page:(i + 1) * page])
-            self.prefix_cache.insert(digest, sd.pages[i])
+            p = sd.pages[i] if i < len(sd.pages) else NULL_PAGE
+            if p != NULL_PAGE:  # a window-evicted slot has no page
+                self.prefix_cache.insert(digest, int(p))
             sd.last_digest = digest
             sd.indexed_pages = i + 1
 
@@ -145,10 +166,81 @@ class StateManager:
             alloc.reclaim(parked)
 
     # -- lifecycle ----------------------------------------------------------
+    def offloadable_slots(self, sd: SequenceDescriptor) -> List[int]:
+        """Table slots an offload would move to the host: non-null and
+        held by this sequence alone (refcount 1).  Shared pages stay
+        resident; the scheduler ranks preemption victims by this count,
+        so a victim whose pages are all shared is never picked."""
+        alloc = self.kv_cache.allocator
+        return [i for i, p in enumerate(sd.pages)
+                if p != NULL_PAGE and alloc.ref_count(p) == 1]
+
+    def _release_blob(self, sd: SequenceDescriptor) -> None:
+        self._offload_blobs -= 1
+        self._offload_bytes -= sd.host_blob.nbytes
+        sd.host_blob = None
+        sd.live_slots = []
+
     def flush_sequence(self, uid: int) -> None:
         sd = self._seqs.pop(uid, None)
         if sd is not None:
-            self._release_pages(sd.pages)
+            # window eviction leaves null slots: not this sequence's pages
+            self._release_pages([p for p in sd.pages if p != NULL_PAGE])
+            if sd.host_blob is not None:
+                # a request that ends while preempted releases its blob
+                self._release_blob(sd)
+
+    def offload_sequence(self, uid: int) -> None:
+        """Preempt: move a sequence's private live pages to a host blob
+        and free them.  Shared pages stay resident (freeing them would
+        take KV from under the sharers); private pages the prefix cache
+        indexes are unindexed and offloaded, and the sequence stops
+        indexing (its digest chain now passes through unindexed pages,
+        so any later entry could never be matched).  The sequence stays
+        tracked and is not schedulable until ``restore_sequence``."""
+        sd = self._seqs.get(uid)
+        if sd is None or sd.host_blob is not None:
+            return
+        sd.live_slots = self.offloadable_slots(sd)
+        live = [sd.pages[i] for i in sd.live_slots]
+        if not live:
+            return
+        if self.prefix_cache is not None:
+            dropped = [p for p in live if self.prefix_cache.contains_page(p)]
+            if dropped:
+                self.prefix_cache.drop_pages(dropped)
+                sd.prompt_tokens = None
+        sd.host_blob = self.kv_cache.offload_pages(live)
+        self._offload_blobs += 1
+        self._offload_bytes += sd.host_blob.nbytes
+        for i in sd.live_slots:
+            sd.pages[i] = NULL_PAGE
+
+    def restore_sequence(self, uid: int) -> None:
+        """Bring a preempted sequence's pages back to the device, into
+        fresh pages at their old table slots.  Raises
+        ``KVAllocationError`` when the pool lacks the pages."""
+        sd = self._seqs.get(uid)
+        if sd is None or sd.host_blob is None:
+            return
+        self.ensure_free(int(sd.host_blob.shape[1]))
+        pages = self.kv_cache.restore_pages(sd.host_blob)
+        for slot, p in zip(sd.live_slots, pages):
+            sd.pages[slot] = int(p)
+        self._release_blob(sd)
+
+    def evict_window(self, sd: SequenceDescriptor, window: int) -> int:
+        """Release every page wholly below ``seen_tokens - window + 1``,
+        the earliest position a later query can attend.  A shared page
+        only loses this sequence's reference (its sharers and the prefix
+        cache keep it).  Returns the number of slots cleared."""
+        min_attended = sd.seen_tokens - window + 1
+        if min_attended <= 0:
+            return 0
+        freed = sd.evict_pages_below(min_attended // self.kv_config.page_size)
+        if freed:
+            self._release_pages(freed)
+        return len(freed)
 
     def pages_needed(self, sd: SequenceDescriptor, n_new_tokens: int) -> int:
         """Extra pages required to hold ``n_new_tokens`` more tokens."""
@@ -165,12 +257,14 @@ class StateManager:
     def check_invariants(self) -> None:
         """Page-accounting audit: every block-table reference is backed
         by exactly one allocator reference, ``free + live + parked ==
-        total``, and every parked page is still prefix-cache indexed.
+        total``, every parked page is still prefix-cache indexed, and
+        the offloaded-blob counters match the tracked sequences.
         Raises RuntimeError on a violation (the scheduler runs it after
         every step under ``DS_KV_DEBUG=1``)."""
         alloc = self.kv_cache.allocator
         alloc.audit()
-        refs = Counter(p for sd in self._seqs.values() for p in sd.pages)
+        refs = Counter(p for sd in self._seqs.values() for p in sd.pages
+                       if p != NULL_PAGE)
         for p, n in refs.items():
             if not alloc.is_allocated(p):
                 raise RuntimeError(
@@ -190,6 +284,15 @@ class StateManager:
             raise RuntimeError(
                 f"KV invariant: free({alloc.free_pages}) + live({live}) "
                 f"+ cached({parked}) != total({alloc.total_pages})")
+        blobs = [sd.host_blob for sd in self._seqs.values()
+                 if sd.host_blob is not None]
+        blob_bytes = sum(b.nbytes for b in blobs)
+        if (len(blobs), blob_bytes) != (self._offload_blobs,
+                                        self._offload_bytes):
+            raise RuntimeError(
+                f"KV invariant: the offload counters say "
+                f"{self._offload_blobs} blobs / {self._offload_bytes} "
+                f"bytes, the sequences hold {len(blobs)} / {blob_bytes}")
         if parked:
             if self.prefix_cache is None:
                 raise RuntimeError(

@@ -18,6 +18,11 @@ class SequenceDescriptor:
     pages: List[int] = dataclasses.field(default_factory=list)
     #: tokens in flight in the current forward (pre_forward..post_forward)
     in_flight_tokens: int = 0
+    #: the host KV blob while preempted (``offload_sequence``), else None
+    host_blob: object = None
+    #: the table slots the blob's pages came from (window-evicted slots
+    #: stay null through an offload/restore cycle)
+    live_slots: List[int] = dataclasses.field(default_factory=list)
     #: the full prompt, registered at admission under prefix caching: the
     #: indexer hashes full prompt pages from it (generated tokens are
     #: never indexed: under the async chain their values reach the host
@@ -41,6 +46,19 @@ class SequenceDescriptor:
 
     def extend_pages(self, pages: np.ndarray) -> None:
         self.pages.extend(int(p) for p in pages)
+
+    def evict_pages_below(self, first_live_page: int) -> List[int]:
+        """Sliding-window eviction: pages wholly below the attention
+        window are dead for every later query (positions only grow).
+        Their table slots become the null page, which the windowed
+        attention paths skip, and the page ids are returned for release.
+        The table stays positional (slot = position // page_size)."""
+        freed = []
+        for i in range(min(first_live_page, len(self.pages))):
+            if self.pages[i] != 0:
+                freed.append(self.pages[i])
+                self.pages[i] = 0
+        return freed
 
     def page_table(self, max_pages: int) -> np.ndarray:
         """Block table row padded with the null page to ``max_pages``."""

@@ -4,10 +4,13 @@ Counterpart of ``deepspeed_tpu/inference/v2/sampling.py``.  The filter
 (temperature, top-k, top-p) is deterministic and matches the JAX one;
 the categorical draw takes its randomness from an explicit
 ``torch.Generator``, so sampled tokens differ from ``jax.random``'s and
-are compared by distribution only.  The draw is ``torch.multinomial``'s
-own one-sample path written out (exponential noise, argmax of p / q):
-the same numbers from the same generator, without the host checks that
-``multinomial`` syncs on, so a CUDA graph can capture it.
+are compared by distribution only.  :func:`sample_dynamic` takes
+per-row parameters (the fused step); :func:`sample` one set for all rows
+(the split path, one call per group, on the logits' device).  The draw
+is ``torch.multinomial``'s own one-sample path written out (exponential
+noise, argmax of p / q): the same numbers from the same generator,
+without the host checks that ``multinomial`` syncs on, so a CUDA graph
+can capture it.
 """
 
 from __future__ import annotations
@@ -71,3 +74,20 @@ def sample_dynamic(logits: torch.Tensor, generator: torch.Generator,
     q = torch.empty_like(probs).exponential_(1, generator=generator)
     sampled = torch.argmax(probs / q, dim=-1)
     return torch.where(is_greedy, greedy_tok, sampled.to(torch.int32))
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator, *,
+           temperature: float = 0.0, top_k: int = 0,
+           top_p: float = 1.0) -> torch.Tensor:
+    """logits [S, V] -> token ids [S] int32, every row with the same
+    parameters.  Temperature 0 is the argmax and draws nothing; else one
+    draw from ``generator`` for the whole call."""
+    if temperature <= 0.0:
+        return greedy(logits)
+    S = logits.shape[0]
+
+    def row(v, dtype):
+        return torch.full((S,), v, dtype=dtype, device=logits.device)
+
+    return sample_dynamic(logits, generator, row(temperature, torch.float32),
+                          row(top_k, torch.int32), row(top_p, torch.float32))

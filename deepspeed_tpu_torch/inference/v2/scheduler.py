@@ -1,12 +1,21 @@
 """Continuous-batching scheduler (Dynamic SplitFuse).
 
-Counterpart of ``deepspeed_tpu/inference/v2/scheduler.py`` for the fused
-path.  Every step fills a fixed token budget: running decodes first (one
-token each), then prompt *chunks* of admitted requests, so long prompts
-are split across steps and fused with decodes.  Each step is one
-``InferenceEngineV2.step_sample`` (forward + on-device sampling), and
-admission runs on incremental page/token/sequence counters
-(``_Admission``), as in the JAX package.
+Counterpart of ``deepspeed_tpu/inference/v2/scheduler.py``.  Every step
+fills a fixed token budget: running decodes first (one token each), then
+prompt *chunks* of admitted requests, so long prompts are split across
+steps and fused with decodes.  Admission runs on incremental
+page/token/sequence counters (``_Admission``), as in the JAX package.
+
+With ``fused_step`` and ``on_device_sampling`` (the defaults) each step
+is one ``InferenceEngineV2.step_sample`` (forward + on-device sampling),
+and only int32 tokens reach the host.  With either flag off the step
+takes the split escape hatch: ``put`` returns the [n, V] fp32 logits
+and each group of requests that share (temperature, top_k, top_p) is
+sampled from them in a call of its own outside the step, on the logits'
+device, with one generator draw per stochastic group; only the int32
+tokens reach the host, as on the fused path.  Under strict shapes a
+step whose fused key was not precompiled (a mixed step, or a superbucket
+outside the lattice) also serves split.
 
 With ``async_scheduling`` (the default) the scheduler double-buffers: a
 step of pure decodes whose rows all sat in the step still in flight is
@@ -18,16 +27,28 @@ that extra token is discarded at the drain.  With ``prefix_caching``
 (the default) each new request is matched once against the prefix cache
 before its first admission and only its uncached suffix is prefilled.
 
-Not ported yet (ROADMAP Queue 1 items 4b, 8, 9): speculation,
-preemption, shedding/TTL, snapshots and handoffs; a ``serving`` config
-asking for one of them raises.  When nothing is schedulable,
-``run_to_completion`` raises instead of preempting.
+When the KV pool runs short the scheduler degrades instead of failing:
+when nothing is schedulable it preempts the running sequence with the
+most private KV (its pages go to host memory) and resumes it once the
+pool has room; a failed page allocation runs a ladder (reclaim parked
+prefix pages, then preempt, then shed the most demanding request with a
+structured ``"oom"`` error).  Requests may carry a TTL, admission may
+be bounded (``max_queue_depth``, ``shed_queue_wait_ms``) and closed
+(``close`` / ``reopen``); a request that ends without completing leaves
+a :class:`RequestError` in ``errors``.
+
+Not ported yet (ROADMAP Queue 1 items 8, 9, 11i, 12): speculation,
+snapshots and handoffs, the fault injector's poisoned requests, and the
+telemetry that can veto a queue-wait shed; a ``serving`` config asking
+for one of them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,7 +56,8 @@ import torch
 
 from .config import ServingOptimizationConfig
 from .engine import InferenceEngineV2
-from .sampling import SamplingParams
+from .ragged.blocked_allocator import NULL_PAGE, KVAllocationError
+from .sampling import SamplingParams, sample
 
 
 @dataclasses.dataclass
@@ -50,10 +72,32 @@ class Request:
     done: bool = False
     #: the one prefix-cache lookup has run
     prefix_checked: bool = False
+    #: absolute ``time.monotonic()`` deadline; None = no TTL
+    deadline: Optional[float] = None
+    #: ``time.monotonic()`` at submit (the queue-wait shed reads it)
+    submit_mono: float = 0.0
 
     @property
     def prefill_remaining(self) -> int:
         return len(self.prompt) - self.prompt_sent
+
+
+@dataclasses.dataclass
+class RequestError:
+    """Why a request ended without completing.  ``code`` is one of
+    ``"shed"`` (admission control: a full queue, a violated queue-wait
+    SLO, or unservable demand), ``"expired"`` (its deadline passed),
+    ``"oom"`` (the KV pool stayed exhausted after the degradation
+    ladder) or ``"closing"`` (submitted after ``close``).  ``tokens``
+    holds what the request generated before it ended."""
+    uid: int
+    code: str
+    message: str
+    tokens: List[int] = dataclasses.field(default_factory=list)
+
+
+#: the most verdicts ``FastGenScheduler.errors`` keeps (oldest go first)
+_MAX_ERROR_RECORDS = 4096
 
 
 @dataclasses.dataclass
@@ -110,14 +154,23 @@ class _Admission:
         return True
 
 
+def _group_key(p: SamplingParams) -> tuple:
+    """Host-sampling group of a row: every greedy row shares one group
+    whatever its top_k / top_p (they do nothing at temperature 0)."""
+    if p.temperature <= 0.0:
+        return (0.0, 0, 1.0)
+    return (p.temperature, p.top_k, p.top_p)
+
+
 class FastGenScheduler:
     """Drives an InferenceEngineV2 with the SplitFuse policy.  ``seed``
-    seeds the ``torch.Generator`` (on the model's device) that sampled
-    rows draw from; greedy-only steps never touch it.  ``serving``
-    (default: the engine's) sets ``async_scheduling`` and
-    ``prefix_caching`` for this scheduler; its ``kv_quantization`` must
-    be the engine's.  With ``DS_KV_DEBUG=1`` in the environment the KV
-    page accounting is audited after every step."""
+    seeds the ``torch.Generator`` (on the model's device) that the fused
+    steps' sampled rows draw from, and the host generator of the split
+    path; greedy-only steps touch neither.  ``serving`` (default: the
+    engine's) sets the step flags and the degradation knobs for this
+    scheduler; its ``kv_quantization`` must be the engine's.  With
+    ``DS_KV_DEBUG=1`` in the environment the KV page accounting is
+    audited after every step."""
 
     def __init__(self, engine: InferenceEngineV2,
                  token_budget: Optional[int] = None, seed: int = 0,
@@ -132,8 +185,13 @@ class FastGenScheduler:
                     f"but the engine's cache was built as {built!r}; the "
                     f"page encoding is fixed at engine build")
         sv = serving if serving is not None else engine._config.serving
-        self._async = bool(sv.async_scheduling)
+        self._serving = sv
+        self._fused_cfg = bool(sv.fused_step and sv.on_device_sampling)
+        self._async_cfg = bool(self._fused_cfg and sv.async_scheduling)
         self._prefix_cfg = bool(sv.prefix_caching)
+        #: latches of the strict-shapes check in ``_fused``
+        self._fused_ready = False
+        self._warned_strict_fallback = False
         self._kv_debug = os.environ.get("DS_KV_DEBUG", "") not in ("", "0")
         self._budget = (token_budget or
                         engine._config.state_manager.max_ragged_batch_size)
@@ -142,36 +200,185 @@ class FastGenScheduler:
         self._inflight: Optional[_Inflight] = None
         self._pending: List[Request] = []     # waiting for first prefill
         self._running: Dict[int, Request] = {}
+        self._preempted: Dict[int, Request] = {}  # KV offloaded to host
+        self._preempted_this_step = False
         self.last_step_scheduled = 0
+        self._max_queue_depth = int(sv.max_queue_depth or 0)
+        self._shed_queue_wait_ms = float(sv.shed_queue_wait_ms or 0.0)
+        self._default_ttl_s = float(sv.default_ttl_s or 0.0)
+        self._shed_unservable = bool(sv.shed_unservable)
+        #: structured verdicts of requests that ended without completing
+        self.errors: Dict[int, RequestError] = {}
+        #: a live request carries a deadline (else no step scans for one)
+        self._has_deadlines = False
+        #: consecutive steps lost to a failed page allocation (the
+        #: degradation ladder climbs with it)
+        self._oom_streak = 0
+        self._closed = False
 
+    # -- request lifecycle ---------------------------------------------------
     def submit(self, uid: int, prompt: Sequence[int],
-               params: Optional[SamplingParams] = None) -> None:
-        if uid in self._running or any(r.uid == uid for r in self._pending):
+               params: Optional[SamplingParams] = None,
+               ttl_s: Optional[float] = None) -> Optional[RequestError]:
+        """Queue a request.  Returns None when it is accepted, else the
+        :class:`RequestError` that rejects it at once (also kept in
+        ``errors``): the scheduler is closed (``"closing"``), the queue
+        holds ``max_queue_depth`` requests, or the oldest pending request
+        has waited past ``shed_queue_wait_ms`` (``"shed"``).  ``ttl_s``
+        (default: the config's ``default_ttl_s``) sets a deadline past
+        which the request ends with an ``"expired"`` error."""
+        now = time.monotonic()
+        req = Request(uid=uid, prompt=np.asarray(prompt, dtype=np.int32),
+                      params=params or SamplingParams(), submit_mono=now)
+        if self._closed:
+            return self._reject_submit(
+                req, "closing", "scheduler is closed to new requests "
+                "(drain or shutdown); resubmit elsewhere")
+        ttl = ttl_s if ttl_s is not None else (self._default_ttl_s or None)
+        if ttl:
+            req.deadline = now + float(ttl)
+            self._has_deadlines = True
+        if self._max_queue_depth and \
+                len(self._pending) >= self._max_queue_depth:
+            return self._reject_submit(
+                req, "shed", f"admission queue full ({len(self._pending)} "
+                f"pending >= max_queue_depth={self._max_queue_depth})")
+        if self._shed_queue_wait_ms > 0.0 and self._pending:
+            oldest_ms = (now - self._pending[0].submit_mono) * 1e3
+            if oldest_ms > self._shed_queue_wait_ms:
+                return self._reject_submit(
+                    req, "shed", f"queue-wait SLO "
+                    f"{self._shed_queue_wait_ms:.1f}ms violated (oldest "
+                    f"pending {oldest_ms:.1f}ms)")
+        if self._is_live(uid):
             raise ValueError(f"request {uid} is already live")
-        self._pending.append(Request(
-            uid=uid, prompt=np.asarray(prompt, dtype=np.int32),
-            params=params or SamplingParams()))
+        self._pending.append(req)
+        return None
+
+    def _is_live(self, uid: int) -> bool:
+        return (uid in self._running or uid in self._preempted
+                or any(r.uid == uid for r in self._pending))
+
+    def _reject_submit(self, req: Request, code: str,
+                       message: str) -> RequestError:
+        """Reject a submit at once.  A live request with the same uid (a
+        client retrying its uid) keeps its place, pages and eventual
+        verdict: the verdict of the new submit is returned but not
+        stored."""
+        if self._is_live(req.uid):
+            return RequestError(uid=req.uid, code=code, message=message)
+        self._fail_request(req, code, message)
+        return self.errors[req.uid]
+
+    def _fail_request(self, req: Request, code: str, message: str) -> None:
+        """End ``req`` with a structured error: it leaves every queue,
+        its engine state is flushed, and its tokens so far stay on the
+        record.  A row of it still in flight is dropped at the drain
+        (``req.done``, as past a stop token)."""
+        req.done = True
+        self._pending = [r for r in self._pending if r.uid != req.uid]
+        self._running.pop(req.uid, None)
+        self._preempted.pop(req.uid, None)
+        if self._engine.state_manager.get_sequence(req.uid) is not None:
+            self._engine.flush(req.uid)
+        self.errors[req.uid] = RequestError(
+            uid=req.uid, code=code, message=message,
+            tokens=list(req.generated))
+        while len(self.errors) > _MAX_ERROR_RECORDS:
+            self.errors.pop(next(iter(self.errors)))   # the oldest
+
+    def _expire_requests(self) -> None:
+        """End every request whose deadline has passed: pending, running
+        and preempted alike."""
+        if not self._has_deadlines:
+            return
+        now = time.monotonic()
+        expired = [r for r in (self._pending + list(self._running.values())
+                               + list(self._preempted.values()))
+                   if r.deadline is not None and now >= r.deadline]
+        for req in expired:
+            self._fail_request(
+                req, "expired", f"deadline passed ({len(req.generated)} "
+                f"tokens generated, {req.prefill_remaining} prompt tokens "
+                "unprefilled)")
 
     @property
     def has_work(self) -> bool:
-        return bool(self._pending or self._running
+        return bool(self._pending or self._running or self._preempted
                     or self._inflight is not None)
 
-    def _finish_request(self, req: Request) -> None:
-        req.done = True
-        self._engine.flush(req.uid)
-        self._running.pop(req.uid, None)
+    @property
+    def backlog(self) -> int:
+        """Live requests: pending + running + preempted."""
+        return (len(self._pending) + len(self._running)
+                + len(self._preempted))
 
-    def _deliver(self, req: Request, tok: int, out: Dict[int, int],
-                 on_token) -> None:
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def close(self) -> None:
+        """Stop admission: every later ``submit`` ends at once with a
+        ``"closing"`` error.  Live requests keep being served."""
+        self._closed = True
+
+    def reopen(self) -> None:
+        """Resume admission after ``close``."""
+        self._closed = False
+
+    @property
+    def _fused(self) -> bool:
+        """Fused serving, unless the engine is strict and precompiled no
+        sample key: strict means "serve only captured steps", so such a
+        scheduler serves split (warned once)."""
+        if not self._fused_cfg:
+            return False
+        model = self._engine.model
+        if not model.strict_shapes or self._fused_ready:
+            return True
+        if self._warned_strict_fallback:
+            return False
+        if any(len(k) > 4 and k[4] == "sample" for k in model._step_cache):
+            self._fused_ready = True
+            return True
+        warnings.warn(
+            "strict_shapes engine has no precompiled sample keys: this "
+            "scheduler serves through the split path; precompile with "
+            "sampling=True for the fused step")
+        self._warned_strict_fallback = True
+        return False
+
+    @property
+    def _async(self) -> bool:
+        return self._async_cfg and self._fused
+
+    def _strict_key_ok(self, uids, tokens, suffix: tuple) -> bool:
+        """Under strict shapes a step goes where its predicted key was
+        captured: bucket rounding can form a key the lattice skips (S * Q
+        past the token budget) even when the tokens fit."""
+        model = self._engine.model
+        if not model.strict_shapes:
+            return True
+        return (self._engine.predict_step_key(uids, tokens, suffix)
+                in model._step_cache)
+
+    # -- delivery ------------------------------------------------------------
+    def _deliver_token(self, req: Request, tok: int, out: Dict[int, int],
+                       on_token) -> bool:
+        """Append one token and deliver it; True when it ends the
+        request (``max_new_tokens`` reached or the stop token)."""
         req.generated.append(tok)
         out[req.uid] = tok
         if on_token is not None:
             on_token(req.uid, tok)
         stop = req.params.stop_token
-        if (len(req.generated) >= req.params.max_new_tokens
-                or (stop is not None and tok == stop)):
-            self._finish_request(req)
+        return (len(req.generated) >= req.params.max_new_tokens
+                or (stop is not None and tok == stop))
+
+    def _finish_request(self, req: Request) -> None:
+        req.done = True
+        self._engine.flush(req.uid)
+        self._running.pop(req.uid, None)
 
     # -- drain: read a dispatched step's tokens -------------------------------
     def _drain(self, on_token) -> Dict[int, int]:
@@ -184,19 +391,24 @@ class FastGenScheduler:
         out: Dict[int, int] = {}
         for uid, row, req in inf.rows:
             if req.done:
-                # chained past a stop token: the extra token is dropped
-                # (its KV write landed in pages the flush released)
+                # chained past a stop token (or ended with an error): the
+                # extra token is dropped (its KV write landed in pages
+                # the flush released)
                 continue
-            self._deliver(req, int(toks[row]), out, on_token)
+            if self._deliver_token(req, int(toks[row]), out, on_token):
+                self._finish_request(req)
         return out
 
     # -- double buffer: the chained decode step -------------------------------
     def _plan_chain(self) -> Optional[List[Tuple[int, int, Request]]]:
         """Rows of a chained decode step, or None when this step cannot
-        chain (admissions pending, mid-prefill rows, a request the step
-        in flight does not hold, KV pressure, or under strict shapes a
-        key that was not precompiled) and takes the host path."""
-        if not self._async or self._inflight is None or self._pending:
+        chain (admissions pending, preempted requests waiting, mid-prefill
+        rows, a request the step in flight does not hold, KV pressure, or
+        under strict shapes a key that was not precompiled) and takes the
+        host path."""
+        if not self._async or self._inflight is None:
+            return None
+        if self._pending or self._preempted:
             return None
         slot = {uid: row for uid, row, _ in self._inflight.rows}
         adm = _Admission(self._engine, self._budget)
@@ -207,17 +419,16 @@ class FastGenScheduler:
             if len(req.generated) + 1 >= req.params.max_new_tokens:
                 continue  # the token in flight is its last
             if not adm.try_admit(uid, 1, is_new=False):
-                return None
+                return None     # the host path preempts
             rows.append((uid, slot[uid], req))
         if not rows:
             return None
-        if self._engine.model.strict_shapes:
-            key = self._engine.predict_step_key(
-                [u for u, _, _ in rows], [[0]] * len(rows),
+        one = np.zeros(1, np.int32)
+        if not self._strict_key_ok(
+                [u for u, _, _ in rows], [one] * len(rows),
                 ("chain", int(self._inflight.tokens_dev.shape[0]),
-                 all(r.params.temperature <= 0.0 for _, _, r in rows)))
-            if key not in self._engine.model._step_cache:
-                return None
+                 all(r.params.temperature <= 0.0 for _, _, r in rows))):
+            return None
         return rows
 
     def _dispatch_chain(self, rows) -> _Inflight:
@@ -266,21 +477,48 @@ class FastGenScheduler:
             self._engine.state_manager.check_invariants()
         return out
 
+    def _resume_preempted(self) -> None:
+        """Restore preempted sequences, oldest first, while the pool has
+        room for their pages and a page of decode headroom."""
+        state = self._engine.state_manager
+        for uid in list(self._preempted):
+            sd = state.get_sequence(uid)
+            if sd is None:
+                self._preempted.pop(uid)
+                continue
+            need = sd.host_blob.shape[1] if sd.host_blob is not None else 0
+            if self._engine.free_blocks >= need + 1:
+                self._engine.restore_sequence(uid)
+                self._running[uid] = self._preempted.pop(uid)
+
     def _step_impl(self, on_token) -> Dict[int, int]:
+        self._preempted_this_step = False
+        self._expire_requests()
         chain = self._plan_chain()
         if chain is not None:
             # dispatch k+1 FIRST, then drain k: the wait for k's tokens
             # overlaps the device running k+1
-            new_inflight = self._dispatch_chain(chain)
+            try:
+                new_inflight = self._dispatch_chain(chain)
+            except KVAllocationError as e:
+                out = self._drain(on_token)
+                self._degrade_oom(e, [], [])
+                return out
+            self._oom_streak = 0
             out = self._drain(on_token)
             self._inflight = new_inflight
             return out
 
         out_prev = self._drain(on_token)
+        self._resume_preempted()
         adm = _Admission(self._engine, self._budget)
         uids: List[int] = []
         tokens: List[np.ndarray] = []
         reqs: List[Request] = []
+        #: prompt advances and pending -> running moves of this step,
+        #: undone when its dispatch fails
+        advances: List[Tuple[Request, int]] = []
+        new_admits: List[Request] = []
 
         # 1. all running decodes (one token each)
         for uid, req in self._running.items():
@@ -315,6 +553,7 @@ class FastGenScheduler:
                                      req.prompt_sent + chunk])
             reqs.append(req)
             req.prompt_sent += chunk
+            advances.append((req, chunk))
             return True
 
         for req in list(self._running.values()):
@@ -325,40 +564,198 @@ class FastGenScheduler:
                 break
             self._pending.pop(0)
             self._running[req.uid] = req
+            new_admits.append(req)
 
         self.last_step_scheduled = len(uids)
         if not uids:
+            # nothing schedulable but work remains: preempt the running
+            # sequence with the most private KV so the others can finish;
+            # it resumes once the pool has room
+            self._preempt_largest()
             return out_prev
+
         sampled = [i for i, r in enumerate(reqs) if r.prefill_remaining == 0]
-        # mid-prefill rows produce no token: pin them greedy so they can
-        # neither flip the step into the sampling path nor draw from the
-        # generator
-        row_params = [r.params if r.prefill_remaining == 0
-                      else SamplingParams() for r in reqs]
-        toks, rowmap = self._engine.step_sample(
-            uids, tokens, row_params, self._generator, do_checks=False)
-        self._inflight = _Inflight.start(
-            toks, [(uids[i], rowmap[i], reqs[i]) for i in sampled])
-        if not self._async:
-            out_prev.update(self._drain(on_token))
-        return out_prev
+        # strict shapes serve only captured steps: a mixed key is never
+        # in the lattice, and a superbucket may fall outside it, so such
+        # a step serves split
+        strict = self._engine.model.strict_shapes
+        strict_mixed = (strict and any(len(t) == 1 for t in tokens)
+                        and any(len(t) > 1 for t in tokens))
+        greedy_only = all(reqs[i].params.temperature <= 0.0 for i in sampled)
+        use_fused = self._fused and not strict_mixed
+        if use_fused and not self._strict_key_ok(
+                uids, tokens, ("sample", greedy_only)):
+            use_fused = False
+
+        if use_fused:
+            # mid-prefill rows produce no token: pin them greedy so they
+            # can neither flip the step into the sampling path nor draw
+            # from the generator
+            row_params = [r.params if r.prefill_remaining == 0
+                          else SamplingParams() for r in reqs]
+            try:
+                toks, rowmap = self._engine.step_sample(
+                    uids, tokens, row_params, self._generator,
+                    do_checks=False)
+            except KVAllocationError as e:
+                self._degrade_oom(e, advances, new_admits)
+                return out_prev
+            self._oom_streak = 0
+            self._inflight = _Inflight.start(
+                toks, [(uids[i], rowmap[i], reqs[i]) for i in sampled])
+            if not self._async:
+                out_prev.update(self._drain(on_token))
+            return out_prev
+
+        # the split escape hatch: the logits are sampled outside the step,
+        # one call per parameter group, and only the tokens reach the
+        # host.  The forward's fusion follows this scheduler's serving
+        # view; under strict shapes the superbucket must also have been
+        # captured
+        put_fused = bool(self._serving.fused_step) and not strict_mixed
+        if put_fused:
+            put_fused = self._strict_key_ok(uids, tokens, ())
+        try:
+            logits = self._engine.put(uids, tokens, do_checks=False,
+                                      fused=put_fused)
+        except KVAllocationError as e:
+            self._degrade_oom(e, advances, new_admits)
+            return out_prev
+        self._oom_streak = 0
+        groups: Dict[tuple, List[int]] = {}
+        for i in sampled:
+            groups.setdefault(_group_key(reqs[i].params), []).append(i)
+        new_tokens: Dict[int, int] = {}
+        for (temp, top_k, top_p), idxs in groups.items():
+            rows = torch.tensor(idxs, dtype=torch.long, device=logits.device)
+            toks = sample(logits[rows], self._generator,
+                          temperature=temp, top_k=top_k, top_p=top_p)
+            for i, t in zip(idxs, toks.tolist()):   # the [g] int32 d2h
+                new_tokens[i] = t
+        out = dict(out_prev)
+        for i, tok in new_tokens.items():
+            if self._deliver_token(reqs[i], tok, out, on_token):
+                self._finish_request(reqs[i])
+        return out
+
+    # -- graceful degradation -------------------------------------------------
+    def _preempt_largest(self) -> bool:
+        """Preempt the running sequence with the most offloadable KV
+        (window-evicted slots and shared pages free nothing, and a
+        preemption that frees nothing would spin ``run_to_completion``)."""
+        if not self._running:
+            return False
+        state = self._engine.state_manager
+
+        def live_pages(u):
+            sd = state.get_sequence(u)
+            return len(state.offloadable_slots(sd)) if sd else 0
+
+        victim = max(self._running, key=live_pages)
+        if live_pages(victim) <= 0:
+            return False
+        self._engine.offload_sequence(victim)
+        self._preempted[victim] = self._running.pop(victim)
+        self._preempted_this_step = True
+        return True
+
+    def _most_demanding_request(self) -> Optional[Request]:
+        """The request with the most demand left (prompt tokens still to
+        prefill, then pages held): the shed victim that frees the most."""
+        cands = (self._pending + list(self._running.values())
+                 + list(self._preempted.values()))
+        if not cands:
+            return None
+
+        def demand(r: Request):
+            sd = self._engine.state_manager.get_sequence(r.uid)
+            pages = (sum(p != NULL_PAGE for p in sd.pages)
+                     if sd is not None else 0)
+            return (r.prefill_remaining, pages)
+
+        return max(cands, key=demand)
+
+    def _degrade_oom(self, exc: Exception,
+                     advances: List[Tuple[Request, int]],
+                     new_admits: List[Request]) -> None:
+        """A page allocation failed in a dispatch: undo the step's prompt
+        advances (no prompt token is skipped), then climb the ladder
+        with the run of failures: (1) reclaim every parked prefix page,
+        (2) from the second failure on, preempt the largest sequence,
+        (3) from the fourth, shed the most demanding request with an
+        ``"oom"`` error."""
+        for req, chunk in advances:
+            req.prompt_sent -= chunk
+        for req in reversed(new_admits):
+            # an admission whose sequence never came to exist goes back
+            # to the front of the queue, in order
+            if self._engine.state_manager.get_sequence(req.uid) is None \
+                    and not req.generated and req.uid in self._running:
+                self._running.pop(req.uid)
+                self._pending.insert(0, req)
+        self._oom_streak += 1
+        state = self._engine.state_manager
+        alloc = state.kv_cache.allocator
+        if alloc.parked_pages:
+            state.ensure_free(alloc.free_pages + alloc.parked_pages)
+            self._preempted_this_step = True      # pages freed: progress
+        if self._oom_streak >= 2:
+            self._preempt_largest()
+        if self._oom_streak >= 4:
+            victim = self._most_demanding_request()
+            if victim is not None:
+                self._fail_request(
+                    victim, "oom", "KV pool exhausted after parked-page "
+                    f"eviction and preemption ({self._oom_streak} "
+                    f"consecutive allocation failures: {exc})")
+                self._preempted_this_step = True
+        self.last_step_scheduled = 0
 
     def run_to_completion(self) -> Dict[int, List[int]]:
         all_reqs = {r.uid: r for r in self._pending}
         all_reqs.update(self._running)
+        all_reqs.update(self._preempted)
         stalls = 0
         while self.has_work:
             out = self.step()
             if self.last_step_scheduled == 0 and not out:
+                if self._preempted_this_step:
+                    continue  # a preemption freed pages: progress
                 stalls += 1
                 if stalls >= 2:
+                    if self._shed_unservable:
+                        victim = self._most_demanding_request()
+                        if victim is not None:
+                            self._fail_request(
+                                victim, "oom", "unservable: nothing is "
+                                "schedulable with this request in the pool")
+                            stalls = 0
+                            continue
                     raise RuntimeError(
                         "scheduler deadlock: work remains but nothing is "
                         "schedulable (KV cache exhausted or a request "
                         "exceeds engine limits); "
                         f"{len(self._pending)} pending, "
                         f"{len(self._running)} running, "
+                        f"{len(self._preempted)} preempted, "
                         f"{self._engine.free_blocks} free KV pages")
             else:
                 stalls = 0
         return {uid: req.generated for uid, req in all_reqs.items()}
+
+
+def generate(engine: InferenceEngineV2, prompts: Sequence[Sequence[int]],
+             params=None, token_budget: Optional[int] = None
+             ) -> List[List[int]]:
+    """Generate for every prompt through one scheduler.  ``params`` is
+    one SamplingParams for all prompts or one per prompt."""
+    sched = FastGenScheduler(engine, token_budget=token_budget)
+    per_prompt = (list(params) if isinstance(params, (list, tuple))
+                  else [params] * len(prompts))
+    if len(per_prompt) != len(prompts):
+        raise ValueError(f"{len(per_prompt)} params for {len(prompts)} "
+                         "prompts")
+    for i, (p, sp) in enumerate(zip(prompts, per_prompt)):
+        sched.submit(i, p, sp)
+    results = sched.run_to_completion()
+    return [results[i] for i in range(len(prompts))]

@@ -340,9 +340,11 @@ def test_serving_config_fixes_the_reduced_flags():
         jsv.prefix_caching) == (True, True, True, True)
     assert (sv.speculative, sv.tp_degree, sv.keyed_sampling) == (
         False, 1, False)
-    for flag, value, item in [("fused_step", False, "item 4"),
-                              ("on_device_sampling", False, "item 4"),
-                              ("speculative", True, "item 8"),
+    # the split escape hatch is served: both flags may be turned off
+    for flag in ("fused_step", "on_device_sampling"):
+        assert getattr(T.ServingOptimizationConfig(**{flag: False}),
+                       flag) is False
+    for flag, value, item in [("speculative", True, "item 8"),
                               ("tp_degree", 2, "item 13"),
                               ("keyed_sampling", True, "item 3")]:
         with pytest.raises(NotImplementedError, match=item):
@@ -398,8 +400,9 @@ def test_engine_knob_wins_over_the_models_cache_encoding():
     eng = T.InferenceEngineV2(tm, _engine_config("none"))
     assert tm.kv_config.quantization == "none"
     assert isinstance(eng.state_manager.kv_cache.data, torch.Tensor)
-    # no kv_config on the model: its default geometry and dtype stay,
-    # and the knob still sets the encoding
+    # no kv_config on the model: its default geometry stays, the pages
+    # take the engine's kv_cache dtype (bf16 by default, as in JAX), and
+    # the knob still sets the encoding
     _, tcfg = _configs("opt")
     for quant in ("none", "int8"):
         tm = T.RaggedInferenceModel(
@@ -407,14 +410,14 @@ def test_engine_knob_wins_over_the_models_cache_encoding():
         default = tm.kv_config
         assert default.dtype == tcfg.dtype == torch.float32
         eng = T.InferenceEngineV2(tm, _engine_config(quant))
-        assert tm.kv_config == dataclasses.replace(default,
-                                                   quantization=quant)
+        assert tm.kv_config == dataclasses.replace(
+            default, quantization=quant, dtype=torch.bfloat16)
         data = eng.state_manager.kv_cache.data
         if quant == "int8":
             assert data.scale.shape == (2, default.num_pages + 1,
                                         default.page_size, 2, 4)
         else:
-            assert data.dtype == torch.float32
+            assert data.dtype == torch.bfloat16
         assert eng.free_blocks == default.num_pages
         logits = eng.put([0], [[1, 2, 3]])
         assert logits.shape == (1, 128)
