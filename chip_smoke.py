@@ -24,6 +24,9 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    the library call into ``host_us`` (a host clock around 1000 calls,
    nothing waiting inside: the enqueue cost) and ``device_us`` (the
    kernels' durations per call from torch.profiler over 200 calls);
+   the paged kernel also at the speculative verify shapes (Q=4: Llama
+   S=16, H=K=32, the split-KV path; Mistral H=32, K=8, window 4096 over
+   contexts to 8192, the tile);
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens) in the default serving
    configuration (one CUDA graph per step key, the async chained decode,
@@ -71,7 +74,26 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    ms and busy share beside phase 4's;
 6c. KV pool sizing: a Llama engine built with no ``kv_config``, its
    pool sized from free device memory (held to ``memory_fraction`` of
-   it), serving phase 4's traffic once;
+   it), serving phase 4's traffic once; then the same with
+   ``speculative=True, spec_drafter="model"``, the target pool and the
+   self-draft's pool held together to that budget;
+6d. speculative decoding at full width (``spec_max_draft=3``): the
+   Llama-2-7B weights on 256 pages, phase 4's traffic with each prompt a
+   seeded 32-token motif repeated to its length, on three engines:
+   ``spec_drafter="ngram"``, ``"model"`` (the self-draft over all 32
+   layers, a second 8.6 GB pool) and ``"auto"`` (an 8-layer draft
+   trunk).  The first two as phase 4 (a warm-up pass with the page audit
+   after every step, a timed pass that captures nothing, launch counts
+   held to the segments of the keys dispatched: a spec key L paged
+   layers, a draft_spec key Q * L_draft + L, a draft_fill key L_draft;
+   every spec and draft_spec verdict of a third pass bit-equal to its
+   eager body) and four profiled steps; "auto" one pass with the audit.
+   Each engine's greedy tokens, teacher-forced through a spec-off
+   engine's eager forward, agree at or above the floor; the self-draft's
+   accept rate is at or above SPEC_ACCEPT_MIN (derived beside it); the
+   n-gram engine verifies drafted rows.  Drafted, accepted, tokens a
+   dispatch, ms a dispatch and tokens/s after the prompts are reported
+   beside phase 4's;
 7. the same weights with the registry pinned to the plain versions:
    ten teacher-forced serving steps of 3 requests on the eager forward
    (fresh prefill, decode, and two mixed steps, one with a Q=1024 prefill
@@ -648,7 +670,14 @@ def check_paged(dev, int8=False):
              ("window decode", 8, 1, 32, 32, 512, False),
              ("ALiBi decode", 8, 1, 32, 32, None, True),
              ("single-slot decode", 1, 1, 32, 32, None, False),
-             ("GQA prefill chunk", 4, 1024, 32, 8, None, False)]
+             ("GQA prefill chunk", 4, 1024, 32, 8, None, False),
+             # the speculative verify (Q = 1 + spec_max_draft): Llama's 4
+             # folded rows take the split-KV path with a causal limit a
+             # row; Mistral's 16 (G = 4) the tile, at contexts past its
+             # window
+             ("spec verify", 16, 4, 32, 32, None, False),
+             ("Mistral spec verify", 16, 4, 32, 8, 4096, False)]
+    ctx_of = {"Mistral spec verify": 8192}
     # the int8 cases quantise the very pages, tables and positions of the
     # bf16 cases (every case draws, fewer run)
     skip = ("decode", "prefill chunk") if int8 else ()
@@ -656,7 +685,8 @@ def check_paged(dev, int8=False):
     token_bytes = 2 * (128 + 4) if int8 else 2 * 128 * 2
     rows = []
     for name, S, Q, H, K, window, alibi in cases:
-        q, kv, table, start = _paged_inputs(dev, S, Q, H, K, 2048, g)
+        ctx = ctx_of.get(name, 2048)
+        q, kv, table, start = _paged_inputs(dev, S, Q, H, K, ctx, g)
         if name in skip:
             continue
         if name == "single-slot decode":
@@ -681,7 +711,7 @@ def check_paged(dev, int8=False):
         b_ms, b_by = bound(kv_bytes + io_bytes, flops)
         rows.append(dict(
             shape=f"{name}: S={S} Q={Q} H={H} K={K} D=128 page=64 "
-                  f"ctx<=2048" + (f" window={window}" if window else "")
+                  f"ctx<={ctx}" + (f" window={window}" if window else "")
                   + (" int8 pages" if int8 else ""),
             path=("split-KV decode + combine"
                   if Q * (H // K) < PA.DECODE_ROWS else "tensor-core tile"),
@@ -1206,53 +1236,68 @@ def key_kind(key) -> str:
     return key[4] if len(key) > 4 else "logits"
 
 
-def key_segments(key):
-    """The segments one dispatch of a step key runs, as (kind, S, Q, P):
-    kind "fresh" (flash) or "paged"; a mixed key runs its decode segment
-    and then its prefill segment."""
-    first = ("fresh" if key[3] else "paged",) + tuple(key[:3])
-    if key_kind(key) == "mixed":
-        return [first, ("fresh" if key[8] else "paged",) + tuple(key[5:8])]
+def key_segments(key, layers, draft_layers=0):
+    """The segments one dispatch of a step key runs, as (kind, S, Q, P,
+    layers): kind "fresh" (flash) or "paged"; a mixed key runs its decode
+    segment and then its prefill segment; a draft_spec key runs Q draft
+    iterations at Q=1 over the draft trunk's ``draft_layers`` and then
+    the verify, a draft_fill key one segment of the draft trunk."""
+    S, Q, P = key[:3]
+    kind = key_kind(key)
+    if kind == "draft_spec":
+        return ([("paged", S, 1, P, draft_layers)] * Q
+                + [("paged", S, Q, P, layers)])
+    if kind == "draft_fill":
+        return [("paged", S, Q, P, draft_layers)]
+    first = ("fresh" if key[3] else "paged", S, Q, P, layers)
+    if kind == "mixed":
+        return [first, ("fresh" if key[8] else "paged",) + tuple(key[5:8])
+                + (layers,)]
     return [first]
 
 
-def segment_counts(cfg, dispatches) -> dict:
+def segment_counts(cfg, dispatches, draft_layers=0) -> dict:
     """Fresh, paged and split-KV segments of ``dispatches`` ({step key:
-    dispatches}): a paged segment whose folded rows (Q * H / K) take the
-    paged kernel's split-KV decode path with more than one split adds
-    one combine launch per layer."""
+    dispatches}), and the layers they run (``*_layers``; ``norms``: the
+    2 * layers + 1 norm launches of every segment): a paged segment whose
+    folded rows (Q * H / K) take the paged kernel's split-KV decode path
+    with more than one split adds one combine launch per layer."""
     import torch
     from deepspeed_tpu_torch.ops import paged_attention as PA
     groups = cfg.num_heads // cfg.kv_heads
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    seg = {"fresh": 0, "paged": 0, "split_kv": 0}
+    seg = {"fresh": 0, "paged": 0, "split_kv": 0, "fresh_layers": 0,
+           "paged_layers": 0, "split_kv_layers": 0, "norms": 0}
     for key, n in dispatches.items():
-        for kind, S, Q, P in key_segments(key):
+        for kind, S, Q, P, layers in key_segments(key, cfg.num_layers,
+                                                  draft_layers):
             seg[kind] += n
+            seg[f"{kind}_layers"] += n * layers
+            seg["norms"] += n * (2 * layers + 1)
             if kind == "paged" and Q * groups < PA.DECODE_ROWS and \
                     PA.decode_splits(S, cfg.kv_heads, P, sms) > 1:
                 seg["split_kv"] += n
+                seg["split_kv_layers"] += n * layers
     return seg
 
 
 def launch_checks(cfg, kv_quantization, launches, seg) -> dict:
     """Exact launch counts of the serving kernels for the segments run:
-    the family's norm 2L+1 per segment, its page format's kernel L per
-    paged segment, flash L per fresh segment, combine L per split-KV
-    segment, every other kernel 0."""
-    L = cfg.num_layers
-    n_seg = seg["fresh"] + seg["paged"]
+    the family's norm 2 * layers + 1 per segment, its page format's
+    kernel one per layer of a paged segment, flash one per layer of a
+    fresh segment, combine one per layer of a split-KV segment, every
+    other kernel 0."""
     norm, other_norm = (("rmsnorm", "layernorm") if cfg.norm == "rmsnorm"
                         else ("layernorm", "rmsnorm"))
     paged, other_paged = (("paged_attention_int8", "paged_attention")
                           if kv_quantization == "int8"
                           else ("paged_attention", "paged_attention_int8"))
     return {
-        norm: launches[norm] == (2 * L + 1) * n_seg,
-        paged: launches[paged] == L * seg["paged"],
-        "flash_fwd": launches["flash_fwd"] == L * seg["fresh"],
+        norm: launches[norm] == seg["norms"],
+        paged: launches[paged] == seg["paged_layers"],
+        "flash_fwd": launches["flash_fwd"] == seg["fresh_layers"],
         "paged_attention_combine": launches["paged_attention_combine"]
-        == L * seg["split_kv"],
+        == seg["split_kv_layers"],
         "idle kernels": all(launches[k] == 0 for k in (
             other_norm, other_paged, "rmsnorm_res", "flash_bwd",
             "fused_adamw", "fused_lion", "fused_lamb", "quantize",
@@ -1278,8 +1323,8 @@ def step_kind(key) -> str:
         return "drain"            # dispatched nothing: tokens reach host
     if isinstance(key[0], tuple):
         return "mixed"            # split: one forward per Q bucket
-    if key_kind(key) == "mixed":
-        return "mixed"            # decode segment + prefill segment
+    if key_kind(key) in ("mixed", "spec", "draft_spec", "draft_fill"):
+        return key_kind(key)      # mixed: decode + prefill segment
     if key[3]:
         return "fresh"            # pure fresh prefill
     return "decode" if key[1] == 1 else "prefill"
@@ -1290,8 +1335,9 @@ def drive(engine, reqs, uid_base=0, record=False, audit=False,
     """Submit ``reqs`` ({uid: (prompt, SamplingParams)}) at once under
     uids ``uid_base + uid`` and step a new FastGenScheduler until it is
     done.  Returns ({uid: tokens}, {uid: TTFT s}, per-step records: host
-    ms, tokens delivered, rows scheduled and the key dispatched: one key,
-    or on the split path a tuple of the logits keys of a step's forwards).
+    ms, requests and tokens delivered, rows scheduled and the key
+    dispatched: one key, or on the split path a tuple of the logits keys
+    of a step's forwards).
     ``audit`` runs the page audit after every step; ``after_step(sched)``
     runs after every step."""
     import torch
@@ -1310,6 +1356,7 @@ def drive(engine, reqs, uid_base=0, record=False, audit=False,
 
     while sched.has_work:
         before = dict(model.dispatch_counts) if record else None
+        n_before = sum(len(t) for t in generated.values())
         ts = time.perf_counter()
         out = sched.step(on_token=on_token)
         dt = time.perf_counter() - ts
@@ -1325,6 +1372,8 @@ def drive(engine, reqs, uid_base=0, record=False, audit=False,
                     for k in keys):
                 raise RuntimeError(f"one step dispatched {keys}")
             steps.append(dict(ms=dt * 1e3, tokens=len(out),
+                              delivered=sum(len(t) for t in generated.values())
+                              - n_before,
                               scheduled=(sched.last_step_scheduled
                                          if keys else 0),
                               key=(tuple(keys) if split
@@ -1365,6 +1414,16 @@ def serving_requests(cfg, n=10, lo=128, hi=1025, new_tokens=64,
                                     temperature=0.8 if sampled else 0.0,
                                     top_p=0.9 if sampled else 1.0))
     return reqs
+
+
+def tail_tok_s(steps):
+    """Tokens reaching the host over the steps that carry no prompt
+    tokens (a chained or plain decode, a spec verify, a draft loop, a
+    draft fill, the last drain), over those steps' host seconds."""
+    tail = [st for st in steps if step_kind(st["key"]) in (
+        "decode", "drain", "spec", "draft_spec", "draft_fill")]
+    seconds = sum(st["ms"] for st in tail) / 1e3
+    return sum(st["delivered"] for st in tail) / seconds if seconds else None
 
 
 def two_passes(engine, reqs, cfg, counters, card, label,
@@ -1419,7 +1478,7 @@ def two_passes(engine, reqs, cfg, counters, card, label,
             or sum(dispatches.values()) != sum(st["dispatches"]
                                                for st in steps):
         raise RuntimeError("a timed serving step was not one graph replay")
-    seg = segment_counts(cfg, dispatches)
+    seg = segment_counts(cfg, dispatches, engine._draft_layers)
     checks = launch_checks(cfg, kv_quantization, launches, seg)
     by_kind = {}
     for st in steps:
@@ -1442,6 +1501,7 @@ def two_passes(engine, reqs, cfg, counters, card, label,
                           and step_kind(st["key"]) != "mixed"
                           and key_kind(st["key"]) == "chain" for st in steps),
         decode_tok_s=dec_tokens / dec_s if dec_s else None,
+        tail_tok_s=tail_tok_s(steps),
         decode_step_ms_mean=(1e3 * dec_s / len(decode_steps)
                              if decode_steps else None),
         decode_step_ms_median=(statistics.median(
@@ -1524,6 +1584,13 @@ def replay_vs_eager(engine, reqs, timed, label):
             gen.set_state(generator.get_state())
         ref = model._call(key, kv, gen, *t)
         out = dispatch(key, kv, generator, inputs)
+        if key_kind(key) == "draft_fill":
+            # writes the draft pool and returns nothing; its KV feeds the
+            # draft_spec verdicts held below
+            row = by_kind.setdefault("draft_fill", dict(dispatches=0))
+            row["dispatches"] += 1
+            checked.add(key)
+            return out
         if key_kind(key) == "logits":
             # the split path: logits, held bit-equal on the live rows,
             # and their greedy picks
@@ -1534,6 +1601,11 @@ def replay_vs_eager(engine, reqs, timed, label):
             row[0] = max(row[0], float((out - ref)[live].abs().max()))
             if not torch.equal(out[live], ref[live]):
                 logits_unequal.append(key)
+        elif key_kind(key) in ("spec", "draft_spec"):
+            # the verdict: accepted count, corrected token (and the
+            # drafts), every column of a live row bit-equal
+            live, greedy = t[1] > 0, t[-3] <= 0
+            same = (out == ref).all(dim=1)
         else:
             q_lens = {"sample": t[1], "chain": t[2]}.get(key[4])
             if q_lens is None:                        # mixed: both segments
@@ -1563,7 +1635,8 @@ def replay_vs_eager(engine, reqs, timed, label):
                logits_bit_equal=not logits_unequal,
                keys_checked=len(checked), timed_keys=len(timed),
                greedy_bit_equal=all(r["greedy_equal"] == r["greedy_rows"]
-                                    for r in by_kind.values()))
+                                    for r in by_kind.values()
+                                    if "greedy_rows" in r))
     log(f"{label} replay vs eager, every key:", json.dumps(res))
     if model.capture_seconds != captured:
         raise RuntimeError("the replay-vs-eager pass captured a graph")
@@ -2204,15 +2277,18 @@ def split_phase(cfg, params, counters, card, fused_engine, fused_tokens,
     return res, launches
 
 
-def sizing_phase(cfg, params, counters, card, reqs):
+def sizing_phase(cfg, params, counters, card, reqs, **serving):
     """One Llama engine built with no ``kv_config``: the pool is sized
     from free device memory (``memory_fraction`` of it), held to that
     budget, then serves phase 4's traffic once, which shows the graphs
-    and activations fit beside it."""
+    and activations fit beside it.  ``serving`` sets the engine's
+    ServingOptimizationConfig; with a draft trunk (``spec_drafter``
+    "model") the target pool and the draft pool together are held to
+    the budget."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import (
-        InferenceEngineV2, RaggedInferenceEngineConfig, StateManagerConfig,
-        implementation_for)
+        InferenceEngineV2, RaggedInferenceEngineConfig,
+        ServingOptimizationConfig, StateManagerConfig, implementation_for)
     read = []
     free_device_memory = InferenceEngineV2._free_device_memory
 
@@ -2226,32 +2302,241 @@ def sizing_phase(cfg, params, counters, card, reqs):
         engine = InferenceEngineV2(model, RaggedInferenceEngineConfig(
             state_manager=StateManagerConfig(
                 max_tracked_sequences=16, max_ragged_sequence_count=16,
-                max_ragged_batch_size=2048)))
+                max_ragged_batch_size=2048),
+            serving=ServingOptimizationConfig(**serving)))
     finally:
         InferenceEngineV2._free_device_memory = staticmethod(
             free_device_memory)
     kv = model.kv_config
     fraction = engine._config.state_manager.memory_fraction
     budget = fraction * read[0]
+    draft = engine.draft_kv
+    # bytes a page takes in the draft pool (0 without a draft trunk)
+    draft_bpp = 0 if draft is None else (draft[:, 0].numel()
+                                         * draft.element_size())
     reset_launches(counters)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     generated, _, _ = drive(engine, reqs, uid_base=9000)
     launches = read_launches(counters)
-    res = dict(card=card, free_bytes_at_build=read[0],
+    res = dict(card=card, serving=serving, free_bytes_at_build=read[0],
                memory_fraction=fraction, pages=kv.num_pages,
                bytes_per_page=kv.bytes_per_page,
                pool_gb=kv.num_pages * kv.bytes_per_page / 1e9,
                pool_gb_with_null_page=kv.total_bytes() / 1e9,
+               draft_layers=engine._draft_layers,
+               draft_pool_gb=kv.num_pages * draft_bpp / 1e9,
+               draft_pool_gb_with_null_page=(kv.num_pages + 1) * draft_bpp
+               / 1e9,
                budget_gb=budget / 1e9, serve_s=time.perf_counter() - t,
                graphs=graph_report(model)["graphs"],
                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
                / 1e9, tokens=sum(len(v) for v in generated.values()))
     log("KV pool sizing:", json.dumps(res))
-    if model.kv_config_explicit or kv.num_pages * kv.bytes_per_page > budget:
-        raise RuntimeError(f"pool {res['pool_gb']:.2f} GB over the budget "
-                           f"{res['budget_gb']:.2f} GB")
+    if model.kv_config_explicit \
+            or kv.num_pages * (kv.bytes_per_page + draft_bpp) > budget:
+        raise RuntimeError(
+            f"pools {res['pool_gb'] + res['draft_pool_gb']:.2f} GB over the "
+            f"budget {res['budget_gb']:.2f} GB")
     return res, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+SPEC_MAX_DRAFT = 3
+SPEC_MOTIF = 32                # tokens of the motif a spec prompt repeats
+# Floor of the self-draft's accept rate.  If each of a row's k drafts is
+# the target's own pick with probability p (the teacher-forced greedy
+# agreement), the verify commits the leading run: p + p^2 + ... + p^k
+# drafts on average, an accept rate of that over k.  At the agreement
+# floor p = GREEDY_AGREE_MIN = 0.75 and k = 3: (0.75 + 0.5625 +
+# 0.421875) / 3 = 0.578.
+SPEC_ACCEPT_MIN = sum(GREEDY_AGREE_MIN ** i
+                      for i in range(1, SPEC_MAX_DRAFT + 1)) / SPEC_MAX_DRAFT
+# the three engines: (label, serving flags, passes)
+SPEC_ENGINES = (("ngram", dict(spec_drafter="ngram"), 2),
+                ("model", dict(spec_drafter="model", spec_draft_layers=0), 2),
+                ("auto", dict(spec_drafter="auto", spec_draft_layers=8), 1))
+
+
+def spec_requests(cfg):
+    """Phase 4's traffic (prompt lengths, 64 new tokens, 8 greedy and 2
+    sampled) with each prompt a seeded 32-token motif repeated to its
+    length, so that the n-gram drafter has something to draft."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 6)
+    return {uid: (np.resize(rng.integers(0, cfg.vocab_size, SPEC_MOTIF),
+                            len(prompt)), sp)
+            for uid, (prompt, sp) in serving_requests(cfg).items()}
+
+
+def spec_profile(engine, reqs, label, n_steps=4):
+    """The requests again (new uids, 32 new tokens), stepped until each
+    has two tokens, then ``n_steps`` steps under torch.profiler: the keys
+    they dispatched and the device ms per step by kernel kind."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import (FastGenScheduler,
+                                                  SamplingParams)
+    from torch.profiler import ProfilerActivity, profile
+    model = engine.model
+    sched = FastGenScheduler(engine, seed=SEED)
+    got = {}
+    for uid, (prompt, sp) in reqs.items():
+        sched.submit(100 + uid, prompt, SamplingParams(
+            max_new_tokens=32, temperature=sp.temperature, top_p=sp.top_p))
+    while min((len(got.get(100 + u, ())) for u in reqs), default=0) < 2:
+        sched.step(on_token=lambda u, t: got.setdefault(u, []).append(t))
+    torch.cuda.synchronize()
+    before, capture_s = dict(model.dispatch_counts), model.capture_seconds
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            sched.step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    keys = {repr(k): n - before.get(k, 0)
+            for k, n in model.dispatch_counts.items() if n != before.get(k, 0)}
+    if model.capture_seconds != capture_s:
+        raise RuntimeError("a profiled spec step captured a graph")
+    sched.run_to_completion()
+    n_kernels, by_kind = device_ms_by_kind(prof)
+    res = dict(model=label, steps=n_steps, keys=keys,
+        device_kernels_per_step=n_kernels / n_steps,
+        device_ms_per_step=sum(by_kind.values()) / n_steps,
+        wall_ms_per_step_profiled=wall_ms / n_steps,
+        device_ms_per_step_by_kind={k: v / n_steps
+                                    for k, v in by_kind.items()})
+    log(f"{label} spec step profile:", json.dumps(res))
+    return res
+
+
+def spec_phase(cfg, params, counters, card, phase4):
+    """Speculative decoding at full width: the Llama-2-7B weights on 256
+    pages, ``spec_max_draft=3``, ``spec_requests``' traffic, on three
+    engines: the n-gram drafter, the self-draft (``spec_drafter="model"``
+    over all 32 layers, a second 256-page pool) and "auto" with an
+    8-layer draft trunk.  The first two take a warm-up and a timed pass
+    (``two_passes``: no capture in the timed pass, a replay at every
+    step, launch counts held to the segments of the keys dispatched,
+    the page audit after every warm-up step) and the replay-vs-eager
+    pass (every spec and draft_spec key's verdict bit-equal to its eager
+    body); "auto" serves one pass with the audit.  Each engine's greedy
+    tokens, teacher-forced through a spec-off engine's eager forward,
+    agree at or above GREEDY_AGREE_MIN; the self-draft's accept rate is
+    at or above SPEC_ACCEPT_MIN; the n-gram engine verifies at least one
+    drafted row.  Returns ({label: summary}, {path: launches})."""
+    import gc
+    import torch
+    reqs = spec_requests(cfg)
+    greedy = {u: r for u, r in reqs.items() if r[1].temperature <= 0.0}
+    teacher = build_engine(cfg, params, num_pages=256)
+    results, launches_by_path = {}, {}
+    for label, flags, passes in SPEC_ENGINES:
+        engine = build_engine(cfg, params, num_pages=256, speculative=True,
+                              spec_max_draft=SPEC_MAX_DRAFT, **flags)
+        scheds = []
+
+        def after(sched, _s=scheds):
+            if not _s or _s[-1] is not sched:
+                _s.append(sched)
+
+        name = f"llama spec {label}"
+        if passes == 2:
+            summary, launches, generated, dispatches = two_passes(
+                engine, reqs, cfg, counters, card, name, audit=True,
+                after_step=after)
+            launches_by_path[f"serving_llama_spec_{label}"] = launches
+            steps = None
+        else:
+            reset_launches(counters)
+            t = time.perf_counter()
+            generated, _, steps = drive(engine, reqs, uid_base=1000,
+                                        record=True, audit=True,
+                                        after_step=after)
+            summary = dict(card=card, model=name, pass_s=time.perf_counter()
+                           - t, graphs=graph_report(engine.model),
+                           launches=read_launches(counters))
+            dispatches = {}
+            for st in steps:
+                if st["key"] is not None:
+                    dispatches[st["key"]] = dispatches.get(st["key"], 0) + 1
+        sched = scheds[-1]
+        kinds = {}
+        for k, n in dispatches.items():
+            kinds[key_kind(k)] = kinds.get(key_kind(k), 0) + n
+        res = dict(card=card, model=name, serving=flags,
+                   spec_max_draft=SPEC_MAX_DRAFT,
+                   draft_layers=engine._draft_layers,
+                   draft_pool_gb=(0.0 if engine.draft_kv is None else
+                                  engine.draft_kv.numel()
+                                  * engine.draft_kv.element_size() / 1e9),
+                   drafted=sched._spec_drafted_cum,
+                   accepted=sched._spec_accepted_cum,
+                   accept_rate=(sched._spec_accepted_cum
+                                / sched._spec_drafted_cum
+                                if sched._spec_drafted_cum else None),
+                   draft_trunk_drafted=sched._spec_draft_drafted_cum,
+                   draft_trunk_accepted=sched._spec_draft_accepted_cum,
+                   spec_dispatches=sched._spec_steps,
+                   committed_per_spec_dispatch=(
+                       sched._spec_committed_cum / sched._spec_steps
+                       if sched._spec_steps else None),
+                   dispatches_by_kind=kinds,
+                   drafter_switches={f"{a}->{b}": n for (a, b), n
+                                     in sched.spec_switches.items()},
+                   phase4_tail_tok_s=phase4["tail_tok_s"])
+        if steps is None:
+            res.update({k: summary[k] for k in (
+                "steps", "total_s", "ttft_ms_mean", "tail_tok_s",
+                "decode_step_ms_median", "step_ms_by_kind", "warm_up_pass",
+                "keys_dispatched", "segments", "launch_checks")})
+            engine.reset_prefix_cache()
+            res["replay_vs_eager"] = replay_vs_eager(engine, reqs,
+                                                     dispatches, name)
+            engine.reset_prefix_cache()
+            res["profile"] = spec_profile(engine, reqs, name)
+        else:
+            by = {}
+            for st in steps:
+                by.setdefault(step_kind(st["key"]), []).append(st["ms"])
+            res.update(summary, steps=len(steps), step_ms_by_kind={
+                k: dict(count=len(v), mean=sum(v) / len(v))
+                for k, v in by.items()})
+            res["tail_tok_s"] = tail_tok_s(steps)
+        res["ms_per_spec_dispatch"] = {
+            k: v["mean"] for k, v in res["step_ms_by_kind"].items()
+            if k in ("spec", "draft_spec")}
+        agree, _, _ = teacher_forced_agreement(
+            teacher, greedy, {u: generated[u] for u in greedy},
+            uid_base=7000, parted={})
+        res["greedy_agreement_vs_spec_off"] = agree
+        res["greedy_min"] = GREEDY_AGREE_MIN
+        res["accept_min"] = SPEC_ACCEPT_MIN if label == "model" else None
+        results[label] = res
+        log(f"speculative serving, {label}:", json.dumps(res))
+        if min(agree) < GREEDY_AGREE_MIN:
+            raise RuntimeError(f"{name}: greedy agreement with the spec-off "
+                               f"engine {min(agree):.3f} < "
+                               f"{GREEDY_AGREE_MIN}")
+        if label == "ngram" and not (kinds.get("spec")
+                                     and sched._spec_drafted_cum):
+            raise RuntimeError(f"{name}: no drafted n-gram verify dispatch")
+        if label == "model" and not (res["accept_rate"] or 0.0) \
+                >= SPEC_ACCEPT_MIN:
+            raise RuntimeError(f"{name}: accept rate {res['accept_rate']} "
+                               f"below {SPEC_ACCEPT_MIN:.3f}")
+        if label != "ngram" and not kinds.get("draft_spec"):
+            raise RuntimeError(f"{name}: the draft trunk never drafted")
+        del engine, sched, scheds
+        gc.collect()
+        torch.cuda.empty_cache()
+    del teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, launches_by_path
 
 
 MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
@@ -2857,11 +3142,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 6c: a pool sized from free device memory
+    # phase 6c: a pool sized from free device memory, then the target and
+    # draft pools of a self-drafting engine sized together
     _, launches_by_path["serving_llama_pool_sized"] = sizing_phase(
         cfg, params, counters, card, reqs)
     gc.collect()
     torch.cuda.empty_cache()
+    _, launches_by_path["serving_llama_pool_sized_draft"] = sizing_phase(
+        cfg, params, counters, card, reqs, speculative=True,
+        spec_drafter="model")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6d: speculative decoding with the three drafters
+    _, spec_launches = spec_phase(cfg, params, counters, card,
+                                  llama_summary)
+    launches_by_path.update(spec_launches)
 
     # phase 7
     plain_vs_kernel(cfg, params)

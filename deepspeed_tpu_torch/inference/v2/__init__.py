@@ -10,6 +10,7 @@ from .model_implementations import (implementation_for,
 from .ragged import BlockedAllocator, KVAllocationError, KVCacheConfig
 from .sampling import SamplingParams, sample, sample_dynamic
 from .scheduler import FastGenScheduler, Request, RequestError, generate
+from .spec import ModelDrafter, NgramDrafter
 
 __all__ = [
     "KVCacheUserConfig", "RaggedInferenceEngineConfig",
@@ -18,5 +19,6 @@ __all__ = [
     "RaggedInferenceModel", "BlockedAllocator", "KVAllocationError",
     "KVCacheConfig", "SamplingParams", "sample", "sample_dynamic",
     "FastGenScheduler", "Request", "RequestError", "generate",
+    "ModelDrafter", "NgramDrafter",
     "implementation_for", "supported_model_types",
 ]

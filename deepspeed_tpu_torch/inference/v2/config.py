@@ -4,7 +4,9 @@ The subset of ``deepspeed_tpu/inference/v2/config.py`` the port reads.
 :class:`ServingOptimizationConfig` has the JAX package's defaults:
 ``fused_step=True, on_device_sampling=True, async_scheduling=True,
 prefix_caching=True, speculative=False, tp_degree=1,
-keyed_sampling=False``, and the degradation knobs off.  ``speculative``,
+keyed_sampling=False``, and the degradation knobs off.  Speculative
+decoding takes JAX's knobs (``spec_max_draft``, ``spec_ngram_min``,
+``spec_drafter``, ``spec_draft_layers``) with JAX's defaults.
 ``tp_degree`` and ``keyed_sampling`` stay at these values (another value
 raises, naming the ROADMAP item that brings it).  The KV cache geometry
 is the model's ``kv_config`` when the model was given one, else
@@ -40,7 +42,6 @@ class KVCacheUserConfig:
 
 # flag -> (the one value the port runs, ROADMAP Queue 1 item)
 _FIXED_SERVING_FLAGS = {
-    "speculative": (False, "8 (speculative decoding)"),
     "tp_degree": (1, "13 (tensor-parallel serving)"),
     "keyed_sampling": (False, "3 (keyed sampling)"),
 }
@@ -69,7 +70,28 @@ class ServingOptimizationConfig:
     #: eviction under pool pressure), so a warm prefix is not prefilled
     #: again.  Fixed at engine build
     prefix_caching: bool = True
+    #: speculative decoding: draft up to ``spec_max_draft`` tokens per
+    #: decode row and verify them all in one Q = 1 + spec_max_draft
+    #: step; the accepted drafts commit as a block in the same scheduler
+    #: step.  Greedy tokens are those of the step without it.  Served
+    #: only with ``fused_step`` and ``on_device_sampling`` (the split
+    #: step never speculates)
     speculative: bool = False
+    #: drafted tokens per decode row per step
+    spec_max_draft: int = 3
+    #: shortest trailing n-gram the prompt-lookup drafter matches on
+    #: (longer ones are tried first)
+    spec_ngram_min: int = 2
+    #: "ngram" (host prompt lookup), "model" (a draft trunk drafts on
+    #: the device inside the verify step, from a KV pool of its own) or
+    #: "auto" (per request: ngram -> model -> off on the accept rate).
+    #: "model" and "auto" build the draft trunk and its pool at engine
+    #: build; another name raises ``ValueError`` there
+    spec_drafter: str = "ngram"
+    #: the draft trunk: the first ``spec_draft_layers`` target layers
+    #: (embedding, final norm and lm head shared); 0 = every layer (the
+    #: self-draft)
+    spec_draft_layers: int = 0
     tp_degree: int = 1
     keyed_sampling: bool = False
     #: KV page storage format: "none" (fp pages at the cache dtype) or

@@ -11,9 +11,13 @@ scheduler's async chain never waits on the host; ``query`` /
 ``match_prefix`` attaches a new sequence's cached prompt pages;
 ``flush(uid)`` frees sequence state; ``offload_sequence`` /
 ``restore_sequence`` move a preempted sequence's KV to host memory and
-back.  After every forward the engine indexes newly full prompt pages
-and, for a sliding-window model, releases the pages the window has left
-behind.  A step mixing decode rows with
+back.  Speculative decoding: ``step_spec`` verifies host-drafted tokens
+and returns the [S, 2] int32 verdict, ``step_draft_spec`` runs a draft
+trunk's loop and the verify in one step ([S, 2+k]), ``step_draft_fill``
+catches the draft trunk's KV pool up, and ``commit_spec`` advances each
+row by the tokens it committed.  After every forward the engine indexes
+newly full prompt pages and, for a sliding-window model, releases the
+pages the window has left behind.  A step mixing decode rows with
 prefill chunks runs as two segments ([S_d, 1] + [S_p, Q]) so decode
 rows never pad to the chunk width.  Each step key is one CUDA graph on
 the card (``model.py``); ``precompile`` captures a lattice of them
@@ -36,7 +40,9 @@ import torch
 from .config import RaggedInferenceEngineConfig
 from .lattice import enumerate_lattice_keys
 from .model import RaggedInferenceModel
-from .ragged import KVCacheConfig, StateManager, build_batch, placeholder
+from ...tree import tree_map
+from .ragged import (KVCacheConfig, RaggedBatch, StateManager, build_batch,
+                     placeholder)
 from .ragged.batch import MIN_PAGES, MIN_SLOTS, _bucket
 from .ragged.kv_cache import pages_for_memory
 from .sampling import SamplingParams
@@ -59,7 +65,7 @@ class SchedulingError(RuntimeError):
 #: key classes ``lattice_keys(kinds=...)`` filters on: "prefill" = Q>1
 #: logits/sample keys (fresh variants included), "decode" = Q==1
 #: logits/sample keys, "chain" = the chained decode family, "spec" = the
-#: speculative families (not ported)
+#: speculative families (spec, draft_spec and draft_fill)
 LATTICE_KINDS = ("prefill", "decode", "chain", "spec")
 
 
@@ -78,13 +84,16 @@ def lattice_kind_of(key: Tuple) -> str:
 def lattice_keys(max_prompt: int, max_new_tokens: int,
                  max_concurrency: int, page_size: int,
                  max_ragged_batch_size: int, has_fresh: bool,
-                 sampling: bool,
-                 kinds: Optional[Sequence[str]] = None) -> List[Tuple]:
+                 sampling: bool, spec_max_draft: int = 0,
+                 kinds: Optional[Sequence[str]] = None,
+                 draft: bool = False) -> List[Tuple]:
     """Every step key of the power-of-two bucket lattice for this
     geometry: S over slot buckets up to ``max_concurrency``, Q over {1}
     and the prompt buckets up to ``max_prompt``, P over the page buckets
-    up to ``max_prompt + max_new_tokens`` tokens.  ``kinds`` keeps a
-    subset of :data:`LATTICE_KINDS`.  The key families are
+    up to ``max_prompt + max_new_tokens`` tokens; ``spec_max_draft`` > 0
+    adds the spec keys at Q = the bucket of ``1 + spec_max_draft``, and
+    ``draft`` the model-drafted twins.  ``kinds`` keeps a subset of
+    :data:`LATTICE_KINDS`.  The key families are
     ``lattice.enumerate_lattice_keys``'s."""
     if kinds is not None:
         unknown = set(kinds) - set(LATTICE_KINDS)
@@ -110,7 +119,9 @@ def lattice_keys(max_prompt: int, max_new_tokens: int,
     keys = enumerate_lattice_keys(
         s_vals, q_vals, p_vals, page_size=page_size,
         max_ragged_batch_size=max_ragged_batch_size,
-        has_fresh=has_fresh, sampling=sampling)
+        has_fresh=has_fresh, sampling=sampling,
+        spec_q=_bucket(1 + spec_max_draft) if spec_max_draft > 0 else 0,
+        draft=draft)
     if kinds is not None:
         keys = [k for k in keys if lattice_kind_of(k) in set(kinds)]
     return keys
@@ -120,16 +131,45 @@ class InferenceEngineV2:
     def __init__(self, model: RaggedInferenceModel,
                  config: Optional[RaggedInferenceEngineConfig] = None):
         self._config = config or RaggedInferenceEngineConfig()
-        self._config.serving.validate()
+        sv = self._config.serving
+        sv.validate()
         self._model = model
+        drafter = sv.spec_drafter or "ngram"
+        if drafter not in ("ngram", "model", "auto"):
+            raise ValueError(
+                f"serving.spec_drafter={drafter!r} is not a drafter: choose "
+                "'ngram' (prompt lookup), 'model' (a draft trunk drafting "
+                "on the device) or 'auto' (chosen per request)")
+        #: model-drafted speculation: a draft trunk and its own KV pool
+        self._draft_enabled = bool(sv.speculative) and drafter != "ngram"
+        L = model.cfg.num_layers
+        want = int(sv.spec_draft_layers or 0)
+        self._draft_layers = ((min(want, L) if want > 0 else L)
+                              if self._draft_enabled else 0)
         model.kv_config = self._resolve_kv_config(model)
         # graphs captured for an earlier engine wrote that engine's cache
         model.reset_steps()
+        self._build_draft(model)
         self._state = StateManager(
             model.kv_config, model.device,
             max_tracked_sequences=(
                 self._config.state_manager.max_tracked_sequences),
-            prefix_caching=self._config.serving.prefix_caching)
+            prefix_caching=sv.prefix_caching)
+        # the draft pool: unquantised, at the cache dtype, addressed by the
+        # target's page ids and tables (allocation and rollback ride the
+        # target's allocator; a rejected draft's slots are written again
+        # before they are read).  Draft pages are never prefix-indexed,
+        # so a shared prefix page's draft KV may be stale: that lowers
+        # the accept rate until the catch-up fill, never a token
+        self._draft_kv: Optional[torch.Tensor] = None
+        #: uid -> committed tokens the draft pool covers
+        self._draft_seen: Dict[int, int] = {}
+        if self._draft_enabled:
+            kv = model.kv_config
+            self._draft_kv = torch.zeros(
+                (self._draft_layers, kv.num_pages + 1, kv.page_size, 2,
+                 kv.kv_heads, kv.head_dim), dtype=kv.dtype,
+                device=model.device)
 
     def _resolve_kv_config(self, model: RaggedInferenceModel) -> KVCacheConfig:
         """The cache the engine builds, with the serving knob
@@ -151,9 +191,81 @@ class InferenceEngineV2:
             free = self._free_device_memory(model.device)
             if free is not None:
                 budget = int(free * self._config.state_manager.memory_fraction)
+                if self._draft_enabled:
+                    L = model.cfg.num_layers
+                    budget = int(budget * L / (L + self._draft_layers))
                 kv_cfg = dataclasses.replace(
                     kv_cfg, num_pages=pages_for_memory(kv_cfg, budget))
         return kv_cfg
+
+    def _build_draft(self, model: RaggedInferenceModel) -> None:
+        """Attach the draft trunk to the model (or detach it): the same
+        family at ``_draft_layers`` layers over the target's own tensors,
+        the whole tree for the self-draft, else its leading layers.
+        Embedding, final norm and lm head are always the target's."""
+        if not self._draft_enabled:
+            model.draft_cfg = model.draft_params = None
+            return
+        cfg = model.cfg
+        L, L_d = cfg.num_layers, self._draft_layers
+        model.draft_cfg = dataclasses.replace(cfg, num_layers=L_d)
+        if L_d == L:
+            model.draft_params = model.params
+            return
+        layers = model.params["layers"]
+        if cfg.scan_layers:
+            dlayers = tree_map(lambda leaf: leaf[:L_d], layers)
+        else:
+            dlayers = {f"layer_{i}": layers[f"layer_{i}"] for i in range(L_d)}
+        model.draft_params = dict(model.params, layers=dlayers)
+
+    @property
+    def draft_enabled(self) -> bool:
+        """The engine built a draft trunk (``speculative`` on and
+        ``spec_drafter`` model or auto)."""
+        return self._draft_enabled
+
+    @property
+    def draft_kv(self) -> Optional[torch.Tensor]:
+        """The draft trunk's KV pool [L_draft, pages+1, page, 2, K, D]."""
+        return self._draft_kv
+
+    def draft_lag(self, uid: int) -> int:
+        """Committed tokens of ``uid`` the draft pool does not cover
+        (prefill, decode steps that did not draft and prefix hits advance
+        the target alone); the scheduler runs a draft_fill while it is
+        > 0."""
+        sd = self._state.get_sequence(uid)
+        if sd is None:
+            return 0
+        return max(sd.seen_tokens - self._draft_seen.get(uid, 0), 0)
+
+    def mark_draft_seen(self, uids: Sequence[int]) -> None:
+        """After ``commit_spec`` of a draft_spec step: the draft loop wrote
+        draft KV at every committed position of these rows."""
+        for uid in uids:
+            sd = self._state.get_sequence(uid)
+            if sd is not None:
+                self._draft_seen[uid] = sd.seen_tokens
+
+    def seen_tokens(self, uid: int) -> int:
+        sd = self._state.get_sequence(uid)
+        return sd.seen_tokens if sd is not None else 0
+
+    def _kv_for(self, key) -> object:
+        """The store(s) a step key writes: the target pool, the draft
+        pool (draft_fill) or the pair (draft_spec).  ValueError for a
+        draft key on an engine without the draft trunk."""
+        kind = key[4] if len(key) > 4 else "logits"
+        kv = self._state.kv_cache.data
+        if kind in ("draft_spec", "draft_fill"):
+            if self._draft_kv is None:
+                raise ValueError(
+                    f"step key {key} needs the draft pool, and this engine "
+                    "was built without spec_drafter model or auto")
+            return (kv, self._draft_kv) if kind == "draft_spec" \
+                else self._draft_kv
+        return kv
 
     @staticmethod
     def _free_device_memory(device: torch.device) -> Optional[int]:
@@ -169,27 +281,34 @@ class InferenceEngineV2:
     # -- the step lattice ----------------------------------------------------
     def precompile(self, max_prompt: int, max_concurrency: int = 0,
                    max_new_tokens: int = 256, strict: bool = False,
-                   sampling: bool = False) -> List[Tuple]:
+                   sampling: bool = False,
+                   spec_max_draft: Optional[int] = None) -> List[Tuple]:
         """Capture the graphs of the bucket lattice this engine can hit
         (``lattice_keys``) before serving, so no capture lands on the
         request path: S up to ``max_concurrency`` (default: the state
         manager's ``max_ragged_sequence_count``), Q up to ``max_prompt``,
         P up to ``max_prompt + max_new_tokens`` tokens.  The logits keys
         serve ``put`` (the split step); ``sampling`` adds the sample and
-        chain keys (the fused scheduler's steps).  ``strict`` makes any
-        later key outside the set raise.  A failed capture raises.
-        Returns the keys."""
+        chain keys (the fused scheduler's steps) and the spec keys at
+        ``spec_max_draft`` (default: the serving config's, 0 with
+        ``speculative`` off), with the draft trunk's twins when the
+        engine has one.  ``strict`` makes any later key outside the set
+        raise.  A failed capture raises.  Returns the keys."""
         sm = self._config.state_manager
+        sv = self._config.serving
+        if spec_max_draft is None:
+            spec_max_draft = (int(sv.spec_max_draft or 0)
+                              if sv.speculative else 0)
         keys = lattice_keys(
             max_prompt=max_prompt, max_new_tokens=max_new_tokens,
             max_concurrency=max_concurrency or sm.max_ragged_sequence_count,
             page_size=self._model.kv_config.page_size,
             max_ragged_batch_size=sm.max_ragged_batch_size,
             has_fresh=self._model._fresh_attention is not None,
-            sampling=sampling)
-        kv = self._state.kv_cache.data
+            sampling=sampling, spec_max_draft=spec_max_draft,
+            draft=self._draft_enabled and sampling and spec_max_draft > 0)
         for key in keys:
-            self._model.precompile_step(key, kv)
+            self._model.precompile_step(key, self._kv_for(key))
         if strict:
             self._model.strict_shapes = True
         return keys
@@ -204,25 +323,31 @@ class InferenceEngineV2:
     def precompile_keys(self, keys: Sequence[Sequence]) -> int:
         """Capture an explicit key list (JSON-round-tripped lists
         accepted).  A key this model cannot form (malformed, or of a kind
-        the port does not serve) warns and is skipped: a manifest from
-        another build must not block serving.  A failed capture raises.
-        Returns the number of keys captured."""
+        the port does not serve, or a draft key without a draft trunk)
+        warns and is skipped: a manifest from another build must not block
+        serving.  A failed capture raises.  Returns the number of keys
+        captured."""
         done = 0
         for k in keys:
             try:
                 key = self._model.check_key(k)
+                kv = self._kv_for(key)
             except ValueError as e:
                 warnings.warn(f"precompile_keys: skipping key {k!r} ({e})")
                 continue
-            self._model.precompile_step(key, self._state.kv_cache.data)
+            self._model.precompile_step(key, kv)
             done += 1
         return done
 
     def predict_step_key(self, batch_uids: Sequence[int],
-                         batch_tokens: Sequence, suffix: tuple = ()
-                         ) -> tuple:
+                         batch_tokens: Sequence, suffix: tuple = (),
+                         min_q: int = 1) -> tuple:
         """The step key a single-geometry dispatch of this batch will
-        form, before admission (``build_batch``'s bucketing)."""
+        form, before admission (``build_batch``'s bucketing).  ``suffix``
+        extends (S, Q, P, fresh): ``("sample", greedy)``, ``("chain",
+        prev_len, greedy)``, ``("spec", greedy)`` or ``("draft_spec",
+        greedy)`` (with ``min_q`` the spec bucket, fresh pinned False),
+        or ``("draft_fill",)``."""
         page = self._model.kv_config.page_size
         pages, all_new = [], True
         for uid, toks in zip(batch_uids, batch_tokens):
@@ -232,9 +357,11 @@ class InferenceEngineV2:
             pages.append(max(cap, -(-(seen + len(toks)) // page)))
             all_new = all_new and not seen
         S = _bucket(len(batch_uids), MIN_SLOTS)
-        Q = _bucket(max(len(t) for t in batch_tokens))
+        Q = _bucket(max(max(len(t) for t in batch_tokens), min_q))
         P = _bucket(max(pages), MIN_PAGES)
         fresh = (all_new and Q > 1
+                 and suffix[:1] not in (("spec",), ("draft_spec",),
+                                        ("draft_fill",))
                  and self._model._fresh_attention is not None)
         return (S, Q, P, fresh) + tuple(suffix)
 
@@ -320,11 +447,12 @@ class InferenceEngineV2:
                 # stays O(window), not O(context)
                 self._state.evict_window(sd, window)
 
-    def _build_batch(self, descs, tokens):
+    def _build_batch(self, descs, tokens, min_q: int = 1):
         return build_batch(
             descs, [np.asarray(t) for t in tokens],
             self._model.kv_config.page_size,
-            fresh_supported=self._model._fresh_attention is not None)
+            fresh_supported=self._model._fresh_attention is not None,
+            min_q=min_q)
 
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[np.ndarray],
@@ -438,6 +566,104 @@ class InferenceEngineV2:
         self._commit_batch(descs)
         return tokens
 
+    # -- speculative decoding -----------------------------------------------
+    def _spec_batch(self, batch_uids, batch_tokens, row_params, min_q):
+        descs = self._admit_batch(batch_uids, batch_tokens, do_checks=False)
+        # every spec dispatch pads to the one spec Q bucket (min_q = 1 +
+        # spec_max_draft): a short-draft step forms no smaller key
+        batch = self._build_batch(descs, batch_tokens, min_q=min_q)
+        temps, top_ks, top_ps = self._pad_sample_params(
+            row_params, batch.num_slots)
+        return batch, temps, top_ks, top_ps, not bool((temps > 0.0).any())
+
+    def step_spec(self, batch_uids: Sequence[int],
+                  batch_tokens: Sequence[np.ndarray],
+                  row_params: Sequence[SamplingParams],
+                  generator: torch.Generator,
+                  min_q: int = 1) -> torch.Tensor:
+        """Speculative verify: each row's tokens are ``[last_committed,
+        d_1..d_k]`` (k may differ per row, 0 allowed).  Returns the device
+        [S, 2] int32 verdict (accepted drafts, corrected token) per row.
+        The commit waits for :meth:`commit_spec` with each row's
+        committed count (a step may commit 1..1+k tokens of a row)."""
+        batch, temps, top_ks, top_ps, greedy_only = self._spec_batch(
+            batch_uids, batch_tokens, row_params, min_q)
+        return self._model.spec_step(batch, self._state.kv_cache.data,
+                                     generator, temps, top_ks, top_ps,
+                                     greedy_only)
+
+    def step_draft_spec(self, batch_uids: Sequence[int],
+                        batch_tokens: Sequence[np.ndarray],
+                        row_params: Sequence[SamplingParams],
+                        generator: torch.Generator,
+                        min_q: int = 1) -> torch.Tensor:
+        """Model-drafted speculative step: as :meth:`step_spec`, but each
+        row is ``[last, 0...0]`` of length ``1 + room`` (room: the drafts
+        the row may commit) and the draft trunk drafts on the device.
+        Returns the device [S, 2+k] int32 verdict (accepted, corrected,
+        the k drafts).  Call :meth:`commit_spec`, then
+        :meth:`mark_draft_seen`."""
+        batch, temps, top_ks, top_ps, greedy_only = self._spec_batch(
+            batch_uids, batch_tokens, row_params, min_q)
+        return self._model.draft_spec_step(
+            batch, (self._state.kv_cache.data, self._draft_kv), generator,
+            temps, top_ks, top_ps, greedy_only)
+
+    def step_draft_fill(self, batch_uids: Sequence[int],
+                        batch_tokens: Sequence[np.ndarray]) -> None:
+        """The draft pool's catch-up: ``batch_tokens[i]`` is the committed
+        history ``[draft_seen : draft_seen + chunk]`` of uid i, run
+        through the draft trunk into the draft pool over the sequence's
+        own page table.  The target pool, the seen counts and the
+        allocator stay as they are; nothing reaches the host.  Advances
+        each uid's draft mark."""
+        sds, starts, caps = [], [], []
+        for uid in batch_uids:
+            sd = self._state.get_sequence(uid)
+            if sd is None:
+                raise ValueError(f"step_draft_fill: unknown sequence {uid}")
+            sds.append(sd)
+            starts.append(self._draft_seen.get(uid, 0))
+            caps.append(max(sd.allocated_capacity, 1))
+        lengths = [len(t) for t in batch_tokens]
+        S = _bucket(len(batch_uids), MIN_SLOTS)
+        Q = _bucket(max(lengths))
+        P = _bucket(max(caps), MIN_PAGES)
+        token_ids = np.zeros((S, Q), np.int32)
+        q_lens = np.zeros(S, np.int32)
+        start_pos = np.zeros(S, np.int32)
+        page_table = np.zeros((S, P), np.int32)
+        for i, (sd, toks, start) in enumerate(zip(sds, batch_tokens,
+                                                  starts)):
+            toks = np.asarray(toks, np.int32).reshape(-1)
+            token_ids[i, :len(toks)] = toks
+            q_lens[i] = len(toks)
+            start_pos[i] = start
+            page_table[i] = sd.page_table(P)
+        self._model.draft_fill_step(
+            RaggedBatch(token_ids, q_lens, start_pos, page_table,
+                        list(batch_uids)), self._draft_kv)
+        for uid, start, n in zip(batch_uids, starts, lengths):
+            self._draft_seen[uid] = start + n
+
+    def commit_spec(self, batch_uids: Sequence[int],
+                    committed: Sequence[int]) -> None:
+        """Variable-advance commit of a spec or draft_spec step: each
+        row's ``seen_tokens`` moves by its committed count (1 + accepted
+        drafts, cut at a stop token), then newly full prompt pages are
+        indexed and a window's pages released, as after any forward.
+        Generated tokens are never indexed, so a rejected draft cannot
+        reach a shared page."""
+        window = self._model.cfg.sliding_window
+        for uid, n in zip(batch_uids, committed):
+            sd = self._state.get_sequence(uid)
+            if sd is None:
+                continue
+            sd.commit_tokens(int(n))
+            self._state.index_prefix(sd)
+            if window:
+                self._state.evict_window(sd, window)
+
     # -- prefix caching ------------------------------------------------------
     def match_prefix(self, uid: int, prompt: Sequence[int]) -> int:
         """Attach the longest prefix-cache hit for a NEW sequence's
@@ -463,11 +689,14 @@ class InferenceEngineV2:
 
     def flush(self, uid: int) -> None:
         self._state.flush_sequence(uid)
+        self._draft_seen.pop(uid, None)
 
     def offload_sequence(self, uid: int) -> None:
         """Preempt a sequence: its private KV pages move to host memory
         and return to the pool.  It cannot be stepped until
-        ``restore_sequence``."""
+        ``restore_sequence``.  Its draft mark stays as it was, as in the
+        JAX engine: the restored pages' draft KV is not moved, and
+        ``draft_lag`` reads 0 after the cycle (ROADMAP Queue 3)."""
         self._state.offload_sequence(uid)
 
     def restore_sequence(self, uid: int) -> None:

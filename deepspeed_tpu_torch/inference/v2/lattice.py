@@ -20,12 +20,12 @@ def enumerate_lattice_keys(s_vals: Sequence[int], q_vals: Sequence[int],
                            sampling: bool, spec_q: int = 0,
                            draft: bool = False) -> List[Tuple]:
     """Every (S, Q, P[, fresh[, kind, ...]]) key over the given bucket
-    tops.  ``spec_q`` (the bucketed speculative Q width) and ``draft``
-    (the model-drafted families) raise: speculation is not ported."""
-    if spec_q > 0 or draft:
-        raise NotImplementedError(
-            "speculative step keys (spec, draft_spec, draft_fill) are not "
-            "ported yet (ROADMAP Queue 1 item 8 (speculative decoding))")
+    tops.  ``spec_q`` > 0 (the bucketed Q = 1 + spec_max_draft of a
+    verify step) adds the spec keys of the sampling lattice; ``draft``
+    adds a "draft_spec" twin of every spec key (the draft loop and the
+    verify in one step) and a "draft_fill" twin of every non-fresh
+    logits key (the draft pool's catch-up forward, bucketed like a
+    prefill)."""
     s_vals = sorted({int(s) for s in s_vals})
     q_vals = sorted({int(q) for q in q_vals} | {1})
     p_vals = sorted({int(p) for p in p_vals})
@@ -44,6 +44,8 @@ def enumerate_lattice_keys(s_vals: Sequence[int], q_vals: Sequence[int],
                               else (False,)):
                     key = (S, Q, P, fresh)
                     keys.append(key)
+                    if draft and not fresh:
+                        keys.append((S, Q, P, False, "draft_fill"))
                     if not sampling:
                         continue
                     for greedy in (True, False):
@@ -55,4 +57,18 @@ def enumerate_lattice_keys(s_vals: Sequence[int], q_vals: Sequence[int],
                                 if prev_s >= S:
                                     keys.append((S, 1, P, False, "chain",
                                                  prev_s, greedy))
+    if sampling and spec_q > 0:
+        # one Q bucket serves every draft length (q_lens is per row);
+        # the S * Q budget rule holds for it too
+        for S in s_vals:
+            if S * spec_q > max_ragged_batch_size:
+                continue
+            for P in p_vals:
+                if P * page_size < spec_q:
+                    continue
+                for greedy in (True, False):
+                    keys.append((S, spec_q, P, False, "spec", greedy))
+                    if draft:
+                        keys.append((S, spec_q, P, False, "draft_spec",
+                                     greedy))
     return keys

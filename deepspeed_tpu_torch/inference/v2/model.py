@@ -2,15 +2,17 @@
 
 Counterpart of ``deepspeed_tpu/inference/v2/model.py``.  The JAX package
 compiles one program per step key (``(S, Q, P, fresh)`` for a logits
-forward, plus the step kind for a sampling or chained step) and donates
-the KV cache to it.  Here each step of a key is ONE
+forward, plus the step kind for a sampling, chained or speculative step)
+and donates the KV cache to it.  Here each step of a key is ONE
 ``torch.cuda.CUDAGraph`` on the card, captured at the key's first use
 (or by ``precompile_step``) over static input buffers and replayed after
 the host copies each step's arrays into them; on the CPU the same key
 bookkeeping runs and the step body runs eagerly (``_call`` runs it
 eagerly on the card too).  The KV cache is written IN PLACE
 (``write_kv``'s indexed assignment into the cache tensor), so the steps
-return only tokens or logits.  Attention,
+return only tokens, logits or a verdict; a step of the model-drafted
+kinds writes the draft trunk's own pool as well (``draft_spec``: both
+pools, ``draft_fill``: the draft pool alone).  Attention,
 norm, embedding and unembedding come from the ``modules`` registry: on
 the card the hand-written kernels (a model they do not take raises), on
 the CPU or when named the plain versions.
@@ -51,13 +53,13 @@ def _input_specs(key) -> List[Tuple[Tuple[int, ...], np.dtype]]:
     S, Q, P = key[:3]
     kind = _kind(key)
     batch = [((S, Q), _I32), ((S,), _I32), ((S,), _I32), ((S, P), _I32)]
-    if kind == "logits":
+    if kind in ("logits", "draft_fill"):
         return batch
 
     def rows(n):
         return [((n,), _F32), ((n,), _I32), ((n,), _F32)]
 
-    if kind == "sample":
+    if kind in ("sample", "spec", "draft_spec"):
         return batch + rows(S)
     if kind == "chain":  # prev tokens and the gather replace token ids
         return [((key[5],), _I32), ((S,), _I32)] + batch[1:] + rows(S)
@@ -70,7 +72,8 @@ def _input_specs(key) -> List[Tuple[Tuple[int, ...], np.dtype]]:
 
 
 #: step kind -> the length of its keys
-_KEY_LENGTHS = {"logits": 4, "sample": 6, "chain": 7, "mixed": 10}
+_KEY_LENGTHS = {"logits": 4, "sample": 6, "chain": 7, "mixed": 10,
+                "spec": 6, "draft_spec": 6, "draft_fill": 5}
 
 
 def _kind(key) -> str:
@@ -80,18 +83,25 @@ def _kind(key) -> str:
 
 
 def _stochastic(key) -> bool:
-    # every sampling kind ends with greedy_only; a logits step draws
-    # nothing
-    return len(key) > 4 and not key[-1]
+    # every sampling kind ends with greedy_only; a logits or draft_fill
+    # step draws nothing
+    return len(key) > 4 and key[-1] is False
+
+
+def _stores(kv) -> tuple:
+    """The KV stores a step writes: one, or the (target, draft) pair of
+    a draft_spec step."""
+    return kv if isinstance(kv, tuple) else (kv,)
 
 
 class _StepGraph:
     """One step key on the card: static input tensors (outside the graph
-    pool), the counted graph captured over them, and the KV store it
-    writes.  ``run`` copies a step's arrays into the inputs and replays;
-    the tokens come back as a fresh tensor outside the pool, so a later
-    replay of another key (whose intermediates may share the pool's
-    memory) cannot overwrite them.  It holds no reference to its model
+    pool), the counted graph captured over them, and the KV store(s) it
+    writes (the draft_spec kind writes two).  ``run`` copies a step's
+    arrays into the inputs and replays; the tokens come back as a fresh
+    tensor outside the pool, so a later replay of another key (whose
+    intermediates may share the pool's memory) cannot overwrite them (a
+    draft_fill step returns nothing).  It holds no reference to its model
     (the model's step cache holds it), so a dropped model frees its
     graphs and their pool at once."""
 
@@ -116,9 +126,11 @@ class _StepGraph:
         """Capture ``body(kv, generator, *inputs)``, the key's step."""
         self.graph.capture(body, self.kv, self.generator, *self.inputs)
 
-    def run(self, kv: KVLayer, generator: torch.Generator,
-            inputs: Sequence) -> torch.Tensor:
-        if kv is not self.kv:
+    def run(self, kv, generator: torch.Generator,
+            inputs: Sequence) -> Optional[torch.Tensor]:
+        ours, theirs = _stores(self.kv), _stores(kv)
+        if len(ours) != len(theirs) or any(
+                a is not b for a, b in zip(ours, theirs)):
             raise RuntimeError("this step graph was captured over another "
                                "KV cache")
         self.load(inputs)
@@ -131,7 +143,8 @@ class _StepGraph:
             generator.set_offset(self.generator.get_offset())
         else:
             self.graph.replay()
-        return self.graph.output.clone()
+        out = self.graph.output
+        return None if out is None else out.clone()
 
 
 class RaggedInferenceModel:
@@ -196,6 +209,11 @@ class RaggedInferenceModel:
         self.capture_seconds = 0.0
         #: (pool, capture stream, generator) every graph shares
         self._graph_shared: Optional[tuple] = None
+        #: the draft trunk of model-drafted speculation, set by the engine
+        #: at build: the same family at ``spec_draft_layers`` layers, its
+        #: params the target's own tensors (None: no draft trunk)
+        self.draft_cfg: Optional[T.TransformerConfig] = None
+        self.draft_params: Optional[Dict[str, Any]] = None
 
     # -- public steps --------------------------------------------------------
     def forward(self, batch: RaggedBatch, kv: KVLayer) -> torch.Tensor:
@@ -267,6 +285,43 @@ class RaggedInferenceModel:
             + self._batch_arrays(batch)[1:]
             + self._sample_arrays(temps, top_ks, top_ps))
 
+    def spec_step(self, batch: RaggedBatch, kv: KVLayer,
+                  generator: torch.Generator, temps, top_ks, top_ps,
+                  greedy_only: bool) -> torch.Tensor:
+        """Speculative verify: row s carries ``[last_committed, d_1..d_k]``
+        (``q_lens[s] = 1 + k``, k may be 0) and one step runs the forward
+        over every position and returns [S, 2] int32 on the device:
+        (accepted drafts, the corrected or bonus token).  Keyed
+        ``(S, Q, P, False, "spec", greedy_only)``."""
+        key = self._normalize_key(batch.shape_key)[:3] + (
+            False, "spec", bool(greedy_only))
+        return self._dispatch(key, kv, generator, self._batch_arrays(batch)
+                              + self._sample_arrays(temps, top_ks, top_ps))
+
+    def draft_spec_step(self, batch: RaggedBatch, kv_pair: tuple,
+                        generator: torch.Generator, temps, top_ks, top_ps,
+                        greedy_only: bool) -> torch.Tensor:
+        """Model-drafted speculative step: the draft trunk drafts k = Q-1
+        greedy tokens over the draft pool (Q iterations of a Q=1
+        forward) and the target verifies them, in one step.  The host
+        gives each row's last committed token (``token_ids[:, 0]``; the
+        rest of the row is ignored) and ``kv_pair`` = (target pool,
+        draft pool).  Returns [S, 2+k] int32 on the device: accepted
+        count, corrected token, then the k drafts."""
+        key = self._normalize_key(batch.shape_key)[:3] + (
+            False, "draft_spec", bool(greedy_only))
+        return self._dispatch(key, tuple(kv_pair), generator,
+                              self._batch_arrays(batch)
+                              + self._sample_arrays(temps, top_ks, top_ps))
+
+    def draft_fill_step(self, batch: RaggedBatch, draft_kv) -> None:
+        """The draft pool's catch-up over committed history (prefill,
+        decode steps that did not draft, prefix hits): one draft-trunk
+        forward that writes the draft pool and returns nothing."""
+        key = self._normalize_key(batch.shape_key)[:3] + (
+            False, "draft_fill")
+        self._dispatch(key, draft_kv, None, self._batch_arrays(batch))
+
     # -- step keys and graphs (JAX: _get_step, precompile_step) -------------
     def _normalize_key(self, key) -> tuple:
         """A model without a fresh-prefill path (ALiBi) ignores the fresh
@@ -278,14 +333,18 @@ class RaggedInferenceModel:
     def check_key(self, key) -> tuple:
         """``key`` (any sequence) as a normalised step key; ValueError
         when it is none this model forms: a wrong length or field, or a
-        kind the port does not run (the speculative kinds, item 8)."""
+        draft kind on a model without a draft trunk."""
         key = tuple(key)
         kind = _kind(key) if len(key) >= 4 else None
         if kind is None or len(key) != _KEY_LENGTHS.get(str(kind)):
             raise ValueError(f"not a step key of this model: {key!r}")
+        if kind in ("draft_spec", "draft_fill") and self.draft_cfg is None:
+            raise ValueError(f"step key {key!r} needs the draft trunk, and "
+                             "this model has none (spec_drafter model or "
+                             "auto builds it)")
         dims = key[:3] + (key[5:8] if kind == "mixed" else ())
         flags = (key[3],) + ((key[8],) if kind == "mixed" else ()) + (
-            (key[-1],) if kind != "logits" else ())
+            (key[-1],) if kind not in ("logits", "draft_fill") else ())
         if kind == "chain":
             dims += (key[5],)
         if not all(isinstance(d, (int, np.integer))
@@ -294,13 +353,18 @@ class RaggedInferenceModel:
             raise ValueError(f"not a step key of this model: {key!r}")
         return self._normalize_key(key)
 
-    def _call(self, key, kv, generator, *inputs) -> torch.Tensor:
+    def _call(self, key, kv, generator, *inputs) -> Optional[torch.Tensor]:
         """The step body of ``key`` over tensors (eager)."""
         kind = _kind(key)
         if kind == "logits":
             with torch.no_grad():
                 return self._step_impl(self.params, kv, *inputs,
                                        fresh=key[3])
+        if kind == "draft_fill":
+            with torch.no_grad():
+                return self._draft_fill_step_impl(self.draft_params, kv,
+                                                  *inputs)
+        params = self.params
         if kind == "sample":
             fn = functools.partial(self._sample_step_impl, fresh=key[3],
                                    greedy_only=key[5])
@@ -310,10 +374,16 @@ class RaggedInferenceModel:
         elif kind == "mixed":
             fn = functools.partial(self._mixed_sample_step_impl,
                                    fresh_p=key[8], greedy_only=key[9])
+        elif kind == "spec":
+            fn = functools.partial(self._spec_step_impl, greedy_only=key[5])
+        elif kind == "draft_spec":
+            fn = functools.partial(self._draft_spec_step_impl,
+                                   greedy_only=key[5])
+            params = {"target": self.params, "draft": self.draft_params}
         else:
             raise ValueError(f"unknown step kind in key {key}")
         with torch.no_grad():
-            return fn(self.params, kv, *inputs[:-3], generator, *inputs[-3:])
+            return fn(params, kv, *inputs[:-3], generator, *inputs[-3:])
 
     def _graph_resources(self) -> tuple:
         """(pool, capture stream, generator) that every graph of this
@@ -343,8 +413,8 @@ class RaggedInferenceModel:
         self.capture_seconds += time.perf_counter() - t
         return graph
 
-    def _dispatch(self, key, kv: KVLayer, generator: torch.Generator,
-                  inputs: Sequence) -> torch.Tensor:
+    def _dispatch(self, key, kv, generator: Optional[torch.Generator],
+                  inputs: Sequence) -> Optional[torch.Tensor]:
         """Run one step of ``key`` (JAX: ``_get_step`` and the call of
         what it returns): replay its graph (captured here at the key's
         first use), or on the CPU its body eagerly."""
@@ -365,9 +435,11 @@ class RaggedInferenceModel:
                 if isinstance(a, np.ndarray) else a for a in inputs))
         return graph.run(kv, generator, inputs)
 
-    def precompile_step(self, key: tuple, kv: KVLayer) -> None:
+    def precompile_step(self, key: tuple, kv) -> None:
         """Capture one step key's graph before serving (JAX: AOT-compile
-        it)."""
+        it).  ``kv`` is the store(s) the key's kind writes: the target
+        pool, the draft pool (draft_fill) or the (target, draft) pair
+        (draft_spec)."""
         key = self.check_key(key)
         if key not in self._step_cache:
             self._step_cache[key] = self._new_step(key, kv)
@@ -387,11 +459,12 @@ class RaggedInferenceModel:
 
     # -- step bodies (JAX: the traced step kinds) ---------------------------
     def _forward_hidden(self, params, kv, token_ids, q_lens, start_pos,
-                        page_table, fresh: bool = False):
+                        page_table, fresh: bool = False, cfg=None):
         """Embed -> layers -> final norm.  Returns x [S, Q, E]; ``kv``
         [L, pages+1, page, 2, K, D] (a tensor or ``KVPages``) is written
-        in place."""
-        cfg = self.cfg
+        in place.  ``cfg`` runs another trunk of the family (the draft
+        trunk, fewer layers); None is the target."""
+        cfg = cfg if cfg is not None else self.cfg
         S, Q = token_ids.shape
         x = self._embed(params["embed"]["tokens"].to(cfg.dtype), token_ids)
         pos = token_positions(start_pos, Q)
@@ -406,7 +479,7 @@ class RaggedInferenceModel:
             x = self._layer_body(x, T.layer_params(cfg, params, i), kv[i],
                                  sin=sin, cos=cos, q_lens=q_lens,
                                  start_pos=start_pos, page_table=page_table,
-                                 fresh=fresh)
+                                 fresh=fresh, cfg=cfg)
         return self._norm(params["final_norm"], x)
 
     def _step_impl(self, params, kv, token_ids, q_lens, start_pos,
@@ -415,6 +488,14 @@ class RaggedInferenceModel:
                                  page_table, fresh=fresh)
         logits = self._unembed(x, q_lens, self._lm_head(params))  # [S, V]
         bias = params.get("lm_head_bias")  # the phi family ships one
+        if bias is not None:
+            logits = logits + bias.to(self.cfg.dtype)
+        return logits.float()
+
+    def _assemble_logits(self, x2d, lm_head, bias=None) -> torch.Tensor:
+        """[N, E] hidden rows -> [N, V] fp32 logits (the bias, when the
+        family ships one, added in the compute dtype)."""
+        logits = x2d @ lm_head
         if bias is not None:
             logits = logits + bias.to(self.cfg.dtype)
         return logits.float()
@@ -444,6 +525,84 @@ class RaggedInferenceModel:
                                       temps, top_ks, top_ps, fresh=False,
                                       greedy_only=greedy_only)
 
+    def _spec_step_impl(self, params, kv, token_ids, q_lens, start_pos,
+                        page_table, generator, temps, top_ks, top_ps,
+                        greedy_only: bool = False) -> torch.Tensor:
+        """Verify drafted tokens.  Row layout ``token_ids[s] =
+        [last_committed, d_1..d_k, pad...]``, ``q_lens[s] = 1 + k``.  The
+        forward writes KV for every valid position (a rejected draft's
+        slots are written again by the next step before any step reads
+        them) and emits the model's own token at EVERY position: the
+        argmax, or ``sample_dynamic``'s draw with the row's parameters.
+        Per row the accepted count is the leading run of drafts equal to
+        the emission one position earlier, and the corrected (or bonus)
+        token is the emission at that count.  Returns [S, 2] int32."""
+        x = self._forward_hidden(params, kv, token_ids, q_lens, start_pos,
+                                 page_table)
+        S, Q, E = x.shape
+        logits = self._assemble_logits(x.reshape(S * Q, E),
+                                       self._lm_head(params),
+                                       params.get("lm_head_bias"))
+        if greedy_only:
+            emitted = greedy(logits)
+        else:
+            emitted = sample_dynamic(
+                logits, generator, temps.repeat_interleave(Q),
+                top_ks.repeat_interleave(Q), top_ps.repeat_interleave(Q))
+        emitted = emitted.reshape(S, Q)
+        col = torch.arange(Q - 1, device=x.device)[None, :]
+        ok = (emitted[:, :-1] == token_ids[:, 1:]) \
+            & (col < (q_lens - 1)[:, None])
+        accepts = torch.cumprod(ok.to(torch.int32), dim=1).sum(
+            dim=1).to(torch.int32)
+        corrected = torch.gather(emitted, 1, accepts[:, None].long())[:, 0]
+        return torch.stack([accepts, corrected], dim=1)
+
+    def _draft_spec_step_impl(self, params, kv, token_ids, q_lens,
+                              start_pos, page_table, generator, temps,
+                              top_ks, top_ps,
+                              greedy_only: bool = False) -> torch.Tensor:
+        """The draft loop and the verify in one step: ``params`` =
+        {"target", "draft"}, ``kv`` = (target pool, draft pool).
+        Iteration j of Q runs the draft trunk at Q=1 on the previous
+        emission (iteration 0 on ``token_ids[:, 0]``) at position
+        ``start_pos + j`` with q_len ``j < q_lens``, so a row with
+        ``q_lens = 1 + r`` writes draft KV for all r + 1 of its input
+        positions (after a full accept the draft pool covers every
+        committed token); rows past their q_len write the null page.
+        Drafts are the draft trunk's argmax; only the verify's emissions
+        commit.  Returns [S, 2+k] int32 (k = Q-1): accepted count,
+        corrected token, then the k drafts."""
+        target_kv, draft_kv = kv
+        dparams = params["draft"]
+        Q = token_ids.shape[1]
+        lm_head = self._lm_head(dparams)
+        bias = dparams.get("lm_head_bias")
+        tok, drafts = token_ids[:, 0], []
+        for j in range(Q):
+            x = self._forward_hidden(dparams, draft_kv, tok[:, None],
+                                     (q_lens > j).to(torch.int32),
+                                     start_pos + j, page_table,
+                                     cfg=self.draft_cfg)
+            tok = greedy(self._assemble_logits(x[:, 0, :], lm_head, bias))
+            drafts.append(tok)
+        # drafts[j] is d_{j+1}; the last iteration only writes d_{Q-1}'s
+        # draft KV for the full-accept case
+        tok_mat = torch.cat([token_ids[:, :1],
+                             torch.stack(drafts[:Q - 1], dim=1)], dim=1)
+        out = self._spec_step_impl(params["target"], target_kv, tok_mat,
+                                   q_lens, start_pos, page_table, generator,
+                                   temps, top_ks, top_ps,
+                                   greedy_only=greedy_only)
+        return torch.cat([out, tok_mat[:, 1:]], dim=1)
+
+    def _draft_fill_step_impl(self, params, kv, token_ids, q_lens,
+                              start_pos, page_table) -> None:
+        """Draft-trunk forward that writes the draft pool at the batch's
+        positions; no unembedding, no output."""
+        self._forward_hidden(params, kv, token_ids, q_lens, start_pos,
+                             page_table, cfg=self.draft_cfg)
+
     def _mixed_sample_step_impl(self, params, kv, d_tok, d_ql, d_sp, d_pt,
                                 p_tok, p_ql, p_sp, p_pt, generator, temps,
                                 top_ks, top_ps, fresh_p: bool = False,
@@ -463,8 +622,8 @@ class RaggedInferenceModel:
         return tokens
 
     def _layer_body(self, x, lp, kv_layer, *, sin, cos, q_lens, start_pos,
-                    page_table, fresh: bool = False):
-        cfg = self.cfg
+                    page_table, fresh: bool = False, cfg=None):
+        cfg = cfg if cfg is not None else self.cfg
         dtype = cfg.dtype
         h = self._norm(lp["norm1"], x)
         ap = lp["attn"]

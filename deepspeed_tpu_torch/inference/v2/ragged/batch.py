@@ -66,16 +66,20 @@ def build_batch(seqs: Sequence[SequenceDescriptor],
                 page_size: int,
                 min_slots: int = MIN_SLOTS,
                 min_pages: int = MIN_PAGES,
-                fresh_supported: bool = True) -> RaggedBatch:
+                fresh_supported: bool = True,
+                min_q: int = 1) -> RaggedBatch:
     """Pack (descriptor, new-token) pairs into a bucketed RaggedBatch.
     Callers must already have reserved KV pages on each descriptor and
     called ``pre_forward``.  ``fresh_supported``: whether the model has
-    a fresh-prefill attention path (ALiBi models do not)."""
+    a fresh-prefill attention path (ALiBi models do not).  ``min_q``
+    floors the Q bucket: every speculative dispatch pads to the one
+    ``1 + spec_max_draft`` bucket, so a short-draft step forms no
+    smaller key."""
     n = len(seqs)
     if n != len(tokens) or n < 1:
         raise ValueError(f"{n} sequences for {len(tokens)} token arrays")
     S = _bucket(n, min_slots)
-    Q = _bucket(max(len(t) for t in tokens))
+    Q = _bucket(max(max(len(t) for t in tokens), min_q))
     P = _bucket(max(max(s.allocated_capacity for s in seqs), 1), min_pages)
 
     token_ids = np.zeros((S, Q), dtype=np.int32)

@@ -44,6 +44,14 @@ class SequenceDescriptor:
         self.seen_tokens += self.in_flight_tokens
         self.in_flight_tokens = 0
 
+    def commit_tokens(self, n: int) -> None:
+        """Variable advance (a speculative verify): only ``n`` of the
+        in-flight tokens join the sequence; the rest were rejected drafts
+        whose KV slots the next step writes before anything reads them.
+        ``0 <= n <= in_flight_tokens``."""
+        self.seen_tokens += min(max(n, 0), self.in_flight_tokens)
+        self.in_flight_tokens = 0
+
     def extend_pages(self, pages: np.ndarray) -> None:
         self.pages.extend(int(p) for p in pages)
 

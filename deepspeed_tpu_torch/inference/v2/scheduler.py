@@ -27,6 +27,16 @@ that extra token is discarded at the drain.  With ``prefix_caching``
 (the default) each new request is matched once against the prefix cache
 before its first admission and only its uncached suffix is prefilled.
 
+With ``speculative`` (fused and on-device sampling only) a step of pure
+decodes may speculate instead: the step in flight is drained, a drafter
+proposes up to ``spec_max_draft`` tokens per row (``spec.py``: host
+prompt lookup, or a draft trunk that drafts on the device inside the
+step), one dispatch verifies them all, and the [S, 2] (or [S, 2+k]) int32
+verdict, the step's only copy to the host, commits each row's accepted
+block in the same step.  ``spec_drafter="auto"`` moves each request
+between the drafters on its accept rate, and each request backs off its
+own fruitless attempts.
+
 When the KV pool runs short the scheduler degrades instead of failing:
 when nothing is schedulable it preempts the running sequence with the
 most private KV (its pages go to host memory) and resumes it once the
@@ -37,10 +47,10 @@ be bounded (``max_queue_depth``, ``shed_queue_wait_ms``) and closed
 (``close`` / ``reopen``); a request that ends without completing leaves
 a :class:`RequestError` in ``errors``.
 
-Not ported yet (ROADMAP Queue 1 items 8, 9, 11i, 12): speculation,
+Not ported yet (ROADMAP Queue 1 items 3, 9, 11i, 12): keyed sampling,
 snapshots and handoffs, the fault injector's poisoned requests, and the
-telemetry that can veto a queue-wait shed; a ``serving`` config asking
-for one of them raises.
+telemetry (the speculation counters stay plain attributes); a
+``serving`` config asking for one of them raises.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import dataclasses
 import os
 import time
 import warnings
+from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +69,7 @@ from .config import ServingOptimizationConfig
 from .engine import InferenceEngineV2
 from .ragged.blocked_allocator import NULL_PAGE, KVAllocationError
 from .sampling import SamplingParams, sample
+from .spec import NgramDrafter
 
 
 @dataclasses.dataclass
@@ -76,6 +88,21 @@ class Request:
     deadline: Optional[float] = None
     #: ``time.monotonic()`` at submit (the queue-wait shed reads it)
     submit_mono: float = 0.0
+    #: speculation: tokens drafted for this request and accepted
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    #: its drafter state: the dry-spell streak and backoff window, the
+    #: active drafter ("" = not chosen yet; "ngram", "model" or "off"),
+    #: the accept-rate EWMA per drafter (-1.0 = untried), and the
+    #: drafted / accepted counts split by drafter
+    spec_dry: int = 0
+    spec_cool: int = 0
+    spec_drafter: str = ""
+    spec_ewma: Optional[Dict[str, float]] = None
+    spec_drafted_ngram: int = 0
+    spec_accepted_ngram: int = 0
+    spec_drafted_model: int = 0
+    spec_accepted_model: int = 0
 
     @property
     def prefill_remaining(self) -> int:
@@ -215,6 +242,31 @@ class FastGenScheduler:
         #: degradation ladder climbs with it)
         self._oom_streak = 0
         self._closed = False
+        # speculation
+        self._spec_max_draft = max(int(sv.spec_max_draft or 0), 0)
+        self._drafter = (NgramDrafter(max(int(sv.spec_ngram_min or 1), 1))
+                         if sv.speculative and self._spec_max_draft
+                         else None)
+        #: "ngram", "model" or "auto": the policy (the scheduler's view)
+        self._spec_drafter_cfg = str(sv.spec_drafter or "ngram")
+        #: the engine built a draft trunk: the capability ("model" or
+        #: "auto" on an engine without one serve the n-gram drafter)
+        self._draft_ok = bool(self._drafter is not None
+                              and engine.draft_enabled)
+        #: latches of the strict-shapes check in ``_spec_on``
+        self._spec_strict_ready = False
+        self._warned_strict_spec = False
+        #: drafted / accepted tokens over every drafter, and the draft
+        #: trunk's share of them
+        self._spec_drafted_cum = 0
+        self._spec_accepted_cum = 0
+        self._spec_draft_drafted_cum = 0
+        self._spec_draft_accepted_cum = 0
+        #: verify dispatches, and the tokens they committed
+        self._spec_steps = 0
+        self._spec_committed_cum = 0
+        #: drafter switches of "auto", by (from, to)
+        self.spec_switches: Counter = Counter()
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, uid: int, prompt: Sequence[int],
@@ -281,6 +333,8 @@ class FastGenScheduler:
         self._preempted.pop(req.uid, None)
         if self._engine.state_manager.get_sequence(req.uid) is not None:
             self._engine.flush(req.uid)
+        if self._drafter is not None:
+            self._drafter.drop(req.uid)
         self.errors[req.uid] = RequestError(
             uid=req.uid, code=code, message=message,
             tokens=list(req.generated))
@@ -352,14 +406,17 @@ class FastGenScheduler:
     def _async(self) -> bool:
         return self._async_cfg and self._fused
 
-    def _strict_key_ok(self, uids, tokens, suffix: tuple) -> bool:
+    def _strict_key_ok(self, uids, tokens, suffix: tuple,
+                       min_q: int = 1) -> bool:
         """Under strict shapes a step goes where its predicted key was
         captured: bucket rounding can form a key the lattice skips (S * Q
-        past the token budget) even when the tokens fit."""
+        past the token budget) even when the tokens fit.  ``min_q`` is
+        the spec Q bucket for the spec suffixes."""
         model = self._engine.model
         if not model.strict_shapes:
             return True
-        return (self._engine.predict_step_key(uids, tokens, suffix)
+        return (self._engine.predict_step_key(uids, tokens, suffix,
+                                              min_q=min_q)
                 in model._step_cache)
 
     # -- delivery ------------------------------------------------------------
@@ -379,6 +436,8 @@ class FastGenScheduler:
         req.done = True
         self._engine.flush(req.uid)
         self._running.pop(req.uid, None)
+        if self._drafter is not None:
+            self._drafter.drop(req.uid)
 
     # -- drain: read a dispatched step's tokens -------------------------------
     def _drain(self, on_token) -> Dict[int, int]:
@@ -440,6 +499,326 @@ class FastGenScheduler:
         return _Inflight.start(
             toks, [(u, i, req) for i, (u, _, req) in enumerate(rows)])
 
+    # -- speculative decoding -------------------------------------------------
+    #: after N fruitless attempts in a row (nothing drafted, or nothing
+    #: accepted) a request speculates again at most every N + 1 steps
+    _SPEC_BACKOFF_MAX = 8
+    #: smoothing of the per-drafter accept-rate EWMA
+    _SPEC_EWMA_ALPHA = 0.3
+    #: "auto" moves a request off its drafter when the drafter's EWMA is
+    #: below this after >= _SPEC_MIN_TRIES drafted tokens (or after that
+    #: many dry attempts in a row)
+    _SPEC_SWITCH_BELOW = 0.25
+    _SPEC_MIN_TRIES = 4
+
+    @property
+    def _spec_on(self) -> bool:
+        """Speculation is served: a drafter, the fused step, and under
+        strict shapes a captured spec key (a strict engine without one
+        latches speculation off for this scheduler, warned once, so no
+        step drains and drafts only to fail the key check)."""
+        if self._drafter is None or not self._fused:
+            return False
+        model = self._engine.model
+        if not model.strict_shapes or self._spec_strict_ready:
+            return True
+        if self._warned_strict_spec:
+            return False
+        if any(len(k) > 4 and k[4] in ("spec", "draft_spec")
+               for k in model._step_cache):
+            self._spec_strict_ready = True
+            return True
+        warnings.warn(
+            "strict_shapes engine has no precompiled speculative keys: "
+            "speculation is off for this scheduler; precompile with "
+            "sampling=True on an engine with serving.speculative=True (or "
+            "pass spec_max_draft) to serve it")
+        self._warned_strict_spec = True
+        return False
+
+    def _spec_gate(self) -> bool:
+        """A step may speculate: pure steady-state decode, and a request
+        out of its backoff whose drafter is not "off".  An attempt costs
+        the async overlap (the step in flight drains first), so each
+        request's fruitless attempts back off; the cooldowns tick here,
+        once a step."""
+        if not self._spec_on or self._pending or self._preempted \
+                or not self._running:
+            return False
+        if any(r.prefill_remaining > 0 for r in self._running.values()):
+            return False
+        eligible = False
+        for req in self._running.values():
+            if req.spec_cool > 0:
+                req.spec_cool -= 1
+                continue
+            if self._drafter_of(req) != "off":
+                eligible = True
+        return eligible
+
+    def _drafter_of(self, req: Request) -> str:
+        """The request's drafter, chosen at its first attempt: the
+        configured one ("model" or "auto" without a draft trunk serve
+        "ngram"; "auto" starts on "ngram").  Under "auto" a request
+        parked "off" whose backoff ran out tries its best drafter by
+        EWMA again."""
+        if not req.spec_drafter:
+            mode = self._spec_drafter_cfg
+            if mode in ("model", "auto") and not self._draft_ok:
+                mode = "ngram"
+            req.spec_drafter = "ngram" if mode == "auto" else mode
+            req.spec_ewma = {"ngram": -1.0, "model": -1.0}
+        if (req.spec_drafter == "off" and req.spec_cool == 0
+                and self._spec_drafter_cfg == "auto"):
+            ew = req.spec_ewma or {}
+            cands = ("ngram", "model") if self._draft_ok else ("ngram",)
+            self._switch_drafter(
+                req, max(cands, key=lambda k: ew.get(k, -1.0)))
+        return req.spec_drafter
+
+    def _switch_drafter(self, req: Request, new: str) -> None:
+        self.spec_switches[(req.spec_drafter, new)] += 1
+        req.spec_drafter = new
+        if new == "off":
+            # parked for one full backoff window, then re-probed
+            req.spec_dry = req.spec_cool = self._SPEC_BACKOFF_MAX
+        else:
+            req.spec_dry = req.spec_cool = 0
+
+    def _maybe_switch_drafter(self, req: Request) -> None:
+        """The "auto" state machine: ngram -> model when the n-gram
+        drafter does not pay (a low EWMA over enough drafts, or a dry
+        spell), model -> off when the draft trunk does not either."""
+        if self._spec_drafter_cfg != "auto":
+            return
+        ew = req.spec_ewma or {}
+
+        def bad(name: str, tried: int) -> bool:
+            return ((tried >= self._SPEC_MIN_TRIES
+                     and 0.0 <= ew.get(name, -1.0) < self._SPEC_SWITCH_BELOW)
+                    or req.spec_dry >= self._SPEC_MIN_TRIES)
+
+        if req.spec_drafter == "ngram" and self._draft_ok \
+                and bad("ngram", req.spec_drafted_ngram):
+            self._switch_drafter(req, "model")
+        elif req.spec_drafter == "model" \
+                and bad("model", req.spec_drafted_model):
+            self._switch_drafter(req, "off")
+
+    def _note_spec_dry(self, req: Request) -> None:
+        """One attempt that drafted nothing: the backoff grows."""
+        req.spec_dry += 1
+        req.spec_cool = min(req.spec_dry, self._SPEC_BACKOFF_MAX)
+        self._maybe_switch_drafter(req)
+
+    def _note_spec_result(self, req: Request, drafter: str, drafted: int,
+                          accepted: int) -> None:
+        """Account one verified block: the totals, the drafter's split,
+        its EWMA and the backoff (reset by any acceptance)."""
+        req.spec_drafted += drafted
+        req.spec_accepted += accepted
+        if drafter == "model":
+            req.spec_drafted_model += drafted
+            req.spec_accepted_model += accepted
+        else:
+            req.spec_drafted_ngram += drafted
+            req.spec_accepted_ngram += accepted
+        if accepted:
+            req.spec_dry = req.spec_cool = 0
+        else:
+            req.spec_dry += 1
+            req.spec_cool = min(req.spec_dry, self._SPEC_BACKOFF_MAX)
+        if drafted:
+            if req.spec_ewma is None:
+                req.spec_ewma = {"ngram": -1.0, "model": -1.0}
+            rate = accepted / drafted
+            prev = req.spec_ewma.get(drafter, -1.0)
+            req.spec_ewma[drafter] = (
+                rate if prev < 0.0
+                else (1.0 - self._SPEC_EWMA_ALPHA) * prev
+                + self._SPEC_EWMA_ALPHA * rate)
+        self._maybe_switch_drafter(req)
+
+    def _plan_spec(self):
+        """The drafter mode and rows of one speculative step, after the
+        step in flight drained.  One step runs one mode: any eligible row
+        on the draft trunk pulls the step into "model" (the others ride
+        as plain q_len=1 rows).  Returns ("ngram" | "model", rows) with
+        rows ``[(uid, req, tokens, draft), ...]``, ("fill", [(uid,
+        tokens), ...]) when the draft pool must catch up first, or None
+        (nothing drafted, the budget refused, or under strict shapes no
+        captured key) for the normal path."""
+        mode = "ngram"
+        for req in self._running.values():
+            if req.spec_cool == 0 and self._drafter_of(req) == "model":
+                mode = "model"
+                break
+        if mode == "model":
+            # every row rides the one step, so any row the draft pool does
+            # not cover holds the whole step back
+            lagged = [(u, r) for u, r in self._running.items()
+                      if self._engine.draft_lag(u) > 0]
+            if lagged:
+                fill = self._plan_draft_fill(lagged)
+                if fill is not None:
+                    return ("fill", fill)
+                mode = "ngram"
+            if mode == "model":
+                plan = self._plan_spec_mode("model")
+                if plan is not None:
+                    return ("model", plan)
+                mode = "ngram"
+        plan = self._plan_spec_mode(mode)
+        return (mode, plan) if plan is not None else None
+
+    def _plan_spec_mode(self, mode: str):
+        """Every running row as ``[last_committed, draft...]`` (the draft
+        possibly empty); in "model" mode the draft is placeholder zeros
+        whose length shapes the row."""
+        adm = _Admission(self._engine, self._budget)
+        max_seq = int(self._engine.model.cfg.max_seq_len)
+        rows, any_draft = [], False
+        for uid, req in self._running.items():
+            drafts_here = (req.spec_cool == 0
+                           and self._drafter_of(req) == mode)
+            # room for the corrected token and the drafts, never past
+            # max_new_tokens or the model's context
+            room = min(self._spec_max_draft,
+                       req.params.max_new_tokens - len(req.generated) - 1,
+                       max_seq - self._engine.seen_tokens(uid) - 2) \
+                if drafts_here else 0
+            if room > 0 and mode == "model":
+                draft = np.zeros(room, np.int32)
+            elif room > 0:
+                draft = self._drafter.propose(uid, req.prompt,
+                                              req.generated, room)
+                if not len(draft):
+                    self._note_spec_dry(req)
+            else:
+                draft = np.zeros(0, np.int32)
+            last = (req.generated[-1] if req.generated
+                    else int(req.prompt[-1]))
+            toks = np.concatenate([np.asarray([last], np.int32), draft])
+            if not adm.try_admit(uid, len(toks), is_new=False):
+                # a plain decode row before giving the step up
+                if len(toks) > 1 and adm.try_admit(uid, 1, is_new=False):
+                    toks, draft = toks[:1], draft[:0]
+                else:
+                    return None     # the normal path preempts
+            any_draft = any_draft or bool(len(draft))
+            rows.append((uid, req, toks, draft))
+        if not rows or not any_draft:
+            return None
+        greedy_only = all(req.params.temperature <= 0.0
+                          for _, req, _, _ in rows)
+        suffix = ("draft_spec" if mode == "model" else "spec", greedy_only)
+        if not self._strict_key_ok([u for u, _, _, _ in rows],
+                                   [t for _, _, t, _ in rows], suffix,
+                                   min_q=1 + self._spec_max_draft):
+            return None
+        return rows
+
+    def _plan_draft_fill(self, lagged):
+        """Each lagging row's committed history from its draft mark,
+        chunked to the token budget (a long backlog fills over several
+        steps); under strict shapes the chunk halves until a captured
+        draft_fill key takes it, else None."""
+        budget, rows = self._budget, []
+        for uid, req in lagged:
+            lag = self._engine.draft_lag(uid)
+            seen = self._engine.seen_tokens(uid)
+            hist = np.concatenate([np.asarray(req.prompt, np.int32),
+                                   np.asarray(req.generated, np.int32)])
+            chunk = min(lag, max(budget, 1))
+            rows.append((uid, hist[seen - lag: seen - lag + chunk]))
+            budget -= chunk
+            if budget <= 0:
+                break
+        while rows:
+            if self._strict_key_ok([u for u, _ in rows],
+                                   [t for _, t in rows], ("draft_fill",)):
+                return rows
+            cap = max(len(t) for _, t in rows) // 2
+            if cap < 1:
+                return None
+            rows = [(u, t[:cap]) for u, t in rows]
+        return None
+
+    def _commit_verdict(self, rows, verdict, drafter, on_token
+                        ) -> Dict[int, int]:
+        """Deliver each row's committed block (its first ``accepted``
+        drafts, then the corrected token) up to a stop token or
+        ``max_new_tokens``, advance each row by what it committed, and
+        account the drafts.  ``verdict`` is the host copy of the step's
+        [S, 2] (n-gram: drafts are the host's) or [S, 2+k] (model:
+        drafts come back in columns 2..)."""
+        out: Dict[int, int] = {}
+        committed: List[int] = []
+        drafted = accepted = 0
+        for i, (_, req, _t, draft) in enumerate(rows):
+            room = len(draft)
+            a = min(int(verdict[i, 0]), room)
+            proposed = verdict[i, 2:2 + a] if drafter == "model" \
+                else draft[:a]
+            c = 0
+            for tok in [int(t) for t in proposed] + [int(verdict[i, 1])]:
+                c += 1
+                if self._deliver_token(req, tok, out, on_token):
+                    # finished after the commit: the flush needs the
+                    # descriptor the commit below still advances
+                    req.done = True
+                    break
+            committed.append(c)
+            # accepted counts COMMITTED drafts: a stop token cuts
+            # verifier-accepted drafts past it
+            drafted += room
+            accepted += min(a, c)
+            if room:
+                self._note_spec_result(req, drafter, room, min(a, c))
+        uids = [u for u, _, _, _ in rows]
+        self._engine.commit_spec(uids, committed)
+        if drafter == "model":
+            self._engine.mark_draft_seen(uids)
+            self._spec_draft_drafted_cum += drafted
+            self._spec_draft_accepted_cum += accepted
+        for _, req, _, _ in rows:
+            if req.done:
+                self._finish_request(req)
+        self._spec_drafted_cum += drafted
+        self._spec_accepted_cum += accepted
+        self._spec_steps += 1
+        self._spec_committed_cum += sum(committed)
+        return out
+
+    def _dispatch_spec(self, rows, on_token) -> Dict[int, int]:
+        """One verify step of host-drafted rows, read in the same step:
+        the [S, 2] int32 verdict is its only copy to the host."""
+        verdict = self._engine.step_spec(
+            [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
+            [req.params for _, req, _, _ in rows], self._generator,
+            min_q=1 + self._spec_max_draft)
+        self.last_step_scheduled = len(rows)
+        return self._commit_verdict(rows, verdict.cpu().numpy(), "ngram",
+                                    on_token)
+
+    def _dispatch_draft_spec(self, rows, on_token) -> Dict[int, int]:
+        """One step of the draft loop and the verify: the [S, 2+k] int32
+        verdict, drafts included, is its only copy to the host."""
+        verdict = self._engine.step_draft_spec(
+            [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
+            [req.params for _, req, _, _ in rows], self._generator,
+            min_q=1 + self._spec_max_draft)
+        self.last_step_scheduled = len(rows)
+        return self._commit_verdict(rows, verdict.cpu().numpy(), "model",
+                                    on_token)
+
+    def _dispatch_draft_fill(self, rows) -> None:
+        """The draft pool's catch-up step: nothing is sampled, committed
+        or copied to the host."""
+        self._engine.step_draft_fill([u for u, _ in rows],
+                                     [t for _, t in rows])
+        self.last_step_scheduled = len(rows)
+
     # -- prefix cache ---------------------------------------------------------
     def _match_prefix_once(self, req: Request, adm: _Admission) -> None:
         """The one prefix-cache lookup before first admission: cached
@@ -494,7 +873,30 @@ class FastGenScheduler:
     def _step_impl(self, on_token) -> Dict[int, int]:
         self._preempted_this_step = False
         self._expire_requests()
-        chain = self._plan_chain()
+        spec_drained: Optional[Dict[int, int]] = None
+        if self._spec_gate():
+            # the drafters read committed tokens, so the step in flight
+            # drains first; when nothing drafts, the normal path below
+            # runs with that drain done
+            spec_drained = self._drain(on_token)
+            plan = self._plan_spec()
+            if plan is not None:
+                mode, rows = plan
+                if mode == "fill":
+                    self._dispatch_draft_fill(rows)
+                    return spec_drained
+                try:
+                    out = (self._dispatch_draft_spec(rows, on_token)
+                           if mode == "model"
+                           else self._dispatch_spec(rows, on_token))
+                except KVAllocationError as e:
+                    self._degrade_oom(e, [], [])
+                    return spec_drained
+                self._oom_streak = 0
+                spec_drained.update(out)
+                return spec_drained
+
+        chain = self._plan_chain() if spec_drained is None else None
         if chain is not None:
             # dispatch k+1 FIRST, then drain k: the wait for k's tokens
             # overlaps the device running k+1
@@ -509,7 +911,8 @@ class FastGenScheduler:
             self._inflight = new_inflight
             return out
 
-        out_prev = self._drain(on_token)
+        out_prev = (spec_drained if spec_drained is not None
+                    else self._drain(on_token))
         self._resume_preempted()
         adm = _Admission(self._engine, self._budget)
         uids: List[int] = []

@@ -80,10 +80,16 @@ def test_enumerate_lattice_keys_equal_jax_over_arbitrary_tops():
 
 @pytest.mark.parametrize("spec", [dict(spec_q=4), dict(draft=True)])
 def test_speculative_keys_raise_naming_item_8(spec):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlattice.enumerate_lattice_keys(
-            [1], [1], [8], page_size=16, max_ragged_batch_size=64,
-            has_fresh=True, sampling=True, **spec)
+    """Item 8 (speculative decoding) is ported: the spec and draft
+    families no longer raise, and they are the JAX package's."""
+    kw = dict(page_size=16, max_ragged_batch_size=64, has_fresh=True,
+              sampling=True, **spec)
+    keys = tlattice.enumerate_lattice_keys([1, 4], [1, 8], [8], **kw)
+    assert keys == jlattice.enumerate_lattice_keys([1, 4], [1, 8], [8],
+                                                   **kw)
+    kinds = {k[4] for k in keys if len(k) > 4}
+    assert ("spec" in kinds) == ("spec_q" in spec)
+    assert ("draft_fill" in kinds) == ("draft" in spec)
 
 
 def test_lattice_kinds_must_be_known():
@@ -195,7 +201,7 @@ def test_precompile_keys_skips_keys_the_model_cannot_form(weights):
             (4, 1, 4, False, "chain", 8, False),
             (4, 1, 4, False, "mixed", 2, 16, 4, True, True),
             (8, 16, 4, True)]
-    bad = [(4, 1, 4, False, "spec", 3, True),        # item 8
+    bad = [(4, 1, 4, False, "spec", 3, True),        # a spec key has 6
            (4, 1, 4, False, "sample"),
            (4, 0, 4, False, "sample", True),
            (4, 1, 4, 1, "sample", True),

@@ -344,15 +344,20 @@ def test_serving_config_fixes_the_reduced_flags():
     for flag in ("fused_step", "on_device_sampling"):
         assert getattr(T.ServingOptimizationConfig(**{flag: False}),
                        flag) is False
-    for flag, value, item in [("speculative", True, "item 8"),
-                              ("tp_degree", 2, "item 13"),
+    # speculation is served (item 8), with JAX's knobs and defaults
+    spec = T.ServingOptimizationConfig(speculative=True)
+    assert (spec.spec_max_draft, spec.spec_ngram_min, spec.spec_drafter,
+            spec.spec_draft_layers) == (
+        jsv.spec_max_draft, jsv.spec_ngram_min, jsv.spec_drafter,
+        jsv.spec_draft_layers) == (3, 2, "ngram", 0)
+    for flag, value, item in [("tp_degree", 2, "item 13"),
                               ("keyed_sampling", True, "item 3")]:
         with pytest.raises(NotImplementedError, match=item):
             T.ServingOptimizationConfig(**{flag: value})
     # set after construction: the engine's build still refuses it
-    sv.speculative = True
+    sv.keyed_sampling = True
     _, tm = _models("opt")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         T.InferenceEngineV2(tm, T.RaggedInferenceEngineConfig(serving=sv))
 
 
@@ -438,8 +443,8 @@ def test_scheduler_refuses_a_serving_config_the_cache_was_not_built_for():
     with pytest.raises(ValueError, match="fixed at engine build"):
         T.FastGenScheduler(eng, serving=T.ServingOptimizationConfig())
     sv = T.ServingOptimizationConfig(kv_quantization="int8")
-    sv.speculative = True
-    with pytest.raises(NotImplementedError, match="item 8"):
+    sv.keyed_sampling = True
+    with pytest.raises(NotImplementedError, match="item 3"):
         T.FastGenScheduler(eng, serving=sv)
 
 

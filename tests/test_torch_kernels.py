@@ -1482,3 +1482,113 @@ def test_paged_kernel_over_an_evicted_table_skips_the_null_page(
     ref = tpa.paged_attention(q, kv, table, start, window=window)
     assert bool(torch.isfinite(out.float()).all())
     assert_parity(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the verify shape and its step graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("groups", [1, 4], ids=["G1_split", "G4_tile"])
+def test_paged_kernel_at_the_verify_shape_over_ragged_histories(
+        cuda_device, groups, pages):
+    """Q = 1 + spec_max_draft = 4 rows a slot with a causal limit each
+    (G=1: 4 folded rows, the split-KV path; G=4: 16, the tile) over
+    ragged histories, every table column past a slot's pages on a
+    NaN-filled null page: finite, and the plain version's output over a
+    finite null page."""
+    dev, S, Q, H = cuda_device, 16, 4, 32
+    K = H // groups
+    g = torch.Generator(device=dev).manual_seed(9)
+    hist = torch.randint(0, 1500, (S,), generator=g, device=dev,
+                         dtype=torch.int32)
+    hist[:3] = torch.tensor([0, 63, 64], dtype=torch.int32)
+    need = [-(-(int(h) + Q) // 64) for h in hist]
+    width = max(need) + 2
+    kv = torch.randn(sum(need) + 1, 64, 2, K, 128, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    ids = (torch.randperm(sum(need), generator=g, device=dev) + 1).int()
+    table = torch.zeros(S, width, dtype=torch.int32, device=dev)
+    at = 0
+    for s, n in enumerate(need):
+        table[s, :n] = ids[at:at + n]
+        at += n
+    finite = kv.clone()
+    finite[0] = 0.0
+    kv[0] = float("nan")
+    if pages == "int8":
+        codes, scale = tpa.quantize_kv_blocks(finite)
+        finite = tpa.KVPages(codes, scale)
+        kv = tpa.KVPages(codes.clone(), scale.clone())
+        kv.scale[0] = float("nan")
+    q = torch.randn(S, Q, H, 128, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    out = tpa.paged_decode_attention(q, kv, table, hist)
+    ref = tpa.paged_attention(q, finite, table, hist)
+    assert bool(torch.isfinite(out.float()).all())
+    assert_parity(out, ref)
+
+
+def _spec_llama(dev, **serving):
+    T, engine = _graph_llama(dev)
+    return T, engine(speculative=True, prefix_caching=False, **serving)
+
+
+def _held_against_eager(eng):
+    """Every dispatch of ``eng``'s model runs its key's step body eagerly
+    first, then the key's graph, on the same inputs: each spec and
+    draft_spec verdict must be bit-equal, and a draft_fill graph must
+    leave the draft pool as its eager body left it.  Returns the
+    dispatches checked by kind.  (The null page is left out of the pool
+    comparison: padding positions all write it, in no fixed order.)"""
+    model = eng.model
+    dispatch = model._dispatch
+    checked = {}
+
+    def compared(key, kv, generator, inputs):
+        kind = key[4] if len(key) > 4 else "logits"
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
+             if isinstance(a, np.ndarray) else a for a in inputs]
+        gen = None
+        if generator is not None:
+            gen = torch.Generator(device=model.device)
+            gen.set_state(generator.get_state())
+        ref = model._call(key, kv, gen, *t)
+        pool = (eng.draft_kv[:, 1:].clone() if kind == "draft_fill"
+                else None)
+        out = dispatch(key, kv, generator, inputs)
+        if kind in ("spec", "draft_spec"):
+            assert torch.equal(out, ref), key
+        elif kind == "draft_fill":
+            assert out is None, key
+            assert torch.equal(eng.draft_kv[:, 1:], pool), key
+        checked[kind] = checked.get(kind, 0) + 1
+        return out
+
+    model._dispatch = compared
+    return checked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+def test_spec_graphs_replay_equal_to_their_eager_bodies(cuda_device,
+                                                        drafter):
+    """A small spec-on engine (the debug llama at head_dim 128, bf16):
+    every spec (n-gram) or draft_spec and draft_fill (self-draft) graph
+    replay equals its eager body on the same inputs, every step is a
+    replay, and the requests complete at full length."""
+    T, eng = _spec_llama(cuda_device, spec_drafter=drafter)
+    checked = _held_against_eager(eng)
+    prompts = ([[7] * 12] * 2 if drafter == "ngram" else [])
+    prompts += _graph_prompts()[3:]
+    out = _serve(T, eng, prompts, n_new=24)
+    assert all(len(v) == 24 for v in out.values())
+    model = eng.model
+    if drafter == "ngram":
+        assert checked.get("spec")
+    else:
+        assert checked.get("draft_spec") and checked.get("draft_fill")
+    assert all(model._step_cache[k] is not None
+               for k in model.dispatch_counts)
+    eng.state_manager.check_invariants()
