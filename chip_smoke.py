@@ -94,6 +94,30 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    n-gram engine verifies drafted rows.  Drafted, accepted, tokens a
    dispatch, ms a dispatch and tokens/s after the prompts are reported
    beside phase 4's;
+6e. keyed sampling at full width: the Llama-2-7B weights on 256 pages
+   with ``keyed_sampling=True``, phase 4's prompts with 4 greedy and 6
+   sampled requests (temperature 0.8; three with top_k=50, three with
+   top_p=0.95), as phase 4 (a warm-up and a timed pass that captures
+   nothing, exact launch counts, every key's replay bit-equal to its
+   eager body, sampled rows included); the keyed draw of 4 recorded
+   steps made on the card and on the CPU from the same fp32 logits and
+   keys (row keys and random bits bit-equal, gumbel noise within 2 ulp,
+   tokens equal except at near-ties within that noise, counted); the six
+   sampled requests again with staggered submits (free-running against
+   the timed pass reported; teacher-forced keyed agreement held to
+   KEYED_AGREE_MIN, derived beside it); one profiled keyed decode step,
+   the keyed draw's own device µs against the generator draw's, and
+   decode ms and tokens/s beside phase 4's;
+6f. snapshot and restore: the same weights on a 64-page keyed engine
+   serve 2 greedy and 2 keyed-sampled requests (prompts 128-512, 64 new
+   tokens) uninterrupted, then again with one ``snapshot(path)`` in a
+   temporary directory once each has 16 tokens and ``restore(path)``
+   into a fresh scheduler over a second engine: restored pages bit-equal
+   to the bundle's, the resumed run's launch counts exact, tokens held
+   against the uninterrupted run (free-running reported,
+   teacher-forced keyed agreement held to its floor); bundle bytes and
+   pages, snapshot, write, read and restore ms, write GB/s and the first
+   token after the restore beside a pinned ``copy_`` of the page bytes;
 7. the same weights with the registry pinned to the plain versions:
    ten teacher-forced serving steps of 3 requests on the eager forward
    (fresh prefill, decode, and two mixed steps, one with a Q=1024 prefill
@@ -1889,11 +1913,13 @@ def eager_steps(*engines):
             del e.model._dispatch
 
 
-def teacher_forced_agreement(engine, reqs, served, uid_base, parted):
+def teacher_forced_agreement(engine, reqs, served, uid_base, parted,
+                             picks_by=None):
     """Each request run again after ``reset_prefix_cache()`` on the eager
     forward (``put``: its whole prompt, then its served tokens one at a
     time, all requests together).  Returns the share of positions whose
-    greedy pick is the served token, per request; the top-2 logit margin
+    greedy pick (or ``picks_by[uid](position, logits)``: a keyed draw) is
+    the served token, per request; the top-2 logit margin
     at every position; and for each request in ``parted`` ({uid:
     (position, the other token)}) the eager logits there: the top-2
     margin, the gap between the served and the other token, the largest
@@ -1908,7 +1934,8 @@ def teacher_forced_agreement(engine, reqs, served, uid_base, parted):
     def read(u, t, row):
         top = torch.topk(row, 2).values
         margins.append(float(top[0] - top[1]))
-        picks[u].append(int(row.argmax()))
+        picks[u].append(int(row.argmax()) if picks_by is None
+                        else picks_by[u](t, row))
         if u in parted and parted[u][0] == t:
             a, b = served[u][t], parted[u][1]
             gap = float((row[a] - row[b]).abs())
@@ -2539,6 +2566,440 @@ def spec_phase(cfg, params, counters, card, phase4):
     return results, launches_by_path
 
 
+# ---------------------------------------------------------------------------
+# phases 6e and 6f: keyed sampling and snapshots at full width
+# ---------------------------------------------------------------------------
+
+# Floor of the teacher-forced agreement of keyed picks.  A keyed pick is
+# the argmax of l / T + g over the row's support (g: the row key's gumbel
+# noise), and the eager forward that teacher-forces it runs at other row
+# counts than the served step, so l differs by bf16 rounding; a pick
+# flips only where the top two perturbed scores lie within that
+# difference.  The gap between the largest two of i.i.d. standard
+# gumbels is Exp(1) whatever their number, so the noise keeps the top two
+# apart even where the logits tie (the worst case of a greedy pick, whose
+# top-2 logit gap can be 0): at T = 0.8 a rounding difference d flips a
+# keyed pick with probability about d / 0.8 at most, no more often than
+# a greedy pick of near-tied logits.  The greedy floor holds it.
+KEYED_AGREE_MIN = GREEDY_AGREE_MIN
+KEYED_TOP_K, KEYED_TOP_P = 50, 0.95
+KEYED_RECORDED_STEPS = 4
+SNAP_PAGES = 64                # phase 6f's pools: 2.15 GB each
+
+
+def keyed_requests(cfg):
+    """Phase 4's prompts and lengths with 4 greedy and 6 sampled requests
+    (temperature 0.8): uids 4-6 with top_k=50, uids 7-9 with top_p=0.95."""
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    reqs = {}
+    for uid, (prompt, sp) in serving_requests(cfg, sampled_from=4).items():
+        if uid >= 4:
+            sp = SamplingParams(
+                max_new_tokens=sp.max_new_tokens, temperature=0.8,
+                top_k=KEYED_TOP_K if uid < 7 else 0,
+                top_p=1.0 if uid < 7 else KEYED_TOP_P)
+        reqs[uid] = (prompt, sp)
+    return reqs
+
+
+def keyed_picks(reqs, uid_base=0):
+    """{uid: pick(position, logits row)}: the keyed draw that serving
+    makes for the request's token at that generation index (the argmax
+    for a greedy request), from the scheduler's base key ``key(SEED)``
+    and the request's served uid ``uid_base + uid``."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import sampling as S
+    from deepspeed_tpu_torch.inference.v2 import threefry
+
+    def pick_for(uid, sp):
+        def pick(t, row):
+            dev = row.device
+
+            def one(v, dtype):
+                return torch.tensor([v], dtype=dtype, device=dev)
+
+            keys = S.derive_row_keys(threefry.key_from_seed(SEED, dev),
+                                     one(uid_base + uid, torch.int32),
+                                     one(t, torch.int32))
+            return int(S.sample_keyed(
+                row[None].float(), keys, one(sp.temperature, torch.float32),
+                one(sp.top_k, torch.int32), one(sp.top_p, torch.float32))[0])
+        return pick
+
+    return {uid: pick_for(uid, sp) for uid, (_, sp) in reqs.items()}
+
+
+def free_running(served, ref):
+    """Per request: the tokens equal to ``ref``'s before they part, and
+    where they part (None: never)."""
+    res = {}
+    for u, toks in served.items():
+        n = next((i for i, (a, b) in enumerate(zip(toks, ref[u])) if a != b),
+                 None)
+        res[u] = dict(agree_before_parting=(n if n is not None
+                                            else len(toks)) / len(toks),
+                      parts_at=n)
+    return res
+
+
+def keyed_draw_vs_cpu(engine, reqs):
+    """The keyed draw of ``KEYED_RECORDED_STEPS`` sampling steps of the
+    traffic (run on the eager bodies, each step's fp32 logits, base key,
+    uids, positions and sampling rows recorded) made on the card and by
+    the CPU on the same inputs: row keys and random bits bit-equal,
+    gumbel noise within 2 ulp of max(|g|, 1), tokens equal except at a
+    near-tie (the top two perturbed CPU scores within twice the largest
+    difference between the card's and the CPU's perturbed scores of that
+    row), whose count is reported."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    from deepspeed_tpu_torch.inference.v2 import sampling as S
+    from deepspeed_tpu_torch.inference.v2 import threefry as TF
+    model = engine.model
+    recorded, draw = [], model._sample_tokens
+
+    def record(logits, rng, temps, top_ks, top_ps, row_uids, row_pos,
+               greedy_only):
+        if row_uids is not None and not greedy_only \
+                and len(recorded) < KEYED_RECORDED_STEPS:
+            recorded.append([x.clone() for x in (
+                logits, rng, temps, top_ks, top_ps, row_uids, row_pos)])
+        return draw(logits, rng, temps, top_ks, top_ps, row_uids, row_pos,
+                    greedy_only)
+
+    engine.reset_prefix_cache()
+    model._sample_tokens = record
+    try:
+        with eager_steps(engine):
+            sched = FastGenScheduler(engine, seed=SEED)
+            for uid, (prompt, sp) in reqs.items():
+                sched.submit(4000 + uid, prompt, SamplingParams(
+                    max_new_tokens=KEYED_RECORDED_STEPS,
+                    temperature=sp.temperature, top_k=sp.top_k,
+                    top_p=sp.top_p))
+            sched.run_to_completion()
+    finally:
+        del model._sample_tokens
+    if len(recorded) < KEYED_RECORDED_STEPS:
+        raise RuntimeError(f"recorded {len(recorded)} keyed sampling steps")
+    res = dict(steps=len(recorded), rows=0, sampled_rows=0, keys_equal=True,
+               bits_equal=True, gumbel_max_ulp=0.0, tokens_equal=0,
+               near_tie_partings=[], other_partings=[])
+    for logits, base, temps, top_ks, top_ps, uids, pos in recorded:
+        V = logits.shape[1]
+        kd = S.derive_row_keys(base, uids, pos)
+        kc = S.derive_row_keys(base.cpu(), uids.cpu(), pos.cpu())
+        res["keys_equal"] &= torch.equal(kd.cpu(), kc)
+        res["bits_equal"] &= torch.equal(TF.random_bits(kd, V).cpu(),
+                                         TF.random_bits(kc, V))
+        gd, gc = TF.gumbel(kd, V).cpu(), TF.gumbel(kc, V)
+        spacing = torch.from_numpy(np.spacing(
+            torch.clamp(gc.abs(), min=1.0).numpy()))
+        res["gumbel_max_ulp"] = max(res["gumbel_max_ulp"], float(
+            ((gd - gc).abs() / spacing).max()))
+        td = S.sample_keyed(logits, kd, temps, top_ks, top_ps).cpu()
+        args_c = [x.cpu() for x in (logits, kc, temps, top_ks, top_ps)]
+        tc = S.sample_keyed(*args_c)
+        res["rows"] += len(td)
+        res["sampled_rows"] += int((temps > 0).sum())
+        res["tokens_equal"] += int((td == tc).sum())
+        ld = S._filter_rows(logits, temps, top_ks, top_ps)[0].cpu()
+        lc = S._filter_rows(*[args_c[0]] + args_c[2:])[0]
+        for r in torch.nonzero(td != tc).flatten().tolist():
+            sd, sc = gd[r] + ld[r], gc[r] + lc[r]
+            both = torch.isfinite(sd) & torch.isfinite(sc)
+            noise = float((sd - sc)[both].abs().max())
+            top2 = torch.topk(sc, 2).values
+            gap = float(top2[0] - top2[1])
+            row = dict(card=int(td[r]), cpu=int(tc[r]), top2_gap=gap,
+                       noise=noise)
+            ok = gap <= 2 * noise and bool(torch.isfinite(sc[td[r]]))
+            res["near_tie_partings" if ok else "other_partings"].append(row)
+    return res
+
+
+def keyed_draw_cost(S_rows=16, V=32000):
+    """The keyed draw alone at the decode step's shape (16 rows, Llama's
+    vocab, the phase's sampling mix), each captured as a CUDA graph as a
+    step captures it: device µs a replay (torch.profiler's kernel time
+    over 20 replays) and kernels a replay, for the whole keyed draw
+    (filter, row keys, noise, argmax), its keys and noise alone, and the
+    generator draw it replaces (``sample_dynamic``)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import sampling as S
+    from deepspeed_tpu_torch.inference.v2 import threefry as TF
+    from deepspeed_tpu_torch.ops.kernel_loader import CountedGraph
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    logits = torch.randn(S_rows, V, generator=g, device="cuda") * 3
+    temps = torch.full((S_rows,), 0.8, device="cuda")
+    temps[:4] = 0.0
+    top_ks = torch.zeros(S_rows, dtype=torch.int32, device="cuda")
+    top_ks[4:7] = KEYED_TOP_K
+    top_ps = torch.ones(S_rows, device="cuda")
+    top_ps[7:10] = KEYED_TOP_P
+    base = TF.key_from_seed(SEED, "cuda")
+    uids = torch.arange(S_rows, dtype=torch.int32, device="cuda")
+    pos = torch.full((S_rows,), 100, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bodies = {
+        "keyed_draw": (None, lambda: S.sample_keyed(
+            logits, S.derive_row_keys(base, uids, pos), temps, top_ks,
+            top_ps)),
+        "keyed_noise": (None, lambda: TF.gumbel(
+            S.derive_row_keys(base, uids, pos), V)),
+        "generator_draw": (gen, lambda: S.sample_dynamic(
+            logits, gen, temps, top_ks, top_ps))}
+    res = {}
+    for name, (generator, body) in bodies.items():
+        graph = CountedGraph(generator=generator)
+        graph.capture(body)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                graph.replay()
+            torch.cuda.synchronize()
+        n_kernels, by_kind = device_ms_by_kind(prof)
+        res[name] = dict(device_us=1e3 * sum(by_kind.values()) / 20,
+                         kernels=n_kernels / 20,
+                         event_ms=cuda_ms(graph.replay, 20))
+        del graph
+    return res
+
+
+def keyed_phase(cfg, params, counters, card, phase4):
+    """Keyed sampling at full width: the Llama-2-7B weights on 256 pages
+    with ``keyed_sampling=True``, ``keyed_requests``' traffic, as phase 4
+    (``two_passes``: no capture in the timed pass, launch counts exact;
+    every key's replay against its eager body, sampled rows included,
+    bit-equal), then the keyed draw on the card against the CPU's over
+    recorded steps, the six sampled requests again with staggered submits
+    (free-running against the timed pass reported, teacher-forced keyed
+    agreement held to KEYED_AGREE_MIN), one profiled keyed decode step
+    and the keyed draw's own device µs.  Returns (summary, launches)."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    reqs = keyed_requests(cfg)
+    engine = build_engine(cfg, params, num_pages=256, keyed_sampling=True)
+    summary, launches, generated, dispatches = two_passes(
+        engine, reqs, cfg, counters, card, "llama keyed")
+    res = dict(card=card, model="llama keyed", **{k: summary[k] for k in (
+        "steps", "total_s", "ttft_ms_mean", "decode_steps", "chained_steps",
+        "decode_tok_s", "tail_tok_s", "decode_step_ms_median",
+        "decode_step_ms_mean", "step_ms_by_kind", "warm_up_pass",
+        "keys_dispatched", "segments", "launch_checks")})
+    res["phase4"] = {k: phase4[k] for k in (
+        "decode_step_ms_median", "decode_tok_s", "tail_tok_s",
+        "ttft_ms_mean")}
+    engine.reset_prefix_cache()
+    rve = replay_vs_eager(engine, reqs, dispatches, "llama keyed")
+    res["replay_vs_eager"] = rve
+    if not all(r["sampled_equal"] == r["sampled_rows"]
+               for r in rve["by_kind"].values() if "sampled_rows" in r):
+        raise RuntimeError(f"llama keyed: a replayed keyed draw differs "
+                           f"from its eager body: {rve['by_kind']}")
+    draws = keyed_draw_vs_cpu(engine, reqs)
+    res["draw_vs_cpu"] = draws
+    log("llama keyed draw, card against CPU:", json.dumps(draws))
+    if not (draws["keys_equal"] and draws["bits_equal"]) \
+            or draws["gumbel_max_ulp"] > 2.0 or draws["other_partings"]:
+        raise RuntimeError(f"llama keyed: the keyed draw on the card is not "
+                           f"the CPU's: {draws}")
+    # the sampled requests again, one submitted every other step (last
+    # first), under the timed pass's uids: other batches, steps and slots
+    sampled = {u: r for u, r in reqs.items() if r[1].temperature > 0.0}
+    engine.reset_prefix_cache()
+    sched = FastGenScheduler(engine, seed=SEED)
+    queue, stagger, step = sorted(sampled, reverse=True), {}, 0
+    while queue or sched.has_work:
+        if queue and step % 2 == 0:
+            u = queue.pop(0)
+            sched.submit(u, *sampled[u])
+        sched.step(on_token=lambda u, t: stagger.setdefault(u, []).append(t))
+        step += 1
+    torch.cuda.synchronize()
+    free = free_running(stagger, generated)
+    parted = {u: (f["parts_at"], generated[u][f["parts_at"]])
+              for u, f in free.items() if f["parts_at"] is not None}
+    agree, _, witness = teacher_forced_agreement(
+        engine, sampled, stagger, uid_base=7000, parted=parted,
+        picks_by=keyed_picks(sampled))
+    res["staggered"] = dict(steps=step, free_running=free,
+                            parted_logits=witness,
+                            teacher_forced_keyed_agreement=agree,
+                            floor=KEYED_AGREE_MIN)
+    log("llama keyed, staggered submits:", json.dumps(res["staggered"]))
+    if min(agree) < KEYED_AGREE_MIN:
+        raise RuntimeError(f"llama keyed: teacher-forced keyed agreement "
+                           f"{min(agree):.3f} < {KEYED_AGREE_MIN}")
+    engine.reset_prefix_cache()
+    res["decode_profile"] = profile_decode_steps(
+        engine, reqs, "llama keyed", summary["decode_step_ms_median"],
+        n_steps=1)
+    res["draw_cost"] = keyed_draw_cost()
+    log("llama keyed serving:", json.dumps(res))
+    del engine, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def snapshot_phase(cfg, params, counters, card):
+    """Snapshot and restore at full width: the Llama-2-7B weights on a
+    ``SNAP_PAGES`` keyed engine serve 2 greedy and 2 keyed-sampled
+    requests (prompts 128-512, 64 new tokens) once uninterrupted, then
+    again with one ``snapshot(path)`` once every request has 16 tokens
+    (a temporary directory, deleted after), ``restore(path)`` into a
+    fresh scheduler over a second engine on the same weights and the run
+    to completion.  The restored pages are held bit-equal to the bundle's;
+    the resumed run's launch counts exactly to its keys' segments (a key
+    captured in it adds its eager warm-up); the tokens against the
+    uninterrupted run free-running (reported, with the logits where they
+    part) and teacher-forced (keyed picks, held to KEYED_AGREE_MIN).
+    Reports bundle bytes and pages, snapshot ms (the drain and export,
+    then the write), write GB/s, read and restore ms (the restore
+    captures the bundle's keys), the first token after the restore, and
+    a pinned ``copy_`` of the page bytes.  Returns (summary, launches)."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    from deepspeed_tpu_torch.inference.v2 import scheduler as SCH
+    reqs = serving_requests(cfg, n=4, lo=128, hi=513, sampled_from=2,
+                            seed=SEED + 11)
+    a = build_engine(cfg, params, num_pages=SNAP_PAGES, keyed_sampling=True)
+    ref, _, _ = drive(a, reqs)
+    a.reset_prefix_cache()
+    sched = FastGenScheduler(a, seed=SEED)
+    for uid, (prompt, sp) in reqs.items():
+        sched.submit(uid, prompt, sp)
+    got = {u: [] for u in reqs}
+
+    def on_token(u, t):
+        got[u].append(t)
+
+    while min(len(v) for v in got.values()) < 16:
+        sched.step(on_token=on_token)
+    times = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            times[name] = (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    b = build_engine(cfg, params, num_pages=SNAP_PAGES, keyed_sampling=True)
+    restored = FastGenScheduler(b, seed=SEED)
+    write, read = SCH.write_bundle, SCH.read_bundle
+    SCH.write_bundle = timed("write_ms", write)
+    SCH.read_bundle = timed("read_ms", read)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "serving.snap")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            bundle = sched.snapshot(path, on_token=on_token)
+            snapshot_ms = (time.perf_counter() - t) * 1e3
+            at_snapshot = {u: len(v) for u, v in got.items()}
+            n_bytes = os.path.getsize(path)
+            t = time.perf_counter()
+            restored.restore(path)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        SCH.write_bundle, SCH.read_bundle = write, read
+    eng_meta = bundle["meta"]["engine"]
+    blob = bundle["arrays"]["page_blob"]
+    col = {p: i for i, p in enumerate(eng_meta["page_ids"])}
+    kv = b.state_manager.kv_cache.data
+    pages_checked = pages_unequal = 0
+    for m in eng_meta["sequences"]:
+        sd = b.state_manager.get_sequence(m["uid"])
+        for old, new in zip(m["pages"], sd.pages):
+            if old:
+                pages_checked += 1
+                pages_unequal += not torch.equal(kv[:, new].cpu(),
+                                                 blob[:, col[old]])
+    # the resumed run, its launches counted from 0
+    model = b.model
+    keys_before = set(model._step_cache)
+    before = dict(model.dispatch_counts)
+    reset_launches(counters)
+    first = []
+    t = time.perf_counter()
+    while restored.has_work:
+        restored.step(on_token=lambda u, tok: (
+            first or first.append(time.perf_counter() - t), on_token(u, tok)))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    launches = read_launches(counters)
+    counted = {k: n - before.get(k, 0) for k, n in model.dispatch_counts.items()
+               if n != before.get(k, 0)}
+    captured = set(model._step_cache) - keys_before
+    for k in captured:                 # a capture's eager warm-up run
+        counted[k] = counted.get(k, 0) + 1
+    checks = launch_checks(cfg, "none", launches,
+                           segment_counts(cfg, counted))
+    for u, (_, sp) in reqs.items():
+        if len(got[u]) != sp.max_new_tokens:
+            raise RuntimeError(f"snapshot phase: request {u} has "
+                               f"{len(got[u])} tokens")
+    free = free_running(got, ref)
+    parted = {u: (f["parts_at"], ref[u][f["parts_at"]])
+              for u, f in free.items() if f["parts_at"] is not None}
+    # the second engine teacher-forces: the first still holds the
+    # snapshotted sequences
+    agree, _, witness = teacher_forced_agreement(
+        b, reqs, got, uid_base=7000, parted=parted,
+        picks_by=keyed_picks(reqs))
+    page_bytes = blob.numel() * blob.element_size()
+    res = dict(card=card, model="llama snapshot", kv_pool_pages=SNAP_PAGES,
+               requests=len(reqs), prompt_lens=[len(p) for p, _ in
+                                                reqs.values()],
+               tokens_at_snapshot=at_snapshot,
+               bundle_bytes=n_bytes, bundle_pages=len(eng_meta["page_ids"]),
+               page_bytes=page_bytes, snapshot_ms=snapshot_ms,
+               write_ms=times["write_ms"],
+               export_ms=snapshot_ms - times["write_ms"],
+               write_gb_s=n_bytes / times["write_ms"] / 1e6,
+               read_ms=times["read_ms"],
+               read_gb_s=n_bytes / times["read_ms"] / 1e6,
+               read_and_restore_ms=restore_ms,
+               restore_capture_s=model.capture_seconds,
+               restore_keys_captured=len(keys_before),
+               first_token_ms_after_restore=(first[0] * 1e3 if first
+                                             else None),
+               resumed_run_s=resume_s, keys_captured_resuming=len(captured),
+               pages_checked=pages_checked, pages_bit_equal=not pages_unequal,
+               pinned_copy_yardstick=copy_yardstick(page_bytes),
+               free_running=free, parted_logits=witness,
+               teacher_forced_keyed_agreement=agree, floor=KEYED_AGREE_MIN,
+               launches=launches, launch_checks=checks)
+    log("llama snapshot and restore:", json.dumps(res))
+    if pages_unequal or not pages_checked:
+        raise RuntimeError(f"snapshot phase: {pages_unequal} of "
+                           f"{pages_checked} restored pages differ from the "
+                           "bundle's")
+    if not all(checks.values()):
+        raise RuntimeError(f"snapshot phase launch counts: {checks}")
+    if min(agree) < KEYED_AGREE_MIN:
+        raise RuntimeError(f"snapshot phase: teacher-forced agreement "
+                           f"{min(agree):.3f} < {KEYED_AGREE_MIN}")
+    del a, b, sched, restored, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
                   num_hidden_layers=32, num_attention_heads=32,
                   num_key_value_heads=8, max_position_embeddings=32768,
@@ -3158,6 +3619,14 @@ def main() -> int:
     _, spec_launches = spec_phase(cfg, params, counters, card,
                                   llama_summary)
     launches_by_path.update(spec_launches)
+
+    # phase 6e: keyed sampling at full width
+    _, launches_by_path["serving_llama_keyed"] = keyed_phase(
+        cfg, params, counters, card, llama_summary)
+
+    # phase 6f: snapshot and restore into a second engine
+    _, launches_by_path["serving_llama_snapshot"] = snapshot_phase(
+        cfg, params, counters, card)
 
     # phase 7
     plain_vs_kernel(cfg, params)

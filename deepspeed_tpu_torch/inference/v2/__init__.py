@@ -8,8 +8,10 @@ from .model import RaggedInferenceModel
 from .model_implementations import (implementation_for,
                                     supported_model_types)
 from .ragged import BlockedAllocator, KVAllocationError, KVCacheConfig
-from .sampling import SamplingParams, sample, sample_dynamic
+from .sampling import (SamplingParams, derive_row_keys, sample,
+                       sample_dynamic, sample_keyed)
 from .scheduler import FastGenScheduler, Request, RequestError, generate
+from .snapshot import SnapshotError
 from .spec import ModelDrafter, NgramDrafter
 
 __all__ = [
@@ -18,6 +20,7 @@ __all__ = [
     "InferenceEngineV2", "SchedulingError", "SchedulingResult",
     "RaggedInferenceModel", "BlockedAllocator", "KVAllocationError",
     "KVCacheConfig", "SamplingParams", "sample", "sample_dynamic",
+    "derive_row_keys", "sample_keyed", "SnapshotError",
     "FastGenScheduler", "Request", "RequestError", "generate",
     "ModelDrafter", "NgramDrafter",
     "implementation_for", "supported_model_types",

@@ -6,9 +6,14 @@ The subset of ``deepspeed_tpu/inference/v2/config.py`` the port reads.
 prefix_caching=True, speculative=False, tp_degree=1,
 keyed_sampling=False``, and the degradation knobs off.  Speculative
 decoding takes JAX's knobs (``spec_max_draft``, ``spec_ngram_min``,
-``spec_drafter``, ``spec_draft_layers``) with JAX's defaults.
-``tp_degree`` and ``keyed_sampling`` stay at these values (another value
-raises, naming the ROADMAP item that brings it).  The KV cache geometry
+``spec_drafter``, ``spec_draft_layers``) with JAX's defaults, and
+``keyed_sampling=True`` is served: every sampled token is drawn from a
+key that is a pure function of (seed, request uid, position), as in the
+JAX package, which makes sampled streams schedule-invariant and lets a
+snapshot resume sampled requests exactly.  The snapshot knobs are JAX's
+(``snapshot_grace_s``, ``snapshot_path``).  ``tp_degree`` stays at 1
+(another value raises, naming the ROADMAP item that brings it).  The KV
+cache geometry
 is the model's ``kv_config`` when the model was given one, else
 :class:`KVCacheUserConfig`'s, whose ``num_pages=None`` sizes the pool
 from free device memory.
@@ -43,7 +48,6 @@ class KVCacheUserConfig:
 # flag -> (the one value the port runs, ROADMAP Queue 1 item)
 _FIXED_SERVING_FLAGS = {
     "tp_degree": (1, "13 (tensor-parallel serving)"),
-    "keyed_sampling": (False, "3 (keyed sampling)"),
 }
 
 
@@ -93,6 +97,11 @@ class ServingOptimizationConfig:
     #: self-draft)
     spec_draft_layers: int = 0
     tp_degree: int = 1
+    #: schedule-invariant sampling: a sampled row draws from
+    #: ``fold_in(fold_in(key(seed), uid), position)``, so a request's
+    #: sampled tokens do not depend on the batch, the step kind or the
+    #: engine that samples them.  Fixed at engine build (it adds the
+    #: uid and position inputs to every sampling step)
     keyed_sampling: bool = False
     #: KV page storage format: "none" (fp pages at the cache dtype) or
     #: "int8" (block-scaled codes + one fp32 scale per head_dim block).
@@ -111,6 +120,12 @@ class ServingOptimizationConfig:
     #: where the scheduler would deadlock, shed the most demanding
     #: request with an "oom" error instead of raising
     shed_unservable: bool = False
+    #: grace budget in seconds of the SIGTERM drain -> snapshot path;
+    #: past it the live requests end with a "migrated" error
+    snapshot_grace_s: float = 5.0
+    #: the bundle the SIGTERM handler writes (with DS_DRAIN_ON_SIGTERM=1
+    #: in the environment); empty: explicit ``snapshot()`` calls only
+    snapshot_path: str = ""
 
     def __post_init__(self):
         self.validate()

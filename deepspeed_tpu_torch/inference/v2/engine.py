@@ -24,13 +24,17 @@ the card (``model.py``); ``precompile`` captures a lattice of them
 before serving.  The engine builds the KV cache: fp pages, or int8
 ``KVPages`` when ``serving.kv_quantization`` says so; for a model built
 without ``kv_config`` its geometry comes from ``config.kv_cache``, and
-``num_pages=None`` sizes the pool from free device memory.
+``num_pages=None`` sizes the pool from free device memory.  With
+``serving.keyed_sampling`` (fixed at build) every sampling step takes
+each row's request uid and generation position (``row_pos``) and the
+scheduler's base key, and draws each sampled row from its own key.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import hashlib
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -147,7 +151,11 @@ class InferenceEngineV2:
         self._draft_layers = ((min(want, L) if want > 0 else L)
                               if self._draft_enabled else 0)
         model.kv_config = self._resolve_kv_config(model)
-        # graphs captured for an earlier engine wrote that engine's cache
+        # keyed sampling changes the inputs of every sampling step, so it
+        # is fixed here, before any capture; graphs captured for an
+        # earlier engine wrote that engine's cache (and may have been
+        # captured in the other sampling mode)
+        model.keyed_sampling = bool(sv.keyed_sampling)
         model.reset_steps()
         self._build_draft(model)
         self._state = StateManager(
@@ -224,6 +232,19 @@ class InferenceEngineV2:
         """The engine built a draft trunk (``speculative`` on and
         ``spec_drafter`` model or auto)."""
         return self._draft_enabled
+
+    @property
+    def draft_digest(self) -> str:
+        """The draft trunk's identity ("" without one): a snapshot records
+        it and ``restore`` refuses a bundle taken under another draft
+        trunk.  The JAX package hashes its own config class's repr, so a
+        bundle with a draft trunk restores only within the package that
+        took it; without one both packages write ""."""
+        if not self._draft_enabled:
+            return ""
+        facts = f"{self._draft_layers}:{self._model.draft_cfg!r}"
+        return hashlib.blake2b(facts.encode("utf-8"),
+                               digest_size=8).hexdigest()
 
     @property
     def draft_kv(self) -> Optional[torch.Tensor]:
@@ -499,14 +520,33 @@ class InferenceEngineV2:
             top_ps[i] = p.top_p
         return temps, top_ks, top_ps
 
+    def _pad_keyed(self, batch_uids, row_pos, S):
+        """The keyed inputs padded to the slot bucket: [S] int32 uids
+        (cast from the request uid, as the JAX engine casts it) and
+        generation positions; padding rows draw garbage nobody reads.
+        (None, None) when the mode is off, and also when a keyed engine
+        is stepped without positions, so the model raises instead of
+        pinning every draw to position 0."""
+        if not self._model.keyed_sampling or row_pos is None:
+            return None, None
+        uids = np.zeros(S, np.int32)
+        pos = np.zeros(S, np.int32)
+        uids[:len(batch_uids)] = np.asarray(batch_uids, np.int64).astype(
+            np.int32)
+        pos[:len(row_pos)] = np.asarray(row_pos, np.int32)
+        return uids, pos
+
     def step_sample(self, batch_uids: Sequence[int],
                     batch_tokens: Sequence[np.ndarray],
-                    row_params: Sequence[SamplingParams],
-                    generator: torch.Generator,
-                    do_checks: bool = True) -> Tuple[torch.Tensor, List[int]]:
+                    row_params: Sequence[SamplingParams], rng,
+                    do_checks: bool = True,
+                    row_pos: Optional[Sequence[int]] = None
+                    ) -> Tuple[torch.Tensor, List[int]]:
         """One SplitFuse step: forward + on-device sampling.  Returns
         (device token array int32, output row per input).  Rows still
-        mid-prefill sample garbage the caller ignores."""
+        mid-prefill sample garbage the caller ignores.  ``rng`` is the
+        scheduler's generator, or on a keyed engine its base key, with
+        each row's generation position in ``row_pos``."""
         descs = self._admit_batch(batch_uids, batch_tokens, do_checks)
         dec_idx = [i for i, t in enumerate(batch_tokens) if len(t) == 1]
         pre_idx = [i for i, t in enumerate(batch_tokens) if len(t) > 1]
@@ -516,9 +556,12 @@ class InferenceEngineV2:
             batch = self._build_batch(descs, batch_tokens)
             temps, top_ks, top_ps = self._pad_sample_params(
                 row_params, batch.num_slots)
+            kuids, kpos = self._pad_keyed(batch_uids, row_pos,
+                                          batch.num_slots)
             greedy_only = not bool((temps > 0.0).any())
-            tokens = self._model.sample_step(batch, kv, generator, temps,
-                                             top_ks, top_ps, greedy_only)
+            tokens = self._model.sample_step(batch, kv, rng, temps, top_ks,
+                                             top_ps, greedy_only,
+                                             row_uids=kuids, row_pos=kpos)
             self._commit_batch(descs)
             return tokens, list(range(len(batch_uids)))
 
@@ -535,17 +578,27 @@ class InferenceEngineV2:
             row_of_input[i] = dec.num_slots + row
             ordered[dec.num_slots + row] = row_params[i]
         temps, top_ks, top_ps = self._pad_sample_params(ordered, len(ordered))
+        # the keyed inputs follow the same segment order as the params
+        kuids = kpos = None
+        if self._model.keyed_sampling and row_pos is not None:
+            kuids = np.zeros(len(ordered), np.int32)
+            kpos = np.zeros(len(ordered), np.int32)
+            for i, row in enumerate(row_of_input):
+                kuids[row] = np.int64(batch_uids[i]).astype(np.int32)
+                kpos[row] = int(row_pos[i])
         greedy_only = not bool((temps > 0.0).any())
-        tokens = self._model.sample_step_mixed(dec, pre, kv, generator, temps,
-                                               top_ks, top_ps, greedy_only)
+        tokens = self._model.sample_step_mixed(dec, pre, kv, rng, temps,
+                                               top_ks, top_ps, greedy_only,
+                                               row_uids=kuids, row_pos=kpos)
         self._commit_batch(descs)
         return tokens, row_of_input
 
     def step_decode_chained(self, batch_uids: Sequence[int],
                             prev_tokens: torch.Tensor,
                             gather_idx: Sequence[int],
-                            row_params: Sequence[SamplingParams],
-                            generator: torch.Generator) -> torch.Tensor:
+                            row_params: Sequence[SamplingParams], rng,
+                            row_pos: Optional[Sequence[int]] = None
+                            ) -> torch.Tensor:
         """Decode step whose input tokens are gathered ON THE DEVICE from
         the previous step's tokens (``prev_tokens``, possibly still being
         computed): row i continues the sequence in row ``gather_idx[i]``
@@ -560,54 +613,61 @@ class InferenceEngineV2:
         greedy_only = not bool((temps > 0.0).any())
         gather = np.zeros(batch.num_slots, np.int32)
         gather[:len(batch_uids)] = np.asarray(gather_idx, np.int32)
+        kuids, kpos = self._pad_keyed(batch_uids, row_pos, batch.num_slots)
         tokens = self._model.chained_step(
-            batch, self._state.kv_cache.data, prev_tokens, gather,
-            generator, temps, top_ks, top_ps, greedy_only)
+            batch, self._state.kv_cache.data, prev_tokens, gather, rng,
+            temps, top_ks, top_ps, greedy_only, row_uids=kuids,
+            row_pos=kpos)
         self._commit_batch(descs)
         return tokens
 
     # -- speculative decoding -----------------------------------------------
-    def _spec_batch(self, batch_uids, batch_tokens, row_params, min_q):
+    def _spec_batch(self, batch_uids, batch_tokens, row_params, min_q,
+                    row_pos):
         descs = self._admit_batch(batch_uids, batch_tokens, do_checks=False)
         # every spec dispatch pads to the one spec Q bucket (min_q = 1 +
         # spec_max_draft): a short-draft step forms no smaller key
         batch = self._build_batch(descs, batch_tokens, min_q=min_q)
         temps, top_ks, top_ps = self._pad_sample_params(
             row_params, batch.num_slots)
-        return batch, temps, top_ks, top_ps, not bool((temps > 0.0).any())
+        kuids, kpos = self._pad_keyed(batch_uids, row_pos, batch.num_slots)
+        return (batch, (temps, top_ks, top_ps, not bool((temps > 0.0).any())),
+                dict(row_uids=kuids, row_pos=kpos))
 
     def step_spec(self, batch_uids: Sequence[int],
                   batch_tokens: Sequence[np.ndarray],
-                  row_params: Sequence[SamplingParams],
-                  generator: torch.Generator,
-                  min_q: int = 1) -> torch.Tensor:
+                  row_params: Sequence[SamplingParams], rng,
+                  min_q: int = 1,
+                  row_pos: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Speculative verify: each row's tokens are ``[last_committed,
         d_1..d_k]`` (k may differ per row, 0 allowed).  Returns the device
         [S, 2] int32 verdict (accepted drafts, corrected token) per row.
         The commit waits for :meth:`commit_spec` with each row's
-        committed count (a step may commit 1..1+k tokens of a row)."""
-        batch, temps, top_ks, top_ps, greedy_only = self._spec_batch(
-            batch_uids, batch_tokens, row_params, min_q)
-        return self._model.spec_step(batch, self._state.kv_cache.data,
-                                     generator, temps, top_ks, top_ps,
-                                     greedy_only)
+        committed count (a step may commit 1..1+k tokens of a row).  On
+        a keyed engine ``row_pos`` is each row's generation index at its
+        first position."""
+        batch, rows, keyed = self._spec_batch(batch_uids, batch_tokens,
+                                              row_params, min_q, row_pos)
+        return self._model.spec_step(batch, self._state.kv_cache.data, rng,
+                                     *rows, **keyed)
 
     def step_draft_spec(self, batch_uids: Sequence[int],
                         batch_tokens: Sequence[np.ndarray],
-                        row_params: Sequence[SamplingParams],
-                        generator: torch.Generator,
-                        min_q: int = 1) -> torch.Tensor:
+                        row_params: Sequence[SamplingParams], rng,
+                        min_q: int = 1,
+                        row_pos: Optional[Sequence[int]] = None
+                        ) -> torch.Tensor:
         """Model-drafted speculative step: as :meth:`step_spec`, but each
         row is ``[last, 0...0]`` of length ``1 + room`` (room: the drafts
         the row may commit) and the draft trunk drafts on the device.
         Returns the device [S, 2+k] int32 verdict (accepted, corrected,
         the k drafts).  Call :meth:`commit_spec`, then
         :meth:`mark_draft_seen`."""
-        batch, temps, top_ks, top_ps, greedy_only = self._spec_batch(
-            batch_uids, batch_tokens, row_params, min_q)
+        batch, rows, keyed = self._spec_batch(batch_uids, batch_tokens,
+                                              row_params, min_q, row_pos)
         return self._model.draft_spec_step(
-            batch, (self._state.kv_cache.data, self._draft_kv), generator,
-            temps, top_ks, top_ps, greedy_only)
+            batch, (self._state.kv_cache.data, self._draft_kv), rng, *rows,
+            **keyed)
 
     def step_draft_fill(self, batch_uids: Sequence[int],
                         batch_tokens: Sequence[np.ndarray]) -> None:

@@ -4,9 +4,11 @@ Counterpart of ``enumerate_lattice_keys`` in
 ``deepspeed_tpu/inference/v2/lattice.py``.  A key is ``(S, Q, P, fresh)``
 for a logits step, with ``("sample", greedy)`` for a fused sampling step
 and ``(S, 1, P, False, "chain", prev_s, greedy)`` for a chained decode
-step.  On the card each key is one CUDA graph (``model.py``); the JAX
-package compiles one program per key.  The speculative families (Queue 1
-item 8) and mined lattices (item 12) are not ported.
+step.  ``spec_q`` adds the speculative verify keys ``(S, Q, P, False,
+"spec", greedy)`` and ``draft`` the model-drafted twins (``"draft_spec"``
+and ``(S, Q, P, False, "draft_fill")``).  On the card each key is one
+CUDA graph (``model.py``); the JAX package compiles one program per key.
+Mined lattices (ROADMAP Queue 1 item 12) are not ported.
 """
 
 from __future__ import annotations

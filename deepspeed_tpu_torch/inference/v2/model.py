@@ -12,7 +12,12 @@ eagerly on the card too).  The KV cache is written IN PLACE
 (``write_kv``'s indexed assignment into the cache tensor), so the steps
 return only tokens, logits or a verdict; a step of the model-drafted
 kinds writes the draft trunk's own pool as well (``draft_spec``: both
-pools, ``draft_fill``: the draft pool alone).  Attention,
+pools, ``draft_fill``: the draft pool alone).  With ``keyed_sampling``
+(fixed when the engine is built) every sampling step also takes the base
+key and each row's request uid and generation position, and each
+sampled row draws from its own key (``sampling.sample_keyed``) instead
+of the shared generator; its graphs are captured over those inputs and
+draw nothing from a generator.  Attention,
 norm, embedding and unembedding come from the ``modules`` registry: on
 the card the hand-written kernels (a model they do not take raises), on
 the CPU or when named the plain versions.
@@ -37,19 +42,23 @@ from ...tree import tree_map
 from .modules import instantiate, resolve
 from .ragged import KVCacheConfig, RaggedBatch
 from .ragged.batch import MIN_SLOTS, _bucket
-from .sampling import greedy, sample_dynamic
+from .sampling import derive_row_keys, greedy, sample_dynamic, sample_keyed
 
 #: op classes resolved through the registry, in the order they run
 OP_CLASSES = ("embedding", "norm", "ragged_attention",
               "fresh_prefill_attention", "unembed")
 
 _I32, _F32 = np.dtype(np.int32), np.dtype(np.float32)
+_I64 = np.dtype(np.int64)
 
 
-def _input_specs(key) -> List[Tuple[Tuple[int, ...], np.dtype]]:
+def _input_specs(key, keyed: bool = False
+                 ) -> List[Tuple[Tuple[int, ...], np.dtype]]:
     """(shape, dtype) of each array a step of ``key`` takes after the
     params and the KV cache, the generator left out (it stands before
-    the three sampling rows)."""
+    the three sampling rows).  A keyed model's sampling steps take the
+    base key [2] and the rows' uids and positions just before the three
+    sampling rows."""
     S, Q, P = key[:3]
     kind = _kind(key)
     batch = [((S, Q), _I32), ((S,), _I32), ((S,), _I32), ((S, P), _I32)]
@@ -57,7 +66,9 @@ def _input_specs(key) -> List[Tuple[Tuple[int, ...], np.dtype]]:
         return batch
 
     def rows(n):
-        return [((n,), _F32), ((n,), _I32), ((n,), _F32)]
+        extra = ([((2,), _I64), ((n,), _I32), ((n,), _I32)] if keyed
+                 else [])
+        return extra + [((n,), _F32), ((n,), _I32), ((n,), _F32)]
 
     if kind in ("sample", "spec", "draft_spec"):
         return batch + rows(S)
@@ -106,12 +117,13 @@ class _StepGraph:
     graphs and their pool at once."""
 
     def __init__(self, key, kv: KVLayer, device: torch.device,
-                 shared: tuple):
+                 shared: tuple, keyed: bool = False):
         self.kv = kv
-        self.stochastic = _stochastic(key)
+        # a keyed step draws from its row keys, never from the generator
+        self.stochastic = _stochastic(key) and not keyed
         self.inputs = [torch.zeros(shape, dtype=getattr(torch, dt.name),
                                    device=device)
-                       for shape, dt in _input_specs(key)]
+                       for shape, dt in _input_specs(key, keyed)]
         pool, stream, self.generator = shared
         self.graph = CountedGraph(
             pool, self.generator if self.stochastic else None, stream)
@@ -214,6 +226,10 @@ class RaggedInferenceModel:
         #: params the target's own tensors (None: no draft trunk)
         self.draft_cfg: Optional[T.TransformerConfig] = None
         self.draft_params: Optional[Dict[str, Any]] = None
+        #: keyed sampling, set by the engine at build before any capture:
+        #: it adds the (base key, uids, positions) inputs to every
+        #: sampling step
+        self.keyed_sampling = False
 
     # -- public steps --------------------------------------------------------
     def forward(self, batch: RaggedBatch, kv: KVLayer) -> torch.Tensor:
@@ -233,22 +249,52 @@ class RaggedInferenceModel:
         return (np.asarray(temps, np.float32), np.asarray(top_ks, np.int32),
                 np.asarray(top_ps, np.float32))
 
-    def sample_step(self, batch: RaggedBatch, kv: KVLayer,
-                    generator: torch.Generator, temps, top_ks, top_ps,
-                    greedy_only: bool) -> torch.Tensor:
+    def _keyed_args(self, rng, row_uids, row_pos) -> tuple:
+        """The keyed inputs that stand before the sampling rows: (base
+        key, uids, positions) on a keyed model, none otherwise.  Rows
+        nobody reads (padding, mid-prefill) may carry anything."""
+        if not self.keyed_sampling:
+            return ()
+        if row_uids is None or row_pos is None:
+            raise ValueError(
+                "a keyed_sampling model needs row_uids and row_pos for "
+                "every sampling step")
+        base = (rng if isinstance(rng, torch.Tensor)
+                else np.asarray(rng, np.int64))
+        return (base, np.asarray(row_uids, np.int32),
+                np.asarray(row_pos, np.int32))
+
+    def _sample_inputs(self, rng, temps, top_ks, top_ps, row_uids,
+                       row_pos) -> tuple:
+        return (self._keyed_args(rng, row_uids, row_pos)
+                + self._sample_arrays(temps, top_ks, top_ps))
+
+    def _generator(self, rng) -> Optional[torch.Generator]:
+        """The generator a step draws from: none on a keyed model (its
+        base key is an input)."""
+        return None if self.keyed_sampling else rng
+
+    def sample_step(self, batch: RaggedBatch, kv: KVLayer, rng, temps,
+                    top_ks, top_ps, greedy_only: bool, row_uids=None,
+                    row_pos=None) -> torch.Tensor:
         """Forward + on-device sampling: returns tokens [S] int32 on the
         device (the [S, V] logits never leave it).  ``greedy_only`` is
         part of the key: an all-greedy step is plain argmax and never
-        touches the generator."""
+        touches the generator.  ``rng`` is the generator, or on a keyed
+        model the base key (int64 [2]) with each row's uid and
+        generation position in ``row_uids`` / ``row_pos``."""
         key = self._normalize_key(batch.shape_key) + (
             "sample", bool(greedy_only))
-        return self._dispatch(key, kv, generator, self._batch_arrays(batch)
-                              + self._sample_arrays(temps, top_ks, top_ps))
+        return self._dispatch(key, kv, self._generator(rng),
+                              self._batch_arrays(batch)
+                              + self._sample_inputs(rng, temps, top_ks,
+                                                    top_ps, row_uids,
+                                                    row_pos))
 
     def sample_step_mixed(self, dec_batch: RaggedBatch,
-                          pre_batch: RaggedBatch, kv: KVLayer,
-                          generator: torch.Generator, temps, top_ks, top_ps,
-                          greedy_only: bool) -> torch.Tensor:
+                          pre_batch: RaggedBatch, kv: KVLayer, rng, temps,
+                          top_ks, top_ps, greedy_only: bool, row_uids=None,
+                          row_pos=None) -> torch.Tensor:
         """Mixed SplitFuse step over TWO batch geometries: a decode
         segment [S_d, 1] and a prefill segment [S_p, Q], the KV cache
         written by the first before the second reads it.  Tokens come
@@ -260,15 +306,17 @@ class RaggedInferenceModel:
         if dk[1] != 1:
             raise ValueError("segment A of a mixed step is decode-only")
         key = dk + ("mixed",) + pk + (bool(greedy_only),)
-        return self._dispatch(key, kv, generator,
+        return self._dispatch(key, kv, self._generator(rng),
                               self._batch_arrays(dec_batch)
                               + self._batch_arrays(pre_batch)
-                              + self._sample_arrays(temps, top_ks, top_ps))
+                              + self._sample_inputs(rng, temps, top_ks,
+                                                    top_ps, row_uids,
+                                                    row_pos))
 
     def chained_step(self, batch: RaggedBatch, kv: KVLayer,
-                     prev_tokens: torch.Tensor, gather_idx,
-                     generator: torch.Generator, temps, top_ks, top_ps,
-                     greedy_only: bool) -> torch.Tensor:
+                     prev_tokens: torch.Tensor, gather_idx, rng, temps,
+                     top_ks, top_ps, greedy_only: bool, row_uids=None,
+                     row_pos=None) -> torch.Tensor:
         """Decode step whose token ids are gathered ON THE DEVICE from
         the previous step's token array (``prev_tokens``, possibly still
         being computed): row i continues the sequence in row
@@ -280,27 +328,34 @@ class RaggedInferenceModel:
         key = (S, 1, P, False, "chain", int(prev_tokens.shape[0]),
                bool(greedy_only))
         return self._dispatch(
-            key, kv, generator,
+            key, kv, self._generator(rng),
             (prev_tokens, np.asarray(gather_idx, np.int32))
             + self._batch_arrays(batch)[1:]
-            + self._sample_arrays(temps, top_ks, top_ps))
+            + self._sample_inputs(rng, temps, top_ks, top_ps, row_uids,
+                                  row_pos))
 
-    def spec_step(self, batch: RaggedBatch, kv: KVLayer,
-                  generator: torch.Generator, temps, top_ks, top_ps,
-                  greedy_only: bool) -> torch.Tensor:
+    def spec_step(self, batch: RaggedBatch, kv: KVLayer, rng, temps,
+                  top_ks, top_ps, greedy_only: bool, row_uids=None,
+                  row_pos=None) -> torch.Tensor:
         """Speculative verify: row s carries ``[last_committed, d_1..d_k]``
         (``q_lens[s] = 1 + k``, k may be 0) and one step runs the forward
         over every position and returns [S, 2] int32 on the device:
         (accepted drafts, the corrected or bonus token).  Keyed
-        ``(S, Q, P, False, "spec", greedy_only)``."""
+        ``(S, Q, P, False, "spec", greedy_only)``.  On a keyed model
+        position j of row s draws from generation index ``row_pos[s] +
+        j``, so a committed block equals the same tokens drawn one step
+        at a time."""
         key = self._normalize_key(batch.shape_key)[:3] + (
             False, "spec", bool(greedy_only))
-        return self._dispatch(key, kv, generator, self._batch_arrays(batch)
-                              + self._sample_arrays(temps, top_ks, top_ps))
+        return self._dispatch(key, kv, self._generator(rng),
+                              self._batch_arrays(batch)
+                              + self._sample_inputs(rng, temps, top_ks,
+                                                    top_ps, row_uids,
+                                                    row_pos))
 
-    def draft_spec_step(self, batch: RaggedBatch, kv_pair: tuple,
-                        generator: torch.Generator, temps, top_ks, top_ps,
-                        greedy_only: bool) -> torch.Tensor:
+    def draft_spec_step(self, batch: RaggedBatch, kv_pair: tuple, rng,
+                        temps, top_ks, top_ps, greedy_only: bool,
+                        row_uids=None, row_pos=None) -> torch.Tensor:
         """Model-drafted speculative step: the draft trunk drafts k = Q-1
         greedy tokens over the draft pool (Q iterations of a Q=1
         forward) and the target verifies them, in one step.  The host
@@ -310,9 +365,11 @@ class RaggedInferenceModel:
         count, corrected token, then the k drafts."""
         key = self._normalize_key(batch.shape_key)[:3] + (
             False, "draft_spec", bool(greedy_only))
-        return self._dispatch(key, tuple(kv_pair), generator,
+        return self._dispatch(key, tuple(kv_pair), self._generator(rng),
                               self._batch_arrays(batch)
-                              + self._sample_arrays(temps, top_ks, top_ps))
+                              + self._sample_inputs(rng, temps, top_ks,
+                                                    top_ps, row_uids,
+                                                    row_pos))
 
     def draft_fill_step(self, batch: RaggedBatch, draft_kv) -> None:
         """The draft pool's catch-up over committed history (prefill,
@@ -383,6 +440,11 @@ class RaggedInferenceModel:
         else:
             raise ValueError(f"unknown step kind in key {key}")
         with torch.no_grad():
+            if self.keyed_sampling:
+                # [..., base, uids, pos, temps, top_ks, top_ps]
+                base, uids, pos = inputs[-6:-3]
+                return fn(params, kv, *inputs[:-6], base, *inputs[-3:],
+                          uids, pos)
             return fn(params, kv, *inputs[:-3], generator, *inputs[-3:])
 
     def _graph_resources(self) -> tuple:
@@ -406,7 +468,8 @@ class RaggedInferenceModel:
         if self.device.type == "cpu":
             return None
         t = time.perf_counter()
-        graph = _StepGraph(key, kv, self.device, self._graph_resources())
+        graph = _StepGraph(key, kv, self.device, self._graph_resources(),
+                           self.keyed_sampling)
         if inputs is not None:
             graph.load(inputs)
         graph.capture(functools.partial(self._call, key))
@@ -500,40 +563,51 @@ class RaggedInferenceModel:
             logits = logits + bias.to(self.cfg.dtype)
         return logits.float()
 
-    def _sample_tokens(self, logits, generator, temps, top_ks, top_ps,
-                       greedy_only: bool) -> torch.Tensor:
+    def _sample_tokens(self, logits, rng, temps, top_ks, top_ps, row_uids,
+                       row_pos, greedy_only: bool) -> torch.Tensor:
+        """The sampling every sampling step kind shares: the argmax of a
+        greedy-only key, one draw per row from its own key on a keyed
+        model (``rng`` the base key), else ``sample_dynamic`` from the
+        generator ``rng``."""
         if greedy_only:
             return greedy(logits)
-        return sample_dynamic(logits, generator, temps, top_ks, top_ps)
+        if row_uids is not None:
+            keys = derive_row_keys(rng, row_uids, row_pos)
+            return sample_keyed(logits, keys, temps, top_ks, top_ps)
+        return sample_dynamic(logits, rng, temps, top_ks, top_ps)
 
     def _sample_step_impl(self, params, kv, token_ids, q_lens, start_pos,
-                          page_table, generator, temps, top_ks, top_ps,
-                          fresh: bool = False, greedy_only: bool = False):
+                          page_table, rng, temps, top_ks, top_ps,
+                          row_uids=None, row_pos=None, fresh: bool = False,
+                          greedy_only: bool = False):
         logits = self._step_impl(params, kv, token_ids, q_lens, start_pos,
                                  page_table, fresh=fresh)
-        return self._sample_tokens(logits, generator, temps, top_ks, top_ps,
-                                   greedy_only)
+        return self._sample_tokens(logits, rng, temps, top_ks, top_ps,
+                                   row_uids, row_pos, greedy_only)
 
     def _chained_step_impl(self, params, kv, prev_tokens, gather_idx,
-                           q_lens, start_pos, page_table, generator, temps,
-                           top_ks, top_ps, greedy_only: bool = False):
+                           q_lens, start_pos, page_table, rng, temps,
+                           top_ks, top_ps, row_uids=None, row_pos=None,
+                           greedy_only: bool = False):
         """Decode step whose token ids are gathered on the device from
         the previous step's tokens (the row mapping is host-known)."""
         token_ids = prev_tokens[gather_idx.long()][:, None]       # [S, 1]
         return self._sample_step_impl(params, kv, token_ids, q_lens,
-                                      start_pos, page_table, generator,
-                                      temps, top_ks, top_ps, fresh=False,
-                                      greedy_only=greedy_only)
+                                      start_pos, page_table, rng, temps,
+                                      top_ks, top_ps, row_uids, row_pos,
+                                      fresh=False, greedy_only=greedy_only)
 
     def _spec_step_impl(self, params, kv, token_ids, q_lens, start_pos,
-                        page_table, generator, temps, top_ks, top_ps,
+                        page_table, rng, temps, top_ks, top_ps,
+                        row_uids=None, row_pos=None,
                         greedy_only: bool = False) -> torch.Tensor:
         """Verify drafted tokens.  Row layout ``token_ids[s] =
         [last_committed, d_1..d_k, pad...]``, ``q_lens[s] = 1 + k``.  The
         forward writes KV for every valid position (a rejected draft's
         slots are written again by the next step before any step reads
         them) and emits the model's own token at EVERY position: the
-        argmax, or ``sample_dynamic``'s draw with the row's parameters.
+        argmax, or the row's draw with its parameters (keyed: position j
+        draws from generation index ``row_pos + j``).
         Per row the accepted count is the leading run of drafts equal to
         the emission one position earlier, and the corrected (or bonus)
         token is the emission at that count.  Returns [S, 2] int32."""
@@ -543,13 +617,15 @@ class RaggedInferenceModel:
         logits = self._assemble_logits(x.reshape(S * Q, E),
                                        self._lm_head(params),
                                        params.get("lm_head_bias"))
-        if greedy_only:
-            emitted = greedy(logits)
-        else:
-            emitted = sample_dynamic(
-                logits, generator, temps.repeat_interleave(Q),
-                top_ks.repeat_interleave(Q), top_ps.repeat_interleave(Q))
-        emitted = emitted.reshape(S, Q)
+        sq_uids = sq_pos = None
+        if row_uids is not None and not greedy_only:
+            sq_uids = row_uids.repeat_interleave(Q)
+            sq_pos = (row_pos[:, None] + torch.arange(
+                Q, dtype=row_pos.dtype, device=x.device)[None, :]).reshape(-1)
+        emitted = self._sample_tokens(
+            logits, rng, temps.repeat_interleave(Q),
+            top_ks.repeat_interleave(Q), top_ps.repeat_interleave(Q),
+            sq_uids, sq_pos, greedy_only).reshape(S, Q)
         col = torch.arange(Q - 1, device=x.device)[None, :]
         ok = (emitted[:, :-1] == token_ids[:, 1:]) \
             & (col < (q_lens - 1)[:, None])
@@ -559,8 +635,8 @@ class RaggedInferenceModel:
         return torch.stack([accepts, corrected], dim=1)
 
     def _draft_spec_step_impl(self, params, kv, token_ids, q_lens,
-                              start_pos, page_table, generator, temps,
-                              top_ks, top_ps,
+                              start_pos, page_table, rng, temps, top_ks,
+                              top_ps, row_uids=None, row_pos=None,
                               greedy_only: bool = False) -> torch.Tensor:
         """The draft loop and the verify in one step: ``params`` =
         {"target", "draft"}, ``kv`` = (target pool, draft pool).
@@ -591,8 +667,8 @@ class RaggedInferenceModel:
         tok_mat = torch.cat([token_ids[:, :1],
                              torch.stack(drafts[:Q - 1], dim=1)], dim=1)
         out = self._spec_step_impl(params["target"], target_kv, tok_mat,
-                                   q_lens, start_pos, page_table, generator,
-                                   temps, top_ks, top_ps,
+                                   q_lens, start_pos, page_table, rng,
+                                   temps, top_ks, top_ps, row_uids, row_pos,
                                    greedy_only=greedy_only)
         return torch.cat([out, tok_mat[:, 1:]], dim=1)
 
@@ -604,16 +680,17 @@ class RaggedInferenceModel:
                              page_table, cfg=self.draft_cfg)
 
     def _mixed_sample_step_impl(self, params, kv, d_tok, d_ql, d_sp, d_pt,
-                                p_tok, p_ql, p_sp, p_pt, generator, temps,
-                                top_ks, top_ps, fresh_p: bool = False,
+                                p_tok, p_ql, p_sp, p_pt, rng, temps,
+                                top_ks, top_ps, row_uids=None, row_pos=None,
+                                fresh_p: bool = False,
                                 greedy_only: bool = False):
         logits_d = self._step_impl(params, kv, d_tok, d_ql, d_sp, d_pt,
                                    fresh=False)
         logits_p = self._step_impl(params, kv, p_tok, p_ql, p_sp, p_pt,
                                    fresh=fresh_p)
         tokens = self._sample_tokens(torch.cat([logits_d, logits_p]),
-                                     generator, temps, top_ks, top_ps,
-                                     greedy_only)
+                                     rng, temps, top_ks, top_ps, row_uids,
+                                     row_pos, greedy_only)
         # pad the token vector to the slot bucket, as the JAX step does
         # (its chained step keys on the exact previous-token length)
         pad = _bucket(tokens.shape[0], MIN_SLOTS) - tokens.shape[0]

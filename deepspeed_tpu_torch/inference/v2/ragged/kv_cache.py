@@ -27,7 +27,9 @@ writes the pages back into the same cache tensor in place: every CUDA
 graph was captured over it.  (The JAX package pads the page list to a
 power-of-two bucket so that XLA compiles one program per bucket; torch
 indexing compiles nothing, so the port copies exactly ``n`` pages.)
-Snapshot and handoff codecs are not ported yet.
+A snapshot exports pages with ``read_pages`` and imports them with
+``restore_pages``; the page layout is the JAX package's, so pages cross
+between the packages unchanged.
 """
 
 from __future__ import annotations
@@ -167,7 +169,9 @@ class BlockedKVCache:
 
     def restore_pages(self, blob: Blob) -> np.ndarray:
         """Reserve fresh pages and write ``blob`` into them, in place
-        (``index_copy_`` per layer); returns the new page ids."""
+        (``index_copy_`` per layer); returns the new page ids.  The blob
+        may also be a snapshot's (host tensors that are not pinned, in
+        the cache's dtype)."""
         if self.cfg.quantized != isinstance(blob, PageBlob):
             raise TypeError(
                 "a blob of another page encoding: an int8 cache restores "

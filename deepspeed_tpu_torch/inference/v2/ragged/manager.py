@@ -1,7 +1,8 @@
 """Persistent state manager: tracked sequences + blocked KV cache.
 
 Counterpart of ``deepspeed_tpu/inference/v2/ragged/manager.py`` without
-tiers or export/import.  The manager owns the :class:`PrefixCache` and
+tiers or the selective (handoff) export.  The manager owns the
+:class:`PrefixCache` and
 is the one place pages leave a block table (flush, preemption offload,
 sliding-window eviction), so every release is shared-page aware: a page
 returns to the free list only when its last sharer drops it AND the
@@ -10,6 +11,9 @@ plus parked ones: the cache is the otherwise idle pool, reclaimed LRU
 under allocation pressure.  A preempted sequence holds its private
 pages in a host blob (``offload_sequence``); the manager counts those
 blobs and their bytes, and ``check_invariants`` audits the counts.
+``export_state`` / ``import_state`` move the whole state (sequences,
+page contents, host blobs, the prefix index) through a snapshot bundle
+in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..snapshot import SnapshotError
 from .blocked_allocator import NULL_PAGE
-from .kv_cache import BlockedKVCache, KVCacheConfig
+from .kv_cache import BlockedKVCache, KVCacheConfig, PageBlob
 from .prefix_cache import PrefixCache
 from .sequence import SequenceDescriptor
 
@@ -253,6 +258,182 @@ class StateManager:
         if extra:
             self.ensure_free(extra)
             sd.extend_pages(self.kv_cache.reserve(extra))
+
+    # -- snapshot export / import -------------------------------------------
+    def export_state(self, seq_ids: Optional[List[int]] = None) -> tuple:
+        """Every tracked sequence, the prefix index and the contents of
+        every page they reference (each page once: sharing and refcounts
+        are rebuilt from the block tables on import), as ``(meta,
+        arrays)`` with the JAX package's meta keys and array names.
+        Needs drained state (no tokens in flight).  The selective export
+        of ``seq_ids`` (the prefill/decode handoff) is ROADMAP Queue 1
+        item 12 and raises."""
+        if seq_ids is not None:
+            raise NotImplementedError(
+                "the selective export (export_state(seq_ids=...), the "
+                "disaggregated handoff) is not ported yet (ROADMAP Queue 1 "
+                "item 12)")
+        page_order: List[int] = []
+        seen = set()
+        for sd in self._seqs.values():
+            if sd.in_flight_tokens:
+                raise SnapshotError(
+                    f"sequence {sd.uid} has {sd.in_flight_tokens} in-flight "
+                    "tokens: drain the step before export")
+            for p in sd.pages:
+                if p != NULL_PAGE and p not in seen:
+                    seen.add(p)
+                    page_order.append(int(p))
+        prefix_entries = []
+        if self.prefix_cache is not None:
+            prefix_entries = self.prefix_cache.export_entries()
+            for _, p in prefix_entries:
+                if p not in seen:           # a parked (cache-kept) page
+                    seen.add(p)
+                    page_order.append(int(p))
+        arrays: Dict[str, object] = {}
+        if page_order:
+            self._pack_blob(arrays, "page_blob",
+                            self.kv_cache.read_pages(page_order))
+            dev = self.kv_cache._stores()[0].device
+            if dev.type == "cuda":
+                # read_pages queued its copies into pinned memory
+                torch.cuda.current_stream(dev).synchronize()
+        seqs = []
+        for uid, sd in self._seqs.items():
+            seqs.append({"uid": int(uid), "seen_tokens": int(sd.seen_tokens),
+                         "pages": [int(p) for p in sd.pages],
+                         "live_slots": [int(i) for i in sd.live_slots],
+                         "indexed_pages": int(sd.indexed_pages),
+                         "last_digest": sd.last_digest.hex(),
+                         "has_prompt": sd.prompt_tokens is not None,
+                         "has_blob": sd.host_blob is not None})
+            if sd.prompt_tokens is not None:
+                arrays[f"prompt_{uid}"] = np.asarray(sd.prompt_tokens,
+                                                     np.int32)
+            if sd.host_blob is not None:
+                self._pack_blob(arrays, f"hostblob_{uid}", sd.host_blob)
+        meta = {"kv": self._kv_meta(),
+                "prefix_caching": self.prefix_cache is not None,
+                "page_ids": page_order,
+                "sequences": seqs,
+                "prefix": [[d.hex(), int(p)] for d, p in prefix_entries]}
+        return meta, arrays
+
+    def _kv_meta(self) -> dict:
+        cfg = self.kv_config
+        return {"num_layers": cfg.num_layers, "kv_heads": cfg.kv_heads,
+                "head_dim": cfg.head_dim, "page_size": cfg.page_size,
+                "dtype": str(cfg.dtype).replace("torch.", ""),
+                "quantization": cfg.quantization}
+
+    def _check_kv_meta(self, meta: dict) -> None:
+        kv = dict(meta["kv"])
+        kv.setdefault("quantization", "none")  # bundles from before int8
+        ours = self._kv_meta()
+        if kv != ours:
+            raise SnapshotError(
+                f"KV geometry mismatch: bundle {kv} vs engine {ours}")
+
+    @staticmethod
+    def _pack_blob(arrays: dict, key: str, blob) -> None:
+        """A page blob under ``key``; an int8 :class:`PageBlob` as its
+        codes and ``key + "_scale"``."""
+        if isinstance(blob, PageBlob):
+            arrays[key] = blob.payload
+            arrays[key + "_scale"] = blob.scale
+        else:
+            arrays[key] = blob
+
+    @staticmethod
+    def _unpack_blob(arrays: dict, key: str):
+        """Inverse of ``_pack_blob`` as host tensors; None when ``key`` is
+        absent."""
+        payload = arrays.get(key)
+        if payload is None:
+            return None
+        payload = torch.as_tensor(payload)
+        scale = arrays.get(key + "_scale")
+        if scale is not None:
+            return PageBlob(payload, torch.as_tensor(scale))
+        return payload
+
+    def import_state(self, meta: dict, arrays: dict) -> None:
+        """Rebuild exported state in this empty manager: fresh pages are
+        reserved and written from the blob, the block tables remapped
+        onto them with their refcounts (shared pages shared again, pages
+        only the cache kept parked again), host blobs attached to their
+        preempted sequences, and the prefix index rebuilt in its LRU
+        order.  :class:`SnapshotError` on a geometry or prefix-caching
+        mismatch, a manager that is not empty, a pool too small or an
+        inconsistent bundle."""
+        if meta.get("selective"):
+            raise NotImplementedError(
+                "a selective (handoff) bundle merges into a live manager: "
+                "not ported yet (ROADMAP Queue 1 item 12)")
+        alloc = self.kv_cache.allocator
+        if self._seqs or alloc.live_pages or alloc.parked_pages:
+            raise SnapshotError(
+                "import_state needs an empty state manager "
+                f"({len(self._seqs)} tracked sequences, {alloc.live_pages} "
+                f"live / {alloc.parked_pages} parked pages)")
+        self._check_kv_meta(meta)
+        if bool(meta.get("prefix_caching")) != (self.prefix_cache
+                                                is not None):
+            raise SnapshotError(
+                "prefix_caching differs between the bundle and the engine: "
+                "restore with the same serving config")
+        old_ids = [int(p) for p in meta["page_ids"]]
+        if len(old_ids) > alloc.free_pages:
+            raise SnapshotError(f"bundle needs {len(old_ids)} KV pages, the "
+                                f"pool has {alloc.free_pages} free")
+        mapping = {NULL_PAGE: NULL_PAGE}
+        if old_ids:
+            blob = self._unpack_blob(arrays, "page_blob")
+            if blob is None or blob.shape[1] != len(old_ids):
+                raise SnapshotError(
+                    "page blob missing or inconsistent with page_ids")
+            new = self.kv_cache.restore_pages(blob)     # refcount 1 each
+            mapping.update((o, int(n)) for o, n in zip(old_ids, new))
+        # the block tables give the true refcounts (0: parked)
+        refs = Counter(int(p) for m in meta["sequences"] for p in m["pages"]
+                       if p != NULL_PAGE)
+        for old in old_ids:
+            n, newp = refs.get(old, 0), mapping[old]
+            if n == 0:
+                alloc.decref([newp])        # parked; indexed again below
+            elif n > 1:
+                alloc.add_ref([newp] * (n - 1))
+        for m in meta["sequences"]:
+            uid = int(m["uid"])
+            try:
+                pages = [mapping[int(p)] for p in m["pages"]]
+            except KeyError as e:
+                raise SnapshotError(
+                    f"sequence {uid} references unexported page {e}")
+            sd = SequenceDescriptor(
+                uid=uid, seen_tokens=int(m["seen_tokens"]), pages=pages,
+                live_slots=[int(i) for i in m["live_slots"]],
+                indexed_pages=int(m["indexed_pages"]),
+                last_digest=bytes.fromhex(m["last_digest"]))
+            if m["has_prompt"]:
+                sd.prompt_tokens = np.asarray(arrays[f"prompt_{uid}"],
+                                              np.int32)
+            if m["has_blob"]:
+                sd.host_blob = self._unpack_blob(arrays, f"hostblob_{uid}")
+                if sd.host_blob is None:
+                    raise SnapshotError(f"sequence {uid}'s host blob is "
+                                        "missing from the bundle")
+                self._offload_blobs += 1
+                self._offload_bytes += sd.host_blob.nbytes
+            self._seqs[uid] = sd
+        if self.prefix_cache is not None:
+            for d_hex, p in meta["prefix"]:
+                newp = mapping.get(int(p))
+                if newp is None:
+                    raise SnapshotError(
+                        f"prefix index references unexported page {p}")
+                self.prefix_cache.insert(bytes.fromhex(d_hex), newp)
 
     def check_invariants(self) -> None:
         """Page-accounting audit: every block-table reference is backed

@@ -139,6 +139,12 @@ class PrefixCache:
                 self._entries.move_to_end(d)
         return out
 
+    def export_entries(self) -> List[Tuple[bytes, int]]:
+        """Every (digest, page) binding in LRU order, oldest first (a
+        snapshot's index): inserting them again in this order restores
+        the eviction order."""
+        return list(self._entries.items())
+
     def clear(self) -> List[int]:
         """Drop every entry; returns the pages that were indexed (the
         caller reclaims whichever of them are parked)."""

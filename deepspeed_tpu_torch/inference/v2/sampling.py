@@ -1,8 +1,12 @@
 """Token sampling over per-sequence logits.
 
 Counterpart of ``deepspeed_tpu/inference/v2/sampling.py``.  The filter
-(temperature, top-k, top-p) is deterministic and matches the JAX one;
-the categorical draw takes its randomness from an explicit
+(temperature, top-k, top-p) is deterministic and matches the JAX one.
+Two draws take it: keyed sampling (:func:`sample_keyed`) draws each row
+from its own key, a function of (base key, request uid, generation
+position) computed with the port's copy of ``jax.random``
+(``threefry.py``), so its tokens equal the JAX package's; otherwise the
+categorical draw takes its randomness from an explicit
 ``torch.Generator``, so sampled tokens differ from ``jax.random``'s and
 are compared by distribution only.  :func:`sample_dynamic` takes
 per-row parameters (the fused step); :func:`sample` one set for all rows
@@ -19,6 +23,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from . import threefry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +79,29 @@ def sample_dynamic(logits: torch.Tensor, generator: torch.Generator,
     probs = torch.softmax(l, dim=-1)
     q = torch.empty_like(probs).exponential_(1, generator=generator)
     sampled = torch.argmax(probs / q, dim=-1)
+    return torch.where(is_greedy, greedy_tok, sampled.to(torch.int32))
+
+
+def derive_row_keys(base: torch.Tensor, row_uids: torch.Tensor,
+                    row_pos: torch.Tensor) -> torch.Tensor:
+    """The key of each row's draw, ``fold_in(fold_in(base, uid), pos)``:
+    a pure function of (base key, request uid, generation position), so
+    a request draws the same token stream whatever step, batch or engine
+    samples it.  ``base`` is an int64 [2] key (never split); ``row_uids``
+    and ``row_pos`` are [S] int32.  Returns the [S, 2] keys."""
+    return threefry.fold_in(threefry.fold_in(base, row_uids), row_pos)
+
+
+def sample_keyed(logits: torch.Tensor, row_keys: torch.Tensor,
+                 temperature: torch.Tensor, top_k: torch.Tensor,
+                 top_p: torch.Tensor) -> torch.Tensor:
+    """:func:`sample_dynamic` with one key per row (``row_keys`` [S, 2]
+    from :func:`derive_row_keys`): the same filter, and each sampled row
+    drawn as ``jax.random.categorical(key, row)`` draws it.  The logits
+    must be fp32, as the JAX draw's are."""
+    l, greedy_tok, is_greedy = _filter_rows(logits, temperature, top_k,
+                                            top_p)
+    sampled = threefry.categorical(row_keys, l)
     return torch.where(is_greedy, greedy_tok, sampled.to(torch.int32))
 
 

@@ -47,10 +47,21 @@ be bounded (``max_queue_depth``, ``shed_queue_wait_ms``) and closed
 (``close`` / ``reopen``); a request that ends without completing leaves
 a :class:`RequestError` in ``errors``.
 
-Not ported yet (ROADMAP Queue 1 items 3, 9, 11i, 12): keyed sampling,
-snapshots and handoffs, the fault injector's poisoned requests, and the
-telemetry (the speculation counters stay plain attributes); a
-``serving`` config asking for one of them raises.
+On an engine built with ``keyed_sampling`` every sampled row draws from
+``fold_in(fold_in(key(seed), uid), position)`` (``sampling.sample_keyed``
+on the fused steps, one call per parameter group on the split path): a
+request's sampled tokens are the same whatever batch, step kind or
+engine draws them, and equal to the JAX scheduler's for the same seed.
+
+``snapshot`` drains the step in flight and writes the scheduler's whole
+state (requests, KV pages, the prefix index, counters, errors) as a
+bundle the JAX package reads too (``snapshot.py``); ``restore`` rebuilds
+it in a fresh scheduler over a fresh engine and resumes tokenwise, and
+``drain_and_snapshot`` is the SIGTERM body with its grace budget.
+
+Not ported yet (ROADMAP Queue 1 items 11i, 12): handoffs, the fault
+injector's poisoned requests, and the telemetry (the speculation
+counters stay plain attributes).
 """
 
 from __future__ import annotations
@@ -68,8 +79,12 @@ import torch
 from .config import ServingOptimizationConfig
 from .engine import InferenceEngineV2
 from .ragged.blocked_allocator import NULL_PAGE, KVAllocationError
-from .sampling import SamplingParams, sample
+from .sampling import SamplingParams, derive_row_keys, sample, sample_keyed
+from .snapshot import (SNAPSHOT_VERSION, SnapshotError,
+                       maybe_install_drain_handler, read_bundle,
+                       write_bundle)
 from .spec import NgramDrafter
+from .threefry import key_from_seed
 
 
 @dataclasses.dataclass
@@ -115,7 +130,8 @@ class RequestError:
     ``"shed"`` (admission control: a full queue, a violated queue-wait
     SLO, or unservable demand), ``"expired"`` (its deadline passed),
     ``"oom"`` (the KV pool stayed exhausted after the degradation
-    ladder) or ``"closing"`` (submitted after ``close``).  ``tokens``
+    ladder), ``"closing"`` (submitted after ``close``) or ``"migrated"``
+    (the drain's grace budget ran out before a snapshot).  ``tokens``
     holds what the request generated before it ended."""
     uid: int
     code: str
@@ -193,7 +209,10 @@ class FastGenScheduler:
     """Drives an InferenceEngineV2 with the SplitFuse policy.  ``seed``
     seeds the ``torch.Generator`` (on the model's device) that the fused
     steps' sampled rows draw from, and the host generator of the split
-    path; greedy-only steps touch neither.  ``serving`` (default: the
+    path; greedy-only steps touch neither.  On a keyed engine it is
+    instead the base key, ``jax.random.key(seed)``, that every row key
+    derives from (never split), so an equal seed draws the JAX
+    scheduler's stream.  ``serving`` (default: the
     engine's) sets the step flags and the degradation knobs for this
     scheduler; its ``kv_quantization`` must be the engine's.  With
     ``DS_KV_DEBUG=1`` in the environment the KV page accounting is
@@ -224,12 +243,19 @@ class FastGenScheduler:
                         engine._config.state_manager.max_ragged_batch_size)
         self._generator = torch.Generator(device=engine.model.device)
         self._generator.manual_seed(seed)
+        #: keyed sampling is fixed when the engine is built (it shapes
+        #: the step inputs): follow the model, not the serving view
+        self._keyed = bool(engine.model.keyed_sampling)
+        #: the base key every row key derives from (int64 [2])
+        self._base_key = key_from_seed(seed).numpy()
         self._inflight: Optional[_Inflight] = None
         self._pending: List[Request] = []     # waiting for first prefill
         self._running: Dict[int, Request] = {}
         self._preempted: Dict[int, Request] = {}  # KV offloaded to host
         self._preempted_this_step = False
         self.last_step_scheduled = 0
+        #: steps taken (a bundle carries it across a restore)
+        self._step_ordinal = 0
         self._max_queue_depth = int(sv.max_queue_depth or 0)
         self._shed_queue_wait_ms = float(sv.shed_queue_wait_ms or 0.0)
         self._default_ttl_s = float(sv.default_ttl_s or 0.0)
@@ -267,6 +293,12 @@ class FastGenScheduler:
         self._spec_committed_cum = 0
         #: drafter switches of "auto", by (from, to)
         self.spec_switches: Counter = Counter()
+        # snapshots: the SIGTERM drain path with its grace budget
+        self._snapshot_grace_s = float(sv.snapshot_grace_s or 0.0)
+        self._snapshot_path = str(sv.snapshot_path or "")
+        if self._snapshot_path:
+            maybe_install_drain_handler(self, self._snapshot_path,
+                                        self._snapshot_grace_s)
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, uid: int, prompt: Sequence[int],
@@ -419,6 +451,14 @@ class FastGenScheduler:
                                               min_q=min_q)
                 in model._step_cache)
 
+    @property
+    def _rng(self):
+        """What a sampling step draws from: the base key on a keyed
+        engine (never split, so the stream does not depend on the step
+        count), else the generator, which greedy-only steps leave as it
+        is."""
+        return self._base_key if self._keyed else self._generator
+
     # -- delivery ------------------------------------------------------------
     def _deliver_token(self, req: Request, tok: int, out: Dict[int, int],
                        on_token) -> bool:
@@ -492,9 +532,13 @@ class FastGenScheduler:
 
     def _dispatch_chain(self, rows) -> _Inflight:
         uids = [u for u, _, _ in rows]
+        # keyed: the chained step samples the token AFTER the one in
+        # flight (that one, not drained yet, is index len(generated))
+        row_pos = ([len(req.generated) + 1 for _, _, req in rows]
+                   if self._keyed else None)
         toks = self._engine.step_decode_chained(
             uids, self._inflight.tokens_dev, [r for _, r, _ in rows],
-            [req.params for _, _, req in rows], self._generator)
+            [req.params for _, _, req in rows], self._rng, row_pos=row_pos)
         self.last_step_scheduled = len(uids)
         return _Inflight.start(
             toks, [(u, i, req) for i, (u, _, req) in enumerate(rows)])
@@ -790,13 +834,19 @@ class FastGenScheduler:
         self._spec_committed_cum += sum(committed)
         return out
 
+    def _spec_row_pos(self, rows) -> Optional[List[int]]:
+        """Keyed: position j of a verify row emits generation index
+        ``len(generated) + j`` (the step folds in the j)."""
+        return ([len(req.generated) for _, req, _, _ in rows]
+                if self._keyed else None)
+
     def _dispatch_spec(self, rows, on_token) -> Dict[int, int]:
         """One verify step of host-drafted rows, read in the same step:
         the [S, 2] int32 verdict is its only copy to the host."""
         verdict = self._engine.step_spec(
             [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
-            [req.params for _, req, _, _ in rows], self._generator,
-            min_q=1 + self._spec_max_draft)
+            [req.params for _, req, _, _ in rows], self._rng,
+            min_q=1 + self._spec_max_draft, row_pos=self._spec_row_pos(rows))
         self.last_step_scheduled = len(rows)
         return self._commit_verdict(rows, verdict.cpu().numpy(), "ngram",
                                     on_token)
@@ -806,8 +856,8 @@ class FastGenScheduler:
         verdict, drafts included, is its only copy to the host."""
         verdict = self._engine.step_draft_spec(
             [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
-            [req.params for _, req, _, _ in rows], self._generator,
-            min_q=1 + self._spec_max_draft)
+            [req.params for _, req, _, _ in rows], self._rng,
+            min_q=1 + self._spec_max_draft, row_pos=self._spec_row_pos(rows))
         self.last_step_scheduled = len(rows)
         return self._commit_verdict(rows, verdict.cpu().numpy(), "model",
                                     on_token)
@@ -851,6 +901,7 @@ class FastGenScheduler:
         """Schedule one ragged batch; returns {uid: new_token} for every
         sequence whose token reached the host this step (under
         ``async_scheduling`` the PREVIOUS step's tokens)."""
+        self._step_ordinal += 1
         out = self._step_impl(on_token)
         if self._kv_debug:
             self._engine.state_manager.check_invariants()
@@ -996,10 +1047,14 @@ class FastGenScheduler:
             # from the generator
             row_params = [r.params if r.prefill_remaining == 0
                           else SamplingParams() for r in reqs]
+            # keyed: a sampled row emits generation index len(generated)
+            # (the draws of mid-prefill rows are ignored)
+            row_pos = ([len(r.generated) for r in reqs] if self._keyed
+                       else None)
             try:
                 toks, rowmap = self._engine.step_sample(
-                    uids, tokens, row_params, self._generator,
-                    do_checks=False)
+                    uids, tokens, row_params, self._rng, do_checks=False,
+                    row_pos=row_pos)
             except KVAllocationError as e:
                 self._degrade_oom(e, advances, new_admits)
                 return out_prev
@@ -1031,8 +1086,13 @@ class FastGenScheduler:
         new_tokens: Dict[int, int] = {}
         for (temp, top_k, top_p), idxs in groups.items():
             rows = torch.tensor(idxs, dtype=torch.long, device=logits.device)
-            toks = sample(logits[rows], self._generator,
-                          temperature=temp, top_k=top_k, top_p=top_p)
+            if self._keyed and temp > 0.0:
+                toks = self._sample_group_keyed(logits[rows],
+                                                [reqs[i] for i in idxs],
+                                                temp, top_k, top_p)
+            else:
+                toks = sample(logits[rows], self._generator,
+                              temperature=temp, top_k=top_k, top_p=top_p)
             for i, t in zip(idxs, toks.tolist()):   # the [g] int32 d2h
                 new_tokens[i] = t
         out = dict(out_prev)
@@ -1040,6 +1100,26 @@ class FastGenScheduler:
             if self._deliver_token(reqs[i], tok, out, on_token):
                 self._finish_request(reqs[i])
         return out
+
+    def _sample_group_keyed(self, logits: torch.Tensor, reqs, temp: float,
+                            top_k: int, top_p: float) -> torch.Tensor:
+        """The split path's keyed draw of one parameter group: each row
+        from its own (uid, position) key, bit-equal to the fused step's
+        draw of the same row."""
+        dev = logits.device
+        n = len(reqs)
+
+        def col(values, dtype):
+            return torch.tensor(values, dtype=dtype, device=dev)
+
+        keys = derive_row_keys(
+            torch.from_numpy(self._base_key).to(dev),
+            col(np.asarray([r.uid for r in reqs], np.int64).astype(np.int32),
+                torch.int32),
+            col([len(r.generated) for r in reqs], torch.int32))
+        return sample_keyed(logits, keys, col([temp] * n, torch.float32),
+                            col([top_k] * n, torch.int32),
+                            col([top_p] * n, torch.float32))
 
     # -- graceful degradation -------------------------------------------------
     def _preempt_largest(self) -> bool:
@@ -1113,6 +1193,227 @@ class FastGenScheduler:
                     f"consecutive allocation failures: {exc})")
                 self._preempted_this_step = True
         self.last_step_scheduled = 0
+
+    # -- snapshots ------------------------------------------------------------
+    @staticmethod
+    def _serialize_request(req: Request, now: float) -> dict:
+        p = req.params
+        return {"uid": int(req.uid),
+                "prompt": np.asarray(req.prompt).tolist(),
+                "prompt_sent": int(req.prompt_sent),
+                "generated": [int(t) for t in req.generated],
+                "prefix_checked": bool(req.prefix_checked),
+                "params": {"temperature": float(p.temperature),
+                           "top_k": int(p.top_k), "top_p": float(p.top_p),
+                           "max_new_tokens": int(p.max_new_tokens),
+                           "stop_token": (None if p.stop_token is None
+                                          else int(p.stop_token))},
+                # a monotonic deadline means nothing in another process:
+                # the remaining budget travels
+                "ttl_remaining_s": (None if req.deadline is None
+                                    else req.deadline - now),
+                "spec_drafted": int(req.spec_drafted),
+                "spec_accepted": int(req.spec_accepted),
+                "spec_state": {
+                    "drafter": req.spec_drafter,
+                    "dry": int(req.spec_dry), "cool": int(req.spec_cool),
+                    "ewma": {k: float(v)
+                             for k, v in (req.spec_ewma or {}).items()},
+                    "ngram": [int(req.spec_drafted_ngram),
+                              int(req.spec_accepted_ngram)],
+                    "model": [int(req.spec_drafted_model),
+                              int(req.spec_accepted_model)]},
+                # the JAX package's request journey; the port keeps none
+                "journey": None}
+
+    def _restore_request(self, d: dict, now: float) -> Request:
+        pr = d["params"]
+        req = Request(
+            uid=int(d["uid"]), prompt=np.asarray(d["prompt"], dtype=np.int32),
+            params=SamplingParams(
+                temperature=float(pr["temperature"]),
+                top_k=int(pr["top_k"]), top_p=float(pr["top_p"]),
+                max_new_tokens=int(pr["max_new_tokens"]),
+                stop_token=(None if pr["stop_token"] is None
+                            else int(pr["stop_token"]))),
+            prompt_sent=int(d["prompt_sent"]),
+            generated=[int(t) for t in d["generated"]],
+            prefix_checked=bool(d["prefix_checked"]), submit_mono=now)
+        req.spec_drafted = int(d.get("spec_drafted", 0))
+        req.spec_accepted = int(d.get("spec_accepted", 0))
+        ss = d.get("spec_state")
+        if ss:
+            req.spec_drafter = str(ss.get("drafter", "") or "")
+            req.spec_dry = int(ss.get("dry", 0))
+            req.spec_cool = int(ss.get("cool", 0))
+            ew = ss.get("ewma") or {}
+            req.spec_ewma = ({str(k): float(v) for k, v in ew.items()}
+                             if ew else None)
+            req.spec_drafted_ngram, req.spec_accepted_ngram = (
+                int(x) for x in ss.get("ngram", (0, 0)))
+            req.spec_drafted_model, req.spec_accepted_model = (
+                int(x) for x in ss.get("model", (0, 0)))
+        ttl = d.get("ttl_remaining_s")
+        if ttl is not None:
+            req.deadline = now + float(ttl)
+            self._has_deadlines = True
+        return req
+
+    @property
+    def _generator_array(self) -> str:
+        """The bundle array of this scheduler's generator state: the
+        port's own name (the JAX package ignores it), one per device
+        type, as a CPU and a CUDA generator keep different states."""
+        return f"torch_generator_{self._generator.device.type}"
+
+    def snapshot(self, path: Optional[str] = None,
+                 on_token: Optional[Callable[[int, int], None]] = None
+                 ) -> dict:
+        """Close admission, drain the step in flight (its tokens go to
+        ``on_token``: a request that completes there is not in the
+        bundle) and serialize what resuming needs: the pending, running
+        and preempted requests, the base key (``rng_key``) and the
+        generator state, every referenced KV page, host blobs, the prefix
+        index in LRU order, counters, the error log, the captured step
+        keys and the draft trunk's digest.  Returns ``{"meta",
+        "arrays"}``; with ``path`` also writes the bundle.  Keyed and
+        greedy requests resume tokenwise in either package; the sampled
+        rows of a non-keyed scheduler resume exactly only in the port,
+        on the same device type."""
+        self.close()
+        self._drain(on_token)
+        now = time.monotonic()
+        eng_meta, arrays = self._engine.state_manager.export_state()
+        arrays["rng_key"] = np.asarray(self._base_key, np.uint32)
+        arrays[self._generator_array] = self._generator.get_state().numpy()
+        meta = {
+            "version": SNAPSHOT_VERSION,
+            "requests": {
+                "pending": [self._serialize_request(r, now)
+                            for r in self._pending],
+                "running": [self._serialize_request(r, now)
+                            for r in self._running.values()],
+                "preempted": [self._serialize_request(r, now)
+                              for r in self._preempted.values()],
+                "handoff_ready": []},
+            "counters": {"step_ordinal": int(self._step_ordinal),
+                         "last_step_scheduled": int(self.last_step_scheduled),
+                         "oom_streak": int(self._oom_streak)},
+            "errors": [dataclasses.asdict(e) for e in self.errors.values()],
+            "engine": eng_meta,
+            # the keys traffic dispatched, captured again up front at
+            # restore; the port serves the power-of-two lattice only
+            "compiled": {"keys": [list(k)
+                                  for k in self._engine.compiled_keys()],
+                         "lattice_digest": ""},
+            "draft_digest": self._engine.draft_digest,
+        }
+        if path is not None:
+            write_bundle(path, meta, arrays)
+        return {"meta": meta, "arrays": arrays}
+
+    def restore(self, bundle) -> "FastGenScheduler":
+        """Rebuild a snapshotted scheduler in this fresh one (over a fresh
+        engine with the same weights and serving config) and resume where
+        it stopped.  ``bundle`` is a path or what ``snapshot()`` returned.
+        The bundle's step keys are captured first when its lattice digest
+        is this engine's (else a warning, and they capture at first use).
+        :class:`SnapshotError` for a corrupt, truncated or other-version
+        bundle, a scheduler that is not fresh, another draft trunk or
+        another KV geometry."""
+        if isinstance(bundle, (str, os.PathLike)):
+            meta, arrays = read_bundle(os.fspath(bundle))
+        else:
+            meta, arrays = bundle["meta"], bundle["arrays"]
+            if meta.get("version") != SNAPSHOT_VERSION:
+                raise SnapshotError(f"unsupported snapshot version "
+                                    f"{meta.get('version')!r}")
+        if (self._pending or self._running or self._preempted
+                or self._inflight is not None or self._closed):
+            raise SnapshotError("restore needs a fresh scheduler (this one "
+                                "has queued work or is closed)")
+        want = meta.get("draft_digest")
+        if want is not None and str(want) != self._engine.draft_digest:
+            raise SnapshotError(
+                f"the snapshot was taken with draft trunk {str(want)!r} but "
+                f"this engine runs {self._engine.draft_digest!r}: restore "
+                "onto an engine with the same spec_drafter and "
+                "spec_draft_layers (a draft trunk's digest is its own "
+                "package's)")
+        self._engine.state_manager.import_state(meta["engine"], arrays)
+        compiled = meta.get("compiled") or {}
+        manifest = compiled.get("keys") or []
+        if manifest:
+            want = str(compiled.get("lattice_digest", "") or "")
+            if want:
+                warnings.warn(
+                    f"restore: the bundle's step keys were recorded under "
+                    f"lattice digest {want!r} and this engine serves the "
+                    "power-of-two lattice: not capturing them up front "
+                    "(they capture at first use)")
+            else:
+                self._engine.precompile_keys(manifest)
+        self._base_key = np.asarray(arrays["rng_key"]).astype(np.int64)
+        state = arrays.get(self._generator_array)
+        if state is not None:
+            self._generator.set_state(torch.as_tensor(np.asarray(state)))
+        now = time.monotonic()
+        reqs = meta["requests"]
+        if reqs.get("handoff_ready"):
+            raise NotImplementedError(
+                "the bundle holds prefill-role handoffs: disaggregated "
+                "serving is not ported yet (ROADMAP Queue 1 item 12)")
+        self._pending = [self._restore_request(d, now)
+                         for d in reqs["pending"]]
+        self._running = {int(d["uid"]): self._restore_request(d, now)
+                         for d in reqs["running"]}
+        self._preempted = {int(d["uid"]): self._restore_request(d, now)
+                           for d in reqs["preempted"]}
+        c = meta["counters"]
+        self._step_ordinal = int(c["step_ordinal"])
+        self.last_step_scheduled = int(c["last_step_scheduled"])
+        self._oom_streak = int(c["oom_streak"])
+        self.errors = {int(e["uid"]): RequestError(
+            uid=int(e["uid"]), code=e["code"], message=e["message"],
+            tokens=[int(t) for t in e["tokens"]]) for e in meta["errors"]}
+        if self._kv_debug:
+            self._engine.state_manager.check_invariants()
+        return self
+
+    def drain_and_snapshot(self, path: str, grace_s: Optional[float] = None,
+                           on_token: Optional[Callable[[int, int], None]]
+                           = None) -> Optional[str]:
+        """The SIGTERM body: close admission, drain the step in flight and
+        snapshot to ``path`` within the grace budget (default
+        ``snapshot_grace_s``).  Returns ``path`` when the bundle was
+        written; when the budget ran out first, or the write failed, every
+        live request ends with a ``"migrated"`` error that keeps its
+        tokens so far, and None is returned: each client gets a verdict
+        either way."""
+        grace = (self._snapshot_grace_s if grace_s is None
+                 else float(grace_s))
+        deadline = time.monotonic() + grace
+        self.close()
+        try:
+            self._drain(on_token)
+        except Exception as e:            # the device may be gone already
+            warnings.warn(f"drain_and_snapshot: drain failed: {e!r}")
+        if time.monotonic() < deadline:
+            try:
+                self.snapshot(path, on_token)
+                return path
+            except Exception as e:
+                warnings.warn(f"drain_and_snapshot: snapshot failed: {e!r}")
+        else:
+            warnings.warn(f"drain_and_snapshot: the grace budget "
+                          f"({grace:.2f}s) ran out before a snapshot")
+        for req in (list(self._pending) + list(self._running.values())
+                    + list(self._preempted.values())):
+            self._fail_request(
+                req, "migrated", f"preemption grace budget ({grace:.2f}s) "
+                "expired before a snapshot could be written "
+                f"({len(req.generated)} partial tokens kept)")
+        return None
 
     def run_to_completion(self) -> Dict[int, List[int]]:
         all_reqs = {r.uid: r for r in self._pending}

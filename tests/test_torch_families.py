@@ -350,14 +350,24 @@ def test_serving_config_fixes_the_reduced_flags():
             spec.spec_draft_layers) == (
         jsv.spec_max_draft, jsv.spec_ngram_min, jsv.spec_drafter,
         jsv.spec_draft_layers) == (3, 2, "ngram", 0)
-    for flag, value, item in [("tp_degree", 2, "item 13"),
-                              ("keyed_sampling", True, "item 3")]:
-        with pytest.raises(NotImplementedError, match=item):
-            T.ServingOptimizationConfig(**{flag: value})
-    # set after construction: the engine's build still refuses it
-    sv.keyed_sampling = True
+    with pytest.raises(NotImplementedError, match="item 13"):
+        T.ServingOptimizationConfig(tp_degree=2)
+    # keyed sampling is served (item 3): it constructs, builds an engine
+    # whose model takes the keyed step inputs, and schedules
+    keyed = T.ServingOptimizationConfig(keyed_sampling=True,
+                                        kv_quantization="int8")
     _, tm = _models("opt")
-    with pytest.raises(NotImplementedError, match="item 3"):
+    eng = T.InferenceEngineV2(tm, T.RaggedInferenceEngineConfig(
+        serving=keyed))
+    assert tm.keyed_sampling
+    sched = T.FastGenScheduler(eng, seed=5)
+    sched.submit(0, [1, 2, 3], T.SamplingParams(max_new_tokens=3,
+                                                temperature=0.9))
+    assert len(sched.run_to_completion()[0]) == 3
+    # set after construction: the engine's build still refuses tp_degree
+    sv.tp_degree = 2
+    _, tm = _models("opt")
+    with pytest.raises(NotImplementedError, match="item 13"):
         T.InferenceEngineV2(tm, T.RaggedInferenceEngineConfig(serving=sv))
 
 
@@ -442,9 +452,13 @@ def test_scheduler_refuses_a_serving_config_the_cache_was_not_built_for():
     assert T.FastGenScheduler(eng)
     with pytest.raises(ValueError, match="fixed at engine build"):
         T.FastGenScheduler(eng, serving=T.ServingOptimizationConfig())
-    sv = T.ServingOptimizationConfig(kv_quantization="int8")
-    sv.keyed_sampling = True
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # keyed sampling is fixed when the engine is built: a scheduler
+    # follows the engine's model, not its own serving view
+    sv = T.ServingOptimizationConfig(kv_quantization="int8",
+                                     keyed_sampling=True)
+    assert not T.FastGenScheduler(eng, serving=sv)._keyed
+    sv.tp_degree = 2
+    with pytest.raises(NotImplementedError, match="item 13"):
         T.FastGenScheduler(eng, serving=sv)
 
 

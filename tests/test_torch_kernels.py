@@ -1592,3 +1592,114 @@ def test_spec_graphs_replay_equal_to_their_eager_bodies(cuda_device,
     assert all(model._step_cache[k] is not None
                for k in model.dispatch_counts)
     eng.state_manager.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# keyed sampling and snapshots on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_keyed_draw_on_the_card_equals_the_cpu_draw(cuda_device):
+    """The keyed draw's integer work (row keys, Threefry bits) is bit-equal
+    on the card and on the CPU, the gumbel noise within 2 ulp of max(|g|,
+    1) (each log within 1 ulp of the other's), and the tokens drawn from
+    the same fp32 logits equal, greedy, temperature, top-k and top-p rows
+    mixed (Llama-2's vocab)."""
+    from deepspeed_tpu_torch.inference.v2 import sampling, threefry
+    rng = np.random.default_rng(0)
+    S, V = 16, 32000
+    logits = _t((rng.standard_normal((S, V)) * 3).astype(np.float32))
+    temps = _t(np.tile(np.array([0.0, 0.8, 1.0, 0.7], np.float32), S // 4))
+    top_ks = _t(np.tile(np.array([0, 0, 50, 0], np.int32), S // 4))
+    top_ps = _t(np.tile(np.array([1.0, 1.0, 1.0, 0.95], np.float32), S // 4))
+    uids = _t(rng.integers(-2 ** 31, 2 ** 31, S).astype(np.int32))
+    pos = _t(rng.integers(0, 4096, S).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        base = threefry.key_from_seed(2 ** 32 + 5, device=dev)
+        keys = sampling.derive_row_keys(base, uids.to(dev), pos.to(dev))
+        out[str(dev)] = dict(
+            keys=keys.cpu(), bits=threefry.random_bits(keys, V).cpu(),
+            gumbel=threefry.gumbel(keys, V).cpu(),
+            tokens=sampling.sample_keyed(
+                logits.to(dev), keys, temps.to(dev), top_ks.to(dev),
+                top_ps.to(dev)).cpu())
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert torch.equal(cpu["keys"], card["keys"])
+    assert torch.equal(cpu["bits"], card["bits"])
+    g = cpu["gumbel"].numpy()
+    spacing = np.spacing(np.maximum(np.abs(g), 1.0).astype(np.float32))
+    assert (np.abs(g - card["gumbel"].numpy()) / spacing).max() <= 2.0
+    assert torch.equal(cpu["tokens"], card["tokens"])
+
+
+@pytest.mark.cuda
+def test_keyed_graphs_serve_the_eager_keyed_tokens(cuda_device):
+    """The default serving configuration with keyed sampling on the card:
+    the graphs' tokens equal the same scheduler's over a model that runs
+    its step bodies eagerly, every sampling step was a replay, and no
+    graph drew from the generator."""
+    T, engine = _graph_llama(cuda_device)
+    prompts = _graph_prompts()
+
+    def serve(eng):
+        sched = T.FastGenScheduler(eng, seed=5)
+        state = sched._generator.get_state()
+        for uid, p in enumerate(prompts):
+            sched.submit(uid, p, T.SamplingParams(
+                max_new_tokens=12, temperature=0.8 * (uid % 2), top_k=40))
+        out = sched.run_to_completion()
+        assert torch.equal(sched._generator.get_state(), state)
+        return out
+
+    eager = engine(keyed_sampling=True)
+    eager.model._new_step = lambda key, kv, inputs=None: None
+    eng = engine(keyed_sampling=True)
+    assert serve(eng) == serve(eager)
+    model = eng.model
+    assert all(model._step_cache[k] is not None
+               for k in model.dispatch_counts)
+    assert not any(g.stochastic for g in model._step_cache.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_snapshot_pages_export_and_import_bit_equal_on_the_card(cuda_device,
+                                                               pages):
+    """A state manager's pages at Llama-2-7B's geometry (32 layers, 32 kv
+    heads of 128, 64-token pages): exported to a bundle on the host and
+    imported into a fresh manager on the card, every referenced page bit
+    for bit (codes and scales alike), shared pages shared again."""
+    from deepspeed_tpu_torch.inference.v2 import ragged as TR
+    from deepspeed_tpu_torch.inference.v2 import snapshot as tsnap
+    cfg = TR.KVCacheConfig(num_layers=32, kv_heads=32, head_dim=128,
+                           page_size=64, num_pages=24,
+                           quantization="int8" if pages == "int8" else "none")
+    src = TR.StateManager(cfg, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for t in src.kv_cache._stores():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=cuda_device, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda_device))
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, 32000, 200).astype(np.int32)
+    for uid in (0, 1):
+        sd = src.get_or_create_sequence(uid)
+        src.match_prefix(sd, prompt)
+        src.allocate_for(sd, 200)
+        sd.pre_forward(200)
+        sd.post_forward()
+        src.index_prefix(sd)
+    meta, arrays = src.export_state()
+    data = tsnap.pack_bundle(dict(meta=meta, version=1), arrays)
+    m, a = tsnap.unpack_bundle(data)
+    dst = TR.StateManager(cfg, cuda_device)
+    dst.import_state(m["meta"], a)
+    dst.check_invariants()
+    for uid in (0, 1):
+        old, new = src.get_sequence(uid).pages, dst.get_sequence(uid).pages
+        for so, sn in zip(src.kv_cache._stores(), dst.kv_cache._stores()):
+            assert torch.equal(so[:, old], sn[:, new])
+    assert dst.get_sequence(1).pages[:3] == dst.get_sequence(0).pages[:3]
