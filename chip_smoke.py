@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
 1. card and software: ``nvidia-smi`` name and power limit, torch / CUDA;
 2. build: every hand-written kernel of the serving and training paths
    from ``deepspeed_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel);
+   parallel) into the serving compile cache's directory
+   (``build/compile_cache/<digest>``);
 3. each kernel against its plain PyTorch version at the shapes its path
    gives it (bf16; the optimizers and the quantiser's input in fp32):
    error relative to the case's own reference scale against stated
@@ -26,7 +27,9 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    kernels' durations per call from torch.profiler over 200 calls);
    the paged kernel also at the speculative verify shapes (Q=4: Llama
    S=16, H=K=32, the split-KV path; Mistral H=32, K=8, window 4096 over
-   contexts to 8192, the tile);
+   contexts to 8192, the tile); the serving kernels also at the Q tops
+   ``fit_buckets`` fits to phase 6g's prompt lengths (flash at B=2, the
+   paged kernel over bf16 and int8 pages at S=2, the norms at N = 2·Q);
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens) in the default serving
    configuration (one CUDA graph per step key, the async chained decode,
@@ -118,6 +121,29 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    teacher-forced keyed agreement held to its floor); bundle bytes and
    pages, snapshot, write, read and restore ms, write GB/s and the first
    token after the restore beside a pinned ``copy_`` of the page bytes;
+6g. a mined bucket lattice: the same weights on 256 pages with phase 4's
+   settings serve 10 requests (prompts of 1040-1100 and 300-340 tokens,
+   64 new) as phase 4 with the workload trace on; the trace is mined into
+   an artifact; a fresh engine under ``lattice="auto:<artifact>"``
+   captures the lattice's keys, then serves the traffic as phase 4 (the
+   timed pass captures nothing, launch counts exact); graphs, capture
+   seconds, pool bytes, prompt tokens against prefill rows computed, TTFT,
+   decode ms and the captures on the request path of both; the mined
+   engine's greedy tokens teacher-forced through the power engine's eager
+   forward (held to the floor);
+6h. the host/disk page tier: the same weights on 48 pages with a 64-page
+   host ring and 64 pages of disk files, two sequences at a time, 10
+   greedy requests with distinct 1024-token prefixes and 64-token tails
+   (32 new tokens) served twice on one scheduler (the second wave
+   reversed), the page and tier audit after every step: every promoted
+   page bit-equal to its device bytes at demotion, wave-2 hits from the
+   host and the disk, wave-2 launch counts exact, wave-2 tokens
+   teacher-forced (held to the floor); demote and promote ms a page, the
+   disk's GB/s, the wait for demotion's copies against a pinned
+   ``copy_``;
+6i. graph warmth: a child process with ``DS_COMPILE_CACHE`` at phase 2's
+   directory loads every kernel library it needs and builds none; the
+   seconds from its start to its first token;
 7. the same weights with the registry pinned to the plain versions:
    ten teacher-forced serving steps of 3 requests on the eager forward
    (fresh prefill, decode, and two mixed steps, one with a Q=1024 prefill
@@ -129,6 +155,8 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    (``kv_quantization="int8"``), as phase 4, with exact launch counts:
    LayerNorm and the int8 paged kernel run, RMSNorm and the bf16 paged
    kernel do not;
+8a. phase 6h's checks over OPT-6.7B's int8 pages (24 pages, an 8-page
+   host ring, 16 pages of disk, 6 requests with 512-token prefixes);
 9. the OPT weights on the plain path, both paths over int8 pages, the
    teacher-forced steps of phase 7, logits per segment compared; and the
    kernel path over bf16 pages, for the greedy agreement of int8 pages
@@ -514,16 +542,18 @@ def _norm_inputs(dev, g, n, e=4096):
     return x, w, b
 
 
-def check_layernorm(dev):
+def check_layernorm(dev, mined_q=()):
     """N=16: the serving decode step's rows; N=4096: a full prefill
-    budget.  The last case's rows have a mean (1000) far above their
-    spread, where a one-pass variance would cancel."""
+    budget.  The third case's rows have a mean (1000) far above their
+    spread, where a one-pass variance would cancel.  Then N = 2 * Q for
+    each mined Q top (two prompts' rows at a mined bucket)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import normalization as N
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     rows = []
-    for n, mean in ((16, 0.0), (4096, 0.0), (4096, 1000.0)):
+    for n, mean in ((16, 0.0), (4096, 0.0), (4096, 1000.0)) + tuple(
+            (2 * q, 0.0) for q in mined_q):
         x, w, b = _norm_inputs(dev, g, n)
         if mean:
             x = (mean + 0.85 * x.float()).bfloat16()
@@ -533,7 +563,8 @@ def check_layernorm(dev):
         wb, bb = w.bfloat16(), b.bfloat16()
         b_ms, b_by = bound(2 * n * e * 2 + 2 * e * 4, 8 * n * e)
         rows.append(dict(
-            shape=f"N={n} E={e}" + (f" row mean {mean:g}" if mean else ""),
+            shape=f"N={n} E={e}" + (f" row mean {mean:g}" if mean else "")
+            + (" (mined Q)" if n in [2 * q for q in mined_q] else ""),
             **err,
             ms=cuda_ms(lambda: N.layernorm(x, w, b, 1e-5), 200),
             plain_ms=cuda_ms(lambda: N.layernorm_reference(x, w, b, 1e-5),
@@ -587,16 +618,17 @@ def check_rmsnorm_res(dev):
     return rows
 
 
-def check_rmsnorm(dev):
+def check_rmsnorm(dev, mined_q=()):
     """N=8: the Llama serving decode step's rows (first: the main path's
     shape); N=1: one request decoding; N=16: the OPT decode step's row
-    count; N=1024 and N=4096: prefill chunks."""
+    count; N=1024 and N=4096: prefill chunks; N = 2 * Q for each mined Q
+    top."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import normalization as N
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for n in (8, 1, 16, 1024, 4096):
+    for n in (8, 1, 16, 1024, 4096) + tuple(2 * q for q in mined_q):
         e = 4096
         x = torch.randn(n, e, generator=g, device=dev, dtype=torch.bfloat16)
         w = torch.rand(e, generator=g, device=dev) + 0.5
@@ -604,7 +636,9 @@ def check_rmsnorm(dev):
         wb = w.bfloat16()
         b_ms, b_by = bound(2 * n * e * 2 + e * 4, 4 * n * e)
         rows.append(dict(
-            shape=f"N={n} E={e}", **err,
+            shape=f"N={n} E={e}" + (
+                " (mined Q)" if n in [2 * q for q in mined_q] else ""),
+            **err,
             ms=cuda_ms(lambda: N.rmsnorm(x, w, 1e-5), 200),
             plain_ms=cuda_ms(lambda: N.rmsnorm_reference(x, w, 1e-5), 50),
             library_ms=cuda_ms(lambda: F.rms_norm(x, (e,), wb, 1e-5), 200),
@@ -675,10 +709,12 @@ def _sdpa_paged(q, kv, table, start, slopes, window):
         qt, k, v, attn_mask=mask, enable_gqa=K != H)
 
 
-def check_paged(dev, int8=False):
+def check_paged(dev, int8=False, mined_q=()):
     """The paged kernel over bf16 pages or, with ``int8``, over int8
     codes with per-(token, kv head) scales quantised from the same
-    N(0, 1) pages."""
+    N(0, 1) pages; also two slots' continued prefill chunks at each
+    mined Q top (neither a multiple of 64 nor of the tile's 16-row
+    block)."""
     import torch
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops import paged_attention as PA
@@ -701,6 +737,8 @@ def check_paged(dev, int8=False):
              # window
              ("spec verify", 16, 4, 32, 32, None, False),
              ("Mistral spec verify", 16, 4, 32, 8, 4096, False)]
+    cases += [(f"mined prefill chunk Q={q}", 2, q, 32, 32, None, False)
+              for q in mined_q]
     ctx_of = {"Mistral spec verify": 8192}
     # the int8 cases quantise the very pages, tables and positions of the
     # bf16 cases (every case draws, fewer run)
@@ -783,22 +821,24 @@ def _sdpa_forward(q, k, v, window):
                                                   enable_gqa=gqa)
 
 
-def check_flash(dev):
+def check_flash(dev, mined_q=()):
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as FA
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     # the serving case (contiguous [B, H, S, D]) first, then the training
     # shape as the training forward passes it ([B, S, H, D] views), an
-    # uneven S, GQA and a window at the training width
+    # uneven S, GQA and a window at the training width, and a fresh
+    # prefill of two prompts at each mined Q top (contiguous, as serving)
     cases = [("", 4, 1024, 32, None),
              ("training: ", 2, TRAIN_SEQ, 32, None),
              ("uneven S=1000: ", 2, 1000, 32, None),
              ("GQA: ", 2, TRAIN_SEQ, 8, None),
              ("window 512: ", 2, TRAIN_SEQ, 32, 512)]
+    cases += [(f"mined Q={q}: ", 2, q, 32, None) for q in mined_q]
     for name, B, S, K, window in cases:
         H, D = 32, 128
-        if name:
+        if name and not name.startswith("mined"):
             q, k, v = (_bshd(dev, g, B, S, n) for n in (H, K, K))
         else:
             q, k, v = (torch.randn(B, n, S, D, generator=g, device=dev,
@@ -1213,9 +1253,12 @@ def check_lamb(dev, cfg):
 # ---------------------------------------------------------------------------
 
 def build_engine(cfg, params, num_pages, implementations=None,
-                 kv_quantization="none", model_type="llama", **serving):
+                 kv_quantization="none", model_type="llama",
+                 state_manager=None, **serving):
     """The family's model class -> engine, as a user builds them;
-    ``serving`` sets ServingOptimizationConfig's other fields."""
+    ``serving`` sets ServingOptimizationConfig's other fields and
+    ``state_manager`` StateManagerConfig's (16 sequences and a 2048-token
+    budget by default)."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import (
         InferenceEngineV2, KVCacheConfig, RaggedInferenceEngineConfig,
@@ -1227,9 +1270,9 @@ def build_engine(cfg, params, num_pages, implementations=None,
         cfg, params, kv_config=kv_cfg, device="cuda",
         implementations=implementations)
     econf = RaggedInferenceEngineConfig(
-        state_manager=StateManagerConfig(
-            max_tracked_sequences=16, max_ragged_sequence_count=16,
-            max_ragged_batch_size=2048),
+        state_manager=StateManagerConfig(**dict(
+            dict(max_tracked_sequences=16, max_ragged_sequence_count=16,
+                 max_ragged_batch_size=2048), **(state_manager or {}))),
         serving=ServingOptimizationConfig(kv_quantization=kv_quantization,
                                           **serving))
     return InferenceEngineV2(model, econf)
@@ -2979,6 +3022,10 @@ def snapshot_phase(cfg, params, counters, card):
                first_token_ms_after_restore=(first[0] * 1e3 if first
                                              else None),
                resumed_run_s=resume_s, keys_captured_resuming=len(captured),
+               # the first step after a restore runs on the host path and
+               # forms a decode key the chained run never dispatched (the
+               # JAX scheduler compiles the same key there)
+               keys_captured_resuming_list=sorted(map(repr, captured)),
                pages_checked=pages_checked, pages_bit_equal=not pages_unequal,
                pinned_copy_yardstick=copy_yardstick(page_bytes),
                free_running=free, parted_logits=witness,
@@ -2998,6 +3045,499 @@ def snapshot_phase(cfg, params, counters, card):
     gc.collect()
     torch.cuda.empty_cache()
     return res, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: a mined bucket lattice; phase 6h: the host/disk page tier;
+# graph warmth across processes
+# ---------------------------------------------------------------------------
+
+LATTICE_MODES = ((1040, 1101), (300, 341))   # prompt lengths, two modes
+LATTICE_BATCH = 2048         # phase 4's token budget, the miner's too
+TIER_PAGES = 48              # 6h's device pool: 1.61 GB of Llama pages
+TIER_HOST, TIER_DISK = 64, 64
+TIER_PREFIX, TIER_SUFFIX, TIER_NEW = 1024, 64, 32
+TIER_REQUESTS = 10
+
+
+def lattice_requests(cfg, seed=SEED + 13):
+    """6g's traffic: phase 4's shape (10 requests, 64 new tokens, uids 8
+    and 9 sampled) with prompts from two modes, alternating."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    rng = np.random.default_rng(seed)
+    reqs = {}
+    for uid in range(10):
+        lo, hi = LATTICE_MODES[uid % 2]
+        sampled = uid >= 8
+        reqs[uid] = (rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi))),
+                     SamplingParams(max_new_tokens=64,
+                                    temperature=0.8 if sampled else 0.0,
+                                    top_p=0.9 if sampled else 1.0))
+    return reqs
+
+
+def mined_q_tops(cfg):
+    """The Q tops ``fit_buckets`` fits to 6g's prompt lengths: the shapes
+    phase 3 adds for the serving kernels."""
+    from deepspeed_tpu_torch.inference.v2.lattice import fit_buckets
+    return fit_buckets([len(p) for p, _ in lattice_requests(cfg).values()])
+
+
+def prefill_rows(dispatches):
+    """Rows the prefill segments of ``dispatches`` ({key: n}) computed,
+    padding included: S * Q of every segment with Q > 1."""
+    rows = 0
+    for key, n in dispatches.items():
+        for _, S, Q, _, _ in key_segments(key, 1):
+            if Q > 1:
+                rows += n * S * Q
+    return rows
+
+
+def lattice_phase(cfg, params, counters, card):
+    """A mined bucket lattice at full width: the Llama-2-7B weights on
+    256 pages with phase 4's engine settings serve 6g's traffic
+    (``two_passes``) on the power-of-two lattice with the workload trace
+    on; the trace is mined (``mine_lattice``, ``write_artifact``); a fresh
+    engine with ``lattice="auto:<artifact>"`` captures the lattice's keys
+    up front (``precompile(sampling=True)``) and serves the same traffic
+    (``two_passes``: the timed pass captures nothing, launch counts
+    exact).  Strict shapes are not set: a fresh step of several prompts
+    pads S * Q past the token budget, a key the enumeration leaves out
+    in both packages, so it is captured in the warm-up pass and
+    counted.  The mined engine's greedy tokens teacher-forced through
+    the power engine's eager forward are held to GREEDY_AGREE_MIN.
+    Reports for both: graphs, capture seconds and pool bytes, prompt
+    tokens against prefill rows computed, TTFT mean, decode step ms and
+    the captures on the request path.  Returns (summary, launches)."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import lattice as LAT
+    from deepspeed_tpu_torch.telemetry.workload_trace import (
+        get_workload_trace)
+    reqs = lattice_requests(cfg)
+    prompt_tokens = sum(len(p) for p, _ in reqs.values())
+    res = dict(card=card, model="llama mined lattice",
+               prompt_lens=[len(p) for p, _ in reqs.values()],
+               prompt_tokens=prompt_tokens)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.jsonl")
+        get_workload_trace().configure(trace)
+        try:
+            power = build_engine(cfg, params, num_pages=256)
+            p_sum, _, p_gen, p_disp = two_passes(
+                power, reqs, cfg, counters, card, "llama, power lattice")
+        finally:
+            get_workload_trace().close()
+        t = time.perf_counter()
+        art = LAT.mine_lattice(LAT.load_trace_facts(trace),
+                               max_ragged_batch_size=LATTICE_BATCH,
+                               source=trace)
+        path = LAT.write_artifact(art, os.path.join(tmp, "lattice.json"))
+        mine_ms = (time.perf_counter() - t) * 1e3
+        mined = build_engine(cfg, params, num_pages=256,
+                             lattice=f"auto:{path}")
+    model = mined.model
+    t = time.perf_counter()
+    keys = mined.precompile(max_prompt=max(res["prompt_lens"]),
+                            sampling=True)
+    torch.cuda.synchronize()
+    precompile_s = time.perf_counter() - t
+    path_before = {}
+
+    def before_pass(name):
+        path_before[name] = model.path_captures
+    m_sum, launches, m_gen, m_disp = two_passes(
+        mined, reqs, cfg, counters, card, "llama, mined lattice",
+        before_pass=before_pass)
+    warm_path = path_before["timed"] - path_before["warm-up"]
+    timed_path = model.path_captures - path_before["timed"]
+    greedy = {u: r for u, r in reqs.items() if r[1].temperature <= 0.0}
+    agree, _, _ = teacher_forced_agreement(
+        power, greedy, m_gen, uid_base=9000, parted={})
+
+    def report(summary, disp, eng):
+        return dict(graphs=summary["warm_up_pass"]["graphs"],
+                    capture_s=summary["warm_up_pass"]["capture_s"],
+                    pool_bytes=summary["warm_up_pass"]["pool_bytes"],
+                    prefill_rows=prefill_rows(disp),
+                    ttft_ms_mean=summary["ttft_ms_mean"],
+                    decode_step_ms_median=summary["decode_step_ms_median"],
+                    tail_tok_s=summary["tail_tok_s"],
+                    steps=summary["steps"],
+                    keys_dispatched=summary["keys_dispatched"],
+                    launch_checks=summary["launch_checks"],
+                    path_captures=eng.model.path_captures)
+    res.update(
+        power=report(p_sum, p_disp, power),
+        mined=dict(report(m_sum, m_disp, mined),
+                   precompiled_keys=len(keys), precompile_s=precompile_s,
+                   warm_up_path_captures=warm_path,
+                   timed_path_captures=timed_path),
+        artifact=dict(s=art["s_buckets"], q=art["q_buckets"],
+                      p=art["p_buckets"], keys=len(art["keys"]),
+                      requests=art["requests"],
+                      dispatches=art["dispatches"], mine_ms=mine_ms,
+                      digest=mined.lattice_digest),
+        free_running_agreement=[
+            float(sum(a == b for a, b in zip(m_gen[u], p_gen[u]))
+                  / len(p_gen[u])) for u in greedy],
+        greedy_agreement_teacher_forced=agree, greedy_min=GREEDY_AGREE_MIN)
+    log("llama mined lattice:", json.dumps(res))
+    if timed_path:
+        raise RuntimeError(f"mined lattice: the timed pass captured "
+                           f"{timed_path} keys")
+    if not any(q & (q - 1) for q in mined.lattice.q_tops):
+        raise RuntimeError(f"mined lattice: no mined Q top "
+                           f"{mined.lattice.q_tops}")
+    if min(agree) < GREEDY_AGREE_MIN:
+        raise RuntimeError(f"mined lattice: greedy agreement with the power "
+                           f"lattice {min(agree):.3f} < {GREEDY_AGREE_MIN}")
+    del power, mined, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def tier_requests(cfg, n, prefix, suffix, new_tokens, seed=SEED + 17):
+    """Greedy requests each with a distinct ``prefix``-token prefix (a
+    shared one would keep one chain parked on the device and the tier
+    would never engage) and a ``suffix``-token tail."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    rng = np.random.default_rng(seed)
+    return {u: (rng.integers(0, cfg.vocab_size, prefix + suffix),
+                SamplingParams(max_new_tokens=new_tokens))
+            for u in range(n)}
+
+
+def tier_phase(cfg, params, counters, card, label="llama",
+               model_type="llama", kv_quantization="none",
+               num_pages=TIER_PAGES, host=TIER_HOST, disk=TIER_DISK,
+               n=TIER_REQUESTS, prefix=TIER_PREFIX, suffix=TIER_SUFFIX,
+               new_tokens=TIER_NEW):
+    """The host/disk page tier at full width: an engine on ``num_pages``
+    pages with ``kv_tier_host_pages=host``, ``kv_tier_disk_pages=disk``
+    (files in a temporary directory) and two sequences at a time (the
+    pool holds two sequences' pages and a page of headroom each:
+    admitted sequences pin their matched pages) serves ``n`` greedy
+    requests with distinct prefixes twice on one scheduler (the second
+    wave in reverse order), the page and tier audit after every step.  Every evicted page's device bytes
+    are kept at demotion; every promoted page read back bit-equal to
+    them.  Wave 2 must hit the host and the disk; its launch counts
+    are held to its keys' segments (a key captured in it adds its eager
+    warm-up run); its tokens, teacher-forced on the eager forward, to
+    GREEDY_AGREE_MIN.  Reports demote and promote ms a page, the host
+    copies and the disk's GB/s against a pinned ``copy_`` of a page, the
+    host's wait for demotion's copies (the chain stall) and hit tokens by
+    tier.  Returns (summary, launches of wave 2)."""
+    import gc
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import PageBlob
+    reqs = tier_requests(cfg, n, prefix, suffix, new_tokens)
+    tmp = tempfile.TemporaryDirectory()
+    engine = build_engine(
+        cfg, params, num_pages=num_pages, model_type=model_type,
+        kv_quantization=kv_quantization,
+        state_manager=dict(max_tracked_sequences=2,
+                           max_ragged_sequence_count=2),
+        kv_tier_host_pages=host, kv_tier_disk_pages=disk,
+        kv_tier_dir=tmp.name)
+    state = engine.state_manager
+    store, cache = state.tiers, state.kv_cache
+    stores = cache._stores()
+    from deepspeed_tpu_torch.inference.v2.ragged import manager as MGR
+    times = {k: 0.0 for k in ("demote", "promote", "read_pages", "write",
+                              "read", "split", "concat", "restore",
+                              "demote_in_promote")}
+    counts = {k: 0 for k in ("demote_calls", "demote_pages",
+                             "promote_pages", "write_bytes", "read_bytes",
+                             "verified", "unequal")}
+    saved = {}                 # digest -> the device bytes at demotion
+    taken = []
+    in_promote = []
+
+    def sync_timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name] += time.perf_counter() - t
+            return out
+        return run
+
+    demote, promote = state._demote, state._promote_chain
+    read_pages = cache.read_pages
+    write_file, read_file = store._write_file, store._read_file
+
+    def demote_kept(entries):
+        for d, p in entries:
+            saved[d] = [s[:, p].clone() for s in stores]
+        counts["demote_calls"] += 1
+        counts["demote_pages"] += len(entries)
+        before = times["demote"]
+        out = sync_timed("demote", demote)(entries)
+        if in_promote:       # a promotion's ensure_free demoted these
+            times["demote_in_promote"] += times["demote"] - before
+        return out
+
+    def host_timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            times[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def take_recorded(digests):
+        blobs, tiers = take_many(digests)
+        taken[:] = digests[:len(blobs)]
+        return blobs, tiers
+
+    def promote_checked(*a):
+        taken.clear()
+        in_promote.append(1)
+        try:
+            pages, cursor = sync_timed("promote", promote)(*a)
+        finally:
+            in_promote.clear()
+        counts["promote_pages"] += len(pages)
+        for d, p in zip(taken, pages):
+            want = saved.pop(d)
+            counts["verified"] += 1
+            counts["unequal"] += not all(
+                torch.equal(s[:, p], w) for s, w in zip(stores, want))
+        return pages, cursor
+
+    def write_timed(path, parts):
+        counts["write_bytes"] += sum(t.nbytes for t in parts)
+        return sync_timed("write", write_file)(path, parts)
+
+    def read_timed(meta):
+        counts["read_bytes"] += meta.nbytes
+        return sync_timed("read", read_file)(meta)
+
+    def read_pages_timed(pages):
+        t = time.perf_counter()
+        out = read_pages(pages)
+        times["read_pages"] += time.perf_counter() - t   # enqueue + alloc
+        return out
+
+    take_many = store.take_many
+    state._demote, state._promote_chain = demote_kept, promote_checked
+    store.take_many = take_recorded
+    store._write_file, store._read_file = write_timed, read_timed
+    cache.read_pages = read_pages_timed
+    split, concat = MGR.blob_columns, MGR.concat_blobs
+    restore_pages = cache.restore_pages
+    MGR.blob_columns = host_timed("split", split)
+    MGR.concat_blobs = host_timed("concat", concat)
+    cache.restore_pages = sync_timed("restore", restore_pages)
+    hits = {}
+    tier_hits = engine.tier_hits
+
+    def hits_recorded(uid):
+        hits[uid] = tier_hits(uid)
+        return hits[uid]
+    engine.tier_hits = hits_recorded
+    sched = FastGenScheduler(engine, seed=SEED)
+    model = engine.model
+    tokens = {}
+    wave_s = []
+    launches = None
+    for wave in (0, 1):
+        if wave:
+            keys_before = set(model._step_cache)
+            before = dict(model.dispatch_counts)
+            reset_launches(counters)
+        # wave 2 in reverse order: the last requests of wave 1 find their
+        # pages still parked on the device or in the host ring, the first
+        # ones on the disk
+        for u in (sorted(reqs, reverse=True) if wave else sorted(reqs)):
+            sched.submit(wave * 100 + u, *reqs[u])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        while sched.has_work:
+            out = sched.step()
+            for u, tok in out.items():
+                tokens.setdefault(u, []).append(tok)
+            state.check_invariants()
+            if sched.last_step_scheduled == 0 and not out \
+                    and not sched._preempted_this_step:
+                raise RuntimeError(f"{label} tier phase: stalled")
+        torch.cuda.synchronize()
+        wave_s.append(time.perf_counter() - t)
+    launches = read_launches(counters)
+    counted = {k: c - before.get(k, 0) for k, c in
+               model.dispatch_counts.items() if c != before.get(k, 0)}
+    captured = set(model._step_cache) - keys_before
+    for k in captured:                 # a capture's eager warm-up run
+        counted[k] = counted.get(k, 0) + 1
+    checks = launch_checks(cfg, kv_quantization, launches,
+                           segment_counts(cfg, counted))
+    by_tier = {w: {t: sum((hits.get(w * 100 + u) or {}).get(t, 0)
+                          for u in reqs) for t in ("device", "host", "disk")}
+               for w in (0, 1)}
+    for u, (_, sp) in reqs.items():
+        for w in (0, 1):
+            if len(tokens.get(w * 100 + u, [])) != sp.max_new_tokens:
+                raise RuntimeError(f"{label} tier phase: request {u} wave "
+                                   f"{w} did not complete")
+    wave2 = {u: tokens[100 + u] for u in reqs}
+    agree = []
+    engine.reset_prefix_cache()
+    for pair in range(0, n, 2):       # two sequences' pages at a time
+        sub = {u: reqs[u] for u in list(reqs)[pair:pair + 2]}
+        agree += teacher_forced_agreement(engine, sub, wave2,
+                                          uid_base=5000 + pair * 10,
+                                          parted={})[0]
+    st = store.stats()
+    MGR.blob_columns, MGR.concat_blobs = split, concat
+    page_bytes = cache.cfg.bytes_per_page
+    demoted_bytes = counts["demote_pages"] * page_bytes
+    promoted_bytes = counts["promote_pages"] * page_bytes
+    promote_own = times["promote"] - times["demote_in_promote"]
+
+    def per_page(seconds, pages):
+        return 1e3 * seconds / pages if pages else None
+
+    def gb_s(n_bytes, seconds):
+        return n_bytes / seconds / 1e9 if seconds > 0 else None
+    res = dict(
+        card=card, model=f"{label} tier", kv_pages=kv_quantization,
+        kv_pool_pages=num_pages, tier_host_pages=host, tier_disk_pages=disk,
+        requests=n, prompt_tokens=prefix + suffix, new_tokens=new_tokens,
+        page_bytes=page_bytes, tier=st, wave_s=wave_s,
+        hit_tokens_by_tier={"wave_1": by_tier[0], "wave_2": by_tier[1]},
+        demote_calls=counts["demote_calls"],
+        demote_ms_a_page=per_page(times["demote"], counts["demote_pages"]),
+        # a demotion's parts: the blob's allocation and the copies'
+        # enqueue, the host's wait for the copies (the chain stall: the
+        # stream may still run a step), one page's host copy out of the
+        # batch blob each, and the host ring's overflow written to disk
+        demote_parts_ms_a_page=dict(
+            read_pages_enqueue=per_page(times["read_pages"],
+                                        counts["demote_pages"]),
+            chain_stall=per_page(state.demote_wait_s,
+                                 counts["demote_pages"]),
+            split_host_copy=per_page(times["split"],
+                                     counts["demote_pages"]),
+            disk_spill=per_page(times["write"], counts["demote_pages"])),
+        demote_host_gb_s=gb_s(demoted_bytes,
+                              times["demote"] - times["write"]),
+        chain_stall_ms=1e3 * state.demote_wait_s,
+        # a promotion, less the demotions its ensure_free made
+        promote_ms_a_page=per_page(promote_own, counts["promote_pages"]),
+        promote_parts_ms_a_page=dict(
+            disk_read=per_page(times["read"], counts["promote_pages"]),
+            concat_host_copy=per_page(times["concat"],
+                                      counts["promote_pages"]),
+            restore_h2d=per_page(times["restore"],
+                                 counts["promote_pages"])),
+        promote_gb_s=gb_s(promoted_bytes, promote_own),
+        restore_h2d_gb_s=gb_s(promoted_bytes, times["restore"]),
+        disk_write_gb_s=gb_s(counts["write_bytes"], times["write"]),
+        disk_read_gb_s=gb_s(counts["read_bytes"], times["read"]),
+        pinned_copy_yardstick=copy_yardstick(page_bytes),
+        promoted_pages_verified=counts["verified"],
+        promoted_pages_unequal=counts["unequal"],
+        free_running_wave2_vs_wave1=[
+            float(sum(a == b for a, b in zip(tokens[100 + u], tokens[u]))
+                  / len(tokens[u])) for u in reqs],
+        greedy_agreement_teacher_forced=agree, greedy_min=GREEDY_AGREE_MIN,
+        wave_2_keys_captured=len(captured), launches=launches,
+        launch_checks=checks)
+    log(f"{label} host/disk page tier:", json.dumps(res))
+    if counts["unequal"] or counts["verified"] != st["promoted_pages"] \
+            or not counts["verified"]:
+        raise RuntimeError(f"{label} tier phase: {counts['unequal']} of "
+                           f"{counts['verified']} promoted pages differ "
+                           f"({st['promoted_pages']} promoted)")
+    if not (by_tier[1]["host"] and by_tier[1]["disk"]):
+        raise RuntimeError(f"{label} tier phase: wave 2 hits {by_tier[1]}: "
+                           "none from the host or none from the disk")
+    if st["io_errors"]:
+        raise RuntimeError(f"{label} tier phase: {st['io_errors']} I/O "
+                           "errors")
+    if not all(checks.values()):
+        raise RuntimeError(f"{label} tier phase launch counts: {checks}")
+    if min(agree) < GREEDY_AGREE_MIN:
+        raise RuntimeError(f"{label} tier phase: teacher-forced agreement "
+                           f"{min(agree):.3f} < {GREEDY_AGREE_MIN}")
+    state.close()
+    del engine, sched, state, store, cache, stores, saved, model
+    tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+WARMTH_CHILD = r"""
+import json, sys, time
+t0 = float(sys.argv[1])
+import torch
+from deepspeed_tpu_torch.inference.v2 import (
+    FastGenScheduler, InferenceEngineV2, KVCacheConfig,
+    RaggedInferenceEngineConfig, RaggedInferenceModel, SamplingParams)
+from deepspeed_tpu_torch.models.llama import llama_config
+from deepspeed_tpu_torch.models.transformer import init_params
+from deepspeed_tpu_torch.ops import kernel_loader
+cfg = llama_config("7b")
+params = init_params(cfg, seed=0, device="cuda")
+torch.cuda.synchronize()
+t_weights = time.time()
+kv = KVCacheConfig(num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
+                   head_dim=cfg.dims_per_head, page_size=64, num_pages=16,
+                   dtype=torch.bfloat16)
+engine = InferenceEngineV2(RaggedInferenceModel(cfg, params, kv_config=kv,
+                                                device="cuda"),
+                           RaggedInferenceEngineConfig())
+sched = FastGenScheduler(engine)
+sched.submit(0, list(range(1, 129)), SamplingParams(max_new_tokens=2))
+first = None
+while sched.has_work:
+    if sched.step() and first is None:
+        first = time.time()
+print(json.dumps(dict(library_counts=kernel_loader.library_counts,
+                      library_dir=str(kernel_loader.library_dir()),
+                      weights_s=t_weights - t0, first_token_s=first - t0,
+                      path_captures=engine.model.path_captures)))
+"""
+
+
+def warmth_phase(cache_dir, card):
+    """Graph warmth across processes: a child process with
+    ``DS_COMPILE_CACHE`` set to the directory phase 2 built into
+    (``cache_dir`` is its namespaced path, ``<base>/<digest>``) builds a
+    Llama-2-7B engine (weights from the seed, 16 pages) and serves one
+    128-token prompt.  It must load every kernel library (hits) and build
+    none (misses 0); reports the seconds from its start to its first
+    token (its graphs are captured anew: a CUDA graph lives in its
+    process)."""
+    import os
+    # the child namespaces the directory by the same digest
+    env = dict(os.environ, DS_COMPILE_CACHE=os.path.dirname(cache_dir))
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-c", WARMTH_CHILD, repr(t0)],
+                         capture_output=True, text=True, env=env,
+                         timeout=300, cwd=os.path.dirname(
+                             os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise RuntimeError(f"warmth child failed:\n{out.stderr[-4000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    res = dict(card=card, **child)
+    log("graph warmth:", json.dumps(res))
+    counts = child["library_counts"]
+    if counts["misses"] or not counts["hits"] \
+            or child["library_dir"] != cache_dir:
+        raise RuntimeError(f"warmth child built libraries: {child}")
+    return res
 
 
 MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
@@ -3500,6 +4040,13 @@ def main() -> int:
         "fused_lion": "deepspeed_tpu/ops/fused_optimizer.py:91",
         "fused_lamb": "deepspeed_tpu/ops/fused_optimizer.py:183"}
     libraries = list({id(k): k for k, _ in counters.values()}.values())
+    # the libraries go to the serving compile cache's directory, which a
+    # second process (the graph-warmth phase) loads them from
+    from deepspeed_tpu_torch.inference.v2 import compile_cache
+    cache_dir = compile_cache.enable_compile_cache(str(
+        kernel_loader.BUILD_DIR.parent / "compile_cache"))
+    if cache_dir is None:
+        raise RuntimeError("the compile cache directory is not writable")
     t = time.perf_counter()
     build_logs = kernel_loader.build_all(libraries)
     for k in libraries:
@@ -3520,15 +4067,19 @@ def main() -> int:
             if "wgmma" in ln:
                 log(f"ptxas {k.name}: {ln.strip()}")
 
-    # phase 3
+    # phase 3 (the serving kernels also at the Q tops 6g's mined lattice
+    # fits to its prompt lengths: S * Q rows for the norms)
     train_cfg = llama_config("7b", num_layers=TRAIN_LAYERS)
+    mined_q = mined_q_tops(llama_config("7b"))
+    log(f"mined Q tops of 6g's traffic: {mined_q}")
     quant_rows, dequant_rows = check_quantization(dev, train_cfg)
-    checks = {"paged_attention": check_paged(dev),
-              "paged_attention_int8": check_paged(dev, int8=True),
-              "rmsnorm": check_rmsnorm(dev),
+    checks = {"paged_attention": check_paged(dev, mined_q=mined_q),
+              "paged_attention_int8": check_paged(dev, int8=True,
+                                                  mined_q=mined_q),
+              "rmsnorm": check_rmsnorm(dev, mined_q=mined_q),
               "rmsnorm_res": check_rmsnorm_res(dev),
-              "layernorm": check_layernorm(dev),
-              "flash_fwd": check_flash(dev),
+              "layernorm": check_layernorm(dev, mined_q=mined_q),
+              "flash_fwd": check_flash(dev, mined_q=mined_q),
               "flash_bwd": check_flash_bwd(dev),
               "fused_adamw": check_adamw(dev, train_cfg),
               "quantize": quant_rows, "dequantize": dequant_rows,
@@ -3628,6 +4179,17 @@ def main() -> int:
     _, launches_by_path["serving_llama_snapshot"] = snapshot_phase(
         cfg, params, counters, card)
 
+    # phase 6g: a mined bucket lattice against the power-of-two lattice
+    _, launches_by_path["serving_llama_mined_lattice"] = lattice_phase(
+        cfg, params, counters, card)
+
+    # phase 6h: the host/disk page tier (bf16 pages)
+    _, launches_by_path["serving_llama_tier"] = tier_phase(
+        cfg, params, counters, card)
+
+    # phase 6i: graph warmth, a second process loads phase 2's libraries
+    warmth_phase(cache_dir, card)
+
     # phase 7
     plain_vs_kernel(cfg, params)
 
@@ -3649,6 +4211,12 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+
+    # phase 8a: int8 pages through the host/disk tier
+    _, launches_by_path["serving_opt_tier"] = tier_phase(
+        opt_cfg, opt_params, counters, card, label="opt int8",
+        model_type="opt", kv_quantization="int8", num_pages=24, host=8,
+        disk=16, n=6, prefix=512, suffix=32, new_tokens=16)
 
     # phase 9
     plain_vs_kernel(opt_cfg, opt_params, model_type="opt",

@@ -2,8 +2,10 @@
 ``deepspeed_tpu/inference/v2``."""
 
 from .config import (KVCacheUserConfig, RaggedInferenceEngineConfig,
-                     ServingOptimizationConfig, StateManagerConfig)
+                     ServingOptimizationConfig, StateManagerConfig,
+                     TelemetryConfig)
 from .engine import InferenceEngineV2, SchedulingError, SchedulingResult
+from .lattice import BucketLattice, LatticeError, resolve_lattice
 from .model import RaggedInferenceModel
 from .model_implementations import (implementation_for,
                                     supported_model_types)
@@ -16,8 +18,8 @@ from .spec import ModelDrafter, NgramDrafter
 
 __all__ = [
     "KVCacheUserConfig", "RaggedInferenceEngineConfig",
-    "ServingOptimizationConfig", "StateManagerConfig",
-    "InferenceEngineV2", "SchedulingError", "SchedulingResult",
+    "ServingOptimizationConfig", "StateManagerConfig", "TelemetryConfig",
+    "BucketLattice", "LatticeError", "resolve_lattice", "InferenceEngineV2", "SchedulingError", "SchedulingResult",
     "RaggedInferenceModel", "BlockedAllocator", "KVAllocationError",
     "KVCacheConfig", "SamplingParams", "sample", "sample_dynamic",
     "derive_row_keys", "sample_keyed", "SnapshotError",

@@ -11,7 +11,13 @@ decoding takes JAX's knobs (``spec_max_draft``, ``spec_ngram_min``,
 key that is a pure function of (seed, request uid, position), as in the
 JAX package, which makes sampled streams schedule-invariant and lets a
 snapshot resume sampled requests exactly.  The snapshot knobs are JAX's
-(``snapshot_grace_s``, ``snapshot_path``).  ``tp_degree`` stays at 1
+(``snapshot_grace_s``, ``snapshot_path``), and so are the cold-start
+and tier knobs: ``lattice`` (``"auto:<artifact-or-trace>"``, a mined
+bucket lattice), ``compile_cache_dir`` (where the kernel libraries are
+built and loaded) and ``kv_tier_host_pages`` / ``kv_tier_disk_pages`` /
+``kv_tier_dir`` (the prefix cache's host and disk tier).
+:class:`TelemetryConfig` carries the workload trace's knobs; its other
+JAX fields raise when set.  ``tp_degree`` stays at 1
 (another value raises, naming the ROADMAP item that brings it).  The KV
 cache geometry
 is the model's ``kv_config`` when the model was given one, else
@@ -126,6 +132,29 @@ class ServingOptimizationConfig:
     #: the bundle the SIGTERM handler writes (with DS_DRAIN_ON_SIGTERM=1
     #: in the environment); empty: explicit ``snapshot()`` calls only
     snapshot_path: str = ""
+    #: where the kernel libraries are built and loaded ("": the default
+    #: ``build/kernels/``; DS_COMPILE_CACHE in the environment wins).
+    #: Entries are namespaced by a digest of what a library depends on
+    #: (sources, nvcc, arch, torch), so a second process loads them
+    #: instead of building; an unwritable directory warns and builds
+    #: into the default (``compile_cache.py``)
+    compile_cache_dir: str = ""
+    #: bucket lattice: "" = the power-of-two default; "auto:<path>" takes
+    #: a mined lattice artifact or a raw workload trace (mined at build):
+    #: bucket tops fitted to the traffic, fewer padded rows, the same
+    #: tokens.  A geometry digest mismatch raises LatticeError at build
+    lattice: str = ""
+    #: host prefix tier: parked pages that eviction would free are
+    #: demoted into a bounded host ring of this many pages (0 = off),
+    #: keyed by the prefix cache's chained digests, and promoted back on
+    #: a prefix match.  Needs ``prefix_caching``
+    kv_tier_host_pages: int = 0
+    #: disk tier below the host ring (pages; 0 = off): the ring's
+    #: overflow spills to files in ``kv_tier_dir``
+    kv_tier_disk_pages: int = 0
+    #: the disk tier's directory ("" = a temporary directory of the
+    #: process, removed with the store)
+    kv_tier_dir: str = ""
 
     def __post_init__(self):
         self.validate()
@@ -139,6 +168,60 @@ class ServingOptimizationConfig:
                     f"(ROADMAP Queue 1 item {item})")
 
 
+#: TelemetryConfig fields the port does not serve yet, with the JAX
+#: package's defaults (ROADMAP open item 4, the telemetry package)
+_UNPORTED_TELEMETRY = {
+    "enabled": None, "metrics_port": 0, "trace_buffer": 0,
+    "watchdog": None, "watchdog_threshold": 0.0, "watchdog_warmup": -1,
+    "postmortem_dir": "", "flight_recorder_events": 0,
+    "timeseries_interval_s": 0.0, "timeseries_retention_s": 0.0,
+    "fleet_targets": "", "slo_objectives": [],
+}
+
+
+@dataclasses.dataclass
+class TelemetryConfig:
+    """The engine config's ``telemetry`` block.  The workload trace's
+    knobs are served: ``workload_trace_path`` opens the ledger the
+    scheduler writes its requests to (the input of a mined lattice) and
+    ``workload_trace_max_mb`` bounds it ("" and 0 keep the process's
+    current settings, e.g. from ``DS_WORKLOAD_TRACE``).  The other fields
+    are the JAX package's, with its defaults; :meth:`validate` raises
+    ``NotImplementedError`` for another value."""
+    enabled: Optional[bool] = None
+    metrics_port: int = 0
+    trace_buffer: int = 0
+    watchdog: Optional[bool] = None
+    watchdog_threshold: float = 0.0
+    watchdog_warmup: int = -1
+    postmortem_dir: str = ""
+    flight_recorder_events: int = 0
+    workload_trace_path: str = ""
+    workload_trace_max_mb: int = 0
+    timeseries_interval_s: float = 0.0
+    timeseries_retention_s: float = 0.0
+    fleet_targets: str = ""
+    slo_objectives: list = dataclasses.field(default_factory=list)
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        for field, default in _UNPORTED_TELEMETRY.items():
+            if getattr(self, field) != default:
+                raise NotImplementedError(
+                    f"telemetry.{field}={getattr(self, field)!r} is not "
+                    "ported yet: of the telemetry block the port serves "
+                    "workload_trace_path and workload_trace_max_mb (ROADMAP "
+                    "open item 4, the telemetry package)")
+
+    def apply(self) -> None:
+        from ...telemetry import apply_settings
+        self.validate()
+        apply_settings(workload_trace_path=self.workload_trace_path,
+                       workload_trace_max_mb=self.workload_trace_max_mb)
+
+
 @dataclasses.dataclass
 class RaggedInferenceEngineConfig:
     state_manager: StateManagerConfig = dataclasses.field(
@@ -147,3 +230,5 @@ class RaggedInferenceEngineConfig:
         default_factory=KVCacheUserConfig)
     serving: ServingOptimizationConfig = dataclasses.field(
         default_factory=ServingOptimizationConfig)
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)

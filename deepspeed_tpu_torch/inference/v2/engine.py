@@ -28,6 +28,12 @@ without ``kv_config`` its geometry comes from ``config.kv_cache``, and
 ``serving.keyed_sampling`` (fixed at build) every sampling step takes
 each row's request uid and generation position (``row_pos``) and the
 scheduler's base key, and draws each sampled row from its own key.
+``serving.lattice = "auto:<artifact-or-trace>"`` (fixed at build) buckets
+every batch to a mined lattice's tops, and ``precompile`` captures that
+lattice's keys; ``serving.kv_tier_host_pages`` / ``kv_tier_disk_pages``
+give the prefix cache a host and disk tier (``ragged/kv_tiers.py``);
+``serving.compile_cache_dir`` (or ``DS_COMPILE_CACHE``) is where the
+kernel libraries are built and loaded (``compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .compile_cache import cache_dir_from_env_or_config, enable_compile_cache
 from .config import RaggedInferenceEngineConfig
-from .lattice import enumerate_lattice_keys
+from .lattice import enumerate_lattice_keys, resolve_lattice
 from .model import RaggedInferenceModel
 from ...tree import tree_map
 from .ragged import (KVCacheConfig, RaggedBatch, StateManager, build_batch,
@@ -158,11 +165,41 @@ class InferenceEngineV2:
         model.keyed_sampling = bool(sv.keyed_sampling)
         model.reset_steps()
         self._build_draft(model)
+        # the mined bucket lattice: fixed at build (it shapes every step
+        # key), its geometry digest checked against this engine's
+        self._lattice = resolve_lattice(
+            sv.lattice or "", page_size=model.kv_config.page_size,
+            vocab_size=int(model.cfg.vocab_size),
+            max_ragged_batch_size=(
+                self._config.state_manager.max_ragged_batch_size))
+        prior = model.lattice
+        if getattr(model, "_lattice_bound", False) and (
+                (prior.digest if prior is not None else None)
+                != (self._lattice.digest if self._lattice is not None
+                    else None)):
+            # the mixed step's pad reads the model's lattice: engines over
+            # one model with other lattices would bucket against it
+            warnings.warn(
+                "engine build rebinds model.lattice ("
+                f"{prior.digest if prior is not None else '<power>'} -> "
+                f"{self._lattice.digest if self._lattice else '<power>'}):"
+                " the mixed step's pad follows the newest engine's lattice;"
+                " engines sharing one model must share one lattice config")
+        model.lattice = self._lattice
+        model._lattice_bound = True
+        # where the kernel libraries are built and loaded
+        cache_dir = cache_dir_from_env_or_config(sv.compile_cache_dir or "")
+        self._compile_cache_dir = (enable_compile_cache(cache_dir)
+                                   if cache_dir else None)
         self._state = StateManager(
             model.kv_config, model.device,
             max_tracked_sequences=(
                 self._config.state_manager.max_tracked_sequences),
-            prefix_caching=sv.prefix_caching)
+            prefix_caching=sv.prefix_caching,
+            tier_host_pages=int(sv.kv_tier_host_pages or 0),
+            tier_disk_pages=int(sv.kv_tier_disk_pages or 0),
+            tier_dir=sv.kv_tier_dir or None)
+        self._config.telemetry.apply()
         # the draft pool: unquantised, at the cache dtype, addressed by the
         # target's page ids and tables (allocation and rollback ride the
         # target's allocator; a rejected draft's slots are written again
@@ -320,19 +357,113 @@ class InferenceEngineV2:
         if spec_max_draft is None:
             spec_max_draft = (int(sv.spec_max_draft or 0)
                               if sv.speculative else 0)
-        keys = lattice_keys(
-            max_prompt=max_prompt, max_new_tokens=max_new_tokens,
-            max_concurrency=max_concurrency or sm.max_ragged_sequence_count,
-            page_size=self._model.kv_config.page_size,
-            max_ragged_batch_size=sm.max_ragged_batch_size,
-            has_fresh=self._model._fresh_attention is not None,
-            sampling=sampling, spec_max_draft=spec_max_draft,
-            draft=self._draft_enabled and sampling and spec_max_draft > 0)
+        if self._lattice is not None:
+            # a mined lattice: its key set, fitted to this engine
+            keys = self._auto_lattice_keys(sampling, spec_max_draft,
+                                           strict=strict)
+        else:
+            keys = lattice_keys(
+                max_prompt=max_prompt, max_new_tokens=max_new_tokens,
+                max_concurrency=(max_concurrency
+                                 or sm.max_ragged_sequence_count),
+                page_size=self._model.kv_config.page_size,
+                max_ragged_batch_size=sm.max_ragged_batch_size,
+                has_fresh=self._model._fresh_attention is not None,
+                sampling=sampling, spec_max_draft=spec_max_draft,
+                draft=(self._draft_enabled and sampling
+                       and spec_max_draft > 0))
         for key in keys:
             self._model.precompile_step(key, self._kv_for(key))
         if strict:
             self._model.strict_shapes = True
         return keys
+
+    def _auto_lattice_keys(self, sampling: bool, spec_max_draft: int,
+                           strict: bool = False) -> List[Tuple]:
+        """The mined lattice's keys this engine can form: the sampling
+        families only with ``sampling``, fresh variants only when the
+        model has a fresh path, spec keys only with speculation on (at
+        this engine's spec bucket, and generated over the lattice's tops
+        when the trace had none), draft keys only with a draft trunk, S *
+        Q within this engine's budget; ``strict`` drops the mixed keys (a
+        strict scheduler serves mixed steps split).  A lattice mined on a
+        model without a fresh path gets the fresh twins a fresh-capable
+        engine forms."""
+        sm = self._config.state_manager
+        has_fresh = self._model._fresh_attention is not None
+        lat = self._lattice
+        spec_q = lat.bucket_q(1 + spec_max_draft)
+        keys: List[Tuple] = []
+        for key in lat.keys:
+            kind = key[4] if len(key) > 4 else "logits"
+            if not sampling and kind != "logits":
+                continue
+            if strict and kind == "mixed":
+                continue
+            if kind == "spec" and (spec_max_draft <= 0 or key[1] != spec_q):
+                continue
+            if kind in ("draft_spec", "draft_fill"):
+                if not (self._draft_enabled and spec_max_draft > 0):
+                    continue
+                if kind == "draft_spec" and key[1] != spec_q:
+                    continue
+            if not has_fresh and (bool(key[3]) or (
+                    kind == "mixed" and bool(key[8]))):
+                continue
+            if kind == "mixed":
+                if key[0] + key[6] * key[5] > 2 * sm.max_ragged_batch_size:
+                    continue
+            elif key[0] * key[1] > sm.max_ragged_batch_size:
+                continue
+            keys.append(key)
+            if has_fresh and not lat.has_fresh:
+                if (key[1] > 1 and kind in ("logits", "sample")
+                        and not bool(key[3])):
+                    keys.append((key[0], key[1], key[2], True) + key[4:])
+                elif kind == "mixed" and not bool(key[8]):
+                    keys.append(key[:8] + (True,) + key[9:])
+        if sampling and spec_max_draft > 0:
+            page = self._model.kv_config.page_size
+            have = set(keys)
+            for S in lat.s_tops:
+                if S * spec_q > sm.max_ragged_batch_size:
+                    continue
+                for P in lat.p_tops:
+                    if P * page < spec_q:
+                        continue
+                    for greedy in (True, False):
+                        for kk in (("spec", greedy),) + (
+                                (("draft_spec", greedy),)
+                                if self._draft_enabled else ()):
+                            key = (S, spec_q, P, False) + kk
+                            if key not in have:
+                                keys.append(key)
+                                have.add(key)
+            if self._draft_enabled:
+                for S in lat.s_tops:
+                    for Q in lat.q_tops:
+                        if S * Q > sm.max_ragged_batch_size:
+                            continue
+                        for P in lat.p_tops:
+                            if P * page < Q:
+                                continue
+                            key = (S, Q, P, False, "draft_fill")
+                            if key not in have:
+                                keys.append(key)
+                                have.add(key)
+        return keys
+
+    @property
+    def lattice(self):
+        """The mined ``BucketLattice`` this engine buckets under (None:
+        the power-of-two default)."""
+        return self._lattice
+
+    @property
+    def lattice_digest(self) -> str:
+        """The lattice's content digest ("" for the power-of-two
+        default): a snapshot records it and ``restore`` compares it."""
+        return self._lattice.digest if self._lattice is not None else ""
 
     def compiled_keys(self, dispatched_only: bool = True) -> List[Tuple]:
         """The step keys traffic dispatched (default), or every key in
@@ -377,9 +508,15 @@ class InferenceEngineV2:
             cap = sd.allocated_capacity if sd is not None else 0
             pages.append(max(cap, -(-(seen + len(toks)) // page)))
             all_new = all_new and not seen
-        S = _bucket(len(batch_uids), MIN_SLOTS)
-        Q = _bucket(max(max(len(t) for t in batch_tokens), min_q))
-        P = _bucket(max(pages), MIN_PAGES)
+        if self._lattice is not None:
+            S = self._lattice.bucket_s(len(batch_uids))
+            Q = self._lattice.bucket_q(
+                max(max(len(t) for t in batch_tokens), min_q))
+            P = self._lattice.bucket_p(max(pages))
+        else:
+            S = _bucket(len(batch_uids), MIN_SLOTS)
+            Q = _bucket(max(max(len(t) for t in batch_tokens), min_q))
+            P = _bucket(max(pages), MIN_PAGES)
         fresh = (all_new and Q > 1
                  and suffix[:1] not in (("spec",), ("draft_spec",),
                                         ("draft_fill",))
@@ -473,7 +610,7 @@ class InferenceEngineV2:
             descs, [np.asarray(t) for t in tokens],
             self._model.kv_config.page_size,
             fresh_supported=self._model._fresh_attention is not None,
-            min_q=min_q)
+            min_q=min_q, lattice=self._lattice)
 
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[np.ndarray],
@@ -686,9 +823,14 @@ class InferenceEngineV2:
             starts.append(self._draft_seen.get(uid, 0))
             caps.append(max(sd.allocated_capacity, 1))
         lengths = [len(t) for t in batch_tokens]
-        S = _bucket(len(batch_uids), MIN_SLOTS)
-        Q = _bucket(max(lengths))
-        P = _bucket(max(caps), MIN_PAGES)
+        if self._lattice is not None:
+            S = self._lattice.bucket_s(len(batch_uids))
+            Q = self._lattice.bucket_q(max(lengths))
+            P = self._lattice.bucket_p(max(caps))
+        else:
+            S = _bucket(len(batch_uids), MIN_SLOTS)
+            Q = _bucket(max(lengths))
+            P = _bucket(max(caps), MIN_PAGES)
         token_ids = np.zeros((S, Q), np.int32)
         q_lens = np.zeros(S, np.int32)
         start_pos = np.zeros(S, np.int32)
@@ -743,9 +885,16 @@ class InferenceEngineV2:
             sd, np.asarray(prompt, dtype=np.int32).reshape(-1))
 
     def reset_prefix_cache(self) -> None:
-        """Drop every cache entry and return parked pages to the pool (a
-        cold start)."""
+        """Drop every cache entry (the host and disk tier's too) and
+        return parked pages to the pool (a cold start)."""
         self._state.reset_prefix_cache()
+
+    def tier_hits(self, uid: int) -> Optional[dict]:
+        """The tokens a tracked sequence's prefix match attached, by tier
+        of origin (``{"device", "host", "disk", "remote"}``), or None
+        before a match attached any."""
+        sd = self._state.get_sequence(uid)
+        return None if sd is None else sd.tier_hits
 
     def flush(self, uid: int) -> None:
         self._state.flush_sequence(uid)

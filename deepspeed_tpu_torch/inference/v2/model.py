@@ -35,10 +35,12 @@ import torch
 
 from ...accelerator import DeviceLike, resolve_device
 from ...models import transformer as T
+from ...telemetry.workload_trace import get_workload_trace
 from ...ops.kernel_loader import CountedGraph
 from ...ops.paged_attention import (KVLayer, rope_write_kv, token_positions,
                                     write_kv)
 from ...tree import tree_map
+from .lattice import KEY_LENGTHS
 from .modules import instantiate, resolve
 from .ragged import KVCacheConfig, RaggedBatch
 from .ragged.batch import MIN_SLOTS, _bucket
@@ -80,11 +82,6 @@ def _input_specs(key, keyed: bool = False
                ((S_p, P_p), _I32)]
         return batch + pre + rows(S + S_p)
     raise ValueError(f"no step graph for step key {key}")
-
-
-#: step kind -> the length of its keys
-_KEY_LENGTHS = {"logits": 4, "sample": 6, "chain": 7, "mixed": 10,
-                "spec": 6, "draft_spec": 6, "draft_fill": 5}
 
 
 def _kind(key) -> str:
@@ -230,6 +227,15 @@ class RaggedInferenceModel:
         #: it adds the (base key, uids, positions) inputs to every
         #: sampling step
         self.keyed_sampling = False
+        #: the mined bucket lattice (``lattice.BucketLattice``), set by
+        #: the engine at build from ``serving.lattice``: the mixed step
+        #: pads its token vector to its S tops (None: powers of two)
+        self.lattice = None
+        #: step keys added to the step cache by ``precompile_step`` and
+        #: on the request path (a first dispatch: on the card a graph
+        #: capture, which the workload trace records as a compile)
+        self.precompile_captures = 0
+        self.path_captures = 0
 
     # -- public steps --------------------------------------------------------
     def forward(self, batch: RaggedBatch, kv: KVLayer) -> torch.Tensor:
@@ -393,7 +399,7 @@ class RaggedInferenceModel:
         draft kind on a model without a draft trunk."""
         key = tuple(key)
         kind = _kind(key) if len(key) >= 4 else None
-        if kind is None or len(key) != _KEY_LENGTHS.get(str(kind)):
+        if kind is None or len(key) != KEY_LENGTHS.get(str(kind)):
             raise ValueError(f"not a step key of this model: {key!r}")
         if kind in ("draft_spec", "draft_fill") and self.draft_cfg is None:
             raise ValueError(f"step key {key!r} needs the draft trunk, and "
@@ -480,8 +486,11 @@ class RaggedInferenceModel:
                   inputs: Sequence) -> Optional[torch.Tensor]:
         """Run one step of ``key`` (JAX: ``_get_step`` and the call of
         what it returns): replay its graph (captured here at the key's
-        first use), or on the CPU its body eagerly."""
+        first use, which counts in ``path_captures`` and goes to the
+        workload trace as a compile), or on the CPU its body eagerly.
+        Every dispatch feeds the trace's key counts."""
         graph = self._step_cache.get(key, False)
+        wt = get_workload_trace()
         if graph is False:
             if self.strict_shapes:
                 raise RuntimeError(
@@ -490,8 +499,13 @@ class RaggedInferenceModel:
                     "on the request path.  Widen InferenceEngineV2."
                     "precompile(...) (sampling=True covers the sample and "
                     "chain steps) or disable strict_shapes.")
+            self.path_captures += 1
+            if wt.active:
+                wt.record_compile(key)
             graph = self._step_cache[key] = self._new_step(key, kv, inputs)
         self.dispatch_counts[key] += 1
+        if wt.active:
+            wt.note_step_key(key)
         if graph is None:
             return self._call(key, kv, generator, *(
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -505,6 +519,7 @@ class RaggedInferenceModel:
         (draft_spec)."""
         key = self.check_key(key)
         if key not in self._step_cache:
+            self.precompile_captures += 1
             self._step_cache[key] = self._new_step(key, kv)
 
     def reset_steps(self) -> None:
@@ -513,6 +528,7 @@ class RaggedInferenceModel:
         self._step_cache.clear()
         self.dispatch_counts.clear()
         self.strict_shapes = False
+        self.precompile_captures = self.path_captures = 0
 
     def _lm_head(self, params) -> torch.Tensor:
         cfg = self.cfg
@@ -692,8 +708,11 @@ class RaggedInferenceModel:
                                      rng, temps, top_ks, top_ps, row_uids,
                                      row_pos, greedy_only)
         # pad the token vector to the slot bucket, as the JAX step does
-        # (its chained step keys on the exact previous-token length)
-        pad = _bucket(tokens.shape[0], MIN_SLOTS) - tokens.shape[0]
+        # (its chained step keys on the exact previous-token length); a
+        # mined lattice gives its own S tops
+        n = tokens.shape[0]
+        pad = (self.lattice.bucket_s(n) if self.lattice is not None
+               else _bucket(n, MIN_SLOTS)) - n
         if pad:
             tokens = torch.cat([tokens, tokens.new_zeros(pad)])
         return tokens

@@ -1,8 +1,9 @@
 """Ragged batch — host-side builder producing static-shape arrays.
 
 Counterpart of ``deepspeed_tpu/inference/v2/ragged/batch.py``.  A batch
-is padded into power-of-two buckets, the same ones the JAX package uses,
-because they set the padding the kernels see:
+is padded into power-of-two buckets, the same ones the JAX package uses
+(or a mined lattice's tops), because they set the padding the kernels
+see:
 
     token_ids   : [S, Q] int32   (null-padded)
     q_lens      : [S]    int32   new tokens per slot (0 = empty slot)
@@ -67,20 +68,28 @@ def build_batch(seqs: Sequence[SequenceDescriptor],
                 min_slots: int = MIN_SLOTS,
                 min_pages: int = MIN_PAGES,
                 fresh_supported: bool = True,
-                min_q: int = 1) -> RaggedBatch:
+                min_q: int = 1, lattice=None) -> RaggedBatch:
     """Pack (descriptor, new-token) pairs into a bucketed RaggedBatch.
     Callers must already have reserved KV pages on each descriptor and
     called ``pre_forward``.  ``fresh_supported``: whether the model has
     a fresh-prefill attention path (ALiBi models do not).  ``min_q``
     floors the Q bucket: every speculative dispatch pads to the one
     ``1 + spec_max_draft`` bucket, so a short-draft step forms no
-    smaller key."""
+    smaller key.  ``lattice``, a mined ``lattice.BucketLattice``, buckets
+    S, Q and P to its tops instead of to powers of two (past its largest
+    top it grows by powers of two): it changes padding, never tokens."""
     n = len(seqs)
     if n != len(tokens) or n < 1:
         raise ValueError(f"{n} sequences for {len(tokens)} token arrays")
-    S = _bucket(n, min_slots)
-    Q = _bucket(max(max(len(t) for t in tokens), min_q))
-    P = _bucket(max(max(s.allocated_capacity for s in seqs), 1), min_pages)
+    if lattice is not None:
+        S = lattice.bucket_s(n)
+        Q = lattice.bucket_q(max(max(len(t) for t in tokens), min_q))
+        P = lattice.bucket_p(max(s.allocated_capacity for s in seqs))
+    else:
+        S = _bucket(n, min_slots)
+        Q = _bucket(max(max(len(t) for t in tokens), min_q))
+        P = _bucket(max(max(s.allocated_capacity for s in seqs), 1),
+                    min_pages)
 
     token_ids = np.zeros((S, Q), dtype=np.int32)
     q_lens = np.zeros(S, dtype=np.int32)

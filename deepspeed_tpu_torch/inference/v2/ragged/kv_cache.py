@@ -109,6 +109,24 @@ class PageBlob:
 Blob = Union[torch.Tensor, PageBlob]
 
 
+def blob_columns(blob: Blob, cols) -> Blob:
+    """``blob[:, cols]`` (a list of page columns) for a tensor blob and
+    a :class:`PageBlob`: a copy, so one page of a demoted batch holds
+    its own storage and no other page's."""
+    if isinstance(blob, PageBlob):
+        return PageBlob(blob.payload[:, cols], blob.scale[:, cols])
+    return blob[:, cols]
+
+
+def concat_blobs(blobs: Sequence[Blob]) -> Blob:
+    """Blobs joined along the page axis (a promoted digest chain's
+    single-page blobs become one restore)."""
+    if isinstance(blobs[0], PageBlob):
+        return PageBlob(torch.cat([b.payload for b in blobs], dim=1),
+                        torch.cat([b.scale for b in blobs], dim=1))
+    return torch.cat(list(blobs), dim=1)
+
+
 class BlockedKVCache:
     """Device cache tensor (or ``KVPages`` pair) + host page allocator.
     Pages are shared by index, so an int8 page's codes and scales are

@@ -1,8 +1,8 @@
 """Persistent state manager: tracked sequences + blocked KV cache.
 
 Counterpart of ``deepspeed_tpu/inference/v2/ragged/manager.py`` without
-tiers or the selective (handoff) export.  The manager owns the
-:class:`PrefixCache` and
+the selective (handoff) export and the cross-replica page fetch.  The
+manager owns the :class:`PrefixCache` and
 is the one place pages leave a block table (flush, preemption offload,
 sliding-window eviction), so every release is shared-page aware: a page
 returns to the free list only when its last sharer drops it AND the
@@ -14,10 +14,18 @@ blobs and their bytes, and ``check_invariants`` audits the counts.
 ``export_state`` / ``import_state`` move the whole state (sequences,
 page contents, host blobs, the prefix index) through a snapshot bundle
 in the JAX package's layout.
+
+With a host/disk tier (``tier_host_pages`` > 0, under the prefix cache
+only) an evicted parked page is demoted into a
+:class:`~.kv_tiers.TieredPageStore` under its chain digest before its
+page is reclaimed, and a prefix match that misses on the device walks on
+into the tier and promotes the pages it finds into fresh device pages,
+indexed again.
 """
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Dict, List, Optional
 
@@ -25,8 +33,10 @@ import numpy as np
 import torch
 
 from ..snapshot import SnapshotError
-from .blocked_allocator import NULL_PAGE
-from .kv_cache import BlockedKVCache, KVCacheConfig, PageBlob
+from .blocked_allocator import NULL_PAGE, KVAllocationError
+from .kv_cache import (BlockedKVCache, KVCacheConfig, PageBlob,
+                       blob_columns, concat_blobs)
+from .kv_tiers import TieredPageStore
 from .prefix_cache import PrefixCache
 from .sequence import SequenceDescriptor
 
@@ -34,17 +44,35 @@ from .sequence import SequenceDescriptor
 class StateManager:
     def __init__(self, kv_config: KVCacheConfig, device: torch.device,
                  max_tracked_sequences: int = 2048,
-                 prefix_caching: bool = True):
+                 prefix_caching: bool = True,
+                 tier_host_pages: int = 0,
+                 tier_disk_pages: int = 0,
+                 tier_dir: Optional[str] = None):
         self.kv_config = kv_config
         self.max_tracked_sequences = max_tracked_sequences
         self.kv_cache = BlockedKVCache(kv_config, device)
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(kv_config.page_size) if prefix_caching else None)
+        # the tier is keyed by the prefix cache's digests: none without it
+        self.tiers: Optional[TieredPageStore] = None
+        if tier_host_pages > 0 and self.prefix_cache is not None:
+            self.tiers = TieredPageStore(
+                tier_host_pages, disk_pages=tier_disk_pages,
+                disk_dir=tier_dir or None,
+                bytes_per_page=kv_config.bytes_per_page)
         self._seqs: Dict[int, SequenceDescriptor] = {}
         # host blobs of preempted sequences, which the page counts do not
         # see: a flush of a preempted sequence must release its blob
         self._offload_blobs = 0
         self._offload_bytes = 0
+        #: host seconds demotion spent waiting for its page copies (the
+        #: copies are queued on the stream that may still run a step)
+        self.demote_wait_s = 0.0
+
+    def close(self) -> None:
+        """Release the tier (its disk files and owned directory)."""
+        if self.tiers is not None:
+            self.tiers.close()
 
     @property
     def offloaded_blobs(self) -> int:
@@ -107,14 +135,33 @@ class StateManager:
 
     def ensure_free(self, num_pages: int) -> None:
         """Make the free list hold ``num_pages`` by LRU-evicting parked
-        prefix-cache pages if needed."""
+        prefix-cache pages if needed; with a tier the evicted pages are
+        demoted into it first (read while still allocated)."""
         alloc = self.kv_cache.allocator
         deficit = num_pages - alloc.free_pages
         if deficit <= 0 or self.prefix_cache is None:
             return
-        evicted = self.prefix_cache.evict(deficit, alloc.is_parked)
-        if evicted:
-            alloc.reclaim(evicted)
+        entries = self.prefix_cache.evict_entries(deficit, alloc.is_parked)
+        if not entries:
+            return
+        if self.tiers is not None:
+            self._demote(entries)
+        alloc.reclaim([p for _, p in entries])
+
+    def _demote(self, entries) -> None:
+        """Store the evicted pages' contents in the tier under their
+        chain digests.  The copies are queued on the current stream
+        (behind a step that may still be running): the host waits for
+        them before the tier holds the blob.  A refused put only loses
+        that page's warmth; the eviction goes on."""
+        blob = self.kv_cache.read_pages([p for _, p in entries])
+        dev = self.kv_cache._stores()[0].device
+        if dev.type == "cuda":
+            t = time.perf_counter()
+            torch.cuda.current_stream(dev).synchronize()
+            self.demote_wait_s += time.perf_counter() - t
+        for i, (digest, _page) in enumerate(entries):
+            self.tiers.put(digest, blob_columns(blob, [i]))
 
     # -- prefix cache -------------------------------------------------------
     def match_prefix(self, sd: SequenceDescriptor,
@@ -133,14 +180,61 @@ class StateManager:
         if max_pages <= 0:
             return 0
         pages, digest = self.prefix_cache.match(prompt, max_pages)
+        hits = {"device": 0, "host": 0, "disk": 0, "remote": 0}
+        if pages:
+            # attach the device hits first: live references keep them
+            # from being evicted while a promotion frees its pages
+            self.kv_cache.allocator.add_ref(pages)
+            hits["device"] = len(pages) * page
+        promoted: List[int] = []
+        if self.tiers is not None and len(pages) < max_pages:
+            promoted, digest = self._promote_chain(
+                prompt, len(pages), digest, max_pages, hits)
+        pages = [int(p) for p in pages] + promoted
         if not pages:
             return 0
-        self.kv_cache.allocator.add_ref(pages)
-        sd.pages = [int(p) for p in pages]
+        sd.pages = pages
         sd.seen_tokens = len(pages) * page
         sd.indexed_pages = len(pages)
         sd.last_digest = digest
+        sd.tier_hits = hits
         return sd.seen_tokens
+
+    def _promote_chain(self, prompt: np.ndarray, n_matched: int,
+                       digest: bytes, max_pages: int, hits: dict) -> tuple:
+        """Extend a device match past its first miss along the same
+        digest chain into the tier: the blobs found are restored into
+        fresh device pages (refcount 1: this sequence's) and indexed
+        again, so the next request with the prefix hits on the device.
+        Returns (promoted page ids, the chain cursor); a miss or a
+        failure ends the walk early (a shorter warm prefix)."""
+        page = self.kv_config.page_size
+        chain: List[bytes] = []
+        d = digest
+        for i in range(n_matched, max_pages):
+            d = self.prefix_cache.chain(d, prompt[i * page:(i + 1) * page])
+            if self.tiers.contains(d) is None:
+                break
+            chain.append(d)
+        if not chain:
+            return [], digest
+        blobs, hit_tiers = self.tiers.take_many(chain)
+        if not blobs:
+            return [], digest
+        try:
+            self.ensure_free(len(blobs))
+            new_pages = self.kv_cache.restore_pages(concat_blobs(blobs))
+        except KVAllocationError:
+            # the pool is full of live pages: the promotion is lost (the
+            # blobs already left the tier), a miss and no error
+            self.tiers.landed(len(blobs))
+            return [], digest
+        self.tiers.landed(len(blobs))
+        for cd, p in zip(chain, new_pages):
+            self.prefix_cache.insert(cd, int(p))
+        for t in hit_tiers:
+            hits[t] += page
+        return [int(p) for p in new_pages], chain[len(blobs) - 1]
 
     def index_prefix(self, sd: SequenceDescriptor) -> None:
         """Index the newly committed FULL prompt pages (after each
@@ -155,8 +249,12 @@ class StateManager:
             digest = self.prefix_cache.chain(
                 sd.last_digest, sd.prompt_tokens[i * page:(i + 1) * page])
             p = sd.pages[i] if i < len(sd.pages) else NULL_PAGE
-            if p != NULL_PAGE:  # a window-evicted slot has no page
-                self.prefix_cache.insert(digest, int(p))
+            # a window-evicted slot has no page; a prefix prefilled again
+            # supersedes its demoted copy (never device-indexed and in
+            # the tier at once)
+            if p != NULL_PAGE and self.prefix_cache.insert(
+                    digest, int(p)) and self.tiers is not None:
+                self.tiers.discard(digest)
             sd.last_digest = digest
             sd.indexed_pages = i + 1
 
@@ -169,6 +267,8 @@ class StateManager:
         parked = [p for p in self.prefix_cache.clear() if alloc.is_parked(p)]
         if parked:
             alloc.reclaim(parked)
+        if self.tiers is not None:
+            self.tiers.clear()      # a cold start is cold in every tier
 
     # -- lifecycle ----------------------------------------------------------
     def offloadable_slots(self, sd: SequenceDescriptor) -> List[int]:
@@ -485,3 +585,12 @@ class StateManager:
                     raise RuntimeError(
                         f"KV invariant: parked page {int(p)} is not "
                         "prefix-cache indexed (leaked)")
+        if self.tiers is not None:
+            # a digest demotes only at eviction and promotes only on a
+            # device miss: never both device-indexed and tier-resident
+            self.tiers.check_invariants()
+            for d, _ in self.prefix_cache.export_entries():
+                if self.tiers.contains(d) is not None:
+                    raise RuntimeError(
+                        "KV invariant: digest indexed on device AND "
+                        f"tier-resident (double-held prefix {d.hex()})")

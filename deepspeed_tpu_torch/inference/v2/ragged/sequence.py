@@ -32,6 +32,9 @@ class SequenceDescriptor:
     indexed_pages: int = 0
     #: the page-hash chain's cursor at ``indexed_pages``
     last_digest: bytes = b""
+    #: the tokens the prefix match attached, by tier of origin
+    #: (``{"device", "host", "disk", "remote"}``); None before a match
+    tier_hits: Optional[dict] = None
 
     @property
     def allocated_capacity(self) -> int:

@@ -59,9 +59,15 @@ bundle the JAX package reads too (``snapshot.py``); ``restore`` rebuilds
 it in a fresh scheduler over a fresh engine and resumes tokenwise, and
 ``drain_and_snapshot`` is the SIGTERM body with its grace budget.
 
-Not ported yet (ROADMAP Queue 1 items 11i, 12): handoffs, the fault
-injector's poisoned requests, and the telemetry (the speculation
-counters stay plain attributes).
+With the workload trace on (``telemetry/workload_trace.py``) every
+request that ends, completed or with an error, leaves one content-free
+record (lengths, page digests, parameters, TTFT / ITL / queue wait, the
+speculation counts and the warm-prefix tokens by tier), the ledger a
+mined lattice is mined from.
+
+Not ported yet (ROADMAP Queue 1 items 11i, 12, open item 4): handoffs,
+the fault injector's poisoned requests, and the rest of the telemetry
+(the speculation counters stay plain attributes).
 """
 
 from __future__ import annotations
@@ -76,9 +82,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...telemetry.workload_trace import get_workload_trace
 from .config import ServingOptimizationConfig
 from .engine import InferenceEngineV2
 from .ragged.blocked_allocator import NULL_PAGE, KVAllocationError
+from .ragged.prefix_cache import PrefixCache
 from .sampling import SamplingParams, derive_row_keys, sample, sample_keyed
 from .snapshot import (SNAPSHOT_VERSION, SnapshotError,
                        maybe_install_drain_handler, read_bundle,
@@ -103,6 +111,15 @@ class Request:
     deadline: Optional[float] = None
     #: ``time.monotonic()`` at submit (the queue-wait shed reads it)
     submit_mono: float = 0.0
+    #: ``time.monotonic()`` at the first admission, the first and the
+    #: last token reaching the host (stamped while the workload trace is
+    #: on: its queue wait, TTFT and ITL)
+    first_sched_mono: float = 0.0
+    first_token_mono: float = 0.0
+    last_token_mono: float = 0.0
+    #: the tokens the one prefix match attached, by tier of origin
+    #: ({"device", "host", "disk", "remote"}); None: no hit
+    tier_hits: Optional[dict] = None
     #: speculation: tokens drafted for this request and accepted
     spec_drafted: int = 0
     spec_accepted: int = 0
@@ -296,6 +313,7 @@ class FastGenScheduler:
         # snapshots: the SIGTERM drain path with its grace budget
         self._snapshot_grace_s = float(sv.snapshot_grace_s or 0.0)
         self._snapshot_path = str(sv.snapshot_path or "")
+        self._wtrace = get_workload_trace()
         if self._snapshot_path:
             maybe_install_drain_handler(self, self._snapshot_path,
                                         self._snapshot_grace_s)
@@ -372,6 +390,49 @@ class FastGenScheduler:
             tokens=list(req.generated))
         while len(self.errors) > _MAX_ERROR_RECORDS:
             self.errors.pop(next(iter(self.errors)))   # the oldest
+        if self._wtrace.active:
+            self._trace_finish(req, code)   # the outcome is the error code
+
+    # -- the workload trace ----------------------------------------------------
+    def _trace_finish(self, req: Request, outcome: str) -> None:
+        """One ended request into the workload trace: lengths, the
+        parameters, latencies and the prompt's chained page digests (the
+        prefix cache's hash), never a token id.  Callers check
+        ``self._wtrace.active``."""
+        page = self._engine.model.kv_config.page_size
+        prompt = np.asarray(req.prompt)
+        digests: List[str] = []
+        if outcome not in ("shed", "closing"):
+            # a request refused at submit never reached the engine; its
+            # O(prompt) chain is skipped on that fast path
+            d = b""
+            for i in range(len(prompt) // page):
+                d = PrefixCache.chain(d, prompt[i * page:(i + 1) * page])
+                digests.append(d.hex())
+        n = len(req.generated)
+        p = req.params
+        hits = req.tier_hits or {}
+        self._wtrace.record_request(
+            uid=req.uid, arrival_mono=req.submit_mono,
+            prompt_len=len(prompt), gen_len=n, digests=digests,
+            page_size=page,
+            vocab_size=int(self._engine.model.cfg.vocab_size),
+            temperature=p.temperature, top_k=p.top_k, top_p=p.top_p,
+            max_new_tokens=p.max_new_tokens, outcome=outcome,
+            ttft_ms=((req.first_token_mono - req.submit_mono) * 1e3
+                     if req.first_token_mono else None),
+            itl_ms=((req.last_token_mono - req.first_token_mono) * 1e3
+                    / (n - 1)
+                    if n > 1 and req.first_token_mono else None),
+            queue_wait_ms=((req.first_sched_mono - req.submit_mono) * 1e3
+                           if req.first_sched_mono else None),
+            spec_drafted=req.spec_drafted,
+            spec_accepted=req.spec_accepted,
+            spec_drafter=req.spec_drafter,
+            spec_ngram=[req.spec_drafted_ngram, req.spec_accepted_ngram],
+            spec_model=[req.spec_drafted_model, req.spec_accepted_model],
+            hit_device=hits.get("device", 0), hit_host=hits.get("host", 0),
+            hit_disk=hits.get("disk", 0), hit_remote=hits.get("remote", 0))
 
     def _expire_requests(self) -> None:
         """End every request whose deadline has passed: pending, running
@@ -465,6 +526,11 @@ class FastGenScheduler:
         """Append one token and deliver it; True when it ends the
         request (``max_new_tokens`` reached or the stop token)."""
         req.generated.append(tok)
+        if self._wtrace.active:
+            mono = time.monotonic()
+            if req.first_token_mono == 0.0:
+                req.first_token_mono = mono
+            req.last_token_mono = mono
         out[req.uid] = tok
         if on_token is not None:
             on_token(req.uid, tok)
@@ -478,6 +544,8 @@ class FastGenScheduler:
         self._running.pop(req.uid, None)
         if self._drafter is not None:
             self._drafter.drop(req.uid)
+        if self._wtrace.active:
+            self._trace_finish(req, "ok")
 
     # -- drain: read a dispatched step's tokens -------------------------------
     def _drain(self, on_token) -> Dict[int, int]:
@@ -890,8 +958,11 @@ class FastGenScheduler:
             adm.tracked_left -= 1
         if hit:
             req.prompt_sent = hit
-            # parked pages the match revived were schedulable in this
-            # admission's snapshot and are live now
+            req.tier_hits = self._engine.tier_hits(req.uid)
+            # parked pages the match revived and free pages a tier
+            # promotion took were schedulable in this admission's
+            # snapshot and are live now (a demotion it caused moved pages
+            # from parked to free: no change)
             adm.free_pages -= before - (alloc.free_pages
                                         + alloc.parked_pages)
 
@@ -1008,6 +1079,8 @@ class FastGenScheduler:
             reqs.append(req)
             req.prompt_sent += chunk
             advances.append((req, chunk))
+            if self._wtrace.active and req.first_sched_mono == 0.0:
+                req.first_sched_mono = time.monotonic()
             return True
 
         for req in list(self._running.values()):
@@ -1302,10 +1375,10 @@ class FastGenScheduler:
             "errors": [dataclasses.asdict(e) for e in self.errors.values()],
             "engine": eng_meta,
             # the keys traffic dispatched, captured again up front at
-            # restore; the port serves the power-of-two lattice only
+            # restore, and the lattice they were bucketed under
             "compiled": {"keys": [list(k)
                                   for k in self._engine.compiled_keys()],
-                         "lattice_digest": ""},
+                         "lattice_digest": self._engine.lattice_digest},
             "draft_digest": self._engine.draft_digest,
         }
         if path is not None:
@@ -1317,7 +1390,8 @@ class FastGenScheduler:
         engine with the same weights and serving config) and resume where
         it stopped.  ``bundle`` is a path or what ``snapshot()`` returned.
         The bundle's step keys are captured first when its lattice digest
-        is this engine's (else a warning, and they capture at first use).
+        (``""`` for the power-of-two lattice) is this engine's; else a
+        warning, and they capture at first use.
         :class:`SnapshotError` for a corrupt, truncated or other-version
         bundle, a scheduler that is not fresh, another draft trunk or
         another KV geometry."""
@@ -1345,12 +1419,15 @@ class FastGenScheduler:
         manifest = compiled.get("keys") or []
         if manifest:
             want = str(compiled.get("lattice_digest", "") or "")
-            if want:
+            have = self._engine.lattice_digest
+            if want != have:
+                # keys bucketed under another lattice are the wrong ones
+                # to capture here; the restore itself is still exact
                 warnings.warn(
                     f"restore: the bundle's step keys were recorded under "
-                    f"lattice digest {want!r} and this engine serves the "
-                    "power-of-two lattice: not capturing them up front "
-                    "(they capture at first use)")
+                    f"lattice digest {want!r} and this engine runs "
+                    f"{have!r}: not capturing them up front (they capture "
+                    "at first use)")
             else:
                 self._engine.precompile_keys(manifest)
         self._base_key = np.asarray(arrays["rng_key"]).astype(np.int64)

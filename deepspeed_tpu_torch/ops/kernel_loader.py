@@ -3,10 +3,12 @@
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries land in ``build/kernels/``
-at the repository root, named by a hash of the source, the shared
-headers and the flags, so an edited source rebuilds and an unchanged one
-loads.  Every C entry point returns ``cudaGetLastError()``; the wrapper
-raises on anything but 0.
+at the repository root (or the serving compile cache's directory,
+``set_library_dir``), named by a hash of the source, the shared headers
+and the flags, so an edited source rebuilds and an unchanged one loads;
+``library_counts`` counts the libraries loaded from disk (hits) and
+built (misses).  Every C entry point returns ``cudaGetLastError()``; the
+wrapper raises on anything but 0.
 
 A launch is on the host's critical path (a serving decode step makes
 ~130 of them), so the library's functions are bound once, when it
@@ -25,6 +27,7 @@ import every module on a machine with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -39,6 +42,24 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: where libraries are built and loaded (None: BUILD_DIR)
+_library_dir: Optional[Path] = None
+#: libraries loaded that this process did not build, and built
+library_counts = {"hits": 0, "misses": 0}
+_built_here: set = set()
+
+
+def set_library_dir(path) -> None:
+    """Build and load libraries under ``path`` from now on (None: the
+    default ``BUILD_DIR``).  A library already loaded stays loaded."""
+    global _library_dir
+    _library_dir = Path(path) if path is not None else None
+
+
+def library_dir() -> Path:
+    return _library_dir if _library_dir is not None else BUILD_DIR
+
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -98,7 +119,7 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
-        return BUILD_DIR / f"{self.name}-{self._digest()}.so"
+        return library_dir() / f"{self.name}-{self._digest()}.so"
 
     def _start_build(self):
         """Start ``nvcc`` for a missing library; returns (process, the
@@ -106,7 +127,7 @@ class CudaKernel:
         out = self.library_path
         if out.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
                str(self.source)]
@@ -124,6 +145,8 @@ class CudaKernel:
         # atomic: a concurrent builder of the same hash never sees a
         # partial library
         os.replace(tmp, self.library_path)
+        _built_here.add(str(self.library_path))
+        library_counts["misses"] += 1
 
     def build(self) -> None:
         self._finish_build(self._start_build())
@@ -133,7 +156,10 @@ class CudaKernel:
         bound."""
         if self._lib is None:
             self.build()
-            self._lib = ctypes.CDLL(str(self.library_path))
+            path = str(self.library_path)
+            self._lib = ctypes.CDLL(path)
+            if path not in _built_here:
+                library_counts["hits"] += 1
         if not self._bound:
             self._bind()
         return self._lib
@@ -212,8 +238,8 @@ class CountedGraph:
     kept in :attr:`launches`; :meth:`replay` adds them every time it
     runs the graph.  ``generator``, a CUDA ``torch.Generator``, is
     registered with the graph: each replay draws new numbers from it and
-    advances its offset.  A failed capture raises; nothing falls back
-    to eager."""
+    advances its offset.  The cyclic garbage collector is off during the
+    capture.  A failed capture raises; nothing falls back to eager."""
 
     def __init__(self, pool=None, generator=None, stream=None):
         self.graph = torch.cuda.CUDAGraph()
@@ -236,12 +262,20 @@ class CountedGraph:
         if self.generator is not None:
             self.graph.register_generator_state(self.generator)
         before = snapshot_launches()
+        # no cyclic collection inside the capture: a dead cycle holding a
+        # CUDA graph, an event or a pinned block (a model of an earlier
+        # engine, say) would be freed mid-capture, and that call would
+        # invalidate the capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=self.pool, stream=stream):
                 self.output = fn(*args)
             self.launches = launches_since(before)
         finally:
             restore_launches(before)
+            if collecting:
+                gc.enable()
         return self.output
 
     def replay(self) -> None:

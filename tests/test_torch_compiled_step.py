@@ -79,9 +79,9 @@ def test_enumerate_lattice_keys_equal_jax_over_arbitrary_tops():
 
 
 @pytest.mark.parametrize("spec", [dict(spec_q=4), dict(draft=True)])
-def test_speculative_keys_raise_naming_item_8(spec):
-    """Item 8 (speculative decoding) is ported: the spec and draft
-    families no longer raise, and they are the JAX package's."""
+def test_speculative_keys_equal_jax(spec):
+    """The spec and draft key families over the same tops are the JAX
+    package's."""
     kw = dict(page_size=16, max_ragged_batch_size=64, has_fresh=True,
               sampling=True, **spec)
     keys = tlattice.enumerate_lattice_keys([1, 4], [1, 8], [8], **kw)

@@ -1703,3 +1703,157 @@ def test_snapshot_pages_export_and_import_bit_equal_on_the_card(cuda_device,
         for so, sn in zip(src.kv_cache._stores(), dst.kv_cache._stores()):
             assert torch.equal(so[:, old], sn[:, new])
     assert dst.get_sequence(1).pages[:3] == dst.get_sequence(0).pages[:3]
+
+
+# ---------------------------------------------------------------------------
+# mined lattices and the host/disk page tier on the card
+# ---------------------------------------------------------------------------
+
+# Q tops a mined lattice takes from prompt lengths: multiples of neither
+# 64 (the flash tile's rows) nor 16 (the paged tile's row block)
+MINED_Q = [47, 333, 1091]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", MINED_Q)
+def test_flash_forward_at_a_mined_q_top_matches_plain(cuda_device, Q):
+    """A fresh prefill bucketed at a mined top: partial query and key
+    tiles, the causal limit of the last row."""
+    g = torch.Generator(device=cuda_device).manual_seed(Q)
+    q, k, v = (torch.randn(2, 8, Q, 128, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    out, lse = tfa.flash_fwd(q, k, v, causal=True)
+    ref, ref_lse = tfa.flash_reference(q, k, v, causal=True)
+    assert bool(torch.isfinite(out.float()).all())
+    assert_parity(out, ref)
+    assert_parity(lse, ref_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("Q", MINED_Q)
+def test_paged_kernel_at_a_mined_q_top_matches_plain(cuda_device, Q, pages):
+    """A continued prefill chunk at a mined top over paged history (the
+    tile, Q·G rows not a multiple of its row block), two slots with
+    different histories, one ending at the context's last position."""
+    S, H, K, ctx = 2, 8, 2, 2048
+    g = torch.Generator(device=cuda_device).manual_seed(Q + 1)
+    n_pages = S * ctx // 64
+    kv = torch.randn(n_pages + 1, 64, 2, K, 128, generator=g,
+                     device=cuda_device, dtype=torch.bfloat16)
+    if pages == "int8":
+        kv = tpa.KVPages(*tpa.quantize_kv_blocks(kv))
+    table = (torch.randperm(n_pages, generator=g, device=cuda_device)
+             + 1).reshape(S, ctx // 64).int()
+    start = torch.tensor([ctx - Q, 37], dtype=torch.int32,
+                         device=cuda_device)
+    q = torch.randn(S, Q, H, 128, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    out = tpa.paged_decode_attention(q, kv, table, start)
+    ref = tpa.paged_attention(q, kv, table, start)
+    assert bool(torch.isfinite(out.float()).all())
+    assert_parity(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_a_page_demoted_spilled_and_promoted_is_bit_equal(cuda_device,
+                                                          pages, tmp_path):
+    """One page of a 7B geometry (32 layers, 32 kv heads of 128, 64
+    tokens) read to a pinned host blob, split into single-page blobs,
+    spilled from a one-page host ring to disk, read back and restored
+    into a fresh page of the same cache tensor, bit for bit."""
+    from deepspeed_tpu_torch.inference.v2 import ragged as TR
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_cache import (
+        blob_columns, concat_blobs)
+    from deepspeed_tpu_torch.inference.v2.ragged.kv_tiers import (
+        TieredPageStore)
+    cache = TR.BlockedKVCache(TR.KVCacheConfig(
+        num_layers=32, kv_heads=32, head_dim=128, page_size=64,
+        num_pages=8, quantization="int8" if pages == "int8" else "none"),
+        cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    stores = ([cache.data.payload, cache.data.scale] if pages == "int8"
+              else [cache.data])
+    for t in stores:
+        t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                              device=cuda_device, dtype=torch.int8)
+                if t.dtype == torch.int8
+                else torch.randn(t.shape, generator=g, device=cuda_device))
+    held = [int(p) for p in cache.reserve(2)]
+    before = [t[:, held].clone() for t in stores]
+    blob = cache.read_pages(held)
+    torch.cuda.synchronize()
+    store = TieredPageStore(1, disk_pages=2, disk_dir=str(tmp_path),
+                            bytes_per_page=cache.cfg.bytes_per_page)
+    store.put(b"a" * 16, blob_columns(blob, [0]))
+    store.put(b"b" * 16, blob_columns(blob, [1]))   # "a" spills to disk
+    assert store.contains(b"a" * 16) == "disk"
+    got, tiers = store.take_many([b"a" * 16, b"b" * 16])
+    assert tiers == ["disk", "host"]
+    new = [int(p) for p in cache.restore_pages(concat_blobs(got))]
+    store.landed(2)
+    torch.cuda.synchronize()
+    for t, ref in zip(stores, before):
+        assert torch.equal(t[:, new], ref)
+    store.check_invariants()
+    store.close()
+
+
+def _replays_against_eager(eng):
+    """Every dispatch of ``eng``'s model runs its key's step body eagerly
+    first, then the key's graph, on the same inputs: greedy tokens (and
+    logits) bit-equal.  Returns the dispatches checked by key."""
+    model = eng.model
+    dispatch = model._dispatch
+    checked = {}
+
+    def compared(key, kv, generator, inputs):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
+             if isinstance(a, np.ndarray) else a for a in inputs]
+        ref = model._call(key, kv, None, *t)
+        out = dispatch(key, kv, generator, inputs)
+        assert torch.equal(out, ref), key
+        checked[key] = checked.get(key, 0) + 1
+        return out
+
+    model._dispatch = compared
+    return checked
+
+
+@pytest.mark.cuda
+def test_a_mined_lattice_engine_replays_every_key_equal_to_eager(
+        cuda_device, tmp_path):
+    """The debug llama's traffic traced on the power lattice, the trace
+    mined, and a fresh engine under ``lattice="auto:<artifact>"``:
+    precompiled, it serves the traffic capturing nothing more, every key
+    a replay bit-equal to its eager body, with the power engine's
+    tokens."""
+    from deepspeed_tpu_torch.inference.v2 import lattice as tlat
+    from deepspeed_tpu_torch.telemetry.workload_trace import (
+        get_workload_trace)
+    T, engine = _graph_llama(cuda_device)
+    rng = np.random.default_rng(3)
+    # two prompts: a fresh step of more rows would pad S * Q past the
+    # 128-token budget, a key no lattice enumerates (captured on the
+    # path, in the JAX package too)
+    prompts = [rng.integers(0, 128, n).tolist() for n in (37, 41)]
+    trace = str(tmp_path / "trace.jsonl")
+    get_workload_trace().configure(trace)
+    try:
+        ref = _serve(T, engine(), prompts)
+    finally:
+        get_workload_trace().close()
+    art = str(tmp_path / "lattice.json")
+    tlat.write_artifact(tlat.mine_lattice(tlat.load_trace_facts(trace),
+                                          max_ragged_batch_size=128), art)
+    eng = engine(lattice=f"auto:{art}")
+    assert any(q & (q - 1) for q in eng.lattice.q_tops)
+    eng.precompile(max_prompt=64, sampling=True)
+    model = eng.model
+    checked = _replays_against_eager(eng)
+    assert _serve(T, eng, prompts) == ref
+    assert model.path_captures == 0
+    assert checked and all(model._step_cache[k] is not None
+                           for k in model.dispatch_counts)
+    eng.state_manager.check_invariants()
