@@ -144,6 +144,33 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
 6i. graph warmth: a child process with ``DS_COMPILE_CACHE`` at phase 2's
    directory loads every kernel library it needs and builds none; the
    seconds from its start to its first token;
+6j. a replica pool: the same weights on two engines of 256 pages behind
+   ``serving.ReplicaPool`` (policy "affinity"), 16 greedy requests (8
+   behind one 1024-token prefix with tails of 64-256 tokens, 8 cold of
+   128-1024 tokens, 64 new): a warm-up pass, a timed pass with the step
+   loop (every warm request after the first on the digest holder,
+   nothing captured, launch counts exact over both replicas) and a
+   threaded pass (``start`` / ``serve_until_idle``, nothing captured);
+   then, with telemetry on, a page fetch (the fetched pages bit-equal to
+   the holder's), a warm spawn, ``scale_down`` of a loaded replica and a
+   death through the ``serving.preempt`` fault site (every committed
+   prefix kept), the flight recorder's bundle written and read back;
+   greedy agreement teacher-forced on one engine (held to the floor);
+   TTFT and tokens/s beside phase 4's, migrate ms a request, page-fetch
+   ms and GB/s against a pinned ``copy_``, the ``ds_pool_*`` counters;
+6k. disaggregated prefill/decode: a ``role="prefill"`` and a
+   ``role="decode"`` engine of 256 pages, keyed, one base key, behind
+   ``serving.DisaggPool``; the decode engine captures its role lattice
+   (``precompile(kinds=("decode", "chain"))``); phase 6e's traffic plus
+   two requests sharing a 1024-token prefix: first tokens from the
+   prefill engine, imported pages bit-equal to the exported blob, pages
+   shared on the decode side, no Q>1 key on the decode engine and no
+   chain or spec key on the prefill engine, nothing captured in the
+   timed pass, launch counts exact; greedy and keyed agreement
+   teacher-forced (held to the floor); TTFT, handoff ms a request and
+   GB/s (cold and warm) against a pinned ``copy_``, decode ms and
+   tokens/s beside phase 4's, graphs per role, the ``ds_disagg_*``
+   counters;
 7. the same weights with the registry pinned to the plain versions:
    ten teacher-forced serving steps of 3 requests on the eager forward
    (fresh prefill, decode, and two mixed steps, one with a Q=1024 prefill
@@ -3550,6 +3577,629 @@ MISTRAL_PROMPT = 6144
 MISTRAL_CHUNK = 2048           # the token budget of a step
 
 
+# ---------------------------------------------------------------------------
+# phases 6j and 6k: the serving fleet (a replica pool; disaggregated
+# prefill/decode) at full width
+# ---------------------------------------------------------------------------
+
+FLEET_PAGES = 256              # each engine of 6j and 6k: 8.62 GB
+FLEET_PREFIX = 1024            # the shared prefix of the warm requests
+
+
+def fleet_requests(cfg, seed=SEED + 19):
+    """Phase 6j's traffic: 16 greedy requests, 64 new tokens each; uids
+    0-7 share a 1024-token prefix with tails of 64-256 tokens, uids 8-15
+    are cold prompts of 128-1024 tokens."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, FLEET_PREFIX)
+    reqs = {}
+    for uid in range(16):
+        if uid < 8:
+            prompt = np.concatenate([prefix, rng.integers(
+                0, cfg.vocab_size, int(rng.integers(64, 257)))])
+        else:
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  int(rng.integers(128, 1025)))
+        reqs[uid] = (prompt, SamplingParams(max_new_tokens=64,
+                                            temperature=0.0))
+    return reqs
+
+
+def halves_agreement(engine, reqs, served, uid_base, picks_by=None):
+    """``teacher_forced_agreement`` over two halves of ``reqs`` (every
+    request's whole context at once would not fit one pool)."""
+    uids = sorted(reqs)
+    agree = []
+    for part in (uids[:len(uids) // 2], uids[len(uids) // 2:]):
+        sub = {u: reqs[u] for u in part}
+        a, _, _ = teacher_forced_agreement(
+            engine, sub, {u: served[u] for u in part}, uid_base, {},
+            picks_by=None if picks_by is None
+            else {u: picks_by[u] for u in part})
+        agree += a
+    return agree
+
+
+def pool_pass(pool, reqs, threaded=False):
+    """One pass of ``reqs`` through a fresh ReplicaPool: uid 0 served
+    alone first, the replicas' hints published, then the other 15
+    submitted together and served by the step loop (or by ``start()`` /
+    ``serve_until_idle()``).  Returns ({uid: tokens}, the seconds of the
+    15-request part)."""
+    import torch
+    pool.submit(0, *reqs[0])
+    pool.run_to_completion()
+    pool.publish_hints()
+    for uid in sorted(reqs)[1:]:
+        if pool.submit(uid, *reqs[uid]) is not None:
+            raise RuntimeError(f"pool refused request {uid}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if threaded:
+        pool.start()
+        try:
+            if not pool.serve_until_idle(timeout_s=300.0):
+                raise RuntimeError("pool: the threaded serve timed out")
+        finally:
+            pool.stop()
+        if any(th.is_alive() for th in pool._threads.values()):
+            raise RuntimeError("pool: a stepper thread outlived stop()")
+    else:
+        pool.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    if pool.errors:
+        raise RuntimeError(f"pool errors: {pool.errors}")
+    out = pool.results()
+    for uid, (_, sp) in reqs.items():
+        if len(out.get(uid, ())) != sp.max_new_tokens:
+            raise RuntimeError(f"pool: request {uid} has "
+                               f"{len(out.get(uid, ()))} tokens")
+    return out, seconds
+
+
+def pool_metrics(pool, reqs, seconds):
+    reqs_ = [pool.request(u) for u in sorted(reqs)[1:]]
+    ttft = [(r.first_token_mono - r.submit_mono) * 1e3 for r in reqs_]
+    return dict(ttft_ms_mean=sum(ttft) / len(ttft), ttft_ms_max=max(ttft),
+                seconds=seconds,
+                tok_s=sum(len(r.tokens) for r in reqs_) / seconds,
+                placements={r.uid: (r.replica, r.matched_pages)
+                            for r in reqs_})
+
+
+def registry_family(prefix) -> dict:
+    from deepspeed_tpu_torch.telemetry import get_registry
+    return {k: v for k, v in get_registry().snapshot().items()
+            if k.startswith(prefix)}
+
+
+def pool_phase(cfg, params, counters, card, phase4):
+    """Phase 6j: two replicas of 256 pages behind the prefix-affinity
+    router (``serving.ReplicaPool``, policy "affinity").  A warm-up pass
+    of ``fleet_requests`` captures the keys, then a timed pass with the
+    step loop (launch counts exact over both replicas, nothing captured)
+    and a threaded pass (``start`` / ``serve_until_idle``: nothing
+    captured, every request's tokens equal to the step loop's); every
+    warm request after the first is affinity-routed to the digest
+    holder.  Then the fleet events, with telemetry on: a page fetch
+    (margin 0; the fetched pages bit-equal to the holder's, ms and GB/s
+    against a pinned ``copy_``), a warm spawn (``scale_up``: every key
+    of the fleet's manifest captured), ``scale_down`` of a loaded
+    replica (drain and migrate) and a death through the
+    ``serving.preempt`` fault site with a fixed seed; every committed
+    prefix survives verbatim; the flight recorder's postmortem bundle,
+    written to a temporary directory, is read back.  The page audit
+    (``check_invariants``, as under ``DS_KV_DEBUG=1``) runs after every
+    step and import of the warm-up pass and of the fleet events, on
+    every live replica after each fleet event, and after the timed and
+    threaded passes.  Greedy tokens are teacher-forced on one engine's eager
+    forward (held to GREEDY_AGREE_MIN).  Returns (summary, launches of the
+    timed pass)."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    from deepspeed_tpu_torch.runtime.fault_injection import get_fault_injector
+    from deepspeed_tpu_torch.serving import ReplicaPool
+    from deepspeed_tpu_torch.telemetry import metrics as tm
+    reqs = fleet_requests(cfg)
+    engines = {}
+
+    def engine_of(label):
+        if label not in engines:
+            engines[label] = build_engine(cfg, params, FLEET_PAGES)
+        return engines[label]
+
+    def pool_of(audit=False, **kw):
+        """A pool over the engines; ``audit``: its schedulers run the
+        page audit after every step and import (``DS_KV_DEBUG=1``)."""
+        for eng in engines.values():
+            eng.reset_prefix_cache()
+
+        def scheduler_of(label):
+            sched = FastGenScheduler(engine_of(label), seed=SEED)
+            sched._kv_debug = sched._kv_debug or audit
+            return sched
+        return ReplicaPool(scheduler_of, replicas=2, policy="affinity",
+                           **kw)
+
+    def audit_replicas(pool):
+        for lb in pool.labels:
+            pool._replicas[lb].engine.state_manager.check_invariants()
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    pool_pass(pool_of(audit=True), reqs)                # the warm-up pass
+    warm_s = time.perf_counter() - t
+    labels = sorted(engines)
+    # a pool built over engines that served already warms each replica
+    # with the others' keys (a warm spawn, with the compile cache on):
+    # that happens at the pool's build, before its pass
+    before_build = {lb: len(engines[lb].model._step_cache) for lb in labels}
+    pool = pool_of()
+    warmed = {lb: len(engines[lb].model._step_cache) - before_build[lb]
+              for lb in labels}
+    cached = {lb: set(engines[lb].model._step_cache) for lb in labels}
+    dispatched = {lb: dict(engines[lb].model.dispatch_counts)
+                  for lb in labels}
+    pool_before = registry_family("ds_pool_")
+    reset_launches(counters)
+    timed, timed_s = pool_pass(pool, reqs)
+    launches = read_launches(counters)
+    audit_replicas(pool)
+    seg = None
+    for lb in labels:
+        model = engines[lb].model
+        if set(model._step_cache) != cached[lb]:
+            raise RuntimeError(
+                f"pool: the timed pass captured on {lb}: "
+                f"{sorted(map(repr, set(model._step_cache) - cached[lb]))}")
+        d = {k: n - dispatched[lb].get(k, 0)
+             for k, n in model.dispatch_counts.items()
+             if n != dispatched[lb].get(k, 0)}
+        if any(model._step_cache[k] is None for k in d):
+            raise RuntimeError("pool: a timed step was not a replay")
+        s = segment_counts(cfg, d)
+        seg = s if seg is None else {k: seg[k] + s[k] for k in seg}
+    checks = launch_checks(cfg, "none", launches, seg)
+    timed_metrics = pool_metrics(pool, reqs, timed_s)
+    holder = pool.request(0).replica
+    routed = {u: (pool.request(u).replica, pool.request(u).matched_pages)
+              for u in range(1, 8)}
+    if any(r != (holder, FLEET_PREFIX // 64) for r in routed.values()):
+        raise RuntimeError(f"pool: a warm request missed the digest holder "
+                           f"{holder}: {routed}")
+    counters_timed = {k: v - pool_before.get(k, 0)
+                      for k, v in registry_family("ds_pool_").items()}
+    del pool
+    # the threaded pass: the same traffic, one stepper thread a replica
+    threaded_pool = pool_of()
+    cached = {lb: set(engines[lb].model._step_cache) for lb in labels}
+    threaded, threaded_s = pool_pass(threaded_pool, reqs, threaded=True)
+    threaded_metrics = pool_metrics(threaded_pool, reqs, threaded_s)
+    audit_replicas(threaded_pool)
+    differ = sorted(u for u in reqs if threaded[u] != timed[u])
+    if differ:
+        raise RuntimeError(f"pool: the threaded pass's tokens differ from "
+                           f"the step loop's for uids {differ}")
+    for lb in labels:
+        new = set(engines[lb].model._step_cache) - cached[lb]
+        if new:
+            raise RuntimeError(f"pool: the threaded pass captured on {lb}: "
+                               f"{sorted(map(repr, new))}")
+    del threaded_pool
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # -- the fleet events, telemetry on --------------------------------------
+    telemetry.enable()
+    telemetry.get_flight_recorder().clear()
+    fetch_before = {k: getattr(tm, k).value for k in (
+        "POOL_PAGE_FETCHES", "POOL_PAGE_FETCH_PAGES", "POOL_PAGE_FETCH_BYTES")}
+    fetch_ms_before = (tm.POOL_PAGE_FETCH_MS.sum, tm.POOL_PAGE_FETCH_MS.count)
+    pool = pool_of(audit=True, page_fetch_margin=0, max_replicas=3)
+    pool.submit(0, *reqs[0])
+    pool.run_to_completion()
+    pool.publish_hints()
+    holder = pool.request(0).replica
+    # cold fillers land holder, peer, holder (least backlog, then label):
+    # the holder ends one request deeper, past the margin, and the next
+    # warm request goes to the peer with the holder's pages fetched
+    for uid in (8, 9, 10):
+        pool.submit(uid, *reqs[uid])
+    pool.submit(1, *reqs[1])
+    fetched = pool.request(1)
+    router = pool.router
+    digests = router.prompt_digests(reqs[1][0])[:FLEET_PREFIX // 64]
+
+    def pages_of(label):
+        sm = pool._replicas[label].engine.state_manager
+        return [sm.prefix_cache.lookup(bytes.fromhex(d)) for d in digests]
+
+    peer = fetched.replica
+    src_pages, dst_pages = pages_of(holder), pages_of(peer)
+    src_kv = pool._replicas[holder].engine.state_manager.kv_cache.data
+    dst_kv = pool._replicas[peer].engine.state_manager.kv_cache.data
+    fetch_equal = (peer != holder and None not in src_pages
+                   and None not in dst_pages and all(
+                       torch.equal(src_kv[:, a], dst_kv[:, b])
+                       for a, b in zip(src_pages, dst_pages)))
+    fetch = {k: getattr(tm, k).value - v for k, v in fetch_before.items()}
+    fetch_ms = ((tm.POOL_PAGE_FETCH_MS.sum - fetch_ms_before[0])
+                / max(tm.POOL_PAGE_FETCH_MS.count - fetch_ms_before[1], 1))
+    fetch["ms"] = fetch_ms
+    fetch["gb_s"] = (fetch["POOL_PAGE_FETCH_BYTES"] / fetch_ms / 1e6
+                     if fetch_ms else None)
+    fetch["pinned_copy_yardstick"] = copy_yardstick(
+        max(int(fetch["POOL_PAGE_FETCH_BYTES"] // 2), 1))
+    fetch["from"], fetch["to"], fetch["bit_equal"] = holder, peer, fetch_equal
+    if not fetch_equal or fetch["POOL_PAGE_FETCHES"] != 1:
+        raise RuntimeError(f"pool: the page fetch failed: {fetch}")
+    audit_replicas(pool)
+    for uid in sorted(reqs):
+        if uid not in (0, 1, 8, 9, 10):
+            pool.submit(uid, *reqs[uid])
+    for _ in range(6):
+        pool.step()
+    manifest = pool.compiled_manifest()
+    t = time.perf_counter()
+    spawned = pool.scale_up()                  # a warm spawn: r2
+    spawn_s = time.perf_counter() - t
+    spawn_keys = len(engines[spawned].model._step_cache)
+    missing = set(manifest) - set(engines[spawned].model._step_cache)
+    if not manifest or missing:
+        raise RuntimeError(f"pool: the warm spawn did not capture "
+                           f"{len(missing)} of the manifest's "
+                           f"{len(manifest)} keys: "
+                           f"{sorted(map(repr, missing))}")
+    audit_replicas(pool)
+    committed = {u: list(pool.request(u).tokens) for u in reqs}
+    migrated_before = tm.POOL_MIGRATED.value
+    victim = max(pool.labels, key=lambda lb: (
+        pool._replicas[lb].scheduler.backlog, lb))
+    t = time.perf_counter()
+    if pool.scale_down(victim) != victim:
+        raise RuntimeError("pool: scale_down refused")
+    drain_s = time.perf_counter() - t
+    migrated = tm.POOL_MIGRATED.value - migrated_before
+    audit_replicas(pool)
+    for _ in range(4):
+        pool.step()
+    committed_before_death = {u: list(pool.request(u).tokens)
+                              for u in reqs}
+    inj = get_fault_injector()
+    deaths_before = tm.POOL_REPLICA_DEATHS.value
+    inj.configure({"serving.preempt": {"at": "3", "max": "1"}}, seed=SEED)
+    try:
+        while tm.POOL_REPLICA_DEATHS.value == deaths_before:
+            pool.step()
+            if pool.idle:
+                raise RuntimeError("pool: the preempt fault never fired")
+    finally:
+        inj.disarm()
+    audit_replicas(pool)
+    pool.run_to_completion()
+    audit_replicas(pool)
+    if pool.errors:
+        raise RuntimeError(f"pool errors after the fleet events: "
+                           f"{pool.errors}")
+    events = pool.results()
+    kept = all(events[u][:len(committed[u])] == committed[u]
+               and events[u][:len(committed_before_death[u])]
+               == committed_before_death[u] for u in reqs)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = telemetry.dump_postmortem(os.path.join(tmp, "pm"))
+        with open(paths["events.json"]) as f:
+            kinds = [e["kind"] for e in json.load(f)["events"]]
+        with open(paths["registry.json"]) as f:
+            reg = json.load(f)
+    telemetry.disable()
+    death_dump = dict(artifacts=sorted(paths), events=len(kinds),
+                      replica_deaths=kinds.count("pool.replica_death"),
+                      scale_down=kinds.count("pool.scale_down"),
+                      page_fetch=kinds.count("pool.page_fetch"),
+                      warm_spawn=kinds.count("pool.warm_spawn"),
+                      ds_pool_replica_deaths_total=reg.get(
+                          "ds_pool_replica_deaths_total"))
+    if not kept or death_dump["replica_deaths"] != 1 \
+            or not death_dump["scale_down"]:
+        raise RuntimeError(f"pool: the fleet events lost a committed token "
+                           f"or an event: kept {kept}, {death_dump}")
+    live = sorted(pool.labels)
+    del pool
+    gc.collect()
+    # teacher-forced greedy agreement on one engine's eager forward
+    ref = engines["r0"]
+    for eng in engines.values():
+        for uid in list(eng.state_manager._seqs):
+            eng.flush(uid)
+    agree = halves_agreement(ref, reqs, timed, uid_base=7000)
+    agree_events = halves_agreement(ref, reqs, events, uid_base=7100)
+    res = dict(card=card, model="llama pool", replicas=2, policy="affinity",
+               kv_pool_pages=FLEET_PAGES, requests=len(reqs),
+               prompt_lens=[len(p) for p, _ in reqs.values()],
+               warm_up_pass_s=warm_s, keys_warmed_at_pool_build=warmed,
+               timed=timed_metrics,
+               threaded=threaded_metrics,
+               threaded_tokens_equal_timed=len(reqs),
+               phase4={k: phase4[k] for k in (
+                   "ttft_ms_mean", "decode_tok_s", "tail_tok_s",
+                   "decode_step_ms_median")},
+               graphs={lb: graph_report(engines[lb].model)
+                       for lb in labels},
+               max_memory_allocated_gb=peak_gb,
+               affinity_routed=routed, digest_holder=holder,
+               pool_counters_timed=counters_timed,
+               page_fetch=fetch, warm_spawn=dict(label=spawned,
+                                                 seconds=spawn_s,
+                                                 keys=spawn_keys,
+                                                 manifest_keys=len(manifest)),
+               scale_down=dict(label=victim, migrated=migrated,
+                               ms=drain_s * 1e3,
+                               ms_a_request=(drain_s * 1e3 / migrated
+                                             if migrated else None)),
+               committed_prefixes_kept=kept, live_after_events=live,
+               flight_recorder_dump=death_dump,
+               ds_pool=registry_family("ds_pool_"),
+               teacher_forced_agreement=agree,
+               teacher_forced_agreement_events=agree_events,
+               floor=GREEDY_AGREE_MIN, segments=seg, launches=launches,
+               launch_checks=checks)
+    log("llama replica pool:", json.dumps(res))
+    if not all(checks.values()):
+        raise RuntimeError(f"pool launch counts: {checks}")
+    if min(agree + agree_events) < GREEDY_AGREE_MIN:
+        raise RuntimeError(f"pool: teacher-forced agreement "
+                           f"{min(agree + agree_events):.3f} < "
+                           f"{GREEDY_AGREE_MIN}")
+    engines.clear()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def disagg_requests(cfg):
+    """Phase 6e's traffic (4 greedy, 6 keyed-sampled requests) and two
+    greedy requests (uids 10, 11) sharing a 1024-token prefix."""
+    import numpy as np
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    reqs = keyed_requests(cfg)
+    rng = np.random.default_rng(SEED + 23)
+    prefix = rng.integers(0, cfg.vocab_size, FLEET_PREFIX)
+    for uid, tail in ((10, 64), (11, 128)):
+        reqs[uid] = (np.concatenate([prefix, rng.integers(
+            0, cfg.vocab_size, tail)]), SamplingParams(max_new_tokens=64))
+    return reqs
+
+
+def disagg_pass(pool, reqs, uid_base, on_first=None):
+    """``reqs`` through a DisaggPool's step loop under uids ``uid_base +
+    uid``: uids 0-10 at once, uid 11 once uid 10 is on the decode engine
+    (so its prefix pages are shared there).  Returns ({uid: tokens},
+    {uid: TTFT ms}, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    late = max(reqs)
+    for uid in sorted(reqs):
+        if uid != late:
+            pool.submit(uid_base + uid, *reqs[uid])
+    first = pool.request(uid_base + late - 1)
+    while first.replica != "decode" and not first.finalized:
+        pool.step()
+    pool.submit(uid_base + late, *reqs[late])
+    pool.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    if pool.errors:
+        raise RuntimeError(f"disagg errors: {pool.errors}")
+    out, ttft = {}, {}
+    for uid, (_, sp) in reqs.items():
+        r = pool.request(uid_base + uid)
+        if not r.done or len(r.tokens) != sp.max_new_tokens:
+            raise RuntimeError(f"disagg: request {uid} has {len(r.tokens)} "
+                               "tokens")
+        out[uid] = list(r.tokens)
+        ttft[uid] = (r.first_token_mono - r.submit_mono) * 1e3
+    return out, ttft, seconds
+
+
+def disagg_phase(cfg, params, counters, card, phase4):
+    """Phase 6k: a "prefill" and a "decode" engine of 256 pages each,
+    ``keyed_sampling`` on both and one base key, behind
+    ``serving.DisaggPool``.  The decode engine first captures its role's
+    lattice (``precompile(kinds=("decode", "chain"))``); a warm-up pass
+    of ``disagg_requests`` captures the rest, then a timed pass: the
+    first token of every request comes from the prefill engine, every
+    imported page is bit-equal to the exported blob, ``pages_shared`` > 0
+    for the shared prefix, the decode engine holds no Q>1 key and the
+    prefill engine no chain or spec key, nothing is captured, launch
+    counts exact over both engines; greedy and keyed tokens
+    teacher-forced on one engine's eager forward (held to the floors).
+    The page audit (``check_invariants``, as under ``DS_KV_DEBUG=1``)
+    runs on both engines after every step and import of the warm-up
+    pass and after the timed pass.  The pool's rate gauges (prefill MFU,
+    decode GB/s, over each engine's busy seconds) stay below the card's
+    peaks.
+    Reports TTFT, handoff ms a request and its GB/s against a pinned
+    ``copy_`` (cold: the warm-up pass; warm: the timed pass), decode ms
+    and tokens/s beside phase 4's, graphs per role and the ``ds_disagg_*``
+    counters.  Returns (summary, launches of the timed pass)."""
+    import gc
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import FastGenScheduler
+    from deepspeed_tpu_torch.inference.v2.engine import lattice_kind_of
+    from deepspeed_tpu_torch.serving import DisaggPool
+    reqs = disagg_requests(cfg)
+    engines = {role: build_engine(cfg, params, FLEET_PAGES, role=role,
+                                  keyed_sampling=True)
+               for role in ("prefill", "decode")}
+    t = time.perf_counter()
+    decode_keys = engines["decode"].precompile(
+        max(len(p) for p, _ in reqs.values()) + 64, max_concurrency=16,
+        max_new_tokens=64, sampling=True, kinds=("decode", "chain"))
+    precompile_s = time.perf_counter() - t
+    imported = []
+
+    def audited(sched):
+        """Each import keeps (the exported blob's columns, a device copy
+        of the pages they landed in), compared after the pass: the
+        handoff's time holds one device gather, not the comparison."""
+        imp = sched.import_handoff
+
+        def run(bundle):
+            stats = imp(bundle)
+            meta, arrays = bundle["meta"]["engine"], bundle["arrays"]
+            col = {p: i for i, p in enumerate(meta["page_ids"])}
+            pairs = [(col[old], new) for m in meta["sequences"]
+                     for old, new in zip(m["pages"], sched._engine
+                                         .state_manager.get_sequence(
+                                             m["uid"]).pages) if old and new]
+            kv = sched._engine.state_manager.kv_cache.data
+            idx = torch.tensor([n for _, n in pairs], device=kv.device)
+            imported.append((arrays["page_blob"], [c for c, _ in pairs],
+                             kv.index_select(1, idx)))
+            return stats
+        sched.import_handoff = run
+        return sched
+
+    handoff_ms = []
+    first_on = {}
+
+    def pool_of(audit=False):
+        """A pool over the two engines; ``audit``: both schedulers run
+        the page audit after every step and import."""
+        for eng in engines.values():
+            eng.reset_prefix_cache()
+        ref = []
+
+        def spy(uid, tok):
+            if uid not in first_on:
+                first_on[uid] = ref[0].request(uid).replica
+
+        def scheduler_of(role):
+            sched = FastGenScheduler(engines[role], seed=SEED)
+            sched._kv_debug = sched._kv_debug or audit
+            return sched
+
+        pool = DisaggPool(lambda: scheduler_of("prefill"),
+                          lambda: audited(scheduler_of("decode")),
+                          on_token=spy)
+        pool._on_handoff_ms = handoff_ms.append
+        ref.append(pool)
+        return pool
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, _, _ = disagg_pass(pool_of(audit=True), reqs, uid_base=1000)
+    warm_s = time.perf_counter() - t
+    cold_handoff_ms = list(handoff_ms)
+    handoff_ms.clear()
+    cached = {r: set(e.model._step_cache) for r, e in engines.items()}
+    dispatched = {r: dict(e.model.dispatch_counts)
+                  for r, e in engines.items()}
+    before = registry_family("ds_disagg_")
+    imported.clear()
+    pool = pool_of()
+    reset_launches(counters)
+    served, ttft, seconds = disagg_pass(pool, reqs, uid_base=0)
+    launches = read_launches(counters)
+    for eng in engines.values():
+        eng.state_manager.check_invariants()
+    rates = pool.refresh_cost_gauges()
+    pages_checked = pages_unequal = 0
+    for blob, cols, landed in imported:
+        pages_checked += len(cols)
+        pages_unequal += not torch.equal(landed.cpu(), blob[:, cols])
+    imported.clear()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counters_timed = {k: v - before.get(k, 0)
+                      for k, v in registry_family("ds_disagg_").items()
+                      if k.endswith("_total")}
+    seg, role_kinds, role_dispatches = None, {}, {}
+    for role, eng in engines.items():
+        model = eng.model
+        if set(model._step_cache) != cached[role]:
+            raise RuntimeError(f"disagg: the timed pass captured on {role}")
+        d = {k: n - dispatched[role].get(k, 0)
+             for k, n in model.dispatch_counts.items()
+             if n != dispatched[role].get(k, 0)}
+        if any(model._step_cache[k] is None for k in d):
+            raise RuntimeError("disagg: a timed step was not a replay")
+        s = segment_counts(cfg, d)
+        seg = s if seg is None else {k: seg[k] + s[k] for k in seg}
+        role_dispatches[role] = sum(d.values())
+        role_kinds[role] = sorted({lattice_kind_of(k)
+                                   for k in model._step_cache})
+    checks = launch_checks(cfg, "none", launches, seg)
+    checks["first token on the prefill engine"] = all(
+        first_on.get(u) == "prefill" for u in reqs)
+    checks["imported pages bit-equal"] = (pages_unequal == 0
+                                          and pages_checked > 0)
+    checks["pages shared"] = counters_timed.get(
+        "ds_disagg_pages_shared_total", 0) > 0
+    checks["decode engine: no Q>1 key"] = "prefill" not in role_kinds[
+        "decode"]
+    checks["prefill engine: no chain or spec key"] = not (
+        {"chain", "spec"} & set(role_kinds["prefill"]))
+    checks["rates below the card's peaks"] = (
+        0 < rates["prefill_mfu"] < 1
+        and 0 < rates["decode_hbm_gb_s"] * 1e9 < HBM_BYTES_PER_S)
+    n_handoffs = counters_timed.get("ds_disagg_handoffs_total", 0)
+    n_bytes = counters_timed.get("ds_disagg_handoff_bytes_total", 0)
+    decode_tokens = sum(len(v) - 1 for v in served.values())
+    t_ho = sum(handoff_ms)
+    res = dict(
+        card=card, model="llama disagg", kv_pool_pages=FLEET_PAGES,
+        requests=len(reqs), prompt_lens=[len(p) for p, _ in reqs.values()],
+        warm_up_pass_s=warm_s, timed_s=seconds,
+        ttft_ms_mean=sum(ttft.values()) / len(ttft),
+        ttft_ms_max=max(ttft.values()),
+        handoffs=n_handoffs, handoff_bytes=n_bytes,
+        handoff_ms_a_request=t_ho / n_handoffs if n_handoffs else None,
+        handoff_gb_s=n_bytes / t_ho / 1e6 if t_ho else None,
+        handoff_ms_warm=handoff_ms, handoff_ms_cold=cold_handoff_ms,
+        pinned_copy_yardstick=copy_yardstick(
+            max(int(n_bytes // max(len(handoff_ms), 1)), 1)),
+        decode_busy_s=pool.decode_busy_s, prefill_busy_s=pool.prefill_busy_s,
+        decode_tok_s=decode_tokens / pool.decode_busy_s,
+        decode_dispatches=role_dispatches["decode"],
+        decode_ms_a_dispatch=(pool.decode_busy_s * 1e3
+                          / max(role_dispatches["decode"], 1)),
+        phase4={k: phase4[k] for k in (
+            "ttft_ms_mean", "decode_tok_s", "tail_tok_s",
+            "decode_step_ms_median")},
+        phase4_graphs=phase4["warm_up_pass"]["graphs"],
+        graphs={role: graph_report(e.model) for role, e in engines.items()},
+        decode_precompiled_keys=len(decode_keys),
+        decode_precompile_s=precompile_s, key_kinds=role_kinds,
+        pages_checked=pages_checked, max_memory_allocated_gb=peak_gb,
+        ds_disagg=counters_timed, rates=rates, segments=seg,
+        launches=launches, launch_checks=checks)
+    del pool
+    gc.collect()
+    for eng in engines.values():
+        for uid in list(eng.state_manager._seqs):
+            eng.flush(uid)
+    agree = halves_agreement(engines["prefill"], reqs, served,
+                             uid_base=7000, picks_by=keyed_picks(reqs))
+    res.update(teacher_forced_agreement=agree, floor=KEYED_AGREE_MIN)
+    log("llama disaggregated prefill/decode:", json.dumps(res))
+    if not all(checks.values()):
+        raise RuntimeError(f"disagg checks: {checks}")
+    if min(agree) < KEYED_AGREE_MIN:
+        raise RuntimeError(f"disagg: teacher-forced agreement "
+                           f"{min(agree):.3f} < {KEYED_AGREE_MIN}")
+    engines.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def mistral_phase(counters, card):
     """Mistral-7B-v0.1 at its published configuration (``config.json``'s
     fields through ``llama_config_from_hf``: 8 kv heads, a 4096-token
@@ -4189,6 +4839,15 @@ def main() -> int:
 
     # phase 6i: graph warmth, a second process loads phase 2's libraries
     warmth_phase(cache_dir, card)
+
+    # phase 6j: a replica pool of two engines; 6k: disaggregated
+    # prefill/decode engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, launches_by_path["serving_llama_pool"] = pool_phase(
+        cfg, params, counters, card, llama_summary)
+    _, launches_by_path["serving_llama_disagg"] = disagg_phase(
+        cfg, params, counters, card, llama_summary)
 
     # phase 7
     plain_vs_kernel(cfg, params)

@@ -16,8 +16,10 @@ and tier knobs: ``lattice`` (``"auto:<artifact-or-trace>"``, a mined
 bucket lattice), ``compile_cache_dir`` (where the kernel libraries are
 built and loaded) and ``kv_tier_host_pages`` / ``kv_tier_disk_pages`` /
 ``kv_tier_dir`` (the prefix cache's host and disk tier).
-:class:`TelemetryConfig` carries the workload trace's knobs; its other
-JAX fields raise when set.  ``tp_degree`` stays at 1
+:class:`TelemetryConfig` serves the telemetry switch, the span ring,
+the flight recorder and the workload trace; its other JAX fields raise
+when set.  ``role`` ("both", "prefill" or "decode") splits serving across
+a prefill and a decode engine (``serving.DisaggPool``).  ``tp_degree`` stays at 1
 (another value raises, naming the ROADMAP item that brings it).  The KV
 cache geometry
 is the model's ``kv_config`` when the model was given one, else
@@ -102,6 +104,13 @@ class ServingOptimizationConfig:
     #: (embedding, final norm and lm head shared); 0 = every layer (the
     #: self-draft)
     spec_draft_layers: int = 0
+    #: scheduler role: "both" (one engine prefills and decodes),
+    #: "prefill" (prompt chunks and the FIRST token only; a finished
+    #: prefill parks handoff-ready for a ``serving.DisaggPool`` to stream
+    #: to a decode engine) or "decode" (admits handoff imports only: a
+    #: plain submit ends with ``RequestError(code="misrouted")``).
+    #: Another value raises ``ValueError`` when a scheduler is built
+    role: str = "both"
     tp_degree: int = 1
     #: schedule-invariant sampling: a sampled row draws from
     #: ``fold_in(fold_in(key(seed), uid), position)``, so a request's
@@ -169,25 +178,27 @@ class ServingOptimizationConfig:
 
 
 #: TelemetryConfig fields the port does not serve yet, with the JAX
-#: package's defaults (ROADMAP open item 4, the telemetry package)
+#: package's defaults (ROADMAP Queue 1 item 12b: the metrics server, the
+#: watchdog, the time series, the federation and the SLO evaluator)
 _UNPORTED_TELEMETRY = {
-    "enabled": None, "metrics_port": 0, "trace_buffer": 0,
-    "watchdog": None, "watchdog_threshold": 0.0, "watchdog_warmup": -1,
-    "postmortem_dir": "", "flight_recorder_events": 0,
-    "timeseries_interval_s": 0.0, "timeseries_retention_s": 0.0,
-    "fleet_targets": "", "slo_objectives": [],
+    "metrics_port": 0, "watchdog": None, "watchdog_threshold": 0.0,
+    "watchdog_warmup": -1, "timeseries_interval_s": 0.0,
+    "timeseries_retention_s": 0.0, "fleet_targets": "",
+    "slo_objectives": [],
 }
 
 
 @dataclasses.dataclass
 class TelemetryConfig:
-    """The engine config's ``telemetry`` block.  The workload trace's
-    knobs are served: ``workload_trace_path`` opens the ledger the
-    scheduler writes its requests to (the input of a mined lattice) and
-    ``workload_trace_max_mb`` bounds it ("" and 0 keep the process's
-    current settings, e.g. from ``DS_WORKLOAD_TRACE``).  The other fields
-    are the JAX package's, with its defaults; :meth:`validate` raises
-    ``NotImplementedError`` for another value."""
+    """The engine config's ``telemetry`` block.  Served: ``enabled``
+    (None keeps the process flag, e.g. from ``DS_TELEMETRY``),
+    ``trace_buffer`` (the span ring's capacity), ``postmortem_dir`` and
+    ``flight_recorder_events`` (the flight recorder's bundle directory
+    and ring size), ``workload_trace_path`` and ``workload_trace_max_mb``
+    (the ledger a mined lattice is mined from); 0 and "" keep the
+    process's current settings.  The other fields are the JAX package's,
+    with its defaults; :meth:`validate` raises ``NotImplementedError``
+    for another value."""
     enabled: Optional[bool] = None
     metrics_port: int = 0
     trace_buffer: int = 0
@@ -211,14 +222,19 @@ class TelemetryConfig:
             if getattr(self, field) != default:
                 raise NotImplementedError(
                     f"telemetry.{field}={getattr(self, field)!r} is not "
-                    "ported yet: of the telemetry block the port serves "
-                    "workload_trace_path and workload_trace_max_mb (ROADMAP "
-                    "open item 4, the telemetry package)")
+                    "ported yet: the metrics server, the watchdog, the time "
+                    "series, the federation and the SLO evaluator are "
+                    "ROADMAP Queue 1 item 12b (served: enabled, "
+                    "trace_buffer, postmortem_dir, flight_recorder_events "
+                    "and the workload trace)")
 
     def apply(self) -> None:
         from ...telemetry import apply_settings
         self.validate()
-        apply_settings(workload_trace_path=self.workload_trace_path,
+        apply_settings(enabled=self.enabled, trace_buffer=self.trace_buffer,
+                       postmortem_dir=self.postmortem_dir,
+                       flight_recorder_events=self.flight_recorder_events,
+                       workload_trace_path=self.workload_trace_path,
                        workload_trace_max_mb=self.workload_trace_max_mb)
 
 

@@ -33,7 +33,11 @@ every batch to a mined lattice's tops, and ``precompile`` captures that
 lattice's keys; ``serving.kv_tier_host_pages`` / ``kv_tier_disk_pages``
 give the prefix cache a host and disk tier (``ragged/kv_tiers.py``);
 ``serving.compile_cache_dir`` (or ``DS_COMPILE_CACHE``) is where the
-kernel libraries are built and loaded (``compile_cache.py``).
+kernel libraries are built and loaded (``compile_cache.py``).  For the
+serving fleet (``serving/``): ``export_digests`` is a replica's prefix
+affinity hint, ``export_prefix`` / ``import_prefix`` move a digest
+chain's pages between two engines, and ``precompile(kinds=...)`` shrinks
+the lattice to a disaggregated role's keys.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...telemetry import metrics as tm
+from ...telemetry.flight_recorder import get_flight_recorder
+from ...telemetry.tracer import trace_span
 from .compile_cache import cache_dir_from_env_or_config, enable_compile_cache
 from .config import RaggedInferenceEngineConfig
 from .lattice import enumerate_lattice_keys, resolve_lattice
@@ -80,6 +87,14 @@ class SchedulingError(RuntimeError):
 LATTICE_KINDS = ("prefill", "decode", "chain", "spec")
 
 
+def _validate_kinds(kinds: Sequence[str]) -> None:
+    unknown = set(kinds) - set(LATTICE_KINDS)
+    if unknown:
+        raise ValueError(
+            f"unknown lattice kinds {sorted(unknown)} "
+            f"(expected a subset of {LATTICE_KINDS})")
+
+
 def lattice_kind_of(key: Tuple) -> str:
     """Which :data:`LATTICE_KINDS` class one step key belongs to."""
     kind = key[4] if len(key) > 4 else "logits"
@@ -107,11 +122,7 @@ def lattice_keys(max_prompt: int, max_new_tokens: int,
     :data:`LATTICE_KINDS`.  The key families are
     ``lattice.enumerate_lattice_keys``'s."""
     if kinds is not None:
-        unknown = set(kinds) - set(LATTICE_KINDS)
-        if unknown:
-            raise ValueError(
-                f"unknown lattice kinds {sorted(unknown)} "
-                f"(expected a subset of {LATTICE_KINDS})")
+        _validate_kinds(kinds)
     s_vals, q_vals, p_vals = [], [1], []
     s = _bucket(1, MIN_SLOTS)
     while s <= _bucket(max_concurrency, MIN_SLOTS):
@@ -200,6 +211,12 @@ class InferenceEngineV2:
             tier_disk_pages=int(sv.kv_tier_disk_pages or 0),
             tier_dir=sv.kv_tier_dir or None)
         self._config.telemetry.apply()
+        self._bind_kv_gauges()
+        recorder = get_flight_recorder()
+        recorder.set_config("inference_v2", self._config)
+        recorder.record("engine.build", engine="fastgen",
+                        kv_pages=model.kv_config.num_pages,
+                        page_size=model.kv_config.page_size)
         # the draft pool: unquantised, at the cache dtype, addressed by the
         # target's page ids and tables (allocation and rollback ride the
         # target's allocator; a rejected draft's slots are written again
@@ -215,6 +232,36 @@ class InferenceEngineV2:
                 (self._draft_layers, kv.num_pages + 1, kv.page_size, 2,
                  kv.kv_heads, kv.head_dim), dtype=kv.dtype,
                 device=model.device)
+
+    def _bind_kv_gauges(self) -> None:
+        """Point the ``ds_kv_*`` gauges at this engine's allocator and
+        tier (the newest engine of the process owns them), through
+        weakrefs: the registry keeps no discarded pool alive, and a dead
+        reference reads 0."""
+        import weakref
+        ref = weakref.ref(self._state.kv_cache.allocator)
+
+        def read(attr):
+            def _read(r=ref, a=attr):
+                alloc = r()
+                return getattr(alloc, a) if alloc is not None else 0
+            return _read
+
+        tm.KV_FREE_PAGES.bind(read("free_pages"))
+        tm.KV_LIVE_PAGES.bind(read("live_pages"))
+        tm.KV_PARKED_PAGES.bind(read("parked_pages"))
+        tm.KV_TOTAL_PAGES.bind(read("total_pages"))
+        tref = weakref.ref(self._state)
+
+        def tier_read(attr):
+            def _read(r=tref, a=attr):
+                st = r()
+                tiers = st.tiers if st is not None else None
+                return getattr(tiers, a) if tiers is not None else 0
+            return _read
+
+        tm.KV_TIER_HOST_PAGES.bind(tier_read("host_pages"))
+        tm.KV_TIER_DISK_PAGES.bind(tier_read("disk_pages"))
 
     def _resolve_kv_config(self, model: RaggedInferenceModel) -> KVCacheConfig:
         """The cache the engine builds, with the serving knob
@@ -340,7 +387,8 @@ class InferenceEngineV2:
     def precompile(self, max_prompt: int, max_concurrency: int = 0,
                    max_new_tokens: int = 256, strict: bool = False,
                    sampling: bool = False,
-                   spec_max_draft: Optional[int] = None) -> List[Tuple]:
+                   spec_max_draft: Optional[int] = None,
+                   kinds: Optional[Sequence[str]] = None) -> List[Tuple]:
         """Capture the graphs of the bucket lattice this engine can hit
         (``lattice_keys``) before serving, so no capture lands on the
         request path: S up to ``max_concurrency`` (default: the state
@@ -351,7 +399,12 @@ class InferenceEngineV2:
         ``spec_max_draft`` (default: the serving config's, 0 with
         ``speculative`` off), with the draft trunk's twins when the
         engine has one.  ``strict`` makes any later key outside the set
-        raise.  A failed capture raises.  Returns the keys."""
+        raise.  ``kinds`` keeps a disaggregated role's key classes
+        (:data:`LATTICE_KINDS`; a prefill engine takes ``("prefill",
+        "decode")``, a decode engine ``("decode", "chain", "spec")``) and
+        guards the shrink: on the power-of-two lattice a filter that
+        keeps every key raises.  A failed capture raises.  Returns the
+        keys."""
         sm = self._config.state_manager
         sv = self._config.serving
         if spec_max_draft is None:
@@ -360,9 +413,9 @@ class InferenceEngineV2:
         if self._lattice is not None:
             # a mined lattice: its key set, fitted to this engine
             keys = self._auto_lattice_keys(sampling, spec_max_draft,
-                                           strict=strict)
+                                           kinds, strict=strict)
         else:
-            keys = lattice_keys(
+            kwargs = dict(
                 max_prompt=max_prompt, max_new_tokens=max_new_tokens,
                 max_concurrency=(max_concurrency
                                  or sm.max_ragged_sequence_count),
@@ -372,6 +425,16 @@ class InferenceEngineV2:
                 sampling=sampling, spec_max_draft=spec_max_draft,
                 draft=(self._draft_enabled and sampling
                        and spec_max_draft > 0))
+            keys = lattice_keys(kinds=kinds, **kwargs)
+            if kinds is not None:
+                full = len(lattice_keys(**kwargs))
+                if len(keys) >= full:
+                    raise ValueError(
+                        f"precompile(kinds={tuple(kinds)}) enumerated "
+                        f"{len(keys)} keys but the full lattice has {full}: "
+                        "the role filter did not shrink the captured set "
+                        "(capturing both roles' keys in each engine "
+                        "defeats the disaggregation)")
         for key in keys:
             self._model.precompile_step(key, self._kv_for(key))
         if strict:
@@ -379,6 +442,7 @@ class InferenceEngineV2:
         return keys
 
     def _auto_lattice_keys(self, sampling: bool, spec_max_draft: int,
+                           kinds: Optional[Sequence[str]] = None,
                            strict: bool = False) -> List[Tuple]:
         """The mined lattice's keys this engine can form: the sampling
         families only with ``sampling``, fresh variants only when the
@@ -451,6 +515,17 @@ class InferenceEngineV2:
                             if key not in have:
                                 keys.append(key)
                                 have.add(key)
+        if kinds is not None:
+            _validate_kinds(kinds)
+            want = set(kinds)
+            filtered = [k for k in keys if lattice_kind_of(k) in want]
+            if len(filtered) >= len(keys):
+                # a mined lattice may be role-pure already (mined from one
+                # role's own trace): noted, not refused
+                warnings.warn(
+                    f"precompile(kinds={tuple(kinds)}): the mined lattice "
+                    "holds no key outside these kinds; nothing to shrink")
+            keys = filtered
         return keys
 
     @property
@@ -577,18 +652,19 @@ class InferenceEngineV2:
     # -- the forward ---------------------------------------------------------
     def _admit_batch(self, batch_uids, batch_tokens, do_checks):
         """Schedulability check + KV reservation + in-flight marking."""
-        if do_checks:
-            res = self.can_schedule(batch_uids,
-                                    [len(t) for t in batch_tokens])
-            if res != SchedulingResult.Success:
-                raise SchedulingError(res)
-        descs = []
-        for uid, toks in zip(batch_uids, batch_tokens):
-            sd = self._state.get_or_create_sequence(uid)
-            self._state.allocate_for(sd, len(toks))
-            sd.pre_forward(len(toks))
-            descs.append(sd)
-        return descs
+        with trace_span("engine.admit"):
+            if do_checks:
+                res = self.can_schedule(batch_uids,
+                                        [len(t) for t in batch_tokens])
+                if res != SchedulingResult.Success:
+                    raise SchedulingError(res)
+            descs = []
+            for uid, toks in zip(batch_uids, batch_tokens):
+                sd = self._state.get_or_create_sequence(uid)
+                self._state.allocate_for(sd, len(toks))
+                sd.pre_forward(len(toks))
+                descs.append(sd)
+            return descs
 
     def _commit_batch(self, descs) -> None:
         """Commit the host bookkeeping (the token VALUES may still be on
@@ -596,21 +672,23 @@ class InferenceEngineV2:
         release the pages a sliding window has left behind (in that
         order: an indexed page the window releases stays parked in the
         prefix cache)."""
-        window = self._model.cfg.sliding_window
-        for sd in descs:
-            sd.post_forward()
-            self._state.index_prefix(sd)
-            if window:
-                # every later query starts past these pages: live KV
-                # stays O(window), not O(context)
-                self._state.evict_window(sd, window)
+        with trace_span("engine.commit"):
+            window = self._model.cfg.sliding_window
+            for sd in descs:
+                sd.post_forward()
+                self._state.index_prefix(sd)
+                if window:
+                    # every later query starts past these pages: live KV
+                    # stays O(window), not O(context)
+                    self._state.evict_window(sd, window)
 
     def _build_batch(self, descs, tokens, min_q: int = 1):
-        return build_batch(
-            descs, [np.asarray(t) for t in tokens],
-            self._model.kv_config.page_size,
-            fresh_supported=self._model._fresh_attention is not None,
-            min_q=min_q, lattice=self._lattice)
+        with trace_span("engine.build_batch"):
+            return build_batch(
+                descs, [np.asarray(t) for t in tokens],
+                self._model.kv_config.page_size,
+                fresh_supported=self._model._fresh_attention is not None,
+                min_q=min_q, lattice=self._lattice)
 
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[np.ndarray],
@@ -856,15 +934,16 @@ class InferenceEngineV2:
         indexed and a window's pages released, as after any forward.
         Generated tokens are never indexed, so a rejected draft cannot
         reach a shared page."""
-        window = self._model.cfg.sliding_window
-        for uid, n in zip(batch_uids, committed):
-            sd = self._state.get_sequence(uid)
-            if sd is None:
-                continue
-            sd.commit_tokens(int(n))
-            self._state.index_prefix(sd)
-            if window:
-                self._state.evict_window(sd, window)
+        with trace_span("engine.commit"):
+            window = self._model.cfg.sliding_window
+            for uid, n in zip(batch_uids, committed):
+                sd = self._state.get_sequence(uid)
+                if sd is None:
+                    continue
+                sd.commit_tokens(int(n))
+                self._state.index_prefix(sd)
+                if window:
+                    self._state.evict_window(sd, window)
 
     # -- prefix caching ------------------------------------------------------
     def match_prefix(self, uid: int, prompt: Sequence[int]) -> int:
@@ -884,10 +963,36 @@ class InferenceEngineV2:
         return self._state.match_prefix(
             sd, np.asarray(prompt, dtype=np.int32).reshape(-1))
 
+    def export_digests(self, top_k: int = 64) -> List[str]:
+        """The prefix cache's bounded affinity hint: the ``top_k`` most
+        recently used cumulative page digests as hex, most recent first
+        (empty with caching off); the one cache introspection a pool
+        router needs."""
+        return self._state.export_digests(top_k)
+
     def reset_prefix_cache(self) -> None:
         """Drop every cache entry (the host and disk tier's too) and
         return parked pages to the pool (a cold start)."""
         self._state.reset_prefix_cache()
+
+    def export_prefix(self, digests_hex: List[str], max_pages: int = 64):
+        """The KV contents of the leading run of a request's digest chain
+        this engine's prefix cache holds, as ``(meta, arrays)`` (the page
+        fetch's export half), or None when cold."""
+        return self._state.export_prefix(digests_hex, max_pages=max_pages)
+
+    def import_prefix(self, meta: dict, arrays: dict) -> dict:
+        """Merge a peer's exported prefix pages into this engine's cache
+        as parked, indexed pages (the fetched request's admission then
+        matches them).  Raises the retryable ``KVAllocationError`` when
+        the pool lacks room."""
+        return self._state.import_prefix(meta, arrays)
+
+    def cost_summary(self) -> Dict:
+        """The dispatched steps' analytic cost (the model's
+        ``cost_summary``): FLOPs and bytes in total and per key, the
+        window and the rates over it."""
+        return self._model.cost_summary()
 
     def tier_hits(self, uid: int) -> Optional[dict]:
         """The tokens a tracked sequence's prefix match attached, by tier

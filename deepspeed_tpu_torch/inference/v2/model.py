@@ -26,7 +26,9 @@ the CPU or when named the plain versions.
 from __future__ import annotations
 
 import functools
+import os
 import time
+import weakref
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -35,6 +37,7 @@ import torch
 
 from ...accelerator import DeviceLike, resolve_device
 from ...models import transformer as T
+from ...telemetry import metrics as tm
 from ...telemetry.workload_trace import get_workload_trace
 from ...ops.kernel_loader import CountedGraph
 from ...ops.paged_attention import (KVLayer, rope_write_kv, token_positions,
@@ -52,6 +55,35 @@ OP_CLASSES = ("embedding", "norm", "ragged_attention",
 
 _I32, _F32 = np.dtype(np.int32), np.dtype(np.float32)
 _I64 = np.dtype(np.int64)
+
+
+#: NVIDIA H100 SXM, bf16 dense (the data sheet's figure at 700 W)
+H100_BF16_PEAK_FLOPS = 989e12
+
+
+def serving_peak_flops() -> float:
+    """Peak FLOP/s denominator of the serving MFU gauges:
+    ``DS_PEAK_FLOPS`` wins, else the H100's bf16 dense peak (the card
+    the port is built for); the JAX package reads its device table."""
+    env = os.environ.get("DS_PEAK_FLOPS", "")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    return H100_BF16_PEAK_FLOPS
+
+
+def _leaves(tree, path=()):
+    """(path, tensor) of every leaf of a param tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
 
 
 def _input_specs(key, keyed: bool = False
@@ -236,6 +268,15 @@ class RaggedInferenceModel:
         #: capture, which the workload trace records as a compile)
         self.precompile_captures = 0
         self.path_captures = 0
+        # the dispatched steps' cost: an analytic estimate per key (the
+        # JAX package reads XLA's cost analysis of each executable) and
+        # the dispatched rows' work behind the rate gauges
+        self._program_costs: Dict[tuple, Dict[str, float]] = {}
+        self._flops_dispatched = 0.0
+        self._bytes_dispatched = 0.0
+        self._cost_t0: Optional[float] = None
+        self._cost_gauges_bound = False
+        self._weight_numel, self._weight_bytes = self._count_weights()
 
     # -- public steps --------------------------------------------------------
     def forward(self, batch: RaggedBatch, kv: KVLayer) -> torch.Tensor:
@@ -500,12 +541,17 @@ class RaggedInferenceModel:
                     "precompile(...) (sampling=True covers the sample and "
                     "chain steps) or disable strict_shapes.")
             self.path_captures += 1
+            tm.FASTGEN_STEP_CACHE_MISS.inc()
+            tm.FASTGEN_COMPILE_ON_PATH.inc()
             if wt.active:
                 wt.record_compile(key)
             graph = self._step_cache[key] = self._new_step(key, kv, inputs)
+        else:
+            tm.FASTGEN_STEP_CACHE_HIT.inc()
         self.dispatch_counts[key] += 1
         if wt.active:
             wt.note_step_key(key)
+        self._account_cost(key, inputs)
         if graph is None:
             return self._call(key, kv, generator, *(
                 torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -521,6 +567,151 @@ class RaggedInferenceModel:
         if key not in self._step_cache:
             self.precompile_captures += 1
             self._step_cache[key] = self._new_step(key, kv)
+
+    # -- the dispatched steps' cost -------------------------------------------
+    def _count_weights(self) -> Tuple[int, int]:
+        """(weights a token multiplies, bytes of all weights): every
+        tensor but the embedding table, whose rows are gathered, unless
+        the lm head is that table."""
+        numel = nbytes = 0
+        for name, t in _leaves(self.params):
+            nbytes += t.numel() * t.element_size()
+            if name != ("embed", "tokens") or self.cfg.tie_embeddings:
+                numel += t.numel()
+        return numel, nbytes
+
+    def _program_cost(self, key) -> Dict[str, float]:
+        """Analytic FLOPs and bytes of the program ``key`` captures, at
+        its padded shapes (the per-key table; the JAX package reads
+        XLA's cost analysis of the executable): 2 FLOPs per weight per
+        row, plus QK^T and PV over the key's padded context (4·L·H·D per
+        row and context token); the bytes read every weight once and the
+        K and V of every page the key addresses.  A bound on one
+        dispatch, not what it does: the rate gauges count
+        ``_dispatched_cost``."""
+        cost = self._program_costs.get(key)
+        if cost is not None:
+            return cost
+        cfg, kv = self.cfg, self.kv_config
+        kind = _kind(key)
+        S, Q, P = int(key[0]), int(key[1]), int(key[2])
+        if kind == "mixed":
+            segs = [(S, 1, P), (int(key[5]), int(key[6]), int(key[7]))]
+        else:
+            segs = [(S, Q, P)]
+        L = (self.draft_cfg.num_layers if kind == "draft_fill"
+             and self.draft_cfg is not None else cfg.num_layers)
+        scale = L / cfg.num_layers
+        hd = cfg.num_heads * cfg.dims_per_head
+        kv_token = kv.bytes_per_page / kv.page_size * scale
+        flops = nbytes = 0.0
+        for s, q, p in segs:
+            rows, ctx = s * q, p * kv.page_size
+            flops += (2.0 * self._weight_numel * scale * rows
+                      + 4.0 * L * hd * rows * ctx)
+            nbytes += s * ctx * kv_token
+        nbytes += self._weight_bytes * scale
+        cost = self._program_costs[key] = {"flops": flops, "bytes": nbytes}
+        return cost
+
+    def _dispatched_cost(self, key, inputs) -> Tuple[float, float]:
+        """(FLOPs, bytes) of the work one dispatch of ``key`` does on
+        ``inputs``: each live row's new tokens through every weight, QK^T
+        and PV over each new token's causal (windowed) context, every
+        weight read once and the K and V of each live row's context.
+        Padding rows and pages past a row's context cost nothing, so the
+        rates over wall time stay below the card's peaks.  The draft
+        trunk of a ``draft_spec`` step is not counted."""
+        cfg = self.cfg
+        kind = _kind(key)
+        if kind == "chain":       # (prev_tokens, gather_idx, q_lens, ...)
+            segs = [inputs[2:4]]
+        elif kind == "mixed":     # two (token_ids, q_lens, start_pos, table)
+            segs = [inputs[1:3], inputs[5:7]]
+        else:
+            segs = [inputs[1:3]]
+        L = (self.draft_cfg.num_layers if kind == "draft_fill"
+             and self.draft_cfg is not None else cfg.num_layers)
+        scale = L / cfg.num_layers
+        hd = cfg.num_heads * cfg.dims_per_head
+        kv = self.kv_config
+        kv_token = kv.bytes_per_page / kv.page_size * scale
+        tokens = attended = context = 0
+        for q_lens, start_pos in segs:
+            q = np.asarray(q_lens, np.int64)
+            h = np.asarray(start_pos, np.int64)[q > 0]
+            q = q[q > 0]
+            tokens += int(q.sum())
+            context += int((h + q).sum())
+            if cfg.sliding_window is None:
+                attended += int((q * h + q * (q + 1) // 2).sum())
+            else:
+                pos = h[:, None] + np.arange(1, int(q.max(initial=0)) + 1)
+                attended += int(np.where(
+                    np.arange(pos.shape[1]) < q[:, None],
+                    np.minimum(pos, cfg.sliding_window), 0).sum())
+        flops = (2.0 * self._weight_numel * scale * tokens
+                 + 4.0 * L * hd * attended)
+        return flops, self._weight_bytes * scale + context * kv_token
+
+    def _account_cost(self, key, inputs) -> None:
+        cost = self._program_cost(key)
+        if self._cost_t0 is None:
+            self._cost_t0 = time.perf_counter()
+        flops, nbytes = self._dispatched_cost(key, inputs)
+        self._flops_dispatched += flops
+        self._bytes_dispatched += nbytes
+        tm.FASTGEN_PROGRAM_FLOPS.set(cost["flops"])
+        tm.FASTGEN_PROGRAM_BYTES.set(cost["bytes"])
+        if not self._cost_gauges_bound:
+            self._bind_cost_gauges()
+
+    def _bind_cost_gauges(self) -> None:
+        """Bind the rate gauges once costs exist: the window opens at the
+        first dispatch (``reset_cost_window`` opens it again).  Through a
+        weakref, so the registry keeps no discarded model alive."""
+        self._cost_gauges_bound = True
+        ref = weakref.ref(self)
+        peak = serving_peak_flops()
+
+        def rate(attr, scale=1.0):
+            def _read(r=ref, a=attr, s=scale):
+                m = r()
+                if m is None or m._cost_t0 is None:
+                    return 0.0
+                wall = max(time.perf_counter() - m._cost_t0, 1e-9)
+                return getattr(m, a) / wall / s
+            return _read
+
+        tm.FASTGEN_MFU.bind(rate("_flops_dispatched", peak))
+        tm.FASTGEN_BYTES_PER_S.bind(rate("_bytes_dispatched"))
+        # one shard (tp_degree 1): the per-shard pair reads the same
+        tm.FASTGEN_SHARD_MFU.bind(rate("_flops_dispatched", peak))
+        tm.FASTGEN_SHARD_BYTES_PER_S.bind(rate("_bytes_dispatched"))
+
+    def reset_cost_window(self) -> None:
+        """Open the MFU / bytes-per-s window again (the per-key table
+        stays)."""
+        self._flops_dispatched = 0.0
+        self._bytes_dispatched = 0.0
+        self._cost_t0 = None
+
+    def cost_summary(self) -> Dict[str, Any]:
+        """Per-key cost table and the window's totals and rates (the JAX
+        model's ``cost_summary`` layout)."""
+        wall = (max(time.perf_counter() - self._cost_t0, 1e-9)
+                if self._cost_t0 is not None else 0.0)
+        peak = serving_peak_flops()
+        return {
+            "programs": {repr(k): dict(v)
+                         for k, v in self._program_costs.items()},
+            "flops_dispatched": self._flops_dispatched,
+            "bytes_dispatched": self._bytes_dispatched,
+            "window_s": wall,
+            "peak_flops": peak,
+            "mfu": self._flops_dispatched / wall / peak if wall else 0.0,
+            "bytes_per_s": self._bytes_dispatched / wall if wall else 0.0,
+        }
 
     def reset_steps(self) -> None:
         """Drop every captured graph and the key bookkeeping (the model

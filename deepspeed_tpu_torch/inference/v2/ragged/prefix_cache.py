@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
+from itertools import islice
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -138,6 +139,14 @@ class PrefixCache:
             else:
                 self._entries.move_to_end(d)
         return out
+
+    def export_digests(self, top_k: int = 64) -> List[str]:
+        """The bounded affinity hint a replica publishes to the pool
+        router: the ``top_k`` most recently used cumulative digests as
+        hex, most recent first; no page ids, no KV contents."""
+        if top_k <= 0:
+            return []
+        return [d.hex() for d in islice(reversed(self._entries), top_k)]
 
     def export_entries(self) -> List[Tuple[bytes, int]]:
         """Every (digest, page) binding in LRU order, oldest first (a

@@ -65,9 +65,26 @@ record (lengths, page digests, parameters, TTFT / ITL / queue wait, the
 speculation counts and the warm-prefix tokens by tier), the ledger a
 mined lattice is mined from.
 
-Not ported yet (ROADMAP Queue 1 items 11i, 12, open item 4): handoffs,
-the fault injector's poisoned requests, and the rest of the telemetry
-(the speculation counters stay plain attributes).
+A scheduler has a role (``serving.role``): "both" serves whole
+requests; a "prefill" scheduler runs prompts and each request's FIRST
+token, then parks the request handoff-ready until a ``serving.
+DisaggPool`` streams it (``export_handoff``: the committed pages through
+the manager's selective export, and the request's residual state) to a
+"decode" scheduler (``import_handoff``, which merges into the live
+engine and admits nothing else).  A request a role can never finish is
+refused at once with a ``"misrouted"`` verdict.
+
+Telemetry (``telemetry/``, gated on one flag): each request carries a
+journey from submit to its end, across handoffs, snapshots and pool
+migrations; steps, dispatches and admissions are spans; lifecycle
+events go to the flight recorder (which writes a postmortem bundle when
+a step raises); the SLO histograms, the ``ds_fastgen_*`` counters and
+the ``ds_disagg_*`` / speculation counters are fed as in the JAX
+package.  The ``serving.preempt`` fault-injection site raises
+``InjectedPreemptionFault`` between steps.  Not ported yet (ROADMAP
+Queue 1 items 11i and 12b): the ``fastgen.poison_request`` site with its
+``"poisoned"`` verdict, and the watchdog, time-series, memory-ledger and
+serving-counter sites.
 """
 
 from __future__ import annotations
@@ -82,6 +99,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...runtime.fault_injection import (InjectedPreemptionFault,
+                                        get_fault_injector)
+from ...telemetry import journey as _journey
+from ...telemetry import metrics as tm
+from ...telemetry.flight_recorder import get_flight_recorder
+from ...telemetry.state import state as _telemetry
+from ...telemetry.tracer import get_tracer, trace_span
 from ...telemetry.workload_trace import get_workload_trace
 from .config import ServingOptimizationConfig
 from .engine import InferenceEngineV2
@@ -135,6 +159,19 @@ class Request:
     spec_accepted_ngram: int = 0
     spec_drafted_model: int = 0
     spec_accepted_model: int = 0
+    #: SLO stamps (``time.perf_counter()``, stamped while telemetry is
+    #: on; 0.0 = unset): submit, first admission, the last token, and
+    #: the telemetry generation that last stamp was taken in
+    submit_s: float = 0.0
+    first_sched_s: float = 0.0
+    last_token_s: float = 0.0
+    slo_gen: int = 0
+    #: the request's journey (``telemetry.journey.Journey``; None with
+    #: telemetry off at submit), carried across handoffs, snapshots and
+    #: pool migrations; ``journey_admitted`` latches this scheduler's
+    #: queue_wait mark (a migrated request queues again on its new home)
+    journey: Optional[object] = None
+    journey_admitted: bool = False
 
     @property
     def prefill_remaining(self) -> int:
@@ -147,8 +184,12 @@ class RequestError:
     ``"shed"`` (admission control: a full queue, a violated queue-wait
     SLO, or unservable demand), ``"expired"`` (its deadline passed),
     ``"oom"`` (the KV pool stayed exhausted after the degradation
-    ladder), ``"closing"`` (submitted after ``close``) or ``"migrated"``
-    (the drain's grace budget ran out before a snapshot).  ``tokens``
+    ladder, or a handoff the decode engine could never hold),
+    ``"closing"`` (submitted after ``close``), ``"migrated"`` (the
+    drain's grace budget ran out before a snapshot) or ``"misrouted"``
+    (the scheduler's role can never finish it: a fresh submit to a
+    decode scheduler, or a multi-token submit to a prefill scheduler no
+    handoff sink collects from).  ``tokens``
     holds what the request generated before it ended."""
     uid: int
     code: str
@@ -233,11 +274,13 @@ class FastGenScheduler:
     engine's) sets the step flags and the degradation knobs for this
     scheduler; its ``kv_quantization`` must be the engine's.  With
     ``DS_KV_DEBUG=1`` in the environment the KV page accounting is
-    audited after every step."""
+    audited after every step.  ``role`` (default: the serving view's
+    ``role``) is "both", "prefill" or "decode"."""
 
     def __init__(self, engine: InferenceEngineV2,
                  token_budget: Optional[int] = None, seed: int = 0,
-                 serving: Optional[ServingOptimizationConfig] = None):
+                 serving: Optional[ServingOptimizationConfig] = None,
+                 role: Optional[str] = None):
         self._engine = engine
         if serving is not None:
             serving.validate()
@@ -252,6 +295,23 @@ class FastGenScheduler:
         self._fused_cfg = bool(sv.fused_step and sv.on_device_sampling)
         self._async_cfg = bool(self._fused_cfg and sv.async_scheduling)
         self._prefix_cfg = bool(sv.prefix_caching)
+        # -- disaggregated roles
+        self._role = str(role if role is not None else (sv.role or "both"))
+        if self._role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"unknown scheduler role {self._role!r} "
+                "(expected both|prefill|decode)")
+        if self._role == "prefill":
+            # a prefill engine never decodes steadily: no chain (and no
+            # speculation below); every request leaves after its first
+            # token
+            self._async_cfg = False
+        #: prefill role: requests whose first token is delivered, parked
+        #: until the DisaggPool collects them
+        self._handoff_ready: Dict[int, Request] = {}
+        #: a DisaggPool collects this prefill scheduler's handoffs (else
+        #: a multi-token request could never finish here)
+        self._handoff_sink = False
         #: latches of the strict-shapes check in ``_fused``
         self._fused_ready = False
         self._warned_strict_fallback = False
@@ -289,7 +349,7 @@ class FastGenScheduler:
         self._spec_max_draft = max(int(sv.spec_max_draft or 0), 0)
         self._drafter = (NgramDrafter(max(int(sv.spec_ngram_min or 1), 1))
                          if sv.speculative and self._spec_max_draft
-                         else None)
+                         and self._role != "prefill" else None)
         #: "ngram", "model" or "auto": the policy (the scheduler's view)
         self._spec_drafter_cfg = str(sv.spec_drafter or "ngram")
         #: the engine built a draft trunk: the capability ("model" or
@@ -308,50 +368,122 @@ class FastGenScheduler:
         #: verify dispatches, and the tokens they committed
         self._spec_steps = 0
         self._spec_committed_cum = 0
-        #: drafter switches of "auto", by (from, to)
+        #: drafter switches of "auto", by (from, to) (each also a
+        #: ``spec.drafter_switch`` flight event)
         self.spec_switches: Counter = Counter()
         # snapshots: the SIGTERM drain path with its grace budget
         self._snapshot_grace_s = float(sv.snapshot_grace_s or 0.0)
         self._snapshot_path = str(sv.snapshot_path or "")
         self._wtrace = get_workload_trace()
+        self._bind_gauges()
         if self._snapshot_path:
             maybe_install_drain_handler(self, self._snapshot_path,
                                         self._snapshot_grace_s)
 
+    def _bind_gauges(self) -> None:
+        """The backlog gauges read the live queues at scrape time, and
+        ``ds_mem_staging_bytes`` this scheduler's handoff staging (the
+        newest scheduler of the process owns them; through a weakref, so
+        the registry keeps no discarded scheduler alive)."""
+        import weakref
+        ref = weakref.ref(self)
+
+        def read(attr):
+            def _read(r=ref, a=attr):
+                sched = r()
+                return len(getattr(sched, a)) if sched is not None else 0
+            return _read
+
+        tm.FASTGEN_QUEUE_DEPTH.bind(read("_pending"))
+        tm.FASTGEN_RUNNING.bind(read("_running"))
+        tm.FASTGEN_PREEMPTED.bind(read("_preempted"))
+
+        def _staging(r=ref):
+            sched = r()
+            return sched.staging_bytes if sched is not None else 0
+
+        tm.MEM_STAGING_BYTES.bind(_staging)
+
+    @property
+    def staging_bytes(self) -> int:
+        """KV bytes the handoff-ready sequences hold while they wait for
+        the decode engine: committed capacity the allocator cannot take
+        back (a stuck handoff shows as growing staging, not as mystery
+        KV pressure)."""
+        kv = self._engine.model.kv_config
+        state = self._engine.state_manager
+        total = 0
+        for uid, req in list(self._handoff_ready.items()):
+            sd = state.get_sequence(uid)
+            toks = sd.seen_tokens if sd is not None else len(req.prompt)
+            total += -(-int(toks) // kv.page_size) * kv.bytes_per_page
+        return total
+
     # -- request lifecycle ---------------------------------------------------
     def submit(self, uid: int, prompt: Sequence[int],
                params: Optional[SamplingParams] = None,
-               ttl_s: Optional[float] = None) -> Optional[RequestError]:
+               ttl_s: Optional[float] = None,
+               journey: Optional[object] = None) -> Optional[RequestError]:
         """Queue a request.  Returns None when it is accepted, else the
         :class:`RequestError` that rejects it at once (also kept in
-        ``errors``): the scheduler is closed (``"closing"``), the queue
-        holds ``max_queue_depth`` requests, or the oldest pending request
-        has waited past ``shed_queue_wait_ms`` (``"shed"``).  ``ttl_s``
-        (default: the config's ``default_ttl_s``) sets a deadline past
-        which the request ends with an ``"expired"`` error."""
+        ``errors``): the scheduler is closed (``"closing"``), its role
+        can never finish the request (``"misrouted"``), the queue holds
+        ``max_queue_depth`` requests, or the oldest pending request has
+        waited past ``shed_queue_wait_ms`` while the queue-wait histogram
+        does not veto it (``"shed"``).  ``ttl_s`` (default: the config's
+        ``default_ttl_s``) sets a deadline past which the request ends
+        with an ``"expired"`` error.  ``journey`` is the caller's journey
+        of the request (a pool's); without one a journey is minted here
+        (None with telemetry off)."""
         now = time.monotonic()
         req = Request(uid=uid, prompt=np.asarray(prompt, dtype=np.int32),
                       params=params or SamplingParams(), submit_mono=now)
+        req.journey = (journey if journey is not None
+                       else _journey.mint(uid))
         if self._closed:
             return self._reject_submit(
                 req, "closing", "scheduler is closed to new requests "
                 "(drain or shutdown); resubmit elsewhere")
+        # a request the role can never finish is refused at once, never
+        # left in a queue nothing drains
+        if self._role == "decode":
+            return self._reject_submit(
+                req, "misrouted", "decode-only scheduler: fresh requests "
+                "need prefill; submit to the prefill engine (this one "
+                "admits handoff imports only)")
+        if self._role == "prefill" and not self._handoff_sink \
+                and req.params.max_new_tokens > 1:
+            return self._reject_submit(
+                req, "misrouted", "prefill-only scheduler with no handoff "
+                f"sink: max_new_tokens={req.params.max_new_tokens} could "
+                "never complete here (only the first token is produced by "
+                "the prefill engine)")
         ttl = ttl_s if ttl_s is not None else (self._default_ttl_s or None)
         if ttl:
             req.deadline = now + float(ttl)
             self._has_deadlines = True
+        if _telemetry.enabled:
+            req.submit_s = time.perf_counter()
         if self._max_queue_depth and \
                 len(self._pending) >= self._max_queue_depth:
             return self._reject_submit(
                 req, "shed", f"admission queue full ({len(self._pending)} "
                 f"pending >= max_queue_depth={self._max_queue_depth})")
         if self._shed_queue_wait_ms > 0.0 and self._pending:
+            # the current backlog decides; the queue-wait histogram,
+            # cumulative over the process, may only veto (a fresh
+            # backlog in a healthy period is not shed for a burst long
+            # ago) once it has data
+            h = tm.FASTGEN_QUEUE_WAIT_MS
             oldest_ms = (now - self._pending[0].submit_mono) * 1e3
-            if oldest_ms > self._shed_queue_wait_ms:
+            if oldest_ms > self._shed_queue_wait_ms and (
+                    h.count < 8
+                    or h.percentile(90.0) > self._shed_queue_wait_ms):
                 return self._reject_submit(
                     req, "shed", f"queue-wait SLO "
                     f"{self._shed_queue_wait_ms:.1f}ms violated (oldest "
-                    f"pending {oldest_ms:.1f}ms)")
+                    f"pending {oldest_ms:.1f}ms, observed p90 "
+                    f"{h.percentile(90.0):.1f}ms over {h.count} samples)")
         if self._is_live(uid):
             raise ValueError(f"request {uid} is already live")
         self._pending.append(req)
@@ -359,6 +491,7 @@ class FastGenScheduler:
 
     def _is_live(self, uid: int) -> bool:
         return (uid in self._running or uid in self._preempted
+                or uid in self._handoff_ready
                 or any(r.uid == uid for r in self._pending))
 
     def _reject_submit(self, req: Request, code: str,
@@ -368,6 +501,10 @@ class FastGenScheduler:
         verdict: the verdict of the new submit is returned but not
         stored."""
         if self._is_live(req.uid):
+            tm.FASTGEN_SHED.inc()
+            get_flight_recorder().record(
+                "request.error", uid=req.uid, code=code,
+                message=message[:200], tokens=0, duplicate=True)
             return RequestError(uid=req.uid, code=code, message=message)
         self._fail_request(req, code, message)
         return self.errors[req.uid]
@@ -381,6 +518,7 @@ class FastGenScheduler:
         self._pending = [r for r in self._pending if r.uid != req.uid]
         self._running.pop(req.uid, None)
         self._preempted.pop(req.uid, None)
+        self._handoff_ready.pop(req.uid, None)
         if self._engine.state_manager.get_sequence(req.uid) is not None:
             self._engine.flush(req.uid)
         if self._drafter is not None:
@@ -390,8 +528,37 @@ class FastGenScheduler:
             tokens=list(req.generated))
         while len(self.errors) > _MAX_ERROR_RECORDS:
             self.errors.pop(next(iter(self.errors)))   # the oldest
+        if code in ("shed", "closing"):
+            tm.FASTGEN_SHED.inc()       # "closing" is admission control too
+        elif code == "misrouted":
+            tm.DISAGG_MISROUTED.inc()
+        elif code == "expired":
+            tm.FASTGEN_EXPIRED.inc()
+        elif code == "migrated":
+            tm.FASTGEN_MIGRATED.inc()
+        else:
+            tm.FASTGEN_REQUEST_ERROR.inc()
+        get_flight_recorder().record(
+            "request.error", uid=req.uid, code=code,
+            message=message[:200], tokens=len(req.generated))
+        # the journey closes first, so the ledger record sees its buckets
+        self._journey_finish(req, code)
         if self._wtrace.active:
             self._trace_finish(req, code)   # the outcome is the error code
+
+    def _journey_finish(self, req: Request, outcome: str) -> None:
+        """Close and publish the request's journey, once (a prefill-side
+        copy whose request finished on the decode engine is already
+        closed)."""
+        j = req.journey
+        if j is None or j.closed:
+            return
+        if req.generated:
+            # first token -> last committed token; a request that ended
+            # before any token folds straight into drain
+            j.mark("decode")
+        j.mark("drain")
+        _journey.get_journey_log().publish(j, outcome)
 
     # -- the workload trace ----------------------------------------------------
     def _trace_finish(self, req: Request, outcome: str) -> None:
@@ -432,7 +599,10 @@ class FastGenScheduler:
             spec_ngram=[req.spec_drafted_ngram, req.spec_accepted_ngram],
             spec_model=[req.spec_drafted_model, req.spec_accepted_model],
             hit_device=hits.get("device", 0), hit_host=hits.get("host", 0),
-            hit_disk=hits.get("disk", 0), hit_remote=hits.get("remote", 0))
+            hit_disk=hits.get("disk", 0), hit_remote=hits.get("remote", 0),
+            journey_ms=(req.journey.bucket_ms()
+                        if req.journey is not None and req.journey.segments
+                        else None))
 
     def _expire_requests(self) -> None:
         """End every request whose deadline has passed: pending, running
@@ -441,7 +611,8 @@ class FastGenScheduler:
             return
         now = time.monotonic()
         expired = [r for r in (self._pending + list(self._running.values())
-                               + list(self._preempted.values()))
+                               + list(self._preempted.values())
+                               + list(self._handoff_ready.values()))
                    if r.deadline is not None and now >= r.deadline]
         for req in expired:
             self._fail_request(
@@ -470,8 +641,10 @@ class FastGenScheduler:
         self._closed = True
 
     def reopen(self) -> None:
-        """Resume admission after ``close``."""
+        """Resume admission after ``close`` (an aborted scale-down; the
+        engine state is untouched by closing)."""
         self._closed = False
+        get_flight_recorder().record("fastgen.reopen", backlog=self.backlog)
 
     @property
     def _fused(self) -> bool:
@@ -526,11 +699,21 @@ class FastGenScheduler:
         """Append one token and deliver it; True when it ends the
         request (``max_new_tokens`` reached or the stop token)."""
         req.generated.append(tok)
+        # unconditional, like the JAX package's: the windowed tok/s
+        # numerator exists with telemetry off
+        tm.FASTGEN_TOKENS.inc()
+        if _telemetry.enabled:
+            self._note_token_slo(req)
         if self._wtrace.active:
             mono = time.monotonic()
             if req.first_token_mono == 0.0:
                 req.first_token_mono = mono
             req.last_token_mono = mono
+        if req.journey is not None and len(req.generated) == 1:
+            # the first committed token closes prefill (marked on the
+            # prefill side only: an imported request arrives with tokens)
+            req.journey.mark("prefill")
+            req.journey.mark("first_token")
         out[req.uid] = tok
         if on_token is not None:
             on_token(req.uid, tok)
@@ -538,12 +721,28 @@ class FastGenScheduler:
         return (len(req.generated) >= req.params.max_new_tokens
                 or (stop is not None and tok == stop))
 
+    def _note_token_slo(self, req: Request) -> None:
+        """One host-visible token: the first feeds TTFT (from submit),
+        the later ones the inter-token latency, when the previous stamp
+        was taken in this telemetry generation."""
+        now = time.perf_counter()
+        if len(req.generated) == 1:
+            if req.submit_s:
+                tm.FASTGEN_TTFT_MS.observe((now - req.submit_s) * 1e3)
+        elif req.last_token_s and req.slo_gen == _telemetry.generation:
+            tm.FASTGEN_ITL_MS.observe((now - req.last_token_s) * 1e3)
+        req.last_token_s = now
+        req.slo_gen = _telemetry.generation
+
     def _finish_request(self, req: Request) -> None:
         req.done = True
+        get_flight_recorder().record("request.done", uid=req.uid,
+                                     tokens=len(req.generated))
         self._engine.flush(req.uid)
         self._running.pop(req.uid, None)
         if self._drafter is not None:
             self._drafter.drop(req.uid)
+        self._journey_finish(req, "ok")
         if self._wtrace.active:
             self._trace_finish(req, "ok")
 
@@ -551,6 +750,10 @@ class FastGenScheduler:
     def _drain(self, on_token) -> Dict[int, int]:
         if self._inflight is None:
             return {}
+        with trace_span("fastgen.drain"):
+            return self._drain_impl(on_token)
+
+    def _drain_impl(self, on_token) -> Dict[int, int]:
         inf, self._inflight = self._inflight, None
         if inf.copied is not None:
             inf.copied.synchronize()
@@ -689,13 +892,19 @@ class FastGenScheduler:
         return req.spec_drafter
 
     def _switch_drafter(self, req: Request, new: str) -> None:
-        self.spec_switches[(req.spec_drafter, new)] += 1
+        old = req.spec_drafter
+        self.spec_switches[(old, new)] += 1
         req.spec_drafter = new
         if new == "off":
             # parked for one full backoff window, then re-probed
             req.spec_dry = req.spec_cool = self._SPEC_BACKOFF_MAX
         else:
             req.spec_dry = req.spec_cool = 0
+        ew = req.spec_ewma or {}
+        get_flight_recorder().record(
+            "spec.drafter_switch", uid=req.uid, src=old, dst=new,
+            ewma_ngram=round(ew.get("ngram", -1.0), 3),
+            ewma_model=round(ew.get("model", -1.0), 3))
 
     def _maybe_switch_drafter(self, req: Request) -> None:
         """The "auto" state machine: ngram -> model when the n-gram
@@ -893,11 +1102,22 @@ class FastGenScheduler:
             self._engine.mark_draft_seen(uids)
             self._spec_draft_drafted_cum += drafted
             self._spec_draft_accepted_cum += accepted
+            tm.FASTGEN_SPEC_DRAFT_DRAFTED.inc(drafted)
+            tm.FASTGEN_SPEC_DRAFT_ACCEPTED.inc(accepted)
+            if self._spec_draft_drafted_cum:
+                tm.FASTGEN_SPEC_DRAFT_ACCEPT_RATE.set(
+                    self._spec_draft_accepted_cum
+                    / self._spec_draft_drafted_cum)
         for _, req, _, _ in rows:
             if req.done:
                 self._finish_request(req)
         self._spec_drafted_cum += drafted
         self._spec_accepted_cum += accepted
+        tm.FASTGEN_SPEC_DRAFTED.inc(drafted)
+        tm.FASTGEN_SPEC_ACCEPTED.inc(accepted)
+        if self._spec_drafted_cum:
+            tm.FASTGEN_SPEC_ACCEPT_RATE.set(
+                self._spec_accepted_cum / self._spec_drafted_cum)
         self._spec_steps += 1
         self._spec_committed_cum += sum(committed)
         return out
@@ -911,10 +1131,12 @@ class FastGenScheduler:
     def _dispatch_spec(self, rows, on_token) -> Dict[int, int]:
         """One verify step of host-drafted rows, read in the same step:
         the [S, 2] int32 verdict is its only copy to the host."""
-        verdict = self._engine.step_spec(
-            [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
-            [req.params for _, req, _, _ in rows], self._rng,
-            min_q=1 + self._spec_max_draft, row_pos=self._spec_row_pos(rows))
+        with trace_span("fastgen.dispatch.spec"):
+            verdict = self._engine.step_spec(
+                [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
+                [req.params for _, req, _, _ in rows], self._rng,
+                min_q=1 + self._spec_max_draft,
+                row_pos=self._spec_row_pos(rows))
         self.last_step_scheduled = len(rows)
         return self._commit_verdict(rows, verdict.cpu().numpy(), "ngram",
                                     on_token)
@@ -922,10 +1144,12 @@ class FastGenScheduler:
     def _dispatch_draft_spec(self, rows, on_token) -> Dict[int, int]:
         """One step of the draft loop and the verify: the [S, 2+k] int32
         verdict, drafts included, is its only copy to the host."""
-        verdict = self._engine.step_draft_spec(
-            [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
-            [req.params for _, req, _, _ in rows], self._rng,
-            min_q=1 + self._spec_max_draft, row_pos=self._spec_row_pos(rows))
+        with trace_span("fastgen.dispatch.draft_spec"):
+            verdict = self._engine.step_draft_spec(
+                [u for u, _, _, _ in rows], [t for _, _, t, _ in rows],
+                [req.params for _, req, _, _ in rows], self._rng,
+                min_q=1 + self._spec_max_draft,
+                row_pos=self._spec_row_pos(rows))
         self.last_step_scheduled = len(rows)
         return self._commit_verdict(rows, verdict.cpu().numpy(), "model",
                                     on_token)
@@ -933,9 +1157,14 @@ class FastGenScheduler:
     def _dispatch_draft_fill(self, rows) -> None:
         """The draft pool's catch-up step: nothing is sampled, committed
         or copied to the host."""
-        self._engine.step_draft_fill([u for u, _ in rows],
-                                     [t for _, t in rows])
+        with trace_span("fastgen.dispatch.draft_fill"):
+            self._engine.step_draft_fill([u for u, _ in rows],
+                                         [t for _, t in rows])
         self.last_step_scheduled = len(rows)
+        n = int(sum(len(t) for _, t in rows))
+        tm.FASTGEN_SPEC_DRAFT_FILL.inc(n)
+        get_flight_recorder().record("spec.draft_fill", rows=len(rows),
+                                     tokens=n)
 
     # -- prefix cache ---------------------------------------------------------
     def _match_prefix_once(self, req: Request, adm: _Admission) -> None:
@@ -959,6 +1188,12 @@ class FastGenScheduler:
         if hit:
             req.prompt_sent = hit
             req.tier_hits = self._engine.tier_hits(req.uid)
+            if req.journey is not None and any(
+                    (req.tier_hits or {}).get(t)
+                    for t in ("host", "disk", "remote")):
+                # a promotion or fetched pages paid wall time here; a
+                # device hit is a reference attach and stays unmarked
+                req.journey.mark("tier_promote")
             # parked pages the match revived and free pages a tier
             # promotion took were schedulable in this admission's
             # snapshot and are live now (a demotion it caused moved pages
@@ -971,9 +1206,30 @@ class FastGenScheduler:
              ) -> Dict[int, int]:
         """Schedule one ragged batch; returns {uid: new_token} for every
         sequence whose token reached the host this step (under
-        ``async_scheduling`` the PREVIOUS step's tokens)."""
+        ``async_scheduling`` the PREVIOUS step's tokens).  An armed
+        ``serving.preempt`` fault site raises ``InjectedPreemptionFault``
+        here, before the step (a preemption at a step boundary, nothing
+        half done); an exception escaping the step leaves a postmortem
+        bundle first (``telemetry.flight_recorder``)."""
+        faults = get_fault_injector()
+        if faults.armed and faults.fire("serving.preempt"):
+            raise InjectedPreemptionFault(
+                "injected preemption between scheduler steps")
         self._step_ordinal += 1
-        out = self._step_impl(on_token)
+        try:
+            if _telemetry.enabled:
+                get_tracer().set_step(self._step_ordinal)
+                t0 = time.perf_counter()
+                with trace_span("fastgen.step"):
+                    out = self._step_impl(on_token)
+                tm.FASTGEN_STEP_MS.observe((time.perf_counter() - t0) * 1e3)
+            else:
+                out = self._step_impl(on_token)
+        except Exception as e:
+            get_flight_recorder().on_crash("fastgen.step", e)
+            raise
+        if self._role == "prefill" and self._running:
+            self._sweep_handoff_ready()
         if self._kv_debug:
             self._engine.state_manager.check_invariants()
         return out
@@ -990,6 +1246,7 @@ class FastGenScheduler:
             need = sd.host_blob.shape[1] if sd.host_blob is not None else 0
             if self._engine.free_blocks >= need + 1:
                 self._engine.restore_sequence(uid)
+                get_flight_recorder().record("request.restore", uid=uid)
                 self._running[uid] = self._preempted.pop(uid)
 
     def _step_impl(self, on_token) -> Dict[int, int]:
@@ -1023,7 +1280,8 @@ class FastGenScheduler:
             # dispatch k+1 FIRST, then drain k: the wait for k's tokens
             # overlaps the device running k+1
             try:
-                new_inflight = self._dispatch_chain(chain)
+                with trace_span("fastgen.dispatch.chain"):
+                    new_inflight = self._dispatch_chain(chain)
             except KVAllocationError as e:
                 out = self._drain(on_token)
                 self._degrade_oom(e, [], [])
@@ -1035,6 +1293,15 @@ class FastGenScheduler:
 
         out_prev = (spec_drained if spec_drained is not None
                     else self._drain(on_token))
+        with trace_span("fastgen.admission"):
+            admitted = self._admit()
+        return self._dispatch_admitted(on_token, out_prev, *admitted)
+
+    def _admit(self):
+        """The host path's admission: resume preempted sequences, then
+        admit running decodes, partial prefills and pending requests to
+        the budget.  Returns (uids, tokens, requests, the prompt advances
+        and the pending -> running moves a failed dispatch undoes)."""
         self._resume_preempted()
         adm = _Admission(self._engine, self._budget)
         uids: List[int] = []
@@ -1062,8 +1329,15 @@ class FastGenScheduler:
         def try_prefill(req: Request, is_new: bool) -> bool:
             if adm.tokens_left <= 0 or req.prefill_remaining == 0:
                 return False
+            if req.journey is not None and not req.journey_admitted:
+                # the first admission attempt on this scheduler closes
+                # queue_wait, so a prefix match or promotion gets its
+                # own segment
+                req.journey_admitted = True
+                req.journey.mark("queue_wait")
             if is_new and self._prefix_cfg and not req.prefix_checked:
-                self._match_prefix_once(req, adm)
+                with trace_span("fastgen.prefix_match"):
+                    self._match_prefix_once(req, adm)
             if is_new:
                 # the lookup tracks the sequence even on a miss
                 is_new = (self._engine.state_manager
@@ -1081,6 +1355,16 @@ class FastGenScheduler:
             advances.append((req, chunk))
             if self._wtrace.active and req.first_sched_mono == 0.0:
                 req.first_sched_mono = time.monotonic()
+            if _telemetry.enabled and req.first_sched_s == 0.0:
+                # the first admission closes the queue wait
+                req.first_sched_s = time.perf_counter()
+                if req.submit_s:
+                    tm.FASTGEN_QUEUE_WAIT_MS.observe(
+                        (req.first_sched_s - req.submit_s) * 1e3)
+                get_flight_recorder().record(
+                    "request.admit", uid=req.uid,
+                    prompt_tokens=len(req.prompt),
+                    cached_tokens=req.prompt_sent - chunk)
             return True
 
         for req in list(self._running.values()):
@@ -1093,6 +1377,12 @@ class FastGenScheduler:
             self._running[req.uid] = req
             new_admits.append(req)
 
+        return uids, tokens, reqs, advances, new_admits
+
+    def _dispatch_admitted(self, on_token, out_prev, uids, tokens, reqs,
+                           advances, new_admits) -> Dict[int, int]:
+        """Dispatch the admitted batch: fused, or the split escape hatch;
+        with nothing admitted, preempt to make room."""
         self.last_step_scheduled = len(uids)
         if not uids:
             # nothing schedulable but work remains: preempt the running
@@ -1125,9 +1415,10 @@ class FastGenScheduler:
             row_pos = ([len(r.generated) for r in reqs] if self._keyed
                        else None)
             try:
-                toks, rowmap = self._engine.step_sample(
-                    uids, tokens, row_params, self._rng, do_checks=False,
-                    row_pos=row_pos)
+                with trace_span("fastgen.dispatch.fused"):
+                    toks, rowmap = self._engine.step_sample(
+                        uids, tokens, row_params, self._rng,
+                        do_checks=False, row_pos=row_pos)
             except KVAllocationError as e:
                 self._degrade_oom(e, advances, new_admits)
                 return out_prev
@@ -1146,28 +1437,31 @@ class FastGenScheduler:
         put_fused = bool(self._serving.fused_step) and not strict_mixed
         if put_fused:
             put_fused = self._strict_key_ok(uids, tokens, ())
-        try:
-            logits = self._engine.put(uids, tokens, do_checks=False,
-                                      fused=put_fused)
-        except KVAllocationError as e:
-            self._degrade_oom(e, advances, new_admits)
-            return out_prev
-        self._oom_streak = 0
-        groups: Dict[tuple, List[int]] = {}
-        for i in sampled:
-            groups.setdefault(_group_key(reqs[i].params), []).append(i)
-        new_tokens: Dict[int, int] = {}
-        for (temp, top_k, top_p), idxs in groups.items():
-            rows = torch.tensor(idxs, dtype=torch.long, device=logits.device)
-            if self._keyed and temp > 0.0:
-                toks = self._sample_group_keyed(logits[rows],
-                                                [reqs[i] for i in idxs],
-                                                temp, top_k, top_p)
-            else:
-                toks = sample(logits[rows], self._generator,
-                              temperature=temp, top_k=top_k, top_p=top_p)
-            for i, t in zip(idxs, toks.tolist()):   # the [g] int32 d2h
-                new_tokens[i] = t
+        with trace_span("fastgen.dispatch.split"):
+            try:
+                logits = self._engine.put(uids, tokens, do_checks=False,
+                                          fused=put_fused)
+            except KVAllocationError as e:
+                self._degrade_oom(e, advances, new_admits)
+                return out_prev
+            self._oom_streak = 0
+            groups: Dict[tuple, List[int]] = {}
+            for i in sampled:
+                groups.setdefault(_group_key(reqs[i].params), []).append(i)
+            new_tokens: Dict[int, int] = {}
+            for (temp, top_k, top_p), idxs in groups.items():
+                rows = torch.tensor(idxs, dtype=torch.long,
+                                    device=logits.device)
+                if self._keyed and temp > 0.0:
+                    toks = self._sample_group_keyed(
+                        logits[rows], [reqs[i] for i in idxs], temp, top_k,
+                        top_p)
+                else:
+                    toks = sample(logits[rows], self._generator,
+                                  temperature=temp, top_k=top_k,
+                                  top_p=top_p)
+                for i, t in zip(idxs, toks.tolist()):  # the [g] int32 d2h
+                    new_tokens[i] = t
         out = dict(out_prev)
         for i, tok in new_tokens.items():
             if self._deliver_token(reqs[i], tok, out, on_token):
@@ -1194,23 +1488,164 @@ class FastGenScheduler:
                             col([top_k] * n, torch.int32),
                             col([top_p] * n, torch.float32))
 
+    # -- the disaggregated handoff --------------------------------------------
+    @property
+    def role(self) -> str:
+        return self._role
+
+    @property
+    def handoff_backlog(self) -> int:
+        """Requests awaiting collection by the DisaggPool (prefill role;
+        0 elsewhere)."""
+        return len(self._handoff_ready)
+
+    def enable_handoff_sink(self) -> None:
+        """Register a handoff consumer (the DisaggPool): a prefill
+        scheduler then admits multi-token requests."""
+        self._handoff_sink = True
+
+    def handoff_ready_uids(self) -> List[int]:
+        return list(self._handoff_ready)
+
+    def _sweep_handoff_ready(self) -> None:
+        """Prefill role: a running request whose prompt is done and whose
+        first token reached the host (its TTFT never waits on the
+        transfer) leaves the scheduling sets and parks handoff-ready; its
+        sequence stays in the engine until ``complete_handoff`` or an
+        error ends it."""
+        for uid, req in list(self._running.items()):
+            if req.done or req.prefill_remaining > 0 or not req.generated:
+                continue
+            self._running.pop(uid)
+            self._handoff_ready[uid] = req
+            get_flight_recorder().record("disagg.handoff_ready", uid=uid,
+                                         tokens=len(req.generated))
+
+    def export_handoff(self, uids: Sequence[int]) -> dict:
+        """One handoff bundle of handoff-ready ``uids``: their committed
+        pages through the manager's selective ``export_state`` (each
+        page once, full prefix pages with their chain digests, so the
+        importer attaches what its cache holds) and each request's
+        residual state (prompt with its partial-page tail, committed
+        tokens, sampling parameters, remaining TTL, speculation state,
+        journey).  The requests stay parked until ``complete_handoff``.
+        Returns ``{"meta", "arrays"}``, the snapshot bundle's layout (the
+        arrays are host tensors)."""
+        missing = [u for u in uids if u not in self._handoff_ready]
+        if missing:
+            raise ValueError(
+                f"export_handoff of non-handoff-ready uids {missing}")
+        now = time.monotonic()
+        for u in uids:
+            req = self._handoff_ready[u]
+            if req.journey is not None:
+                # the journey travels whole in the bundle; the fragment
+                # keeps this side's view if the importer dies
+                req.journey.mark("handoff_export")
+                _journey.get_journey_log().publish_fragment(
+                    req.journey, where=self._role)
+        eng_meta, arrays = self._engine.state_manager.export_state(
+            seq_ids=list(uids))
+        meta = {"version": SNAPSHOT_VERSION, "handoff": True,
+                "requests": [self._serialize_request(self._handoff_ready[u],
+                                                     now) for u in uids],
+                "engine": eng_meta}
+        return {"meta": meta, "arrays": arrays}
+
+    def complete_handoff(self, uids: Sequence[int]) -> None:
+        """The bundle landed: flush the local sequences (their full
+        prefix pages park in this engine's prefix cache, so the next
+        prompt with the prefix prefills only its suffix) and drop the
+        parked requests; the importing scheduler delivers the rest."""
+        for u in uids:
+            req = self._handoff_ready.pop(u, None)
+            if req is None:
+                continue
+            if self._drafter is not None:
+                self._drafter.drop(u)
+            if self._engine.state_manager.get_sequence(u) is not None:
+                self._engine.flush(u)
+
+    def import_handoff(self, bundle: dict) -> dict:
+        """Decode side: merge one handoff bundle into the live engine
+        (refcounts and prefix sharing rebuilt; pages whose digest this
+        cache holds attach by reference) and enqueue its requests: into
+        the running set, or the preempted set when a request's pages
+        arrive as a host blob (handed off mid-preemption).  Called
+        between steps, so no step is in flight over the tables it
+        changes.  :class:`SnapshotError` for a bundle that is not a
+        handoff, a closed scheduler, a uid already live here or another
+        KV geometry; ``KVAllocationError`` when the pool cannot hold the
+        streamed pages yet (retryable: nothing changed).  Returns
+        ``{"uids", "pages_streamed", "pages_shared"}``."""
+        meta, arrays = bundle["meta"], bundle["arrays"]
+        if not meta.get("handoff"):
+            raise SnapshotError(
+                "import_handoff expects a bundle from export_handoff")
+        if self._closed:
+            raise SnapshotError("import_handoff on a closed scheduler")
+        for d in meta["requests"]:
+            if self._is_live(int(d["uid"])):
+                raise SnapshotError(
+                    f"import_handoff: uid {int(d['uid'])} already live on "
+                    "the importing scheduler")
+        t_import = time.time()      # the transfer ends where import begins
+        with trace_span("fastgen.import_handoff"):
+            stats = self._engine.state_manager.import_state(
+                meta["engine"], arrays)
+            now = time.monotonic()
+            uids: List[int] = []
+            for d in meta["requests"]:
+                req = self._restore_request(d, now)
+                if req.journey is not None:
+                    # the wire and queue time, then the merge; at= is
+                    # this (importing) scheduler's role, as the pump's
+                    # thread carries the exporter's label
+                    req.journey.mark("handoff_transfer", at=self._role,
+                                     t=t_import)
+                    req.journey.mark("handoff_import", at=self._role)
+                sd = self._engine.state_manager.get_sequence(req.uid)
+                if sd is not None and sd.host_blob is not None:
+                    self._preempted[req.uid] = req
+                else:
+                    self._running[req.uid] = req
+                uids.append(req.uid)
+        if self._kv_debug:
+            self._engine.state_manager.check_invariants()
+        stats = dict(stats or {})
+        stats["uids"] = uids
+        return stats
+
     # -- graceful degradation -------------------------------------------------
     def _preempt_largest(self) -> bool:
-        """Preempt the running sequence with the most offloadable KV
+        """Preempt the sequence with the most offloadable KV
         (window-evicted slots and shared pages free nothing, and a
-        preemption that frees nothing would spin ``run_to_completion``)."""
-        if not self._running:
-            return False
+        preemption that frees nothing would spin ``run_to_completion``).
+        Handoff-ready sequences go first: they hold pages and do no
+        work, and their host blob travels with the handoff."""
         state = self._engine.state_manager
 
         def live_pages(u):
             sd = state.get_sequence(u)
             return len(state.offloadable_slots(sd)) if sd else 0
 
+        if self._handoff_ready:
+            victim = max(self._handoff_ready, key=live_pages)
+            if live_pages(victim) > 0:
+                with trace_span("fastgen.preempt"):
+                    self._engine.offload_sequence(victim)
+                get_flight_recorder().record("request.preempt", uid=victim,
+                                             handoff=True)
+                self._preempted_this_step = True
+                return True
+        if not self._running:
+            return False
         victim = max(self._running, key=live_pages)
         if live_pages(victim) <= 0:
             return False
-        self._engine.offload_sequence(victim)
+        with trace_span("fastgen.preempt"):
+            self._engine.offload_sequence(victim)
+        get_flight_recorder().record("request.preempt", uid=victim)
         self._preempted[victim] = self._running.pop(victim)
         self._preempted_this_step = True
         return True
@@ -1250,21 +1685,34 @@ class FastGenScheduler:
                 self._running.pop(req.uid)
                 self._pending.insert(0, req)
         self._oom_streak += 1
+        tm.KV_ALLOC_FAIL.inc()
+        tm.MEM_PRESSURE.inc()
+        get_flight_recorder().record("kv.alloc_fail", streak=self._oom_streak,
+                                     error=str(exc)[:200])
         state = self._engine.state_manager
         alloc = state.kv_cache.allocator
+        freed = 0
+        before = alloc.free_pages
         if alloc.parked_pages:
             state.ensure_free(alloc.free_pages + alloc.parked_pages)
             self._preempted_this_step = True      # pages freed: progress
+            freed += max(alloc.free_pages - before, 0)
         if self._oom_streak >= 2:
+            before = alloc.free_pages
             self._preempt_largest()
+            freed += max(alloc.free_pages - before, 0)
         if self._oom_streak >= 4:
             victim = self._most_demanding_request()
             if victim is not None:
+                before = alloc.free_pages
                 self._fail_request(
                     victim, "oom", "KV pool exhausted after parked-page "
                     f"eviction and preemption ({self._oom_streak} "
                     f"consecutive allocation failures: {exc})")
                 self._preempted_this_step = True
+                freed += max(alloc.free_pages - before, 0)
+        if freed:
+            tm.MEM_DEGRADE_FREED_PAGES.inc(freed)
         self.last_step_scheduled = 0
 
     # -- snapshots ------------------------------------------------------------
@@ -1296,8 +1744,10 @@ class FastGenScheduler:
                               int(req.spec_accepted_ngram)],
                     "model": [int(req.spec_drafted_model),
                               int(req.spec_accepted_model)]},
-                # the JAX package's request journey; the port keeps none
-                "journey": None}
+                # the journey rides every bundle a request crosses, so
+                # the importer appends to the context it received
+                "journey": (req.journey.to_dict()
+                            if req.journey is not None else None)}
 
     def _restore_request(self, d: dict, now: float) -> Request:
         pr = d["params"]
@@ -1330,6 +1780,9 @@ class FastGenScheduler:
         if ttl is not None:
             req.deadline = now + float(ttl)
             self._has_deadlines = True
+        jd = d.get("journey")
+        if jd:
+            req.journey = _journey.Journey.from_dict(jd)
         return req
 
     @property
@@ -1353,7 +1806,22 @@ class FastGenScheduler:
         greedy requests resume tokenwise in either package; the sampled
         rows of a non-keyed scheduler resume exactly only in the port,
         on the same device type."""
+        t0 = time.perf_counter()
         self.close()
+        with trace_span("fastgen.snapshot"):
+            meta, arrays = self._snapshot_impl(on_token)
+            if path is not None:
+                write_bundle(path, meta, arrays)
+        ms = (time.perf_counter() - t0) * 1e3
+        # counted with telemetry off too: snapshots are rare and matter
+        tm.FASTGEN_SNAPSHOT_MS.observe(ms)
+        get_flight_recorder().record(
+            "fastgen.snapshot", requests=self.backlog,
+            pages=len(meta["engine"]["page_ids"]), ms=round(ms, 2),
+            path=path or "")
+        return {"meta": meta, "arrays": arrays}
+
+    def _snapshot_impl(self, on_token) -> tuple:
         self._drain(on_token)
         now = time.monotonic()
         eng_meta, arrays = self._engine.state_manager.export_state()
@@ -1368,7 +1836,9 @@ class FastGenScheduler:
                             for r in self._running.values()],
                 "preempted": [self._serialize_request(r, now)
                               for r in self._preempted.values()],
-                "handoff_ready": []},
+                # prefill role: awaiting collection
+                "handoff_ready": [self._serialize_request(r, now)
+                                  for r in self._handoff_ready.values()]},
             "counters": {"step_ordinal": int(self._step_ordinal),
                          "last_step_scheduled": int(self.last_step_scheduled),
                          "oom_streak": int(self._oom_streak)},
@@ -1381,9 +1851,7 @@ class FastGenScheduler:
                          "lattice_digest": self._engine.lattice_digest},
             "draft_digest": self._engine.draft_digest,
         }
-        if path is not None:
-            write_bundle(path, meta, arrays)
-        return {"meta": meta, "arrays": arrays}
+        return meta, arrays
 
     def restore(self, bundle) -> "FastGenScheduler":
         """Rebuild a snapshotted scheduler in this fresh one (over a fresh
@@ -1395,6 +1863,19 @@ class FastGenScheduler:
         :class:`SnapshotError` for a corrupt, truncated or other-version
         bundle, a scheduler that is not fresh, another draft trunk or
         another KV geometry."""
+        t0 = time.perf_counter()
+        with trace_span("fastgen.restore"):
+            meta = self._restore_impl(bundle)
+        tm.FASTGEN_RESTORE.inc()
+        get_flight_recorder().record(
+            "fastgen.restore", requests=self.backlog,
+            pages=len(meta["engine"]["page_ids"]),
+            ms=round((time.perf_counter() - t0) * 1e3, 2))
+        if self._kv_debug:
+            self._engine.state_manager.check_invariants()
+        return self
+
+    def _restore_impl(self, bundle) -> dict:
         if isinstance(bundle, (str, os.PathLike)):
             meta, arrays = read_bundle(os.fspath(bundle))
         else:
@@ -1403,7 +1884,8 @@ class FastGenScheduler:
                 raise SnapshotError(f"unsupported snapshot version "
                                     f"{meta.get('version')!r}")
         if (self._pending or self._running or self._preempted
-                or self._inflight is not None or self._closed):
+                or self._handoff_ready or self._inflight is not None
+                or self._closed):
             raise SnapshotError("restore needs a fresh scheduler (this one "
                                 "has queued work or is closed)")
         want = meta.get("draft_digest")
@@ -1436,16 +1918,22 @@ class FastGenScheduler:
             self._generator.set_state(torch.as_tensor(np.asarray(state)))
         now = time.monotonic()
         reqs = meta["requests"]
-        if reqs.get("handoff_ready"):
-            raise NotImplementedError(
-                "the bundle holds prefill-role handoffs: disaggregated "
-                "serving is not ported yet (ROADMAP Queue 1 item 12)")
         self._pending = [self._restore_request(d, now)
                          for d in reqs["pending"]]
         self._running = {int(d["uid"]): self._restore_request(d, now)
                          for d in reqs["running"]}
         self._preempted = {int(d["uid"]): self._restore_request(d, now)
                            for d in reqs["preempted"]}
+        self._handoff_ready = {int(d["uid"]): self._restore_request(d, now)
+                               for d in reqs.get("handoff_ready", [])}
+        # the wall time between snapshot and restore is the migration
+        # (marked here, not in _restore_request: a handoff import marks
+        # its own transfer and import)
+        for req in (self._pending + list(self._running.values())
+                    + list(self._preempted.values())
+                    + list(self._handoff_ready.values())):
+            if req.journey is not None:
+                req.journey.mark("migrate")
         c = meta["counters"]
         self._step_ordinal = int(c["step_ordinal"])
         self.last_step_scheduled = int(c["last_step_scheduled"])
@@ -1453,9 +1941,7 @@ class FastGenScheduler:
         self.errors = {int(e["uid"]): RequestError(
             uid=int(e["uid"]), code=e["code"], message=e["message"],
             tokens=[int(t) for t in e["tokens"]]) for e in meta["errors"]}
-        if self._kv_debug:
-            self._engine.state_manager.check_invariants()
-        return self
+        return meta
 
     def drain_and_snapshot(self, path: str, grace_s: Optional[float] = None,
                            on_token: Optional[Callable[[int, int], None]]
@@ -1485,7 +1971,8 @@ class FastGenScheduler:
             warnings.warn(f"drain_and_snapshot: the grace budget "
                           f"({grace:.2f}s) ran out before a snapshot")
         for req in (list(self._pending) + list(self._running.values())
-                    + list(self._preempted.values())):
+                    + list(self._preempted.values())
+                    + list(self._handoff_ready.values())):
             self._fail_request(
                 req, "migrated", f"preemption grace budget ({grace:.2f}s) "
                 "expired before a snapshot could be written "
@@ -1512,7 +1999,7 @@ class FastGenScheduler:
                                 "schedulable with this request in the pool")
                             stalls = 0
                             continue
-                    raise RuntimeError(
+                    err = RuntimeError(
                         "scheduler deadlock: work remains but nothing is "
                         "schedulable (KV cache exhausted or a request "
                         "exceeds engine limits); "
@@ -1520,6 +2007,10 @@ class FastGenScheduler:
                         f"{len(self._running)} running, "
                         f"{len(self._preempted)} preempted, "
                         f"{self._engine.free_blocks} free KV pages")
+                    # a livelock leaves forensics like a crash
+                    get_flight_recorder().on_crash(
+                        "fastgen.run_to_completion", err)
+                    raise err
             else:
                 stalls = 0
         return {uid: req.generated for uid, req in all_reqs.items()}

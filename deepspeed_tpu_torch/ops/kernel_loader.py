@@ -32,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import weakref
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
@@ -186,7 +187,8 @@ class CudaKernel:
         if err:
             msg = self._lib.ds_error_string(err).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}: {msg}")
-        self.launches_by_fn[fn] += 1
+        with COUNT_LOCK:
+            self.launches_by_fn[fn] += 1
 
     def reset_counts(self) -> None:
         self.launches_by_fn = dict.fromkeys(self.functions, 0)
@@ -195,6 +197,12 @@ class CudaKernel:
 
 #: every CudaKernel of the process, for :class:`CountedGraph`
 _KERNELS: "weakref.WeakSet[CudaKernel]" = weakref.WeakSet()
+
+#: guards every launch count: replicas step from threads of their own
+#: (``serving.ReplicaPool.start``), and a capture takes back the counts it
+#: made, so no other thread's count may land between its snapshot and
+#: its restore
+COUNT_LOCK = threading.RLock()
 
 #: launch counts of every kernel: (kernel, {entry point: launches})
 Launches = List[Tuple[CudaKernel, Dict[str, int]]]
@@ -221,9 +229,10 @@ def restore_launches(before: Launches) -> None:
 
 
 def add_launches(delta: Launches) -> None:
-    for k, counts in delta:
-        for fn, n in counts.items():
-            k.launches_by_fn[fn] += n
+    with COUNT_LOCK:
+        for k, counts in delta:
+            for fn, n in counts.items():
+                k.launches_by_fn[fn] += n
 
 
 class CountedGraph:
@@ -239,7 +248,10 @@ class CountedGraph:
     runs the graph.  ``generator``, a CUDA ``torch.Generator``, is
     registered with the graph: each replay draws new numbers from it and
     advances its offset.  The cyclic garbage collector is off during the
-    capture.  A failed capture raises; nothing falls back to eager."""
+    capture.  The capture's error mode is ``thread_local``: another
+    thread's CUDA work (a replica stepping its own engine) neither fails
+    nor joins it, and ``COUNT_LOCK`` keeps that thread's launch counts
+    out of it.  A failed capture raises; nothing falls back to eager."""
 
     def __init__(self, pool=None, generator=None, stream=None):
         self.graph = torch.cuda.CUDAGraph()
@@ -261,21 +273,24 @@ class CountedGraph:
         torch.cuda.current_stream().wait_stream(stream)
         if self.generator is not None:
             self.graph.register_generator_state(self.generator)
-        before = snapshot_launches()
         # no cyclic collection inside the capture: a dead cycle holding a
         # CUDA graph, an event or a pinned block (a model of an earlier
         # engine, say) would be freed mid-capture, and that call would
         # invalidate the capture
         collecting = gc.isenabled()
         gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, pool=self.pool, stream=stream):
-                self.output = fn(*args)
-            self.launches = launches_since(before)
-        finally:
-            restore_launches(before)
-            if collecting:
-                gc.enable()
+        with COUNT_LOCK:
+            before = snapshot_launches()
+            try:
+                with torch.cuda.graph(self.graph, pool=self.pool,
+                                      stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.output = fn(*args)
+                self.launches = launches_since(before)
+            finally:
+                restore_launches(before)
+                if collecting:
+                    gc.enable()
         return self.output
 
     def replay(self) -> None:

@@ -268,6 +268,46 @@ class WorkloadTrace:
             except OSError as e:
                 self._io_error_locked("flush", e)
 
+    def tail_text(self, max_bytes: int = 256 << 10) -> Optional[str]:
+        """The last ``max_bytes`` of the live ledger (whole lines), for
+        the flight recorder's ``workload.jsonl`` artifact; None when the
+        trace is off.  Reads across the rotation boundary, so a freshly
+        rotated ledger still ships its previous generation's tail."""
+        with self._lock:
+            if not self.active:
+                return None
+            try:
+                self._flush_keys_locked()
+                self._fh.flush()
+            except OSError as e:
+                self._io_error_locked("tail flush", e)
+                return None
+            text = self._read_tail(self._path, max_bytes)
+            if text is None:
+                return None
+            if len(text) < max_bytes:
+                prev = self._read_tail(self._path + ".1",
+                                       max_bytes - len(text))
+                if prev:
+                    text = prev + text
+        return text
+
+    @staticmethod
+    def _read_tail(path: str, nbytes: int) -> Optional[str]:
+        """Last ``nbytes`` of ``path`` starting at a whole line; None
+        when unreadable."""
+        try:
+            with open(path) as f:
+                f.seek(0, os.SEEK_END)
+                size = f.tell()
+                f.seek(max(0, size - nbytes))
+                text = f.read()
+        except OSError:
+            return None
+        if len(text) < size:  # started mid-line: drop the partial one
+            text = text.split("\n", 1)[-1]
+        return text
+
     # -- internals -----------------------------------------------------------
     def _offset(self, mono: float) -> float:
         return round(max(0.0, mono - (self._t0 or mono)), 6)

@@ -278,7 +278,9 @@ def stand_in_cuda(monkeypatch):
     captures = []
 
     @contextlib.contextmanager
-    def graph(g, pool=None, stream=None):
+    def graph(g, pool=None, stream=None, capture_error_mode="global"):
+        # a capture must not fail for another replica thread's CUDA work
+        assert capture_error_mode == "thread_local"
         captures.append((g, pool))
         yield
 
@@ -296,6 +298,57 @@ def _kernels():
     b = KL.CudaKernel("layernorm.cu", {"z": []})
     a._lib, b._lib = StandInLib(), StandInLib()
     return a, b
+
+
+def test_launch_counts_survive_threads_and_concurrent_captures(
+        stand_in_cuda):
+    """Replicas count launches from threads of their own while another
+    thread captures: a capture (which takes back the launches it counted)
+    never takes back another thread's, and no count is lost."""
+    import sys
+    import threading
+    import time
+    a, b = _kernels()
+    graph = KL.CountedGraph()
+    graph.capture(lambda: (a.launch("x"), b.launch("z")))
+    base = (a.launches_by_fn["x"], b.launches_by_fn["z"])
+    done = threading.Event()
+    counts = {"launch": [], "replay": []}
+
+    def worker(kind):
+        n = 0
+        while not done.is_set():
+            if kind == "launch":
+                a.launch("y")
+            else:
+                graph.replay()
+            n += 1
+        counts[kind].append(n)
+
+    def slow_step():
+        a.launch("x")
+        time.sleep(1e-3)           # the other threads run mid-capture
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=worker,
+                                args=("launch" if i % 2 else "replay",))
+               for i in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(50):        # captures while the others count
+            KL.CountedGraph().capture(slow_step)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(timeout=60)
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    launched, replayed = sum(counts["launch"]), sum(counts["replay"])
+    assert launched > 0 and replayed > 0
+    assert a.launches_by_fn == {"x": base[0] + replayed + 50, "y": launched}
+    assert b.launches_by_fn == {"z": base[1] + replayed}
 
 
 def test_counted_graph_counts_every_replay_and_not_the_capture(

@@ -1594,6 +1594,85 @@ def test_spec_graphs_replay_equal_to_their_eager_bodies(cuda_device,
     eng.state_manager.check_invariants()
 
 
+def _replays_checked_locked(eng, lock):
+    """Every sample / chain / mixed dispatch of ``eng``'s model runs its
+    key's body eagerly first, then the graph, on the same inputs (the
+    greedy tokens must be bit-equal); returns the dispatches checked."""
+    model = eng.model
+    dispatch = model._dispatch
+    checked = []
+
+    def compared(key, kv, generator, inputs):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(model.device)
+             if isinstance(a, np.ndarray) else a for a in inputs]
+        ref = model._call(key, kv, None, *t)
+        out = dispatch(key, kv, generator, inputs)
+        assert torch.equal(out, ref), key
+        with lock:
+            checked.append(key)
+        return out
+
+    model._dispatch = compared
+    return checked
+
+
+@pytest.mark.cuda
+def test_two_engines_replay_from_two_threads(cuda_device):
+    """Two debug engines in one process capture their graphs up front,
+    then serve from a thread each (``serving.ReplicaPool.start``; the
+    mixed keys, outside the power lattice, capture on the path while the
+    other thread replays): every replay is bit-equal to its eager body,
+    the tokens are one engine's synchronous run's, and in a second
+    threaded run nothing is captured and the launch counts
+    (process-global) hold exactly the replays of both replicas."""
+    import threading
+    from deepspeed_tpu_torch import serving as TS
+    from deepspeed_tpu_torch.ops.kernel_loader import snapshot_launches
+    T, engine = _graph_llama(cuda_device)
+    prompts = _graph_prompts() + [_graph_prompts()[0][:50]]
+    want = _serve(T, engine(), prompts)
+    engines = [engine(), engine()]
+    for eng in engines:
+        eng.precompile(128, max_concurrency=8, max_new_tokens=16,
+                       sampling=True)
+    lock = threading.Lock()
+    checked = [_replays_checked_locked(eng, lock) for eng in engines]
+
+    def serve():
+        pool = TS.ReplicaPool(lambda label: T.FastGenScheduler(
+            engines[int(label[1:])]), replicas=2)
+        pool.start()
+        try:
+            for uid, p in enumerate(prompts):
+                pool.submit(uid, p, T.SamplingParams(max_new_tokens=12))
+            assert pool.serve_until_idle(timeout_s=120.0)
+        finally:
+            pool.stop()
+        assert not pool.errors
+        return {u: [int(t) for t in v] for u, v in pool.results().items()}
+
+    assert serve() == {u: [int(t) for t in v] for u, v in want.items()}
+    assert all(checked) and sum(map(len, checked)) > len(prompts)
+    for eng in engines:
+        eng.model._dispatch = type(eng.model)._dispatch.__get__(eng.model)
+        eng.reset_prefix_cache()
+    # the counts of a second threaded run: exactly its replays' launches
+    before = snapshot_launches()
+    dispatched = [dict(eng.model.dispatch_counts) for eng in engines]
+    captures = [eng.model.path_captures for eng in engines]
+    assert serve() == {u: [int(t) for t in v] for u, v in want.items()}
+    assert [eng.model.path_captures for eng in engines] == captures
+    expect = 0
+    for eng, old in zip(engines, dispatched):
+        for key, n in eng.model.dispatch_counts.items():
+            per = sum(sum(c.values())
+                      for _, c in eng.model._step_cache[key].graph.launches)
+            expect += (n - old.get(key, 0)) * per
+    got = sum(k.launches_by_fn[fn] - c for k, counts in before
+              for fn, c in counts.items())
+    assert got == expect > 0
+
+
 # ---------------------------------------------------------------------------
 # keyed sampling and snapshots on the card
 # ---------------------------------------------------------------------------
