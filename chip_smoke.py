@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
 2. build: every hand-written kernel of the serving and training paths
    from ``deepspeed_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel) into the serving compile cache's directory
-   (``build/compile_cache/<digest>``);
+   (``build/compile_cache/<digest>``); ptxas's report of each kernel's
+   registers, and a failure if any kernel spills;
 3. each kernel against its plain PyTorch version at the shapes its path
    gives it (bf16; the optimizers and the quantiser's input in fp32):
    error relative to the case's own reference scale against stated
@@ -30,6 +31,10 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    contexts to 8192, the tile); the serving kernels also at the Q tops
    ``fit_buckets`` fits to phase 6g's prompt lengths (flash at B=2, the
    paged kernel over bf16 and int8 pages at S=2, the norms at N = 2·Q);
+   and the attention kernels at head dims 64, 80 and 96 (phases 9b-9d):
+   the paged kernel's split-KV decode, Falcon-7B's multi-query decode on
+   the tile, a prefill chunk and Phi-3-mini's window over bf16 and int8
+   pages, the flash forward at B=4, S=1024 with each model's heads;
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens) in the default serving
    configuration (one CUDA graph per step key, the async chained decode,
@@ -197,6 +202,21 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    step; then the kernel path
    against the plain path, teacher-forced, over prefill chunks and
    decode steps past the window (evicted tables), logits compared;
+9b. Falcon-7B at its published configuration (``falcon_config_from_hf``:
+   head_dim 64, 71 query heads over one kv head, the parallel block;
+   32 layers, seeded random bf16 weights, norms and biases drawn) over
+   256 pages of 64 tokens: ``serve`` as phase 4 (its multi-query decode
+   folds 71 rows onto the tensor-core tile, so it has no split-KV
+   segment), the kernel path against the plain path as phase 7; then
+   the same weights over 256 int8 pages, as phases 8 and 9;
+9c. Phi-2 (``phi_config_from_hf``: head_dim 80, partial rotary over 32
+   lanes, the parallel block), 256 bf16 pages, as 9b;
+9d. Phi-3-mini-4k-instruct (``phi3_config_from_hf``: head_dim 96, a
+   2047-token window), 256 bf16 pages, phase 4's traffic and two
+   requests of 3072 + 64 tokens that cross the window, as 9b, and the
+   kernel path against the plain path past the window as 9a (prompts of
+   3072 in chunks of 1024); in each of 9b-9d both attention op classes
+   must resolve to their kernels;
 10. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
     the card from a seed, bf16 compute, micro-batch 2 x 2048 tokens,
     gas 2, AdamW, WarmupDecayLR, clipping 1.0): 4 ``train_batch`` calls
@@ -569,29 +589,43 @@ def _norm_inputs(dev, g, n, e=4096):
     return x, w, b
 
 
+# the hidden widths of phases 9b-9d's norms and the row counts their
+# steps give them: decode steps of 10 (9b, 9c) and 12 (9d) rows, 16 rows,
+# prefill steps of up to 2048 rows, and a full 4096-row budget (checked
+# and timed by CUDA events; the host/device split stays at E = 4096,
+# which keeps the smoke inside its time)
+LAYERNORM_WIDTHS = {4544: "Falcon-7B", 2560: "Phi-2"}
+RMSNORM_WIDTHS = {3072: "Phi-3-mini-4k"}
+FAMILY_NORM_ROWS = (10, 12, 16, 2048, 4096)
+
+
 def check_layernorm(dev, mined_q=()):
     """N=16: the serving decode step's rows; N=4096: a full prefill
     budget.  The third case's rows have a mean (1000) far above their
     spread, where a one-pass variance would cancel.  Then N = 2 * Q for
-    each mined Q top (two prompts' rows at a mined bucket)."""
+    each mined Q top (two prompts' rows at a mined bucket), and the
+    widths of phases 9b-9d (E=4544 is no multiple of 128) at their rows."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import normalization as N
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     rows = []
-    for n, mean in ((16, 0.0), (4096, 0.0), (4096, 1000.0)) + tuple(
-            (2 * q, 0.0) for q in mined_q):
-        x, w, b = _norm_inputs(dev, g, n)
+    cases = ((16, 0.0, 4096, ""), (4096, 0.0, 4096, ""),
+             (4096, 1000.0, 4096, "")) + tuple(
+        (2 * q, 0.0, 4096, " (mined Q)") for q in mined_q) + tuple(
+        (n, 0.0, e, f" ({model})") for e, model in LAYERNORM_WIDTHS.items()
+        for n in FAMILY_NORM_ROWS)
+    for n, mean, e, tag in cases:
+        x, w, b = _norm_inputs(dev, g, n, e)
         if mean:
             x = (mean + 0.85 * x.float()).bfloat16()
-        e = x.shape[1]
         err = parity(N.layernorm(x, w, b, 1e-5),
                      N.layernorm_reference(x, w, b, 1e-5))
         wb, bb = w.bfloat16(), b.bfloat16()
         b_ms, b_by = bound(2 * n * e * 2 + 2 * e * 4, 8 * n * e)
         rows.append(dict(
             shape=f"N={n} E={e}" + (f" row mean {mean:g}" if mean else "")
-            + (" (mined Q)" if n in [2 * q for q in mined_q] else ""),
+            + tag,
             **err,
             ms=cuda_ms(lambda: N.layernorm(x, w, b, 1e-5), 200),
             plain_ms=cuda_ms(lambda: N.layernorm_reference(x, w, b, 1e-5),
@@ -599,9 +633,10 @@ def check_layernorm(dev, mined_q=()):
             library_ms=cuda_ms(lambda: F.layer_norm(x, (e,), wb, bb, 1e-5),
                                200),
             bound_ms=b_ms, bound_by=b_by,
-            **split_times(lambda: N.layernorm(x, w, b, 1e-5),
-                          lambda: F.layer_norm(x, (e,), wb, bb, 1e-5))))
-        if n == 16:
+            **(split_times(lambda: N.layernorm(x, w, b, 1e-5),
+                           lambda: F.layer_norm(x, (e,), wb, bb, 1e-5))
+               if e == 4096 else {})))
+        if (n, e) == (16, 4096):
             out, stream = torch.empty_like(x), torch.cuda.current_stream()
             rows[-1]["host_parts_us"] = norm_host_parts(x, (w, b), lambda: (
                 N.LN_KERNEL.launch("layernorm_bf16", x.data_ptr(),
@@ -649,30 +684,33 @@ def check_rmsnorm(dev, mined_q=()):
     """N=8: the Llama serving decode step's rows (first: the main path's
     shape); N=1: one request decoding; N=16: the OPT decode step's row
     count; N=1024 and N=4096: prefill chunks; N = 2 * Q for each mined Q
-    top."""
+    top; then the widths of phases 9b-9d at their rows."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import normalization as N
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for n in (8, 1, 16, 1024, 4096) + tuple(2 * q for q in mined_q):
-        e = 4096
+    cases = tuple((n, 4096, "") for n in (8, 1, 16, 1024, 4096)) + tuple(
+        (2 * q, 4096, " (mined Q)") for q in mined_q) + tuple(
+        (n, e, f" ({model})") for e, model in RMSNORM_WIDTHS.items()
+        for n in FAMILY_NORM_ROWS)
+    for n, e, tag in cases:
         x = torch.randn(n, e, generator=g, device=dev, dtype=torch.bfloat16)
         w = torch.rand(e, generator=g, device=dev) + 0.5
         err = parity(N.rmsnorm(x, w, 1e-5), N.rmsnorm_reference(x, w, 1e-5))
         wb = w.bfloat16()
         b_ms, b_by = bound(2 * n * e * 2 + e * 4, 4 * n * e)
         rows.append(dict(
-            shape=f"N={n} E={e}" + (
-                " (mined Q)" if n in [2 * q for q in mined_q] else ""),
+            shape=f"N={n} E={e}" + tag,
             **err,
             ms=cuda_ms(lambda: N.rmsnorm(x, w, 1e-5), 200),
             plain_ms=cuda_ms(lambda: N.rmsnorm_reference(x, w, 1e-5), 50),
             library_ms=cuda_ms(lambda: F.rms_norm(x, (e,), wb, 1e-5), 200),
             bound_ms=b_ms, bound_by=b_by,
-            **split_times(lambda: N.rmsnorm(x, w, 1e-5),
-                          lambda: F.rms_norm(x, (e,), wb, 1e-5))))
-        if n == 8:
+            **(split_times(lambda: N.rmsnorm(x, w, 1e-5),
+                           lambda: F.rms_norm(x, (e,), wb, 1e-5))
+               if e == 4096 else {})))
+        if (n, e) == (8, 4096):
             out, stream = torch.empty_like(x), torch.cuda.current_stream()
             rows[-1]["host_parts_us"] = norm_host_parts(x, (w,), lambda: (
                 N.KERNEL.launch("rmsnorm_bf16", x.data_ptr(), w.data_ptr(),
@@ -681,9 +719,8 @@ def check_rmsnorm(dev, mined_q=()):
     return rows
 
 
-def _paged_inputs(dev, S, Q, H, K, ctx_max, g, page=64):
+def _paged_inputs(dev, S, Q, H, K, ctx_max, g, page=64, D=128):
     import torch
-    D = 128
     P = ctx_max // page
     n_pages = S * P
     kv = torch.randn(n_pages + 1, page, 2, K, D, generator=g, device=dev,
@@ -741,7 +778,11 @@ def check_paged(dev, int8=False, mined_q=()):
     codes with per-(token, kv head) scales quantised from the same
     N(0, 1) pages; also two slots' continued prefill chunks at each
     mined Q top (neither a multiple of 64 nor of the tile's 16-row
-    block)."""
+    block), and the head dims of phases 9b-9d: at D = 64, 80 and 96 a
+    decode on the split-KV path (H = K = 32), Falcon-7B's multi-query
+    decode (H = 71, K = 1: 71 folded rows, the tile), a prefill chunk
+    (Falcon's heads at D = 64), and at D = 96 Phi-3-mini's 2047-token
+    window over contexts of 4096 (a decode and a chunk)."""
     import torch
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops import paged_attention as PA
@@ -766,16 +807,26 @@ def check_paged(dev, int8=False, mined_q=()):
              ("Mistral spec verify", 16, 4, 32, 8, 4096, False)]
     cases += [(f"mined prefill chunk Q={q}", 2, q, 32, 32, None, False)
               for q in mined_q]
-    ctx_of = {"Mistral spec verify": 8192}
+    cases = [c + (128,) for c in cases]
+    for d in HEAD_DIM_MODELS:
+        chunk_heads = (71, 1) if d == 64 else (32, 32)
+        cases += [(f"D={d} decode", 16, 1, 32, 32, None, False, d),
+                  (f"D={d} MQA decode", 16, 1, 71, 1, None, False, d),
+                  (f"D={d} prefill chunk", 4, 1024, *chunk_heads, None,
+                   False, d)]
+    cases += [("D=96 window decode", 16, 1, 32, 32, 2047, False, 96),
+              ("D=96 window chunk", 2, 1024, 32, 32, 2047, False, 96)]
+    ctx_of = {"Mistral spec verify": 8192, "D=96 window decode": 4096,
+              "D=96 window chunk": 4096}
     # the int8 cases quantise the very pages, tables and positions of the
     # bf16 cases (every case draws, fewer run)
     skip = ("decode", "prefill chunk") if int8 else ()
-    # bytes a context token takes per kv head: K and V rows of 128 values
-    token_bytes = 2 * (128 + 4) if int8 else 2 * 128 * 2
     rows = []
-    for name, S, Q, H, K, window, alibi in cases:
+    for name, S, Q, H, K, window, alibi, D in cases:
+        # bytes a context token takes per kv head: K and V rows of D values
+        token_bytes = 2 * (D + 4) if int8 else 2 * D * 2
         ctx = ctx_of.get(name, 2048)
-        q, kv, table, start = _paged_inputs(dev, S, Q, H, K, ctx, g)
+        q, kv, table, start = _paged_inputs(dev, S, Q, H, K, ctx, g, D=D)
         if name in skip:
             continue
         if name == "single-slot decode":
@@ -796,10 +847,10 @@ def check_paged(dev, int8=False, mined_q=()):
         n_keys = int((pos[:, -1] + 1 - lo[:, 0]).sum())
         kv_bytes = n_keys * K * token_bytes
         io_bytes = 2 * q.numel() * 2 + table.numel() * 4 + S * 4
-        flops = 4 * 128 * H * int((pos + 1 - lo).sum())
+        flops = 4 * D * H * int((pos + 1 - lo).sum())
         b_ms, b_by = bound(kv_bytes + io_bytes, flops)
         rows.append(dict(
-            shape=f"{name}: S={S} Q={Q} H={H} K={K} D=128 page=64 "
+            shape=f"{name}: S={S} Q={Q} H={H} K={K} D={D} page=64 "
                   f"ctx<={ctx}" + (f" window={window}" if window else "")
                   + (" int8 pages" if int8 else ""),
             path=("split-KV decode + combine"
@@ -855,18 +906,22 @@ def check_flash(dev, mined_q=()):
     rows = []
     # the serving case (contiguous [B, H, S, D]) first, then the training
     # shape as the training forward passes it ([B, S, H, D] views), an
-    # uneven S, GQA and a window at the training width, and a fresh
-    # prefill of two prompts at each mined Q top (contiguous, as serving)
-    cases = [("", 4, 1024, 32, None),
-             ("training: ", 2, TRAIN_SEQ, 32, None),
-             ("uneven S=1000: ", 2, 1000, 32, None),
-             ("GQA: ", 2, TRAIN_SEQ, 8, None),
-             ("window 512: ", 2, TRAIN_SEQ, 32, 512)]
-    cases += [(f"mined Q={q}: ", 2, q, 32, None) for q in mined_q]
-    for name, B, S, K, window in cases:
-        H, D = 32, 128
+    # uneven S, GQA and a window at the training width, a fresh prefill of
+    # two prompts at each mined Q top (contiguous, as serving), and the
+    # fresh prefill of phases 9b-9d at each of their head dims ([S, Q, H,
+    # D] views, as the serving step passes them: Falcon-7B's 71 query heads
+    # over one kv head at D = 64, Phi-2's and Phi-3-mini's 32 at 80 and 96)
+    cases = [("", 4, 1024, 32, 32, None, 128),
+             ("training: ", 2, TRAIN_SEQ, 32, 32, None, 128),
+             ("uneven S=1000: ", 2, 1000, 32, 32, None, 128),
+             ("GQA: ", 2, TRAIN_SEQ, 32, 8, None, 128),
+             ("window 512: ", 2, TRAIN_SEQ, 32, 32, 512, 128)]
+    cases += [(f"mined Q={q}: ", 2, q, 32, 32, None, 128) for q in mined_q]
+    cases += [(f"D={d}: ", 4, 1024, *((71, 1) if d == 64 else (32, 32)),
+               None, d) for d in HEAD_DIM_MODELS]
+    for name, B, S, H, K, window, D in cases:
         if name and not name.startswith("mined"):
-            q, k, v = (_bshd(dev, g, B, S, n) for n in (H, K, K))
+            q, k, v = (_bshd(dev, g, B, S, n, D) for n in (H, K, K))
         else:
             q, k, v = (torch.randn(B, n, S, D, generator=g, device=dev,
                                    dtype=torch.bfloat16) for n in (H, K, K))
@@ -1618,20 +1673,25 @@ def two_passes(engine, reqs, cfg, counters, card, label,
 
 
 def serve(cfg, params, counters, card, model_type="llama",
-          kv_quantization="none", label=None, **serving):
-    """10 requests through FastGenScheduler in the default serving
-    configuration (a CUDA graph per step key, the async chain, prefix
-    caching), or with ``serving``'s flags: ``two_passes``, every segment
-    kind run, then every key's replay against its eager body and four
-    profiled decode steps.  Returns (summary, launches, engine, the
-    requests, {uid: tokens} of the timed pass)."""
+          kv_quantization="none", label=None, reqs=None, **serving):
+    """10 requests (or ``reqs``) through FastGenScheduler in the default
+    serving configuration (a CUDA graph per step key, the async chain,
+    prefix caching), or with ``serving``'s flags: ``two_passes``, every
+    segment kind run (a model whose decode rows fold to the tile, as
+    multi-query Falcon's 71, has no split-KV segment), then every key's
+    replay against its eager body and four profiled decode steps.
+    Returns (summary, launches, engine, the requests, {uid: tokens} of
+    the timed pass)."""
+    from deepspeed_tpu_torch.ops import paged_attention as PA
     label = label or model_type
     engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
                           kv_quantization=kv_quantization, **serving)
-    reqs = serving_requests(cfg)
+    reqs = reqs or serving_requests(cfg)
     summary, launches, generated, dispatches = two_passes(
         engine, reqs, cfg, counters, card, label, kv_quantization)
-    if not all(summary["segments"].values()):
+    decode_tiles = cfg.num_heads // cfg.kv_heads >= PA.DECODE_ROWS
+    if not all(n for kind, n in summary["segments"].items()
+               if not (decode_tiles and kind.startswith("split_kv"))):
         raise RuntimeError(f"{label}: a segment kind never ran: "
                            f"{summary['segments']}")
     engine.reset_prefix_cache()
@@ -4261,26 +4321,28 @@ def mistral_phase(counters, card):
     return summary, launches
 
 
-def window_kernel_vs_plain(cfg, params, n_decode=6):
-    """Two Mistral sequences on the kernel path and on the plain path,
-    teacher-forced with the kernel path's picks, each step one eager
-    ``put`` per prefill chunk (the step's token budget) or of both
-    decode rows: 6144-token prompts in chunks of 2048 (a fresh chunk,
-    then chunks over 2048 and 4096 tokens of history), then
-    ``n_decode`` decode steps over tables whose first 32 slots the
-    window has evicted (null).  Every put's logits compared."""
+def window_kernel_vs_plain(cfg, params, n_decode=6, prompt=MISTRAL_PROMPT,
+                           chunk=MISTRAL_CHUNK, model_type="mistral",
+                           label="Mistral"):
+    """Two sequences of a windowed model on the kernel path and on the
+    plain path, teacher-forced with the kernel path's picks, each step
+    one eager ``put`` per prefill chunk (the step's token budget) or of
+    both decode rows: ``prompt``-token prompts in chunks of ``chunk``
+    (Mistral: 6144 in chunks of 2048, a fresh chunk, then chunks over
+    2048 and 4096 tokens of history), then ``n_decode`` decode steps over
+    tables whose first slots the window has evicted (null; Mistral: 32).
+    Every put's logits compared."""
     import numpy as np
     import torch
-    kw = dict(num_pages=200, model_type="mistral")
+    kw = dict(num_pages=200, model_type=model_type)
     engines = {"kernel": build_engine(cfg, params, **kw),
                "plain": build_engine(cfg, params, **kw,
                                      implementations=PLAIN_PATH)}
     rng = np.random.default_rng(SEED + 13)
-    prompts = [rng.integers(0, cfg.vocab_size, MISTRAL_PROMPT)
-               for _ in range(2)]
+    prompts = [rng.integers(0, cfg.vocab_size, prompt) for _ in range(2)]
     uids, last, rows = [0, 1], {}, []
-    puts = [([u], [p[i:i + MISTRAL_CHUNK]])
-            for i in range(0, MISTRAL_PROMPT, MISTRAL_CHUNK)
+    puts = [([u], [p[i:i + chunk]])
+            for i in range(0, prompt, chunk)
             for u, p in zip(uids, prompts)] + [(uids, None)] * n_decode
     for g_uids, feed in puts:
         feed = feed or [np.array([last[u]], np.int32) for u in g_uids]
@@ -4307,17 +4369,93 @@ def window_kernel_vs_plain(cfg, params, n_decode=6):
     res = dict(puts=rows, max_rel_logit_err=worst, tol=LOGIT_REL_TOL,
                greedy_agreement=sum(r["greedy_agree"] for r in rows)
                / sum(len(r["uids"]) for r in rows))
-    log("Mistral kernel vs plain past the window:", json.dumps(res))
+    log(f"{label} kernel vs plain past the window:", json.dumps(res))
     if not any(min(r["evicted_slots"]) for r in rows):
         raise RuntimeError("no step ran over an evicted table")
     if worst > LOGIT_REL_TOL:
-        raise RuntimeError(f"Mistral kernel path logits differ from the "
+        raise RuntimeError(f"{label} kernel path logits differ from the "
                            f"plain path by {worst:.3e} > {LOGIT_REL_TOL}")
     if res["greedy_agreement"] < GREEDY_AGREE_MIN:
-        raise RuntimeError(f"Mistral greedy agreement "
+        raise RuntimeError(f"{label} greedy agreement "
                            f"{res['greedy_agreement']:.3f} below "
                            f"{GREEDY_AGREE_MIN}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 9b to 9d: the published Hugging Face families at head dims 64, 80
+# and 96
+# ---------------------------------------------------------------------------
+
+# head dim -> the model of phases 9b-9d that serves at it
+HEAD_DIM_MODELS = {64: "Falcon-7B", 80: "Phi-2", 96: "Phi-3-mini-4k"}
+# Phi-3-mini's two requests that cross its 2047-token window, and the
+# window check's prompts (chunks of the step budget's half)
+PHI3_LONG_PROMPT = 3072
+PHI3_CHUNK = 1024
+
+
+def hf_family_phase(counters, card, label, model_type, config_from_hf,
+                    fields, seed, int8=False):
+    """One published family at full width and depth (its ``config.json``
+    fields through the port's ``*_config_from_hf``; seeded random bf16
+    weights, norm scales and biases drawn too) on 256 pages of 64 tokens:
+    ``serve`` (phase 4's traffic, warm-up then timed pass, exact launch
+    counts, no capture in the timed pass, every replay against its eager
+    body, profiled decode steps), with the two attention op classes
+    resolved to their kernels (never a plain version); then the kernel
+    path against the plain path at full width (``plain_vs_kernel``).
+    ``int8``: the same weights again over 256 int8 pages.  A windowed
+    model also serves two requests of 3072 + 64 tokens that cross the
+    window, and its kernel path is held to the plain path past the
+    window.  Returns ({path: launches}, {path: summary})."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import SamplingParams
+    from deepspeed_tpu_torch.models.transformer import init_params
+    cfg = config_from_hf(types.SimpleNamespace(**fields))
+    t = time.perf_counter()
+    params = randomize_norms_and_biases(
+        init_params(cfg, seed=seed, device="cuda"), seed + 1)
+    torch.cuda.synchronize()
+    log(f"{label} params: {cfg.n_params() / 1e9:.2f} B, {cfg.num_layers} "
+        f"layers, head_dim {cfg.dims_per_head}, heads {cfg.num_heads} / kv "
+        f"{cfg.kv_heads}, window {cfg.sliding_window}, bf16 init "
+        f"{time.perf_counter() - t:.1f} s")
+    reqs = serving_requests(cfg)
+    if cfg.sliding_window:
+        rng = np.random.default_rng(seed + 2)
+        for uid in (len(reqs), len(reqs) + 1):
+            reqs[uid] = (rng.integers(0, cfg.vocab_size, PHI3_LONG_PROMPT),
+                         SamplingParams(max_new_tokens=64))
+    launches, summaries = {}, {}
+    for quant in ("none", "int8") if int8 else ("none",):
+        path = f"serving_{model_type}" + ("_int8" if quant == "int8" else "")
+        name = label + (" int8" if quant == "int8" else "")
+        summary, launches[path], engine, _, _ = serve(
+            cfg, params, counters, card, model_type=model_type,
+            kv_quantization=quant, label=name, reqs=reqs)
+        impls = engine.model.implementations
+        if (impls["ragged_attention"], impls["fresh_prefill_attention"]) \
+                != ("cuda_paged", "cuda_flash"):
+            raise RuntimeError(f"{name}: attention resolved to {impls}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary["kernel_vs_plain"] = plain_vs_kernel(
+            cfg, params, model_type=model_type, kv_quantization=quant)
+        summaries[path] = summary
+        gc.collect()
+        torch.cuda.empty_cache()
+    if cfg.sliding_window:
+        summaries[f"serving_{model_type}"]["window_kernel_vs_plain"] = \
+            window_kernel_vs_plain(cfg, params, prompt=PHI3_LONG_PROMPT,
+                                   chunk=PHI3_CHUNK, model_type=model_type,
+                                   label=label)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summaries
 
 
 # ---------------------------------------------------------------------------
@@ -4710,6 +4848,9 @@ def main() -> int:
                   if v["spill_stores"] or v["spill_loads"]}
         log(f"ptxas {k.name}: {len(kernels)} kernels, registers {regs}, "
             f"spills: {json.dumps(spills) if spills else 'none'}")
+        if spills:
+            raise RuntimeError(f"{k.name}: {len(spills)} kernels spill "
+                               f"registers: {sorted(spills)}")
         if k in (PA.KERNEL, FA.KERNEL, FA.BWD_KERNEL):
             log(f"ptxas {k.name} by kernel: {json.dumps(kernels)}")
         # ptxas says when it had to serialise the asynchronous wgmma
@@ -4891,6 +5032,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # phases 9b-9d: Falcon-7B (head_dim 64, multi-query; bf16 then int8
+    # pages), Phi-2 (80, partial rotary), Phi-3-mini-4k (96, a 2047-token
+    # window) at their published configurations
+    from deepspeed_tpu_torch.checkpoint import hf as HF
+    for label, model_type, convert, name, seed, int8 in (
+            ("Falcon-7B", "falcon", HF.falcon_config_from_hf,
+             "tiiuae/falcon-7b", SEED + 21, True),
+            ("Phi-2", "phi", HF.phi_config_from_hf, "microsoft/phi-2",
+             SEED + 23, False),
+            ("Phi-3-mini-4k", "phi3", HF.phi3_config_from_hf,
+             "microsoft/Phi-3-mini-4k-instruct", SEED + 25, False)):
+        paths, _ = hf_family_phase(counters, card, label, model_type,
+                                   convert, HF.PUBLISHED_CONFIGS[name],
+                                   seed, int8=int8)
+        launches_by_path.update(paths)
+
     # phase 10: the serving weights and caches are gone
     engine, batch, launches_by_path["training"] = train(counters, card)
 
@@ -4934,7 +5091,7 @@ def main() -> int:
             entry["host_parts_us"] = head.get("host_parts_us")
             entry["by_shape"] = {r["shape"]: {
                 k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                  *SPLIT_KEYS)} for r in rows}
+                                  *SPLIT_KEYS) if k in r} for r in rows}
         if name == "flash_bwd":
             # one wrapper, two kernels: dK/dV (:164) and dQ (:214), each
             # with its own launches, time and bound; delta is the
@@ -4951,6 +5108,11 @@ def main() -> int:
             entry["note"] = ("ms, plain_ms and library_ms (SDPA backward) "
                              "are the whole function; parts gives each "
                              "kernel's ms, bound and launches")
+        if name in ("paged_attention", "paged_attention_int8", "flash_fwd"):
+            # every shape phase 3 timed: the head dims of phases 9b-9d too
+            entry["by_shape"] = {r["shape"]: {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for r in rows}
         if name in ("paged_attention", "paged_attention_int8"):
             # the combine runs on the paths where this page format ran
             entry["combine_launches"] = sum(

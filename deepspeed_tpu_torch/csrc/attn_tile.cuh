@@ -2,20 +2,28 @@
 // kernels and the multi-row path of the paged attention kernels (bf16 and
 // int8 pages).
 //
-// One warpgroup (128 threads) owns 64 query rows at head_dim 128 and walks
-// key blocks of 64 (a flash k-block, or one KV page zero-padded to 64):
+// One warpgroup (128 threads) owns 64 query rows at head dim D (64, 80, 96
+// or 128) and walks key blocks of 64 (a flash k-block, or one KV page
+// zero-padded to 64):
 //   1. S = Q . K^T with wgmma.mma_async m64n64k16 (bf16 in, fp32 out):
 //      Q and K are bf16 tiles in 128-byte-swizzled shared memory, K-major;
 //   2. the caller's score functor scales, biases and masks S in the
 //      accumulator registers (only on blocks that cross a boundary: the
 //      interior ones take the unmasked form), the row max and sum come
 //      from quad shuffles, m and l stay fp32;
-//   3. O += P . V with wgmma m64n128k16: P goes from the fp32 score
+//   3. O += P . V with wgmma m64n{DP}k16: P goes from the fp32 score
 //      fragment to bf16 in registers as the A operand (the accumulator
 //      fragment of m64n64 is, four columns at a time, the A fragment of
-//      k16), V is [keys, D] bf16 in swizzled shared memory read MN-major
-//      through the descriptor's transpose bit; O stays in 64 fp32
+//      k16), V is [keys, DP] bf16 in swizzled shared memory read MN-major
+//      through the descriptor's transpose bit; O stays in DP / 2 fp32
 //      registers per thread.
+// Head dims below 128: a tile is DP = round_up(D, 64) columns wide (64
+// for D = 64, 128 for 80 and 96), the same panels and swizzle.  Columns
+// D..DP-1 of Q, K and V are zero-filled at load (the cp.async predicate),
+// so S = Q . K^T over DP / 16 k-steps is exact, and the store writes the
+// first D columns only.  At D = 80 and 96 the tensor cores do 60% and 33%
+// more work than the head needs; tail panels of 16/32 columns with a
+// narrower swizzle would remove it.
 // Callers stage tiles with 16-byte cp.async (zero-filled past the valid
 // rows) through a 2-stage ring, so one block's copy overlaps the previous
 // block's compute; fence_proxy_async() makes the copies visible to the
@@ -42,12 +50,25 @@
 namespace ds_attn {
 
 constexpr int kThreads = 128;
-constexpr int kHeadDim = 128;
+constexpr int kHeadDim = 128;               // the widest tile (the backward's)
 constexpr int kKeys = 64;                   // keys per block
 constexpr int kRows = 64;                   // query rows per tile
 constexpr int kPanelBytes = 64 * 128;       // 64 rows of 64 bf16 (128 B)
 constexpr int kTileBytes = 2 * kPanelBytes; // [64][128] bf16, two panels
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The tile at head dim D: DP = round_up(D, 64) columns (one or two
+// panels), D / 8 16-byte chunks of a row holding data, DP / 8 in all.
+template <int D>
+struct Width {
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "the attention tile takes head dims 64, 80, 96 and 128");
+  static constexpr int padded = (D + 63) / 64 * 64;
+  static constexpr int chunks = D / 8;
+  static constexpr int tile_chunks = padded / 8;
+  static constexpr int tile_bytes = kRows * padded * 2;
+  static constexpr int acc = padded / 2;  // m64n{padded} fp32 per thread
+};
 
 // Byte offset of 16-byte chunk c (0..15, 8 bf16 each) of row r in a
 // [64][128] bf16 tile: two column panels of [64][64], each row 128 B,
@@ -85,21 +106,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 64 rows (row0 ..) of a [.., S, 128] bf16 operand with row stride
+// 64 rows (row0 ..) of a [.., S, D] bf16 operand with row stride
 // `row_stride` elements into the swizzled tile at `dst`; rows at or past
-// n_rows are zero-filled and read nothing.  Every thread of the
-// warpgroup issues 8 of the 1024 16-byte copies; the loop is unrolled,
-// so each copy's addresses are a per-thread base plus a constant (the
-// kernels issue these every block, and a rolled loop's arithmetic showed
-// in their time).  The caller commits.
+// n_rows, and the padding columns D..DP-1, are zero-filled and read
+// nothing.  Every thread of the warpgroup issues 8 (DP = 128) or 4 of
+// the 16-byte copies; the loop is unrolled, so each copy's addresses are
+// a per-thread base plus a constant (the kernels issue these every
+// block, and a rolled loop's arithmetic showed in their time).  The
+// caller commits.
+template <int D = kHeadDim>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           long long row_stride, int row0,
                                           int n_rows) {
+  using W = Width<D>;
 #pragma unroll
-  for (int i = 0; i < kRows * 16 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads, r = c >> 4, chunk = c & 15;
-    const bool ok = row0 + r < n_rows;
+  for (int i = 0; i < kRows * W::tile_chunks / kThreads; ++i) {
+    const unsigned c = threadIdx.x + i * kThreads;  // shifts, not divisions
+    const int r = c / W::tile_chunks, chunk = c % W::tile_chunks;
+    const bool ok = row0 + r < n_rows && chunk < W::chunks;
     cp_async16(dst + swz(r, chunk),
                src + (ok ? (row0 + r) * row_stride : 0) + chunk * 8, ok);
   }
@@ -108,14 +133,17 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 // The same 64 rows of two operands (K and V, or Q and dO) into two tiles
 // in one loop, as load_tile does for one: the row arithmetic is shared
 // (two load_tile calls ran the flash kernels slower).
+template <int D = kHeadDim>
 __device__ __forceinline__ void load_tile_pair(
     uint32_t dst_a, const __nv_bfloat16* src_a, long long stride_a,
     uint32_t dst_b, const __nv_bfloat16* src_b, long long stride_b, int row0,
     int n_rows) {
+  using W = Width<D>;
 #pragma unroll
-  for (int i = 0; i < kRows * 16 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads, r = c >> 4, chunk = c & 15;
-    const bool ok = row0 + r < n_rows;
+  for (int i = 0; i < kRows * W::tile_chunks / kThreads; ++i) {
+    const unsigned c = threadIdx.x + i * kThreads;  // shifts, not divisions
+    const int r = c / W::tile_chunks, chunk = c % W::tile_chunks;
+    const bool ok = row0 + r < n_rows && chunk < W::chunks;
     const long long row = ok ? row0 + r : 0;
     cp_async16(dst_a + swz(r, chunk), src_a + row * stride_a + chunk * 8, ok);
     cp_async16(dst_b + swz(r, chunk), src_b + row * stride_b + chunk * 8, ok);
@@ -165,9 +193,10 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
   return sw128_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 16, 1024);
 }
 
-// MN-major operand (V as [keys][D], D contiguous): the two 64-column
-// panels are kPanelBytes apart (leading offset), 8-key groups 1024 B
-// apart (stride offset); k-step kk covers keys 16 kk .. 16 kk + 15.
+// MN-major operand (V as [keys][DP], DP contiguous): the two 64-column
+// panels are kPanelBytes apart (leading offset; unused when DP = 64),
+// 8-key groups 1024 B apart (stride offset); k-step kk covers keys
+// 16 kk .. 16 kk + 15.
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
   return sw128_desc(tile + kk * 2048, kPanelBytes, 1024);
 }
@@ -232,6 +261,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O[64 x 64] += A[64 x 16] . B[16 x 64]: as wgmma_m64n128k16_rs, the
+// P . V product of a 64-column tile (D = 64).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -257,19 +311,20 @@ __device__ __forceinline__ float frag_elem(const uint32_t (&a)[4][4], int i) {
   return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
 }
 
-// Per-thread softmax state of the thread's two rows, and its 64 output
-// accumulators (row r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l % 4)
-// + (i & 1)).
+// Per-thread softmax state of the thread's two rows, and its DP / 2
+// output accumulators (row r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) +
+// 2 (l % 4) + (i & 1)).
+template <int D>
 struct RowState {
   float m[2];
   float l[2];
-  float o[64];
+  float o[Width<D>::acc];
 
   __device__ void init() {
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < Width<D>::acc; ++i) o[i] = 0.f;
   }
 };
 
@@ -280,20 +335,22 @@ __device__ __forceinline__ int frag_row() {
 }
 __device__ __forceinline__ int frag_col() { return 2 * (threadIdx.x & 3); }
 
-// One key block.  q, k, v: shared addresses of swizzled [64][128] bf16
-// tiles, written and fenced (fence_proxy_async + __syncthreads) by the
-// caller.  score.apply<MASK>(j, t, dot) returns the scaled (and biased)
+// One key block.  q, k, v: shared addresses of swizzled [64][DP] bf16
+// tiles (padding columns zero in q and k), written and fenced
+// (fence_proxy_async + __syncthreads) by the caller.  score.apply<MASK>(j, t, dot) returns the scaled (and biased)
 // score of the thread's row j (0: r0, 1: r0 + 8) and key t, or
 // DS_MASK_VALUE; MASK == false promises that every key is visible.
 // v_scale (VSCALE only): 64 fp32 scales of the block's V rows.
-template <bool MASK, bool VSCALE, class Score>
+template <bool MASK, bool VSCALE, int D, class Score>
 __device__ __forceinline__ void attend_block(uint32_t q, uint32_t k,
                                              uint32_t v, const float* v_scale,
-                                             RowState& st, const Score& score) {
+                                             RowState<D>& st,
+                                             const Score& score) {
+  constexpr int kAcc = Width<D>::acc;
   float s[32];
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk)
+  for (int kk = 0; kk < Width<D>::padded / 16; ++kk)
     wgmma_m64n64k16_ss(s, kmajor_desc(q, kk), kmajor_desc(k, kk), kk > 0);
   wgmma_commit();
   wgmma_wait0();
@@ -324,7 +381,7 @@ __device__ __forceinline__ void attend_block(uint32_t q, uint32_t k,
 #pragma unroll
   for (int j = 0; j < 2; ++j) st.l[j] = st.l[j] * alpha[j] + sum[j];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) st.o[i] *= alpha[(i >> 1) & 1];
+  for (int i = 0; i < kAcc; ++i) st.o[i] *= alpha[(i >> 1) & 1];
 
   if (VSCALE) {
 #pragma unroll
@@ -335,15 +392,20 @@ __device__ __forceinline__ void attend_block(uint32_t q, uint32_t k,
 
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_m64n128k16_rs(st.o, a[kk], mnmajor_desc(v, kk));
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (kAcc == 32)
+      wgmma_m64n64k16_rs(st.o, a[kk], mnmajor_desc(v, kk));
+    else
+      wgmma_m64n128k16_rs(st.o, a[kk], mnmajor_desc(v, kk));
+  }
   wgmma_commit();
   wgmma_wait0();
   fence_operands(st.o);
 }
 
 // After the last block: each row's denominator summed over its quad.
-__device__ __forceinline__ void finish_rows(RowState& st) {
+template <int D>
+__device__ __forceinline__ void finish_rows(RowState<D>& st) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     st.l[j] += __shfl_xor_sync(0xffffffffu, st.l[j], 1);
@@ -351,16 +413,17 @@ __device__ __forceinline__ void finish_rows(RowState& st) {
   }
 }
 
-// An m64n128 fp32 accumulator fragment times inv[row half] as bf16 into
-// the swizzled [64][128] tile at `stage` (16 KB of shared memory that no
-// wgmma reads any more; the caller syncs before and after), to leave as
-// 16-byte chunks (swz gives row r's chunk c).
-__device__ __forceinline__ void store_tile(const float (&o)[64],
+// An m64nN fp32 accumulator fragment (N = 2 * ACC: 128 or 64) times
+// inv[row half] as bf16 into the swizzled [64][N] tile at `stage` (shared
+// memory that no wgmma reads any more; the caller syncs before and
+// after), to leave as 16-byte chunks (swz gives row r's chunk c).
+template <int ACC>
+__device__ __forceinline__ void store_tile(const float (&o)[ACC],
                                            const float (&inv)[2],
                                            uint8_t* stage) {
   const int r0 = frag_row(), c0 = frag_col();
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < ACC; i += 2) {
     const int j = (i >> 1) & 1, r = r0 + 8 * j, col = c0 + 8 * (i >> 2);
     *reinterpret_cast<uint32_t*>(stage + swz(r, col >> 3) + (col & 7) * 2) =
         pack_bf16(o[i] * inv[j], o[i + 1] * inv[j]);
@@ -368,7 +431,8 @@ __device__ __forceinline__ void store_tile(const float (&o)[64],
 }
 
 // o / l of the attention rows, as store_tile.
-__device__ __forceinline__ void store_out_tile(const RowState& st,
+template <int D>
+__device__ __forceinline__ void store_out_tile(const RowState<D>& st,
                                                uint8_t* stage) {
   const float inv[2] = {1.f / fmaxf(st.l[0], 1e-30f),
                         1.f / fmaxf(st.l[1], 1e-30f)};
@@ -376,15 +440,18 @@ __device__ __forceinline__ void store_out_tile(const RowState& st,
 }
 
 // The staged tile's rows row0 + r < n_rows to dst (row stride
-// `row_stride` elements), one 16-byte store per chunk.
+// `row_stride` elements), one 16-byte store per chunk of the D columns.
+template <int D = kHeadDim>
 __device__ __forceinline__ void copy_out_tile(const uint8_t* stage,
                                               __nv_bfloat16* dst,
                                               long long row_stride, int row0,
                                               int n_rows) {
+  using W = Width<D>;
 #pragma unroll
-  for (int i = 0; i < kRows * 16 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads, r = c >> 4, chunk = c & 15;
-    if (row0 + r < n_rows)
+  for (int i = 0; i < kRows * W::tile_chunks / kThreads; ++i) {
+    const unsigned c = threadIdx.x + i * kThreads;  // shifts, not divisions
+    const int r = c / W::tile_chunks, chunk = c % W::tile_chunks;
+    if (row0 + r < n_rows && chunk < W::chunks)
       *reinterpret_cast<uint4*>(dst + (row0 + r) * row_stride + chunk * 8) =
           *reinterpret_cast<const uint4*>(stage + swz(r, chunk));
   }

@@ -6,6 +6,10 @@
 // _flash_fwd).  Training runs it twice per layer (forward and remat);
 // serving runs it on the pure-prefill ("fresh") step, once per layer.
 //
+// Head dims: D = 64, 80, 96 or 128, a template parameter; the tile is
+// round_up(D, 64) columns wide with zero padding (attn_tile.cuh), and the
+// entry point refuses any other D with cudaErrorInvalidValue.
+//
 // Layout: q [B, H, Sq, D], k / v [B, Kh, Sk, D] given by element strides
 // (so transposed views of the model's [B, S, H, D] activations need no
 // copy; rows are 16-byte aligned with a contiguous last dim), out
@@ -20,7 +24,8 @@
 // of the TPU kernel), K and V through a 2-stage cp.async ring: block
 // n + 1 loads while block n computes.  Only blocks that cross the
 // diagonal, the window edge or Sk apply the mask.  Shared memory: Q 16
-// KB + 2 x (K 16 KB + V 16 KB), so two blocks fit on an SM.
+// KB + 2 x (K 16 KB + V 16 KB) (8 KB tiles at D = 64), so two blocks fit
+// on an SM.
 //
 // Numerics: scores, m and l fp32; P rounded to bf16 before P . V (the TPU
 // kernel's and the plain version's rounding); lse = m + log(max(l,
@@ -55,8 +60,12 @@ struct FlashScore {
 };
 
 // Shared memory: the Q tile, then 2 stages of (K, V).
-constexpr int kFlashSmem = 5 * kTileBytes + kSmemSlack;
+template <int D>
+constexpr int flash_smem() {
+  return 5 * Width<D>::tile_bytes + kSmemSlack;
+}
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -71,9 +80,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t q_s = smem_addr(smem);
   const int tid = threadIdx.x;
+  constexpr int kTile = Width<D>::tile_bytes;
   // stage i: K at tile 1 + 2i, V at 2 + 2i
-  auto k_tile = [&](int stage) { return q_s + (1 + 2 * stage) * kTileBytes; };
-  auto v_tile = [&](int stage) { return k_tile(stage) + kTileBytes; };
+  auto k_tile = [&](int stage) { return q_s + (1 + 2 * stage) * kTile; };
+  auto v_tile = [&](int stage) { return k_tile(stage) + kTile; };
 
   const int tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Kh);
@@ -83,10 +93,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile(q_s, qb, q_ss, q0, Sq);
+  load_tile<D>(q_s, qb, q_ss, q0, Sq);
   auto load_kv = [&](int blk, int stage) {
-    load_tile_pair(k_tile(stage), kb, k_ss, v_tile(stage), vb, v_ss,
-                   blk * kKeys, Sk);
+    load_tile_pair<D>(k_tile(stage), kb, k_ss, v_tile(stage), vb, v_ss,
+                      blk * kKeys, Sk);
   };
 
   // the band of key blocks the block's rows can see
@@ -97,7 +107,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   if (lo < hi) load_kv(lo, 0);
   cp_async_commit();  // Q and the first block
 
-  RowState st;
+  RowState<D> st;
   st.init();
   const int r0 = frag_row();
   FlashScore score{{q0 + r0, q0 + r0 + 8}, 0, Sk, causal, window, scale};
@@ -136,32 +146,58 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();      // Q is read by no wgmma any more
   store_out_tile(st, smem);
   __syncthreads();
-  copy_out_tile(smem, out + b * o_sb + h * o_sh, o_ss, q0, Sq);
+  copy_out_tile<D>(smem, out + b * o_sb + h * o_sh, o_ss, q0, Sq);
 }
 
-// causal: 0/1; window <= 0: no sliding window.
-DS_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                             void* out, void* lse, int B, int H, int Kh, int Sq,
-                             int Sk, long long q_sb, long long q_sh,
-                             long long q_ss, long long k_sb, long long k_sh,
-                             long long k_ss, long long v_sb, long long v_sh,
-                             long long v_ss, long long o_sb, long long o_sh,
-                             long long o_ss, float scale, int causal, int window,
-                             void* stream) {
+template <int D>
+static int launch_flash(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int H, int Kh, int Sq,
+                        int Sk, long long q_sb, long long q_sh, long long q_ss,
+                        long long k_sb, long long k_sh, long long k_ss,
+                        long long v_sb, long long v_sh, long long v_ss,
+                        long long o_sb, long long o_sh, long long o_ss,
+                        float scale, int causal, int window,
+                        cudaStream_t stream) {
+  constexpr int smem = flash_smem<D>();
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kFlashSmem);
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<<<grid, kThreads, kFlashSmem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), H, Kh, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh,
       k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D: the head dim (64, 80, 96 or 128; anything else is refused with
+// cudaErrorInvalidValue and launches nothing); causal: 0/1; window <= 0:
+// no sliding window.
+DS_EXPORT int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int B, int H, int Kh, int Sq,
+                             int Sk, int D, long long q_sb, long long q_sh,
+                             long long q_ss, long long k_sb, long long k_sh,
+                             long long k_ss, long long v_sb, long long v_sh,
+                             long long v_ss, long long o_sb, long long o_sh,
+                             long long o_ss, float scale, int causal, int window,
+                             void* stream) {
+#define DS_FLASH_LAUNCH(WIDTH)                                              \
+  launch_flash<WIDTH>(q, k, v, out, lse, B, H, Kh, Sq, Sk, q_sb, q_sh, q_ss, \
+                      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,  \
+                      scale, causal, window,                                 \
+                      static_cast<cudaStream_t>(stream))
+  switch (D) {
+    case 64: return DS_FLASH_LAUNCH(64);
+    case 80: return DS_FLASH_LAUNCH(80);
+    case 96: return DS_FLASH_LAUNCH(96);
+    case 128: return DS_FLASH_LAUNCH(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DS_FLASH_LAUNCH
 }

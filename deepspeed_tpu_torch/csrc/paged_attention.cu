@@ -20,7 +20,8 @@
 // block's last causal row, or wholly below its first row's window, are
 // never read (the null page absorbs padding writes and holds garbage).
 // Window and ALiBi are template parameters, as the TPU kernel
-// specialises them statically.
+// specialises them statically, and so is the head dim D (64, 80, 96 or
+// 128: the entry points refuse any other with cudaErrorInvalidValue).
 //
 // Two regimes, by the folded rows R = Q * G of a (slot, kv head):
 //
@@ -54,6 +55,11 @@
 //   times fp32 p * v_scale, as the TPU kernel.
 //
 // Scores, m and l are fp32 everywhere.
+//
+// Head dims below 128: the tile path pads its tiles to round_up(D, 64)
+// columns of zeros (attn_tile.cuh); the split path's threads d >= D sit
+// out the P . V sum; int8 staging keeps 128-byte code rows of which the
+// first D bytes are copied.
 
 #include "attn_tile.cuh"
 
@@ -95,34 +101,42 @@ __device__ __forceinline__ void page_range(int start, int first, int last,
   }
 }
 
-// One int8 page in staging: K codes [64][128], V codes [64][128], K and V
-// scales [64] each.
-constexpr int kCodeBytes = kKeys * kHeadDim;
+// One int8 page in staging: K codes [64][128], V codes [64][128] (rows of
+// 128 bytes whatever D: the first D hold codes), K and V scales [64] each.
+constexpr int kCodeRow = 128;
+constexpr int kCodeBytes = kKeys * kCodeRow;
 constexpr int kInt8StageBytes = 2 * kCodeBytes + 2 * kKeys * 4;
 
-// 16 int8 codes (one 16-byte word) as floats.
+// 16 int8 codes (one 16-byte word) as floats.  Each 32-bit part is
+// picked by a select, never an array index (an indexed local array of
+// the four parts went to the stack where a loop around it was not
+// unrolled).
 __device__ __forceinline__ void codes16(const uint4& w, float* f) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
-    f[i] = static_cast<float>(
-        static_cast<signed char>(words[i >> 2] >> (8 * (i & 3))));
+  for (int i = 0; i < 16; ++i) {
+    const uint32_t part = i < 4 ? w.x : i < 8 ? w.y : i < 12 ? w.z : w.w;
+    f[i] = static_cast<float>(static_cast<signed char>(part >> (8 * (i & 3))));
+  }
 }
 
 // Copies one page's int8 codes and scales (kv head k) into a staging
-// area; rows past page_size are zero (codes 0, scale 0).
+// area, D / 16 16-byte chunks a row; rows past page_size are zero (codes
+// 0, scale 0).  With swizzle_k, K's chunk c of row t lands at chunk
+// c ^ (t % 8) of its 128-byte row.
+template <int D>
 __device__ __forceinline__ void stage_int8_page(
     uint32_t stage, const int8_t* codes, const float* scales, int page,
     int page_size, int K, size_t token_stride, int k, bool swizzle_k) {
+  constexpr int kChunks = D / 16;
   const int8_t* base =
-      codes + static_cast<size_t>(page) * page_size * token_stride + k * kHeadDim;
-  for (int c = threadIdx.x; c < kKeys * 8; c += kThreads) {
-    const int t = c >> 3, chunk = c & 7;
+      codes + static_cast<size_t>(page) * page_size * token_stride + k * D;
+  for (unsigned c = threadIdx.x; c < kKeys * kChunks; c += kThreads) {
+    const int t = c / kChunks, chunk = c % kChunks;
     const bool ok = t < page_size;
     const int8_t* row = base + (ok ? t : 0) * token_stride + chunk * 16;
     const int kc = swizzle_k ? (chunk ^ (t & 7)) : chunk;
-    cp_async16(stage + t * 128 + kc * 16, row, ok);
-    cp_async16(stage + kCodeBytes + t * 128 + chunk * 16, row + K * kHeadDim, ok);
+    cp_async16(stage + t * kCodeRow + kc * 16, row, ok);
+    cp_async16(stage + kCodeBytes + t * kCodeRow + chunk * 16, row + K * D, ok);
   }
   // scales [page, slot, 0|1, k]: no head_dim axis
   const float* sc = scales + static_cast<size_t>(page) * page_size * 2 * K + k;
@@ -136,16 +150,16 @@ __device__ __forceinline__ void stage_int8_page(
 // multi-row path: the tensor-core tile
 // ---------------------------------------------------------------------------
 
-template <bool INT8>
+template <int D, bool INT8>
 struct TileSmem {
   // bf16: Q, then 2 stages of (K, V).  int8: Q, one (K, V) pair, then a
   // 2-stage staging ring of codes and scales.
+  static constexpr int tile = Width<D>::tile_bytes;
   static constexpr int bytes =
-      (INT8 ? 3 * kTileBytes + 2 * kInt8StageBytes : 5 * kTileBytes) +
-      kSmemSlack;
+      (INT8 ? 3 * tile + 2 * kInt8StageBytes : 5 * tile) + kSmemSlack;
 };
 
-template <bool WINDOW, bool ALIBI, bool INT8>
+template <int D, bool WINDOW, bool ALIBI, bool INT8>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
                   const void* __restrict__ kv,
@@ -155,6 +169,8 @@ paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ slopes,
                   __nv_bfloat16* __restrict__ out, int Q, int H, int K, int P,
                   int page_size, float scale, int window) {
+  using W = Width<D>;
+  constexpr int kTile = W::tile_bytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const uint32_t q_s = smem_addr(smem);
@@ -166,52 +182,65 @@ paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
   const int start = start_pos[s];
   const int* table = page_table + static_cast<size_t>(s) * P;
   // elements (bf16 values or int8 codes) from one token to the next
-  const size_t token_stride = static_cast<size_t>(2) * K * kHeadDim;
+  const size_t token_stride = static_cast<size_t>(2) * K * D;
 
-  for (int c = tid; c < kRows * 16; c += kThreads) {
-    const int r = c >> 4, chunk = c & 15, row = row0 + r;
-    const bool ok = row < R;
+  // Q rows, padding columns D..DP-1 zero-filled
+  for (unsigned c = tid; c < kRows * W::tile_chunks; c += kThreads) {
+    const int r = c / W::tile_chunks, chunk = c % W::tile_chunks,
+              row = row0 + r;
+    const bool ok = row < R && chunk < W::chunks;
     const size_t off =
         ok ? ((static_cast<size_t>(s) * Q + row / G) * H + k * G + row % G) *
-                 kHeadDim
+                     D + chunk * 8
            : 0;
-    cp_async16(q_s + swz(r, chunk), q + off + chunk * 8, ok);
+    cp_async16(q_s + swz(r, chunk), q + off, ok);
   }
 
   // bf16: stage i holds K at tile 1 + 2i and V at 2 + 2i; int8: K and V
   // at tiles 1 and 2, staging after them
-  const uint32_t staging = q_s + 3 * kTileBytes;
+  const uint32_t staging = q_s + 3 * kTile;
   auto k_tile = [&](int stage) {
-    return INT8 ? q_s + kTileBytes : q_s + (1 + 2 * stage) * kTileBytes;
+    return INT8 ? q_s + kTile : q_s + (1 + 2 * stage) * kTile;
   };
-  auto v_tile = [&](int stage) { return k_tile(stage) + kTileBytes; };
+  auto v_tile = [&](int stage) { return k_tile(stage) + kTile; };
   auto load_page = [&](int p, int stage) {
     const int page = table[p];
     if constexpr (INT8) {
-      stage_int8_page(staging + stage * kInt8StageBytes,
-                      static_cast<const int8_t*>(kv), kv_scale, page,
-                      page_size, K, token_stride, k, false);
+      stage_int8_page<D>(staging + stage * kInt8StageBytes,
+                         static_cast<const int8_t*>(kv), kv_scale, page,
+                         page_size, K, token_stride, k, false);
     } else {
       const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(kv) +
                                   static_cast<size_t>(page) * page_size *
                                       token_stride +
-                                  k * kHeadDim;
-      for (int c = tid; c < kKeys * 16; c += kThreads) {
-        const int t = c >> 4, chunk = c & 15;
-        const bool ok = t < page_size;
-        const __nv_bfloat16* row = base + (ok ? t : 0) * token_stride + chunk * 8;
+                                  k * D;
+      for (unsigned c = tid; c < kKeys * W::tile_chunks; c += kThreads) {
+        const int t = c / W::tile_chunks, chunk = c % W::tile_chunks;
+        const bool ok = t < page_size && chunk < W::chunks;
+        const __nv_bfloat16* row = base + (ok ? t * token_stride + chunk * 8 : 0);
         cp_async16(k_tile(stage) + swz(t, chunk), row, ok);
-        cp_async16(v_tile(stage) + swz(t, chunk), row + K * kHeadDim, ok);
+        cp_async16(v_tile(stage) + swz(t, chunk), row + K * D, ok);
       }
     }
   };
+  if constexpr (INT8 && W::chunks < W::tile_chunks) {
+    // the dequantised K and V tiles are written a page at a time, their
+    // D columns only: the padding columns are zeroed once (the fence
+    // before the first page's barrier publishes them to the tensor cores)
+    constexpr int kPad = W::tile_chunks - W::chunks;
+    for (unsigned c = tid; c < 2 * kKeys * kPad; c += kThreads) {
+      const int t = (c / kPad) % kKeys, chunk = W::chunks + c % kPad;
+      *reinterpret_cast<uint4*>(smem + (c < kKeys * kPad ? kTile : 2 * kTile) +
+                                swz(t, chunk)) = make_uint4(0, 0, 0, 0);
+    }
+  }
 
   int p_lo, p_hi;
   page_range<WINDOW>(start, row0, last_row, G, P, page_size, window, p_lo, p_hi);
   if (p_lo < p_hi) load_page(p_lo, 0);
   cp_async_commit();  // Q and the first page
 
-  RowState st;
+  RowState<D> st;
   st.init();
   const int r0 = frag_row();
   PagedScore<WINDOW, ALIBI> score;
@@ -235,25 +264,27 @@ paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (INT8) {
       __syncthreads();
       // codes -> bf16 tiles: K = bf16(code * scale), V = bf16(code)
-      const uint8_t* area = smem + 3 * kTileBytes + stage * kInt8StageBytes;
+      constexpr int kGroups = D / 16;  // 16-code words of a row
+      const uint8_t* area = smem + 3 * kTile + stage * kInt8StageBytes;
       const float* k_scale = reinterpret_cast<const float*>(area + 2 * kCodeBytes);
       v_scale = k_scale + kKeys;
-      for (int c = tid; c < kKeys * 8; c += kThreads) {
-        const int t = c >> 3, g = c & 7;
+      for (unsigned c = tid; c < kKeys * kGroups; c += kThreads) {
+        const int t = c / kGroups, g = c % kGroups;
         float f[16];
-        codes16(*reinterpret_cast<const uint4*>(area + t * 128 + g * 16), f);
+        codes16(*reinterpret_cast<const uint4*>(area + t * kCodeRow + g * 16),
+                f);
         const float ks = k_scale[t];
 #pragma unroll
         for (int i = 0; i < 16; ++i) f[i] *= ks;
-        *reinterpret_cast<uint4*>(smem + kTileBytes + swz(t, 2 * g)) =
+        *reinterpret_cast<uint4*>(smem + kTile + swz(t, 2 * g)) =
             ds_float8_to_bf16(f);
-        *reinterpret_cast<uint4*>(smem + kTileBytes + swz(t, 2 * g + 1)) =
+        *reinterpret_cast<uint4*>(smem + kTile + swz(t, 2 * g + 1)) =
             ds_float8_to_bf16(f + 8);
-        codes16(*reinterpret_cast<const uint4*>(area + kCodeBytes + t * 128 +
-                                                g * 16), f);
-        *reinterpret_cast<uint4*>(smem + 2 * kTileBytes + swz(t, 2 * g)) =
+        codes16(*reinterpret_cast<const uint4*>(area + kCodeBytes +
+                                                t * kCodeRow + g * 16), f);
+        *reinterpret_cast<uint4*>(smem + 2 * kTile + swz(t, 2 * g)) =
             ds_float8_to_bf16(f);
-        *reinterpret_cast<uint4*>(smem + 2 * kTileBytes + swz(t, 2 * g + 1)) =
+        *reinterpret_cast<uint4*>(smem + 2 * kTile + swz(t, 2 * g + 1)) =
             ds_float8_to_bf16(f + 8);
       }
     }
@@ -278,12 +309,11 @@ paged_tile_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   store_out_tile(st, smem);
   __syncthreads();
-  for (int c = tid; c < kRows * 16; c += kThreads) {
-    const int r = c >> 4, chunk = c & 15, row = row0 + r;
+  for (unsigned c = tid; c < kRows * W::chunks; c += kThreads) {
+    const int r = c / W::chunks, chunk = c % W::chunks, row = row0 + r;
     if (row < R) {
       const size_t off =
-          ((static_cast<size_t>(s) * Q + row / G) * H + k * G + row % G) *
-          kHeadDim;
+          ((static_cast<size_t>(s) * Q + row / G) * H + k * G + row % G) * D;
       *reinterpret_cast<uint4*>(out + off + chunk * 8) =
           *reinterpret_cast<const uint4*>(smem + swz(r, chunk));
     }
@@ -303,23 +333,57 @@ __device__ __forceinline__ size_t part_index(int s, int k, int split, int r,
 
 // First element of folded row r of (slot s, kv head k) in out [S, Q, H, D].
 __device__ __forceinline__ size_t out_index(int s, int k, int r, int Q, int H,
-                                            int G) {
-  return ((static_cast<size_t>(s) * Q + r / G) * H + k * G + r % G) * kHeadDim;
+                                            int G, int D) {
+  return ((static_cast<size_t>(s) * Q + r / G) * H + k * G + r % G) * D;
 }
 
-template <int ROWS, bool INT8>
+// One page (kv head k) into a split-KV stage: int8 codes and scales
+// through stage_int8_page (K swizzled), or bf16 K as a swizzled [64][DP]
+// tile and V row-major [64][D] after it.  Forced inline: out of line, its
+// call spilled registers.
+template <int D, bool INT8>
+__device__ __forceinline__ void split_load_page(
+    uint32_t area, const void* kv, const float* kv_scale, int page,
+    int page_size, int K, size_t token_stride, int k) {
+  if constexpr (INT8) {
+    stage_int8_page<D>(area, static_cast<const int8_t*>(kv), kv_scale, page,
+                       page_size, K, token_stride, k, true);
+  } else {
+    constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
+    const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(kv) +
+                                static_cast<size_t>(page) * page_size *
+                                    token_stride +
+                                k * D;
+    for (unsigned c = threadIdx.x; c < kKeys * kChunks; c += kThreads) {
+      const int t = c / kChunks, chunk = c % kChunks;
+      const bool ok = t < page_size;
+      const __nv_bfloat16* row = base + (ok ? t : 0) * token_stride + chunk * 8;
+      cp_async16(area + swz(t, chunk), row, ok);
+      cp_async16(area + Width<D>::tile_bytes + t * (2 * D) + chunk * 16,
+                 row + K * D, ok);
+    }
+  }
+}
+
+template <int D, int ROWS, bool INT8>
 struct SplitSmem {
-  // bf16 stage: K as a swizzled [64][128] tile (16 KB), V row-major
-  static constexpr int stage = INT8 ? kInt8StageBytes : 2 * kTileBytes;
+  // bf16 stage: K as a swizzled [64][DP] tile, then V row-major [64][D]
+  static constexpr int tile = Width<D>::tile_bytes;
+  static constexpr int stage = INT8 ? kInt8StageBytes : 2 * tile;
   static constexpr int q = 2 * stage;                       // fp32 [ROWS][D]
-  static constexpr int sc = q + ROWS * kHeadDim * 4;        // [2][ROWS][64]
+  static constexpr int sc = q + ROWS * D * 4;               // [2][ROWS][64]
   static constexpr int p = sc + 2 * ROWS * kKeys * 4;       // [ROWS][64]
   static constexpr int stats = p + ROWS * kKeys * 4;        // m, l, alpha
   static constexpr int bytes = stats + 3 * ROWS * 4;
 };
 
-template <int ROWS, bool WINDOW, bool ALIBI, bool INT8>
-__global__ void __launch_bounds__(kThreads)
+// Two blocks an SM at least: without that bound ptxas held these
+// instances to 56-96 registers and kept the page loader's hoisted row
+// predicates on the stack (32 of the 128 spilled); with it they take
+// 85-160 and spill nothing, and shared memory, not registers, still
+// sets how many blocks share an SM.
+template <int D, int ROWS, bool WINDOW, bool ALIBI, bool INT8>
+__global__ void __launch_bounds__(kThreads, 2)
 paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                    const void* __restrict__ kv,
                    const float* __restrict__ kv_scale,
@@ -328,7 +392,8 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                    const float* __restrict__ slopes, float* __restrict__ work,
                    __nv_bfloat16* __restrict__ out, int S, int Q, int H, int K,
                    int P, int page_size, float scale, int window) {
-  using L = SplitSmem<ROWS, INT8>;
+  using L = SplitSmem<D, ROWS, INT8>;
+  static_assert(D <= kThreads, "a thread per head dim in the P . V sum");
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t base_s = smem_addr(smem);
   float* qf = reinterpret_cast<float*>(smem + L::q);
@@ -344,9 +409,10 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int G = H / K, R = Q * G;
   const int start = start_pos[s];
   const int* table = page_table + static_cast<size_t>(s) * P;
-  const size_t token_stride = static_cast<size_t>(2) * K * kHeadDim;
+  const size_t token_stride = static_cast<size_t>(2) * K * D;
+  const bool owns_dim = tid < D;  // the head dim this thread sums and writes
   float* part_o = work;
-  float* part_ml = work + static_cast<size_t>(S) * K * n_split * R * kHeadDim;
+  float* part_ml = work + static_cast<size_t>(S) * K * n_split * R * D;
 
   int p_lo, p_hi;
   page_range<WINDOW>(start, 0, R - 1, G, P, page_size, window, p_lo, p_hi);
@@ -356,11 +422,12 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
   if (p_begin >= p_end) {  // no keys here: weight 0 in the combine
     for (int r = 0; r < R; ++r) {
       if (n_split == 1) {
-        out[out_index(s, k, r, Q, H, G) + tid] = __float2bfloat16(0.f);
+        if (owns_dim)
+          out[out_index(s, k, r, Q, H, G, D) + tid] = __float2bfloat16(0.f);
         continue;
       }
       const size_t i = part_index(s, k, split, r, K, n_split, R);
-      part_o[i * kHeadDim + tid] = 0.f;
+      if (owns_dim) part_o[i * D + tid] = 0.f;
       if (tid == 0) {
         part_ml[2 * i] = -INFINITY;
         part_ml[2 * i + 1] = 0.f;
@@ -369,37 +436,18 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     return;
   }
 
-  auto load_page = [&](int p, int stage) {
-    const uint32_t area = base_s + stage * L::stage;
-    const int page = table[p];
-    if constexpr (INT8) {
-      stage_int8_page(area, static_cast<const int8_t*>(kv), kv_scale, page,
-                      page_size, K, token_stride, k, true);
-    } else {
-      const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(kv) +
-                                  static_cast<size_t>(page) * page_size *
-                                      token_stride +
-                                  k * kHeadDim;
-      for (int c = tid; c < kKeys * 16; c += kThreads) {
-        const int t = c >> 4, chunk = c & 15;
-        const bool ok = t < page_size;
-        const __nv_bfloat16* row = base + (ok ? t : 0) * token_stride + chunk * 8;
-        cp_async16(area + swz(t, chunk), row, ok);
-        cp_async16(area + kTileBytes + t * 256 + chunk * 16, row + K * kHeadDim,
-                   ok);
-      }
-    }
-  };
-  load_page(p_begin, 0);
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
+  split_load_page<D, INT8>(base_s, kv, kv_scale, table[p_begin], page_size,
+                           K, token_stride, k);
   cp_async_commit();
 
-  for (int c = tid; c < ROWS * kHeadDim; c += kThreads) {
-    const int r = c / kHeadDim, d = c % kHeadDim;
+  for (int c = tid; c < ROWS * D; c += kThreads) {
+    const int r = c / D, d = c % D;
     float x = 0.f;
     if (r < R)
       x = __bfloat162float(
-          q[((static_cast<size_t>(s) * Q + r / G) * H + k * G + r % G) *
-                kHeadDim + d]);
+          q[((static_cast<size_t>(s) * Q + r / G) * H + k * G + r % G) * D +
+            d]);
     qf[c] = x;
   }
   if (tid < ROWS) {
@@ -412,7 +460,9 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int p = p_begin; p < p_end; ++p) {
     const int stage = (p - p_begin) & 1;
-    if (p + 1 < p_end) load_page(p + 1, stage ^ 1);
+    if (p + 1 < p_end)
+      split_load_page<D, INT8>(base_s + (stage ^ 1) * L::stage, kv, kv_scale,
+                               table[p + 1], page_size, K, token_stride, k);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -427,18 +477,20 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
       if constexpr (INT8) {
         const float ks =
             reinterpret_cast<const float*>(area + 2 * kCodeBytes)[t];
+        constexpr int kWords = D / 16;  // 16-code words of a row
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = 4 * hh + j;  // 16 codes: dims 16c .. 16c + 15
+        for (int j = 0; j < (kWords + 1) / 2; ++j) {
+          const int c = 2 * j + hh;  // 16 codes: dims 16c .. 16c + 15
+          if (c >= kWords) break;    // D = 80: half 1 takes two words
           float f[16];
-          codes16(*reinterpret_cast<const uint4*>(area + t * 128 +
+          codes16(*reinterpret_cast<const uint4*>(area + t * kCodeRow +
                                                   ((c ^ (t & 7)) << 4)), f);
 #pragma unroll
           for (int i = 0; i < 16; ++i)
             f[i] = __bfloat162float(__float2bfloat16(f[i] * ks));
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
-            const float4* qv = reinterpret_cast<const float4*>(qf + r * kHeadDim + 16 * c);
+            const float4* qv = reinterpret_cast<const float4*>(qf + r * D + 16 * c);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const float4 a = qv[i];
@@ -449,13 +501,13 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * hh + j;  // 8 values: dims 8c .. 8c + 7
+        for (int j = 0; j < kChunks / 2; ++j) {
+          const int c = kChunks / 2 * hh + j;  // 8 values: dims 8c .. 8c + 7
           float f[8];
           ds_bf16x8_to_float(*reinterpret_cast<const uint4*>(area + swz(t, c)), f);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
-            const float4* qv = reinterpret_cast<const float4*>(qf + r * kHeadDim + 8 * c);
+            const float4* qv = reinterpret_cast<const float4*>(qf + r * D + 8 * c);
             const float4 a = qv[0], b = qv[1];
             dot[r] += a.x * f[0] + a.y * f[1] + a.z * f[2] + a.w * f[3] +
                       b.x * f[4] + b.y * f[5] + b.z * f[6] + b.w * f[7];
@@ -506,25 +558,29 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     // acc[r] of head dim d = tid: rescale, then sum over the page's keys
+    if (owns_dim) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (r < R) acc[r] *= alpha_s[r];
-    for (int t = 0; t < kKeys; t += 4) {
-      float v[4];
+      for (int r = 0; r < ROWS; ++r)
+        if (r < R) acc[r] *= alpha_s[r];
+      for (int t = 0; t < kKeys; t += 4) {
+        float v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (INT8)
-          v[i] = static_cast<float>(static_cast<const signed char*>(
-              static_cast<const void*>(area + kCodeBytes))[(t + i) * 128 + tid]);
-        else
-          v[i] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
-              area + kTileBytes)[(t + i) * kHeadDim + tid]);
-      }
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (INT8)
+            v[i] = static_cast<float>(static_cast<const signed char*>(
+                static_cast<const void*>(area + kCodeBytes))[(t + i) * kCodeRow +
+                                                             tid]);
+          else
+            v[i] = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                area + L::tile)[(t + i) * D + tid]);
+        }
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (r < R) {
-          const float4 pr = *reinterpret_cast<const float4*>(ps + r * kKeys + t);
-          acc[r] += pr.x * v[0] + pr.y * v[1] + pr.z * v[2] + pr.w * v[3];
+        for (int r = 0; r < ROWS; ++r) {
+          if (r < R) {
+            const float4 pr =
+                *reinterpret_cast<const float4*>(ps + r * kKeys + t);
+            acc[r] += pr.x * v[0] + pr.y * v[1] + pr.z * v[2] + pr.w * v[3];
+          }
         }
       }
     }
@@ -532,14 +588,17 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait<0>();
 
+  // __fdividef: no call to the IEEE division's slow path in the kernel;
+  // within 2 ulp at the l >= 1 that a row with keys has
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     if (r < R && n_split == 1) {
-      out[out_index(s, k, r, Q, H, G) + tid] =
-          __float2bfloat16(acc[r] / fmaxf(l_s[r], 1e-30f));
+      if (owns_dim)
+        out[out_index(s, k, r, Q, H, G, D) + tid] =
+            __float2bfloat16(__fdividef(acc[r], fmaxf(l_s[r], 1e-30f)));
     } else if (r < R) {
       const size_t i = part_index(s, k, split, r, K, n_split, R);
-      part_o[i * kHeadDim + tid] = acc[r];
+      if (owns_dim) part_o[i * D + tid] = acc[r];
       if (tid == 0) {
         part_ml[2 * i] = m_s[r];
         part_ml[2 * i + 1] = l_s[r];
@@ -549,16 +608,16 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // out = sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i over the splits;
-// grid (K, S), thread d = head dim.
+// grid (K, S), thread d = head dim (threads d >= D have nothing to do).
 __global__ void __launch_bounds__(kThreads)
 paged_combine_kernel(const float* __restrict__ work,
                      __nv_bfloat16* __restrict__ out, int S, int Q, int H,
-                     int K, int n_split) {
+                     int K, int D, int n_split) {
   const int k = blockIdx.x, s = blockIdx.y, d = threadIdx.x;
+  if (d >= D) return;
   const int G = H / K, R = Q * G;
   const float* part_o = work;
-  const float* part_ml =
-      work + static_cast<size_t>(S) * K * n_split * R * kHeadDim;
+  const float* part_ml = work + static_cast<size_t>(S) * K * n_split * R * D;
   for (int r = 0; r < R; ++r) {
     float M = -INFINITY;
     for (int i = 0; i < n_split; ++i)
@@ -568,10 +627,10 @@ paged_combine_kernel(const float* __restrict__ work,
       const size_t j = part_index(s, k, i, r, K, n_split, R);
       const float m = part_ml[2 * j];
       const float w = m == -INFINITY ? 0.f : exp2f((m - M) * kLog2e);
-      num += w * part_o[j * kHeadDim + d];
+      num += w * part_o[j * D + d];
       den += w * part_ml[2 * j + 1];
     }
-    out[out_index(s, k, r, Q, H, G) + d] =
+    out[out_index(s, k, r, Q, H, G, D) + d] =
         __float2bfloat16(num / fmaxf(den, 1e-30f));
   }
 }
@@ -590,7 +649,7 @@ struct PagedArgs {
   const void* slopes;    // nullptr: no ALiBi
   void* out;
   void* work;            // decode path with n_split > 1: the fp32 partials
-  int S, Q, H, K, P, page_size;
+  int S, Q, H, K, D, P, page_size;
   float scale;
   int window;            // <= 0: no sliding window
   int n_split;           // decode path: splits per (slot, kv head)
@@ -606,10 +665,10 @@ static cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
   return e;
 }
 
-template <bool WINDOW, bool ALIBI, bool INT8>
+template <int D, bool WINDOW, bool ALIBI, bool INT8>
 static int launch_tile(const PagedArgs& a) {
-  auto kernel = paged_tile_kernel<WINDOW, ALIBI, INT8>;
-  constexpr int smem = TileSmem<INT8>::bytes;
+  auto kernel = paged_tile_kernel<D, WINDOW, ALIBI, INT8>;
+  constexpr int smem = TileSmem<D, INT8>::bytes;
   static bool configured = false;
   cudaError_t e = allow_smem(kernel, smem, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -624,10 +683,10 @@ static int launch_tile(const PagedArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int ROWS, bool WINDOW, bool ALIBI, bool INT8>
+template <int D, int ROWS, bool WINDOW, bool ALIBI, bool INT8>
 static int launch_split(const PagedArgs& a) {
-  auto kernel = paged_split_kernel<ROWS, WINDOW, ALIBI, INT8>;
-  constexpr int smem = SplitSmem<ROWS, INT8>::bytes;
+  auto kernel = paged_split_kernel<D, ROWS, WINDOW, ALIBI, INT8>;
+  constexpr int smem = SplitSmem<D, ROWS, INT8>::bytes;
   static bool configured = false;
   cudaError_t e = allow_smem(kernel, smem, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -642,41 +701,54 @@ static int launch_split(const PagedArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WINDOW, bool ALIBI, bool INT8>
+template <int D, bool WINDOW, bool ALIBI, bool INT8>
 static int dispatch_rows(const PagedArgs& a) {
   const int rows = a.Q * (a.H / a.K);
-  if (rows >= kDecodeRows) return launch_tile<WINDOW, ALIBI, INT8>(a);
+  if (rows >= kDecodeRows) return launch_tile<D, WINDOW, ALIBI, INT8>(a);
   if (a.n_split < 1 || (a.n_split > 1 && a.work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (rows <= 1) return launch_split<1, WINDOW, ALIBI, INT8>(a);
-  if (rows <= 4) return launch_split<4, WINDOW, ALIBI, INT8>(a);
-  if (rows <= 8) return launch_split<8, WINDOW, ALIBI, INT8>(a);
-  return launch_split<kDecodeRows, WINDOW, ALIBI, INT8>(a);
+  if (rows <= 1) return launch_split<D, 1, WINDOW, ALIBI, INT8>(a);
+  if (rows <= 4) return launch_split<D, 4, WINDOW, ALIBI, INT8>(a);
+  if (rows <= 8) return launch_split<D, 8, WINDOW, ALIBI, INT8>(a);
+  return launch_split<D, kDecodeRows, WINDOW, ALIBI, INT8>(a);
 }
 
+template <int D, bool INT8>
+static int dispatch_masks(const PagedArgs& a) {
+  const bool win = a.window > 0, alibi = a.slopes != nullptr;
+  if (win && alibi) return dispatch_rows<D, true, true, INT8>(a);
+  if (win) return dispatch_rows<D, true, false, INT8>(a);
+  if (alibi) return dispatch_rows<D, false, true, INT8>(a);
+  return dispatch_rows<D, false, false, INT8>(a);
+}
+
+// The head dim picks the instantiation; any other is refused.
 template <bool INT8>
 static int dispatch(const PagedArgs& a) {
-  const bool win = a.window > 0, alibi = a.slopes != nullptr;
-  if (win && alibi) return dispatch_rows<true, true, INT8>(a);
-  if (win) return dispatch_rows<true, false, INT8>(a);
-  if (alibi) return dispatch_rows<false, true, INT8>(a);
-  return dispatch_rows<false, false, INT8>(a);
+  switch (a.D) {
+    case 64: return dispatch_masks<64, INT8>(a);
+    case 80: return dispatch_masks<80, INT8>(a);
+    case 96: return dispatch_masks<96, INT8>(a);
+    case 128: return dispatch_masks<128, INT8>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// window <= 0: no sliding window; slopes == nullptr: no ALiBi.  With
-// Q * (H / K) < 16 folded rows this launches the split-KV kernel, which
-// with n_split > 1 writes fp32 partials to `work` (see the wrapper for
-// its size) and leaves `out` to paged_attention_combine, and with
-// n_split == 1 writes `out` (`work` may be null); otherwise the
+// D: the head dim, 64, 80, 96 or 128 (anything else: cudaErrorInvalidValue,
+// nothing launched); window <= 0: no sliding window; slopes == nullptr: no
+// ALiBi.  With Q * (H / K) < 16 folded rows this launches the split-KV
+// kernel, which with n_split > 1 writes fp32 partials to `work` (see the
+// wrapper for its size) and leaves `out` to paged_attention_combine, and
+// with n_split == 1 writes `out` (`work` may be null); otherwise the
 // tensor-core kernel writes `out` and `work` is not read.
 DS_EXPORT int paged_attention_bf16(const void* q, const void* kv,
                                    const void* page_table, const void* start_pos,
                                    const void* slopes, void* out, void* work,
-                                   int S, int Q, int H, int K, int P,
+                                   int S, int Q, int H, int K, int D, int P,
                                    int page_size, float scale, int window,
                                    int n_split, void* stream) {
   return dispatch<false>({q, kv, nullptr, page_table, start_pos, slopes, out,
-                          work, S, Q, H, K, P, page_size, scale, window,
+                          work, S, Q, H, K, D, P, page_size, scale, window,
                           n_split, static_cast<cudaStream_t>(stream)});
 }
 
@@ -686,21 +758,24 @@ DS_EXPORT int paged_attention_int8(const void* q, const void* kv,
                                    const void* kv_scale, const void* page_table,
                                    const void* start_pos, const void* slopes,
                                    void* out, void* work, int S, int Q, int H,
-                                   int K, int P, int page_size, float scale,
-                                   int window, int n_split, void* stream) {
+                                   int K, int D, int P, int page_size,
+                                   float scale, int window, int n_split,
+                                   void* stream) {
   return dispatch<true>({q, kv, kv_scale, page_table, start_pos, slopes, out,
-                         work, S, Q, H, K, P, page_size, scale, window, n_split,
-                         static_cast<cudaStream_t>(stream)});
+                         work, S, Q, H, K, D, P, page_size, scale, window,
+                         n_split, static_cast<cudaStream_t>(stream)});
 }
 
 // The decode path's second launch: the n_split partials of each (slot,
-// kv head, row) in `work` -> out.
+// kv head, row) in `work` -> out, at head dim D (as the first launch's).
 DS_EXPORT int paged_attention_combine(const void* work, void* out, int S,
-                                      int Q, int H, int K, int n_split,
+                                      int Q, int H, int K, int D, int n_split,
                                       void* stream) {
+  if (D != 64 && D != 80 && D != 96 && D != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(K, S);
   paged_combine_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(work), static_cast<__nv_bfloat16*>(out), S, Q,
-      H, K, n_split);
+      H, K, D, n_split);
   return static_cast<int>(cudaGetLastError());
 }

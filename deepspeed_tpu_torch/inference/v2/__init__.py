@@ -5,6 +5,7 @@ from .config import (KVCacheUserConfig, RaggedInferenceEngineConfig,
                      ServingOptimizationConfig, StateManagerConfig,
                      TelemetryConfig)
 from .engine import InferenceEngineV2, SchedulingError, SchedulingResult
+from .factory import build_hf_engine
 from .lattice import BucketLattice, LatticeError, resolve_lattice
 from .model import RaggedInferenceModel
 from .model_implementations import (implementation_for,
@@ -25,5 +26,5 @@ __all__ = [
     "derive_row_keys", "sample_keyed", "SnapshotError",
     "FastGenScheduler", "Request", "RequestError", "generate",
     "ModelDrafter", "NgramDrafter",
-    "implementation_for", "supported_model_types",
+    "implementation_for", "supported_model_types", "build_hf_engine",
 ]

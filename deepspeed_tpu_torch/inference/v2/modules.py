@@ -5,10 +5,11 @@ maps to named implementations with a priority and a ``supports(cfg,
 device)`` predicate; ``instantiate`` returns the highest-priority one
 that supports the model, or exactly the one named.  The hand-written
 CUDA kernels register at priority 10 and support a bf16 model at
-head_dim 128 on a CUDA device; their plain PyTorch versions register at
-priority 0 and support every device.  Unnamed, a plain version is taken
-only on the CPU: on the card an op class that has a kernel runs it or
-``resolve`` raises, and the plain path runs there only when named.
+head_dim 64, 80, 96 or 128 on a CUDA device; their plain PyTorch
+versions register at priority 0 and support every device.  Unnamed, a
+plain version is taken only on the CPU: on the card an op class that has
+a kernel runs it or ``resolve`` raises, and the plain path runs there
+only when named.
 """
 
 from __future__ import annotations
@@ -70,14 +71,16 @@ def resolve(op_class: str, cfg: Any, device: torch.device,
                     and impls[0].priority > 0):
                 # the op class has a kernel and it does not take this
                 # model: never the plain version in its place, unasked
+                dims = ", ".join(map(str, _head_dims()))
                 raise NotImplementedError(
                     f"no {op_class} kernel takes this model on {device} "
                     f"(dtype {cfg.dtype}, head_dim {cfg.dims_per_head}, "
                     f"norm {cfg.norm!r}; the kernels take torch.bfloat16 "
-                    f"at head_dim {_head_dim()}), and the plain version "
+                    f"at head_dim {dims}), and the plain version "
                     f"{op_class}/{i.name} runs on the card only when "
                     f"named in `implementations` (ROADMAP Queue 1 item "
-                    f"11k: kernels in fp32 and at other head dims)")
+                    f"11k: kernels in fp32, and at head dims outside "
+                    f"{dims} such as GPT-J's 256)")
             return i.name
     raise ValueError(f"no {op_class} implementation supports this model "
                      f"on {device}")
@@ -99,13 +102,20 @@ def _cuda_bf16(cfg, device) -> bool:
     return device.type == "cuda" and cfg.dtype == torch.bfloat16
 
 
-def _head_dim() -> int:
-    from ...ops.paged_attention import HEAD_DIM
-    return HEAD_DIM
+def _head_dims() -> Tuple[int, ...]:
+    # the paged and flash forward kernels share one tile and its widths
+    from ...ops.paged_attention import HEAD_DIMS
+    return HEAD_DIMS
 
 
 def _cuda_attention(cfg, device) -> bool:
-    return _cuda_bf16(cfg, device) and cfg.dims_per_head == _head_dim()
+    return _cuda_bf16(cfg, device) and cfg.dims_per_head in _head_dims()
+
+
+def _cuda_flash_fwd(cfg, device) -> bool:
+    from ...ops.flash_attention import HEAD_DIMS
+    return (_no_alibi(cfg, device) and _cuda_bf16(cfg, device)
+            and cfg.dims_per_head in HEAD_DIMS)
 
 
 def _alibi_for(cfg, device):
@@ -166,8 +176,7 @@ def _fresh(flash):
 
 
 @register("fresh_prefill_attention", "cuda_flash", priority=10,
-          supports=lambda cfg, dev: _no_alibi(cfg, dev)
-          and _cuda_attention(cfg, dev))
+          supports=_cuda_flash_fwd)
 def _cuda_flash(cfg, device):
     """Pure-prefill bucket: every slot's context IS its new tokens, so
     attention runs ``csrc/flash_fwd.cu`` over [S, H, Q, D] with causal

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import DeviceLike, resolve_device
-from ..ops.flash_attention import HEAD_DIM, flash_attention
+from ..ops.flash_attention import BWD_HEAD_DIMS, flash_attention
 from ..runtime.config import outside_slice
 from ..tree import tree_map
 
@@ -72,7 +72,8 @@ class TransformerConfig:
     remat: bool = True
     remat_policy: str = "nothing_saveable"
     # training only: auto (flash when the mask is pure-causal; on the card
-    # that needs bf16 at head_dim 128, else it raises) | flash (force) |
+    # that needs bf16 at head_dim 128, the flash backward's one width, else
+    # it raises) | flash (force) |
     # einsum (dense path)
     attention_impl: str = "auto"
     dtype: torch.dtype = torch.bfloat16
@@ -296,17 +297,21 @@ def alibi_slopes(n_heads: int) -> np.ndarray:
 
 def check_flash_layout(cfg: TransformerConfig, device: torch.device) -> None:
     """Raise unless the flash path takes this model on ``device``.  On the
-    CPU its plain versions take any layout; on the card the kernels take
-    bf16 at head_dim 128, and another layout raises rather than run the
-    dense path, which only ``attention_impl="einsum"`` chooses."""
+    CPU its plain versions take any layout; on the card training needs the
+    backward kernels, which take bf16 at head_dim 128 (the forward kernel
+    takes more widths, but a step would then raise in its backward), and
+    another layout raises rather than run the dense path, which only
+    ``attention_impl="einsum"`` chooses."""
     if device.type == "cpu":
         return
-    if cfg.dtype != torch.bfloat16 or cfg.dims_per_head != HEAD_DIM:
+    if cfg.dtype != torch.bfloat16 or cfg.dims_per_head not in BWD_HEAD_DIMS:
+        dims = ", ".join(map(str, BWD_HEAD_DIMS))
         raise outside_slice(
             f"flash attention on the card in {cfg.dtype} at head_dim "
-            f"{cfg.dims_per_head} (the kernels take torch.bfloat16 at "
-            f"head_dim {HEAD_DIM}; attention_impl='einsum' runs the dense "
-            f"path)", "11k (flash kernels in fp32 and at other head dims)")
+            f"{cfg.dims_per_head} (the flash backward kernels take "
+            f"torch.bfloat16 at head_dim {dims}; attention_impl='einsum' "
+            f"runs the dense path)",
+            "11k (the flash backward in fp32 and at other head dims)")
 
 
 def flash_dot_product_attention(cfg: TransformerConfig, q, k, v):

@@ -23,18 +23,22 @@ import numpy as np
 import torch
 
 from .kernel_loader import LL, CudaKernel, F, I, P, stream_of
+from .paged_attention import HEAD_DIMS
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 KERNEL = CudaKernel("flash_fwd.cu", {
-    "flash_fwd_bf16": [P, P, P, P, P, I, I, I, I, I] + [LL] * 12
-                      + [F, I, I, P]})
+    "flash_fwd_bf16": [P] * 5 + [I] * 6 + [LL] * 12 + [F, I, I, P]})
 
 BWD_KERNEL = CudaKernel("flash_bwd.cu", {
     "flash_bwd_dkv_bf16": [P] * 8 + [I] * 5 + [LL] * 12 + [F, I, I, P],
     "flash_bwd_dq_bf16": [P] * 7 + [I] * 5 + [LL] * 12 + [F, I, I, P]})
 
-HEAD_DIM = 128
+# HEAD_DIMS: the widths the forward kernel is instantiated for, one set
+# with the paged kernel's, since both run the tile of ``attn_tile.cuh``
+#: head dims the backward kernels take (``flash_bwd.cu``: 128 only, so
+#: training takes the flash path at these alone; ROADMAP item 11k)
+BWD_HEAD_DIMS = (128,)
 
 
 def _repeat_kv(k: torch.Tensor, heads: int) -> torch.Tensor:
@@ -125,19 +129,20 @@ def _rows_readable(t) -> bool:
             and not any(s % 8 for s in t.stride()[:-1]))
 
 
-def _check_operand(name, t, device):
+def _check_operand(name, t, device, head_dims=HEAD_DIMS):
     if t.dtype != torch.bfloat16 or t.device != device:
         raise TypeError(f"flash kernel takes bf16 {name} on {device}, got "
                         f"{t.dtype} on {t.device}")
-    if t.shape[-1] != HEAD_DIM or not _rows_readable(t):
-        raise ValueError(f"flash kernel takes head_dim {HEAD_DIM} in "
+    if t.shape[-1] not in head_dims or not _rows_readable(t):
+        raise ValueError(f"flash kernel takes head_dim in {head_dims} in "
                          f"16-byte aligned rows with a contiguous last dim, "
                          f"got {name} {tuple(t.shape)} strides {t.stride()}")
 
 
 def _check_shapes(q, k, v, causal):
     b, h = q.shape[:2]
-    if k.shape != v.shape or k.shape[0] != b or h % k.shape[1]:
+    if k.shape != v.shape or k.shape[0] != b or h % k.shape[1] \
+            or k.shape[-1] != q.shape[-1]:
         raise ValueError(f"flash kernel shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if causal and q.shape[2] != k.shape[2]:
@@ -148,10 +153,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, sm_scale: Optional[float] = None,
               window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [B,H,Sq,D], k/v [B,K,Sk,D] -> (out [B,H,Sq,D], lse [B,H,Sq]).
-    CPU tensors take :func:`flash_reference`; CUDA tensors launch
-    ``flash_fwd_bf16`` or raise.  Strided views (e.g. a transposed
-    [B,S,H,D] activation) are read in place."""
+    """q [B,H,Sq,D], k/v [B,K,Sk,D] -> (out [B,H,Sq,D], lse [B,H,Sq]),
+    D in ``HEAD_DIMS``.  CPU tensors take :func:`flash_reference`; CUDA
+    tensors launch ``flash_fwd_bf16`` or raise.  Strided views (e.g. a
+    transposed [B,S,H,D] activation) are read in place."""
     if q.device.type == "cpu":
         return flash_reference(q, k, v, causal, sm_scale, window)
     b, h, s_q, d = q.shape
@@ -164,7 +169,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel():
         KERNEL.launch("flash_fwd_bf16", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                      b, h, kh, s_q, s_k, *q.stride()[:3], *k.stride()[:3],
+                      b, h, kh, s_q, s_k, d, *q.stride()[:3], *k.stride()[:3],
                       *v.stride()[:3], *out.stride()[:3],
                       float(_scale(d, sm_scale)), int(bool(causal)),
                       int(window or 0), stream_of(q))
@@ -177,7 +182,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_fwd` given its ``out``, ``lse`` and
-    the output gradient ``do``.  CPU tensors take
+    the output gradient ``do``, D in ``BWD_HEAD_DIMS``.  CPU tensors take
     :func:`flash_bwd_reference`; CUDA tensors launch ``flash_bwd_dkv_bf16``
     and ``flash_bwd_dq_bf16`` or raise.  q, k, v and do are read through
     their strides; a ``do`` whose last dim is not contiguous (an expanded
@@ -194,7 +199,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         do = do.contiguous()
         BWD_KERNEL.copies += 1
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _check_operand(name, t, q.device)
+        _check_operand(name, t, q.device, BWD_HEAD_DIMS)
     _check_shapes(q, k, v, causal)
     if lse.dtype != torch.float32 or lse.shape != (b, h, s_q) \
             or not lse.is_contiguous():

@@ -35,11 +35,12 @@ from .kernel_loader import CudaKernel, F, I, P, stream_of
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 KERNEL = CudaKernel("paged_attention.cu", {
-    "paged_attention_bf16": [P] * 7 + [I] * 6 + [F, I, I, P],
-    "paged_attention_int8": [P] * 8 + [I] * 6 + [F, I, I, P],
-    "paged_attention_combine": [P, P] + [I] * 5 + [P]})
+    "paged_attention_bf16": [P] * 7 + [I] * 7 + [F, I, I, P],
+    "paged_attention_int8": [P] * 8 + [I] * 7 + [F, I, I, P],
+    "paged_attention_combine": [P, P] + [I] * 6 + [P]})
 
-HEAD_DIM = 128
+#: head dims the kernel is instantiated for (``csrc/paged_attention.cu``)
+HEAD_DIMS = (64, 80, 96, 128)
 #: keys per shared-memory stage of the kernel (pages may be smaller)
 MAX_PAGE = 64
 #: folded rows (Q * H / K) below which the kernel takes its split-KV
@@ -232,10 +233,10 @@ def paged_decode_attention(q: torch.Tensor, kv_layer: KVLayer,
     ``KERNEL.launches_by_fn``) reduces them into the output; with one
     split the first launch writes the output.
 
-    q: [S, Q, H, D] bf16; kv_layer: [num_pages+1, page, 2, K, D] bf16, or
-    KVPages of int8 codes at that shape and fp32 scales
-    [num_pages+1, page, 2, K]; page_table: [S, P] int32; start_pos: [S]
-    int32.  Returns [S, Q, H, D].
+    q: [S, Q, H, D] bf16, D in ``HEAD_DIMS``; kv_layer: [num_pages+1,
+    page, 2, K, D] bf16, or KVPages of int8 codes at that shape and fp32
+    scales [num_pages+1, page, 2, K]; page_table: [S, P] int32;
+    start_pos: [S] int32.  Returns [S, Q, H, D].
     """
     if q.device.type == "cpu":
         return paged_attention(q, kv_layer, page_table, start_pos,
@@ -249,9 +250,9 @@ def paged_decode_attention(q: torch.Tensor, kv_layer: KVLayer,
     if q.dtype != torch.bfloat16 or kv_layer.dtype != want:
         raise TypeError(f"paged kernel takes bf16 q and {want} pages, got "
                         f"{q.dtype} / {kv_layer.dtype}")
-    if D != HEAD_DIM or Dk != D or two != 2 or H % K:
-        raise ValueError(f"paged kernel needs head_dim {HEAD_DIM} and H % K "
-                         f"== 0: q {tuple(q.shape)}, kv "
+    if D not in HEAD_DIMS or Dk != D or two != 2 or H % K:
+        raise ValueError(f"paged kernel needs head_dim in {HEAD_DIMS} and "
+                         f"H % K == 0: q {tuple(q.shape)}, kv "
                          f"{tuple(kv_layer.shape)}")
     if not 1 <= page_size <= MAX_PAGE:
         raise ValueError(f"paged kernel takes pages of <= {MAX_PAGE} tokens,"
@@ -306,11 +307,11 @@ def paged_decode_attention(q: torch.Tensor, kv_layer: KVLayer,
                   slopes.data_ptr() if slopes is not None else None,
                   out.data_ptr(),
                   work.data_ptr() if work is not None else None,
-                  S, Q, H, K, width, page_size, float(scale),
+                  S, Q, H, K, D, width, page_size, float(scale),
                   int(window or 0), n_split, stream)
     if work is not None:
         KERNEL.launch("paged_attention_combine", work.data_ptr(),
-                      out.data_ptr(), S, Q, H, K, n_split, stream)
+                      out.data_ptr(), S, Q, H, K, D, n_split, stream)
     return out
 
 

@@ -56,6 +56,24 @@ def test_the_scan_covers_every_module_of_the_port():
     assert len(names) >= 39
 
 
+def test_the_hf_import_modules_are_scanned_and_need_no_transformers():
+    """The Hugging Face loaders, the policy table and the engine factory
+    are held to the rule too, and importing them loads no
+    ``transformers`` (the card's machine has none: only a checkpoint
+    directory needs it, imported at the call)."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    mods = ("deepspeed_tpu_torch.checkpoint.hf",
+            "deepspeed_tpu_torch.module_inject.policies",
+            "deepspeed_tpu_torch.inference.v2.factory")
+    assert {m.replace(".", "/") + ".py" for m in mods} <= names
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
+            + "assert 'transformers' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
@@ -148,27 +166,31 @@ def _card_cases():
     from deepspeed_tpu_torch.models.llama import llama_config
     bf16 = dict(dtype=torch.bfloat16)
     return {
-        # (config, the first op class without a kernel for it)
+        # (config, the first op class without a kernel for it; None: the
+        # kernels take every op class of the model)
         "fp32 layernorm, head_dim 128": (
             gpt_config("1.3b", dtype=torch.float32), "norm"),
         "fp32 rmsnorm, head_dim 128": (
             llama_config("7b", dtype=torch.float32), "norm"),
-        "bf16 gpt 125m, head_dim 64": (gpt_config("125m", **bf16),
-                                       "ragged_attention"),
-        "bf16 gpt 2.7b, head_dim 80": (gpt_config("2.7b", **bf16),
-                                       "ragged_attention"),
+        "bf16 gpt 125m, head_dim 64": (gpt_config("125m", **bf16), None),
+        "bf16 gpt 2.7b, head_dim 80": (gpt_config("2.7b", **bf16), None),
         "bf16 debug llama, head_dim 16": (llama_config("debug", **bf16),
                                           "ragged_attention"),
+        "bf16 llama, head_dim 112": (
+            llama_config("7b", head_dim=112, **bf16), "ragged_attention"),
+        "bf16 gpt-j width, head_dim 256": (
+            gpt_config("1.3b", num_heads=8, **bf16), "ragged_attention"),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_card_cases()))
 def test_registry_off_the_cpu_never_picks_a_plain_version_unasked(case):
     """On the card an op class that has a kernel runs it or raises: a
-    model the kernels do not take (fp32, or another head_dim) gets a
-    NotImplementedError naming the ROADMAP item, and the plain versions
-    stay reachable by name.  ``resolve`` only reads the device's type, so
-    this needs no card."""
+    model the kernels do not take (fp32, or a head_dim outside 64, 80, 96
+    and 128) gets a NotImplementedError naming the ROADMAP item, a model
+    they take resolves every op class to its kernel, and the plain
+    versions stay reachable by name.  ``resolve`` only reads the device's
+    type, so this needs no card."""
     from deepspeed_tpu_torch.inference.v2 import modules
     cfg, first = _card_cases()[case]
     cuda = torch.device("cuda")
@@ -176,8 +198,15 @@ def test_registry_off_the_cpu_never_picks_a_plain_version_unasked(case):
              "fresh_prefill_attention": "mha_reference"}
     raised = [op for op in plain
               if _raises_11k(lambda: modules.resolve(op, cfg, cuda))]
-    assert first in raised
-    assert "fresh_prefill_attention" in raised   # flash: bf16, head_dim 128
+    if first is None:
+        assert raised == []
+        assert modules.resolve("ragged_attention", cfg, cuda) == "cuda_paged"
+        assert modules.resolve("fresh_prefill_attention", cfg, cuda) == \
+            "cuda_flash"
+    else:
+        assert first in raised
+        # flash: bf16 at the kernels' head dims
+        assert "fresh_prefill_attention" in raised
     for op, name in plain.items():
         assert modules.resolve(op, cfg, cuda, name) == name
         assert modules.resolve(op, cfg, torch.device("cpu")) == name

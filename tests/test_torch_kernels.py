@@ -416,8 +416,10 @@ def test_decode_splits_cover_the_card_and_keep_two_pages():
 
 # the row counts the serving step gives the norm kernels (1-16 decoding,
 # 1024-4096 prefilling) at three widths
-NORM_GRID = [(n, e) for n in (1, 8, 16, 1024, 4096) for e in (2560, 4096,
-                                                              8192)]
+# E=2560 (Phi-2), 3072 (Phi-3-mini) and 4544 (Falcon-7B, no multiple of
+# 128) are the widths the published families serve at
+NORM_GRID = [(n, e) for n in (1, 8, 16, 1024, 4096)
+             for e in (2560, 3072, 4096, 4544, 8192)]
 
 
 @pytest.mark.cuda
@@ -1936,3 +1938,138 @@ def test_a_mined_lattice_engine_replays_every_key_equal_to_eager(
     assert checked and all(model._step_cache[k] is not None
                            for k in model.dispatch_counts)
     eng.state_manager.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# head dims 64, 80 and 96 (Falcon-7B, Phi-2, Phi-3-mini), and one the
+# kernels refuse
+# ---------------------------------------------------------------------------
+
+# (S, Q, H, K, context, window, ALiBi) at page 64: the split-KV decode,
+# Falcon's multi-query decode (71 folded rows: the tile), a prefill chunk
+# over history, Phi-3-mini's 2047-token window past a 4096 context, ALiBi
+# on both paths, and a short last page
+HEAD_DIM_PAGED_CASES = {
+    "split_decode": (16, 1, 8, 8, 1024, None, False, 64),
+    "mqa_decode_71": (4, 1, 71, 1, 1024, None, False, 64),
+    "chunk_q256": (2, 256, 8, 8, 1024, None, False, 64),
+    "window_2047": (2, 4, 8, 8, 4096, 2047, False, 64),
+    "alibi_decode": (4, 1, 8, 8, 1024, None, True, 64),
+    "alibi_chunk": (2, 64, 8, 8, 1024, None, True, 64),
+    "page_48": (3, 20, 8, 2, 960, None, False, 48)}
+
+
+def _head_dim_paged_inputs(dev, case, d, pages, seed=5):
+    S, Q, H, K, ctx, _, _, page = HEAD_DIM_PAGED_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = S * ctx // page
+    kv = torch.randn(n_pages + 1, page, 2, K, d, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    table = (torch.randperm(n_pages, generator=g, device=dev) + 1).reshape(
+        S, ctx // page).int()
+    start = torch.full((S,), ctx - Q, dtype=torch.int32, device=dev)
+    start[1:] = torch.randint(0, ctx - Q + 1, (S - 1,), generator=g,
+                              device=dev, dtype=torch.int32)
+    if pages == "int8":
+        kv = tpa.KVPages(*tpa.quantize_kv_blocks(kv))
+    q = torch.randn(S, Q, H, d, generator=g, device=dev, dtype=torch.bfloat16)
+    return q, kv, table, start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96])
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(HEAD_DIM_PAGED_CASES))
+def test_paged_kernel_head_dims_match_plain(cuda_device, case, pages, d):
+    """Both paths of the paged kernel at the narrower head dims, over bf16
+    and int8 pages: the split-KV decode (threads past D sit out the P . V
+    sum, the combine reads D-wide partials) and the tensor-core tile
+    (round_up(D, 64)-wide tiles with zero padding columns)."""
+    _, Q, H, K, _, window, alibi, _ = HEAD_DIM_PAGED_CASES[case]
+    q, kv, table, start = _head_dim_paged_inputs(cuda_device, case, d, pages)
+    kw = dict(window=window,
+              alibi_slopes=alibi_slopes(H) if alibi else None)
+    out = tpa.paged_decode_attention(q, kv, table, start, **kw)
+    ref = tpa.paged_attention(q, kv, table, start, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    assert_parity(out, ref)
+
+
+# (B, S, H, K, window, [B, S, H, D] views): uneven S, Falcon's one kv head
+# under 71 query heads, a window, transposed views
+HEAD_DIM_FLASH_CASES = {"s300": (2, 300, 8, 8, None, False),
+                        "mqa_71": (1, 200, 71, 1, None, False),
+                        "window_200": (1, 1000, 4, 4, 200, False),
+                        "bshd_views": (2, 130, 8, 2, None, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96])
+@pytest.mark.parametrize("case", sorted(HEAD_DIM_FLASH_CASES))
+def test_flash_kernel_head_dims_match_plain(cuda_device, case, d):
+    b, s, h, kh, window, views = HEAD_DIM_FLASH_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    if views:
+        q, k, v = (torch.randn(b, s, n, d, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16).transpose(1, 2)
+                   for n in (h, kh, kh))
+    else:
+        q, k, v = (torch.randn(b, n, s, d, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for n in (h, kh, kh))
+    out, lse = tfa.flash_fwd(q, k, v, causal=True, window=window)
+    ref, ref_lse = tfa.flash_reference(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+    assert_parity(out, ref)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_head_dim_112(cuda_device):
+    """D = 112 is no instantiation: the wrappers raise before a launch, and
+    the C entry points, called around the wrappers, return
+    cudaErrorInvalidValue (a RuntimeError) and launch nothing; the flash
+    backward takes 128 alone and refuses 80."""
+    from deepspeed_tpu_torch.ops.kernel_loader import stream_of
+    dev = cuda_device
+    q, kv, table, start = _head_dim_paged_inputs(dev, "split_decode", 64,
+                                                 "bf16")
+    q112 = torch.randn(*q.shape[:3], 112, device=dev, dtype=torch.bfloat16)
+    kv112 = torch.randn(*kv.shape[:4], 112, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.paged_decode_attention(q112, kv112, table, start)
+    S, Q, H, _ = q112.shape
+    K = kv112.shape[3]
+    out = torch.empty_like(q112)
+    work = torch.empty(S * K * 2 * Q * H // K * (112 + 2),
+                       dtype=torch.float32, device=dev)
+    before = dict(tpa.KERNEL.launches_by_fn)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tpa.KERNEL.launch("paged_attention_bf16", q112.data_ptr(),
+                          kv112.data_ptr(), table.data_ptr(),
+                          start.data_ptr(), None, out.data_ptr(),
+                          work.data_ptr(), S, Q, H, K, 112, table.shape[1],
+                          64, 0.1, 0, 2, stream_of(q112))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tpa.KERNEL.launch("paged_attention_combine", work.data_ptr(),
+                          out.data_ptr(), S, Q, H, K, 112, 2,
+                          stream_of(q112))
+    assert tpa.KERNEL.launches_by_fn == before
+    a = torch.randn(1, 4, 64, 112, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_fwd(a, a, a)
+    lse = torch.empty(1, 4, 64, device=dev, dtype=torch.float32)
+    before = tfa.KERNEL.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfa.KERNEL.launch("flash_fwd_bf16", a.data_ptr(), a.data_ptr(),
+                          a.data_ptr(), torch.empty_like(a).data_ptr(),
+                          lse.data_ptr(), 1, 4, 4, 64, 64, 112,
+                          *a.stride()[:3], *a.stride()[:3], *a.stride()[:3],
+                          *a.stride()[:3], 0.1, 1, 0, stream_of(a))
+    assert tfa.KERNEL.launches == before
+    b = torch.randn(1, 4, 64, 80, device=dev, dtype=torch.bfloat16)
+    out, lse = tfa.flash_fwd(b, b, b)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_bwd(b, b, b, out, lse, torch.ones_like(b))
