@@ -22,7 +22,10 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    TB/s and operations / 989 TFLOP/s bf16 or 67 fp32, H100 SXM data
    sheet); the flash backward also bit-equal over two calls, and its
    dK/dV and dQ kernels and the wrapper's delta timed apart, each with
-   its own bound; the norms also split each call of the wrapper and of
+   its own bound, at D = 128 and at the families' training head dims
+   (Falcon-7B's 71 query heads over one kv head at D = 64, B = 1;
+   Phi-2's at 80; Phi-3-mini's at 96 under its 2047-token window; S =
+   2048), each bound counted at D, not at the padded tile's width; the norms also split each call of the wrapper and of
    the library call into ``host_us`` (a host clock around 1000 calls,
    nothing waiting inside: the enqueue cost) and ``device_us`` (the
    kernels' durations per call from torch.profiler over 200 calls);
@@ -233,7 +236,31 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     against the plain versions' bit for bit, and one micro-batch's loss
     on it against the unquantised bf16 cast;
 13. the same training with LAMB at stage 0, launch counts exact;
-14. a ``{"kernels": [...]}`` JSON line, the card line, and last the
+14. GPT-1.3B (``gpt_config("1.3b")``: learned positions, tied
+    embeddings, D = 128) at full width and depth, 4 ``train_batch``
+    calls (AdamW at lr 1e-4, bf16, micro-batch 2 x 2048, gas 2; norms
+    and biases drawn) with exact launch counts (the flash forward twice a layer a
+    micro-batch, dK/dV and dQ once, AdamW once a leaf a step, every
+    other kernel idle), peak memory, one profiled step; then one
+    right-padded micro-batch of a full row and a 1337-token row (the
+    einsum path, no flash launch) against its rows unpadded (the flash
+    kernels): loss and every leaf's gradient; and one micro-batch on the
+    flash kernels against the plain einsum path, as 16;
+15. Phi-2 (``phi_config_from_hf``: D = 80, partial rotary, the parallel
+    block, an ``lm_head_bias`` leaf) at full width and depth, as 14,
+    its peak held under 75 GB;
+16. Falcon-7B (D = 64, 71 query heads over one kv head) at 4 of 32
+    layers, and 17. Phi-3-mini-4k (D = 96, window 2047) at 8 of 32, two
+    ``train_batch`` calls each with exact launch counts, then one
+    micro-batch's loss and gradients on the flash kernels against the
+    plain einsum path;
+18. BERT-large masked LM (S = 512, 15% of the real tokens masked, rows
+    right-padded, bidirectional: the einsum path) through
+    ``initialize(training_data=...)`` and ``train_batch(data_iter=
+    RepeatingLoader(loader))``: 4 steps, every sample read once in
+    order, AdamW the only kernel;
+19. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+    80 and 96 in rows of their own), the card line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or outside the repository, it exits non-zero before
@@ -382,6 +409,42 @@ TRAIN_PATHS = {
 # the optimizer kernel each training path runs
 PATH_OPTIMIZER = {"training": "fused_adamw", "training_lion_qwz": "fused_lion",
                   "training_lamb": "fused_lamb"}
+
+# phases 14-18, the families' training: (label, path, preset or published
+# config, layers kept (None: all), micro-batch, train_batch calls, seed).
+# AdamW as phase 10 but at lr 1e-4 (AdamW's first steps move every weight
+# by about lr: at phase 10's 3e-4 Phi-2's loss rose on the fourth step on
+# the card, 10.39 to 12.52, on its fixed batch), gas 2, S = 2048.
+# Falcon-7B and Phi-3-mini at full depth (7.2 B and 3.8 B parameters) need
+# 20 bytes a parameter before activations (fp32 masters, gradient sum and
+# Adam moments, the bf16 compute copy and its gradient: 144 and 76 GB), more
+# than one card, so they keep 4 and 8 of 32 layers; GPT-1.3B and Phi-2
+# train at full depth, Phi-2 (2.8 B: 55.6 GB) at micro-batch 2, its peak
+# held under FAMILY_PEAK_GB
+FAMILY_PATHS = (
+    ("GPT-1.3B", "training_gpt_1.3b", "gpt 1.3b", None, 2, 4, SEED + 31),
+    ("Phi-2", "training_phi2", "microsoft/phi-2", None, 2, 4, SEED + 33),
+    ("Falcon-7B", "training_falcon_7b", "tiiuae/falcon-7b", 4, 2, 2,
+     SEED + 35),
+    ("Phi-3-mini-4k", "training_phi3_mini", "microsoft/Phi-3-mini-4k-instruct",
+     8, 2, 2, SEED + 37))
+FAMILY_TRAIN_CONFIG = dict(
+    TRAIN_CONFIG,
+    optimizer={"type": "adamw",
+               "params": {"lr": 1e-4, "betas": [0.9, 0.95],
+                          "weight_decay": 0.1}},
+    scheduler=_warmup_decay(1e-5))
+FAMILY_PEAK_GB = 75.0
+# the right-padded micro-batch of GPT-1.3B's and Phi-2's phases: a full row
+# and one of PADDED_SHORT tokens
+PADDED_SHORT = 1337
+# BERT-large masked LM (phase 18): S = 512, 15% of the real tokens masked,
+# rows right-padded to lengths drawn from [128, 512], through
+# initialize(training_data=...) and train_batch(data_iter=...)
+BERT_SEQ = 512
+BERT_MICRO = 16
+BERT_STEPS = 4
+BERT_MASK_RATE = 0.15
 
 
 def log(*a):
@@ -976,15 +1039,21 @@ def check_flash_bwd(dev):
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as FA
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    cases = [("training", 2, 32, 32, TRAIN_SEQ, None),
-             ("GQA", 2, 32, 8, 1024, None),
-             ("window 512", 2, 32, 32, TRAIN_SEQ, 512),
-             ("uneven S=1000", 2, 32, 32, 1000, None)]
+    # the training shapes at D = 128, then the head dims the families'
+    # training phases give the backward: Falcon-7B's 71 query heads over
+    # one kv head at D = 64 (B = 1), Phi-2's 32 at 80, Phi-3-mini's 32
+    # under its 2047-token window at 96
+    cases = [("training", 2, 32, 32, TRAIN_SEQ, None, 128),
+             ("GQA", 2, 32, 8, 1024, None, 128),
+             ("window 512", 2, 32, 32, TRAIN_SEQ, 512, 128),
+             ("uneven S=1000", 2, 32, 32, 1000, None, 128),
+             ("D=64 Falcon-7B", 1, 71, 1, TRAIN_SEQ, None, 64),
+             ("D=80 Phi-2", 2, 32, 32, TRAIN_SEQ, None, 80),
+             ("D=96 Phi-3-mini", 2, 32, 32, TRAIN_SEQ, 2047, 96)]
     rows = []
-    for name, B, H, K, S, window in cases:
-        D = 128
-        q, do = _bshd(dev, g, B, S, H), _bshd(dev, g, B, S, H)
-        k, v = _bshd(dev, g, B, S, K), _bshd(dev, g, B, S, K)
+    for name, B, H, K, S, window, D in cases:
+        q, do = _bshd(dev, g, B, S, H, D), _bshd(dev, g, B, S, H, D)
+        k, v = _bshd(dev, g, B, S, K, D), _bshd(dev, g, B, S, K, D)
         out, lse = FA.flash_fwd(q, k, v, causal=True, window=window)
         copies = FA.BWD_KERNEL.copies
         got = FA.flash_bwd(q, k, v, out, lse, do, True, None, window)
@@ -1025,7 +1094,7 @@ def check_flash_bwd(dev):
         rows.append(dict(
             shape=f"{name}: B={B} H={H} K={K} S={S} D={D} causal"
                   + (f" window={window}" if window else ""), **err,
-            bit_equal=bit_equal,
+            head_dim=D, bit_equal=bit_equal,
             ms=cuda_ms(lambda: FA.flash_bwd(q, k, v, out, lse, do, True,
                                             None, window), 20),
             parts={
@@ -4768,6 +4837,388 @@ def qwz_kernel_vs_plain(engine, batch):
 
 
 # ---------------------------------------------------------------------------
+# phases 14 to 18: training the other families
+# ---------------------------------------------------------------------------
+
+def family_config(source, layers):
+    """The training config of a family phase: a preset (``"gpt 1.3b"``)
+    or a published ``config.json`` through the port's loader, bf16,
+    depth cut to ``layers`` where given."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch.checkpoint import hf as HF
+    from deepspeed_tpu_torch.models.gpt import gpt_config
+    if source.startswith("gpt "):
+        cfg = gpt_config(source.split()[1])
+    else:
+        convert = {"tiiuae/falcon-7b": HF.falcon_config_from_hf,
+                   "microsoft/phi-2": HF.phi_config_from_hf,
+                   "microsoft/Phi-3-mini-4k-instruct":
+                   HF.phi3_config_from_hf}[source]
+        cfg = convert(types.SimpleNamespace(**HF.PUBLISHED_CONFIGS[source]))
+    over = dict(dtype=torch.bfloat16, attention_impl="auto")
+    if layers is not None:
+        over["num_layers"] = layers
+    return dataclasses.replace(cfg, **over)
+
+
+def model_flops_per_token(cfg, n_params, seq):
+    """6 N for the weights (N without the input embedding, a gather) and
+    6 L S E for causal attention (QK^T and PV over half the pairs; the
+    remat recompute is not counted): the MFU numerator of phase 10."""
+    n_matmul = n_params - cfg.vocab_size * cfg.hidden_size
+    if cfg.pos_emb == "learned":
+        n_matmul -= cfg.max_seq_len * cfg.hidden_size
+    return 6 * n_matmul + 6 * cfg.num_layers * seq * cfg.hidden_size
+
+
+def family_train(counters, card, label, path, cfg, micro, steps, seed,
+                 lm_head_bias=False, profile=False):
+    """``steps`` train_batch calls through deepspeed_tpu_torch.initialize
+    (AdamW, bf16 over fp32 masters built on the card from a seed, norms
+    and biases drawn, gas 2, S = 2048) on one fixed seeded batch; every
+    kernel's launch count from a run that starts at zero, held exactly:
+    the flash forward twice a layer a micro-batch (remat), dK/dV and dQ
+    once, AdamW once a leaf a step, every other kernel idle."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.transformer import CausalLM, init_params
+    from deepspeed_tpu_torch.tree import tree_leaves
+    model = CausalLM(cfg)
+    config = dict(FAMILY_TRAIN_CONFIG, train_micro_batch_size_per_gpu=micro)
+    t = time.perf_counter()
+    params = randomize_norms_and_biases(
+        init_params(cfg, seed=seed, device="cuda", dtype=torch.float32),
+        seed + 1)
+    if lm_head_bias:                 # the phi family ships one
+        g = torch.Generator(device="cuda").manual_seed(seed + 2)
+        params["lm_head_bias"] = 0.02 * torch.randn(
+            cfg.vocab_size, generator=g, device="cuda")
+    engine, _, _, _ = dtt.initialize(model=model, config=config,
+                                     model_parameters=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(engine.params))
+    log(f"{path}: {label}, {cfg.num_layers} layers, head_dim "
+        f"{cfg.dims_per_head}, heads {cfg.num_heads} / kv {cfg.kv_heads}, "
+        f"window {cfg.sliding_window}, pos_emb {cfg.pos_emb}, "
+        f"{n_params / 1e9:.3f} B params, fp32 masters built in "
+        f"{time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(seed + 3)
+    tokens = TRAIN_GAS * micro * TRAIN_SEQ
+    batch = {"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_GAS * micro, TRAIN_SEQ)).astype(np.int32)}
+
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    for _ in range(steps):
+        lr = engine.get_lr()[0]
+        t = time.perf_counter()
+        loss = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        records.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                            grad_norm=engine.get_global_grad_norm(), lr=lr))
+    launches = read_launches(counters)
+    flash_bwd = counters["flash_bwd"][0]
+    by_fn = dict(flash_bwd.launches_by_fn)
+    peak = torch.cuda.max_memory_allocated()
+    L, mbs = cfg.num_layers, steps * TRAIN_GAS
+    n_leaves = len(tree_leaves(engine.params))
+    ran = {"flash_fwd": 2 * L * mbs, "flash_bwd": 2 * L * mbs,
+           "flash_bwd_dkv": L * mbs, "flash_bwd_dq": L * mbs,
+           "fused_adamw": n_leaves * steps}
+    checks = {
+        "finite": all(math.isfinite(r["loss"])
+                      and math.isfinite(r["grad_norm"]) for r in records),
+        "launches exact": all(launches[k] == ran.get(k, 0)
+                              for k in launches),
+        "no operand copies": flash_bwd.copies == 0,
+        f"peak under {FAMILY_PEAK_GB} GB": peak / 1e9 < FAMILY_PEAK_GB,
+    }
+    if steps >= 4:
+        checks["loss falls"] = records[-1]["loss"] < records[0]["loss"]
+    steady = [r["ms"] for r in records[1:]]
+    step_ms = sum(steady) / len(steady)
+    flops = model_flops_per_token(cfg, n_params, TRAIN_SEQ)
+    summary = dict(
+        path=path, model=label, card=card, layers=L, params=n_params,
+        head_dim=cfg.dims_per_head, heads=cfg.num_heads,
+        kv_heads=cfg.kv_heads, window=cfg.sliding_window,
+        micro_batch=micro, seq=TRAIN_SEQ, gas=TRAIN_GAS,
+        tokens_per_step=tokens, steps=records, step_ms_steady=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3),
+        mfu=flops * tokens / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+        first_loss_minus_ln_v=records[0]["loss"] - math.log(cfg.vocab_size),
+        max_memory_allocated_gb=peak / 1e9, launches=launches,
+        launches_expected=ran, flash_bwd_launches_by_fn=by_fn,
+        checks=checks)
+    log(f"{path}:", json.dumps(summary))
+    if not all(checks.values()):
+        raise RuntimeError(f"{path} checks failed: {checks}")
+    if profile:
+        summary["profile"] = profile_step(engine, batch, path)
+    return engine, batch, launches, summary
+
+
+def _path_parity(loss_a, grads_a, loss_b, grads_b, names):
+    """|delta loss| / loss and each leaf's rms(grad delta) / rms(grad),
+    b the reference; the key bias ``bk`` is reported apart: its gradient
+    is zero but for rounding (a softmax row is invariant to the constant
+    q . b_k adds to it), so its relative error measures noise."""
+    rms = {n: parity(a, b)["rms_rel_err"]
+           for n, a, b in zip(names, grads_a, grads_b)}
+    held = {n: r for n, r in rms.items() if not n.endswith("['bk']")}
+    return dict(loss_a=loss_a, loss_b=loss_b,
+                loss_rel_err=abs(loss_a - loss_b) / abs(loss_b),
+                loss_rel_tol=LOSS_REL_TOL,
+                grad_rms_rel_err_max=max(held.values()),
+                grad_rms_rel_tol=GRAD_RMS_REL_TOL,
+                grad_rms_rel_err=rms)
+
+
+def leaf_names(tree, prefix=""):
+    """Leaf paths of a nested dict in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}['{k}']")]
+    return [prefix]
+
+
+def padded_vs_unpadded(cfg, params_c, label, seed):
+    """One right-padded micro-batch of mixed lengths (a full row and one
+    of PADDED_SHORT tokens) through the training loss: the mask takes
+    the einsum path (no flash launch); against it, each row alone and
+    unpadded through the flash kernels, the losses weighted by their
+    token counts (the padded loss is the mean over every real token):
+    loss and every leaf's gradient."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.tree import tree_leaves
+    model = CausalLM(cfg)
+    rng = np.random.default_rng(seed)
+    lengths = (TRAIN_SEQ, PADDED_SHORT)
+    am = (np.arange(TRAIN_SEQ)[None] < np.asarray(lengths)[:, None]
+          ).astype(np.int32)
+    ids = np.where(am == 1, rng.integers(0, cfg.vocab_size, am.shape), 0)
+    ids = torch.as_tensor(ids.astype(np.int32), device="cuda")
+    am = torch.as_tensor(am, device="cuda")
+    leaves = tree_leaves(params_c)
+    for c in leaves:
+        c.requires_grad_()
+    fa, fwd = FA.BWD_KERNEL, FA.KERNEL
+    before = (fa.launches, fwd.launches)
+    loss_p = model.loss(params_c, {"input_ids": ids, "attention_mask": am})
+    loss_p.backward()
+    padded_flash = (fa.launches - before[0], fwd.launches - before[1])
+    grads_p = [c.grad for c in leaves]
+    for c in leaves:
+        c.grad = None
+    counts = [n - 1 for n in lengths]
+    before = (fa.launches, fwd.launches)
+    loss_u = 0.0
+    for i, n in enumerate(lengths):
+        li = model.loss(params_c, {"input_ids": ids[i:i + 1, :n]})
+        (li * (counts[i] / sum(counts))).backward()
+        loss_u += float(li.detach()) * counts[i] / sum(counts)
+    unpadded_flash = (fa.launches - before[0], fwd.launches - before[1])
+    grads_u = [c.grad for c in leaves]
+    res = _path_parity(float(loss_p.detach()), grads_p, loss_u, grads_u,
+                       leaf_names(params_c))
+    L = cfg.num_layers
+    res.update(model=label, lengths=lengths,
+               padded_flash_launches=padded_flash,
+               unpadded_flash_launches=unpadded_flash)
+    del grads_p, grads_u
+    for c in leaves:
+        c.grad = None
+    log(f"{label} right-padded micro-batch (einsum) against its rows "
+        f"unpadded (flash kernels):", json.dumps(res))
+    if padded_flash != (0, 0) or unpadded_flash != (2 * L * 2, 2 * L * 2):
+        raise RuntimeError(f"{label}: flash launches padded {padded_flash},"
+                           f" unpadded {unpadded_flash}")
+    if res["loss_rel_err"] > LOSS_REL_TOL \
+            or res["grad_rms_rel_err_max"] > GRAD_RMS_REL_TOL:
+        raise RuntimeError(f"{label}: the padded micro-batch differs from "
+                           f"its rows unpadded: {res}")
+    return res
+
+
+def family_kernel_vs_plain(cfg, params_c, batch, label):
+    """One micro-batch's loss and every leaf's gradient with the flash
+    kernels ("auto") and with the plain einsum path, from one bf16 copy
+    of the masters (phase 11's check at the family's head dim)."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch.models.transformer import CausalLM
+    from deepspeed_tpu_torch.tree import tree_leaves
+    mb = {"input_ids": torch.as_tensor(batch["input_ids"][:2],
+                                       device="cuda")}
+    leaves = tree_leaves(params_c)
+    out = []
+    for impl in ("auto", "einsum"):
+        for c in leaves:
+            c.grad = None
+            c.requires_grad_()
+        model = CausalLM(dataclasses.replace(cfg, attention_impl=impl))
+        loss = model.loss(params_c, mb)
+        loss.backward()
+        out.append((float(loss.detach()), [c.grad for c in leaves]))
+    res = _path_parity(out[0][0], out[0][1], out[1][0], out[1][1],
+                       leaf_names(params_c))
+    res["model"] = label
+    del out
+    for c in leaves:
+        c.grad = None
+    log(f"{label} training, kernel path against the plain einsum path:",
+        json.dumps(res))
+    if res["loss_rel_err"] > LOSS_REL_TOL \
+            or res["grad_rms_rel_err_max"] > GRAD_RMS_REL_TOL:
+        raise RuntimeError(f"{label}: the kernel path differs from the "
+                           f"plain path: {res}")
+    return res
+
+
+def families_phase(counters, card):
+    """Phases 14-17: each family of FAMILY_PATHS trained, then GPT-1.3B's
+    and Phi-2's masters through the padded check, and every family's
+    through the kernel-vs-plain check, each engine freed before the next
+    is built.  Returns ({path: launches}, {path:
+    summary})."""
+    import torch
+    from deepspeed_tpu_torch.tree import tree_map
+    launches, summaries = {}, {}
+    for label, path, source, layers, micro, steps, seed in FAMILY_PATHS:
+        cfg = family_config(source, layers)
+        full = layers is None
+        engine, batch, launches[path], summary = family_train(
+            counters, card, label, path, cfg, micro, steps, seed,
+            lm_head_bias=source == "microsoft/phi-2", profile=full)
+        params_c = tree_map(lambda t: t.detach().to(torch.bfloat16),
+                            engine.params)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        if full:
+            summary["padded"] = padded_vs_unpadded(cfg, params_c, label,
+                                                   seed + 5)
+        summary["kernel_vs_plain"] = family_kernel_vs_plain(
+            cfg, params_c, batch, label)
+        summaries[path] = summary
+        del params_c
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, summaries
+
+
+def bert_samples(n, vocab, seed):
+    """n masked-LM samples of BERT_SEQ tokens, right-padded: lengths from
+    [128, BERT_SEQ], BERT_MASK_RATE of the real tokens labelled (at least
+    one), -100 elsewhere (the Hugging Face convention)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(128, BERT_SEQ + 1, n)
+    pos = np.arange(BERT_SEQ)[None]
+    am = (pos < lengths[:, None]).astype(np.int32)
+    ids = np.where(am == 1, rng.integers(0, vocab, am.shape), 0)
+    chosen = (am == 1) & (rng.random(am.shape) < BERT_MASK_RATE)
+    chosen[:, 0] = True
+    labels = np.where(chosen, rng.integers(0, vocab, am.shape), -100)
+    return [{"input_ids": ids[i].astype(np.int32), "attention_mask": am[i],
+             "labels": labels[i].astype(np.int32)} for i in range(n)]
+
+
+class RecordedSamples:
+    """A list of samples that records each index the loader reads."""
+
+    def __init__(self, samples):
+        self.samples, self.reads = samples, []
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        self.reads.append(int(i))
+        return self.samples[i]
+
+
+def bert_phase(counters, card):
+    """Phase 18: BERT-large masked LM at full width and depth through
+    ``initialize(training_data=...)`` (the engine's loader) and
+    ``train_batch(data_iter=RepeatingLoader(loader))``: BERT_STEPS steps
+    of gas 2, every sample read once in order, bidirectional attention
+    under a padding mask on the einsum path (no flash launch), AdamW
+    once a leaf a step, every other kernel idle."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.bert import BertForMaskedLM
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    from deepspeed_tpu_torch.tree import tree_leaves
+    model = BertForMaskedLM("large")
+    cfg = model.cfg
+    n = BERT_STEPS * TRAIN_GAS * BERT_MICRO
+    data = RecordedSamples(bert_samples(n, cfg.vocab_size, SEED + 41))
+    config = dict(FAMILY_TRAIN_CONFIG,
+                  train_micro_batch_size_per_gpu=BERT_MICRO)
+    t = time.perf_counter()
+    engine, _, loader, _ = dtt.initialize(model=model, config=config,
+                                          training_data=data)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(engine.params))
+    log(f"training_bert_large: {n_params / 1e9:.3f} B params, fp32 masters "
+        f"built in {time.perf_counter() - t:.1f} s, loader of {len(loader)}"
+        f" batches of {BERT_MICRO}")
+    it = RepeatingLoader(loader)
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    for _ in range(BERT_STEPS):
+        t = time.perf_counter()
+        loss = engine.train_batch(data_iter=it)
+        torch.cuda.synchronize()
+        records.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                            grad_norm=engine.get_global_grad_norm()))
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    ran = {"fused_adamw": len(tree_leaves(engine.params)) * BERT_STEPS}
+    masked = sum(int((s["labels"] >= 0).sum()) for s in data.samples)
+    real = sum(int(s["attention_mask"].sum()) for s in data.samples)
+    checks = {
+        "finite": all(math.isfinite(r["loss"])
+                      and math.isfinite(r["grad_norm"]) for r in records),
+        "every sample read once, in order": data.reads == list(range(n)),
+        "launches exact": all(launches[k] == ran.get(k, 0)
+                              for k in launches),
+    }
+    steady = [r["ms"] for r in records[1:]]
+    step_ms = sum(steady) / len(steady)
+    tokens = TRAIN_GAS * BERT_MICRO * BERT_SEQ
+    summary = dict(
+        path="training_bert_large", model="BERT-large", card=card,
+        layers=cfg.num_layers, params=n_params, micro_batch=BERT_MICRO,
+        seq=BERT_SEQ, gas=TRAIN_GAS, steps=records, step_ms_steady=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3), real_token_share=real / (
+            n * BERT_SEQ), masked_share_of_real=masked / real,
+        first_loss_minus_ln_v=records[0]["loss"] - math.log(cfg.vocab_size),
+        max_memory_allocated_gb=peak / 1e9, launches=launches,
+        launches_expected=ran, checks=checks)
+    log("training_bert_large:", json.dumps(summary))
+    if not all(checks.values()):
+        raise RuntimeError(f"training_bert_large checks failed: {checks}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -5066,7 +5517,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 14
+    # phases 14-17: GPT-1.3B and Phi-2 at full width and depth, Falcon-7B
+    # at 4 and Phi-3-mini at 8 of 32 layers; phase 18: BERT-large MLM
+    # through the data loader
+    family_launches, _ = families_phase(counters, card)
+    launches_by_path.update(family_launches)
+    launches_by_path["training_bert_large"], _ = bert_phase(counters, card)
+    # the head dim each training path gives the flash backward
+    path_head_dim = {path: family_config(source, layers).dims_per_head
+                     for _, path, source, layers, *_ in FAMILY_PATHS}
+    path_head_dim.update({path: train_cfg.dims_per_head
+                          for path in TRAIN_PATHS})
+
+    # phase 19
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)
@@ -5108,6 +5571,17 @@ def main() -> int:
             entry["note"] = ("ms, plain_ms and library_ms (SDPA backward) "
                              "are the whole function; parts gives each "
                              "kernel's ms, bound and launches")
+        if name == "flash_bwd":
+            entry["launches_by_head_dim"] = {
+                d: sum(launches_by_path[path]["flash_bwd"]
+                       for path, pd in path_head_dim.items() if pd == d)
+                for d in sorted(set(path_head_dim.values()))}
+            entry["by_shape"] = {r["shape"]: {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "parts")} for r in rows}
+            # this row is D = 128's instances; each other head dim has its
+            # own row below (parts: launches over every head dim)
+            entry["launches"] = entry["launches_by_head_dim"][128]
         if name in ("paged_attention", "paged_attention_int8", "flash_fwd"):
             # every shape phase 3 timed: the head dims of phases 9b-9d too
             entry["by_shape"] = {r["shape"]: {k: r[k] for k in (
@@ -5146,6 +5620,26 @@ def main() -> int:
                          "step_ms the whole update with the trust ratio",
                          step_ms=head["step_ms"])
         line["kernels"].append(entry)
+        if name == "flash_bwd":
+            # each head dim's instances of the two kernels: their own row,
+            # launches from the training paths at that head dim
+            for r in rows:
+                d = r["head_dim"]
+                if d == 128:
+                    continue
+                line["kernels"].append(dict(
+                    name=f"flash_bwd @ D={d}", route="cuda",
+                    source=entry["source"], replaces=replaces["flash_bwd"],
+                    replaces_also=replaces["flash_bwd_dq"],
+                    launches=entry["launches_by_head_dim"].get(d, 0),
+                    max_abs_err=r["max_abs_err"],
+                    max_rel_err=r["max_rel_err"],
+                    rms_rel_err=r["rms_rel_err"], max_rel_tol=MAX_REL_TOL,
+                    rms_rel_tol=RMS_REL_TOL, bit_equal=r["bit_equal"],
+                    ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"], shape=r["shape"],
+                    parts=r["parts"], note=entry["note"]))
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,17 +10,17 @@ replaced by its plain PyTorch version.
 
 
 def initialize(model=None, config=None, model_parameters=None,
-               lr_scheduler=None, device=None, training_data=None):
+               lr_scheduler=None, device=None, training_data=None,
+               collate_fn=None):
     """Build a training engine (JAX ``deepspeed_tpu.initialize``,
-    ``__init__.py:51``).  Returns ``(engine, optimizer, None,
-    lr_scheduler)``: the port's slice has no dataloader, so
-    ``training_data`` raises ``NotImplementedError``."""
-    from .runtime.config import outside_slice
+    ``__init__.py:51``).  Returns ``(engine, optimizer, dataloader,
+    lr_scheduler)``; the dataloader is ``engine.training_dataloader``,
+    built over ``training_data`` (None without it)."""
     from .runtime.engine import DeepSpeedEngine
-    if training_data is not None:
-        raise outside_slice("training_data and dataloaders",
-                            "11i (dataloaders)")
     engine = DeepSpeedEngine(model=model, config=config,
                              model_parameters=model_parameters,
-                             lr_scheduler=lr_scheduler, device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             lr_scheduler=lr_scheduler, device=device,
+                             training_data=training_data,
+                             collate_fn=collate_fn)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)

@@ -40,7 +40,7 @@
 // w = t / 32, lane l, holds rows r0 = 16 w + l / 4 and r0 + 8; register
 // i holds row r0 + 8 ((i >> 1) & 1), column 2 (l % 4) + (i & 1) + 8 (i >> 2).
 // The backward (flash_bwd.cu) reads the same operands both ways: a tile
-// stored [rows][128] is K-major where the product sums over head dims
+// stored [rows][DP] is K-major where the product sums over head dims
 // (S = Q . K^T) and MN-major where it sums over the tile's rows (dV +=
 // P^T . dO), through two descriptors of the one stored tile.
 #pragma once
@@ -50,11 +50,9 @@
 namespace ds_attn {
 
 constexpr int kThreads = 128;
-constexpr int kHeadDim = 128;               // the widest tile (the backward's)
 constexpr int kKeys = 64;                   // keys per block
 constexpr int kRows = 64;                   // query rows per tile
 constexpr int kPanelBytes = 64 * 128;       // 64 rows of 64 bf16 (128 B)
-constexpr int kTileBytes = 2 * kPanelBytes; // [64][128] bf16, two panels
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The tile at head dim D: DP = round_up(D, 64) columns (one or two
@@ -70,8 +68,8 @@ struct Width {
   static constexpr int acc = padded / 2;  // m64n{padded} fp32 per thread
 };
 
-// Byte offset of 16-byte chunk c (0..15, 8 bf16 each) of row r in a
-// [64][128] bf16 tile: two column panels of [64][64], each row 128 B,
+// Byte offset of 16-byte chunk c (0..DP / 8 - 1, 8 bf16 each) of row r in
+// a [64][DP] bf16 tile: column panels of [64][64], each row 128 B,
 // chunks XOR-swizzled by r % 8 (the wgmma 128-byte swizzle; a panel
 // starts on a 1024-byte boundary).
 __device__ __forceinline__ uint32_t swz(int r, int c) {
@@ -114,7 +112,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // a per-thread base plus a constant (the kernels issue these every
 // block, and a rolled loop's arithmetic showed in their time).  The
 // caller commits.
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           long long row_stride, int row0,
@@ -133,7 +131,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 // The same 64 rows of two operands (K and V, or Q and dO) into two tiles
 // in one loop, as load_tile does for one: the row arithmetic is shared
 // (two load_tile calls ran the flash kernels slower).
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void load_tile_pair(
     uint32_t dst_a, const __nv_bfloat16* src_a, long long stride_a,
     uint32_t dst_b, const __nv_bfloat16* src_b, long long stride_b, int row0,
@@ -286,6 +284,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A . B over one k16 step into an m64n{2 ACC} accumulator (ACC 32:
+// a 64-column tile, 64: a 128-column one): A the bf16 fragment in
+// registers, B MN-major in shared memory.
+template <int ACC>
+__device__ __forceinline__ void wgmma_acc_rs(float (&d)[ACC],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  static_assert(ACC == 32 || ACC == 64, "m64n64 or m64n128 accumulators");
+  if constexpr (ACC == 32)
+    wgmma_m64n64k16_rs(d, a, db);
+  else
+    wgmma_m64n128k16_rs(d, a, db);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -392,12 +404,7 @@ __device__ __forceinline__ void attend_block(uint32_t q, uint32_t k,
 
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (kAcc == 32)
-      wgmma_m64n64k16_rs(st.o, a[kk], mnmajor_desc(v, kk));
-    else
-      wgmma_m64n128k16_rs(st.o, a[kk], mnmajor_desc(v, kk));
-  }
+  for (int kk = 0; kk < 4; ++kk) wgmma_acc_rs(st.o, a[kk], mnmajor_desc(v, kk));
   wgmma_commit();
   wgmma_wait0();
   fence_operands(st.o);
@@ -441,7 +448,7 @@ __device__ __forceinline__ void store_out_tile(const RowState<D>& st,
 
 // The staged tile's rows row0 + r < n_rows to dst (row stride
 // `row_stride` elements), one 16-byte store per chunk of the D columns.
-template <int D = kHeadDim>
+template <int D>
 __device__ __forceinline__ void copy_out_tile(const uint8_t* stage,
                                               __nv_bfloat16* dst,
                                               long long row_stride, int row0,

@@ -31,9 +31,8 @@ def gpt_config(size: str = "1.3b", **overrides) -> TransformerConfig:
 
 
 class GPTForCausalLM(CausalLM):
-    """Engine-protocol GPT (JAX ``models/gpt.py:31``).  Serving runs these
-    families; the training forward raises for learned positions until the
-    LayerNorm families are ported there."""
+    """Engine-protocol GPT (JAX ``models/gpt.py:31``): learned positions,
+    so a padded batch counts its positions over the attended tokens."""
 
     def __init__(self, size: str = "1.3b", **overrides):
         super().__init__(gpt_config(size, **overrides))

@@ -14,13 +14,17 @@ under ``params["layers"]``; ``False`` keeps ``params["layers"]
 ["layer_{i}"]`` sub-trees.  Norms, RoPE and softmax run in fp32 and cast
 back, as in the JAX package.
 
-The training forward (:func:`forward`, JAX ``transformer.py:646``) runs
-pure-causal attention through :class:`~..ops.flash_attention.
-FlashAttention` (the flash kernels on the card, their plain versions on
-the CPU) unless ``attention_impl="einsum"`` asks for the dense path
-(:func:`dot_product_attention`, masked with -1e30 as in JAX).  With
-``remat`` each layer runs under ``torch.utils.checkpoint`` and only its
-input is kept for the backward (JAX ``nothing_saveable``).
+The training forward (:func:`forward`, JAX ``transformer.py:646``) takes
+every family (rotary, learned and ALiBi positions, the embedding
+LayerNorm, the parallel block, ``lm_head_bias``) and optional
+``positions`` and ``attention_mask``.  Pure-causal attention (no mask,
+default positions, not ALiBi) runs through :class:`~..ops.
+flash_attention.FlashAttention` (the flash kernels on the card, their
+plain versions on the CPU) unless ``attention_impl="einsum"`` asks for
+the dense path (:func:`dot_product_attention`, masked with -1e30 and
+biased by ALiBi's per-key slopes as in JAX), which every other mask
+takes.  With ``remat`` each layer runs under ``torch.utils.checkpoint``
+and only its input is kept for the backward (JAX ``nothing_saveable``).
 """
 
 from __future__ import annotations
@@ -72,9 +76,8 @@ class TransformerConfig:
     remat: bool = True
     remat_policy: str = "nothing_saveable"
     # training only: auto (flash when the mask is pure-causal; on the card
-    # that needs bf16 at head_dim 128, the flash backward's one width, else
-    # it raises) | flash (force) |
-    # einsum (dense path)
+    # that needs bf16 at a head_dim of the flash backward's, 64, 80, 96 or
+    # 128, else it raises) | flash (force) | einsum (dense path)
     attention_impl: str = "auto"
     dtype: torch.dtype = torch.bfloat16
 
@@ -298,8 +301,7 @@ def alibi_slopes(n_heads: int) -> np.ndarray:
 def check_flash_layout(cfg: TransformerConfig, device: torch.device) -> None:
     """Raise unless the flash path takes this model on ``device``.  On the
     CPU its plain versions take any layout; on the card training needs the
-    backward kernels, which take bf16 at head_dim 128 (the forward kernel
-    takes more widths, but a step would then raise in its backward), and
+    backward kernels, which take bf16 at head_dim 64, 80, 96 and 128, and
     another layout raises rather than run the dense path, which only
     ``attention_impl="einsum"`` chooses."""
     if device.type == "cpu":
@@ -327,15 +329,21 @@ def flash_dot_product_attention(cfg: TransformerConfig, q, k, v):
 
 
 def dot_product_attention(cfg: TransformerConfig, q, k, v,
-                          mask: Optional[torch.Tensor]) -> torch.Tensor:
+                          mask: Optional[torch.Tensor],
+                          attn_bias: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Dense grouped-query attention with an fp32 softmax.  q: [B,S,H,D],
-    k/v: [B,S,K,D], mask [B,S,S] (True = attend); masked scores are
-    -1e30, the JAX einsum path's value (not the flash mask value)."""
+    k/v: [B,S,K,D], mask [B,S,S] (True = attend), attn_bias [B,H,T] fp32
+    added to every query row's scores (ALiBi); masked scores are -1e30,
+    the JAX einsum path's value (not the flash mask value)."""
     b, s, hq, dd = q.shape
     kh = k.shape[2]
     q = q.reshape(b, s, kh, hq // kh, dd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k) / math.sqrt(dd)
     scores = scores.float()
+    if attn_bias is not None:
+        scores = scores + attn_bias.reshape(b, kh, hq // kh, 1,
+                                            attn_bias.shape[-1])
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -344,7 +352,7 @@ def dot_product_attention(cfg: TransformerConfig, q, k, v,
 
 
 def _attention_block(cfg: TransformerConfig, p, x, sin, cos, mask,
-                     use_flash: bool):
+                     use_flash: bool, attn_bias=None):
     dtype = cfg.dtype
     q = proj(x, _wval(p["wq"], dtype))
     k = proj(x, _wval(p["wk"], dtype))
@@ -359,7 +367,7 @@ def _attention_block(cfg: TransformerConfig, p, x, sin, cos, mask,
     if use_flash:
         out = flash_dot_product_attention(cfg, q, k, v)
     else:
-        out = dot_product_attention(cfg, q, k, v, mask)
+        out = dot_product_attention(cfg, q, k, v, mask, attn_bias)
     out = proj(out, _wval(p["wo"], dtype), n_in=2)
     if cfg.use_bias:
         out = out + p["bo"].to(dtype)
@@ -367,10 +375,10 @@ def _attention_block(cfg: TransformerConfig, p, x, sin, cos, mask,
 
 
 def _layer_body(cfg: TransformerConfig, lp, x, sin, cos, mask,
-                use_flash: bool):
+                use_flash: bool, attn_bias=None):
     h = _norm_apply(cfg, lp["norm1"], x)
     attn_out = _attention_block(cfg, lp["attn"], h, sin, cos, mask,
-                                use_flash)
+                                use_flash, attn_bias)
     if cfg.parallel_residual:
         h2 = _norm_apply(cfg, lp["norm2"], x)
         return x + attn_out + _mlp_block(cfg, lp["mlp"], h2)
@@ -396,34 +404,49 @@ def layer_trees(cfg: TransformerConfig, params) -> List[Dict[str, Any]]:
     return [params["layers"][f"layer_{i}"] for i in range(cfg.num_layers)]
 
 
-def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor
-            ) -> torch.Tensor:
-    """Token ids [B,S] -> logits [B,S,V] in fp32 (JAX ``forward`` with
-    default positions and no padding mask).  Weights are cast to
-    ``cfg.dtype``, which is also the activations' dtype."""
-    if cfg.pos_emb not in ("rope", "none") or cfg.embed_layernorm:
-        raise outside_slice(
-            f"training with pos_emb={cfg.pos_emb!r}, "
-            f"embed_layernorm={cfg.embed_layernorm}",
-            "10 (LayerNorm families in training)")
+def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token ids [B,S] -> logits [B,S,V] in fp32 (JAX ``forward``).
+    ``positions`` [B,S] (packed sequences) and ``attention_mask`` [B,S]
+    (1 = a real token) are optional; with either, or ALiBi, attention
+    takes the dense path.  Weights are cast to ``cfg.dtype``, which is
+    also the activations' dtype."""
     if cfg.remat and cfg.remat_policy != "nothing_saveable":
         raise outside_slice(f"remat_policy {cfg.remat_policy!r}",
                             "11a (one-GPU training: other remat policies)")
     b, s = input_ids.shape
     dev = input_ids.device
-    # as in JAX, only the pure-causal mask goes to flash under "auto"
-    pure_causal = cfg.causal and s > 1
+    # as in JAX, only the dense-causal case goes to flash: default
+    # positions (no packing), no padding mask, no ALiBi bias
+    pure_causal = (cfg.causal and attention_mask is None
+                   and positions is None and cfg.pos_emb != "alibi"
+                   and s > 1)
     use_flash = cfg.attention_impl != "einsum" and pure_causal
     if cfg.attention_impl == "flash" and not use_flash:
         raise ValueError(
-            "attention_impl='flash' needs causal attention over more than "
-            "one token")
+            "attention_impl='flash' requires causal attention over more "
+            "than one token with default positions and no attention_mask")
     if use_flash:
         check_flash_layout(cfg, dev)
 
-    positions = torch.arange(s, device=dev).expand(b, s)
+    if positions is None:
+        if cfg.pos_emb == "learned" and attention_mask is not None:
+            # padded batches: positions count only attended tokens (HF
+            # OPTLearnedPositionalEmbedding, JAX transformer.py:672-680)
+            am = attention_mask.to(torch.int64)
+            positions = (torch.cumsum(am, dim=-1) - 1).clamp(min=0)
+        else:
+            positions = torch.arange(s, device=dev).expand(b, s)
+    positions = positions.long()
     table = params["embed"]["tokens"].to(cfg.dtype)
     x = table[input_ids.long()]
+    if cfg.pos_emb == "learned":
+        x = x + params["embed"]["positions"].to(cfg.dtype)[positions]
+    if cfg.embed_layernorm:           # BLOOM word_embeddings_layernorm
+        x = _norm_apply(cfg, params["embed"]["norm"], x)
+
+    # [B, S(q), S(k)], not needed by flash (the kernels mask blockwise)
     mask = None
     if not use_flash:
         if cfg.causal:
@@ -433,26 +456,39 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor
         if cfg.sliding_window is not None:
             mask = mask & ((positions[:, :, None] - positions[:, None, :])
                            < cfg.sliding_window)
+        if attention_mask is not None:
+            mask = mask & attention_mask[:, None, :].bool()
     sin, cos = (rope_table(cfg, positions) if cfg.pos_emb == "rope"
                 else (None, None))
+    # ALiBi: a per-head bias on the KEY position alone (softmax is
+    # shift-invariant along a query row), [B, H, T] fp32
+    attn_bias = None
+    if cfg.pos_emb == "alibi":
+        slopes = torch.from_numpy(alibi_slopes(cfg.num_heads)).to(dev)
+        attn_bias = slopes[None, :, None] * positions[:, None, :].float()
     for lp in layer_trees(cfg, params):
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(_layer_body, cfg, lp, x, sin, cos, mask,
-                           use_flash, use_reentrant=False)
+                           use_flash, attn_bias, use_reentrant=False)
         else:
-            x = _layer_body(cfg, lp, x, sin, cos, mask, use_flash)
+            x = _layer_body(cfg, lp, x, sin, cos, mask, use_flash, attn_bias)
     x = _norm_apply(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = proj(x, table.T)
     else:
         logits = proj(x, _wval(params["lm_head"], cfg.dtype))
+    if "lm_head_bias" in params:     # the phi family ships one
+        logits = logits + params["lm_head_bias"].to(cfg.dtype)
     return logits.float()
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
-                       ) -> torch.Tensor:
-    """Token-level cross-entropy in fp32; labels < 0 are ignored."""
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-level cross-entropy in fp32; labels < 0, and positions where
+    ``mask`` is 0, are ignored."""
     valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask.bool()
     safe = labels.clamp(min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
@@ -462,8 +498,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
 
 class CausalLM:
     """Engine-protocol causal LM over the transformer core (JAX
-    ``transformer.py:798``).  Batch dict: ``input_ids`` [B,S] and an
-    optional ``labels`` [B,S] (default: the inputs shifted by one)."""
+    ``transformer.py:798``).  Batch dict: ``input_ids`` [B,S], and
+    optional ``labels`` [B,S] (default: the inputs shifted by one),
+    ``attention_mask`` [B,S] and ``positions`` [B,S]."""
 
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
@@ -473,15 +510,16 @@ class CausalLM:
         return init_params(self.cfg, seed, device, dtype=torch.float32)
 
     def logits(self, params, batch) -> torch.Tensor:
-        return forward(self.cfg, params, batch["input_ids"])
+        return forward(self.cfg, params, batch["input_ids"],
+                       positions=batch.get("positions"),
+                       attention_mask=batch.get("attention_mask"))
 
     def loss(self, params, batch) -> torch.Tensor:
-        extra = sorted(set(batch) - {"input_ids", "labels"})
-        if extra:
-                raise outside_slice(f"batch keys {extra}",
-                                "11j (padded and packed training batches)")
         logits = self.logits(params, batch)
+        mask = batch.get("attention_mask")
         if "labels" in batch:
-            return cross_entropy_loss(logits, batch["labels"])
+            return cross_entropy_loss(logits, batch["labels"], mask)
+        # next-token prediction: shift
         ids = batch["input_ids"]
-        return cross_entropy_loss(logits[:, :-1], ids[:, 1:])
+        return cross_entropy_loss(logits[:, :-1], ids[:, 1:],
+                                  mask[:, 1:] if mask is not None else None)

@@ -31,14 +31,15 @@ KERNEL = CudaKernel("flash_fwd.cu", {
     "flash_fwd_bf16": [P] * 5 + [I] * 6 + [LL] * 12 + [F, I, I, P]})
 
 BWD_KERNEL = CudaKernel("flash_bwd.cu", {
-    "flash_bwd_dkv_bf16": [P] * 8 + [I] * 5 + [LL] * 12 + [F, I, I, P],
-    "flash_bwd_dq_bf16": [P] * 7 + [I] * 5 + [LL] * 12 + [F, I, I, P]})
+    "flash_bwd_dkv_bf16": [P] * 8 + [I] * 6 + [LL] * 12 + [F, I, I, P],
+    "flash_bwd_dq_bf16": [P] * 7 + [I] * 6 + [LL] * 12 + [F, I, I, P]})
 
 # HEAD_DIMS: the widths the forward kernel is instantiated for, one set
 # with the paged kernel's, since both run the tile of ``attn_tile.cuh``
-#: head dims the backward kernels take (``flash_bwd.cu``: 128 only, so
-#: training takes the flash path at these alone; ROADMAP item 11k)
-BWD_HEAD_DIMS = (128,)
+#: head dims the backward kernels take (``flash_bwd.cu``, a template
+#: instance at each, on the forward's padded tile): training takes the
+#: flash path on the card at these alone
+BWD_HEAD_DIMS = (64, 80, 96, 128)
 
 
 def _repeat_kv(k: torch.Tensor, heads: int) -> torch.Tensor:
@@ -217,9 +218,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bwd_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``delta = rowsum(dO * O)`` in fp32, [B, H, S]: what the backward
-    kernels read beside lse.  ``out`` is widened inside the product (the
-    same values as ``out.float()``, one pass fewer)."""
+    """``delta = rowsum(dO * O)`` in fp32, [B, H, S], over the D columns of
+    the head (the kernels' tiles are padded, the operands are not): what
+    the backward kernels read beside lse.  ``out`` is widened inside the
+    product (the same values as ``out.float()``, one pass fewer)."""
     return (do.float() * out).sum(-1)
 
 
@@ -228,7 +230,7 @@ def bwd_launch_args(q, k, v, do, lse, delta, dq, dk, dv, causal, sm_scale,
     """The arguments of the two backward kernels, by C entry point (dK/dV
     first), for operands :func:`flash_bwd` has checked."""
     b, h, s_q, d = q.shape
-    common = (b, h, k.shape[1], s_q, k.shape[2], *q.stride()[:3],
+    common = (b, h, k.shape[1], s_q, k.shape[2], d, *q.stride()[:3],
               *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
               float(_scale(d, sm_scale)), int(bool(causal)),
               int(window or 0), stream_of(q))

@@ -2,8 +2,9 @@
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``__init__`` :141,
 ``_init_state`` :497, the train step :613-829, ``_shape_batch`` :930,
-``train_batch`` :1094, ``forward`` / ``backward`` / ``step`` :1276-1340,
-``eval_batch`` :1341).  The JAX engine compiles the whole step into one
+``train_batch`` :1094 with ``_resolve_batch`` :1081, ``forward`` /
+``backward`` / ``step`` :1276-1340, ``eval_batch`` :1341,
+``deepspeed_io`` :1360).  The JAX engine compiles the whole step into one
 program; this one runs it eagerly, with the same numbers:
 
 1. each step casts the fp32 masters to the compute dtype once (bf16, or
@@ -21,6 +22,15 @@ program; this one runs it eagerly, with the same numbers:
 4. update k (0-based) applies the optimizer (AdamW, Lion or LAMB, each a
    fused kernel) at lr ``schedule(k)``;
 5. ``train_batch`` reports the mean of the micro-batch losses.
+
+A batch is a dict of leaves; ``attention_mask`` and ``positions`` pass
+through to the model with ``input_ids`` and ``labels``.  Without a
+batch, ``train_batch`` reads gas micro-batches from ``data_iter`` or
+from the engine's ``training_dataloader`` (``training_data=``) as JAX's
+``_resolve_batch`` does: an iterator is advanced, while the loader (an
+iterable) is restarted by ``iter()`` on every call, so without shuffle
+every step reads the loader's first gas batches (the JAX engine's
+behaviour, kept; ROADMAP Queue 3).
 
 The accumulators are the masters' ``.grad``, so :attr:`optimizer` is a
 plain ``torch.optim.Optimizer`` over the masters.  ZeRO stages 1-3 run
@@ -41,6 +51,7 @@ from ..models.base import Model
 from ..ops.quantization import quantize_dequantize
 from ..tree import tree_leaves, tree_map
 from .config import TrainingConfig, load_config, outside_slice
+from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import LRScheduler, get_lr_schedule
 from .optimizers import get_optimizer
 
@@ -53,12 +64,14 @@ class DeepSpeedEngine:
     ``checkpoint/from_jax.py``) seeds the masters; without it the engine
     calls ``model.init_params(0, device)``.  ``device`` None means the
     GPU and raises without one; ``"cpu"`` runs every kernel's plain
-    version."""
+    version.  ``training_data`` (any indexable dataset) becomes
+    :attr:`training_dataloader`, batched by ``collate_fn``."""
 
     def __init__(self, model: Model, config: Any = None,
                  model_parameters: Optional[Dict[str, Any]] = None,
                  lr_scheduler: Optional[Callable[[int], float]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, training_data: Any = None,
+                 collate_fn: Optional[Callable] = None):
         self.config: TrainingConfig = load_config(config)
         self.config.resolve_batch_sizes()
         self.device = resolve_device(device)
@@ -106,6 +119,19 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.global_samples = 0
         self._last_grad_norm = 0.0
+        self.training_dataloader = (
+            self.deepspeed_io(training_data, collate_fn=collate_fn)
+            if training_data is not None else None)
+
+    def deepspeed_io(self, dataset, batch_size: Optional[int] = None,
+                     collate_fn: Optional[Callable] = None
+                     ) -> DeepSpeedDataLoader:
+        """A loader over ``dataset`` in micro-batches (JAX ``engine.py
+        :1360``; one rank, so the global micro-batch is the micro-batch)."""
+        return DeepSpeedDataLoader(
+            dataset,
+            batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+            collate_fn=collate_fn)
 
     # ------------------------------------------------------------------
     # accessors (JAX engine.py:902-925)
@@ -232,18 +258,42 @@ class DeepSpeedEngine:
             shaped[k] = x
         return [{k: x[i] for k, x in shaped.items()} for i in range(gas)]
 
+    def _resolve_batch(self, batch: Optional[Dict[str, Any]],
+                       data_iter) -> List[Dict[str, Any]]:
+        """This step's gas micro-batches, from ``batch`` or, without one,
+        from ``data_iter`` or the training dataloader (JAX
+        ``_resolve_batch``: an iterable without ``__next__`` is restarted
+        with ``iter()`` on every call)."""
+        if batch is not None:
+            return self._micro_batches(batch)
+        source = data_iter if data_iter is not None \
+            else self.training_dataloader
+        if source is None:
+            raise ValueError("no batch and no dataloader")
+        it = source if hasattr(source, "__next__") else iter(source)
+        micro = self.train_micro_batch_size_per_gpu()
+        mbs = []
+        for _ in range(self.gradient_accumulation_steps()):
+            mb = next(it)
+            for k, x in mb.items():
+                if len(x) != micro:
+                    raise ValueError(f"loader batch leaf {k!r} has "
+                                     f"{len(x)} rows, the micro-batch is "
+                                     f"{micro}")
+            mbs.append(mb)
+        return mbs
+
     def train_batch(self, batch: Optional[Dict[str, Any]] = None,
                     data_iter=None) -> float:
         """gas micro-batches of forward and backward, then the update;
-        returns the mean micro-batch loss."""
-        if batch is None or data_iter is not None:
-            raise outside_slice("train_batch from a data iterator",
-                                "11i (dataloaders)")
+        returns the mean micro-batch loss.  The micro-batches come from
+        ``batch`` or, without one, from ``data_iter`` or the training
+        dataloader."""
         if self._pending:
             raise RuntimeError("micro-batches from forward()/backward() are "
                                "pending; finish the step with step()")
         losses = []
-        for mb in self._micro_batches(batch):
+        for mb in self._resolve_batch(batch, data_iter):
             loss = self.forward(mb)
             self.backward(loss)
             losses.append(loss.detach().float())

@@ -29,7 +29,7 @@ from deepspeed_tpu.models import transformer as JT
 from deepspeed_tpu.models.gpt import GPTForCausalLM as JGPT
 from deepspeed_tpu.models.gpt import gpt_config as jgpt_config
 from deepspeed_tpu_torch.checkpoint import hf as thf
-from deepspeed_tpu_torch.checkpoint.from_jax import from_jax
+from deepspeed_tpu_torch.checkpoint.from_jax import from_jax, to_numpy
 from deepspeed_tpu_torch.inference import v2 as T
 from deepspeed_tpu_torch.inference.v2 import model_implementations as timpl
 from deepspeed_tpu_torch.models import transformer as TT
@@ -253,12 +253,18 @@ def test_init_params_has_the_jax_tree_for_every_family():
         assert tflat == jflat, family
         assert ttree["final_norm"]["bias"].dtype == torch.float32
         from_jax(jtree, tcfg, device="cpu")
+    # the GPT training forward (learned positions) takes the port's tree
+    # and gives JAX's logits on the same weights
     gpt = gpt_config("debug", dtype=torch.float32)
     params = GPTForCausalLM("debug", dtype=torch.float32).init_params(
         0, device="cpu")
     assert params["embed"]["positions"].shape == (64, 64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TT.forward(gpt, params, torch.zeros((1, 4), dtype=torch.int64))
+    ids = np.arange(8, dtype=np.int32)[None] % gpt.vocab_size
+    got = TT.forward(gpt, params, torch.from_numpy(ids)).numpy()
+    ref = np.asarray(JT.forward(jgpt_config("debug", dtype=jnp.float32),
+                                jax.tree.map(jnp.asarray, to_numpy(params)),
+                                jnp.asarray(ids)))
+    assert np.abs(got - ref).max() <= LOGIT_TOL * np.abs(ref).max()
 
 
 def test_bridge_checks_every_leaf_the_config_calls_for():

@@ -2026,12 +2026,88 @@ def test_flash_kernel_head_dims_match_plain(cuda_device, case, d):
     torch.testing.assert_close(lse, ref_lse, atol=1e-2, rtol=1e-3)
 
 
+# (S, H, K, window): uneven S, Falcon's one kv head under 71 query heads
+# (the dK/dV block's group sum over 71 heads), GQA, a window that
+# crosses blocks, one row past a tile
+HEAD_DIM_FLASH_BWD_CASES = {"s300": (300, 8, 8, None),
+                            "mqa_71": (200, 71, 1, None),
+                            "gqa4": (256, 8, 2, None),
+                            "window100": (256, 4, 4, 100),
+                            "s65": (65, 4, 4, None)}
+
+
+def _bshd_d(dev, g, s, h, d):
+    return torch.randn(2, s, h, d, generator=g, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96])
+@pytest.mark.parametrize("case", sorted(HEAD_DIM_FLASH_BWD_CASES))
+def test_flash_bwd_kernel_head_dims_match_plain(cuda_device, case, d):
+    s, h, kh, window = HEAD_DIM_FLASH_BWD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (_bshd_d(cuda_device, g, s, n, d) for n in (h, kh, kh, h))
+    out, lse = tfa.flash_fwd(q, k, v, causal=True, window=window)
+    launches = dict(tfa.BWD_KERNEL.launches_by_fn)
+    got = tfa.flash_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    again = tfa.flash_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    ref = tfa.flash_bwd_reference(q, k, v, out, lse, do, True, None, window)
+    torch.cuda.synchronize()
+    for fn in ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"):
+        assert tfa.BWD_KERNEL.launches_by_fn[fn] == launches.get(fn, 0) + 2
+    for name, a, b, c in zip("qkv", got, again, ref):
+        assert a.shape == c.shape and a.dtype == c.dtype, name
+        assert torch.equal(a, b), f"d{name} differs between two calls"
+        assert_parity(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["falcon", "phi", "phi3"])
+def test_training_at_head_dim_runs_the_backward_kernels(cuda_device,
+                                                        family):
+    """A two-layer model of each family at its head dim under "auto"
+    trains through the flash kernels (one dK/dV and one dQ launch a
+    layer) and its gradients agree with the einsum path's."""
+    from deepspeed_tpu_torch.models.transformer import CausalLM, \
+        TransformerConfig
+    from deepspeed_tpu_torch.tree import tree_leaves, tree_map
+    fields = {"falcon": dict(num_heads=8, num_kv_heads=1, head_dim=64,
+                             activation="gelu_exact", parallel_residual=True,
+                             norm="layernorm"),
+              "phi": dict(num_heads=4, head_dim=80, rope_pct=0.4,
+                          activation="gelu", parallel_residual=True,
+                          norm="layernorm", use_bias=True),
+              "phi3": dict(num_heads=4, head_dim=96, sliding_window=100,
+                           activation="silu_gated")}[family]
+    base = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_layers=2, max_seq_len=512, **fields)
+    model = CausalLM(TransformerConfig(**base))
+    params = model.init_params(seed=0, device=cuda_device)
+    ids = torch.randint(0, 512, (2, 300), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(0))
+    grads = []
+    for impl in ("auto", "einsum"):
+        m = CausalLM(TransformerConfig(attention_impl=impl, **base))
+        params_c = tree_map(
+            lambda t: t.detach().to(torch.bfloat16).requires_grad_(), params)
+        before = dict(tfa.BWD_KERNEL.launches_by_fn)
+        m.loss(params_c, {"input_ids": ids}).backward()
+        ran = {fn: tfa.BWD_KERNEL.launches_by_fn[fn] - before.get(fn, 0)
+               for fn in ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")}
+        assert ran == dict.fromkeys(ran, 2 if impl == "auto" else 0), ran
+        grads.append([c.grad.float() for c in tree_leaves(params_c)])
+    for a, b in zip(*grads):
+        rms = float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+        assert rms <= 5e-2, rms
+
+
 @pytest.mark.cuda
 def test_attention_kernels_refuse_head_dim_112(cuda_device):
     """D = 112 is no instantiation: the wrappers raise before a launch, and
     the C entry points, called around the wrappers, return
-    cudaErrorInvalidValue (a RuntimeError) and launch nothing; the flash
-    backward takes 128 alone and refuses 80."""
+    cudaErrorInvalidValue (a RuntimeError) and launch nothing, the flash
+    backward's too."""
     from deepspeed_tpu_torch.ops.kernel_loader import stream_of
     dev = cuda_device
     q, kv, table, start = _head_dim_paged_inputs(dev, "split_decode", 64,
@@ -2069,7 +2145,14 @@ def test_attention_kernels_refuse_head_dim_112(cuda_device):
                           *a.stride()[:3], *a.stride()[:3], *a.stride()[:3],
                           *a.stride()[:3], 0.1, 1, 0, stream_of(a))
     assert tfa.KERNEL.launches == before
-    b = torch.randn(1, 4, 64, 80, device=dev, dtype=torch.bfloat16)
-    out, lse = tfa.flash_fwd(b, b, b)
+    out = torch.empty_like(a)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_bwd(b, b, b, out, lse, torch.ones_like(b))
+        tfa.flash_bwd(a, a, a, out, lse, torch.ones_like(a))
+    delta = torch.zeros_like(lse)
+    args = tfa.bwd_launch_args(a, a, a, a, lse, delta, out, out, out, True,
+                               None, None)
+    before = dict(tfa.BWD_KERNEL.launches_by_fn)
+    for fn, fn_args in args.items():
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tfa.BWD_KERNEL.launch(fn, *fn_args)
+    assert tfa.BWD_KERNEL.launches_by_fn == before

@@ -266,14 +266,16 @@ def test_unknown_zero_key_raises():
 
 
 def test_engine_calls_outside_the_slice_raise():
+    """Checkpoints (item 11f) and remat policies other than
+    ``nothing_saveable`` (11a) still raise; a batch-less ``train_batch``
+    on an engine without a loader is the JAX engine's ValueError."""
     engine = _port_engine()
     for call in (lambda: engine.save_checkpoint("ckpt"),
-                 lambda: engine.train_batch(data_iter=iter([]))):
+                 lambda: engine.load_checkpoint("ckpt")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    with pytest.raises(NotImplementedError, match="dataloaders"):
-        dtt.initialize(model=SimpleModel(HIDDEN), training_data=[1],
-                       device="cpu")
+    with pytest.raises(ValueError, match="no batch and no dataloader"):
+        engine.train_batch()
     with pytest.raises(NotImplementedError, match="remat_policy"):
         _port_engine(LlamaForCausalLM("debug", dtype=torch.float32,
                                       remat_policy="dots_saveable")
@@ -309,13 +311,13 @@ def test_batch_arithmetic_follows_the_jax_rules(tmp_path):
 
 @pytest.mark.parametrize("impl", ["auto", "flash"])
 @pytest.mark.parametrize("over", [dict(dtype=torch.float32),
-                                  dict(head_dim=64)])
+                                  dict(head_dim=256)])
 def test_flash_outside_the_kernels_layout_raises_on_the_card(impl, over):
     """On the card, "auto" and "flash" take the kernels' layout (bf16 at
-    head_dim 128) or raise: they never run the dense path, which only
-    "einsum" chooses.  On the CPU the plain versions take any layout.
-    The forward decides from its input's device before it reads a
-    weight, so a meta tensor stands in for one on the card."""
+    head_dim 64, 80, 96 or 128) or raise: they never run the dense path,
+    which only "einsum" chooses.  On the CPU the plain versions take any
+    layout.  The forward decides from its input's device before it reads
+    a weight, so a meta tensor stands in for one on the card."""
     cfg = model_config("7b", attention_impl=impl, **over)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11k"):
         check_flash_layout(cfg, torch.device("cuda"))
@@ -323,8 +325,9 @@ def test_flash_outside_the_kernels_layout_raises_on_the_card(impl, over):
         transformer_forward(cfg, {}, torch.zeros((1, 8), dtype=torch.int32,
                                                  device="meta"))
     check_flash_layout(cfg, torch.device("cpu"))
-    check_flash_layout(model_config("7b", attention_impl=impl),
-                       torch.device("cuda"))
+    for d in (64, 80, 96, 128):
+        check_flash_layout(model_config("7b", attention_impl=impl,
+                                        head_dim=d), torch.device("cuda"))
 
 
 def test_initialize_defaults_to_cuda_and_raises_without_it():

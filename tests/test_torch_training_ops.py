@@ -51,11 +51,17 @@ def _t(a):
 # backward kernels are right only when their blocks divide S: with the
 # forward test's 64/32 its dK and dV differ from its own mha_reference
 # gradient by up to 1.7 (ROADMAP Queue 3), so the case runs JAX at 32/32.
+# The head dims of the kernels' padded tiles (64, 80, 96): Falcon's
+# multi-query shape (7 query heads over one kv head), GQA at 80, and a
+# window at 96, each with blocks that divide S.
 FLASH_CASES = {
     "causal": (128, 32, 1, 1, None, 64, 64),
     "uneven": (96, 32, 1, 1, None, 32, 32),
     "window24": (64, 32, 2, 2, 24, 32, 32),
     "gqa": (128, 32, 4, 2, None, 64, 64),
+    "head_dim64_mqa": (128, 64, 7, 1, None, 64, 64),
+    "head_dim80_gqa": (128, 80, 4, 2, None, 64, 64),
+    "head_dim96_window40": (128, 96, 2, 2, 40, 32, 32),
 }
 
 
@@ -336,10 +342,10 @@ def test_training_parity_limits_pass_rounding_and_fail_an_extra_key(
 
     dense = T.dot_product_attention
 
-    def one_key_past_causal(cfg, q, k, v, mask):
+    def one_key_past_causal(cfg, q, k, v, mask, attn_bias=None):
         s = mask.shape[-1]
         return dense(cfg, q, k, v, mask | torch.ones(s, s).bool().triu(1)
-                     .tril(1))
+                     .tril(1), attn_bias)
     monkeypatch.setattr(T, "dot_product_attention", one_key_past_causal)
     leaky = _bf16_loss_and_grads(einsum_model, params, ids)
     loss_rel, grad_rms = _path_errors(leaky, einsum)
