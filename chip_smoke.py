@@ -37,7 +37,11 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    and the attention kernels at head dims 64, 80 and 96 (phases 9b-9d):
    the paged kernel's split-KV decode, Falcon-7B's multi-query decode on
    the tile, a prefill chunk and Phi-3-mini's window over bf16 and int8
-   pages, the flash forward at B=4, S=1024 with each model's heads;
+   pages, the flash forward at B=4, S=1024 with each model's heads; the
+   weight dequantise kernel (``fp_dequant``, replacing no Pallas kernel:
+   the JAX package's ``_wval``, which XLA fuses into the einsum) bit for
+   bit at Mixtral-8x7B's expert leaf [8, 4096, 14336] (fp8 and int8
+   codes) and an attention leaf [4096, 32, 128];
 4. FastGen serving of Llama-2-7B at full width (32 layers, random seeded
    bf16 weights, 256 KV pages of 64 tokens) in the default serving
    configuration (one CUDA graph per step key, the async chained decode,
@@ -220,6 +224,21 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    kernel path against the plain path past the window as 9a (prompts of
    3072 in chunks of 1024); in each of 9b-9d both attention op classes
    must resolve to their kernels;
+9e. Mixtral-8x7B at its published configuration
+   (``mixtral_config_from_hf``: 8 experts, top-2, the MoE mlp self-wired
+   in every layer; seeded random weights, 256 pages): (a) bf16 at 4 of
+   32 layers, ``serve`` as phase 4 and the kernel path against the plain
+   path as phase 7, the plain path routed to the kernel path's experts
+   (``moe_routes``: a hard top-k turns rounding into another expert; the
+   routes whose own choice differed are counted); (c) an engine
+   quantising the same weights to fp8_e4m3 at build, the bf16 engine's
+   greedy tokens teacher-forced through it (agreement reported, not
+   held); (b) all 32 layers with fp8_e4m3 weights, drawn and quantised
+   layer by layer so that the bf16 tree (93 GB) never exists, handed to
+   an engine with ``quantization`` on: as (a), the dequantise kernel's
+   launches held to 7 a layer of every segment, one decode step split
+   into dequantisation, expert GEMMs, other GEMMs, attention, norms and
+   the rest, weights GB and the phase's peak memory (held under 75 GB);
 10. training at Llama-2-7B width cut to 8 layers (fp32 masters built on
     the card from a seed, bf16 compute, micro-batch 2 x 2048 tokens,
     gas 2, AdamW, WarmupDecayLR, clipping 1.0): 4 ``train_batch`` calls
@@ -270,6 +289,7 @@ printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1276,6 +1296,51 @@ def check_quantization(dev, cfg):
     return q_rows, d_rows
 
 
+# the dequantise kernel's main-path leaves: Mixtral-8x7B's experts (one
+# [X, E, F] leaf a layer per expert projection) and an attention leaf
+FP_DEQUANT_CASES = (("expert wi [8, 4096, 14336]", (8, 4096, 14336), 1,
+                     "fp8_e4m3"),
+                    ("expert wi [8, 4096, 14336]", (8, 4096, 14336), 1,
+                     "int8"),
+                    ("attention wq [4096, 32, 128]", (4096, 32, 128), 0,
+                     "fp8_e4m3"))
+
+
+def check_fp_dequant(dev):
+    """The channelwise dequantise kernel against its plain version at
+    the leaves phase 9e's steps read (bf16 out): bit for bit, kernel and
+    plain ms, the bytes bound (1 byte in, 2 out an element, the scales
+    once)."""
+    import torch
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    rows = []
+    for name, shape, batch_dims, fmt in FP_DEQUANT_CASES:
+        w = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+        leaf = FQ.quantize_channelwise(w, fmt, batch_dims)
+        del w
+        out = FQ.dequantize_channelwise(leaf)
+        ref = FQ.dequantize_channelwise_reference(leaf)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"fp_dequant differs from its plain version "
+                               f"at [{name}, {fmt}]")
+        del out, ref
+        n = leaf["q"].numel()
+        b_ms, b_by = bound(n + 2 * n + 4 * leaf["scale"].numel(), n,
+                           FP32_FLOPS_PER_S)
+        rows.append(dict(
+            shape=f"{name} {fmt}", max_abs_err=0.0, max_rel_err=0.0,
+            rms_rel_err=0.0, bit_equal=True, library_ms=None,
+            library_note=NO_LIBRARY,
+            ms=cuda_ms(lambda: FQ.dequantize_channelwise(leaf), 20),
+            plain_ms=cuda_ms(lambda: FQ.dequantize_channelwise_reference(
+                leaf), 5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by))
+        del leaf
+        torch.cuda.empty_cache()
+    return rows
+
+
 def lion_signs(p_old, p_new, lr, wd):
     """The sign u that a Lion step applied, recovered from
     p_new = p_old - lr (u + wd p_old)."""
@@ -1405,15 +1470,17 @@ def check_lamb(dev, cfg):
 
 def build_engine(cfg, params, num_pages, implementations=None,
                  kv_quantization="none", model_type="llama",
-                 state_manager=None, **serving):
+                 state_manager=None, quantization=None, **serving):
     """The family's model class -> engine, as a user builds them;
     ``serving`` sets ServingOptimizationConfig's other fields and
     ``state_manager`` StateManagerConfig's (16 sequences and a 2048-token
-    budget by default)."""
+    budget by default); ``quantization`` (a format) turns on the engine's
+    weight-only quantisation."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import (
-        InferenceEngineV2, KVCacheConfig, RaggedInferenceEngineConfig,
-        ServingOptimizationConfig, StateManagerConfig, implementation_for)
+        InferenceEngineV2, KVCacheConfig, QuantizationConfig,
+        RaggedInferenceEngineConfig, ServingOptimizationConfig,
+        StateManagerConfig, implementation_for)
     kv_cfg = KVCacheConfig(num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
                            head_dim=cfg.dims_per_head, page_size=64,
                            num_pages=num_pages, dtype=torch.bfloat16)
@@ -1424,6 +1491,8 @@ def build_engine(cfg, params, num_pages, implementations=None,
         state_manager=StateManagerConfig(**dict(
             dict(max_tracked_sequences=16, max_ragged_sequence_count=16,
                  max_ragged_batch_size=2048), **(state_manager or {}))),
+        quantization=QuantizationConfig(enabled=quantization is not None,
+                                        fmt=quantization or "fp8_e4m3"),
         serving=ServingOptimizationConfig(kv_quantization=kv_quantization,
                                           **serving))
     return InferenceEngineV2(model, econf)
@@ -1499,12 +1568,14 @@ def segment_counts(cfg, dispatches, draft_layers=0) -> dict:
     return seg
 
 
-def launch_checks(cfg, kv_quantization, launches, seg) -> dict:
+def launch_checks(cfg, kv_quantization, launches, seg,
+                  dequant_leaves=0) -> dict:
     """Exact launch counts of the serving kernels for the segments run:
     the family's norm 2 * layers + 1 per segment, its page format's
     kernel one per layer of a paged segment, flash one per layer of a
-    fresh segment, combine one per layer of a split-KV segment, every
-    other kernel 0."""
+    fresh segment, combine one per layer of a split-KV segment, the
+    weight dequantise kernel ``dequant_leaves`` (a layer's quantised
+    leaves) per layer of every segment, every other kernel 0."""
     norm, other_norm = (("rmsnorm", "layernorm") if cfg.norm == "rmsnorm"
                         else ("layernorm", "rmsnorm"))
     paged, other_paged = (("paged_attention_int8", "paged_attention")
@@ -1516,10 +1587,21 @@ def launch_checks(cfg, kv_quantization, launches, seg) -> dict:
         "flash_fwd": launches["flash_fwd"] == seg["fresh_layers"],
         "paged_attention_combine": launches["paged_attention_combine"]
         == seg["split_kv_layers"],
+        "fp_dequant": launches["fp_dequant"] == dequant_leaves * (
+            seg["fresh_layers"] + seg["paged_layers"]),
         "idle kernels": all(launches[k] == 0 for k in (
             other_norm, other_paged, "rmsnorm_res", "flash_bwd",
             "fused_adamw", "fused_lion", "fused_lamb", "quantize",
             "dequantize"))}
+
+
+def quantized_leaves(model) -> int:
+    """The weight-only quantised leaves of one layer of ``model``: each
+    one a dequantise launch per layer of every segment."""
+    from deepspeed_tpu_torch.models.transformer import layer_params
+    lp = layer_params(model.cfg, model.params, 0)
+    return sum(isinstance(v, dict) and "q" in v
+               for block in ("attn", "mlp") for v in lp[block].values())
 
 
 def graph_report(model) -> dict:
@@ -1697,7 +1779,8 @@ def two_passes(engine, reqs, cfg, counters, card, label,
                                                for st in steps):
         raise RuntimeError("a timed serving step was not one graph replay")
     seg = segment_counts(cfg, dispatches, engine._draft_layers)
-    checks = launch_checks(cfg, kv_quantization, launches, seg)
+    checks = launch_checks(cfg, kv_quantization, launches, seg,
+                           quantized_leaves(model))
     by_kind = {}
     for st in steps:
         by_kind.setdefault(step_kind(st["key"]), []).append(st["ms"])
@@ -1742,7 +1825,8 @@ def two_passes(engine, reqs, cfg, counters, card, label,
 
 
 def serve(cfg, params, counters, card, model_type="llama",
-          kv_quantization="none", label=None, reqs=None, **serving):
+          kv_quantization="none", label=None, reqs=None, quantization=None,
+          **serving):
     """10 requests (or ``reqs``) through FastGenScheduler in the default
     serving configuration (a CUDA graph per step key, the async chain,
     prefix caching), or with ``serving``'s flags: ``two_passes``, every
@@ -1754,7 +1838,8 @@ def serve(cfg, params, counters, card, model_type="llama",
     from deepspeed_tpu_torch.ops import paged_attention as PA
     label = label or model_type
     engine = build_engine(cfg, params, num_pages=256, model_type=model_type,
-                          kv_quantization=kv_quantization, **serving)
+                          kv_quantization=kv_quantization,
+                          quantization=quantization, **serving)
     reqs = reqs or serving_requests(cfg)
     summary, launches, generated, dispatches = two_passes(
         engine, reqs, cfg, counters, card, label, kv_quantization)
@@ -2158,11 +2243,54 @@ def teacher_forced_agreement(engine, reqs, served, uid_base, parted,
     return agree, margins, witness
 
 
-def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
+@contextlib.contextmanager
+def moe_routes(cfg, mode, routes, flips):
+    """A MoE model's routing during one teacher-forced ``put``: "record"
+    appends each layer's top-k experts to ``routes``; "force" routes each
+    layer to the next recorded entry (``topk_routing``'s
+    ``route_logits``: the same experts in the same order, weighted by
+    this path's own gate), and counts in ``flips`` the token routes whose
+    own top-k differs (a hard top-k turns a rounding difference in the
+    router's input into another expert, and a logit gap of the size of
+    the logits: held apart, the comparison isolates the kernels).  A
+    dense model is left alone."""
+    if not cfg.moe_num_experts:
+        yield
+        return
+    import torch
+    from deepspeed_tpu_torch.moe import layer as ML
+    real, it = ML.topk_routing, iter(list(routes))
+
+    def record(logits, k, *a, **kw):
+        r = real(logits, k, *a, **kw)
+        routes.append(r.experts)
+        return r
+
+    def force(logits, k, *a, **kw):
+        experts = next(it)
+        rank = torch.zeros(logits.shape, dtype=torch.float32,
+                           device=logits.device)
+        for i in range(k):
+            rank.scatter_(-1, experts[i][..., None], float(k - i))
+        own = real(logits, k, *a, **kw).experts
+        flips[0] += int((own != experts).sum())
+        flips[1] += own.numel()
+        return real(logits, k, *a, route_logits=rank, **kw)
+
+    ML.topk_routing = record if mode == "record" else force
+    try:
+        yield
+    finally:
+        ML.topk_routing = real
+
+
+def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none",
+                    quantization=None):
     """The serving forward on the kernel path and on the plain path,
     both over the same page encoding, teacher-forced with the kernel
-    path's greedy picks, every segment's logits compared.  Each step runs
-    as the fused step runs its segments, one eager ``put`` each: the
+    path's greedy picks (a MoE model's other paths also with its expert
+    choices, ``moe_routes``), every segment's logits compared.  Each step
+    runs as the fused step runs its segments, one eager ``put`` each: the
     decode rows, then the prefill rows.  The schedule covers each segment
     kind the serving run takes: a fresh prefill (flash), decode (paged,
     Q=1), a mixed step whose prefill segment is fresh, and a mixed step
@@ -2172,7 +2300,7 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
     compared."""
     import numpy as np
     import torch
-    kw = dict(num_pages=64, model_type=model_type)
+    kw = dict(num_pages=64, model_type=model_type, quantization=quantization)
     tol = LOGIT_REL_TOL if kv_quantization == "none" else INT8_LOGIT_REL_TOL
     engines = {"kernel": build_engine(cfg, params, **kw,
                                       kv_quantization=kv_quantization),
@@ -2193,6 +2321,8 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
             return "fresh"
         return f"chunk Q={1 << (q - 1).bit_length()} history<={max(seen)}"
 
+    route_flips = [0, 0]       # (routes the plain path would choose
+    #                             otherwise, routes forced)
     rng = np.random.default_rng(SEED + 1)
     p0, p1, p2 = (rng.integers(0, cfg.vocab_size, n) for n in (700, 300, 2000))
     last = {}
@@ -2213,9 +2343,12 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
                 continue
             g_uids = [uids[i] for i in group]
             g_feed = [feed[i] for i in group]
+            routes = []           # the kernel path's MoE choices
             for name, e in engines.items():
                 kind = segment_kind(e, g_uids, g_feed)
-                with eager_steps(e):
+                with eager_steps(e), moe_routes(
+                        cfg, "record" if name == "kernel" else "force",
+                        routes, route_flips):
                     logits = e.put(g_uids, g_feed)
                 segments[name].append((kind, logits))
                 if name == "kernel":
@@ -2234,10 +2367,13 @@ def plain_vs_kernel(cfg, params, model_type="llama", kv_quantization="none"):
         total += a.shape[0]
         kinds.append(kind)
     res = dict(model=model_type, kv_pages=kv_quantization,
-               steps=len(schedule), mixed_steps=mixed_steps,
-               segments=kinds, max_rel_logit_err=worst, tol=tol,
+               weights=quantization or str(cfg.dtype), steps=len(schedule),
+               mixed_steps=mixed_steps, segments=kinds, max_rel_logit_err=worst, tol=tol,
                greedy_agreement=agree / total, greedy_rows=total,
                greedy_min=GREEDY_AGREE_MIN)
+    if cfg.moe_num_experts:
+        res.update(moe_routes_forced=route_flips[1],
+                   moe_routes_own_choice_differs=route_flips[0])
     if kv_quantization != "none":
         # the same kernel path over the two page encodings
         pairs = list(zip(segments["kernel"], segments["kernel, bf16 pages"]))
@@ -4528,6 +4664,240 @@ def hf_family_phase(counters, card, label, model_type, config_from_hf,
 
 
 # ---------------------------------------------------------------------------
+# phase 9e: Mixtral-8x7B, MoE serving with weight-only fp8 weights
+# ---------------------------------------------------------------------------
+
+MIXTRAL_SOURCE = "mistralai/Mixtral-8x7B-v0.1"
+MIXTRAL_SHORT_LAYERS = 4       # (a) and (c): bf16 at 4 of 32 layers
+MIXTRAL_FMT = "fp8_e4m3"       # (b): the full depth's weights
+MIXTRAL_PEAK_GB = 75.0
+MIXTRAL_SEED = SEED + 41
+
+
+def mixtral_params(cfg, seed, fmt=None):
+    """Seeded random Mixtral weights on the card, per-layer layout
+    (``scan_layers=False``): layer i drawn from its own generator (seed
+    + 1 + i, so a shallower model's layers are a deeper one's first), its
+    bf16 leaves quantised into ``fmt`` by the serving model's per-layer
+    helper (``quantize_layer_weights``, which ``quantize_weights`` runs:
+    attention scales per channel, expert scales per expert) before the
+    next layer is drawn, so that the bf16 tree (93 GB at full depth)
+    never exists whole.  Matrices N(0, 1) * fan_in ** -0.5 as
+    ``init_params`` draws them, the router likewise, embeddings * 0.02,
+    norm scales 1 + 0.1 N(0, 1)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.model import quantize_layer_weights
+    from deepspeed_tpu_torch.moe.layer import MoEConfig, init_moe_params
+    e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    h, k, d = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
+    bf16 = torch.bfloat16
+    moe_cfg = MoEConfig(num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+                        activation=cfg.activation)
+
+    def dense(g, shape, fan_in, scale=None):
+        w = torch.randn(shape, generator=g, device="cuda", dtype=bf16)
+        return w.mul_(fan_in ** -0.5 if scale is None else scale)
+
+    def norm(g):
+        return {"scale": 1 + 0.1 * torch.randn(e, generator=g,
+                                               device="cuda")}
+
+    layers = {}
+    for i in range(cfg.num_layers):
+        g = torch.Generator(device="cuda").manual_seed(seed + 1 + i)
+        layer = {"attn": {"wq": dense(g, (e, h, d), e),
+                          "wk": dense(g, (e, k, d), e),
+                          "wv": dense(g, (e, k, d), e),
+                          "wo": dense(g, (h, d, e), h * d)},
+                 "mlp": init_moe_params(moe_cfg, e, f, g, bf16, "cuda"),
+                 "norm1": norm(g), "norm2": norm(g)}
+        if fmt is not None:
+            layer = quantize_layer_weights(layer, fmt)
+        layers[f"layer_{i}"] = layer
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"embed": {"tokens": dense(g, (v, e), 1, 0.02)}, "layers": layers,
+            "final_norm": norm(g), "lm_head": dense(g, (e, v), e)}
+
+
+def tree_bytes(tree, bf16=False) -> int:
+    """Bytes of a param tree's leaves, or (``bf16``) of the same weights
+    held in bf16 (a quantised leaf's codes at 2 bytes, no scales)."""
+    if isinstance(tree, dict):
+        if bf16 and "q" in tree:
+            return 2 * tree["q"].numel()
+        return sum(tree_bytes(v, bf16) for v in tree.values())
+    return tree.numel() * (2 if bf16 else tree.element_size())
+
+
+def mixtral_decode_split(engine, reqs, label, n_steps=2):
+    """One decode step's device time by what it runs: the same requests
+    again (new uids, 16 new tokens), stepped until every one decodes,
+    then ``n_steps`` decode steps through their keys' eager step bodies
+    (the kernels a replay runs; a replay hides which op launched a
+    kernel) under torch.profiler.  cuBLAS kernels launched by
+    ``aten::bmm`` are the expert GEMMs (only the MoE layer calls
+    ``torch.bmm`` on this path), the rest the attention projections, the
+    router and the lm head."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import (FastGenScheduler,
+                                                  SamplingParams)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sched = FastGenScheduler(engine, seed=SEED)
+    for uid, (prompt, sp) in reqs.items():
+        sched.submit(200 + uid, prompt, SamplingParams(
+            max_new_tokens=16, temperature=sp.temperature, top_p=sp.top_p))
+    while len(sched.step()) < len(reqs):
+        if not sched.has_work:
+            raise RuntimeError("profiled serving run ended before decoding")
+    torch.cuda.synchronize()
+    with eager_steps(engine):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                if len(sched.step()) != len(reqs):
+                    raise RuntimeError("a profiled step was not a decode "
+                                       "step")
+            torch.cuda.synchronize()
+    sched.run_to_completion()
+    n_kernels, by_kind = device_ms_by_kind(prof)
+    gemm = "GEMM (cuBLAS)"
+    expert_us = sum(
+        kern.duration for ev in prof.events()
+        if ev.device_type == DeviceType.CPU and ev.name == "aten::bmm"
+        for kern in ev.kernels
+        if any(frag in kern.name for frag, kind in _KERNEL_KINDS
+               if kind == gemm))
+    split = {k: v / n_steps for k, v in by_kind.items() if k != gemm}
+    split["expert GEMMs (torch.bmm)"] = expert_us / 1e3 / n_steps
+    split["other GEMMs (projections, router, lm head)"] = (
+        by_kind.get(gemm, 0.0) - expert_us / 1e3) / n_steps
+    res = dict(model=label, decode_rows=len(reqs), steps=n_steps,
+               note="eager step bodies: the graph's kernels, launched one "
+                    "by one",
+               device_kernels_per_step=n_kernels / n_steps,
+               device_ms_per_step=sum(by_kind.values()) / n_steps,
+               device_ms_per_step_by_part=dict(sorted(
+                   split.items(), key=lambda kv: -kv[1])))
+    log(f"{label} decode step split:", json.dumps(res))
+    if expert_us <= 0:
+        raise RuntimeError(f"{label}: no expert GEMM in the profiled step")
+    return res
+
+
+def mixtral_phase(counters, card):
+    """Phase 9e: Mixtral-8x7B at its published configuration
+    (``mixtral_config_from_hf``: 8 experts, top-2, 32 heads over 8 kv
+    heads, D = 128), seeded random weights.  (a) bf16 at 4 of 32 layers:
+    ``serve`` (phase 4's traffic, exact launch counts, no capture in the
+    timed pass, every replay against its eager body) and the kernel path
+    against the plain path (phase 7's limits); (c) on the same weights an
+    engine that quantises them to fp8_e4m3 at build: the bf16 engine's
+    served greedy tokens teacher-forced through it (agreement reported,
+    not held to a floor); (b) all 32 layers with fp8_e4m3 weights,
+    built layer by layer and handed to an engine with ``quantization``
+    on, as (a), with the dequantise kernel's launches held exactly, one
+    decode step split by part, and the phase's peak memory held under
+    MIXTRAL_PEAK_GB.  Returns ({path: launches}, {path: summary})."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint import hf as HF
+    cfg32 = HF.mixtral_config_from_hf(types.SimpleNamespace(
+        **HF.PUBLISHED_CONFIGS[MIXTRAL_SOURCE]))
+    cfg32 = dataclasses.replace(cfg32, scan_layers=False)
+    cfg4 = dataclasses.replace(cfg32, num_layers=MIXTRAL_SHORT_LAYERS)
+    reqs = serving_requests(cfg32)
+    launches, summaries = {}, {}
+
+    def kernels_resolved(engine, name):
+        impls = engine.model.implementations
+        if (impls["ragged_attention"], impls["fresh_prefill_attention"],
+                impls["norm"]) != ("cuda_paged", "cuda_flash",
+                                   "cuda_rmsnorm"):
+            raise RuntimeError(f"{name}: op classes resolved to {impls}")
+
+    # (a) bf16 at 4 of 32 layers
+    t = time.perf_counter()
+    params4 = mixtral_params(cfg4, MIXTRAL_SEED)
+    torch.cuda.synchronize()
+    log(f"Mixtral-8x7B {MIXTRAL_SHORT_LAYERS} of 32 layers: bf16 "
+        f"{tree_bytes(params4) / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t:.1f} s")
+    name = f"Mixtral-8x7B bf16, {MIXTRAL_SHORT_LAYERS} layers"
+    path = f"serving_mixtral_bf16_{MIXTRAL_SHORT_LAYERS}_layers"
+    summary, launches[path], engine, _, served = serve(
+        cfg4, params4, counters, card, model_type="mixtral", label=name,
+        reqs=reqs)
+    kernels_resolved(engine, name)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["kernel_vs_plain"] = plain_vs_kernel(cfg4, params4,
+                                                 model_type="mixtral")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) fp8 against bf16 on the same weights
+    fp8 = build_engine(cfg4, params4, num_pages=256, model_type="mixtral",
+                       quantization=MIXTRAL_FMT)
+    greedy = {u: r for u, r in reqs.items() if r[1].temperature == 0}
+    agree, margins, _ = teacher_forced_agreement(fp8, greedy, served, 3000,
+                                                 {})
+    summary["fp8_vs_bf16"] = dict(
+        weights=MIXTRAL_FMT, greedy_agreement=sum(agree) / len(agree),
+        by_request=agree, top2_margin_median=statistics.median(margins),
+        top2_margin_quartiles=statistics.quantiles(margins, n=4),
+        note="the bf16 engine's served greedy tokens teacher-forced "
+             "through the fp8 engine's eager forward; reported, not held")
+    log(f"{name}: fp8 against bf16:", json.dumps(summary["fp8_vs_bf16"]))
+    summaries[path] = summary
+    del fp8, params4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) fp8 weights at full depth
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params32 = mixtral_params(cfg32, MIXTRAL_SEED, fmt=MIXTRAL_FMT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t
+    weights_gb = tree_bytes(params32) / 1e9
+    log(f"Mixtral-8x7B 32 layers: {MIXTRAL_FMT} weights {weights_gb:.2f} GB "
+        f"(in bf16 {tree_bytes(params32, bf16=True) / 1e9:.2f} GB), built "
+        f"layer by layer in {build_s:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    name = f"Mixtral-8x7B {MIXTRAL_FMT}, 32 layers"
+    path = "serving_mixtral_fp8"
+    summary, launches[path], engine, _, _ = serve(
+        cfg32, params32, counters, card, model_type="mixtral", label=name,
+        reqs=reqs, quantization=MIXTRAL_FMT)
+    kernels_resolved(engine, name)
+    if engine.model.quantized_fmt != MIXTRAL_FMT or \
+            quantized_leaves(engine.model) != 7:
+        raise RuntimeError(f"{name}: the served tree is not {MIXTRAL_FMT} in "
+                           f"its 7 projection leaves a layer")
+    summary["decode_split"] = mixtral_decode_split(engine, reqs, name)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["kernel_vs_plain"] = plain_vs_kernel(
+        cfg32, params32, model_type="mixtral", quantization=MIXTRAL_FMT)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    summary.update(weights_gb=weights_gb, weights_build_s=build_s,
+                   phase_peak_gb=peak, peak_limit_gb=MIXTRAL_PEAK_GB)
+    log(f"{name}: weights {weights_gb:.2f} GB, phase peak {peak:.2f} GB "
+        f"(limit {MIXTRAL_PEAK_GB})")
+    if peak > MIXTRAL_PEAK_GB:
+        raise RuntimeError(f"{name}: peak {peak:.2f} GB above "
+                           f"{MIXTRAL_PEAK_GB}")
+    summaries[path] = summary
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summaries
+
+
+# ---------------------------------------------------------------------------
 # phases 10 to 13: training at Llama-2-7B width, 8 layers
 # ---------------------------------------------------------------------------
 
@@ -4640,6 +5010,7 @@ _KERNEL_KINDS = (("flash_fwd", "flash forward"),
                  ("fused_lion", "Lion"),
                  ("fused_lamb", "LAMB stage 1"),
                  ("dequantize_blockwise", "dequantise (qwZ)"),
+                 ("fp_dequant", "dequantise (weights)"),
                  ("quantize_blockwise", "quantise (qwZ)"),
                  ("paged_split", "paged attention, split-KV decode"),
                  ("paged_combine", "paged attention, combine"),
@@ -5226,6 +5597,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; the port's smoke test "
               "runs on the GPU only", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
+
+    def clock(phase):
+        log(f"{phase} done at {time.perf_counter() - t_main:.1f} s")
+
     # phase 1
     card = card_line()
     log(f"card: {card}")
@@ -5233,10 +5609,12 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
 
+    clock("phase 1")
     # phase 2
     from deepspeed_tpu_torch.checkpoint.hf import opt_config_from_hf
     from deepspeed_tpu_torch.models.llama import llama_config
     from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
     from deepspeed_tpu_torch.ops import fused_optimizer as FO
     from deepspeed_tpu_torch.ops import kernel_loader
     from deepspeed_tpu_torch.ops import normalization as N
@@ -5262,7 +5640,8 @@ def main() -> int:
         "dequantize": (Q.KERNEL, ("dequantize_blockwise_f32",
                                   "dequantize_blockwise_bf16")),
         "fused_lion": (FO.LION_KERNEL, None),
-        "fused_lamb": (FO.LAMB_KERNEL, None)}
+        "fused_lamb": (FO.LAMB_KERNEL, None),
+        "fp_dequant": (FQ.KERNEL, None)}
     replaces = {
         "paged_attention": "deepspeed_tpu/ops/paged_attention.py:240",
         "paged_attention_int8": "deepspeed_tpu/ops/paged_attention.py:240",
@@ -5277,7 +5656,9 @@ def main() -> int:
         "quantize": "deepspeed_tpu/ops/quantization.py:31",
         "dequantize": "deepspeed_tpu/ops/quantization.py:40",
         "fused_lion": "deepspeed_tpu/ops/fused_optimizer.py:91",
-        "fused_lamb": "deepspeed_tpu/ops/fused_optimizer.py:183"}
+        "fused_lamb": "deepspeed_tpu/ops/fused_optimizer.py:183",
+        # no pl.pallas_call: XLA fuses this jnp function into the einsum
+        "fp_dequant": "deepspeed_tpu/models/transformer.py:233"}
     libraries = list({id(k): k for k, _ in counters.values()}.values())
     # the libraries go to the serving compile cache's directory, which a
     # second process (the graph-warmth phase) loads them from
@@ -5309,6 +5690,7 @@ def main() -> int:
             if "wgmma" in ln:
                 log(f"ptxas {k.name}: {ln.strip()}")
 
+    clock("phase 2")
     # phase 3 (the serving kernels also at the Q tops 6g's mined lattice
     # fits to its prompt lengths: S * Q rows for the norms)
     train_cfg = llama_config("7b", num_layers=TRAIN_LAYERS)
@@ -5326,7 +5708,8 @@ def main() -> int:
               "fused_adamw": check_adamw(dev, train_cfg),
               "quantize": quant_rows, "dequantize": dequant_rows,
               "fused_lion": check_lion(dev, train_cfg),
-              "fused_lamb": check_lamb(dev, train_cfg)}
+              "fused_lamb": check_lamb(dev, train_cfg),
+              "fp_dequant": check_fp_dequant(dev)}
     for name, rows in checks.items():
         for r in rows:
             lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
@@ -5358,6 +5741,7 @@ def main() -> int:
             if not all(err <= tol for err, tol in rel):
                 raise RuntimeError(f"{name} kernel disagrees with its plain "
                                    f"version at [{r['shape']}]: {r}")
+    clock("phase 3")
     # phase 4
     from deepspeed_tpu_torch.models.transformer import init_params
     cfg = llama_config("7b")
@@ -5369,19 +5753,23 @@ def main() -> int:
     llama_summary, llama_launches, engine, reqs, llama_tokens = serve(
         cfg, params, counters, card)
 
+    clock("phase 4")
     # phase 5: graph against eager at one decode key
     graph_vs_eager(engine, reqs, "llama")
 
+    clock("phase 5")
     # phase 6: prefix caching at full width
     prefix_phase(engine, cfg, counters, card)
     launches_by_path = {"serving_llama": llama_launches}
 
+    clock("phase 6")
     # phase 6a: preemption on a 48-page pool, held to the 256-page engine
     _, launches_by_path["serving_llama_preemption"] = preemption_phase(
         cfg, params, counters, card, engine)
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phase 6a")
     # phase 6b: the split step, each flag, held to the fused engine
     for path, flags in (("serving_llama_split_fused_step",
                          dict(fused_step=False)),
@@ -5396,6 +5784,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phase 6b")
     # phase 6c: a pool sized from free device memory, then the target and
     # draft pools of a self-drafting engine sized together
     _, launches_by_path["serving_llama_pool_sized"] = sizing_phase(
@@ -5408,30 +5797,37 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phase 6c")
     # phase 6d: speculative decoding with the three drafters
     _, spec_launches = spec_phase(cfg, params, counters, card,
                                   llama_summary)
     launches_by_path.update(spec_launches)
 
+    clock("phase 6d")
     # phase 6e: keyed sampling at full width
     _, launches_by_path["serving_llama_keyed"] = keyed_phase(
         cfg, params, counters, card, llama_summary)
 
+    clock("phase 6e")
     # phase 6f: snapshot and restore into a second engine
     _, launches_by_path["serving_llama_snapshot"] = snapshot_phase(
         cfg, params, counters, card)
 
+    clock("phase 6f")
     # phase 6g: a mined bucket lattice against the power-of-two lattice
     _, launches_by_path["serving_llama_mined_lattice"] = lattice_phase(
         cfg, params, counters, card)
 
+    clock("phase 6g")
     # phase 6h: the host/disk page tier (bf16 pages)
     _, launches_by_path["serving_llama_tier"] = tier_phase(
         cfg, params, counters, card)
 
+    clock("phase 6h")
     # phase 6i: graph warmth, a second process loads phase 2's libraries
     warmth_phase(cache_dir, card)
 
+    clock("phase 6i")
     # phase 6j: a replica pool of two engines; 6k: disaggregated
     # prefill/decode engines
     gc.collect()
@@ -5441,9 +5837,11 @@ def main() -> int:
     _, launches_by_path["serving_llama_disagg"] = disagg_phase(
         cfg, params, counters, card, llama_summary)
 
+    clock("phases 6j-6k")
     # phase 7
     plain_vs_kernel(cfg, params)
 
+    clock("phase 7")
     # phase 8: the Llama weights and caches go first
     del params
     gc.collect()
@@ -5463,16 +5861,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phase 8")
     # phase 8a: int8 pages through the host/disk tier
     _, launches_by_path["serving_opt_tier"] = tier_phase(
         opt_cfg, opt_params, counters, card, label="opt int8",
         model_type="opt", kv_quantization="int8", num_pages=24, host=8,
         disk=16, n=6, prefix=512, suffix=32, new_tokens=16)
 
+    clock("phase 8a")
     # phase 9
     plain_vs_kernel(opt_cfg, opt_params, model_type="opt",
                     kv_quantization="int8")
 
+    clock("phase 9")
     # phase 9a: Mistral-7B-v0.1 and its sliding window, once the OPT
     # weights are gone
     del opt_params
@@ -5483,6 +5884,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phase 9a")
     # phases 9b-9d: Falcon-7B (head_dim 64, multi-query; bf16 then int8
     # pages), Phi-2 (80, partial rotary), Phi-3-mini-4k (96, a 2047-token
     # window) at their published configurations
@@ -5499,12 +5901,20 @@ def main() -> int:
                                    seed, int8=int8)
         launches_by_path.update(paths)
 
+    clock("phases 9b-9d")
+    # phase 9e: Mixtral-8x7B, bf16 at 4 layers, then fp8 weights at 32
+    paths, _ = mixtral_phase(counters, card)
+    launches_by_path.update(paths)
+
+    clock("phase 9e")
     # phase 10: the serving weights and caches are gone
     engine, batch, launches_by_path["training"] = train(counters, card)
 
+    clock("phase 10")
     # phase 11
     train_kernel_vs_plain(engine, batch)
 
+    clock("phase 11")
     # phases 12 and 13: each engine goes before the next is built
     for path in ("training_lion_qwz", "training_lamb"):
         del engine
@@ -5517,6 +5927,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phases 12-13")
     # phases 14-17: GPT-1.3B and Phi-2 at full width and depth, Falcon-7B
     # at 4 and Phi-3-mini at 8 of 32 layers; phase 18: BERT-large MLM
     # through the data loader
@@ -5529,6 +5940,7 @@ def main() -> int:
     path_head_dim.update({path: train_cfg.dims_per_head
                           for path in TRAIN_PATHS})
 
+    clock("phases 14-18")
     # phase 19
     line = {"kernels": []}
     for name, rows in checks.items():
@@ -5609,8 +6021,15 @@ def main() -> int:
                              " then F.rms_norm)")
         if head["library_ms"] is None:
             entry["note"] = NO_LIBRARY
-        if name in ("quantize", "dequantize"):
+        if name in ("quantize", "dequantize", "fp_dequant"):
             entry["bit_equal"] = all(r["bit_equal"] for r in rows)
+        if name == "fp_dequant":
+            entry["by_shape"] = {r["shape"]: {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")} for r in rows}
+            entry["note"] = ("replaces no pl.pallas_call: the JAX package "
+                             "dequantises with jnp ops (replaces names its "
+                             "_wval) that XLA fuses into the einsum; "
+                             + NO_LIBRARY)
         if name == "fused_lion":
             entry["sign_mismatches"] = sum(r["sign_mismatches"] for r in rows)
         if name == "fused_lamb":

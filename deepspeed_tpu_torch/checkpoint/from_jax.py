@@ -13,8 +13,14 @@ Leaf layouts are the JAX package's own (``wq [E,H,D]``, ``wk/wv
 [E,K,D]``, ``wo [H,D,E]``, ``mlp.wi`` up ``[E,F]``, ``mlp.wg`` gate
 ``[E,F]``, ``mlp.wo [F,E]``, ``lm_head [E,V]``, ``embed.positions
 [max_seq_len,E]``, biases ``bq [H,D]``, ``bk/bv [K,D]``, ``bo [E]``,
-``bi [F]``, ``lm_head_bias [V]``), so no transposes happen here; every
-leaf the config calls for is checked for presence and shape.
+``bi [F]``, ``lm_head_bias [V]``; a MoE mlp, ``moe_num_experts = X >
+0``: ``gate [E,X]``, ``wi``/``wg [X,E,F]``, ``wo [X,F,E]``), so no
+transposes happen here; every leaf the config calls for is checked for
+presence and shape.  A weight-only quantised leaf (``{"q", "scale"}``,
+``ops/fp_quantizer.quantize_channelwise``) crosses unchanged: codes in
+their storage dtype (a 4-bit JAX array, which torch cannot hold
+unpacked, as the port's fp4 storage, ``float8_e4m3fn`` of the same
+values) and fp32 scales; its codes take the leaf's shape check.
 
 :func:`to_numpy` goes back: training masters (fp32) leave the port as
 numpy arrays bit for bit, so a JAX tree bridged in, trained and brought
@@ -33,9 +39,21 @@ from ..models.transformer import TransformerConfig
 from ..tree import tree_map
 
 
+#: ml_dtypes' fp8 names -> the torch dtype with the same bits
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
 def _to_tensor(leaf, device: torch.device,
                dtype: Optional[torch.dtype]) -> torch.Tensor:
     arr = np.asarray(leaf)
+    if arr.dtype.name in _FP8:
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            _FP8[arr.dtype.name])
+        return t.to(device)
+    if arr.dtype.name == "float4_e2m1fn":
+        # every e2m1 value is an e4m3 value: the port's fp4 storage
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.float8_e4m3fn)
+        return t.to(device)
     if arr.dtype.name == "bfloat16":
         # numpy has no bf16; the ml_dtypes array reinterprets bit for bit
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
@@ -66,6 +84,12 @@ def _expected_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
               **_norm_shapes(cfg, "norm1"), **_norm_shapes(cfg, "norm2")}
     if "gated" in cfg.activation:
         shapes["mlp.wg"] = (e, f)
+    x = cfg.moe_num_experts
+    if x > 0:
+        shapes.update({"mlp.gate": (e, x), "mlp.wi": (x, e, f),
+                       "mlp.wo": (x, f, e)})
+        if "gated" in cfg.activation:
+            shapes["mlp.wg"] = (x, e, f)
     if cfg.use_bias or cfg.qkv_bias:
         shapes.update({"attn.bq": (h, d), "attn.bk": (k, d),
                        "attn.bv": (k, d)})
@@ -82,6 +106,8 @@ def _check_leaves(tree: Dict[str, Any], shapes: Dict[str, tuple],
             if not isinstance(node, dict) or key not in node:
                 raise KeyError(f"{where}: missing {name}")
             node = node[key]
+        if isinstance(node, dict) and "q" in node:     # quantised leaf
+            node = node["q"]
         got = tuple(np.shape(node))
         if got != lead + shape:
             raise ValueError(
@@ -94,6 +120,8 @@ def _check_layer(cfg: TransformerConfig, lp: Dict[str, Any],
 
 
 def _convert(tree, device, dtype, path=()):
+    if isinstance(tree, dict) and "q" in tree:          # quantised leaf
+        return {k: _to_tensor(v, device, None) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype, path + (k,))
                 for k, v in tree.items()}
@@ -138,7 +166,18 @@ def from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     return _convert(tree, dev, dtype)
 
 
+def _to_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    name = next((n for n, d in _FP8.items() if d == t.dtype), None)
+    if name is None:
+        return t.numpy()
+    # numpy has no fp8: ml_dtypes' types (JAX's own) hold the same bits
+    import ml_dtypes
+    return t.view(torch.uint8).numpy().view(getattr(ml_dtypes, name))
+
+
 def to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The port's param tree -> numpy leaves in the same layout: the
-    inverse of :func:`from_jax` for fp32 leaves (numpy has no bf16)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    inverse of :func:`from_jax` for fp32 leaves (numpy has no bf16) and
+    for quantised leaves (fp8 codes as ``ml_dtypes`` arrays)."""
+    return tree_map(_to_array, tree)

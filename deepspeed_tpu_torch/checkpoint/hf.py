@@ -15,7 +15,8 @@ weight bridge (``checkpoint/from_jax.py``: every leaf checked against
 the config, norms and biases kept in fp32).  :func:`from_pretrained`
 dispatches on ``model_type`` through ``module_inject/policies.py`` and
 imports ``transformers`` only for a local checkpoint path.  Mixtral's
-config and loader raise: MoE serving waits for ROADMAP Queue 1 item 11h.
+loader stacks each layer's experts into the MoE layer's ``[X, in, out]``
+leaves (``moe/layer.py``).
 
 RoPE convention: the port rotates interleaved pairs.  HF checkpoints
 store q/k rows permuted for the half-split ("rotate_half") convention,
@@ -61,6 +62,13 @@ PUBLISHED_CONFIGS = {
         num_key_value_heads=32, max_position_embeddings=4096,
         rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=2047,
         rope_scaling=None, tie_word_embeddings=False, hidden_act="silu"),
+    "mistralai/Mixtral-8x7B-v0.1": dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32,
+        num_key_value_heads=8, max_position_embeddings=32768,
+        rms_norm_eps=1e-5, rope_theta=1e6, sliding_window=None,
+        num_local_experts=8, num_experts_per_tok=2,
+        tie_word_embeddings=False, hidden_act="silu"),
 }
 
 
@@ -184,7 +192,10 @@ def llama_config_from_hf(hf_cfg) -> TransformerConfig:
         use_bias=False, dtype=torch.bfloat16)
 
 
-def _llama_tree(sd: Dict[str, np.ndarray], cfg: TransformerConfig) -> Tree:
+def _llama_tree(sd: Dict[str, np.ndarray], cfg: TransformerConfig,
+                skip_mlp: bool = False) -> Tree:
+    """``skip_mlp``: leave the mlp block out (Mixtral fills it with its
+    experts)."""
     E = cfg.hidden_size
     H, K, D = cfg.num_heads, cfg.kv_heads, cfg.dims_per_head
     layers = []
@@ -192,7 +203,7 @@ def _llama_tree(sd: Dict[str, np.ndarray], cfg: TransformerConfig) -> Tree:
         p = f"model.layers.{i}."
         wq = _unpermute_rope(_key(sd, p + "self_attn.q_proj.weight"), H, D)
         wk = _unpermute_rope(_key(sd, p + "self_attn.k_proj.weight"), K, D)
-        layers.append({
+        layer = {
             "attn": {
                 "wq": wq.T.reshape(E, H, D),
                 "wk": wk.T.reshape(E, K, D),
@@ -201,14 +212,16 @@ def _llama_tree(sd: Dict[str, np.ndarray], cfg: TransformerConfig) -> Tree:
                 "wo": _key(sd, p + "self_attn.o_proj.weight").T.reshape(
                     H, D, E),
             },
-            "mlp": {
+            "norm1": {"scale": _key(sd, p + "input_layernorm.weight")},
+            "norm2": {"scale": _key(sd, p + "post_attention_layernorm.weight")},
+        }
+        if not skip_mlp:
+            layer["mlp"] = {
                 "wg": _key(sd, p + "mlp.gate_proj.weight").T,
                 "wi": _key(sd, p + "mlp.up_proj.weight").T,
                 "wo": _key(sd, p + "mlp.down_proj.weight").T,
-            },
-            "norm1": {"scale": _key(sd, p + "input_layernorm.weight")},
-            "norm2": {"scale": _key(sd, p + "post_attention_layernorm.weight")},
-        })
+            }
+        layers.append(layer)
     params = {
         "embed": {"tokens": _key(sd, "model.embed_tokens.weight")},
         "layers": _layers(cfg, layers),
@@ -252,20 +265,47 @@ def load_qwen2(state_dict: Dict[str, Any], cfg: TransformerConfig,
     return _to_port(params, cfg, dtype, device)
 
 
-def _moe_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: MoE serving is not in the port yet (ROADMAP Queue 1 "
-        f"item 11h)")
-
-
 def mixtral_config_from_hf(hf_cfg) -> TransformerConfig:
-    raise _moe_not_ported("mixtral_config_from_hf")
+    """Llama geometry plus the experts: ``num_local_experts`` and
+    ``num_experts_per_tok``."""
+    return dataclasses.replace(
+        llama_config_from_hf(hf_cfg),
+        moe_num_experts=hf_cfg.num_local_experts,
+        moe_top_k=hf_cfg.num_experts_per_tok)
 
 
 def load_mixtral(state_dict: Dict[str, Any], cfg: TransformerConfig,
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None) -> Tree:
-    raise _moe_not_ported("load_mixtral")
+    """HF Mixtral state dict -> param tree with the stacked-expert MoE
+    mlp (reference ``model_implementations/mixtral/model.py``): HF's
+    ``w1`` (gate), ``w3`` (up) and ``w2`` (down) of each expert
+    transposed into the ``[X, in, out]`` leaves ``wg``, ``wi``, ``wo``;
+    the router ``gate.weight`` [X, E] into ``gate`` [E, X]."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    params = _llama_tree(sd, cfg, skip_mlp=True)
+    n_experts = 0
+    while f"model.layers.0.block_sparse_moe.experts.{n_experts}.w1.weight" \
+            in sd:
+        n_experts += 1
+    if n_experts == 0:
+        raise KeyError("no block_sparse_moe experts in checkpoint")
+    moe_layers = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}.block_sparse_moe."
+
+        def experts(w, _p=p):
+            return np.stack([sd[_p + f"experts.{e}.{w}.weight"].T
+                             for e in range(n_experts)])
+        moe_layers.append({"gate": sd[p + "gate.weight"].T,
+                           "wg": experts("w1"), "wi": experts("w3"),
+                           "wo": experts("w2")})
+    if cfg.scan_layers:
+        params["layers"]["mlp"] = _stack(moe_layers)
+    else:
+        for i, mlp in enumerate(moe_layers):
+            params["layers"][f"layer_{i}"]["mlp"] = mlp
+    return _to_port(params, cfg, dtype, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Ragged (FastGen-style) serving: counterpart of
 ``deepspeed_tpu/inference/v2``."""
 
-from .config import (KVCacheUserConfig, RaggedInferenceEngineConfig,
-                     ServingOptimizationConfig, StateManagerConfig,
-                     TelemetryConfig)
+from .config import (KVCacheUserConfig, QuantizationConfig,
+                     RaggedInferenceEngineConfig, ServingOptimizationConfig,
+                     StateManagerConfig, TelemetryConfig)
 from .engine import InferenceEngineV2, SchedulingError, SchedulingResult
 from .factory import build_hf_engine
 from .lattice import BucketLattice, LatticeError, resolve_lattice
@@ -18,7 +18,7 @@ from .snapshot import SnapshotError
 from .spec import ModelDrafter, NgramDrafter
 
 __all__ = [
-    "KVCacheUserConfig", "RaggedInferenceEngineConfig",
+    "KVCacheUserConfig", "QuantizationConfig", "RaggedInferenceEngineConfig",
     "ServingOptimizationConfig", "StateManagerConfig", "TelemetryConfig",
     "BucketLattice", "LatticeError", "resolve_lattice", "InferenceEngineV2", "SchedulingError", "SchedulingResult",
     "RaggedInferenceModel", "BlockedAllocator", "KVAllocationError",

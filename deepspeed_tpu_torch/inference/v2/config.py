@@ -24,7 +24,10 @@ a prefill and a decode engine (``serving.DisaggPool``).  ``tp_degree`` stays at 
 cache geometry
 is the model's ``kv_config`` when the model was given one, else
 :class:`KVCacheUserConfig`'s, whose ``num_pages=None`` sizes the pool
-from free device memory.
+from free device memory.  :class:`QuantizationConfig` turns on
+weight-only quantised serving (fp8, fp6, fp4 or int8 weights), and
+:meth:`RaggedInferenceEngineConfig.from_dict` reads the JAX package's
+dict form.
 """
 
 from __future__ import annotations
@@ -51,6 +54,17 @@ class KVCacheUserConfig:
     #: memory holds (on the CPU, which reports none, the model's default)
     num_pages: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16
+
+
+@dataclasses.dataclass
+class QuantizationConfig:
+    """Weight-only quantised serving (reference v2 core_ops FP6/FP8
+    quantized GEMM + ``quantization_mode``): with ``enabled`` the engine
+    quantises the model's projection weights channelwise into ``fmt``
+    (``RaggedInferenceModel.quantize_weights``) before it sizes the KV
+    pool."""
+    enabled: bool = False
+    fmt: str = "fp8_e4m3"   # fp8_e4m3|fp8_e5m2|fp6_e3m2|fp6_e2m3|fp4_e2m1|int8
 
 
 # flag -> (the one value the port runs, ROADMAP Queue 1 item)
@@ -244,7 +258,50 @@ class RaggedInferenceEngineConfig:
         default_factory=StateManagerConfig)
     kv_cache: KVCacheUserConfig = dataclasses.field(
         default_factory=KVCacheUserConfig)
+    quantization: QuantizationConfig = dataclasses.field(
+        default_factory=QuantizationConfig)
     serving: ServingOptimizationConfig = dataclasses.field(
         default_factory=ServingOptimizationConfig)
     telemetry: TelemetryConfig = dataclasses.field(
         default_factory=TelemetryConfig)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RaggedInferenceEngineConfig":
+        """The JAX package's dict form: ``state_manager``, ``kv_cache``,
+        ``quantization``, ``serving_optimization`` (``enabled: false``
+        turns the fused step, on-device sampling, the async chain and
+        prefix caching off) and ``telemetry``; unknown keys inside a
+        block are ignored, as in JAX.  The ``fault_injection`` block and
+        ``tensor_parallel.tp_size`` other than 1 raise, naming their
+        ROADMAP items."""
+        cfg = cls()
+        for block, target in (("state_manager", cfg.state_manager),
+                              ("kv_cache", cfg.kv_cache),
+                              ("quantization", cfg.quantization)):
+            for k, v in d.get(block, {}).items():
+                if hasattr(target, k):
+                    setattr(target, k, v)
+        srv = d.get("serving_optimization", {})
+        if not srv.get("enabled", True):
+            # the master escape hatch wins over individual flags
+            cfg.serving = ServingOptimizationConfig(
+                fused_step=False, on_device_sampling=False,
+                async_scheduling=False, prefix_caching=False)
+        else:
+            for k, v in srv.items():
+                if hasattr(cfg.serving, k):
+                    setattr(cfg.serving, k, v)
+        for k, v in d.get("telemetry", {}).items():
+            if hasattr(cfg.telemetry, k):
+                setattr(cfg.telemetry, k, v)
+        cfg.serving.validate()
+        cfg.telemetry.validate()
+        if d.get("fault_injection"):
+            raise NotImplementedError(
+                "the engine config's fault_injection block is not ported "
+                "yet (ROADMAP Queue 1 item 12b)")
+        if d.get("tensor_parallel", {}).get("tp_size", 1) != 1:
+            raise NotImplementedError(
+                "tensor_parallel.tp_size other than 1 is not ported yet "
+                "(ROADMAP Queue 1 item 13)")
+        return cfg

@@ -37,7 +37,9 @@ kernel libraries are built and loaded (``compile_cache.py``).  For the
 serving fleet (``serving/``): ``export_digests`` is a replica's prefix
 affinity hint, ``export_prefix`` / ``import_prefix`` move a digest
 chain's pages between two engines, and ``precompile(kinds=...)`` shrinks
-the lattice to a disaggregated role's keys.
+the lattice to a disaggregated role's keys.  With
+``quantization.enabled`` the engine quantises the model's projection
+weights into ``quantization.fmt`` before it sizes the KV pool.
 """
 
 from __future__ import annotations
@@ -168,6 +170,11 @@ class InferenceEngineV2:
         want = int(sv.spec_draft_layers or 0)
         self._draft_layers = ((min(want, L) if want > 0 else L)
                               if self._draft_enabled else 0)
+        if self._config.quantization.enabled:
+            # weight-only quantisation before the KV pool is sized, so
+            # the freed bytes become pages (rewrites model.params in
+            # place; a no-op when the model already has this format)
+            model.quantize_weights(self._config.quantization.fmt)
         model.kv_config = self._resolve_kv_config(model)
         # keyed sampling changes the inputs of every sampling step, so it
         # is fixed here, before any capture; graphs captured for an

@@ -25,7 +25,10 @@ def build_hf_engine(model_or_path: Any,
     Arch dispatch is two-stage, as in the JAX package: the policy table
     (``module_inject/policies.py``) maps the config and the weights (cast
     to ``dtype``, bf16 by default), then ``implementation_for`` picks the
-    family's model class, which checks the family's invariants."""
+    family's model class, which checks the family's invariants (Mixtral
+    included: its MoE mlp self-wires from ``cfg.moe_num_experts``).
+    ``engine_config.quantization`` quantises the weights at engine build,
+    before the KV pool is sized."""
     hf_model = load_hf_model(model_or_path)
     cfg, params = from_pretrained(hf_model, dtype=dtype or torch.bfloat16,
                                   device=device)

@@ -20,7 +20,12 @@ of the shared generator; its graphs are captured over those inputs and
 draw nothing from a generator.  Attention,
 norm, embedding and unembedding come from the ``modules`` registry: on
 the card the hand-written kernels (a model they do not take raises), on
-the CPU or when named the plain versions.
+the CPU or when named the plain versions.  A config with
+``moe_num_experts > 0`` (Mixtral) routes each layer's mlp through the
+MoE layer (``moe/layer.py``, dropless), and ``quantize_weights`` turns
+the projection weights into channelwise fp8 / fp6 / fp4 / int8 leaves,
+which each step dequantises as it reads them (the dequantise kernel on
+the card).
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ import torch
 
 from ...accelerator import DeviceLike, resolve_device
 from ...models import transformer as T
+from ...moe.layer import MoEConfig, moe_forward
 from ...telemetry import metrics as tm
 from ...telemetry.workload_trace import get_workload_trace
+from ...ops.fp_quantizer import SUPPORTED_FORMATS, quantize_channelwise
 from ...ops.kernel_loader import CountedGraph
 from ...ops.paged_attention import (KVLayer, rope_write_kv, token_positions,
                                     write_kv)
@@ -188,6 +195,30 @@ class _StepGraph:
         return None if out is None else out.clone()
 
 
+def quantize_layer_weights(layer: Dict[str, Any], fmt: str,
+                           batch_dims: int = 0) -> Dict[str, Any]:
+    """One layer's sub-tree (with ``batch_dims`` leading dims: 1 for a
+    scan-stacked tree) with its ``attn`` and ``mlp`` ``w*`` matrices
+    quantised channelwise into ``fmt`` (JAX ``quantize_weights``'
+    ``q_block``): attention with scales per layer, the mlp with every
+    dim before its ``[in, out]`` matrix kept (``per_leaf``: one expert's
+    outlier must not coarsen the others).  Other leaves, and leaves
+    already quantised, are returned as they are."""
+    def q_block(block, per_leaf=False):
+        out = {}
+        for k, v in block.items():
+            if (k.startswith("w") and isinstance(v, torch.Tensor)
+                    and v.dim() >= 2 + batch_dims):
+                bd = v.dim() - 2 if per_leaf else batch_dims
+                out[k] = quantize_channelwise(v, fmt, batch_dims=bd)
+            else:
+                out[k] = v
+        return out
+
+    return dict(layer, attn=q_block(layer["attn"]),
+                mlp=q_block(layer["mlp"], per_leaf=True))
+
+
 class RaggedInferenceModel:
     """Ragged step over (params, kv cache, batch arrays), one CUDA graph
     per step key on the card.
@@ -209,6 +240,15 @@ class RaggedInferenceModel:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_map(lambda t: t.to(self.device), params)
+        #: the routed MoE mlp of every layer (mixtral), None for the dense
+        #: block; drop_tokens=False: serving must not drop capacity-overflow
+        #: tokens
+        self.moe_cfg: Optional[MoEConfig] = (
+            MoEConfig(num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+                      activation=cfg.activation, drop_tokens=False)
+            if cfg.moe_num_experts > 0 else None)
+        #: the weight-only format ``quantize_weights`` applied (None: none)
+        self.quantized_fmt: Optional[str] = None
         names = dict(implementations or {})
         unknown = set(names) - set(OP_CLASSES)
         if unknown:
@@ -276,6 +316,41 @@ class RaggedInferenceModel:
         self._bytes_dispatched = 0.0
         self._cost_t0: Optional[float] = None
         self._cost_gauges_bound = False
+        self._weight_numel, self._weight_bytes = self._count_weights()
+
+    # -- weight-only quantization --------------------------------------------
+    def quantize_weights(self, fmt: str = "fp8_e4m3") -> None:
+        """Quantize the per-layer projection weights channelwise into
+        ``fmt`` storage (JAX ``model.py:210-262``; reference inference v2
+        core_ops quantized GEMM): the ``w*`` leaves of each layer's
+        ``attn`` and ``mlp`` (:func:`quantize_layer_weights`).  Norms,
+        biases, the router ``gate``, embeddings and the lm head stay at
+        full precision; leaves already quantised pass through.
+
+        Rewrites ``self.params``; the same ``fmt`` again is a no-op,
+        another raises, and an unknown one raises before anything
+        changes.  Every captured step graph and the step cache are
+        dropped: a graph captured over the full-precision leaves would
+        replay against freed memory."""
+        if fmt not in SUPPORTED_FORMATS:
+            raise ValueError(f"unknown quantization format {fmt!r} "
+                             f"(supported: {sorted(SUPPORTED_FORMATS)})")
+        if self.quantized_fmt is not None:
+            if self.quantized_fmt != fmt:
+                raise ValueError(
+                    f"model already quantized as {self.quantized_fmt!r}; "
+                    f"cannot re-quantize as {fmt!r}")
+            return
+        layers = self.params["layers"]
+        if self.cfg.scan_layers:        # the leading layers dim: per-layer
+            layers = quantize_layer_weights(layers, fmt, batch_dims=1)
+        else:
+            layers = {k: quantize_layer_weights(lp, fmt, batch_dims=0)
+                      for k, lp in layers.items()}
+        self.params = dict(self.params, layers=layers)
+        self.quantized_fmt = fmt
+        self._step_cache.clear()
+        self._program_costs.clear()
         self._weight_numel, self._weight_bytes = self._count_weights()
 
     # -- public steps --------------------------------------------------------
@@ -948,11 +1023,18 @@ class RaggedInferenceModel:
             out = out + ap["bo"].to(dtype)
         if cfg.parallel_residual:
             h2 = self._norm(lp["norm2"], x)
-            return x + out.to(x.dtype) + T._mlp_block(cfg, lp["mlp"],
-                                                      h2).to(x.dtype)
+            return x + out.to(x.dtype) + self._mlp(cfg, lp["mlp"],
+                                                   h2).to(x.dtype)
         x = x + out.to(x.dtype)
         h = self._norm(lp["norm2"], x)
-        return x + T._mlp_block(cfg, lp["mlp"], h).to(x.dtype)
+        return x + self._mlp(cfg, lp["mlp"], h).to(x.dtype)
+
+    def _mlp(self, cfg, p, h) -> torch.Tensor:
+        """The layer's mlp: the dense block, or the MoE layer, whose aux
+        loss serving drops, as JAX does."""
+        if self.moe_cfg is None:
+            return T._mlp_block(cfg, p, h)
+        return moe_forward(self.moe_cfg, p, h, is_training=False)[0]
 
     # -- KV requirements (engine contract) ----------------------------------
     def get_kv_requirements(self, seen_tokens: int, allocated_pages: int,

@@ -40,14 +40,13 @@ class MistralInferenceModel(LlamaV2InferenceModel):
 
 
 class MixtralInferenceModel(RaggedInferenceModel):
-    """Mistral attention + block-sparse MoE.  The port's config has no
-    expert fields yet (MoE serving is not ported), so this class cannot
-    be constructed: it raises as the JAX class does for a checkpoint
-    mapped without experts."""
+    """Mistral attention + block-sparse MoE: the routed mlp self-wires
+    from ``cfg.moe_num_experts`` (``moe/layer.py``, dropless top-k); a
+    checkpoint mapped without experts raises, as in the JAX class."""
     MODEL_TYPES = ("mixtral",)
 
     def __init__(self, cfg, params, **kw):
-        _expect(getattr(cfg, "moe_num_experts", 0) > 1,
+        _expect(cfg.moe_num_experts > 1,
                 "mixtral checkpoint mapped without experts — wrong policy?")
         super().__init__(cfg, params, **kw)
 

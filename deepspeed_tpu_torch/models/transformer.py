@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import DeviceLike, resolve_device
 from ..ops.flash_attention import BWD_HEAD_DIMS, flash_attention
+from ..ops.fp_quantizer import dequantize_channelwise
 from ..runtime.config import outside_slice
 from ..tree import tree_map
 
@@ -68,6 +69,10 @@ class TransformerConfig:
     sliding_window: Optional[int] = None
     qkv_bias: bool = False
     parallel_residual: bool = False
+    # MoE geometry (mixtral): >0 means the mlp block holds stacked expert
+    # weights, and the serving model routes it through moe_forward
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
     tie_embeddings: bool = False
     use_bias: bool = False
     scan_layers: bool = True
@@ -196,8 +201,14 @@ def layer_params(cfg: TransformerConfig, params, i: int):
 # forward blocks
 # ---------------------------------------------------------------------------
 
-def _wval(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Weight leaf -> compute dtype (no copy when it already matches)."""
+def _wval(p, dtype: torch.dtype) -> torch.Tensor:
+    """Weight leaf -> compute dtype (no copy when it already matches).
+    A channel-quantised leaf (``{"q", "scale"}`` from
+    ``ops/fp_quantizer.quantize_channelwise``) is dequantised as JAX
+    ``transformer.py:233-240`` does, ``(q.float() * scale).to(dtype)``:
+    on the card by the dequantise kernel."""
+    if isinstance(p, dict) and "q" in p:
+        return dequantize_channelwise(p, dtype)
     return p.to(dtype)
 
 

@@ -5,8 +5,8 @@ Counterpart of ``deepspeed_tpu/module_inject/policies.py``: the same
 model types grouped the same way, and the same unknown-architecture
 error.  Only the dispatch table is ported: the kernels a model runs come
 from the serving registry (``inference/v2/modules.py``), not from module
-replacement.  Mixtral resolves, and its converter raises (MoE serving,
-ROADMAP Queue 1 item 11h).
+replacement.  Mixtral's pair gives the MoE config and the stacked-expert
+tree that the serving model routes through ``moe/layer.py``.
 """
 
 from __future__ import annotations

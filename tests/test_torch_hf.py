@@ -198,7 +198,7 @@ def test_published_configs_equal_jax_at_their_head_dims(name):
 
 def test_config_refusals_match_jax():
     """The same published variants are refused with ValueError, and
-    Mixtral names the item it waits for."""
+    both packages build the same Mixtral config."""
     bad = [("falcon_config_from_hf", dict(FALCON_7B, alibi=True)),
            ("falcon_config_from_hf", dict(FALCON_7B, bias=True)),
            ("phi_config_from_hf", dict(PHI_2, qk_layernorm=True)),
@@ -213,10 +213,10 @@ def test_config_refusals_match_jax():
         for mod in (thf, jhf):
             with pytest.raises(ValueError):
                 getattr(mod, fn)(types.SimpleNamespace(**fields))
-    with pytest.raises(NotImplementedError, match="item 11h"):
-        thf.mixtral_config_from_hf(types.SimpleNamespace())
-    with pytest.raises(NotImplementedError, match="item 11h"):
-        thf.load_mixtral({}, None)
+    mixtral = types.SimpleNamespace(
+        **thf.PUBLISHED_CONFIGS["mistralai/Mixtral-8x7B-v0.1"])
+    _same_fields(thf.mixtral_config_from_hf(mixtral),
+                 jhf.mixtral_config_from_hf(mixtral))
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@ the plain path rounds scores and probabilities to bf16.  The AdamW,
 Lion and LAMB kernels are fp32 throughout and are held to 1e-6 of each
 buffer's largest value as well (an ulp or two from fused multiply-adds;
 Lion's signs must agree on every element, LAMB's norms within 1e-5 and
-its stepped p within 1e-5).  The blockwise quantisation kernels are held
-to bit-equality with their plain versions.
+its stepped p within 1e-5).  The blockwise quantisation kernels and the
+channelwise dequantise kernel are held to bit-equality with their plain
+versions.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from deepspeed_tpu_torch.ops import fp_quantizer as tfq
 from deepspeed_tpu_torch.ops import fused_optimizer as tfo
 from deepspeed_tpu_torch.ops import normalization as tnorm
 from deepspeed_tpu_torch.ops import paged_attention as tpa
@@ -2156,3 +2158,97 @@ def test_attention_kernels_refuse_head_dim_112(cuda_device):
         with pytest.raises(RuntimeError, match="CUDA error"):
             tfa.BWD_KERNEL.launch(fn, *fn_args)
     assert tfa.BWD_KERNEL.launches_by_fn == before
+
+
+# ---------------------------------------------------------------------------
+# the channelwise dequantise kernel (weight-only quantised serving)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "fp8_e5m2", "int8", "fp4_e2m1"])
+@pytest.mark.parametrize("shape,batch_dims", [
+    ((8, 512, 1792), 1),          # Mixtral's expert leaf at an eighth
+    ((2, 4, 256, 448), 2),        # stacked over layers, per expert
+    ((4096, 32, 128), 0),         # an attention wq, per channel
+    ((32, 128, 4096), 0),         # an attention wo
+    ((48, 32), 1),                # no reduced dim
+])
+def test_fp_dequant_kernel_matches_plain_bit_for_bit(cuda_device, fmt, shape,
+                                                     batch_dims):
+    g = torch.Generator(device=cuda_device).manual_seed(len(shape))
+    w = torch.randn(shape, generator=g, device=cuda_device)
+    w[0] *= 30.0                                  # an outlier slice
+    leaf = tfq.quantize_channelwise(w, fmt, batch_dims)
+    before = tfq.KERNEL.launches
+    out = tfq.dequantize_channelwise(leaf)
+    torch.cuda.synchronize()
+    assert tfq.KERNEL.launches == before + 1
+    ref = tfq.dequantize_channelwise_reference(leaf)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_fp_dequant_kernel_refuses_what_it_does_not_take(cuda_device):
+    from deepspeed_tpu_torch.ops.kernel_loader import stream_of
+    w = torch.randn(8, 64, 32, device=cuda_device)
+    leaf = tfq.quantize_channelwise(w, "fp8_e4m3", 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfq.dequantize_channelwise(leaf, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tfq.dequantize_channelwise(tfq.quantize_channelwise(
+            torch.randn(8, 64, 24, device=cuda_device), "int8", 1))
+    strided = leaf["q"].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfq.dequantize_channelwise({"q": strided, "scale": leaf["scale"]})
+    before = tfq.KERNEL.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tfq.KERNEL.launch("fp_dequant_e4m3_bf16", leaf["q"].data_ptr(),
+                          leaf["scale"].data_ptr(),
+                          torch.empty(w.shape, dtype=torch.bfloat16,
+                                      device=cuda_device).data_ptr(),
+                          w.numel(), 24, 64 * 24, stream_of(w))
+    assert tfq.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_quantised_moe_model_serves_on_the_card(cuda_device):
+    """A small Mixtral at head_dim 64 (the paged kernels' width) with fp8
+    weights: every step a graph replay through the dequantise kernel, and
+    the same greedy tokens as its eager bodies."""
+    from deepspeed_tpu_torch.inference import v2 as T
+    from deepspeed_tpu_torch.models.mixtral import mixtral_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.moe.layer import MoEConfig, init_moe_params
+    cfg = mixtral_config("tiny", hidden_size=256, num_heads=4,
+                         num_kv_heads=2, num_layers=2, moe_num_experts=4,
+                         moe_top_k=2)
+    params = init_params(cfg, 0, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    params["layers"]["mlp"] = {
+        k: torch.stack([v, v]) for k, v in init_moe_params(
+            MoEConfig(num_experts=4), 256, 256, gen, torch.bfloat16,
+            cuda_device).items()}
+    conf = T.RaggedInferenceEngineConfig.from_dict(
+        {"quantization": {"enabled": True, "fmt": "fp8_e4m3"},
+         "kv_cache": {"num_pages": 32}})
+    engine = T.InferenceEngineV2(T.implementation_for("mixtral")(
+        cfg, params, device=cuda_device), conf)
+    assert engine.model.params["layers"]["mlp"]["wi"]["q"].dtype == \
+        torch.float8_e4m3fn
+    prompts = [[1, 5, 9, 2, 17, 33], [3, 4, 8]]
+    before = tfq.KERNEL.launches
+    graphs = T.generate(engine, prompts, T.SamplingParams(max_new_tokens=6))
+    assert tfq.KERNEL.launches > before
+    model = engine.model
+
+    def eager(key, kv, generator, inputs):
+        return model._call(key, kv, generator, *(
+            torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+            if isinstance(a, np.ndarray) else a for a in inputs))
+    engine.reset_prefix_cache()
+    model._dispatch = eager
+    try:
+        assert T.generate(engine, prompts,
+                          T.SamplingParams(max_new_tokens=6)) == graphs
+    finally:
+        del model._dispatch
