@@ -183,6 +183,26 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    GB/s (cold and warm) against a pinned ``copy_``, decode ms and
    tokens/s beside phase 4's, graphs per role, the ``ds_disagg_*``
    counters;
+6l. the fleet's subprocess mode: two replica processes
+   (``python -m deepspeed_tpu_torch.tools.fleet_replica --model 7b``,
+   spawned by ``fleetctl.ReplicaProc``), each Llama-2-7B at full width
+   and depth in bf16 from phase 4's seed over 128 pages of 64 tokens,
+   loading phase 2's libraries, serving two rounds of 8 greedy requests
+   (4 on a 1024-token prefix with 64-256-token tails, 4 cold of
+   128-1024 tokens, 64 new): seconds to ready and to the first token,
+   decode ms, tokens/s and each kernel's launches per child (paged
+   attention, RMSNorm and the flash forward > 0); each child's
+   ``/snapshot?digests=1`` equal to its ``export_digests``, a warm
+   request routed to the digest holder, the federated TTFT buckets the
+   sum of the children's, ``ds_fleet_replicas_live`` 2, the ms of a
+   scrape; a latency objective that must page and a capacity objective
+   over the merged ring, each child's ``/memory`` breakdown; r1 again
+   under ``DS_CHAOS="serving.preempt:at=40"``: exit 17, flagged stale
+   within ``stale_after_s`` plus a scrape, the route stays on r0; then
+   telemetry's cost in this process: phase 4's traffic in turns with
+   telemetry off and on (watchdog, time series at 0.1 s, the ledger's
+   tick, the metrics server scraped every 50 ms, also while the warm-up
+   pass captures), decode ms and tokens/s, no capture in a timed pass;
 7. the same weights with the registry pinned to the plain versions:
    ten teacher-forced serving steps of 3 requests on the eager forward
    (fresh prefill, decode, and two mixed steps, one with a Q=1024 prefill
@@ -4465,6 +4485,386 @@ def disagg_phase(cfg, params, counters, card, phase4):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6l: the fleet's subprocess mode and the cost of telemetry
+# ---------------------------------------------------------------------------
+
+FLEET_PROC_PAGES = 128         # each replica process: 4.29 GB of pages
+FLEET_PROC_PAGE = 64
+FLEET_PROC_ROUNDS = 2
+FLEET_PROC_STALE_S = 2.0       # the federation's stale_after_s
+FLEET_PROC_KILL_AT = 40        # r1's restart dies at its 40th step
+#: the arguments of both replica processes: Llama-2-7B at full width and
+#: depth (weights from phase 4's seed), 8 greedy requests a round (4 on a
+#: 1024-token prefix with 64-256-token tails, 4 cold of 128-1024 tokens),
+#: 64 new tokens each
+FLEET_PROC_ARGS = ["--model", "7b", "--device", "cuda", "--seed", str(SEED),
+                   "--page-size", str(FLEET_PROC_PAGE),
+                   "--num-pages", str(FLEET_PROC_PAGES),
+                   "--requests", "8", "--shared-prefix", str(FLEET_PREFIX),
+                   "--max-new", "64", "--token-budget", "2048",
+                   "--rounds", str(FLEET_PROC_ROUNDS), "--linger-s", "900"]
+#: the workload seed of each replica: two different shared prefixes
+FLEET_PROC_WORKLOAD = {"r0": SEED + 31, "r1": SEED + 32}
+
+
+def _median_ms(fn, n=5):
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _child_launches(counters, child) -> dict:
+    """A replica's launches (``{source: {entry point: n}}``) by kernel
+    name, as ``read_launches`` reads the parent's."""
+    out = {}
+    for name, (k, fns) in counters.items():
+        by_fn = child.get(k.source.name, {})
+        out[name] = sum(by_fn.get(fn, 0) for fn in (fns or by_fn))
+    return out
+
+
+def fleet_proc_phase(counters, card, cache_dir):
+    """Phase 6l (a)-(d): two replica processes on the card
+    (``python -m deepspeed_tpu_torch.tools.fleet_replica``, spawned by
+    ``fleetctl.ReplicaProc``), each Llama-2-7B at full width and depth in
+    bf16 over 128 pages of 64 tokens, loading phase 2's kernel libraries
+    (``DS_COMPILE_CACHE``, no ``nvcc``).  (a) Each serves
+    ``FLEET_PROC_ROUNDS`` rounds of 8 greedy requests and reports the
+    seconds from its spawn to ready and to its first token, its decode
+    median ms and tokens/s (the rounds after the first) and its kernel
+    launches: paged attention, RMSNorm and the flash forward each > 0.
+    (b) ``fetch_remote_hints`` of each equals the digests it printed; a
+    warm request on r0's prefix is routed to r0 by a
+    ``PrefixAffinityRouter`` over both; the federation's merged
+    ``ds_fastgen_ttft_ms`` buckets equal the sum of the two raw
+    snapshots at one scrape after both are done, every merged counter
+    the sum of its parts, ``ds_fleet_replicas_live`` 2; the ms of one
+    ``/snapshot?raw=1`` scrape and of one ``fetch_remote_hints``.  (c) A
+    ``TimeSeries`` over the federation's merged view, sampled after
+    each round of both replicas, judged by a latency objective on
+    ``ds_fastgen_ttft_ms`` at 1 ms (below every TTFT, so it must page)
+    and a capacity objective on ``ds_mem_headroom_seqs``; each
+    replica's ``/memory`` breakdown.  (d) r1 started again under
+    ``DS_CHAOS="serving.preempt:at=40"`` exits with status 17, is
+    flagged stale within ``stale_after_s`` plus one scrape interval,
+    r0 stays up and keeps the route.  Every child is reaped.  Returns
+    (summary, launches by child)."""
+    import os
+    import urllib.request
+    from deepspeed_tpu_torch.serving import (PrefixAffinityRouter,
+                                             fetch_remote_hints)
+    import numpy as np
+    from deepspeed_tpu_torch.telemetry import federation
+    from deepspeed_tpu_torch.telemetry import metrics as tm
+    from deepspeed_tpu_torch.telemetry.slo import SLOEvaluator
+    from deepspeed_tpu_torch.telemetry.timeseries import TimeSeries
+    from deepspeed_tpu_torch.tools import fleetctl
+    from deepspeed_tpu_torch.models.llama import llama_config
+    from deepspeed_tpu_torch.tools.fleet_replica import (
+        EXIT_PREEMPTED, HINT_TOP_K, synthetic_workload)
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "fleet_proc")
+    os.makedirs(log_dir, exist_ok=True)
+    env = {"DS_COMPILE_CACHE": os.path.dirname(cache_dir), "DS_CHAOS": ""}
+
+    def spawn(label, chaos=""):
+        return fleetctl.ReplicaProc(
+            label, FLEET_PROC_ARGS + ["--workload-seed",
+                                      str(FLEET_PROC_WORKLOAD[label])],
+            dict(env, DS_CHAOS=chaos),
+            log_path=os.path.join(
+                log_dir, f"{label}{'_chaos' if chaos else ''}.log"))
+
+    def child_log(rep):
+        path = os.path.join(log_dir, f"{rep.label}.log")
+        try:
+            with open(path) as f:
+                return f.read()[-3000:]
+        except OSError:
+            return ""
+
+    t_phase = time.perf_counter()
+    reps = {lb: spawn(lb) for lb in ("r0", "r1")}
+    try:
+        ports = {}
+        for lb, rep in reps.items():
+            try:
+                ports[lb] = rep.port(timeout=300.0)
+            except RuntimeError as e:
+                raise RuntimeError(f"{e}\n{child_log(rep)}") from None
+        fed = fleetctl._federation(sorted(ports.items()),
+                                   stale_after_s=FLEET_PROC_STALE_S)
+        ts = TimeSeries(source=fed.merged_raw)
+        ts.configure(interval_s=1.0, retention_s=3600.0)
+        ev = SLOEvaluator()
+        ev.configure([
+            {"name": "ttft", "kind": "latency", "hist": "ds_fastgen_ttft_ms",
+             "threshold_ms": 1.0, "fast_window_s": 600.0,
+             "slow_window_s": 1200.0},
+            {"name": "capacity", "kind": "capacity",
+             "min_headroom_seqs": 4, "fast_window_s": 600.0,
+             "slow_window_s": 1200.0}])
+        ev.attach(timeseries=ts, federation=fed)
+        ts.sample_now()
+        statuses = [{v["objective"]: v["status"]
+                     for v in ev.current()["objectives"].values()}]
+        for rnd in range(FLEET_PROC_ROUNDS):
+            for lb, rep in reps.items():
+                if rep.wait_line(f"round={rnd} done", 600.0) is None:
+                    raise RuntimeError(
+                        f"replica {lb} never finished round {rnd} "
+                        f"(exit {rep.proc.poll()}):\n{child_log(rep)}")
+            ts.sample_now()
+            statuses.append({v["objective"]: v["status"]
+                             for v in ev.current()["objectives"].values()})
+        for lb, rep in reps.items():
+            if rep.wait_line("FLEET_REPLICA done", 120.0) is None:
+                raise RuntimeError(f"replica {lb} never finished")
+        stats = {lb: rep.report("stats") for lb, rep in reps.items()}
+        digests = {lb: rep.report("digests") for lb, rep in reps.items()}
+        launches = {lb: _child_launches(counters, s["launches"])
+                    for lb, s in stats.items()}
+        children = {}
+        for lb, s in stats.items():
+            children[lb] = dict(
+                ready_s=s["ready_unix"] - reps[lb].spawn_unix,
+                first_token_s=s["first_token_unix"] - reps[lb].spawn_unix,
+                decode_ms_median=s["decode_ms_median"],
+                decode_steps=s["decode_steps"], tok_s=s["tok_s"],
+                path_captures=s["path_captures"],
+                launches={k: n for k, n in launches[lb].items() if n})
+            for name in ("paged_attention", "rmsnorm", "flash_fwd"):
+                if not launches[lb][name]:
+                    raise RuntimeError(f"replica {lb}: {name} never "
+                                       f"launched: {launches[lb]}")
+        # (b) hints, the route and the exact merge
+        router = PrefixAffinityRouter(FLEET_PROC_PAGE, top_k=HINT_TOP_K)
+        for lb, port in ports.items():
+            hint = fetch_remote_hints(f"127.0.0.1:{port}",
+                                      top_k=HINT_TOP_K)
+            if hint["digests"] != digests[lb] or not digests[lb]:
+                raise RuntimeError(f"replica {lb}: /snapshot?digests=1 "
+                                   "differs from its export_digests")
+            router.publish(lb, hint["digests"])
+        vocab = llama_config("7b").vocab_size
+        warm_prompt = synthetic_workload(
+            vocab, 8, 0, FLEET_PREFIX, FLEET_PROC_WORKLOAD["r0"], 64)[0][0]
+        warm = np.asarray(warm_prompt[:FLEET_PREFIX] + list(range(7, 107)))
+        route = router.decide(warm, {"r0": 0, "r1": 0})
+        if (route.label, route.matched_pages) \
+                != ("r0", FLEET_PREFIX // FLEET_PROC_PAGE):
+            raise RuntimeError(f"the warm request went to {route}")
+        parts = {lb: fleetctl.fetch_raw(port) for lb, port in ports.items()}
+        view = fed.scrape()
+        merged = view["hists"]["ds_fastgen_ttft_ms"]
+        want = [a + b for a, b in zip(*(parts[lb]["hists"][
+            "ds_fastgen_ttft_ms"]["counts"] for lb in ("r0", "r1")))]
+        if merged["counts"] != want or merged["count"] != sum(
+                p["hists"]["ds_fastgen_ttft_ms"]["count"]
+                for p in parts.values()):
+            raise RuntimeError("the merged TTFT histogram is not the sum "
+                               "of the replicas' buckets")
+        for name, v in view["counters"].items():
+            if v != sum(p["counters"].get(name, 0) for p in parts.values()):
+                raise RuntimeError(f"merged counter {name} is not the sum")
+        if tm.FLEET_REPLICAS_LIVE.value != 2 or view["stale"]:
+            raise RuntimeError(f"live replicas {tm.FLEET_REPLICAS_LIVE.value}")
+        ttft_count = merged["count"]
+        scrape_ms = _median_ms(lambda: fleetctl.fetch_raw(ports["r0"]))
+        hints_ms = _median_ms(lambda: fetch_remote_hints(
+            f"127.0.0.1:{ports['r0']}", top_k=HINT_TOP_K))
+        # (c) the verdicts and each replica's memory breakdown
+        ts.sample_now()
+        verdicts = ev.current()
+        statuses.append({v["objective"]: v["status"]
+                         for v in verdicts["objectives"].values()})
+        transitions = [(i, name, statuses[i - 1].get(name, "ok"), st)
+                       for i in range(1, len(statuses))
+                       for name, st in statuses[i].items()
+                       if st != statuses[i - 1].get(name, "ok")]
+        min_ttft_ms = 1e3 * min(c["first_token_s"] - c["ready_s"]
+                                for c in children.values())
+        if verdicts["objectives"]["ttft"]["status"] != "page" \
+                or min_ttft_ms <= 1.0:
+            raise RuntimeError(f"the latency objective did not page: "
+                               f"{verdicts}")
+        memory = {}
+        for lb, port in ports.items():
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/memory?json=1",
+                    timeout=5) as r:
+                doc = json.loads(r.read().decode())
+            if doc["measured_source"] != "device":
+                raise RuntimeError(f"replica {lb} measured {doc}")
+            memory[lb] = {k: doc[k] for k in (
+                "subsystems", "accounted_bytes", "device_accounted_bytes",
+                "measured_bytes", "measured_source", "unaccounted_bytes",
+                "dominant", "headroom_seqs")}
+        # (d) r1 again, killed through the fault site
+        reps["r1"].terminate()
+        reps["r1"] = spawn("r1", f"serving.preempt:at={FLEET_PROC_KILL_AT}")
+        fed.remove("r1")
+        fed.add_http("r1", f"127.0.0.1:{reps['r1'].port(timeout=300.0)}")
+        if fed.scrape()["replicas"]["r1"]["stale"]:
+            raise RuntimeError("the restarted r1 did not answer a scrape")
+        # scraped every interval while it serves, so its last good scrape
+        # is at most one interval before it dies
+        interval = 0.25
+        deadline = time.monotonic() + 600.0
+        while reps["r1"].proc.poll() is None \
+                and time.monotonic() < deadline:
+            fed.scrape()
+            time.sleep(interval)
+        code = reps["r1"].proc.wait(timeout=60)
+        t_exit = time.monotonic()
+        if code != EXIT_PREEMPTED:
+            raise RuntimeError(f"the killed r1 exited {code}, not "
+                               f"{EXIT_PREEMPTED}")
+        stale_after = None
+        while time.monotonic() - t_exit < FLEET_PROC_STALE_S + 10.0:
+            if fed.scrape()["replicas"]["r1"]["stale"]:
+                stale_after = time.monotonic() - t_exit
+                break
+            time.sleep(interval)
+        scrape_budget = (FLEET_PROC_STALE_S + interval
+                         + federation.SCRAPE_TIMEOUT_S)
+        if stale_after is None or stale_after > scrape_budget:
+            raise RuntimeError(f"r1 not flagged stale in time "
+                               f"({stale_after} s)")
+        final = fed.scrape()
+        route_after = router.decide(warm, {"r0": 0}).label
+        if reps["r0"].proc.poll() is not None or route_after != "r0" \
+                or (final["live"], final["stale"]) != (1, 1):
+            raise RuntimeError(f"after the kill: r0 exit "
+                               f"{reps['r0'].proc.poll()}, route "
+                               f"{route_after}, view {final['live']} live")
+    finally:
+        for rep in reps.values():
+            rep.terminate()
+    res = dict(card=card, children=children, route=route.label,
+               matched_pages=route.matched_pages,
+               merged_ttft_count=ttft_count, scrape_raw_ms=scrape_ms,
+               fetch_remote_hints_ms=hints_ms,
+               slo_statuses=statuses, slo_transitions=transitions,
+               verdicts={k: {f: v[f] for f in ("status", "fast_burn",
+                                               "slow_burn", "value")}
+                         for k, v in verdicts["objectives"].items()},
+               memory=memory, killed_exit=code,
+               stale_flagged_after_s=stale_after,
+               stale_budget_s=scrape_budget, route_after_kill=route_after,
+               phase_s=time.perf_counter() - t_phase)
+    log("fleet subprocess mode:", json.dumps(res))
+    return res, launches
+
+
+def telemetry_cost_phase(cfg, params, counters, card):
+    """Phase 6l (e): phase 4's traffic in one engine of 256 pages, with
+    telemetry off and on.  A warm-up pass captures the keys with
+    telemetry on and a thread scraping ``/metrics`` every 50 ms (the
+    scrapes run beside the captures); then timed passes in turns (off,
+    on, off, on).  "On" is the watchdog, the time series sampling every
+    0.1 s (its thread and the step tick), the memory ledger's tick every
+    step, the metrics server up and the scraper running.  Reports each
+    pass's decode median ms and decode tokens/s; no timed pass captures
+    a graph, every step-cache miss is a capture, no scrape fails, and
+    the greedy requests' tokens are the same in every pass.  Returns
+    (summary, launches of the last "on" pass)."""
+    import threading
+    import urllib.request
+    import torch
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.telemetry import metrics as tm
+    engine = build_engine(cfg, params, num_pages=256)
+    model = engine.model
+    reqs = serving_requests(cfg)
+    port = telemetry.start_http_server(0).server_address[1]
+    scraping, stop = threading.Event(), threading.Event()
+    scrapes, errors = [], []
+
+    def scraper():
+        while not stop.is_set():
+            if scraping.wait(0.05) and not stop.is_set():
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/metrics",
+                            timeout=10) as r:
+                        r.read()
+                        scrapes.append(r.status)
+                except Exception as e:  # noqa: BLE001 (reported below)
+                    errors.append(repr(e))
+                time.sleep(0.05)
+
+    def mode(on):
+        ts = telemetry.get_timeseries()
+        if on:
+            telemetry.enable()
+            ts.configure(interval_s=0.1, retention_s=600.0)
+            ts.start_thread()
+            scraping.set()
+        else:
+            scraping.clear()
+            ts.disable()
+            telemetry.disable()
+
+    thread = threading.Thread(target=scraper, daemon=True)
+    thread.start()
+    misses0 = tm.FASTGEN_STEP_CACHE_MISS.value
+    captures0 = model.path_captures
+    passes, greedy = [], None
+    try:
+        mode(True)
+        drive(engine, reqs, uid_base=1000)             # the warm-up pass
+        warm_scrapes = len(scrapes)
+        engine.reset_prefix_cache()
+        for name in ("off", "on", "off", "on"):
+            mode(name == "on")
+            caps, cap_s = model.path_captures, model.capture_seconds
+            reset_launches(counters)
+            generated, _, steps = drive(engine, reqs, record=True)
+            launches = read_launches(counters)
+            engine.reset_prefix_cache()
+            dec = [st for st in steps if step_kind(st["key"]) == "decode"]
+            dec_s = sum(st["ms"] for st in dec) / 1e3
+            passes.append(dict(
+                telemetry=name,
+                decode_ms_median=statistics.median(st["ms"] for st in dec),
+                decode_tok_s=sum(st["scheduled"] for st in dec) / dec_s,
+                steps=len(steps), captures=model.path_captures - caps,
+                capture_s=model.capture_seconds - cap_s))
+            picks = {u: t for u, t in generated.items() if u < 8}
+            if greedy is None:
+                greedy = picks
+            elif picks != greedy:
+                raise RuntimeError(f"telemetry {name} changed greedy tokens")
+    finally:
+        stop.set()
+        scraping.set()
+        thread.join(timeout=30)
+        mode(False)
+        telemetry.stop_http_server()
+        telemetry.get_watchdog().reset()
+    misses = tm.FASTGEN_STEP_CACHE_MISS.value - misses0
+    captures = model.path_captures - captures0
+    res = dict(card=card, passes=passes, warm_up_scrapes=warm_scrapes,
+               scrapes=len(scrapes), scrape_errors=errors[:3],
+               step_cache_misses=misses, captures=captures,
+               health=telemetry.get_watchdog().health()["step_cache"])
+    log("telemetry on/off:", json.dumps(res))
+    if errors or not warm_scrapes:
+        raise RuntimeError(f"scrapes failed or never ran: {errors[:3]}")
+    if any(p["captures"] for p in passes) or misses != captures:
+        raise RuntimeError(f"a timed pass captured, or misses {misses} != "
+                           f"captures {captures}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def mistral_phase(counters, card):
     """Mistral-7B-v0.1 at its published configuration (``config.json``'s
     fields through ``llama_config_from_hf``: 8 kv heads, a 4096-token
@@ -5838,6 +6238,17 @@ def main() -> int:
         cfg, params, counters, card, llama_summary)
 
     clock("phases 6j-6k")
+    # phase 6l: the fleet's subprocess mode (two replica processes on the
+    # card), then telemetry's cost on phase 4's traffic in this process
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, fleet_launches = fleet_proc_phase(counters, card, cache_dir)
+    for label, launches in fleet_launches.items():
+        launches_by_path[f"serving_llama_fleet_{label}"] = launches
+    _, launches_by_path["serving_llama_telemetry"] = telemetry_cost_phase(
+        cfg, params, counters, card)
+
+    clock("phase 6l")
     # phase 7
     plain_vs_kernel(cfg, params)
 

@@ -1,7 +1,8 @@
 """Ragged (FastGen-style) serving: counterpart of
 ``deepspeed_tpu/inference/v2``."""
 
-from .config import (KVCacheUserConfig, QuantizationConfig,
+from .config import (FaultInjectionConfig, KVCacheUserConfig,
+                     QuantizationConfig,
                      RaggedInferenceEngineConfig, ServingOptimizationConfig,
                      StateManagerConfig, TelemetryConfig)
 from .engine import InferenceEngineV2, SchedulingError, SchedulingResult
@@ -18,7 +19,7 @@ from .snapshot import SnapshotError
 from .spec import ModelDrafter, NgramDrafter
 
 __all__ = [
-    "KVCacheUserConfig", "QuantizationConfig", "RaggedInferenceEngineConfig",
+    "FaultInjectionConfig", "KVCacheUserConfig", "QuantizationConfig", "RaggedInferenceEngineConfig",
     "ServingOptimizationConfig", "StateManagerConfig", "TelemetryConfig",
     "BucketLattice", "LatticeError", "resolve_lattice", "InferenceEngineV2", "SchedulingError", "SchedulingResult",
     "RaggedInferenceModel", "BlockedAllocator", "KVAllocationError",

@@ -16,9 +16,9 @@ and tier knobs: ``lattice`` (``"auto:<artifact-or-trace>"``, a mined
 bucket lattice), ``compile_cache_dir`` (where the kernel libraries are
 built and loaded) and ``kv_tier_host_pages`` / ``kv_tier_disk_pages`` /
 ``kv_tier_dir`` (the prefix cache's host and disk tier).
-:class:`TelemetryConfig` serves the telemetry switch, the span ring,
-the flight recorder and the workload trace; its other JAX fields raise
-when set.  ``role`` ("both", "prefill" or "decode") splits serving across
+:class:`TelemetryConfig` has every field of the JAX package's
+``telemetry`` block, and :class:`FaultInjectionConfig` its
+``fault_injection`` block (both applied at engine build).  ``role`` ("both", "prefill" or "decode") splits serving across
 a prefill and a decode engine (``serving.DisaggPool``).  ``tp_degree`` stays at 1
 (another value raises, naming the ROADMAP item that brings it).  The KV
 cache geometry
@@ -191,28 +191,21 @@ class ServingOptimizationConfig:
                     f"(ROADMAP Queue 1 item {item})")
 
 
-#: TelemetryConfig fields the port does not serve yet, with the JAX
-#: package's defaults (ROADMAP Queue 1 item 12b: the metrics server, the
-#: watchdog, the time series, the federation and the SLO evaluator)
-_UNPORTED_TELEMETRY = {
-    "metrics_port": 0, "watchdog": None, "watchdog_threshold": 0.0,
-    "watchdog_warmup": -1, "timeseries_interval_s": 0.0,
-    "timeseries_retention_s": 0.0, "fleet_targets": "",
-    "slo_objectives": [],
-}
-
-
 @dataclasses.dataclass
 class TelemetryConfig:
-    """The engine config's ``telemetry`` block.  Served: ``enabled``
-    (None keeps the process flag, e.g. from ``DS_TELEMETRY``),
-    ``trace_buffer`` (the span ring's capacity), ``postmortem_dir`` and
-    ``flight_recorder_events`` (the flight recorder's bundle directory
-    and ring size), ``workload_trace_path`` and ``workload_trace_max_mb``
-    (the ledger a mined lattice is mined from); 0 and "" keep the
-    process's current settings.  The other fields are the JAX package's,
-    with its defaults; :meth:`validate` raises ``NotImplementedError``
-    for another value."""
+    """The engine config's ``telemetry`` block, the JAX package's fields
+    and defaults: ``enabled`` (None keeps the process flag, e.g. from
+    ``DS_TELEMETRY``), ``metrics_port`` (0 off, -1 an ephemeral port),
+    ``trace_buffer`` (the span ring's capacity), the watchdog's
+    ``watchdog`` / ``watchdog_threshold`` / ``watchdog_warmup``,
+    ``postmortem_dir`` and ``flight_recorder_events`` (the flight
+    recorder's bundle directory and ring size), ``workload_trace_path``
+    and ``workload_trace_max_mb`` (the ledger a mined lattice is mined
+    from), ``timeseries_interval_s`` / ``timeseries_retention_s`` (the
+    sampled ring; a positive interval starts its sampler),
+    ``fleet_targets`` (the federation's ``[label=]host:port`` list) and
+    ``slo_objectives`` (the burn-rate objectives); 0, -1, "" and None
+    keep the process's current settings (``telemetry.apply_settings``)."""
     enabled: Optional[bool] = None
     metrics_port: int = 0
     trace_buffer: int = 0
@@ -228,28 +221,35 @@ class TelemetryConfig:
     fleet_targets: str = ""
     slo_objectives: list = dataclasses.field(default_factory=list)
 
-    def __post_init__(self):
-        self.validate()
-
-    def validate(self) -> None:
-        for field, default in _UNPORTED_TELEMETRY.items():
-            if getattr(self, field) != default:
-                raise NotImplementedError(
-                    f"telemetry.{field}={getattr(self, field)!r} is not "
-                    "ported yet: the metrics server, the watchdog, the time "
-                    "series, the federation and the SLO evaluator are "
-                    "ROADMAP Queue 1 item 12b (served: enabled, "
-                    "trace_buffer, postmortem_dir, flight_recorder_events "
-                    "and the workload trace)")
-
     def apply(self) -> None:
         from ...telemetry import apply_settings
-        self.validate()
-        apply_settings(enabled=self.enabled, trace_buffer=self.trace_buffer,
+        apply_settings(self.enabled, self.metrics_port, self.trace_buffer,
+                       watchdog=self.watchdog,
+                       watchdog_threshold=self.watchdog_threshold,
+                       watchdog_warmup=self.watchdog_warmup,
                        postmortem_dir=self.postmortem_dir,
                        flight_recorder_events=self.flight_recorder_events,
                        workload_trace_path=self.workload_trace_path,
-                       workload_trace_max_mb=self.workload_trace_max_mb)
+                       workload_trace_max_mb=self.workload_trace_max_mb,
+                       timeseries_interval_s=self.timeseries_interval_s,
+                       timeseries_retention_s=self.timeseries_retention_s,
+                       fleet_targets=self.fleet_targets,
+                       slo_objectives=self.slo_objectives)
+
+
+@dataclasses.dataclass
+class FaultInjectionConfig:
+    """The engine config's ``fault_injection`` block (the deterministic
+    chaos registry, ``runtime/fault_injection.py``).  ``enabled=False``
+    leaves the process registry alone, so a default-config engine build
+    does not disarm a ``DS_CHAOS`` arming."""
+    enabled: bool = False
+    seed: int = 0
+    sites: dict = dataclasses.field(default_factory=dict)
+
+    def apply(self) -> None:
+        from ...runtime.fault_injection import apply_fault_injection
+        apply_fault_injection(self.enabled, self.seed, self.sites)
 
 
 @dataclasses.dataclass
@@ -264,16 +264,18 @@ class RaggedInferenceEngineConfig:
         default_factory=ServingOptimizationConfig)
     telemetry: TelemetryConfig = dataclasses.field(
         default_factory=TelemetryConfig)
+    fault_injection: FaultInjectionConfig = dataclasses.field(
+        default_factory=FaultInjectionConfig)
 
     @classmethod
     def from_dict(cls, d: dict) -> "RaggedInferenceEngineConfig":
         """The JAX package's dict form: ``state_manager``, ``kv_cache``,
         ``quantization``, ``serving_optimization`` (``enabled: false``
         turns the fused step, on-device sampling, the async chain and
-        prefix caching off) and ``telemetry``; unknown keys inside a
-        block are ignored, as in JAX.  The ``fault_injection`` block and
-        ``tensor_parallel.tp_size`` other than 1 raise, naming their
-        ROADMAP items."""
+        prefix caching off), ``telemetry`` and ``fault_injection``
+        (applied at engine build); unknown keys inside a block are
+        ignored, as in JAX.  ``tensor_parallel.tp_size`` other than 1
+        raises, naming its ROADMAP item."""
         cfg = cls()
         for block, target in (("state_manager", cfg.state_manager),
                               ("kv_cache", cfg.kv_cache),
@@ -291,15 +293,12 @@ class RaggedInferenceEngineConfig:
             for k, v in srv.items():
                 if hasattr(cfg.serving, k):
                     setattr(cfg.serving, k, v)
-        for k, v in d.get("telemetry", {}).items():
-            if hasattr(cfg.telemetry, k):
-                setattr(cfg.telemetry, k, v)
+        for block, target in (("telemetry", cfg.telemetry),
+                              ("fault_injection", cfg.fault_injection)):
+            for k, v in d.get(block, {}).items():
+                if hasattr(target, k):
+                    setattr(target, k, v)
         cfg.serving.validate()
-        cfg.telemetry.validate()
-        if d.get("fault_injection"):
-            raise NotImplementedError(
-                "the engine config's fault_injection block is not ported "
-                "yet (ROADMAP Queue 1 item 12b)")
         if d.get("tensor_parallel", {}).get("tp_size", 1) != 1:
             raise NotImplementedError(
                 "tensor_parallel.tp_size other than 1 is not ported yet "

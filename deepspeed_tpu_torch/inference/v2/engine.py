@@ -40,6 +40,18 @@ chain's pages between two engines, and ``precompile(kinds=...)`` shrinks
 the lattice to a disaggregated role's keys.  With
 ``quantization.enabled`` the engine quantises the model's projection
 weights into ``quantization.fmt`` before it sizes the KV pool.
+
+Telemetry, as in the JAX engine: every dispatch advances the
+``ds_serving_*`` counters (``utils/comms_logging.serving_counters``: one
+program, the host-to-device bytes of its batch arrays, the logits bytes
+``put`` hands back, the prefix lookups); the build applies the config's
+``telemetry`` and ``fault_injection`` blocks, points the ``ds_kv_*``
+gauges at this engine, registers its subsystems with the memory ledger
+(weights, ``kv_pages``, ``draft_kv``, ``tier_host``, ``tier_disk``,
+``offload``) and binds ``ds_mem_headroom_seqs`` (:meth:`headroom`), and
+publishes :meth:`export_digests` on the metrics endpoint's
+``/snapshot?digests=1``.  The newest engine of a process owns these
+bindings, through weakrefs.
 """
 
 from __future__ import annotations
@@ -60,7 +72,8 @@ from .compile_cache import cache_dir_from_env_or_config, enable_compile_cache
 from .config import RaggedInferenceEngineConfig
 from .lattice import enumerate_lattice_keys, resolve_lattice
 from .model import RaggedInferenceModel
-from ...tree import tree_map
+from ...tree import tree_leaves, tree_map
+from ...utils.comms_logging import serving_counters
 from .ragged import (KVCacheConfig, RaggedBatch, StateManager, build_batch,
                      placeholder)
 from .ragged.batch import MIN_PAGES, MIN_SLOTS, _bucket
@@ -218,7 +231,9 @@ class InferenceEngineV2:
             tier_disk_pages=int(sv.kv_tier_disk_pages or 0),
             tier_dir=sv.kv_tier_dir or None)
         self._config.telemetry.apply()
+        self._config.fault_injection.apply()
         self._bind_kv_gauges()
+        self._pages_dist_cache = None
         recorder = get_flight_recorder()
         recorder.set_config("inference_v2", self._config)
         recorder.record("engine.build", engine="fastgen",
@@ -239,6 +254,26 @@ class InferenceEngineV2:
                 (self._draft_layers, kv.num_pages + 1, kv.page_size, 2,
                  kv.kv_heads, kv.head_dim), dtype=kv.dtype,
                 device=model.device)
+        self._bind_memory_accountants()
+        self._bind_digest_source()
+
+    def _bind_digest_source(self) -> None:
+        """Publish this engine's prefix-cache affinity hint on the process
+        metrics endpoint (``/snapshot?digests=1``), so a router scrapes a
+        replica process's hints like any other replica fact.  Weakref
+        bound, newest engine wins (the ``ds_kv_*`` gauge rule)."""
+        import weakref
+        from ...telemetry import server as tserver
+        ref = weakref.ref(self)
+
+        def _digests(top_k: int, r=ref) -> dict:
+            eng = r()
+            if eng is None:
+                return {"page_size": 0, "digests": []}
+            return {"page_size": eng.model.kv_config.page_size,
+                    "digests": eng.export_digests(top_k)}
+
+        tserver.set_digest_source(_digests)
 
     def _bind_kv_gauges(self) -> None:
         """Point the ``ds_kv_*`` gauges at this engine's allocator and
@@ -269,6 +304,141 @@ class InferenceEngineV2:
 
         tm.KV_TIER_HOST_PAGES.bind(tier_read("host_pages"))
         tm.KV_TIER_DISK_PAGES.bind(tier_read("disk_pages"))
+
+    @staticmethod
+    def _params_resident_bytes(params) -> int:
+        """Resident bytes of the parameter tensors (a quantised leaf's
+        ``q`` and ``scale`` both count); a tensor reached twice counts
+        once."""
+        total, seen = 0, set()
+        for leaf in tree_leaves(params):
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            key = (leaf.device, leaf.data_ptr(), leaf.numel())
+            if key not in seen:
+                seen.add(key)
+                total += leaf.numel() * leaf.element_size()
+        return total
+
+    def _bind_memory_accountants(self) -> None:
+        """Register this engine's subsystems with the memory ledger (the
+        weakref / newest-owner rule of the ``ds_kv_*`` gauges).  Weights
+        and pool footprints are fixed after the build and computed here;
+        the tier and offload accountants read the live manager.  Every
+        accountant reads host state only, so a scrape never touches the
+        card (it may run while a step graph captures)."""
+        import weakref
+        from ...telemetry.memory import get_memory_ledger
+        led = get_memory_ledger()
+        wbytes = self._params_resident_bytes(self._model.params)
+        led.register_object("weights", self, lambda e, b=wbytes: b)
+        kv_bytes = self._model.kv_config.total_bytes()
+        led.register_object("kv_pages", self._state,
+                            lambda st, b=kv_bytes: b)
+        draft = self._draft_kv
+        draft_bytes = (draft.numel() * draft.element_size()
+                       if draft is not None else 0)
+        led.register_object("draft_kv", self, lambda e, b=draft_bytes: b)
+        led.register_object(
+            "tier_host", self._state,
+            lambda st: st.tiers.host_bytes if st.tiers is not None else 0)
+        led.register_object(
+            "tier_disk", self._state,
+            lambda st: st.tiers.disk_bytes if st.tiers is not None else 0)
+        led.register_object("offload", self._state,
+                            lambda st: st.offloaded_blob_bytes)
+        # admissible sequences at the observed per-sequence page need,
+        # sampled into the time series so a `capacity` objective burns
+        ref = weakref.ref(self)
+
+        def _headroom_seqs(r=ref):
+            eng = r()
+            return eng.headroom()["headroom_seqs"] if eng is not None else 0
+
+        tm.MEM_HEADROOM_SEQS.bind(_headroom_seqs)
+
+    def headroom(self) -> Dict:
+        """How many more sequences fit now: free + parked pages over the
+        observed p90 pages per sequence, capped by the free tracked
+        sequence slots (the JAX engine's model).  The per-sequence need
+        comes from the workload trace while it is on, else the live
+        sequences, else a 512-token default."""
+        alloc = self._state.kv_cache.allocator
+        free = int(alloc.free_pages)
+        parked = int(alloc.parked_pages)
+        tiers = self._state.tiers
+        demotable = 0
+        if tiers is not None:
+            spare = max(tiers._host_cap - tiers.host_pages, 0)
+            if tiers._disk_cap:
+                spare += max(tiers._disk_cap - tiers.disk_pages, 0)
+            demotable = min(parked, spare)
+        pages = free + parked
+        p50, p90, basis = self._pages_per_seq_estimate()
+        slots = max(int(self._config.state_manager.max_tracked_sequences)
+                    - self._state.n_tracked_sequences, 0)
+        seqs = min(pages // max(p90, 1), slots)
+        return {
+            "free_pages": free,
+            "parked_pages": parked,
+            "demotable_pages": demotable,
+            "headroom_pages": pages,
+            "slot_headroom": slots,
+            "pages_per_seq_p50": p50,
+            "pages_per_seq_p90": p90,
+            "basis": basis,
+            "headroom_seqs": max(int(seqs), 0),
+        }
+
+    def _pages_per_seq_estimate(self) -> Tuple[int, int, str]:
+        """(p50, p90, basis) of the pages a sequence needs: from the
+        workload trace's request tail ("trace"), else the live pool's
+        pages per tracked sequence ("live"), else 512 tokens
+        ("default").  Cached 10 s: the trace tail is a file read and the
+        headroom gauge rides every time-series sample."""
+        import json
+        import time
+        now = time.monotonic()
+        cached = self._pages_dist_cache
+        if cached is not None and now < cached[0]:
+            return cached[1], cached[2], cached[3]
+        page = int(self._model.kv_config.page_size)
+        p50 = p90 = 0
+        basis = "default"
+        try:
+            from ...telemetry.workload_trace import get_workload_trace
+            tail = get_workload_trace().tail_text()
+        except Exception:
+            tail = None
+        if tail:
+            lens = []
+            for line in tail.splitlines()[-1024:]:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if rec.get("kind") != "request":
+                    continue
+                toks = (int(rec.get("prompt_len", 0))
+                        + int(rec.get("gen_len", 0)))
+                if toks > 0:
+                    lens.append(-(-toks // page))
+            if lens:
+                lens.sort()
+                p50 = lens[len(lens) // 2]
+                p90 = lens[min(int(len(lens) * 0.9), len(lens) - 1)]
+                basis = "trace"
+        if not p90:
+            alloc = self._state.kv_cache.allocator
+            n = self._state.n_tracked_sequences
+            if n > 0 and alloc.live_pages > 0:
+                p50 = p90 = -(-int(alloc.live_pages) // n)
+                basis = "live"
+        if not p90:
+            p50 = p90 = max(-(-512 // page), 1)
+            basis = "default"
+        self._pages_dist_cache = (now + 10.0, p50, p90, basis)
+        return p50, p90, basis
 
     def _resolve_kv_config(self, model: RaggedInferenceModel) -> KVCacheConfig:
         """The cache the engine builds, with the serving knob
@@ -689,13 +859,24 @@ class InferenceEngineV2:
                     # stays O(window), not O(context)
                     self._state.evict_window(sd, window)
 
-    def _build_batch(self, descs, tokens, min_q: int = 1):
+    def _build_batch(self, descs, tokens, min_q: int = 1,
+                     h2d_tokens: bool = True):
+        """Pack one segment; its host-to-device bytes count here, the
+        dispatch at the caller (a mixed step feeds two segments to one
+        program).  ``h2d_tokens=False`` for a chained step, whose token
+        ids never leave the card."""
         with trace_span("engine.build_batch"):
-            return build_batch(
+            batch = build_batch(
                 descs, [np.asarray(t) for t in tokens],
                 self._model.kv_config.page_size,
                 fresh_supported=self._model._fresh_attention is not None,
                 min_q=min_q, lattice=self._lattice)
+            nbytes = (batch.q_lens.nbytes + batch.start_pos.nbytes
+                      + batch.page_table.nbytes)
+            if h2d_tokens:
+                nbytes += batch.token_ids.nbytes
+            serving_counters.record_h2d(nbytes)
+            return batch
 
     def put(self, batch_uids: Sequence[int],
             batch_tokens: Sequence[np.ndarray],
@@ -712,8 +893,10 @@ class InferenceEngineV2:
         kv = self._state.kv_cache.data
         if fused:
             batch = self._build_batch(descs, batch_tokens)
+            serving_counters.record_program()
             logits = self._model.forward(batch, kv)[:len(batch_uids)]
             self._commit_batch(descs)
+            serving_counters.record_logits_exposed(logits.numel() * 4)
             return logits
         groups: Dict[int, List[int]] = {}
         for i, toks in enumerate(batch_tokens):
@@ -721,13 +904,16 @@ class InferenceEngineV2:
         rows: List[Optional[torch.Tensor]] = [None] * len(batch_uids)
         for q in sorted(groups):
             idxs = groups[q]
-            logits = self._model.forward(self._build_batch(
-                [descs[i] for i in idxs], [batch_tokens[i] for i in idxs]),
-                kv)
+            batch = self._build_batch([descs[i] for i in idxs],
+                                      [batch_tokens[i] for i in idxs])
+            serving_counters.record_program()
+            logits = self._model.forward(batch, kv)
             for row, i in enumerate(idxs):
                 rows[i] = logits[row]
         self._commit_batch(descs)
-        return torch.stack(rows)
+        out = torch.stack(rows)
+        serving_counters.record_logits_exposed(out.numel() * 4)
+        return out
 
     @staticmethod
     def _pad_sample_params(row_params, S):
@@ -781,6 +967,8 @@ class InferenceEngineV2:
             kuids, kpos = self._pad_keyed(batch_uids, row_pos,
                                           batch.num_slots)
             greedy_only = not bool((temps > 0.0).any())
+            serving_counters.record_program(
+                h2d_bytes=temps.nbytes + top_ks.nbytes + top_ps.nbytes)
             tokens = self._model.sample_step(batch, kv, rng, temps, top_ks,
                                              top_ps, greedy_only,
                                              row_uids=kuids, row_pos=kpos)
@@ -809,6 +997,8 @@ class InferenceEngineV2:
                 kuids[row] = np.int64(batch_uids[i]).astype(np.int32)
                 kpos[row] = int(row_pos[i])
         greedy_only = not bool((temps > 0.0).any())
+        serving_counters.record_program(
+            h2d_bytes=temps.nbytes + top_ks.nbytes + top_ps.nbytes)
         tokens = self._model.sample_step_mixed(dec, pre, kv, rng, temps,
                                                top_ks, top_ps, greedy_only,
                                                row_uids=kuids, row_pos=kpos)
@@ -829,13 +1019,16 @@ class InferenceEngineV2:
         placeholder_toks = [np.zeros(1, np.int32)] * len(batch_uids)
         descs = self._admit_batch(batch_uids, placeholder_toks,
                                   do_checks=False)
-        batch = self._build_batch(descs, placeholder_toks)
+        batch = self._build_batch(descs, placeholder_toks, h2d_tokens=False)
         temps, top_ks, top_ps = self._pad_sample_params(
             row_params, batch.num_slots)
         greedy_only = not bool((temps > 0.0).any())
         gather = np.zeros(batch.num_slots, np.int32)
         gather[:len(batch_uids)] = np.asarray(gather_idx, np.int32)
         kuids, kpos = self._pad_keyed(batch_uids, row_pos, batch.num_slots)
+        serving_counters.record_program(
+            h2d_bytes=temps.nbytes + top_ks.nbytes + top_ps.nbytes
+            + gather.nbytes)
         tokens = self._model.chained_step(
             batch, self._state.kv_cache.data, prev_tokens, gather, rng,
             temps, top_ks, top_ps, greedy_only, row_uids=kuids,
@@ -853,6 +1046,8 @@ class InferenceEngineV2:
         temps, top_ks, top_ps = self._pad_sample_params(
             row_params, batch.num_slots)
         kuids, kpos = self._pad_keyed(batch_uids, row_pos, batch.num_slots)
+        serving_counters.record_program(
+            h2d_bytes=temps.nbytes + top_ks.nbytes + top_ps.nbytes)
         return (batch, (temps, top_ks, top_ps, not bool((temps > 0.0).any())),
                 dict(row_uids=kuids, row_pos=kpos))
 
@@ -927,6 +1122,9 @@ class InferenceEngineV2:
             q_lens[i] = len(toks)
             start_pos[i] = start
             page_table[i] = sd.page_table(P)
+        serving_counters.record_program(
+            h2d_bytes=token_ids.nbytes + q_lens.nbytes + start_pos.nbytes
+            + page_table.nbytes)
         self._model.draft_fill_step(
             RaggedBatch(token_ids, q_lens, start_pos, page_table,
                         list(batch_uids)), self._draft_kv)
@@ -967,8 +1165,10 @@ class InferenceEngineV2:
                 >= self._config.state_manager.max_tracked_sequences):
             return 0  # no sequence the manager cannot track
         sd = self._state.get_or_create_sequence(uid)
-        return self._state.match_prefix(
-            sd, np.asarray(prompt, dtype=np.int32).reshape(-1))
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        hit = self._state.match_prefix(sd, prompt)
+        serving_counters.record_prefix_lookup(len(prompt), hit)
+        return hit
 
     def export_digests(self, top_k: int = 64) -> List[str]:
         """The prefix cache's bounded affinity hint: the ``top_k`` most

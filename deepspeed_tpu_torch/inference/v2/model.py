@@ -44,6 +44,7 @@ from ...accelerator import DeviceLike, resolve_device
 from ...models import transformer as T
 from ...moe.layer import MoEConfig, moe_forward
 from ...telemetry import metrics as tm
+from ...telemetry.watchdog import get_watchdog
 from ...telemetry.workload_trace import get_workload_trace
 from ...ops.fp_quantizer import SUPPORTED_FORMATS, quantize_channelwise
 from ...ops.kernel_loader import CountedGraph
@@ -609,6 +610,7 @@ class RaggedInferenceModel:
         wt = get_workload_trace()
         if graph is False:
             if self.strict_shapes:
+                get_watchdog().note_step_cache(hit=False, key=key)
                 raise RuntimeError(
                     f"batch bucket {key} (S, Q, P, fresh[, kind, ...]) was "
                     "not precompiled: serving would capture its CUDA graph "
@@ -616,13 +618,14 @@ class RaggedInferenceModel:
                     "precompile(...) (sampling=True covers the sample and "
                     "chain steps) or disable strict_shapes.")
             self.path_captures += 1
-            tm.FASTGEN_STEP_CACHE_MISS.inc()
-            tm.FASTGEN_COMPILE_ON_PATH.inc()
-            if wt.active:
-                wt.record_compile(key)
+            # a capture on the request path: a miss with its key (the
+            # watchdog also sends the key to the workload trace and warns
+            # on a storm of them)
+            get_watchdog().note_step_cache(hit=False, key=key,
+                                           compiled_on_path=True)
             graph = self._step_cache[key] = self._new_step(key, kv, inputs)
         else:
-            tm.FASTGEN_STEP_CACHE_HIT.inc()
+            get_watchdog().note_step_cache(hit=True)
         self.dispatch_counts[key] += 1
         if wt.active:
             wt.note_step_key(key)

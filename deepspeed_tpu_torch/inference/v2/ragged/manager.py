@@ -38,7 +38,9 @@ import torch
 
 from ....telemetry import metrics as tm
 from ....telemetry.flight_recorder import get_flight_recorder
+from ....runtime.fault_injection import get_fault_injector
 from ....telemetry.tracer import trace_span
+from ....utils.comms_logging import serving_counters
 from ..snapshot import SnapshotError
 from .blocked_allocator import NULL_PAGE, KVAllocationError
 from .kv_cache import (BlockedKVCache, KVCacheConfig, PageBlob,
@@ -159,6 +161,7 @@ class StateManager:
             if self.tiers is not None:
                 self._demote(entries)
             alloc.reclaim([p for _, p in entries])
+            serving_counters.record_prefix_evicted(len(entries))
             get_flight_recorder().record("kv.evict", pages=len(entries))
 
     def _demote(self, entries) -> None:
@@ -417,8 +420,14 @@ class StateManager:
         return max(0, need - sd.allocated_capacity)
 
     def allocate_for(self, sd: SequenceDescriptor, n_new_tokens: int) -> None:
+        """Reserve the pages ``n_new_tokens`` more tokens need, evicting
+        parked prefix pages first; the ``kv.alloc_oom`` fault site raises
+        ``KVAllocationError`` here, as a starved allocator does."""
         extra = self.pages_needed(sd, n_new_tokens)
         if extra:
+            get_fault_injector().maybe_raise(
+                "kv.alloc_oom", KVAllocationError,
+                f"injected KV allocator OOM ({extra} pages requested)")
             self.ensure_free(extra)
             sd.extend_pages(self.kv_cache.reserve(extra))
 

@@ -80,11 +80,17 @@ migrations; steps, dispatches and admissions are spans; lifecycle
 events go to the flight recorder (which writes a postmortem bundle when
 a step raises); the SLO histograms, the ``ds_fastgen_*`` counters and
 the ``ds_disagg_*`` / speculation counters are fed as in the JAX
-package.  The ``serving.preempt`` fault-injection site raises
-``InjectedPreemptionFault`` between steps.  Not ported yet (ROADMAP
-Queue 1 items 11i and 12b): the ``fastgen.poison_request`` site with its
-``"poisoned"`` verdict, and the watchdog, time-series, memory-ledger and
-serving-counter sites.
+package.  Every step advances the ``ds_serving_*`` counters (a step,
+the prompt tokens prefilled, the bytes copied to the host: the [S] int32
+tokens at a drain, a verify step's verdict, the split path's sampled
+groups), feeds its host time to the watchdog's anomaly detector, ticks
+the time-series ring (interval-gated inside) and the memory ledger's
+watermarks; a failed page allocation leaves a ``mem.breakdown`` flight
+event naming the dominant subsystem and the ladder's rungs.  The
+``serving.preempt`` fault-injection site raises
+``InjectedPreemptionFault`` between steps, and ``fastgen.poison_request``
+fails one request at admission with a ``"poisoned"`` verdict while the
+step serves the rest.
 """
 
 from __future__ import annotations
@@ -100,13 +106,18 @@ import numpy as np
 import torch
 
 from ...runtime.fault_injection import (InjectedPreemptionFault,
+                                        PoisonedRequestFault,
                                         get_fault_injector)
 from ...telemetry import journey as _journey
 from ...telemetry import metrics as tm
 from ...telemetry.flight_recorder import get_flight_recorder
+from ...telemetry.memory import get_memory_ledger
 from ...telemetry.state import state as _telemetry
+from ...telemetry.timeseries import get_timeseries
 from ...telemetry.tracer import get_tracer, trace_span
+from ...telemetry.watchdog import get_watchdog
 from ...telemetry.workload_trace import get_workload_trace
+from ...utils.comms_logging import serving_counters
 from .config import ServingOptimizationConfig
 from .engine import InferenceEngineV2
 from .ragged.blocked_allocator import NULL_PAGE, KVAllocationError
@@ -185,7 +196,10 @@ class RequestError:
     SLO, or unservable demand), ``"expired"`` (its deadline passed),
     ``"oom"`` (the KV pool stayed exhausted after the degradation
     ladder, or a handoff the decode engine could never hold),
-    ``"closing"`` (submitted after ``close``), ``"migrated"`` (the
+    ``"closing"`` (submitted after ``close``), ``"poisoned"`` (an
+    exception attributable to this request at its admission, such as the
+    ``fastgen.poison_request`` fault site; the step serves the rest),
+    ``"migrated"`` (the
     drain's grace budget ran out before a snapshot) or ``"misrouted"``
     (the scheduler's role can never finish it: a fresh submit to a
     decode scheduler, or a multi-token submit to a prefill scheduler no
@@ -375,16 +389,18 @@ class FastGenScheduler:
         self._snapshot_grace_s = float(sv.snapshot_grace_s or 0.0)
         self._snapshot_path = str(sv.snapshot_path or "")
         self._wtrace = get_workload_trace()
+        self._tseries = get_timeseries()
+        self._mledger = get_memory_ledger()
         self._bind_gauges()
         if self._snapshot_path:
             maybe_install_drain_handler(self, self._snapshot_path,
                                         self._snapshot_grace_s)
 
     def _bind_gauges(self) -> None:
-        """The backlog gauges read the live queues at scrape time, and
-        ``ds_mem_staging_bytes`` this scheduler's handoff staging (the
-        newest scheduler of the process owns them; through a weakref, so
-        the registry keeps no discarded scheduler alive)."""
+        """The backlog gauges read the live queues at scrape time, and the
+        memory ledger's ``staging`` accountant this scheduler's handoff
+        staging (the newest scheduler of the process owns them; through a
+        weakref, so the registry keeps no discarded scheduler alive)."""
         import weakref
         ref = weakref.ref(self)
 
@@ -397,12 +413,8 @@ class FastGenScheduler:
         tm.FASTGEN_QUEUE_DEPTH.bind(read("_pending"))
         tm.FASTGEN_RUNNING.bind(read("_running"))
         tm.FASTGEN_PREEMPTED.bind(read("_preempted"))
-
-        def _staging(r=ref):
-            sched = r()
-            return sched.staging_bytes if sched is not None else 0
-
-        tm.MEM_STAGING_BYTES.bind(_staging)
+        self._mledger.register_object("staging", self,
+                                      lambda sched: sched.staging_bytes)
 
     @property
     def staging_bytes(self) -> int:
@@ -758,6 +770,7 @@ class FastGenScheduler:
         if inf.copied is not None:
             inf.copied.synchronize()
         toks = inf.host.numpy()                # the one [S] int32 d2h
+        serving_counters.record_d2h(toks.nbytes)
         out: Dict[int, int] = {}
         for uid, row, req in inf.rows:
             if req.done:
@@ -1138,8 +1151,9 @@ class FastGenScheduler:
                 min_q=1 + self._spec_max_draft,
                 row_pos=self._spec_row_pos(rows))
         self.last_step_scheduled = len(rows)
-        return self._commit_verdict(rows, verdict.cpu().numpy(), "ngram",
-                                    on_token)
+        verdict = verdict.cpu().numpy()        # the [S, 2] int32 d2h
+        serving_counters.record_d2h(verdict.nbytes)
+        return self._commit_verdict(rows, verdict, "ngram", on_token)
 
     def _dispatch_draft_spec(self, rows, on_token) -> Dict[int, int]:
         """One step of the draft loop and the verify: the [S, 2+k] int32
@@ -1151,8 +1165,9 @@ class FastGenScheduler:
                 min_q=1 + self._spec_max_draft,
                 row_pos=self._spec_row_pos(rows))
         self.last_step_scheduled = len(rows)
-        return self._commit_verdict(rows, verdict.cpu().numpy(), "model",
-                                    on_token)
+        verdict = verdict.cpu().numpy()        # the [S, 2+k] int32 d2h
+        serving_counters.record_d2h(verdict.nbytes)
+        return self._commit_verdict(rows, verdict, "model", on_token)
 
     def _dispatch_draft_fill(self, rows) -> None:
         """The draft pool's catch-up step: nothing is sampled, committed
@@ -1222,7 +1237,14 @@ class FastGenScheduler:
                 t0 = time.perf_counter()
                 with trace_span("fastgen.step"):
                     out = self._step_impl(on_token)
-                tm.FASTGEN_STEP_MS.observe((time.perf_counter() - t0) * 1e3)
+                step_ms = (time.perf_counter() - t0) * 1e3
+                tm.FASTGEN_STEP_MS.observe(step_ms)
+                # the anomaly detector reads the host time around the
+                # step: under the async chain that is the enqueue of step
+                # k+1 and the wait for step k's tokens, not the card's
+                # time for one step (as in the JAX package; no sync)
+                get_watchdog().observe_step_time(
+                    "fastgen", step_ms, step=self._step_ordinal)
             else:
                 out = self._step_impl(on_token)
         except Exception as e:
@@ -1232,6 +1254,13 @@ class FastGenScheduler:
             self._sweep_handoff_ready()
         if self._kv_debug:
             self._engine.state_manager.check_invariants()
+        if self._tseries.active:
+            # interval-gated inside: a fast step loop samples at the
+            # configured cadence, not every step
+            self._tseries.maybe_sample()
+        # watermarks follow the step cadence (peaks between time-series
+        # samples would be lost)
+        self._mledger.sample()
         return out
 
     def _resume_preempted(self) -> None:
@@ -1250,6 +1279,7 @@ class FastGenScheduler:
                 self._running[uid] = self._preempted.pop(uid)
 
     def _step_impl(self, on_token) -> Dict[int, int]:
+        serving_counters.record_step()
         self._preempted_this_step = False
         self._expire_requests()
         spec_drained: Optional[Dict[int, int]] = None
@@ -1311,12 +1341,23 @@ class FastGenScheduler:
         #: undone when its dispatch fails
         advances: List[Tuple[Request, int]] = []
         new_admits: List[Request] = []
+        faults = get_fault_injector()
 
-        # 1. all running decodes (one token each)
-        for uid, req in self._running.items():
+        # 1. all running decodes (one token each).  An exception that
+        # belongs to one request fails that request ("poisoned"); the
+        # step serves the rest
+        for uid, req in list(self._running.items()):
             if req.prefill_remaining > 0:
                 continue  # mid-prefill requests handled below
-            if not adm.try_admit(uid, 1, is_new=False):
+            try:
+                if faults.armed and faults.fire("fastgen.poison_request"):
+                    raise PoisonedRequestFault(
+                        f"injected poisoned request {uid}")
+                if not adm.try_admit(uid, 1, is_new=False):
+                    continue
+            except Exception as e:
+                self._fail_request(req, "poisoned",
+                                   f"{type(e).__name__}: {e}")
                 continue
             last = (req.generated[-1] if req.generated
                     else int(req.prompt[-1]))
@@ -1329,6 +1370,9 @@ class FastGenScheduler:
         def try_prefill(req: Request, is_new: bool) -> bool:
             if adm.tokens_left <= 0 or req.prefill_remaining == 0:
                 return False
+            if faults.armed and faults.fire("fastgen.poison_request"):
+                raise PoisonedRequestFault(
+                    f"injected poisoned request {req.uid}")
             if req.journey is not None and not req.journey_admitted:
                 # the first admission attempt on this scheduler closes
                 # queue_wait, so a prefix match or promotion gets its
@@ -1353,6 +1397,7 @@ class FastGenScheduler:
             reqs.append(req)
             req.prompt_sent += chunk
             advances.append((req, chunk))
+            serving_counters.record_prefill(chunk)
             if self._wtrace.active and req.first_sched_mono == 0.0:
                 req.first_sched_mono = time.monotonic()
             if _telemetry.enabled and req.first_sched_s == 0.0:
@@ -1368,10 +1413,20 @@ class FastGenScheduler:
             return True
 
         for req in list(self._running.values()):
-            try_prefill(req, is_new=False)
+            try:
+                try_prefill(req, is_new=False)
+            except Exception as e:
+                self._fail_request(req, "poisoned",
+                                   f"{type(e).__name__}: {e}")
         while self._pending and adm.tokens_left > 0:
             req = self._pending[0]
-            if not try_prefill(req, is_new=True):
+            try:
+                admitted = try_prefill(req, is_new=True)
+            except Exception as e:
+                self._fail_request(req, "poisoned",
+                                   f"{type(e).__name__}: {e}")
+                continue
+            if not admitted:
                 break
             self._pending.pop(0)
             self._running[req.uid] = req
@@ -1460,7 +1515,10 @@ class FastGenScheduler:
                     toks = sample(logits[rows], self._generator,
                                   temperature=temp, top_k=top_k,
                                   top_p=top_p)
-                for i, t in zip(idxs, toks.tolist()):  # the [g] int32 d2h
+                # the group's [g] int32 d2h
+                serving_counters.record_d2h(toks.numel()
+                                            * toks.element_size())
+                for i, t in zip(idxs, toks.tolist()):
                     new_tokens[i] = t
         out = dict(out_prev)
         for i, tok in new_tokens.items():
@@ -1691,16 +1749,20 @@ class FastGenScheduler:
                                      error=str(exc)[:200])
         state = self._engine.state_manager
         alloc = state.kv_cache.allocator
-        freed = 0
+        # each rung logs the pages it freed, so a postmortem shows which
+        # lever mattered
+        rungs: List[Dict[str, object]] = []
         before = alloc.free_pages
         if alloc.parked_pages:
             state.ensure_free(alloc.free_pages + alloc.parked_pages)
             self._preempted_this_step = True      # pages freed: progress
-            freed += max(alloc.free_pages - before, 0)
+            rungs.append({"lever": "reclaim_parked",
+                          "pages_freed": alloc.free_pages - before})
         if self._oom_streak >= 2:
             before = alloc.free_pages
             self._preempt_largest()
-            freed += max(alloc.free_pages - before, 0)
+            rungs.append({"lever": "preempt_largest",
+                          "pages_freed": alloc.free_pages - before})
         if self._oom_streak >= 4:
             victim = self._most_demanding_request()
             if victim is not None:
@@ -1710,9 +1772,20 @@ class FastGenScheduler:
                     f"eviction and preemption ({self._oom_streak} "
                     f"consecutive allocation failures: {exc})")
                 self._preempted_this_step = True
-                freed += max(alloc.free_pages - before, 0)
+                rungs.append({"lever": "shed_request",
+                              "pages_freed": alloc.free_pages - before})
+        freed = sum(max(r["pages_freed"], 0) for r in rungs)
         if freed:
             tm.MEM_DEGRADE_FREED_PAGES.inc(freed)
+        if _telemetry.enabled:
+            # who owned the bytes when the allocator starved: the
+            # dominant subsystem names the lever a capacity fix pulls
+            bd = self._mledger.breakdown()
+            get_flight_recorder().record(
+                "mem.breakdown", trigger="kv.alloc_oom",
+                streak=self._oom_streak, dominant=bd["dominant"],
+                accounted_bytes=bd["accounted_bytes"],
+                subsystems=bd["subsystems"], rungs=rungs)
         self.last_step_scheduled = 0
 
     # -- snapshots ------------------------------------------------------------

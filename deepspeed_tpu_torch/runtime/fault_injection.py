@@ -2,9 +2,11 @@
 
 Counterpart of ``deepspeed_tpu/runtime/fault_injection.py`` (plain
 Python, the same sites, grammar and seeding).  The port wires the
-``serving.preempt`` site (``FastGenScheduler.step``); the other sites are
+serving sites: ``serving.preempt`` (``FastGenScheduler.step``),
+``fastgen.poison_request`` (the scheduler's admission) and
+``kv.alloc_oom`` (``StateManager.allocate_for``); the training sites are
 known to the registry so a shared ``DS_CHAOS`` spec parses in both
-packages, and fire nowhere yet.
+packages, and fire nowhere yet (ROADMAP Queue 1 item 11i).
 
 Chaos engineering for the training and serving hot paths: a process-wide
 registry of **named injection sites** woven into the code the telemetry

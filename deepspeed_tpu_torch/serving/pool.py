@@ -28,9 +28,15 @@ Threads: ``start()`` runs one stepper thread per replica.  Precompile
 every replica's step keys before it starts: captures are thread-local
 (``ops/kernel_loader.CountedGraph``), and a warm spawn captures while
 holding every live replica's lock, so no capture overlaps a step.
-``attach_slo`` takes any object with ``current()`` (the SLO evaluator is
-not ported yet).  The subprocess mode (replicas scraped over HTTP) is
-ROADMAP Queue 1 item 12b.
+``attach_slo`` takes any object with ``current()``, such as
+``telemetry.slo.SLOEvaluator``.  In the subprocess mode each replica is
+a process of its own (``python -m deepspeed_tpu_torch.tools.
+fleet_replica``) with its metrics endpoint on an ephemeral port: a
+controller federates their registries (``telemetry.federation``), judges
+the merged ring (``telemetry.slo``) and places a request by the digest
+hints it scrapes from each (``router.fetch_remote_hints`` into a
+:class:`PrefixAffinityRouter`); ``python -m
+deepspeed_tpu_torch.tools.fleetctl`` drives it.
 """
 
 from __future__ import annotations

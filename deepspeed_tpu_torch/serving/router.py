@@ -205,11 +205,14 @@ class PrefixAffinityRouter:
 def fetch_remote_hints(target: str, top_k: int = 64,
                        timeout_s: float = 2.0) -> Dict:
     """Scrape one replica's ``/snapshot?digests=1`` affinity hint (the
-    subprocess mode's hint source, served by the JAX package's
-    ``telemetry/server.py``).  Not ported yet: the metrics server and the
-    subprocess replicas are ROADMAP Queue 1 item 12b."""
-    raise NotImplementedError(
-        "fetch_remote_hints reads a replica's metrics server over HTTP: "
-        "the subprocess mode (telemetry/server.py, tools/fleet_replica.py) "
-        "is not ported yet (ROADMAP Queue 1 item 12b); in-process pools "
-        "publish hints with ReplicaPool.publish_hints()")
+    subprocess mode's hint source: a ``tools/fleet_replica`` child
+    publishes its engine's hints at build, ``telemetry/server.py``).
+    Returns ``{"page_size", "digests"}``; raises on an unreachable
+    replica."""
+    import json
+    import urllib.request
+    t = target if target.startswith(("http://", "https://")) \
+        else "http://" + target
+    url = f"{t.rstrip('/')}/snapshot?digests=1&top_k={int(top_k)}"
+    with urllib.request.urlopen(url, timeout=timeout_s) as r:
+        return json.loads(r.read().decode())

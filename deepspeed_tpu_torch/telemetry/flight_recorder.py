@@ -13,11 +13,11 @@ plus :func:`dump_postmortem`, which writes the bundle:
 - ``env.json``       process/env capture and the health verdict
 
 plus ``workload.jsonl`` (the tail of the workload trace) while the trace
-is on, and ``journeys.json`` once any request journey was recorded.  The
-watchdog, the time series and the memory ledger are not ported yet: the
-health verdict is the one the JAX package writes with its watchdog off,
-and the ``timeseries.json`` / ``memory.json`` artifacts are left out, as
-the JAX package leaves them out when those parts are off.
+is on, ``journeys.json`` once any request journey was recorded,
+``timeseries.json`` (the sampled ring: the minutes before the crash)
+while the time series runs and holds samples, and ``memory.json`` (the
+memory ledger's breakdown naming the dominant subsystem) once an engine
+build armed the ledger.
 
 Invoked when an unhandled exception escapes the FastGen step loop (once
 per process, into the configured postmortem dir), on demand, and with
@@ -158,6 +158,7 @@ class FlightRecorder:
         os.makedirs(dir_path, exist_ok=True)
         from .registry import get_registry
         from .tracer import get_tracer
+        from .watchdog import get_watchdog
 
         paths: Dict[str, str] = {}
 
@@ -188,7 +189,7 @@ class FlightRecorder:
             # of a wedged card must not hang on device discovery
             "env": {k: v for k, v in sorted(os.environ.items())
                     if k.startswith(("DS_", "CUDA_", "TORCH_"))},
-            "health": _health(),
+            "health": get_watchdog().health(),
         })
         # the workload-trace tail, only while the trace is on
         from .workload_trace import get_workload_trace
@@ -203,6 +204,18 @@ class FlightRecorder:
         jdoc = get_journey_log().tail_json()
         if jdoc is not None:
             write("journeys.json", jdoc)
+        # the time-series ring, while the sampler runs and holds samples
+        from .timeseries import get_timeseries
+        tsr = get_timeseries()
+        if tsr.active:
+            doc = tsr.to_json()
+            if doc["samples"]:
+                write("timeseries.json", doc)
+        # the memory ledger's breakdown, once an engine build armed it
+        from .memory import get_memory_ledger
+        mdoc = get_memory_ledger().to_json()
+        if mdoc is not None:
+            write("memory.json", mdoc)
         return paths
 
     # -- automatic invocation paths ------------------------------------------
@@ -267,32 +280,6 @@ def _torch_version() -> str:
 
 def _uptime_s() -> float:
     return round(time.monotonic() - _T0, 3)
-
-
-def _health() -> Dict[str, Any]:
-    """The health verdict as the JAX package's watchdog reports it with
-    its detectors off (the watchdog is not ported yet): the step-cache
-    and fault counters are the registry's own."""
-    from . import metrics as tm
-    return {
-        "status": "ok",
-        "uptime_s": _uptime_s(),
-        "telemetry_enabled": state.enabled,
-        "watchdog_enabled": False,
-        "step_time": {},
-        "memory_drift": {"ewma_bytes": 0, "samples": 0, "anomalies": 0,
-                         "in_storm": False, "last_bytes": 0},
-        "nonfinite_total": tm.TRAIN_NONFINITE.value,
-        "overflow_skip_total": tm.TRAIN_OVERFLOW_SKIP.value,
-        "anomaly_total": tm.TRAIN_ANOMALY.value,
-        "step_cache": {
-            "hit_total": tm.FASTGEN_STEP_CACHE_HIT.value,
-            "miss_total": tm.FASTGEN_STEP_CACHE_MISS.value,
-            "compile_on_path_total": tm.FASTGEN_COMPILE_ON_PATH.value,
-        },
-        "goodput": {"compile": 0.0, "input_wait": 0.0, "step": 0.0,
-                    "checkpoint": 0.0, "idle": 0.0, "goodput_ratio": 0.0},
-    }
 
 
 #: process-wide singleton

@@ -2252,3 +2252,86 @@ def test_quantised_moe_model_serves_on_the_card(cuda_device):
                           T.SamplingParams(max_new_tokens=6)) == graphs
     finally:
         del model._dispatch
+
+
+# ---------------------------------------------------------------------------
+# telemetry on the card: scrapes beside graph captures, the memory ledger
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_scrapes_while_step_graphs_capture(cuda_device):
+    """A thread scrapes the port's metrics server (every route a gauge
+    callback feeds: /metrics, /snapshot?raw=1, /memory, /healthz) while
+    the serving thread captures a lattice of step graphs and then
+    serves: every capture completes, every scrape answers, the tokens are
+    those of an engine served with no scraper, and each step-cache miss
+    is one capture."""
+    import threading
+    import urllib.request
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.telemetry import metrics as tm
+    T, engine = _graph_llama(cuda_device)
+    prompts = _graph_prompts()
+    want = _serve(T, engine(), prompts)
+    eng = engine()
+    telemetry.enable()
+    port = telemetry.start_http_server(0).server_address[1]
+    stop, seen, errors = threading.Event(), [], []
+
+    def scrape():
+        paths = ("/metrics", "/snapshot?raw=1", "/memory?json=1",
+                 "/healthz", "/snapshot?digests=1")
+        while not stop.is_set():
+            for path in paths:
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}{path}",
+                            timeout=10) as r:
+                        seen.append((path, r.status))
+                except Exception as e:  # noqa: BLE001 (reported below)
+                    errors.append((path, repr(e)))
+
+    t = threading.Thread(target=scrape, daemon=True)
+    t.start()
+    try:
+        keys = eng.precompile(128, max_concurrency=8, max_new_tokens=16,
+                              sampling=True)
+        captures0 = eng.model.path_captures
+        misses0 = tm.FASTGEN_STEP_CACHE_MISS.value
+        out = _serve(T, eng, prompts)
+    finally:
+        stop.set()
+        t.join(timeout=30)
+        telemetry.stop_http_server()
+        telemetry.disable()
+    assert not t.is_alive() and not errors, errors[:3]
+    assert len(seen) >= 10 and {s for _, s in seen} == {200}
+    assert len(keys) > 0 and all(eng.model._step_cache[k] is not None
+                                 for k in keys)
+    assert out == want
+    assert tm.FASTGEN_STEP_CACHE_MISS.value - misses0 \
+        == eng.model.path_captures - captures0
+
+
+@pytest.mark.cuda
+def test_memory_ledger_measures_the_card(cuda_device):
+    """On the card the ledger's truth is the caching allocator's
+    ``memory_allocated``, source "device": it follows a 1 GiB tensor as
+    it comes and goes."""
+    from deepspeed_tpu_torch.telemetry.memory import MemoryLedger
+    led = MemoryLedger()
+    led.register("weights", lambda: 0)
+
+    def measured():
+        led._measure_cache = (-1e9, None, "none")    # no cached probe
+        return led.measured_bytes()
+
+    torch.cuda.synchronize()
+    base, source = measured()
+    assert source == "device" and base == torch.cuda.memory_allocated()
+    x = torch.empty(1 << 30, dtype=torch.uint8, device=cuda_device)
+    grown, _ = measured()
+    assert grown - base == 1 << 30 == torch.cuda.memory_allocated() - base
+    assert led.breakdown()["measured_source"] == "device"
+    del x
+    assert measured() == (base, "device")

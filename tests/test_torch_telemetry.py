@@ -15,6 +15,7 @@ Telemetry is switched off again after each test (both packages).
 
 import json
 import threading
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -41,8 +42,10 @@ from deepspeed_tpu_torch.models.llama import llama_config
 from deepspeed_tpu_torch.runtime import fault_injection as tfi
 from deepspeed_tpu_torch.telemetry import flight_recorder as tfr
 from deepspeed_tpu_torch.telemetry import journey as tjourney
+from deepspeed_tpu_torch.telemetry import memory as tmemory
 from deepspeed_tpu_torch.telemetry import metrics as ttm
 from deepspeed_tpu_torch.telemetry import registry as treg
+from deepspeed_tpu_torch.telemetry import timeseries as ttimeseries
 from deepspeed_tpu_torch.telemetry import tracer as ttracer
 
 PAGE, SEED = 16, 7
@@ -154,9 +157,14 @@ def test_flight_recorder_events_and_dump_equal_jax(tmp_path):
     assert tfr.EVENT_KINDS == jfr.EVENT_KINDS
     tp = t.dump_postmortem(str(tmp_path / "t"))
     jp = j.dump_postmortem(str(tmp_path / "j"))
-    # JAX adds the memory ledger's artifact once an engine armed it; the
-    # port leaves it out, as JAX does with the ledger off
-    assert set(tp) == set(jp) - {"memory.json", "timeseries.json"}
+    # each package adds the memory ledger's artifact once an engine of it
+    # armed the ledger, and the ring's while its sampler runs
+    optional = {"memory.json", "timeseries.json"}
+    assert set(tp) - optional == set(jp) - optional
+    assert ("memory.json" in tp) == tmemory.get_memory_ledger().armed
+    assert ("timeseries.json" in tp) == bool(
+        ttimeseries.get_timeseries().active
+        and ttimeseries.get_timeseries().samples())
     for name in ("events.json", "config.json"):
         a, b = (json.load(open(p[name])) for p in (tp, jp))
         if name == "events.json":
@@ -165,7 +173,8 @@ def test_flight_recorder_events_and_dump_equal_jax(tmp_path):
     tenv, jenv = (json.load(open(p["env.json"])) for p in (tp, jp))
     assert set(tenv) - {"torch"} == set(jenv) - {"jax"}
     assert set(tenv["health"]) == set(jenv["health"])
-    assert tenv["health"]["watchdog_enabled"] is False
+    assert tenv["health"]["watchdog_enabled"] \
+        == jenv["health"]["watchdog_enabled"] is True
     with open(tp["trace.json"]) as f:
         assert "traceEvents" in json.load(f)
     ttel.disable()
@@ -241,12 +250,40 @@ def test_the_telemetry_config_serves_the_core_and_names_what_waits():
     tfr.get_flight_recorder().postmortem_dir = ""
     ttel.get_tracer().resize(ttracer.DEFAULT_CAPACITY)
     tfr.get_flight_recorder().resize(tfr.DEFAULT_EVENT_CAPACITY)
-    for field, value in (("metrics_port", 9100), ("watchdog", True),
-                         ("timeseries_interval_s", 1.0),
-                         ("fleet_targets", "a=1"),
-                         ("slo_objectives", [{"name": "x"}])):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            T.TelemetryConfig(**{field: value})
+    # every other field configures the component it names
+    wd, ts = ttel.get_watchdog(), ttel.get_timeseries()
+    fed, ev = ttel.get_federation(), ttel.get_slo_evaluator()
+    saved = (wd.enabled, wd.threshold, wd.warmup, wd.postmortem_dir)
+    try:
+        T.TelemetryConfig(watchdog=False, watchdog_threshold=5.0,
+                          watchdog_warmup=3).apply()
+        assert (wd.enabled, wd.threshold, wd.warmup) == (False, 5.0, 3)
+        T.TelemetryConfig(timeseries_interval_s=60.0,
+                          timeseries_retention_s=600.0).apply()
+        assert ts.active and ts._interval_s == 60.0 and ts._cap == 11
+        T.TelemetryConfig(fleet_targets="a=127.0.0.1:1,127.0.0.1:2").apply()
+        assert fed.labels() == ["a", "r1"]
+        T.TelemetryConfig(slo_objectives=[{
+            "name": "x", "kind": "latency", "hist": "ds_fastgen_ttft_ms",
+            "threshold_ms": 500}]).apply()
+        assert ev.configured and ev.current()["status"] == "ok"
+        T.TelemetryConfig(metrics_port=-1).apply()
+        wd.reset()      # no anomaly storm left by an earlier test (503)
+        port = ttel.server.bound_port()
+        assert port > 0 and ttm.TELEMETRY_PORT.value == port
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+            assert json.loads(r.read())["slo"]["configured"]
+    finally:
+        ttel.stop_http_server()
+        ts.disable()
+        fed.clear()
+        ev.reset()
+        wd.enabled, wd.threshold, wd.warmup, wd.postmortem_dir = saved
+    cfg = T.RaggedInferenceEngineConfig.from_dict({"fault_injection": {
+        "enabled": True, "seed": 3, "sites": {"kv.alloc_oom": {"at": "2"}}}})
+    assert (cfg.fault_injection.enabled, cfg.fault_injection.seed) \
+        == (True, 3)
 
 
 # ---------------------------------------------------------------------------
