@@ -298,7 +298,29 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     ``initialize(training_data=...)`` and ``train_batch(data_iter=
     RepeatingLoader(loader))``: 4 steps, every sample read once in
     order, AdamW the only kernel;
-19. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+19. checkpoints at Llama-2-7B width cut to 2 layers (0.67 B params,
+    8.0 GB an AdamW checkpoint) in a fresh temporary directory that
+    needs 20 GB free (the free space printed first): (a) 4
+    ``train_batch`` calls straight through against 2, a save, a fresh
+    engine's load and 2 more, with ``async_save`` off and on (the saving
+    engine steps on while the writer runs): losses, masters and moments
+    bit-equal; (b) ``ds_to_universal`` of that checkpoint loaded into a
+    fresh engine with ``checkpoint.load_universal``, then the same 2
+    steps, bit-equal, for AdamW, and for Lion (stage 3, qwZ) and LAMB
+    with phases 12-13's configs; (c) ``get_fp32_state_dict_from_zero_
+    checkpoint`` bit-equal to the saving engine's ``get_fp32_state_dict``,
+    ``convert_zero_checkpoint_to_fp32_state_dict`` and
+    ``save_16bit_model`` timed; (d) ``comm.collective_failure`` at call
+    1 retries the same batch (losses and state bit-equal to the
+    unfaulted run) and, on a 33.6 M-parameter MLP, ``ckpt.io_error`` at
+    call 1 of a save is retried (``latest`` names the new tag) and at
+    every call the save raises (``latest`` kept), ``train.nan_grad``
+    rolls back to the checkpoint, then (its pointer cleared) to the host
+    snapshot, masters and moments bit-equal to the last good state;
+    save and load GB/s, the seconds from ``save()`` returning to
+    ``latest``, the conversions, peak host and device memory, each
+    beside the card line; launch counts per path;
+20. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
     80 and 96 in rows of their own), the card line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
@@ -5991,6 +6013,370 @@ def bert_phase(counters, card):
 
 # ---------------------------------------------------------------------------
 
+# phase 19: checkpoints, the universal format, the offline tools and
+# self-healing, at Llama-2-7B width cut to 2 layers (0.67 B params: 2.7 GB
+# of fp32 masters and 5.4 GB of AdamW moments a checkpoint)
+CKPT_LAYERS = 2
+CKPT_STEPS = 2                 # train_batch calls before and after a save
+CKPT_DISK_GB = 20.0            # the phase's peak on disk: two AdamW tags
+                               # or one and its universal atoms, plus room
+CKPT_SIMPLE_HIDDEN = 4096      # the MLP of the NaN rollback (33.6 M params)
+CKPT_PATHS = {"training_checkpoint": "training",
+              "training_checkpoint_lion": "training_lion_qwz",
+              "training_checkpoint_lamb": "training_lamb"}
+
+
+class HostPeak:
+    """The process's peak resident set while the context is open, sampled
+    every 20 ms from /proc/self/statm (ru_maxrss is the peak since the
+    process began)."""
+
+    def __init__(self):
+        import os
+        import threading
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.peak = 0
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self._rss())
+            self._stop.wait(0.02)
+
+    def __enter__(self):
+        self.peak = self._rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def dir_bytes(path) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def ckpt_tensors(engine):
+    """The state a checkpoint holds, in a fixed order: every master, then
+    each master's moments."""
+    out = list(engine.masters)
+    for p in engine.masters:
+        st = engine.optimizer.state[p]
+        out += [st[k] for k in sorted(st) if k != "step"]
+    return out
+
+
+def same_tensors(a, b) -> bool:
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def checkpoint_phase(counters, card):
+    """Phase 19 (module docstring).  Returns (launches by path, summary)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.checkpoint import universal as U
+    from deepspeed_tpu_torch.checkpoint import zero_to_fp32 as Z
+    from deepspeed_tpu_torch.models.base import SimpleModel
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.runtime import fault_injection as FI
+    from deepspeed_tpu_torch.telemetry import metrics as tm
+    from deepspeed_tpu_torch.tree import tree_leaves
+
+    root = tempfile.mkdtemp(prefix="ds_ckpt_")
+    free_bytes = shutil.disk_usage(root).free
+    log(f"checkpoints: {root}, {free_bytes / 1e9:.1f} GB free; {card}")
+    if free_bytes < CKPT_DISK_GB * 1e9:
+        shutil.rmtree(root, ignore_errors=True)
+        raise RuntimeError(f"phase 19 needs {CKPT_DISK_GB:.0f} GB free under "
+                           f"{root}; {free_bytes / 1e9:.1f} GB are")
+    rng = np.random.default_rng(SEED + 51)
+    vocab = LlamaForCausalLM("7b", num_layers=CKPT_LAYERS).cfg.vocab_size
+    batches = [{"input_ids": rng.integers(
+        0, vocab, (TRAIN_GAS * TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)}
+        for _ in range(2 * CKPT_STEPS)]
+    fi = FI.get_fault_injector()
+    steps = {path: 0 for path in CKPT_PATHS}
+    leaves = {}
+
+    def engine_for(path, **over):
+        config = dict(TRAIN_PATHS[CKPT_PATHS[path]], **over)
+        engine, *_ = dtt.initialize(
+            model=LlamaForCausalLM("7b", num_layers=CKPT_LAYERS),
+            config=config)
+        leaves[path] = len(tree_leaves(engine.params))
+        return engine
+
+    def run(engine, path, bs):
+        steps[path] += len(bs)
+        out = [engine.train_batch(b) for b in bs]
+        torch.cuda.synchronize()
+        return out
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    summary, checks, launches_by_path = {"card": card}, {}, {}
+    head, tail = batches[:CKPT_STEPS], batches[CKPT_STEPS:]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with HostPeak() as host:
+            # (a) resume is exact, with async_save off and on
+            path = "training_checkpoint"
+            reset_launches(counters)
+            straight = engine_for(path)
+            ref_losses = run(straight, path, batches)
+            ref = [t.clone() for t in ckpt_tensors(straight)]
+            n_params = sum(p.numel() for p in straight.masters)
+            del straight
+            free()
+            for mode in ("sync", "async"):
+                d = os.path.join(root, mode)
+                a = engine_for(path, checkpoint={"async_save": mode ==
+                                                 "async"})
+                losses = run(a, path, head)
+                tag = f"global_step{CKPT_STEPS}"
+                if mode == "sync":
+                    # (c) the engine's own export at the state it saves
+                    live = a.get_fp32_state_dict()
+                _, save_s = timed(lambda: a.save_checkpoint(
+                    d, save_latest=False))
+                t_ret = time.perf_counter()
+                # the next steps update the masters in place while the
+                # writer persists its host copy
+                cont = run(a, path, tail)
+                t_steps = time.perf_counter()
+                a.checkpoint_engine.wait()
+                t_wait = time.perf_counter()
+                a.checkpoint_engine.write_latest(d, tag)
+                t_latest = time.perf_counter()
+                nbytes = dir_bytes(os.path.join(d, tag))
+                saver_ok = same_tensors(ckpt_tensors(a), ref)
+                if mode == "sync":
+                    fp32, z_s = timed(
+                        lambda: Z.get_fp32_state_dict_from_zero_checkpoint(d))
+                    checks["(c) zero_to_fp32 equals get_fp32_state_dict"] = \
+                        all(np.array_equal(x, y) for x, y in zip(
+                            tree_leaves(live), tree_leaves(fp32)))
+                    del live, fp32
+                del a
+                free()
+                b = engine_for(path)
+                (tag_b, _), load_s = timed(lambda: b.load_checkpoint(d))
+                resumed = run(b, path, tail)
+                checks[f"(a) {mode}: resumed losses bit-equal"] = (
+                    losses + resumed == ref_losses and
+                    losses + cont == ref_losses)
+                checks[f"(a) {mode}: masters and moments bit-equal"] = (
+                    saver_ok and same_tensors(ckpt_tensors(b), ref))
+                checks[f"(a) {mode}: latest names the tag"] = tag_b == tag
+                summary[f"save_{mode}"] = dict(
+                    bytes=nbytes, save_returned_s=save_s,
+                    save_returned_gb_s=nbytes / save_s / 1e9,
+                    steps_during_write_s=t_steps - t_ret,
+                    wait_s=t_wait - t_steps,
+                    returned_to_latest_s=t_latest - t_ret,
+                    load_s=load_s, load_gb_s=nbytes / load_s / 1e9)
+                if mode == "sync":
+                    summary["zero_to_fp32_read_s"] = z_s
+                del b
+                free()
+                if mode == "async":
+                    shutil.rmtree(d)
+            d = os.path.join(root, "sync")
+            # (b) the universal round trip, AdamW: from (a)'s tag
+            u, conv_s = timed(lambda: U.ds_to_universal(d))
+            c = engine_for(path, checkpoint={"load_universal": True})
+            _, uload_s = timed(lambda: c.load_checkpoint(d))
+            checks["(b) adamw: universal losses bit-equal"] = (
+                run(c, path, tail) == ref_losses[CKPT_STEPS:])
+            checks["(b) adamw: masters and moments bit-equal"] = \
+                same_tensors(ckpt_tensors(c), ref)
+            summary["universal_adamw"] = dict(
+                atoms_bytes=dir_bytes(u), convert_s=conv_s, load_s=uload_s)
+            shutil.rmtree(u)
+            # (c) the offline converters, timed
+            out = os.path.join(root, "fp32.npz")
+            _, conv32_s = timed(
+                lambda: Z.convert_zero_checkpoint_to_fp32_state_dict(d, out))
+            _, s16_s = timed(lambda: c.save_16bit_model(root))
+            summary["offline"] = dict(
+                zero_to_fp32_convert_s=conv32_s,
+                fp32_npz_bytes=os.path.getsize(out),
+                save_16bit_model_s=s16_s, bf16_npz_bytes=os.path.getsize(
+                    os.path.join(root, "model_weights.npz")))
+            os.remove(out)
+            os.remove(os.path.join(root, "model_weights.npz"))
+            del c
+            free()
+            shutil.rmtree(d)
+            # (d) comm.collective_failure at call 1: the same batch again
+            g = engine_for(path, fault_tolerance={"self_healing": True,
+                                                  "backoff_s": 0.001})
+            tries = tm.TRAIN_RETRY.value
+            fi.configure({"comm.collective_failure": {"at_calls": [1]}})
+            faulted = run(g, path, batches[:1])
+            fi.disarm()
+            checks["(d) collective_failure retried, bit-equal"] = (
+                faulted + run(g, path, batches[1:]) == ref_losses
+                and tm.TRAIN_RETRY.value == tries + 1
+                and same_tensors(ckpt_tensors(g), ref))
+            del g, ref
+            free()
+            # (d) train.nan_grad on the MLP: rollback to the checkpoint,
+            # then (its pointer cleared) to the host snapshot
+            model = SimpleModel(CKPT_SIMPLE_HIDDEN)
+            s_engine, *_ = dtt.initialize(model=model, config=dict(
+                TRAIN_CONFIG, scheduler=None, bf16={"enabled": False},
+                fault_tolerance={"self_healing": True, "backoff_s": 0.001,
+                                 "snapshot_interval": 1}))
+            x = torch.Generator().manual_seed(SEED + 53)
+
+            def mlp_batch():
+                return {k: torch.randn(TRAIN_GAS * TRAIN_MICRO,
+                                       CKPT_SIMPLE_HIDDEN, generator=x)
+                        for k in ("x", "y")}
+            rollbacks = tm.TRAIN_ROLLBACK.value
+            nan_steps = 0
+            for _ in range(2):
+                s_engine.train_batch(mlp_batch())
+            d = os.path.join(root, "mlp")
+            s_engine.save_checkpoint(d)
+            # (d) ckpt.io_error: retried at call 1 (latest names the new
+            # tag), then armed at every call (the save raises, latest
+            # stays)
+            retries = tm.TRAIN_CKPT_RETRY.value
+            fi.configure({"ckpt.io_error": {"at_calls": [1]}})
+            s_engine.save_checkpoint(d, tag="io_retried")
+            checks["(d) io_error at call 1 retried, latest names it"] = (
+                s_engine.checkpoint_engine.read_latest(d) == "io_retried"
+                and tm.TRAIN_CKPT_RETRY.value == retries + 1)
+            fi.configure({"ckpt.io_error": {"p": 1.0}})
+            try:
+                s_engine.save_checkpoint(d, tag="io_failed")
+                raised = False
+            except OSError:
+                raised = True
+            fi.disarm()
+            checks["(d) io_error every call raises, latest kept"] = (
+                raised and s_engine.checkpoint_engine.read_latest(d) ==
+                "io_retried")
+            good_ckpt = [t.clone() for t in ckpt_tensors(s_engine)]
+            s_engine.train_batch(mlp_batch())
+            good_snap = [t.clone() for t in ckpt_tensors(s_engine)]
+            verdicts = []
+            for target in (good_ckpt, good_snap):
+                fi.configure({"train.nan_grad": {"at_calls": [1]}})
+                loss = s_engine.train_batch(mlp_batch())
+                fi.disarm()
+                nan_steps += 1
+                verdicts.append(not math.isfinite(loss) and same_tensors(
+                    ckpt_tensors(s_engine), target))
+                s_engine._last_good_ckpt = None
+            checks["(d) nan_grad rolled back to the checkpoint, bit-equal"] \
+                = verdicts[0]
+            checks["(d) nan_grad rolled back to the snapshot, bit-equal"] = \
+                verdicts[1]
+            checks["(d) two rollbacks counted"] = (
+                tm.TRAIN_ROLLBACK.value == rollbacks + 2
+                and s_engine.global_steps == 3)
+            mlp_leaves = len(s_engine.masters)
+            del s_engine, good_ckpt, good_snap
+            shutil.rmtree(d)
+            launches_by_path[path] = read_launches(counters)
+            mlp_adamw = mlp_leaves * (3 + nan_steps)
+            summary["universal"] = {}
+            # (b) Lion (stage 3, qwZ) and LAMB: a save mid-run against the
+            # run going on, then the universal round trip into a fresh
+            # engine
+            for path in ("training_checkpoint_lion",
+                         "training_checkpoint_lamb"):
+                reset_launches(counters)
+                d = os.path.join(root, path)
+                e = engine_for(path)
+                losses = run(e, path, head)
+                e.save_checkpoint(d)
+                losses += run(e, path, tail)
+                want = [t.clone() for t in ckpt_tensors(e)]
+                del e
+                free()
+                u, conv_s = timed(lambda: U.ds_to_universal(d))
+                f = engine_for(path, checkpoint={"load_universal": True})
+                _, uload_s = timed(lambda: f.load_checkpoint(d))
+                kind = f.optimizer_kind
+                checks[f"(b) {kind}: universal losses bit-equal"] = (
+                    run(f, path, tail) == losses[CKPT_STEPS:])
+                checks[f"(b) {kind}: masters and moments bit-equal"] = \
+                    same_tensors(ckpt_tensors(f), want)
+                summary["universal"][kind] = dict(
+                    checkpoint_bytes=dir_bytes(os.path.join(
+                        d, f"global_step{CKPT_STEPS}")),
+                    atoms_bytes=dir_bytes(u), convert_s=conv_s,
+                    load_s=uload_s)
+                del f, want
+                free()
+                shutil.rmtree(d)
+                launches_by_path[path] = read_launches(counters)
+    finally:
+        fi.disarm()
+        shutil.rmtree(root, ignore_errors=True)
+    # launch counts: every training step of a path runs the flash pair
+    # and its optimizer once a leaf; the MLP's steps add AdamW only
+    L = CKPT_LAYERS
+    for path, launches in launches_by_path.items():
+        opt = PATH_OPTIMIZER[CKPT_PATHS[path]]
+        mb = steps[path] * TRAIN_GAS
+        want = leaves[path] * steps[path] + (
+            mlp_adamw if path == "training_checkpoint" else 0)
+        checks[f"{path}: launches"] = (
+            launches["flash_fwd"] >= 2 * L * mb
+            and launches["flash_bwd_dkv"] == L * mb
+            and launches["flash_bwd_dq"] == L * mb
+            and launches[opt] == want)
+    summary.update(
+        params=n_params, layers=CKPT_LAYERS, steps=steps,
+        peak_host_gb=host.peak / 1e9,
+        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches_by_path, checks=checks)
+    log("checkpoints:", json.dumps(summary))
+    for mode in ("sync", "async"):
+        r = summary[f"save_{mode}"]
+        log(f"checkpoints {mode}: {r['bytes'] / 1e9:.3f} GB, save() "
+            f"returned in {r['save_returned_s']:.2f} s "
+            f"({r['save_returned_gb_s']:.2f} GB/s), latest written "
+            f"{r['returned_to_latest_s']:.2f} s after it (two steps "
+            f"{r['steps_during_write_s']:.2f} s, wait {r['wait_s']:.2f} s), "
+            f"load {r['load_s']:.2f} s ({r['load_gb_s']:.2f} GB/s, a warm "
+            f"read); {card}")
+    log(f"checkpoints: peak host {host.peak / 1e9:.2f} GB, peak device "
+        f"{summary['peak_device_gb']:.2f} GB; {card}")
+    if not all(checks.values()):
+        raise RuntimeError(f"phase 19 checks failed: "
+                           f"{[k for k, v in checks.items() if not v]}")
+    return launches_by_path, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6352,7 +6738,14 @@ def main() -> int:
                           for path in TRAIN_PATHS})
 
     clock("phases 14-18")
-    # phase 19
+    # phase 19: checkpoints and self-healing at 2 layers
+    ckpt_launches, _ = checkpoint_phase(counters, card)
+    launches_by_path.update(ckpt_launches)
+    path_head_dim.update({path: train_cfg.dims_per_head
+                          for path in CKPT_PATHS})
+
+    clock("phase 19")
+    # phase 20
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)

@@ -1,0 +1,174 @@
+"""Universal checkpoints: the format both packages read.
+
+Counterpart of ``deepspeed_tpu/checkpoint/universal.py`` (``ds_to_universal``
+:45, ``load_universal_into_engine`` :109), and its files are the same: a
+universal directory holds ``atoms.npz`` (fp32 params and the optimizer
+state, one array an atom) and ``universal_meta.json`` (the step counters
+and the source checkpoint's client state).  Neither needs Orbax or JAX to
+read, so a JAX checkpoint reaches the port through the JAX
+``ds_to_universal`` and a port checkpoint reaches JAX through this one.
+
+Atom keys are the JAX package's: ``params/<path>`` (``/``-joined tree
+paths) and ``opt_state/<optax path>``, the state layout of the optax
+transform the JAX engine builds for the optimizer (JAX
+``runtime/optimizers.py``): ``optax.adamw`` and ``optax.lamb`` keep
+``count``, ``mu`` and ``nu`` in the chain's first state and one more
+``count`` in the learning-rate schedule's (index 2 for AdamW, 3 for
+LAMB, after the trust ratio); ``optax.lion`` keeps ``count`` and ``mu``,
+and the schedule's ``count`` at 2.  The port's fused optimizers name the
+same numbers ``exp_avg`` (``mu``), ``exp_avg_sq`` (``nu``) and ``step``
+(``count``: every master's update count, one number in optax).
+
+The meta holds ``step``, ``loss_scale``, ``good_steps``,
+``skipped_steps`` and ``hysteresis`` as the JAX engine writes them
+outside fp16 (no step is ever skipped, the scale stays 1, ``hysteresis``
+keeps the fp16 section's default 2).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..tree import tree_leaves
+from ..utils.logging import logger
+from .engine import read_checkpoint
+from .zero_to_fp32 import _to_numpy
+
+UNIVERSAL_DIR = "universal"
+META_FILE = "universal_meta.json"
+ATOMS_FILE = "atoms.npz"
+
+#: the JAX engine's fp16 ``hysteresis`` default, which its meta carries
+#: unchanged outside fp16
+FP16_HYSTERESIS = 2
+
+#: optimizer kind -> ({port moment: optax subtree}, the optax counts)
+OPTAX_LAYOUT = {
+    "adamw": ({"exp_avg": "0/mu", "exp_avg_sq": "0/nu"},
+              ("0/count", "2/count")),
+    "lion": ({"exp_avg": "0/mu"}, ("0/count", "2/count")),
+    "lamb": ({"exp_avg": "0/mu", "exp_avg_sq": "0/nu"},
+             ("0/count", "3/count")),
+}
+
+
+def leaf_paths(tree, prefix: str = "", sep: str = "/") -> List[str]:
+    """Each leaf's path, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{prefix}{k}{sep}", sep)]
+    return [prefix[:-len(sep)]]
+
+
+def _layout(kind: str):
+    if kind not in OPTAX_LAYOUT:
+        raise ValueError(f"no optax layout for optimizer {kind!r}; "
+                         f"known: {sorted(OPTAX_LAYOUT)}")
+    return OPTAX_LAYOUT[kind]
+
+
+def ds_to_universal(ckpt_dir: str, tag: Optional[str] = None,
+                    out_dir: Optional[str] = None) -> str:
+    """Convert a port checkpoint (``tag``, or the one ``latest`` names)
+    into the universal format under ``out_dir`` (default
+    ``<ckpt_dir>/<tag>_universal``); returns that directory."""
+    state, client_state, tag = read_checkpoint(ckpt_dir, tag)
+    moments, counts = _layout(state["optimizer"])
+    module = state["module"]
+    paths = leaf_paths(module)
+    leaves = tree_leaves(module)
+    per_param = state["optimizer_state_dict"]["state"]
+
+    atoms: Dict[str, np.ndarray] = {}
+    steps = set()
+    for i, (path, leaf) in enumerate(zip(paths, leaves)):
+        atoms[f"params/{path}"] = _to_numpy(leaf).astype(np.float32,
+                                                         copy=False)
+        st = per_param.get(i, {})
+        steps.add(int(st.get("step", 0)))
+        for name, sub in moments.items():
+            atoms[f"opt_state/{sub}/{path}"] = (
+                _to_numpy(st[name]) if name in st
+                else np.zeros(tuple(leaf.shape), np.float32))
+    if len(steps) > 1:
+        raise ValueError(f"masters at different update counts {sorted(steps)}"
+                         f": optax keeps one count")
+    count = steps.pop() if steps else 0
+    for c in counts:
+        atoms[f"opt_state/{c}"] = np.asarray(count, np.int32)
+
+    out_dir = out_dir or os.path.join(ckpt_dir, f"{tag}_{UNIVERSAL_DIR}")
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, ATOMS_FILE), **atoms)
+    meta = {"step": count, "loss_scale": 1.0, "good_steps": count,
+            "skipped_steps": 0, "hysteresis": FP16_HYSTERESIS,
+            "source_tag": tag, "client_state": client_state}
+    with open(os.path.join(out_dir, META_FILE), "w") as fh:
+        json.dump(meta, fh)
+    logger.info("universal checkpoint written: %s (%d atoms)", out_dir,
+                len(atoms))
+    return out_dir
+
+
+def load_universal_into_engine(engine, universal_dir: str,
+                               strict: bool = True,
+                               load_optimizer_states: bool = True,
+                               load_lr_scheduler_states: bool = True) -> None:
+    """Restore a universal checkpoint written by either package into the
+    port's engine, in place.  With ``strict``, an atom this engine's
+    layout lacks and an atom missing from the file both raise
+    ``KeyError``; a shape that differs raises ``ValueError`` (another
+    model).  Without the optimizer states only the masters load, and
+    the optimizer keeps its own trajectory (the JAX weights-only load)."""
+    with np.load(os.path.join(universal_dir, ATOMS_FILE)) as z:
+        atoms = {k: z[k] for k in z.files}
+    with open(os.path.join(universal_dir, META_FILE)) as fh:
+        meta = json.load(fh)
+
+    moments, counts = _layout(engine.optimizer_kind)
+    paths = engine.param_paths
+    known = {f"params/{p}" for p in paths}
+    known |= {f"opt_state/{sub}/{p}" for sub in moments.values()
+              for p in paths}
+    known |= {f"opt_state/{c}" for c in counts}
+    unknown = sorted(set(atoms) - known)
+    if strict and unknown:
+        raise KeyError(f"universal checkpoint atoms {unknown[:4]} (of "
+                       f"{len(unknown)}) are not in this engine's layout "
+                       f"({engine.optimizer_kind})")
+
+    def atom(key: str, shape) -> Optional[np.ndarray]:
+        if key not in atoms:
+            if strict:
+                raise KeyError(f"universal checkpoint missing atom {key!r}")
+            return None
+        arr = atoms[key]
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(
+                f"atom {key!r} shape {arr.shape} != current {tuple(shape)}"
+                f" — universal atoms are global (unsharded); a mismatch "
+                f"means a different MODEL, not a different topology")
+        return arr
+
+    masters = engine.masters
+    engine._copy_masters([atom(f"params/{p}", m.shape)
+                          for p, m in zip(paths, masters)])
+    if load_optimizer_states:
+        count = atom(f"opt_state/{counts[0]}", ())
+        states = []
+        for p, m in zip(paths, masters):
+            st = {name: atom(f"opt_state/{sub}/{p}", m.shape)
+                  for name, sub in moments.items()}
+            if count is not None:
+                st["step"] = int(count)
+            states.append({k: v for k, v in st.items() if v is not None})
+        engine._copy_optimizer_state(states)
+    cs = meta.get("client_state", {})
+    engine._finish_load(cs, load_lr_scheduler_states,
+                        default_steps=meta["step"])
+    logger.info("universal checkpoint loaded from %s", universal_dir)
+

@@ -37,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from ...runtime.config import FaultInjectionConfig, TelemetryConfig  # noqa: F401
+
 
 @dataclasses.dataclass
 class StateManagerConfig:
@@ -189,67 +191,6 @@ class ServingOptimizationConfig:
                     f"serving_optimization.{flag}={getattr(self, flag)!r} "
                     f"is not ported yet: the port runs {flag}={value!r} "
                     f"(ROADMAP Queue 1 item {item})")
-
-
-@dataclasses.dataclass
-class TelemetryConfig:
-    """The engine config's ``telemetry`` block, the JAX package's fields
-    and defaults: ``enabled`` (None keeps the process flag, e.g. from
-    ``DS_TELEMETRY``), ``metrics_port`` (0 off, -1 an ephemeral port),
-    ``trace_buffer`` (the span ring's capacity), the watchdog's
-    ``watchdog`` / ``watchdog_threshold`` / ``watchdog_warmup``,
-    ``postmortem_dir`` and ``flight_recorder_events`` (the flight
-    recorder's bundle directory and ring size), ``workload_trace_path``
-    and ``workload_trace_max_mb`` (the ledger a mined lattice is mined
-    from), ``timeseries_interval_s`` / ``timeseries_retention_s`` (the
-    sampled ring; a positive interval starts its sampler),
-    ``fleet_targets`` (the federation's ``[label=]host:port`` list) and
-    ``slo_objectives`` (the burn-rate objectives); 0, -1, "" and None
-    keep the process's current settings (``telemetry.apply_settings``)."""
-    enabled: Optional[bool] = None
-    metrics_port: int = 0
-    trace_buffer: int = 0
-    watchdog: Optional[bool] = None
-    watchdog_threshold: float = 0.0
-    watchdog_warmup: int = -1
-    postmortem_dir: str = ""
-    flight_recorder_events: int = 0
-    workload_trace_path: str = ""
-    workload_trace_max_mb: int = 0
-    timeseries_interval_s: float = 0.0
-    timeseries_retention_s: float = 0.0
-    fleet_targets: str = ""
-    slo_objectives: list = dataclasses.field(default_factory=list)
-
-    def apply(self) -> None:
-        from ...telemetry import apply_settings
-        apply_settings(self.enabled, self.metrics_port, self.trace_buffer,
-                       watchdog=self.watchdog,
-                       watchdog_threshold=self.watchdog_threshold,
-                       watchdog_warmup=self.watchdog_warmup,
-                       postmortem_dir=self.postmortem_dir,
-                       flight_recorder_events=self.flight_recorder_events,
-                       workload_trace_path=self.workload_trace_path,
-                       workload_trace_max_mb=self.workload_trace_max_mb,
-                       timeseries_interval_s=self.timeseries_interval_s,
-                       timeseries_retention_s=self.timeseries_retention_s,
-                       fleet_targets=self.fleet_targets,
-                       slo_objectives=self.slo_objectives)
-
-
-@dataclasses.dataclass
-class FaultInjectionConfig:
-    """The engine config's ``fault_injection`` block (the deterministic
-    chaos registry, ``runtime/fault_injection.py``).  ``enabled=False``
-    leaves the process registry alone, so a default-config engine build
-    does not disarm a ``DS_CHAOS`` arming."""
-    enabled: bool = False
-    seed: int = 0
-    sites: dict = dataclasses.field(default_factory=dict)
-
-    def apply(self) -> None:
-        from ...runtime.fault_injection import apply_fault_injection
-        apply_fault_injection(self.enabled, self.seed, self.sites)
 
 
 @dataclasses.dataclass

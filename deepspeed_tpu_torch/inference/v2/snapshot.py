@@ -29,9 +29,8 @@ import json
 import os
 import signal
 import struct
-import time
 import warnings
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -160,49 +159,25 @@ def unpack_bundle(data) -> Tuple[dict, Dict[str, Array]]:
     return meta, _decode_arrays(arrays)
 
 
-def _atomic_write(path: str, segments) -> None:
-    """Write ``segments`` to ``path`` atomically: a tmp file in the same
-    directory, fsync, rename.  A reader never sees a torn file; a
-    failure removes the tmp file and leaves ``path`` as it was."""
-    tmp = f"{path}.tmp.{os.getpid()}"
-    try:
-        with open(tmp, "wb") as f:
-            for seg in segments:
-                f.write(seg)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-
-
-def _with_retries(fn: Callable[[], Any], retries: int,
-                  backoff_s: float) -> Any:
-    """Run ``fn``, retrying an ``OSError`` up to ``retries`` times with
-    doubling backoff; any other error propagates at once."""
-    delay = backoff_s
-    for attempt in range(retries + 1):
-        try:
-            return fn()
-        except OSError as e:
-            if attempt >= retries:
-                raise
-            warnings.warn(f"snapshot write failed ({type(e).__name__}: "
-                          f"{e}); retry {attempt + 1}/{retries} in "
-                          f"{delay:.2f}s")
-            time.sleep(delay)
-            delay *= 2
-
-
 def write_bundle(path: str, meta: dict, arrays: Dict[str, Array],
                  retries: int = 3, backoff_s: float = 0.05) -> str:
-    """Write a bundle atomically, retried on ``OSError``."""
+    """Write a bundle atomically (tmp file, fsync, rename; the tmp file
+    removed on failure), retried on ``OSError`` with doubling backoff:
+    the checkpoint engine's helpers.  The ``ckpt.io_error`` fault site
+    fires inside the write, so a failure midway leaves the previous
+    bundle at ``path`` readable."""
+    from ...checkpoint.engine import _atomic_write_bytes, with_retries
+    from ...runtime.fault_injection import (InjectedCheckpointFault,
+                                            get_fault_injector)
     segments = _bundle_segments(meta, arrays)
-    _with_retries(lambda: _atomic_write(path, segments), retries, backoff_s)
+
+    def _write():
+        get_fault_injector().maybe_raise(
+            "ckpt.io_error", InjectedCheckpointFault,
+            "injected I/O error writing serving snapshot")
+        _atomic_write_bytes(path, segments)
+
+    with_retries("snapshot", _write, retries, backoff_s)
     return path
 
 

@@ -12,6 +12,16 @@ ZeRO++ quantised weights.  A key that switches on a feature outside the
 slice raises ``NotImplementedError`` naming its ROADMAP item; a key the
 port does not know raises too, so no setting is silently dropped.
 
+The loader also reads the ``checkpoint``
+section (JAX ``CheckpointConfig``: ``async_save``, ``save_retries``,
+``save_backoff_s``, ``load_universal``; ``tag_validation``,
+``use_node_local_storage`` and ``parallel_write`` are accepted and, as
+in JAX, change nothing), ``fault_tolerance`` (self-healing training),
+``fault_injection`` and ``telemetry`` (the serving engine's blocks, with
+the JAX fields), ``wall_clock_breakdown`` and the monitor sections
+``tensorboard``, ``wandb``, ``csv_monitor`` and ``comet``.  A key the
+port does not know inside one of them raises like any other.
+
 ZeRO on one device: the partition over one rank is the identity, so
 stages 1, 2 and 3 keep masters, gradients and moments whole and give
 stage 0's numbers, as the JAX engine does on a one-device mesh.  The
@@ -73,18 +83,15 @@ _OUTSIDE_SLICE = {
     "moe": (_enabled, "11h (pipeline, MoE, sequence parallel)"),
     "sequence_parallel": (_enabled, "11h (pipeline, MoE, sequence parallel)"),
     "tensor_parallel": (_enabled, "11b (ZeRO and model parallelism)"),
-    "checkpoint": (lambda s: True, "11f (checkpointing)"),
-    "fault_tolerance": (lambda s: s.get("self_healing", False),
-                        "11i (fault tolerance and telemetry)"),
-    "fault_injection": (_enabled, "11i (fault tolerance and telemetry)"),
-    "telemetry": (_enabled, "11i (fault tolerance and telemetry)"),
 }
 
-# read by the slice (steps_per_print is accepted and has no effect: the
-# port's engine prints nothing)
+# read by the slice
 _READ = ("train_batch_size", "train_micro_batch_size_per_gpu",
          "gradient_accumulation_steps", "gradient_clipping", "optimizer",
-         "scheduler", "bf16", "zero_optimization", "steps_per_print")
+         "scheduler", "bf16", "zero_optimization", "steps_per_print",
+         "wall_clock_breakdown", "checkpoint", "fault_tolerance",
+         "fault_injection", "telemetry", "tensorboard", "wandb",
+         "csv_monitor", "comet")
 
 
 @dataclasses.dataclass
@@ -109,6 +116,126 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass
+class TelemetryConfig:
+    """The engine config's ``telemetry`` block, the JAX package's fields
+    and defaults: ``enabled`` (None keeps the process flag, e.g. from
+    ``DS_TELEMETRY``), ``metrics_port`` (0 off, -1 an ephemeral port),
+    ``trace_buffer`` (the span ring's capacity), the watchdog's
+    ``watchdog`` / ``watchdog_threshold`` / ``watchdog_warmup``,
+    ``postmortem_dir`` and ``flight_recorder_events`` (the flight
+    recorder's bundle directory and ring size), ``workload_trace_path``
+    and ``workload_trace_max_mb`` (the ledger a mined lattice is mined
+    from), ``timeseries_interval_s`` / ``timeseries_retention_s`` (the
+    sampled ring; a positive interval starts its sampler),
+    ``fleet_targets`` (the federation's ``[label=]host:port`` list) and
+    ``slo_objectives`` (the burn-rate objectives); 0, -1, "" and None
+    keep the process's current settings (``telemetry.apply_settings``)."""
+    enabled: Optional[bool] = None
+    metrics_port: int = 0
+    trace_buffer: int = 0
+    watchdog: Optional[bool] = None
+    watchdog_threshold: float = 0.0
+    watchdog_warmup: int = -1
+    postmortem_dir: str = ""
+    flight_recorder_events: int = 0
+    workload_trace_path: str = ""
+    workload_trace_max_mb: int = 0
+    timeseries_interval_s: float = 0.0
+    timeseries_retention_s: float = 0.0
+    fleet_targets: str = ""
+    slo_objectives: list = dataclasses.field(default_factory=list)
+
+    def apply(self) -> None:
+        from ..telemetry import apply_settings
+        apply_settings(self.enabled, self.metrics_port, self.trace_buffer,
+                       watchdog=self.watchdog,
+                       watchdog_threshold=self.watchdog_threshold,
+                       watchdog_warmup=self.watchdog_warmup,
+                       postmortem_dir=self.postmortem_dir,
+                       flight_recorder_events=self.flight_recorder_events,
+                       workload_trace_path=self.workload_trace_path,
+                       workload_trace_max_mb=self.workload_trace_max_mb,
+                       timeseries_interval_s=self.timeseries_interval_s,
+                       timeseries_retention_s=self.timeseries_retention_s,
+                       fleet_targets=self.fleet_targets,
+                       slo_objectives=self.slo_objectives)
+
+
+@dataclasses.dataclass
+class FaultInjectionConfig:
+    """The engine config's ``fault_injection`` block (the deterministic
+    chaos registry, ``runtime/fault_injection.py``).  ``enabled=False``
+    leaves the process registry alone, so a default-config engine build
+    does not disarm a ``DS_CHAOS`` arming."""
+    enabled: bool = False
+    seed: int = 0
+    sites: dict = dataclasses.field(default_factory=dict)
+
+    def apply(self) -> None:
+        from .fault_injection import apply_fault_injection
+        apply_fault_injection(self.enabled, self.seed, self.sites)
+
+
+@dataclasses.dataclass
+class CheckpointConfig:
+    """The ``checkpoint`` section (JAX ``CheckpointConfig``).
+    ``async_save`` persists a save from a writer thread over host copies;
+    ``save_retries`` / ``save_backoff_s`` bound the retries of an
+    ``OSError``; ``load_universal`` makes ``load_checkpoint`` read
+    universal atoms.  ``tag_validation``, ``use_node_local_storage`` and
+    ``parallel_write`` are kept and read by nothing, as in JAX."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: dict = dataclasses.field(default_factory=dict)
+    async_save: bool = True
+    save_retries: int = 3
+    save_backoff_s: float = 0.05
+
+
+@dataclasses.dataclass
+class FaultToleranceConfig:
+    """The ``fault_tolerance`` section (JAX ``FaultToleranceConfig``).
+    With ``self_healing`` a non-finite loss or grad norm rolls the engine
+    back to the last good checkpoint (or an in-memory host snapshot) and
+    skips the batch; a transient fault at dispatch retries the same
+    batch.  ``max_retries`` bounds consecutive recoveries, each sleeping
+    ``backoff_s * 2**(n-1)``; ``snapshot_interval > 0`` refreshes the
+    snapshot every that many healthy steps."""
+    self_healing: bool = False
+    max_retries: int = 3
+    backoff_s: float = 0.05
+    snapshot_interval: int = 0
+
+
+@dataclasses.dataclass
+class MonitorConfigItem:
+    """One monitor section: ``tensorboard``, ``wandb``, ``csv_monitor``
+    or ``comet`` (JAX ``MonitorConfigItem``)."""
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJob"
+    team: str = ""
+    group: str = ""
+    project: str = "deepspeed_tpu"
+
+
+def _section(cls, name: str, section: Optional[Dict[str, Any]]):
+    """``cls(**section)``; a key the dataclass lacks raises."""
+    section = dict(section or {})
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(section) - known)
+    if unknown:
+        raise NotImplementedError(
+            f"{name} keys {unknown} are not read by the port's training "
+            f"slice (see ROADMAP Queue 1 item 11)")
+    return cls(**section)
+
+
+MONITORS = ("tensorboard", "wandb", "csv_monitor", "comet")
+
+
+@dataclasses.dataclass
 class TrainingConfig:
     train_batch_size: Optional[int] = None
     train_micro_batch_size_per_gpu: Optional[int] = None
@@ -123,6 +250,26 @@ class TrainingConfig:
     zero_stage: int = 0
     #: ZeRO++ qwZ; acts at zero_stage 3 only
     zero_quantized_weights: bool = False
+    steps_per_print: int = 10
+    #: synchronise the card around the train_batch timer and log it at
+    #: steps_per_print
+    wall_clock_breakdown: bool = False
+    checkpoint: CheckpointConfig = dataclasses.field(
+        default_factory=CheckpointConfig)
+    fault_tolerance: FaultToleranceConfig = dataclasses.field(
+        default_factory=FaultToleranceConfig)
+    fault_injection: FaultInjectionConfig = dataclasses.field(
+        default_factory=FaultInjectionConfig)
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+    tensorboard: MonitorConfigItem = dataclasses.field(
+        default_factory=MonitorConfigItem)
+    wandb: MonitorConfigItem = dataclasses.field(
+        default_factory=MonitorConfigItem)
+    csv_monitor: MonitorConfigItem = dataclasses.field(
+        default_factory=MonitorConfigItem)
+    comet: MonitorConfigItem = dataclasses.field(
+        default_factory=MonitorConfigItem)
 
     @property
     def quantized_weights(self) -> bool:
@@ -256,4 +403,16 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
                                    params=dict(sched.get("params", {})))
                    if sched is not None else None),
         bf16=_bf16(config.get("bf16", {})),
-        zero_stage=stage, zero_quantized_weights=qwz)
+        zero_stage=stage, zero_quantized_weights=qwz,
+        steps_per_print=int(config.get("steps_per_print", 10)),
+        wall_clock_breakdown=bool(config.get("wall_clock_breakdown", False)),
+        checkpoint=_section(CheckpointConfig, "checkpoint",
+                            config.get("checkpoint")),
+        fault_tolerance=_section(FaultToleranceConfig, "fault_tolerance",
+                                 config.get("fault_tolerance")),
+        fault_injection=_section(FaultInjectionConfig, "fault_injection",
+                                 config.get("fault_injection")),
+        telemetry=_section(TelemetryConfig, "telemetry",
+                           config.get("telemetry")),
+        **{m: _section(MonitorConfigItem, m, config.get(m))
+           for m in MONITORS})

@@ -37,23 +37,89 @@ plain ``torch.optim.Optimizer`` over the masters.  ZeRO stages 1-3 run
 on one rank, where the partition is the identity: they change no
 number.  Features outside the slice raise ``NotImplementedError`` from
 the config loader or here.
+
+Checkpoints (JAX :1369-1567): :meth:`save_checkpoint` /
+:meth:`load_checkpoint` write and read ``checkpoint/engine.py``'s
+``torch.save`` files (or, with ``checkpoint.load_universal``, universal
+atoms from either package); :meth:`get_fp32_state_dict` and
+:meth:`save_16bit_model` export the masters.  A load copies into the
+existing masters and moments (the optimizer holds them), zeroes the
+gradient accumulators and drops the step's compute copy.  The engine
+has no random stream (the slice has no dropout): an ``rng_key_data``
+loaded from a JAX checkpoint is written back unchanged.  The LR schedule
+reads the optimizer's own update count, as JAX's reads optax's
+``count``: equal to ``global_steps`` unless a weights-only load started
+a fresh optimizer.
+
+Self-healing and telemetry (JAX :946-1225): with
+``fault_tolerance.self_healing`` a non-finite step rolls back to the
+last good checkpoint or the host snapshot and skips the batch, and a
+:class:`TransientFault` at dispatch retries the same batch; the
+``comm.collective_failure``, ``train.nan_grad`` and ``train.slow_step``
+sites fire in :meth:`train_batch`; the watchdog tracks input wait,
+compile, step and checkpoint time and sees non-finite values and step
+times; ``train.batch`` / ``train.step`` spans; the monitor writes the
+loss and LR every step and the registry at ``steps_per_print``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import json
+import math
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..accelerator import DeviceLike, resolve_device
+from ..checkpoint.universal import leaf_paths
 from ..models.base import Model
 from ..ops.quantization import quantize_dequantize
+from ..telemetry import get_tracer, trace_span
+from ..telemetry import metrics as tm
+from ..telemetry.flight_recorder import get_flight_recorder
+from ..telemetry.state import state as telemetry_state
+from ..telemetry.watchdog import get_watchdog
 from ..tree import tree_leaves, tree_map
-from .config import TrainingConfig, load_config, outside_slice
+from ..utils.logging import logger
+from ..utils.timer import (TRAIN_BATCH_TIMER, SynchronizedWallClockTimer,
+                           ThroughputTimer)
+from .config import TrainingConfig, load_config, optimizer_kind
 from .dataloader import DeepSpeedDataLoader
+from .fault_injection import (InjectedCollectiveFault, TransientFault,
+                              get_fault_injector)
 from .lr_schedules import LRScheduler, get_lr_schedule
 from .optimizers import get_optimizer
+
+
+def _is_float(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point()
+    return np.issubdtype(np.asarray(x).dtype, np.floating)
+
+
+def _nan_like(x):
+    if isinstance(x, torch.Tensor):
+        return torch.full_like(x, float("nan"))
+    return np.full_like(x, np.nan)
+
+
+def _as_tensor(src) -> torch.Tensor:
+    """A tensor over ``src`` (numpy or torch) without a copy where one
+    can be avoided."""
+    if isinstance(src, torch.Tensor):
+        return src
+    arr = np.asarray(src)
+    if not arr.flags.writeable or not arr.flags.c_contiguous:
+        arr = np.array(arr)
+    return torch.from_numpy(arr)
+
+
+def _host(t):
+    return t.detach().to("cpu", copy=True) if isinstance(
+        t, torch.Tensor) else t
 
 
 class DeepSpeedEngine:
@@ -112,6 +178,10 @@ class DeepSpeedEngine:
             self._schedule = lambda step: base_lr
         self.lr_scheduler = LRScheduler(self._schedule)
         self.optimizer = get_optimizer(opt.type, opt.params, self._masters)
+        #: "adamw", "lion" or "lamb" (the universal checkpoint's layout)
+        self.optimizer_kind = optimizer_kind(opt.type)
+        #: each master's ``/``-joined tree path, in tree order
+        self.param_paths = leaf_paths(self.params)
 
         self._params_c: Optional[Dict[str, Any]] = None
         self._pending = 0          # micro-batches accumulated this step
@@ -119,9 +189,67 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.global_samples = 0
         self._last_grad_norm = 0.0
+        #: a JAX engine's random stream, kept from a load and saved back
+        self._rng_key_data: Optional[List[int]] = None
         self.training_dataloader = (
             self.deepspeed_io(training_data, collate_fn=collate_fn)
             if training_data is not None else None)
+
+        # observability and fault tolerance (JAX engine.py:236-283)
+        self.config.telemetry.apply()
+        self.config.fault_injection.apply()
+        # the last checkpoint this engine wrote, the host snapshot used
+        # before one exists, and the consecutive-recovery count
+        self._last_good_ckpt: Optional[Tuple[str, str]] = None
+        self._state_snapshot: Optional[dict] = None
+        self._rollback_streak = 0
+        self._nan_site_warned = False
+        self._monitor_write_warned = False
+        self.timers = SynchronizedWallClockTimer(
+            synchronize=(self.config.wall_clock_breakdown
+                         and self.device.type == "cuda"))
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_batch_size(),
+            steps_per_output=self.config.steps_per_print)
+        self.monitor = self._build_monitor()
+        self.checkpoint_engine = self._build_checkpoint_engine()
+        recorder = get_flight_recorder()
+        recorder.set_config("runtime", self.config)
+        recorder.record("engine.build", engine="train",
+                        zero_stage=self.config.zero_stage,
+                        micro_bs=self.train_micro_batch_size_per_gpu(),
+                        gas=self.gradient_accumulation_steps())
+
+    def _build_monitor(self):
+        try:
+            from ..monitor.monitor import MonitorMaster
+            return MonitorMaster(self.config)
+        except Exception as e:      # optional, but say why it is off
+            logger.warning("monitor disabled (%s: %s) — training continues "
+                           "without monitor writers", type(e).__name__, e)
+            return None
+
+    def _monitor_write(self, fn, *args) -> None:
+        """One monitor write batch: a raising writer drops the batch
+        (counted in ``ds_train_monitor_drop_total``, warned once) and
+        never fails the step."""
+        try:
+            fn(*args)
+        except Exception as e:
+            tm.TRAIN_MONITOR_DROP.inc()
+            if not self._monitor_write_warned:
+                self._monitor_write_warned = True
+                logger.warning(
+                    "monitor write failed (%s: %s) — dropped; further "
+                    "drops are counted in ds_train_monitor_drop_total "
+                    "without logging", type(e).__name__, e)
+
+    def _build_checkpoint_engine(self):
+        from ..checkpoint.engine import TorchCheckpointEngine
+        ckpt = self.config.checkpoint
+        return TorchCheckpointEngine(async_save=ckpt.async_save,
+                                     save_retries=ckpt.save_retries,
+                                     save_backoff_s=ckpt.save_backoff_s)
 
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None,
                      collate_fn: Optional[Callable] = None
@@ -147,6 +275,17 @@ class DeepSpeedEngine:
 
     def get_lr(self) -> List[float]:
         return [float(self._schedule(self.global_steps))]
+
+    @property
+    def masters(self) -> List[torch.Tensor]:
+        """The fp32 masters in tree order (the optimizer's params)."""
+        return self._masters
+
+    def _update_count(self) -> int:
+        """The optimizer's update count (optax's ``count``), which the LR
+        schedule reads as in JAX."""
+        st = self.optimizer.state.get(self._masters[0])
+        return int(st["step"]) if st else 0
 
     def get_global_grad_norm(self) -> float:
         return self._last_grad_norm
@@ -227,12 +366,13 @@ class DeepSpeedEngine:
             scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
             for g in grads:
                 g.mul_(scale)
-        lr = self._schedule(self.global_steps)
+        lr = self._schedule(self._update_count())
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self._params_c = None
         self._pending = 0
+        self._last_lr = float(lr)
         self._last_grad_norm = float(gnorm)
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -288,27 +428,387 @@ class DeepSpeedEngine:
         """gas micro-batches of forward and backward, then the update;
         returns the mean micro-batch loss.  The micro-batches come from
         ``batch`` or, without one, from ``data_iter`` or the training
-        dataloader."""
+        dataloader.  With ``fault_tolerance.self_healing`` a non-finite
+        step rolls back and a transient fault retries (JAX
+        ``train_batch``)."""
         if self._pending:
             raise RuntimeError("micro-batches from forward()/backward() are "
                                "pending; finish the step with step()")
-        losses = []
-        for mb in self._resolve_batch(batch, data_iter):
-            loss = self.forward(mb)
-            self.backward(loss)
-            losses.append(loss.detach().float())
-        self.step()
-        return float(torch.stack(losses).mean())
+        ft = self.config.fault_tolerance
+        if not ft.self_healing:
+            try:
+                return self._train_batch_impl(
+                    self._resolve_batch(batch, data_iter))
+            except Exception as e:
+                # crash forensics: a postmortem bundle before the
+                # exception leaves the engine; never masks it
+                get_flight_recorder().on_crash("train_batch", e)
+                raise
+        return self._train_batch_self_healing(batch, data_iter, ft)
+
+    # -- self-healing (JAX engine.py:968-1079) ---------------------------
+    def _train_batch_self_healing(self, batch, data_iter, ft) -> float:
+        if self._last_good_ckpt is None and self._state_snapshot is None:
+            # a rollback target exists before the first guarded step
+            self._snapshot_state()
+        # materialised once: a retry replays the same micro-batches
+        mbs = self._resolve_batch(batch, data_iter)
+        attempt = 0
+        while True:
+            try:
+                loss = self._train_batch_impl(mbs)
+            except TransientFault as e:
+                # raised before any state changed: retry the same batch
+                attempt += 1
+                tm.TRAIN_RETRY.inc()
+                get_flight_recorder().record(
+                    "selfheal.retry", attempt=attempt,
+                    error=f"{type(e).__name__}: {e}"[:200])
+                if attempt > ft.max_retries:
+                    get_flight_recorder().on_crash("train_batch", e)
+                    raise
+                logger.warning(
+                    "self-healing: transient fault in train_batch (%s) "
+                    "— retry %d/%d", e, attempt, ft.max_retries)
+                time.sleep(ft.backoff_s * (2 ** (attempt - 1)))
+                continue
+            except Exception as e:
+                get_flight_recorder().on_crash("train_batch", e)
+                raise
+            bad = not (math.isfinite(loss)
+                       and math.isfinite(self._last_grad_norm))
+            if not bad:
+                self._rollback_streak = 0
+                self._maybe_refresh_snapshot(ft)
+                return loss
+            # a non-finite applied step: the masters may hold NaN/inf —
+            # roll back and skip this batch
+            self._rollback_streak += 1
+            tm.TRAIN_ROLLBACK.inc()
+            bad_step = self.global_steps - 1
+            get_flight_recorder().record(
+                "selfheal.rollback", streak=self._rollback_streak,
+                at_step=bad_step, loss=repr(loss))
+            time.sleep(ft.backoff_s * (2 ** (self._rollback_streak - 1)))
+            # restore first, also when giving up: the caller catches the
+            # error with the engine at its last good state
+            source = self._restore_last_good()
+            if self._rollback_streak > ft.max_retries:
+                err = RuntimeError(
+                    f"self-healing: {self._rollback_streak} consecutive "
+                    f"non-finite steps exceed "
+                    f"fault_tolerance.max_retries={ft.max_retries}")
+                get_flight_recorder().on_crash("train_batch", err)
+                raise err
+            logger.warning(
+                "self-healing: non-finite step at global step %d — "
+                "rolled back to %s and skipped the batch window "
+                "(rollback %d/%d)", bad_step, source,
+                self._rollback_streak, ft.max_retries)
+            return loss         # the non-finite loss is surfaced
+
+    def _snapshot_state(self) -> None:
+        """A host copy of everything a rollback restores: masters,
+        optimizer state, counters and the LR scheduler."""
+        opt_state = self.optimizer.state
+        self._state_snapshot = {
+            "masters": [_host(p) for p in self._masters],
+            "optimizer": [
+                {k: _host(v) for k, v in opt_state[p].items()}
+                if opt_state.get(p) else None for p in self._masters],
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "lr_scheduler": self.lr_scheduler.state_dict(),
+            "rng_key_data": self._rng_key_data,
+        }
+
+    def _maybe_refresh_snapshot(self, ft) -> None:
+        if ft.snapshot_interval > 0 and \
+                self.global_steps % ft.snapshot_interval == 0:
+            self._snapshot_state()
+
+    def _restore_last_good(self) -> str:
+        """Roll back to the last good checkpoint (it outlives the
+        process) or else the host snapshot, in place; returns which."""
+        if self._last_good_ckpt is not None:
+            save_dir, tag = self._last_good_ckpt
+            try:
+                self._load_checkpoint_impl(save_dir, tag, True, True, False)
+                return f"checkpoint {tag}"
+            except Exception as e:
+                if self._state_snapshot is None:
+                    raise
+                logger.warning(
+                    "self-healing: checkpoint rollback to %s failed (%s) — "
+                    "falling back to the in-memory snapshot", tag, e)
+        snap = self._state_snapshot
+        if snap is None:
+            raise RuntimeError("self-healing: no rollback target")
+        self._copy_masters(snap["masters"])
+        self._copy_optimizer_state(snap["optimizer"])
+        self._finish_load(snap, True)
+        return f"snapshot at step {snap['global_steps']}"
+
+    def _train_batch_impl(self, mbs: List[Dict[str, Any]]) -> float:
+        # the fault sites, all before any state changes: a collective
+        # failure is retry-safe; a NaN batch flows through the real step,
+        # so recovery must really repair the masters
+        fi = get_fault_injector()
+        if fi.armed:
+            fi.maybe_raise("comm.collective_failure",
+                           InjectedCollectiveFault,
+                           "injected collective failure at dispatch")
+            if fi.has_site("train.nan_grad"):
+                # a token-only batch has nothing to poison: the site is
+                # skipped and not counted
+                if not any(_is_float(x) for mb in mbs for x in mb.values()):
+                    if not self._nan_site_warned:
+                        self._nan_site_warned = True
+                        logger.warning(
+                            "fault injection: train.nan_grad is armed but "
+                            "the batch has no floating-point leaf to "
+                            "poison — site skipped (not counted)")
+                elif fi.fire("train.nan_grad"):
+                    mbs = [{k: _nan_like(x) if _is_float(x) else x
+                            for k, x in mb.items()} for mb in mbs]
+
+        self.timers(TRAIN_BATCH_TIMER).start()
+        self.tput_timer.start()
+        watchdog = get_watchdog()
+        t_batch0 = None
+        if telemetry_state.enabled:
+            get_tracer().set_step(self.global_steps)
+            t_batch0 = time.perf_counter()
+        with trace_span("train.batch"):
+            with trace_span("train.place_batch"), \
+                    watchdog.track("input_wait"):
+                mbs = [self._to_device(mb) for mb in mbs]
+            # the first step builds the kernels: the watchdog's compile
+            # phase, as the JAX engine's first step traces
+            with trace_span("train.step"), watchdog.track(
+                    "compile" if self.global_steps == 0 else "step"):
+                losses = []
+                for mb in mbs:
+                    loss = self.forward(mb)
+                    self.backward(loss)
+                    losses.append(loss.detach().float())
+                self.step()
+                loss = float(torch.stack(losses).mean())
+        step = self.global_steps - 1
+        if fi.armed and fi.fire("train.slow_step"):
+            # inside the measured window: the anomaly detector sees it
+            # as it would a real straggler
+            time.sleep(fi.site_value("train.slow_step", 100.0) / 1e3)
+        if telemetry_state.enabled:
+            if not math.isfinite(loss):
+                watchdog.note_nonfinite("loss", step, loss)
+            if not math.isfinite(self._last_grad_norm):
+                watchdog.note_nonfinite("grad_norm", step,
+                                        self._last_grad_norm)
+        self.tput_timer.stop(
+            report_speed=self.global_steps % self.config.steps_per_print == 0)
+        self.timers(TRAIN_BATCH_TIMER).stop()
+        if t_batch0 is not None:
+            watchdog.observe_step_time(
+                "train", (time.perf_counter() - t_batch0) * 1e3, step=step)
+        if self.monitor is not None:
+            self._monitor_write(self.monitor.write_events, [
+                ("Train/Samples/train_loss", loss, self.global_samples),
+                ("Train/Samples/lr", self._last_lr, self.global_samples)])
+            if self.global_steps % self.config.steps_per_print == 0:
+                self._monitor_write(self.monitor.write_registry_snapshot,
+                                    self.global_samples)
+        if self.config.wall_clock_breakdown and \
+                self.global_steps % self.config.steps_per_print == 0:
+            self.timers.log([TRAIN_BATCH_TIMER])
+        return loss
 
     def eval_batch(self, batch: Dict[str, Any]) -> float:
         with torch.no_grad():
             return float(self.forward(batch))
 
     # ------------------------------------------------------------------
-    # outside the slice
+    # checkpoints (JAX engine.py:1369-1567)
     # ------------------------------------------------------------------
-    def save_checkpoint(self, *args, **kwargs):
-        raise outside_slice("checkpoint save", "11f (checkpointing)")
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None,
+                        save_latest: bool = True) -> bool:
+        """Save the masters, the optimizer state and ``client_state`` (with
+        the engine's counters and LR scheduler) under ``<save_dir>/<tag>``
+        (default ``global_step<n>``).  With ``save_latest`` the async
+        writer is drained and ``latest`` names the tag; without it the
+        caller commits the pointer (``checkpoint_engine.wait()`` then
+        ``write_latest``) and the write overlaps the next steps."""
+        with get_watchdog().track("checkpoint"):
+            return self._save_checkpoint_impl(save_dir, tag, client_state,
+                                              save_latest)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise outside_slice("checkpoint load", "11f (checkpointing)")
+    def _save_checkpoint_impl(self, save_dir, tag, client_state,
+                              save_latest) -> bool:
+        tag = tag or f"global_step{self.global_steps}"
+        get_flight_recorder().record("checkpoint.save", dir=save_dir,
+                                     tag=tag, global_step=self.global_steps)
+        client_state = dict(client_state or {})
+        client_state.update({
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "lr_scheduler": self.lr_scheduler.state_dict(),
+            "pipe_stages": 1,
+        })
+        if self._rng_key_data is not None:
+            client_state["rng_key_data"] = list(self._rng_key_data)
+        self.checkpoint_engine.save(save_dir, tag, {
+            "module": self.params, "optimizer": self.optimizer_kind,
+            "optimizer_state_dict": self.optimizer.state_dict()},
+            client_state)
+        if save_latest:
+            # latest last, after the writer drained: a crash before it
+            # leaves latest naming the previous complete checkpoint
+            self.checkpoint_engine.wait()
+            self.checkpoint_engine.write_latest(save_dir, tag)
+        # the freshest rollback target (a load waits for the writer)
+        self._last_good_ckpt = (save_dir, tag)
+        return True
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False):
+        """Load ``tag`` (default: the one ``latest`` names) in place;
+        returns ``(tag, client_state)``, ``(None, {})`` when there is no
+        checkpoint.  Without the optimizer states (or ``load_module_only``)
+        only the masters load and the optimizer keeps its trajectory."""
+        with get_watchdog().track("checkpoint"):
+            return self._load_checkpoint_impl(
+                load_dir, tag, load_optimizer_states,
+                load_lr_scheduler_states, load_module_only)
+
+    def _load_checkpoint_impl(self, load_dir, tag, load_optimizer_states,
+                              load_lr_scheduler_states, load_module_only):
+        get_flight_recorder().record("checkpoint.load", dir=load_dir,
+                                     tag=tag or "")
+        if self.config.checkpoint.load_universal:
+            # a universal directory, or the <tag>_universal sibling that
+            # ds_to_universal wrote beside the checkpoint
+            from ..checkpoint.universal import (ATOMS_FILE,
+                                                load_universal_into_engine)
+            cand = None
+            if os.path.exists(os.path.join(load_dir, ATOMS_FILE)):
+                cand = load_dir
+            else:
+                t = tag or self.checkpoint_engine.read_latest(load_dir)
+                if t is not None:
+                    c = os.path.join(load_dir, f"{t}_universal")
+                    if os.path.exists(os.path.join(c, ATOMS_FILE)):
+                        cand = c
+            if cand is None:
+                raise FileNotFoundError(
+                    f"checkpoint.load_universal: no universal atoms under "
+                    f"{load_dir!r} — run ds_to_universal first")
+            load_universal_into_engine(
+                self, cand,
+                load_optimizer_states=(load_optimizer_states
+                                       and not load_module_only),
+                load_lr_scheduler_states=load_lr_scheduler_states)
+            return load_dir, {}
+        tag = tag or self.checkpoint_engine.read_latest(load_dir)
+        if tag is None:
+            return None, {}
+        module_only = load_module_only or not load_optimizer_states
+        state, client_state = self.checkpoint_engine.load(
+            load_dir, tag, module_only=module_only)
+        module = state["module"]
+        if leaf_paths(module) != self.param_paths:
+            raise ValueError(f"checkpoint {tag!r} holds another model's "
+                             f"tree: {leaf_paths(module)[:4]}...")
+        self._copy_masters(tree_leaves(module))
+        if not module_only:
+            if state["optimizer"] != self.optimizer_kind:
+                raise ValueError(
+                    f"checkpoint {tag!r} holds {state['optimizer']} state; "
+                    f"this engine runs {self.optimizer_kind}")
+            per_param = state["optimizer_state_dict"]["state"]
+            self._copy_optimizer_state(
+                [per_param.get(i) for i in range(len(self._masters))])
+        self._finish_load(client_state, load_lr_scheduler_states)
+        return tag, client_state
+
+    @torch.no_grad()
+    def _copy_masters(self, sources: List[Any]) -> None:
+        """Copy into the masters in place (the optimizer holds them); a
+        None source leaves its master as it is."""
+        for p, src in zip(self._masters, sources):
+            if src is None:
+                continue
+            src = _as_tensor(src)
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"master of shape {tuple(p.shape)} cannot "
+                                 f"load {tuple(src.shape)}")
+            p.copy_(src)
+
+    @torch.no_grad()
+    def _copy_optimizer_state(self, states: List[Optional[dict]]) -> None:
+        """Each master's optimizer state from ``states`` (``step`` and
+        moments, in tree order), copied into the existing moments; None
+        empties a master's state (a fresh optimizer)."""
+        moments = type(self.optimizer)._moments
+        for p, st in zip(self._masters, states):
+            if st is None:
+                self.optimizer.state.pop(p, None)
+                continue
+            cur = self.optimizer.state[p]
+            if not cur:
+                cur["step"] = 0
+                for name in moments:
+                    cur[name] = torch.zeros_like(p)
+            for k, v in st.items():
+                if k == "step":
+                    cur["step"] = int(v)
+                elif k in moments:
+                    cur[k].copy_(_as_tensor(v))
+                else:
+                    raise KeyError(f"optimizer state {k!r} is not "
+                                   f"{type(self.optimizer).__name__}'s")
+
+    def _finish_load(self, client_state: dict, load_lr_scheduler_states,
+                     default_steps: int = 0) -> None:
+        """Counters, the LR scheduler and the kept random stream from a
+        load's client state; the step starts clean."""
+        cs = client_state
+        self.global_steps = cs.get("global_steps", default_steps)
+        self.global_samples = cs.get("global_samples", 0)
+        self.micro_steps = cs.get("micro_steps", 0)
+        if "rng_key_data" in cs:
+            self._rng_key_data = cs["rng_key_data"]
+        if load_lr_scheduler_states and "lr_scheduler" in cs:
+            self.lr_scheduler.load_state_dict(cs["lr_scheduler"])
+        # the compute copy was cast from the old masters
+        self._params_c = None
+        self._pending = 0
+        for p in self._masters:
+            p.grad.zero_()
+
+    def get_fp32_state_dict(self) -> Dict[str, Any]:
+        """The masters as host numpy fp32 arrays, in the model's tree."""
+        return tree_map(lambda p: p.detach().to("cpu", copy=True).numpy(),
+                        self.params)
+
+    def save_16bit_model(self, save_dir: str,
+                         filename: str = "model_weights.npz") -> str:
+        """bf16 weights for serving, as the JAX engine writes them: an
+        npz of uint16 views under the flat ``.``-joined keys, beside a
+        ``.dtypes.json`` naming each ``bfloat16``, so either package
+        reads the other's file."""
+        from ..checkpoint.zero_to_fp32 import flatten_state_dict
+        flat = flatten_state_dict(self.get_fp32_state_dict())
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, filename)
+        np.savez(path, **{
+            k: torch.from_numpy(v).to(torch.bfloat16).view(torch.int16)
+            .numpy().view(np.uint16) for k, v in flat.items()})
+        with open(path + ".dtypes.json", "w") as f:
+            json.dump({k: "bfloat16" for k in flat}, f)
+        logger.info("saved 16-bit model -> %s", path)
+        return path

@@ -1,12 +1,13 @@
 """Deterministic fault-injection registry.
 
 Counterpart of ``deepspeed_tpu/runtime/fault_injection.py`` (plain
-Python, the same sites, grammar and seeding).  The port wires the
-serving sites: ``serving.preempt`` (``FastGenScheduler.step``),
-``fastgen.poison_request`` (the scheduler's admission) and
-``kv.alloc_oom`` (``StateManager.allocate_for``); the training sites are
-known to the registry so a shared ``DS_CHAOS`` spec parses in both
-packages, and fire nowhere yet (ROADMAP Queue 1 item 11i).
+Python, the same sites, grammar and seeding).  The port wires
+``serving.preempt`` (``FastGenScheduler.step``),
+``fastgen.poison_request`` (the scheduler's admission), ``kv.alloc_oom``
+(``StateManager.allocate_for``), ``ckpt.io_error``
+(``checkpoint/engine.py`` and the serving snapshot writer) and the
+training sites ``comm.collective_failure``, ``train.nan_grad`` and
+``train.slow_step`` (``DeepSpeedEngine.train_batch``).
 
 Chaos engineering for the training and serving hot paths: a process-wide
 registry of **named injection sites** woven into the code the telemetry

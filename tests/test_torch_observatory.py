@@ -34,6 +34,7 @@ from deepspeed_tpu.telemetry import metrics as jtm
 from deepspeed_tpu.telemetry import registry as jreg
 from deepspeed_tpu.telemetry import slo as jslo
 from deepspeed_tpu.telemetry import timeseries as jts
+from deepspeed_tpu.telemetry import tracer as jtr
 from deepspeed_tpu.telemetry import watchdog as jwd
 from deepspeed_tpu_torch import telemetry as ttel
 from deepspeed_tpu_torch.telemetry import federation as tfed
@@ -43,12 +44,13 @@ from deepspeed_tpu_torch.telemetry import metrics as ttm
 from deepspeed_tpu_torch.telemetry import registry as treg
 from deepspeed_tpu_torch.telemetry import slo as tslo
 from deepspeed_tpu_torch.telemetry import timeseries as tts
+from deepspeed_tpu_torch.telemetry import tracer as ttr
 from deepspeed_tpu_torch.telemetry import watchdog as twd
 
 PORT = dict(tel=ttel, wd=twd, ts=tts, slo=tslo, fed=tfed, mem=tmem,
-            reg=treg, tm=ttm, fr=tfr)
+            reg=treg, tm=ttm, fr=tfr, tr=ttr)
 JAX = dict(tel=jtel, wd=jwd, ts=jts, slo=jslo, fed=jfed, mem=jmem,
-           reg=jreg, tm=jtm, fr=jfr)
+           reg=jreg, tm=jtm, fr=jfr, tr=jtr)
 REL = 1e-12
 
 
@@ -68,10 +70,13 @@ class FakeClock:
 @pytest.fixture(autouse=True)
 def _hygiene():
     """Telemetry on in both packages for the test, with empty flight
-    recorders and journey logs; off again after, the flight recorders
-    and the process registries emptied."""
+    recorders and journey logs and no component label on this thread (a
+    replica pool stepped earlier in the process leaves its replica's);
+    off again after, the flight recorders and the process registries
+    emptied."""
     torch.set_num_threads(1)
     for p in (PORT, JAX):
+        p["tr"].set_component("")
         p["fr"].get_flight_recorder().clear()
         # a latency page names the dominant segment of the journeys
         # this process recorded: none, in both packages

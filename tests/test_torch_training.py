@@ -246,7 +246,7 @@ def test_training_lowers_the_loss_on_a_fixed_batch():
      "adam_w_mode"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
      "offload"),
-    ({"checkpoint": {"async_save": False}}, "checkpoint"),
+    ({"sequence_parallel": {"enabled": True}}, "sequence_parallel"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"bf16": {"enabled": True, "accumulate_grads_in_fp32": False}},
      "fp32 gradient"),
@@ -266,14 +266,10 @@ def test_unknown_zero_key_raises():
 
 
 def test_engine_calls_outside_the_slice_raise():
-    """Checkpoints (item 11f) and remat policies other than
-    ``nothing_saveable`` (11a) still raise; a batch-less ``train_batch``
-    on an engine without a loader is the JAX engine's ValueError."""
+    """Remat policies other than ``nothing_saveable`` (11a) still raise;
+    a batch-less ``train_batch`` on an engine without a loader is the
+    JAX engine's ValueError."""
     engine = _port_engine()
-    for call in (lambda: engine.save_checkpoint("ckpt"),
-                 lambda: engine.load_checkpoint("ckpt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
     with pytest.raises(ValueError, match="no batch and no dataloader"):
         engine.train_batch()
     with pytest.raises(NotImplementedError, match="remat_policy"):
