@@ -298,8 +298,8 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     ``initialize(training_data=...)`` and ``train_batch(data_iter=
     RepeatingLoader(loader))``: 4 steps, every sample read once in
     order, AdamW the only kernel;
-19. checkpoints at Llama-2-7B width cut to 2 layers (0.67 B params,
-    8.0 GB an AdamW checkpoint) in a fresh temporary directory that
+19. checkpoints at Llama-2-7B width cut to 1 layer (0.46 B params,
+    5.6 GB an AdamW checkpoint) in a fresh temporary directory that
     needs 20 GB free (the free space printed first): (a) 4
     ``train_batch`` calls straight through against 2, a save, a fresh
     engine's load and 2 more, with ``async_save`` off and on (the saving
@@ -320,7 +320,38 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     save and load GB/s, the seconds from ``save()`` returning to
     ``latest``, the conversions, peak host and device memory, each
     beside the card line; launch counts per path;
-20. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+20. training past the card's memory: (a) the host kernels (the port's
+    copies of the C++ Adam in AdamW and L2 mode, Adagrad and Lion, built
+    by ``ops/op_builder``) against their plain PyTorch versions on one
+    4096x11008 fp32 leaf over 3 steps, host ms against the plain version,
+    ``torch.optim``'s foreach step and the bound (the bytes a step moves
+    over the host's peak memory rate, the fastest of streaming probes on
+    every core; a kernel faster than its bound fails), and an
+    ``AsyncIOHandle`` write and read of 1 GiB, bit-equal, MB/s; (b) phase
+    10's configuration on the device and with ``offload_optimizer`` cpu
+    at ratio 1.0 and 0.5, and at 2 layers on the device, with nvme and
+    with three planted faults (the host optimizer with a wrong beta2, no
+    weight decay, L2 decay), 4 ``train_batch`` calls each: losses and
+    ``get_fp32_state_dict()``'s masters within the offload limits of the
+    device run's (each planted fault must fail them), losses falling,
+    AdamW launched once per device leaf per step (never for an offloaded
+    leaf), the step split (forward and backward, device to host, host
+    step, host to device, NVMe wait), device and host state and peaks;
+    (c) every remat policy at phase 10's configuration, each in an
+    engine that ``initialize`` built from its config section (``tpu``
+    or ``activation_checkpointing``, ``cpu_checkpointing`` twice): one
+    micro-batch through ``engine.forward`` / ``backward``, loss and
+    accumulated gradients bit-equal to ``nothing_saveable``'s, the bytes
+    the forward leaves on the card (the ``offload_*`` policies fewer than
+    the policies whose values they offload), flash forward launches, then
+    one timed ``train_batch`` each, step ms and peak; (d) Llama-2-7B at
+    full width and depth (6.74 B parameters, ZeRO-3, bf16 over fp32
+    masters, micro 1 x 2048) with the optimizer offloaded, ratio 1.0 when
+    the host has 92 GB available (else 0.9, said), 3 ``train_batch``
+    calls in a child process that counts every kernel's launches: losses
+    finite and falling, device peak under 75 GB, host peak RSS, step
+    split, the host step against its bound, and tokens/s;
+21. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
     80 and 96 in rows of their own), the card line, and last the
     ``{"ok": true, "device": {...}}`` line.
 
@@ -686,6 +717,38 @@ def ptxas_kernels(build_log: str, nvcc: str) -> dict:
         if m:
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+def kernel_counters() -> dict:
+    """Every hand-written kernel of the main paths: name -> (its
+    library, its C entry points where the source holds more than one
+    kernel, or None).  Shared with the full-depth child process."""
+    from deepspeed_tpu_torch.ops import flash_attention as FA
+    from deepspeed_tpu_torch.ops import fp_quantizer as FQ
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
+    from deepspeed_tpu_torch.ops import normalization as N
+    from deepspeed_tpu_torch.ops import paged_attention as PA
+    from deepspeed_tpu_torch.ops import quantization as Q
+    # (the paged kernel's decode path is two launches: the split-KV kernel,
+    # counted under the page format's name, and the combine)
+    return {
+        "paged_attention": (PA.KERNEL, ("paged_attention_bf16",)),
+        "paged_attention_int8": (PA.KERNEL, ("paged_attention_int8",)),
+        "paged_attention_combine": (PA.KERNEL, ("paged_attention_combine",)),
+        "rmsnorm": (N.KERNEL, ("rmsnorm_bf16",)),
+        "rmsnorm_res": (N.KERNEL, ("rmsnorm_res_bf16",)),
+        "layernorm": (N.LN_KERNEL, None),
+        "flash_fwd": (FA.KERNEL, None),
+        "flash_bwd": (FA.BWD_KERNEL, None),
+        "flash_bwd_dkv": (FA.BWD_KERNEL, ("flash_bwd_dkv_bf16",)),
+        "flash_bwd_dq": (FA.BWD_KERNEL, ("flash_bwd_dq_bf16",)),
+        "fused_adamw": (FO.KERNEL, None),
+        "quantize": (Q.KERNEL, ("quantize_blockwise_f32",)),
+        "dequantize": (Q.KERNEL, ("dequantize_blockwise_f32",
+                                  "dequantize_blockwise_bf16")),
+        "fused_lion": (FO.LION_KERNEL, None),
+        "fused_lamb": (FO.LAMB_KERNEL, None),
+        "fp_dequant": (FQ.KERNEL, None)}
 
 
 def read_launches(counters) -> dict:
@@ -5445,16 +5508,22 @@ _KERNEL_KINDS = (("flash_fwd", "flash forward"),
 
 def device_ms_by_kind(prof):
     """(device kernels, {kind: device ms}) of a torch.profiler run, the
-    largest kind first."""
+    largest kind first.  Read from the profiler's raw results, with the
+    names ``prof.events()`` gives them: building that list (every host
+    operator as a Python event, then their tree) takes seconds a run at
+    thousands of kernels a step, and the device events need none of it."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
     by_kind, n_kernels = {}, 0
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_hidden_event():
             continue
+        name = _rewrite_name(name=ev.name(), with_wildcard=True)
         n_kernels += 1
-        kind = next((k for frag, k in _KERNEL_KINDS if frag in ev.name),
+        kind = next((k for frag, k in _KERNEL_KINDS if frag in name),
                     "other (elementwise, reductions, copies)")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ev.time_range.elapsed_us()
+        by_kind[kind] = by_kind.get(kind, 0.0) + (
+            ev.end_ns() - ev.start_ns()) / 1e3
     return n_kernels, {k: v / 1e3 for k, v in sorted(
         by_kind.items(), key=lambda kv: -kv[1])}
 
@@ -6014,9 +6083,10 @@ def bert_phase(counters, card):
 # ---------------------------------------------------------------------------
 
 # phase 19: checkpoints, the universal format, the offline tools and
-# self-healing, at Llama-2-7B width cut to 2 layers (0.67 B params: 2.7 GB
-# of fp32 masters and 5.4 GB of AdamW moments a checkpoint)
-CKPT_LAYERS = 2
+# self-healing, at Llama-2-7B width cut to 1 layer (0.46 B params: 1.9 GB
+# of fp32 masters and 3.7 GB of AdamW moments a checkpoint; cut from 2 to
+# make room for phase 20)
+CKPT_LAYERS = 1
 CKPT_STEPS = 2                 # train_batch calls before and after a save
 CKPT_DISK_GB = 20.0            # the phase's peak on disk: two AdamW tags
                                # or one and its universal atoms, plus room
@@ -6377,6 +6447,887 @@ def checkpoint_phase(counters, card):
     return launches_by_path, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training past the card's memory (ZeRO-Offload to the host and
+# NVMe, the host kernels, the remat policies, Llama-2-7B at full depth)
+# ---------------------------------------------------------------------------
+
+# (a) the host kernels on one Llama-2-7B MLP leaf, fp32, HOST_STEPS steps
+HOST_LEAF = (4096, 11008)
+HOST_STEPS = 3
+# host kernel vs its plain PyTorch version (fp32 on the CPU): max |delta| /
+# max |ref| of p and of each state slot after HOST_STEPS steps.  The plain
+# versions take the decayed gradient g + wd * p and Lion's b1 * m +
+# (1 - b1) * g as the kernels' fused multiply-adds give them (fp64, then
+# one rounding); elsewhere the order of operations moves a value by a few
+# ulp.  CPU stand-in (this function on the CPU): p and slots within
+# 1.4e-7..9.1e-7.  Lion's sign of a near-tie (|b1 m + (1 - b1) g| within
+# 1e-6 of its largest) follows m's last ulp: counted, not held (1 of
+# 45.1 M elements on the stand-in); every other element is held.
+HOST_OPT_MAX_REL_TOL = 1e-5
+HOST_AIO_BYTES = 1 << 30
+# the host's memory rate for the host kernels' bound: streaming probes
+# over two buffers of HOST_PROBE_BYTES, the best of HOST_PROBE_REPS each,
+# once before the kernels and once after, and in (d)'s child before its
+# steps (host_stream_gb_s; the host is shared, and its rate drifts by a
+# tenth or more within a run)
+HOST_PROBE_BYTES = 1 << 30
+HOST_PROBE_REPS = 8
+# (b) phase 10's configuration with the optimizer offloaded, held to the
+# device run on the same weights and batch after TRAIN_STEPS steps: the
+# losses (largest |delta| over the steps), and get_fp32_state_dict()'s
+# masters against the device run's, leaf by leaf: the update gap
+# rms(run - device) / rms(device - initial) and the decay gap
+# |<device - run, device>| / <device, device> (a weight decay the host
+# dropped moves every master by sum(lr) * wd = 9.3e-5 along itself).
+# The host Adam and the device AdamW kernel differ in rounding only.
+# Each limit lies near the geometric mean of the sound runs' largest
+# reading and the smallest planted fault's it is to catch (OFFLOAD_FAULTS:
+# the host optimizer given a wrong beta2, no weight decay, or L2 in place
+# of decoupled decay, at OFFLOAD_NVME_LAYERS layers with every leaf
+# offloaded), which the phase requires each to fail.  NVIDIA H100 80GB
+# HBM3, 700 W, 8 host cores: sound runs (cpu at 1.0 and 0.5, nvme) loss
+# gap <= 8.2e-4, update gap <= 0.019, decay gap <= 4.7e-7; beta2 0.999
+# 3.6e-2 / 0.024 / 2.1e-5; weight decay 0 1.4e-3 / 0.26 / 9.3e-5; L2
+# 9.27 / 3.16 / 8.2e-2.  Every fault fails at least two of the three.
+OFFLOAD_LOSS_MAX = 5e-3
+# and JAX tests/test_offload.py's own loss tolerance, held as well
+OFFLOAD_LOSS_RTOL = 2e-3
+OFFLOAD_LOSS_ATOL = 2e-4
+OFFLOAD_UPDATE_GAP = 0.07
+OFFLOAD_DECAY_GAP = 3e-6
+OFFLOAD_FAULTS = {
+    "fault_beta2_0.999": {"betas": [0.9, 0.999]},
+    "fault_weight_decay_0": {"weight_decay": 0.0},
+    "fault_l2_not_decoupled": {"type": "adam", "adam_w_mode": False},
+}
+OFFLOAD_RATIOS = (1.0, 0.5)
+OFFLOAD_NVME_LAYERS = 2
+# (d) Llama-2-7B at full depth: micro 1 x 2048, gas 1, 3 steps; ratio 1.0
+# when the host has FULL_DEPTH_HOST_GB available (fp32 masters and Adam
+# moments of 6.74 B parameters, 80.9 GB, and the 5.77 GB staging buffer
+# of the largest leaf), else 0.9
+FULL_DEPTH_STEPS = 3
+FULL_DEPTH_HOST_GB = 92.0
+FULL_DEPTH_PEAK_GB = 75.0
+
+
+def _offload_config(ratio, device="cpu", nvme_path=None, fault=None):
+    """TRAIN_CONFIG with the optimizer offloaded; ``fault``: optimizer
+    keys to change (``type`` among them) for a planted fault."""
+    off = {"device": device, "ratio": ratio}
+    if nvme_path:
+        off["nvme_path"] = nvme_path
+    opt = TRAIN_CONFIG["optimizer"]
+    if fault:
+        fault = dict(fault)
+        opt = {"type": fault.pop("type", opt["type"]),
+               "params": dict(opt["params"], **fault)}
+    return dict(TRAIN_CONFIG, optimizer=opt, zero_optimization={
+        "stage": 0, "offload_optimizer": off})
+
+
+def host_stream_gb_s(n_bytes=HOST_PROBE_BYTES,
+                     reps=HOST_PROBE_REPS) -> dict:
+    """The host's peak memory rate: streaming passes of PyTorch's CPU
+    kernels on every core (``torch.set_num_threads(os.cpu_count())``)
+    over fp32 buffers of ``n_bytes``, far past the last-level cache, each
+    the best of ``reps``, its bytes counted as each input read once and
+    each output written once: ``read`` (a sum), ``scale`` (a multiply in
+    place), ``add`` (an add in place: two reads, one write; the host
+    optimizers' pattern) and ``copy`` (whose write-allocate traffic goes
+    uncounted).  Returns GB/s by probe and ``peak``, the fastest."""
+    import os
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count())
+    try:
+        a = torch.full((n_bytes // 4,), 1.0)
+        b = torch.full_like(a, 0.5)
+        probes = {"read": (a.sum, 1),
+                  "scale": (lambda: a.mul_(-1.0), 2),
+                  "add": (lambda: a.add_(b), 3),
+                  "copy": (lambda: b.copy_(a), 2)}
+        rates = {}
+        for name, (fn, passes) in probes.items():
+            best = math.inf
+            for _ in range(reps):
+                t = time.perf_counter()
+                fn()
+                best = min(best, time.perf_counter() - t)
+            rates[name] = passes * n_bytes / best / 1e9
+        del a, b
+    finally:
+        torch.set_num_threads(threads)
+    rates["peak"] = max(rates.values())
+    return rates
+
+
+def _fma_grad(g, p, wd):
+    """g + wd * p as the kernels' fused multiply-add rounds it."""
+    import numpy as np
+    return (g.double() + float(np.float32(wd)) * p.double()).float()
+
+
+def _plain_adam(p, g, m, v, step, lr, b1, b2, eps, wd, adamw):
+    if not adamw and wd:
+        g = _fma_grad(g, p, wd)
+    m.mul_(b1).add_(g, alpha=1 - b1)
+    v.mul_(b2).addcmul_(g, g, value=1 - b2)
+    bc1, bc2 = 1 - b1 ** step, math.sqrt(1 - b2 ** step)
+    if adamw and wd:
+        p.mul_(1 - lr * wd)
+    p.addcdiv_(m, v.sqrt().div_(bc2).add_(eps), value=-lr / bc1)
+
+
+def _plain_adagrad(p, g, v, lr, eps, wd):
+    if wd:
+        g = _fma_grad(g, p, wd)
+    v.addcmul_(g, g)
+    p.addcdiv_(g, v.sqrt().add_(eps), value=-lr)
+
+
+def _lion_direction(m, g, b1):
+    """b1 * m + (1 - b1) * g as the kernel's fused multiply-add rounds it
+    (fp64 here), whose sign is Lion's update."""
+    import numpy as np
+    b1f = float(np.float32(b1))
+    b1m = np.float32(1) - np.float32(b1)
+    return b1f * m.double() + (g * float(b1m)).double()
+
+
+def _plain_lion(p, g, m, lr, b1, b2, wd):
+    u = _lion_direction(m, g, b1).sign().float()
+    if wd:
+        p.mul_(1 - lr * wd)
+    p.add_(u, alpha=-lr)
+    m.mul_(b2).add_(g, alpha=1 - b2)
+
+
+# name -> (host optimizer kwargs, state slots, library call or None)
+HOST_CASES = {
+    "cpu_adamw": dict(kind="adam", adamw=True, lr=3e-4, betas=(0.9, 0.95),
+                      eps=1e-8, wd=0.1),
+    "cpu_adam_l2": dict(kind="adam", adamw=False, lr=3e-4, betas=(0.9, 0.95),
+                        eps=1e-8, wd=0.1),
+    "cpu_adagrad": dict(kind="adagrad", lr=1e-2, eps=1e-10, wd=0.1),
+    "cpu_lion": dict(kind="lion", lr=1e-4, betas=(0.9, 0.99), wd=0.1),
+}
+
+
+def host_kernels_phase(card):
+    """Phase 20 (a): each host kernel against its plain PyTorch version on
+    one fp32 leaf of HOST_LEAF, HOST_STEPS steps from the same seeded
+    weights and gradients; host ms per step (steady: the first step also
+    touches the state's fresh pages), the plain version's and the library
+    call's (``torch.optim`` with ``foreach=True`` on CPU tensors; none for
+    Lion), the bound (the bytes a step moves over the host's peak memory
+    rate: ``host_stream_gb_s``, the fastest probe of a run before the
+    kernels and one after; a kernel faster than it fails the phase);
+    then an ``AsyncIOHandle`` write and read of HOST_AIO_BYTES, bit-equal,
+    MB/s.  Returns the rows and the host's peak rate in GB/s."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.ops import adam as H
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
+    from concurrent.futures import ThreadPoolExecutor
+    from deepspeed_tpu_torch.ops.op_builder import ALL_OPS
+    t = time.perf_counter()
+    builders = [ALL_OPS[name]() for name in ("cpu_adam", "cpu_adagrad",
+                                              "cpu_lion", "async_io")]
+    with ThreadPoolExecutor(len(builders)) as pool:    # one g++ each
+        list(pool.map(lambda b: b.build(), builders))
+    log(f"host ops built in {time.perf_counter() - t:.1f} s")
+    n = HOST_LEAF[0] * HOST_LEAF[1]
+    probe_before = host_stream_gb_s()
+    gen = torch.Generator().manual_seed(SEED + 61)
+    p0 = torch.randn(n, generator=gen) * 0.02
+    grads = [torch.randn(n, generator=gen) * 1e-3 for _ in range(HOST_STEPS)]
+    rows = []
+    for name, c in HOST_CASES.items():
+        kind = c["kind"]
+        if kind == "adam":
+            opt = H.DeepSpeedCPUAdam(lr=c["lr"], betas=c["betas"],
+                                     eps=c["eps"], weight_decay=c["wd"],
+                                     adamw_mode=c["adamw"])
+            n_bytes = 7 * 4 * n      # p, g, m, v read; p, m, v written
+        elif kind == "adagrad":
+            opt = H.DeepSpeedCPUAdagrad(lr=c["lr"], eps=c["eps"],
+                                        weight_decay=c["wd"])
+            n_bytes = 5 * 4 * n
+        else:
+            opt = H.DeepSpeedCPULion(lr=c["lr"], betas=c["betas"],
+                                     weight_decay=c["wd"])
+            n_bytes = 5 * 4 * n
+        p = p0.clone()
+        ms = []
+        for g in grads:
+            t = time.perf_counter()
+            opt.step(0, p.numpy(), g.numpy())
+            ms.append((time.perf_counter() - t) * 1e3)
+        q = p0.clone()
+        state = {slot: torch.zeros(n) for slot in opt.SLOTS}
+        near = torch.zeros(n, dtype=torch.bool)
+        plain_ms = []
+        for step, g in enumerate(grads, 1):
+            if kind == "lion":
+                u = _lion_direction(state["exp_avg"], g, c["betas"][0]).abs()
+                near |= u <= 1e-6 * u.max()
+            t = time.perf_counter()
+            if kind == "adam":
+                _plain_adam(q, g, state["exp_avg"], state["exp_avg_sq"],
+                            step, c["lr"], *c["betas"], c["eps"], c["wd"],
+                            c["adamw"])
+            elif kind == "adagrad":
+                _plain_adagrad(q, g, state["exp_avg_sq"], c["lr"], c["eps"],
+                               c["wd"])
+            else:
+                _plain_lion(q, g, state["exp_avg"], c["lr"], *c["betas"],
+                            c["wd"])
+            plain_ms.append((time.perf_counter() - t) * 1e3)
+        held = ~near
+        err = {"p": float((p - q).abs()[held].max() / q.abs().max())}
+        for slot in opt.SLOTS:
+            ref = state[slot]
+            got = torch.from_numpy(opt._state[0][slot])
+            err[slot] = float((got - ref).abs().max() / ref.abs().max())
+        library_ms = None
+        if kind != "lion":
+            lp = p0.clone()
+            if kind == "adagrad":
+                lib = torch.optim.Adagrad([lp], lr=c["lr"], eps=c["eps"],
+                                          weight_decay=c["wd"], foreach=True)
+            else:
+                cls = torch.optim.AdamW if c["adamw"] else torch.optim.Adam
+                lib = cls([lp], lr=c["lr"], betas=c["betas"], eps=c["eps"],
+                          weight_decay=c["wd"], foreach=True)
+            lms = []
+            for g in grads:
+                lp.grad = g
+                t = time.perf_counter()
+                lib.step()
+                lms.append((time.perf_counter() - t) * 1e3)
+            library_ms = statistics.median(lms[1:])
+            del lib, lp
+        row = dict(
+            name=name, route="host C++ (g++ -O3 -march=native)",
+            source=f"deepspeed_tpu_torch/csrc/host/"
+                   f"{'adam/cpu_adam' if kind == 'adam' else kind + '/cpu_' + kind}.cpp",
+            replaces="none (a host kernel; no pl.pallas_call)",
+            shape=f"{HOST_LEAF[0]}x{HOST_LEAF[1]} fp32",
+            ms=statistics.median(ms[1:]), first_step_ms=ms[0],
+            plain_ms=statistics.median(plain_ms[1:]), library_ms=library_ms,
+            bytes=n_bytes, bound_by="bytes",
+            max_rel_err=err, near_ties=int(near.sum()),
+            tol=HOST_OPT_MAX_REL_TOL)
+        if not all(e <= HOST_OPT_MAX_REL_TOL for e in err.values()):
+            raise RuntimeError(f"host kernel {name} disagrees with its plain "
+                               f"version: {row}")
+        rows.append(row)
+        del opt
+    probe_after = host_stream_gb_s()
+    probes = {k: max(probe_before[k], probe_after[k]) for k in probe_before}
+    host_gb_s = probes["peak"]
+    log(f"host: {os.cpu_count()} CPUs, streaming probes (GB/s, best of "
+        f"{HOST_PROBE_REPS} before and after the kernels) "
+        f"{json.dumps({'before': probe_before, 'after': probe_after})}; "
+        f"peak {host_gb_s:.2f} GB/s; {card}")
+    for row in rows:
+        row["bound_ms"] = row.pop("bytes") / (host_gb_s * 1e9) * 1e3
+        log(f"host kernel {row['name']}: {json.dumps(row)}; {card}")
+    fast = [r["name"] for r in rows if r["ms"] < r["bound_ms"]]
+    if fast:
+        raise RuntimeError(f"host kernels {fast} beat the bound of the "
+                           f"host's peak rate {host_gb_s:.2f} GB/s: the "
+                           f"probe under-reads the host")
+    # the async I/O: one 1 GiB buffer out and back
+    root = tempfile.mkdtemp(prefix="ds_aio_")
+    try:
+        data = np.frombuffer(np.random.default_rng(SEED + 62).bytes(
+            HOST_AIO_BYTES), np.uint8)
+        back = np.empty_like(data)
+        h = AsyncIOHandle(num_threads=8, block_size=1 << 20)
+        path = os.path.join(root, "aio.bin")
+        t = time.perf_counter()
+        h.sync_pwrite(data, path)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        h.sync_pread(back, path)
+        read_s = time.perf_counter() - t
+        h.close()
+        aio = dict(name="async_io", route="host C++ (g++ -O3 -march=native)",
+                   source="deepspeed_tpu_torch/csrc/host/aio/ds_aio.cpp",
+                   bytes=HOST_AIO_BYTES, bit_equal=bool(np.array_equal(
+                       data, back)),
+                   write_mb_s=HOST_AIO_BYTES / write_s / 1e6,
+                   read_mb_s=HOST_AIO_BYTES / read_s / 1e6,
+                   note="page-cache writes and a warm read (no drop_caches)")
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"host kernel async_io: {json.dumps(aio)}; {card}")
+    if not aio["bit_equal"]:
+        raise RuntimeError("AsyncIOHandle read back other bytes")
+    rows.append(aio)
+    log("host kernels:", json.dumps({"host_kernels": rows,
+                                     "cpu_count": os.cpu_count(),
+                                     "host_probe_gb_s": probes,
+                                     "card": card}))
+    return rows, host_gb_s
+
+
+def _rss_gb() -> float:
+    """This process's resident set now, from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) * 1024 / 1e9
+    return 0.0
+
+
+def _host_state_bytes(engine) -> int:
+    """The offload engine's host state: masters, moments (in RAM) and
+    the staging buffer."""
+    off = engine.offload
+    n = sum(m.nbytes for m in off.masters)
+    n += sum(buf.nbytes for st in off.host_opt._state.values()
+             for buf in st.values())
+    if engine._staging is not None:
+        n += engine._staging.numel() * 4
+    return n
+
+
+def _masters_on_card(engine, public=True):
+    """The fp32 masters in tree order, flat, on the card: from
+    ``get_fp32_state_dict()`` (host copies; an offloaded leaf's from its
+    host master), or with ``public`` False clones of a device run's."""
+    import torch
+    from deepspeed_tpu_torch.tree import tree_leaves
+    if not public:
+        return [p.detach().float().reshape(-1).clone()
+                for p in tree_leaves(engine.params)]
+    return [torch.from_numpy(x).reshape(-1).to("cuda")
+            for x in tree_leaves(engine.get_fp32_state_dict())]
+
+
+def _master_gaps(run, ref, init) -> dict:
+    """Largest over the leaves of the update gap rms(run - ref) /
+    rms(ref - init) and of the decay gap |<ref - run, ref>| / <ref, ref>."""
+    import torch
+    upd = dec = 0.0
+    for a, b, c in zip(run, ref, init):
+        d = (b - a).double()
+        bb = b.double()
+        u = float(torch.linalg.vector_norm(b - c, dtype=torch.float64))
+        upd = max(upd, float(torch.linalg.vector_norm(d)) / max(u, 1e-30))
+        dec = max(dec, abs(float((d * bb).sum())) / float((bb * bb).sum()))
+        del d, bb
+    return {"update_gap": upd, "decay_gap": dec}
+
+
+def _train_run(label, layers, config, batch, counters, steps=TRAIN_STEPS,
+               ref=None):
+    """``steps`` train_batch calls of Llama-2-7B width at ``layers`` layers
+    (seeded weights, one fixed batch); launch counts from zero, the step
+    split of each offloaded step, the peaks.  Without ``ref`` (a device
+    run) its initial and final masters are kept on the card; with it
+    (ref's masters), the run's final masters from get_fp32_state_dict()
+    are held against them.  Returns (summary, launches, masters or
+    None)."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.tree import tree_leaves
+    from deepspeed_tpu_torch.utils.memory import host_peak_rss_bytes
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    engine, *_ = dtt.initialize(model=LlamaForCausalLM("7b", num_layers=layers),
+                                config=config)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    device_state = torch.cuda.memory_allocated()
+    init = _masters_on_card(engine, public=False) if ref is None else None
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        loss = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        row = dict(ms=ms, loss=loss, lr=engine._last_lr)
+        if engine.offload is not None:
+            split = {k: v * 1e3 for k, v in engine.offload_times.items()}
+            row.update({f"{k}_ms": v for k, v in split.items()})
+            row["fwd_bwd_ms"] = ms - sum(v for k, v in split.items()
+                                         if k != "device_wait")
+        rows.append(row)
+    launches = read_launches(counters)
+    leaves = tree_leaves(engine.params)
+    n_device = (len(engine._device_index) if engine.optimizer is not None
+                else 0)
+    summary = dict(
+        label=label, layers=layers, steps=rows, build_s=build_s,
+        params=sum(p.numel() for p in leaves), leaves=len(leaves),
+        device_leaves=n_device,
+        offloaded_leaves=len(leaves) - n_device,
+        device_state_gb=device_state / 1e9,
+        device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        host_state_gb=(_host_state_bytes(engine) / 1e9
+                       if engine.offload is not None else 0.0),
+        host_rss_gb=_rss_gb(), host_peak_rss_gb=host_peak_rss_bytes() / 1e9,
+        launches=launches)
+    masters = None
+    if ref is None:
+        masters = {"init": init, "final": _masters_on_card(engine, False)}
+    if engine.offload is not None:
+        summary["offload_paths"] = engine.offload.offload_paths
+    if engine.offload is not None and engine.offload.swapper is not None:
+        engine.offload.swapper.close()
+    if ref is not None:
+        t = time.perf_counter()
+        run = _masters_on_card(engine)
+        del engine
+        summary.update(_master_gaps(run, ref["final"], ref["init"]))
+        summary["masters_compare_s"] = time.perf_counter() - t
+        del run
+    else:
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, launches, masters
+
+
+def _path_checks(s, ref, L, micro_batches, steps):
+    """Launch counts, losses and masters of an offload run against its
+    device reference: AdamW once per device leaf per step, the flash
+    kernels as phase 10's, losses and masters within the offload limits,
+    losses falling."""
+    la = s["launches"]
+    losses = [r["loss"] for r in s["steps"]]
+    ref_losses = [r["loss"] for r in ref["steps"]]
+    s["loss_gap"] = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    return {
+        "finite": all(math.isfinite(x) for x in losses),
+        "loss falls": losses[-1] < losses[0],
+        "losses near the device run's": all(
+            abs(a - b) <= min(OFFLOAD_LOSS_MAX, OFFLOAD_LOSS_ATOL
+                              + OFFLOAD_LOSS_RTOL * abs(b))
+            for a, b in zip(losses, ref_losses)),
+        "masters' update gap": s["update_gap"] <= OFFLOAD_UPDATE_GAP,
+        "masters' decay gap": s["decay_gap"] <= OFFLOAD_DECAY_GAP,
+        "fused_adamw once per device leaf per step":
+            la["fused_adamw"] == s["device_leaves"] * steps,
+        "flash_fwd": la["flash_fwd"] >= 2 * L * micro_batches,
+        "flash_bwd": la["flash_bwd_dkv"] == L * micro_batches
+        and la["flash_bwd_dq"] == L * micro_batches,
+        "other training kernels idle": all(la[k] == 0 for k in (
+            "fused_lion", "fused_lamb", "quantize", "dequantize")),
+    }
+
+
+def offload_phase(counters, card):
+    """Phase 20 (b): phase 10's configuration (Llama-2-7B width at
+    TRAIN_LAYERS layers, micro 2 x 2048, gas 2, AdamW, clipping 1.0) on
+    the device, then with ``offload_optimizer`` cpu at each ratio of
+    OFFLOAD_RATIOS; at OFFLOAD_NVME_LAYERS layers on the device, with
+    nvme, and with each planted fault of OFFLOAD_FAULTS (cpu, ratio 1.0),
+    which must fail the checks the sound runs pass.  Returns (launches by
+    path, summary)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)          # phase 10's batch
+    batch = {"input_ids": rng.integers(
+        0, 32000, (TRAIN_GAS * TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)}
+    mbs = TRAIN_STEPS * TRAIN_GAS
+    runs, checks, launches_by_path = {}, {}, {}
+    ref, launches_by_path["training_offload_ref"], ref_m = _train_run(
+        "device", TRAIN_LAYERS, TRAIN_CONFIG, batch, counters)
+    runs["device"] = ref
+    for ratio in OFFLOAD_RATIOS:
+        path = f"training_offload_cpu_{ratio:g}"
+        s, launches_by_path[path], _ = _train_run(
+            path, TRAIN_LAYERS, _offload_config(ratio), batch, counters,
+            ref=ref_m)
+        runs[path] = s
+        checks[path] = _path_checks(s, ref, TRAIN_LAYERS, mbs, TRAIN_STEPS)
+        checks[path]["no device optimizer at ratio 1"] = (
+            ratio < 1.0 or s["device_leaves"] == 0)
+    del ref_m
+    nvme_root = tempfile.mkdtemp(prefix="ds_nvme_")
+    faults = {}
+    try:
+        ref2, launches_by_path["training_offload_ref_nvme"], ref_m = \
+            _train_run("device", OFFLOAD_NVME_LAYERS, TRAIN_CONFIG, batch,
+                       counters)
+        runs["device_nvme_layers"] = ref2
+        path = "training_offload_nvme"
+        s, launches_by_path[path], _ = _train_run(
+            path, OFFLOAD_NVME_LAYERS,
+            _offload_config(1.0, "nvme", nvme_root), batch, counters,
+            ref=ref_m)
+        runs[path] = s
+        checks[path] = _path_checks(s, ref2, OFFLOAD_NVME_LAYERS, mbs,
+                                    TRAIN_STEPS)
+        for name, fault in OFFLOAD_FAULTS.items():
+            s, _, _ = _train_run(
+                name, OFFLOAD_NVME_LAYERS,
+                _offload_config(1.0, fault=fault), batch, counters,
+                ref=ref_m)
+            runs[name] = s
+            faults[name] = _path_checks(s, ref2, OFFLOAD_NVME_LAYERS, mbs,
+                                        TRAIN_STEPS)
+        del ref_m
+    finally:
+        shutil.rmtree(nvme_root, ignore_errors=True)
+    readings = {label: {k: s[k] for k in ("loss_gap", "update_gap",
+                                          "decay_gap")}
+                for label, s in runs.items() if "loss_gap" in s}
+    summary = dict(card=card, runs=runs, checks=checks, faults=faults,
+                   readings=readings,
+                   limits=dict(loss_max=OFFLOAD_LOSS_MAX,
+                               loss_rtol=OFFLOAD_LOSS_RTOL,
+                               loss_atol=OFFLOAD_LOSS_ATOL,
+                               update_gap=OFFLOAD_UPDATE_GAP,
+                               decay_gap=OFFLOAD_DECAY_GAP))
+    log("offload:", json.dumps(summary))
+    log(f"offload readings (loss gap, masters' update gap, decay gap) "
+        f"against limits {OFFLOAD_LOSS_MAX:g}, {OFFLOAD_UPDATE_GAP:g}, "
+        f"{OFFLOAD_DECAY_GAP:g}: {json.dumps(readings)}; {card}")
+    for label, s in runs.items():
+        st = s["steps"][-1]
+        log(f"offload {label}: {s['layers']} layers, {s['params'] / 1e9:.3f} "
+            f"B params, {s['offloaded_leaves']}/{s['leaves']} leaves "
+            f"offloaded; last step {st['ms']:.1f} ms"
+            + ("".join(f", {k[:-3]} {st[k]:.1f}" for k in (
+                "fwd_bwd_ms", "device_wait_ms", "d2h_ms", "host_step_ms",
+                "h2d_ms", "nvme_wait_ms") if k in st))
+            + f"; device state {s['device_state_gb']:.2f} GB, peak "
+            f"{s['device_peak_gb']:.2f} GB; host state "
+            f"{s['host_state_gb']:.2f} GB, RSS {s['host_rss_gb']:.2f} GB; "
+            f"losses {[round(r['loss'], 5) for r in s['steps']]}; {card}")
+    bad = {p: {k: v for k, v in c.items() if not v}
+           for p, c in checks.items() if not all(c.values())}
+    missed = [name for name, c in faults.items() if all(c.values())]
+    if bad or missed:
+        raise RuntimeError(f"phase 20 (b) checks failed: {bad}; planted "
+                           f"faults the checks passed: {missed}")
+    return launches_by_path, summary
+
+
+# (c) each remat policy reached through the config sections a user sets
+# (JAX engine.py:300-345's mapping), two of them by cpu_checkpointing;
+# an offload_* policy's bytes moved to the host are the device bytes its
+# saving counterpart keeps after the forward less its own
+REMAT_CONFIGS = {
+    "nothing_saveable": {"activation_checkpointing": {"policy": "full"}},
+    "dots_saveable": {"activation_checkpointing": {"policy": "dots"}},
+    "dots_with_no_batch_dims_saveable": {"tpu": {
+        "remat": True, "remat_policy": "dots_with_no_batch_dims_saveable"}},
+    "everything_saveable": {"activation_checkpointing": {"policy": "nothing"}},
+    "save_attn_out": {"tpu": {"remat_policy": "save_attn_out"}},
+    "offload_attn_out": {"tpu": {"remat_policy": "save_attn_out"},
+                         "activation_checkpointing": {
+                             "cpu_checkpointing": True}},
+    "offload_dots": {"activation_checkpointing": {
+        "policy": "dots_with_no_batch_dims", "cpu_checkpointing": True}},
+}
+REMAT_COUNTERPART = {"offload_attn_out": "save_attn_out",
+                     "offload_dots": "dots_with_no_batch_dims_saveable"}
+
+
+def remat_phase(counters, card):
+    """Phase 20 (c): every remat policy at phase 10's configuration, each
+    in an engine of its own built by ``initialize`` from its config
+    section (REMAT_CONFIGS).  One micro-batch through ``engine.forward``
+    and ``engine.backward``: loss and accumulated gradients against
+    ``nothing_saveable``'s (bit-equal, else the largest difference), the
+    bytes the forward leaves saved on the card, flash forward launches (a
+    policy that saves the attention output skips its recomputation); the
+    step's second micro-batch and ``step()``, then one timed train_batch:
+    step ms and peak.  The ``offload_*`` policies must leave fewer bytes
+    on the card than the policies whose values they offload."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    rng = np.random.default_rng(SEED + 2)          # phase 10's batch
+    batch = {"input_ids": rng.integers(
+        0, 32000, (TRAIN_GAS * TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)}
+    micro = [{"input_ids": batch["input_ids"][i:i + TRAIN_MICRO]}
+             for i in range(0, TRAIN_GAS * TRAIN_MICRO, TRAIN_MICRO)]
+    L = TRAIN_LAYERS
+    order = ["nothing_saveable"] + [p for p in T.REMAT_POLICY_NAMES
+                                    if p != "nothing_saveable"]
+    def pinned():       # bytes of pinned host blocks handed out now
+        return torch.cuda.host_memory_stats()["active_bytes.current"]
+
+    rows, ref = {}, None
+    for pol in order:
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, *_ = dtt.initialize(
+            model=LlamaForCausalLM("7b", num_layers=L),
+            config=dict(TRAIN_CONFIG, **REMAT_CONFIGS[pol]))
+        if engine.module.cfg.remat_policy != pol:
+            raise RuntimeError(f"config {REMAT_CONFIGS[pol]} gave policy "
+                               f"{engine.module.cfg.remat_policy}, not {pol}")
+        engine._compute_params()      # the step's compute copy, made first
+        torch.cuda.synchronize()
+        reset_launches(counters)
+        mem0, pin0 = torch.cuda.memory_allocated(), pinned()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss = engine.forward(micro[0])
+        torch.cuda.synchronize()
+        saved = torch.cuda.memory_allocated() - mem0
+        pinned_saved = pinned() - pin0
+        engine.backward(loss)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        la = read_launches(counters)
+        row = dict(config=REMAT_CONFIGS[pol], loss=loss.item(),
+                   fwd_saved_gb=saved / 1e9,
+                   fwd_pinned_gb=pinned_saved / 1e9,
+                   fwd_bwd_peak_gb=(torch.cuda.max_memory_allocated()
+                                    - mem0) / 1e9,
+                   micro_batch_ms=ms, flash_fwd=la["flash_fwd"],
+                   flash_bwd_dkv=la["flash_bwd_dkv"])
+        grads = engine._grads                # fp32 sums of the micro-batch
+        if ref is None:
+            ref = (loss.item(), [g.clone() for g in grads])
+        else:
+            row["loss_equal"] = loss.item() == ref[0]
+            row["grads_bit_equal"] = all(torch.equal(a, b)
+                                         for a, b in zip(grads, ref[1]))
+            row["grad_max_abs_diff"] = max(
+                float((a - b).abs().max()) for a, b in zip(grads, ref[1]))
+        del loss, grads
+        # the rest of the first step, untimed (it also grows the pool)
+        for mb in micro[1:]:
+            engine.backward(engine.forward(mb))
+        engine.step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        row.update(step_ms=(time.perf_counter() - t) * 1e3, step_loss=loss,
+                   step_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rows[pol] = row
+        del engine
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for pol, other in REMAT_COUNTERPART.items():
+        rows[pol]["offloaded_gb"] = (rows[other]["fwd_saved_gb"]
+                                     - rows[pol]["fwd_saved_gb"])
+    saves_attn = ("save_attn_out", "offload_attn_out", "everything_saveable")
+    checks = {
+        "loss and gradients bit-equal to nothing_saveable": all(
+            r.get("loss_equal", True) and r.get("grads_bit_equal", True)
+            for r in rows.values()),
+        "flash forward recomputed unless the attention output is saved":
+            all(r["flash_fwd"] == (L if pol in saves_attn else 2 * L)
+                for pol, r in rows.items()),
+        "flash backward once a layer": all(r["flash_bwd_dkv"] == L
+                                           for r in rows.values()),
+    }
+    for pol, other in REMAT_COUNTERPART.items():
+        checks[f"{pol} leaves less on the card than {other}"] = (
+            rows[pol]["offloaded_gb"] > 0)
+    checks["pinned host memory holds the offload policies' saves only"] = all(
+        (r["fwd_pinned_gb"] > 0) == (pol in REMAT_COUNTERPART)
+        for pol, r in rows.items())
+    checks["finite"] = all(math.isfinite(r["step_loss"])
+                           for r in rows.values())
+    summary = dict(card=card, layers=L, micro_batch=TRAIN_MICRO,
+                   seq=TRAIN_SEQ, policies=rows, checks=checks)
+    log("remat:", json.dumps(summary))
+    for pol, r in rows.items():
+        moved = (f", moved to the host {r['offloaded_gb']:.3f} GB (pinned "
+                 f"{r['fwd_pinned_gb']:.3f} GB, blocks rounded to powers "
+                 f"of two)" if "offloaded_gb" in r else "")
+        log(f"remat {pol} ({json.dumps(r['config'])}): saved after the "
+            f"forward {r['fwd_saved_gb']:.3f} GB, fwd+bwd peak "
+            f"{r['fwd_bwd_peak_gb']:.3f} GB above the state{moved}, "
+            f"micro-batch {r['micro_batch_ms']:.1f} ms, flash fwd "
+            f"{r['flash_fwd']}; train_batch {r['step_ms']:.1f} ms, peak "
+            f"{r['step_peak_gb']:.2f} GB; {card}")
+    if not all(checks.values()):
+        raise RuntimeError(f"phase 20 (c) checks failed: "
+                           f"{[k for k, v in checks.items() if not v]}")
+    return {}, summary
+
+
+FULL_DEPTH_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+cache_dir, config = sys.argv[1], json.loads(sys.argv[2])
+steps, seed = int(sys.argv[3]), int(sys.argv[4])
+from deepspeed_tpu_torch.ops import kernel_loader
+kernel_loader.set_library_dir(cache_dir)
+import chip_smoke as S
+import deepspeed_tpu_torch as dtt
+from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+from deepspeed_tpu_torch.tree import tree_leaves
+from deepspeed_tpu_torch.utils.memory import host_peak_rss_bytes
+t0 = time.perf_counter()
+model = LlamaForCausalLM("7b")
+engine, *_ = dtt.initialize(model=model, config=config)
+torch.cuda.synchronize()
+build_s = time.perf_counter() - t0
+probe = S.host_stream_gb_s()        # this process, just before its steps
+n_params = sum(p.numel() for p in tree_leaves(engine.params))
+device_state = torch.cuda.memory_allocated()
+rng = np.random.default_rng(seed)
+micro = config["train_micro_batch_size_per_gpu"]
+batch = {"input_ids": rng.integers(0, model.cfg.vocab_size,
+                                   (micro, 2048)).astype(np.int32)}
+counters = S.kernel_counters()
+S.reset_launches(counters)
+torch.cuda.reset_peak_memory_stats()
+rows = []
+for _ in range(steps):
+    t = time.perf_counter()
+    loss = engine.train_batch(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    split = {k + "_ms": v * 1e3 for k, v in engine.offload_times.items()}
+    rows.append(dict(ms=ms, loss=loss, lr=engine._last_lr, **split,
+                     fwd_bwd_ms=ms - sum(v for k, v in split.items()
+                                         if k != "device_wait_ms")))
+print(json.dumps(dict(
+    build_s=build_s, params=n_params, layers=model.cfg.num_layers,
+    leaves=len(engine.masters), device_leaves=len(engine._device_index),
+    offload_paths=engine.offload.offload_paths, steps=rows,
+    offloaded_params=sum(int(m.size) for m in engine.offload.masters),
+    host_probe_gb_s=probe,
+    device_state_gb=device_state / 1e9,
+    device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    host_peak_rss_gb=host_peak_rss_bytes() / 1e9,
+    launches=S.read_launches(counters))))
+"""
+
+
+def _host_available_bytes() -> Tuple[int, str]:
+    """Memory a child can take: MemAvailable, capped by the cgroup's
+    limit less its usage where one is set; and ``free -g``'s line."""
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable:"):
+                avail = int(ln.split()[1]) * 1024
+    try:
+        with open("/sys/fs/cgroup/memory.max") as f:
+            limit = f.read().strip()
+        with open("/sys/fs/cgroup/memory.current") as f:
+            used = int(f.read().strip())
+        if limit != "max":
+            avail = min(avail, int(limit) - used)
+    except OSError:
+        pass
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    return avail, free
+
+
+def full_depth_phase(counters, card, cache_dir, host_gb_s):
+    """Phase 20 (d): Llama-2-7B at full width and depth (32 layers, 6.74 B
+    parameters, ZeRO-3, bf16 over fp32 masters, micro 1 x 2048, gas 1,
+    AdamW with ``offload_optimizer`` cpu) for FULL_DEPTH_STEPS
+    train_batch calls on one seeded batch, in a child process whose host
+    memory is its own; every kernel's launches counted there.  The host
+    step against its bound: the bytes the host Adam moves (p, g, m, v
+    read, p, m, v written: 28 a parameter) over the host's peak rate,
+    the faster of ``host_gb_s`` (from (a)) and the child's own probe.
+    Returns (launches by path, summary)."""
+    import os
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host_cache is not None:
+        empty_host_cache()     # earlier phases' pinned blocks
+    avail, free = _host_available_bytes()
+    ratio = 1.0 if avail >= FULL_DEPTH_HOST_GB * 1e9 else 0.9
+    log(f"full depth: {avail / 1e9:.1f} GB available to the child, this "
+        f"process's RSS {_rss_gb():.1f} GB (free -g:\n{free}\n) -> offload "
+        f"ratio {ratio:g}; {card}")
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1,
+                  gradient_accumulation_steps=1,
+                  zero_optimization={"stage": 3, "offload_optimizer": {
+                      "device": "cpu", "ratio": ratio}})
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", FULL_DEPTH_CHILD, cache_dir,
+         json.dumps(config), str(FULL_DEPTH_STEPS), str(SEED + 71)],
+        capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.perf_counter() - t
+    if out.returncode != 0:
+        raise RuntimeError(f"full-depth child failed (rc {out.returncode}):"
+                           f"\n{out.stderr[-4000:]}")
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    steps = child["steps"]
+    losses = [st["loss"] for st in steps]
+    L = child["layers"]
+    la = child["launches"]
+    missing = sorted(set(counters) - set(la))
+    if missing:
+        raise RuntimeError(f"the full-depth child counted no launches of "
+                           f"{missing}")
+    steady = [st["ms"] for st in steps[1:]]
+    summary = dict(card=card, ratio=ratio, host_available_gb=avail / 1e9,
+                   child_wall_s=wall_s,
+                   tokens_per_s=2048 / (statistics.mean(steady) / 1e3),
+                   **child)
+    checks = {
+        "32 layers, 6.74 B params": L == 32 and abs(
+            child["params"] / 1e9 - 6.74) < 0.01,
+        "losses finite": all(math.isfinite(x) for x in losses),
+        "loss falls": losses[-1] < losses[0],
+        f"device peak under {FULL_DEPTH_PEAK_GB:g} GB":
+            child["device_peak_gb"] < FULL_DEPTH_PEAK_GB,
+        "flash kernels": la["flash_fwd"] >= 2 * L * FULL_DEPTH_STEPS
+        and la["flash_bwd_dkv"] == L * FULL_DEPTH_STEPS
+        and la["flash_bwd_dq"] == L * FULL_DEPTH_STEPS,
+        "fused_adamw once per device leaf per step":
+            la["fused_adamw"] == child["device_leaves"] * FULL_DEPTH_STEPS,
+        "no other kernel": all(n == 0 for k, n in la.items() if k not in (
+            "flash_fwd", "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq",
+            "fused_adamw")),
+    }
+    summary["checks"] = checks
+    host_gb_s = max(host_gb_s, child["host_probe_gb_s"]["peak"])
+    summary["host_step_bound_ms"] = (28 * child["offloaded_params"]
+                                     / (host_gb_s * 1e9) * 1e3)
+    summary["host_gb_s"] = host_gb_s
+    log("full depth:", json.dumps(summary))
+    for i, st in enumerate(steps):
+        log(f"full depth step {i}: {st['ms']:.0f} ms (fwd+bwd "
+            f"{st['fwd_bwd_ms']:.0f}, d2h {st['d2h_ms']:.0f}, host step "
+            f"{st['host_step_ms']:.0f} against its bound "
+            f"{summary['host_step_bound_ms']:.0f} at {host_gb_s:.1f} GB/s, "
+            f"h2d {st['h2d_ms']:.0f}), loss {st['loss']:.5f}; {card}")
+    log(f"full depth: {child['params'] / 1e9:.3f} B params, ratio {ratio:g} "
+        f"({child['leaves'] - child['device_leaves']}/{child['leaves']} "
+        f"leaves offloaded), device peak {child['device_peak_gb']:.2f} GB, "
+        f"host peak RSS {child['host_peak_rss_gb']:.2f} GB, "
+        f"{summary['tokens_per_s']:.1f} tokens/s; {card}")
+    if not all(checks.values()):
+        raise RuntimeError(f"phase 20 (d) checks failed: "
+                           f"{[k for k, v in checks.items() if not v]}")
+    return {"training_full_depth_offload": {
+        name: la[name] for name in counters}}, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6406,28 +7357,9 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import normalization as N
     from deepspeed_tpu_torch.ops import paged_attention as PA
     from deepspeed_tpu_torch.ops import quantization as Q
-    # kernel -> (its library, its C entry points where the source holds
-    # more than one kernel), its source and the TPU kernel it replaces
-    # (the paged kernel's decode path is two launches: the split-KV kernel,
-    # counted under the page format's name, and the combine)
-    counters = {
-        "paged_attention": (PA.KERNEL, ("paged_attention_bf16",)),
-        "paged_attention_int8": (PA.KERNEL, ("paged_attention_int8",)),
-        "paged_attention_combine": (PA.KERNEL, ("paged_attention_combine",)),
-        "rmsnorm": (N.KERNEL, ("rmsnorm_bf16",)),
-        "rmsnorm_res": (N.KERNEL, ("rmsnorm_res_bf16",)),
-        "layernorm": (N.LN_KERNEL, None),
-        "flash_fwd": (FA.KERNEL, None),
-        "flash_bwd": (FA.BWD_KERNEL, None),
-        "flash_bwd_dkv": (FA.BWD_KERNEL, ("flash_bwd_dkv_bf16",)),
-        "flash_bwd_dq": (FA.BWD_KERNEL, ("flash_bwd_dq_bf16",)),
-        "fused_adamw": (FO.KERNEL, None),
-        "quantize": (Q.KERNEL, ("quantize_blockwise_f32",)),
-        "dequantize": (Q.KERNEL, ("dequantize_blockwise_f32",
-                                  "dequantize_blockwise_bf16")),
-        "fused_lion": (FO.LION_KERNEL, None),
-        "fused_lamb": (FO.LAMB_KERNEL, None),
-        "fp_dequant": (FQ.KERNEL, None)}
+    # kernel -> its library and entry points (kernel_counters), its source
+    # and the TPU kernel it replaces
+    counters = kernel_counters()
     replaces = {
         "paged_attention": "deepspeed_tpu/ops/paged_attention.py:240",
         "paged_attention_int8": "deepspeed_tpu/ops/paged_attention.py:240",
@@ -6738,14 +7670,28 @@ def main() -> int:
                           for path in TRAIN_PATHS})
 
     clock("phases 14-18")
-    # phase 19: checkpoints and self-healing at 2 layers
+    # phase 19: checkpoints and self-healing at 1 layer
     ckpt_launches, _ = checkpoint_phase(counters, card)
     launches_by_path.update(ckpt_launches)
     path_head_dim.update({path: train_cfg.dims_per_head
                           for path in CKPT_PATHS})
 
     clock("phase 19")
-    # phase 20
+    # phase 20: training past the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, host_gb_s = host_kernels_phase(card)
+    offload_launches, _ = offload_phase(counters, card)
+    launches_by_path.update(offload_launches)
+    remat_phase(counters, card)
+    depth_launches, _ = full_depth_phase(counters, card, cache_dir,
+                                         host_gb_s)
+    launches_by_path.update(depth_launches)
+    path_head_dim.update({path: train_cfg.dims_per_head
+                          for path in {**offload_launches, **depth_launches}})
+
+    clock("phase 20")
+    # phase 21
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)

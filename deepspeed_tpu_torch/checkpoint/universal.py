@@ -19,6 +19,16 @@ and the schedule's ``count`` at 2.  The port's fused optimizers name the
 same numbers ``exp_avg`` (``mu``), ``exp_avg_sq`` (``nu``) and ``step``
 (``count``: every master's update count, one number in optax).
 
+A ZeRO-Offload checkpoint converts as the JAX package converts its
+own: the JAX engine masks the offloaded leaves out of optax (state under
+``0/inner_state/``, :data:`MASKED_PREFIX`) and ``ds_to_universal`` reads
+the engine state alone, not ``offload_rank0.npz``.  So the offloaded
+leaves' ``params`` atoms hold their compute-dtype copies (JAX writes the
+raw bf16 bytes; this one their fp32 values) and they have no moment
+atoms: the fp32 masters and the host moments stay in the npz.  Loading
+such atoms into an offload engine sets its host masters from them and
+keeps the host moments.
+
 The meta holds ``step``, ``loss_scale``, ``good_steps``,
 ``skipped_steps`` and ``hysteresis`` as the JAX engine writes them
 outside fp16 (no step is ever skipped, the scale stays 1, ``hysteresis``
@@ -71,6 +81,11 @@ def _layout(kind: str):
     return OPTAX_LAYOUT[kind]
 
 
+#: where a masked optax chain (JAX ``_maybe_enable_offload``) keeps the
+#: optimizer's state
+MASKED_PREFIX = "0/inner_state/"
+
+
 def ds_to_universal(ckpt_dir: str, tag: Optional[str] = None,
                     out_dir: Optional[str] = None) -> str:
     """Convert a port checkpoint (``tag``, or the one ``latest`` names)
@@ -82,24 +97,30 @@ def ds_to_universal(ckpt_dir: str, tag: Optional[str] = None,
     paths = leaf_paths(module)
     leaves = tree_leaves(module)
     per_param = state["optimizer_state_dict"]["state"]
+    offloaded = set(state["optimizer_state_dict"].get("offloaded", ()))
+    prefix = MASKED_PREFIX if offloaded else ""
 
     atoms: Dict[str, np.ndarray] = {}
     steps = set()
     for i, (path, leaf) in enumerate(zip(paths, leaves)):
         atoms[f"params/{path}"] = _to_numpy(leaf).astype(np.float32,
                                                          copy=False)
+        if path in offloaded:
+            continue
         st = per_param.get(i, {})
         steps.add(int(st.get("step", 0)))
         for name, sub in moments.items():
-            atoms[f"opt_state/{sub}/{path}"] = (
+            atoms[f"opt_state/{prefix}{sub}/{path}"] = (
                 _to_numpy(st[name]) if name in st
                 else np.zeros(tuple(leaf.shape), np.float32))
     if len(steps) > 1:
         raise ValueError(f"masters at different update counts {sorted(steps)}"
                          f": optax keeps one count")
-    count = steps.pop() if steps else 0
+    # every leaf offloaded: the masked optax count is the step count
+    count = steps.pop() if steps else int(client_state.get("global_steps",
+                                                           0))
     for c in counts:
-        atoms[f"opt_state/{c}"] = np.asarray(count, np.int32)
+        atoms[f"opt_state/{prefix}{c}"] = np.asarray(count, np.int32)
 
     out_dir = out_dir or os.path.join(ckpt_dir, f"{tag}_{UNIVERSAL_DIR}")
     os.makedirs(out_dir, exist_ok=True)
@@ -131,9 +152,13 @@ def load_universal_into_engine(engine, universal_dir: str,
 
     moments, counts = _layout(engine.optimizer_kind)
     paths = engine.param_paths
+    offloaded = engine._offloaded
+    prefix = MASKED_PREFIX if any(offloaded) else ""
+    moments = {name: prefix + sub for name, sub in moments.items()}
+    counts = tuple(prefix + c for c in counts)
     known = {f"params/{p}" for p in paths}
     known |= {f"opt_state/{sub}/{p}" for sub in moments.values()
-              for p in paths}
+              for p, off in zip(paths, offloaded) if not off}
     known |= {f"opt_state/{c}" for c in counts}
     unknown = sorted(set(atoms) - known)
     if strict and unknown:
@@ -160,9 +185,11 @@ def load_universal_into_engine(engine, universal_dir: str,
     if load_optimizer_states:
         count = atom(f"opt_state/{counts[0]}", ())
         states = []
-        for p, m in zip(paths, masters):
-            st = {name: atom(f"opt_state/{sub}/{p}", m.shape)
-                  for name, sub in moments.items()}
+        for p, m, off in zip(paths, masters, offloaded):
+            # an offloaded leaf has no moment atoms: its host moments stay
+            st = {} if off else {
+                name: atom(f"opt_state/{sub}/{p}", m.shape)
+                for name, sub in moments.items()}
             if count is not None:
                 st["step"] = int(count)
             states.append({k: v for k, v in st.items() if v is not None})

@@ -23,8 +23,11 @@ from .engine import read_checkpoint
 
 
 def _to_numpy(leaf) -> np.ndarray:
-    """A host view of a leaf (a copy only off the CPU)."""
+    """A host view of a leaf (a copy only off the CPU, or of a bf16 leaf,
+    which numpy holds as fp32: an offloaded leaf's compute copy)."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

@@ -23,23 +23,46 @@ flash_attention.FlashAttention` (the flash kernels on the card, their
 plain versions on the CPU) unless ``attention_impl="einsum"`` asks for
 the dense path (:func:`dot_product_attention`, masked with -1e30 and
 biased by ALiBi's per-key slopes as in JAX), which every other mask
-takes.  With ``remat`` each layer runs under ``torch.utils.checkpoint``
-and only its input is kept for the backward (JAX ``nothing_saveable``).
+takes.
+
+With ``remat`` each layer runs under ``torch.utils.checkpoint`` and
+``remat_policy`` says what its backward finds saved, every policy of
+JAX ``_REMAT_POLICIES`` and ``resolve_remat_policy`` (:612-643):
+``nothing_saveable`` keeps only the layer's input; ``everything_saveable``
+keeps everything (no checkpoint); ``dots_saveable`` keeps the outputs of
+every matmul (``aten.mm`` / ``addmm`` and the batched ``bmm`` /
+``baddbmm``), ``dots_with_no_batch_dims_saveable`` those of ``mm`` /
+``addmm`` only; ``save_attn_out`` keeps the attention's output (the
+flash forward's ``(out, lse)``, an operator of its own, or the dense
+path's probability-times-value product), so the recomputation skips it.
+``offload_attn_out`` and ``offload_dots`` (``cpu_checkpointing``) keep
+the same values as ``save_attn_out`` and ``dots_with_no_batch_dims_
+saveable`` in pinned host memory and bring them back for the backward;
+the layer inputs stay on the device, as in JAX.  The selective policies
+run as a pair of dispatch modes around the checkpoint (the forward
+records the chosen operators' outputs, the recomputation returns them
+in the same order), so a policy changes memory and time, never a
+number.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+import threading
+from typing import Any, Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map as _pytree_map
 from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import DeviceLike, resolve_device
-from ..ops.flash_attention import BWD_HEAD_DIMS, flash_attention
+from ..ops.flash_attention import BWD_HEAD_DIMS, flash_attention, \
+    flash_fwd_op
 from ..ops.fp_quantizer import dequantize_channelwise
 from ..runtime.config import outside_slice
 from ..tree import tree_map
@@ -76,8 +99,8 @@ class TransformerConfig:
     tie_embeddings: bool = False
     use_bias: bool = False
     scan_layers: bool = True
-    # training only: recompute each layer in the backward, keeping only
-    # its input ("nothing_saveable" is the one policy the port runs)
+    # training only: recompute each layer in the backward, keeping what
+    # the policy saves (see resolve_remat_policy)
     remat: bool = True
     remat_policy: str = "nothing_saveable"
     # training only: auto (flash when the mask is pure-causal; on the card
@@ -327,15 +350,169 @@ def check_flash_layout(cfg: TransformerConfig, device: torch.device) -> None:
             "11k (the flash backward in fp32 and at other head dims)")
 
 
+# ---------------------------------------------------------------------------
+# remat policies (JAX transformer.py:612-643)
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+#: the matmuls without batch dims (``proj``'s 2-D products)
+_DOTS_NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
+#: every matmul (the dense attention's batched einsums too)
+_DOTS = _DOTS_NO_BATCH | {_aten.bmm.default, _aten.baddbmm.default}
+#: the attention output inside an ``_attention_output`` region: the flash
+#: forward's operator, or the dense path's last product
+_ATTN_OUT = frozenset({_aten.bmm.default, flash_fwd_op._opoverload})
+
+
+@dataclasses.dataclass(frozen=True)
+class RematPolicy:
+    """What a checkpointed layer keeps for its backward.  ``saves`` holds
+    "dots", "dots_no_batch" and "attn_out"; ``offload`` keeps them in
+    pinned host memory; ``checkpoint`` False keeps everything."""
+    name: str
+    saves: FrozenSet[str] = frozenset()
+    offload: bool = False
+    checkpoint: bool = True
+
+
+_REMAT_POLICIES = {
+    "nothing_saveable": RematPolicy("nothing_saveable"),
+    "everything_saveable": RematPolicy("everything_saveable",
+                                       checkpoint=False),
+    "dots_saveable": RematPolicy("dots_saveable", frozenset({"dots"})),
+    "dots_with_no_batch_dims_saveable": RematPolicy(
+        "dots_with_no_batch_dims_saveable", frozenset({"dots_no_batch"})),
+    # the attention outputs: the backward never re-runs the flash forward
+    "save_attn_out": RematPolicy("save_attn_out", frozenset({"attn_out"})),
+}
+
+
+def resolve_remat_policy(name: str) -> RematPolicy:
+    """Remat-policy lookup, the host-offload variants behind
+    ``cpu_checkpointing`` included (JAX ``resolve_remat_policy``)."""
+    if name in _REMAT_POLICIES:
+        return _REMAT_POLICIES[name]
+    if name == "offload_attn_out":
+        return RematPolicy(name, frozenset({"attn_out"}), offload=True)
+    if name == "offload_dots":
+        return RematPolicy(name, frozenset({"dots_no_batch"}), offload=True)
+    raise ValueError(
+        f"unknown remat policy {name!r}; known: "
+        f"{sorted(_REMAT_POLICIES) + ['offload_attn_out', 'offload_dots']}")
+
+
+#: the policies, in the JAX order of the error message above
+REMAT_POLICY_NAMES = tuple(sorted(_REMAT_POLICIES)) + ("offload_attn_out",
+                                                       "offload_dots")
+
+_region = threading.local()
+
+
+@contextlib.contextmanager
+def _attention_output():
+    """Marks the operator that computes the attention output (JAX names
+    it ``attn_out`` with ``checkpoint_name``).  Thread-local: the
+    recomputation may run on the autograd engine's thread."""
+    _region.depth = getattr(_region, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _region.depth -= 1
+
+
+class _HostCopy:
+    """A saved value in pinned host memory, and the device it left."""
+    __slots__ = ("host", "device")
+
+    def __init__(self, host: torch.Tensor, device: torch.device):
+        self.host, self.device = host, device
+
+
+class _SavePolicy:
+    def __init__(self, policy: RematPolicy):
+        ops = set()
+        if "dots" in policy.saves:
+            ops |= _DOTS
+        if "dots_no_batch" in policy.saves:
+            ops |= _DOTS_NO_BATCH
+        self.ops = frozenset(ops)
+        self.attn_out = "attn_out" in policy.saves
+        self.offload = policy.offload
+
+    def saves(self, func) -> bool:
+        if self.attn_out and getattr(_region, "depth", 0) and \
+                func in _ATTN_OUT:
+            return True
+        return func in self.ops
+
+    def keep(self, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach()
+        if self.offload and x.device.type == "cuda":
+            host = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                                       device="cpu", pin_memory=True)
+            host.copy_(x, non_blocking=True)
+            return _HostCopy(host, x.device)
+        return x
+
+    @staticmethod
+    def fetch(x):
+        if isinstance(x, _HostCopy):
+            return x.host.to(x.device, non_blocking=True)
+        return x
+
+
+class _SaveMode(TorchDispatchMode):
+    """The forward: run every operator, record the chosen ones' outputs."""
+
+    def __init__(self, policy: _SavePolicy, storage: list):
+        super().__init__()
+        self.policy, self.storage = policy, storage
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.policy.saves(func):
+            self.storage.append(_pytree_map(self.policy.keep, out))
+        return out
+
+
+class _RecomputeMode(TorchDispatchMode):
+    """The recomputation: the chosen operators return what the forward
+    recorded, in order; the others run again."""
+
+    def __init__(self, policy: _SavePolicy, storage: list):
+        super().__init__()
+        self.policy, self.storage = policy, storage
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.policy.saves(func):
+            return _pytree_map(self.policy.fetch, self.storage.pop(0))
+        return func(*args, **(kwargs or {}))
+
+
+def remat_call(policy: RematPolicy, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` with ``policy``."""
+    if not policy.saves:
+        return checkpoint(fn, *args, use_reentrant=False)
+    save = _SavePolicy(policy)
+
+    def contexts():
+        storage: list = []
+        return _SaveMode(save, storage), _RecomputeMode(save, storage)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
 def flash_dot_product_attention(cfg: TransformerConfig, q, k, v):
     """Causal (+ sliding window) attention through ``FlashAttention``.
     q: [B,S,H,D], k/v: [B,S,K,D] -> [B,S,H,D].  The [B,H,S,D] operands are
     transposed views, read in place; GQA maps query head h to kv head
     h // G instead of repeating K and V (JAX ``transformer.py:319``
     repeats them, which gives the same values and gradients)."""
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True,
-                          window=cfg.sliding_window)
+    with _attention_output():
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True,
+                              window=cfg.sliding_window)
     return out.transpose(1, 2)
 
 
@@ -358,7 +535,8 @@ def dot_product_attention(cfg: TransformerConfig, q, k, v,
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    with _attention_output():
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, hq, dd)
 
 
@@ -423,9 +601,9 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
     (1 = a real token) are optional; with either, or ALiBi, attention
     takes the dense path.  Weights are cast to ``cfg.dtype``, which is
     also the activations' dtype."""
-    if cfg.remat and cfg.remat_policy != "nothing_saveable":
-        raise outside_slice(f"remat_policy {cfg.remat_policy!r}",
-                            "11a (one-GPU training: other remat policies)")
+    policy = resolve_remat_policy(cfg.remat_policy) if cfg.remat else None
+    remat = (policy is not None and policy.checkpoint
+             and torch.is_grad_enabled())
     b, s = input_ids.shape
     dev = input_ids.device
     # as in JAX, only the dense-causal case goes to flash: default
@@ -478,9 +656,9 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
         slopes = torch.from_numpy(alibi_slopes(cfg.num_heads)).to(dev)
         attn_bias = slopes[None, :, None] * positions[:, None, :].float()
     for lp in layer_trees(cfg, params):
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_layer_body, cfg, lp, x, sin, cos, mask,
-                           use_flash, attn_bias, use_reentrant=False)
+        if remat:
+            x = remat_call(policy, _layer_body, cfg, lp, x, sin, cos, mask,
+                           use_flash, attn_bias)
         else:
             x = _layer_body(cfg, lp, x, sin, cos, mask, use_flash, attn_bias)
     x = _norm_apply(cfg, params["final_norm"], x)

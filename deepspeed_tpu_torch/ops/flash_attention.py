@@ -241,13 +241,28 @@ def bwd_launch_args(q, k, v, do, lse, delta, dq, dk, dv, causal, sm_scale,
             "flash_bwd_dq_bf16": (*inputs, dq.data_ptr(), *common)}
 
 
+@torch.library.custom_op("deepspeed_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, sm_scale: Optional[float],
+                 window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_fwd` as one operator the dispatcher sees, so that a
+    selective activation checkpoint can keep its ``(out, lse)`` and the
+    recomputation skip the kernel (``models/transformer.py``'s
+    ``save_attn_out`` and ``offload_attn_out``)."""
+    return flash_fwd(q, k, v, causal, sm_scale, window)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention: :func:`flash_fwd` forward,
-    :func:`flash_bwd` backward from the saved ``q, k, v, out, lse``."""
+    """Differentiable flash attention: :func:`flash_fwd` forward (through
+    :func:`flash_fwd_op` when a gradient is wanted), :func:`flash_bwd`
+    backward from the saved ``q, k, v, out, lse``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=True, sm_scale=None, window=None):
-        out, lse = flash_fwd(q, k, v, causal, sm_scale, window)
+        # training (an input needs a gradient) goes through the operator
+        # a checkpoint policy can see; serving calls the wrapper
+        fwd = flash_fwd_op if any(ctx.needs_input_grad[:3]) else flash_fwd
+        out, lse = fwd(q, k, v, bool(causal), sm_scale, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.options = (causal, sm_scale, window)
         return out

@@ -22,6 +22,19 @@ the JAX fields), ``wall_clock_breakdown`` and the monitor sections
 ``tensorboard``, ``wandb``, ``csv_monitor`` and ``comet``.  A key the
 port does not know inside one of them raises like any other.
 
+The memory slice reads ``zero_optimization.offload_optimizer`` (cpu or
+nvme: fp32 masters and moments of the offloaded leaves live on the host
+and step in the host kernels, ``runtime/zero/offload.py``) and
+``offload_param`` (parsed and read by nothing, as in the JAX engine),
+the ``aio`` section (the NVMe tier's I/O pool), ``activation_checkpointing``
+and the ``tpu`` model keys ``scan_layers``, ``remat``, ``remat_policy``
+and ``attention_impl`` (the engine applies them to the model's config as
+JAX ``engine.py:288-345`` does), and ``memory_breakdown``.  The host
+optimizers' names (``cpuadam``, ``cpulion``, ...) run AdamW and Lion on
+the device; Adagrad and ``adam_w_mode=False`` have host kernels only and
+raise unless every leaf is offloaded.  The keys of ``NOOP_KEYS`` are
+accepted and the engine warns that they change nothing, as JAX's do.
+
 ZeRO on one device: the partition over one rank is the identity, so
 stages 1, 2 and 3 keep masters, gradients and moments whole and give
 stage 0's numbers, as the JAX engine does on a one-device mesh.  The
@@ -43,8 +56,12 @@ from typing import Any, Dict, Optional, Tuple, Union
 ADAM_TYPES = ("adam", "adamw", "fusedadam")
 LION_TYPES = ("lion", "fusedlion")
 LAMB_TYPES = ("lamb", "fusedlamb")
-#: the host-side optimizers, which come with offload
-OFFLOAD_TYPES = ("cpuadam", "deepspeedcpuadam", "cpulion", "cpuadagrad")
+#: the host optimizers' names: on the device they are AdamW and Lion
+#: through the fused kernels (JAX ``runtime/optimizers.py:49-69``)
+CPU_ADAM_TYPES = ("cpuadam", "deepspeedcpuadam")
+CPU_LION_TYPES = ("cpulion",)
+#: Adagrad has a host kernel only: it runs with every leaf offloaded
+ADAGRAD_TYPES = ("adagrad", "cpuadagrad")
 
 #: zero_optimization keys that do nothing on one rank (buckets,
 #: communication overlap, stage-3 prefetch and persistence, MiCS and
@@ -91,7 +108,43 @@ _READ = ("train_batch_size", "train_micro_batch_size_per_gpu",
          "scheduler", "bf16", "zero_optimization", "steps_per_print",
          "wall_clock_breakdown", "checkpoint", "fault_tolerance",
          "fault_injection", "telemetry", "tensorboard", "wandb",
-         "csv_monitor", "comet")
+         "csv_monitor", "comet", "aio", "activation_checkpointing", "tpu",
+         "memory_breakdown")
+
+#: keys accepted for compatibility that change nothing, with the reason
+#: logged when a config sets one (JAX ``config.py:_NOOP_KEYS``)
+NOOP_KEYS = {
+    ("zero_optimization", "overlap_comm"):
+        "one rank has no collective to overlap",
+    ("zero_optimization", "contiguous_gradients"):
+        "each leaf's gradient is one fp32 tensor already",
+    ("zero_optimization", "reduce_bucket_size"):
+        "one rank has no gradient reduction to bucket",
+    ("zero_optimization", "allgather_bucket_size"):
+        "one rank has no gather to bucket",
+    ("zero_optimization", "round_robin_gradients"):
+        "one rank owns every gradient",
+    ("zero_optimization", "memory_efficient_linear"):
+        "the remat policies cover it; see tpu.remat_policy",
+    ("zero_optimization", "mics_hierarchical_params_gather"):
+        "one rank has no gather",
+    ("activation_checkpointing", "contiguous_memory_optimization"):
+        "PyTorch's caching allocator owns activation buffers",
+    ("activation_checkpointing", "number_checkpoints"):
+        "each transformer layer is the checkpoint unit",
+    ("activation_checkpointing", "synchronize_checkpoint_boundary"):
+        "eager stream order replaces manual syncs",
+    ("activation_checkpointing", "profile"):
+        "use the telemetry spans or torch.profiler",
+    ("aio", "single_submit"):
+        "the native pool always submits asynchronously",
+    ("aio", "overlap_events"):
+        "completion overlap is inherent to the thread pool",
+    ("checkpoint", "use_node_local_storage"):
+        "paths are the caller's; point save_dir at local disk",
+    ("checkpoint", "parallel_write"):
+        "one rank writes one file per kind",
+}
 
 
 @dataclasses.dataclass
@@ -100,6 +153,9 @@ class OptimizerParams:
     betas: Tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-8
     weight_decay: float = 0.0
+    #: False: coupled L2 decay, which only the host Adam runs (every leaf
+    #: offloaded)
+    adam_w_mode: bool = True
 
 
 @dataclasses.dataclass
@@ -113,6 +169,89 @@ class OptimizerConfig:
 class SchedulerConfig:
     type: str = "WarmupLR"
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class OffloadConfig:
+    """``zero_optimization.offload_optimizer`` / ``offload_param`` (JAX
+    ``OffloadConfig``): ``device`` none, cpu or nvme; ``nvme_path`` the
+    NVMe tier's directory; ``ratio`` the share of parameter elements
+    offloaded, largest leaves first (ZeRO-Offload++ Twin-Flow);
+    ``aio_threads`` the NVMe tier's I/O threads unless ``aio.thread_count``
+    is set.  ``buffer_count``, ``pin_memory``, ``pipeline_read``,
+    ``pipeline_write`` and ``fast_init`` are kept and read by nothing,
+    as in JAX."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+    aio_threads: int = 4
+
+    @property
+    def enabled(self) -> bool:
+        return self.device not in (None, "none")
+
+
+@dataclasses.dataclass
+class AioConfig:
+    """The ``aio`` section (JAX ``AioConfig``): the NVMe tier's I/O pool.
+    ``thread_count`` None means unset (4 threads, or the offload block's
+    ``aio_threads``)."""
+    block_size: int = 1 << 20
+    queue_depth: int = 128
+    thread_count: Optional[int] = None
+    single_submit: bool = False
+    overlap_events: bool = True
+    use_direct_io: bool = False
+
+
+@dataclasses.dataclass
+class ActivationCheckpointingConfig:
+    """The ``activation_checkpointing`` section (JAX
+    ``ActivationCheckpointingConfig``).  ``policy`` None means unset (JAX's
+    default ``"full"``, which overrides nothing)."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    policy: Optional[str] = None
+
+
+#: the ``tpu`` keys that override the model's config when set
+TPU_MODEL_KEYS = ("scan_layers", "remat", "remat_policy", "attention_impl")
+#: the other ``tpu`` keys, each accepted at JAX's default only
+TPU_DEFAULTS = {"param_dtype": ("float32", "11c (pure bf16 training)"),
+                "compute_dtype": ("bfloat16", "11c (fp16 and loss scaling)"),
+                "matmul_precision": ("default",
+                                     "11a (one-GPU training: matmul "
+                                     "precision)")}
+
+
+def _tpu(section: Dict[str, Any]) -> Dict[str, Any]:
+    """The ``tpu`` section -> the model keys it sets.  ``donate_state``
+    is accepted and does nothing in eager PyTorch; ``mesh`` is accepted
+    when every axis is 1 or -1 (one device)."""
+    section = dict(section or {})
+    mesh = section.pop("mesh", {}) or {}
+    if any(int(n) not in (1, -1) for n in mesh.values()):
+        raise outside_slice(f"tpu.mesh {mesh} (axes over several devices)",
+                            "11b (ZeRO and model parallelism)")
+    section.pop("donate_state", None)
+    for key, (default, item) in TPU_DEFAULTS.items():
+        if key in section and section.pop(key) != default:
+            raise outside_slice(f"tpu.{key} other than {default!r}", item)
+    unknown = sorted(set(section) - set(TPU_MODEL_KEYS))
+    if unknown:
+        raise NotImplementedError(
+            f"tpu keys {unknown} are not read by the port's training slice "
+            f"(see ROADMAP Queue 1 item 11)")
+    return section
 
 
 @dataclasses.dataclass
@@ -250,6 +389,22 @@ class TrainingConfig:
     zero_stage: int = 0
     #: ZeRO++ qwZ; acts at zero_stage 3 only
     zero_quantized_weights: bool = False
+    #: ZeRO-Offload of the optimizer (fp32 masters and moments on the
+    #: host, the step in the host kernels)
+    offload_optimizer: OffloadConfig = dataclasses.field(
+        default_factory=OffloadConfig)
+    #: parsed and read by nothing, as in the JAX engine (an accessor only)
+    offload_param: OffloadConfig = dataclasses.field(
+        default_factory=OffloadConfig)
+    aio: AioConfig = dataclasses.field(default_factory=AioConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = \
+        dataclasses.field(default_factory=ActivationCheckpointingConfig)
+    #: the ``tpu`` model keys the config set (scan_layers, remat,
+    #: remat_policy, attention_impl), applied to the model's config
+    tpu: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    memory_breakdown: bool = False
+    #: the (section, key) pairs of ``NOOP_KEYS`` the config set
+    noop_keys: Tuple[Tuple[str, str], ...] = ()
     steps_per_print: int = 10
     #: synchronise the card around the train_batch timer and log it at
     #: steps_per_print
@@ -301,15 +456,16 @@ OTHER_OPTIMIZERS = "11d (SGD, Adagrad, adam_w_mode=False, 1-bit, Muon)"
 
 
 def optimizer_kind(name: str) -> str:
-    """"adamw", "lion" or "lamb" for a DeepSpeed optimizer name the
-    slice runs; raises ``NotImplementedError`` for any other."""
+    """"adamw", "lion", "lamb" or "adagrad" for a DeepSpeed optimizer name
+    the slice runs; raises ``NotImplementedError`` for any other.  The
+    host optimizers' names are their device kinds; "adagrad" runs on the
+    host only (the engine refuses it on the device)."""
     key = name.lower().replace("_", "")
-    for kind, names in (("adamw", ADAM_TYPES), ("lion", LION_TYPES),
-                        ("lamb", LAMB_TYPES)):
+    for kind, names in (("adamw", ADAM_TYPES + CPU_ADAM_TYPES),
+                        ("lion", LION_TYPES + CPU_LION_TYPES),
+                        ("lamb", LAMB_TYPES), ("adagrad", ADAGRAD_TYPES)):
         if key in names:
             return kind
-    if key in OFFLOAD_TYPES:
-        raise outside_slice(f"optimizer {name!r}", "11g (offload)")
     raise outside_slice(f"optimizer {name!r}", OTHER_OPTIMIZERS)
 
 
@@ -317,9 +473,7 @@ def _optimizer(section: Dict[str, Any]) -> OptimizerConfig:
     name = str(section.get("type", "adamw"))
     optimizer_kind(name)
     params = dict(section.get("params", {}))
-    if not params.pop("adam_w_mode", True):
-        raise outside_slice("adam_w_mode=False (coupled L2 decay)",
-                            OTHER_OPTIMIZERS)
+    adam_w_mode = bool(params.pop("adam_w_mode", True))
     if not params.pop("bias_correction", True):
         raise outside_slice("bias_correction=False", OTHER_OPTIMIZERS)
     known = {f.name for f in dataclasses.fields(OptimizerParams)}
@@ -328,7 +482,8 @@ def _optimizer(section: Dict[str, Any]) -> OptimizerConfig:
         raise outside_slice(f"optimizer params {unknown}", OTHER_OPTIMIZERS)
     if "betas" in params:
         params["betas"] = tuple(float(b) for b in params["betas"])
-    return OptimizerConfig(type=name, params=OptimizerParams(**params))
+    return OptimizerConfig(type=name, params=OptimizerParams(
+        adam_w_mode=adam_w_mode, **params))
 
 
 def _bf16(section: Dict[str, Any]) -> bool:
@@ -339,16 +494,21 @@ def _bf16(section: Dict[str, Any]) -> bool:
     return bool(section.get("enabled", True))
 
 
-def _zero(section: Dict[str, Any]) -> Tuple[int, bool]:
-    """(stage, zero_quantized_weights) of a ``zero_optimization``
-    section; raises for what needs more than one rank or is not ported."""
+def _zero(section: Dict[str, Any]
+          ) -> Tuple[int, bool, OffloadConfig, OffloadConfig]:
+    """(stage, zero_quantized_weights, offload_optimizer, offload_param)
+    of a ``zero_optimization`` section; raises for what needs more than
+    one rank or is not ported."""
     stage = int(section.get("stage", 0))
     if stage not in (0, 1, 2, 3):
         raise ValueError(f"ZeRO stage must be 0, 1, 2 or 3, got {stage}")
-    for key in ("offload_optimizer", "offload_param"):
-        device = (section.get(key) or {}).get("device", "none")
-        if device not in (None, "none"):
-            raise outside_slice(f"zero_optimization.{key}", "11g (offload)")
+    offload = [_section(OffloadConfig, f"zero_optimization.{key}",
+                        section.get(key))
+               for key in ("offload_optimizer", "offload_param")]
+    for key, off in zip(("offload_optimizer", "offload_param"), offload):
+        if off.device not in (None, "none", "cpu", "nvme"):
+            raise ValueError(f"zero_optimization.{key}.device must be "
+                             f"none, cpu or nvme, got {off.device!r}")
     if section.get("zero_quantized_gradients", False):
         raise outside_slice("zero_optimization.zero_quantized_gradients "
                             "(ZeRO++ qgZ)", "11e (quantized collectives)")
@@ -367,7 +527,37 @@ def _zero(section: Dict[str, Any]) -> Tuple[int, bool]:
         raise NotImplementedError(
             f"zero_optimization keys {unknown} are not read by the port's "
             f"training slice (see ROADMAP Queue 1 item 11b)")
-    return stage, bool(section.get("zero_quantized_weights", False))
+    return (stage, bool(section.get("zero_quantized_weights", False)),
+            *offload)
+
+
+def _check_host_only(opt: OptimizerConfig, off: OffloadConfig) -> None:
+    """Adagrad and coupled-L2 Adam have host kernels only: they run when
+    every leaf is offloaded, and raise when a leaf stays on the device."""
+    everything_offloaded = off.enabled and off.ratio >= 1.0
+    if everything_offloaded:
+        return
+    if optimizer_kind(opt.type) == "adagrad":
+        raise outside_slice(f"optimizer {opt.type!r} on the device",
+                            OTHER_OPTIMIZERS)
+    if not opt.params.adam_w_mode:
+        raise outside_slice("adam_w_mode=False (coupled L2 decay) on the "
+                            "device", OTHER_OPTIMIZERS)
+
+
+def _noop_keys(config: Dict[str, Any]) -> Tuple[Tuple[str, str], ...]:
+    return tuple((sec, key) for sec, key in NOOP_KEYS
+                 if key in (config.get(sec) or {}))
+
+
+def warn_noop_keys(config: TrainingConfig) -> None:
+    """One warning for each key of ``NOOP_KEYS`` the config set (JAX
+    ``warn_noop_keys``)."""
+    from ..utils.logging import logger
+    for section, key in config.noop_keys:
+        logger.warning(
+            "config %s.%s is accepted for compatibility but has no effect "
+            "in the port: %s", section, key, NOOP_KEYS[(section, key)])
 
 
 def load_config(config: Union[str, os.PathLike, Dict[str, Any],
@@ -390,7 +580,10 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
             raise NotImplementedError(
                 f"config key {key!r} is not read by the port's training "
                 f"slice (see ROADMAP Queue 1 item 11)")
-    stage, qwz = _zero(config.get("zero_optimization", {}))
+    stage, qwz, off_opt, off_param = _zero(
+        config.get("zero_optimization", {}))
+    optimizer = _optimizer(config.get("optimizer", {}))
+    _check_host_only(optimizer, off_opt)
     sched = config.get("scheduler")
     return TrainingConfig(
         train_batch_size=config.get("train_batch_size"),
@@ -398,12 +591,20 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
             "train_micro_batch_size_per_gpu"),
         gradient_accumulation_steps=config.get("gradient_accumulation_steps"),
         gradient_clipping=float(config.get("gradient_clipping", 0.0)),
-        optimizer=_optimizer(config.get("optimizer", {})),
+        optimizer=optimizer,
         scheduler=(SchedulerConfig(type=sched.get("type", "WarmupLR"),
                                    params=dict(sched.get("params", {})))
                    if sched is not None else None),
         bf16=_bf16(config.get("bf16", {})),
         zero_stage=stage, zero_quantized_weights=qwz,
+        offload_optimizer=off_opt, offload_param=off_param,
+        aio=_section(AioConfig, "aio", config.get("aio")),
+        activation_checkpointing=_section(
+            ActivationCheckpointingConfig, "activation_checkpointing",
+            config.get("activation_checkpointing")),
+        tpu=_tpu(config.get("tpu")),
+        memory_breakdown=bool(config.get("memory_breakdown", False)),
+        noop_keys=_noop_keys(config),
         steps_per_print=int(config.get("steps_per_print", 10)),
         wall_clock_breakdown=bool(config.get("wall_clock_breakdown", False)),
         checkpoint=_section(CheckpointConfig, "checkpoint",

@@ -32,8 +32,9 @@ iterable) is restarted by ``iter()`` on every call, so without shuffle
 every step reads the loader's first gas batches (the JAX engine's
 behaviour, kept; ROADMAP Queue 3).
 
-The accumulators are the masters' ``.grad``, so :attr:`optimizer` is a
-plain ``torch.optim.Optimizer`` over the masters.  ZeRO stages 1-3 run
+The accumulators of the leaves the device optimizer steps are the
+masters' ``.grad``, so :attr:`optimizer` is a plain
+``torch.optim.Optimizer`` over those masters.  ZeRO stages 1-3 run
 on one rank, where the partition is the identity: they change no
 number.  Features outside the slice raise ``NotImplementedError`` from
 the config loader or here.
@@ -50,6 +51,30 @@ loaded from a JAX checkpoint is written back unchanged.  The LR schedule
 reads the optimizer's own update count, as JAX's reads optax's
 ``count``: equal to ``global_steps`` unless a weights-only load started
 a fresh optimizer.
+
+ZeRO-Offload (JAX :378-395, :499-550, :815-830, :1252-1275,
+:1399-1519, the accessors :1738-1751): with
+``zero_optimization.offload_optimizer`` cpu or nvme,
+``runtime/zero/offload.py`` picks the offloaded leaves (all, or the
+largest first up to ``ratio``).  Their fp32 masters and moments live on
+the host only; the device keeps their compute-dtype copy and their fp32
+gradient accumulator, and the device optimizer covers the other leaves
+(none: ``optimizer`` is None).  After the norm and clipping over every
+leaf, :meth:`step` runs the host step (span ``train.offload_step``) at
+the same lr: leaf by leaf, the gradient goes device -> host through one
+pinned staging buffer the size of the largest offloaded leaf, the host
+kernel steps the master, and the master comes back through the leaf's
+accumulator to refresh the compute copy in place; ``offload_times``
+holds the split of the last step.  The LR schedule then reads the host
+optimizer's count when no leaf is on the device.  Checkpoints write
+``offload_rank0.npz`` beside the ``torch.save`` files in JAX's format
+(a module-only load re-syncs the host masters from the module); the
+snapshot, :meth:`get_fp32_state_dict` and :meth:`save_16bit_model` read
+the host masters.
+
+The ``tpu`` model keys and ``activation_checkpointing`` (``policy``,
+``cpu_checkpointing``) set the model config's remat policy before the
+weights are built, as JAX ``_apply_model_overrides`` does.
 
 Self-healing and telemetry (JAX :946-1225): with
 ``fault_tolerance.self_healing`` a non-finite step rolls back to the
@@ -86,7 +111,8 @@ from ..tree import tree_leaves, tree_map
 from ..utils.logging import logger
 from ..utils.timer import (TRAIN_BATCH_TIMER, SynchronizedWallClockTimer,
                            ThroughputTimer)
-from .config import TrainingConfig, load_config, optimizer_kind
+from .config import (TrainingConfig, load_config, optimizer_kind,
+                     warn_noop_keys)
 from .dataloader import DeepSpeedDataLoader
 from .fault_injection import (InjectedCollectiveFault, TransientFault,
                               get_fault_injector)
@@ -122,6 +148,53 @@ def _host(t):
         t, torch.Tensor) else t
 
 
+def _register_host(owner, t: torch.Tensor) -> None:
+    """Page-lock ``t``'s memory for the card's copies until ``owner`` is
+    collected."""
+    import weakref
+    cudart = torch.cuda.cudart()
+    err = cudart.cudaHostRegister(t.data_ptr(),
+                                  t.numel() * t.element_size(), 0)
+    if err != cudart.cudaError.success:
+        raise RuntimeError(f"cudaHostRegister of {t.numel()} elements "
+                           f"failed: {err}")
+    weakref.finalize(owner, _unregister_host, t)
+
+
+def _unregister_host(t: torch.Tensor) -> None:
+    torch.cuda.cudart().cudaHostUnregister(t.data_ptr())
+
+
+def _tree_with_paths(tree, fn, prefix: str = ""):
+    """The same dict structure with ``fn((path, leaf))`` at every leaf,
+    paths ``/``-joined as ``leaf_paths`` gives them."""
+    if isinstance(tree, dict):
+        return {k: _tree_with_paths(v, fn, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    return fn((prefix[:-1], tree))
+
+
+#: ``activation_checkpointing.policy`` -> remat policy (JAX
+#: ``engine.py:307-316``; another name passes through)
+AC_POLICIES = {
+    "full": "nothing_saveable",
+    "nothing": "everything_saveable",
+    "dots": "dots_saveable",
+    "dots_with_no_batch_dims": "dots_with_no_batch_dims_saveable",
+    "offload_dots": "offload_dots",
+}
+#: ``cpu_checkpointing``: the active policy's host-offload variant
+CPU_CHECKPOINTING = {
+    "save_attn_out": "offload_attn_out",
+    "dots_with_no_batch_dims_saveable": "offload_dots",
+    "dots_saveable": "offload_dots",
+}
+
+
+#: the host optimizer's file beside a checkpoint's (JAX ``engine.py:1401``)
+OFFLOAD_FILE = "offload_rank0.npz"
+
+
 class DeepSpeedEngine:
     """Eager training engine.
 
@@ -147,24 +220,60 @@ class DeepSpeedEngine:
         self.module = model
         self.compute_dtype = (torch.bfloat16 if self.config.bf16
                               else torch.float32)
+        warn_noop_keys(self.config)
+        self._apply_model_overrides()
 
         if model_parameters is None:
             tree, copy = model.init_params(0, self.device), False
         else:
             # the engine updates its masters in place: never the caller's
             tree, copy = model_parameters, True
-
-        def master(t):
+        for t in tree_leaves(tree):
             if not isinstance(t, torch.Tensor) or not t.is_floating_point():
                 raise TypeError(f"parameters must be floating tensors, got "
                                 f"{type(t).__name__}")
+        #: each leaf's ``/``-joined tree path, in tree order
+        self.param_paths = leaf_paths(tree)
+        #: ZeRO-Offload's host optimizer (JAX ``_maybe_enable_offload``)
+        self.offload = None
+        offloaded = set()
+        if self.config.offload_optimizer.enabled:
+            from .zero.offload import HostOffloadOptimizer
+            self.offload = HostOffloadOptimizer(tree, self.config)
+            # the fp32 masters of offloaded leaves live on the host only
+            self.offload.init_masters(tree)
+            offloaded = set(self.offload.offload_paths)
+        #: per leaf in tree order: is its optimizer step on the host?
+        self._offloaded = [p in offloaded for p in self.param_paths]
+
+        def master(path_leaf):
+            path, t = path_leaf
+            if path in offloaded:
+                # the device keeps the compute-dtype copy (the offload
+                # memory win)
+                return t.detach().to(self.device, self.compute_dtype)
             return t.detach().to(self.device, torch.float32, copy=copy)
-        #: fp32 master weights, in the model's tree layout
-        self.params = tree_map(master, tree)
+        #: the weights in the model's tree layout: fp32 masters, and for
+        #: offloaded leaves their compute-dtype copy
+        self.params = _tree_with_paths(tree, master)
         self._masters = tree_leaves(self.params)
-        for p in self._masters:
-            # the fp32 gradient accumulator (JAX engine.py:683-688)
-            p.grad = torch.zeros_like(p)
+        #: fp32 gradient accumulators, one per leaf (JAX engine.py:683-688)
+        self._grads: List[torch.Tensor] = []
+        for p, off in zip(self._masters, self._offloaded):
+            g = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            if not off:
+                p.grad = g        # the device optimizer reads .grad
+            self._grads.append(g)
+        if self.offload is not None:
+            # tree index -> master index k
+            self._host_index = {i: self.offload.offload_paths.index(p)
+                                for i, p in enumerate(self.param_paths)
+                                if p in offloaded}
+        self._staging: Optional[torch.Tensor] = None
+        #: the last offloaded step's split, seconds: ``device_wait`` (the
+        #: forward and backward still running), ``d2h``, ``host_step``,
+        #: ``h2d`` and ``nvme_wait``
+        self.offload_times: Dict[str, float] = {}
 
         opt = self.config.optimizer
         base_lr = opt.params.lr
@@ -177,11 +286,18 @@ class DeepSpeedEngine:
         else:
             self._schedule = lambda step: base_lr
         self.lr_scheduler = LRScheduler(self._schedule)
-        self.optimizer = get_optimizer(opt.type, opt.params, self._masters)
-        #: "adamw", "lion" or "lamb" (the universal checkpoint's layout)
+        #: the leaves the device optimizer steps, in tree order
+        self._device_index = [i for i, off in enumerate(self._offloaded)
+                              if not off]
+        #: the device optimizer over the leaves not offloaded; None when
+        #: every leaf is (JAX masks them out of optax)
+        self.optimizer = (get_optimizer(
+            opt.type, opt.params,
+            [self._masters[i] for i in self._device_index])
+            if self._device_index else None)
+        #: "adamw", "lion", "lamb" or "adagrad" (the universal checkpoint's
+        #: layout)
         self.optimizer_kind = optimizer_kind(opt.type)
-        #: each master's ``/``-joined tree path, in tree order
-        self.param_paths = leaf_paths(self.params)
 
         self._params_c: Optional[Dict[str, Any]] = None
         self._pending = 0          # micro-batches accumulated this step
@@ -278,13 +394,18 @@ class DeepSpeedEngine:
 
     @property
     def masters(self) -> List[torch.Tensor]:
-        """The fp32 masters in tree order (the optimizer's params)."""
+        """The weights in tree order: the fp32 masters the device
+        optimizer steps, and for offloaded leaves their compute-dtype
+        copies (the fp32 masters are ``offload.masters``)."""
         return self._masters
 
     def _update_count(self) -> int:
         """The optimizer's update count (optax's ``count``), which the LR
-        schedule reads as in JAX."""
-        st = self.optimizer.state.get(self._masters[0])
+        schedule reads as in JAX: the device optimizer's, or with every
+        leaf offloaded the host optimizer's."""
+        if self.optimizer is None:
+            return self.offload.update_count()
+        st = self.optimizer.state.get(self._masters[self._device_index[0]])
         return int(st["step"]) if st else 0
 
     def get_global_grad_norm(self) -> float:
@@ -309,7 +430,7 @@ class DeepSpeedEngine:
 
             def cast(p):
                 if qwz and p.dim() >= 2:
-                    c = quantize_dequantize(p.detach(),
+                    c = quantize_dequantize(p.detach().float(),
                                             dtype=self.compute_dtype)
                 else:
                     c = p.detach().to(self.compute_dtype)
@@ -338,14 +459,14 @@ class DeepSpeedEngine:
                                "of this step")
         loss.backward()
         first = self._pending == 0
-        for p, c in zip(self._masters, tree_leaves(self._params_c)):
+        for g, c in zip(self._grads, tree_leaves(self._params_c)):
             if c.grad is None:          # a leaf the loss does not use
                 if first:
-                    p.grad.zero_()
+                    g.zero_()
             elif first:
-                p.grad.copy_(c.grad)
+                g.copy_(c.grad)
             else:
-                p.grad.add_(c.grad)
+                g.add_(c.grad)
             c.grad = None
         self._pending += 1
         self.micro_steps += 1
@@ -355,7 +476,7 @@ class DeepSpeedEngine:
         the update; before it, do nothing (JAX ``step`` semantics)."""
         if not self.is_gradient_accumulation_boundary():
             return
-        grads = [p.grad for p in self._masters]
+        grads = self._grads
         inv = 1.0 / self._pending
         for g in grads:
             g.mul_(inv)
@@ -367,9 +488,14 @@ class DeepSpeedEngine:
             for g in grads:
                 g.mul_(scale)
         lr = self._schedule(self._update_count())
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        if self.optimizer is not None:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+        if self.offload is not None:
+            # the host step at the applied lr of the device step
+            with trace_span("train.offload_step"):
+                self._apply_offload_step(float(lr))
         self._params_c = None
         self._pending = 0
         self._last_lr = float(lr)
@@ -377,6 +503,81 @@ class DeepSpeedEngine:
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.lr_scheduler.step()
+
+    def _staging_buffer(self) -> torch.Tensor:
+        """One flat fp32 host buffer the size of the largest offloaded
+        leaf, page-locked when the leaves are on the card: every gradient
+        and every updated master crosses through it.  It is registered
+        with ``cudaHostRegister`` rather than taken from PyTorch's pinned
+        cache, which rounds a block up to a power of two (8 GB for
+        Llama-2-7B's 5.77 GB MLP leaf)."""
+        if self._staging is None:
+            n = max(self._grads[i].numel() for i in self._host_index)
+            self._staging = torch.empty(n, dtype=torch.float32)
+            if self.device.type == "cuda":
+                _register_host(self, self._staging)
+        return self._staging
+
+    @torch.no_grad()
+    def _apply_offload_step(self, lr: float) -> None:
+        """The host optimizer step over the offloaded leaves (JAX
+        ``_apply_offload_step``): leaf by leaf, the reduced and clipped
+        fp32 gradient goes device -> host through the staging buffer, the
+        host kernel steps the master, and the master goes back through the
+        staging buffer into the leaf's fp32 accumulator (free until the
+        next backward) to refresh the compute-dtype copy in place."""
+        times = dict.fromkeys(("device_wait", "d2h", "host_step", "h2d",
+                               "nvme_wait"), 0.0)
+        cuda = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        times["device_wait"] = time.perf_counter() - t0
+        staging = self._staging_buffer()
+        order = sorted(self._host_index, key=self._host_index.get)
+        swapper = self.offload.swapper
+        wait0 = swapper.wait_s if swapper is not None else 0.0
+
+        class _Staged:
+            """Leaf k's gradient, staged on the host when it is read."""
+
+            def __len__(self):
+                return len(order)
+
+            def __getitem__(_, k):
+                t = time.perf_counter()
+                g = self._grads[order[k]].reshape(-1)
+                host = staging[:g.numel()]
+                host.copy_(g)
+                times["d2h"] += time.perf_counter() - t
+                return host.numpy()
+
+        def on_update(k, master):
+            t = time.perf_counter()
+            i = order[k]
+            acc = self._grads[i].reshape(-1)
+            host = staging[:acc.numel()]
+            host.copy_(torch.from_numpy(master))    # into pinned memory
+            acc.copy_(host)
+            self._masters[i].copy_(acc.view(self._masters[i].shape))
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            times["h2d"] += time.perf_counter() - t
+
+        t1 = time.perf_counter()
+        self.offload.step(_Staged(), lr=lr, on_update=on_update)
+        if swapper is not None:
+            times["nvme_wait"] = swapper.wait_s - wait0
+        times["host_step"] = (time.perf_counter() - t1 - times["d2h"]
+                              - times["h2d"] - times["nvme_wait"])
+        self.offload_times = times
+
+    @torch.no_grad()
+    def _refresh_offloaded(self) -> None:
+        """Each offloaded leaf's compute-dtype copy from its host master."""
+        for i, k in self._host_index.items():
+            p = self._masters[i]
+            p.copy_(torch.from_numpy(self.offload.masters[k]).view(p.shape))
 
     # ------------------------------------------------------------------
     # whole batches
@@ -510,12 +711,16 @@ class DeepSpeedEngine:
     def _snapshot_state(self) -> None:
         """A host copy of everything a rollback restores: masters,
         optimizer state, counters and the LR scheduler."""
-        opt_state = self.optimizer.state
+        opt_state = self.optimizer.state if self.optimizer else {}
         self._state_snapshot = {
-            "masters": [_host(p) for p in self._masters],
+            "masters": [None if off else _host(p)
+                        for p, off in zip(self._masters, self._offloaded)],
             "optimizer": [
                 {k: _host(v) for k, v in opt_state[p].items()}
-                if opt_state.get(p) else None for p in self._masters],
+                if not off and opt_state.get(p) else None
+                for p, off in zip(self._masters, self._offloaded)],
+            "offload": (self.offload.state_dict()
+                        if self.offload is not None else None),
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
             "micro_steps": self.micro_steps,
@@ -547,6 +752,9 @@ class DeepSpeedEngine:
             raise RuntimeError("self-healing: no rollback target")
         self._copy_masters(snap["masters"])
         self._copy_optimizer_state(snap["optimizer"])
+        if snap["offload"] is not None:
+            self.offload.load_state_dict(snap["offload"])
+            self._refresh_offloaded()
         self._finish_load(snap, True)
         return f"snapshot at step {snap['global_steps']}"
 
@@ -661,8 +869,13 @@ class DeepSpeedEngine:
             client_state["rng_key_data"] = list(self._rng_key_data)
         self.checkpoint_engine.save(save_dir, tag, {
             "module": self.params, "optimizer": self.optimizer_kind,
-            "optimizer_state_dict": self.optimizer.state_dict()},
+            "optimizer_state_dict": self._optimizer_state_dict()},
             client_state)
+        if self.offload is not None:
+            # the host masters and moments beside it, in JAX's npz
+            os.makedirs(os.path.join(save_dir, tag), exist_ok=True)
+            self.offload.save_npz(os.path.join(save_dir, tag,
+                                               OFFLOAD_FILE))
         if save_latest:
             # latest last, after the writer drained: a crash before it
             # leaves latest naming the previous complete checkpoint
@@ -732,20 +945,44 @@ class DeepSpeedEngine:
             per_param = state["optimizer_state_dict"]["state"]
             self._copy_optimizer_state(
                 [per_param.get(i) for i in range(len(self._masters))])
+        if self.offload is not None:
+            off_path = os.path.join(load_dir, tag, OFFLOAD_FILE)
+            if not module_only and os.path.exists(off_path):
+                self.offload.load_npz(off_path)
+            # else (a module-only load, or a checkpoint saved without
+            # offload) the masters were re-synced from the module above,
+            # so the next step does not push init-era masters back
         self._finish_load(client_state, load_lr_scheduler_states)
         return tag, client_state
+
+    def _optimizer_state_dict(self) -> Dict[str, Any]:
+        """The device optimizer's state dict, its per-parameter states
+        keyed by the leaf's index in tree order; ``offloaded`` lists the
+        paths whose state is in the host optimizer's npz."""
+        if self.optimizer is None:
+            sd = {"state": {}, "param_groups": []}
+        else:
+            sd = self.optimizer.state_dict()
+            sd["state"] = {self._device_index[j]: st
+                           for j, st in sd["state"].items()}
+        if self.offload is not None:
+            sd["offloaded"] = list(self.offload.offload_paths)
+        return sd
 
     @torch.no_grad()
     def _copy_masters(self, sources: List[Any]) -> None:
         """Copy into the masters in place (the optimizer holds them); a
         None source leaves its master as it is."""
-        for p, src in zip(self._masters, sources):
+        for i, (p, src) in enumerate(zip(self._masters, sources)):
             if src is None:
                 continue
             src = _as_tensor(src)
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"master of shape {tuple(p.shape)} cannot "
                                  f"load {tuple(src.shape)}")
+            if self._offloaded[i]:
+                master = self.offload.masters[self._host_index[i]]
+                torch.from_numpy(master).copy_(src.reshape(-1))
             p.copy_(src)
 
     @torch.no_grad()
@@ -753,8 +990,12 @@ class DeepSpeedEngine:
         """Each master's optimizer state from ``states`` (``step`` and
         moments, in tree order), copied into the existing moments; None
         empties a master's state (a fresh optimizer)."""
-        moments = type(self.optimizer)._moments
-        for p, st in zip(self._masters, states):
+        moments = (type(self.optimizer)._moments
+                   if self.optimizer is not None else ())
+        for i, (p, st) in enumerate(zip(self._masters, states)):
+            if self._offloaded[i]:
+                self._copy_host_state(self._host_index[i], st)
+                continue
             if st is None:
                 self.optimizer.state.pop(p, None)
                 continue
@@ -772,6 +1013,34 @@ class DeepSpeedEngine:
                     raise KeyError(f"optimizer state {k!r} is not "
                                    f"{type(self.optimizer).__name__}'s")
 
+    def _copy_host_state(self, k: int, st: Optional[dict]) -> None:
+        """Master k's host optimizer state from ``st`` (``step`` and the
+        slots it holds; a slot it lacks keeps its value); None keeps the
+        state as it is (its npz, or none, carries it)."""
+        if st is None:
+            return
+        off = self.offload
+        size = off.masters[k].size
+        if off.swapper is not None:
+            cur = {name: off.swapper.fetch(f"l{k}_{name}", size)
+                   for name in off.host_opt.SLOTS}
+        else:
+            cur = off.host_opt.state_for(k, size)
+        for name, v in st.items():
+            if name == "step":
+                off.host_opt._steps[k] = int(v)
+            elif name in cur:
+                torch.from_numpy(cur[name]).copy_(
+                    _as_tensor(v).reshape(-1))
+            else:
+                raise KeyError(f"optimizer state {name!r} is not "
+                               f"{type(off.host_opt).__name__}'s")
+        off.host_opt._steps.setdefault(k, 0)
+        if off.swapper is not None:
+            for name, buf in cur.items():
+                off.swapper.writeback(f"l{k}_{name}", buf)
+            off.swapper.flush()
+
     def _finish_load(self, client_state: dict, load_lr_scheduler_states,
                      default_steps: int = 0) -> None:
         """Counters, the LR scheduler and the kept random stream from a
@@ -787,13 +1056,26 @@ class DeepSpeedEngine:
         # the compute copy was cast from the old masters
         self._params_c = None
         self._pending = 0
-        for p in self._masters:
-            p.grad.zero_()
+        for g in self._grads:
+            g.zero_()
 
     def get_fp32_state_dict(self) -> Dict[str, Any]:
-        """The masters as host numpy fp32 arrays, in the model's tree."""
-        return tree_map(lambda p: p.detach().to("cpu", copy=True).numpy(),
-                        self.params)
+        """The masters as host numpy fp32 arrays, in the model's tree (an
+        offloaded leaf's from its host master)."""
+        masters = iter(self._host_master_or_none(i)
+                       for i in range(len(self._masters)))
+
+        def fp32(p):
+            host = next(masters)
+            if host is not None:
+                return host.reshape(tuple(p.shape)).copy()
+            return p.detach().to("cpu", copy=True).numpy()
+        return tree_map(fp32, self.params)
+
+    def _host_master_or_none(self, i: int) -> Optional[np.ndarray]:
+        if not self._offloaded[i]:
+            return None
+        return self.offload.masters[self._host_index[i]]
 
     def save_16bit_model(self, save_dir: str,
                          filename: str = "model_weights.npz") -> str:
@@ -812,3 +1094,59 @@ class DeepSpeedEngine:
             json.dump({k: "bfloat16" for k in flat}, f)
         logger.info("saved 16-bit model -> %s", path)
         return path
+
+    # ------------------------------------------------------------------
+    # memory and the model's config (JAX engine.py:288-345, :1662-1751)
+    # ------------------------------------------------------------------
+    def memory_breakdown(self) -> List[Dict[str, Any]]:
+        """Per-device memory statistics (JAX ``memory_breakdown``): the
+        card's ``torch.cuda.memory_stats`` and the host's peak RSS."""
+        from ..utils.memory import device_memory_report
+        return [{"device": str(self.device),
+                 **device_memory_report(self.device)}]
+
+    def zero_cpu_offload(self) -> bool:
+        return self.config.offload_optimizer.device in ("cpu", "nvme")
+
+    def zero_offload_param(self):
+        return self.config.offload_param
+
+    def zero_offload_optimizer(self):
+        return self.config.offload_optimizer
+
+    def zero_has_nvme_offload(self) -> bool:
+        return "nvme" in (self.config.offload_optimizer.device,
+                          self.config.offload_param.device)
+
+    def _apply_model_overrides(self) -> None:
+        """The ``tpu`` model keys the config set and the
+        ``activation_checkpointing`` section, onto the model's
+        :class:`TransformerConfig` (JAX ``_apply_model_overrides``).
+        ``partition_activations`` shards activations over model-parallel
+        axes, of which one rank has none: it changes nothing here."""
+        model = self.module
+        from ..models.transformer import TransformerConfig
+        if not isinstance(getattr(model, "cfg", None), TransformerConfig):
+            return
+        overrides = dict(self.config.tpu)
+        ac = self.config.activation_checkpointing
+        if ac.policy is not None:
+            overrides["remat_policy"] = AC_POLICIES.get(ac.policy, ac.policy)
+            overrides["remat"] = True
+        if ac.cpu_checkpointing:
+            # the active policy's saved names go to pinned host memory;
+            # policies that save nothing take the attention-output variant
+            base = overrides.get("remat_policy", model.cfg.remat_policy)
+            if base == "everything_saveable":
+                raise ValueError(
+                    "cpu_checkpointing requires recomputation boundaries, "
+                    "but the active remat policy saves everything "
+                    "(policy='nothing' / everything_saveable).  Drop one "
+                    "of the two options.")
+            overrides["remat_policy"] = CPU_CHECKPOINTING.get(
+                base, "offload_attn_out")
+            overrides["remat"] = True
+        if overrides:
+            import dataclasses
+            model.cfg = dataclasses.replace(model.cfg, **overrides)
+

@@ -7,10 +7,13 @@ engine computes AdamW, Lion and LAMB through ``optax.adamw``,
 port maps ``adam`` / ``adamw`` / ``fusedadam`` to :class:`FusedAdamW`,
 ``lion`` / ``fusedlion`` to :class:`FusedLion` and ``lamb`` /
 ``fusedlamb`` to :class:`FusedLamb` (the same functions, through the
-fused kernels).  Hyper-parameters come out as JAX's ``get_optimizer``
+fused kernels); the host optimizers' names ``cpuadam`` /
+``deepspeedcpuadam`` and ``cpulion`` give the same two on the device
+(JAX ``runtime/optimizers.py:49-69``).  Hyper-parameters come out as JAX's ``get_optimizer``
 gives them: Lion's ``b2`` is ``betas[1]`` (0.999 under the default
 betas) and it takes no eps; LAMB takes the config's eps (default 1e-8)
-and decays every leaf.  Every other optimizer raises.
+and decays every leaf.  Every other optimizer raises, Adagrad too: it
+runs only in the host kernel, with every leaf offloaded.
 """
 
 from __future__ import annotations
@@ -20,13 +23,17 @@ from typing import Iterable
 import torch
 
 from ..ops.fused_optimizer import FusedAdamW, FusedLamb, FusedLion
-from .config import OptimizerParams, optimizer_kind
+from .config import OTHER_OPTIMIZERS, OptimizerParams, optimizer_kind, \
+    outside_slice
 
 
 def get_optimizer(name: str, params_cfg: OptimizerParams,
                   params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
     """The optimizer for a DeepSpeed optimizer name over ``params``."""
     kind = optimizer_kind(name)
+    if kind == "adagrad":
+        raise outside_slice(f"optimizer {name!r} on the device",
+                            OTHER_OPTIMIZERS)
     betas = tuple(params_cfg.betas)
     if kind == "lion":
         # JAX optimizers.py:65-66: a missing beta takes Lion's own default

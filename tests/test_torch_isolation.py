@@ -74,8 +74,30 @@ def test_the_scan_covers_every_module_of_the_port():
             "deepspeed_tpu_torch/runtime/data_pipeline/data_sampler.py",
             "deepspeed_tpu_torch/runtime/data_pipeline/indexed_dataset.py",
             "deepspeed_tpu_torch/runtime/data_pipeline/"
-            "curriculum_scheduler.py"} <= names
-    assert len(names) >= 61
+            "curriculum_scheduler.py",
+            "deepspeed_tpu_torch/ops/op_builder/builder.py",
+            "deepspeed_tpu_torch/ops/adam/cpu_adam.py",
+            "deepspeed_tpu_torch/ops/aio/async_io.py",
+            "deepspeed_tpu_torch/runtime/zero/offload.py",
+            "deepspeed_tpu_torch/utils/memory.py"} <= names
+    assert len(names) >= 70
+
+
+def test_the_host_op_builder_reads_only_the_ports_sources():
+    """The offload optimizers and the async I/O build from the port's own
+    copies of the host sources: the builder names no path under the JAX
+    package or the root ``csrc/``, and every source it compiles lies
+    under ``deepspeed_tpu_torch/csrc/host``."""
+    from deepspeed_tpu_torch.ops.op_builder import ALL_OPS, builder
+    text = (PORT / "ops" / "op_builder" / "builder.py").read_text()
+    assert "deepspeed_tpu/" not in text and '"csrc"' in text
+    host = (PORT / "csrc" / "host").resolve()
+    assert builder.HOST_SRC_DIR.resolve() == host
+    for cls in ALL_OPS.values():
+        b = cls()
+        for src in b.absolute_sources() + b.include_dirs():
+            assert src.resolve().is_relative_to(host), src
+            assert src.exists(), src
 
 
 def test_the_hf_import_modules_are_scanned_and_need_no_transformers():

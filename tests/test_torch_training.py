@@ -244,13 +244,12 @@ def test_training_lowers_the_loss_on_a_fixed_batch():
      "zero_hpz_partition_size"),
     ({"optimizer": {"type": "adam", "params": {"adam_w_mode": False}}},
      "adam_w_mode"),
-    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
-     "offload"),
+    ({"optimizer": {"type": "adagrad"}}, "'adagrad' on the device"),
     ({"sequence_parallel": {"enabled": True}}, "sequence_parallel"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"bf16": {"enabled": True, "accumulate_grads_in_fp32": False}},
      "fp32 gradient"),
-    ({"tpu": {"remat": False}}, "'tpu'"),
+    ({"tpu": {"param_dtype": "bfloat16"}}, "tpu.param_dtype"),
 ])
 def test_options_outside_the_slice_raise(over, match):
     with pytest.raises(NotImplementedError, match=match) as err:
@@ -266,15 +265,15 @@ def test_unknown_zero_key_raises():
 
 
 def test_engine_calls_outside_the_slice_raise():
-    """Remat policies other than ``nothing_saveable`` (11a) still raise;
-    a batch-less ``train_batch`` on an engine without a loader is the
-    JAX engine's ValueError."""
+    """An unknown remat policy raises JAX's ValueError at the first
+    forward; a batch-less ``train_batch`` on an engine without a loader
+    is the JAX engine's ValueError."""
     engine = _port_engine()
     with pytest.raises(ValueError, match="no batch and no dataloader"):
         engine.train_batch()
-    with pytest.raises(NotImplementedError, match="remat_policy"):
+    with pytest.raises(ValueError, match="unknown remat policy 'bogus'"):
         _port_engine(LlamaForCausalLM("debug", dtype=torch.float32,
-                                      remat_policy="dots_saveable")
+                                      remat_policy="bogus")
                      ).train_batch(token_batches(1)[0])
 
 
