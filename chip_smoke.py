@@ -92,11 +92,12 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    it), serving phase 4's traffic once; then the same with
    ``speculative=True, spec_drafter="model"``, the target pool and the
    self-draft's pool held together to that budget;
-6d. speculative decoding at full width (``spec_max_draft=3``): the
+6d. speculative decoding at full width and 16 of the 32 layers
+   (``spec_max_draft=3``; 6e-6h also run the first 16 layers): the
    Llama-2-7B weights on 256 pages, phase 4's traffic with each prompt a
    seeded 32-token motif repeated to its length, on three engines:
-   ``spec_drafter="ngram"``, ``"model"`` (the self-draft over all 32
-   layers, a second 8.6 GB pool) and ``"auto"`` (an 8-layer draft
+   ``spec_drafter="ngram"``, ``"model"`` (the self-draft over all 16
+   layers, a second pool) and ``"auto"`` (an 8-layer draft
    trunk).  The first two as phase 4 (a warm-up pass with the page audit
    after every step, a timed pass that captures nothing, launch counts
    held to the segments of the keys dispatched: a spec key L paged
@@ -156,7 +157,8 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
 6i. graph warmth: a child process with ``DS_COMPILE_CACHE`` at phase 2's
    directory loads every kernel library it needs and builds none; the
    seconds from its start to its first token;
-6j. a replica pool: the same weights on two engines of 256 pages behind
+6j. a replica pool (16 of the 32 layers): the same weights on two
+   engines of 256 pages behind
    ``serving.ReplicaPool`` (policy "affinity"), 16 greedy requests (8
    behind one 1024-token prefix with tails of 64-256 tokens, 8 cold of
    128-1024 tokens, 64 new): a warm-up pass, a timed pass with the step
@@ -268,15 +270,17 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     path from the same masters and micro-batch (loss and every leaf's
     gradient), then the AdamW kernel against its plain version on those
     gradients and the optimizer's state;
-12. the same training with Lion and ZeRO++ quantised weights (stage 3,
+12. the same training at 2 of the 32 layers with Lion and ZeRO++
+    quantised weights (stage 3,
     ``zero_quantized_weights``): launch counts exact (Lion once per leaf
     per step, quantise and dequantise once per leaf of two or more
     dimensions per step), then the engine's quantised compute tree
     against the plain versions' bit for bit, and one micro-batch's loss
     on it against the unquantised bf16 cast;
-13. the same training with LAMB at stage 0, launch counts exact;
+13. the same training at 2 layers with LAMB at stage 0, launch counts
+    exact;
 14. GPT-1.3B (``gpt_config("1.3b")``: learned positions, tied
-    embeddings, D = 128) at full width and depth, 4 ``train_batch``
+    embeddings, D = 128) at full width and depth, 3 ``train_batch``
     calls (AdamW at lr 1e-4, bf16, micro-batch 2 x 2048, gas 2; norms
     and biases drawn) with exact launch counts (the flash forward twice a layer a
     micro-batch, dK/dV and dQ once, AdamW once a leaf a step, every
@@ -327,9 +331,12 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     ``torch.optim``'s foreach step and the bound (the bytes a step moves
     over the host's peak memory rate, the fastest of streaming probes on
     every core; a kernel faster than its bound fails), and an
-    ``AsyncIOHandle`` write and read of 1 GiB, bit-equal, MB/s; (b) phase
-    10's configuration on the device and with ``offload_optimizer`` cpu
-    at ratio 1.0 and 0.5, and at 2 layers on the device, with nvme and
+    ``AsyncIOHandle`` write and read of 1 GiB, bit-equal, MB/s, beside
+    its bound (the bytes over the host's peak streaming rate) and one
+    thread's ``os.pwrite`` / ``os.pread`` of the same bytes; (b) phase
+    10's configuration at 4 layers on the device and with
+    ``offload_optimizer`` cpu at ratio 1.0 and 0.5, and at 2 layers on
+    the device, with nvme and
     with three planted faults (the host optimizer with a wrong beta2, no
     weight decay, L2 decay), 4 ``train_batch`` calls each: losses and
     ``get_fp32_state_dict()``'s masters within the offload limits of the
@@ -337,7 +344,8 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     AdamW launched once per device leaf per step (never for an offloaded
     leaf), the step split (forward and backward, device to host, host
     step, host to device, NVMe wait), device and host state and peaks;
-    (c) every remat policy at phase 10's configuration, each in an
+    (c) every remat policy at phase 10's configuration cut to 4 layers,
+    each in an
     engine that ``initialize`` built from its config section (``tpu``
     or ``activation_checkpointing``, ``cpu_checkpointing`` twice): one
     micro-batch through ``engine.forward`` / ``backward``, loss and
@@ -347,13 +355,47 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     one timed ``train_batch`` each, step ms and peak; (d) Llama-2-7B at
     full width and depth (6.74 B parameters, ZeRO-3, bf16 over fp32
     masters, micro 1 x 2048) with the optimizer offloaded, ratio 1.0 when
-    the host has 92 GB available (else 0.9, said), 3 ``train_batch``
+    the host has 92 GB available (else 0.9, said), 2 ``train_batch``
     calls in a child process that counts every kernel's launches: losses
     finite and falling, device peak under 75 GB, host peak RSS, step
     split, the host step against its bound, and tokens/s;
-21. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
-    80 and 96 in rows of their own), the card line, and last the
-    ``{"ok": true, "device": {...}}`` line.
+21. the rest of one-GPU training at Llama-2-7B width and 2 of 32 layers
+    (0.667 B parameters), micro 2 x 2048, gas 2, each engine built by
+    ``initialize`` from one seeded weight tree: first the pure-bf16
+    instance of each optimizer kernel (bf16 p, fp32 g and moments) held
+    to its plain version at one 4096 x 11008 leaf, with ms, bound, plain
+    ms and (AdamW) ``torch.optim.AdamW(fused=True)`` over bf16
+    parameters; (a) fp16 with the dynamic scale from ``2 ** 125``
+    (hysteresis 2, window 4), telemetry and self-healing on, 16 or more
+    ``train_batch`` calls on a fixed batch: the scale and hysteresis
+    equal JAX's rule recomputed on the host from the overflow flags,
+    masters, moments and counts bit-equal across every skip, AdamW once
+    per leaf per applied step, ``ds_train_overflow_skip_total`` equal to
+    the skips, no non-finite verdict and no rollback, the loss falling
+    once the scale settles; (b) fp16 at a static scale of 1024 against
+    the same run in bf16 (no skip, losses within 1e-3); (c) fp16 with
+    ``offload_optimizer`` cpu at ratio 0.5: the host masters bit-equal
+    across each skip; (d) the three non-default mixes of
+    ``bf16.master_weights`` and ``accumulate_grads_in_fp32`` with AdamW,
+    Lion and LAMB, 3 steps each: the instance for the dtypes launched
+    once per leaf per step and no other, the loss falling, state bytes a
+    parameter against both flags on; (e) SGD with momentum, Adagrad,
+    coupled-L2 Adam, 1-bit Adam, 1-bit LAMB and 0/1 Adam, 3 steps each
+    (the fused optimizer kernels idle, flash launched, the loss
+    falling), Adafactor and Muon refused by the engine as by JAX's, and
+    one update of real leaves of each of the eight on the card against
+    the CPU's (three at ``freeze_step`` 2 for the 1-bit family); (f)
+    ``set_lr``, a forced partial boundary equal to a gas-1 step,
+    ``set_train_micro_batch_size`` / ``set_train_batch_size`` and
+    ``destroy`` (device memory back under its value before the build);
+    (g) Random-LTD's gather and scatter of a ``[2, 2048, 4096]`` bf16
+    activation at keep 1024, bit-equal to the CPU's with the same
+    indices, and the flops profiler at ``profile_step`` 1 within 2% of
+    the analytic count (6 N + 6 L S E a token, plus remat's recompute);
+22. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+    80 and 96 and the optimizers' bf16 instances in rows of their own),
+    the card line, and last the ``{"ok": true, "device": {...}}``
+    line.
 
 Without a GPU, or outside the repository, it exits non-zero before
 printing any result.
@@ -499,6 +541,9 @@ TRAIN_PATHS = {
                               "weight_decay": 0.01}},
         scheduler=_warmup_decay(1e-3)),
 }
+# phases 12 and 13 (Lion + qwZ, LAMB) at 2 of 32 layers: every kernel of
+# theirs launches as at 8 (the launches per leaf do not depend on depth)
+OPTIMIZER_PATH_LAYERS = 2
 # the optimizer kernel each training path runs
 PATH_OPTIMIZER = {"training": "fused_adamw", "training_lion_qwz": "fused_lion",
                   "training_lamb": "fused_lamb"}
@@ -515,8 +560,8 @@ PATH_OPTIMIZER = {"training": "fused_adamw", "training_lion_qwz": "fused_lion",
 # train at full depth, Phi-2 (2.8 B: 55.6 GB) at micro-batch 2, its peak
 # held under FAMILY_PEAK_GB
 FAMILY_PATHS = (
-    ("GPT-1.3B", "training_gpt_1.3b", "gpt 1.3b", None, 2, 4, SEED + 31),
-    ("Phi-2", "training_phi2", "microsoft/phi-2", None, 2, 4, SEED + 33),
+    ("GPT-1.3B", "training_gpt_1.3b", "gpt 1.3b", None, 2, 3, SEED + 31),
+    ("Phi-2", "training_phi2", "microsoft/phi-2", None, 2, 3, SEED + 33),
     ("Falcon-7B", "training_falcon_7b", "tiiuae/falcon-7b", 4, 2, 2,
      SEED + 35),
     ("Phi-3-mini-4k", "training_phi3_mini", "microsoft/Phi-3-mini-4k-instruct",
@@ -719,6 +764,12 @@ def ptxas_kernels(build_log: str, nvcc: str) -> dict:
     return out
 
 
+def _bf16_entries(kernel) -> tuple:
+    """An optimizer kernel's instances over bf16 operands (every entry
+    point but the all-fp32 one)."""
+    return tuple(fn for fn in kernel.functions if "bf16" in fn)
+
+
 def kernel_counters() -> dict:
     """Every hand-written kernel of the main paths: name -> (its
     library, its C entry points where the source holds more than one
@@ -742,12 +793,15 @@ def kernel_counters() -> dict:
         "flash_bwd": (FA.BWD_KERNEL, None),
         "flash_bwd_dkv": (FA.BWD_KERNEL, ("flash_bwd_dkv_bf16",)),
         "flash_bwd_dq": (FA.BWD_KERNEL, ("flash_bwd_dq_bf16",)),
-        "fused_adamw": (FO.KERNEL, None),
+        "fused_adamw": (FO.KERNEL, ("fused_adamw_f32",)),
+        "fused_adamw_bf16": (FO.KERNEL, _bf16_entries(FO.KERNEL)),
         "quantize": (Q.KERNEL, ("quantize_blockwise_f32",)),
         "dequantize": (Q.KERNEL, ("dequantize_blockwise_f32",
                                   "dequantize_blockwise_bf16")),
-        "fused_lion": (FO.LION_KERNEL, None),
-        "fused_lamb": (FO.LAMB_KERNEL, None),
+        "fused_lion": (FO.LION_KERNEL, ("fused_lion_f32",)),
+        "fused_lion_bf16": (FO.LION_KERNEL, _bf16_entries(FO.LION_KERNEL)),
+        "fused_lamb": (FO.LAMB_KERNEL, ("fused_lamb_stage1_f32",)),
+        "fused_lamb_bf16": (FO.LAMB_KERNEL, _bf16_entries(FO.LAMB_KERNEL)),
         "fp_dequant": (FQ.KERNEL, None)}
 
 
@@ -3952,8 +4006,25 @@ MISTRAL_CHUNK = 2048           # the token budget of a step
 # prefill/decode) at full width
 # ---------------------------------------------------------------------------
 
-FLEET_PAGES = 256              # each engine of 6j and 6k: 8.62 GB
+# both at 16 of Llama-2-7B's 32 layers (phase 21's room: the full-depth
+# serving paths are phases 4-6c)
+FLEET_LAYERS = 16
+FLEET_PAGES = 256              # each engine of 6j and 6k: 4.31 GB
 FLEET_PREFIX = 1024            # the shared prefix of the warm requests
+
+
+# phases 6d-6h run at 16 of the 32 layers, on views of phase 4's weights
+# (phase 21's room; phases 4-6c serve all 32)
+SERVING_CUT_LAYERS = 16
+
+
+def depth_cut(cfg, params, layers):
+    """The config and weights of the first ``layers`` layers: views of the
+    stacked ``[L, ...]`` leaves, no copy."""
+    from deepspeed_tpu_torch.tree import tree_map
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {**params, "layers": tree_map(lambda t: t[:layers],
+                                          params["layers"])})
 
 
 def fleet_requests(cfg, seed=SEED + 19):
@@ -5386,16 +5457,16 @@ def mixtral_phase(counters, card):
 # phases 10 to 13: training at Llama-2-7B width, 8 layers
 # ---------------------------------------------------------------------------
 
-def train(counters, card, path="training"):
+def train(counters, card, path="training", layers=TRAIN_LAYERS):
     """4 train_batch calls through deepspeed_tpu_torch.initialize on one
-    fixed seeded batch, with the config of ``TRAIN_PATHS[path]``; launch
-    counts from a run that starts at zero."""
+    fixed seeded batch, with the config of ``TRAIN_PATHS[path]`` at
+    ``layers`` layers; launch counts from a run that starts at zero."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
     from deepspeed_tpu_torch.tree import tree_leaves
-    model = LlamaForCausalLM("7b", num_layers=TRAIN_LAYERS)
+    model = LlamaForCausalLM("7b", num_layers=layers)
     cfg = model.cfg
     config = TRAIN_PATHS[path]
     t = time.perf_counter()
@@ -6502,12 +6573,15 @@ OFFLOAD_FAULTS = {
     "fault_l2_not_decoupled": {"type": "adam", "adam_w_mode": False},
 }
 OFFLOAD_RATIOS = (1.0, 0.5)
+# the device reference and the runs at OFFLOAD_RATIOS: 4 of 32 layers
+# (8 before phase 21 needed the room)
+OFFLOAD_LAYERS = 4
 OFFLOAD_NVME_LAYERS = 2
 # (d) Llama-2-7B at full depth: micro 1 x 2048, gas 1, 3 steps; ratio 1.0
 # when the host has FULL_DEPTH_HOST_GB available (fp32 masters and Adam
 # moments of 6.74 B parameters, 80.9 GB, and the 5.77 GB staging buffer
 # of the largest leaf), else 0.9
-FULL_DEPTH_STEPS = 3
+FULL_DEPTH_STEPS = 2
 FULL_DEPTH_HOST_GB = 92.0
 FULL_DEPTH_PEAK_GB = 75.0
 
@@ -6757,19 +6831,50 @@ def host_kernels_phase(card):
         h.sync_pread(back, path)
         read_s = time.perf_counter() - t
         h.close()
+        # the plain version: the same bytes through one thread's
+        # os.pwrite and os.pread
+        plain_path = os.path.join(root, "plain.bin")
+        fd = os.open(plain_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+        t = time.perf_counter()
+        done = 0
+        while done < HOST_AIO_BYTES:
+            done += os.pwrite(fd, memoryview(data)[done:], done)
+        plain_write_s = time.perf_counter() - t
+        os.close(fd)
+        fd = os.open(plain_path, os.O_RDONLY)
+        t = time.perf_counter()
+        chunks, done = [], 0
+        while done < HOST_AIO_BYTES:
+            chunks.append(os.pread(fd, HOST_AIO_BYTES - done, done))
+            done += len(chunks[-1])
+        plain_read_s = time.perf_counter() - t
+        os.close(fd)
+        plain_equal = b"".join(chunks) == data.tobytes()
+        del chunks
+        # the bound: the bytes once through the host's memory at its peak
+        # streaming rate (each direction)
+        bound_s = HOST_AIO_BYTES / (host_gb_s * 1e9)
         aio = dict(name="async_io", route="host C++ (g++ -O3 -march=native)",
                    source="deepspeed_tpu_torch/csrc/host/aio/ds_aio.cpp",
                    bytes=HOST_AIO_BYTES, bit_equal=bool(np.array_equal(
                        data, back)),
+                   write_ms=write_s * 1e3, read_ms=read_s * 1e3,
                    write_mb_s=HOST_AIO_BYTES / write_s / 1e6,
                    read_mb_s=HOST_AIO_BYTES / read_s / 1e6,
-                   note="page-cache writes and a warm read (no drop_caches)")
+                   bound_ms=bound_s * 1e3, bound_by="bytes",
+                   plain_write_ms=plain_write_s * 1e3,
+                   plain_read_ms=plain_read_s * 1e3,
+                   plain_bit_equal=plain_equal,
+                   note="page-cache writes and a warm read (no drop_caches); "
+                   "bound: the bytes over the host's peak streaming rate; "
+                   "plain: one thread's os.pwrite / os.pread")
     finally:
         import shutil
         shutil.rmtree(root, ignore_errors=True)
     log(f"host kernel async_io: {json.dumps(aio)}; {card}")
-    if not aio["bit_equal"]:
-        raise RuntimeError("AsyncIOHandle read back other bytes")
+    if not (aio["bit_equal"] and aio["plain_bit_equal"]):
+        raise RuntimeError("the async I/O or its plain version read back "
+                           "other bytes")
     rows.append(aio)
     log("host kernels:", json.dumps({"host_kernels": rows,
                                      "cpu_count": os.cpu_count(),
@@ -6931,7 +7036,7 @@ def _path_checks(s, ref, L, micro_batches, steps):
 
 def offload_phase(counters, card):
     """Phase 20 (b): phase 10's configuration (Llama-2-7B width at
-    TRAIN_LAYERS layers, micro 2 x 2048, gas 2, AdamW, clipping 1.0) on
+    OFFLOAD_LAYERS layers, micro 2 x 2048, gas 2, AdamW, clipping 1.0) on
     the device, then with ``offload_optimizer`` cpu at each ratio of
     OFFLOAD_RATIOS; at OFFLOAD_NVME_LAYERS layers on the device, with
     nvme, and with each planted fault of OFFLOAD_FAULTS (cpu, ratio 1.0),
@@ -6946,15 +7051,16 @@ def offload_phase(counters, card):
     mbs = TRAIN_STEPS * TRAIN_GAS
     runs, checks, launches_by_path = {}, {}, {}
     ref, launches_by_path["training_offload_ref"], ref_m = _train_run(
-        "device", TRAIN_LAYERS, TRAIN_CONFIG, batch, counters)
+        "device", OFFLOAD_LAYERS, TRAIN_CONFIG, batch, counters)
     runs["device"] = ref
     for ratio in OFFLOAD_RATIOS:
         path = f"training_offload_cpu_{ratio:g}"
         s, launches_by_path[path], _ = _train_run(
-            path, TRAIN_LAYERS, _offload_config(ratio), batch, counters,
+            path, OFFLOAD_LAYERS, _offload_config(ratio), batch, counters,
             ref=ref_m)
         runs[path] = s
-        checks[path] = _path_checks(s, ref, TRAIN_LAYERS, mbs, TRAIN_STEPS)
+        checks[path] = _path_checks(s, ref, OFFLOAD_LAYERS, mbs,
+                                    TRAIN_STEPS)
         checks[path]["no device optimizer at ratio 1"] = (
             ratio < 1.0 or s["device_leaves"] == 0)
     del ref_m
@@ -7023,6 +7129,8 @@ def offload_phase(counters, card):
 # (JAX engine.py:300-345's mapping), two of them by cpu_checkpointing;
 # an offload_* policy's bytes moved to the host are the device bytes its
 # saving counterpart keeps after the forward less its own
+# the remat policies at 4 of 32 layers (8 before phase 21 needed the room)
+REMAT_LAYERS = 4
 REMAT_CONFIGS = {
     "nothing_saveable": {"activation_checkpointing": {"policy": "full"}},
     "dots_saveable": {"activation_checkpointing": {"policy": "dots"}},
@@ -7061,7 +7169,7 @@ def remat_phase(counters, card):
         0, 32000, (TRAIN_GAS * TRAIN_MICRO, TRAIN_SEQ)).astype(np.int32)}
     micro = [{"input_ids": batch["input_ids"][i:i + TRAIN_MICRO]}
              for i in range(0, TRAIN_GAS * TRAIN_MICRO, TRAIN_MICRO)]
-    L = TRAIN_LAYERS
+    L = REMAT_LAYERS
     order = ["nothing_saveable"] + [p for p in T.REMAT_POLICY_NAMES
                                     if p != "nothing_saveable"]
     def pinned():       # bytes of pinned host blocks handed out now
@@ -7328,6 +7436,756 @@ def full_depth_phase(counters, card, cache_dir, host_gb_s):
         name: la[name] for name in counters}}, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the rest of one-GPU training
+# ---------------------------------------------------------------------------
+
+# Llama-2-7B width at 2 of 32 layers (0.667 B parameters: every phase-21
+# engine and its fp32 state, ~15 GB, fits beside the next one's build),
+# micro 2 x 2048, gas 2, through deepspeed_tpu_torch.initialize
+P21_LAYERS = 2
+# the device phase 21 builds its engines on (the functions also run on
+# "cpu" at a debug size, where nothing is timed)
+P21_DEVICE = "cuda"
+# (a): 2 ** 125 makes the fp32 scaled loss inf at a loss of ~10.4, so the
+# first steps overflow and the scale walks down by JAX's rule (hysteresis
+# 2: every second overflow halves it) until the gradients are finite too;
+# 16 train_batch calls, or more (up to 24) until 6 steps have applied
+P21_FP16 = {"enabled": True, "initial_scale_power": 125, "hysteresis": 2,
+            "loss_scale_window": 4}
+P21_FP16_STEPS = 16
+P21_FP16_MAX_STEPS = 24
+P21_FP16_APPLIED = 6
+P21_STATIC_SCALE = 1024.0
+P21_STATIC_LOSS_REL = 1e-3
+# (c): hysteresis 1, so every overflow halves the scale; 6 calls, or more
+# (up to 12) until 3 steps have applied
+P21_OFFLOAD_FP16 = {"enabled": True, "initial_scale_power": 125,
+                    "hysteresis": 1, "loss_scale_window": 1000}
+P21_OFFLOAD_STEPS = 6
+P21_OFFLOAD_MAX_STEPS = 12
+P21_OFFLOAD_APPLIED = 3
+P21_STEPS = 3
+# (d): the three non-default mixes of the two bf16 flags
+P21_BF16_FLAGS = ((False, True), (True, False), (False, False))
+P21_BF16_OPTIMIZERS = {
+    "adamw": TRAIN_CONFIG["optimizer"],
+    "lion": TRAIN_PATHS["training_lion_qwz"]["optimizer"],
+    "lamb": TRAIN_PATHS["training_lamb"]["optimizer"]}
+# (e): the factory's other names; the lr each needs to move the loss of a
+# fixed batch in 3 steps under clipping at 1.0 (SGD and Adagrad step by
+# about lr times the clipped gradient, not by about lr as Adam does)
+P21_OTHER = {
+    "sgd": {"lr": 1.0, "momentum": 0.9},
+    "adagrad": {"lr": 0.1},
+    "adam": {"lr": 3e-4, "adam_w_mode": False, "weight_decay": 0.1},
+    "onebitadam": {"lr": 3e-4},
+    "onebitlamb": {"lr": 1e-2},
+    "zerooneadam": {"lr": 3e-4, "weight_decay": 0.1}}
+# the JAX engine refuses these at build (ROADMAP Queue 3): the optimizer
+# runs outside the engine only
+P21_REFUSED = ("adafactor", "muon")
+# one update of real leaves on the card against the same update on the
+# CPU, from the same state: max |p card - p cpu| / max |p cpu| (fp32
+# both, the reductions in another order: an update may round each weight
+# the other way, 1.2e-7 of a weight near 1).  Three updates of the 1-bit
+# family at freeze_step 2 (the third compressed): the compression's sign
+# takes an element whose x sits at a reduction's rounding either way, so
+# those runs hold the share of weights that part by more than
+# P21_UPDATE_REL_TOL to P21_FLIP_SHARE_MAX
+P21_UPDATE_REL_TOL = 1e-5
+P21_FLIP_SHARE_MAX = 1e-3
+P21_UPDATE_LEAVES = ("final_norm/scale", "layers/norm1/scale",
+                     "layers/attn/wq")
+P21_PARTIAL_ATOL = 1e-6
+P21_LTD_KEEP = 1024
+
+
+def _p21_config(**over):
+    cfg = dict(TRAIN_CONFIG)
+    cfg.update(over)
+    return cfg
+
+
+def _p21_batches(vocab, n, rows=TRAIN_GAS * TRAIN_MICRO, seed=SEED + 71):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, vocab, (rows, TRAIN_SEQ)).astype(
+        np.int32)} for _ in range(n)]
+
+
+def _p21_engine(params, config):
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, *_ = dtt.initialize(
+        model=LlamaForCausalLM("7b", num_layers=P21_LAYERS), config=config,
+        model_parameters=params, device=P21_DEVICE)
+    return engine
+
+
+def _p21_state(engine):
+    """A device copy of masters, moments and counts."""
+    opt = engine.optimizer
+    return ([p.detach().clone() for p in engine.masters],
+            [{k: (v.clone() if hasattr(v, "clone") else v)
+              for k, v in opt.state[p].items()} if opt.state.get(p) else {}
+             for p in engine.masters])
+
+
+def _p21_same_state(a, b) -> bool:
+    import torch
+    (pa, sa), (pb, sb) = a, b
+    return (all(torch.equal(x, y) for x, y in zip(pa, pb))
+            and all(x.keys() == y.keys() and all(
+                torch.equal(x[k], y[k]) if hasattr(x[k], "dtype")
+                else x[k] == y[k] for k in x) for x, y in zip(sa, sb)))
+
+
+def _scale_rule(flags, fp16):
+    """JAX's dynamic loss-scale rule recomputed on the host from the
+    overflow flags (True: the step overflowed): the scale after each
+    step (fp32) and the hysteresis."""
+    import numpy as np
+    scale = np.float32(2.0 ** fp16["initial_scale_power"])
+    hyst, good, out = fp16["hysteresis"], 0, []
+    for overflow in flags:
+        good = 0 if overflow else good + 1
+        if overflow and hyst <= 1:
+            scale = np.maximum(scale / np.float32(2), np.float32(1.0))
+            hyst = fp16["hysteresis"]
+        elif overflow:
+            hyst -= 1
+        if not overflow and good % fp16["loss_scale_window"] == 0:
+            scale = scale * np.float32(2)
+            hyst = fp16["hysteresis"]
+        out.append((float(scale), hyst))
+    return out
+
+
+def _p21_fp16_dynamic(params, batches, counters, card):
+    """(a) fp16 with the dynamic scale, telemetry and self-healing on."""
+    import torch
+    from deepspeed_tpu_torch.telemetry import metrics as tm
+    from deepspeed_tpu_torch.tree import tree_leaves
+    config = _p21_config(fp16=P21_FP16, bf16={"enabled": False},
+                         telemetry={"enabled": True},
+                         fault_tolerance={"self_healing": True})
+    engine = _p21_engine(params, config)
+    n_leaves = len(tree_leaves(engine.params))
+    skips0, nonfinite0 = tm.TRAIN_OVERFLOW_SKIP.value, \
+        tm.TRAIN_NONFINITE.value
+    rollbacks0 = tm.TRAIN_ROLLBACK.value
+    reset_launches(counters)
+    rows, frozen = [], []
+    i = 0
+    while i < P21_FP16_STEPS or (
+            sum(r["applied"] for r in rows) < P21_FP16_APPLIED
+            and i < P21_FP16_MAX_STEPS):
+        before = _p21_state(engine)
+        loss = engine.train_batch(batches[0])
+        applied = engine.was_step_applied()
+        if not applied:
+            frozen.append(_p21_same_state(before, _p21_state(engine)))
+        del before
+        rows.append(dict(loss=loss, scale=engine.loss_scale,
+                         hysteresis=engine._hysteresis, applied=applied,
+                         skipped=engine.skipped_steps))
+        log(f"phase 21 (a) step {i}: loss {loss:.5f}, scale "
+            f"{engine.loss_scale:.6g}, hysteresis {engine._hysteresis}, "
+            f"applied {applied}, skipped {engine.skipped_steps}")
+        i += 1
+    torch.cuda.synchronize()
+    launches = read_launches(counters)
+    rule = _scale_rule([not r["applied"] for r in rows], P21_FP16)
+    applied = [r for r in rows if r["applied"]]
+    skips = sum(not r["applied"] for r in rows)
+    checks = {
+        "scale follows the rule": [(r["scale"], r["hysteresis"])
+                                   for r in rows] == rule,
+        "first steps overflow": not rows[0]["applied"],
+        "steps apply once the scale settles":
+            len(applied) >= P21_FP16_APPLIED,
+        "skips freeze masters, moments and counts": all(frozen),
+        "fused_adamw: leaves x applied steps":
+            launches["fused_adamw"] == n_leaves * len(applied),
+        "bf16 instances idle": launches["fused_adamw_bf16"] == 0,
+        "ds_train_overflow_skip_total = skips":
+            tm.TRAIN_OVERFLOW_SKIP.value - skips0 == skips,
+        "no non-finite verdict": tm.TRAIN_NONFINITE.value == nonfinite0,
+        "no rollback": tm.TRAIN_ROLLBACK.value == rollbacks0,
+        "loss falls once settled": len(applied) > 1
+        and applied[-1]["loss"] < applied[0]["loss"],
+        "flash launched": launches["flash_fwd"] > 0
+        and launches["flash_bwd"] > 0}
+    summary = dict(card=card, fp16=P21_FP16, steps=rows, skips=skips,
+                   launches=launches, checks=checks)
+    del engine
+    return summary, launches
+
+
+def _p21_fp16_static(params, batches, counters, card):
+    """(b) fp16 at a static scale against the same run in bf16."""
+    out, launches = {}, {}
+    for label, over in (("fp16_static", dict(
+            fp16={"enabled": True, "loss_scale": P21_STATIC_SCALE},
+            bf16={"enabled": False})), ("bf16", {})):
+        engine = _p21_engine(params, _p21_config(**over))
+        reset_launches(counters)
+        losses = [engine.train_batch(b) for b in batches[:P21_STEPS]]
+        out[label] = dict(losses=losses, skipped=engine.skipped_steps,
+                          scale=engine.loss_scale)
+        launches[label] = read_launches(counters)
+        del engine
+    a, b = out["fp16_static"]["losses"], out["bf16"]["losses"]
+    checks = {
+        "no skips": out["fp16_static"]["skipped"] == 0,
+        "scale static": out["fp16_static"]["scale"] == P21_STATIC_SCALE,
+        "losses near bf16's": all(abs(x - y) <= P21_STATIC_LOSS_REL * abs(y)
+                                  for x, y in zip(a, b))}
+    return dict(card=card, runs=out, checks=checks), launches["fp16_static"]
+
+
+def _p21_fp16_offload(params, batches, counters, card):
+    """(c) fp16 with half the elements offloaded: an overflow skips the
+    host step too."""
+    import numpy as np
+    config = _p21_config(
+        fp16=P21_OFFLOAD_FP16, bf16={"enabled": False},
+        zero_optimization={"stage": 1, "offload_optimizer": {
+            "device": "cpu", "ratio": 0.5}})
+    engine = _p21_engine(params, config)
+    reset_launches(counters)
+    rows, frozen = [], []
+    while len(rows) < P21_OFFLOAD_STEPS or (
+            sum(r["applied"] for r in rows) < P21_OFFLOAD_APPLIED
+            and len(rows) < P21_OFFLOAD_MAX_STEPS):
+        host = [m.copy() for m in engine.offload.masters]
+        loss = engine.train_batch(batches[0])
+        applied = engine.was_step_applied()
+        if not applied:
+            frozen.append(all(np.array_equal(a, b) for a, b in
+                              zip(host, engine.offload.masters)))
+        del host
+        rows.append(dict(loss=loss, scale=engine.loss_scale,
+                         applied=applied,
+                         host_step_ms=engine.offload_times.get(
+                             "host_step", 0.0) * 1e3 if applied else 0.0))
+    launches = read_launches(counters)
+    n_device = len(engine._device_index)
+    applied = [r for r in rows if r["applied"]]
+    checks = {
+        "scale follows the rule": [r["scale"] for r in rows] == [
+            s for s, _ in _scale_rule([not r["applied"] for r in rows],
+                                      P21_OFFLOAD_FP16)],
+        "some steps skip, some apply":
+            P21_OFFLOAD_APPLIED <= len(applied) < len(rows),
+        "host masters frozen across skips": all(frozen) and bool(frozen),
+        "fused_adamw: device leaves x applied steps":
+            launches["fused_adamw"] == n_device * len(applied),
+        "loss falls once settled": len(applied) > 1
+        and applied[-1]["loss"] < applied[0]["loss"]}
+    summary = dict(card=card, fp16=P21_OFFLOAD_FP16, steps=rows,
+                   offloaded=engine.offload.offload_paths, checks=checks)
+    del engine
+    return summary, launches
+
+
+def _state_bytes(engine) -> int:
+    """Bytes a parameter of state holds on the card: the masters, the
+    optimizer's state, the gradient accumulators and, over fp32 masters,
+    the step's bf16 compute copy."""
+    import torch
+    n = sum(p.numel() for p in engine.masters)
+    total = sum(p.numel() * p.element_size() for p in engine.masters)
+    total += sum(g.numel() * g.element_size() for g in engine._grads)
+    total += sum(v.numel() * v.element_size()
+                 for st in engine.optimizer.state.values()
+                 for v in st.values() if torch.is_tensor(v))
+    if engine.master_dtype != engine.compute_dtype:
+        total += 2 * n
+    return total / n
+
+
+def _p21_pure_bf16(params, batches, counters, card):
+    """(d) the three non-default mixes of the bf16 flags with AdamW, Lion
+    and LAMB: each through its bf16 instance."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
+    from deepspeed_tpu_torch.tree import tree_leaves
+    kernels = {"adamw": ("fused_adamw", FO.KERNEL),
+               "lion": ("fused_lion", FO.LION_KERNEL),
+               "lamb": ("fused_lamb_stage1", FO.LAMB_KERNEL)}
+    names = {"adamw": "fused_adamw", "lion": "fused_lion",
+             "lamb": "fused_lamb"}
+    runs, paths = {}, {}
+    baseline = _p21_engine(params, _p21_config())
+    baseline.train_batch(batches[0])
+    default_bytes = _state_bytes(baseline)
+    del baseline
+    for mw, acc in P21_BF16_FLAGS:
+        for opt, opt_cfg in P21_BF16_OPTIMIZERS.items():
+            label = (f"bf16_master_weights_{str(mw).lower()}_"
+                     f"acc_fp32_{str(acc).lower()}_{opt}")
+            engine = _p21_engine(params, _p21_config(
+                optimizer=opt_cfg, bf16={"enabled": True,
+                                         "master_weights": mw,
+                                         "accumulate_grads_in_fp32": acc}))
+            reset_launches(counters)
+            losses = [engine.train_batch(batches[0])
+                      for _ in range(P21_STEPS)]
+            torch.cuda.synchronize()
+            launches = read_launches(counters)
+            base, kernel = kernels[opt]
+            p, g = engine.masters[0], engine._grads[0]
+            st = engine.optimizer.state[p]
+            instance = FO.entry_point(base, p, g)
+            n_leaves = len(tree_leaves(engine.params))
+            by_fn = dict(kernel.launches_by_fn)
+            checks = {
+                "loss falls": losses[-1] < losses[0],
+                "finite": all(math.isfinite(x) for x in losses),
+                "a bf16 instance": instance != f"{base}_f32",
+                "the instance: leaves x steps":
+                    by_fn[instance] == n_leaves * P21_STEPS,
+                "no other instance": sum(by_fn.values()) == by_fn[instance],
+                "counted under the kernel's bf16 row":
+                    launches[names[opt] + "_bf16"] == by_fn[instance]
+                    and launches[names[opt]] == 0,
+                "other optimizers idle": all(
+                    launches[k] == launches[k + "_bf16"] == 0
+                    for k in names.values() if k != names[opt]),
+                "flash launched": launches["flash_fwd"] > 0}
+            runs[label] = dict(
+                losses=losses, instance=instance,
+                master_dtype=str(engine.master_dtype),
+                acc_dtype=str(engine.acc_dtype),
+                state_bytes_per_param=_state_bytes(engine), checks=checks)
+            paths[f"training_{label}"] = launches
+            log(f"phase 21 (d) {label}: losses {losses}, {instance} "
+                f"{by_fn[instance]} launches, state "
+                f"{runs[label]['state_bytes_per_param']:.2f} B a parameter "
+                f"against {default_bytes:.2f} with both flags on; {card}")
+            del engine, p, g, st
+    return dict(card=card, default_state_bytes_per_param=default_bytes,
+                runs=runs), paths
+
+
+#: the bf16 p check: the plain step must move at least this share of
+#: the elements, and at most this share may round the other way
+BF16_MOVED_MIN = 0.5
+BF16_ULP_SHARE_MAX = 1e-4
+
+
+def bf16_ulps(p0, p, ref):
+    """|p - ref| of two bf16 results of one step from ``p0``, in bf16
+    ulps of the larger of |p0| and |ref|: a rounding the other way is
+    one ulp, also where the step cancels most of a weight."""
+    import torch
+    scale = torch.maximum(p0.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
+    return (p.float() - ref.float()).abs() / ulp
+
+
+def bf16_update_errors(p0, p, ref):
+    """A bf16 p that the kernel and its plain version updated from the
+    same ``p0``: the share of elements the plain step moved, the largest
+    gap in ulps (:func:`bf16_ulps`), the share of elements that differ,
+    and the rms gap of the two updates ``p - p0`` relative to the plain
+    one's."""
+    d, rd = p.float() - p0.float(), ref.float() - p0.float()
+    return dict(moved_share=float((ref != p0).float().mean()),
+                max_ulps=float(bf16_ulps(p0, p, ref).max()),
+                ulp_share=float((p != ref).float().mean()),
+                update_rms_rel_err=float((d - rd).pow(2).mean().sqrt()
+                                         / rd.pow(2).mean().sqrt()))
+
+
+def check_bf16_instances(dev, cfg):
+    """The pure-bf16 instance of each optimizer kernel (bf16 p, fp32 g
+    and fp32 moments: ``bf16.master_weights`` false) against its plain
+    version on the card, at one 4096 x 11008 leaf with p at a trained
+    weight's scale (0.02), where an update of 1e-4 is a few bf16 ulps.
+    AdamW's p: the plain step moves most elements, every element is
+    within one ulp (:func:`bf16_ulps`) of the plain result and at most
+    BF16_ULP_SHARE_MAX differ, the updates agree at RMS_REL_TOL; Lion's p and m bit for
+    bit; the fp32 moments and LAMB's fp32 update at the kernel rows'
+    tolerances.  Also ms, bound (bytes), plain ms and, for AdamW,
+    ``torch.optim.AdamW(fused=True)`` over bf16 parameters."""
+    import torch
+    from deepspeed_tpu_torch.ops import fused_optimizer as FO
+    g = torch.Generator(device=dev).manual_seed(SEED + 73)
+    n = cfg.hidden_size * cfg.intermediate_size
+
+    def buffers(count):
+        bufs = [torch.randn(n, generator=g, device=dev)
+                for _ in range(count)]
+        bufs[0] = (0.02 * bufs[0]).to(torch.bfloat16)
+        if count == 4:
+            bufs[3] = bufs[3].abs()
+        return bufs
+    rows = {}
+    hp = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, step=3)
+    lhp = dict(lr=1e-4, b1=0.9, b2=0.99, wd=0.1)
+    shp = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, step=3)
+    cases = {
+        # p 2 + 2, g 4, m and v 4 + 4 each: 24 B an element
+        "fused_adamw_bf16": (4, lambda b: FO.fused_adamw_flat(*b, **hp),
+                             lambda b: FO.adamw_reference(*b, **hp), 24, 15),
+        # p 2 + 2, g 4, m 4 + 4: 16 B
+        "fused_lion_bf16": (3, lambda b: FO.fused_lion_flat(*b, **lhp),
+                            lambda b: FO.lion_reference(*b, **lhp), 16, 10),
+        # p 2, g 4, m and v 4 + 4 each, u 4: 26 B
+        "fused_lamb_bf16": (4, lambda b: FO.lamb_stage1(*b, **shp),
+                            lambda b: FO.lamb_stage1_reference(*b, **shp),
+                            26, 20)}
+    for name, (count, kernel, plain, per_elem, flops) in cases.items():
+        bufs = buffers(count)
+        p0, ref = bufs[0].clone(), [x.clone() for x in bufs]
+        out, rout = kernel(bufs), plain(ref)
+        pairs = list(zip(bufs, ref))
+        if name == "fused_lamb_bf16":
+            pairs = [(out[0], rout[0])] + pairs[2:]
+            extra = {}
+        else:
+            extra = bf16_update_errors(p0, bufs[0], ref[0])
+            extra["bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
+            pairs = pairs[2:]   # the fp32 moments
+        err = _max_errors(pairs)
+        if name != "fused_lamb_bf16":
+            err["max_abs_err"] = max(err["max_abs_err"], float(
+                (bufs[0].float() - ref[0].float()).abs().max()))
+        ms = cuda_ms(lambda: kernel(bufs), 10)
+        plain_ms = cuda_ms(lambda: plain(ref), 5)
+        library_ms = None
+        if name == "fused_adamw_bf16":
+            p = bufs[0].clone().requires_grad_()
+            p.grad = bufs[1].to(torch.bfloat16)
+            lib = torch.optim.AdamW([p], lr=hp["lr"],
+                                    betas=(hp["b1"], hp["b2"]),
+                                    eps=hp["eps"], weight_decay=hp["wd"],
+                                    fused=True)
+            library_ms = cuda_ms(lib.step, 10)
+            del lib, p
+        b_ms, b_by = bound(per_elem * n, flops * n, FP32_FLOPS_PER_S)
+        rows[name] = [dict(shape=f"one leaf {cfg.hidden_size}x"
+                           f"{cfg.intermediate_size}: bf16 p (scale 0.02), "
+                           f"fp32 g and moments", **err, **extra, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=b_ms, bound_by=b_by)]
+        del bufs, ref, pairs, out, rout, p0
+        torch.cuda.empty_cache()
+    for name, (row,) in rows.items():
+        bad = []
+        if not (row["rms_rel_err"] <= RMS_REL_TOL
+                and row["max_rel_err"] <= MAX_REL_TOL):
+            bad.append("the fp32 outputs exceed the kernel rows' tolerances")
+        if "moved_share" in row:
+            if row["moved_share"] < BF16_MOVED_MIN:
+                bad.append("the plain step moves too few elements of p for "
+                           "the check to see the update")
+            if row["max_ulps"] > 1 or row["ulp_share"] > BF16_ULP_SHARE_MAX \
+                    or row["update_rms_rel_err"] > RMS_REL_TOL:
+                bad.append("p's update differs from the plain version's")
+        if name == "fused_lion_bf16" and not row["bit_equal"]:
+            bad.append("Lion's p or m is not bit-equal to the plain version")
+        if bad:
+            raise RuntimeError(f"{name} disagrees with its plain version "
+                               f"({'; '.join(bad)}): {row}")
+        log(f"kernel {name} [{row['shape']}]: rms_rel_err "
+            f"{row['rms_rel_err']:.3e}, max_rel_err {row['max_rel_err']:.3e}"
+            + (f", p: moved {row['moved_share']:.4f}, max ulps "
+               f"{row['max_ulps']}, ulp share {row['ulp_share']:.3e}, "
+               f"update rms {row['update_rms_rel_err']:.3e}"
+               if "moved_share" in row else "")
+            + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']}, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    return rows
+
+
+def _p21_update_check(name, params_cfg, leaves, states, grads, steps,
+                      freeze_step=None):
+    """``steps`` updates of real leaves on the card and on the CPU from
+    the same state and gradients: (the largest gap of the weights
+    relative to the leaf's largest, the share of weights whose gap
+    passes P21_UPDATE_REL_TOL)."""
+    import torch
+    from deepspeed_tpu_torch.runtime.comm.compressed import onebit_optimizer
+    from deepspeed_tpu_torch.runtime.optimizers import get_optimizer
+    out = {}
+    for dev in (P21_DEVICE, "cpu"):
+        ps = [p.detach().to(dev, copy=True) for p in leaves]
+        if freeze_step is not None:
+            opt = onebit_optimizer(name, ps, params_cfg.lr,
+                                   freeze_step=freeze_step)
+        else:
+            opt = get_optimizer(name, params_cfg, ps)
+        for p, st in zip(ps, states):
+            if st:
+                opt.state[p] = {k: (v.to(dev, copy=True)
+                                    if torch.is_tensor(v) else v)
+                                for k, v in st.items()}
+        for k in range(steps):
+            opt.step(grads=[g.to(dev) * (1 + k) for g in grads])
+        out[dev] = [p.float().cpu() for p in ps]
+    gaps = [(a - b).abs() / b.abs().max() for a, b in
+            zip(out[P21_DEVICE], out["cpu"])]
+    return (max(float(g.max()) for g in gaps),
+            sum(int((g > P21_UPDATE_REL_TOL).sum()) for g in gaps)
+            / sum(g.numel() for g in gaps))
+
+
+def _p21_other_optimizers(params, batches, counters, card):
+    """(e) every other optimizer name: 3 steps each through the engine
+    (the fused optimizer kernels idle), Adafactor and Muon refused as the
+    JAX engine refuses them, and one update of real leaves on the card
+    against the CPU (three for the 1-bit family, also at freeze_step 2)."""
+    import torch
+    from deepspeed_tpu_torch.runtime.config import OptimizerParams
+    runs, paths, real = {}, {}, {}
+    for name, opt_params in P21_OTHER.items():
+        over = dict(optimizer={"type": name, "params": opt_params})
+        if name in ("onebitadam", "onebitlamb", "zerooneadam"):
+            over["scheduler"] = {"type": "WarmupLR", "params": {
+                "warmup_min_lr": 0.0, "warmup_max_lr": opt_params["lr"],
+                "warmup_num_steps": 2}}
+        else:
+            over["scheduler"] = None
+        config = _p21_config(**over)
+        if config["scheduler"] is None:
+            config.pop("scheduler")
+        engine = _p21_engine(params, config)
+        reset_launches(counters)
+        losses = [engine.train_batch(batches[0]) for _ in range(P21_STEPS)]
+        torch.cuda.synchronize()
+        launches = read_launches(counters)
+        idx = [engine.param_paths.index(p) for p in P21_UPDATE_LEAVES]
+        leaves = [engine.masters[i].detach().clone() for i in idx]
+        states = [{k: (v.detach().clone() if torch.is_tensor(v) else v)
+                   for k, v in engine.optimizer.state[engine.masters[i]]
+                   .items()} for i in idx]
+        grads = [engine._grads[i].detach().clone() for i in idx]
+        real[name] = (leaves, states, grads)
+        checks = {
+            "finite": all(math.isfinite(x) for x in losses),
+            "loss falls": losses[-1] < losses[0],
+            "fused optimizer kernels idle": all(
+                launches[k] == 0 for k in (
+                    "fused_adamw", "fused_lion", "fused_lamb",
+                    "fused_adamw_bf16", "fused_lion_bf16",
+                    "fused_lamb_bf16")),
+            "flash launched": launches["flash_fwd"] > 0
+            and launches["flash_bwd"] > 0}
+        runs[name] = dict(losses=losses, optimizer=type(
+            engine.optimizer).__name__, checks=checks)
+        paths[f"training_{name}"] = launches
+        del engine
+    refused = {}
+    for name in P21_REFUSED:
+        try:
+            _p21_engine(params, _p21_config(
+                optimizer={"type": name, "params": {"lr": 1e-3}}))
+            refused[name] = False
+        except ValueError as e:
+            refused[name] = name in str(e)
+    gc.collect()
+    # one update of the real leaves (the SGD run's gradients for the
+    # refused two, from a fresh state)
+    updates = {}
+    for name, opt_params in {**P21_OTHER, "adafactor": {"lr": 1e-3},
+                             "muon": {"lr": 1e-3}}.items():
+        leaves, states, grads = real.get(name, (
+            real["sgd"][0], [{}] * len(P21_UPDATE_LEAVES), real["sgd"][2]))
+        cfg = OptimizerParams(**opt_params)
+        updates[name] = _p21_update_check(name, cfg, leaves, states, grads, 1)
+        if name in ("onebitadam", "onebitlamb", "zerooneadam"):
+            # the norm scales only: each compression's sign makes an
+            # element at a reduction's rounding flip, so the large leaf
+            # adds flips, not coverage
+            updates[f"{name} freeze_step 2"] = _p21_update_check(
+                name, cfg, leaves[:2], states[:2], grads[:2], 3,
+                freeze_step=2)
+    checks = {"engine refuses Adafactor and Muon": all(refused.values()),
+              "updates on the card match the CPU's": all(
+                  gap <= P21_UPDATE_REL_TOL for k, (gap, _) in updates.items()
+                  if "freeze_step" not in k),
+              "compressed updates part only at sign ties": all(
+                  share <= P21_FLIP_SHARE_MAX
+                  for k, (_, share) in updates.items()
+                  if "freeze_step" in k)}
+    return dict(card=card, runs=runs, refused=refused,
+                update_rel_gap={k: v[0] for k, v in updates.items()},
+                update_flip_share={k: v[1] for k, v in updates.items()},
+                update_rel_tol=P21_UPDATE_REL_TOL,
+                flip_share_max=P21_FLIP_SHARE_MAX, checks=checks), paths
+
+
+def _p21_api(params, batches, counters, card):
+    """(f) set_lr, a forced partial boundary, the batch-size setters and
+    destroy."""
+    import torch
+    mem0 = torch.cuda.memory_allocated()
+    gas2 = _p21_engine(params, _p21_config())
+    gas1 = _p21_engine(params, _p21_config(gradient_accumulation_steps=1))
+    reset_launches(counters)
+    ids = batches[0]["input_ids"]
+    mb = {"input_ids": ids[:TRAIN_MICRO]}
+    gas2.set_gradient_accumulation_boundary(True)
+    gas2.backward(gas2.forward(mb))
+    gas2.step()
+    gas2.set_gradient_accumulation_boundary(None)
+    gas1.train_batch(mb)
+    partial_gap = max(float((a - b).abs().max())
+                      for a, b in zip(gas2.masters, gas1.masters))
+    del gas1
+    gas2.set_lr(1e-5)
+    gas2.train_batch(batches[1])
+    lr_set = gas2._last_lr
+    gas2.set_train_micro_batch_size(1)
+    info_micro = gas2.get_batch_info()
+    gas2.train_batch({"input_ids": ids[:2]})
+    gas2.set_train_batch_size(4)
+    info_batch = gas2.get_batch_info()
+    gas2.train_batch({"input_ids": ids[:4]})
+    launches = read_launches(counters)
+    gas2.destroy()
+    try:
+        gas2.train_batch(batches[0])
+        refused = False
+    except RuntimeError:
+        refused = True
+    del gas2
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = torch.cuda.memory_allocated()
+    checks = {
+        "a forced boundary equals a gas-1 step": partial_gap
+        <= P21_PARTIAL_ATOL,
+        "set_lr is the next step's lr": lr_set == 1e-5,
+        "set_train_micro_batch_size": info_micro == (2, 1, 2),
+        "set_train_batch_size": info_batch == (4, 1, 4),
+        "destroy refuses later calls": refused,
+        "destroy returns the memory": mem1 <= mem0}
+    return dict(card=card, partial_gap=partial_gap, lr=lr_set,
+                batch_info=[info_micro, info_batch],
+                memory_before_build_gb=mem0 / 1e9,
+                memory_after_destroy_gb=mem1 / 1e9, checks=checks), launches
+
+
+def _p21_ltd_and_profiler(params, batches, counters, card):
+    """(g) Random-LTD's gather and scatter at a training shape, and the
+    flops profiler at profile_step 1 beside the analytic count."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import threefry
+    from deepspeed_tpu_torch.runtime.data_pipeline import data_routing as R
+    from deepspeed_tpu_torch.tree import tree_leaves
+    g = torch.Generator(device=P21_DEVICE).manual_seed(SEED + 79)
+    x = torch.randn(TRAIN_MICRO, TRAIN_SEQ, 4096, generator=g,
+                    device=P21_DEVICE).to(torch.bfloat16)
+    key = threefry.key_from_seed(SEED + 79)
+    kept, _ = R.token_sort_indices(key.to(P21_DEVICE), TRAIN_MICRO,
+                                   TRAIN_SEQ, P21_LTD_KEEP)
+    kept_cpu, _ = R.token_sort_indices(key, TRAIN_MICRO, TRAIN_SEQ,
+                                       P21_LTD_KEEP)
+    sub = R.gather_tokens(x, kept)
+    back = R.scatter_tokens(x, sub * 2, kept)
+    xc = x.cpu()
+    sub_c = R.gather_tokens(xc, kept_cpu)
+    back_c = R.scatter_tokens(xc, sub_c * 2, kept_cpu)
+    ltd = {"indices equal": torch.equal(kept.cpu(), kept_cpu),
+           "gather bit-equal": torch.equal(sub.cpu(), sub_c),
+           "scatter bit-equal": torch.equal(back.cpu(), back_c)}
+    del x, sub, back, xc, sub_c, back_c
+
+    engine = _p21_engine(params, _p21_config(flops_profiler={
+        "enabled": True, "profile_step": 1}))
+    reset_launches(counters)
+    losses = [engine.train_batch(b) for b in batches[:2]]
+    launches = read_launches(counters)
+    prof = engine.flops_profile
+    cfg = engine.module.cfg
+    n_params = sum(p.numel() for p in tree_leaves(engine.params))
+    # matrix products by weight: every parameter but the input embedding
+    # (a gather) and the norm scales (elementwise)
+    n_matmul = n_params - cfg.vocab_size * cfg.hidden_size - (
+        2 * cfg.num_layers + 1) * cfg.hidden_size
+    # remat recomputes a layer's forward up to the last tensor its
+    # backward reads, so not the MLP's down projection (PyTorch's
+    # non-reentrant checkpoint stops there)
+    n_recomputed = (n_matmul - cfg.vocab_size * cfg.hidden_size
+                    - cfg.num_layers * cfg.intermediate_size
+                    * cfg.hidden_size)
+    tokens = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
+    attn = cfg.num_layers * TRAIN_SEQ * cfg.hidden_size
+    # forward + backward (6 N + 6 L S E a token, attention over the causal
+    # half), plus remat's recomputed products (2 N_recomputed + 2 L S E)
+    analytic = tokens * (6 * n_matmul + 6 * attn + 2 * n_recomputed
+                         + 2 * attn)
+    counted = prof.get_total_flops()
+    summary = dict(card=card, losses=losses, ltd=ltd,
+                   profiler_flops=counted, analytic_flops=analytic,
+                   gap=counted / analytic - 1,
+                   top_ops=prof.summary()["top_ops"],
+                   checks=dict(ltd, **{
+                       "profiler within 2% of the analytic count":
+                           abs(counted / analytic - 1) <= 0.02,
+                       "losses finite": all(math.isfinite(x)
+                                            for x in losses)}))
+    del engine
+    return summary, launches
+
+
+def training_rest_phase(counters, card):
+    """Phase 21 (module docstring): fp16 with dynamic and static loss
+    scaling and offload, pure bf16, every other optimizer, the engine's
+    API, Random-LTD and the flops profiler at Llama-2-7B width and
+    P21_LAYERS layers.  Returns (launches by path, kernel rows of the
+    bf16 instances)."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import llama_config
+    from deepspeed_tpu_torch.models.transformer import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_config("7b", num_layers=P21_LAYERS)
+    t0 = time.perf_counter()
+    rows = check_bf16_instances(torch.device("cuda"), cfg)
+    params = init_params(cfg, SEED + 67, P21_DEVICE, dtype=torch.float32)
+    batches = _p21_batches(cfg.vocab_size, 4)
+    paths, report = {}, {}
+    parts = (("a", "training_fp16_dynamic", _p21_fp16_dynamic),
+             ("b", "training_fp16_static", _p21_fp16_static),
+             ("c", "training_fp16_offload", _p21_fp16_offload),
+             ("d", None, _p21_pure_bf16),
+             ("e", None, _p21_other_optimizers),
+             ("f", "training_api", _p21_api),
+             ("g", "training_profiler", _p21_ltd_and_profiler))
+    for part, path, fn in parts:
+        t = time.perf_counter()
+        summary, launches = fn(params, batches, counters, card)
+        if path is None:
+            paths.update(launches)
+        else:
+            paths[path] = launches
+        checks = dict(summary.get("checks", {}))
+        for name, run in summary.get("runs", {}).items():
+            checks.update({f"{name}: {k}": v
+                           for k, v in run.get("checks", {}).items()})
+        summary["seconds"] = time.perf_counter() - t
+        report[part] = summary
+        log(f"phase 21 ({part}): {json.dumps(summary, default=str)}")
+        if not all(checks.values()):
+            raise RuntimeError(f"phase 21 ({part}) checks failed: "
+                               f"{ {k: v for k, v in checks.items() if not v} }")
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s; {card}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7516,30 +8374,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     clock("phase 6c")
+    # phases 6d-6h at SERVING_CUT_LAYERS of the 32 layers
+    cut_cfg, cut_params = depth_cut(cfg, params, SERVING_CUT_LAYERS)
     # phase 6d: speculative decoding with the three drafters
-    _, spec_launches = spec_phase(cfg, params, counters, card,
+    _, spec_launches = spec_phase(cut_cfg, cut_params, counters, card,
                                   llama_summary)
     launches_by_path.update(spec_launches)
 
     clock("phase 6d")
     # phase 6e: keyed sampling at full width
     _, launches_by_path["serving_llama_keyed"] = keyed_phase(
-        cfg, params, counters, card, llama_summary)
+        cut_cfg, cut_params, counters, card, llama_summary)
 
     clock("phase 6e")
     # phase 6f: snapshot and restore into a second engine
     _, launches_by_path["serving_llama_snapshot"] = snapshot_phase(
-        cfg, params, counters, card)
+        cut_cfg, cut_params, counters, card)
 
     clock("phase 6f")
     # phase 6g: a mined bucket lattice against the power-of-two lattice
     _, launches_by_path["serving_llama_mined_lattice"] = lattice_phase(
-        cfg, params, counters, card)
+        cut_cfg, cut_params, counters, card)
 
     clock("phase 6g")
     # phase 6h: the host/disk page tier (bf16 pages)
     _, launches_by_path["serving_llama_tier"] = tier_phase(
-        cfg, params, counters, card)
+        cut_cfg, cut_params, counters, card)
+    del cut_params
 
     clock("phase 6h")
     # phase 6i: graph warmth, a second process loads phase 2's libraries
@@ -7550,10 +8411,12 @@ def main() -> int:
     # prefill/decode engines
     gc.collect()
     torch.cuda.empty_cache()
+    fleet_cfg, fleet_params = depth_cut(cfg, params, FLEET_LAYERS)
     _, launches_by_path["serving_llama_pool"] = pool_phase(
-        cfg, params, counters, card, llama_summary)
+        fleet_cfg, fleet_params, counters, card, llama_summary)
     _, launches_by_path["serving_llama_disagg"] = disagg_phase(
-        cfg, params, counters, card, llama_summary)
+        fleet_cfg, fleet_params, counters, card, llama_summary)
+    del fleet_params
 
     clock("phases 6j-6k")
     # phase 6l: the fleet's subprocess mode (two replica processes on the
@@ -7649,7 +8512,8 @@ def main() -> int:
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        engine, batch, launches_by_path[path] = train(counters, card, path)
+        engine, batch, launches_by_path[path] = train(
+            counters, card, path, layers=OPTIMIZER_PATH_LAYERS)
         if engine.config.quantized_weights:
             qwz_kernel_vs_plain(engine, batch)
     del engine
@@ -7691,7 +8555,15 @@ def main() -> int:
                           for path in {**offload_launches, **depth_launches}})
 
     clock("phase 20")
-    # phase 21
+    # phase 21: fp16, pure bf16, every other optimizer, the engine's API,
+    # Random-LTD and the flops profiler
+    p21_launches, bf16_rows = training_rest_phase(counters, card)
+    launches_by_path.update(p21_launches)
+    path_head_dim.update({path: train_cfg.dims_per_head
+                          for path in p21_launches})
+
+    clock("phase 21")
+    # phase 22
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)
@@ -7809,6 +8681,31 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"], shape=r["shape"],
                     parts=r["parts"], note=entry["note"]))
+    # the pure-bf16 instances of the three optimizer kernels (phase 21 (d);
+    # bf16 p, fp32 g and moments; launches: every bf16 instance)
+    for name, rows in bf16_rows.items():
+        head = rows[0]
+        base = name.removesuffix("_bf16")
+        by_path = {path: launches[name]
+                   for path, launches in launches_by_path.items()}
+        if not sum(by_path.values()):
+            raise RuntimeError(f"{name}: no launch on any path")
+        line["kernels"].append(dict(
+            name=f"{base} @ bf16", route="cuda",
+            source="deepspeed_tpu_torch/csrc/"
+            + counters[name][0].source.name,
+            replaces=replaces[base], launches=sum(by_path.values()),
+            launches_by_path={k: v for k, v in by_path.items() if v},
+            max_abs_err=head["max_abs_err"], max_rel_err=head["max_rel_err"],
+            rms_rel_err=head["rms_rel_err"], max_rel_tol=MAX_REL_TOL,
+            rms_rel_tol=RMS_REL_TOL, ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            shape=head["shape"], **{k: head[k] for k in (
+                "bit_equal", "moved_share", "max_ulps", "ulp_share",
+                "update_rms_rel_err") if k in head},
+            **({} if head["library_ms"] is not None
+               else {"note": NO_LIBRARY})))
     print(json.dumps(line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,11 @@ The JAX engine stores its state through Orbax; the port writes
         {"module": the fp32 master tree (nested dicts, the model's
                    layout and order)}
     <save_dir>/<tag>/zero_pp_rank_0_mp_rank_00_optim_states.pt
-        {"optimizer": "adamw" | "lion" | "lamb",
+        {"optimizer": the optimizer's kind ("adamw", "lion", "lamb", ...),
          "optimizer_state_dict": torch's optimizer state dict (state by
-                   master index in tree order: step, exp_avg, exp_avg_sq)}
+                   master index in tree order: step, exp_avg, exp_avg_sq),
+         "loss_scale_state": {loss_scale, good_steps, skipped_steps,
+                   hysteresis} (the JAX TrainState's fp16 fields)}
     <save_dir>/<tag>/client_state.json      as the JAX engine writes it
 
 Every file loads with ``torch.load(weights_only=True)``, and masters and
@@ -175,7 +177,9 @@ class TorchCheckpointEngine(CheckpointEngine):
     docstring); the port's stand-in for the JAX ``OrbaxCheckpointEngine``.
 
     ``state`` is ``{"module": <master tree>, "optimizer": <kind>,
-    "optimizer_state_dict": <torch optimizer state dict>}``.  The host
+    "optimizer_state_dict": <torch optimizer state dict>,
+    "loss_scale_state": <dict>}``; every key but ``module`` goes to the
+    optimizer file.  The host
     copy reuses its buffers from one save to the next (pinned when the
     state lies on the card), so a periodic save allocates once."""
 
@@ -228,8 +232,7 @@ class TorchCheckpointEngine(CheckpointEngine):
         self.wait()                     # at most one save in flight
         host = self._host_copy(state)
         model = {"module": host["module"]}
-        optim = {"optimizer": host["optimizer"],
-                 "optimizer_state_dict": host["optimizer_state_dict"]}
+        optim = {k: v for k, v in host.items() if k != "module"}
         payload = json.dumps(_jsonable(client_state))
 
         def _save_state():
@@ -276,9 +279,9 @@ class TorchCheckpointEngine(CheckpointEngine):
     # -- load ----------------------------------------------------------------
     def load(self, load_dir: str, tag: str,
              module_only: bool = False) -> Tuple[Dict[str, Any], dict]:
-        """``({"module": ..., and without module_only "optimizer",
-        "optimizer_state_dict"}, client_state)``, as host tensors mapped
-        from the files."""
+        """``({"module": ..., and without module_only the optimizer
+        file's keys}, client_state)``, as host tensors mapped from the
+        files."""
         self.wait()
         path = os.path.abspath(os.path.join(load_dir, tag))
         state = {"module": _torch_load(os.path.join(path, MODEL_FILE))[

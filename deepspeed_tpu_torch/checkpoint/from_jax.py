@@ -168,16 +168,19 @@ def from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
 
 def _to_array(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
+    import ml_dtypes
+    if t.dtype == torch.bfloat16:
+        # numpy has no bf16: ml_dtypes' (JAX's own) holds the same bits
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     name = next((n for n, d in _FP8.items() if d == t.dtype), None)
     if name is None:
         return t.numpy()
-    # numpy has no fp8: ml_dtypes' types (JAX's own) hold the same bits
-    import ml_dtypes
+    # numpy has no fp8 either
     return t.view(torch.uint8).numpy().view(getattr(ml_dtypes, name))
 
 
 def to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The port's param tree -> numpy leaves in the same layout: the
-    inverse of :func:`from_jax` for fp32 leaves (numpy has no bf16) and
-    for quantised leaves (fp8 codes as ``ml_dtypes`` arrays)."""
+    inverse of :func:`from_jax` for fp32 leaves, and for bf16 leaves and
+    quantised leaves (fp8 codes) as ``ml_dtypes`` arrays."""
     return tree_map(_to_array, tree)

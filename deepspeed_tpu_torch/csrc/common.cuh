@@ -82,6 +82,50 @@ __device__ __forceinline__ void ds_load_float8(const float* v, int chunk,
 }
 
 
+// The elementwise optimizers' operands (fused_adamw.cu, fused_lion.cu,
+// fused_lamb.cu): fp32 or bf16 buffers, read as fp32 and written with
+// one round to nearest even.  ds_load4 / ds_store4 move element group i
+// (elements 4i..4i+3) in one access: 16 bytes of fp32 or 8 of bf16, so
+// both need only the 16-byte alignment the wrappers check.
+__device__ __forceinline__ float ds_load1(const float* v, long long i) {
+  return v[i];
+}
+__device__ __forceinline__ float ds_load1(const __nv_bfloat16* v,
+                                          long long i) {
+  return __bfloat162float(v[i]);
+}
+__device__ __forceinline__ void ds_store1(float* v, long long i, float x) {
+  v[i] = x;
+}
+__device__ __forceinline__ void ds_store1(__nv_bfloat16* v, long long i,
+                                          float x) {
+  v[i] = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void ds_load4(const float* v, long long i,
+                                         float* out) {
+  const float4 a = reinterpret_cast<const float4*>(v)[i];
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+}
+__device__ __forceinline__ void ds_load4(const __nv_bfloat16* v, long long i,
+                                         float* out) {
+  const uint2 raw = reinterpret_cast<const uint2*>(v)[i];
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+__device__ __forceinline__ void ds_store4(float* v, long long i,
+                                          const float* x) {
+  reinterpret_cast<float4*>(v)[i] = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void ds_store4(__nv_bfloat16* v, long long i,
+                                          const float* x) {
+  uint2 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+  h[0] = __floats2bfloat162_rn(x[0], x[1]);
+  h[1] = __floats2bfloat162_rn(x[2], x[3]);
+  reinterpret_cast<uint2*>(v)[i] = raw;
+}
+
 // Calls f(std::integral_constant<int, C>{}) with the smallest power of
 // two C >= n, up to MAX: picks a kernel instantiation from a runtime
 // count (chunks per thread) so that no register holds a chunk the row

@@ -1,4 +1,4 @@
-// Fused AdamW: one in-place elementwise pass over fp32 p, g, m and v.
+// Fused AdamW: one in-place elementwise pass over p, g, m and v.
 //
 // Replaces: deepspeed_tpu/ops/fused_optimizer.py:_adamw_kernel (via
 // fused_adamw_flat).  Training runs it once per parameter leaf per
@@ -13,14 +13,22 @@
 // with step the 1-based update count and the bias corrections taken in
 // fp32 by powf, as the TPU kernel's jnp.power does.
 //
-// Layout: four contiguous fp32 buffers of n elements, 16-byte aligned.
-// A grid-stride loop moves one float4 of each buffer per thread and
-// iteration (16-byte loads and stores); the last n % 4 elements are a
-// scalar tail.
+// Types: the kernel is a template over p's and g's types, each fp32 or
+// bf16, over fp32 moments (the TPU kernel takes any dtype for p and g;
+// pure bf16 training keeps bf16 p over fp32 moments, as the JAX
+// engine's optax state).  Every operand is read as fp32, the arithmetic
+// is fp32, and p is rounded once when written.  fused_adamw_f32 is the
+// all-fp32 instance; the others are fused_adamw_<p>_<g>, each f32 or
+// bf16.
 //
-// Bound on the H100: bytes, 28 B per element (p, g, m, v read; p, m, v
-// written) at 3.35 TB/s; the ~15 flops per element are far below the
-// ridge.
+// Layout: four contiguous buffers of n elements, 16-byte aligned.  A
+// grid-stride loop moves four elements of each buffer per thread and
+// iteration (one 16-byte fp32 or 8-byte bf16 access); the last n % 4
+// elements are a scalar tail.
+//
+// Bound on the H100: bytes, 28 B per element in fp32 (p, g, m, v read;
+// p, m, v written), 24 B with bf16 p, at 3.35 TB/s;
+// the ~15 flops per element are far below the ridge.
 
 #include "common.cuh"
 
@@ -40,8 +48,9 @@ struct AdamW {
   }
 };
 
+template <typename TP, typename TG>
 __global__ void __launch_bounds__(kThreads)
-fused_adamw_kernel(float* __restrict__ p, const float* __restrict__ g,
+fused_adamw_kernel(TP* __restrict__ p, const TG* __restrict__ g,
                    float* __restrict__ m, float* __restrict__ v, long long n,
                    float lr, float b1, float b2, float eps, float wd,
                    int step) {
@@ -52,36 +61,54 @@ fused_adamw_kernel(float* __restrict__ p, const float* __restrict__ g,
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
                           threadIdx.x;
   const long long n4 = n / 4;
-  float4* p4 = reinterpret_cast<float4*>(p);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  float4* m4 = reinterpret_cast<float4*>(m);
-  float4* v4 = reinterpret_cast<float4*>(v);
   for (long long i = first; i < n4; i += stride) {
-    float4 pp = p4[i], mm = m4[i], vv = v4[i];
-    const float4 gg = g4[i];
-    op(pp.x, gg.x, mm.x, vv.x);
-    op(pp.y, gg.y, mm.y, vv.y);
-    op(pp.z, gg.z, mm.z, vv.z);
-    op(pp.w, gg.w, mm.w, vv.w);
-    p4[i] = pp;
-    m4[i] = mm;
-    v4[i] = vv;
+    float pp[4], gg[4], mm[4], vv[4];
+    ds_load4(p, i, pp);
+    ds_load4(g, i, gg);
+    ds_load4(m, i, mm);
+    ds_load4(v, i, vv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) op(pp[k], gg[k], mm[k], vv[k]);
+    ds_store4(p, i, pp);
+    ds_store4(m, i, mm);
+    ds_store4(v, i, vv);
   }
-  for (long long i = 4 * n4 + first; i < n; i += stride) op(p[i], g[i], m[i], v[i]);
+  for (long long i = 4 * n4 + first; i < n; i += stride) {
+    float pp = ds_load1(p, i), mm = ds_load1(m, i), vv = ds_load1(v, i);
+    op(pp, ds_load1(g, i), mm, vv);
+    ds_store1(p, i, pp);
+    ds_store1(m, i, mm);
+    ds_store1(v, i, vv);
+  }
+}
+
+template <typename TP, typename TG>
+int launch(void* p, const void* g, void* m, void* v, long long n, float lr,
+           float b1, float b2, float eps, float wd, int step, void* stream) {
+  const long long n4 = (n + 3) / 4;
+  const long long want = (n4 + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
+  fused_adamw_kernel<TP, TG>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<TP*>(p), static_cast<const TG*>(g),
+          static_cast<float*>(m), static_cast<float*>(v), n, lr, b1, b2, eps,
+          wd, step);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // step: the 1-based update count.
-DS_EXPORT int fused_adamw_f32(void* p, const void* g, void* m, void* v,
-                              long long n, float lr, float b1, float b2,
-                              float eps, float wd, int step, void* stream) {
-  const long long n4 = (n + 3) / 4;
-  const long long want = (n4 + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
-  fused_adamw_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), static_cast<float*>(v), n, lr, b1, b2, eps, wd,
-      step);
-  return static_cast<int>(cudaGetLastError());
-}
+#define DS_ADAMW_ENTRY(NAME, TP, TG)                                         \
+  DS_EXPORT int NAME(void* p, const void* g, void* m, void* v, long long n, \
+                     float lr, float b1, float b2, float eps, float wd,     \
+                     int step, void* stream) {                              \
+    return launch<TP, TG>(p, g, m, v, n, lr, b1, b2, eps, wd, step,         \
+                          stream);                                          \
+  }
+
+using bf16 = __nv_bfloat16;
+DS_ADAMW_ENTRY(fused_adamw_f32, float, float)
+DS_ADAMW_ENTRY(fused_adamw_f32_bf16, float, bf16)
+DS_ADAMW_ENTRY(fused_adamw_bf16_f32, bf16, float)
+DS_ADAMW_ENTRY(fused_adamw_bf16_bf16, bf16, bf16)

@@ -14,15 +14,21 @@
 // with step the 1-based update count and the bias corrections taken in
 // fp32 by powf, as fused_adamw.cu does.
 //
-// Layout: p, g read; m, v updated in place; u written; all contiguous
-// fp32 buffers of n elements, 16-byte aligned.  norms is fp32
+// Types: a template over p's and g's types, each fp32 or bf16, over fp32
+// moments, as fused_adamw.cu: fp32 arithmetic; u and the partial norms
+// stay fp32 (the trust ratio's inputs).  fused_lamb_stage1_f32 is the
+// all-fp32 instance; the others are fused_lamb_stage1_<p>_<g>.
+//
+// Layout: p, g read; m, v updated in place; u written (fp32); all
+// contiguous buffers of n elements, 16-byte aligned.  norms is fp32
 // [nblocks, 2]: block b's sums of p^2 and u^2.  The grid is nblocks CTAs
 // (the wrapper fixes it from n alone), each grid-striding over float4s
 // and summing its squares in fp64 registers, then through shuffles and
 // shared memory, so the partials are deterministic and need no atomics.
 //
-// Bound on the H100: bytes, 28 B per element (p, g, m, v read; u, m, v
-// written) at 3.35 TB/s; ~20 flops per element.
+// Bound on the H100: bytes, 28 B per element in fp32 (p, g, m, v read;
+// u, m, v written), 26 B with bf16 p, at 3.35 TB/s;
+// ~20 flops per element.
 
 #include "common.cuh"
 
@@ -47,12 +53,13 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+template <typename TP, typename TG>
 __global__ void __launch_bounds__(kThreads)
-fused_lamb_stage1_kernel(const float* __restrict__ p,
-                         const float* __restrict__ g, float* __restrict__ m,
-                         float* __restrict__ v, float* __restrict__ u,
-                         float* __restrict__ norms, long long n, float b1,
-                         float b2, float eps, float wd, int step) {
+fused_lamb_stage1_kernel(const TP* __restrict__ p, const TG* __restrict__ g,
+                         float* __restrict__ m, float* __restrict__ v,
+                         float* __restrict__ u, float* __restrict__ norms,
+                         long long n, float b1, float b2, float eps, float wd,
+                         int step) {
   const LambStage1 op{b1, b2, eps, wd,
                       1.f - powf(b1, static_cast<float>(step)),
                       1.f - powf(b2, static_cast<float>(step))};
@@ -60,33 +67,31 @@ fused_lamb_stage1_kernel(const float* __restrict__ p,
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
                           threadIdx.x;
   const long long n4 = n / 4;
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  float4* m4 = reinterpret_cast<float4*>(m);
-  float4* v4 = reinterpret_cast<float4*>(v);
-  float4* u4 = reinterpret_cast<float4*>(u);
   double pp = 0.0, uu = 0.0;
   for (long long i = first; i < n4; i += stride) {
-    const float4 x = p4[i], gg = g4[i];
-    float4 mm = m4[i], vv = v4[i], out;
-    out.x = op(x.x, gg.x, mm.x, vv.x);
-    out.y = op(x.y, gg.y, mm.y, vv.y);
-    out.z = op(x.z, gg.z, mm.z, vv.z);
-    out.w = op(x.w, gg.w, mm.w, vv.w);
-    m4[i] = mm;
-    v4[i] = vv;
-    u4[i] = out;
-    pp += static_cast<double>(x.x) * x.x + static_cast<double>(x.y) * x.y +
-          static_cast<double>(x.z) * x.z + static_cast<double>(x.w) * x.w;
-    uu += static_cast<double>(out.x) * out.x +
-          static_cast<double>(out.y) * out.y +
-          static_cast<double>(out.z) * out.z +
-          static_cast<double>(out.w) * out.w;
+    float x[4], gg[4], mm[4], vv[4], out[4];
+    ds_load4(p, i, x);
+    ds_load4(g, i, gg);
+    ds_load4(m, i, mm);
+    ds_load4(v, i, vv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      out[k] = op(x[k], gg[k], mm[k], vv[k]);
+      pp += static_cast<double>(x[k]) * x[k];
+      uu += static_cast<double>(out[k]) * out[k];
+    }
+    ds_store4(m, i, mm);
+    ds_store4(v, i, vv);
+    ds_store4(u, i, out);
   }
   for (long long i = 4 * n4 + first; i < n; i += stride) {
-    const float out = op(p[i], g[i], m[i], v[i]);
+    const float x = ds_load1(p, i);
+    float mm = ds_load1(m, i), vv = ds_load1(v, i);
+    const float out = op(x, ds_load1(g, i), mm, vv);
+    ds_store1(m, i, mm);
+    ds_store1(v, i, vv);
     u[i] = out;
-    pp += static_cast<double>(p[i]) * p[i];
+    pp += static_cast<double>(x) * x;
     uu += static_cast<double>(out) * out;
   }
 
@@ -109,19 +114,33 @@ fused_lamb_stage1_kernel(const float* __restrict__ p,
   }
 }
 
+template <typename TP, typename TG>
+int launch(const void* p, const void* g, void* m, void* v, void* u,
+           void* norms, long long n, int nblocks, float b1, float b2,
+           float eps, float wd, int step, void* stream) {
+  fused_lamb_stage1_kernel<TP, TG>
+      <<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const TP*>(p), static_cast<const TG*>(g),
+          static_cast<float*>(m), static_cast<float*>(v),
+          static_cast<float*>(u), static_cast<float*>(norms), n, b1, b2, eps,
+          wd, step);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // nblocks: the grid, and the rows of norms [nblocks, 2].  step: the
 // 1-based update count.
-DS_EXPORT int fused_lamb_stage1_f32(const void* p, const void* g, void* m,
-                                    void* v, void* u, void* norms,
-                                    long long n, int nblocks, float b1,
-                                    float b2, float eps, float wd, int step,
-                                    void* stream) {
-  fused_lamb_stage1_kernel<<<nblocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), static_cast<float*>(v), static_cast<float*>(u),
-      static_cast<float*>(norms), n, b1, b2, eps, wd, step);
-  return static_cast<int>(cudaGetLastError());
-}
+#define DS_LAMB_ENTRY(NAME, TP, TG)                                           \
+  DS_EXPORT int NAME(const void* p, const void* g, void* m, void* v, void* u, \
+                     void* norms, long long n, int nblocks, float b1,         \
+                     float b2, float eps, float wd, int step, void* stream) { \
+    return launch<TP, TG>(p, g, m, v, u, norms, n, nblocks, b1, b2, eps, wd,  \
+                          step, stream);                                      \
+  }
+
+using bf16 = __nv_bfloat16;
+DS_LAMB_ENTRY(fused_lamb_stage1_f32, float, float)
+DS_LAMB_ENTRY(fused_lamb_stage1_f32_bf16, float, bf16)
+DS_LAMB_ENTRY(fused_lamb_stage1_bf16_f32, bf16, float)
+DS_LAMB_ENTRY(fused_lamb_stage1_bf16_bf16, bf16, bf16)

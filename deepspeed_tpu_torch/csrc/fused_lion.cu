@@ -1,4 +1,4 @@
-// Fused Lion: one in-place elementwise pass over fp32 p, g and m.
+// Fused Lion: one in-place elementwise pass over p, g and m.
 //
 // Replaces: deepspeed_tpu/ops/fused_optimizer.py:_lion_kernel (via
 // fused_lion_flat).  Training with optimizer "lion" / "fusedlion" runs
@@ -13,12 +13,19 @@
 // zero, and with it every p and m, is bit-equal to the plain version's
 // separately rounded fp32 operations.
 //
-// Layout: three contiguous fp32 buffers of n elements, 16-byte aligned.
-// A grid-stride loop moves one float4 of each buffer per thread and
+// Types: a template over p's and g's types, each fp32 or bf16, over an
+// fp32 m, as fused_adamw.cu: fp32 arithmetic, p rounded once when
+// written (round to nearest even, as the plain version's cast), so a
+// bf16 instance is bit-equal to its plain version too.  fused_lion_f32
+// is the all-fp32 instance; the others are fused_lion_<p>_<g>.
+//
+// Layout: three contiguous buffers of n elements, 16-byte aligned.  A
+// grid-stride loop moves four elements of each buffer per thread and
 // iteration; the last n % 4 elements are a scalar tail.
 //
-// Bound on the H100: bytes, 20 B per element (p, g, m read; p, m
-// written) at 3.35 TB/s; ~10 flops per element.
+// Bound on the H100: bytes, 20 B per element in fp32 (p, g, m read; p,
+// m written), 16 B with bf16 p, at 3.35 TB/s; ~10
+// flops per element.
 
 #include "common.cuh"
 
@@ -38,8 +45,9 @@ struct Lion {
   }
 };
 
+template <typename TP, typename TG>
 __global__ void __launch_bounds__(kThreads)
-fused_lion_kernel(float* __restrict__ p, const float* __restrict__ g,
+fused_lion_kernel(TP* __restrict__ p, const TG* __restrict__ g,
                   float* __restrict__ m, long long n, float lr, float b1,
                   float b2, float wd) {
   const Lion op{lr, b1, b2, wd, 1.f - b1, 1.f - b2};
@@ -47,32 +55,47 @@ fused_lion_kernel(float* __restrict__ p, const float* __restrict__ g,
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
                           threadIdx.x;
   const long long n4 = n / 4;
-  float4* p4 = reinterpret_cast<float4*>(p);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  float4* m4 = reinterpret_cast<float4*>(m);
   for (long long i = first; i < n4; i += stride) {
-    float4 pp = p4[i], mm = m4[i];
-    const float4 gg = g4[i];
-    op(pp.x, gg.x, mm.x);
-    op(pp.y, gg.y, mm.y);
-    op(pp.z, gg.z, mm.z);
-    op(pp.w, gg.w, mm.w);
-    p4[i] = pp;
-    m4[i] = mm;
+    float pp[4], gg[4], mm[4];
+    ds_load4(p, i, pp);
+    ds_load4(g, i, gg);
+    ds_load4(m, i, mm);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) op(pp[k], gg[k], mm[k]);
+    ds_store4(p, i, pp);
+    ds_store4(m, i, mm);
   }
-  for (long long i = 4 * n4 + first; i < n; i += stride) op(p[i], g[i], m[i]);
+  for (long long i = 4 * n4 + first; i < n; i += stride) {
+    float pp = ds_load1(p, i), mm = ds_load1(m, i);
+    op(pp, ds_load1(g, i), mm);
+    ds_store1(p, i, pp);
+    ds_store1(m, i, mm);
+  }
+}
+
+template <typename TP, typename TG>
+int launch(void* p, const void* g, void* m, long long n, float lr, float b1,
+           float b2, float wd, void* stream) {
+  const long long n4 = (n + 3) / 4;
+  const long long want = (n4 + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
+  fused_lion_kernel<TP, TG>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<TP*>(p), static_cast<const TG*>(g),
+          static_cast<float*>(m), n, lr, b1, b2, wd);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-DS_EXPORT int fused_lion_f32(void* p, const void* g, void* m, long long n,
-                             float lr, float b1, float b2, float wd,
-                             void* stream) {
-  const long long n4 = (n + 3) / 4;
-  const long long want = (n4 + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
-  fused_lion_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(m), n, lr, b1, b2, wd);
-  return static_cast<int>(cudaGetLastError());
-}
+#define DS_LION_ENTRY(NAME, TP, TG)                                          \
+  DS_EXPORT int NAME(void* p, const void* g, void* m, long long n, float lr, \
+                     float b1, float b2, float wd, void* stream) {           \
+    return launch<TP, TG>(p, g, m, n, lr, b1, b2, wd, stream);               \
+  }
+
+using bf16 = __nv_bfloat16;
+DS_LION_ENTRY(fused_lion_f32, float, float)
+DS_LION_ENTRY(fused_lion_f32_bf16, float, bf16)
+DS_LION_ENTRY(fused_lion_bf16_f32, bf16, float)
+DS_LION_ENTRY(fused_lion_bf16_bf16, bf16, bf16)

@@ -3,14 +3,26 @@ training slice reads.
 
 Counterpart of ``deepspeed_tpu/runtime/config.py`` (``OptimizerParams``
 :41, ``BF16Config`` :71, ``ZeroConfig`` :110, ``gradient_clipping``
-:597, ``precision_dtype`` :686 as the ``bf16`` flag,
+:597, ``precision_dtype`` :686,
 ``resolve_batch_sizes`` :652), as plain dataclasses.  A config is a dict
 or a JSON path with the keys users already write.  The slice is one
-device; bf16 (fp32 masters and fp32 gradient accumulation) or fp32;
-AdamW, Lion or LAMB; the five LR schedules; ZeRO stages 0 to 3 and
-ZeRO++ quantised weights.  A key that switches on a feature outside the
-slice raises ``NotImplementedError`` naming its ROADMAP item; a key the
-port does not know raises too, so no setting is silently dropped.
+device; bf16 (fp32 masters and fp32 gradient accumulation, or pure bf16
+with ``bf16.master_weights`` / ``accumulate_grads_in_fp32`` false), fp16
+(``FP16Config``: static or dynamic loss scaling; the compute runs in
+bf16, as in the JAX engine) or fp32; every optimizer name of the JAX
+factory; the five LR schedules; ZeRO stages 0 to 3 and ZeRO++
+quantised weights.  A key that switches on a feature outside the slice
+raises ``NotImplementedError`` naming its ROADMAP item; a key the port
+does not know raises too, so no setting is silently dropped.
+
+``flops_profiler`` (``FlopsProfilerConfig``) and ``data_efficiency``
+(its ``data_sampling`` and ``data_routing`` dicts, read by the engine's
+accessors only, as in JAX) are read; ``tpu.param_dtype`` and
+``tpu.compute_dtype`` are parsed and read by nothing, as in the JAX
+engine, whose dtypes come from the precision sections;
+``tpu.matmul_precision`` sets ``torch.set_float32_matmul_precision``
+at every engine build (``"default"`` resets it to PyTorch's
+``"highest"``).
 
 The loader also reads the ``checkpoint``
 section (JAX ``CheckpointConfig``: ``async_save``, ``save_retries``,
@@ -92,7 +104,6 @@ def _enabled(section: Dict[str, Any]) -> bool:
 
 # config section -> (does it switch a feature on?, ROADMAP Queue 1 item)
 _OUTSIDE_SLICE = {
-    "fp16": (_enabled, "11c (fp16 and loss scaling)"),
     "comm_optimization": (_enabled, "11e (quantized collectives)"),
     "compression_training": (bool, "11e (compression)"),
     "pipeline": (lambda s: s.get("stages", 1) > 1,
@@ -105,11 +116,11 @@ _OUTSIDE_SLICE = {
 # read by the slice
 _READ = ("train_batch_size", "train_micro_batch_size_per_gpu",
          "gradient_accumulation_steps", "gradient_clipping", "optimizer",
-         "scheduler", "bf16", "zero_optimization", "steps_per_print",
+         "scheduler", "bf16", "fp16", "zero_optimization", "steps_per_print",
          "wall_clock_breakdown", "checkpoint", "fault_tolerance",
          "fault_injection", "telemetry", "tensorboard", "wandb",
          "csv_monitor", "comet", "aio", "activation_checkpointing", "tpu",
-         "memory_breakdown")
+         "memory_breakdown", "flops_profiler", "data_efficiency")
 
 #: keys accepted for compatibility that change nothing, with the reason
 #: logged when a config sets one (JAX ``config.py:_NOOP_KEYS``)
@@ -153,8 +164,12 @@ class OptimizerParams:
     betas: Tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-8
     weight_decay: float = 0.0
-    #: False: coupled L2 decay, which only the host Adam runs (every leaf
-    #: offloaded)
+    #: SGD's momentum (0: none)
+    momentum: float = 0.0
+    #: parsed and read by nothing, as in the JAX factory
+    bias_correction: bool = True
+    #: False: coupled L2 decay (the decayed weights added to the gradient
+    #: before Adam's moments)
     adam_w_mode: bool = True
 
 
@@ -225,33 +240,83 @@ class ActivationCheckpointingConfig:
 
 #: the ``tpu`` keys that override the model's config when set
 TPU_MODEL_KEYS = ("scan_layers", "remat", "remat_policy", "attention_impl")
-#: the other ``tpu`` keys, each accepted at JAX's default only
-TPU_DEFAULTS = {"param_dtype": ("float32", "11c (pure bf16 training)"),
-                "compute_dtype": ("bfloat16", "11c (fp16 and loss scaling)"),
-                "matmul_precision": ("default",
-                                     "11a (one-GPU training: matmul "
-                                     "precision)")}
+#: the ``tpu`` keys parsed and read by nothing (JAX's engine takes its
+#: dtypes from the precision sections, ``precision_dtype``)
+TPU_UNREAD = ("param_dtype", "compute_dtype", "donate_state")
+#: ``tpu.matmul_precision`` -> ``torch.set_float32_matmul_precision``
+#: (JAX's names and its aliases; "default" resets to PyTorch's default)
+MATMUL_PRECISION = {"default": "highest", "float32": "highest",
+                    "highest": "highest", "tensorfloat32": "high",
+                    "high": "high", "bfloat16": "medium"}
 
 
-def _tpu(section: Dict[str, Any]) -> Dict[str, Any]:
-    """The ``tpu`` section -> the model keys it sets.  ``donate_state``
-    is accepted and does nothing in eager PyTorch; ``mesh`` is accepted
-    when every axis is 1 or -1 (one device)."""
+def _tpu(section: Dict[str, Any]) -> Tuple[Dict[str, Any], str]:
+    """The ``tpu`` section -> (the model keys it sets, the matmul
+    precision).  ``mesh`` is accepted when every axis is 1 or -1 (one
+    device)."""
     section = dict(section or {})
     mesh = section.pop("mesh", {}) or {}
     if any(int(n) not in (1, -1) for n in mesh.values()):
         raise outside_slice(f"tpu.mesh {mesh} (axes over several devices)",
                             "11b (ZeRO and model parallelism)")
-    section.pop("donate_state", None)
-    for key, (default, item) in TPU_DEFAULTS.items():
-        if key in section and section.pop(key) != default:
-            raise outside_slice(f"tpu.{key} other than {default!r}", item)
+    for key in TPU_UNREAD:
+        section.pop(key, None)
+    precision = str(section.pop("matmul_precision", "default"))
+    if precision not in MATMUL_PRECISION:
+        raise ValueError(f"tpu.matmul_precision {precision!r} is not one of "
+                         f"{sorted(MATMUL_PRECISION)}")
     unknown = sorted(set(section) - set(TPU_MODEL_KEYS))
     if unknown:
         raise NotImplementedError(
             f"tpu keys {unknown} are not read by the port's training slice "
             f"(see ROADMAP Queue 1 item 11)")
-    return section
+    return section, precision
+
+
+@dataclasses.dataclass
+class FP16Config:
+    """The ``fp16`` section (JAX ``FP16Config``).  ``loss_scale`` 0 means
+    dynamic scaling from ``2 ** initial_scale_power``; ``auto_cast`` is
+    kept and read by nothing but its accessor, as in JAX."""
+    enabled: bool = False
+    loss_scale: float = 0.0
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+    auto_cast: bool = False
+
+
+@dataclasses.dataclass
+class BF16Config:
+    """The ``bf16`` section (JAX ``BF16Config``): with ``master_weights``
+    false the masters are bf16 (pure bf16), with
+    ``accumulate_grads_in_fp32`` false the gradient accumulators are."""
+    enabled: bool = True
+    master_weights: bool = True
+    accumulate_grads_in_fp32: bool = True
+
+
+@dataclasses.dataclass
+class FlopsProfilerConfig:
+    """The ``flops_profiler`` section (JAX ``FlopsProfilerConfig``)."""
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
+@dataclasses.dataclass
+class DataEfficiencyConfig:
+    """The ``data_efficiency`` section (JAX ``DataEfficiencyConfig``):
+    ``data_sampling`` and ``data_routing`` (``random_ltd``) are dicts
+    that the engine's accessors return, as in JAX."""
+    enabled: bool = False
+    seed: int = 1234
+    data_sampling: dict = dataclasses.field(default_factory=dict)
+    data_routing: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -384,8 +449,9 @@ class TrainingConfig:
         default_factory=OptimizerConfig)
     scheduler: Optional[SchedulerConfig] = None
     #: bf16 compute over fp32 masters and fp32 gradient accumulation (the
-    #: JAX default); False computes in fp32
-    bf16: bool = True
+    #: JAX default); ``enabled`` False (and no fp16) computes in fp32
+    bf16: BF16Config = dataclasses.field(default_factory=BF16Config)
+    fp16: FP16Config = dataclasses.field(default_factory=FP16Config)
     zero_stage: int = 0
     #: ZeRO++ qwZ; acts at zero_stage 3 only
     zero_quantized_weights: bool = False
@@ -402,7 +468,17 @@ class TrainingConfig:
     #: the ``tpu`` model keys the config set (scan_layers, remat,
     #: remat_policy, attention_impl), applied to the model's config
     tpu: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: ``tpu.matmul_precision`` as ``torch.set_float32_matmul_precision``
+    #: takes it
+    matmul_precision: str = "highest"
     memory_breakdown: bool = False
+    flops_profiler: FlopsProfilerConfig = dataclasses.field(
+        default_factory=FlopsProfilerConfig)
+    data_efficiency: DataEfficiencyConfig = dataclasses.field(
+        default_factory=DataEfficiencyConfig)
+    #: the ``zero_optimization`` keys of ``ZERO_ONE_RANK_NOOPS`` the config
+    #: set (the engine's accessors read them; JAX's defaults otherwise)
+    zero_settings: Dict[str, Any] = dataclasses.field(default_factory=dict)
     #: the (section, key) pairs of ``NOOP_KEYS`` the config set
     noop_keys: Tuple[Tuple[str, str], ...] = ()
     steps_per_print: int = 10
@@ -425,6 +501,14 @@ class TrainingConfig:
         default_factory=MonitorConfigItem)
     comet: MonitorConfigItem = dataclasses.field(
         default_factory=MonitorConfigItem)
+
+    @property
+    def precision_dtype(self) -> str:
+        """JAX ``precision_dtype``: float16 (computed in bf16), bfloat16
+        or float32."""
+        if self.fp16.enabled:
+            return "float16"
+        return "bfloat16" if self.bf16.enabled else "float32"
 
     @property
     def quantized_weights(self) -> bool:
@@ -452,46 +536,58 @@ class TrainingConfig:
         self.gradient_accumulation_steps = gas
 
 
-OTHER_OPTIMIZERS = "11d (SGD, Adagrad, adam_w_mode=False, 1-bit, Muon)"
+#: the other names of JAX ``get_optimizer``, each one kind
+OTHER_TYPES = {"sgd": "sgd", "adafactor": "adafactor", "muon": "muon",
+               "onebitadam": "onebitadam", "zerooneadam": "onebitadam",
+               "onebitlamb": "onebitlamb"}
 
 
-def optimizer_kind(name: str) -> str:
-    """"adamw", "lion", "lamb" or "adagrad" for a DeepSpeed optimizer name
-    the slice runs; raises ``NotImplementedError`` for any other.  The
-    host optimizers' names are their device kinds; "adagrad" runs on the
-    host only (the engine refuses it on the device)."""
+def optimizer_kind(name: str, adam_w_mode: bool = True,
+                   momentum: float = 0.0) -> str:
+    """The optimizer's kind for a DeepSpeed optimizer name (JAX
+    ``get_optimizer``'s selection): "adamw" ("adam_l2" for an Adam name
+    but "adamw" with ``adam_w_mode`` false), "lion", "lamb", "adagrad",
+    "sgd" ("sgd_momentum" with a momentum), "adafactor", "muon",
+    "onebitadam" (0/1 Adam too) or "onebitlamb"; the kind names the
+    state layout (checkpoints and universal atoms).  An unknown name
+    raises JAX's ``ValueError``."""
     key = name.lower().replace("_", "")
-    for kind, names in (("adamw", ADAM_TYPES + CPU_ADAM_TYPES),
-                        ("lion", LION_TYPES + CPU_LION_TYPES),
+    if key in ADAM_TYPES + CPU_ADAM_TYPES:
+        return "adamw" if adam_w_mode or key == "adamw" else "adam_l2"
+    for kind, names in (("lion", LION_TYPES + CPU_LION_TYPES),
                         ("lamb", LAMB_TYPES), ("adagrad", ADAGRAD_TYPES)):
         if key in names:
             return kind
-    raise outside_slice(f"optimizer {name!r}", OTHER_OPTIMIZERS)
+    if key in OTHER_TYPES:
+        kind = OTHER_TYPES[key]
+        return "sgd_momentum" if kind == "sgd" and momentum else kind
+    raise ValueError(f"unsupported optimizer: {key!r}")
 
 
 def _optimizer(section: Dict[str, Any]) -> OptimizerConfig:
     name = str(section.get("type", "adamw"))
-    optimizer_kind(name)
     params = dict(section.get("params", {}))
-    adam_w_mode = bool(params.pop("adam_w_mode", True))
-    if not params.pop("bias_correction", True):
-        raise outside_slice("bias_correction=False", OTHER_OPTIMIZERS)
     known = {f.name for f in dataclasses.fields(OptimizerParams)}
     unknown = sorted(set(params) - known)
     if unknown:
-        raise outside_slice(f"optimizer params {unknown}", OTHER_OPTIMIZERS)
+        raise NotImplementedError(
+            f"optimizer params {unknown} are not read by the port's "
+            f"training slice (see ROADMAP Queue 1 item 11)")
     if "betas" in params:
         params["betas"] = tuple(float(b) for b in params["betas"])
-    return OptimizerConfig(type=name, params=OptimizerParams(
-        adam_w_mode=adam_w_mode, **params))
+    opt = OptimizerConfig(type=name, params=OptimizerParams(**params))
+    optimizer_kind(name, opt.params.adam_w_mode, opt.params.momentum)
+    return opt
 
 
-def _bf16(section: Dict[str, Any]) -> bool:
-    if not section.get("master_weights", True) or \
-            not section.get("accumulate_grads_in_fp32", True):
-        raise outside_slice("bf16 without fp32 masters or fp32 gradient "
-                            "accumulation", "11c (fp16 and loss scaling)")
-    return bool(section.get("enabled", True))
+def _precision(config: Dict[str, Any]) -> Tuple[BF16Config, FP16Config]:
+    """The ``bf16`` and ``fp16`` sections; fp16 switched on turns bf16
+    off (JAX ``_normalize``)."""
+    bf16 = _section(BF16Config, "bf16", config.get("bf16"))
+    fp16 = _section(FP16Config, "fp16", config.get("fp16"))
+    if fp16.enabled:
+        bf16.enabled = False
+    return bf16, fp16
 
 
 def _zero(section: Dict[str, Any]
@@ -529,20 +625,6 @@ def _zero(section: Dict[str, Any]
             f"training slice (see ROADMAP Queue 1 item 11b)")
     return (stage, bool(section.get("zero_quantized_weights", False)),
             *offload)
-
-
-def _check_host_only(opt: OptimizerConfig, off: OffloadConfig) -> None:
-    """Adagrad and coupled-L2 Adam have host kernels only: they run when
-    every leaf is offloaded, and raise when a leaf stays on the device."""
-    everything_offloaded = off.enabled and off.ratio >= 1.0
-    if everything_offloaded:
-        return
-    if optimizer_kind(opt.type) == "adagrad":
-        raise outside_slice(f"optimizer {opt.type!r} on the device",
-                            OTHER_OPTIMIZERS)
-    if not opt.params.adam_w_mode:
-        raise outside_slice("adam_w_mode=False (coupled L2 decay) on the "
-                            "device", OTHER_OPTIMIZERS)
 
 
 def _noop_keys(config: Dict[str, Any]) -> Tuple[Tuple[str, str], ...]:
@@ -583,7 +665,8 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
     stage, qwz, off_opt, off_param = _zero(
         config.get("zero_optimization", {}))
     optimizer = _optimizer(config.get("optimizer", {}))
-    _check_host_only(optimizer, off_opt)
+    bf16, fp16 = _precision(config)
+    tpu, precision = _tpu(config.get("tpu"))
     sched = config.get("scheduler")
     return TrainingConfig(
         train_batch_size=config.get("train_batch_size"),
@@ -595,15 +678,22 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
         scheduler=(SchedulerConfig(type=sched.get("type", "WarmupLR"),
                                    params=dict(sched.get("params", {})))
                    if sched is not None else None),
-        bf16=_bf16(config.get("bf16", {})),
+        bf16=bf16, fp16=fp16,
         zero_stage=stage, zero_quantized_weights=qwz,
         offload_optimizer=off_opt, offload_param=off_param,
         aio=_section(AioConfig, "aio", config.get("aio")),
         activation_checkpointing=_section(
             ActivationCheckpointingConfig, "activation_checkpointing",
             config.get("activation_checkpointing")),
-        tpu=_tpu(config.get("tpu")),
+        tpu=tpu, matmul_precision=MATMUL_PRECISION[precision],
         memory_breakdown=bool(config.get("memory_breakdown", False)),
+        flops_profiler=_section(FlopsProfilerConfig, "flops_profiler",
+                                config.get("flops_profiler")),
+        data_efficiency=_section(DataEfficiencyConfig, "data_efficiency",
+                                 config.get("data_efficiency")),
+        zero_settings={k: v for k, v in
+                       (config.get("zero_optimization") or {}).items()
+                       if k in ZERO_ONE_RANK_NOOPS},
         noop_keys=_noop_keys(config),
         steps_per_print=int(config.get("steps_per_print", 10)),
         wall_clock_breakdown=bool(config.get("wall_clock_breakdown", False)),

@@ -76,6 +76,31 @@ The ``tpu`` model keys and ``activation_checkpointing`` (``policy``,
 ``cpu_checkpointing``) set the model config's remat policy before the
 weights are built, as JAX ``_apply_model_overrides`` does.
 
+Precision (JAX :178-186, :631-633): bf16 computes over fp32 masters;
+pure bf16 (``bf16.master_weights`` false) keeps bf16 masters, which the
+optimizer updates in place (the fused kernels' bf16 instances), and
+``accumulate_grads_in_fp32`` false makes the accumulators bf16; fp16
+keeps fp32 masters and computes in bf16, as the JAX engine does.  Under
+fp16 every micro-batch's loss is multiplied by the loss scale before
+its backward, the accumulated gradients are divided by ``gas * scale``,
+and the global norm is read on the host before the update (one sync a
+step): a non-finite norm skips the update, leaving masters, moments and
+the optimizer's count as they are, and the dynamic scale follows JAX's
+rule with hysteresis (:770-810).  The LR schedule reads the count of
+applied updates, so a skip does not advance it; the host step of
+ZeRO-Offload is skipped with it.  A skip is routine: the watchdog counts
+it in ``ds_train_overflow_skip_total`` and self-healing leaves it be.
+
+The rest of the JAX engine's API (:1569-1870): ``set_lr``, the
+batch-size setters, ``set_gradient_accumulation_boundary`` (a forced
+boundary averages over the micro-batches taken), ``train`` / ``eval``,
+``destroy``, ``was_step_applied``, ``dump_state``, the config
+accessors, ``random_ltd_*`` and the flops-profiler hook
+(``flops_profiler.profile_step``: one more forward and backward of the
+step's micro-batches under ``profiling/flops_profiler.py``'s counter,
+its gradients discarded and nothing random drawn, so training is what
+it would have been).
+
 Self-healing and telemetry (JAX :946-1225): with
 ``fault_tolerance.self_healing`` a non-finite step rolls back to the
 last good checkpoint or the host snapshot and skips the batch, and a
@@ -111,8 +136,8 @@ from ..tree import tree_leaves, tree_map
 from ..utils.logging import logger
 from ..utils.timer import (TRAIN_BATCH_TIMER, SynchronizedWallClockTimer,
                            ThroughputTimer)
-from .config import (TrainingConfig, load_config, optimizer_kind,
-                     warn_noop_keys)
+from .config import (ZERO_ONE_RANK_NOOPS, TrainingConfig, load_config,
+                     optimizer_kind, warn_noop_keys)
 from .dataloader import DeepSpeedDataLoader
 from .fault_injection import (InjectedCollectiveFault, TransientFault,
                               get_fault_injector)
@@ -194,6 +219,22 @@ CPU_CHECKPOINTING = {
 #: the host optimizer's file beside a checkpoint's (JAX ``engine.py:1401``)
 OFFLOAD_FILE = "offload_rank0.npz"
 
+#: the JAX ``ZeroConfig`` defaults of the keys the accessors read
+ZERO_DEFAULTS = {
+    "contiguous_gradients": True, "reduce_scatter": True,
+    "reduce_bucket_size": int(5e8), "allgather_partitions": True,
+    "allgather_bucket_size": int(5e8), "overlap_comm": True,
+    "sub_group_size": int(1e9), "stage3_max_live_parameters": int(1e9),
+    "stage3_max_reuse_distance": int(1e9),
+    "stage3_prefetch_bucket_size": int(5e7),
+    "stage3_param_persistence_threshold": int(1e5),
+    "stage3_model_persistence_threshold": int(2 ** 63 - 1),
+    "stage3_gather_16bit_weights_on_model_save": False,
+    "mics_hierarchical_params_gather": False,
+    "round_robin_gradients": False, "memory_efficient_linear": True}
+assert set(ZERO_DEFAULTS) == set(ZERO_ONE_RANK_NOOPS)
+
+
 
 class DeepSpeedEngine:
     """Eager training engine.
@@ -218,8 +259,19 @@ class DeepSpeedEngine:
             raise TypeError("model must define init_params(seed, device) "
                             "and loss(params, batch)")
         self.module = model
-        self.compute_dtype = (torch.bfloat16 if self.config.bf16
-                              else torch.float32)
+        cfg = self.config
+        # fp16 computes in bf16 (JAX engine.py:178-186)
+        self.compute_dtype = (torch.float32
+                              if cfg.precision_dtype == "float32"
+                              else torch.bfloat16)
+        self._fp16_enabled = cfg.fp16.enabled
+        self.master_dtype = (torch.float32 if (
+            cfg.bf16.master_weights or self._fp16_enabled
+            or cfg.precision_dtype == "float32") else self.compute_dtype)
+        self.acc_dtype = (torch.float32 if cfg.bf16.accumulate_grads_in_fp32
+                          else self.compute_dtype)
+        # one engine's matmul precision never leaks into the next
+        torch.set_float32_matmul_precision(cfg.matmul_precision)
         warn_noop_keys(self.config)
         self._apply_model_overrides()
 
@@ -252,17 +304,21 @@ class DeepSpeedEngine:
                 # the device keeps the compute-dtype copy (the offload
                 # memory win)
                 return t.detach().to(self.device, self.compute_dtype)
-            return t.detach().to(self.device, torch.float32, copy=copy)
-        #: the weights in the model's tree layout: fp32 masters, and for
-        #: offloaded leaves their compute-dtype copy
+            return t.detach().to(self.device, self.master_dtype, copy=copy)
+        #: the weights in the model's tree layout: the masters (fp32, or
+        #: bf16 under pure bf16), and for offloaded leaves their
+        #: compute-dtype copy
         self.params = _tree_with_paths(tree, master)
         self._masters = tree_leaves(self.params)
-        #: fp32 gradient accumulators, one per leaf (JAX engine.py:683-688)
+        #: gradient accumulators, one per leaf, fp32 unless
+        #: ``accumulate_grads_in_fp32`` is false (JAX engine.py:683-688);
+        #: an offloaded leaf's is fp32 (the host step's input)
         self._grads: List[torch.Tensor] = []
         for p, off in zip(self._masters, self._offloaded):
-            g = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            if not off:
-                p.grad = g        # the device optimizer reads .grad
+            g = torch.zeros(p.shape, device=p.device,
+                            dtype=torch.float32 if off else self.acc_dtype)
+            if not off and g.dtype == p.dtype:
+                p.grad = g        # the device optimizer's step gets them too
             self._grads.append(g)
         if self.offload is not None:
             # tree index -> master index k
@@ -286,6 +342,8 @@ class DeepSpeedEngine:
         else:
             self._schedule = lambda step: base_lr
         self.lr_scheduler = LRScheduler(self._schedule)
+        self._init_loss_scale()
+        self._check_jax_builds(model)
         #: the leaves the device optimizer steps, in tree order
         self._device_index = [i for i, off in enumerate(self._offloaded)
                               if not off]
@@ -295,12 +353,19 @@ class DeepSpeedEngine:
             opt.type, opt.params,
             [self._masters[i] for i in self._device_index])
             if self._device_index else None)
-        #: "adamw", "lion", "lamb" or "adagrad" (the universal checkpoint's
-        #: layout)
-        self.optimizer_kind = optimizer_kind(opt.type)
+        #: the optimizer's kind (``config.optimizer_kind``): the layout of
+        #: its state in checkpoints and universal atoms
+        self.optimizer_kind = optimizer_kind(
+            opt.type, opt.params.adam_w_mode, opt.params.momentum)
 
         self._params_c: Optional[Dict[str, Any]] = None
         self._pending = 0          # micro-batches accumulated this step
+        #: set_gradient_accumulation_boundary's override (None: the count)
+        self._ga_boundary: Optional[bool] = None
+        self._last_step_applied = True
+        self._train_mode = True
+        self._eval_mode_warned = False
+        self._destroyed = False
         self.global_steps = 0
         self.micro_steps = 0
         self.global_samples = 0
@@ -335,6 +400,29 @@ class DeepSpeedEngine:
                         zero_stage=self.config.zero_stage,
                         micro_bs=self.train_micro_batch_size_per_gpu(),
                         gas=self.gradient_accumulation_steps())
+
+    def _check_jax_builds(self, model: Model) -> None:
+        """Refuse what the JAX engine refuses at build: its state
+        shardings cannot hold ``optax.contrib.muon``'s partitioned state
+        (any model), nor Adafactor's factored statistics beside a
+        transformer's logically partitioned leaves; both raise
+        ``ValueError`` there (ROADMAP Queue 3)."""
+        from ..models.transformer import TransformerConfig
+        kind = optimizer_kind(self.config.optimizer.type)
+        if kind == "muon":
+            raise ValueError(
+                "optimizer 'muon': the JAX engine cannot build its state "
+                "shardings over optax.contrib.muon's partitioned state, and "
+                "the port refuses it as well (runtime.optimizers.Muon runs "
+                "outside the engine)")
+        if kind == "adafactor" and isinstance(getattr(model, "cfg", None),
+                                              TransformerConfig):
+            raise ValueError(
+                "optimizer 'adafactor': the JAX engine cannot place "
+                "optax.adafactor's factored statistics beside a "
+                "transformer's partitioned parameters, and the port refuses "
+                "it as well (runtime.optimizers.Adafactor runs outside the "
+                "engine and on other models)")
 
     def _build_monitor(self):
         try:
@@ -393,6 +481,73 @@ class DeepSpeedEngine:
         return [float(self._schedule(self.global_steps))]
 
     @property
+    def loss_scale(self) -> float:
+        return float(self._loss_scale)
+
+    @property
+    def skipped_steps(self) -> int:
+        """Steps skipped on an fp16 overflow."""
+        return self._skipped_steps
+
+    def _init_loss_scale(self) -> None:
+        """JAX ``_initial_loss_scale`` and the ``TrainState`` counters:
+        1 outside fp16, a static ``loss_scale`` > 0, else ``2 **
+        initial_scale_power`` (fp32, as JAX keeps it)."""
+        fp16 = self.config.fp16
+        if not self._fp16_enabled:
+            scale = 1.0
+        elif fp16.loss_scale > 0:
+            scale = float(fp16.loss_scale)
+        else:
+            scale = float(2 ** fp16.initial_scale_power)
+        self._loss_scale = np.float32(scale)
+        self._good_steps = 0
+        self._skipped_steps = 0
+        self._hysteresis = int(fp16.hysteresis)
+
+    def _scale_state(self) -> Dict[str, Any]:
+        return {"loss_scale": float(self._loss_scale),
+                "good_steps": self._good_steps,
+                "skipped_steps": self._skipped_steps,
+                "hysteresis": self._hysteresis}
+
+    def _load_scale_state(self, st: Dict[str, Any]) -> None:
+        if "loss_scale" in st:
+            self._loss_scale = np.float32(st["loss_scale"])
+        self._good_steps = int(st.get("good_steps", self._good_steps))
+        self._skipped_steps = int(st.get("skipped_steps",
+                                         self._skipped_steps))
+        self._hysteresis = int(st.get("hysteresis", self._hysteresis))
+
+    def _update_loss_scale(self, finite: bool) -> None:
+        """The step's loss-scale bookkeeping (JAX engine.py:777-806): an
+        applied step counts a good step, a skip zeroes them; dynamically,
+        an overflow with hysteresis above 1 only decrements it, else
+        halves the scale (floored at ``min_loss_scale``) and resets it;
+        every ``loss_scale_window``-th good step in a row doubles the
+        scale and resets hysteresis."""
+        if finite:
+            self._good_steps += 1
+        else:
+            self._good_steps = 0
+            self._skipped_steps += 1
+        fp16 = self.config.fp16
+        if not (self._fp16_enabled and fp16.loss_scale == 0):
+            return
+        halve = not finite and self._hysteresis <= 1
+        if not finite and not halve:
+            self._hysteresis -= 1
+        if halve:
+            self._loss_scale = np.maximum(
+                self._loss_scale / np.float32(2.0),
+                np.float32(fp16.min_loss_scale))
+            self._hysteresis = int(fp16.hysteresis)
+        if finite and self._good_steps % fp16.loss_scale_window == 0:
+            with np.errstate(over="ignore"):
+                self._loss_scale = self._loss_scale * np.float32(2.0)
+            self._hysteresis = int(fp16.hysteresis)
+
+    @property
     def masters(self) -> List[torch.Tensor]:
         """The weights in tree order: the fp32 masters the device
         optimizer steps, and for offloaded leaves their compute-dtype
@@ -412,6 +567,10 @@ class DeepSpeedEngine:
         return self._last_grad_norm
 
     def is_gradient_accumulation_boundary(self) -> bool:
+        """Whether :meth:`step` applies the update; a boundary set with
+        :meth:`set_gradient_accumulation_boundary` overrides the count."""
+        if self._ga_boundary is not None:
+            return self._ga_boundary
         return self._pending >= self.gradient_accumulation_steps()
 
     # ------------------------------------------------------------------
@@ -446,10 +605,21 @@ class DeepSpeedEngine:
     def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
         """The loss of one micro-batch under the current masters, with
         its autograd graph (pass it to :meth:`backward`)."""
+        self._check_not_destroyed()
         return self.module.loss(self._compute_params(),
                                 self._to_device(batch))
 
     __call__ = forward
+
+    def _reported_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The micro-batch loss as JAX reports it: under fp16 the scaled
+        loss divided by the scale (inf when the scaled loss
+        overflowed)."""
+        loss = loss.detach().float()
+        if self._fp16_enabled:
+            scale = float(self._loss_scale)
+            loss = (loss * scale) / scale
+        return loss
 
     def backward(self, loss: torch.Tensor) -> None:
         """Backpropagate one micro-batch's loss and add its gradient, in
@@ -457,6 +627,9 @@ class DeepSpeedEngine:
         if self._params_c is None:
             raise RuntimeError("backward() needs the loss of a forward() "
                                "of this step")
+        if self._fp16_enabled:
+            # JAX's scaled loss, (loss * scale) in fp32
+            loss = loss.float() * float(self._loss_scale)
         loss.backward()
         first = self._pending == 0
         for g, c in zip(self._grads, tree_leaves(self._params_c)):
@@ -473,35 +646,57 @@ class DeepSpeedEngine:
 
     def step(self) -> None:
         """At the gradient-accumulation boundary: average, clip and apply
-        the update; before it, do nothing (JAX ``step`` semantics)."""
-        if not self.is_gradient_accumulation_boundary():
+        the update over the micro-batches taken (all gas of them, or as
+        many as a forced boundary found); before it, do nothing (JAX
+        ``step`` semantics).  Under fp16 a non-finite gradient norm skips
+        the update (JAX ``lax.cond``)."""
+        if not self.is_gradient_accumulation_boundary() or not self._pending:
             return
         grads = self._grads
-        inv = 1.0 / self._pending
+        if self._fp16_enabled:
+            # JAX's 1 / (gas * scale) in fp32 (0 when the product
+            # overflows)
+            with np.errstate(over="ignore"):
+                inv = float(np.float32(1.0) / (np.float32(self._pending)
+                                              * self._loss_scale))
+        else:
+            inv = 1.0 / self._pending
         for g in grads:
             g.mul_(inv)
         gnorm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads]))
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        # under fp16 the skip decision needs the norm before the update
+        finite = (math.isfinite(float(gnorm)) if self._fp16_enabled
+                  else True)
         clip = self.config.gradient_clipping
-        if clip > 0:
+        if clip > 0 and finite:
             scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
             for g in grads:
                 g.mul_(scale)
-        lr = self._schedule(self._update_count())
-        if self.optimizer is not None:
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
-        if self.offload is not None:
-            # the host step at the applied lr of the device step
-            with trace_span("train.offload_step"):
-                self._apply_offload_step(float(lr))
+        count = self._update_count()
+        lr = self._schedule(count)
+        if finite:
+            if self.optimizer is not None:
+                opt_lr = self._schedule(
+                    count + type(self.optimizer).lr_count_offset)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = opt_lr
+                self.optimizer.step(
+                    grads=[grads[i] for i in self._device_index])
+            if self.offload is not None:
+                # the host step at the applied lr of the device step
+                with trace_span("train.offload_step"):
+                    self._apply_offload_step(float(lr))
+        self._update_loss_scale(finite)
+        self._last_step_applied = finite
+        micro_batches = self._pending
         self._params_c = None
         self._pending = 0
         self._last_lr = float(lr)
         self._last_grad_norm = float(gnorm)
         self.global_steps += 1
-        self.global_samples += self.train_batch_size()
+        self.global_samples += (self.train_micro_batch_size_per_gpu()
+                                * micro_batches)
         self.lr_scheduler.step()
 
     def _staging_buffer(self) -> torch.Tensor:
@@ -676,8 +871,10 @@ class DeepSpeedEngine:
             except Exception as e:
                 get_flight_recorder().on_crash("train_batch", e)
                 raise
-            bad = not (math.isfinite(loss)
-                       and math.isfinite(self._last_grad_norm))
+            # an fp16 overflow skip is routine: only an applied step's
+            # non-finite values roll back
+            bad = self._last_step_applied and not (
+                math.isfinite(loss) and math.isfinite(self._last_grad_norm))
             if not bad:
                 self._rollback_streak = 0
                 self._maybe_refresh_snapshot(ft)
@@ -710,7 +907,8 @@ class DeepSpeedEngine:
 
     def _snapshot_state(self) -> None:
         """A host copy of everything a rollback restores: masters,
-        optimizer state, counters and the LR scheduler."""
+        optimizer state, counters, the loss scale and the LR
+        scheduler."""
         opt_state = self.optimizer.state if self.optimizer else {}
         self._state_snapshot = {
             "masters": [None if off else _host(p)
@@ -726,6 +924,7 @@ class DeepSpeedEngine:
             "micro_steps": self.micro_steps,
             "lr_scheduler": self.lr_scheduler.state_dict(),
             "rng_key_data": self._rng_key_data,
+            **self._scale_state(),
         }
 
     def _maybe_refresh_snapshot(self, ft) -> None:
@@ -759,6 +958,7 @@ class DeepSpeedEngine:
         return f"snapshot at step {snap['global_steps']}"
 
     def _train_batch_impl(self, mbs: List[Dict[str, Any]]) -> float:
+        self._check_not_destroyed()
         # the fault sites, all before any state changes: a collective
         # failure is retry-safe; a NaN batch flows through the real step,
         # so recovery must really repair the masters
@@ -781,6 +981,12 @@ class DeepSpeedEngine:
                     mbs = [{k: _nan_like(x) if _is_float(x) else x
                             for k, x in mb.items()} for mb in mbs]
 
+        if not self._train_mode and not self._eval_mode_warned:
+            self._eval_mode_warned = True
+            logger.warning(
+                "train_batch called on an engine in eval() mode; the batch "
+                "runs in the TRAIN regime (use eval_batch for eval-regime "
+                "scoring)")
         self.timers(TRAIN_BATCH_TIMER).start()
         self.tput_timer.start()
         watchdog = get_watchdog()
@@ -794,13 +1000,14 @@ class DeepSpeedEngine:
                 mbs = [self._to_device(mb) for mb in mbs]
             # the first step builds the kernels: the watchdog's compile
             # phase, as the JAX engine's first step traces
+            self._maybe_profile_flops(mbs)
             with trace_span("train.step"), watchdog.track(
                     "compile" if self.global_steps == 0 else "step"):
                 losses = []
                 for mb in mbs:
                     loss = self.forward(mb)
                     self.backward(loss)
-                    losses.append(loss.detach().float())
+                    losses.append(self._reported_loss(loss))
                 self.step()
                 loss = float(torch.stack(losses).mean())
         step = self.global_steps - 1
@@ -809,11 +1016,16 @@ class DeepSpeedEngine:
             # as it would a real straggler
             time.sleep(fi.site_value("train.slow_step", 100.0) / 1e3)
         if telemetry_state.enabled:
-            if not math.isfinite(loss):
-                watchdog.note_nonfinite("loss", step, loss)
-            if not math.isfinite(self._last_grad_norm):
-                watchdog.note_nonfinite("grad_norm", step,
-                                        self._last_grad_norm)
+            # an fp16 overflow skip feeds the skip counter only; the
+            # non-finite verdict is for steps the engine applied
+            if not self._last_step_applied:
+                watchdog.note_overflow_skip(step)
+            else:
+                if not math.isfinite(loss):
+                    watchdog.note_nonfinite("loss", step, loss)
+                if not math.isfinite(self._last_grad_norm):
+                    watchdog.note_nonfinite("grad_norm", step,
+                                            self._last_grad_norm)
         self.tput_timer.stop(
             report_speed=self.global_steps % self.config.steps_per_print == 0)
         self.timers(TRAIN_BATCH_TIMER).stop()
@@ -835,6 +1047,37 @@ class DeepSpeedEngine:
     def eval_batch(self, batch: Dict[str, Any]) -> float:
         with torch.no_grad():
             return float(self.forward(batch))
+
+    # ------------------------------------------------------------------
+    # the flops profiler (JAX engine.py:1227-1250)
+    # ------------------------------------------------------------------
+    def _maybe_profile_flops(self, mbs: List[Dict[str, Any]]) -> None:
+        """At ``flops_profiler.profile_step``, count one forward and
+        backward of this step's micro-batches (the gradients go nowhere,
+        so the step that follows is the one it would have been; nothing
+        random is drawn) and print the report (JAX
+        ``_maybe_profile_flops``, which lowers the step instead)."""
+        fp_cfg = self.config.flops_profiler
+        if not fp_cfg.enabled or self.global_steps != fp_cfg.profile_step:
+            return
+        from ..profiling import FlopsProfiler
+        prof = FlopsProfiler(params=self.params)
+        leaves = tree_leaves(self._compute_params())
+        prof.start_profile()
+        try:
+            for mb in mbs:
+                loss = self.module.loss(self._params_c, mb)
+                torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            prof.stop_profile()
+        prof._duration = self.tput_timer.avg_step_time()
+        #: the profiled step's profiler, kept for the caller to read
+        self.flops_profile = prof
+        prof.print_model_profile(
+            profile_step=self.global_steps,
+            module_depth=fp_cfg.module_depth,
+            top_modules=fp_cfg.top_modules, detailed=fp_cfg.detailed,
+            output_file=fp_cfg.output_file)
 
     # ------------------------------------------------------------------
     # checkpoints (JAX engine.py:1369-1567)
@@ -869,7 +1112,8 @@ class DeepSpeedEngine:
             client_state["rng_key_data"] = list(self._rng_key_data)
         self.checkpoint_engine.save(save_dir, tag, {
             "module": self.params, "optimizer": self.optimizer_kind,
-            "optimizer_state_dict": self._optimizer_state_dict()},
+            "optimizer_state_dict": self._optimizer_state_dict(),
+            "loss_scale_state": self._scale_state()},
             client_state)
         if self.offload is not None:
             # the host masters and moments beside it, in JAX's npz
@@ -945,6 +1189,8 @@ class DeepSpeedEngine:
             per_param = state["optimizer_state_dict"]["state"]
             self._copy_optimizer_state(
                 [per_param.get(i) for i in range(len(self._masters))])
+            client_state = {**state.get("loss_scale_state", {}),
+                            **client_state}
         if self.offload is not None:
             off_path = os.path.join(load_dir, tag, OFFLOAD_FILE)
             if not module_only and os.path.exists(off_path):
@@ -990,8 +1236,6 @@ class DeepSpeedEngine:
         """Each master's optimizer state from ``states`` (``step`` and
         moments, in tree order), copied into the existing moments; None
         empties a master's state (a fresh optimizer)."""
-        moments = (type(self.optimizer)._moments
-                   if self.optimizer is not None else ())
         for i, (p, st) in enumerate(zip(self._masters, states)):
             if self._offloaded[i]:
                 self._copy_host_state(self._host_index[i], st)
@@ -1001,13 +1245,11 @@ class DeepSpeedEngine:
                 continue
             cur = self.optimizer.state[p]
             if not cur:
-                cur["step"] = 0
-                for name in moments:
-                    cur[name] = torch.zeros_like(p)
+                self.optimizer._init_state(p, cur)
             for k, v in st.items():
                 if k == "step":
                     cur["step"] = int(v)
-                elif k in moments:
+                elif k in cur:
                     cur[k].copy_(_as_tensor(v))
                 else:
                     raise KeyError(f"optimizer state {k!r} is not "
@@ -1043,9 +1285,10 @@ class DeepSpeedEngine:
 
     def _finish_load(self, client_state: dict, load_lr_scheduler_states,
                      default_steps: int = 0) -> None:
-        """Counters, the LR scheduler and the kept random stream from a
-        load's client state; the step starts clean."""
+        """Counters, the loss scale, the LR scheduler and the kept random
+        stream from a load's client state; the step starts clean."""
         cs = client_state
+        self._load_scale_state(cs)
         self.global_steps = cs.get("global_steps", default_steps)
         self.global_samples = cs.get("global_samples", 0)
         self.micro_steps = cs.get("micro_steps", 0)
@@ -1061,7 +1304,8 @@ class DeepSpeedEngine:
 
     def get_fp32_state_dict(self) -> Dict[str, Any]:
         """The masters as host numpy fp32 arrays, in the model's tree (an
-        offloaded leaf's from its host master)."""
+        offloaded leaf's from its host master; a pure-bf16 master's
+        values widened)."""
         masters = iter(self._host_master_or_none(i)
                        for i in range(len(self._masters)))
 
@@ -1069,7 +1313,7 @@ class DeepSpeedEngine:
             host = next(masters)
             if host is not None:
                 return host.reshape(tuple(p.shape)).copy()
-            return p.detach().to("cpu", copy=True).numpy()
+            return p.detach().to("cpu", torch.float32, copy=True).numpy()
         return tree_map(fp32, self.params)
 
     def _host_master_or_none(self, i: int) -> Optional[np.ndarray]:
@@ -1094,6 +1338,282 @@ class DeepSpeedEngine:
             json.dump({k: "bfloat16" for k in flat}, f)
         logger.info("saved 16-bit model -> %s", path)
         return path
+
+    # ------------------------------------------------------------------
+    # the rest of the public API (JAX engine.py:1354-1357, :1569-1870)
+    # ------------------------------------------------------------------
+    def set_lr(self, lr: float) -> None:
+        """A constant schedule of ``lr`` from the next update on."""
+        self._schedule = lambda step: lr
+
+    def set_gradient_accumulation_boundary(self, is_boundary) -> None:
+        """Force (True) or defer (False) the update of :meth:`step` on the
+        forward / backward / step path; None returns to the count."""
+        self._ga_boundary = None if is_boundary is None else bool(is_boundary)
+
+    def set_train_batch_size(self, train_batch_size: int) -> None:
+        """A new global batch at the same micro-batch: gas becomes
+        ``train_batch_size / micro``, which must divide."""
+        micro = self.config.train_micro_batch_size_per_gpu
+        if train_batch_size % micro != 0:
+            raise ValueError(f"train_batch_size {train_batch_size} != micro "
+                             f"{micro} * gas * batch shards 1")
+        self.config.train_batch_size = train_batch_size
+        self.config.gradient_accumulation_steps = train_batch_size // micro
+        self.tput_timer.batch_size = train_batch_size
+
+    def set_train_micro_batch_size(self, micro_batch_size: int) -> None:
+        """A new micro-batch at the same gas."""
+        self.config.train_micro_batch_size_per_gpu = micro_batch_size
+        self.config.train_batch_size = (
+            micro_batch_size * self.config.gradient_accumulation_steps)
+        self.tput_timer.batch_size = self.config.train_batch_size
+
+    def get_batch_info(self) -> Tuple[int, int, int]:
+        return (self.train_batch_size(), self.train_micro_batch_size_per_gpu(),
+                self.gradient_accumulation_steps())
+
+    def was_step_applied(self) -> bool:
+        """False when the last update was skipped on an fp16 overflow."""
+        return self._last_step_applied
+
+    def train(self, mode: bool = True) -> "DeepSpeedEngine":
+        """Records the intent only, as in JAX: ``train_batch`` always runs
+        the training regime (and warns once under ``eval()``), ``forward``
+        and ``eval_batch`` the model's loss."""
+        self._train_mode = bool(mode)
+        return self
+
+    def eval(self) -> "DeepSpeedEngine":
+        return self.train(False)
+
+    def zero_grad(self) -> None:
+        """Nothing, as in JAX: the accumulators are zeroed by the first
+        backward of each step."""
+
+    def compile(self, *args, **kwargs) -> "DeepSpeedEngine":
+        """Returns the engine, as JAX's does (its step is jitted at
+        build; this one's kernels build at their first launch)."""
+        return self
+
+    def is_compiled(self) -> bool:
+        return True
+
+    def destroy(self) -> None:
+        """Frees the engine's device state (masters, accumulators, the
+        optimizer's state, the step's compute copy); every later call
+        raises."""
+        get_flight_recorder().record("engine.destroy", engine="train",
+                                     global_steps=self.global_steps)
+        if self.optimizer is not None:
+            self.optimizer.state.clear()
+            self.optimizer.param_groups.clear()
+        self.params = self._masters = self._grads = None
+        self._params_c = None
+        self._staging = None
+        self._destroyed = True
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _check_not_destroyed(self) -> None:
+        if self._destroyed:
+            raise RuntimeError(
+                "engine destroyed: this DeepSpeedEngine was torn down by "
+                "destroy(); build a new engine with "
+                "deepspeed_tpu_torch.initialize")
+
+    def dump_state(self) -> None:
+        self._check_not_destroyed()
+        logger.info(
+            "engine state: step=%s lr=%.3e loss_scale=%s skipped=%s "
+            "zero_stage=%s device=%s", self.global_steps, self.get_lr()[0],
+            self.loss_scale, self.skipped_steps, self.config.zero_stage,
+            self.device)
+
+    def module_state_dict(self) -> Dict[str, Any]:
+        return self.get_fp32_state_dict()
+
+    def save_fp16_model(self, save_dir: str,
+                        filename: str = "model_weights.npz") -> str:
+        """The deprecated alias of :meth:`save_16bit_model`."""
+        return self.save_16bit_model(save_dir, filename)
+
+    def comm_stats(self) -> None:
+        """None: one rank reduces no gradient (JAX's without a collective
+        scheduler)."""
+        return None
+
+    # -- config accessors (JAX names and values) -------------------------
+    def _zero(self, key: str):
+        return self.config.zero_settings.get(key, ZERO_DEFAULTS[key])
+
+    def zero_optimization(self) -> bool:
+        return self.config.zero_stage > 0
+
+    def zero_optimization_stage(self) -> int:
+        return self.config.zero_stage
+
+    def zero_optimization_partition_gradients(self) -> bool:
+        return self.config.zero_stage >= 2
+
+    def zero_optimization_partition_weights(self) -> bool:
+        return self.config.zero_stage >= 3
+
+    def zero_allgather_bucket_size(self) -> int:
+        return self._zero("allgather_bucket_size")
+
+    def zero_allgather_partitions(self) -> bool:
+        return self._zero("allgather_partitions")
+
+    def zero_reduce_bucket_size(self) -> int:
+        return self._zero("reduce_bucket_size")
+
+    def zero_reduce_scatter(self) -> bool:
+        return self._zero("reduce_scatter")
+
+    def zero_contiguous_gradients(self) -> bool:
+        return self._zero("contiguous_gradients")
+
+    def zero_overlap_comm(self) -> bool:
+        return self._zero("overlap_comm")
+
+    def zero_sub_group_size(self) -> int:
+        return self._zero("sub_group_size")
+
+    def zero_max_live_parameters(self) -> int:
+        return self._zero("stage3_max_live_parameters")
+
+    def zero_max_reuse_distance(self) -> int:
+        return self._zero("stage3_max_reuse_distance")
+
+    def zero_prefetch_bucket_size(self) -> int:
+        return self._zero("stage3_prefetch_bucket_size")
+
+    def zero_param_persistence_threshold(self) -> int:
+        return self._zero("stage3_param_persistence_threshold")
+
+    def zero_model_persistence_threshold(self) -> int:
+        return self._zero("stage3_model_persistence_threshold")
+
+    def zero_gather_16bit_weights_on_model_save(self) -> bool:
+        return self._zero("stage3_gather_16bit_weights_on_model_save")
+
+    def zero_round_robin_gradients(self) -> bool:
+        return self._zero("round_robin_gradients")
+
+    def zero_hpz_partition_size(self) -> int:
+        return 1        # the only value the config loader accepts
+
+    def zero_quantized_weights(self) -> bool:
+        return self.config.zero_quantized_weights
+
+    def zero_quantized_gradients(self) -> bool:
+        return False    # the only value the config loader accepts
+
+    def mics_shard_size(self) -> int:
+        return -1       # the only value the config loader accepts
+
+    def fp16_enabled(self) -> bool:
+        return self.config.fp16.enabled
+
+    def bfloat16_enabled(self) -> bool:
+        return self.config.bf16.enabled
+
+    def fp16_auto_cast(self) -> bool:
+        return self.config.fp16.auto_cast
+
+    def fp16_master_weights_and_gradients(self) -> bool:
+        """False, as in JAX: fp16 keeps fp32 masters."""
+        return False
+
+    def dynamic_loss_scale(self) -> bool:
+        return self.config.fp16.loss_scale == 0
+
+    def initial_dynamic_scale(self) -> float:
+        return 2.0 ** self.config.fp16.initial_scale_power
+
+    def dynamic_loss_scale_args(self) -> Dict[str, Any]:
+        c = self.config.fp16
+        return {"init_scale": 2.0 ** c.initial_scale_power,
+                "scale_window": c.loss_scale_window,
+                "delayed_shift": c.hysteresis,
+                "min_scale": c.min_loss_scale}
+
+    def gradient_clipping(self) -> float:
+        return self.config.gradient_clipping
+
+    def gradient_predivide_factor(self) -> float:
+        return 1.0      # JAX's default; the key is not read
+
+    def postscale_gradients(self) -> bool:
+        return True     # JAX's default (prescale_gradients false)
+
+    def communication_data_type(self) -> str:
+        return "bfloat16"
+
+    def sparse_gradients_enabled(self) -> bool:
+        return False
+
+    def steps_per_print(self) -> int:
+        return self.config.steps_per_print
+
+    def wall_clock_breakdown(self) -> bool:
+        return self.config.wall_clock_breakdown
+
+    def optimizer_name(self) -> str:
+        return self.config.optimizer.type
+
+    def optimizer_params(self):
+        return self.config.optimizer.params
+
+    def scheduler_name(self) -> Optional[str]:
+        return self.config.scheduler.type if self.config.scheduler else None
+
+    def scheduler_params(self) -> Optional[Dict[str, Any]]:
+        return self.config.scheduler.params if self.config.scheduler else None
+
+    def elasticity_enabled(self) -> bool:
+        return False
+
+    def autotuning_enabled(self) -> bool:
+        return False
+
+    def flops_profiler_enabled(self) -> bool:
+        return self.config.flops_profiler.enabled
+
+    def flops_profiler_profile_step(self) -> int:
+        return self.config.flops_profiler.profile_step
+
+    def aio_config(self):
+        return self.config.aio
+
+    def data_efficiency_enabled(self) -> bool:
+        return self.config.data_efficiency.enabled
+
+    def data_efficiency_config(self):
+        return self.config.data_efficiency
+
+    def data_sampling_enabled(self) -> bool:
+        return bool(self.config.data_efficiency.data_sampling.get(
+            "enabled", False))
+
+    def data_sampling_config(self) -> Dict[str, Any]:
+        return self.config.data_efficiency.data_sampling
+
+    def curriculum_learning_enabled(self) -> bool:
+        return bool(self.config.data_efficiency.data_sampling.get(
+            "curriculum_learning", {}).get("enabled", False))
+
+    def curriculum_learning_config(self) -> Dict[str, Any]:
+        return self.config.data_efficiency.data_sampling.get(
+            "curriculum_learning", {})
+
+    def random_ltd_enabled(self) -> bool:
+        return bool(self.config.data_efficiency.data_routing.get(
+            "random_ltd", {}).get("enabled", False))
+
+    def random_ltd_config(self) -> Dict[str, Any]:
+        return self.config.data_efficiency.data_routing.get("random_ltd", {})
 
     # ------------------------------------------------------------------
     # memory and the model's config (JAX engine.py:288-345, :1662-1751)

@@ -133,3 +133,11 @@ class ThroughputTimer:
         if self.total_elapsed_time <= 0:
             return 0.0
         return self.batch_size * counted / self.total_elapsed_time
+
+    def avg_step_time(self) -> float:
+        """Mean wall seconds per counted global step (the flops
+        profiler's duration; 0 before the first counted step)."""
+        counted = max(self.global_step_count - self.start_step + 1, 1)
+        if self.total_elapsed_time <= 0:
+            return 0.0
+        return self.total_elapsed_time / counted

@@ -45,7 +45,8 @@ def test_the_scan_covers_every_module_of_the_port():
     day it lands; these are the ones added with the LayerNorm families,
     int8 pages, Lion, LAMB, the blockwise quantisation, the rest of
     telemetry, the fleet's subprocess tools, the checkpoints, the timers,
-    the monitor and the data pipeline."""
+    the monitor, the data pipeline, the 1-bit optimizers, Random-LTD and
+    the flops profiler."""
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"chip_smoke.py",
             "deepspeed_tpu_torch/models/gpt.py",
@@ -79,8 +80,11 @@ def test_the_scan_covers_every_module_of_the_port():
             "deepspeed_tpu_torch/ops/adam/cpu_adam.py",
             "deepspeed_tpu_torch/ops/aio/async_io.py",
             "deepspeed_tpu_torch/runtime/zero/offload.py",
-            "deepspeed_tpu_torch/utils/memory.py"} <= names
-    assert len(names) >= 70
+            "deepspeed_tpu_torch/utils/memory.py",
+            "deepspeed_tpu_torch/runtime/comm/compressed.py",
+            "deepspeed_tpu_torch/runtime/data_pipeline/data_routing.py",
+            "deepspeed_tpu_torch/profiling/flops_profiler.py"} <= names
+    assert len(names) >= 74
 
 
 def test_the_host_op_builder_reads_only_the_ports_sources():

@@ -1018,8 +1018,8 @@ def test_lamb_kernel_matches_plain(cuda_device, n):
 @pytest.mark.cuda
 def test_optimizer_kernels_reject_what_they_do_not_take(cuda_device):
     p, grad, m, v = _opt_buffers(cuda_device, 4096, 4)
-    with pytest.raises(TypeError, match="fp32 g"):
-        tfo.fused_lion_flat(p, grad.bfloat16(), m, 1e-4, 0.9, 0.99, 0.0)
+    with pytest.raises(TypeError, match="fp32 or bf16 g"):
+        tfo.fused_lion_flat(p, grad.half(), m, 1e-4, 0.9, 0.99, 0.0)
     with pytest.raises(ValueError, match="aligned"):
         tfo.fused_lion_flat(p[1:], grad[1:], m[1:], 1e-4, 0.9, 0.99, 0.0)
     with pytest.raises(ValueError, match="aligned"):
@@ -1027,8 +1027,92 @@ def test_optimizer_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="fp32 v"):
         tfo.fused_lamb_flat(p, grad, m, v.half(), 1e-2, 0.9, 0.999, 1e-6,
                             0.0, 1)
+    with pytest.raises(TypeError, match="fp32 v"):
+        tfo.fused_adamw_flat(p, grad, m, v.bfloat16(), 1e-2, 0.9, 0.999,
+                             1e-8, 0.0, 1)
     with pytest.raises(ValueError, match="1-based"):
         tfo.fused_lamb_flat(p, grad, m, v, 1e-2, 0.9, 0.999, 1e-6, 0.0, 0)
+
+
+#: every mix of p's and g's dtypes but all-fp32 (the moments are fp32)
+BF16_MIXES = [(p, g) for p in (torch.float32, torch.bfloat16)
+              for g in (torch.float32, torch.bfloat16)
+              if torch.bfloat16 in (p, g)]
+
+
+def _mixed(bufs, dtypes):
+    return [b.to(d) for b, d in zip(bufs, dtypes)]
+
+
+def assert_update_matches(p0, p, ref):
+    """The kernel's update of p against its plain version's, from the
+    same ``p0``.  An fp32 p: the two updates ``p - p0`` within 1e-5 of
+    the update's scale.  A bf16 p, where an update of 1e-4 is a few
+    ulps: the plain version moves most elements (so a wrong update
+    shows), every element is within one bf16 ulp of the larger of |p0|
+    and the plain result (a rounding the other way, also where the step
+    cancels most of a weight), at most 1e-3 of them differ, and the
+    updates agree at the kernel rows' rms tolerance."""
+    d, rd = p.float() - p0.float(), ref.float() - p0.float()
+    if p.dtype == torch.float32:
+        assert parity_errors(d, rd)[1] <= 1e-5
+        return
+    scale = torch.maximum(p0.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
+    moved = float((ref != p0).float().mean())
+    assert moved >= 0.5, moved
+    assert float(((p.float() - ref.float()).abs() / ulp).max()) <= 1
+    assert float((p != ref).float().mean()) <= 1e-3
+    assert parity_errors(d, rd)[0] <= RMS_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3001, 4096 * 1104])
+@pytest.mark.parametrize("dtypes", BF16_MIXES, ids=lambda d: "-".join(
+    str(t).split(".")[-1] for t in d))
+def test_bf16_instances_match_plain(cuda_device, dtypes, n):
+    """Each bf16 instance of AdamW, Lion and LAMB stage 1 against its
+    plain version on the same inputs, p at a trained weight's scale
+    (0.02): fp32 arithmetic and one rounding per output in both, so Lion
+    is bit-equal, AdamW's update is held by
+    :func:`assert_update_matches`, and the fp32 moments, LAMB's fp32
+    update and its norms as in the fp32 tests."""
+    pd, gd = dtypes
+    bufs = _opt_buffers(cuda_device, n, 4)
+    p, grad, m, v = _mixed([0.02 * bufs[0]] + bufs[1:],
+                           (pd, gd, torch.float32, torch.float32))
+    kw = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, step=7)
+    p0, ref = p.clone(), [x.clone() for x in (p, grad, m, v)]
+    tfo.fused_adamw_flat(p, grad, m, v, **kw)
+    tfo.adamw_reference(*ref, **kw)
+    assert p.dtype == pd
+    assert_update_matches(p0, p, ref[0])
+    for a, b in ((m, ref[2]), (v, ref[3])):
+        assert parity_errors(a, b)[1] <= 1e-6
+    name = tfo.entry_point("fused_adamw", p, grad)
+    assert tfo.KERNEL.launches_by_fn[name] >= 1
+
+    bufs = _opt_buffers(cuda_device, n, 3)
+    p, grad, m = _mixed([0.02 * bufs[0]] + bufs[1:],
+                        (pd, gd, torch.float32))
+    p0, ref = p.clone(), [x.clone() for x in (p, grad, m)]
+    lkw = dict(lr=1e-4, b1=0.9, b2=0.99, wd=0.1)
+    tfo.fused_lion_flat(p, grad, m, **lkw)
+    tfo.lion_reference(*ref, **lkw)
+    assert torch.equal(p, ref[0]) and torch.equal(m, ref[2])
+    assert float((ref[0] != p0).float().mean()) >= 0.5
+
+    p, grad, m, v = _mixed(_opt_buffers(cuda_device, n, 4),
+                           (pd, gd, torch.float32, torch.float32))
+    ref = [x.clone() for x in (p, grad, m, v)]
+    hp = dict(b1=0.9, b2=0.95, eps=1e-6, wd=0.1, step=7)
+    u, norms = tfo.lamb_stage1(p, grad, m, v, **hp)
+    ru, rnorms = tfo.lamb_stage1_reference(*ref, **hp)
+    assert u.dtype == torch.float32
+    for a, b in ((u, ru), (m, ref[2]), (v, ref[3])):
+        assert parity_errors(a, b)[1] <= 1e-6
+    rel = (norms.sum(0) - rnorms.sum(0)).abs() / rnorms.sum(0)
+    assert float(rel.max()) <= 1e-5
 
 
 # ---------------------------------------------------------------------------

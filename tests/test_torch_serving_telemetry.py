@@ -68,15 +68,17 @@ def _clean():
         tel.get_watchdog().reset()
         mem.get_memory_ledger().reset()
         cl.serving_counters.reset()
-        for name in CACHE_COUNTERS:
-            getattr(tm, name).reset()
+        # every counter and histogram: a suite that served with
+        # telemetry on earlier in this process, in one package only,
+        # leaves its TTFT counts behind
+        tm.registry.reset()
 
 
 @pytest.fixture(autouse=True)
 def _hygiene():
     """Both packages start and end with telemetry off, disarmed
-    injectors, empty ledgers and rings, and zeroed serving counters;
-    the watchdogs' thresholds are restored after."""
+    injectors, empty ledgers and rings, and zeroed registries and
+    serving counters; the watchdogs' thresholds are restored after."""
     torch.set_num_threads(1)
     thresholds = [tel.get_watchdog().threshold for tel, *_ in PKGS]
     _clean()
