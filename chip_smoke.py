@@ -233,7 +233,8 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    decode steps past the window (evicted tables), logits compared;
 9b. Falcon-7B at its published configuration (``falcon_config_from_hf``:
    head_dim 64, 71 query heads over one kv head, the parallel block;
-   32 layers, seeded random bf16 weights, norms and biases drawn) over
+   16 of its 32 layers, seeded random bf16 weights, norms and biases
+   drawn) over
    256 pages of 64 tokens: ``serve`` as phase 4 (its multi-query decode
    folds 71 rows onto the tensor-core tile, so it has no split-KV
    segment), the kernel path against the plain path as phase 7; then
@@ -392,7 +393,29 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     activation at keep 1024, bit-equal to the CPU's with the same
     indices, and the flops profiler at ``profile_step`` 1 within 2% of
     the analytic count (6 N + 6 L S E a token, plus remat's recompute);
-22. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+22. the trace toolchain through ``deepspeed_tpu_torch.tools`` on
+    ``tools/traces/sample_200.jsonl`` (16-token pages): (a)
+    ``replay_trace.run_replay`` of its first 32 ok requests at Llama-2-7B
+    width and depth in bf16 with the n-gram spec pass, its measured pass
+    recorded into a private workload ledger: structural parity, every
+    generated length exact, no capture in the measured pass, RMSNorm,
+    paged attention (and its combine) and flash forward launches equal to
+    what the dispatched keys imply, tokens/s, TTFT p50 / p99 and the
+    accept rate; (b) at 8 layers over one weight tree, the fused keyed
+    replay and the disaggregated replay with journeys: every token equal,
+    no lost request, no orphan journey, handoff p50 ms; (c)
+    ``run_tier_smoke`` with 4 device pages asked for, at 8 layers: every
+    promoted page bit-equal to its device bytes at demotion, the store's
+    audit clean, hits by tier, every disk read and write through the
+    async I/O handle (plain-path count 0), promote-batch p50 ms; (d)
+    ``analyze_trace.analyze`` over (a)'s ledger (the recommended keys
+    cover every observed key), then ``plan_capacity.validate`` and
+    ``oom_smoke`` at 2 layers through its command line in a child
+    process loading phase 2's libraries (every ``ds_mem_*`` accountant
+    readable, the residual within 10% of the card's measured bytes, the
+    injected OOM's forensics); (e) ``fleetctl.run_pool_smoke`` with two replicas
+    of 2 layers: every generated length exact, none lost;
+23. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
     80 and 96 and the optimizers' bf16 instances in rows of their own),
     the card line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -969,8 +992,9 @@ def _paged_inputs(dev, S, Q, H, K, ctx_max, g, page=64, D=128):
                      dtype=torch.bfloat16)
     perm = torch.randperm(n_pages, generator=g, device=dev) + 1
     table = perm.reshape(S, P).to(torch.int32).contiguous()
-    start = torch.randint(128, ctx_max - Q + 1, (S,), generator=g,
-                          device=dev, dtype=torch.int32)
+    # at least 128 tokens of history (a short context: half of it)
+    start = torch.randint(min(128, (ctx_max - Q) // 2), ctx_max - Q + 1,
+                          (S,), generator=g, device=dev, dtype=torch.int32)
     q = torch.randn(S, Q, H, D, generator=g, device=dev,
                     dtype=torch.bfloat16)
     return q, kv, table, start
@@ -1024,7 +1048,10 @@ def check_paged(dev, int8=False, mined_q=()):
     decode on the split-KV path (H = K = 32), Falcon-7B's multi-query
     decode (H = 71, K = 1: 71 folded rows, the tile), a prefill chunk
     (Falcon's heads at D = 64), and at D = 96 Phi-3-mini's 2047-token
-    window over contexts of 4096 (a decode and a chunk)."""
+    window over contexts of 4096 (a decode and a chunk); and the trace
+    replay's geometry (phase 22): 16-token pages over contexts of 128, a
+    decode of 32 slots and a 64-token chunk of 16 (bf16; the decode over
+    int8 pages too)."""
     import torch
     from deepspeed_tpu_torch.models.transformer import alibi_slopes
     from deepspeed_tpu_torch.ops import paged_attention as PA
@@ -1057,18 +1084,25 @@ def check_paged(dev, int8=False, mined_q=()):
                   (f"D={d} prefill chunk", 4, 1024, *chunk_heads, None,
                    False, d)]
     cases += [("D=96 window decode", 16, 1, 32, 32, 2047, False, 96),
-              ("D=96 window chunk", 2, 1024, 32, 32, 2047, False, 96)]
+              ("D=96 window chunk", 2, 1024, 32, 32, 2047, False, 96),
+              ("page-16 decode", 32, 1, 32, 32, None, False, 128),
+              ("page-16 prefill chunk", 16, 64, 32, 32, None, False, 128)]
     ctx_of = {"Mistral spec verify": 8192, "D=96 window decode": 4096,
-              "D=96 window chunk": 4096}
+              "D=96 window chunk": 4096, "page-16 decode": 128,
+              "page-16 prefill chunk": 128}
+    page_of = {"page-16 decode": 16, "page-16 prefill chunk": 16}
     # the int8 cases quantise the very pages, tables and positions of the
     # bf16 cases (every case draws, fewer run)
-    skip = ("decode", "prefill chunk") if int8 else ()
+    skip = (("decode", "prefill chunk", "page-16 prefill chunk") if int8
+            else ())
     rows = []
     for name, S, Q, H, K, window, alibi, D in cases:
         # bytes a context token takes per kv head: K and V rows of D values
         token_bytes = 2 * (D + 4) if int8 else 2 * D * 2
         ctx = ctx_of.get(name, 2048)
-        q, kv, table, start = _paged_inputs(dev, S, Q, H, K, ctx, g, D=D)
+        page = page_of.get(name, 64)
+        q, kv, table, start = _paged_inputs(dev, S, Q, H, K, ctx, g,
+                                            page=page, D=D)
         if name in skip:
             continue
         if name == "single-slot decode":
@@ -1092,7 +1126,7 @@ def check_paged(dev, int8=False, mined_q=()):
         flops = 4 * D * H * int((pos + 1 - lo).sum())
         b_ms, b_by = bound(kv_bytes + io_bytes, flops)
         rows.append(dict(
-            shape=f"{name}: S={S} Q={Q} H={H} K={K} D={D} page=64 "
+            shape=f"{name}: S={S} Q={Q} H={H} K={K} D={D} page={page} "
                   f"ctx<={ctx}" + (f" window={window}" if window else "")
                   + (" int8 pages" if int8 else ""),
             path=("split-KV decode + combine"
@@ -3725,7 +3759,14 @@ def tier_phase(cfg, params, counters, card, label="llama",
 
     demote, promote = state._demote, state._promote_chain
     read_pages = cache.read_pages
-    write_file, read_file = store._write_file, store._read_file
+    write_file = store._write_file
+    # the disk reads run through the store's async I/O handle: a chain's
+    # reads are submitted together and waited on (the time in both)
+    aio = store._get_aio()
+    if aio is None:
+        raise RuntimeError(f"{label} tier: the async I/O handle did not "
+                           "build")
+    pread, aio_wait = aio.pread, aio.wait
 
     def demote_kept(entries):
         for d, p in entries:
@@ -3770,9 +3811,12 @@ def tier_phase(cfg, params, counters, card, label="llama",
         counts["write_bytes"] += sum(t.nbytes for t in parts)
         return sync_timed("write", write_file)(path, parts)
 
-    def read_timed(meta):
-        counts["read_bytes"] += meta.nbytes
-        return sync_timed("read", read_file)(meta)
+    def pread_timed(arr, path, offset=0):
+        counts["read_bytes"] += arr.nbytes
+        return host_timed("read", pread)(arr, path, offset)
+
+    def wait_timed(req):
+        return host_timed("read", aio_wait)(req)
 
     def read_pages_timed(pages):
         t = time.perf_counter()
@@ -3783,7 +3827,8 @@ def tier_phase(cfg, params, counters, card, label="llama",
     take_many = store.take_many
     state._demote, state._promote_chain = demote_kept, promote_checked
     store.take_many = take_recorded
-    store._write_file, store._read_file = write_timed, read_timed
+    store._write_file = write_timed
+    aio.pread, aio.wait = pread_timed, wait_timed
     cache.read_pages = read_pages_timed
     split, concat = MGR.blob_columns, MGR.concat_blobs
     restore_pages = cache.restore_pages
@@ -3913,9 +3958,10 @@ def tier_phase(cfg, params, counters, card, label="llama",
     if not (by_tier[1]["host"] and by_tier[1]["disk"]):
         raise RuntimeError(f"{label} tier phase: wave 2 hits {by_tier[1]}: "
                            "none from the host or none from the disk")
-    if st["io_errors"]:
+    if st["io_errors"] or st["plain_io"]:
         raise RuntimeError(f"{label} tier phase: {st['io_errors']} I/O "
-                           "errors")
+                           f"errors, {st['plain_io']} plain file "
+                           "operations (the async I/O handle took none)")
     if not all(checks.values()):
         raise RuntimeError(f"{label} tier phase launch counts: {checks}")
     if min(agree) < GREEDY_AGREE_MIN:
@@ -5150,6 +5196,9 @@ def window_kernel_vs_plain(cfg, params, n_decode=6, prompt=MISTRAL_PROMPT,
 
 # head dim -> the model of phases 9b-9d that serves at it
 HEAD_DIM_MODELS = {64: "Falcon-7B", 80: "Phi-2", 96: "Phi-3-mini-4k"}
+#: phase 9b serves Falcon-7B's published width at 16 of its 32 layers
+#: (the cut that pays for phase 22)
+FALCON_SERVING_LAYERS = 16
 # Phi-3-mini's two requests that cross its 2047-token window, and the
 # window check's prompts (chunks of the step budget's half)
 PHI3_LONG_PROMPT = 3072
@@ -5157,10 +5206,11 @@ PHI3_CHUNK = 1024
 
 
 def hf_family_phase(counters, card, label, model_type, config_from_hf,
-                    fields, seed, int8=False):
+                    fields, seed, int8=False, layers=0):
     """One published family at full width and depth (its ``config.json``
     fields through the port's ``*_config_from_hf``; seeded random bf16
-    weights, norm scales and biases drawn too) on 256 pages of 64 tokens:
+    weights, norm scales and biases drawn too; ``layers`` > 0 cuts the
+    depth) on 256 pages of 64 tokens:
     ``serve`` (phase 4's traffic, warm-up then timed pass, exact launch
     counts, no capture in the timed pass, every replay against its eager
     body, profiled decode steps), with the two attention op classes
@@ -5175,6 +5225,8 @@ def hf_family_phase(counters, card, label, model_type, config_from_hf,
     from deepspeed_tpu_torch.inference.v2 import SamplingParams
     from deepspeed_tpu_torch.models.transformer import init_params
     cfg = config_from_hf(types.SimpleNamespace(**fields))
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t = time.perf_counter()
     params = randomize_norms_and_biases(
         init_params(cfg, seed=seed, device="cuda"), seed + 1)
@@ -8186,6 +8238,441 @@ def training_rest_phase(counters, card):
     return paths, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the trace toolchain (deepspeed_tpu_torch.tools) on the card
+# ---------------------------------------------------------------------------
+
+#: the in-repo recorded trace (16-token pages, vocabulary 128)
+TRACE_PATH = "tools/traces/sample_200.jsonl"
+TRACE_LIMIT = 32               # (a), (b), (e): the JAX smoke's limit
+TRACE_TIER_LIMIT = 24          # (c): the JAX tier smoke's
+TRACE_PLAN_LIMIT = 20          # (d): the JAX capacity smoke's
+TRACE_CUT_LAYERS = 8           # (b), (c)
+TRACE_SMALL_LAYERS = 2         # (d), (e)
+#: JAX ``plan_capacity``'s residual limit (a fraction of the measured)
+TRACE_RESIDUAL_TOL = 0.10
+
+
+def _trace_dispatches(*reports, captured=None) -> dict:
+    """{step key: dispatches} summed over replay reports of fresh
+    engines, plus one for each key a graph was captured for (its eager
+    run before the capture launches the kernels once more):
+    ``captured``, a list of each engine's captured keys; by default the
+    reports' distinct keys (one engine)."""
+    out = {}
+    for rep in reports:
+        for key, n in rep["dispatches"]:
+            key = tuple(key)
+            out[key] = out.get(key, 0) + n
+    for keys in (captured if captured is not None else [list(out)]):
+        for key in keys:
+            out[tuple(key)] = out.get(tuple(key), 0) + 1
+    return out
+
+
+def _trace_replay(counters, card, root):
+    """(a): ``run_replay`` over the trace's first TRACE_LIMIT ok requests
+    at Llama-2-7B width and depth (bf16, 16-token pages), the shape
+    warm-up and the measured pass, then the n-gram spec pass; its
+    measured pass records into a private workload ledger (returned for
+    (d))."""
+    import tempfile
+    from deepspeed_tpu_torch.models.llama import llama_config
+    from deepspeed_tpu_torch.telemetry.workload_trace import get_workload_trace
+    from deepspeed_tpu_torch.tools import replay_trace as RT
+    ledger_dir = tempfile.mkdtemp(prefix="ds_trace_phase_")
+    ledger = f"{ledger_dir}/replay.jsonl"
+    wt = get_workload_trace()
+    wt.configure(ledger)
+    reset_launches(counters)
+    try:
+        out = RT.run_replay(f"{root}/{TRACE_PATH}", limit=TRACE_LIMIT,
+                            model_size="7b", spec=True, drafter="ngram",
+                            device="cuda", capture=True)
+    finally:
+        wt.close()
+    launches = read_launches(counters)
+    rep, spec = out["replay"], out["spec"]
+    seg = segment_counts(llama_config("7b"), _trace_dispatches(
+        out["warmup"], rep, spec["warmup"], spec["replay"]))
+    requests = RT._replayable(RT.load_trace(f"{root}/{TRACE_PATH}"),
+                              TRACE_PATH, TRACE_LIMIT, False)
+    checks = launch_checks(llama_config("7b"), "none", launches, seg)
+    checks.update({
+        "structural parity": out["diff"]["structural_ok"],
+        "spec pass structural parity": spec["diff"]["structural_ok"],
+        "every generated length exact": all(
+            rep["gen_lens"].get(i) == max(1, int(r["gen_len"]))
+            for i, r in enumerate(requests)),
+        "no capture in the measured pass": (
+            rep["path_captures"] == 0 and rep["compile_on_path"] == 0),
+        "no structured error": not rep["errors"]})
+    summary = dict(
+        card=card, model="Llama-2-7B bf16, 32 layers, 16-token pages",
+        requests=out["requests"], tok_s=rep["decode_tok_s"],
+        ttft_p50_ms=rep["ttft_p50_ms"], ttft_p99_ms=rep["ttft_p99_ms"],
+        wall_s=rep["wall_s"], warm_up_captures=out["warmup"]["path_captures"],
+        measured_captures=rep["path_captures"],
+        spec_measured_captures=spec["replay"]["path_captures"],
+        accept_rate=spec["accept_rate"], spec_drafted=spec["drafted"],
+        spec_tok_s=spec["tok_s_on"], spec_tok_s_ratio=spec["tok_s_ratio"],
+        slo=out["diff"]["slo"], segments=seg, launches=launches,
+        checks=checks)
+    return summary, launches, ledger
+
+
+def _parting_witness(engine, uid, prompt, sp, ours, theirs):
+    """Where two served rows of one request part: the first position t
+    where ``ours`` and ``theirs`` differ, and the row's keyed draw there
+    recomputed on ``engine``'s eager forward over the prompt and the
+    shared tokens: the perturbed scores (the filtered logits plus the
+    draw's gumbel noise; the logits alone for a greedy row) of both
+    tokens, their gap over the largest |logit| (``gap_rel``) and the
+    token the draw picks.  None when the rows are equal."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import sampling as S
+    from deepspeed_tpu_torch.inference.v2 import threefry as TF
+    t = next((i for i, (a, b) in enumerate(zip(ours, theirs)) if a != b),
+             None)
+    if t is None:
+        return None
+    engine.reset_prefix_cache()
+    with eager_steps(engine):
+        row = engine.put([9000 + uid], [np.concatenate(
+            [np.asarray(prompt, np.int32),
+             np.asarray(ours[:t], np.int32)])])[0].float()
+    engine.flush(9000 + uid)
+    dev = row.device
+
+    def one(v, dtype):
+        return torch.tensor([v], dtype=dtype, device=dev)
+    temps, ks, ps = (one(sp.temperature, torch.float32),
+                     one(sp.top_k, torch.int32), one(sp.top_p, torch.float32))
+    scores = row
+    if sp.temperature > 0:
+        keys = S.derive_row_keys(TF.key_from_seed(SEED, dev),
+                                 one(uid, torch.int32), one(t, torch.int32))
+        scores = (S._filter_rows(row[None], temps, ks, ps)[0][0]
+                  + TF.gumbel(keys, row.numel())[0])
+    a, b = int(ours[t]), int(theirs[t])
+    pick = int(S.sample_keyed(row[None], S.derive_row_keys(
+        TF.key_from_seed(SEED, dev), one(uid, torch.int32),
+        one(t, torch.int32)), temps, ks, ps)[0])
+    gap = float((scores[a] - scores[b]).abs())
+    return dict(position=t, ours=a, theirs=b, pick=pick,
+                sampled=sp.temperature > 0, score_gap=gap,
+                gap_rel=gap / float(row.abs().max()))
+
+
+def _trace_disagg(counters, card, root):
+    """(b): at TRACE_CUT_LAYERS layers over one weight tree, the fused
+    keyed replay (warm-up, then measured) and the disaggregated replay
+    (warm-up, then measured with ``journeys``): every token of the
+    disaggregated pass against the fused pass's, lost and orphaned
+    journeys, handoff p50 ms."""
+    from deepspeed_tpu_torch.inference.v2 import ServingOptimizationConfig
+    from deepspeed_tpu_torch.tools import replay_trace as RT
+    trace = RT.load_trace(f"{root}/{TRACE_PATH}")
+    requests = RT._replayable(trace, TRACE_PATH, TRACE_LIMIT, False)
+    meta = trace["meta"]
+    parts = RT._replay_model_parts(meta, requests, "7b", "cuda",
+                                   layers=TRACE_CUT_LAYERS)
+    cfg, page = parts[0], parts[2]
+    prompts = RT.synthesize_prompts(requests, page, RT._vocab(meta, cfg))
+    reset_launches(counters)
+    fused = RT.build_replay_engine(
+        meta, requests, serving=ServingOptimizationConfig(
+            keyed_sampling=True), device="cuda", parts=parts)
+    fused_warm = RT.replay(fused, requests, prompts)
+    RT._reset_engine(fused)
+    fused_tok = {}
+    fused_rep = RT.replay(fused, requests, prompts, on_token=lambda u, t:
+                          fused_tok.setdefault(u, []).append(int(t)))
+    captured = [list(fused.model._step_cache)]
+    pre, dec = RT.build_disagg_engines(meta, requests, keyed=True,
+                                       device="cuda", parts=parts)
+    warm = RT.replay_disagg(pre, dec, requests, prompts)
+    RT._reset_engine(pre)
+    RT._reset_engine(dec)
+    tok = {}
+    rep = RT.replay_disagg(pre, dec, requests, prompts, journeys=True,
+                           on_token=lambda u, t:
+                           tok.setdefault(u, []).append(int(t)))
+    launches = read_launches(counters)
+    captured += [list(pre.model._step_cache), list(dec.model._step_cache)]
+    seg = segment_counts(cfg, _trace_dispatches(
+        fused_warm, fused_rep, warm, rep, captured=captured))
+    equal = sum(tok.get(u) == fused_tok.get(u) for u in fused_tok)
+    n_tokens = sum(len(v) for v in fused_tok.values())
+    same_tokens = sum(a == b for u, v in fused_tok.items()
+                      for a, b in zip(v, tok.get(u, [])))
+    # bf16 GEMMs at the two engines' other batch shapes round a row's
+    # logits differently: a parting must be a near-tie of its keyed draw,
+    # recomputed on the fused engine's eager forward
+    params = RT._sampling_params(requests)
+    partings = {u: w for u in sorted(fused_tok) if (w := _parting_witness(
+        fused, u, prompts[u], params[u], tok.get(u, []), fused_tok[u]))}
+    wide = {u: w for u, w in partings.items()
+            if w["gap_rel"] > LOGIT_REL_TOL
+            or w["pick"] not in (w["ours"], w["theirs"])}
+    del fused
+    j = rep["journeys"]
+    checks = launch_checks(cfg, "none", launches, seg)
+    checks.update({
+        "every row equal to the fused keyed replay's or parted at a "
+        "near-tie": not wide and len(tok) == len(requests),
+        "structural parity": RT.diff_replay(requests, prompts, page,
+                                            rep)["structural_ok"],
+        "no request lost": rep["lost"] == 0,
+        "no orphan journey": j["orphans"] == 0,
+        "journeys complete and gap-free": (
+            not j["problems"] and j["completed_journeys"] == len(requests)),
+        "no capture in the measured passes": (
+            rep["path_captures"] == 0 and fused_rep["path_captures"] == 0),
+        "handoffs": rep["handoffs"] == len(requests)})
+    summary = dict(
+        card=card, model=f"Llama-2-7B width, {TRACE_CUT_LAYERS} layers, bf16",
+        requests=len(requests), rows_equal=equal,
+        tokens_equal=f"{same_tokens} of {n_tokens}", partings=partings,
+        near_tie_rel_tol=LOGIT_REL_TOL,
+        handoff_p50_ms=rep["handoff_p50_ms"], handoffs=rep["handoffs"],
+        handoff_bytes=rep["handoff_bytes"],
+        pages_streamed=rep["pages_streamed"],
+        pages_shared=rep["pages_shared"], tok_s=rep["decode_tok_s"],
+        fused_tok_s=fused_rep["decode_tok_s"],
+        ttft_p50_ms=rep["ttft_p50_ms"],
+        fused_ttft_p50_ms=fused_rep["ttft_p50_ms"],
+        journeys={k: j[k] for k in ("completed_journeys", "fragments",
+                                    "orphans")},
+        lost=rep["lost"], segments=seg, launches=launches, checks=checks)
+    return summary, launches
+
+
+def _trace_tier(counters, card, root):
+    """(c): ``run_tier_smoke`` with 4 device pages asked for at
+    TRACE_CUT_LAYERS layers: every promoted page read back bit-equal to
+    the device bytes it had at demotion, the store's audit, hits by tier,
+    every disk read and write through the async I/O handle (the plain
+    path counts 0), promote-batch p50 ms (synchronised)."""
+    import torch
+    from deepspeed_tpu_torch.models.llama import llama_config
+    from deepspeed_tpu_torch.tools import replay_trace as RT
+    seen = {"verified": 0, "unequal": 0, "preads": 0, "pwrites": 0}
+    promote_ms, hits = [], {}
+
+    def instrument(engine):
+        state = engine.state_manager
+        store, stores = state.tiers, state.kv_cache._stores()
+        aio = store._get_aio()
+        if aio is None:
+            raise RuntimeError("tier: the async I/O handle did not build")
+        saved, taken = {}, []
+        demote, promote = state._demote, state._promote_chain
+        take_many, tier_hits = store.take_many, engine.tier_hits
+        pread, pwrite = aio.pread, aio.pwrite
+
+        def demote_kept(entries):
+            for d, p in entries:
+                saved[d] = [st[:, p].clone() for st in stores]
+            return demote(entries)
+
+        def take_recorded(digests):
+            blobs, tiers = take_many(digests)
+            taken[:] = digests[:len(blobs)]
+            return blobs, tiers
+
+        def promote_checked(*a):
+            taken.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pages, cursor = promote(*a)
+            torch.cuda.synchronize()
+            if pages:
+                promote_ms.append((time.perf_counter() - t) * 1e3)
+            for d, p in zip(taken, pages):
+                want = saved.pop(d)
+                seen["verified"] += 1
+                seen["unequal"] += not all(
+                    torch.equal(st[:, p], w) for st, w in zip(stores, want))
+            return pages, cursor
+
+        def hits_counted(uid):
+            h = tier_hits(uid)
+            for k, v in (h or {}).items():
+                hits[k] = hits.get(k, 0) + v
+            return h
+
+        def pread_counted(*a, **k):
+            seen["preads"] += 1
+            return pread(*a, **k)
+
+        def pwrite_counted(*a, **k):
+            seen["pwrites"] += 1
+            return pwrite(*a, **k)
+        state._demote, state._promote_chain = demote_kept, promote_checked
+        store.take_many, engine.tier_hits = take_recorded, hits_counted
+        aio.pread, aio.pwrite = pread_counted, pwrite_counted
+
+    reset_launches(counters)
+    out = RT.run_tier_smoke(f"{root}/{TRACE_PATH}", limit=TRACE_TIER_LIMIT,
+                            device_pages=4, model_size="7b",
+                            layers=TRACE_CUT_LAYERS, device="cuda",
+                            on_engine=instrument)
+    launches = read_launches(counters)
+    cfg = llama_config("7b", num_layers=TRACE_CUT_LAYERS)
+    seg = segment_counts(cfg, _trace_dispatches(out["wave1"], out["replay"]))
+    st = out["tier"]
+    tok1, tok2 = out["tokens"]["wave1"], out["tokens"]["wave2"]
+    # a warm wave prefills only the suffix over promoted pages: in bf16
+    # its logits may part from the cold wave's on a near-tie, so the
+    # tokens are reported here, and the promoted pages held bit-equal
+    other = [p for p in out["diff"]["problems"]
+             if not p.startswith("[tier] warm-from-tier tokens differ")]
+    checks = launch_checks(cfg, "none", launches, seg)
+    checks.update({
+        "promoted pages bit-equal": (seen["unequal"] == 0
+                                     and seen["verified"] > 0
+                                     and seen["verified"]
+                                     == st["promoted_pages"]),
+        "structure, demotion, spill, promotion and audit clean": not other,
+        "hits from host and disk": (hits.get("host", 0) > 0
+                                    and hits.get("disk", 0) > 0),
+        "disk I/O through the async I/O handle": (
+            st["plain_io"] == 0 and seen["pwrites"] >= st["spilled_pages"]
+            and seen["preads"] > 0)})
+    summary = dict(
+        card=card, model=f"Llama-2-7B width, {TRACE_CUT_LAYERS} layers, bf16",
+        requests=out["requests"], device_pages=out["device_pages"],
+        tier=st, hit_tokens_by_tier=hits, pages_verified=seen["verified"],
+        aio_preads=seen["preads"], aio_pwrites=seen["pwrites"],
+        promote_batches=len(promote_ms),
+        promote_batch_p50_ms=(statistics.median(promote_ms)
+                              if promote_ms else None),
+        wave2_rows_equal_to_wave1=sum(tok2.get(u) == v
+                                      for u, v in tok1.items()),
+        problems=out["diff"]["problems"], segments=seg, launches=launches,
+        checks=checks)
+    return summary, launches
+
+
+def _trace_plan(card, root, ledger, cache_dir):
+    """(d): ``analyze`` over the ledger (a)'s measured pass captured (the
+    recommended key set covers every observed key), then ``python -m
+    deepspeed_tpu_torch.tools.plan_capacity --validate --oom-smoke
+    --check`` at TRACE_SMALL_LAYERS layers in a child process (the
+    ledger's measured bytes are the process's: this one holds the
+    earlier phases' leftovers), loading phase 2's libraries: every
+    ``ds_mem_*`` accountant readable, the residual within JAX's limit of
+    the card's measured bytes, the injected OOM's forensics."""
+    import os
+    import tempfile
+    from deepspeed_tpu_torch.tools import analyze_trace as AT
+    from deepspeed_tpu_torch.tools import replay_trace as RT
+    trace = RT.load_trace(ledger)
+    report = AT.analyze(trace)
+    observed = {tuple(k) for k in AT.observed_keys(trace)}
+    recommended = {tuple(k) for k in report["recommended_lattice"]["keys"]}
+    out_json = os.path.join(tempfile.mkdtemp(prefix="ds_trace_plan_"),
+                            "plan.json")
+    env = dict(os.environ, DS_COMPILE_CACHE=os.path.dirname(cache_dir))
+    child = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.tools.plan_capacity",
+         "--trace", f"{root}/{TRACE_PATH}", "--limit",
+         str(TRACE_PLAN_LIMIT), "--model-size", "7b", "--layers",
+         str(TRACE_SMALL_LAYERS), "--tolerance", str(TRACE_RESIDUAL_TOL),
+         "--validate", "--oom-smoke", "--check", "--device", "cuda",
+         "--json", out_json],
+        capture_output=True, text=True, env=env, timeout=300, cwd=root)
+    if not os.path.exists(out_json):
+        raise RuntimeError(f"plan_capacity child failed:\n"
+                           f"{child.stderr[-4000:]}")
+    with open(out_json) as f:
+        plan = json.load(f)
+    v, s = plan["validate"], plan["oom_smoke"]
+    bd = v["pass2"]
+    checks = {
+        "the ledger recorded the measured pass": (
+            len(trace["requests"]) == TRACE_LIMIT and len(observed) > 0),
+        "recommended keys cover every observed key": observed <= recommended,
+        "no uncovered on-path key": not report["recommended_lattice"][
+            "uncovered_on_path_compile_keys"],
+        "plan_capacity --check exits 0": child.returncode == 0,
+        "validate": v["ok"], "residual measured on the card": (
+            v["residual_checked"] and bd["measured_source"] == "device"),
+        "oom smoke": s["ok"]}
+    return dict(
+        card=card, observed_keys=len(observed),
+        recommended_keys=len(recommended),
+        q_buckets=report["recommended_lattice"]["q_buckets"],
+        plan=plan["plan"], measured_bytes=bd["measured_bytes"],
+        unaccounted_bytes=bd["unaccounted_bytes"],
+        residual_share=(abs(bd["unaccounted_bytes"]) / bd["measured_bytes"]
+                        if bd["measured_bytes"] else None),
+        subsystems=bd["subsystems"],
+        live_capacity_seqs=v["live_capacity_seqs"],
+        predicted_capacity_seqs=v["predicted_capacity_seqs"],
+        oom=dict((k, s[k]) for k in ("injected_fires", "breakdown_events",
+                                     "dominant")),
+        problems=v["problems"] + s["problems"], checks=checks)
+
+
+def _trace_pool(card):
+    """(e): ``fleetctl.run_pool_smoke`` on the card: two replicas of
+    Llama-2-7B width at TRACE_SMALL_LAYERS layers (the debug Llama's head
+    dim, 16, has no kernel instance: item 11k) replay the trace's first
+    TRACE_LIMIT ok requests, one drain-migrated mid-run; it raises unless
+    every generated length is exact and none is lost."""
+    from deepspeed_tpu_torch.tools import fleetctl
+    engines = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = fleetctl.run_pool_smoke(limit=TRACE_LIMIT, device="cuda",
+                                     engines=engines, model_size="7b",
+                                     layers=TRACE_SMALL_LAYERS)
+    checks = {"pool smoke": rc == 0,
+              "both replicas on the card": all(
+                  e.model.device.type == "cuda" for e in engines.values())}
+    return dict(card=card, replicas=sorted(engines), checks=checks)
+
+
+def trace_phase(counters, card, cache_dir):
+    """Phase 22 (module docstring): the port's trace tools on the card,
+    parts (a)-(e), each a JSON line with its checks and seconds.  Returns
+    {path: launches} of (a)-(c)."""
+    import os
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = {}
+    t0 = time.perf_counter()
+
+    def done(part, summary):
+        summary["seconds"] = time.perf_counter() - t
+        log(f"phase 22 ({part}): {json.dumps(summary, default=str)}")
+        if not all(summary["checks"].values()):
+            raise RuntimeError(f"phase 22 ({part}) checks: "
+                               f"{summary['checks']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    summary, paths["serving_trace_replay"], ledger = _trace_replay(
+        counters, card, root)
+    done("a", summary)
+    t = time.perf_counter()
+    summary, paths["serving_trace_disagg"] = _trace_disagg(counters, card,
+                                                           root)
+    done("b", summary)
+    t = time.perf_counter()
+    summary, paths["serving_trace_tier"] = _trace_tier(counters, card, root)
+    done("c", summary)
+    t = time.perf_counter()
+    done("d", _trace_plan(card, root, ledger, cache_dir))
+    t = time.perf_counter()
+    done("e", _trace_pool(card))
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8478,19 +8965,20 @@ def main() -> int:
 
     clock("phase 9a")
     # phases 9b-9d: Falcon-7B (head_dim 64, multi-query; bf16 then int8
-    # pages), Phi-2 (80, partial rotary), Phi-3-mini-4k (96, a 2047-token
-    # window) at their published configurations
+    # pages; at FALCON_SERVING_LAYERS of its 32 layers, phase 22's room),
+    # Phi-2 (80, partial rotary), Phi-3-mini-4k (96, a 2047-token window)
+    # at their published configurations
     from deepspeed_tpu_torch.checkpoint import hf as HF
-    for label, model_type, convert, name, seed, int8 in (
+    for label, model_type, convert, name, seed, int8, layers in (
             ("Falcon-7B", "falcon", HF.falcon_config_from_hf,
-             "tiiuae/falcon-7b", SEED + 21, True),
+             "tiiuae/falcon-7b", SEED + 21, True, FALCON_SERVING_LAYERS),
             ("Phi-2", "phi", HF.phi_config_from_hf, "microsoft/phi-2",
-             SEED + 23, False),
+             SEED + 23, False, 0),
             ("Phi-3-mini-4k", "phi3", HF.phi3_config_from_hf,
-             "microsoft/Phi-3-mini-4k-instruct", SEED + 25, False)):
+             "microsoft/Phi-3-mini-4k-instruct", SEED + 25, False, 0)):
         paths, _ = hf_family_phase(counters, card, label, model_type,
                                    convert, HF.PUBLISHED_CONFIGS[name],
-                                   seed, int8=int8)
+                                   seed, int8=int8, layers=layers)
         launches_by_path.update(paths)
 
     clock("phases 9b-9d")
@@ -8563,7 +9051,12 @@ def main() -> int:
                           for path in p21_launches})
 
     clock("phase 21")
-    # phase 22
+    # phase 22: the trace toolchain (replay, disaggregated, tier, analyse
+    # and capacity plan, the pool smoke) through the port's tools
+    launches_by_path.update(trace_phase(counters, card, cache_dir))
+
+    clock("phase 22")
+    # phase 23
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)

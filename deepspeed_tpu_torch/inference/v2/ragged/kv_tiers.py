@@ -18,9 +18,13 @@ when it came from the card), or an int8 :class:`~.kv_cache.PageBlob`
 (codes and scales travel together, never re-encoded).  A disk entry is
 one file per digest holding the payload's raw bytes (then the scales');
 its dtype and shape stay in this process's index, so bf16 pages need no
-numpy dtype, as in the snapshot bundles.  Disk I/O is plain buffered
-file I/O, the JAX package's own path when its native AIO extension is
-not built: the port has no AIO yet (ROADMAP Queue 1 item 11g).
+numpy dtype, as in the snapshot bundles.  Disk I/O goes through the
+async I/O handle (``ops/aio``): a spill is a ``sync_pwrite`` a part, and
+a promotion submits the reads of every disk page of its chain (payload
+and scales) before it waits on any, so the reads overlap.  Only when the
+native extension cannot be built does the store fall back to plain
+buffered file I/O (logged once); ``stats()["plain_io"]`` counts the
+file operations that took that path.
 
 This is a cache: an I/O error (a failed spill, a torn or unreadable
 file) drops the entry and counts in ``io_errors``; a promotion stops at
@@ -38,10 +42,11 @@ import shutil
 import tempfile
 import warnings
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ....utils.logging import logger
 from .kv_cache import PageBlob
 
 
@@ -66,9 +71,10 @@ def _blob_nbytes(blob) -> int:
     return int(blob.nbytes)
 
 
-def _raw(t: torch.Tensor) -> bytes:
-    """A host tensor's bytes, whatever its dtype."""
-    return t.contiguous().view(torch.uint8).numpy().tobytes()
+def _bytes_view(t: torch.Tensor):
+    """A host tensor's bytes as a flat numpy uint8 view (no copy when it
+    is contiguous), whatever its dtype."""
+    return t.contiguous().reshape(-1).view(torch.uint8).numpy()
 
 
 def _from_raw(raw: bytes, shape, dtype: torch.dtype) -> torch.Tensor:
@@ -103,6 +109,8 @@ class TieredPageStore:
         self._indexed = 0
         self._dir = None
         self._own_dir = False
+        self._aio = None
+        self._aio_failed = False
         if self._disk_cap:
             if disk_dir:
                 os.makedirs(disk_dir, exist_ok=True)
@@ -114,6 +122,9 @@ class TieredPageStore:
         self.promoted_pages = 0
         self.spilled_pages = 0
         self.io_errors = 0
+        #: file operations (writes and reads) that took the plain path
+        #: because the async I/O extension could not be built
+        self.plain_io = 0
 
     # -- population ------------------------------------------------------------
     @property
@@ -148,13 +159,38 @@ class TieredPageStore:
             return "disk"
         return None
 
-    # -- file I/O --------------------------------------------------------------
+    # -- file I/O (the async I/O handle; plain files without it) -------------
+    def _get_aio(self):
+        """The store's async I/O handle, built at first use; None when the
+        native extension cannot be built (plain file I/O then, the same
+        files)."""
+        if self._aio is None and not self._aio_failed:
+            try:
+                from ....ops.aio import AsyncIOHandle
+                self._aio = AsyncIOHandle()
+            except Exception as e:
+                self._aio_failed = True
+                logger.info("kv tier: native AIO unavailable (%s: %s); "
+                            "the disk tier uses plain file I/O",
+                            type(e).__name__, e)
+        return self._aio
+
     def _write_file(self, path: str, parts: List[torch.Tensor]) -> None:
+        aio = self._get_aio()
+        if aio is not None:
+            off = 0
+            for t in parts:
+                arr = _bytes_view(t)
+                aio.sync_pwrite(arr, path, off)
+                off += arr.nbytes
+            return
+        self.plain_io += 1
         with open(path, "wb") as f:
             for t in parts:
-                f.write(_raw(t))
+                f.write(_bytes_view(t).tobytes())
 
-    def _read_file(self, meta: _DiskMeta):
+    def _read_file_plain(self, meta: _DiskMeta):
+        self.plain_io += 1
         with open(meta.path, "rb") as f:
             raw = f.read()
         if len(raw) != meta.nbytes:
@@ -165,6 +201,29 @@ class TieredPageStore:
             return payload
         return PageBlob(payload, _from_raw(raw[n:], meta.scale_shape,
                                            meta.scale_dtype))
+
+    @staticmethod
+    def _submit_read(aio, meta: _DiskMeta):
+        """Submit the reads of one disk entry: ``(buffers, request
+        ids)``, the payload's bytes then the scales'."""
+        n = math.prod(meta.shape) * meta.dtype.itemsize
+        sizes = [n] + ([meta.nbytes - n] if meta.scale_shape is not None
+                       else [])
+        bufs, reqs, off = [], [], 0
+        for size in sizes:
+            buf = torch.empty(size, dtype=torch.uint8)
+            reqs.append(aio.pread(buf.numpy(), meta.path, off))
+            bufs.append(buf)
+            off += size
+        return bufs, reqs
+
+    @staticmethod
+    def _blob_of(meta: _DiskMeta, bufs: List[torch.Tensor]):
+        payload = bufs[0].view(meta.dtype).reshape(meta.shape)
+        if meta.scale_shape is None:
+            return payload
+        return PageBlob(payload, bufs[1].view(meta.scale_dtype).reshape(
+            meta.scale_shape))
 
     # -- demotion (device eviction -> host -> disk) ----------------------------
     def put(self, digest: bytes, blob) -> bool:
@@ -249,6 +308,20 @@ class TieredPageStore:
             if t is None:
                 break
             plan.append((d, t))
+        aio = (self._get_aio() if any(t == "disk" for _, t in plan)
+               else None)
+        #: digest -> (buffers, request ids), or None when a submit failed
+        pending: Dict[bytes, Optional[tuple]] = {}
+        if aio is not None:
+            # every disk read of the chain is in flight before the first
+            # wait
+            for d, t in plan:
+                if t != "disk":
+                    continue
+                try:
+                    pending[d] = self._submit_read(aio, self._disk[d])
+                except (OSError, RuntimeError):
+                    pending[d] = None
         blobs: List[object] = []
         tiers: List[str] = []
         for d, t in plan:
@@ -261,7 +334,17 @@ class TieredPageStore:
                 continue
             meta = self._disk[d]
             try:
-                blob = self._read_file(meta)
+                if aio is None:
+                    blob = self._read_file_plain(meta)
+                else:
+                    got = pending.pop(d)
+                    if got is None:
+                        raise OSError(f"tier read submit failed for "
+                                      f"{meta.path}")
+                    bufs, reqs = got
+                    for req in reqs:
+                        aio.wait(req)
+                    blob = self._blob_of(meta, bufs)
             except (OSError, RuntimeError, ValueError) as e:
                 # the chain is only usable up to here: drop the entry and
                 # stop (the rest stays for a later promotion)
@@ -279,6 +362,14 @@ class TieredPageStore:
             blobs.append(blob)
             tiers.append("disk")
             self._inflight += 1
+        # reads submitted past a failed one are drained and dropped; their
+        # entries stay on disk for a later promotion
+        for got in pending.values():
+            for req in (got[1] if got is not None else ()):
+                try:
+                    aio.wait(req)
+                except (OSError, RuntimeError):
+                    pass
         self.promoted_pages += len(blobs)
         return blobs, tiers
 
@@ -369,13 +460,20 @@ class TieredPageStore:
                 "demoted_pages": self.demoted_pages,
                 "promoted_pages": self.promoted_pages,
                 "spilled_pages": self.spilled_pages,
-                "io_errors": self.io_errors}
+                "io_errors": self.io_errors,
+                "plain_io": self.plain_io}
 
     def close(self) -> None:
         """Drop every entry and delete every disk file (in a directory
         the caller gave too: the index dies with the process, so a file
         left behind could never be read again) and an owned directory.
         The store is unusable afterwards."""
+        if self._aio is not None:
+            try:
+                self._aio.close()
+            except Exception:
+                pass
+            self._aio = None
         self._host.clear()
         self._host_bytes = 0
         for meta in self._disk.values():

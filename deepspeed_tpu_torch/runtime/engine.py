@@ -311,12 +311,12 @@ class DeepSpeedEngine:
         self.params = _tree_with_paths(tree, master)
         self._masters = tree_leaves(self.params)
         #: gradient accumulators, one per leaf, fp32 unless
-        #: ``accumulate_grads_in_fp32`` is false (JAX engine.py:683-688);
-        #: an offloaded leaf's is fp32 (the host step's input)
+        #: ``accumulate_grads_in_fp32`` is false (JAX engine.py:458,632),
+        #: offloaded leaves too: their sum is cast to fp32 at the
+        #: device -> host copy (the staging buffer)
         self._grads: List[torch.Tensor] = []
         for p, off in zip(self._masters, self._offloaded):
-            g = torch.zeros(p.shape, device=p.device,
-                            dtype=torch.float32 if off else self.acc_dtype)
+            g = torch.zeros(p.shape, device=p.device, dtype=self.acc_dtype)
             if not off and g.dtype == p.dtype:
                 p.grad = g        # the device optimizer's step gets them too
             self._grads.append(g)
@@ -717,10 +717,11 @@ class DeepSpeedEngine:
     def _apply_offload_step(self, lr: float) -> None:
         """The host optimizer step over the offloaded leaves (JAX
         ``_apply_offload_step``): leaf by leaf, the reduced and clipped
-        fp32 gradient goes device -> host through the staging buffer, the
-        host kernel steps the master, and the master goes back through the
-        staging buffer into the leaf's fp32 accumulator (free until the
-        next backward) to refresh the compute-dtype copy in place."""
+        gradient goes device -> host through the fp32 staging buffer (the
+        cast to fp32 of a bf16 sum happens there), the host kernel steps
+        the master, and the master goes back through the staging buffer
+        into the leaf's accumulator (free until the next backward) to
+        refresh the compute-dtype copy in place."""
         times = dict.fromkeys(("device_wait", "d2h", "host_step", "h2d",
                                "nvme_wait"), 0.0)
         cuda = self.device.type == "cuda"

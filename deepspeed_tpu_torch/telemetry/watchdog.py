@@ -8,7 +8,8 @@ values the engines already hold on the host (no device syncs):
 - **non-finite sentinel**: a host-fetched loss / grad-norm / fp16
   overflow flag mints ``ds_train_nonfinite_total`` /
   ``ds_train_overflow_skip_total`` and a warn-once (the training engine
-  does not feed it yet: ROADMAP Queue 1 item 11i);
+  feeds it after every step while telemetry is on: the loss and the
+  gradient norm of an applied step, the skip of an fp16 overflow);
 - **step-time anomaly detector**: an EWMA mean and EWMA absolute
   deviation over ``train`` / ``fastgen`` step wall times; a step slower
   than ``threshold x`` the running mean (after warm-up) increments

@@ -12,9 +12,14 @@ It builds an engine (``--model debug``: the debug Llama in fp32;
 weights drawn from ``--seed`` on the device), starts the metrics
 endpoint on an ephemeral port (``--port 0``, the default, so N replicas
 on one host never collide), turns telemetry and the time-series sampler
-on, and serves a synthetic workload in rounds (:func:`synthetic_workload`;
-a parent reproduces its prompts from the same flags).  The parent reads
-the handshake line::
+on, and serves a workload in rounds: the synthetic one
+(:func:`synthetic_workload`; a parent reproduces its prompts from the same
+flags) or, with ``--trace <ledger.jsonl>``, a recorded workload trace
+replayed as ``tools.replay_trace`` replays it (anonymised prompts from
+the recorded page digests, the recorded sampling parameters,
+``max_new_tokens = gen_len``, an engine sized to the trace; the first
+``--trace-limit`` ok requests, prompts drawn from ``--seed``).  The
+parent reads the handshake line::
 
     FLEET_REPLICA ready label=<label> port=<port> pid=<pid>
 
@@ -32,8 +37,7 @@ preempted`` and exits with status 17 at once, endpoint and all, as a
 preempted machine vanishes.
 
 ``--device`` defaults to ``cuda`` and raises without a GPU (the tests
-pass ``cpu``).  ``--trace`` (replaying a captured workload trace) needs
-the replay tool, which is not ported (ROADMAP Queue 1 item 12c).
+pass ``cpu``).
 """
 
 from __future__ import annotations
@@ -78,6 +82,26 @@ def synthetic_workload(vocab: int, requests: int, prompt_len: int,
             prompt = rng.integers(0, vocab, int(rng.integers(128, 1025)))
         out.append((prompt.tolist(), sp))
     return out
+
+
+def trace_workload(path: str, limit: int, model: str, device: str,
+                   seed: int):
+    """(engine, workload) of a recorded trace: the first ``limit`` ok
+    requests, an engine sized to them (``replay_trace.build_replay_engine``,
+    the ``model`` preset) and their anonymised prompts with the recorded
+    sampling parameters."""
+    from .replay_trace import (_replayable, _sampling_params, _vocab,
+                               build_replay_engine, load_trace,
+                               synthesize_prompts)
+    trace = load_trace(path)
+    requests = _replayable(trace, path, limit, include_errors=False)
+    meta = trace["meta"]
+    engine = build_replay_engine(meta, requests, model_size=model,
+                                 max_seqs=len(requests), device=device)
+    prompts = synthesize_prompts(requests, int(meta.get("page_size", 16)),
+                                 _vocab(meta, engine.model.cfg), seed=seed)
+    return engine, [(p.tolist(), sp) for p, sp in
+                    zip(prompts, _sampling_params(requests))]
 
 
 def build_engine(model: str, device: str, seed: int, page_size: int,
@@ -165,8 +189,11 @@ def main(argv=None) -> int:
                     help="debug: the debug Llama in fp32; 7b: Llama-2-7B "
                     "at full width and depth in bf16")
     ap.add_argument("--trace", default="",
-                    help="replay a captured workload trace (not ported)")
-    ap.add_argument("--trace-limit", type=int, default=8)
+                    help="replay this recorded workload-trace JSONL "
+                    "(anonymised prompts, recorded sampling parameters) "
+                    "instead of the synthetic workload")
+    ap.add_argument("--trace-limit", type=int, default=8,
+                    help="replay only the first N trace requests a round")
     ap.add_argument("--requests", type=int, default=4,
                     help="concurrent requests per round")
     ap.add_argument("--rounds", type=int, default=4)
@@ -193,11 +220,6 @@ def main(argv=None) -> int:
     ap.add_argument("--linger-s", type=float, default=30.0,
                     help="keep serving /snapshot after the workload")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError(
-            "fleet_replica --trace replays a captured workload trace "
-            "through tools/replay_trace.py, which is not ported yet "
-            "(ROADMAP Queue 1 item 12c)")
 
     from .. import telemetry
     from ..runtime.fault_injection import InjectedPreemptionFault
@@ -205,15 +227,20 @@ def main(argv=None) -> int:
     telemetry.enable()
     telemetry.get_timeseries().configure(interval_s=args.ts_interval_s,
                                          retention_s=300.0)
-    engine = build_engine(args.model, args.device, args.seed,
-                          args.page_size, args.num_pages,
-                          max_seqs=args.requests,
-                          token_budget=args.token_budget)
-    workload = synthetic_workload(
-        engine.model.cfg.vocab_size, args.requests, args.prompt_len,
-        args.shared_prefix,
-        args.seed if args.workload_seed is None else args.workload_seed,
-        args.max_new)
+    if args.trace:
+        engine, workload = trace_workload(
+            args.trace, args.trace_limit, args.model, args.device,
+            args.seed if args.workload_seed is None else args.workload_seed)
+    else:
+        engine = build_engine(args.model, args.device, args.seed,
+                              args.page_size, args.num_pages,
+                              max_seqs=args.requests,
+                              token_budget=args.token_budget)
+        workload = synthetic_workload(
+            engine.model.cfg.vocab_size, args.requests, args.prompt_len,
+            args.shared_prefix,
+            args.seed if args.workload_seed is None else args.workload_seed,
+            args.max_new)
     srv = telemetry.start_http_server(args.port)
     port = srv.server_address[1]
     ready = time.time()

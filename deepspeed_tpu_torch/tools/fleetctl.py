@@ -25,10 +25,12 @@ affinity hint (the subprocess mode's routing input); ``mem`` the
 per-replica ``ds_mem_*`` table with fleet totals and headroom;
 ``journey`` stitches one request's segments across every replica's
 ``/journey?uid=``.  Targets are ``[label=]host:port`` (labels default to
-r0, r1, ...).  The replica and pool legs serve the debug Llama
-(``--device``, default ``cuda``; ``cpu`` serves on the CPU) on a
-synthetic workload (``fleet_replica.synthetic_workload``): the JAX
-tool's captured-trace replay is not ported (ROADMAP Queue 1 item 12c).
+r0, r1, ...).  The kill demo and the pool legs serve the debug Llama
+(``--device``, default ``cuda``; ``cpu`` serves on the CPU) on the
+in-repo recorded trace ``tools/traces/sample_200.jsonl``, replayed as
+``tools.replay_trace`` replays it (anonymised prompts, the recorded
+sampling parameters and lengths); the two-replica smoke keeps the
+replicas' synthetic workload (``fleet_replica.synthetic_workload``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ import threading
 import time
 import urllib.request
 from typing import Any, Dict, List, Optional, Tuple
+
+from .replay_trace import SAMPLE_TRACE
 
 #: the directory that holds the ``deepspeed_tpu_torch`` package: a child
 #: interpreter imports the package from there
@@ -193,7 +197,8 @@ def run_kill_demo(step_sleep_s: float = 0.05, rounds: int = 150,
                   kill_at_step: int = 90,
                   sample_every_s: float = 0.2,
                   run_s: float = 20.0, device: str = "cuda") -> Dict[str, Any]:
-    """Two live replicas serving the synthetic workload; one is killed
+    """Two live replicas replaying the recorded trace (the first 4 ok
+    requests a round, prompts from each replica's seed); one is killed
     mid-run through the ``serving.preempt`` fault site.  The parent
     federates both, samples a fleet time-series ring, and runs the SLO
     evaluator over it with a fleet-goodput objective set from the
@@ -205,7 +210,10 @@ def run_kill_demo(step_sleep_s: float = 0.05, rounds: int = 150,
     from ..telemetry.slo import SLOEvaluator
     from ..telemetry.timeseries import TimeSeries
 
-    common = ["--rounds", str(rounds), "--step-sleep-s", str(step_sleep_s),
+    # 4 requests a round keep a step's compute small beside the pacing
+    # sleep, so the token rate follows the live replicas, not contention
+    common = ["--trace", SAMPLE_TRACE, "--trace-limit", "4",
+              "--rounds", str(rounds), "--step-sleep-s", str(step_sleep_s),
               "--device", device]
     reps = [
         ReplicaProc("r0", common + ["--seed", "0"]),
@@ -291,30 +299,35 @@ def run_kill_demo(step_sleep_s: float = 0.05, rounds: int = 150,
 
 
 # -- replica pool (in process) -----------------------------------------------------
-def _pool_workload(limit: int, device: str):
-    """``limit`` greedy requests of the synthetic shared-prefix workload
-    (two prefix groups of 48 tokens) for the debug Llama."""
-    from .fleet_replica import synthetic_workload
-    half = max(limit // 2, 1)
-    work = (synthetic_workload(128, half, 17, 48, seed=0, max_new=12)
-            + synthetic_workload(128, limit - half, 17, 48, seed=1,
-                                 max_new=12))
-    return [p for p, _ in work], [sp for _, sp in work]
+def _pool_workload(limit: int):
+    """(meta, requests, prompts, sampling params) of the first ``limit``
+    ok requests of the recorded trace: the workload every pool leg
+    drives."""
+    from .replay_trace import (_replayable, _sampling_params, load_trace,
+                               synthesize_prompts)
+    trace = load_trace(SAMPLE_TRACE)
+    requests = _replayable(trace, SAMPLE_TRACE, limit, include_errors=False)
+    meta = trace["meta"]
+    prompts = synthesize_prompts(requests, int(meta.get("page_size", 16)),
+                                 int(meta.get("vocab_size", 128)), seed=0)
+    return meta, requests, prompts, _sampling_params(requests)
 
 
-def _pool_factory(engines: Dict[str, Any], device: str, max_seqs: int = 8):
-    """A ReplicaPool factory that caches one debug engine per label (so
+def _pool_factory(meta, requests, engines: Dict[str, Any], device: str,
+                  max_seqs: int = 8, model_size: str = "debug",
+                  layers: int = 0):
+    """A ReplicaPool factory that caches one replay engine per label (so
     a warm-up pass captures the graphs a later measured pass, its
     post-kill spawn included, will replay)."""
     from ..inference.v2 import FastGenScheduler
-    from .fleet_replica import build_engine
+    from .replay_trace import build_replay_engine
 
     def factory(label: str):
         eng = engines.get(label)
         if eng is None:
-            eng = build_engine("debug", device, seed=0, page_size=16,
-                               num_pages=64, max_seqs=max_seqs,
-                               token_budget=256)
+            eng = build_replay_engine(meta, requests, model_size=model_size,
+                                      max_seqs=max_seqs, device=device,
+                                      layers=layers)
             engines[label] = eng
         return FastGenScheduler(eng)
 
@@ -324,35 +337,33 @@ def _pool_factory(engines: Dict[str, Any], device: str, max_seqs: int = 8):
 def _reset_engines(engines: Dict[str, Any]) -> None:
     """Flush every tracked sequence and drop each prefix cache, so the
     next pass starts cold."""
+    from .replay_trace import _reset_engine
     for eng in engines.values():
-        for uid in list(eng.state_manager._seqs):
-            eng.flush(uid)
-        eng.reset_prefix_cache()
+        _reset_engine(eng)
 
 
-def _percentile(vals, q: float):
-    """Nearest-rank percentile (None when empty)."""
-    vals = sorted(v for v in vals if v is not None)
-    if not vals:
-        return None
-    k = min(len(vals) - 1, int(round(q / 100.0 * (len(vals) - 1))))
-    return round(float(vals[k]), 3)
-
-
-def run_pool_smoke(limit: int = 16, device: str = "cuda") -> int:
-    """Two in-process replicas behind the prefix-affinity router serve
-    ``limit`` requests; one replica is drain-migrated away mid-run.
-    Asserts every request ends with its full token count and none is
-    lost, with the pool counters monotone through the change."""
+def run_pool_smoke(limit: int = 32, device: str = "cuda",
+                   engines: Optional[Dict[str, Any]] = None,
+                   model_size: str = "debug", layers: int = 0) -> int:
+    """Two in-process replicas behind the prefix-affinity router replay
+    the first ``limit`` requests of the recorded trace; one replica is
+    drain-migrated away mid-run.  Asserts every request ends with its
+    recorded generated length and none is lost, with the pool counters
+    monotone through the change.  ``engines``: a label -> engine cache
+    to build into (a caller reads their counts afterwards); the replicas
+    serve the ``model_size`` Llama preset (``layers`` > 0 cuts its
+    depth; on the card a preset whose head dim the kernels take)."""
     from ..serving import ReplicaPool
     from ..telemetry import metrics as tm
 
-    prompts, params = _pool_workload(limit, device)
-    engines: Dict[str, Any] = {}
-    pool = ReplicaPool(_pool_factory(engines, device), replicas=2)
+    meta, requests, prompts, params = _pool_workload(limit)
+    engines = {} if engines is None else engines
+    pool = ReplicaPool(_pool_factory(meta, requests, engines, device,
+                                     model_size=model_size, layers=layers),
+                       replicas=2)
     routed0 = tm.POOL_ROUTED.value
     migrated0 = tm.POOL_MIGRATED.value
-    for i in range(len(prompts)):
+    for i in range(len(requests)):
         verdict = pool.submit(i, prompts[i], params[i])
         if verdict is not None:
             raise RuntimeError(
@@ -370,18 +381,23 @@ def run_pool_smoke(limit: int = 16, device: str = "cuda") -> int:
     if pool.errors:
         problems.append(f"structured errors: "
                         f"{ {u: e.code for u, e in pool.errors.items()} }")
-    if len(results) != len(prompts):
+    if len(results) != len(requests):
         problems.append(f"request count: {len(results)} completed vs "
-                        f"{len(prompts)} submitted")
-    for i, sp in enumerate(params):
+                        f"{len(requests)} submitted")
+    for i, rec in enumerate(requests):
+        want = max(1, int(rec["gen_len"]))
         got = len(results.get(i, []))
-        if got != sp.max_new_tokens:
-            problems.append(f"req {i}: {got} tokens vs {sp.max_new_tokens}")
+        if got != want:
+            problems.append(f"req {i}: gen_len {got} vs recorded {want}")
     routed = tm.POOL_ROUTED.value - routed0
     migrated = tm.POOL_MIGRATED.value - migrated0
-    if routed < len(prompts):
+    lost = sum(1 for i in range(len(requests))
+               if pool.request(i) is None or not pool.request(i).finalized)
+    if lost:
+        problems.append(f"{lost} request(s) lost")
+    if routed < len(requests):
         problems.append(f"routed counter not monotone/complete: "
-                        f"{routed} < {len(prompts)}")
+                        f"{routed} < {len(requests)}")
     if migrated < 1:
         problems.append("no request migrated across the scale_down")
     if len(pool.labels) != 1:
@@ -391,25 +407,26 @@ def run_pool_smoke(limit: int = 16, device: str = "cuda") -> int:
         for p in problems:
             print(f"fleetctl pool smoke: {p}", file=sys.stderr)
         raise RuntimeError("pool smoke failed")
-    print(f"fleetctl pool smoke: OK: {len(prompts)} requests through "
-          f"2 replicas, {gone} drain-migrated mid-run "
+    print(f"fleetctl pool smoke: OK: {len(requests)} requests through "
+          f"2 replicas, {gone} drain-migrated mid-replay "
           f"({migrated} requests re-homed, partial tokens kept), "
-          f"0 lost, every token count exact")
+          f"0 lost, exact generated-length parity")
     return 0
 
 
-def _pool_run_pass(prompts, params, engines, device: str, n_replicas: int,
-                   policy: str, pace_s: float, wave: int, wave_gap_s: float,
-                   kill_add: bool = False,
+def _pool_run_pass(meta, requests, prompts, params, engines, device: str,
+                   n_replicas: int, policy: str, pace_s: float, wave: int,
+                   wave_gap_s: float, kill_add: bool = False,
                    timeout_s: float = 180.0) -> Dict[str, Any]:
     """One measured pool pass: threaded replicas, wave-paced submission.
     With ``kill_add`` the busiest replica is killed once ~40% of the
     requests completed and a fresh replica is added shortly after."""
     from ..serving import ReplicaPool
     from ..telemetry import metrics as tm
+    from .replay_trace import percentile
 
-    pool = ReplicaPool(_pool_factory(engines, device), replicas=n_replicas,
-                       policy=policy, hint_every=1)
+    pool = ReplicaPool(_pool_factory(meta, requests, engines, device),
+                       replicas=n_replicas, policy=policy, hint_every=1)
     look0 = tm.SERVING_PREFIX_LOOKUP_TOKENS.value
     hit0 = tm.SERVING_PREFIX_HIT_TOKENS.value
     migr0 = tm.POOL_MIGRATED.value
@@ -458,7 +475,7 @@ def _pool_run_pass(prompts, params, engines, device: str, n_replicas: int,
         "completed": sum(1 for r in reqs if r is not None and r.done),
         "lost": sum(1 for r in reqs if r is None or not r.finalized),
         "errors": {u: e.code for u, e in pool.errors.items()},
-        "ttft_p99_ms": _percentile(ttft, 99),
+        "ttft_p99_ms": percentile(ttft, 99),
         "hit_rate": round(
             (tm.SERVING_PREFIX_HIT_TOKENS.value - hit0)
             / max(tm.SERVING_PREFIX_LOOKUP_TOKENS.value - look0, 1), 4),
@@ -471,42 +488,41 @@ def _pool_run_pass(prompts, params, engines, device: str, n_replicas: int,
         after = [(r.first_token_mono - r.submit_mono) * 1e3
                  for r in reqs if r is not None and r.first_token_mono
                  and r.first_token_mono > kill_mono]
-        out["ttft_p99_ms_before_kill"] = _percentile(before, 99)
-        out["ttft_p99_ms_after_kill"] = _percentile(after, 99)
+        out["ttft_p99_ms_before_kill"] = percentile(before, 99)
+        out["ttft_p99_ms_after_kill"] = percentile(after, 99)
         out["kill_at_s"] = round(kill_mono - t0, 3)
     return out
 
 
 def run_pool_demo(limit: int = 24, pace_s: float = 0.01, wave: int = 4,
-                  wave_gap_s: float = 0.15,
-                  device: str = "cuda") -> Dict[str, Any]:
-    """The pool kill/add demo: the synthetic shared-prefix workload
-    through (a) one replica, (b) two under round-robin routing, (c) two
-    under the prefix-affinity router, and (d) the affinity pool with a
-    replica killed mid-run and one added after: aggregate tokens/s
+                  wave_gap_s: float = 0.15, device: str = "cuda",
+                  model_size: str = "debug",
+                  layers: int = 0) -> Dict[str, Any]:
+    """The pool kill/add demo: the recorded trace's first ``limit`` ok
+    requests through (a) one replica, (b) two under round-robin routing,
+    (c) two under the prefix-affinity router, and (d) the affinity pool
+    with a replica killed mid-run and one added after: aggregate tokens/s
     against one replica, affinity against round-robin prefix hit rate,
     p99 TTFT before and after the kill, migrated and lost requests.
-    Every pass runs on engines warmed by one untimed run of the whole
+    Every pass runs on engines warmed by one untimed replay of the whole
     workload each (three labels, so the post-kill spawn is warm too)."""
-    from ..inference.v2 import FastGenScheduler
-    prompts, params = _pool_workload(limit, device)
+    from .replay_trace import replay
+    meta, requests, prompts, params = _pool_workload(limit)
     engines: Dict[str, Any] = {}
-    factory = _pool_factory(engines, device)
+    factory = _pool_factory(meta, requests, engines, device,
+                            model_size=model_size, layers=layers)
     for label in ("r0", "r1", "r2"):
         factory(label)
-        sched = FastGenScheduler(engines[label])
-        for i, (p, sp) in enumerate(zip(prompts, params)):
-            sched.submit(i, p, sp)
-        sched.run_to_completion()
+        replay(engines[label], requests, prompts)
     _reset_engines(engines)
     passes = {}
     for name, n, policy, kill in (("single", 1, "affinity", False),
                                   ("rr", 2, "round_robin", False),
                                   ("aff", 2, "affinity", False),
                                   ("kill", 2, "affinity", True)):
-        passes[name] = _pool_run_pass(prompts, params, engines, device, n,
-                                      policy, pace_s, wave, wave_gap_s,
-                                      kill_add=kill)
+        passes[name] = _pool_run_pass(meta, requests, prompts, params,
+                                      engines, device, n, policy, pace_s,
+                                      wave, wave_gap_s, kill_add=kill)
         _reset_engines(engines)
     single, rr, aff, kill = (passes[k] for k in ("single", "rr", "aff",
                                                  "kill"))
@@ -703,10 +719,16 @@ def main(argv=None) -> int:
     ap.add_argument("--pool-demo", action="store_true",
                     help="replica pool kill/add demo; print its keys")
     ap.add_argument("--limit", type=int, default=0,
-                    help="pool legs: serve only N requests (0 = the "
-                    "leg's default)")
+                    help="pool legs: replay only the first N trace "
+                    "requests (0 = the leg's default)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the replica and pool legs serve")
+    ap.add_argument("--model-size", default="debug",
+                    help="pool legs: the replicas' Llama preset (on the "
+                    "card one whose head dim the kernels take, e.g. 7b)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="pool legs: cut the preset to N layers (0 = its "
+                    "depth)")
     args = ap.parse_args(argv)
 
     if args.smoke:
@@ -717,8 +739,10 @@ def main(argv=None) -> int:
             return 1
     if args.pool_smoke:
         try:
-            return run_pool_smoke(device=args.device, **(
-                {"limit": args.limit} if args.limit else {}))
+            return run_pool_smoke(
+                device=args.device, model_size=args.model_size,
+                layers=args.layers,
+                **({"limit": args.limit} if args.limit else {}))
         except RuntimeError as e:
             print(f"fleetctl pool smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -726,8 +750,10 @@ def main(argv=None) -> int:
         print(json.dumps(run_kill_demo(device=args.device), indent=1))
         return 0
     if args.pool_demo:
-        print(json.dumps(run_pool_demo(device=args.device, **(
-            {"limit": args.limit} if args.limit else {})), indent=1))
+        print(json.dumps(run_pool_demo(
+            device=args.device, model_size=args.model_size,
+            layers=args.layers,
+            **({"limit": args.limit} if args.limit else {})), indent=1))
         return 0
 
     targets = args.targets or os.environ.get("DS_FLEET_TARGETS", "")

@@ -114,3 +114,33 @@ def test_two_replica_processes_federate_route_and_die():
         for r in reps:
             r.terminate()
     assert time.monotonic() - t0 < LIMIT_S
+
+
+def test_a_replica_process_replays_the_recorded_trace():
+    """``fleet_replica --trace --trace-limit 4 --device cpu``: two rounds of
+    the trace's first 4 ok requests, each round its recorded generated
+    lengths (tokens counted by the child's own metrics) and the recorded
+    prefix pages in its cache (one digest per distinct recorded page)."""
+    from deepspeed_tpu_torch.tools.replay_trace import (SAMPLE_TRACE,
+                                                        load_trace)
+    t0 = time.monotonic()
+    requests = [r for r in load_trace(SAMPLE_TRACE)["requests"]
+                if r.get("outcome") == "ok"][:4]
+    rep = fleetctl.ReplicaProc(
+        "t0", ["--trace", SAMPLE_TRACE, "--trace-limit", "4", "--device",
+               "cpu", "--rounds", "2", "--linger-s", "100"], ENV)
+    try:
+        port = rep.port(timeout=LIMIT_S)
+        assert rep.wait_line("FLEET_REPLICA done",
+                             LIMIT_S - (time.monotonic() - t0))
+        stats = rep.report("stats")
+        assert stats["device"] == "cpu" and stats["path_captures"] > 0
+        raw = fleetctl.fetch_raw(port)
+        assert raw["counters"]["ds_fastgen_tokens_total"] == 2 * sum(
+            max(1, int(r["gen_len"])) for r in requests)
+        assert raw["hists"]["ds_fastgen_ttft_ms"]["count"] == 2 * 4
+        recorded = {d for r in requests for d in r["digests"]}
+        assert len(rep.report("digests")) == len(recorded)
+    finally:
+        rep.terminate()
+    assert time.monotonic() - t0 < LIMIT_S

@@ -2,7 +2,9 @@
 
 ``deepspeed_tpu_torch`` and ``chip_smoke.py`` must run on a GPU machine
 that has no JAX, so neither may import ``jax``, ``flax`` or any module
-of the JAX package (not even its plain-Python ones).  Entry points run
+of the JAX package (not even its plain-Python ones), nor the repository
+root's ``tools`` package (the JAX package's command-line tools; the
+port's own are ``deepspeed_tpu_torch.tools``).  Entry points run
 on CUDA unless ``device="cpu"`` is asked for, and raise without a GPU.
 """
 
@@ -18,7 +20,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deepspeed_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-             "deepspeed_tpu")
+             "deepspeed_tpu", "tools")
 
 
 def _port_files():
@@ -45,8 +47,8 @@ def test_the_scan_covers_every_module_of_the_port():
     day it lands; these are the ones added with the LayerNorm families,
     int8 pages, Lion, LAMB, the blockwise quantisation, the rest of
     telemetry, the fleet's subprocess tools, the checkpoints, the timers,
-    the monitor, the data pipeline, the 1-bit optimizers, Random-LTD and
-    the flops profiler."""
+    the monitor, the data pipeline, the 1-bit optimizers, Random-LTD, the
+    flops profiler and the trace tools."""
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"chip_smoke.py",
             "deepspeed_tpu_torch/models/gpt.py",
@@ -83,8 +85,12 @@ def test_the_scan_covers_every_module_of_the_port():
             "deepspeed_tpu_torch/utils/memory.py",
             "deepspeed_tpu_torch/runtime/comm/compressed.py",
             "deepspeed_tpu_torch/runtime/data_pipeline/data_routing.py",
-            "deepspeed_tpu_torch/profiling/flops_profiler.py"} <= names
-    assert len(names) >= 74
+            "deepspeed_tpu_torch/profiling/flops_profiler.py",
+            "deepspeed_tpu_torch/tools/replay_trace.py",
+            "deepspeed_tpu_torch/tools/analyze_trace.py",
+            "deepspeed_tpu_torch/tools/plan_capacity.py",
+            "deepspeed_tpu_torch/tools/gen_sample_trace.py"} <= names
+    assert len(names) >= 78
 
 
 def test_the_host_op_builder_reads_only_the_ports_sources():

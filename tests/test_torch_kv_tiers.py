@@ -91,7 +91,11 @@ SEQUENCES = {
 
 
 def _state(st):
-    return (st.stats(), {i: st.contains(_d(i)) for i in range(8)},
+    """The store's state in JAX's terms: its ``stats()`` keys (the port's
+    ``plain_io`` count is its own), residency, indexed pages."""
+    stats = st.stats()
+    stats.pop("plain_io", None)
+    return (stats, {i: st.contains(_d(i)) for i in range(8)},
             st.indexed_pages)
 
 
@@ -99,6 +103,65 @@ def _state(st):
 @pytest.mark.parametrize("name", sorted(SEQUENCES))
 def test_store_runs_the_jax_sequences_to_the_same_state(name, quant,
                                                         tmp_path):
+    """Both stores over their async I/O handles (the extension builds
+    with g++ here): the port's disk files never take the plain path."""
+    ts = _run_sequence(name, quant, tmp_path)
+    assert ts.plain_io == 0
+    assert not ts._aio_failed
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("name", sorted(n for n in SEQUENCES
+                                        if SEQUENCES[n]["disk"]))
+def test_without_the_extension_the_plain_path_keeps_the_jax_state(
+        name, quant, tmp_path, monkeypatch, caplog):
+    """The async I/O extension made unavailable: the port's store falls
+    back to plain files, logs it once, reaches JAX's state at every op and
+    counts each plain file operation in ``stats()``."""
+    from deepspeed_tpu_torch.ops import aio
+
+    def unbuildable(*a, **k):
+        raise OSError("extension unavailable")
+    monkeypatch.setattr(aio.AsyncIOHandle, "__init__", unbuildable)
+    ts = _run_sequence(name, quant, tmp_path)
+    assert ts._aio is None and ts._aio_failed
+    assert ts.plain_io == ts.stats()["plain_io"] > 0
+    assert ts.stats()["plain_io"] >= ts.spilled_pages
+
+
+def test_a_chains_disk_reads_are_submitted_before_the_first_wait(tmp_path):
+    """A promotion of three disk pages of int8 blobs (payload and scales:
+    six reads) submits every read to the handle before it waits on one,
+    as JAX ``take_many`` does."""
+    st = ttiers.TieredPageStore(1, disk_pages=8, disk_dir=str(tmp_path))
+    blobs = {i: _blob(i, True)[1] for i in range(4)}
+    for i in range(4):
+        st.put(_d(i), blobs[i])
+    assert [st.contains(_d(i)) for i in range(4)] == ["disk"] * 3 + ["host"]
+    calls = []
+    aio = st._get_aio()
+    for name in ("pread", "wait"):
+        orig = getattr(aio, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            calls.append(_name)
+            return _orig(*a, **k)
+        setattr(aio, name, spy)
+    got, tiers = st.take_many([_d(i) for i in range(4)])
+    assert tiers == ["disk", "disk", "disk", "host"]
+    assert calls == ["pread"] * 6 + ["wait"] * 6
+    for i, blob in enumerate(got):
+        for g, w in zip(_arrays(blob), _arrays(blobs[i])):
+            np.testing.assert_array_equal(g, w)
+    st.landed(4)
+    st.check_invariants()
+    assert st.stats()["plain_io"] == 0
+    st.close()
+
+
+def _run_sequence(name, quant, tmp_path):
+    """One op sequence through a JAX and a port store, the states held
+    equal after every op.  Returns the port's store (closed)."""
     spec = SEQUENCES[name]
     stores = []
     for pkg, mod in (("jax", jtiers), ("port", ttiers)):
@@ -137,6 +200,7 @@ def test_store_runs_the_jax_sequences_to_the_same_state(name, quant,
     for st in stores:
         st.close()
     assert not list((tmp_path / "port").glob("*.kvp"))
+    return ts
 
 
 def test_a_bf16_page_round_trips_through_the_disk_bit_for_bit(tmp_path):
@@ -284,13 +348,13 @@ def test_an_io_error_is_a_clean_miss_in_both(weights, where, tmp_path,
         monkeypatch.setattr(jtiers.TieredPageStore, "_write_file", fail)
         monkeypatch.setattr(ttiers.TieredPageStore, "_write_file", fail)
     else:
-        # the JAX store reads through its AIO handle when that is built:
-        # take the plain path there, which is the one the port has
-        monkeypatch.setattr(jtiers.TieredPageStore, "_get_aio",
-                            lambda self: None)
-        monkeypatch.setattr(jtiers.TieredPageStore, "_read_file_plain",
-                            fail)
-        monkeypatch.setattr(ttiers.TieredPageStore, "_read_file", fail)
+        # both stores read through their async I/O handles when those
+        # are built: take the plain path in both, and fail its reads
+        for mod in (jtiers, ttiers):
+            monkeypatch.setattr(mod.TieredPageStore, "_get_aio",
+                                lambda self: None)
+            monkeypatch.setattr(mod.TieredPageStore, "_read_file_plain",
+                                fail)
     jeng, teng = _engines(weights, "none", 1, 64, tmp_path)
     with pytest.warns(UserWarning, match="kv tier"):
         tokens, hits = _two_waves(jeng, teng, _distinct_prompts())

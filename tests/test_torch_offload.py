@@ -312,6 +312,29 @@ def test_offload_engine_matches_the_jax_engine(tmp_path, case):
         np.testing.assert_allclose(a, b, rtol=0, atol=PARAM_ATOL)
 
 
+def test_bf16_accumulators_under_offload_match_the_jax_engine():
+    """``accumulate_grads_in_fp32: false`` with half the leaves offloaded:
+    every leaf sums its micro-batch gradients in bf16, the offloaded ones
+    too, and is cast to fp32 only on its way to the host (JAX
+    ``engine.py:458,632``), over 2 steps of 2 micro-batches.  At lr 0.1
+    an fp32 sum of the offloaded leaves' gradients puts their masters
+    2.7e-4 from JAX's; the bf16 sum 1.4e-6."""
+    cfg = _config("cpu", ratio=0.5, train_micro_batch_size_per_gpu=2,
+                  gradient_accumulation_steps=2,
+                  bf16={"enabled": True, "accumulate_grads_in_fp32": False})
+    cfg["optimizer"]["params"]["lr"] = 0.1
+    je = _jax_engine(JSimple(32), cfg)
+    te = _bridged_engine(je, SimpleModel(32), cfg)
+    assert 0 < len(te.offload.offload_idx) < len(te.masters)
+    assert all(g.dtype == torch.bfloat16 for g in te._grads)
+    for seed in range(2):
+        batch = _data(d=32, seed=seed)
+        np.testing.assert_allclose(te.train_batch(batch),
+                                   je.train_batch(batch), rtol=LOSS_RTOL)
+    for a, b in zip(_fp32(te), _jax_masters(je)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=PARAM_ATOL)
+
+
 def test_offload_npz_crosses_between_the_packages(tmp_path):
     """A JAX ``offload_rank0.npz`` loads into the port's host optimizer
     and the port's npz into JAX's, bit for bit."""
