@@ -415,7 +415,39 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     readable, the residual within 10% of the card's measured bytes, the
     injected OOM's forensics); (e) ``fleetctl.run_pool_smoke`` with two replicas
     of 2 layers: every generated length exact, none lost;
-23. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+23. the one-card public API: (a) ``initialize`` with
+    ``hybrid_engine.enabled`` on GPT-1.3B at full width and depth (bf16,
+    AdamW, micro-batch 4 x 512): greedy rollouts of 8 prompts of 64-256
+    tokens, 32 new tokens each, then 3 ``train_batch`` steps, the
+    rollouts again, one more step and one more rollout; after each
+    refresh the rollouts equal a separately built ``init_inference``
+    engine's over the same bf16 weights (a row that parts must part at a
+    near-tie of that engine's top-two logits), the rollout weights are
+    the masters' bf16 cast in the rollout model's own tensors (data
+    pointers kept), no rollout after the first captures a graph; refresh
+    s, rollout tokens/s, step ms, peak memory, the step's transient
+    bytes that the first rollout measures (one forward and backward at 4
+    x 2048 tokens) and holds back while it sizes the KV pool, launch
+    counts (the serving kernels in the rollouts, that probe's flash
+    backward in the first, the flash pair and AdamW in the steps); (b)
+    ``init_inference`` on GPT-1.3B: ``forward``'s logits within
+    LOGIT_REL_TOL of the einsum attention path, ``generate``'s first
+    greedy token against ``forward``'s argmax but at near-ties, the
+    ``max_out_tokens`` guard, fp16 served as bf16, and the serving
+    forward on those weights, kernel path against plain path as phase 7
+    (the paged kernel at H = K = 16, LayerNorm at E = 2048; phase 3
+    checks LayerNorm at E = 2048 at the rollouts' row counts); (c)
+    ``OptimizedLinear`` at Llama-2-7B's MLP shape (4096 -> 11008, int8
+    base, LoRA rank 16):
+    the quantise and dequantise kernels against their plain versions
+    (codes and scales bit-equal, the forward within the kernel rows'
+    tolerances), no gradient on the base, the merged weight; (d)
+    ``sparse_gradients`` on GPT-1.3B at 4 layers against the dense
+    embedding backward: the embedding gradient (``index_add_``'s atomics
+    against the dense scatter), then 2 steps' losses and the embedding's
+    update; (e) ``comm`` at one rank with the comms logger on and the CUDA
+    accelerator's name and memory;
+24. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
     80 and 96 and the optimizers' bf16 instances in rows of their own),
     the card line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -854,14 +886,20 @@ def _norm_inputs(dev, g, n, e=4096):
     return x, w, b
 
 
-# the hidden widths of phases 9b-9d's norms and the row counts their
-# steps give them: decode steps of 10 (9b, 9c) and 12 (9d) rows, 16 rows,
-# prefill steps of up to 2048 rows, and a full 4096-row budget (checked
-# and timed by CUDA events; the host/device split stays at E = 4096,
-# which keeps the smoke inside its time)
-LAYERNORM_WIDTHS = {4544: "Falcon-7B", 2560: "Phi-2"}
-RMSNORM_WIDTHS = {3072: "Phi-3-mini-4k"}
+# the hidden widths of the serving phases' norms and the row counts their
+# steps give them (checked and timed by CUDA events; the host/device split
+# stays at E = 4096, which keeps the smoke inside its time).  Phases
+# 9b-9d: decode steps of 10 (9b, 9c) and 12 (9d) rows, 16 rows, prefill
+# steps of up to 2048 rows, and a full 4096-row budget.  Phase 23's
+# GPT-1.3B: the rollouts' decode step of 8 rows, one prompt of 64 or 256
+# rows, (b)'s two 256-token prompts, and a full step of the rollout
+# engine's 768-token budget
 FAMILY_NORM_ROWS = (10, 12, 16, 2048, 4096)
+GPT_NORM_ROWS = (8, 64, 256, 512, 768)
+LAYERNORM_WIDTHS = {4544: ("Falcon-7B", FAMILY_NORM_ROWS),
+                    2560: ("Phi-2", FAMILY_NORM_ROWS),
+                    2048: ("GPT-1.3B", GPT_NORM_ROWS)}
+RMSNORM_WIDTHS = {3072: "Phi-3-mini-4k"}
 
 
 def check_layernorm(dev, mined_q=()):
@@ -869,7 +907,8 @@ def check_layernorm(dev, mined_q=()):
     budget.  The third case's rows have a mean (1000) far above their
     spread, where a one-pass variance would cancel.  Then N = 2 * Q for
     each mined Q top (two prompts' rows at a mined bucket), and the
-    widths of phases 9b-9d (E=4544 is no multiple of 128) at their rows."""
+    widths of phases 9b-9d (E=4544 is no multiple of 128) and of phase
+    23 (E=2048) at their rows."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import normalization as N
@@ -878,8 +917,8 @@ def check_layernorm(dev, mined_q=()):
     cases = ((16, 0.0, 4096, ""), (4096, 0.0, 4096, ""),
              (4096, 1000.0, 4096, "")) + tuple(
         (2 * q, 0.0, 4096, " (mined Q)") for q in mined_q) + tuple(
-        (n, 0.0, e, f" ({model})") for e, model in LAYERNORM_WIDTHS.items()
-        for n in FAMILY_NORM_ROWS)
+        (n, 0.0, e, f" ({model})")
+        for e, (model, ns) in LAYERNORM_WIDTHS.items() for n in ns)
     for n, mean, e, tag in cases:
         x, w, b = _norm_inputs(dev, g, n, e)
         if mean:
@@ -8673,6 +8712,430 @@ def trace_phase(counters, card, cache_dir):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the one-card public API (the RLHF hybrid engine, init_inference,
+# OptimizedLinear, sparse gradients, comm and the accelerator)
+# ---------------------------------------------------------------------------
+
+HYBRID_MICRO = 4
+HYBRID_SEQ = 512
+HYBRID_PROMPTS = 8
+HYBRID_PROMPT_LENS = (64, 256)
+HYBRID_NEW = 32
+HYBRID_STEPS = (3, 1)            # train_batch calls between the rollouts
+HYBRID_CONFIG = {
+    "train_micro_batch_size_per_gpu": HYBRID_MICRO,
+    "gradient_accumulation_steps": 1,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "adamw",
+                  "params": {"lr": 1e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "hybrid_engine": {"enabled": True},
+}
+# a rollout row that parts from the fresh engine's must part at a near-tie:
+# the fresh engine's top-two logits at the parting position within this
+# share of the largest (a stale weight or KV page parts rows by whole
+# logits; the two engines' pools differ in size, so the paged kernel's
+# split count, and with it its rounding, may differ)
+NEAR_TIE_REL = 1e-2
+# the fresh engine's pool: the prompts' pages and their new tokens
+FRESH_PAGES = 64
+LORA_SHAPE = (4096, 11008)       # Llama-2-7B's MLP up-projection
+LORA_R = 16
+LORA_ROWS = 512
+# (d): sparse against dense embedding gradients, GPT-1.3B at 4 layers
+SPARSE_LAYERS = 4
+SPARSE_STEPS = 2
+
+
+def _p23_gpt(**over):
+    from deepspeed_tpu_torch.models.gpt import GPTForCausalLM
+    return GPTForCausalLM("1.3b", **over)
+
+
+def _rollout_witness(fresh, prompt, ours, theirs) -> dict:
+    """Where a hybrid rollout row parts from the fresh engine's: the
+    position and the fresh engine's top-two logits there (its dense
+    forward over the prompt and the tokens the two rows share)."""
+    import torch
+    j = next(i for i, (a, b) in enumerate(zip(ours, theirs)) if a != b)
+    logits = fresh.forward([list(prompt) + list(theirs[:j])])[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    gap = float(top[0] - top[1]) / float(logits.float().abs().max())
+    return dict(at=j, gap_rel=gap, near_tie=gap <= NEAR_TIE_REL)
+
+
+def _p23_hybrid(counters, card):
+    """(a): the hybrid engine on GPT-1.3B at full width and depth."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.tree import tree_leaves
+    rng = np.random.default_rng(SEED + 91)
+    model = _p23_gpt()
+    cfg = model.cfg
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in
+               rng.integers(HYBRID_PROMPT_LENS[0], HYBRID_PROMPT_LENS[1] + 1,
+                            HYBRID_PROMPTS)]
+    ids = rng.integers(0, cfg.vocab_size, (HYBRID_MICRO, HYBRID_SEQ + 1))
+    batch = {"input_ids": ids[:, :-1].astype(np.int32),
+             "labels": ids[:, 1:].astype(np.int32)}
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = dtt.initialize(model=model, config=HYBRID_CONFIG,
+                                device="cuda")
+    peak = [0]
+
+    def mark():
+        torch.cuda.synchronize()
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+
+    rollouts, steps, train_launches, roll_launches = [], [], [], []
+    ptrs = None
+    for k in range(len(HYBRID_STEPS) + 1):
+        inflight = engine._inflight_engine
+        captures0 = (inflight.model.path_captures
+                     + inflight.model.precompile_captures
+                     if inflight is not None else 0)
+        reset_launches(counters)
+        t = time.perf_counter()
+        outs = engine.generate(prompts, max_new_tokens=HYBRID_NEW,
+                               do_sample=False)
+        mark()
+        roll_s = time.perf_counter() - t
+        roll_launches.append(read_launches(counters))
+        m = engine._inflight_engine.model
+        leaves = tree_leaves(m.params)
+        now = [t.data_ptr() for t in leaves]
+        ptrs = ptrs or now
+        # a separately built engine over the same bf16 weights
+        weights = engine._cast_masters()
+        fresh = dtt.init_inference(
+            model=(engine.module.cfg, weights), device="cuda", config={
+                "dtype": "bf16", "max_out_tokens": HYBRID_NEW,
+                "kv_cache_pages": FRESH_PAGES})
+        ref = fresh.generate(prompts, max_new_tokens=HYBRID_NEW)
+        partings = [_rollout_witness(fresh, p, a, b)
+                    for p, a, b in zip(prompts, outs, ref) if a != b]
+        rollouts.append(dict(
+            refresh_s=engine.refresh_seconds, rollout_s=roll_s,
+            tokens=sum(map(len, outs)),
+            tokens_per_s=sum(map(len, outs)) / roll_s,
+            rows_equal=sum(a == b for a, b in zip(outs, ref)),
+            partings=partings,
+            captures=m.path_captures + m.precompile_captures - captures0,
+            pointers_kept=now == ptrs,
+            weights_equal=all(torch.equal(a, b) for a, b in zip(
+                leaves, tree_leaves(weights)))))
+        del fresh, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        if k == len(HYBRID_STEPS):
+            break
+        reset_launches(counters)
+        for _ in range(HYBRID_STEPS[k]):
+            retries = torch.cuda.memory_stats()["num_alloc_retries"]
+            t = time.perf_counter()
+            loss = engine.train_batch(batch)
+            mark()
+            steps.append(dict(
+                ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                # the caching allocator freed its cache and retried
+                alloc_retries=torch.cuda.memory_stats()["num_alloc_retries"]
+                - retries))
+        train_launches.append(read_launches(counters))
+    L, leaves = cfg.num_layers, len(tree_leaves(engine.params))
+    train = {k: sum(la[k] for la in train_launches) for k in counters}
+    roll = {k: sum(la[k] for la in roll_launches) for k in counters}
+    n_steps = sum(HYBRID_STEPS)
+    losses = [s["loss"] for s in steps]
+    checks = {
+        "rollouts equal the fresh engine's but at near-ties": all(
+            p["near_tie"] for r in rollouts for p in r["partings"]),
+        "the rollout weights are the masters' bf16 cast": all(
+            r["weights_equal"] for r in rollouts),
+        "no capture after the first rollout": all(
+            r["captures"] == 0 for r in rollouts[1:]),
+        "the rollout model's pointers kept": all(
+            r["pointers_kept"] for r in rollouts),
+        "refreshed at every step": engine._inference_params_step
+        == engine.global_steps == n_steps,
+        "every row generated": all(r["tokens"] == HYBRID_PROMPTS
+                                   * HYBRID_NEW for r in rollouts),
+        "finite losses": all(math.isfinite(x) for x in losses),
+        "rollouts ran the serving kernels": all(
+            roll[k] > 0 for k in ("paged_attention", "layernorm",
+                                  "flash_fwd")),
+        # the first rollout builds the pool after one probe forward and
+        # backward (``train_transient_bytes``); the others train nothing
+        "rollouts ran no training kernel but the first's probe": all(
+            la[k] == (L if (i, k) == (0, "flash_bwd_dkv") else 0)
+            for i, la in enumerate(roll_launches)
+            for k in ("fused_adamw", "flash_bwd_dkv", "rmsnorm",
+                      "paged_attention_int8")),
+        "fused_adamw once a leaf a step": train["fused_adamw"]
+        == leaves * n_steps,
+        "flash kernels every layer": train["flash_fwd"] >= 2 * L * n_steps
+        and train["flash_bwd_dkv"] == train["flash_bwd_dq"] == L * n_steps,
+    }
+    summary = dict(
+        card=card, model="GPT-1.3B", layers=L, params=sum(
+            p.numel() for p in tree_leaves(engine.params)),
+        rollouts=rollouts, steps=steps,
+        step_ms_median=float(np.median([s["ms"] for s in steps])),
+        train_transient_gb=(engine.train_transient_bytes or 0) / 1e9,
+        kv_pool_pages=engine._inflight_engine.model.kv_config.num_pages,
+        peak_gb=peak[0] / 1e9, checks=checks)
+    del engine
+    return summary, {"hybrid_rollout": roll, "hybrid_train": train}
+
+
+def _p23_init_inference(counters, card):
+    """(b): init_inference on GPT-1.3B: forward's logits against the
+    plain path (the einsum attention, every norm a torch op in both),
+    generate's first greedy token against forward's argmax, the
+    max_out_tokens guard; then the serving forward on the same weights,
+    kernel path against plain path as phase 7 (``plain_vs_kernel``): the
+    paged kernel at H = K = 16 and the LayerNorm kernel at E = 2048, the
+    rollouts' kernels, against their plain versions."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import transformer as T
+    cfg = _p23_gpt().cfg
+    params = randomize_norms_and_biases(T.init_params(
+        cfg, SEED + 92, "cuda", dtype=torch.bfloat16), SEED + 96)
+    eng = dtt.init_inference(model=(cfg, params), device="cuda",
+                             config={"dtype": "fp16", "max_out_tokens": 8,
+                                     "kv_cache_pages": FRESH_PAGES})
+    rng = np.random.default_rng(SEED + 93)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (256, 256)]
+    reset_launches(counters)
+    logits = eng.forward(np.asarray(prompts, np.int32))
+    first = eng.generate(prompts, max_new_tokens=1)
+    launches = read_launches(counters)
+    plain_cfg = dataclasses.replace(eng.module.cfg, attention_impl="einsum")
+    with torch.no_grad():
+        plain = T.forward(plain_cfg, eng.module.params,
+                          torch.as_tensor(prompts, device="cuda"))
+    err = parity(logits, plain)
+    partings = []
+    for i, p in enumerate(prompts):
+        row = logits[i, -1].float()
+        if first[i][0] != int(row.argmax()):
+            top = torch.topk(row, 2).values
+            partings.append(float(top[0] - top[1]) / float(row.abs().max()))
+    try:
+        eng.generate(prompts[:1], max_new_tokens=9)
+        guard = False
+    except ValueError:
+        guard = True
+    # the generic core, which init_inference and the rollouts build
+    serving = plain_vs_kernel(eng.module.cfg, eng.module.params,
+                              model_type="gpt")
+    checks = {"logits within LOGIT_REL_TOL of the plain path":
+              err["max_rel_err"] <= LOGIT_REL_TOL,
+              "serving kernel path within LOGIT_REL_TOL of the plain path":
+              serving["max_rel_logit_err"] <= LOGIT_REL_TOL,
+              "first token is forward's argmax but at near-ties": all(
+                  g <= NEAR_TIE_REL for g in partings),
+              "fp16 maps to bf16": eng.module_config.dtype == torch.bfloat16,
+              "max_out_tokens guard raises": guard,
+              "the flash forward ran": launches["flash_fwd"] >= cfg.num_layers,
+              "the serving kernels ran": launches["layernorm"] > 0}
+    summary = dict(card=card, shape=list(logits.shape), **err,
+                   tol=LOGIT_REL_TOL, first_token_partings=partings,
+                   plain="attention_impl einsum (torch attention)",
+                   kernel_vs_plain=serving, checks=checks)
+    del eng, params, logits, plain
+    return summary, {"init_inference": launches}
+
+
+def _p23_lora(counters, card):
+    """(c): OptimizedLinear at Llama-2-7B's MLP shape, int8 base, LoRA
+    rank 16, bf16: the kernel path against the plain versions of the
+    quantise and dequantise kernels on the card."""
+    import torch
+    from deepspeed_tpu_torch.linear import (LoRAConfig, OptimizedLinear,
+                                            QuantizationConfig)
+    from deepspeed_tpu_torch.ops import quantization as Q
+    dev = torch.device("cuda")
+    lin = OptimizedLinear(*LORA_SHAPE, lora_config=LoRAConfig(lora_r=LORA_R),
+                          quantization_config=QuantizationConfig(),
+                          dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(SEED + 94)
+    base = (torch.rand(LORA_SHAPE, generator=g, device=dev) - 0.5) / 32
+    reset_launches(counters)
+    params = lin.init(SEED + 94, base_weight=base, device=dev)
+    with torch.no_grad():
+        params["lora_b"].normal_(0, 0.02, generator=g)
+    x = torch.randn(LORA_ROWS, LORA_SHAPE[0], generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    y = lin.apply(params, x)
+    y.float().square().mean().backward()
+    launches = read_launches(counters)
+    # the plain versions of both kernels, on the card
+    rq, rs, pad = Q.quantize_blockwise_reference(base)
+    w = Q.dequantize_blockwise_reference(rq, rs, pad, LORA_SHAPE,
+                                         torch.bfloat16)
+    scaling = lin.lora.lora_alpha / lin.lora.lora_r
+    with torch.no_grad():
+        ref = x @ w + (x @ params["lora_a"]) @ params["lora_b"] * scaling
+        merged = lin.merge(params)
+        want = w.float() + params["lora_a"].float() \
+            @ params["lora_b"].float() * scaling
+    err = parity(y.detach(), ref)
+    merge_err = float((merged - want).abs().max())
+    with torch.no_grad():
+        ms = cuda_ms(lambda: lin.apply(params, x), 20)
+        plain_ms = cuda_ms(lambda: x @ Q.dequantize_blockwise_reference(
+            rq, rs, pad, LORA_SHAPE, torch.bfloat16)
+            + (x @ params["lora_a"]) @ params["lora_b"] * scaling, 20)
+    checks = {
+        "codes and scales bit-equal": torch.equal(params["base_q"], rq)
+        and torch.equal(params["base_scale"], rs),
+        "forward within the kernel rows' tolerances":
+            err["rms_rel_err"] <= RMS_REL_TOL
+            and err["max_rel_err"] <= MAX_REL_TOL,
+        "the base gets no gradient": params["base_q"].grad is None
+        and params["base_scale"].grad is None,
+        "the adapters do": params["lora_a"].grad is not None
+        and params["lora_b"].grad is not None,
+        "merged is base + scaled B·A": merge_err <= 1e-6,
+        "quantised once, dequantised at the forward":
+            launches["quantize"] == 1 and launches["dequantize"] == 1,
+    }
+    summary = dict(card=card, shape=list(LORA_SHAPE), lora_r=LORA_R,
+                   rows=LORA_ROWS, **err, merge_max_abs_err=merge_err,
+                   forward_ms=ms, plain_forward_ms=plain_ms, checks=checks)
+    return summary, {"optimized_linear": launches}
+
+
+def _p23_sparse(counters, card):
+    """(d): GPT-1.3B at SPARSE_LAYERS layers, ``sparse_gradients`` against
+    the dense embedding backward from the same masters on the same batch:
+    the first micro-batch's embedding gradient, then SPARSE_STEPS steps'
+    losses and the embedding's update."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dtt
+    rng = np.random.default_rng(SEED + 95)
+    vocab = _p23_gpt().cfg.vocab_size
+    ids = rng.integers(0, vocab, (HYBRID_MICRO, HYBRID_SEQ + 1))
+    ids[:, ::16] = 11                      # ids that repeat in the batch
+    batch = {"input_ids": ids[:, :-1].astype(np.int32),
+             "labels": ids[:, 1:].astype(np.int32)}
+    runs = {}
+    for sparse in (True, False):
+        config = dict(HYBRID_CONFIG, sparse_gradients=sparse,
+                      hybrid_engine={"enabled": False})
+        engine, *_ = dtt.initialize(
+            model=_p23_gpt(num_layers=SPARSE_LAYERS), config=config,
+            device="cuda")
+        emb = engine.param_paths.index("embed/tokens")
+        init = engine.masters[emb].detach().clone()
+        reset_launches(counters)
+        engine.backward(engine.forward({k: v[:HYBRID_MICRO]
+                                        for k, v in batch.items()}))
+        grad = engine._grads[emb].detach().clone()
+        for g in engine._grads:
+            g.zero_()
+        engine._pending = 0
+        engine._params_c = None
+        losses = [engine.train_batch(batch) for _ in range(SPARSE_STEPS)]
+        runs[sparse] = dict(grad=grad, losses=losses,
+                            update=engine.masters[emb].detach() - init,
+                            launches=read_launches(counters),
+                            sparse=engine.module.cfg.sparse_gradients)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    s, d = runs[True], runs[False]
+    grad_err = parity(s["grad"], d["grad"])
+    upd_err = parity(s["update"], d["update"])
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(s["losses"],
+                                                         d["losses"]))
+    checks = {
+        "the sparse backward ran": s["sparse"] and not d["sparse"],
+        "embedding gradient within GRAD_RMS_REL_TOL":
+            grad_err["rms_rel_err"] <= GRAD_RMS_REL_TOL,
+        "losses within LOSS_REL_TOL": loss_gap <= LOSS_REL_TOL,
+        "embedding update within GRAD_RMS_REL_TOL":
+            upd_err["rms_rel_err"] <= GRAD_RMS_REL_TOL,
+        "flash kernels on both": all(
+            r["launches"]["flash_bwd_dkv"] > 0 for r in runs.values()),
+    }
+    summary = dict(card=card, layers=SPARSE_LAYERS,
+                   grad_err=grad_err, update_err=upd_err,
+                   loss_rel_gap=loss_gap, losses_sparse=s["losses"],
+                   losses_dense=d["losses"], checks=checks)
+    return summary, {"training_sparse_gradients": s["launches"]}
+
+
+def _p23_comm(card):
+    """(e): ``comm`` at one rank with the comms logger on, and the CUDA
+    accelerator."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch import comm
+    dtt.init_distributed()
+    comm.configure_comms_logger()
+    x = torch.randn(1024, 1024, device="cuda")
+    outs = [comm.all_reduce(x), comm.all_gather(x), comm.reduce_scatter(x),
+            comm.broadcast(x), comm.all_to_all_single(x)]
+    text = comm.log_summary()
+    comm.comm._comms_logger = None
+    acc = dtt.get_accelerator()
+    stats = acc.memory_stats()
+    checks = {
+        "identity over one rank": all(o is x for o in outs),
+        "summary lists every op": all(
+            op in text for op in ("all_reduce", "all_gather",
+                                  "reduce_scatter", "broadcast",
+                                  "all_to_all")),
+        "rank 0 of 1": (comm.get_rank(), comm.get_world_size()) == (0, 1),
+        "the CUDA accelerator": acc.device_name() == "cuda"
+        and acc.communication_backend_name() == "nccl",
+        "its memory": stats["bytes_limit"] > 0
+        and stats["bytes_in_use"] == torch.cuda.memory_allocated(),
+    }
+    return dict(card=card, device=torch.cuda.get_device_name(0),
+                accelerator=acc.device_name(0),
+                total_memory_gb=acc.total_memory() / 1e9,
+                available_memory_gb=acc.available_memory() / 1e9,
+                summary_rows=len(text.splitlines()), checks=checks)
+
+
+def public_api_phase(counters, card):
+    """Phase 23 (module docstring): parts (a)-(e), each a JSON line with
+    its checks and seconds.  Returns {path: launches}."""
+    import torch
+    paths = {}
+    t0 = time.perf_counter()
+
+    def done(part, summary):
+        summary["seconds"] = time.perf_counter() - t
+        log(f"phase 23 ({part}): {json.dumps(summary, default=str)}")
+        if not all(summary["checks"].values()):
+            raise RuntimeError(f"phase 23 ({part}) checks: "
+                               f"{summary['checks']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for part, fn in (("a", _p23_hybrid), ("b", _p23_init_inference),
+                     ("c", _p23_lora), ("d", _p23_sparse)):
+        t = time.perf_counter()
+        summary, launches = fn(counters, card)
+        paths.update(launches)
+        done(part, summary)
+    t = time.perf_counter()
+    done("e", _p23_comm(card))
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9056,7 +9519,12 @@ def main() -> int:
     launches_by_path.update(trace_phase(counters, card, cache_dir))
 
     clock("phase 22")
-    # phase 23
+    # phase 23: the one-card public API (the hybrid engine, init_inference,
+    # OptimizedLinear, sparse gradients, comm and the accelerator)
+    launches_by_path.update(public_api_phase(counters, card))
+
+    clock("phase 23")
+    # the kernels line
     line = {"kernels": []}
     for name, rows in checks.items():
         head = rows[0]       # the main path's shape (serving step: decode)

@@ -1,7 +1,9 @@
-"""Device resolution for the port's entry points.
+"""The accelerator interface and device resolution for the port's entry
+points.
 
-Counterpart of ``deepspeed_tpu/accelerator``: the JAX package picks a
-backend from the visible devices; here every entry point takes an
+Counterpart of ``deepspeed_tpu/accelerator``: ``get_accelerator()`` is
+the CUDA accelerator (``cuda_accelerator.py``; the CPU one only when
+asked for, ``real_accelerator.py``).  Every entry point also takes an
 explicit ``device``.  ``None`` means the GPU, and a missing GPU is an
 error — the port never falls back to the CPU on its own.  ``"cpu"`` is
 how the tests run the plain PyTorch versions of the kernels.
@@ -12,6 +14,9 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+
+from .abstract_accelerator import DeepSpeedAccelerator  # noqa: F401
+from .real_accelerator import get_accelerator, set_accelerator  # noqa: F401
 
 DeviceLike = Union[str, torch.device, None]
 

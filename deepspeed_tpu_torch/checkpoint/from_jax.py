@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..accelerator import DeviceLike, resolve_device
-from ..models.transformer import TransformerConfig
+from ..models.transformer import TransformerConfig, keeps_fp32
 from ..tree import tree_map
 
 
@@ -127,9 +127,8 @@ def _convert(tree, device, dtype, path=()):
                 for k, v in tree.items()}
     # norm scales and biases stay fp32 (the JAX norms compute in fp32);
     # matrices and embeddings take ``dtype`` when one is given
-    small = (any("norm" in p for p in path) or path[-1].startswith("b")
-             or path[-1] == "lm_head_bias")
-    return _to_tensor(tree, device, torch.float32 if small else dtype)
+    return _to_tensor(tree, device,
+                      torch.float32 if keeps_fp32(path) else dtype)
 
 
 def from_jax(tree: Dict[str, Any], cfg: TransformerConfig,

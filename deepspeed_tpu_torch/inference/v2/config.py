@@ -207,6 +207,18 @@ class RaggedInferenceEngineConfig:
         default_factory=TelemetryConfig)
     fault_injection: FaultInjectionConfig = dataclasses.field(
         default_factory=FaultInjectionConfig)
+    #: the tensor-parallel degree (``tensor_parallel.tp_size``); only 1
+    #: is served (ROADMAP Queue 1 item 13)
+    tp_size: int = 1
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.tp_size != 1:
+            raise NotImplementedError(
+                "tensor_parallel.tp_size other than 1 is not ported yet "
+                "(ROADMAP Queue 1 item 13)")
 
     @classmethod
     def from_dict(cls, d: dict) -> "RaggedInferenceEngineConfig":
@@ -240,8 +252,6 @@ class RaggedInferenceEngineConfig:
                 if hasattr(target, k):
                     setattr(target, k, v)
         cfg.serving.validate()
-        if d.get("tensor_parallel", {}).get("tp_size", 1) != 1:
-            raise NotImplementedError(
-                "tensor_parallel.tp_size other than 1 is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
+        cfg.tp_size = int(d.get("tensor_parallel", {}).get("tp_size", 1))
+        cfg.validate()
         return cfg

@@ -107,6 +107,9 @@ class TransformerConfig:
     # that needs bf16 at a head_dim of the flash backward's, 64, 80, 96 or
     # 128, else it raises) | flash (force) | einsum (dense path)
     attention_impl: str = "auto"
+    # training only: the embedding's backward sums the [B*S, E] output
+    # cotangent per id into the table gradient (runtime/sparse_tensor.py)
+    sparse_gradients: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -209,6 +212,34 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     if cfg.embed_layernorm:
         params["embed"]["norm"] = norm((e,))
     return params
+
+
+def keeps_fp32(path) -> bool:
+    """Whether the leaf at ``path`` (its keys) stays fp32 in a tree of
+    compute-dtype weights: norm scales and biases (the norm kernels take
+    fp32 vectors; the JAX norms compute in fp32) and every bias."""
+    last = str(path[-1])
+    return (any("norm" in str(p) for p in path) or last.startswith("b")
+            or last == "lm_head_bias")
+
+
+def cast_params(params, dtype: torch.dtype, device: DeviceLike = None,
+                copy: bool = False, path=()):
+    """A serving tree of ``params``: every floating leaf on ``device`` in
+    ``dtype`` but those :func:`keeps_fp32` names, which are fp32 (a new
+    tensor wherever the device or dtype changes, or always with
+    ``copy``)."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype, device, copy, path + (k,))
+                for k, v in params.items()}
+    t = params.detach()
+    if device is not None:
+        t = t.to(device)
+    if t.is_floating_point():
+        dtype = torch.float32 if keeps_fp32(path) else dtype
+    else:
+        dtype = t.dtype
+    return t.to(dtype, copy=copy)
 
 
 def layer_params(cfg: TransformerConfig, params, i: int):
@@ -629,7 +660,11 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
             positions = torch.arange(s, device=dev).expand(b, s)
     positions = positions.long()
     table = params["embed"]["tokens"].to(cfg.dtype)
-    x = table[input_ids.long()]
+    if cfg.sparse_gradients:
+        from ..runtime.sparse_tensor import embedding_lookup
+        x = embedding_lookup(table, input_ids)
+    else:
+        x = table[input_ids.long()]
     if cfg.pos_emb == "learned":
         x = x + params["embed"]["positions"].to(cfg.dtype)[positions]
     if cfg.embed_layernorm:           # BLOOM word_embeddings_layernorm

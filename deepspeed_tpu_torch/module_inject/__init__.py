@@ -1,2 +1,4 @@
-"""Per-architecture injection policies (counterpart of
-``deepspeed_tpu/module_inject``): the dispatch table only."""
+"""Per-architecture injection policies and AutoTP (counterpart of
+``deepspeed_tpu/module_inject``)."""
+
+from .auto_tp import AutoTP, classify  # noqa: F401

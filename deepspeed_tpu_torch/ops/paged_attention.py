@@ -185,7 +185,11 @@ def paged_attention(q: torch.Tensor, kv_layer: KVLayer,
     k = pages[..., 0, :, :].reshape(S, C, K, D)
     v = pages[..., 1, :, :].reshape(S, C, K, D)
     qg = q.reshape(S, Q, K, G, D)
-    scores = torch.einsum("sqkgd,sckd->skgqc", qg, k).float() * scale
+    # an fp32 model over a bf16 pool: the scores in the promoted dtype,
+    # P·V in the pool's, as JAX's dtype promotion gives them
+    dt = torch.promote_types(q.dtype, k.dtype)
+    scores = torch.einsum("sqkgd,sckd->skgqc", qg.to(dt), k.to(dt)
+                          ).float() * scale
     pos = token_positions(start_pos, Q)                     # [S, Q]
     ctx = torch.arange(C, device=q.device)
     if alibi_slopes is not None:
@@ -199,7 +203,7 @@ def paged_attention(q: torch.Tensor, kv_layer: KVLayer,
         mask &= ctx[None, None, :] > pos[:, :, None] - window
     scores = torch.where(mask[:, None, None, :, :], scores, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("skgqc,sckd->sqkgd", probs, v)
+    out = torch.einsum("skgqc,sckd->sqkgd", probs, v).to(dt)
     return out.reshape(S, Q, H, D)
 
 

@@ -15,6 +15,19 @@ quantised weights.  A key that switches on a feature outside the slice
 raises ``NotImplementedError`` naming its ROADMAP item; a key the port
 does not know raises too, so no setting is silently dropped.
 
+Every top-level field of the JAX ``DeepSpeedTPUConfig`` is read; only
+an ``_OUTSIDE_SLICE`` section that is switched on raises.
+``sparse_gradients`` gives the embedding the sparse backward
+(``runtime/sparse_tensor.py``); ``prescale_gradients``,
+``gradient_predivide_factor`` and ``communication_data_type`` are read
+by the engine's accessors only, and so are ``elasticity`` and
+``autotuning`` (the JAX launcher acts on them); ``comms_logger``
+configures the comms logger at engine build; ``hybrid_engine.enabled``
+makes ``initialize`` build the hybrid engine, whose rollout engine takes
+``serving_optimization`` (``to_v2_dict``); ``dump_state``,
+``disable_allgather`` and ``seq_parallel_communication_data_type`` are
+top-level ``NOOP_KEYS``.
+
 ``flops_profiler`` (``FlopsProfilerConfig``) and ``data_efficiency``
 (its ``data_sampling`` and ``data_routing`` dicts, read by the engine's
 accessors only, as in JAX) are read; ``tpu.param_dtype`` and
@@ -105,7 +118,8 @@ def _enabled(section: Dict[str, Any]) -> bool:
 # config section -> (does it switch a feature on?, ROADMAP Queue 1 item)
 _OUTSIDE_SLICE = {
     "comm_optimization": (_enabled, "11e (quantized collectives)"),
-    "compression_training": (bool, "11e (compression)"),
+    "compression_training": (lambda s: any(s.values()),
+                             "11e (compression)"),
     "pipeline": (lambda s: s.get("stages", 1) > 1,
                  "11h (pipeline, MoE, sequence parallel)"),
     "moe": (_enabled, "11h (pipeline, MoE, sequence parallel)"),
@@ -120,7 +134,12 @@ _READ = ("train_batch_size", "train_micro_batch_size_per_gpu",
          "wall_clock_breakdown", "checkpoint", "fault_tolerance",
          "fault_injection", "telemetry", "tensorboard", "wandb",
          "csv_monitor", "comet", "aio", "activation_checkpointing", "tpu",
-         "memory_breakdown", "flops_profiler", "data_efficiency")
+         "memory_breakdown", "flops_profiler", "data_efficiency",
+         "prescale_gradients", "gradient_predivide_factor",
+         "communication_data_type", "seq_parallel_communication_data_type",
+         "sparse_gradients", "dump_state", "disable_allgather",
+         "comms_logger", "hybrid_engine", "elasticity", "autotuning",
+         "serving_optimization")
 
 #: keys accepted for compatibility that change nothing, with the reason
 #: logged when a config sets one (JAX ``config.py:_NOOP_KEYS``)
@@ -155,6 +174,14 @@ NOOP_KEYS = {
         "paths are the caller's; point save_dir at local disk",
     ("checkpoint", "parallel_write"):
         "one rank writes one file per kind",
+    # top-level keys (section ""): parsed, and read by nothing in the JAX
+    # engine either
+    ("", "dump_state"):
+        "engine.dump_state() logs the state whenever it is called",
+    ("", "disable_allgather"):
+        "one rank has no parameter all-gather to disable",
+    ("", "seq_parallel_communication_data_type"):
+        "one rank has no sequence-parallel collective",
 }
 
 
@@ -268,8 +295,8 @@ def _tpu(section: Dict[str, Any]) -> Tuple[Dict[str, Any], str]:
     unknown = sorted(set(section) - set(TPU_MODEL_KEYS))
     if unknown:
         raise NotImplementedError(
-            f"tpu keys {unknown} are not read by the port's training slice "
-            f"(see ROADMAP Queue 1 item 11)")
+            f"tpu keys {unknown} are not fields of the JAX package's tpu "
+            f"section; the port refuses a key it would drop")
     return section, precision
 
 
@@ -424,6 +451,108 @@ class MonitorConfigItem:
     project: str = "deepspeed_tpu"
 
 
+@dataclasses.dataclass
+class CommsLoggerConfig:
+    """The ``comms_logger`` section (JAX ``CommsLoggerConfig``): with
+    ``enabled`` the engine configures the comms logger at build
+    (``comm.configure_comms_logger``, ``verbose`` passed on);
+    ``debug``, ``prof_all`` and ``prof_ops`` are kept and read by
+    nothing, as in JAX."""
+    enabled: bool = False
+    verbose: bool = False
+    debug: bool = False
+    prof_all: bool = True
+    prof_ops: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class ElasticityConfig:
+    """The ``elasticity`` section (JAX ``ElasticityConfig``): parsed and
+    read by the engine's accessor only; the JAX launcher acts on it."""
+    enabled: bool = False
+    max_train_batch_size: int = 2000
+    micro_batch_sizes: list = dataclasses.field(
+        default_factory=lambda: [2, 4, 6])
+    min_gpus: int = 1
+    max_gpus: int = 10000
+    min_time: int = 0
+    prefer_larger_batch: bool = True
+    ignore_non_elastic_batch_info: bool = False
+    version: float = 0.2
+
+
+@dataclasses.dataclass
+class AutotuningConfig:
+    """The ``autotuning`` section (JAX ``AutotuningConfig``): parsed and
+    read by the engine's accessor only; the JAX launcher acts on it."""
+    enabled: bool = False
+    fast: bool = True
+    results_dir: str = "autotuning_results"
+    exps_dir: str = "autotuning_exps"
+    overwrite: bool = False
+    metric: str = "throughput"
+    start_profile_step: int = 3
+    end_profile_step: int = 5
+    tuner_type: str = "gridsearch"
+    tuner_early_stopping: int = 5
+    tuner_num_trials: int = 50
+    max_train_batch_size: Optional[int] = None
+    mp_size: int = 1
+
+
+@dataclasses.dataclass
+class HybridEngineConfig:
+    """The ``hybrid_engine`` section (JAX ``HybridEngineConfig``):
+    ``enabled`` makes ``initialize`` build ``DeepSpeedHybridEngine``; the
+    other keys are accepted and read by nothing, as in JAX."""
+    enabled: bool = False
+    max_out_tokens: int = 512
+    inference_tp_size: int = 1
+    release_inference_cache: bool = False
+    pin_parameters: bool = True
+    tp_gather_partition_size: int = 8
+
+
+@dataclasses.dataclass
+class ServingOptimizationConfig:
+    """The training config's ``serving_optimization`` section (JAX
+    ``ServingOptimizationConfig``, the training-side copy): the hybrid
+    engine's rollout engine takes it through :meth:`to_v2_dict`, and
+    ``inference/v2/config.py`` validates it there (``tp_degree`` other
+    than 1 raises at the rollout engine's build, naming its item)."""
+    enabled: bool = True
+    fused_step: bool = True
+    on_device_sampling: bool = True
+    async_scheduling: bool = True
+    prefix_caching: bool = True
+    max_queue_depth: int = 0
+    shed_queue_wait_ms: float = 0.0
+    default_ttl_s: float = 0.0
+    shed_unservable: bool = False
+    snapshot_grace_s: float = 5.0
+    snapshot_path: str = ""
+    speculative: bool = False
+    spec_max_draft: int = 3
+    spec_ngram_min: int = 2
+    spec_drafter: str = "ngram"
+    spec_draft_layers: int = 0
+    role: str = "both"
+    keyed_sampling: bool = False
+    compile_cache_dir: str = ""
+    lattice: str = ""
+    kv_quantization: str = "none"
+    kv_tier_host_pages: int = 0
+    kv_tier_disk_pages: int = 0
+    kv_tier_dir: str = ""
+    tp_degree: int = 1
+    tp_collective_quantization: str = "none"
+
+    def to_v2_dict(self) -> Dict[str, Any]:
+        """The ``serving_optimization`` dict the inference-v2 config
+        reads (``RaggedInferenceEngineConfig.from_dict``)."""
+        return dataclasses.asdict(self)
+
+
 def _section(cls, name: str, section: Optional[Dict[str, Any]]):
     """``cls(**section)``; a key the dataclass lacks raises."""
     section = dict(section or {})
@@ -431,12 +560,18 @@ def _section(cls, name: str, section: Optional[Dict[str, Any]]):
     unknown = sorted(set(section) - known)
     if unknown:
         raise NotImplementedError(
-            f"{name} keys {unknown} are not read by the port's training "
-            f"slice (see ROADMAP Queue 1 item 11)")
+            f"{name} keys {unknown} are not fields of the JAX package's "
+            f"{name} section; the port refuses a key it would drop")
     return cls(**section)
 
 
 MONITORS = ("tensorboard", "wandb", "csv_monitor", "comet")
+#: sections parsed whole into their dataclass
+SECTIONS = {"comms_logger": CommsLoggerConfig,
+            "elasticity": ElasticityConfig,
+            "autotuning": AutotuningConfig,
+            "hybrid_engine": HybridEngineConfig,
+            "serving_optimization": ServingOptimizationConfig}
 
 
 @dataclasses.dataclass
@@ -501,6 +636,29 @@ class TrainingConfig:
         default_factory=MonitorConfigItem)
     comet: MonitorConfigItem = dataclasses.field(
         default_factory=MonitorConfigItem)
+    #: read by the engine's accessors only (``postscale_gradients`` is
+    #: ``not prescale_gradients``), as in JAX: one rank averages no
+    #: gradient across ranks
+    prescale_gradients: bool = False
+    gradient_predivide_factor: float = 1.0
+    communication_data_type: Optional[str] = None
+    #: the keys of ``NOOP_KEYS``'s top-level section: parsed, read by
+    #: nothing
+    seq_parallel_communication_data_type: str = "fp32"
+    dump_state: bool = False
+    disable_allgather: bool = False
+    #: the embedding takes the sparse backward (``runtime/sparse_tensor``)
+    sparse_gradients: bool = False
+    comms_logger: CommsLoggerConfig = dataclasses.field(
+        default_factory=CommsLoggerConfig)
+    elasticity: ElasticityConfig = dataclasses.field(
+        default_factory=ElasticityConfig)
+    autotuning: AutotuningConfig = dataclasses.field(
+        default_factory=AutotuningConfig)
+    hybrid_engine: HybridEngineConfig = dataclasses.field(
+        default_factory=HybridEngineConfig)
+    serving_optimization: ServingOptimizationConfig = dataclasses.field(
+        default_factory=ServingOptimizationConfig)
 
     @property
     def precision_dtype(self) -> str:
@@ -571,8 +729,9 @@ def _optimizer(section: Dict[str, Any]) -> OptimizerConfig:
     unknown = sorted(set(params) - known)
     if unknown:
         raise NotImplementedError(
-            f"optimizer params {unknown} are not read by the port's "
-            f"training slice (see ROADMAP Queue 1 item 11)")
+            f"optimizer params {unknown} are not fields of the JAX "
+            f"package's OptimizerParams; the port refuses a key it would "
+            f"drop")
     if "betas" in params:
         params["betas"] = tuple(float(b) for b in params["betas"])
     opt = OptimizerConfig(type=name, params=OptimizerParams(**params))
@@ -621,15 +780,15 @@ def _zero(section: Dict[str, Any]
     unknown = sorted(set(section) - known)
     if unknown:
         raise NotImplementedError(
-            f"zero_optimization keys {unknown} are not read by the port's "
-            f"training slice (see ROADMAP Queue 1 item 11b)")
+            f"zero_optimization keys {unknown} are not fields of the JAX "
+            f"package's ZeroConfig; the port refuses a key it would drop")
     return (stage, bool(section.get("zero_quantized_weights", False)),
             *offload)
 
 
 def _noop_keys(config: Dict[str, Any]) -> Tuple[Tuple[str, str], ...]:
     return tuple((sec, key) for sec, key in NOOP_KEYS
-                 if key in (config.get(sec) or {}))
+                 if key in ((config.get(sec) or {}) if sec else config))
 
 
 def warn_noop_keys(config: TrainingConfig) -> None:
@@ -638,8 +797,9 @@ def warn_noop_keys(config: TrainingConfig) -> None:
     from ..utils.logging import logger
     for section, key in config.noop_keys:
         logger.warning(
-            "config %s.%s is accepted for compatibility but has no effect "
-            "in the port: %s", section, key, NOOP_KEYS[(section, key)])
+            "config %s is accepted for compatibility but has no effect "
+            "in the port: %s", f"{section}.{key}" if section else key,
+            NOOP_KEYS[(section, key)])
 
 
 def load_config(config: Union[str, os.PathLike, Dict[str, Any],
@@ -660,8 +820,8 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
                 raise outside_slice(f"config section {key!r}", item)
         elif key not in _READ:
             raise NotImplementedError(
-                f"config key {key!r} is not read by the port's training "
-                f"slice (see ROADMAP Queue 1 item 11)")
+                f"config key {key!r} is not a field of the JAX package's "
+                f"DeepSpeedTPUConfig; the port refuses a key it would drop")
     stage, qwz, off_opt, off_param = _zero(
         config.get("zero_optimization", {}))
     optimizer = _optimizer(config.get("optimizer", {}))
@@ -705,5 +865,22 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
                                  config.get("fault_injection")),
         telemetry=_section(TelemetryConfig, "telemetry",
                            config.get("telemetry")),
+        prescale_gradients=bool(config.get("prescale_gradients", False)),
+        gradient_predivide_factor=float(
+            config.get("gradient_predivide_factor", 1.0)),
+        communication_data_type=(
+            None if config.get("communication_data_type") is None
+            else str(config["communication_data_type"])),
+        seq_parallel_communication_data_type=str(
+            config.get("seq_parallel_communication_data_type", "fp32")),
+        dump_state=bool(config.get("dump_state", False)),
+        disable_allgather=bool(config.get("disable_allgather", False)),
+        sparse_gradients=bool(config.get("sparse_gradients", False)),
+        **{key: _section(cls, key, config.get(key))
+           for key, cls in SECTIONS.items()},
         **{m: _section(MonitorConfigItem, m, config.get(m))
            for m in MONITORS})
+
+
+#: the JAX package's name for the training config
+DeepSpeedTPUConfig = TrainingConfig

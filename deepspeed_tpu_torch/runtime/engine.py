@@ -114,6 +114,7 @@ loss and LR every step and the registry at ``steps_per_print``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -214,6 +215,22 @@ CPU_CHECKPOINTING = {
     "dots_with_no_batch_dims_saveable": "offload_dots",
     "dots_saveable": "offload_dots",
 }
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The training state in JAX ``TrainState``'s fields
+    (``engine.py:71``), as :attr:`DeepSpeedEngine.state` gives it: a view
+    of the engine's tensors (``params`` its masters, ``opt_state`` the
+    device optimizer's per-parameter states), not a copy."""
+    step: int
+    params: Any
+    opt_state: Any
+    loss_scale: float
+    good_steps: int
+    skipped_steps: int
+    hysteresis: int
+    comm_residuals: Any = ()
 
 
 #: the host optimizer's file beside a checkpoint's (JAX ``engine.py:1401``)
@@ -393,6 +410,11 @@ class DeepSpeedEngine:
             batch_size=self.train_batch_size(),
             steps_per_output=self.config.steps_per_print)
         self.monitor = self._build_monitor()
+        if self.config.comms_logger.enabled:
+            # JAX engine.py:256-257 (one rank has no bucket plan to record)
+            from .. import comm
+            comm.configure_comms_logger(
+                verbose=self.config.comms_logger.verbose)
         self.checkpoint_engine = self._build_checkpoint_engine()
         recorder = get_flight_recorder()
         recorder.set_config("runtime", self.config)
@@ -565,6 +587,17 @@ class DeepSpeedEngine:
 
     def get_global_grad_norm(self) -> float:
         return self._last_grad_norm
+
+    @property
+    def state(self) -> TrainState:
+        """The state in JAX ``TrainState``'s fields (``step`` counts
+        skipped steps too, as JAX's does)."""
+        return TrainState(
+            step=self.global_steps, params=self.params,
+            opt_state=(self.optimizer.state if self.optimizer is not None
+                       else None),
+            loss_scale=float(self._loss_scale), good_steps=self._good_steps,
+            skipped_steps=self._skipped_steps, hysteresis=self._hysteresis)
 
     def is_gradient_accumulation_boundary(self) -> bool:
         """Whether :meth:`step` applies the update; a boundary set with
@@ -1544,16 +1577,16 @@ class DeepSpeedEngine:
         return self.config.gradient_clipping
 
     def gradient_predivide_factor(self) -> float:
-        return 1.0      # JAX's default; the key is not read
+        return self.config.gradient_predivide_factor
 
     def postscale_gradients(self) -> bool:
-        return True     # JAX's default (prescale_gradients false)
+        return not self.config.prescale_gradients
 
     def communication_data_type(self) -> str:
-        return "bfloat16"
+        return self.config.communication_data_type or "bfloat16"
 
     def sparse_gradients_enabled(self) -> bool:
-        return False
+        return self.config.sparse_gradients
 
     def steps_per_print(self) -> int:
         return self.config.steps_per_print
@@ -1574,10 +1607,10 @@ class DeepSpeedEngine:
         return self.config.scheduler.params if self.config.scheduler else None
 
     def elasticity_enabled(self) -> bool:
-        return False
+        return self.config.elasticity.enabled
 
     def autotuning_enabled(self) -> bool:
-        return False
+        return self.config.autotuning.enabled
 
     def flops_profiler_enabled(self) -> bool:
         return self.config.flops_profiler.enabled
@@ -1667,6 +1700,9 @@ class DeepSpeedEngine:
             overrides["remat_policy"] = CPU_CHECKPOINTING.get(
                 base, "offload_attn_out")
             overrides["remat"] = True
+        if self.config.sparse_gradients:
+            # the embedding takes the sparse backward (JAX :340-343)
+            overrides["sparse_gradients"] = True
         if overrides:
             import dataclasses
             model.cfg = dataclasses.replace(model.cfg, **overrides)

@@ -148,3 +148,71 @@ class LRScheduler:
 
     def load_state_dict(self, sd):
         self.last_batch_iteration = sd["last_batch_iteration"]
+
+
+def add_tuning_arguments(parser):
+    """The convergence-tuning argparse group (JAX ``add_tuning_arguments``):
+    ``--lr_schedule`` and one flag per schedule parameter, derived from
+    the schedule functions' signatures; every flag defaults to None, so
+    only flags passed reach the schedule config."""
+    import argparse
+    import inspect
+    import typing
+
+    def str2bool(v):
+        if v.lower() in ("1", "true", "yes", "on"):
+            return True
+        if v.lower() in ("0", "false", "no", "off"):
+            return False
+        raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+    group = parser.add_argument_group(
+        "Convergence Tuning", "Convergence tuning configurations")
+    group.add_argument("--lr_schedule", type=str, default=None,
+                       help=f"LR schedule for training "
+                            f"(one of {VALID_LR_SCHEDULES}).")
+    seen = set()
+    for fn in (lr_range_test, one_cycle, warmup_lr, warmup_decay_lr,
+               warmup_cosine_lr):
+        for name, p in inspect.signature(fn, eval_str=True).parameters.items():
+            if name in seen or p.kind in (p.VAR_KEYWORD, p.VAR_POSITIONAL):
+                continue
+            seen.add(name)
+            ann = p.annotation
+            if ann is inspect.Parameter.empty and \
+                    p.default is not inspect.Parameter.empty \
+                    and p.default is not None:
+                ann = type(p.default)
+            args = [a for a in typing.get_args(ann) if a is not type(None)]
+            if len(args) == 1:
+                ann = args[0]
+            if ann is bool:
+                argtype = str2bool
+            elif ann in (int, float, str):
+                argtype = ann
+            else:
+                argtype = float
+            group.add_argument(f"--{name}", type=argtype, default=None,
+                               help=f"{fn.__name__} parameter {name}.")
+    return parser
+
+
+def convert_lr_tuning_args(args):
+    """Parsed tuning flags -> the ``scheduler`` config dict (JAX
+    ``convert_lr_tuning_args``); None without ``--lr_schedule``."""
+    import inspect
+
+    sched = getattr(args, "lr_schedule", None)
+    if not sched:
+        return None
+    if sched not in VALID_LR_SCHEDULES:
+        raise ValueError(f"unknown lr_schedule {sched!r} "
+                         f"(valid: {VALID_LR_SCHEDULES})")
+    params = {}
+    for name, p in inspect.signature(_FACTORY[sched]).parameters.items():
+        if getattr(args, name, None) is not None:
+            params[name] = getattr(args, name)
+        elif p.default is inspect.Parameter.empty and \
+                p.kind not in (p.VAR_KEYWORD, p.VAR_POSITIONAL):
+            raise ValueError(f"lr_schedule {sched} requires --{name}")
+    return {"type": sched, "params": params}

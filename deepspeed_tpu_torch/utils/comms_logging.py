@@ -10,8 +10,9 @@ copies to the host (the [S] int32 tokens, a verify step's accept
 vectors, the split path's sampled groups), the logits bytes a ``put``
 hands back, the prefix cache's lookups, hits and evicted pages, and the
 prompt tokens prefilled.  :class:`CommsLogger` records collectives' names
-and volumes; nothing in this package calls it until the collectives are
-ported, as in the JAX package it serves the training engine.
+and volumes: every collective of ``comm`` feeds it once
+``comm.configure_comms_logger`` (or the training config's
+``comms_logger`` section) has made one.
 """
 
 from __future__ import annotations

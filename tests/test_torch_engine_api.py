@@ -69,6 +69,7 @@ def test_a_forced_partial_boundary_averages_the_micro_batches_taken():
     one-off step over that micro-batch, equal in the port to a gas-1
     engine's step on it (1e-6), and deferring holds the update back."""
     je, te = _pair(llama_config())
+    init = jax_params(je)
     mb = {"input_ids": token_batches(1)[0]["input_ids"][:2]}
     # deferred: nothing happens at step()
     te.set_gradient_accumulation_boundary(False)
@@ -92,7 +93,10 @@ def test_a_forced_partial_boundary_averages_the_micro_batches_taken():
     assert_params_close(to_numpy(te.params), jax_params(je))
     # the same update as a gas-1 engine's step on that micro-batch
     cfg1 = llama_config(gradient_accumulation_steps=1)
-    _, one = _pair(cfg1)
+    model = LlamaForCausalLM("debug", dtype=torch.float32)
+    one, *_ = dtt.initialize(model=model, config=cfg1, device="cpu",
+                             model_parameters=from_jax(init, model.cfg,
+                                                       device="cpu"))
     one.train_batch(mb)
     for a, b in zip(one.masters, te.masters):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)

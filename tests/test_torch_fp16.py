@@ -82,6 +82,15 @@ def _pair(cfg, **model_kw):
     return je, te
 
 
+def _port(cfg, je):
+    """A port engine alone over ``je``'s current weights (its tree
+    layout), for a checkpoint load to overwrite."""
+    model = LlamaForCausalLM("debug", dtype=torch.float32)
+    return dtt.initialize(model=model, config=cfg, device="cpu",
+                          model_parameters=from_jax(
+                              jax_params(je), model.cfg, device="cpu"))[0]
+
+
 def _state(te):
     """Masters, moments and counts of the port engine, copied."""
     return ([p.clone() for p in te.masters],
@@ -228,7 +237,7 @@ def test_fp16_state_crosses_universal_checkpoints_both_ways(tmp_path):
     # JAX -> port: a fresh port engine takes JAX's fp16 state
     cfg_u = dict(cfg, checkpoint={"async_save": False,
                                   "load_universal": True})
-    _, fresh = _pair(cfg_u)
+    fresh = _port(cfg_u, je)
     fresh.load_checkpoint(jdir)
     assert _scale_row(fresh)[:3] == _scale_row(je)[:3]
     # port -> JAX
@@ -236,7 +245,7 @@ def test_fp16_state_crosses_universal_checkpoints_both_ways(tmp_path):
     J_universal.load_universal_into_engine(je2, tudir)
     assert _scale_row(je2)[:3] == _scale_row(te)[:3]
     # and a plain port checkpoint round trip keeps it too
-    again = _pair(cfg)[1]
+    again = _port(cfg, je)
     again.load_checkpoint(tdir)
     assert _scale_row(again)[:3] == _scale_row(te)[:3]
     for b in batches[4:]:

@@ -48,7 +48,9 @@ def test_the_scan_covers_every_module_of_the_port():
     int8 pages, Lion, LAMB, the blockwise quantisation, the rest of
     telemetry, the fleet's subprocess tools, the checkpoints, the timers,
     the monitor, the data pipeline, the 1-bit optimizers, Random-LTD, the
-    flops profiler and the trace tools."""
+    flops profiler, the trace tools and the one-card public API (comm,
+    accelerator, nvtx, the linear layer, AutoTP, init_inference, the
+    hybrid engine, sparse gradients)."""
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"chip_smoke.py",
             "deepspeed_tpu_torch/models/gpt.py",
@@ -89,8 +91,20 @@ def test_the_scan_covers_every_module_of_the_port():
             "deepspeed_tpu_torch/tools/replay_trace.py",
             "deepspeed_tpu_torch/tools/analyze_trace.py",
             "deepspeed_tpu_torch/tools/plan_capacity.py",
-            "deepspeed_tpu_torch/tools/gen_sample_trace.py"} <= names
-    assert len(names) >= 78
+            "deepspeed_tpu_torch/tools/gen_sample_trace.py",
+            "deepspeed_tpu_torch/comm/comm.py",
+            "deepspeed_tpu_torch/accelerator/abstract_accelerator.py",
+            "deepspeed_tpu_torch/accelerator/cuda_accelerator.py",
+            "deepspeed_tpu_torch/accelerator/cpu_accelerator.py",
+            "deepspeed_tpu_torch/accelerator/real_accelerator.py",
+            "deepspeed_tpu_torch/utils/nvtx.py",
+            "deepspeed_tpu_torch/version.py",
+            "deepspeed_tpu_torch/linear/optimized_linear.py",
+            "deepspeed_tpu_torch/module_inject/auto_tp.py",
+            "deepspeed_tpu_torch/inference/engine.py",
+            "deepspeed_tpu_torch/runtime/hybrid_engine.py",
+            "deepspeed_tpu_torch/runtime/sparse_tensor.py"} <= names
+    assert len(names) >= 93
 
 
 def test_the_host_op_builder_reads_only_the_ports_sources():
@@ -174,6 +188,31 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         cfg, params, kv_config=kv, device="cpu"))
     logits = engine.put([0], [[1, 2, 3]])
     assert logits.shape == (1, 128) and logits.device.type == "cpu"
+
+
+def test_public_api_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """``initialize``, ``init_inference``, ``OptimizedLinear.init`` and
+    ``get_accelerator`` ask for the card unless the CPU is named."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.accelerator import real_accelerator
+    from deepspeed_tpu_torch.linear import LoRAConfig, OptimizedLinear
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    T, cfg, kv, init_params = _tiny()
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dtt.initialize(model=LlamaForCausalLM("debug"),
+                       config={"hybrid_engine": {"enabled": True}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dtt.init_inference(model=(cfg, params), config={"dtype": "fp32"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OptimizedLinear(32, 16, lora_config=LoRAConfig(lora_r=4)).init(0)
+    monkeypatch.setattr(real_accelerator, "_accelerator", None)
+    monkeypatch.delenv("DS_ACCELERATOR", raising=False)
+    with pytest.raises(RuntimeError, match="DS_ACCELERATOR=cpu"):
+        dtt.get_accelerator()
 
 
 def test_family_entry_points_default_to_cuda_and_raise_without_it():

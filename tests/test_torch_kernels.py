@@ -2419,3 +2419,64 @@ def test_memory_ledger_measures_the_card(cuda_device):
     assert led.breakdown()["measured_source"] == "device"
     del x
     assert measured() == (base, "device")
+
+
+@pytest.mark.cuda
+def test_optimized_linear_kernel_path_matches_plain(cuda_device):
+    """``OptimizedLinear`` with an int8 base at a 4096 -> 11008 MLP
+    shape, LoRA rank 16, bf16: on the card the base is quantised once by
+    the quantise kernel (codes and scales bit-equal to the plain
+    version's on the CPU) and dequantised by the dequantise kernel at
+    every forward; the forward is held to the plain path's at
+    ``assert_parity``'s tolerance, only the adapters get gradients."""
+    from deepspeed_tpu_torch.linear import (LoRAConfig, OptimizedLinear,
+                                            QuantizationConfig)
+    lin = OptimizedLinear(4096, 11008, lora_config=LoRAConfig(lora_r=16),
+                          quantization_config=QuantizationConfig(),
+                          dtype=torch.bfloat16)
+    base = torch.empty(4096, 11008).uniform_(
+        -1 / 64, 1 / 64, generator=torch.Generator().manual_seed(0))
+    n0 = dict(tq.KERNEL.launches_by_fn)
+    card = lin.init(0, base_weight=base, device=cuda_device)
+    plain = lin.init(0, base_weight=base, device="cpu")
+    assert tq.KERNEL.launches_by_fn["quantize_blockwise_f32"] \
+        == n0["quantize_blockwise_f32"] + 1
+    for k in ("base_q", "base_scale"):
+        assert torch.equal(card[k].cpu(), plain[k])
+    with torch.no_grad():
+        b = torch.randn(16, 11008, generator=torch.Generator().manual_seed(1))
+        for p in (card, plain):
+            p["lora_a"].copy_(plain["lora_a"])
+            p["lora_b"].copy_(b.to(p["lora_b"].device, torch.bfloat16) / 16)
+    x = torch.randn(64, 4096, generator=torch.Generator().manual_seed(2))
+    out = lin.apply(card, x.to(cuda_device, torch.bfloat16))
+    assert tq.KERNEL.launches_by_fn["dequantize_blockwise_bf16"] \
+        == n0["dequantize_blockwise_bf16"] + 1
+    ref = lin.apply(plain, x.bfloat16())
+    assert_parity(out.float().cpu(), ref.float())
+    out.float().square().mean().backward()
+    assert {k for k, t in card.items() if t.grad is not None} \
+        == {"lora_a", "lora_b"}
+    merged = lin.merge(card)
+    torch.testing.assert_close(merged.cpu(), lin.merge(plain), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_sparse_embedding_gradient_on_the_card(cuda_device):
+    """The sparse backward's table gradient (``index_add_`` of fp32 rows,
+    atomics in no fixed order on the card) against the dense backward's
+    in fp32: within 1e-5 of the largest row sum."""
+    from deepspeed_tpu_torch.runtime.sparse_tensor import embedding_lookup
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.randn(50257, 256, generator=g, device=cuda_device)
+    ids = torch.randint(0, 50257, (4, 512), generator=g, device=cuda_device)
+    ids[:, ::8] = 11
+    ct = torch.randn(4, 512, 256, generator=g, device=cuda_device)
+    grads = []
+    for fn in (embedding_lookup, lambda t, i: t[i.long()]):
+        t = table.clone().requires_grad_()
+        (fn(t, ids) * ct).sum().backward()
+        grads.append(t.grad)
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert float(err) <= 1e-5

@@ -220,7 +220,11 @@ def test_qwz_compute_tree_is_the_jax_grid_and_never_the_masters():
 
 
 def test_per_layer_norm_scales_are_not_quantised():
-    _, te = _engines(False, optimizer=LION, zero_optimization=QWZ)
+    te, *_ = dtt.initialize(
+        model=LlamaForCausalLM("debug", dtype=torch.float32,
+                               scan_layers=False),
+        config=llama_config(optimizer=LION, zero_optimization=QWZ),
+        device="cpu")
     params_c = te._compute_params()
     layer = params_c["layers"]["layer_0"]
     assert layer["norm1"]["scale"].data_ptr() == \

@@ -51,20 +51,7 @@ from deepspeed_tpu_torch.telemetry import tracer as ttracer
 PAGE, SEED = 16, 7
 
 
-@pytest.fixture(autouse=True)
-def _telemetry_off_after():
-    """Telemetry goes off again and the process-wide registries, rings
-    and logs are emptied: a later test file in this worker must see what
-    a fresh process sees (the queue-wait histogram, say, vetoes shedding
-    once it holds samples)."""
-    torch.set_num_threads(1)
-    # a pool test earlier in this worker may have labelled this thread
-    labels = (ttracer.current_component(), jtracer.current_component())
-    ttracer.set_component("")
-    jtracer.set_component("")
-    yield
-    ttracer.set_component(labels[0])
-    jtracer.set_component(labels[1])
+def _empty_both():
     for tel, jlog, reg, fr in ((ttel, tjourney, treg, tfr),
                                (jtel, jjourney, jreg, jfr)):
         tel.disable()
@@ -72,6 +59,27 @@ def _telemetry_off_after():
         tel.get_tracer().clear()
         reg.get_registry().reset()
         fr.get_flight_recorder().clear()
+
+
+@pytest.fixture(autouse=True)
+def _telemetry_off_after():
+    """Telemetry goes off and the process-wide registries, rings and logs
+    are emptied before and after each test: a test here must see what a
+    fresh process sees, whatever ran before it in this worker (a JAX
+    test that served with telemetry on leaves its journey log full, and a
+    dump would then write ``journeys.json`` for one package only), and
+    so must a later test file (the queue-wait histogram, say, vetoes
+    shedding once it holds samples)."""
+    torch.set_num_threads(1)
+    # a pool test earlier in this worker may have labelled this thread
+    labels = (ttracer.current_component(), jtracer.current_component())
+    ttracer.set_component("")
+    jtracer.set_component("")
+    _empty_both()
+    yield
+    ttracer.set_component(labels[0])
+    jtracer.set_component(labels[1])
+    _empty_both()
 
 
 def _observations(seed):
@@ -242,6 +250,11 @@ def test_fault_injection_fires_at_jax_ordinals():
 
 
 def test_the_telemetry_config_serves_the_core_and_names_what_waits():
+    wd, ts = ttel.get_watchdog(), ttel.get_timeseries()
+    fed, ev = ttel.get_federation(), ttel.get_slo_evaluator()
+    # taken before the first apply(), which points the watchdog's dumps
+    # at "pm" too: restored, later tests in this process dump nowhere
+    saved = (wd.enabled, wd.threshold, wd.warmup, wd.postmortem_dir)
     cfg = T.TelemetryConfig(enabled=True, trace_buffer=128,
                             flight_recorder_events=16, postmortem_dir="pm")
     cfg.apply()
@@ -251,9 +264,6 @@ def test_the_telemetry_config_serves_the_core_and_names_what_waits():
     ttel.get_tracer().resize(ttracer.DEFAULT_CAPACITY)
     tfr.get_flight_recorder().resize(tfr.DEFAULT_EVENT_CAPACITY)
     # every other field configures the component it names
-    wd, ts = ttel.get_watchdog(), ttel.get_timeseries()
-    fed, ev = ttel.get_federation(), ttel.get_slo_evaluator()
-    saved = (wd.enabled, wd.threshold, wd.warmup, wd.postmortem_dir)
     try:
         T.TelemetryConfig(watchdog=False, watchdog_threshold=5.0,
                           watchdog_warmup=3).apply()

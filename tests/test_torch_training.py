@@ -251,7 +251,7 @@ def test_training_lowers_the_loss_on_a_fixed_batch():
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
      "zero_quantized_gradients"),
-    ({"elasticity": {"enabled": True}}, "elasticity"),
+    ({"tpu": {"mesh": {"fsdp": -1, "tensor": 2}}}, "tpu.mesh"),
 ])
 def test_options_outside_the_slice_raise(over, match):
     with pytest.raises(NotImplementedError, match=match) as err:
