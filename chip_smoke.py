@@ -65,8 +65,9 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    where it parts, the eager logits of the two picks within the logit
    limit) and teacher-forced on the eager forward (greedy agreement
    held to its floor);
-6a. preemption at full width: a second Llama-2-7B engine over the same
-   weights on 48 pages (1.61 GB) for 10 greedy requests of 768-1024
+6a. preemption at full width and 16 of the 32 layers: an engine over
+   the first 16 layers of the same weights on 48 pages (0.81 GB) for 10
+   greedy requests of 768-1024
    prompt tokens and 128 new tokens (about 180 pages of full context):
    a warm-up and a timed pass as in phase 4 (the page audit after every
    warm-up step), then a third pass of the same traffic; at least one
@@ -75,7 +76,7 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    restore ms and GB/s, each synchronised, against a plain pinned
    ``copy_`` of the same bytes (third pass, so that the timed pass
    waits on neither); the tokens against
-   the same requests on the 256-page engine, free-running (reported,
+   the same requests on a 256-page engine of the same 16 layers, free-running (reported,
    with the logit gap where they part) and teacher-forced on its eager
    forward (greedy agreement held to its floor);
 6b. the split step: phase 4's traffic on engines with
@@ -224,7 +225,7 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    with bf16 pages;
 9a. Mistral-7B-v0.1 at its published configuration (8 kv heads, a
    4096-token sliding window; ``llama_config_from_hf``, random seeded
-   bf16 weights) over 288 pages: four greedy requests of 6144-token
+   bf16 weights) at 16 of its 32 layers over 288 pages: four greedy requests of 6144-token
    prompts and 64 new tokens, whose full contexts need 388 pages, as
    phase 4 with the page audit after every warm-up step and each
    sequence's live pages held to ceil((4096 + 64) / 64) + 1 after every
@@ -240,9 +241,11 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
    segment), the kernel path against the plain path as phase 7; then
    the same weights over 256 int8 pages, as phases 8 and 9;
 9c. Phi-2 (``phi_config_from_hf``: head_dim 80, partial rotary over 32
-   lanes, the parallel block), 256 bf16 pages, as 9b;
+   lanes, the parallel block), 16 of its 32 layers, 256 bf16 pages, as
+   9b;
 9d. Phi-3-mini-4k-instruct (``phi3_config_from_hf``: head_dim 96, a
-   2047-token window), 256 bf16 pages, phase 4's traffic and two
+   2047-token window), 16 of its 32 layers, 256 bf16 pages, phase 4's
+   traffic and two
    requests of 3072 + 64 tokens that cross the window, as 9b, and the
    kernel path against the plain path past the window as 9a (prompts of
    3072 in chunks of 1024); in each of 9b-9d both attention op classes
@@ -447,7 +450,34 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     against the dense scatter), then 2 steps' losses and the embedding's
     update; (e) ``comm`` at one rank with the comms logger on and the CUDA
     accelerator's name and memory;
-24. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+24. training across four rank processes that share the card: the
+    parent runs the one-rank reference (Llama-2-7B width at 2 of 32
+    layers, 0.67 B parameters, bf16 compute over fp32 masters, AdamW,
+    2 steps of 4 rows x 1024 tokens) and starts ``chip_smoke.py
+    --ranks-plan`` four times through ``deepspeed_tpu_torch.launcher.
+    launch --num_gpus=4``; each rank joins over gloo, takes 0.21 of the
+    card's memory, loads the libraries phase 2 built (no nvcc), probes
+    gloo's all-reduce, and trains the same weights (from the seed) on
+    its row of the same batch at ZeRO stages 0 (data 4), 2, 3 (fsdp
+    4), hpZ (fsdp 2 x hpz 2), MiCS (data 2 x fsdp 2), stage 3 with qwZ,
+    stage 2 with qgZ and stage 2 with ``comm_optimization`` (error
+    feedback; stage 1 takes stage 2's path in the port); each run's
+    losses, gradient norms, and each leaf's update norm, update and
+    first moment projected on seeded random directions and second
+    moment norm against the reference's (bf16 limits; the quantised
+    runs within the int8 wire's limit), every rank's loss equal, each
+    rank's launches exact
+    (flash forward at least 2 L a micro-batch, dK/dV and dQ L, AdamW a
+    leaf a step, qwZ's quantise and dequantise a two-dim leaf a step,
+    the wire's 2 quantises and 2 + W dequantises a bucket), the state
+    (masters and moments) one shard of fsdp x hpz of stage 0's, stage
+    3's weights held, peak memory, step ms, and rank 0's first bucket
+    through the quantise and dequantise kernels bit-equal to their
+    plain versions; each run's launches summed over the ranks join the
+    kernels line; then two planted faults in stage 2's gradient
+    reduction (a mean where the engine sums; one rank keeping its own
+    gradient), each of which must fail a check that sees the gradient;
+25. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
     80 and 96 and the optimizers' bf16 instances in rows of their own),
     the card line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -463,6 +493,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2675,8 +2706,8 @@ def copy_yardstick(n_bytes, reps=3):
 
 
 def preemption_phase(cfg, params, counters, card, ref_engine):
-    """Llama-2-7B at full width in the default serving configuration on a
-    pool too small for its traffic: 48 pages of 64 tokens for 10 greedy
+    """Llama-2-7B at full width (``cfg``'s layers) in the default serving
+    configuration on a pool too small for its traffic: 48 pages of 64 tokens for 10 greedy
     requests (prompts of 768-1024 tokens, 128 new tokens each: about 180
     pages of full context).  The scheduler must preempt (the sequence's
     private pages to a pinned host blob) and restore, and every request
@@ -2687,7 +2718,8 @@ def preemption_phase(cfg, params, counters, card, ref_engine):
     third pass of the same traffic times each offload and restore
     (synchronised) against a plain pinned copy of the same bytes.  The
     tokens are held
-    to the same requests on the 256-page engine (``ref_engine``):
+    to the same requests on a 256-page engine of the same weights
+    (``ref_engine``):
     free-running agreement reported with the logit gap where it parts,
     teacher-forced agreement held to GREEDY_AGREE_MIN."""
     import torch
@@ -4081,6 +4113,7 @@ MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
                   num_key_value_heads=8, max_position_embeddings=32768,
                   rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096,
                   tie_word_embeddings=False, hidden_act="silu")
+MISTRAL_LAYERS = 16            # of its 32 (phase 24's room)
 MISTRAL_PAGES = 288
 MISTRAL_PROMPT = 6144
 MISTRAL_CHUNK = 2048           # the token budget of a step
@@ -4092,14 +4125,15 @@ MISTRAL_CHUNK = 2048           # the token budget of a step
 # ---------------------------------------------------------------------------
 
 # both at 16 of Llama-2-7B's 32 layers (phase 21's room: the full-depth
-# serving paths are phases 4-6c)
+# serving paths are phases 4-6, 6b and 6c)
 FLEET_LAYERS = 16
 FLEET_PAGES = 256              # each engine of 6j and 6k: 4.31 GB
 FLEET_PREFIX = 1024            # the shared prefix of the warm requests
 
 
-# phases 6d-6h run at 16 of the 32 layers, on views of phase 4's weights
-# (phase 21's room; phases 4-6c serve all 32)
+# phases 6a and 6d-6h run at 16 of the 32 layers, on views of phase 4's
+# weights (phase 21's and phase 24's room; phases 4-6, 6b and 6c serve
+# all 32)
 SERVING_CUT_LAYERS = 16
 
 
@@ -5109,7 +5143,8 @@ def telemetry_cost_phase(cfg, params, counters, card):
 def mistral_phase(counters, card):
     """Mistral-7B-v0.1 at its published configuration (``config.json``'s
     fields through ``llama_config_from_hf``: 8 kv heads, a 4096-token
-    sliding window; random seeded bf16 weights) over 288 pages: four
+    sliding window; random seeded bf16 weights) at MISTRAL_LAYERS of its
+    32 layers over 288 pages: four
     greedy requests of 6144-token prompts, 64 new tokens each, whose
     full contexts would need 4 x 97 = 388 pages but whose windows need
     at most 4 x 67.  ``two_passes`` with the page audit after every
@@ -5124,7 +5159,8 @@ def mistral_phase(counters, card):
     from deepspeed_tpu_torch.checkpoint.hf import llama_config_from_hf
     from deepspeed_tpu_torch.inference.v2 import SamplingParams
     from deepspeed_tpu_torch.models.transformer import init_params
-    cfg = llama_config_from_hf(types.SimpleNamespace(**MISTRAL_7B))
+    cfg = dataclasses.replace(llama_config_from_hf(
+        types.SimpleNamespace(**MISTRAL_7B)), num_layers=MISTRAL_LAYERS)
     t = time.perf_counter()
     params = init_params(cfg, seed=SEED + 11, device="cuda")
     torch.cuda.synchronize()
@@ -9136,8 +9172,541 @@ def public_api_phase(counters, card):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training across four rank processes on the card
+# ---------------------------------------------------------------------------
+
+RANK_WORLD = 4
+RANK_LAYERS = 2          # of Llama-2-7B's 32: ~0.67 B parameters
+RANK_SEQ = 1024
+RANK_GAS = 1
+RANK_STEPS = 2
+RANK_MEMORY_FRACTION = 0.21
+RANK_TIMEOUT_S = 400
+RANK_BASE = {
+    "train_micro_batch_size_per_gpu": 1,
+    "gradient_accumulation_steps": RANK_GAS,
+    "bf16": {"enabled": True},
+    "gradient_clipping": 1.0,
+    "optimizer": {"type": "adamw",
+                  "params": {"lr": 3e-4, "betas": [0.9, 0.95],
+                             "weight_decay": 0.1}},
+    "checkpoint": {"async_save": False},
+}
+#: run -> its zero_optimization (and comm_optimization) sections
+RANK_RUNS = {
+    "stage0": {"zero_optimization": {"stage": 0}},
+    "stage2": {"zero_optimization": {"stage": 2}},
+    "stage3": {"zero_optimization": {"stage": 3}},
+    "hpz": {"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
+    "mics": {"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
+    "stage3_qwz": {"zero_optimization": {"stage": 3,
+                                         "zero_quantized_weights": True}},
+    "stage2_qgz": {"zero_optimization": {"stage": 2,
+                                         "zero_quantized_gradients": True}},
+    "comm_ef": {"zero_optimization": {"stage": 2},
+                "comm_optimization": {"enabled": True}},
+}
+#: the negative controls: run -> (the run it plants a fault in, the
+#: fault)
+RANK_FAULTS = {"fault_mean": ("stage2", "mean"),
+               "fault_skip": ("stage2", "skip")}
+#: the runs whose numbers an int8 projection or wire changes
+RANK_QUANTIZED = ("stage3_qwz", "stage2_qgz", "comm_ef")
+# against the one-rank stage-0 run of the same weights and batch (bf16
+# compute; the ranks' GEMMs see one row where the one-rank run sees four,
+# so cuBLAS may sum in another order, and the gradients are summed over
+# the ranks in bf16 on the wire, as JAX's psum): each step's loss within rtol
+# RANK_LOSS_TOL and each leaf's update norm ||m_2 - m_0|| within
+# RANK_UPDATE_TOL of the reference's; the quantised runs within the int8
+# wire's limit of the JAX package's CPU test (tests/
+# test_collective_scheduler.py::test_converges_close_to_fp32_psum_baseline,
+# rtol 0.05 on the losses)
+RANK_LOSS_TOL = 1e-2
+RANK_UPDATE_TOL = 5e-2
+RANK_QUANT_LOSS_TOL = 5e-2
+RANK_QUANT_UPDATE_TOL = 0.2
+# what sees the gradient (AdamW's update is close to lr sign(g) a leaf,
+# so its norm hardly does, and the first loss is taken before any
+# update): each step's gradient norm before clipping (rtol), and per
+# leaf the update u and the first moment m projected on RANK_PROBES
+# seeded standard normal directions r (|<r, x> - <r, x_ref>| / |x_ref|,
+# which estimates |x - x_ref| / |x_ref|) and the second moment's norm
+# (rtol).  The limits are about 3x the largest reading on an H100
+# (2.7e-5, 0.052, 0.012, 4.3e-4 in bf16; 9.0e-4, 0.49, 0.10, 6.9e-3 on
+# the int8 paths, which read the same in every call), far below the
+# planted faults' (0.75 on the gradient norm alone for a mean; 0.099,
+# 1.3, 0.72, 0.33 for a rank keeping its own gradient)
+RANK_PROBES = 2
+RANK_GRAD_TOL = 1e-3
+RANK_DIR_TOL = 0.15
+RANK_MOMENT_TOL = 4e-2
+RANK_V_TOL = 2e-3
+RANK_QUANT_GRAD_TOL = 5e-3
+RANK_QUANT_DIR_TOL = 0.75
+RANK_QUANT_MOMENT_TOL = 0.2
+RANK_QUANT_V_TOL = 2e-2
+#: gloo's all-reduce probe: fp32 elements
+RANK_PROBE_ELEMS = 16 * 1024 * 1024
+
+
+def _rank_batch(vocab):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 91)
+    rows = RANK_GAS * RANK_WORLD
+    return {"input_ids": rng.integers(0, vocab, (rows, RANK_SEQ)
+                                      ).astype(np.int32)}
+
+
+def _leaf_probes(engine, init_leaves):
+    """Per leaf [|u|^2, <r_k, u>..., |m|^2, <r_k, m>..., |v|^2]: the
+    update u = master - initial, AdamW's moments m and v, and
+    RANK_PROBES seeded standard normal directions r_k of the whole
+    leaf's shape.  Across ranks each rank takes its pieces of u, m, v
+    and r_k, and sums the entries over the master's group."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    out = []
+    for i, p in enumerate(engine.masters):
+        lay = engine._mlayouts[i] if engine._multi else None
+        st = engine.optimizer.state[p]
+        m0 = init_leaves[i]
+        u = p.float() - (lay.shard(m0) if lay is not None else m0).float()
+        mom, v = st["exp_avg"].float(), st["exp_avg_sq"].float()
+        dots_u, dots_m = [], []
+        for k in range(RANK_PROBES):
+            gen = torch.Generator(device=p.device)
+            gen.manual_seed(SEED + 7919 * i + k)
+            r = torch.randn(engine.param_shapes[i], generator=gen,
+                            device=p.device)
+            if lay is not None:
+                r = lay.shard(r)
+            dots_u.append((r * u).sum())
+            dots_m.append((r * mom).sum())
+            del r
+        row = torch.stack([u.square().sum(), *dots_u, mom.square().sum(),
+                           *dots_m, v.square().sum()]).double()
+        if lay is not None and lay.sharded:
+            row = comm.all_reduce(row, engine.topology.group(lay.axes))
+        out.append(row.tolist())
+        del u
+    torch.cuda.synchronize()
+    return out
+
+
+def _probe_errors(probes, ref):
+    """(update norm, update direction, first moment, second moment)
+    errors, each the largest over the leaves, against the reference's
+    probes (``_leaf_probes``)."""
+    k = RANK_PROBES
+    norm = direction = moment = second = 0.0
+    for got, want in zip(probes, ref):
+        u, m, v = math.sqrt(want[0]), math.sqrt(want[k + 1]), math.sqrt(
+            want[2 * k + 2])
+        norm = max(norm, abs(math.sqrt(got[0]) - u) / max(u, 1e-30))
+        direction = max(direction, max(
+            abs(got[1 + j] - want[1 + j]) for j in range(k)) / max(u, 1e-30))
+        moment = max(moment, max(
+            abs(got[k + 2 + j] - want[k + 2 + j]) for j in range(k))
+            / max(m, 1e-30))
+        second = max(second, abs(math.sqrt(got[2 * k + 2]) - v)
+                     / max(v, 1e-30))
+    return dict(update_norm=norm, update_direction=direction,
+                first_moment=moment, second_moment=second)
+
+
+def _plant(engine, kind):
+    """A planted fault in the engine's gradient reduction, a negative
+    control of phase 24's checks: ``mean`` divides
+    every reduced piece by the world size (a mean where the engine
+    sums); ``skip`` makes rank 1 keep its own gradient piece (it still
+    joins the collective, so the ranks stay in step)."""
+    from deepspeed_tpu_torch import comm
+    reduce = engine._reduce_full
+    world, rank = comm.get_world_size(), comm.get_rank()
+
+    class Planted:
+        def __init__(self, red, own):
+            self.red, self.own = red, own
+
+        def wait(self):
+            out = self.red.wait()
+            if kind == "mean":
+                return out / world
+            return self.own if rank == 1 else out
+
+    def planted(i, g):
+        return Planted(reduce(i, g),
+                       engine._mlayouts[i].shard(g).contiguous())
+    engine._reduce_full = planted
+
+
+def _rank_state_bytes(engine):
+    """A rank's training state: masters, optimizer moments, gradient
+    accumulators, and the compute copy a step builds where it does not
+    share a master's storage (bf16 whole leaves below stage 3; at stage
+    3 the fp32 pieces, the master itself where the layouts agree and no
+    qwZ projection makes a new one)."""
+    import math as _math
+    import torch
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    masters = sum(nbytes(m) for m in engine.masters)
+    moments = sum(nbytes(v) for st in engine.optimizer.state.values()
+                  for v in st.values()
+                  if isinstance(v, torch.Tensor) and v.dim())
+    grads = sum(nbytes(g) for g in engine._grads)
+    compute = 0
+    qwz = engine.config.quantized_weights
+    for shape, play, mlay in zip(engine.param_shapes, engine._playouts,
+                                 engine._mlayouts):
+        if not engine._pieces:
+            compute += 2 * _math.prod(shape)
+        elif play != mlay or (qwz and len(shape) >= 2):
+            compute += 4 * _math.prod(play.local_shape(shape))
+    return dict(masters=masters, moments=moments, grads=grads,
+                compute=compute, state=masters + moments)
+
+
+def _rank_run(name, counters, batch, captured):
+    """One run on this rank: build, RANK_STEPS steps (the counted main
+    path), then the checks' numbers."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.tree import tree_leaves
+    base, fault = RANK_FAULTS.get(name, (name, None))
+    config = {**RANK_BASE, **RANK_RUNS[base]}
+    model = LlamaForCausalLM("7b", num_layers=RANK_LAYERS)
+    t = time.perf_counter()
+    engine, *_ = dtt.initialize(model=model, config=config)
+    if fault is not None:
+        _plant(engine, fault)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    captured.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counters)
+    steps = []
+    for _ in range(RANK_STEPS):
+        t = time.perf_counter()
+        loss = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                          grad_norm=engine.get_global_grad_norm()))
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    state = _rank_state_bytes(engine)
+    init = tree_leaves(model.init_params(0, engine.device))
+    probes = _leaf_probes(engine, init)
+    del init
+    sched = engine.comm_scheduler
+    out = dict(
+        run=name, mesh=dict(zip(("pipe", "data", "expert", "fsdp", "hpz",
+                                 "seq", "tensor"), engine.topology.shape)),
+        build_s=build_s, steps=steps, peak_bytes=peak,
+        state_bytes=state, probes=probes, launches=launches,
+        n_leaves=len(engine.masters),
+        n_two_dim=sum(len(s) >= 2 for s in engine.param_shapes),
+        buckets=(sched.stats(RANK_GAS) if sched is not None else None))
+    if captured:
+        out["bucket_check"] = _bucket_kernel_check(captured[0])
+    engine.destroy()
+    return out
+
+
+def _bucket_kernel_check(x):
+    """Rank 0's first bucket through the quantise and dequantise kernels
+    against their plain versions: codes, scales and values bit-equal."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantization as Q
+    q, s, pad = Q.quantize_blockwise(x)
+    qr, sr, padr = Q.quantize_blockwise_reference(x)
+    d = Q.dequantize_blockwise(q, s, pad, x.shape)
+    dr = Q.dequantize_blockwise_reference(q, s, pad, x.shape)
+    torch.cuda.synchronize()
+    return dict(elems=x.numel(), codes_equal=bool(torch.equal(q, qr)),
+                scales_equal=bool(torch.equal(s, sr)) and pad == padr,
+                values_equal=bool(torch.equal(d, dr)))
+
+
+def _gloo_probe():
+    """gloo's all-reduce of RANK_PROBE_ELEMS fp32 on the card between the
+    ranks: ms a call and the bus rate (2 (n-1)/n of the bytes a rank
+    sends), a property of the host transport."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    x = torch.ones(RANK_PROBE_ELEMS, device="cuda")
+    comm.all_reduce(x)
+    torch.cuda.synchronize()
+    comm.barrier()
+    t = time.perf_counter()
+    for _ in range(3):
+        comm.all_reduce(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / 3
+    n = comm.get_world_size()
+    busbw = x.numel() * 4 * 2 * (n - 1) / n / (ms / 1e3) / 1e9
+    return dict(elems=x.numel(), ms=ms, bus_gb_s=busbw)
+
+
+def ranks_worker(plan_path) -> int:
+    """A rank process of phase 24 (``chip_smoke.py --ranks-plan <json>``,
+    started by ``deepspeed_tpu_torch.launcher.launch``): join over gloo,
+    load the kernels phase 2 built, run every run in order and write
+    ``rank<r>.json``."""
+    import torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import kernel_loader
+    from deepspeed_tpu_torch.runtime.comm import collective_scheduler as CS
+    with open(plan_path) as f:
+        plan = json.load(f)
+    comm.init_distributed(dist_backend="gloo", timeout=300)
+    torch.cuda.set_per_process_memory_fraction(RANK_MEMORY_FRACTION)
+    kernel_loader.set_library_dir(plan["library_dir"])
+    rank = comm.get_rank()
+    counters = kernel_counters()
+    for k, _ in counters.values():
+        # load what phase 2 built: four ranks never run nvcc at once
+        if not k.library_path.exists():
+            raise RuntimeError(f"{k.library_path} is missing: phase 2 "
+                               "builds the libraries the ranks load")
+        k.lib()
+    batch = _rank_batch(32000)
+    captured = []
+    wire_fn = CS.quantized_allreduce_ef
+
+    def capture(x, *a, **kw):
+        if rank == 0 and not captured:
+            captured.append(x.detach().float().clone())
+        return wire_fn(x, *a, **kw)
+    CS.quantized_allreduce_ef = capture
+    out = {"rank": rank, "device": torch.cuda.current_device(),
+           "probe": _gloo_probe(), "runs": {}}
+    if rank == 0:
+        log(f"phase 24 rank 0: probe {json.dumps(out['probe'])}")
+    for name in plan["runs"]:
+        t = time.perf_counter()
+        out["runs"][name] = _rank_run(name, counters, batch, captured)
+        torch.cuda.empty_cache()
+        # written after every run: a run cut by the time limit leaves the
+        # earlier ones readable
+        with open(os.path.join(plan["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        if rank == 0:
+            run = out["runs"][name]
+            log(f"phase 24 rank 0: {name} {time.perf_counter() - t:.1f} s, "
+                f"build {run['build_s']:.1f} s, steps "
+                f"{[round(st['ms']) for st in run['steps']]} ms")
+    comm.barrier()
+    comm.destroy_process_group()
+    return 0
+
+
+def _rank_reference(batch):
+    """The one-rank stage-0 run of the same weights and global batch
+    (four rows a micro-batch): losses, gradient norms and each leaf's
+    probes."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.tree import tree_leaves
+    config = dict(RANK_BASE, train_micro_batch_size_per_gpu=RANK_WORLD)
+    model = LlamaForCausalLM("7b", num_layers=RANK_LAYERS)
+    engine, *_ = dtt.initialize(model=model, config=config)
+    steps = []
+    for _ in range(RANK_STEPS):
+        t = time.perf_counter()
+        loss = engine.train_batch(batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
+                          grad_norm=engine.get_global_grad_norm()))
+    init = tree_leaves(model.init_params(0, engine.device))
+    probes = _leaf_probes(engine, init)
+    n_params = sum(m.numel() for m in engine.masters)
+    del init
+    engine.destroy()
+    return dict(steps=steps, probes=probes, params=n_params)
+
+
+def _rank_expected(res, name, world):
+    """The launches a rank's run must show: the flash forward at least
+    twice over the layers a micro-batch (remat recomputes it), the two
+    backward kernels once, AdamW once a
+    leaf a step, qwZ a quantise and a dequantise a leaf of two or more
+    dims a step, the int8 wire 2 quantises and 2 + world dequantises a
+    bucket a reduction."""
+    L, mb = RANK_LAYERS, RANK_STEPS * RANK_GAS
+    q = dq = 0
+    if name == "stage3_qwz":
+        q = dq = res["n_two_dim"] * RANK_STEPS
+    if res["buckets"] is not None:
+        rounds = res["buckets"]["bucket_count"] * RANK_STEPS * (
+            RANK_GAS if res["buckets"]["overlap"] else 1)
+        q, dq = 2 * rounds, (2 + world) * rounds
+    return {"flash_fwd": 2 * L * mb, "flash_bwd_dkv": L * mb,
+            "flash_bwd_dq": L * mb,
+            "fused_adamw": res["n_leaves"] * RANK_STEPS,
+            "quantize": q, "dequantize": dq}
+
+
+def _rank_checks(name, runs, ref, stage0):
+    """Phase 24's checks of one run (``runs``: every rank's), and the
+    readings they compare."""
+    quant = name in RANK_QUANTIZED
+    loss_tol = RANK_QUANT_LOSS_TOL if quant else RANK_LOSS_TOL
+    upd_tol = RANK_QUANT_UPDATE_TOL if quant else RANK_UPDATE_TOL
+    grad_tol = RANK_QUANT_GRAD_TOL if quant else RANK_GRAD_TOL
+    dir_tol = RANK_QUANT_DIR_TOL if quant else RANK_DIR_TOL
+    mom_tol = RANK_QUANT_MOMENT_TOL if quant else RANK_MOMENT_TOL
+    v_tol = RANK_QUANT_V_TOL if quant else RANK_V_TOL
+    losses = [st["loss"] for st in runs[0]["steps"]]
+    ref_losses = [st["loss"] for st in ref["steps"]]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    grad_err = max(abs(st["grad_norm"] - rs["grad_norm"]) / rs["grad_norm"]
+                   for st, rs in zip(runs[0]["steps"], ref["steps"]))
+    errs = _probe_errors(runs[0]["probes"], ref["probes"])
+    want = _rank_expected(runs[0], name, RANK_WORLD)
+    launches = {k: sum(run["launches"][k] for run in runs)
+                for k in runs[0]["launches"]}
+    # what sees the gradient: the checks a planted fault must fail
+    gradient = {
+        f"gradient norms within {grad_tol} of one rank": grad_err <= grad_tol,
+        f"update directions within {dir_tol} of one rank":
+            errs["update_direction"] <= dir_tol,
+        f"first moments within {mom_tol} of one rank":
+            errs["first_moment"] <= mom_tol,
+        f"second moments within {v_tol} of one rank":
+            errs["second_moment"] <= v_tol,
+    }
+    checks = {
+        "every rank's losses equal": all(
+            [st["loss"] for st in run["steps"]] == losses for run in runs),
+        "probes equal on every rank": all(
+            run["probes"] == runs[0]["probes"] for run in runs),
+        "finite": all(math.isfinite(x) for x in losses),
+        f"losses within {loss_tol} of one rank": loss_err <= loss_tol,
+        f"update norms within {upd_tol} of one rank":
+            errs["update_norm"] <= upd_tol,
+        **gradient,
+        "launches per rank": all(
+            (run["launches"][k] >= v if k == "flash_fwd"
+             else run["launches"][k] == v)
+            for run in runs for k, v in want.items()),
+        "no serving kernel": all(launches[k] == 0 for k in (
+            "paged_attention", "paged_attention_int8", "rmsnorm",
+            "layernorm", "fused_lion", "fused_lamb")),
+    }
+    state = runs[0]["state_bytes"]
+    mesh = runs[0]["mesh"]
+    base = RANK_FAULTS.get(name, (name,))[0]
+    if base != "stage0":
+        # masters and moments: one piece of fsdp x hpz (1/4; MiCS 1/2)
+        shards = mesh["fsdp"] * mesh["hpz"]
+        ratio = state["state"] * shards / stage0["state"]
+        checks[f"state 1/{shards} of stage 0's"] = 0.98 <= ratio <= 1.02
+    if base.startswith("stage3") or base in ("hpz", "mics"):
+        # the weights a rank holds: the master piece, and the compute
+        # piece (fp32, over hpz alone under hpZ) where it is not the
+        # master's own storage; stage 0 holds the fp32 masters whole
+        pieces = mesh["hpz"] if mesh["hpz"] > 1 else mesh["fsdp"]
+        held = state["masters"] + state["compute"]
+        checks["weights held at stage 3"] = held <= (
+            stage0["masters"] * (1 / shards + 1 / pieces) * 1.02)
+    if "bucket_check" in runs[0]:
+        bc = runs[0]["bucket_check"]
+        checks["bucket kernels bit-equal"] = (
+            bc["codes_equal"] and bc["scales_equal"] and bc["values_equal"])
+    readings = dict(losses=losses, ref_losses=ref_losses,
+                    loss_rel_err=loss_err, grad_norm_rel_err=grad_err,
+                    grad_norms=[st["grad_norm"] for st in runs[0]["steps"]],
+                    ref_grad_norms=[st["grad_norm"] for st in ref["steps"]],
+                    **{f"{k}_err": v for k, v in errs.items()})
+    return checks, gradient, readings, launches, want
+
+
+def ranks_phase(counters, card, cache_dir):
+    """Phase 24 (module docstring).  Returns {path: launches}, each run's
+    launches summed over the ranks (the planted faults of RANK_FAULTS,
+    run last, are no main path)."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    batch = _rank_batch(32000)
+    ref = _rank_reference(batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 24 (reference): one rank, stage 0: "
+        f"{json.dumps(ref['steps'])}")
+    from deepspeed_tpu_torch.launcher.launch import free_port
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="ranks_",
+                               dir=os.path.join(root, "build"))
+    names = list(RANK_RUNS) + list(RANK_FAULTS)
+    plan = {"runs": names, "out": out_dir, "library_dir": cache_dir}
+    plan_path = os.path.join(out_dir, "plan.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+           f"--num_gpus={RANK_WORLD}", f"--master_port={free_port()}",
+           f"--timeout={RANK_TIMEOUT_S}", os.path.abspath(__file__), "--",
+           "--ranks-plan", plan_path]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                          timeout=RANK_TIMEOUT_S + 60)
+    launch_s = time.perf_counter() - t
+    log(proc.stdout[-6000:])
+    if proc.returncode != 0:
+        log(proc.stderr[-8000:])
+        raise RuntimeError(f"phase 24: the ranks exited {proc.returncode}")
+    ranks = []
+    for r in range(RANK_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    paths = {}
+    stage0 = ranks[0]["runs"]["stage0"]["state_bytes"]
+    failed = []
+    for name in names:
+        runs = [rk["runs"][name] for rk in ranks]
+        checks, gradient, readings, launches, want = _rank_checks(
+            name, runs, ref, stage0)
+        state = runs[0]["state_bytes"]
+        summary = dict(
+            run=name, card=card, mesh=runs[0]["mesh"], **readings,
+            step_ms=[[st["ms"] for st in run["steps"]] for run in runs],
+            build_s=[run["build_s"] for run in runs],
+            peak_gb=[run["peak_bytes"] / 1e9 for run in runs],
+            state_gb={k: v / 1e9 for k, v in state.items()},
+            launches_rank0=runs[0]["launches"], expected=want,
+            buckets=(None if runs[0]["buckets"] is None else {
+                k: runs[0]["buckets"][k] for k in (
+                    "bucket_count", "comm_bytes_per_step",
+                    "comm_fp32_equiv_bytes_per_step", "overlap",
+                    "error_feedback")}),
+            bucket_check=runs[0].get("bucket_check"), checks=checks)
+        log(f"phase 24 ({name}): {json.dumps(summary)}")
+        if name in RANK_FAULTS:
+            # a negative control: some gradient check must catch it
+            if all(gradient.values()):
+                failed.append(name)
+            continue
+        paths[f"ranks_{name}"] = launches
+        if not all(checks.values()):
+            failed.append(name)
+    log(f"phase 24 (transport): {json.dumps(dict(card=card, ranks=RANK_WORLD, launch_s=launch_s, probe=ranks[0]['probe'], devices=[rk['device'] for rk in ranks], reference_params=ref['params']))}")
+    if failed:
+        raise RuntimeError(f"phase 24 checks failed: {failed}")
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
+    if "--ranks-plan" in sys.argv:
+        # a rank process of phase 24
+        return ranks_worker(sys.argv[sys.argv.index("--ranks-plan") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; the port's smoke test "
               "runs on the GPU only", file=sys.stderr)
@@ -9289,9 +9858,13 @@ def main() -> int:
     launches_by_path = {"serving_llama": llama_launches}
 
     clock("phase 6")
-    # phase 6a: preemption on a 48-page pool, held to the 256-page engine
+    # phase 6a: preemption on a 48-page pool, held to a 256-page engine,
+    # both at SERVING_CUT_LAYERS of the 32 layers (phase 24's room)
+    cut_cfg, cut_params = depth_cut(cfg, params, SERVING_CUT_LAYERS)
+    cut_engine = build_engine(cut_cfg, cut_params, num_pages=256)
     _, launches_by_path["serving_llama_preemption"] = preemption_phase(
-        cfg, params, counters, card, engine)
+        cut_cfg, cut_params, counters, card, cut_engine)
+    del cut_engine
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -9324,8 +9897,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     clock("phase 6c")
-    # phases 6d-6h at SERVING_CUT_LAYERS of the 32 layers
-    cut_cfg, cut_params = depth_cut(cfg, params, SERVING_CUT_LAYERS)
+    # phases 6d-6h at SERVING_CUT_LAYERS of the 32 layers (cut_params)
     # phase 6d: speculative decoding with the three drafters
     _, spec_launches = spec_phase(cut_cfg, cut_params, counters, card,
                                   llama_summary)
@@ -9430,15 +10002,17 @@ def main() -> int:
     # phases 9b-9d: Falcon-7B (head_dim 64, multi-query; bf16 then int8
     # pages; at FALCON_SERVING_LAYERS of its 32 layers, phase 22's room),
     # Phi-2 (80, partial rotary), Phi-3-mini-4k (96, a 2047-token window)
-    # at their published configurations
+    # at their published widths and SERVING_CUT_LAYERS of their 32
+    # layers (phase 24's room)
     from deepspeed_tpu_torch.checkpoint import hf as HF
     for label, model_type, convert, name, seed, int8, layers in (
             ("Falcon-7B", "falcon", HF.falcon_config_from_hf,
              "tiiuae/falcon-7b", SEED + 21, True, FALCON_SERVING_LAYERS),
             ("Phi-2", "phi", HF.phi_config_from_hf, "microsoft/phi-2",
-             SEED + 23, False, 0),
+             SEED + 23, False, SERVING_CUT_LAYERS),
             ("Phi-3-mini-4k", "phi3", HF.phi3_config_from_hf,
-             "microsoft/Phi-3-mini-4k-instruct", SEED + 25, False, 0)):
+             "microsoft/Phi-3-mini-4k-instruct", SEED + 25, False,
+             SERVING_CUT_LAYERS)):
         paths, _ = hf_family_phase(counters, card, label, model_type,
                                    convert, HF.PUBLISHED_CONFIGS[name],
                                    seed, int8=int8, layers=layers)
@@ -9524,6 +10098,13 @@ def main() -> int:
     launches_by_path.update(public_api_phase(counters, card))
 
     clock("phase 23")
+    # phase 24: training across four rank processes sharing the card
+    # (gloo), every ZeRO stage, hpZ, MiCS and the int8 wire
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_by_path.update(ranks_phase(counters, card, cache_dir))
+
+    clock("phase 24")
     # the kernels line
     line = {"kernels": []}
     for name, rows in checks.items():

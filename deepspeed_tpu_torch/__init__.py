@@ -10,8 +10,11 @@ key.  Nothing here imports JAX or ``deepspeed_tpu``.  Entry points run
 on ``cuda`` unless ``device="cpu"`` is asked for; on the CPU every
 hand-written kernel is replaced by its plain PyTorch version.
 
-Not here yet, each waiting for its ROADMAP Queue 1 item: ``pipe`` and
-``PipelineEngine`` (11h), ``MeshTopology`` and ``TopologyConfig`` (4).
+Training runs across rank processes too (:func:`init_distributed` over
+``torch.distributed``, :class:`MeshTopology` over its process groups,
+ZeRO 0-3, hpZ, MiCS and the quantised gradient wire; the processes come
+from ``deepspeed_tpu_torch.launcher``).  Not here yet, waiting for their
+ROADMAP Queue 1 item: ``pipe`` and ``PipelineEngine`` (11h).
 """
 
 from .version import __version__  # noqa: F401
@@ -20,6 +23,7 @@ from . import comm  # noqa: F401
 from .accelerator import get_accelerator  # noqa: F401
 from .runtime.config import DeepSpeedTPUConfig, load_config  # noqa: F401
 from .runtime.engine import DeepSpeedEngine, TrainState  # noqa: F401
+from .parallel.topology import MeshTopology, TopologyConfig  # noqa: F401
 from .runtime import zero  # noqa: F401
 from . import moe  # noqa: F401
 from . import checkpoint  # noqa: F401
@@ -46,7 +50,8 @@ def initialize(args=None,
                config=None,
                config_params=None,
                *,
-               device=None):
+               device=None,
+               topology=None):
     """Build a training engine (JAX ``deepspeed_tpu.initialize``,
     ``__init__.py:51``, the same signature; ``device`` is a keyword:
     None is the card, ``"cpu"`` the plain versions).  The config is
@@ -54,18 +59,20 @@ def initialize(args=None,
     ``args.deepspeed_config``.  ``hybrid_engine.enabled`` builds
     :class:`DeepSpeedHybridEngine`.  ``model_parameters`` seeds the
     masters.  ``optimizer``, ``mpu`` and ``dist_init_required`` are
-    accepted and unused, as in JAX.  Returns ``(engine, optimizer,
-    dataloader, lr_scheduler)``."""
+    accepted and unused, as in JAX; ``topology`` (a
+    :class:`MeshTopology`) overrides the config's mesh.  Returns
+    ``(engine, optimizer, dataloader, lr_scheduler)``."""
     config = config if config is not None else config_params
     if args is not None and config is None:
         config = getattr(args, "deepspeed_config", None)
     cfg = load_config(config)
     cls = DeepSpeedHybridEngine if cfg.hybrid_engine.enabled \
         else DeepSpeedEngine
+    kw = {} if topology is None else {"topology": topology}
     engine = cls(model=model, config=cfg,
                  model_parameters=model_parameters,
                  lr_scheduler=lr_scheduler, device=device,
-                 training_data=training_data, collate_fn=collate_fn)
+                 training_data=training_data, collate_fn=collate_fn, **kw)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

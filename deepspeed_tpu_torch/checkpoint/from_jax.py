@@ -25,11 +25,16 @@ values) and fp32 scales; its codes take the leaf's shape check.
 :func:`to_numpy` goes back: training masters (fp32) leave the port as
 numpy arrays bit for bit, so a JAX tree bridged in, trained and brought
 out compares leaf for leaf with the JAX engine's ``state.params``.
+
+Across ranks, :func:`to_shards` cuts the whole tree into a rank's
+pieces by the port's ``ZeroPartitioner`` (rank r's equal the sharded JAX
+array's ``addressable_shards[r]``), and :func:`from_shards` puts every
+rank's pieces back together into the whole tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -183,3 +188,51 @@ def to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     inverse of :func:`from_jax` for fp32 leaves, and for bf16 leaves and
     quantised leaves (fp8 codes) as ``ml_dtypes`` arrays."""
     return tree_map(_to_array, tree)
+
+
+def to_shards(tree: Dict[str, Any], partitioner, kind: str = "master"
+              ) -> Dict[str, Any]:
+    """The port's whole tree -> this rank's pieces by ``partitioner``
+    (a :class:`~..runtime.zero.partitioner.ZeroPartitioner` over the
+    rank's topology): ``kind`` ``"master"`` cuts each leaf by
+    ``master_spec`` (masters and moments), ``"param"`` by
+    ``param_spec`` (the stage-3 compute pieces).  The pieces are views;
+    rank r's equal the JAX array's ``addressable_shards[r]``."""
+    layout = (partitioner.master_layout if kind == "master"
+              else partitioner.param_layout)
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        return layout(node, prefix[:-1]).shard(node)
+    return walk(tree, "")
+
+
+def from_shards(pieces: List[Dict[str, Any]], specs: Dict[str, Any],
+                topology) -> Dict[str, Any]:
+    """The inverse of :func:`to_shards` on the host: every rank's piece
+    tree (``pieces[r]``, numpy or tensors) and the spec tree they were
+    cut by (``partitioner.tree_master_specs(...)``) -> the whole tree as
+    numpy.  ``topology`` is any :class:`~..parallel.topology.
+    MeshTopology` of the same mesh (``groups=False`` will do); replicas
+    of a piece are taken from the first rank that holds it."""
+    from ..parallel.topology import MeshTopology
+    from ..runtime.zero.partitioner import layout_of
+
+    def walk(spec, nodes):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], [n[k] for n in nodes]) for k in spec}
+        chunks = {}
+        dim = None
+        for r, node in enumerate(nodes):
+            topo = MeshTopology(topology.config, world_size=topology.world_size,
+                                rank=r, groups=False)
+            lay = layout_of(spec, topo)
+            arr = (node.detach().cpu().numpy()
+                   if isinstance(node, torch.Tensor) else np.asarray(node))
+            if not lay.sharded:
+                return arr
+            dim = lay.dim
+            chunks.setdefault(lay.index, arr)
+        return np.concatenate([chunks[i] for i in sorted(chunks)], axis=dim)
+    return walk(specs, pieces)

@@ -227,7 +227,7 @@ def load_universal_into_engine(engine, universal_dir: str,
     paths = engine.param_paths
     offloaded = engine._offloaded
     prefix = MASKED_PREFIX if any(offloaded) else ""
-    shapes = [tuple(m.shape) for m in engine.masters]
+    shapes = [tuple(s) for s in engine.param_shapes]
     moments = [{name: prefix + sub for name, sub in
                 _moment_keys(kind, shape).items()} for shape in shapes]
     counts = tuple(prefix + c for c in counts)
@@ -257,8 +257,8 @@ def load_universal_into_engine(engine, universal_dir: str,
         return arr
 
     masters = engine.masters
-    engine._copy_masters([atom(f"params/{p}", m.shape)
-                          for p, m in zip(paths, masters)])
+    engine._copy_masters([atom(f"params/{p}", shape)
+                          for p, shape in zip(paths, shapes)])
     if load_optimizer_states:
         count = atom(f"opt_state/{counts[0]}", ())
         states = []

@@ -1,31 +1,35 @@
-"""Communication facade at one process.
+"""Communication facade over ``torch.distributed``.
 
 Counterpart of ``deepspeed_tpu/comm/comm.py``.  The JAX package's
 collectives run inside ``shard_map`` over a mesh axis name; here each
 takes a ``torch.distributed`` process group, or None for the default
-group, where JAX takes the axis name.  This slice runs one process on one
-card: every collective is the single-member case of JAX's semantics (an
-all-reduce or a tiled all-gather returns its input, an untiled gather
-adds a leading axis of one, a rooted op whose root is not rank 0 returns
-zeros), and a group of more than one member raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 4, which brings
-several ranks over ``torch.distributed``.
+group, where JAX takes the axis name, and keeps JAX's semantics: tiled
+gathers and scatters along ``axis``, untiled ones adding or removing an
+axis of one entry a member, ``all_to_all(split_axis, concat_axis)``,
+rooted ops that return the payload on the root and the input (reduce)
+or zeros (gather) elsewhere, and every result a new tensor.  At one
+member every collective is the single-member case: an all-reduce or a
+tiled all-gather returns its input.
+
+Backends.  :func:`init_distributed` joins the launcher's processes
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) with the
+backend the caller names, ``"nccl"`` by default: an NCCL join that
+cannot happen raises, and nothing switches the backend quietly.  Over
+``"gloo"`` CUDA tensors go to gloo as they are; an op it refuses raises.
 
 Every collective is wrapped by :func:`timed_op`, which feeds the comms
 logger (``utils/comms_logging.py``) the op's name and message size, as
-JAX's does at trace time; here it counts every call.  The host-side
-control plane (:func:`init_distributed`, rank and world queries,
-:func:`barrier`, :func:`monitored_barrier`) reads the launcher's
-``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT`` as JAX's
-does, and is a no-op at world size 1.
+JAX's does at trace time; here it counts every call.
 """
 
 from __future__ import annotations
 
+import datetime
 import functools
 import os
 import threading
 import time
+import warnings
 from typing import Optional, Sequence
 
 import torch
@@ -79,16 +83,52 @@ def group_size(group=None) -> int:
     return dist.get_world_size(group)
 
 
-def _one_rank(group, op: str) -> None:
-    n = group_size(group)
-    if n != 1:
-        raise NotImplementedError(
-            f"comm.{op} over a group of {n} ranks is not ported yet: the "
-            "port's collectives run at one rank (ROADMAP Queue 1 item 4)")
+def _global_rank(group, i: int) -> int:
+    """The default group's rank of member ``i`` of ``group``."""
+    import torch.distributed as dist
+    if group is None:
+        return i
+    return dist.get_process_group_ranks(group)[i]
 
 
 def _zeros_unless(cond: bool, t: torch.Tensor) -> torch.Tensor:
     return t if cond else torch.zeros_like(t)
+
+
+class Pending:
+    """A collective in flight (``async_op=True``): :meth:`wait` returns
+    its result.  Ops over one member are done when they return one."""
+
+    def __init__(self, out: torch.Tensor, work=None, then=None):
+        self._out, self._work, self._then = out, work, then
+
+    def then(self, fn) -> "Pending":
+        """The same op with ``fn`` applied to its result."""
+        prev = self._then
+        return Pending(self._out, self._work,
+                       fn if prev is None else (lambda x: fn(prev(x))))
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        out = self._out if self._then is None else self._then(self._out)
+        self._then = None
+        self._out = out
+        return out
+
+
+def _done(pending: Pending, async_op: bool):
+    return pending if async_op else pending.wait()
+
+
+_TORCH_OPS = {"sum": "SUM", "avg": "SUM", "mean": "SUM", "max": "MAX",
+              "min": "MIN"}
+
+
+def _reduce_op(op: str):
+    import torch.distributed as dist
+    return getattr(dist.ReduceOp, _TORCH_OPS[op.lower()])
 
 
 # ---------------------------------------------------------------------------
@@ -99,74 +139,172 @@ _REDUCE_OPS = ("sum", "SUM", "avg", "AVG", "mean", "max", "MAX", "min",
                "MIN")
 
 
+def _all_reduce(tensor: torch.Tensor, group, op: str,
+                async_op: bool = False):
+    import torch.distributed as dist
+    n = group_size(group)
+    if n == 1:
+        return _done(Pending(tensor), async_op)
+    out = tensor.contiguous().clone()
+    pending = Pending(out, dist.all_reduce(out, op=_reduce_op(op),
+                                           group=group, async_op=async_op))
+    if op.lower() in ("avg", "mean"):
+        pending = pending.then(lambda out: out / n)
+    return _done(pending, async_op)
+
+
 @timed_op
-def all_reduce(tensor: torch.Tensor, group=None,
-               op: str = "sum") -> torch.Tensor:
-    """SUM / AVG / MAX / MIN all-reduce over ``group``."""
+def all_reduce(tensor: torch.Tensor, group=None, op: str = "sum",
+               async_op: bool = False):
+    """SUM / AVG / MAX / MIN all-reduce over ``group`` (with
+    ``async_op`` a :class:`Pending`)."""
     if op not in _REDUCE_OPS:
         raise ValueError(f"unsupported reduce op: {op}")
-    _one_rank(group, "all_reduce")
-    return tensor
+    return _all_reduce(tensor, group, op, async_op)
+
+
+def _gather_leading(x: torch.Tensor, group, n: int,
+                    async_op: bool = False) -> Pending:
+    """[n * d0, ...]: the members' ``x`` ([d0, ...]) in member order."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        work = dist.all_gather_into_tensor(out, x, group=group,
+                                           async_op=async_op)
+    return Pending(out, work)
 
 
 @timed_op
 def all_gather(tensor: torch.Tensor, group=None, axis: int = 0,
-               tiled: bool = True) -> torch.Tensor:
+               tiled: bool = True, async_op: bool = False):
     """Gather the members' tensors along ``axis`` (``tiled``) or stacked
-    on a new axis ``axis``."""
-    _one_rank(group, "all_gather")
-    return tensor if tiled else tensor.unsqueeze(axis)
+    on a new axis ``axis`` (with ``async_op`` a :class:`Pending`)."""
+    n = group_size(group)
+    if n == 1:
+        return _done(Pending(tensor if tiled else tensor.unsqueeze(axis)),
+                     async_op)
+    x = tensor.unsqueeze(axis) if not tiled else tensor
+    axis = axis % x.dim()
+    pending = _gather_leading(torch.movedim(x, axis, 0), group, n, async_op)
+    if axis:
+        pending = pending.then(
+            lambda out: torch.movedim(out, 0, axis).contiguous())
+    return _done(pending, async_op)
+
+
+def _scatter_leading(x: torch.Tensor, group, n: int,
+                     async_op: bool = False) -> Pending:
+    """The sum over members of ``x`` ([n * c, ...]), this member's
+    ``c`` rows."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        work = dist.reduce_scatter_tensor(out, x, group=group,
+                                          async_op=async_op)
+    return Pending(out, work)
 
 
 @timed_op
 def reduce_scatter(tensor: torch.Tensor, group=None, axis: int = 0,
-                   tiled: bool = True) -> torch.Tensor:
+                   tiled: bool = True, async_op: bool = False):
     """Reduce, then give each member its slice of ``axis`` (untiled:
-    ``axis`` has one entry a member, and it is removed)."""
-    _one_rank(group, "reduce_scatter")
-    return tensor if tiled else tensor.squeeze(axis)
+    ``axis`` has one entry a member, and it is removed; with
+    ``async_op`` a :class:`Pending`)."""
+    n = group_size(group)
+    if n == 1:
+        return _done(Pending(tensor if tiled else tensor.squeeze(axis)),
+                     async_op)
+    axis = axis % tensor.dim()
+    if tensor.shape[axis] % n:
+        raise ValueError(f"reduce_scatter: dim {axis} "
+                         f"({tensor.shape[axis]}) is not divisible by the "
+                         f"group's {n} members")
+    pending = _scatter_leading(torch.movedim(tensor, axis, 0), group, n,
+                               async_op)
+    if axis:
+        pending = pending.then(
+            lambda out: torch.movedim(out, 0, axis).contiguous())
+    if not tiled:
+        pending = pending.then(lambda out: out.squeeze(axis))
+    return _done(pending, async_op)
 
 
 @timed_op
 def all_to_all(tensor: torch.Tensor, group=None, split_axis: int = 0,
                concat_axis: int = 0, tiled: bool = True) -> torch.Tensor:
     """All-to-all (the Ulysses primitive): ``split_axis`` is split over
-    the members and their pieces are joined along ``concat_axis``."""
-    _one_rank(group, "all_to_all")
+    the members, member i's piece j goes to member j, and the pieces
+    received are joined along ``concat_axis`` in member order (untiled:
+    ``split_axis`` has one entry a member and the pieces stack on a new
+    ``concat_axis``)."""
+    import torch.distributed as dist
+    n = group_size(group)
+    if n == 1:
+        return tensor if tiled else torch.movedim(tensor, split_axis,
+                                                  concat_axis)
+    split_axis = split_axis % tensor.dim()
+    if tensor.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} "
+                         f"({tensor.shape[split_axis]}) is not divisible by "
+                         f"the group's {n} members")
+    stacked = torch.stack(tensor.chunk(n, dim=split_axis), 0).contiguous()
+    out = torch.empty_like(stacked)
+    dist.all_to_all_single(out, stacked, group=group)
+    recv = out.unbind(0)
     if tiled:
-        return tensor
-    return torch.movedim(tensor, split_axis, concat_axis)
+        return torch.cat(recv, dim=concat_axis)
+    return torch.stack([r.squeeze(split_axis) for r in recv], concat_axis)
 
 
 @timed_op
 def permute(tensor: torch.Tensor, group=None,
             perm: Sequence[tuple] = ((0, 0),)) -> torch.Tensor:
-    """Point-to-point as a permutation of ``(src, dst)`` pairs; a member
-    no pair sends to receives zeros."""
-    _one_rank(group, "permute")
-    return _zeros_unless((0, 0) in {tuple(p) for p in perm}, tensor)
+    """Point-to-point as a permutation of ``(src, dst)`` pairs of member
+    indices; a member no pair sends to receives zeros.  Carried by an
+    all-gather (one payload a member)."""
+    n = group_size(group)
+    me = axis_index(group)
+    src = [s for s, d in perm if d == me]
+    if n == 1:
+        return _zeros_unless(bool(src), tensor)
+    if not src:
+        # every member takes part in the gather
+        all_gather.__wrapped__(tensor, group, 0, False)
+        return torch.zeros_like(tensor)
+    return all_gather.__wrapped__(tensor, group, 0, False)[src[0]]
 
 
 def send_recv_next(tensor: torch.Tensor, group=None,
                    axis_size: int = 1) -> torch.Tensor:
-    """Shift +1 along a ring of ``axis_size`` members."""
-    _one_rank(group, "send_recv_next")
-    return tensor
+    """Shift +1 along a ring of ``axis_size`` members (not logged, as
+    JAX's ppermute here is not)."""
+    return permute.__wrapped__(tensor, group,
+                   [(i, (i + 1) % axis_size) for i in range(axis_size)])
 
 
 def send_recv_prev(tensor: torch.Tensor, group=None,
                    axis_size: int = 1) -> torch.Tensor:
-    """Shift -1 along a ring of ``axis_size`` members."""
-    _one_rank(group, "send_recv_prev")
-    return tensor
+    """Shift -1 along a ring of ``axis_size`` members (not logged)."""
+    return permute.__wrapped__(tensor, group,
+                   [(i, (i - 1) % axis_size) for i in range(axis_size)])
 
 
 @timed_op
 def broadcast(tensor: torch.Tensor, group=None, src: int = 0
               ) -> torch.Tensor:
-    """Every member gets ``src``'s tensor."""
-    _one_rank(group, "broadcast")
-    return _zeros_unless(src == 0, tensor)
+    """Every member gets member ``src``'s tensor."""
+    import torch.distributed as dist
+    if group_size(group) == 1:
+        return _zeros_unless(src == 0, tensor)
+    out = tensor.contiguous().clone()
+    dist.broadcast(out, _global_rank(group, src), group=group)
+    return out
 
 
 def axis_index(group=None) -> int:
@@ -186,7 +324,8 @@ def reduce(tensor: torch.Tensor, group=None, dst: int = 0,
            op: str = "sum") -> torch.Tensor:
     """Rooted reduce: member ``dst`` gets the reduction, the others keep
     their input."""
-    return all_reduce.__wrapped__(tensor, group, op)
+    red = all_reduce.__wrapped__(tensor, group, op)
+    return red if axis_index(group) == dst else tensor
 
 
 @timed_op
@@ -194,8 +333,8 @@ def gather(tensor: torch.Tensor, group=None, dst: int = 0,
            axis: int = 0) -> torch.Tensor:
     """Rooted gather: member ``dst`` gets the stacked tensors (a new axis
     at ``axis``), the others zeros."""
-    _one_rank(group, "gather")
-    return _zeros_unless(dst == 0, tensor.unsqueeze(axis))
+    g = all_gather.__wrapped__(tensor, group, axis, False)
+    return _zeros_unless(axis_index(group) == dst, g)
 
 
 @timed_op
@@ -203,8 +342,15 @@ def scatter(tensor: torch.Tensor, group=None, src: int = 0,
             axis: int = 0) -> torch.Tensor:
     """Rooted scatter: every member gets its ``axis`` slice of ``src``'s
     tensor."""
-    _one_rank(group, "scatter")
-    return _zeros_unless(src == 0, tensor)
+    n = group_size(group)
+    full = broadcast.__wrapped__(tensor, group, src)
+    if n == 1:
+        return full
+    if full.shape[axis] % n:
+        raise ValueError(
+            f"scatter: dim {axis} ({full.shape[axis]}) not divisible by "
+            f"the group's {n} members")
+    return full.chunk(n, dim=axis)[axis_index(group)].clone()
 
 
 def inference_all_reduce(tensor: torch.Tensor, group=None) -> torch.Tensor:
@@ -246,17 +392,17 @@ def reduce_scatter_coalesced(tensors, group=None, axis: int = 0):
 
 
 def new_group(ranks: Sequence[int]):
-    """A process group over ``ranks`` (``torch.distributed.new_group``
-    once a process group is initialised); at one process the only group
-    is rank 0's, the default group (None)."""
-    ranks = [int(r) for r in ranks]
+    """A process group over ``ranks`` (``torch.distributed.new_group``,
+    which every rank of the default group calls with the same ranks);
+    without a process group the only group is rank 0's, None."""
+    ranks = sorted(int(r) for r in ranks)
     if _dist_ready():
         import torch.distributed as dist
         return dist.new_group(ranks)
     if ranks not in ([], [0]):
-        raise ValueError(f"new_group({ranks}): this process is the only "
-                         "rank (0); several ranks need ROADMAP Queue 1 "
-                         "item 4")
+        raise ValueError(f"new_group({ranks}): no process group is "
+                         "initialised, so this process is the only rank "
+                         "(0); call init_distributed first")
     return None
 
 
@@ -274,6 +420,19 @@ def get_world_group():
 
 _initialized = False
 
+#: the seconds a collective may wait before it fails, unless the caller
+#: gives ``timeout``
+DEFAULT_TIMEOUT_S = 300.0
+
+
+def rank_device(local_rank: int, local_size: int) -> Optional[int]:
+    """The card index a rank process takes: ``local_rank`` when the
+    machine has a card for every local rank, else 0 (ranks share one
+    card); None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    return local_rank if torch.cuda.device_count() >= local_size else 0
+
 
 def init_distributed(dist_backend: str = "nccl",
                      timeout: Optional[float] = None,
@@ -282,10 +441,16 @@ def init_distributed(dist_backend: str = "nccl",
                      coordinator_address: Optional[str] = None,
                      auto_mpi_discovery: bool = True) -> None:
     """Rendezvous of the launcher's processes (JAX ``init_distributed``).
-    Reads ``WORLD_SIZE`` (or ``DS_TPU_NUM_PROCESSES``) when
-    ``world_size`` is not given; one process needs no rendezvous, so
-    world size 1 only marks the facade initialised.  More processes raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 4)."""
+    Reads ``WORLD_SIZE`` (or ``DS_TPU_NUM_PROCESSES``), ``RANK``,
+    ``MASTER_ADDR`` and ``MASTER_PORT`` where the arguments do not say;
+    one process needs no rendezvous, so world size 1 only marks the
+    facade initialised.  More processes join a ``torch.distributed``
+    process group over ``dist_backend`` (``"nccl"`` or ``"gloo"``) with
+    a finite ``timeout`` (seconds, default :data:`DEFAULT_TIMEOUT_S`).
+    A rank with a card first takes ``cuda:LOCAL_RANK``, or ``cuda:0``
+    when the machine has fewer cards than local ranks
+    (:func:`rank_device`); NCCL needs a card of its own per rank and
+    raises without one, as it does without CUDA."""
     global _initialized
     if _initialized:
         return
@@ -300,11 +465,36 @@ def init_distributed(dist_backend: str = "nccl",
         addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
         port = os.environ.get("MASTER_PORT", "29500")
         coordinator_address = f"{addr}:{port}"
-    raise NotImplementedError(
-        f"init_distributed over {world_size} processes (rank {rank}, "
-        f"coordinator {coordinator_address}, backend {dist_backend}) is "
-        "not ported yet: the port runs one process (ROADMAP Queue 1 item "
-        "4)")
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    local_size = int(os.environ.get("LOCAL_SIZE", str(world_size)))
+    card = rank_device(local_rank, local_size)
+    if dist_backend == "nccl":
+        if card is None:
+            raise RuntimeError(
+                f"init_distributed: backend 'nccl' at {coordinator_address} "
+                f"(rank {rank} of {world_size}) needs a CUDA device and "
+                "torch sees none; pass dist_backend='gloo' to run on the "
+                "host")
+        if torch.cuda.device_count() < local_size:
+            raise RuntimeError(
+                f"init_distributed: backend 'nccl' at {coordinator_address}"
+                f" needs one card per local rank ({local_size} ranks, "
+                f"{torch.cuda.device_count()} cards): NCCL refuses two "
+                "ranks on one device; pass dist_backend='gloo'")
+    elif dist_backend != "gloo":
+        raise ValueError(f"init_distributed: backend {dist_backend!r} is "
+                         "not 'nccl' or 'gloo'")
+    if card is not None:
+        torch.cuda.set_device(card)
+    import torch.distributed as dist
+    logger.info("init_distributed: %s coordinator=%s rank=%d world=%d",
+                dist_backend, coordinator_address, rank, world_size)
+    dist.init_process_group(
+        backend=dist_backend, init_method=f"tcp://{coordinator_address}",
+        world_size=world_size, rank=rank,
+        timeout=datetime.timedelta(seconds=float(
+            timeout if timeout is not None else DEFAULT_TIMEOUT_S)))
+    _initialized = True
 
 
 def is_initialized() -> bool:
@@ -335,12 +525,13 @@ def get_local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0"))
 
 
-def barrier() -> None:
-    """Host-level barrier over the default group (nothing to wait for at
-    one process)."""
-    if get_world_size() == 1:
+def barrier(group=None) -> None:
+    """Host-level barrier over ``group`` (nothing to wait for at one
+    process)."""
+    if group_size(group) == 1:
         return
-    _one_rank(None, "barrier")
+    import torch.distributed as dist
+    dist.barrier(group=group)
 
 
 def monitored_barrier(timeout: float = 300.0) -> float:

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Any, Dict, FrozenSet, List, Optional, Tuple
@@ -607,6 +608,12 @@ def _layer_body(cfg: TransformerConfig, lp, x, sin, cos, mask,
     return x + _mlp_block(cfg, lp["mlp"], h)
 
 
+def _gathered_layer_body(zero3, i: int, cfg: TransformerConfig, lp, *args):
+    """:func:`_layer_body` over layer ``i``'s ZeRO-3 pieces, gathered
+    first (``runtime/zero/partitioner.ParamGather``)."""
+    return _layer_body(cfg, zero3.layer(lp, i), *args)
+
+
 def _unbind_tree(tree, n: int) -> List[Dict[str, Any]]:
     """Stacked layer leaves -> n per-layer trees of views.  ``unbind``
     (not indexing) so the backward stacks the n layer gradients of a
@@ -637,6 +644,12 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
              and torch.is_grad_enabled())
     b, s = input_ids.shape
     dev = input_ids.device
+    from ..runtime.zero.partitioner import active_param_gather
+    # ZeRO-3 across ranks: params holds this rank's pieces; the leaves
+    # outside the layers are gathered here, each layer's in its body
+    zero3 = active_param_gather()
+    if zero3 is not None:
+        params = zero3.top(params)
     # as in JAX, only the dense-causal case goes to flash: default
     # positions (no packing), no padding mask, no ALiBi bias
     pure_causal = (cfg.causal and attention_mask is None
@@ -690,12 +703,18 @@ def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
     if cfg.pos_emb == "alibi":
         slopes = torch.from_numpy(alibi_slopes(cfg.num_heads)).to(dev)
         attn_bias = slopes[None, :, None] * positions[:, None, :].float()
-    for lp in layer_trees(cfg, params):
+    for i, lp in enumerate(layer_trees(cfg, params)):
+        if zero3 is not None:
+            # the gather runs inside the remat region: a recomputed
+            # forward gathers the layer again
+            body = functools.partial(_gathered_layer_body, zero3, i)
+        else:
+            body = _layer_body
         if remat:
-            x = remat_call(policy, _layer_body, cfg, lp, x, sin, cos, mask,
+            x = remat_call(policy, body, cfg, lp, x, sin, cos, mask,
                            use_flash, attn_bias)
         else:
-            x = _layer_body(cfg, lp, x, sin, cos, mask, use_flash, attn_bias)
+            x = body(cfg, lp, x, sin, cos, mask, use_flash, attn_bias)
     x = _norm_apply(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = proj(x, table.T)

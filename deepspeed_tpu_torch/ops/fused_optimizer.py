@@ -336,9 +336,18 @@ class FusedLamb(PortOptimizer):
                  weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
                                       weight_decay=weight_decay))
+        #: ``id(p)`` -> the process group over which p is one shard of a
+        #: leaf: its partial norms are summed over the group before the
+        #: trust ratio (the ratio is the whole leaf's)
+        self.norm_groups = {}
 
     def _update(self, p, g, state, group):
         b1, b2 = group["betas"]
-        fused_lamb_flat(p, g, state["exp_avg"], state["exp_avg_sq"],
-                        group["lr"], b1, b2, group["eps"],
-                        group["weight_decay"], state["step"])
+        u, norms = lamb_stage1(p, g, state["exp_avg"], state["exp_avg_sq"],
+                               b1, b2, group["eps"], group["weight_decay"],
+                               state["step"])
+        shards = self.norm_groups.get(id(p))
+        if shards is not None:
+            from ..comm import comm
+            norms = comm.all_reduce(norms.sum(dim=0, keepdim=True), shards)
+        lamb_trust_step(p, u, norms, group["lr"])

@@ -5,9 +5,20 @@ Counterpart of ``deepspeed_tpu/ops/quantization.py:28-86`` (``BLOCK``,
 ``quantize_blockwise``, ``dequantize_blockwise``,
 ``quantize_dequantize``); the kernels (``csrc/quantization.cu``) replace
 ``_quant_kernel`` and ``_dequant_kernel``.  The training engine runs
-them for ZeRO++ quantised weights (``zero_quantized_weights``).  The
-quantised collectives that also use them in the JAX package do nothing
-on one rank and are not ported yet (ROADMAP Queue 1 items 11b, 11e).
+them for ZeRO++ quantised weights (``zero_quantized_weights``) and on
+the int8 gradient wire (ZeRO++ qgZ, ``comm_optimization``).
+
+The quantised collectives (JAX :89-283, the EQuARX recipe) take a
+``torch.distributed`` process group where JAX takes a mesh axis name:
+:func:`quantized_psum_scatter`, :func:`quantized_allreduce`,
+:func:`quantized_grad_reduce_shard`, :func:`quantized_allreduce_ef`,
+:func:`quantized_all_gather` and :class:`QuantizedAllGatherST`
+(``quantized_all_gather_st``).  Each ships int8 codes and fp32 scales
+(``comm.all_to_all`` / ``comm.all_gather``); hop 1's dequantise-and-
+reduce dequantises each received copy (the kernel on the card) and sums
+the copies in rank order in fp32.  Hop 1's codes and scales are JAX's
+bit for bit for the same input; a sum in another order than XLA's moves
+an output by an ulp.
 
 Per block of ``block`` consecutive elements of the flat leaf (zeros past
 its end): ``scale = max(max|x|, 1e-12) / 127`` in fp32, the max taken
@@ -143,3 +154,190 @@ def quantize_dequantize(x: torch.Tensor, block: int = BLOCK,
     the fp32 product equals JAX's fp32 round trip cast to bf16."""
     q, s, pad = quantize_blockwise(x, block)
     return dequantize_blockwise(q, s, pad, x.shape, dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# quantized collectives (ZeRO++ qgZ / EQuARX recipe; JAX :89-283)
+# ---------------------------------------------------------------------------
+
+def _comm():
+    from ..comm import comm
+    return comm
+
+
+def _dequant_sum(q: torch.Tensor, s: torch.Tensor, copies: int
+                 ) -> torch.Tensor:
+    """The fp32 sum over ``copies`` received [rows, block] code blocks
+    (``q`` [copies * rows, block], ``s`` [copies * rows]), each copy
+    dequantised alone, added in rank order."""
+    rows = q.shape[0] // copies
+    block = q.shape[1]
+    out = None
+    for i in range(copies):
+        qi, si = q[i * rows:(i + 1) * rows], s[i * rows:(i + 1) * rows]
+        if si.data_ptr() % 16:
+            # a copy's scales start mid-vector: the kernel reads 16-byte
+            # aligned buffers
+            si = si.clone()
+        d = dequantize_blockwise(qi, si, 0, (rows * block,), torch.float32)
+        out = d if out is None else out.add_(d)
+    return out
+
+
+def quantized_psum_scatter(x: torch.Tensor, group=None,
+                           block: int = BLOCK) -> torch.Tensor:
+    """int8-compressed reduce-scatter over ``group`` along dim 0 (JAX
+    :93): each rank quantises its whole buffer once, ships every other
+    rank its rows of codes and scales (all-to-all), and dequant-reduces
+    the copies it receives.  ``x`` [N, ...], N divisible by the group's
+    size; returns [N/P, ...].  When the blocks straddle the shards it
+    reduces exactly (unquantised reduce-scatter), as JAX does."""
+    comm = _comm()
+    p = comm.group_size(group)
+    shard = x.shape[0] // p
+    q, s, _ = quantize_blockwise(x.float().contiguous(), block)
+    if q.shape[0] % p != 0:
+        return comm.reduce_scatter(x, group, axis=0)
+    q_t = comm.all_to_all(q, group, 0, 0)
+    s_t = comm.all_to_all(s, group, 0, 0)
+    red = _dequant_sum(q_t, s_t, p)
+    total = shard * math.prod(x.shape[1:])
+    return red[:total].reshape((shard,) + tuple(x.shape[1:])).to(x.dtype)
+
+
+def quantized_all_gather(x: torch.Tensor, group=None,
+                         block: int = BLOCK) -> torch.Tensor:
+    """int8-compressed all-gather along dim 0 (ZeRO++ qwZ's wire, JAX
+    :247): every rank's codes and scales gathered, dequantised, each
+    rank's padding cut off."""
+    comm = _comm()
+    p = comm.group_size(group)
+    q, s, pad = quantize_blockwise(x.float().contiguous(), block)
+    qg = comm.all_gather(q, group, axis=0)
+    sg = comm.all_gather(s, group, axis=0)
+    per = q.numel()
+    flat = dequantize_blockwise(qg, sg, 0, (p * per,), torch.float32)
+    n = x.numel()
+    chunks = flat.reshape(p, per)[:, :n] if pad else flat.reshape(p, n)
+    return chunks.reshape((p * x.shape[0],) + tuple(x.shape[1:])).to(
+        x.dtype)
+
+
+def quantized_allreduce(x: torch.Tensor, group=None,
+                        block: int = BLOCK) -> torch.Tensor:
+    """int8-wire all-reduce (JAX :123): a quantised reduce-scatter then a
+    quantised all-gather, the flat tensor padded to whole blocks per
+    rank.  Shape-preserving."""
+    p = _comm().group_size(group)
+    if p == 1:
+        return x
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pad = (-n) % (p * block)
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    shard = quantized_psum_scatter(flat.reshape(p, -1), group, block)
+    full = quantized_all_gather(shard, group, block)
+    out = full.reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def quantized_grad_reduce_shard(g: torch.Tensor, shard_dim: Optional[int],
+                                scatter_group=None, replica_groups=(),
+                                block: int = BLOCK) -> torch.Tensor:
+    """ZeRO++ qgZ's wire for one gradient leaf (JAX :147), every hop
+    int8: a reduce-scatter over ``scatter_group`` (fsdp) that keeps this
+    rank's shard of ``shard_dim``, then an int8 all-reduce over each
+    group of ``replica_groups`` (data).  ``shard_dim`` None: the leaf is
+    replicated, reduced over the replica and scatter groups (exactly
+    below one block).  A sharded leaf whose shard is below one block
+    reduces exactly and keeps its shard."""
+    comm = _comm()
+    replica_groups = tuple(r for r in replica_groups
+                           if comm.group_size(r) > 1)
+    f = comm.group_size(scatter_group)
+    if shard_dim is None:
+        groups = replica_groups + ((scatter_group,) if f > 1 else ())
+        if not groups:
+            return g
+        if g.numel() < block:
+            out = g
+            for grp in groups:
+                out = comm.all_reduce(out, grp)
+            return out
+        out = g
+        for grp in groups:
+            out = quantized_allreduce(out, grp, block)
+        return out.to(g.dtype)
+    x = torch.movedim(g, shard_dim, 0)
+    lead = x.shape[0]
+    rest = tuple(x.shape[1:])
+    chunk = (lead // f) * math.prod(rest)
+    if f > 1 and chunk < block:
+        red = g
+        for grp in replica_groups + (scatter_group,):
+            red = comm.all_reduce(red, grp)
+        idx = comm.axis_index(scatter_group)
+        return red.narrow(shard_dim, idx * (lead // f), lead // f).clone()
+    out = g
+    if f > 1:
+        x2 = x.reshape(f, chunk)
+        pad = (-chunk) % block
+        if pad:
+            x2 = torch.nn.functional.pad(x2, (0, pad))
+        shard = quantized_psum_scatter(x2, scatter_group, block)
+        shard = shard.reshape(-1)[:chunk]
+        out = torch.movedim(shard.reshape((lead // f,) + rest), 0, shard_dim)
+    for grp in replica_groups:
+        out = quantized_allreduce(out, grp, block)
+    return out.to(g.dtype)
+
+
+def quantized_allreduce_ef(x: torch.Tensor, group, world: int,
+                           block: int = BLOCK
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The collective scheduler's bucket wire (JAX :209): one two-hop
+    int8 exchange over ``group`` (all of the reduced axes at once) that
+    also returns this rank's first-hop error ``x - Q(x)`` for error
+    feedback.  ``x`` is flat with ``x.numel() % (world * block) == 0``
+    (the bucket plan aligns it).  Returns ``(allreduced, error)``."""
+    comm = _comm()
+    xf = x.float().contiguous()
+    q, s, _ = quantize_blockwise(xf, block)
+    shipped = dequantize_blockwise(q, s, 0, tuple(x.shape), torch.float32)
+    err = (xf - shipped).to(x.dtype)
+    rows = q.shape[0]
+    # hop 1: codes and scales to the owning rank, dequant-reduce
+    qt = comm.all_to_all(q, group, 0, 0)
+    st = comm.all_to_all(s, group, 0, 0)
+    vals = _dequant_sum(qt, st, world)
+    # hop 2: the reduced shard requantised, int8 all-gather
+    q2, s2, _ = quantize_blockwise(vals, block)
+    qg = comm.all_gather(q2, group, axis=0)
+    sg = comm.all_gather(s2, group, axis=0)
+    full = dequantize_blockwise(qg, sg, 0, (rows * block,), torch.float32)
+    return full.reshape(x.shape).to(x.dtype), err
+
+
+class QuantizedAllGatherST(torch.autograd.Function):
+    """Straight-through :func:`quantized_all_gather` (JAX
+    ``quantized_all_gather_st`` :262-283): the forward gathers int8
+    shards, the backward is the exact all-gather transpose (a tiled
+    reduce-scatter of the cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group=None, block: int = BLOCK):
+        ctx.group = group
+        return quantized_all_gather(x, group, block)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return _comm().reduce_scatter(ct.contiguous(), ctx.group,
+                                      axis=0), None, None
+
+
+def quantized_all_gather_st(x: torch.Tensor, group=None,
+                            block: int = BLOCK) -> torch.Tensor:
+    return QuantizedAllGatherST.apply(x, group, block)

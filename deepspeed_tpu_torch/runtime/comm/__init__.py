@@ -1,3 +1,6 @@
-"""Compressed-communication optimizers (1-bit Adam / LAMB, 0/1 Adam):
-counterpart of ``deepspeed_tpu/runtime/comm/``.  The collective
-scheduler is not ported (one rank has no collective; ROADMAP item 11e)."""
+"""Gradient communication (counterpart of ``deepspeed_tpu/runtime/comm/``):
+the collective scheduler (bucketed, int8-quantised gradient reduction)
+and the compressed-communication optimizers (1-bit Adam / LAMB, 0/1
+Adam)."""
+
+from .collective_scheduler import Bucket, CollectiveScheduler  # noqa: F401

@@ -6,7 +6,7 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` (``OptimizerParams``
 :597, ``precision_dtype`` :686,
 ``resolve_batch_sizes`` :652), as plain dataclasses.  A config is a dict
 or a JSON path with the keys users already write.  The slice is one
-device; bf16 (fp32 masters and fp32 gradient accumulation, or pure bf16
+device or a process mesh (below); bf16 (fp32 masters and fp32 gradient accumulation, or pure bf16
 with ``bf16.master_weights`` / ``accumulate_grads_in_fp32`` false), fp16
 (``FP16Config``: static or dynamic loss scaling; the compute runs in
 bf16, as in the JAX engine) or fp32; every optimizer name of the JAX
@@ -60,14 +60,21 @@ the device; Adagrad and ``adam_w_mode=False`` have host kernels only and
 raise unless every leaf is offloaded.  The keys of ``NOOP_KEYS`` are
 accepted and the engine warns that they change nothing, as JAX's do.
 
-ZeRO on one device: the partition over one rank is the identity, so
-stages 1, 2 and 3 keep masters, gradients and moments whole and give
-stage 0's numbers, as the JAX engine does on a one-device mesh.  The
-only number a stage changes is ``zero_quantized_weights`` (ZeRO++ qwZ)
-at stage 3: every floating leaf of two or more dimensions is snapped to
-the blockwise int8 grid once per step before the compute cast.  Below
-stage 3 it changes nothing, as in JAX (``engine.py:641``).  The keys in
-``ZERO_ONE_RANK_NOOPS`` are accepted and do nothing on one rank.
+ZeRO across ranks: ``zero_optimization.stage`` 1-3 partition masters,
+moments, gradients and (stage 3) parameters over the ``fsdp`` axis of
+the process mesh (``tpu.mesh`` with ``data``, ``fsdp`` and ``hpz``;
+without one, every rank goes to ``fsdp`` from stage 1 and to ``data``
+at stage 0, as JAX ``_topology_from_config`` lays it out), with ZeRO++
+hpZ (``zero_hpz_partition_size``), MiCS (``mics_shard_size``), qgZ
+(``zero_quantized_gradients``) and the ``comm_optimization`` scheduler.
+At one rank the partition is the identity and stages 1-3 give stage
+0's numbers, but for ``zero_quantized_weights`` (ZeRO++ qwZ) at stage
+3: every floating leaf of two or more dimensions is snapped to the
+blockwise int8 grid once per step before the compute cast (below stage
+3 it changes nothing, as in JAX ``engine.py:641``).  The keys in
+``ZERO_ONE_RANK_NOOPS`` are accepted and change nothing but the
+accessors' values (``stage3_param_persistence_threshold`` also keeps
+small leaves whole at stage 3 across ranks).
 """
 
 from __future__ import annotations
@@ -88,9 +95,9 @@ CPU_LION_TYPES = ("cpulion",)
 #: Adagrad has a host kernel only: it runs with every leaf offloaded
 ADAGRAD_TYPES = ("adagrad", "cpuadagrad")
 
-#: zero_optimization keys that do nothing on one rank (buckets,
-#: communication overlap, stage-3 prefetch and persistence, MiCS and
-#: ZeRO++ knobs at their one-rank values)
+#: zero_optimization keys the engine's accessors read and its numbers do
+#: not depend on (buckets, communication overlap, stage-3 prefetch; the
+#: persistence threshold also keeps small leaves whole at stage 3)
 ZERO_ONE_RANK_NOOPS = (
     "contiguous_gradients", "reduce_scatter", "reduce_bucket_size",
     "allgather_partitions", "allgather_bucket_size", "overlap_comm",
@@ -117,7 +124,6 @@ def _enabled(section: Dict[str, Any]) -> bool:
 
 # config section -> (does it switch a feature on?, ROADMAP Queue 1 item)
 _OUTSIDE_SLICE = {
-    "comm_optimization": (_enabled, "11e (quantized collectives)"),
     "compression_training": (lambda s: any(s.values()),
                              "11e (compression)"),
     "pipeline": (lambda s: s.get("stages", 1) > 1,
@@ -139,25 +145,27 @@ _READ = ("train_batch_size", "train_micro_batch_size_per_gpu",
          "communication_data_type", "seq_parallel_communication_data_type",
          "sparse_gradients", "dump_state", "disable_allgather",
          "comms_logger", "hybrid_engine", "elasticity", "autotuning",
-         "serving_optimization")
+         "serving_optimization", "comm_optimization")
 
 #: keys accepted for compatibility that change nothing, with the reason
 #: logged when a config sets one (JAX ``config.py:_NOOP_KEYS``)
 NOOP_KEYS = {
     ("zero_optimization", "overlap_comm"):
-        "one rank has no collective to overlap",
+        "collectives run in the step's order (comm_optimization.overlap "
+        "reduces per micro-batch)",
     ("zero_optimization", "contiguous_gradients"):
         "each leaf's gradient is one fp32 tensor already",
     ("zero_optimization", "reduce_bucket_size"):
-        "one rank has no gradient reduction to bucket",
+        "gradients reduce leaf by leaf (comm_optimization sizes the "
+        "quantized wire's buckets)",
     ("zero_optimization", "allgather_bucket_size"):
-        "one rank has no gather to bucket",
+        "parameters gather leaf by leaf",
     ("zero_optimization", "round_robin_gradients"):
-        "one rank owns every gradient",
+        "each rank reduces the same leaves in the same order",
     ("zero_optimization", "memory_efficient_linear"):
         "the remat policies cover it; see tpu.remat_policy",
     ("zero_optimization", "mics_hierarchical_params_gather"):
-        "one rank has no gather",
+        "a MiCS gather is one all-gather over the shard group",
     ("activation_checkpointing", "contiguous_memory_optimization"):
         "PyTorch's caching allocator owns activation buffers",
     ("activation_checkpointing", "number_checkpoints"):
@@ -277,15 +285,28 @@ MATMUL_PRECISION = {"default": "highest", "float32": "highest",
                     "high": "high", "bfloat16": "medium"}
 
 
-def _tpu(section: Dict[str, Any]) -> Tuple[Dict[str, Any], str]:
+#: ``tpu.mesh`` axes the port runs at any size; the others must be 1
+MESH_PORTED = ("data", "fsdp", "hpz")
+#: the other axes, with the ROADMAP Queue 1 item that brings each
+MESH_WAITING = {"tensor": "11b / 13 (tensor parallelism)",
+                "seq": "11h (sequence parallelism)",
+                "pipe": "11h (pipeline)", "expert": "11h (experts)"}
+
+
+def _tpu(section: Dict[str, Any]
+         ) -> Tuple[Dict[str, Any], str, Dict[str, int]]:
     """The ``tpu`` section -> (the model keys it sets, the matmul
-    precision).  ``mesh`` is accepted when every axis is 1 or -1 (one
-    device)."""
+    precision, the mesh).  ``mesh`` takes the data, fsdp and hpz axes;
+    another axis raises unless it is 1 or -1."""
     section = dict(section or {})
-    mesh = section.pop("mesh", {}) or {}
-    if any(int(n) not in (1, -1) for n in mesh.values()):
-        raise outside_slice(f"tpu.mesh {mesh} (axes over several devices)",
-                            "11b (ZeRO and model parallelism)")
+    mesh = {k: int(v) for k, v in (section.pop("mesh", {}) or {}).items()}
+    for axis, n in mesh.items():
+        if axis in MESH_WAITING and n not in (1, -1):
+            raise outside_slice(f"tpu.mesh {mesh} (axis {axis!r})",
+                                MESH_WAITING[axis])
+        if axis not in MESH_PORTED and axis not in MESH_WAITING:
+            raise ValueError(f"tpu.mesh axis {axis!r} is not one of "
+                             f"{MESH_PORTED + tuple(MESH_WAITING)}")
     for key in TPU_UNREAD:
         section.pop(key, None)
     precision = str(section.pop("matmul_precision", "default"))
@@ -297,7 +318,7 @@ def _tpu(section: Dict[str, Any]) -> Tuple[Dict[str, Any], str]:
         raise NotImplementedError(
             f"tpu keys {unknown} are not fields of the JAX package's tpu "
             f"section; the port refuses a key it would drop")
-    return section, precision
+    return section, precision, mesh
 
 
 @dataclasses.dataclass
@@ -452,6 +473,28 @@ class MonitorConfigItem:
 
 
 @dataclasses.dataclass
+class CommOptimizationConfig:
+    """The ``comm_optimization`` section (JAX ``CommOptimizationConfig``):
+    the collective scheduler's knobs (``runtime/comm/
+    collective_scheduler.py``): byte-sized gradient buckets, each on the
+    int8 block-scaled wire (``quantize``) with persistent error-feedback
+    residuals (``error_feedback``), reduced per micro-batch
+    (``overlap``) or once at the accumulation boundary."""
+    enabled: bool = False
+    allreduce_bucket_size: int = int(5e8)
+    quantize: bool = True
+    quantize_dtype: str = "int8"
+    overlap: bool = True
+    error_feedback: bool = True
+    quantization_block: int = 512
+
+    def __post_init__(self):
+        if self.quantize_dtype != "int8":
+            raise ValueError(f"comm_optimization.quantize_dtype must be "
+                             f"'int8', got {self.quantize_dtype!r}")
+
+
+@dataclasses.dataclass
 class CommsLoggerConfig:
     """The ``comms_logger`` section (JAX ``CommsLoggerConfig``): with
     ``enabled`` the engine configures the comms logger at build
@@ -568,6 +611,7 @@ def _section(cls, name: str, section: Optional[Dict[str, Any]]):
 MONITORS = ("tensorboard", "wandb", "csv_monitor", "comet")
 #: sections parsed whole into their dataclass
 SECTIONS = {"comms_logger": CommsLoggerConfig,
+            "comm_optimization": CommOptimizationConfig,
             "elasticity": ElasticityConfig,
             "autotuning": AutotuningConfig,
             "hybrid_engine": HybridEngineConfig,
@@ -590,6 +634,14 @@ class TrainingConfig:
     zero_stage: int = 0
     #: ZeRO++ qwZ; acts at zero_stage 3 only
     zero_quantized_weights: bool = False
+    #: ZeRO++ qgZ (the int8 gradient wire from stage 2, through the
+    #: collective scheduler), hpZ's secondary partition and MiCS's shard
+    #: size (JAX ``ZeroConfig``)
+    zero_quantized_gradients: bool = False
+    zero_hpz_partition_size: int = 1
+    mics_shard_size: int = -1
+    #: the ``tpu.mesh`` axis sizes the config set (data, fsdp, hpz)
+    mesh: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: ZeRO-Offload of the optimizer (fp32 masters and moments on the
     #: host, the step in the host kernels)
     offload_optimizer: OffloadConfig = dataclasses.field(
@@ -651,6 +703,8 @@ class TrainingConfig:
     sparse_gradients: bool = False
     comms_logger: CommsLoggerConfig = dataclasses.field(
         default_factory=CommsLoggerConfig)
+    comm_optimization: CommOptimizationConfig = dataclasses.field(
+        default_factory=CommOptimizationConfig)
     elasticity: ElasticityConfig = dataclasses.field(
         default_factory=ElasticityConfig)
     autotuning: AutotuningConfig = dataclasses.field(
@@ -674,21 +728,38 @@ class TrainingConfig:
         (qwZ at stage 3; below it the flag changes nothing, as in JAX)."""
         return self.zero_stage >= 3 and self.zero_quantized_weights
 
-    def resolve_batch_sizes(self) -> None:
-        """Enforce train_batch = micro * gas on one device, inferring what
-        is missing (gas 1 and micro 1 when nothing else says)."""
+    def resolve_batch_sizes(self, batch_parallel_world: int = 1) -> None:
+        """Enforce train_batch = micro * gas * dp (JAX
+        ``resolve_batch_sizes``; ``dp`` the mesh's batch shards),
+        inferring what is missing (gas 1 and micro 1 when nothing else
+        says)."""
         tb, mb, gas = (self.train_batch_size,
                        self.train_micro_batch_size_per_gpu,
                        self.gradient_accumulation_steps)
+        dp = int(batch_parallel_world)
+        if tb is not None and mb is None and gas is not None:
+            if tb % (gas * dp):
+                raise ValueError(f"train_batch_size {tb} not divisible by "
+                                 f"gas*dp {gas * dp}")
+            mb = tb // (gas * dp)
         if gas is None:
-            gas = tb // mb if tb is not None and mb is not None else 1
+            if tb is not None and mb is not None:
+                if tb % (mb * dp):
+                    raise ValueError(f"train_batch_size {tb} not divisible "
+                                     f"by micro*dp {mb * dp}")
+                gas = tb // (mb * dp)
+            else:
+                gas = 1
         if mb is None:
-            mb = tb // gas if tb is not None else 1
+            if tb is not None and tb % (gas * dp):
+                raise ValueError(f"train_batch_size {tb} not divisible by "
+                                 f"dp {dp}")
+            mb = tb // (gas * dp) if tb is not None else 1
         if tb is None:
-            tb = mb * gas
-        if tb != mb * gas or tb < 1:
+            tb = mb * gas * dp
+        if tb != mb * gas * dp or tb < 1:
             raise ValueError(f"train_batch_size {tb} != micro_batch {mb} "
-                             f"* gas {gas}")
+                             f"* gas {gas} * dp {dp}")
         self.train_batch_size = tb
         self.train_micro_batch_size_per_gpu = mb
         self.gradient_accumulation_steps = gas
@@ -752,8 +823,8 @@ def _precision(config: Dict[str, Any]) -> Tuple[BF16Config, FP16Config]:
 def _zero(section: Dict[str, Any]
           ) -> Tuple[int, bool, OffloadConfig, OffloadConfig]:
     """(stage, zero_quantized_weights, offload_optimizer, offload_param)
-    of a ``zero_optimization`` section; raises for what needs more than
-    one rank or is not ported."""
+    of a ``zero_optimization`` section; raises for a key JAX's
+    ``ZeroConfig`` lacks."""
     stage = int(section.get("stage", 0))
     if stage not in (0, 1, 2, 3):
         raise ValueError(f"ZeRO stage must be 0, 1, 2 or 3, got {stage}")
@@ -764,15 +835,6 @@ def _zero(section: Dict[str, Any]
         if off.device not in (None, "none", "cpu", "nvme"):
             raise ValueError(f"zero_optimization.{key}.device must be "
                              f"none, cpu or nvme, got {off.device!r}")
-    if section.get("zero_quantized_gradients", False):
-        raise outside_slice("zero_optimization.zero_quantized_gradients "
-                            "(ZeRO++ qgZ)", "11e (quantized collectives)")
-    if section.get("zero_hpz_partition_size", 1) > 1:
-        raise outside_slice("zero_optimization.zero_hpz_partition_size > 1 "
-                            "(ZeRO++ hpZ)", "11b (ZeRO across GPUs)")
-    if section.get("mics_shard_size", -1) > 0:
-        raise outside_slice("zero_optimization.mics_shard_size > 0 (MiCS)",
-                            "11b (ZeRO across GPUs)")
     known = {"stage", "offload_optimizer", "offload_param",
              "zero_quantized_weights", "zero_quantized_gradients",
              "zero_hpz_partition_size", "mics_shard_size",
@@ -826,7 +888,8 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
         config.get("zero_optimization", {}))
     optimizer = _optimizer(config.get("optimizer", {}))
     bf16, fp16 = _precision(config)
-    tpu, precision = _tpu(config.get("tpu"))
+    tpu, precision, mesh = _tpu(config.get("tpu"))
+    zsec = config.get("zero_optimization") or {}
     sched = config.get("scheduler")
     return TrainingConfig(
         train_batch_size=config.get("train_batch_size"),
@@ -840,6 +903,10 @@ def load_config(config: Union[str, os.PathLike, Dict[str, Any],
                    if sched is not None else None),
         bf16=bf16, fp16=fp16,
         zero_stage=stage, zero_quantized_weights=qwz,
+        zero_quantized_gradients=bool(
+            zsec.get("zero_quantized_gradients", False)),
+        zero_hpz_partition_size=int(zsec.get("zero_hpz_partition_size", 1)),
+        mics_shard_size=int(zsec.get("mics_shard_size", -1)), mesh=mesh,
         offload_optimizer=off_opt, offload_param=off_param,
         aio=_section(AioConfig, "aio", config.get("aio")),
         activation_checkpointing=_section(

@@ -34,10 +34,49 @@ behaviour, kept; ROADMAP Queue 3).
 
 The accumulators of the leaves the device optimizer steps are the
 masters' ``.grad``, so :attr:`optimizer` is a plain
-``torch.optim.Optimizer`` over those masters.  ZeRO stages 1-3 run
-on one rank, where the partition is the identity: they change no
-number.  Features outside the slice raise ``NotImplementedError`` from
-the config loader or here.
+``torch.optim.Optimizer`` over those masters.  At one rank the ZeRO
+partition is the identity: stages 1-3 change no number.  Features
+outside the slice raise ``NotImplementedError`` from the config loader
+or here.
+
+Across ranks (JAX :96-138 ``_topology_from_config``, the step
+:613-829): each rank process is one position of the process mesh
+(``parallel/topology.py``; every free rank goes to ``fsdp`` from stage
+1 and to ``data`` at stage 0, MiCS is ``data = free // mics`` with
+``fsdp = mics``), the global batch's rows are split over the batch axes
+(``MeshTopology.batch_slice``) and ``runtime/zero/partitioner.py``
+gives each leaf its layouts.  Every micro-batch's gradient is summed
+over ``GRAD_REDUCE_AXES`` on the wire in the compute dtype (JAX's psum
+of the bf16 gradient) and added to an fp32 accumulator that holds the
+rank's master piece: an all-reduce at stage 0, a reduce-scatter over
+the master's axes (and an all-reduce over the others) from stage 1.
+From stage 1 the fp32 masters and moments are the rank's
+``master_spec`` shard and the fused kernel steps the shard; the compute
+copy is all-gathered once per step in the compute dtype (stages 1 and 2
+differ only in the memory the JAX engine's accumulators take, which
+here are shards at both).  Stage 3 hands the model the
+``param_spec`` pieces (over ``hpz`` alone under hpZ): each layer's
+leaves are gathered just before the layer runs and freed after
+(:class:`~.zero.partitioner.ParamGather`, inside the remat region, so a
+recomputed forward gathers again), the gather's backward
+reduce-scatters the gradient, and each piece's gradient is reduced
+over the remaining axes and taken to the master layout.
+Without a remat policy autograd keeps each layer's gathered weights for
+its backward, as it keeps the layer's activations.  Every gradient is
+divided by the batch shards (the loss is the mean over the batch axes,
+as JAX's global mean when every rank holds as many tokens); the clipping
+norm sums each shard once (a replicated leaf counts once); under fp16
+the overflow flag is max-reduced, so every rank skips the same step;
+``train_batch`` reports the loss averaged over the batch ranks.  qwZ at
+stage 3 projects each leaf onto the int8 grid over the gathered leaf's
+flat layout (JAX :635-649), then keeps the piece.  The qgZ flag (stage
+2 or more) and ``comm_optimization`` route the gradients through
+``runtime/comm/collective_scheduler.py`` under JAX's gates (:396-464);
+its error-feedback residuals are :attr:`TrainState.comm_residuals` and
+travel in the checkpoint.  Checkpoints across ranks: rank 0 gathers the
+shards and writes the one-rank files, every rank reads them and keeps
+its shard, so a checkpoint moves between rank counts.  ZeRO-Offload
+across ranks raises (ROADMAP Queue 1 item 4).
 
 Checkpoints (JAX :1369-1567): :meth:`save_checkpoint` /
 :meth:`load_checkpoint` write and read ``checkpoint/engine.py``'s
@@ -133,6 +172,8 @@ from ..telemetry import metrics as tm
 from ..telemetry.flight_recorder import get_flight_recorder
 from ..telemetry.state import state as telemetry_state
 from ..telemetry.watchdog import get_watchdog
+from ..parallel.topology import (BATCH_AXES, GRAD_REDUCE_AXES, MeshTopology,
+                                 TopologyConfig)
 from ..tree import tree_leaves, tree_map
 from ..utils.logging import logger
 from ..utils.timer import (TRAIN_BATCH_TIMER, SynchronizedWallClockTimer,
@@ -144,6 +185,8 @@ from .fault_injection import (InjectedCollectiveFault, TransientFault,
                               get_fault_injector)
 from .lr_schedules import LRScheduler, get_lr_schedule
 from .optimizers import get_optimizer
+from .zero.partitioner import (ParamGather, ZeroPartitioner, blocked_dims_of,
+                               gather_shard, names_leaves, scatter_sum)
 
 
 def _is_float(x) -> bool:
@@ -251,6 +294,79 @@ ZERO_DEFAULTS = {
     "round_robin_gradients": False, "memory_efficient_linear": True}
 assert set(ZERO_DEFAULTS) == set(ZERO_ONE_RANK_NOOPS)
 
+#: optimizers whose update is elementwise but for LAMB's per-leaf norms
+#: (summed over the shards): the ones a shard can step
+SHARDABLE_KINDS = ("adamw", "adam_l2", "lion", "lamb", "sgd", "adagrad")
+
+
+def topology_from_config(config: TrainingConfig,
+                         world_size: Optional[int] = None,
+                         rank: Optional[int] = None,
+                         groups: bool = True) -> MeshTopology:
+    """The process mesh a config asks for (JAX ``_topology_from_config``,
+    ``engine.py:96-138``): ``tpu.mesh``'s axes, hpz from the mesh or
+    ``zero_hpz_partition_size``; without a data or fsdp axis every free
+    rank goes to ``fsdp`` from stage 1 and to ``data`` at stage 0, and
+    MiCS (stage 3) is ``data = free // mics_shard_size`` with ``fsdp =
+    mics_shard_size``.  ``groups=False`` makes no process group (the
+    layout alone, for any rank)."""
+    from ..comm import comm
+    mesh = dict(config.mesh)
+    hpz = max(1, int(mesh.get("hpz", config.zero_hpz_partition_size)))
+    tcfg = TopologyConfig(data=mesh.get("data", -1),
+                          fsdp=mesh.get("fsdp", 1), hpz=hpz)
+    n = comm.get_world_size() if world_size is None else int(world_size)
+    if "data" not in mesh and "fsdp" not in mesh:
+        if n % hpz != 0:
+            raise ValueError(
+                f"mesh axes pipe=1 expert=1 hpz={hpz} seq=1 tensor=1 "
+                f"(product {hpz}) do not divide device count {n}")
+        free = n // hpz
+        mics = config.mics_shard_size
+        if mics > 0 and config.zero_stage >= 3:
+            if free % mics != 0:
+                raise ValueError(f"mics_shard_size {mics} does not divide "
+                                 f"the {free} free devices")
+            tcfg = dataclasses.replace(tcfg, data=free // mics, fsdp=mics)
+        elif config.zero_stage >= 1:
+            tcfg = dataclasses.replace(tcfg, data=1, fsdp=free)
+        else:
+            tcfg = dataclasses.replace(tcfg, data=free, fsdp=1)
+    return MeshTopology(tcfg, world_size=n, rank=rank, groups=groups)
+
+
+class _Reduction:
+    """A leaf's gradient reduction in flight: ``first`` (a started
+    ``comm.Pending``), then an all-reduce over ``rest`` (a group, or
+    None) and ``reshard`` (or nothing), run by :meth:`wait`."""
+
+    def __init__(self, first, rest=None, reshard=None):
+        self.first, self.rest, self.reshard = first, rest, reshard
+
+    def wait(self) -> torch.Tensor:
+        from ..comm import comm
+        out = self.first.wait()
+        if self.rest is not None:
+            out = comm.all_reduce(out, self.rest)
+        return self.reshard(out) if self.reshard is not None else out
+
+
+def _whole_blocks(lay, shape) -> bool:
+    """Whether every contiguous run of a piece cut by ``lay`` from a leaf
+    of ``shape`` is whole quantisation blocks of the leaf's flat layout
+    (a run is the chunk times the dims after it, and runs start at
+    multiples of the whole dim times those)."""
+    from ..ops.quantization import BLOCK
+    if not lay.sharded:
+        return True
+    return math.prod(lay.local_shape(shape)[lay.dim:]) % BLOCK == 0
+
+
+def _unflatten(tree, leaves: List[Any]):
+    """``tree``'s dict structure over ``leaves`` (tree order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
 
 
 class DeepSpeedEngine:
@@ -268,9 +384,22 @@ class DeepSpeedEngine:
                  model_parameters: Optional[Dict[str, Any]] = None,
                  lr_scheduler: Optional[Callable[[int], float]] = None,
                  device: DeviceLike = None, training_data: Any = None,
-                 collate_fn: Optional[Callable] = None):
+                 collate_fn: Optional[Callable] = None,
+                 topology: Optional[MeshTopology] = None):
         self.config: TrainingConfig = load_config(config)
-        self.config.resolve_batch_sizes()
+        from ..comm import comm
+        comm.init_distributed()
+        #: the process mesh (JAX ``self.topology``)
+        self.topology = (topology if topology is not None
+                         else topology_from_config(self.config))
+        #: more than one rank: the ZeRO partition and the collectives act
+        self._multi = self.topology.world_size > 1
+        if self._multi and self.config.offload_optimizer.enabled:
+            raise NotImplementedError(
+                "ZeRO-Offload across ranks (a host optimizer and "
+                "offload_rank{r}.npz per rank) is not in the port yet "
+                "(ROADMAP Queue 1 item 4, rest)")
+        self.config.resolve_batch_sizes(self.topology.batch_shard_size)
         self.device = resolve_device(device)
         if not isinstance(model, Model):
             raise TypeError("model must define init_params(seed, device) "
@@ -303,6 +432,25 @@ class DeepSpeedEngine:
                                 f"{type(t).__name__}")
         #: each leaf's ``/``-joined tree path, in tree order
         self.param_paths = leaf_paths(tree)
+        #: each leaf's whole shape, in tree order
+        self.param_shapes = [tuple(t.shape) for t in tree_leaves(tree)]
+        #: the collective scheduler (None: exact per-leaf collectives)
+        self.comm_scheduler = self._build_comm_scheduler()
+        self.partitioner = ZeroPartitioner(
+            self.topology, cfg.zero_stage,
+            persistence_threshold=int(self._zero(
+                "stage3_param_persistence_threshold")),
+            blocked=blocked_dims_of(model), named=names_leaves(model))
+        #: per leaf: this rank's piece of the master (and moments) and of
+        #: the compute copy
+        self._mlayouts = [self.partitioner.master_layout(t, p) for p, t in
+                          zip(self.param_paths, tree_leaves(tree))]
+        self._playouts = [self.partitioner.param_layout(t, p) for p, t in
+                          zip(self.param_paths, tree_leaves(tree))]
+        #: stage 3 across ranks hands the model pieces (else whole leaves;
+        #: a live scheduler reduces whole-leaf gradients, as JAX's)
+        self._pieces = (self._multi and cfg.zero_stage >= 3
+                        and self.comm_scheduler is None)
         #: ZeRO-Offload's host optimizer (JAX ``_maybe_enable_offload``)
         self.offload = None
         offloaded = set()
@@ -321,8 +469,13 @@ class DeepSpeedEngine:
                 # the device keeps the compute-dtype copy (the offload
                 # memory win)
                 return t.detach().to(self.device, self.compute_dtype)
+            lay = self._mlayouts[self.param_paths.index(path)]
+            if lay.sharded:
+                return lay.shard(t.detach()).to(
+                    self.device, self.master_dtype, copy=True).contiguous()
             return t.detach().to(self.device, self.master_dtype, copy=copy)
-        #: the weights in the model's tree layout: the masters (fp32, or
+        #: the weights in the model's tree layout (across ranks: this
+        #: rank's master shards): the masters (fp32, or
         #: bf16 under pure bf16), and for offloaded leaves their
         #: compute-dtype copy
         self.params = _tree_with_paths(tree, master)
@@ -332,9 +485,10 @@ class DeepSpeedEngine:
         #: offloaded leaves too: their sum is cast to fp32 at the
         #: device -> host copy (the staging buffer)
         self._grads: List[torch.Tensor] = []
-        for p, off in zip(self._masters, self._offloaded):
-            g = torch.zeros(p.shape, device=p.device, dtype=self.acc_dtype)
-            if not off and g.dtype == p.dtype:
+        for i, (p, off) in enumerate(zip(self._masters, self._offloaded)):
+            g = torch.zeros(self._acc_shape(i), device=p.device,
+                            dtype=self.acc_dtype)
+            if not off and g.dtype == p.dtype and not self._multi:
                 p.grad = g        # the device optimizer's step gets them too
             self._grads.append(g)
         if self.offload is not None:
@@ -374,6 +528,9 @@ class DeepSpeedEngine:
         #: its state in checkpoints and universal atoms
         self.optimizer_kind = optimizer_kind(
             opt.type, opt.params.adam_w_mode, opt.params.momentum)
+        self._residuals = None
+        if self._multi:
+            self._init_ranks()
 
         self._params_c: Optional[Dict[str, Any]] = None
         self._pending = 0          # micro-batches accumulated this step
@@ -422,6 +579,271 @@ class DeepSpeedEngine:
                         zero_stage=self.config.zero_stage,
                         micro_bs=self.train_micro_batch_size_per_gpu(),
                         gas=self.gradient_accumulation_steps())
+
+    # ------------------------------------------------------------------
+    # across ranks (JAX engine.py:96-138, :396-464, :613-829)
+    # ------------------------------------------------------------------
+    def _acc_shape(self, i: int) -> Tuple[int, ...]:
+        """Leaf i's gradient accumulator: the whole leaf at one rank;
+        across ranks the master's piece (every micro-batch's gradient is
+        reduced before it is added)."""
+        full = self.param_shapes[i]
+        if not self._multi:
+            return full
+        return self._mlayouts[i].local_shape(full)
+
+    def _init_ranks(self) -> None:
+        """What only a run across ranks needs: the refusals of what waits
+        for item 4, the optimizer checked for shards (LAMB's norms summed
+        over them), the scheduler's residuals and stage 3's gather
+        table."""
+        if self.config.flops_profiler.enabled:
+            raise NotImplementedError(
+                "flops_profiler across ranks (a profiled pass over sharded "
+                "weights) is not in the port yet (ROADMAP Queue 1 item 4)")
+        kind = optimizer_kind(self.config.optimizer.type,
+                              self.config.optimizer.params.adam_w_mode,
+                              self.config.optimizer.params.momentum)
+        if self.config.zero_stage >= 1 and kind not in SHARDABLE_KINDS:
+            raise NotImplementedError(
+                f"optimizer {kind!r} on ZeRO shards: its update is not "
+                f"elementwise, and the port steps only {SHARDABLE_KINDS} "
+                "on a shard (ROADMAP Queue 1 item 4)")
+        if hasattr(self.optimizer, "norm_groups"):
+            self.optimizer.norm_groups = {
+                id(self._masters[i]): self.topology.group(lay.axes)
+                for i, lay in enumerate(self._mlayouts) if lay.sharded}
+        sched = self.comm_scheduler
+        #: this rank's error-feedback residuals (JAX ``comm_residuals``'
+        #: row), and the step's working copy
+        self._residuals = (sched.init_residuals(self.device)
+                           if sched is not None else None)
+        self._step_residuals = self._residuals
+        self._flat_acc = (torch.zeros(sched.padded_elems,
+                                      dtype=self.acc_dtype,
+                                      device=self.device)
+                          if sched is not None and not sched.overlap
+                          else None)
+        #: the model gathers its stage-3 pieces layer by layer (a
+        #: transformer's forward reads ``active_param_gather``)
+        self._layerwise = names_leaves(self.module)
+        self._play_by_path = dict(zip(self.param_paths, self._playouts))
+        if self.config.comms_logger.enabled and sched is not None:
+            from .. import comm
+            comm.record_bucket_plan(sched.stats(
+                self.gradient_accumulation_steps()))
+
+    def _build_comm_scheduler(self):
+        """The collective scheduler under JAX's gates: the config asks
+        for it; a data or fsdp axis is larger than 1; no hpz, expert or
+        pipe axis is.  The legacy qgZ flag means quantise on, error
+        feedback off, overlap on."""
+        cfg = self.config
+        if not (cfg.comm_optimization.enabled or (
+                cfg.zero_stage >= 2 and cfg.zero_quantized_gradients)):
+            return None
+        topo = self.topology
+        if not topo.live_axes(("data", "fsdp")):
+            logger.warning(
+                "comm_optimization: no data/fsdp axis larger than 1 — "
+                "nothing to reduce; scheduler disabled")
+            return None
+        if any(topo.axis_size(a) > 1 for a in ("expert", "hpz", "pipe")):
+            logger.warning(
+                "comm_optimization: expert/hpz/pipe meshes keep the "
+                "compiler psum (their grad reduction is not a plain "
+                "batch-axes sum); scheduler disabled")
+            return None
+        comm_cfg = cfg.comm_optimization
+        if not comm_cfg.enabled:
+            # seed qgZ semantics: quantized per-micro-batch reduction,
+            # no persistent error feedback
+            comm_cfg = dataclasses.replace(comm_cfg, quantize=True,
+                                           error_feedback=False,
+                                           overlap=True)
+        from .comm.collective_scheduler import CollectiveScheduler
+        return CollectiveScheduler(topo, comm_cfg, self.param_shapes,
+                                   acc_dtype=self.acc_dtype)
+
+    @torch.no_grad()
+    def _compute_params_ranks(self) -> Dict[str, Any]:
+        from ..comm import comm
+        """This step's compute copy across ranks: whole leaves gathered
+        from the master shards in the compute dtype (stages 0-2, and under
+        the collective scheduler), or at stage 3 the fp32 pieces of
+        ``param_spec`` (the master's own storage where the two layouts
+        agree).  qwZ snaps each whole fp32 leaf to the int8 grid first;
+        where the piece is the master's and every contiguous run of it in
+        the leaf's flat layout is whole 512-element blocks, the piece is
+        snapped alone (the same blocks, so the same values) and nothing
+        is gathered."""
+        qwz = self.config.quantized_weights
+        topo, cdt = self.topology, self.compute_dtype
+        out = []
+        for i, p in enumerate(self._masters):
+            mlay, play = self._mlayouts[i], self._playouts[i]
+            shape = self.param_shapes[i]
+            if qwz and len(shape) >= 2:
+                if self._pieces and play == mlay and _whole_blocks(
+                        mlay, shape):
+                    c = quantize_dequantize(p.detach().float())
+                else:
+                    full = quantize_dequantize(
+                        gather_shard(p.detach().float(), mlay, topo))
+                    c = (play.shard(full).contiguous() if self._pieces
+                         else full.to(cdt))
+            elif not self._pieces:
+                # started now, waited for below: the gathers overlap
+                c = gather_shard(p.detach().to(cdt), mlay, topo,
+                                 async_op=True)
+            elif play == mlay and p.dtype == torch.float32:
+                c = p.detach()
+            else:
+                full = gather_shard(p.detach().to(cdt), mlay, topo)
+                c = play.shard(full).float().contiguous()
+            out.append(c)
+        out = [(c.wait() if isinstance(c, comm.Pending) else c
+                ).requires_grad_() for c in out]
+        return _unflatten(self.params, out)
+
+    def _reduce_full(self, i: int, g: torch.Tensor) -> "_Reduction":
+        """The sum over every gradient rank of a whole-leaf gradient,
+        as this rank's master piece: a reduce-scatter over the master's
+        axes, an all-reduce over the others (started; ``wait()`` gives
+        it)."""
+        lay = self._mlayouts[i]
+        return _Reduction(
+            scatter_sum(g, lay, self.topology, async_op=True),
+            self.topology.group([a for a in GRAD_REDUCE_AXES
+                                 if a not in lay.axes]))
+
+    def _reduce_piece(self, i: int, g: torch.Tensor) -> "_Reduction":
+        """Stage 3: a compute piece's gradient (already summed over its
+        own axes by the gather's backward) summed over the others, as
+        this rank's master piece (started; ``wait()`` gives it)."""
+        from ..comm import comm
+        play, mlay = self._playouts[i], self._mlayouts[i]
+        rest = self.topology.group(
+            [a for a in GRAD_REDUCE_AXES if a not in play.axes])
+        if rest is not None:
+            g = comm.all_reduce(g, rest, async_op=True)
+        else:
+            g = comm.Pending(g)
+        if play == mlay:
+            return _Reduction(g)
+        return _Reduction(g, reshard=lambda x: mlay.shard(
+            gather_shard(x, play, self.topology)).contiguous())
+
+    def _backward_ranks(self, first: bool) -> None:
+        """One micro-batch's gradients into the accumulators across
+        ranks (:attr:`_acc_shape`)."""
+        leaves = tree_leaves(self._params_c)
+        local = [c.grad for c in leaves]
+        for c in leaves:
+            c.grad = None
+        sched = self.comm_scheduler
+        if sched is not None:
+            flat = sched.flatten_local(
+                [g.to(self.acc_dtype) if g is not None else None
+                 for g in local], self.device)
+            if first:
+                self._begin_residuals()
+            if not sched.overlap:
+                if first:
+                    self._flat_acc.copy_(flat)
+                else:
+                    self._flat_acc.add_(flat)
+                return
+            red = sched.reduce(flat, self._step_residuals,
+                               float(self._loss_scale))
+            for i, (acc, g) in enumerate(zip(self._grads,
+                                             sched.combine(red))):
+                piece = self._mlayouts[i].shard(g)
+                if first:
+                    acc.copy_(piece)
+                else:
+                    acc.add_(piece)
+            return
+        # each micro-batch's gradient is reduced on the wire in the compute
+        # dtype, as XLA's psum of the bf16 gradient in JAX, then summed
+        # into the fp32 accumulator as the master's piece
+        cdt = self.compute_dtype
+        reduce = self._reduce_piece if self._pieces else self._reduce_full
+        # every leaf's reduction is started before the first is waited
+        # for, so the collectives overlap
+        steps = [reduce(i, g.to(cdt)) if g is not None else None
+                 for i, g in enumerate(local)]
+        for i, (acc, step) in enumerate(zip(self._grads, steps)):
+            if step is None:
+                if first:
+                    acc.zero_()
+                continue
+            g = step.wait()
+            if first:
+                acc.copy_(g)
+            else:
+                acc.add_(g)
+
+    def _reduced_grads(self) -> List[torch.Tensor]:
+        """The step's gradients summed over the gradient ranks, each as
+        this rank's master piece (not yet averaged)."""
+        sched = self.comm_scheduler
+        if sched is None or sched.overlap:
+            return self._grads
+        red = sched.reduce(self._flat_acc, self._step_residuals,
+                           float(self._loss_scale))
+        return [self._mlayouts[i].shard(g).contiguous()
+                for i, g in enumerate(sched.combine(red))]
+
+    def _begin_residuals(self) -> None:
+        """The step's working residuals: the committed ones, updated in
+        place, or under fp16 a copy (an overflow step keeps the committed
+        ones, JAX :743-752)."""
+        if self._residuals is None:
+            self._step_residuals = None
+        elif self._fp16_enabled:
+            self._step_residuals = self._residuals.clone()
+        else:
+            self._step_residuals = self._residuals
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global gradient norm: each shard's squares summed once
+        over the ranks that hold distinct shards, a replicated leaf's
+        counted once."""
+        if not self._multi:
+            return torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads]))
+        from ..comm import comm
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for g, lay in zip(grads, self._mlayouts):
+            by_axes.setdefault(lay.axes if lay.sharded else (), []).append(
+                torch.linalg.vector_norm(g.float()))
+        total = None
+        for axes, norms in by_axes.items():
+            sq = torch.stack(norms).square().sum()
+            grp = self.topology.group(axes) if axes else None
+            if grp is not None:
+                sq = comm.all_reduce(sq, grp)
+            total = sq if total is None else total + sq
+        return total.sqrt()
+
+    def _mean_over_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` averaged over the batch ranks (a loss)."""
+        if not self._multi:
+            return x
+        from ..comm import comm
+        grp = self.topology.group(BATCH_AXES)
+        if grp is None:
+            return x
+        return comm.all_reduce(x, grp) / self.topology.batch_shard_size
+
+    def _local_rows(self, mb: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a global micro-batch."""
+        if not self._multi:
+            return mb
+        rows = len(next(iter(mb.values())))
+        sl = self.topology.batch_slice(rows)
+        return {k: x[sl] for k, x in mb.items()}
 
     def _check_jax_builds(self, model: Model) -> None:
         """Refuse what the JAX engine refuses at build: its state
@@ -480,11 +902,13 @@ class DeepSpeedEngine:
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None,
                      collate_fn: Optional[Callable] = None
                      ) -> DeepSpeedDataLoader:
-        """A loader over ``dataset`` in micro-batches (JAX ``engine.py
-        :1360``; one rank, so the global micro-batch is the micro-batch)."""
+        """A loader over ``dataset`` in global micro-batches (JAX
+        ``engine.py :1360``): the micro-batch times the batch shards, of
+        which each rank takes its rows."""
         return DeepSpeedDataLoader(
             dataset,
-            batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+            batch_size=batch_size or (self.train_micro_batch_size_per_gpu()
+                                      * self.topology.batch_shard_size),
             collate_fn=collate_fn)
 
     # ------------------------------------------------------------------
@@ -597,7 +1021,9 @@ class DeepSpeedEngine:
             opt_state=(self.optimizer.state if self.optimizer is not None
                        else None),
             loss_scale=float(self._loss_scale), good_steps=self._good_steps,
-            skipped_steps=self._skipped_steps, hysteresis=self._hysteresis)
+            skipped_steps=self._skipped_steps, hysteresis=self._hysteresis,
+            comm_residuals=(self._residuals if self._residuals is not None
+                            else ()))
 
     def is_gradient_accumulation_boundary(self) -> bool:
         """Whether :meth:`step` applies the update; a boundary set with
@@ -617,6 +1043,8 @@ class DeepSpeedEngine:
         leaf of two or more dimensions is a new, quantised tensor: its
         blocks run over the leaf's flat layout as the tree holds it
         (stacked ``[L, ...]`` leaves whole, norm scales included)."""
+        if self._params_c is None and self._multi:
+            self._params_c = self._compute_params_ranks()
         if self._params_c is None:
             qwz = self.config.quantized_weights
 
@@ -639,8 +1067,20 @@ class DeepSpeedEngine:
         """The loss of one micro-batch under the current masters, with
         its autograd graph (pass it to :meth:`backward`)."""
         self._check_not_destroyed()
-        return self.module.loss(self._compute_params(),
-                                self._to_device(batch))
+        params = self._compute_params()
+        batch = self._to_device(batch)
+        if not self._pieces:
+            return self.module.loss(params, batch)
+        # stage 3 across ranks: the pieces, gathered where they are used
+        gather = ParamGather(self._play_by_path, self.topology,
+                             self.compute_dtype,
+                             stacked=bool(getattr(self.module.cfg,
+                                                  "scan_layers", False))
+                             if self._layerwise else False)
+        if not self._layerwise:
+            return self.module.loss(gather.tree(params), batch)
+        with gather.active():
+            return self.module.loss(params, batch)
 
     __call__ = forward
 
@@ -665,6 +1105,11 @@ class DeepSpeedEngine:
             loss = loss.float() * float(self._loss_scale)
         loss.backward()
         first = self._pending == 0
+        if self._multi:
+            self._backward_ranks(first)
+            self._pending += 1
+            self.micro_steps += 1
+            return
         for g, c in zip(self._grads, tree_leaves(self._params_c)):
             if c.grad is None:          # a leaf the loss does not use
                 if first:
@@ -685,22 +1130,37 @@ class DeepSpeedEngine:
         the update (JAX ``lax.cond``)."""
         if not self.is_gradient_accumulation_boundary() or not self._pending:
             return
-        grads = self._grads
+        grads = self._reduced_grads() if self._multi else self._grads
+        sched = self.comm_scheduler
+        # the scheduler divides by its world before the wire (JAX); the
+        # per-leaf collectives sum, so the step divides by the shards
+        shards = (self.topology.batch_shard_size
+                  if self._multi and sched is None else 1)
         if self._fp16_enabled:
             # JAX's 1 / (gas * scale) in fp32 (0 when the product
             # overflows)
             with np.errstate(over="ignore"):
-                inv = float(np.float32(1.0) / (np.float32(self._pending)
-                                              * self._loss_scale))
+                inv = float(np.float32(1.0) / (
+                    np.float32(self._pending) * self._loss_scale
+                    * np.float32(shards)))
         else:
-            inv = 1.0 / self._pending
+            inv = 1.0 / (self._pending * shards)
         for g in grads:
             g.mul_(inv)
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        gnorm = self._global_norm(grads)
         # under fp16 the skip decision needs the norm before the update
         finite = (math.isfinite(float(gnorm)) if self._fp16_enabled
                   else True)
+        if self._fp16_enabled and self._multi:
+            # every rank skips the same step
+            from ..comm import comm
+            flag = torch.tensor([0.0 if finite else 1.0],
+                                device=self.device)
+            finite = float(comm.all_reduce(flag, None, "max")) == 0.0
+        if sched is not None and self._residuals is not None and (
+                finite or not self._fp16_enabled):
+            # an overflow step's residuals would carry inf payloads
+            self._residuals = self._step_residuals
         clip = self.config.gradient_clipping
         if clip > 0 and finite:
             scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
@@ -729,7 +1189,8 @@ class DeepSpeedEngine:
         self._last_grad_norm = float(gnorm)
         self.global_steps += 1
         self.global_samples += (self.train_micro_batch_size_per_gpu()
-                                * micro_batches)
+                                * micro_batches
+                                * self.topology.batch_shard_size)
         self.lr_scheduler.step()
 
     def _staging_buffer(self) -> torch.Tensor:
@@ -815,7 +1276,8 @@ class DeepSpeedEngine:
         """A global batch, [gas * micro, ...] or [gas, micro, ...] per
         leaf, -> gas micro-batch dicts (JAX ``_shape_batch``)."""
         gas = self.gradient_accumulation_steps()
-        micro = self.train_micro_batch_size_per_gpu()
+        micro = (self.train_micro_batch_size_per_gpu()
+                 * self.topology.batch_shard_size)
         shaped = {}
         for k, x in batch.items():
             x = x if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -826,7 +1288,8 @@ class DeepSpeedEngine:
                                  f"{tuple(x.shape)} does not split into "
                                  f"gas={gas} x micro={micro}")
             shaped[k] = x
-        return [{k: x[i] for k, x in shaped.items()} for i in range(gas)]
+        return [self._local_rows({k: x[i] for k, x in shaped.items()})
+                for i in range(gas)]
 
     def _resolve_batch(self, batch: Optional[Dict[str, Any]],
                        data_iter) -> List[Dict[str, Any]]:
@@ -841,7 +1304,8 @@ class DeepSpeedEngine:
         if source is None:
             raise ValueError("no batch and no dataloader")
         it = source if hasattr(source, "__next__") else iter(source)
-        micro = self.train_micro_batch_size_per_gpu()
+        micro = (self.train_micro_batch_size_per_gpu()
+                 * self.topology.batch_shard_size)
         mbs = []
         for _ in range(self.gradient_accumulation_steps()):
             mb = next(it)
@@ -850,7 +1314,7 @@ class DeepSpeedEngine:
                     raise ValueError(f"loader batch leaf {k!r} has "
                                      f"{len(x)} rows, the micro-batch is "
                                      f"{micro}")
-            mbs.append(mb)
+            mbs.append(self._local_rows(mb))
         return mbs
 
     def train_batch(self, batch: Optional[Dict[str, Any]] = None,
@@ -1043,7 +1507,7 @@ class DeepSpeedEngine:
                     self.backward(loss)
                     losses.append(self._reported_loss(loss))
                 self.step()
-                loss = float(torch.stack(losses).mean())
+                loss = float(self._mean_over_batch(torch.stack(losses).mean()))
         step = self.global_steps - 1
         if fi.armed and fi.fire("train.slow_step"):
             # inside the measured window: the anomaly detector sees it
@@ -1079,8 +1543,11 @@ class DeepSpeedEngine:
         return loss
 
     def eval_batch(self, batch: Dict[str, Any]) -> float:
+        """The loss of ``batch`` under the current masters (across ranks:
+        of this rank's rows, averaged over the batch ranks)."""
         with torch.no_grad():
-            return float(self.forward(batch))
+            return float(self._mean_over_batch(
+                self.forward(self._local_rows(batch))))
 
     # ------------------------------------------------------------------
     # the flops profiler (JAX engine.py:1227-1250)
@@ -1144,11 +1611,20 @@ class DeepSpeedEngine:
         })
         if self._rng_key_data is not None:
             client_state["rng_key_data"] = list(self._rng_key_data)
-        self.checkpoint_engine.save(save_dir, tag, {
-            "module": self.params, "optimizer": self.optimizer_kind,
-            "optimizer_state_dict": self._optimizer_state_dict(),
-            "loss_scale_state": self._scale_state()},
-            client_state)
+        state = {"module": self.params, "optimizer": self.optimizer_kind,
+                 "optimizer_state_dict": self._optimizer_state_dict(),
+                 "loss_scale_state": self._scale_state()}
+        if self._multi:
+            # rank 0 writes the one-rank files from every rank's shards
+            state["module"] = self._whole_tree(self._masters, host=True)
+            residuals = self._whole_residuals()
+            if residuals is not None:
+                state["comm_residuals"] = residuals
+            if self.topology.rank != 0:
+                self._last_good_ckpt = (save_dir, tag)
+                self._barrier()
+                return True
+        self.checkpoint_engine.save(save_dir, tag, state, client_state)
         if self.offload is not None:
             # the host masters and moments beside it, in JAX's npz
             os.makedirs(os.path.join(save_dir, tag), exist_ok=True)
@@ -1161,7 +1637,37 @@ class DeepSpeedEngine:
             self.checkpoint_engine.write_latest(save_dir, tag)
         # the freshest rollback target (a load waits for the writer)
         self._last_good_ckpt = (save_dir, tag)
+        if self._multi:
+            # the other ranks read what rank 0 wrote
+            self.checkpoint_engine.wait()
+            self._barrier()
         return True
+
+    def _barrier(self) -> None:
+        from ..comm import comm
+        comm.barrier()
+
+    def _whole_tree(self, pieces: List[torch.Tensor], host: bool = False):
+        """The masters' tree with every leaf whole (an all-gather of each
+        shard: every rank calls it); ``host`` moves them to the host on
+        rank 0 and gives None leaves elsewhere."""
+        out = []
+        for t, lay in zip(pieces, self._mlayouts):
+            full = gather_shard(t.detach(), lay, self.topology)
+            if host:
+                full = full.cpu() if self.topology.rank == 0 else None
+            out.append(full)
+        return _unflatten(self.params, out)
+
+    def _whole_residuals(self) -> Optional[torch.Tensor]:
+        """JAX's [world, E] residuals on rank 0 (every rank calls it)."""
+        sched = self.comm_scheduler
+        if sched is None or self._residuals is None:
+            return None
+        from ..comm import comm
+        full = comm.all_gather(self._residuals, sched.group, axis=0,
+                               tiled=False)
+        return full.cpu() if self.topology.rank == 0 else None
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
                         load_optimizer_states: bool = True,
@@ -1211,6 +1717,8 @@ class DeepSpeedEngine:
         state, client_state = self.checkpoint_engine.load(
             load_dir, tag, module_only=module_only)
         module = state["module"]
+        if self._multi and self._residuals is not None:
+            self._load_residuals(state.get("comm_residuals"))
         if leaf_paths(module) != self.param_paths:
             raise ValueError(f"checkpoint {tag!r} holds another model's "
                              f"tree: {leaf_paths(module)[:4]}...")
@@ -1235,16 +1743,39 @@ class DeepSpeedEngine:
         self._finish_load(client_state, load_lr_scheduler_states)
         return tag, client_state
 
+    def _load_residuals(self, full) -> None:
+        """This rank's row of a checkpoint's [world, E] residuals; zeros
+        when the checkpoint has none or another plan's (JAX's plain load
+        falls back to zeros)."""
+        sched = self.comm_scheduler
+        want = (sched.world, sched.padded_elems)
+        if full is None or tuple(full.shape) != want:
+            self._residuals.zero_()
+            return
+        row = self.topology.index(sched.manual_axes)
+        self._residuals.copy_(_as_tensor(full)[row])
+
     def _optimizer_state_dict(self) -> Dict[str, Any]:
         """The device optimizer's state dict, its per-parameter states
         keyed by the leaf's index in tree order; ``offloaded`` lists the
-        paths whose state is in the host optimizer's npz."""
+        paths whose state is in the host optimizer's npz.  Across ranks
+        every moment is gathered whole (every rank calls it)."""
         if self.optimizer is None:
             sd = {"state": {}, "param_groups": []}
         else:
             sd = self.optimizer.state_dict()
             sd["state"] = {self._device_index[j]: st
                            for j, st in sd["state"].items()}
+            if self._multi:
+                rank0 = self.topology.rank == 0
+
+                def whole(i, v):
+                    full = gather_shard(v, self._mlayouts[i], self.topology)
+                    return full.cpu() if rank0 else None
+                sd["state"] = {i: {
+                    k: (whole(i, v) if isinstance(v, torch.Tensor)
+                        and v.dim() else v)
+                    for k, v in st.items()} for i, st in sd["state"].items()}
         if self.offload is not None:
             sd["offloaded"] = list(self.offload.offload_paths)
         return sd
@@ -1256,7 +1787,7 @@ class DeepSpeedEngine:
         for i, (p, src) in enumerate(zip(self._masters, sources)):
             if src is None:
                 continue
-            src = _as_tensor(src)
+            src = self._piece_of(i, _as_tensor(src), p)
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"master of shape {tuple(p.shape)} cannot "
                                  f"load {tuple(src.shape)}")
@@ -1284,10 +1815,19 @@ class DeepSpeedEngine:
                 if k == "step":
                     cur["step"] = int(v)
                 elif k in cur:
-                    cur[k].copy_(_as_tensor(v))
+                    cur[k].copy_(self._piece_of(i, _as_tensor(v), cur[k]))
                 else:
                     raise KeyError(f"optimizer state {k!r} is not "
                                    f"{type(self.optimizer).__name__}'s")
+
+    def _piece_of(self, i: int, src: torch.Tensor,
+                  like: torch.Tensor) -> torch.Tensor:
+        """``src`` as leaf i's master piece: a whole leaf is cut to this
+        rank's shard, a piece already of the shard's shape is kept."""
+        if (self._multi and tuple(src.shape) == self.param_shapes[i]
+                and tuple(like.shape) != tuple(src.shape)):
+            return self._mlayouts[i].shard(src)
+        return src
 
     def _copy_host_state(self, k: int, st: Optional[dict]) -> None:
         """Master k's host optimizer state from ``st`` (``step`` and the
@@ -1340,6 +1880,10 @@ class DeepSpeedEngine:
         """The masters as host numpy fp32 arrays, in the model's tree (an
         offloaded leaf's from its host master; a pure-bf16 master's
         values widened)."""
+        if self._multi:
+            return tree_map(
+                lambda t: t.to("cpu", torch.float32).numpy(),
+                self._whole_tree(self._masters))
         masters = iter(self._host_master_or_none(i)
                        for i in range(len(self._masters)))
 
@@ -1389,18 +1933,21 @@ class DeepSpeedEngine:
         """A new global batch at the same micro-batch: gas becomes
         ``train_batch_size / micro``, which must divide."""
         micro = self.config.train_micro_batch_size_per_gpu
-        if train_batch_size % micro != 0:
+        shards = self.topology.batch_shard_size
+        if train_batch_size % (micro * shards) != 0:
             raise ValueError(f"train_batch_size {train_batch_size} != micro "
-                             f"{micro} * gas * batch shards 1")
+                             f"{micro} * gas * batch shards {shards}")
         self.config.train_batch_size = train_batch_size
-        self.config.gradient_accumulation_steps = train_batch_size // micro
+        self.config.gradient_accumulation_steps = (
+            train_batch_size // (micro * shards))
         self.tput_timer.batch_size = train_batch_size
 
     def set_train_micro_batch_size(self, micro_batch_size: int) -> None:
         """A new micro-batch at the same gas."""
         self.config.train_micro_batch_size_per_gpu = micro_batch_size
         self.config.train_batch_size = (
-            micro_batch_size * self.config.gradient_accumulation_steps)
+            micro_batch_size * self.config.gradient_accumulation_steps
+            * self.topology.batch_shard_size)
         self.tput_timer.batch_size = self.config.train_batch_size
 
     def get_batch_info(self) -> Tuple[int, int, int]:
@@ -1472,10 +2019,12 @@ class DeepSpeedEngine:
         """The deprecated alias of :meth:`save_16bit_model`."""
         return self.save_16bit_model(save_dir, filename)
 
-    def comm_stats(self) -> None:
-        """None: one rank reduces no gradient (JAX's without a collective
-        scheduler)."""
-        return None
+    def comm_stats(self) -> Optional[dict]:
+        """The collective scheduler's static wire plan per step (JAX
+        ``comm_stats``; None without a scheduler)."""
+        if self.comm_scheduler is None:
+            return None
+        return self.comm_scheduler.stats(self.gradient_accumulation_steps())
 
     # -- config accessors (JAX names and values) -------------------------
     def _zero(self, key: str):
@@ -1536,16 +2085,16 @@ class DeepSpeedEngine:
         return self._zero("round_robin_gradients")
 
     def zero_hpz_partition_size(self) -> int:
-        return 1        # the only value the config loader accepts
+        return self.config.zero_hpz_partition_size
 
     def zero_quantized_weights(self) -> bool:
         return self.config.zero_quantized_weights
 
     def zero_quantized_gradients(self) -> bool:
-        return False    # the only value the config loader accepts
+        return self.config.zero_quantized_gradients
 
     def mics_shard_size(self) -> int:
-        return -1       # the only value the config loader accepts
+        return self.config.mics_shard_size
 
     def fp16_enabled(self) -> bool:
         return self.config.fp16.enabled

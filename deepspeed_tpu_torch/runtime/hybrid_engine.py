@@ -60,6 +60,10 @@ class DeepSpeedHybridEngine(DeepSpeedEngine):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        if self._multi:
+            raise NotImplementedError(
+                "the hybrid engine across ranks (rollouts over sharded "
+                "weights) is not in the port yet (ROADMAP Queue 1 item 4)")
         if not hasattr(self.module, "cfg"):
             raise ValueError(
                 "hybrid engine needs a transformer model exposing .cfg "

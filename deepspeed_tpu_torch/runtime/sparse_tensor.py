@@ -15,9 +15,9 @@ order, so the sum is not bit-reproducible there; it is held to the dense
 backward within a stated limit (``chip_smoke.py`` phase 23 (d)).  On the
 CPU the sum runs in order.
 
-One rank has no data-parallel group to gather over: ``sparse_allreduce``
-is the identity at world size 1 and raises at more ranks (ROADMAP Queue
-1 item 4).
+``sparse_allreduce`` all-gathers every rank's indices and values over a
+data-parallel process group (the identity at one rank), as JAX's does
+over a mesh axis.
 """
 
 from __future__ import annotations
@@ -69,15 +69,14 @@ class SparseTensor:
 
 def sparse_allreduce(st: SparseTensor, group=None) -> SparseTensor:
     """All-gather (indices, values) over a data-parallel group (JAX
-    ``sparse_allreduce`` over a mesh axis).  ``group`` is a
-    ``torch.distributed`` process group or None (the default group);
-    over one rank the gather is the identity."""
+    ``sparse_allreduce`` over a mesh axis, :70): the members' rows
+    concatenated in member order.  ``group`` is a ``torch.distributed``
+    process group or None (the default group); over one rank the gather
+    is the identity."""
     from ..comm import comm
-    if comm.group_size(group) > 1:
-        raise NotImplementedError(
-            "sparse_allreduce over more than one rank is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
-    return SparseTensor(st.indices, st.values, st.dense_shape)
+    return SparseTensor(comm.all_gather(st.indices, group, axis=0),
+                        comm.all_gather(st.values, group, axis=0),
+                        st.dense_shape)
 
 
 def sparse_embedding_grad(ids: torch.Tensor, ct: torch.Tensor, vocab: int,

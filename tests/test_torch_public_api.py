@@ -37,8 +37,7 @@ from test_torch_training import (jax_engine, jax_params, llama_config,
                                  token_batches)
 
 #: JAX top-level names the port does not have yet, with their item
-WAITING = {"pipe": "11h", "PipelineEngine": "11h",
-           "MeshTopology": "4", "TopologyConfig": "4"}
+WAITING = {"pipe": "11h", "PipelineEngine": "11h"}
 
 
 @pytest.fixture(autouse=True)
@@ -278,9 +277,15 @@ def test_init_distributed_and_the_accelerator_at_one_process(monkeypatch):
     monkeypatch.setattr(dtt.comm.comm, "_initialized", False)
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("MASTER_PORT", "29611")
-    with pytest.raises(NotImplementedError, match="item 4") as err:
+    # several processes join over NCCL by default, which needs a card of
+    # its own per local rank: without a card, or with more local ranks
+    # than cards, the join raises, and no backend is switched quietly
+    # (tests/test_torch_zero_ranks.py joins over gloo)
+    monkeypatch.setenv("LOCAL_SIZE", str(torch.cuda.device_count() + 1))
+    with pytest.raises(RuntimeError, match="nccl") as err:
         dtt.init_distributed()
     assert "127.0.0.1:29611" in str(err.value)
+    assert not dtt.comm.is_initialized()
     monkeypatch.setenv("DS_ACCELERATOR", "cpu")
     from deepspeed_tpu_torch.accelerator import real_accelerator
     monkeypatch.setattr(real_accelerator, "_accelerator", None)

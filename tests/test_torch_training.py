@@ -234,29 +234,50 @@ def test_training_lowers_the_loss_on_a_fixed_batch():
 @pytest.mark.parametrize("over,match", [
     # fp16, every optimizer name, adam_w_mode=False and pure bf16 run since
     # the one-GPU training slice (tests/test_torch_fp16.py,
-    # test_torch_optimizers_all.py); what still raises:
-    ({"comm_optimization": {"enabled": True}}, "comm_optimization"),
+    # test_torch_optimizers_all.py); the multi-rank keys since the ranks
+    # slice (below, and tests/test_torch_zero_ranks.py); what still raises:
     ({"moe": {"enabled": True}}, "moe"),
-    ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
-     "zero_quantized_gradients"),
     ({"tensor_parallel": {"enabled": True}}, "tensor_parallel"),
-    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
-     "mics_shard_size"),
-    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
-     "zero_hpz_partition_size"),
     ({"compression_training": {"weight_quantization": {"a": 1}}},
      "compression_training"),
-    ({"tpu": {"mesh": {"data": 2}}}, "tpu.mesh"),
     ({"sequence_parallel": {"enabled": True}}, "sequence_parallel"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
-     "zero_quantized_gradients"),
     ({"tpu": {"mesh": {"fsdp": -1, "tensor": 2}}}, "tpu.mesh"),
 ])
 def test_options_outside_the_slice_raise(over, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         _port_engine(**over)
     assert "ROADMAP" in str(err.value)
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"comm_optimization": {"enabled": True}}, "comm_optimization"),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
+     "zero_quantized_gradients"),
+    ({"zero_optimization": {"stage": 3, "mics_shard_size": 2}},
+     "mics_shard_size"),
+    ({"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
+     "zero_hpz_partition_size"),
+    ({"tpu": {"mesh": {"data": 2}}}, "tpu.mesh"),
+    ({"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
+     "zero_quantized_gradients"),
+])
+def test_multi_rank_options_at_one_rank_as_jax(over, match):
+    """The keys of several ranks at one rank do what they do to the JAX
+    engine on one device: a mesh the device count cannot hold (hpZ 2,
+    MiCS 2, data 2) raises JAX's ValueError from the topology, and the
+    scheduler's keys build no scheduler (nothing to reduce)."""
+    cfg = llama_config(**over)
+    try:
+        _topology_from_config(j_load_config(cfg), devices=jax.devices()[:1])
+    except ValueError as e:
+        with pytest.raises(ValueError) as err:
+            _port_engine(**over)
+        assert str(err.value) == str(e), match
+        return
+    engine = _port_engine(**over)
+    assert engine.comm_scheduler is None and engine.comm_stats() is None
+    assert engine.topology.world_size == 1, match
 
 
 def test_unknown_zero_key_raises():
