@@ -477,7 +477,25 @@ Phases (any failure exits non-zero; no phase's failure is ignored):
     kernels line; then two planted faults in stage 2's gradient
     reduction (a mean where the engine sums; one rank keeping its own
     gradient), each of which must fail a check that sees the gradient;
-25. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
+25. tensor and sequence parallelism in the same four rank processes,
+    held against phase 24's one-rank reference (the same weights and
+    global batch) with phase 24's checks and limits (the update
+    directions' set from phase 25's own readings): ``tp2_sp2``
+    (tensor 2 x seq 2, Ulysses, stage 1: 8 heads a rank at S = 1024
+    through the flash kernels), ``tp2_sp2_ring`` (the same mesh, ring
+    attention: seq rank s runs the flash pair on its s + 1 visible
+    blocks), ``tp2_fsdp2`` (tensor 2 x fsdp 2, stage 3) and ``tp4``
+    (tensor 4: 8 heads, F 2752 and a vocab shard of 8000 a rank); each
+    run's step ms, the bytes a step moved over ``tensor``, over ``seq``
+    and in the gradient reduction (the comms logger), peak memory a rank
+    and the state against its tensor-and-ZeRO share; then the planted
+    faults: a row-parallel output left unsummed over tensor in each of
+    the four runs, and seq rank 1's gradient left out of the seq sum in
+    the tensor 2 x seq 2 run, each of which must fail a check that sees
+    the gradient.  Phase
+    3 holds the flash pair at the head-sharded shape (B = 4, H = 8, S =
+    1024, D = 128);
+26. a ``{"kernels": [...]}`` JSON line (the flash backward at D = 64,
     80 and 96 and the optimizers' bf16 instances in rows of their own),
     the card line, and last the ``{"ok": true, "device": {...}}``
     line.
@@ -1259,6 +1277,7 @@ def check_flash(dev, mined_q=()):
     # over one kv head at D = 64, Phi-2's and Phi-3-mini's 32 at 80 and 96)
     cases = [("", 4, 1024, 32, 32, None, 128),
              ("training: ", 2, TRAIN_SEQ, 32, 32, None, 128),
+             ("Ulysses head shard: ", 4, 1024, 8, 8, None, 128),
              ("uneven S=1000: ", 2, 1000, 32, 32, None, 128),
              ("GQA: ", 2, TRAIN_SEQ, 32, 8, None, 128),
              ("window 512: ", 2, TRAIN_SEQ, 32, 32, 512, 128)]
@@ -1327,6 +1346,7 @@ def check_flash_bwd(dev):
     # one kv head at D = 64 (B = 1), Phi-2's 32 at 80, Phi-3-mini's 32
     # under its 2047-token window at 96
     cases = [("training", 2, 32, 32, TRAIN_SEQ, None, 128),
+             ("Ulysses head shard", 4, 8, 8, 1024, None, 128),
              ("GQA", 2, 32, 8, 1024, None, 128),
              ("window 512", 2, 32, 32, TRAIN_SEQ, 512, 128),
              ("uneven S=1000", 2, 32, 32, 1000, None, 128),
@@ -9207,10 +9227,35 @@ RANK_RUNS = {
     "comm_ef": {"zero_optimization": {"stage": 2},
                 "comm_optimization": {"enabled": True}},
 }
+#: phase 25: run -> its sections over RANK_BASE.  Each takes the same
+#: global batch of RANK_WORLD rows: a batch shard's rows are RANK_WORLD
+#: over the mesh's batch shards (data x fsdp)
+MP_RUNS = {
+    "tp2_sp2": {"train_micro_batch_size_per_gpu": 4,
+                "zero_optimization": {"stage": 1},
+                "tpu": {"mesh": {"tensor": 2, "seq": 2}}},
+    "tp2_sp2_ring": {"train_micro_batch_size_per_gpu": 4,
+                     "zero_optimization": {"stage": 1},
+                     "sequence_parallel": {"enabled": True, "sp_size": 2,
+                                           "mode": "ring"},
+                     "tpu": {"mesh": {"tensor": 2}}},
+    "tp2_fsdp2": {"train_micro_batch_size_per_gpu": 2,
+                  "zero_optimization": {"stage": 3},
+                  "tpu": {"mesh": {"tensor": 2, "fsdp": 2}}},
+    "tp4": {"train_micro_batch_size_per_gpu": 4,
+            "zero_optimization": {"stage": 0},
+            "tpu": {"mesh": {"tensor": 4}}},
+}
 #: the negative controls: run -> (the run it plants a fault in, the
-#: fault)
+#: fault); phase 25's: a row-parallel output left unsummed over tensor
+#: in each run, and seq rank 1's gradient left out of the seq sum
 RANK_FAULTS = {"fault_mean": ("stage2", "mean"),
                "fault_skip": ("stage2", "skip")}
+MP_FAULTS = {"fault_unsummed": ("tp2_sp2", "unsummed"),
+             "fault_seq_skip": ("tp2_sp2", "seq_skip"),
+             "fault_unsummed_ring": ("tp2_sp2_ring", "unsummed"),
+             "fault_unsummed_fsdp2": ("tp2_fsdp2", "unsummed"),
+             "fault_unsummed_tp4": ("tp4", "unsummed")}
 #: the runs whose numbers an int8 projection or wire changes
 RANK_QUANTIZED = ("stage3_qwz", "stage2_qgz", "comm_ef")
 # against the one-rank stage-0 run of the same weights and batch (bf16
@@ -9246,6 +9291,14 @@ RANK_QUANT_GRAD_TOL = 5e-3
 RANK_QUANT_DIR_TOL = 0.75
 RANK_QUANT_MOMENT_TOL = 0.2
 RANK_QUANT_V_TOL = 2e-2
+# phase 25's update directions, set by the same rule from its own
+# readings on an H100 (0.112-0.166 healthy, the ring's the largest: its
+# blocks merge in fp32 in ring order, and the tensor ranks' GEMMs take
+# other shapes than one rank's), far below the planted faults' (2.66-3.13
+# for a row-parallel output left unsummed in any of the four runs, 1.48
+# for a seq rank's gradient left out); its other readings are inside
+# phase 24's limits
+MP_DIR_TOL = 0.5
 #: gloo's all-reduce probe: fp32 elements
 RANK_PROBE_ELEMS = 16 * 1024 * 1024
 
@@ -9269,25 +9322,29 @@ def _leaf_probes(engine, init_leaves):
     out = []
     for i, p in enumerate(engine.masters):
         lay = engine._mlayouts[i] if engine._multi else None
+        tlay = engine._tlayouts[i] if engine._multi else None
+
+        def piece(x):
+            """The rank's piece of a whole leaf: its tensor shard's
+            ZeRO chunk."""
+            return x if lay is None else lay.shard(tlay.shard(x))
         st = engine.optimizer.state[p]
-        m0 = init_leaves[i]
-        u = p.float() - (lay.shard(m0) if lay is not None else m0).float()
+        u = p.float() - piece(init_leaves[i]).float()
         mom, v = st["exp_avg"].float(), st["exp_avg_sq"].float()
         dots_u, dots_m = [], []
         for k in range(RANK_PROBES):
             gen = torch.Generator(device=p.device)
             gen.manual_seed(SEED + 7919 * i + k)
-            r = torch.randn(engine.param_shapes[i], generator=gen,
-                            device=p.device)
-            if lay is not None:
-                r = lay.shard(r)
+            r = piece(torch.randn(engine.param_shapes[i], generator=gen,
+                                  device=p.device))
             dots_u.append((r * u).sum())
             dots_m.append((r * mom).sum())
             del r
         row = torch.stack([u.square().sum(), *dots_u, mom.square().sum(),
                            *dots_m, v.square().sum()]).double()
-        if lay is not None and lay.sharded:
-            row = comm.all_reduce(row, engine.topology.group(lay.axes))
+        if lay is not None and engine._shard_axes(i):
+            row = comm.all_reduce(row, engine.topology.group(
+                engine._shard_axes(i)))
         out.append(row.tolist())
         del u
     torch.cuda.synchronize()
@@ -9300,30 +9357,57 @@ def _probe_errors(probes, ref):
     probes (``_leaf_probes``)."""
     k = RANK_PROBES
     norm = direction = moment = second = 0.0
+    #: each leaf's update-direction error (the noisiest reading)
+    per_leaf = []
     for got, want in zip(probes, ref):
         u, m, v = math.sqrt(want[0]), math.sqrt(want[k + 1]), math.sqrt(
             want[2 * k + 2])
         norm = max(norm, abs(math.sqrt(got[0]) - u) / max(u, 1e-30))
-        direction = max(direction, max(
-            abs(got[1 + j] - want[1 + j]) for j in range(k)) / max(u, 1e-30))
+        per_leaf.append(max(abs(got[1 + j] - want[1 + j])
+                            for j in range(k)) / max(u, 1e-30))
+        direction = max(direction, per_leaf[-1])
         moment = max(moment, max(
             abs(got[k + 2 + j] - want[k + 2 + j]) for j in range(k))
             / max(m, 1e-30))
         second = max(second, abs(math.sqrt(got[2 * k + 2]) - v)
                      / max(v, 1e-30))
     return dict(update_norm=norm, update_direction=direction,
-                first_moment=moment, second_moment=second)
+                first_moment=moment, second_moment=second,
+                direction_by_leaf=per_leaf)
 
 
 def _plant(engine, kind):
-    """A planted fault in the engine's gradient reduction, a negative
-    control of phase 24's checks: ``mean`` divides
-    every reduced piece by the world size (a mean where the engine
-    sums); ``skip`` makes rank 1 keep its own gradient piece (it still
-    joins the collective, so the ranks stay in step)."""
+    """A planted fault, a negative control of phase 24's and 25's checks
+    (returns what undoes it): ``mean`` divides every reduced piece by
+    the world size (a mean where the engine sums); ``skip`` makes rank 1
+    keep its own gradient piece (it still joins the collective, so the
+    ranks stay in step); ``unsummed`` leaves every row-parallel output
+    (``attn.wo``, ``mlp.wo``) unsummed over tensor; ``seq_skip`` sends
+    zeros for seq rank 1's gradients into the reduction over the seq
+    (and batch) ranks."""
+    import torch
     from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import tensor_parallel as TP
     reduce = engine._reduce_full
     world, rank = comm.get_world_size(), comm.get_rank()
+    if kind == "unsummed":
+        kept = TP.row_parallel
+
+        def unsummed(a, w, mp, n_in=1):
+            """This rank's partial product alone."""
+            k = math.prod(w.shape[:n_in])
+            out = a.reshape(-1, k) @ w.reshape(k, -1)
+            return out.reshape(a.shape[:a.dim() - n_in] + w.shape[n_in:])
+        TP.row_parallel = unsummed
+
+        def undo():
+            TP.row_parallel = kept
+        return undo
+    if kind == "seq_skip":
+        seq = engine.topology.coords["seq"]
+        engine._reduce_full = lambda i, g: reduce(
+            i, torch.zeros_like(g) if seq == 1 else g)
+        return lambda: None
 
     class Planted:
         def __init__(self, red, own):
@@ -9339,6 +9423,7 @@ def _plant(engine, kind):
         return Planted(reduce(i, g),
                        engine._mlayouts[i].shard(g).contiguous())
     engine._reduce_full = planted
+    return lambda: None
 
 
 def _rank_state_bytes(engine):
@@ -9359,14 +9444,18 @@ def _rank_state_bytes(engine):
     grads = sum(nbytes(g) for g in engine._grads)
     compute = 0
     qwz = engine.config.quantized_weights
-    for shape, play, mlay in zip(engine.param_shapes, engine._playouts,
+    # masters and moments by the layouts: fp32 master and two moments of
+    # each leaf's tensor shard's ZeRO chunk
+    share = 0
+    for shape, play, mlay in zip(engine._local_shapes, engine._playouts,
                                  engine._mlayouts):
         if not engine._pieces:
             compute += 2 * _math.prod(shape)
         elif play != mlay or (qwz and len(shape) >= 2):
             compute += 4 * _math.prod(play.local_shape(shape))
+        share += 12 * _math.prod(mlay.local_shape(shape))
     return dict(masters=masters, moments=moments, grads=grads,
-                compute=compute, state=masters + moments)
+                compute=compute, state=masters + moments, layout=share)
 
 
 def _rank_run(name, counters, batch, captured):
@@ -9376,18 +9465,24 @@ def _rank_run(name, counters, batch, captured):
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
     from deepspeed_tpu_torch.tree import tree_leaves
-    base, fault = RANK_FAULTS.get(name, (name, None))
-    config = {**RANK_BASE, **RANK_RUNS[base]}
+    from deepspeed_tpu_torch import comm
+    base, fault = {**RANK_FAULTS, **MP_FAULTS}.get(name, (name, None))
+    config = {**RANK_BASE, **{**RANK_RUNS, **MP_RUNS}[base]}
+    if base in MP_RUNS:
+        # the bytes each collective moves, by op and by mesh axis
+        config["comms_logger"] = {"enabled": True}
     model = LlamaForCausalLM("7b", num_layers=RANK_LAYERS)
     t = time.perf_counter()
     engine, *_ = dtt.initialize(model=model, config=config)
-    if fault is not None:
-        _plant(engine, fault)
+    undo = _plant(engine, fault) if fault is not None else None
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     captured.clear()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
+    comms = comm.get_comms_logger()
+    if comms is not None:
+        comms.reset()
     steps = []
     for _ in range(RANK_STEPS):
         t = time.perf_counter()
@@ -9396,6 +9491,19 @@ def _rank_run(name, counters, batch, captured):
         steps.append(dict(ms=(time.perf_counter() - t) * 1e3, loss=loss,
                           grad_norm=engine.get_global_grad_norm()))
     launches = read_launches(counters)
+    if undo is not None:
+        undo()
+    step_bytes = None
+    if base in MP_RUNS:
+        # a step's bytes into the collectives: the model-parallel ones by
+        # axis, the gradient reduction's (reduce-scatters and
+        # all-reduces: the loss and norm scalars are a few bytes of it)
+        grad = sum(size * count[0] for op in ("all_reduce", "reduce_scatter")
+                   for size, count in comms.comms_dict.get(op, {}).items())
+        step_bytes = dict(tensor=comms.axis_bytes.get("tensor", 0),
+                          seq=comms.axis_bytes.get("seq", 0),
+                          grad_reduction=grad)
+        step_bytes = {k: v / RANK_STEPS for k, v in step_bytes.items()}
     peak = torch.cuda.max_memory_allocated()
     state = _rank_state_bytes(engine)
     init = tree_leaves(model.init_params(0, engine.device))
@@ -9407,6 +9515,9 @@ def _rank_run(name, counters, batch, captured):
                                  "seq", "tensor"), engine.topology.shape)),
         build_s=build_s, steps=steps, peak_bytes=peak,
         state_bytes=state, probes=probes, launches=launches,
+        step_bytes=step_bytes, sp_mode=engine.module.cfg.sp_mode,
+        paths=list(engine.param_paths),
+        seq_index=engine.topology.coords["seq"],
         n_leaves=len(engine.masters),
         n_two_dim=sum(len(s) >= 2 for s in engine.param_shapes),
         buckets=(sched.stats(RANK_GAS) if sched is not None else None))
@@ -9496,7 +9607,8 @@ def ranks_worker(plan_path) -> int:
             json.dump(out, f)
         if rank == 0:
             run = out["runs"][name]
-            log(f"phase 24 rank 0: {name} {time.perf_counter() - t:.1f} s, "
+            log(f"{_rank_phase(name)} rank 0: {name} "
+                f"{time.perf_counter() - t:.1f} s, "
                 f"build {run['build_s']:.1f} s, steps "
                 f"{[round(st['ms']) for st in run['steps']]} ms")
     comm.barrier()
@@ -9538,6 +9650,10 @@ def _rank_expected(res, name, world):
     dims a step, the int8 wire 2 quantises and 2 + world dequantises a
     bucket a reduction."""
     L, mb = RANK_LAYERS, RANK_STEPS * RANK_GAS
+    if res["mesh"]["seq"] > 1 and res["sp_mode"] == "ring":
+        # the ring's blocks through the flash pair: seq rank s sees s + 1
+        # blocks under the causal mask
+        L *= res["seq_index"] + 1
     q = dq = 0
     if name == "stage3_qwz":
         q = dq = res["n_two_dim"] * RANK_STEPS
@@ -9555,10 +9671,12 @@ def _rank_checks(name, runs, ref, stage0):
     """Phase 24's checks of one run (``runs``: every rank's), and the
     readings they compare."""
     quant = name in RANK_QUANTIZED
+    base = {**RANK_FAULTS, **MP_FAULTS}.get(name, (name,))[0]
     loss_tol = RANK_QUANT_LOSS_TOL if quant else RANK_LOSS_TOL
     upd_tol = RANK_QUANT_UPDATE_TOL if quant else RANK_UPDATE_TOL
     grad_tol = RANK_QUANT_GRAD_TOL if quant else RANK_GRAD_TOL
-    dir_tol = RANK_QUANT_DIR_TOL if quant else RANK_DIR_TOL
+    dir_tol = (RANK_QUANT_DIR_TOL if quant else
+               MP_DIR_TOL if base in MP_RUNS else RANK_DIR_TOL)
     mom_tol = RANK_QUANT_MOMENT_TOL if quant else RANK_MOMENT_TOL
     v_tol = RANK_QUANT_V_TOL if quant else RANK_V_TOL
     losses = [st["loss"] for st in runs[0]["steps"]]
@@ -9567,7 +9685,9 @@ def _rank_checks(name, runs, ref, stage0):
     grad_err = max(abs(st["grad_norm"] - rs["grad_norm"]) / rs["grad_norm"]
                    for st, rs in zip(runs[0]["steps"], ref["steps"]))
     errs = _probe_errors(runs[0]["probes"], ref["probes"])
+    by_leaf = dict(zip(runs[0]["paths"], errs.pop("direction_by_leaf")))
     want = _rank_expected(runs[0], name, RANK_WORLD)
+    wants = [_rank_expected(run, name, RANK_WORLD) for run in runs]
     launches = {k: sum(run["launches"][k] for run in runs)
                 for k in runs[0]["launches"]}
     # what sees the gradient: the checks a planted fault must fail
@@ -9593,15 +9713,22 @@ def _rank_checks(name, runs, ref, stage0):
         "launches per rank": all(
             (run["launches"][k] >= v if k == "flash_fwd"
              else run["launches"][k] == v)
-            for run in runs for k, v in want.items()),
+            for run, w in zip(runs, wants) for k, v in w.items()),
         "no serving kernel": all(launches[k] == 0 for k in (
             "paged_attention", "paged_attention_int8", "rmsnorm",
             "layernorm", "fused_lion", "fused_lamb")),
     }
     state = runs[0]["state_bytes"]
     mesh = runs[0]["mesh"]
-    base = RANK_FAULTS.get(name, (name,))[0]
-    if base != "stage0":
+    if base in MP_RUNS:
+        # masters and moments: each leaf's tensor shard's ZeRO chunk
+        # (fp32, three copies), on every rank
+        checks["state the tensor-and-ZeRO share"] = all(
+            0.98 <= run["state_bytes"]["state"]
+            / run["state_bytes"]["layout"] <= 1.02 for run in runs)
+        checks["state below stage 0's"] = all(
+            run["state_bytes"]["state"] < stage0["state"] for run in runs)
+    elif base != "stage0":
         # masters and moments: one piece of fsdp x hpz (1/4; MiCS 1/2)
         shards = mesh["fsdp"] * mesh["hpz"]
         ratio = state["state"] * shards / stage0["state"]
@@ -9622,14 +9749,22 @@ def _rank_checks(name, runs, ref, stage0):
                     loss_rel_err=loss_err, grad_norm_rel_err=grad_err,
                     grad_norms=[st["grad_norm"] for st in runs[0]["steps"]],
                     ref_grad_norms=[st["grad_norm"] for st in ref["steps"]],
-                    **{f"{k}_err": v for k, v in errs.items()})
+                    **{f"{k}_err": v for k, v in errs.items()},
+                    direction_by_leaf=by_leaf)
     return checks, gradient, readings, launches, want
 
 
+def _rank_phase(name):
+    """The phase a rank run reports under: 25 for tensor and sequence
+    parallelism (MP_RUNS and their faults), else 24."""
+    base = {**RANK_FAULTS, **MP_FAULTS}.get(name, (name,))[0]
+    return "phase 25" if base in MP_RUNS else "phase 24"
+
+
 def ranks_phase(counters, card, cache_dir):
-    """Phase 24 (module docstring).  Returns {path: launches}, each run's
-    launches summed over the ranks (the planted faults of RANK_FAULTS,
-    run last, are no main path)."""
+    """Phases 24 and 25 (module docstring), in one launch of the rank
+    processes.  Returns {path: launches}, each run's launches summed over
+    the ranks (the planted faults, run last, are no main path)."""
     import tempfile
     import torch
     t0 = time.perf_counter()
@@ -9644,7 +9779,8 @@ def ranks_phase(counters, card, cache_dir):
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="ranks_",
                                dir=os.path.join(root, "build"))
-    names = list(RANK_RUNS) + list(RANK_FAULTS)
+    names = (list(RANK_RUNS) + list(MP_RUNS) + list(RANK_FAULTS)
+             + list(MP_FAULTS))
     plan = {"runs": names, "out": out_dir, "library_dir": cache_dir}
     plan_path = os.path.join(out_dir, "plan.json")
     with open(plan_path, "w") as f:
@@ -9673,6 +9809,7 @@ def ranks_phase(counters, card, cache_dir):
         checks, gradient, readings, launches, want = _rank_checks(
             name, runs, ref, stage0)
         state = runs[0]["state_bytes"]
+        phase = _rank_phase(name)
         summary = dict(
             run=name, card=card, mesh=runs[0]["mesh"], **readings,
             step_ms=[[st["ms"] for st in run["steps"]] for run in runs],
@@ -9686,19 +9823,21 @@ def ranks_phase(counters, card, cache_dir):
                     "comm_fp32_equiv_bytes_per_step", "overlap",
                     "error_feedback")}),
             bucket_check=runs[0].get("bucket_check"), checks=checks)
-        log(f"phase 24 ({name}): {json.dumps(summary)}")
-        if name in RANK_FAULTS:
+        if runs[0]["step_bytes"] is not None:
+            summary["step_bytes"] = [run["step_bytes"] for run in runs]
+        log(f"{phase} ({name}): {json.dumps(summary)}")
+        if name in RANK_FAULTS or name in MP_FAULTS:
             # a negative control: some gradient check must catch it
             if all(gradient.values()):
                 failed.append(name)
             continue
-        paths[f"ranks_{name}"] = launches
+        paths[("mp_" if phase == "phase 25" else "ranks_") + name] = launches
         if not all(checks.values()):
             failed.append(name)
     log(f"phase 24 (transport): {json.dumps(dict(card=card, ranks=RANK_WORLD, launch_s=launch_s, probe=ranks[0]['probe'], devices=[rk['device'] for rk in ranks], reference_params=ref['params']))}")
     if failed:
-        raise RuntimeError(f"phase 24 checks failed: {failed}")
-    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+        raise RuntimeError(f"phases 24-25 checks failed: {failed}")
+    log(f"phases 24-25: {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -10098,13 +10237,14 @@ def main() -> int:
     launches_by_path.update(public_api_phase(counters, card))
 
     clock("phase 23")
-    # phase 24: training across four rank processes sharing the card
-    # (gloo), every ZeRO stage, hpZ, MiCS and the int8 wire
+    # phases 24-25: training across four rank processes sharing the card
+    # (gloo): every ZeRO stage, hpZ, MiCS and the int8 wire, then tensor
+    # and sequence parallelism (Ulysses and ring)
     gc.collect()
     torch.cuda.empty_cache()
     launches_by_path.update(ranks_phase(counters, card, cache_dir))
 
-    clock("phase 24")
+    clock("phases 24-25")
     # the kernels line
     line = {"kernels": []}
     for name, rows in checks.items():

@@ -28,8 +28,9 @@ out compares leaf for leaf with the JAX engine's ``state.params``.
 
 Across ranks, :func:`to_shards` cuts the whole tree into a rank's
 pieces by the port's ``ZeroPartitioner`` (rank r's equal the sharded JAX
-array's ``addressable_shards[r]``), and :func:`from_shards` puts every
-rank's pieces back together into the whole tree.
+array's ``addressable_shards[r]``: the tensor shard's ZeRO chunk where a
+leaf is sharded over both), and :func:`from_shards` puts every rank's
+pieces back together into the whole tree.
 """
 
 from __future__ import annotations
@@ -196,15 +197,17 @@ def to_shards(tree: Dict[str, Any], partitioner, kind: str = "master"
     (a :class:`~..runtime.zero.partitioner.ZeroPartitioner` over the
     rank's topology): ``kind`` ``"master"`` cuts each leaf by
     ``master_spec`` (masters and moments), ``"param"`` by
-    ``param_spec`` (the stage-3 compute pieces).  The pieces are views;
-    rank r's equal the JAX array's ``addressable_shards[r]``."""
-    layout = (partitioner.master_layout if kind == "master"
-              else partitioner.param_layout)
+    ``param_spec`` (the stage-3 compute pieces), each from the rank's
+    tensor shard.  The pieces are views; rank r's equal the JAX array's
+    ``addressable_shards[r]``."""
+    from ..runtime.zero.partitioner import cut
+    spec = (partitioner.master_spec if kind == "master"
+            else partitioner.param_spec)
 
     def walk(node, prefix):
         if isinstance(node, dict):
             return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
-        return layout(node, prefix[:-1]).shard(node)
+        return cut(node, spec(node, prefix[:-1]), partitioner.topology)
     return walk(tree, "")
 
 
@@ -217,22 +220,30 @@ def from_shards(pieces: List[Dict[str, Any]], specs: Dict[str, Any],
     MeshTopology` of the same mesh (``groups=False`` will do); replicas
     of a piece are taken from the first rank that holds it."""
     from ..parallel.topology import MeshTopology
-    from ..runtime.zero.partitioner import layout_of
+    from ..runtime.zero.partitioner import layout_of, tensor_layout_of
+    topos = [MeshTopology(topology.config, world_size=topology.world_size,
+                          rank=r, groups=False)
+             for r in range(topology.world_size)]
 
     def walk(spec, nodes):
         if isinstance(spec, dict):
             return {k: walk(spec[k], [n[k] for n in nodes]) for k in spec}
-        chunks = {}
-        dim = None
-        for r, node in enumerate(nodes):
-            topo = MeshTopology(topology.config, world_size=topology.world_size,
-                                rank=r, groups=False)
-            lay = layout_of(spec, topo)
+        full = None
+        for node, topo in zip(nodes, topos):
             arr = (node.detach().cpu().numpy()
                    if isinstance(node, torch.Tensor) else np.asarray(node))
-            if not lay.sharded:
-                return arr
-            dim = lay.dim
-            chunks.setdefault(lay.index, arr)
-        return np.concatenate([chunks[i] for i in sorted(chunks)], axis=dim)
+            lays = [lay for lay in (tensor_layout_of(spec, topo),
+                                    layout_of(spec, topo)) if lay.sharded]
+            if full is None:
+                shape = list(arr.shape)
+                for lay in lays:
+                    shape[lay.dim] *= lay.count
+                full = np.empty(shape, arr.dtype)
+            # the piece's place: chunk index along each sharded dim
+            at = [slice(None)] * arr.ndim
+            for lay in lays:
+                n = arr.shape[lay.dim]
+                at[lay.dim] = slice(lay.index * n, (lay.index + 1) * n)
+            full[tuple(at)] = arr
+        return full
     return walk(specs, pieces)

@@ -262,37 +262,62 @@ def all_to_all(tensor: torch.Tensor, group=None, split_axis: int = 0,
     return torch.stack([r.squeeze(split_axis) for r in recv], concat_axis)
 
 
-@timed_op
-def permute(tensor: torch.Tensor, group=None,
-            perm: Sequence[tuple] = ((0, 0),)) -> torch.Tensor:
-    """Point-to-point as a permutation of ``(src, dst)`` pairs of member
-    indices; a member no pair sends to receives zeros.  Carried by an
-    all-gather (one payload a member)."""
+def _permute(tensor: torch.Tensor, group, perm: Sequence[tuple]
+             ) -> torch.Tensor:
+    import torch.distributed as dist
     n = group_size(group)
     me = axis_index(group)
     src = [s for s, d in perm if d == me]
     if n == 1:
         return _zeros_unless(bool(src), tensor)
-    if not src:
-        # every member takes part in the gather
-        all_gather.__wrapped__(tensor, group, 0, False)
-        return torch.zeros_like(tensor)
-    return all_gather.__wrapped__(tensor, group, 0, False)[src[0]]
+    if len(src) > 1 or len({s for s, _ in perm}) < len(perm):
+        raise ValueError(f"permute: {list(perm)} sends twice from or to "
+                         "one member")
+    # one all_to_all_single with uneven splits: the payload goes to the
+    # member this one sends to, and the other splits are empty
+    flat = tensor.contiguous().reshape(-1)
+    send, recv = [0] * n, [0] * n
+    for s, d in perm:
+        if s == me:
+            send[d] = flat.numel()
+    if src:
+        recv[src[0]] = flat.numel()
+    out = torch.empty(sum(recv), dtype=flat.dtype, device=flat.device)
+    dist.all_to_all_single(out, flat if any(send) else flat[:0],
+                           output_split_sizes=recv, input_split_sizes=send,
+                           group=group)
+    return out.view_as(tensor) if src else torch.zeros_like(tensor)
 
 
-def send_recv_next(tensor: torch.Tensor, group=None,
-                   axis_size: int = 1) -> torch.Tensor:
-    """Shift +1 along a ring of ``axis_size`` members (not logged, as
-    JAX's ppermute here is not)."""
-    return permute.__wrapped__(tensor, group,
-                   [(i, (i + 1) % axis_size) for i in range(axis_size)])
+@timed_op
+def permute(tensor: torch.Tensor, group=None,
+            perm: Sequence[tuple] = ((0, 0),)) -> torch.Tensor:
+    """Point-to-point as a permutation of ``(src, dst)`` pairs of member
+    indices (each member sends at most once and receives at most once);
+    a member no pair sends to receives zeros.  Each payload crosses once,
+    in one uneven ``all_to_all_single``."""
+    return _permute(tensor, group, perm)
 
 
-def send_recv_prev(tensor: torch.Tensor, group=None,
-                   axis_size: int = 1) -> torch.Tensor:
-    """Shift -1 along a ring of ``axis_size`` members (not logged)."""
-    return permute.__wrapped__(tensor, group,
-                   [(i, (i - 1) % axis_size) for i in range(axis_size)])
+def send_recv_next(tensor: torch.Tensor, group=None, axis_size: int = 1,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """Shift +1 along a ring of ``axis_size`` members.  Not logged as an
+    op, as JAX's ppermute here is not; ``axis`` names the mesh axis the
+    comms logger counts its bytes under (:func:`record_axis`)."""
+    if axis is not None:
+        record_axis(axis, tensor)
+    return _permute(tensor, group,
+                    [(i, (i + 1) % axis_size) for i in range(axis_size)])
+
+
+def send_recv_prev(tensor: torch.Tensor, group=None, axis_size: int = 1,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """Shift -1 along a ring of ``axis_size`` members (as
+    :func:`send_recv_next`)."""
+    if axis is not None:
+        record_axis(axis, tensor)
+    return _permute(tensor, group,
+                    [(i, (i - 1) % axis_size) for i in range(axis_size)])
 
 
 @timed_op
@@ -559,6 +584,13 @@ def monitored_barrier(timeout: float = 300.0) -> float:
     if dt > timeout:
         logger.info("monitored_barrier: barrier completed after %.1fs", dt)
     return dt
+
+
+def record_axis(axis: str, tensor: torch.Tensor) -> None:
+    """Count a model-parallel collective's message under its mesh axis
+    (``tensor`` or ``seq``) in the comms logger, when it is on."""
+    if _comms_logger is not None and _comms_logger.enabled:
+        _comms_logger.record_axis(axis, tensor)
 
 
 def record_bucket_plan(stats: dict) -> None:

@@ -126,7 +126,7 @@ class InferenceEngine:
         cfg = self._model.cfg
         if cfg.moe_num_experts > 0:
             raise outside_slice("the dense forward of an MoE model",
-                                "11h (pipeline, MoE, sequence parallel)")
+                                "11h (pipeline, MoE)")
         ids = torch.as_tensor(np.asarray(input_ids)).to(self.device)
         if ids.dim() == 1:
             ids = ids[None]

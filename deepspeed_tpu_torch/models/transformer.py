@@ -111,6 +111,15 @@ class TransformerConfig:
     # training only: the embedding's backward sums the [B*S, E] output
     # cotangent per id into the table gradient (runtime/sparse_tensor.py)
     sparse_gradients: bool = False
+    # training across a seq axis: "ulysses" reshards tokens -> heads
+    # around the flash kernels (two all-to-alls); "ring" keeps the tokens
+    # sharded and circulates K/V blocks (sequence/ring.py).  Wired from
+    # the engine config's sequence_parallel.mode
+    sp_mode: str = "ulysses"
+    # reference activation_checkpointing.partition_activations: the
+    # residual saved at each layer boundary is the rank's slice of its
+    # tokens over ("seq", "tensor"), gathered again when the layer re-runs
+    partition_activations: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -213,6 +222,42 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     if cfg.embed_layernorm:
         params["embed"]["norm"] = norm((e,))
     return params
+
+
+#: the JAX package's logical axis names of each leaf below a layer
+#: (``transformer.py:150-192``, ``_norm_init`` :199): the ZeRO
+#: partitioner's sharding rules map them onto mesh axes
+LAYER_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "attn/wq": ("embed", "heads", None), "attn/wk": ("embed", "kv", None),
+    "attn/wv": ("embed", "kv", None), "attn/wo": ("heads", None, "embed"),
+    "attn/bq": ("heads", None), "attn/bk": ("kv", None),
+    "attn/bv": ("kv", None), "attn/bo": ("embed",),
+    "mlp/wi": ("embed", "mlp"), "mlp/wg": ("embed", "mlp"),
+    "mlp/wo": ("mlp", "embed"), "mlp/bi": ("mlp",), "mlp/bo": ("embed",),
+    **{f"{n}/{k}": ("norm",) for n in ("norm1", "norm2")
+       for k in ("scale", "bias")},
+}
+#: the same for the leaves outside the layers; ``lm_head_bias`` is a
+#: bare leaf in JAX (no names: replicated over ``tensor``)
+TOP_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "embed/tokens": ("vocab", "embed"), "embed/positions": (None, "embed"),
+    "lm_head": ("embed", "vocab"),
+    **{f"{n}/{k}": ("norm",) for n in ("embed/norm", "final_norm")
+       for k in ("scale", "bias")},
+}
+
+
+def logical_axes(cfg: TransformerConfig, path: str
+                 ) -> Optional[Tuple[Optional[str], ...]]:
+    """The JAX logical axis names of the leaf at ``path`` (``/``-joined),
+    a stacked layer leaf's led by "layers"; None for a bare leaf."""
+    parts = path.split("/")
+    if parts[0] == "layers":
+        if cfg.scan_layers:
+            names = LAYER_AXES.get("/".join(parts[1:]))
+            return None if names is None else ("layers",) + names
+        return LAYER_AXES.get("/".join(parts[2:]))
+    return TOP_AXES.get(path)
 
 
 def keeps_fp32(path) -> bool:
@@ -332,16 +377,22 @@ def _activation(cfg: TransformerConfig, gate, up):
     return F.gelu(up, approximate="tanh")
 
 
-def _mlp_block(cfg: TransformerConfig, p, x: torch.Tensor) -> torch.Tensor:
+def _mlp_block(cfg: TransformerConfig, p, x: torch.Tensor,
+               plan=None) -> torch.Tensor:
     """``act(x @ wg) * (x @ wi)``: ``wi`` is the UP projection and ``wg``
-    the GATE (JAX ``transformer.py:162,169,282``)."""
+    the GATE (JAX ``transformer.py:162,169,282``).  Where ``plan`` (the
+    forward's :class:`_Plan`) splits the ``mlp`` columns, ``wi`` / ``wg``
+    are column-parallel and ``wo`` row-parallel over ``tensor``, its
+    output summed before the bias."""
     dtype = cfg.dtype
-    up = proj(x, _wval(p["wi"], dtype))
+    mp = plan.mp if plan is not None and plan.mlp else None
+    ws = [_wval(p["wi"], dtype)] + ([_wval(p["wg"], dtype)]
+                                    if "wg" in p else [])
+    up, *gate = _project(x, ws, mp)
     if cfg.use_bias:
         up = up + p["bi"].to(dtype)
-    gate = proj(x, _wval(p["wg"], dtype)) if "wg" in p else None
-    h = _activation(cfg, gate, up)
-    out = proj(h, _wval(p["wo"], dtype))
+    h = _activation(cfg, gate[0] if gate else None, up)
+    out = _project_out(h, _wval(p["wo"], dtype), mp)
     if cfg.use_bias:
         out = out + p["bo"].to(dtype)
     return out
@@ -572,46 +623,170 @@ def dot_product_attention(cfg: TransformerConfig, q, k, v,
     return out.reshape(b, s, hq, dd)
 
 
-def _attention_block(cfg: TransformerConfig, p, x, sin, cos, mask,
-                     use_flash: bool, attn_bias=None):
-    dtype = cfg.dtype
-    q = proj(x, _wval(p["wq"], dtype))
-    k = proj(x, _wval(p["wk"], dtype))
-    v = proj(x, _wval(p["wv"], dtype))
+# ---------------------------------------------------------------------------
+# the layout of one forward: one rank, or tensor and seq ranks (JAX
+# transformer.py:300-583, :645-770, where GSPMD inserts the collectives
+# that parallel/tensor_parallel.py writes out)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """How one forward splits over the ``tensor`` and ``seq`` ranks of
+    ``mp`` (``tensor_parallel.ONE_RANK`` splits nothing).  ``heads`` /
+    ``mlp`` / ``vocab``: whether those dims are tensor-sharded (the
+    partitioner's divisibility rule: a dim the axis does not divide
+    stays whole); ``kv_index``: the kv heads (indices into wk's K) this
+    rank's local q heads read, None for all of them; ``attn``: "flash",
+    "ring" or "einsum"; ``part``: ``partition_activations`` slices the
+    layer boundaries' tokens over ``tensor``."""
+    mp: Any
+    heads: bool
+    mlp: bool
+    vocab: bool
+    kv_index: Optional[Tuple[int, ...]]
+    attn: str
+    part: bool
+
+
+def _plan(cfg: TransformerConfig, mp, seq_len: int, pure_causal: bool
+          ) -> _Plan:
+    """The split of this forward (JAX ``_ring_ok`` :383, ``_flash_ok``
+    :401, ``_divisible_head_axes`` :429, the flash layout :330-348).  As
+    in JAX, only the dense-causal case goes to flash or the ring:
+    default positions (no packing), no padding mask, no ALiBi bias."""
+    tp, sp = mp.tp, mp.sp
+    h, k = cfg.num_heads, cfg.kv_heads
+    heads = tp > 1 and h % tp == 0
+    use_ring = cfg.sp_mode == "ring" and pure_causal and sp > 1
+    shards = sp * tp
+    use_flash = (not use_ring and cfg.attention_impl != "einsum"
+                 and pure_causal and h % shards == 0 and shards <= h)
+    if cfg.attention_impl == "flash" and not (use_flash or use_ring):
+        raise ValueError(
+            "attention_impl='flash' requires causal attention with default "
+            "positions, no attention_mask, and a mesh the head layout "
+            "divides")
+    attn = "ring" if use_ring else ("flash" if use_flash else "einsum")
+    local = h // tp if heads else h
+    first = mp.tp_index * local if heads else 0
+    # the kv heads divide the head shards: each rank reads its block of
+    # them; else K/V repeat up to the q heads before the split (JAX
+    # :336-345), and the ring lifts GQA to whole heads (:317-320)
+    kv_shards = (sp if attn == "flash" else 1) * (tp if heads else 1)
+    groups = h // k
+    kv_index = None
+    if k % kv_shards or (attn == "ring" and groups > 1):
+        kv_index = tuple(q // groups for q in range(first, first + local))
+    elif heads:
+        per = k // tp
+        kv_index = tuple(range(mp.tp_index * per, (mp.tp_index + 1) * per))
+    part = (cfg.partition_activations and tp > 1
+            and (seq_len // sp) % tp == 0)
+    return _Plan(mp, heads, tp > 1 and cfg.intermediate_size % tp == 0,
+                 tp > 1 and cfg.vocab_size % tp == 0, kv_index, attn, part)
+
+
+def _project(x: torch.Tensor, ws, mp) -> List[torch.Tensor]:
+    """``x`` by each of ``ws``: a column-parallel region's entry over
+    ``mp``'s tensor ranks (``tensor_parallel.column_parallel``), or this
+    rank's products when ``mp`` is None (the dim is whole here)."""
+    if mp is None:
+        return [proj(x, w) for w in ws]
+    from ..parallel.tensor_parallel import column_parallel
+    return column_parallel(x, ws, mp)
+
+
+def _project_out(a: torch.Tensor, w: torch.Tensor, mp,
+                 n_in: int = 1) -> torch.Tensor:
+    """``proj(a, w, n_in)``, summed over ``mp``'s tensor ranks (the
+    row-parallel exit) unless ``mp`` is None."""
+    if mp is None:
+        return proj(a, w, n_in=n_in)
+    from ..parallel.tensor_parallel import row_parallel
+    return row_parallel(a, w, mp, n_in=n_in)
+
+
+def _select_kv(w: torch.Tensor, plan: _Plan, dim: int) -> torch.Tensor:
+    """wk / wv (or their biases) for this rank's heads: the replicated
+    leaf enters the tensor region (its gradient is summed over the
+    ranks' heads), then the kv heads the rank reads are taken."""
+    if plan.kv_index is None:
+        return w
+    if plan.heads:
+        from ..parallel.tensor_parallel import copy_to_tensor
+        w = copy_to_tensor(w, plan.mp)
+    idx = torch.tensor(plan.kv_index, device=w.device)
+    return w.index_select(dim, idx)
+
+
+def _attention_block(cfg: TransformerConfig, plan: _Plan, p, x, sin, cos,
+                     mask, attn_bias):
+    """Attention with q/k/v column-parallel and ``wo`` row-parallel over
+    ``tensor`` where the heads split (``wo``'s output summed before the
+    bias), the flash kernels (with Ulysses' all-to-alls over ``seq``),
+    the ring, or the dense path as ``plan`` says."""
+    mp, dtype = plan.mp, cfg.dtype
+    tmp = mp if plan.heads else None
+    ws = (_wval(p["wq"], dtype), _select_kv(_wval(p["wk"], dtype), plan, 1),
+          _select_kv(_wval(p["wv"], dtype), plan, 1))
+    q, k, v = _project(x, ws, tmp)
     if cfg.use_bias or cfg.qkv_bias:
         q = q + p["bq"].to(dtype)
-        k = k + p["bk"].to(dtype)
-        v = v + p["bv"].to(dtype)
+        k = k + _select_kv(p["bk"].to(dtype), plan, 0)
+        v = v + _select_kv(p["bv"].to(dtype), plan, 0)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
-    if use_flash:
+    if plan.attn == "ring":
+        # tokens stay seq-sharded; K/V blocks travel the seq ring
+        from ..sequence.ring import RingAttention
+        with _attention_output():
+            out = RingAttention.apply(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                mp.sp_group, mp.sp, mp.sp_index, True,
+                1.0 / math.sqrt(q.shape[-1]), cfg.sliding_window)
+        out = out.transpose(1, 2)
+    elif plan.attn == "flash":
+        # Ulysses: tokens over seq -> heads over (seq, tensor), the flash
+        # kernels on the local heads at the whole sequence, and back
+        if mp.sp > 1:
+            from ..sequence.layer import seq_all_to_all
+            q, k, v = (seq_all_to_all(t, mp.sp_group, 2, 1)
+                       for t in (q, k, v))
         out = flash_dot_product_attention(cfg, q, k, v)
+        if mp.sp > 1:
+            out = seq_all_to_all(out, mp.sp_group, 1, 2)
     else:
+        # the dense path: this rank's queries against every key, K and V
+        # gathered over the seq ranks
+        from ..parallel.tensor_parallel import gather_from_seq
+        k, v = gather_from_seq(k, mp, 1), gather_from_seq(v, mp, 1)
         out = dot_product_attention(cfg, q, k, v, mask, attn_bias)
-    out = proj(out, _wval(p["wo"], dtype), n_in=2)
+    out = _project_out(out, _wval(p["wo"], dtype), tmp, n_in=2)
     if cfg.use_bias:
         out = out + p["bo"].to(dtype)
     return out
 
 
-def _layer_body(cfg: TransformerConfig, lp, x, sin, cos, mask,
-                use_flash: bool, attn_bias=None):
+def _layer_body(cfg: TransformerConfig, plan: _Plan, zero3, i: int, lp, x,
+                sin, cos, mask, attn_bias):
+    """Layer ``i``; under ZeRO-3 across ranks its pieces are gathered
+    first (``runtime/zero/partitioner.ParamGather``), inside the remat
+    region, so a recomputed forward gathers the layer again."""
+    if zero3 is not None:
+        lp = zero3.layer(lp, i)
+    if plan.part:
+        from ..parallel.tensor_parallel import gather_from_tensor
+        x = gather_from_tensor(x, plan.mp, 1)
     h = _norm_apply(cfg, lp["norm1"], x)
-    attn_out = _attention_block(cfg, lp["attn"], h, sin, cos, mask,
-                                use_flash, attn_bias)
+    attn_out = _attention_block(cfg, plan, lp["attn"], h, sin, cos, mask,
+                                attn_bias)
     if cfg.parallel_residual:
         h2 = _norm_apply(cfg, lp["norm2"], x)
-        return x + attn_out + _mlp_block(cfg, lp["mlp"], h2)
+        return x + attn_out + _mlp_block(cfg, lp["mlp"], h2, plan)
     x = x + attn_out
     h = _norm_apply(cfg, lp["norm2"], x)
-    return x + _mlp_block(cfg, lp["mlp"], h)
-
-
-def _gathered_layer_body(zero3, i: int, cfg: TransformerConfig, lp, *args):
-    """:func:`_layer_body` over layer ``i``'s ZeRO-3 pieces, gathered
-    first (``runtime/zero/partitioner.ParamGather``)."""
-    return _layer_body(cfg, zero3.layer(lp, i), *args)
+    return x + _mlp_block(cfg, lp["mlp"], h, plan)
 
 
 def _unbind_tree(tree, n: int) -> List[Dict[str, Any]]:
@@ -631,97 +806,125 @@ def layer_trees(cfg: TransformerConfig, params) -> List[Dict[str, Any]]:
     return [params["layers"][f"layer_{i}"] for i in range(cfg.num_layers)]
 
 
+def _gather_seq_const(x: torch.Tensor, mp) -> torch.Tensor:
+    """A non-differentiable [B, S/P] input (positions, a mask) whole."""
+    if mp.sp == 1:
+        return x
+    from ..comm import comm
+    return comm.all_gather.__wrapped__(x.contiguous(), mp.sp_group, axis=1)
+
+
 def forward(cfg: TransformerConfig, params, input_ids: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token ids [B,S] -> logits [B,S,V] in fp32 (JAX ``forward``).
-    ``positions`` [B,S] (packed sequences) and ``attention_mask`` [B,S]
-    (1 = a real token) are optional; with either, or ALiBi, attention
-    takes the dense path.  Weights are cast to ``cfg.dtype``, which is
-    also the activations' dtype."""
+    """Token ids -> fp32 logits (JAX ``forward``).  ``positions`` (packed
+    sequences) and ``attention_mask`` (1 = a real token) are optional;
+    with either, or ALiBi, attention takes the dense path.  Weights are
+    cast to ``cfg.dtype``, which is also the activations' dtype.
+
+    On one rank: ids [B,S] -> logits [B,S,V].  Inside a step whose
+    model-parallel layout splits (``tensor_parallel.
+    active_model_parallel``): this rank's tokens ``[B, S/sp]`` (seq block
+    ``mp.sp_index``) -> its vocab shard of the logits ``[B, S/sp, V/tp]``
+    (whole V where tp does not divide it).  Activations between blocks
+    are then seq-sharded and the same on every tensor rank (JAX
+    ``_constrain(x, BATCH, "seq", None)``); attention and the MLP are
+    Megatron regions (heads and ``mlp`` columns over ``tensor``); the lm
+    head is vocab-parallel."""
+    from ..parallel.tensor_parallel import (ONE_RANK, active_model_parallel,
+                                            gather_from_tensor,
+                                            split_to_tensor)
+    from ..runtime.zero.partitioner import active_param_gather
+    mp = active_model_parallel() or ONE_RANK
     policy = resolve_remat_policy(cfg.remat_policy) if cfg.remat else None
     remat = (policy is not None and policy.checkpoint
              and torch.is_grad_enabled())
-    b, s = input_ids.shape
+    b, sl = input_ids.shape
+    s = sl * mp.sp
     dev = input_ids.device
-    from ..runtime.zero.partitioner import active_param_gather
     # ZeRO-3 across ranks: params holds this rank's pieces; the leaves
     # outside the layers are gathered here, each layer's in its body
     zero3 = active_param_gather()
     if zero3 is not None:
         params = zero3.top(params)
-    # as in JAX, only the dense-causal case goes to flash: default
-    # positions (no packing), no padding mask, no ALiBi bias
     pure_causal = (cfg.causal and attention_mask is None
                    and positions is None and cfg.pos_emb != "alibi"
                    and s > 1)
-    use_flash = cfg.attention_impl != "einsum" and pure_causal
-    if cfg.attention_impl == "flash" and not use_flash:
-        raise ValueError(
-            "attention_impl='flash' requires causal attention over more "
-            "than one token with default positions and no attention_mask")
-    if use_flash:
+    plan = _plan(cfg, mp, s, pure_causal)
+    if plan.attn == "flash":
         check_flash_layout(cfg, dev)
-
+    off = mp.sp_index * sl
+    key_mask = (_gather_seq_const(attention_mask, mp)
+                if attention_mask is not None else None)
     if positions is None:
-        if cfg.pos_emb == "learned" and attention_mask is not None:
+        if cfg.pos_emb == "learned" and key_mask is not None:
             # padded batches: positions count only attended tokens (HF
             # OPTLearnedPositionalEmbedding, JAX transformer.py:672-680)
-            am = attention_mask.to(torch.int64)
+            am = key_mask.to(torch.int64)
             positions = (torch.cumsum(am, dim=-1) - 1).clamp(min=0)
+            positions = positions[:, off:off + sl]
         else:
-            positions = torch.arange(s, device=dev).expand(b, s)
+            positions = torch.arange(off, off + sl, device=dev).expand(b, sl)
     positions = positions.long()
     table = params["embed"]["tokens"].to(cfg.dtype)
+    whole = gather_from_tensor(table, mp, 0) if plan.vocab else table
     if cfg.sparse_gradients:
         from ..runtime.sparse_tensor import embedding_lookup
-        x = embedding_lookup(table, input_ids)
+        x = embedding_lookup(whole, input_ids)
     else:
-        x = table[input_ids.long()]
+        x = whole[input_ids.long()]
     if cfg.pos_emb == "learned":
         x = x + params["embed"]["positions"].to(cfg.dtype)[positions]
     if cfg.embed_layernorm:           # BLOOM word_embeddings_layernorm
         x = _norm_apply(cfg, params["embed"]["norm"], x)
 
-    # [B, S(q), S(k)], not needed by flash (the kernels mask blockwise)
-    mask = None
-    if not use_flash:
+    # [B, S/sp (q), S (k)], not needed by flash or the ring (the kernels
+    # mask blockwise)
+    mask = attn_bias = None
+    if plan.attn == "einsum":
+        kpos = _gather_seq_const(positions, mp)
         if cfg.causal:
-            mask = positions[:, :, None] >= positions[:, None, :]
+            mask = positions[:, :, None] >= kpos[:, None, :]
         else:
-            mask = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+            mask = torch.ones((b, sl, s), dtype=torch.bool, device=dev)
         if cfg.sliding_window is not None:
-            mask = mask & ((positions[:, :, None] - positions[:, None, :])
+            mask = mask & ((positions[:, :, None] - kpos[:, None, :])
                            < cfg.sliding_window)
-        if attention_mask is not None:
-            mask = mask & attention_mask[:, None, :].bool()
+        if key_mask is not None:
+            mask = mask & key_mask[:, None, :].bool()
+        if cfg.pos_emb == "alibi":
+            # ALiBi: a per-head bias on the KEY position alone (softmax is
+            # shift-invariant along a query row), [B, H, T] fp32; each
+            # rank takes its heads' slopes (BLOOM's layout under tensor)
+            slopes = torch.from_numpy(alibi_slopes(cfg.num_heads)).to(dev)
+            if plan.heads:
+                n = cfg.num_heads // mp.tp
+                slopes = slopes[mp.tp_index * n:(mp.tp_index + 1) * n]
+            attn_bias = slopes[None, :, None] * kpos[:, None, :].float()
     sin, cos = (rope_table(cfg, positions) if cfg.pos_emb == "rope"
                 else (None, None))
-    # ALiBi: a per-head bias on the KEY position alone (softmax is
-    # shift-invariant along a query row), [B, H, T] fp32
-    attn_bias = None
-    if cfg.pos_emb == "alibi":
-        slopes = torch.from_numpy(alibi_slopes(cfg.num_heads)).to(dev)
-        attn_bias = slopes[None, :, None] * positions[:, None, :].float()
     for i, lp in enumerate(layer_trees(cfg, params)):
-        if zero3 is not None:
-            # the gather runs inside the remat region: a recomputed
-            # forward gathers the layer again
-            body = functools.partial(_gathered_layer_body, zero3, i)
-        else:
-            body = _layer_body
+        if plan.part:
+            # the boundary keeps the rank's slice of its tokens
+            x = split_to_tensor(x, mp, 1)
+        body = functools.partial(_layer_body, cfg, plan, zero3, i)
         if remat:
-            x = remat_call(policy, body, cfg, lp, x, sin, cos, mask,
-                           use_flash, attn_bias)
+            x = remat_call(policy, body, lp, x, sin, cos, mask, attn_bias)
         else:
-            x = body(cfg, lp, x, sin, cos, mask, use_flash, attn_bias)
+            x = body(lp, x, sin, cos, mask, attn_bias)
     x = _norm_apply(cfg, params["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = proj(x, table.T)
-    else:
-        logits = proj(x, _wval(params["lm_head"], cfg.dtype))
+    head = table.T if cfg.tie_embeddings else _wval(params["lm_head"],
+                                                   cfg.dtype)
+    logits, = _project(x, [head], mp if plan.vocab else None)
     if "lm_head_bias" in params:     # the phi family ships one
-        logits = logits + params["lm_head_bias"].to(cfg.dtype)
+        bias = params["lm_head_bias"].to(cfg.dtype)
+        if plan.vocab:
+            # a bare leaf in JAX, replicated: each rank adds its columns
+            from ..parallel.tensor_parallel import copy_to_tensor
+            n = logits.shape[-1]
+            bias = copy_to_tensor(bias, mp)[mp.tp_index * n:
+                                            (mp.tp_index + 1) * n]
+        logits = logits + bias
     return logits.float()
 
 
@@ -758,6 +961,10 @@ class CausalLM:
                        attention_mask=batch.get("attention_mask"))
 
     def loss(self, params, batch) -> torch.Tensor:
+        from ..parallel.tensor_parallel import active_model_parallel
+        mp = active_model_parallel()
+        if mp is not None:
+            return self._loss_parallel(params, batch, mp)
         logits = self.logits(params, batch)
         mask = batch.get("attention_mask")
         if "labels" in batch:
@@ -766,3 +973,36 @@ class CausalLM:
         ids = batch["input_ids"]
         return cross_entropy_loss(logits[:, :-1], ids[:, 1:],
                                   mask[:, 1:] if mask is not None else None)
+
+    def _loss_parallel(self, params, batch, mp) -> torch.Tensor:
+        """This rank's share of the global mean token loss: its tokens'
+        summed negative log-likelihood (over the whole vocabulary from
+        its vocab shard, ``vocab_parallel_cross_entropy``) over the
+        valid-token count of its batch rows across the seq ranks, so the
+        seq ranks' shares sum to the rows' mean.  Across seq ranks the
+        engine hands in ``labels`` and ``loss_mask`` built from the whole
+        sequence (the next-token shift crosses seq shards)."""
+        from ..comm import comm
+        from ..parallel.tensor_parallel import vocab_parallel_cross_entropy
+        logits = self.logits(params, batch)
+        mask = batch.get("attention_mask")
+        if "labels" in batch:
+            labels = batch["labels"]
+            mask = batch.get("loss_mask", mask)
+        else:
+            ids = batch["input_ids"]
+            logits, labels = logits[:, :-1], ids[:, 1:]
+            mask = mask[:, 1:] if mask is not None else None
+        valid = labels >= 0
+        if mask is not None:
+            valid = valid & mask.bool()
+        n = logits.shape[-1]
+        split = n < self.cfg.vocab_size
+        nll = vocab_parallel_cross_entropy(
+            logits, labels, valid, mp.tp_group if split else None,
+            mp.tp_index * n if split else 0)
+        count = valid.sum().to(torch.float32)
+        if mp.sp > 1:
+            count = comm.all_reduce.__wrapped__(count, mp.sp_group)
+        return nll.sum() / count.clamp(min=1)
+

@@ -14,9 +14,10 @@ shard of a leaf is the JAX array's ``addressable_shards[r]``.  A group
 over several axes orders its members row-major over those axes, which is
 the order of JAX's tiled collectives over a tuple of axis names.
 
-The port's engine runs the data, fsdp and hpz axes; tensor and seq
-(ROADMAP Queue 1 items 11b / 13) and pipe and expert (11h) raise when
-they are larger than 1.  Every group the engine reduces over is made at
+The port's engine runs the data, fsdp, hpz, seq and tensor axes; pipe
+and expert (ROADMAP Queue 1 item 11h) raise when they are larger than 1.
+``tensor`` is innermost, so at ``tensor=2`` ranks 0 and 1 form a tensor
+group.  Every group the engine reduces or gathers over is made at
 construction, in one fixed order on every rank, as
 ``torch.distributed.new_group`` requires.
 """
@@ -39,16 +40,29 @@ BATCH_AXES = ("data", "expert", "fsdp", "hpz")  # batch dim of inputs
 GRAD_REDUCE_AXES = ("data", "expert", "fsdp", "hpz", "seq")  # grad psum
 
 #: axes larger than 1 that the port does not run yet, with their item
-WAITING_AXES = {"tensor": "11b / 13 (tensor parallelism)",
-                "seq": "11h (sequence parallelism)",
-                "pipe": "11h (pipeline)",
+WAITING_AXES = {"pipe": "11h (pipeline)",
                 "expert": "11h (expert parallelism)"}
 
-#: the axis sets the engine and the collective scheduler reduce over;
-#: their groups are made at construction
+#: the model-parallel axes: a leaf sharded over ``tensor`` is each rank's
+#: own leaf, and the heads and tokens of attention split over both
+MODEL_AXES = ("seq", "tensor")
+
+
+def _subsets(axes: Tuple[str, ...]) -> Tuple[Tuple[str, ...], ...]:
+    return tuple(sub for n in range(1, len(axes) + 1)
+                 for sub in itertools.combinations(axes, n))
+
+
+#: the axis sets the engine, the model and the collective scheduler
+#: reduce or gather over; their groups are made at construction: every
+#: subset of the gradient axes (a reduction over the axes a layout does
+#: not shard), each ZeRO shard group with ``tensor`` added (the norms of
+#: tensor-sharded leaves), ``tensor`` and ``seq`` with the batch axes
+#: (the loss), and the model-parallel pair
 GROUP_AXES: Tuple[Tuple[str, ...], ...] = (
-    ("data",), ("fsdp",), ("hpz",), ("fsdp", "hpz"), ("data", "fsdp"),
-    ("data", "hpz"), GRAD_REDUCE_AXES)
+    _subsets(GRAD_REDUCE_AXES)
+    + tuple(a + ("tensor",) for a in _subsets(("fsdp", "hpz")))
+    + (("tensor",), MODEL_AXES, BATCH_AXES + ("seq",)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,6 +254,19 @@ class MeshTopology:
                 f"adjust the mesh")
         per = rows // shards
         i = self.index(BATCH_AXES)
+        return slice(i * per, (i + 1) * per)
+
+    def seq_slice(self, length: int) -> slice:
+        """This rank's tokens of a sequence of ``length``: the block of
+        the sequence dimension that JAX's ``batch_spec`` shards over
+        ``seq`` (``topology.py:152-160``)."""
+        sp = self.sp_world_size
+        if length % sp:
+            raise ValueError(
+                f"sequence length {length} not divisible by the {sp} seq "
+                f"shards; pad the sequence or adjust the mesh")
+        per = length // sp
+        i = self.coords["seq"]
         return slice(i * per, (i + 1) * per)
 
     def __repr__(self) -> str:

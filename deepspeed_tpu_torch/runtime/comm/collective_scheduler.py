@@ -20,11 +20,18 @@ The engine builds the scheduler under JAX's gates (``engine.py:396-
 464``): ``comm_optimization.enabled``, or the legacy qgZ flag at stage 2
 or more (quantise on, error feedback off, overlap on); no scheduler when
 no data or fsdp axis is larger than 1, or on an hpz, expert or pipe
-mesh, each with a logged warning.  The port has no tensor or seq axis,
-so every leaf is bucketed (JAX's ``direct`` psum leaves are those over
-such axes).  The plan is static: :meth:`stats` gives the wire bytes per
-step, ``record_bucket_plan`` feeds them to the comms logger, and
-:meth:`profile_buckets` times each bucket's reduction alone.
+mesh, and on a tensor or seq mesh with ``scan_layers`` or with the qgZ
+flag alone, each with a logged warning.  On a tensor or seq mesh the
+split between bucketed and ``direct`` leaves follows JAX's plan leaf by
+leaf (``:155-160``): a leaf whose gradient spec touches ``tensor`` (a
+tensor shard, each rank's own) takes a ``direct`` exact all-reduce over
+the data and fsdp ranks every micro-batch (:meth:`reduce_direct`), and
+every other leaf rides the flat vector, whose exchange each tensor and
+seq rank runs alike within its own data-fsdp plane (the engine sums the
+seq ranks' gradients first: in JAX the seq axis is automatic inside the
+scheduler's region).  The plan is static: :meth:`stats` gives the wire
+bytes per step, ``record_bucket_plan`` feeds them to the comms logger,
+and :meth:`profile_buckets` times each bucket's reduction alone.
 """
 
 from __future__ import annotations
@@ -66,11 +73,16 @@ class Bucket:
 
 class CollectiveScheduler:
     """The bucket plan and its reduction for one engine.  ``shapes``
-    are the gradient leaves' full shapes in tree order; the reduction
-    runs over the topology's data and fsdp axes."""
+    are the gradient leaves' shapes on this rank in tree order (a tensor
+    shard's for a tensor-sharded leaf), ``direct`` the indices of the
+    leaves that take the exact direct sum, ``full_shapes`` the whole
+    leaves' (JAX's wire accounting counts those); the reduction runs
+    over the topology's data and fsdp axes."""
 
     def __init__(self, topology, comm_cfg, shapes: Sequence[Tuple[int, ...]],
-                 acc_dtype: torch.dtype = torch.float32):
+                 acc_dtype: torch.dtype = torch.float32,
+                 direct: Sequence[int] = (),
+                 full_shapes: Optional[Sequence[Tuple[int, ...]]] = None):
         self.topology = topology
         self.cfg = comm_cfg
         self.acc_dtype = acc_dtype
@@ -85,9 +97,13 @@ class CollectiveScheduler:
             raise ValueError("CollectiveScheduler needs data*fsdp > 1")
         self.group = topology.group(self.manual_axes)
         self.shapes = [tuple(s) for s in shapes]
+        self.direct_idx = sorted(direct)
+        self.bucketed_idx = [i for i in range(len(self.shapes))
+                             if i not in set(self.direct_idx)]
         self._numels = [math.prod(s) for s in self.shapes]
-        self.total_elems = sum(self._numels)
-        self.direct_elems = 0
+        self.total_elems = sum(self._numels[i] for i in self.bucketed_idx)
+        full = [tuple(s) for s in (full_shapes or shapes)]
+        self.direct_elems = sum(math.prod(full[i]) for i in self.direct_idx)
         align = self.world * self.block
         self.padded_elems = (-(-self.total_elems // align) * align
                              if self.total_elems else 0)
@@ -103,10 +119,11 @@ class CollectiveScheduler:
             start = end
         logger.info(
             "CollectiveScheduler: %d bucket(s) x <=%d elems over axes %s "
-            "(world %d), %d/%d elems quantized, overlap=%s "
-            "error_feedback=%s", len(self.buckets), per_bucket,
+            "(world %d), %d/%d elems quantized, %d direct-psum leaves, "
+            "overlap=%s error_feedback=%s", len(self.buckets), per_bucket,
             self.manual_axes, self.world,
-            self.total_elems if self.quantize else 0, self.total_elems,
+            self.total_elems if self.quantize else 0,
+            self.total_elems + self.direct_elems, len(self.direct_idx),
             self.overlap, self.error_feedback)
 
     # -- residuals (persistent error feedback) ---------------------------
@@ -121,17 +138,27 @@ class CollectiveScheduler:
     # -- the flat vector ---------------------------------------------------
     def flatten_local(self, grads: Sequence[Optional[torch.Tensor]],
                       device) -> torch.Tensor:
-        """This rank's unreduced gradients as one flat vector in the
-        accumulation dtype, zero-padded, divided by ``world`` (JAX
-        ``backward``'s ``flat / world``)."""
+        """This rank's unreduced gradients of the bucketed leaves (every
+        leaf's gradient in tree order, the direct ones skipped) as one
+        flat vector in the accumulation dtype, zero-padded, divided by
+        ``world`` (JAX ``backward``'s ``flat / world``)."""
         flat = torch.zeros(self.padded_elems, dtype=self.acc_dtype,
                            device=device)
         off = 0
-        for g, n in zip(grads, self._numels):
+        for i in self.bucketed_idx:
+            n, g = self._numels[i], grads[i]
             if g is not None:
                 flat[off:off + n].copy_(g.reshape(-1))
             off += n
         return flat.div_(self.world)
+
+    def reduce_direct(self, g: torch.Tensor) -> torch.Tensor:
+        """A direct leaf's gradient summed exactly over the data and fsdp
+        ranks, divided by ``world`` first, in the accumulation dtype (JAX
+        ``lax.psum(g / world, manual)``)."""
+        from ...comm import comm
+        return comm.all_reduce(g.to(self.acc_dtype) / self.world,
+                               self.group)
 
     def reduce(self, flat: torch.Tensor, residual: Optional[torch.Tensor],
                scale: float = 1.0) -> torch.Tensor:
@@ -163,11 +190,14 @@ class CollectiveScheduler:
                     residual[b.start:b.end].copy_(err / sc)
         return flat
 
-    def combine(self, flat: torch.Tensor) -> List[torch.Tensor]:
-        """The gradient leaves (views of ``flat``) in tree order."""
-        out, off = [], 0
-        for shape, n in zip(self.shapes, self._numels):
-            out.append(flat[off:off + n].view(shape))
+    def combine(self, flat: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        """The bucketed leaves' gradients (views of ``flat``) in tree
+        order, None at the direct leaves."""
+        out: List[Optional[torch.Tensor]] = [None] * len(self.shapes)
+        off = 0
+        for i in self.bucketed_idx:
+            n = self._numels[i]
+            out[i] = flat[off:off + n].view(self.shapes[i])
             off += n
         return out
 

@@ -62,9 +62,12 @@ accepted and the engine warns that they change nothing, as JAX's do.
 
 ZeRO across ranks: ``zero_optimization.stage`` 1-3 partition masters,
 moments, gradients and (stage 3) parameters over the ``fsdp`` axis of
-the process mesh (``tpu.mesh`` with ``data``, ``fsdp`` and ``hpz``;
-without one, every rank goes to ``fsdp`` from stage 1 and to ``data``
-at stage 0, as JAX ``_topology_from_config`` lays it out), with ZeRO++
+the process mesh (``tpu.mesh`` with ``data``, ``fsdp``, ``hpz``, ``seq``
+and ``tensor``, the last two also from ``sequence_parallel.sp_size`` and
+``tensor_parallel.tp_size`` when their sections are enabled; without a
+data or fsdp axis, every free rank goes to ``fsdp`` from stage 1 and to
+``data`` at stage 0, as JAX ``_topology_from_config`` lays it out;
+``sequence_parallel.mode`` is ``"ulysses"`` or ``"ring"``), with ZeRO++
 hpZ (``zero_hpz_partition_size``), MiCS (``mics_shard_size``), qgZ
 (``zero_quantized_gradients``) and the ``comm_optimization`` scheduler.
 At one rank the partition is the identity and stages 1-3 give stage
@@ -127,10 +130,8 @@ _OUTSIDE_SLICE = {
     "compression_training": (lambda s: any(s.values()),
                              "11e (compression)"),
     "pipeline": (lambda s: s.get("stages", 1) > 1,
-                 "11h (pipeline, MoE, sequence parallel)"),
-    "moe": (_enabled, "11h (pipeline, MoE, sequence parallel)"),
-    "sequence_parallel": (_enabled, "11h (pipeline, MoE, sequence parallel)"),
-    "tensor_parallel": (_enabled, "11b (ZeRO and model parallelism)"),
+                 "11h (pipeline, MoE)"),
+    "moe": (_enabled, "11h (pipeline, MoE)"),
 }
 
 # read by the slice
@@ -145,7 +146,8 @@ _READ = ("train_batch_size", "train_micro_batch_size_per_gpu",
          "communication_data_type", "seq_parallel_communication_data_type",
          "sparse_gradients", "dump_state", "disable_allgather",
          "comms_logger", "hybrid_engine", "elasticity", "autotuning",
-         "serving_optimization", "comm_optimization")
+         "serving_optimization", "comm_optimization", "tensor_parallel",
+         "sequence_parallel")
 
 #: keys accepted for compatibility that change nothing, with the reason
 #: logged when a config sets one (JAX ``config.py:_NOOP_KEYS``)
@@ -189,7 +191,7 @@ NOOP_KEYS = {
     ("", "disable_allgather"):
         "one rank has no parameter all-gather to disable",
     ("", "seq_parallel_communication_data_type"):
-        "one rank has no sequence-parallel collective",
+        "the sequence-parallel collectives carry the activations' dtype",
 }
 
 
@@ -286,18 +288,46 @@ MATMUL_PRECISION = {"default": "highest", "float32": "highest",
 
 
 #: ``tpu.mesh`` axes the port runs at any size; the others must be 1
-MESH_PORTED = ("data", "fsdp", "hpz")
+MESH_PORTED = ("data", "fsdp", "hpz", "seq", "tensor")
 #: the other axes, with the ROADMAP Queue 1 item that brings each
-MESH_WAITING = {"tensor": "11b / 13 (tensor parallelism)",
-                "seq": "11h (sequence parallelism)",
-                "pipe": "11h (pipeline)", "expert": "11h (experts)"}
+MESH_WAITING = {"pipe": "11h (pipeline)", "expert": "11h (experts)"}
+
+
+@dataclasses.dataclass
+class TensorParallelConfig:
+    """The ``tensor_parallel`` section (JAX ``TensorParallelConfig``,
+    ``config.py:170-173``): with ``enabled``, ``tp_size`` is the mesh's
+    ``tensor`` axis unless ``tpu.mesh`` sets it."""
+    enabled: bool = False
+    tp_size: int = 1
+
+
+#: ``sequence_parallel.mode``: Ulysses' all-to-alls or ring attention
+SP_MODES = ("ulysses", "ring")
+
+
+@dataclasses.dataclass
+class SequenceParallelConfig:
+    """The ``sequence_parallel`` section (JAX ``SequenceParallelConfig``,
+    ``config.py:175-178``): with ``enabled``, ``sp_size`` is the mesh's
+    ``seq`` axis unless ``tpu.mesh`` sets it, and ``mode`` picks the
+    attention across the seq ranks.  JAX takes any other mode as
+    Ulysses; the port refuses it, as it refuses a key it would drop."""
+    enabled: bool = False
+    sp_size: int = 1
+    mode: str = "ulysses"
+
+    def __post_init__(self):
+        if self.mode not in SP_MODES:
+            raise ValueError(f"sequence_parallel.mode {self.mode!r} is not "
+                             f"one of {SP_MODES}")
 
 
 def _tpu(section: Dict[str, Any]
          ) -> Tuple[Dict[str, Any], str, Dict[str, int]]:
     """The ``tpu`` section -> (the model keys it sets, the matmul
-    precision, the mesh).  ``mesh`` takes the data, fsdp and hpz axes;
-    another axis raises unless it is 1 or -1."""
+    precision, the mesh).  ``mesh`` takes the data, fsdp, hpz, seq and
+    tensor axes; pipe and expert raise unless they are 1 or -1."""
     section = dict(section or {})
     mesh = {k: int(v) for k, v in (section.pop("mesh", {}) or {}).items()}
     for axis, n in mesh.items():
@@ -610,7 +640,9 @@ def _section(cls, name: str, section: Optional[Dict[str, Any]]):
 
 MONITORS = ("tensorboard", "wandb", "csv_monitor", "comet")
 #: sections parsed whole into their dataclass
-SECTIONS = {"comms_logger": CommsLoggerConfig,
+SECTIONS = {"tensor_parallel": TensorParallelConfig,
+            "sequence_parallel": SequenceParallelConfig,
+            "comms_logger": CommsLoggerConfig,
             "comm_optimization": CommOptimizationConfig,
             "elasticity": ElasticityConfig,
             "autotuning": AutotuningConfig,
@@ -640,8 +672,16 @@ class TrainingConfig:
     zero_quantized_gradients: bool = False
     zero_hpz_partition_size: int = 1
     mics_shard_size: int = -1
-    #: the ``tpu.mesh`` axis sizes the config set (data, fsdp, hpz)
+    #: the ``tpu.mesh`` axis sizes the config set (data, fsdp, hpz, seq,
+    #: tensor)
     mesh: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: the tensor and sequence parallel sections (the mesh's tensor and
+    #: seq axes when ``tpu.mesh`` leaves them unset; the seq ranks'
+    #: attention)
+    tensor_parallel: TensorParallelConfig = dataclasses.field(
+        default_factory=TensorParallelConfig)
+    sequence_parallel: SequenceParallelConfig = dataclasses.field(
+        default_factory=SequenceParallelConfig)
     #: ZeRO-Offload of the optimizer (fp32 masters and moments on the
     #: host, the step in the host kernels)
     offload_optimizer: OffloadConfig = dataclasses.field(

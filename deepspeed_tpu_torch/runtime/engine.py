@@ -78,6 +78,25 @@ shards and writes the one-rank files, every rank reads them and keeps
 its shard, so a checkpoint moves between rank counts.  ZeRO-Offload
 across ranks raises (ROADMAP Queue 1 item 4).
 
+Tensor and sequence parallelism (JAX :96-120, :318-339, :415-440,
+:855-880): a transformer's leaf sharded over ``tensor`` by the
+partitioner's logical-axis rules is held as the rank's tensor shard,
+and every layout above applies inside it (the masters, moments and
+accumulators are the shard's ZeRO pieces; the whole leaf is gathered
+over ZeRO's group and then over ``tensor``).  The forward runs under
+the step's :class:`~..parallel.tensor_parallel.ModelParallel` layout
+(Megatron regions over ``tensor``; Ulysses or ring attention over
+``seq``).  A batch leaf's sequence dimension is split over ``seq``
+after the rows, and a causal LM's labels and their mask are built from
+the whole sequence first.  Gradients are summed over
+``GRAD_REDUCE_AXES``, which holds ``seq``; a leaf replicated over
+``tensor`` needs no sum there (its gradient is the same on every tensor
+rank: a region's entry sums what its heads or columns gave, and a
+replicated kv projection's gradient is summed over ``tensor`` inside
+the step).  The global norm counts a tensor-sharded leaf's squares over
+``tensor`` and a replicated leaf once; the reported loss sums the seq
+ranks' shares and averages the batch ranks'.
+
 Checkpoints (JAX :1369-1567): :meth:`save_checkpoint` /
 :meth:`load_checkpoint` write and read ``checkpoint/engine.py``'s
 ``torch.save`` files (or, with ``checkpoint.load_universal``, universal
@@ -186,7 +205,8 @@ from .fault_injection import (InjectedCollectiveFault, TransientFault,
 from .lr_schedules import LRScheduler, get_lr_schedule
 from .optimizers import get_optimizer
 from .zero.partitioner import (ParamGather, ZeroPartitioner, blocked_dims_of,
-                               gather_shard, names_leaves, scatter_sum)
+                               gather_shard, leaf_names_of, names_leaves,
+                               scatter_sum)
 
 
 def _is_float(x) -> bool:
@@ -304,24 +324,31 @@ def topology_from_config(config: TrainingConfig,
                          rank: Optional[int] = None,
                          groups: bool = True) -> MeshTopology:
     """The process mesh a config asks for (JAX ``_topology_from_config``,
-    ``engine.py:96-138``): ``tpu.mesh``'s axes, hpz from the mesh or
+    ``engine.py:96-138``): ``tpu.mesh``'s axes, seq and tensor from the
+    enabled ``sequence_parallel`` / ``tensor_parallel`` sections where
+    the mesh leaves them unset, hpz from the mesh or
     ``zero_hpz_partition_size``; without a data or fsdp axis every free
-    rank goes to ``fsdp`` from stage 1 and to ``data`` at stage 0, and
-    MiCS (stage 3) is ``data = free // mics_shard_size`` with ``fsdp =
-    mics_shard_size``.  ``groups=False`` makes no process group (the
-    layout alone, for any rank)."""
+    rank (those the fixed axes leave) goes to ``fsdp`` from stage 1 and
+    to ``data`` at stage 0, and MiCS (stage 3) is ``data = free //
+    mics_shard_size`` with ``fsdp = mics_shard_size``.  ``groups=False``
+    makes no process group (the layout alone, for any rank)."""
     from ..comm import comm
     mesh = dict(config.mesh)
     hpz = max(1, int(mesh.get("hpz", config.zero_hpz_partition_size)))
-    tcfg = TopologyConfig(data=mesh.get("data", -1),
-                          fsdp=mesh.get("fsdp", 1), hpz=hpz)
+    sp, tp = config.sequence_parallel, config.tensor_parallel
+    tcfg = TopologyConfig(
+        data=mesh.get("data", -1), fsdp=mesh.get("fsdp", 1), hpz=hpz,
+        seq=mesh.get("seq", sp.sp_size if sp.enabled else 1),
+        tensor=mesh.get("tensor", tp.tp_size if tp.enabled else 1))
     n = comm.get_world_size() if world_size is None else int(world_size)
     if "data" not in mesh and "fsdp" not in mesh:
-        if n % hpz != 0:
+        fixed = hpz * tcfg.seq * tcfg.tensor
+        if fixed == 0 or n % fixed != 0:
             raise ValueError(
-                f"mesh axes pipe=1 expert=1 hpz={hpz} seq=1 tensor=1 "
-                f"(product {hpz}) do not divide device count {n}")
-        free = n // hpz
+                f"mesh axes pipe=1 expert=1 hpz={hpz} seq={tcfg.seq} "
+                f"tensor={tcfg.tensor} (product {fixed}) do not divide "
+                f"device count {n}")
+        free = n // fixed
         mics = config.mics_shard_size
         if mics > 0 and config.zero_stage >= 3:
             if free % mics != 0:
@@ -434,15 +461,26 @@ class DeepSpeedEngine:
         self.param_paths = leaf_paths(tree)
         #: each leaf's whole shape, in tree order
         self.param_shapes = [tuple(t.shape) for t in tree_leaves(tree)]
-        #: the collective scheduler (None: exact per-leaf collectives)
-        self.comm_scheduler = self._build_comm_scheduler()
         self.partitioner = ZeroPartitioner(
             self.topology, cfg.zero_stage,
             persistence_threshold=int(self._zero(
                 "stage3_param_persistence_threshold")),
-            blocked=blocked_dims_of(model), named=names_leaves(model))
+            blocked=blocked_dims_of(model), names=leaf_names_of(model))
+        #: per leaf: this rank's tensor shard (the leaf the rest of the
+        #: engine sees: its pieces of the master, moments and compute
+        #: copy are cut from it, JAX's shard on this device)
+        self._tlayouts = [self.partitioner.tensor_layout(t, p) for p, t in
+                          zip(self.param_paths, tree_leaves(tree))]
+        #: each leaf's tensor shard's shape
+        self._local_shapes = [lay.local_shape(s) for lay, s in
+                              zip(self._tlayouts, self.param_shapes)]
+        #: the model-parallel layout a step's forward runs under (None
+        #: without a tensor or seq axis)
+        self._mp = self._model_parallel(model)
+        #: the collective scheduler (None: exact per-leaf collectives)
+        self.comm_scheduler = self._build_comm_scheduler()
         #: per leaf: this rank's piece of the master (and moments) and of
-        #: the compute copy
+        #: the compute copy, inside its tensor shard
         self._mlayouts = [self.partitioner.master_layout(t, p) for p, t in
                           zip(self.param_paths, tree_leaves(tree))]
         self._playouts = [self.partitioner.param_layout(t, p) for p, t in
@@ -469,9 +507,10 @@ class DeepSpeedEngine:
                 # the device keeps the compute-dtype copy (the offload
                 # memory win)
                 return t.detach().to(self.device, self.compute_dtype)
-            lay = self._mlayouts[self.param_paths.index(path)]
-            if lay.sharded:
-                return lay.shard(t.detach()).to(
+            i = self.param_paths.index(path)
+            lay, tlay = self._mlayouts[i], self._tlayouts[i]
+            if lay.sharded or tlay.sharded:
+                return lay.shard(tlay.shard(t.detach())).to(
                     self.device, self.master_dtype, copy=True).contiguous()
             return t.detach().to(self.device, self.master_dtype, copy=copy)
         #: the weights in the model's tree layout (across ranks: this
@@ -590,7 +629,7 @@ class DeepSpeedEngine:
         full = self.param_shapes[i]
         if not self._multi:
             return full
-        return self._mlayouts[i].local_shape(full)
+        return self._mlayouts[i].local_shape(self._local_shapes[i])
 
     def _init_ranks(self) -> None:
         """What only a run across ranks needs: the refusals of what waits
@@ -611,8 +650,8 @@ class DeepSpeedEngine:
                 "on a shard (ROADMAP Queue 1 item 4)")
         if hasattr(self.optimizer, "norm_groups"):
             self.optimizer.norm_groups = {
-                id(self._masters[i]): self.topology.group(lay.axes)
-                for i, lay in enumerate(self._mlayouts) if lay.sharded}
+                id(self._masters[i]): self.topology.group(self._shard_axes(i))
+                for i in range(len(self._masters)) if self._shard_axes(i)}
         sched = self.comm_scheduler
         #: this rank's error-feedback residuals (JAX ``comm_residuals``'
         #: row), and the step's working copy
@@ -654,6 +693,25 @@ class DeepSpeedEngine:
                 "compiler psum (their grad reduction is not a plain "
                 "batch-axes sum); scheduler disabled")
             return None
+        others = bool(topo.live_axes(("tensor", "seq")))
+        if others and getattr(getattr(self.module, "cfg", None),
+                              "scan_layers", False):
+            # JAX :421-434: its partial-auto regions miscompile a scan over
+            # layers, so it keeps the compiler psum; the port takes the
+            # same path so both reduce alike
+            logger.warning(
+                "comm_optimization: tensor/seq meshes + tpu.scan_layers "
+                "keep the compiler psum in the JAX package — set "
+                "tpu.scan_layers=false to keep the scheduler; falling back "
+                "to per-leaf collectives")
+            return None
+        if others and not cfg.comm_optimization.enabled:
+            logger.warning(
+                "zero_quantized_gradients: mesh has tensor/seq axes; "
+                "enable comm_optimization explicitly for the quantized "
+                "wire on such meshes — falling back to per-leaf "
+                "collectives")
+            return None
         comm_cfg = cfg.comm_optimization
         if not comm_cfg.enabled:
             # seed qgZ semantics: quantized per-micro-batch reduction,
@@ -662,8 +720,46 @@ class DeepSpeedEngine:
                                            error_feedback=False,
                                            overlap=True)
         from .comm.collective_scheduler import CollectiveScheduler
-        return CollectiveScheduler(topo, comm_cfg, self.param_shapes,
-                                   acc_dtype=self.acc_dtype)
+        # a tensor-sharded leaf's gradient takes the direct exact sum (JAX
+        # :155-160: its grad spec touches an auto axis)
+        direct = [i for i, lay in enumerate(self._tlayouts) if lay.sharded]
+        return CollectiveScheduler(topo, comm_cfg, self._local_shapes,
+                                   acc_dtype=self.acc_dtype, direct=direct,
+                                   full_shapes=self.param_shapes)
+
+    def _model_parallel(self, model):
+        """The forward's model-parallel layout over the tensor and seq
+        axes (None when both are 1).  The seq axis splits the tokens of
+        a transformer's batch; another model has none to split."""
+        topo = self.topology
+        if not topo.live_axes(("tensor", "seq")):
+            return None
+        from ..models.transformer import TransformerConfig
+        if topo.sp_world_size > 1 and not isinstance(
+                getattr(model, "cfg", None), TransformerConfig):
+            raise NotImplementedError(
+                f"a seq axis of {topo.sp_world_size} splits a transformer's "
+                f"tokens; {type(model).__name__} has none to split (the "
+                "port runs sequence parallelism for the transformer "
+                "family)")
+        from ..parallel.tensor_parallel import ModelParallel
+        return ModelParallel.of(topo)
+
+    def _shard_axes(self, i: int) -> Tuple[str, ...]:
+        """The axes over which leaf i's master pieces differ: its ZeRO
+        axes and ``tensor`` where it is tensor-sharded (a leaf's norm and
+        LAMB's trust ratio sum over them)."""
+        axes = self._mlayouts[i].axes if self._mlayouts[i].sharded else ()
+        if self._tlayouts[i].sharded:
+            axes = axes + ("tensor",)
+        return axes
+
+    def _whole(self, i: int, piece: torch.Tensor) -> torch.Tensor:
+        """Leaf i whole from every rank's master-shaped piece (a gather
+        over its ZeRO group, then over tensor: every rank calls it)."""
+        topo = self.topology
+        return gather_shard(gather_shard(piece, self._mlayouts[i], topo),
+                            self._tlayouts[i], topo)
 
     @torch.no_grad()
     def _compute_params_ranks(self) -> Dict[str, Any]:
@@ -683,15 +779,17 @@ class DeepSpeedEngine:
         for i, p in enumerate(self._masters):
             mlay, play = self._mlayouts[i], self._playouts[i]
             shape = self.param_shapes[i]
+            tlay = self._tlayouts[i]
             if qwz and len(shape) >= 2:
-                if self._pieces and play == mlay and _whole_blocks(
-                        mlay, shape):
+                if (self._pieces and play == mlay and not tlay.sharded
+                        and _whole_blocks(mlay, shape)):
                     c = quantize_dequantize(p.detach().float())
                 else:
-                    full = quantize_dequantize(
-                        gather_shard(p.detach().float(), mlay, topo))
+                    # the int8 grid runs over the whole leaf's flat layout
+                    full = tlay.shard(quantize_dequantize(
+                        self._whole(i, p.detach().float())))
                     c = (play.shard(full).contiguous() if self._pieces
-                         else full.to(cdt))
+                         else full.to(cdt).contiguous())
             elif not self._pieces:
                 # started now, waited for below: the gathers overlap
                 c = gather_shard(p.detach().to(cdt), mlay, topo,
@@ -743,6 +841,26 @@ class DeepSpeedEngine:
             c.grad = None
         sched = self.comm_scheduler
         if sched is not None:
+            from ..comm import comm
+            seq = self.topology.group(("seq",))
+            if seq is not None:
+                # JAX's seq axis is automatic inside the scheduler's
+                # region: the gradients it sees are summed over the seq
+                # ranks' tokens already
+                local = [(comm.all_reduce(g, seq, async_op=True)
+                          if g is not None else None) for g in local]
+                local = [g.wait() if g is not None else None for g in local]
+            for i in sched.direct_idx:
+                # a tensor shard's gradient: the exact direct sum
+                if local[i] is None:
+                    if first:
+                        self._grads[i].zero_()
+                    continue
+                piece = self._mlayouts[i].shard(sched.reduce_direct(local[i]))
+                if first:
+                    self._grads[i].copy_(piece)
+                else:
+                    self._grads[i].add_(piece)
             flat = sched.flatten_local(
                 [g.to(self.acc_dtype) if g is not None else None
                  for g in local], self.device)
@@ -758,6 +876,8 @@ class DeepSpeedEngine:
                                float(self._loss_scale))
             for i, (acc, g) in enumerate(zip(self._grads,
                                              sched.combine(red))):
+                if g is None:
+                    continue
                 piece = self._mlayouts[i].shard(g)
                 if first:
                     acc.copy_(piece)
@@ -792,7 +912,8 @@ class DeepSpeedEngine:
             return self._grads
         red = sched.reduce(self._flat_acc, self._step_residuals,
                            float(self._loss_scale))
-        return [self._mlayouts[i].shard(g).contiguous()
+        return [self._mlayouts[i].shard(g).contiguous() if g is not None
+                else self._grads[i]
                 for i, g in enumerate(sched.combine(red))]
 
     def _begin_residuals(self) -> None:
@@ -815,8 +936,8 @@ class DeepSpeedEngine:
                 [torch.linalg.vector_norm(g.float()) for g in grads]))
         from ..comm import comm
         by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
-        for g, lay in zip(grads, self._mlayouts):
-            by_axes.setdefault(lay.axes if lay.sharded else (), []).append(
+        for i, g in enumerate(grads):
+            by_axes.setdefault(self._shard_axes(i), []).append(
                 torch.linalg.vector_norm(g.float()))
         total = None
         for axes, norms in by_axes.items():
@@ -828,22 +949,42 @@ class DeepSpeedEngine:
         return total.sqrt()
 
     def _mean_over_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` averaged over the batch ranks (a loss)."""
+        """``x`` averaged over the batch ranks (a loss): each seq rank
+        holds its tokens' share of its rows' loss, so the seq ranks' are
+        summed, not averaged."""
         if not self._multi:
             return x
         from ..comm import comm
-        grp = self.topology.group(BATCH_AXES)
+        grp = self.topology.group(BATCH_AXES + ("seq",))
         if grp is None:
             return x
         return comm.all_reduce(x, grp) / self.topology.batch_shard_size
 
     def _local_rows(self, mb: Dict[str, Any]) -> Dict[str, Any]:
-        """This rank's rows of a global micro-batch."""
+        """This rank's rows of a global micro-batch, and across seq ranks
+        its block of every leaf's sequence dimension (JAX
+        ``_batch_leaf_sharding``, ``engine.py:855-868``).  The next-token
+        labels and their mask cross the seq blocks, so they are built
+        from the whole sequence first (``labels``, ``loss_mask``)."""
         if not self._multi:
             return mb
         rows = len(next(iter(mb.values())))
         sl = self.topology.batch_slice(rows)
-        return {k: x[sl] for k, x in mb.items()}
+        mb = {k: x[sl] for k, x in mb.items()}
+        if self.topology.sp_world_size == 1:
+            return mb
+        if "labels" not in mb and "input_ids" in mb:
+            ids = _as_tensor(mb["input_ids"])
+            labels = torch.full_like(ids, -1)
+            labels[:, :-1] = ids[:, 1:]
+            mb["labels"] = labels
+            if "attention_mask" in mb:
+                am = _as_tensor(mb["attention_mask"])
+                keep = torch.zeros_like(am)
+                keep[:, :-1] = am[:, 1:]
+                mb["loss_mask"] = keep
+        return {k: (x[:, self.topology.seq_slice(x.shape[1])]
+                    if np.ndim(x) >= 2 else x) for k, x in mb.items()}
 
     def _check_jax_builds(self, model: Model) -> None:
         """Refuse what the JAX engine refuses at build: its state
@@ -1069,18 +1210,21 @@ class DeepSpeedEngine:
         self._check_not_destroyed()
         params = self._compute_params()
         batch = self._to_device(batch)
-        if not self._pieces:
-            return self.module.loss(params, batch)
-        # stage 3 across ranks: the pieces, gathered where they are used
-        gather = ParamGather(self._play_by_path, self.topology,
-                             self.compute_dtype,
-                             stacked=bool(getattr(self.module.cfg,
-                                                  "scan_layers", False))
-                             if self._layerwise else False)
-        if not self._layerwise:
-            return self.module.loss(gather.tree(params), batch)
-        with gather.active():
-            return self.module.loss(params, batch)
+        from ..parallel.tensor_parallel import model_parallel
+        with model_parallel(self._mp):
+            if not self._pieces:
+                return self.module.loss(params, batch)
+            # stage 3 across ranks: the pieces, gathered where they are
+            # used
+            gather = ParamGather(self._play_by_path, self.topology,
+                                 self.compute_dtype,
+                                 stacked=bool(getattr(self.module.cfg,
+                                                      "scan_layers", False))
+                                 if self._layerwise else False)
+            if not self._layerwise:
+                return self.module.loss(gather.tree(params), batch)
+            with gather.active():
+                return self.module.loss(params, batch)
 
     __call__ = forward
 
@@ -1652,8 +1796,8 @@ class DeepSpeedEngine:
         shard: every rank calls it); ``host`` moves them to the host on
         rank 0 and gives None leaves elsewhere."""
         out = []
-        for t, lay in zip(pieces, self._mlayouts):
-            full = gather_shard(t.detach(), lay, self.topology)
+        for i, t in enumerate(pieces):
+            full = self._whole(i, t.detach())
             if host:
                 full = full.cpu() if self.topology.rank == 0 else None
             out.append(full)
@@ -1770,7 +1914,7 @@ class DeepSpeedEngine:
                 rank0 = self.topology.rank == 0
 
                 def whole(i, v):
-                    full = gather_shard(v, self._mlayouts[i], self.topology)
+                    full = self._whole(i, v)
                     return full.cpu() if rank0 else None
                 sd["state"] = {i: {
                     k: (whole(i, v) if isinstance(v, torch.Tensor)
@@ -1826,7 +1970,7 @@ class DeepSpeedEngine:
         rank's shard, a piece already of the shard's shape is kept."""
         if (self._multi and tuple(src.shape) == self.param_shapes[i]
                 and tuple(like.shape) != tuple(src.shape)):
-            return self._mlayouts[i].shard(src)
+            return self._mlayouts[i].shard(self._tlayouts[i].shard(src))
         return src
 
     def _copy_host_state(self, k: int, st: Optional[dict]) -> None:
@@ -2222,11 +2366,13 @@ class DeepSpeedEngine:
                           self.config.offload_param.device)
 
     def _apply_model_overrides(self) -> None:
-        """The ``tpu`` model keys the config set and the
-        ``activation_checkpointing`` section, onto the model's
-        :class:`TransformerConfig` (JAX ``_apply_model_overrides``).
-        ``partition_activations`` shards activations over model-parallel
-        axes, of which one rank has none: it changes nothing here."""
+        """The ``tpu`` model keys the config set, the
+        ``activation_checkpointing`` section and
+        ``sequence_parallel.mode``, onto the model's
+        :class:`TransformerConfig` (JAX ``_apply_model_overrides``,
+        ``engine.py:288-345``).  ``partition_activations`` keeps each
+        layer boundary's residual as the rank's slice of its tokens over
+        ``("seq", "tensor")`` (without those axes it changes nothing)."""
         model = self.module
         from ..models.transformer import TransformerConfig
         if not isinstance(getattr(model, "cfg", None), TransformerConfig):
@@ -2249,6 +2395,11 @@ class DeepSpeedEngine:
             overrides["remat_policy"] = CPU_CHECKPOINTING.get(
                 base, "offload_attn_out")
             overrides["remat"] = True
+        if ac.partition_activations:
+            overrides["partition_activations"] = True
+        sp = self.config.sequence_parallel
+        if sp.enabled and sp.mode != "ulysses":
+            overrides["sp_mode"] = sp.mode
         if self.config.sparse_gradients:
             # the embedding takes the sparse backward (JAX :340-343)
             overrides["sparse_gradients"] = True

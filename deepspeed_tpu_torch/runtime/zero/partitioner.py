@@ -21,13 +21,24 @@ and the engine runs the collectives itself:
 
 The port's layout of a sharded dimension is each rank's contiguous
 slice, in the order of the group over the spec's axes (row-major over
-them), which is where the JAX array keeps that rank's shard.  Without
-logical axis names on its leaves, the port takes the blocked
+them), which is where the JAX array keeps that rank's shard.  The
+port's leaves carry no boxes: a transformer's logical axis names come
+from the table beside its ``init_params`` (``models/transformer.py``
+``logical_axes``), and the sharding rules (``default_sharding_rules``
+:141, ``logical_to_mesh_spec`` :125, ``_base_spec`` :175, which drops
+an axis that does not divide its dimension) map them onto mesh axes:
+``heads``, ``mlp`` and ``vocab`` over ``tensor``.  The blocked
 dimensions (the stacked ``layers`` dimension a scan slices, JAX
-``_blocked_dims``) from the model: dim 0 of every leaf under
-``params["layers"]`` of a transformer with ``scan_layers``.  Tensor,
-expert and pipeline rules map nothing here: those axes are 1 in the
-port (``parallel/topology.py``).
+``_blocked_dims``) come from the model: dim 0 of every leaf under
+``params["layers"]`` of a transformer with ``scan_layers``.
+
+A spec may shard two dimensions of a leaf: the ``tensor`` entry of the
+base spec and the ZeRO entry ``add_fsdp_axis`` puts on another
+dimension.  The engine treats a rank's tensor shard as its own leaf
+(:func:`tensor_layout_of`) and takes ZeRO's pieces inside it over the
+other axes (:func:`layout_of` skips the ``tensor`` entry), so rank r's
+piece is the tensor chunk's ZeRO chunk: the JAX array's shard on
+device r.
 
 At stage 3 the engine hands the model shards; :class:`ParamGather`
 gathers each layer's leaves just before the layer runs (inside its
@@ -107,6 +118,45 @@ def add_fsdp_axis(spec: Spec, shape: Tuple[int, ...], fsdp_size: int,
     return tuple(entries)
 
 
+def logical_to_mesh_spec(logical_axes: Tuple[Optional[str], ...],
+                         rules: Dict[str, Any]) -> Spec:
+    """Logical names -> mesh entries by ``rules``; a mesh axis shards one
+    dimension at most (JAX ``logical_to_mesh_spec``)."""
+    entries = []
+    used: Set[str] = set()
+    for name in logical_axes:
+        axis = rules.get(name) if name is not None else None
+        if axis is not None and axis in used:
+            axis = None
+        if axis is not None:
+            used.update(axis if isinstance(axis, tuple) else (axis,))
+        entries.append(axis)
+    return tuple(entries)
+
+
+def default_sharding_rules(topology, zero_stage: int = 0) -> Dict[str, Any]:
+    """Logical axis -> mesh axis (JAX ``default_sharding_rules``): heads,
+    mlp, qkv and vocab over ``tensor`` when it is larger than 1; expert
+    and pipeline axes raise in the port before they could map."""
+    tp = "tensor" if topology.tp_world_size > 1 else None
+    return {"embed": None, "vocab": tp, "mlp": tp, "heads": tp, "kv": None,
+            "qkv": tp,
+            "expert": "expert" if topology.ep_world_size > 1 else None,
+            "layers": None,
+            "stages": "pipe" if topology.pp_world_size > 1 else None,
+            "norm": None}
+
+
+def leaf_names_of(model: Any) -> Optional[Callable[[str], Any]]:
+    """path -> the JAX logical axis names of a transformer's leaf (None
+    for another model)."""
+    from ...models.transformer import TransformerConfig, logical_axes
+    cfg = getattr(model, "cfg", None)
+    if not isinstance(cfg, TransformerConfig):
+        return None
+    return lambda path: logical_axes(cfg, path)
+
+
 def spec_repr(spec: Spec) -> str:
     """``PartitionSpec(...)`` as JAX prints it (a tuple's repr)."""
     return f"PartitionSpec{tuple(spec)!r}" if spec else "PartitionSpec()"
@@ -159,18 +209,39 @@ class ShardLayout:
         return full.narrow(self.dim, self.index * c, c)
 
 
-def layout_of(spec: Spec, topology) -> ShardLayout:
-    """The layout a spec gives this rank of ``topology``."""
+def _entry_layout(spec: Spec, topology, tensor: bool) -> ShardLayout:
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
+        if ("tensor" in axes) != tensor:
+            continue
         live = topology.live_axes(axes)
         if not live:
             return ShardLayout(None)
         return ShardLayout(dim, live, topology.size(live),
                            topology.index(live))
     return ShardLayout(None)
+
+
+def layout_of(spec: Spec, topology) -> ShardLayout:
+    """The ZeRO layout a spec gives this rank of ``topology``: its entry
+    over the data-parallel axes, cut from the rank's tensor shard (the
+    ``tensor`` entry is :func:`tensor_layout_of`'s)."""
+    return _entry_layout(spec, topology, tensor=False)
+
+
+def tensor_layout_of(spec: Spec, topology) -> ShardLayout:
+    """The ``tensor`` entry's layout: the rank's tensor shard of the
+    whole leaf, which the engine holds as the leaf."""
+    return _entry_layout(spec, topology, tensor=True)
+
+
+def cut(full: torch.Tensor, spec: Spec, topology) -> torch.Tensor:
+    """Rank's piece of the whole leaf ``full`` by ``spec``: its tensor
+    shard's ZeRO chunk (a view)."""
+    return layout_of(spec, topology).shard(
+        tensor_layout_of(spec, topology).shard(full))
 
 
 def gather_shard(shard: torch.Tensor, layout: ShardLayout, topology,
@@ -206,22 +277,38 @@ class ZeroPartitioner:
     def __init__(self, topology, stage: int,
                  persistence_threshold: int = 2 ** 12,
                  blocked: Optional[Callable[[str], Set[int]]] = None,
-                 named: bool = False):
+                 names: Optional[Callable[[str], Any]] = None):
         if stage not in (0, 1, 2, 3):
             raise ValueError(f"invalid ZeRO stage {stage}")
         self.topology = topology
         self.stage = stage
         self.persistence_threshold = persistence_threshold
         self.blocked = blocked or (lambda path: set())
-        #: the model's leaves carry logical axis names in JAX (a
-        #: transformer's): their base spec has an entry per dimension
-        self.named = named
+        #: path -> the leaf's logical axis names (``leaf_names_of``);
+        #: None: every leaf is bare
+        self.names = names
+        self.rules = default_sharding_rules(topology, stage)
 
-    def _base(self, shape: Tuple[int, ...]) -> Spec:
-        """JAX ``_base_spec``: one None per dimension of a named leaf
-        (the port maps no tensor, expert or pipeline axis), none for a
-        bare one."""
-        return (None,) * len(shape) if self.named else ()
+    def _base(self, shape: Tuple[int, ...], path: str = "") -> Spec:
+        """JAX ``_base_spec``: the rules over the leaf's logical names,
+        an entry whose axes do not divide its dimension dropped (2 kv
+        heads under ``tensor=4`` stay replicated); none for a bare
+        leaf."""
+        if self.names is None:
+            return ()
+        names = self.names(path)
+        if not names:
+            return ()
+        spec = logical_to_mesh_spec(tuple(names), self.rules)
+        out = []
+        for i, entry in enumerate(spec):
+            if entry is not None:
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                size = math.prod(self.topology.axis_size(a) for a in axes)
+                if i >= len(shape) or shape[i] % size:
+                    entry = None
+            out.append(entry)
+        return tuple(out)
 
     # -- per-leaf specs ---------------------------------------------------
     def param_spec(self, leaf: Any, path: str = "") -> Spec:
@@ -229,7 +316,7 @@ class ZeroPartitioner:
         ``hpz`` alone under hpZ (the per-layer gathers then stay inside
         the hpZ group)."""
         shape = tuple(leaf.shape)
-        spec = self._base(shape)
+        spec = self._base(shape, path)
         if self.stage >= 3:
             hpz = self.topology.hpz_world_size
             if hpz > 1:
@@ -248,7 +335,7 @@ class ZeroPartitioner:
         """The fp32 masters' and moments' spec: the full ZeRO partition
         (``fsdp`` x ``hpz`` under hpZ) from stage 1, even small leaves."""
         shape = tuple(leaf.shape)
-        spec = self._base(shape)
+        spec = self._base(shape, path)
         if self.stage >= 1:
             topo = self.topology
             hpz = topo.hpz_world_size
@@ -285,6 +372,12 @@ class ZeroPartitioner:
 
     def master_layout(self, leaf: Any, path: str = "") -> ShardLayout:
         return layout_of(self.master_spec(leaf, path), self.topology)
+
+    def tensor_layout(self, leaf: Any, path: str = "") -> ShardLayout:
+        """The leaf's tensor shard (the same in every spec: the base
+        spec's entry)."""
+        return tensor_layout_of(self._base(tuple(leaf.shape), path),
+                                self.topology)
 
     def describe(self, params: Any) -> str:
         lines = [f"ZeRO stage {self.stage} over "

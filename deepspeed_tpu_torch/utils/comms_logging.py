@@ -163,6 +163,10 @@ class CommsLogger:
         # a collective scheduler's static bucket plan (bytes on the wire,
         # fp32-equivalent bytes, per-bucket volumes)
         self.bucket_plan: Dict[str, Any] = {}
+        # mesh axis -> bytes the model-parallel collectives sent into
+        # their collectives over it (parallel/tensor_parallel.py,
+        # sequence/): "tensor" and "seq"
+        self.axis_bytes: Dict[str, int] = defaultdict(int)
 
     def append_traced(self, op_name: str, tensor: Any) -> None:
         size = get_msg_size(tensor)
@@ -170,6 +174,10 @@ class CommsLogger:
         if self.verbose:
             from .logging import logger
             logger.info("comm op: %s | msg size: %s", op_name, convert_size(size))
+
+    def record_axis(self, axis: str, tensor: Any) -> None:
+        """A model-parallel collective's message over ``axis``."""
+        self.axis_bytes[axis] += get_msg_size(tensor)
 
     def record_bucket_plan(self, stats: Dict[str, Any]) -> None:
         """Record a collective scheduler's static wire plan so
@@ -223,4 +231,5 @@ class CommsLogger:
 
     def reset(self) -> None:
         self.comms_dict.clear()
+        self.axis_bytes.clear()
         self.bucket_plan = {}

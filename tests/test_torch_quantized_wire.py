@@ -49,6 +49,7 @@ from deepspeed_tpu.utils.jax_compat import shard_map
 from deepspeed_tpu_torch.checkpoint.universal import leaf_paths
 from test_torch_comm import OPS
 from torch_rank_launch import result, run_ranks, shared_root
+from torch_rank_worker import PERMUTE_PAIRS
 
 WORLD = 4
 OUT_TOL = 1e-6
@@ -238,10 +239,11 @@ def test_each_collective_matches_jax(ranks, name):
 
 
 #: JAX calls over mesh axis "data" by name: tests/test_torch_comm.py's
-#: OPS, and three more over every member of the axis
+#: OPS, and four more over every member of the axis
 JAX_COMM = dict(
     {name: jfn for name, (jfn, _) in OPS.items()},
     ring_next=lambda x: jcomm.send_recv_next(x, "data", WORLD),
+    permute_pairs=lambda x: jcomm.permute(x, "data", PERMUTE_PAIRS),
     broadcast_from_2=lambda x: jcomm.broadcast(x, "data", 2),
     reduce_sum_to_1=lambda x: jcomm.reduce(x, "data", 1))
 

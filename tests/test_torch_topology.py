@@ -38,7 +38,7 @@ from deepspeed_tpu_torch.runtime.engine import topology_from_config
 from deepspeed_tpu_torch.runtime.zero.partitioner import (ZeroPartitioner,
                                                           blocked_dims_of,
                                                           layout_of,
-                                                          names_leaves)
+                                                          leaf_names_of)
 
 
 @pytest.fixture(autouse=True)
@@ -132,7 +132,8 @@ def test_every_leaf_spec_equals_jax(case, model, kw):
     abstract, tm = _trees(model, **kw)
     jp = JPartitioner(jt, zero["stage"], persistence_threshold=64)
     tp = ZeroPartitioner(tts[0], zero["stage"], persistence_threshold=64,
-                         blocked=blocked_dims_of(tm), named=names_leaves(tm))
+                         blocked=blocked_dims_of(tm),
+                         names=leaf_names_of(tm))
     for path, leaf in _leaves_with_paths(abstract):
         shape = np.shape(getattr(leaf, "value", leaf))
         meta_leaf = torch.empty(shape, device="meta")
@@ -155,14 +156,17 @@ def test_each_rank_piece_is_the_jax_shard():
             lay.shard(torch.from_numpy(x)).numpy(), np.asarray(shard.data))
 
 
-@pytest.mark.parametrize("axis,item", [("tensor", "11b"), ("seq", "11h"),
-                                       ("pipe", "11h"), ("expert", "11h")])
-def test_axes_outside_the_port_raise_naming_their_item(axis, item):
+@pytest.mark.parametrize("beside", [{}, {"tensor": 2, "seq": 2}])
+@pytest.mark.parametrize("axis,item", [("pipe", "11h"), ("expert", "11h")])
+def test_axes_outside_the_port_raise_naming_their_item(axis, item, beside):
+    """pipe and expert wait for item 11h, alone and beside the tensor and
+    seq axes the port runs."""
+    world = 2 * int(np.prod(list(beside.values()) or [1]))
     with pytest.raises(NotImplementedError, match=item):
-        check_ported_axes(TopologyConfig(data=1, **{axis: 2}))
+        check_ported_axes(TopologyConfig(data=1, **beside, **{axis: 2}))
     with pytest.raises(NotImplementedError, match=item):
-        MeshTopology(TopologyConfig(data=1, **{axis: 2}), world_size=2,
-                     rank=0, groups=False)
+        MeshTopology(TopologyConfig(data=1, **beside, **{axis: 2}),
+                     world_size=world, rank=0, groups=False)
 
 
 def test_mesh_config_sizes_that_do_not_divide_raise_as_jax():

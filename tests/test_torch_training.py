@@ -235,14 +235,16 @@ def test_training_lowers_the_loss_on_a_fixed_batch():
     # fp16, every optimizer name, adam_w_mode=False and pure bf16 run since
     # the one-GPU training slice (tests/test_torch_fp16.py,
     # test_torch_optimizers_all.py); the multi-rank keys since the ranks
-    # slice (below, and tests/test_torch_zero_ranks.py); what still raises:
+    # slice (below, and tests/test_torch_zero_ranks.py), tensor_parallel,
+    # sequence_parallel and the tensor and seq mesh axes since the model
+    # parallel slice (tests/test_torch_tensor_parallel.py); what still
+    # raises:
     ({"moe": {"enabled": True}}, "moe"),
-    ({"tensor_parallel": {"enabled": True}}, "tensor_parallel"),
     ({"compression_training": {"weight_quantization": {"a": 1}}},
      "compression_training"),
-    ({"sequence_parallel": {"enabled": True}}, "sequence_parallel"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"tpu": {"mesh": {"fsdp": -1, "tensor": 2}}}, "tpu.mesh"),
+    ({"tpu": {"mesh": {"fsdp": -1, "pipe": 2}}}, "tpu.mesh"),
+    ({"tpu": {"mesh": {"fsdp": -1, "expert": 2}}}, "tpu.mesh"),
 ])
 def test_options_outside_the_slice_raise(over, match):
     with pytest.raises(NotImplementedError, match=match) as err:
@@ -261,6 +263,11 @@ def test_options_outside_the_slice_raise(over, match):
     ({"tpu": {"mesh": {"data": 2}}}, "tpu.mesh"),
     ({"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
      "zero_quantized_gradients"),
+    ({"tensor_parallel": {"enabled": True}}, "tensor_parallel"),
+    ({"tensor_parallel": {"enabled": True, "tp_size": 2}}, "tp_size"),
+    ({"sequence_parallel": {"enabled": True, "sp_size": 2,
+                            "mode": "ring"}}, "sp_size"),
+    ({"tpu": {"mesh": {"fsdp": -1, "tensor": 2}}}, "tpu.mesh tensor"),
 ])
 def test_multi_rank_options_at_one_rank_as_jax(over, match):
     """The keys of several ranks at one rank do what they do to the JAX

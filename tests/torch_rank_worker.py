@@ -4,7 +4,8 @@ Started by ``deepspeed_tpu_torch.launcher.launch`` (gloo over the host),
 it joins the process group, runs every scenario of a JSON plan in order
 and writes each scenario's results to ``<out>/<name>.rank<r>.pt``.  The
 test files (``tests/test_torch_zero_ranks.py``,
-``tests/test_torch_quantized_wire.py``) write the plan and its inputs
+``tests/test_torch_quantized_wire.py``,
+``tests/test_torch_tensor_parallel.py``) write the plan and its inputs
 (numpy ``.npz`` files made from seeds or from the JAX engine's initial
 weights), launch the ranks once per file and hold what the ranks wrote
 against the JAX package in the test process.
@@ -48,6 +49,24 @@ def _model(name):
     if name == "llama":
         from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
         return LlamaForCausalLM("debug", dtype=torch.float32)
+    if name == "llama_window":
+        # the Mistral layout: GQA and a sliding window shorter than S
+        from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+        return LlamaForCausalLM("debug", dtype=torch.float32,
+                                sliding_window=12)
+    if name == "gpt":
+        from deepspeed_tpu_torch.models.gpt import GPTForCausalLM
+        return GPTForCausalLM("debug", dtype=torch.float32)
+    if name == "bloom":
+        import dataclasses
+        import types
+        from deepspeed_tpu_torch.checkpoint.hf import bloom_config_from_hf
+        from deepspeed_tpu_torch.models.transformer import CausalLM
+        return CausalLM(dataclasses.replace(bloom_config_from_hf(
+            types.SimpleNamespace(vocab_size=128, hidden_size=64, n_layer=2,
+                                  n_head=4, seq_length=64,
+                                  layer_norm_epsilon=1e-5)),
+            dtype=torch.float32))
     if name.startswith("simple"):
         from deepspeed_tpu_torch.models.base import SimpleModel
         return SimpleModel(int(name[len("simple"):]))
@@ -157,6 +176,11 @@ def wire(sc, rank):
     return out
 
 
+#: a permutation in which member 1 sends and receives nothing back and
+#: member 3 receives without sending
+PERMUTE_PAIRS = [(0, 2), (2, 0), (1, 3)]
+
+
 #: the facade's collectives over the default group, by the names of
 #: tests/test_torch_comm.py's OPS (the JAX side runs those)
 def _comm_ops():
@@ -178,9 +202,78 @@ def _comm_ops():
         "send_recv_next": lambda x: c.send_recv_next(x, None, 1),
         "send_recv_prev": lambda x: c.send_recv_prev(x, None, 1),
         "ring_next": lambda x: c.send_recv_next(x, None, 4),
+        "permute_pairs": lambda x: c.permute(x, None, PERMUTE_PAIRS),
         "broadcast_from_2": lambda x: c.broadcast(x, None, 2),
         "reduce_sum_to_1": lambda x: c.reduce(x, None, 1),
     }
+
+
+def seq_ops(sc, rank):
+    """Ring attention (causal, full, windowed; forward, backward and a
+    second call), the Ulysses sandwich around a plain local attention,
+    and the vocab-parallel cross-entropy, over the default group on this
+    rank's block of seeded inputs."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel.tensor_parallel import \
+        vocab_parallel_cross_entropy
+    from deepspeed_tpu_torch.sequence.layer import DistributedAttention
+    from deepspeed_tpu_torch.sequence.ring import ring_attention
+    x = _load_npz(sc["inputs"])
+    world = comm.get_world_size()
+
+    def block(name, dim=2):
+        """This rank's block of ``dim`` (the sequence)."""
+        n = x[name].shape[dim] // world
+        idx = [slice(None)] * x[name].ndim
+        idx[dim] = slice(rank * n, (rank + 1) * n)
+        return torch.from_numpy(np.array(x[name][tuple(idx)]))
+    out = {}
+    for case, causal, window in (("causal", True, None),
+                                 ("full", False, None),
+                                 ("window", True, int(x["window"]))):
+        runs = []
+        for _ in range(2):
+            q, k, v = (block(n).requires_grad_() for n in "qkv")
+            o = ring_attention(q, k, v, None, causal=causal, window=window)
+            (o * block("ct")).sum().backward()
+            runs.append((o.detach(), q.grad, k.grad, v.grad))
+        for name, t in zip(("out", "dq", "dk", "dv"), runs[0]):
+            out[f"{case}_{name}"] = t
+        out[f"{case}_bit_equal"] = all(
+            torch.equal(a, b) for a, b in zip(*runs))
+
+    # the convenience entry: whole q, k, v on every rank, the whole
+    # output back (seq over every rank)
+    from deepspeed_tpu_torch.parallel import MeshTopology, TopologyConfig
+    from deepspeed_tpu_torch.sequence.ring import ring_attention_sharded
+    topo = MeshTopology(TopologyConfig(data=1, seq=world))
+    out["sharded_out"] = ring_attention_sharded(
+        *(torch.from_numpy(np.array(x[n])) for n in "qkv"), topo)
+
+    def local(q, k, v):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+        n = s.shape[-1]
+        s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool).tril(),
+                          float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+    q, k, v = (block(n, 1).requires_grad_() for n in ("uq", "uk", "uv"))
+    o = DistributedAttention(local)(q, k, v)
+    (o * block("uct", 1)).sum().backward()
+    out.update(ulysses_out=o.detach(), ulysses_dq=q.grad, ulysses_dk=k.grad,
+               ulysses_dv=v.grad)
+    # the vocabulary over the ranks: columns rank*V/world on
+    nv = x["logits"].shape[-1] // world
+    logits = torch.from_numpy(np.array(
+        x["logits"][..., rank * nv:(rank + 1) * nv])).requires_grad_()
+    labels = torch.from_numpy(x["labels"])
+    valid = (labels >= 0) & torch.from_numpy(x["mask"]).bool()
+    import torch.distributed as dist
+    nll = vocab_parallel_cross_entropy(logits, labels, valid,
+                                       dist.group.WORLD, rank * nv)
+    loss = nll.sum() / valid.sum()
+    loss.backward()
+    out.update(ce_loss=loss.detach(), ce_grad=logits.grad)
+    return out
 
 
 def collectives(sc, rank):
@@ -197,7 +290,7 @@ def main():
     rank = comm.get_rank()
     for sc in plan["scenarios"]:
         try:
-            res = {"train": train, "wire": wire,
+            res = {"train": train, "wire": wire, "seq_ops": seq_ops,
                    "collectives": collectives}[sc["kind"]](sc, rank)
         except Exception:
             res = {"error": traceback.format_exc()}
